@@ -1,0 +1,372 @@
+"""Chip smoke test of the PyTorch/CUDA port (jm_tpu_torch) on one GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero):
+  1. card name and power limit; build the CUDA kernels from the sources
+     in jm_tpu_torch/kernels (into build/kernels) and time the build;
+  2. kernels: the luma (K1) and chroma (K2) deblock kernels against their
+     plain PyTorch versions on the card at 1080p, over random pictures
+     with random bS 0..4, per-MB QP 0..51, disable_deblocking_filter_idc
+     0/1/2 with several slice ids, non-zero alpha/beta offsets and 8x8
+     transform MBs; bit-exact required; CUDA-event times (median of 7
+     after warm-up) beside each kernel's bound;
+  3. encode: Encoder(...).encode_stream on the 17-frame 1080p IPPP
+     sequence (QP 28, search range 16) with the kernel launch counters
+     reset just before and read just after;
+  4. cross-check: the first two frames (IDR + P) encoded again on the
+     CPU with the plain versions must give the same payloads and
+     deblocked reconstruction;
+  5. torch.profiler over one P frame: wall and device-busy time, idle
+     share and the ops with the most device time.
+The last line of standard output is {"ok": true, "device": {...}}; the
+line before it holds the per-kernel numbers as JSON.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from jm_tpu_torch import kernels  # noqa: E402
+from jm_tpu_torch.common.tables import chroma_qp  # noqa: E402
+from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig  # noqa: E402
+from jm_tpu_torch.ops.deblock import (  # noqa: E402
+    deblock_chroma_plain, deblock_luma_plain, n_waves)
+
+W, H = 1920, 1088
+N_FRAMES = 17
+QP = 28
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate
+# integer operations of one filtered edge line, read off the filter
+# formulas (deblock.cu luma_line / chroma_line, normal and strong paths)
+LUMA_LINE_OPS = 60
+CHROMA_LINE_OPS = 25
+
+
+def make_sequence():
+    """The 1080p sequence of bench.py: low-pass filtered noise with global
+    motion (deterministic)."""
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 256, (H + 96, W + 96)).astype(np.float32)
+    k = np.ones(9) / 9
+    base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, base)
+    base = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, base)
+    base = np.clip(base * 1.8, 0, 255).astype(np.uint8)
+    frames = []
+    for i in range(N_FRAMES):
+        Y = base[3 * i:3 * i + H, 2 * i:2 * i + W].copy()
+        frames.append((Y, Y[::2, ::2].copy(), Y[1::2, ::2].copy()))
+    return frames
+
+
+def cuda_ms(fn, reps: int = 7) -> float:
+    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def deblock_case(rng, mb_w: int, mb_h: int, variant: str):
+    """Random picture + per-MB deblock parameters on the card."""
+    n = mb_w * mb_h
+    dev = "cuda"
+    Y = rng.integers(0, 256, (16 * mb_h, 16 * mb_w), np.uint8)
+    U = rng.integers(0, 256, (8 * mb_h, 8 * mb_w), np.uint8)
+    V = rng.integers(0, 256, (8 * mb_h, 8 * mb_w), np.uint8)
+    # low-amplitude content over the top three quarters, so the filter
+    # thresholds pass and the normal and strong filters both run
+    for P in (Y, U, V):
+        r = 3 * P.shape[0] // 4
+        P[:r] = (P[:r] // 20) + 100
+    bs_v = rng.integers(0, 5, (4 * mb_h, 4 * mb_w)).astype(np.int8)
+    bs_h = rng.integers(0, 5, (4 * mb_h, 4 * mb_w)).astype(np.int8)
+    bs_v[:, 0] = 0
+    bs_h[0, :] = 0
+    qp = rng.integers(0, 52, n).astype(np.int32)
+    if variant == "mixed":
+        disable = rng.integers(0, 3, n).astype(np.int32)
+        sid = (np.arange(n) * 3 // n).astype(np.int32)       # 3 slices
+        a_off = rng.integers(-6, 7, n).astype(np.int32)
+        b_off = rng.integers(-6, 7, n).astype(np.int32)
+        t8 = (rng.random(n) < 0.3).astype(np.int32)
+    elif variant == "disable2":
+        disable = np.full(n, 2, np.int32)
+        sid = (np.arange(n) // (n // 4 + 1)).astype(np.int32)  # 4 slices
+        a_off = np.full(n, 3, np.int32)
+        b_off = np.full(n, -2, np.int32)
+        t8 = np.zeros(n, np.int32)
+    else:                                       # plain: disable 0, no offs
+        disable = np.zeros(n, np.int32)
+        sid = np.zeros(n, np.int32)
+        a_off = np.zeros(n, np.int32)
+        b_off = np.zeros(n, np.int32)
+        t8 = np.zeros(n, np.int32)
+    qpc_cb = np.array([chroma_qp(q, -2) for q in range(52)], np.int32)
+    qpc_cr = np.array([chroma_qp(q, 3) for q in range(52)], np.int32)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    per_mb = tuple(t(a) for a in (qp, disable, a_off, b_off, sid, t8))
+    return (t(Y), t(U), t(V), t(bs_v), t(bs_h), per_mb, t(qpc_cb), t(qpc_cr))
+
+
+def filtered_lines(bs_v, bs_h, per_mb, mb_w: int, mb_h: int):
+    """(luma, chroma) filter lines these inputs switch on: bS > 0 and the
+    edge enabled (disable != 1; left / top MB edges off at the picture
+    border, or across slices with disable 2; 8x8-transform inner edges)."""
+    qp, dis, _ao, _bo, sid, t8 = (a.reshape(mb_h, mb_w) for a in per_mb)
+    on = dis != 1
+    sid_l = torch.cat([sid[:, :1], sid[:, :-1]], 1)
+    sid_t = torch.cat([sid[:1], sid[:-1]], 0)
+    col = torch.arange(mb_w, device=qp.device)[None]
+    row = torch.arange(mb_h, device=qp.device)[:, None]
+    left = on & (col > 0) & ~((dis == 2) & (sid_l != sid))
+    top = on & (row > 0) & ~((dis == 2) & (sid_t != sid))
+    inner = on & (t8 == 0)
+
+    def edges(bs, first, axis):
+        b = (bs > 0).reshape(mb_h, 4, mb_w, 4).permute(0, 2, 1, 3)
+        e = b if axis == 1 else b.transpose(2, 3)      # [mb, line blk, edge]
+        en = torch.stack([first, inner, on, inner], -1)[:, :, None, :]
+        return e & en
+
+    ev = edges(bs_v, left, 1)
+    eh = edges(bs_h, top, 0)
+    luma = 4 * int(ev.sum() + eh.sum())
+    chroma = 2 * 2 * int(ev[..., 0::2].sum() + eh[..., 0::2].sum())
+    return luma, chroma
+
+
+class IdrTimedEncoder(Encoder):
+    """The port's Encoder with the wall time of its IDR frames summed in
+    idr_seconds (an IDR ends in host downloads, so it ends synchronized;
+    the timer synchronizes at its start)."""
+
+    idr_seconds = 0.0
+
+    def _encode_idr(self, *planes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return super()._encode_idr(*planes)
+        finally:
+            self.idr_seconds += time.perf_counter() - t0
+
+
+def profile_p_frame(enc, frame, cfg):
+    """torch.profiler over one P frame (p_frame_rd_pipe against the
+    encoder's last reference): wall time, device busy time, idle share,
+    and the ops with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jm_tpu_torch.encoder.encoder import lambda_me, lambda_mode4
+    from jm_tpu_torch.ops.enc import p_frame_rd_pipe
+    packed = enc._upload(frame)
+
+    def one():
+        out, _ = p_frame_rd_pipe(
+            packed, *enc.ref_state, cfg.qp, enc.qpc, lambda_me(cfg.qp),
+            lambda_mode4(cfg.qp), enc.qpc_cb, enc.qpc_cr, mb_w=enc.mb_w,
+            mb_h=enc.mb_h, sr=cfg.search_range, max_words=enc.max_words)
+        return out["words_ext"].cpu()
+
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events are the kernels and copies themselves (the
+    # aten ops that launched them carry the same time again)
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    busy_ms = sum(dev_us(e) for e in evs) / 1e3
+    n_launch = sum(e.count for e in evs)
+    print(f"P frame profile: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{n_launch} device ops", flush=True)
+    for e in sorted(evs, key=dev_us, reverse=True)[:10]:
+        print(f"  {dev_us(e) / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}",
+              flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 1. build ----------------------------------------------------
+    kernels.load()
+    print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
+
+    # ---- 2. kernels against their plain versions ------------------------
+    mb_w, mb_h = W // 16, H // 16
+    nw = n_waves(mb_w, mb_h)
+    rng = np.random.default_rng(1)
+    kstats = {}
+    max_err = {"deblock_luma": 0, "deblock_chroma": 0}
+    for variant in ("mixed", "disable2", "plain"):
+        Y, U, V, bs_v, bs_h, per_mb, cb, cr = deblock_case(
+            rng, mb_w, mb_h, variant)
+        args = (bs_v, bs_h, *per_mb)
+        ky = kernels.deblock_luma(Y, *args, mb_w=mb_w, mb_h=mb_h)
+        ku, kv = kernels.deblock_chroma(U, V, *args, cb, cr,
+                                        mb_w=mb_w, mb_h=mb_h)
+        py = deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)
+        pu, pv = deblock_chroma_plain(U, V, *args, cb, cr,
+                                      mb_w=mb_w, mb_h=mb_h)
+        torch.cuda.synchronize()
+        err_y = int((ky.int() - py.int()).abs().max())
+        err_c = max(int((ku.int() - pu.int()).abs().max()),
+                    int((kv.int() - pv.int()).abs().max()))
+        changed = (int((ky != Y).sum()), int((ku != U).sum())
+                   + int((kv != V).sum()))
+        print(f"deblock {variant}: luma max|err| {err_y}, chroma max|err| "
+              f"{err_c}, samples changed (luma, chroma) {changed}",
+              flush=True)
+        max_err["deblock_luma"] = max(max_err["deblock_luma"], err_y)
+        max_err["deblock_chroma"] = max(max_err["deblock_chroma"], err_c)
+        if err_y or err_c:
+            raise AssertionError(f"deblock kernels differ from the plain "
+                                 f"version ({variant})")
+        if min(changed) == 0:
+            raise AssertionError(f"deblock {variant}: a plane unfiltered")
+        if variant != "mixed":
+            continue
+        lines_y, lines_c = filtered_lines(bs_v, bs_h, per_mb, mb_w, mb_h)
+        n = mb_w * mb_h
+        param_bytes = 6 * 4 * n + 2 * bs_v.numel()
+        bytes_y = 2 * Y.numel() + param_bytes
+        bytes_c = 2 * (U.numel() + V.numel()) + param_bytes + 2 * 52 * 4
+        for name, b, ops, kfn, pfn in (
+                ("deblock_luma", bytes_y, LUMA_LINE_OPS * lines_y,
+                 lambda: kernels.deblock_luma(Y, *args, mb_w=mb_w,
+                                              mb_h=mb_h),
+                 lambda: deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)),
+                ("deblock_chroma", bytes_c, CHROMA_LINE_OPS * lines_c,
+                 lambda: kernels.deblock_chroma(U, V, *args, cb, cr,
+                                                mb_w=mb_w, mb_h=mb_h),
+                 lambda: deblock_chroma_plain(U, V, *args, cb, cr,
+                                              mb_w=mb_w, mb_h=mb_h))):
+            t_bytes = b / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / INT_OPS_PER_S * 1e3
+            kstats[name] = {
+                "ms": cuda_ms(kfn), "plain_ms": cuda_ms(pfn),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": b, "ops": ops}
+        # the wave chain alone: the same launches with every bS zero, so
+        # each CTA only reads its parameters and returns
+        zbs = torch.zeros_like(bs_v)
+        chain_ms = cuda_ms(lambda: kernels.deblock_luma(
+            Y, zbs, zbs, *per_mb, mb_w=mb_w, mb_h=mb_h))
+    for name, s in kstats.items():
+        print(f"{name}: {s['ms']:.3f} ms (plain {s['plain_ms']:.1f} ms), "
+              f"bound {s['bound_ms'] * 1e3:.2f} us ({s['bound_by']}: "
+              f"{s['bytes']} B, {s['ops']} int ops), {nw} launches/frame",
+              flush=True)
+    print(f"wave chain with no filtering (luma, all bS 0): {chain_ms:.3f} ms"
+          f" = {chain_ms / nw * 1e3:.2f} us per wave", flush=True)
+
+    # ---- 3. encode -----------------------------------------------------
+    frames = make_sequence()
+    cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                        device_rd=True)
+    Encoder(cfg, device="cuda").encode_stream(frames[:2])      # warm-up
+    torch.cuda.synchronize()
+    enc = IdrTimedEncoder(cfg, device="cuda")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    payloads = enc.encode_stream(frames)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    idr_s = enc.idr_seconds
+    n_p = N_FRAMES - 1
+    p_ms = (total_s - idr_s) / n_p * 1e3
+    types = "".join(r["type"] for r in enc.results)
+    print(f"encode 1080p {types}: {N_FRAMES / total_s:.2f} frames/s, "
+          f"{total_s * 1e3 / N_FRAMES:.1f} ms/frame (IDR {idr_s * 1e3:.1f} "
+          f"ms, P {p_ms:.1f} ms avg), {sum(map(len, payloads))} stream "
+          f"bytes, launches {launches}", flush=True)
+    if len(payloads) != N_FRAMES or not payloads[0].startswith(
+            b"\x00\x00\x00\x01\x67"):
+        raise AssertionError("stream does not start with an SPS")
+    for name, cnt in launches.items():
+        if cnt != N_FRAMES * nw:
+            raise AssertionError(f"{name}: {cnt} launches, expected "
+                                 f"{N_FRAMES} frames x {nw} waves")
+        kstats[name]["launches"] = cnt
+
+    # ---- 4. CPU cross-check (IDR + P) ------------------------------------
+    t0 = time.perf_counter()
+    cpu = Encoder(cfg, device="cpu")
+    cpu_payloads = cpu.encode_stream(frames[:2])
+    for i in range(2):
+        if cpu_payloads[i] != payloads[i]:
+            raise AssertionError(f"frame {i}: CPU and CUDA payloads differ")
+        a, b = cpu.results[i]["frame"], enc.results[i]["frame"]
+        for plane in "YUV":
+            if not np.array_equal(getattr(a, plane), getattr(b, plane)):
+                raise AssertionError(f"frame {i} {plane}: recon differs")
+    print(f"cross-check: CPU IDR + P payloads and recon equal the CUDA run "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # ---- 5. where one P frame's time goes ----------------------------
+    profile_p_frame(enc, frames[-1], cfg)
+
+    rows = []
+    for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):
+        s = kstats[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "jm_tpu_torch/kernels/deblock.cu",
+            "replaces": f"jm_tpu/ops/deblock_pallas.py:{line}",
+            "launches": s["launches"], "max_abs_err": max_err[name],
+            "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+            "library_ms": None})
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""Picture-wide macroblock state (SoA) shared by the encoder's decision
+stages and the CAVLC serializer, with the MB class codes and the
+coded_block_pattern table (spec Table 9-4)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+# spec Table 9-4: coded_block_pattern mapping, codeNum -> (intra, inter)
+# ChromaArrayType 1/2 (48 entries)
+CBP_MAP_CHROMA = np.array([
+    (47, 0), (31, 16), (15, 1), (0, 2), (23, 4), (27, 8), (29, 32), (30, 3),
+    (7, 5), (11, 10), (13, 12), (14, 15), (39, 47), (43, 7), (45, 11), (46, 13),
+    (16, 14), (3, 6), (5, 9), (10, 31), (12, 35), (19, 37), (21, 42), (26, 44),
+    (28, 33), (35, 34), (37, 36), (42, 40), (44, 39), (1, 43), (2, 45), (4, 46),
+    (8, 17), (17, 18), (18, 20), (20, 24), (24, 19), (6, 21), (9, 26), (22, 28),
+    (25, 23), (32, 27), (33, 29), (34, 30), (36, 22), (40, 25), (38, 38),
+    (41, 41),
+], dtype=np.int32)
+
+# MB-type classes
+MB_INTER = 0
+MB_I4 = 1
+MB_I16 = 2
+
+
+@dataclass
+class PictureData:
+    """Per-picture macroblock state (SoA) of a 4:2:0 frame, filled by the
+    encoder's decisions and read by the serializer (encoder/syntax.py)."""
+    mb_w: int
+    mb_h: int
+
+    def __post_init__(self) -> None:
+        n = self.mb_w * self.mb_h
+        self.n_mbs = n
+        self.n_crows = 2                           # chroma 4x4-block rows
+        self.mb_class = np.zeros(n, np.int8)            # MB_* class
+        self.skip = np.zeros(n, bool)
+        self.i4_modes = np.full((n, 16), -1, np.int8)   # raster block order
+        self.i16_mode = np.full(n, -1, np.int8)
+        self.chroma_mode = np.zeros(n, np.int8)
+        self.cbp = np.zeros(n, np.int32)
+        self.qp = np.zeros(n, np.int32)                 # absolute luma QP
+        self.slice_id = np.full(n, -1, np.int32)
+        # residuals in scan order
+        self.luma_coef = np.zeros((n, 16, 16), np.int32)   # [mb][raster blk][scan]
+        self.luma_dc = np.zeros((n, 16), np.int32)         # i16 DC, zigzag scan
+        self.chroma_dc = np.zeros((n, 2, 4), np.int32)
+        self.chroma_coef = np.zeros((n, 2, 4, 16), np.int32)
+        # nnz per 4x4 block (raster in MB), for nC prediction
+        self.luma_nnz = np.zeros((n, 16), np.int32)
+        self.chroma_nnz = np.zeros((n, 2, 4), np.int32)
+        # motion: quarter-pel MVs per 4x4 raster block, refs per 8x8
+        self.mv = np.zeros((n, 16, 2), np.int32)
+        self.ref_idx = np.full((n, 4), -1, np.int8)        # -1 intra
+        self.mv_l1 = np.zeros((n, 16, 2), np.int32)
+        self.ref_idx_l1 = np.full((n, 4), -1, np.int8)
+        self.sub_mode = np.zeros((n, 4), np.int8)          # P8x8 sub-partition
+        self.inter_mode = np.full(n, -1, np.int8)          # P mb_type 0..3

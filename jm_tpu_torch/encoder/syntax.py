@@ -1,0 +1,271 @@
+"""Bitstream syntax writers for the encoder's slice: SPS/PPS (spec
+7.3.2), the I/P frame slice header (7.3.3) and the CAVLC macroblock layer
+(7.3.5) serialized from PictureData.
+
+Covers what the IPPP CAVLC 4:2:0 single-slice encoder emits: Baseline
+SPS/PPS without VUI, scaling lists or FMO; I_NxN / I_16x16 macroblocks;
+P macroblocks with 16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks
+only) and one reference. Serialization is a pure function of the decided
+PictureData (lencod/src/macroblock.c write_{i,p}_slice_MB_layer order).
+"""
+
+from __future__ import annotations
+
+from ..bitstream.bitwriter import BitWriter
+from ..common.picture import CBP_MAP_CHROMA
+from ..common.predict_ctx import CODE2RASTER, PredCtx
+from ..common.types import SliceType
+from .cavlc_write import write_residual_block
+
+# inverse of spec Table 9-4: cbp -> codeNum
+CBP_INV_CHROMA_INTRA = {int(cbp): i for i, (cbp, _) in enumerate(CBP_MAP_CHROMA)}
+CBP_INV_CHROMA_INTER = {int(cbp): i for i, (_, cbp) in enumerate(CBP_MAP_CHROMA)}
+
+
+def write_sps(sps) -> bytes:
+    """Seq_parameter_set_rbsp for a frame-coded Baseline stream with POC
+    type 0 and no VUI (lencod parset.c GenerateSeq_parameter_set_rbsp)."""
+    if sps.profile_idc in (100, 110, 122, 244, 44, 118, 128) \
+            or sps.pic_order_cnt_type != 0 or not sps.frame_mbs_only_flag:
+        raise ValueError("write_sps covers Baseline frame coding with "
+                         "pic_order_cnt_type 0")
+    bw = BitWriter()
+    bw.u(sps.profile_idc, 8)
+    bw.u(sps.constraint_set_flags, 8)
+    bw.u(sps.level_idc, 8)
+    bw.ue(sps.seq_parameter_set_id)
+    bw.ue(sps.log2_max_frame_num_minus4)
+    bw.ue(sps.pic_order_cnt_type)
+    bw.ue(sps.log2_max_pic_order_cnt_lsb_minus4)
+    bw.ue(sps.max_num_ref_frames)
+    bw.flag(sps.gaps_in_frame_num_value_allowed_flag)
+    bw.ue(sps.pic_width_in_mbs_minus1)
+    bw.ue(sps.pic_height_in_map_units_minus1)
+    bw.flag(sps.frame_mbs_only_flag)
+    bw.flag(sps.direct_8x8_inference_flag)
+    bw.flag(sps.frame_cropping_flag)
+    if sps.frame_cropping_flag:
+        bw.ue(sps.frame_crop_left_offset)
+        bw.ue(sps.frame_crop_right_offset)
+        bw.ue(sps.frame_crop_top_offset)
+        bw.ue(sps.frame_crop_bottom_offset)
+    bw.flag(0)                                 # vui_parameters_present
+    bw.rbsp_trailing_bits()
+    return bw.get_bytes()
+
+
+def write_pps(pps) -> bytes:
+    """Pic_parameter_set_rbsp with one slice group and no FRExt
+    extension (lencod parset.c GeneratePic_parameter_set_rbsp)."""
+    if pps.num_slice_groups_minus1 or pps.transform_8x8_mode_flag:
+        raise ValueError("write_pps covers one slice group, 4x4 transform")
+    bw = BitWriter()
+    bw.ue(pps.pic_parameter_set_id)
+    bw.ue(pps.seq_parameter_set_id)
+    bw.flag(pps.entropy_coding_mode_flag)
+    bw.flag(pps.bottom_field_pic_order_in_frame_present_flag)
+    bw.ue(pps.num_slice_groups_minus1)
+    bw.ue(pps.num_ref_idx_l0_default_active_minus1)
+    bw.ue(pps.num_ref_idx_l1_default_active_minus1)
+    bw.flag(pps.weighted_pred_flag)
+    bw.u(pps.weighted_bipred_idc, 2)
+    bw.se(pps.pic_init_qp_minus26)
+    bw.se(pps.pic_init_qs_minus26)
+    bw.se(pps.chroma_qp_index_offset)
+    bw.flag(pps.deblocking_filter_control_present_flag)
+    bw.flag(pps.constrained_intra_pred_flag)
+    bw.flag(pps.redundant_pic_cnt_present_flag)
+    bw.rbsp_trailing_bits()
+    return bw.get_bytes()
+
+
+def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
+                       frame_num: int, idr: bool, idr_pic_id: int = 0,
+                       qp: int, first_mb: int = 0, poc_lsb: int = 0,
+                       num_ref_idx_l0: int = 1) -> None:
+    """Spec 7.3.3 slice header of an I or P frame-picture reference slice
+    with sliding-window marking (lencod/src/header.c:116 SliceHeader)."""
+    bw.ue(first_mb)
+    bw.ue(int(slice_type) + 5)      # all slices in picture share the type
+    bw.ue(pps.pic_parameter_set_id)
+    bw.u(frame_num, sps.log2_max_frame_num_minus4 + 4)
+    if idr:
+        bw.ue(idr_pic_id)
+    bw.u(poc_lsb, sps.log2_max_pic_order_cnt_lsb_minus4 + 4)
+    if slice_type == SliceType.P:
+        override = ((num_ref_idx_l0 - 1) !=
+                    pps.num_ref_idx_l0_default_active_minus1)
+        bw.flag(1 if override else 0)
+        if override:
+            bw.ue(num_ref_idx_l0 - 1)
+        bw.flag(0)                  # ref_pic_list_modification_flag_l0
+    if idr:
+        bw.flag(0)                  # no_output_of_prior_pics
+        bw.flag(0)                  # long_term_reference_flag
+    else:
+        bw.flag(0)                  # adaptive_ref_pic_marking_mode_flag
+    bw.se(qp - 26 - pps.pic_init_qp_minus26)
+    if pps.deblocking_filter_control_present_flag:
+        # the encoder only raises the control flag to switch the loop
+        # filter OFF (LoopFilterDisable; lencod header.c DeblockFilter)
+        bw.ue(1)
+
+
+class MBWriter:
+    """Serializes decided macroblocks of one slice in raster order."""
+
+    # P partitions per mb_type: (bx, by, bw, bh) in 4x4-block units
+    PARTS = {0: [(0, 0, 4, 4)],
+             1: [(0, 0, 4, 2), (0, 2, 4, 2)],
+             2: [(0, 0, 2, 4), (2, 0, 2, 4)],
+             3: [(0, 0, 2, 2), (2, 0, 2, 2), (0, 2, 2, 2), (2, 2, 2, 2)]}
+
+    def __init__(self, bw: BitWriter, pic, sps, pps, slice_qp: int):
+        self.bw = bw
+        self.pic = pic
+        self.sps = sps
+        self.pps = pps
+        self.pctx = PredCtx(pic)
+        self.qp = slice_qp          # running QP for delta coding
+        self.skip_run = 0
+
+    # ---- residual ---------------------------------------------------------
+
+    def _write_luma_residual(self, addr: int, cbp: int, is_i16: bool) -> None:
+        pic, bw = self.pic, self.bw
+        if is_i16:
+            nc = self.pctx.nc_luma(addr, 0)
+            write_residual_block(bw, pic.luma_dc[addr], nc, 16)
+        for blk8 in range(4):
+            if not (cbp & (1 << blk8)):
+                continue
+            for sub in range(4):
+                blk = int(CODE2RASTER[blk8 * 4 + sub])
+                nc = self.pctx.nc_luma(addr, blk)
+                if is_i16:
+                    write_residual_block(bw, pic.luma_coef[addr, blk, 1:], nc, 15)
+                else:
+                    write_residual_block(bw, pic.luma_coef[addr, blk], nc, 16)
+
+    def _write_chroma_residual(self, addr: int, cbp: int) -> None:
+        pic, bw = self.pic, self.bw
+        cbp_chroma = cbp >> 4
+        if cbp_chroma & 3:
+            for comp in range(2):
+                write_residual_block(bw, pic.chroma_dc[addr, comp], -1, 4)
+        if cbp_chroma & 2:
+            for comp in range(2):
+                for blk in range(4):
+                    nc = self.pctx.nc_chroma(addr, comp, blk)
+                    write_residual_block(
+                        bw, pic.chroma_coef[addr, comp, blk, 1:], nc, 15)
+
+    def _write_qp_delta(self, addr: int) -> None:
+        dq = int(self.pic.qp[addr]) - self.qp
+        if dq > 25:
+            dq -= 52
+        elif dq < -26:
+            dq += 52
+        self.bw.se(dq)
+        self.qp = int(self.pic.qp[addr])
+
+    # ---- intra ------------------------------------------------------------
+
+    def _write_intra_mb(self, addr: int, p_slice: bool) -> None:
+        pic, bw = self.pic, self.bw
+        base = 5 if p_slice else 0
+        if pic.mb_class[addr] == 1:          # I_NxN (4x4)
+            bw.ue(base + 0)
+            for code_idx in range(16):
+                blk = int(CODE2RASTER[code_idx])
+                mode = int(pic.i4_modes[addr, blk])
+                pred = self.pctx.pred_intra4_mode(addr, blk)
+                if mode == pred:
+                    bw.flag(1)
+                else:
+                    bw.flag(0)
+                    rem = mode if mode < pred else mode - 1
+                    bw.u(rem, 3)
+            bw.ue(int(pic.chroma_mode[addr]))
+            cbp = int(pic.cbp[addr])
+            bw.ue(CBP_INV_CHROMA_INTRA[cbp])
+            if cbp:
+                self._write_qp_delta(addr)
+            self._write_luma_residual(addr, cbp & 15, is_i16=False)
+            self._write_chroma_residual(addr, cbp)
+        elif pic.mb_class[addr] == 2:         # I_16x16
+            cbp = int(pic.cbp[addr])
+            cbp_luma_flag = 1 if (cbp & 15) else 0
+            k = 1 + int(pic.i16_mode[addr]) + ((cbp >> 4) << 2) + cbp_luma_flag * 12
+            bw.ue(base + k)
+            bw.ue(int(pic.chroma_mode[addr]))
+            self._write_qp_delta(addr)
+            self._write_luma_residual(addr, cbp & 15, is_i16=True)
+            self._write_chroma_residual(addr, cbp)
+        else:
+            raise ValueError(f"MB {addr}: unsupported intra class "
+                             f"{int(pic.mb_class[addr])}")
+
+    # ---- inter (P: 16x16/16x8/8x16/8x8 with 8x8 sub-macroblocks) -----------
+
+    def _write_p_inter_mb(self, addr: int) -> None:
+        pic, bw = self.pic, self.bw
+        mode = max(int(pic.inter_mode[addr]), 0)
+        bw.ue(mode)
+        if mode == 3:
+            if pic.sub_mode[addr].any():
+                raise ValueError(f"MB {addr}: sub-8x8 partitions")
+            for _ in range(4):
+                bw.ue(0)                      # sub_mb_type P_L0_8x8
+        for (bx, by, bw_, bh_) in self.PARTS[mode]:
+            q = (by // 2) * 2 + bx // 2
+            ref = int(pic.ref_idx[addr, q])
+            pred = self.pctx.mv_pred(addr, bx, by, bw_, bh_, ref)
+            mv = pic.mv[addr, by * 4 + bx]
+            bw.se(int(mv[0] - pred[0]))
+            bw.se(int(mv[1] - pred[1]))
+        cbp = int(pic.cbp[addr])
+        bw.ue(CBP_INV_CHROMA_INTER[cbp])
+        if cbp:
+            self._write_qp_delta(addr)
+        self._write_luma_residual(addr, cbp & 15, is_i16=False)
+        self._write_chroma_residual(addr, cbp)
+
+    # ---- MB dispatch -------------------------------------------------------
+
+    def write_mb(self, addr: int, slice_type: SliceType) -> None:
+        pic, bw = self.pic, self.bw
+        if slice_type == SliceType.P:
+            if pic.skip[addr]:
+                self.skip_run += 1
+                return
+            bw.ue(self.skip_run)
+            self.skip_run = 0
+            if pic.mb_class[addr] == 0:
+                self._write_p_inter_mb(addr)
+            else:
+                self._write_intra_mb(addr, p_slice=True)
+        else:
+            self._write_intra_mb(addr, p_slice=False)
+
+    def finish(self, slice_type: SliceType) -> None:
+        if slice_type == SliceType.P and self.skip_run > 0:
+            self.bw.ue(self.skip_run)
+            self.skip_run = 0
+
+
+def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
+                    idr: bool, qp: int, poc_lsb: int = 0, idr_pic_id: int = 0,
+                    num_ref_idx_l0: int = 1) -> bytes:
+    """Serialize the whole picture as one slice in raster order; returns
+    the RBSP."""
+    bw = BitWriter()
+    write_slice_header(bw, sps, pps, slice_type=slice_type,
+                       frame_num=frame_num, idr=idr, idr_pic_id=idr_pic_id,
+                       qp=qp, poc_lsb=poc_lsb, num_ref_idx_l0=num_ref_idx_l0)
+    w = MBWriter(bw, pic, sps, pps, qp)
+    for addr in range(pic.n_mbs):
+        w.write_mb(addr, slice_type)
+    w.finish(slice_type)
+    bw.rbsp_trailing_bits()
+    return bw.get_bytes()

@@ -1,0 +1,373 @@
+"""In-loop deblocking filter on tensors (spec 8.7), twin of
+jm_tpu/ops/deblock_jax.py and of the Pallas kernels in
+jm_tpu/ops/deblock_pallas.py.
+
+- ``compute_bs``: boundary strengths from the per-MB SoA state (mixed
+  intra/inter, so the IDR frame uses it too);
+- ``deblock_plain``: the plain PyTorch wavefront;
+- ``deblock``: the public entry. CUDA tensors go to the hand-written
+  kernels (jm_tpu_torch/kernels/deblock.cu); CPU tensors go to
+  ``deblock_plain``. Nothing falls back from one to the other.
+
+Wavefront: macroblock (b, c) depends on its left (b, c-1) and top
+(b-1, c) neighbours and on (b-1, c+1), whose left-edge filter touches
+the top MB's right columns. Wave w holds the MBs (b, w - 2b)
+(lencod/src/loopFilter.c:112 DeblockFrame builds the same 2:1
+diagonals), so n_w = mb_w + 2 (mb_h - 1) waves run in order and the MBs
+of one wave touch disjoint pixels. Per MB the order is DeblockMb's: four
+vertical edges left to right, then four horizontal edges top to bottom;
+MB-edge filters modify the neighbours' 3-pixel fringes in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..common.tables import ALPHA_TABLE, BETA_TABLE, TC0_TABLE
+from .consts import on
+
+ALPHA = np.asarray(ALPHA_TABLE, np.int32)
+BETA = np.asarray(BETA_TABLE, np.int32)
+TC0 = np.asarray(TC0_TABLE, np.int32).reshape(-1)      # (3*52,)
+
+I32 = torch.int32
+
+
+def n_waves(mb_w: int, mb_h: int) -> int:
+    """Number of 2:1 diagonal waves covering an mb_w x mb_h frame."""
+    return mb_w + 2 * (mb_h - 1) if mb_h > 1 else mb_w
+
+
+# ---------------------------------------------------------------------------
+# boundary strengths
+# ---------------------------------------------------------------------------
+
+def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
+               ref_pic_id_l1, mb_w: int, mb_h: int):
+    """Boundary strengths (spec 8.7.2.1) of a frame picture.
+
+    mb_class (N,) (0 inter, else intra); luma_nnz (N, 16) raster 4x4
+    counts; transform8x8 (N,); mv / mv_l1 (N, 16, 2) quarter-pel;
+    ref_pic_id / ref_pic_id_l1 (N, 4) per-8x8 picture ids (-1 none).
+    Returns (bs_v, bs_h), each (4 mb_h, 4 mb_w) int8: bs_v[y, x] is the
+    strength of the vertical edge left of 4x4 block (y, x), bs_h of the
+    horizontal edge above it (column/row 0 stays 0)."""
+    H, W = 4 * mb_h, 4 * mb_w
+    dev = luma_nnz.device
+    mc = mb_class.reshape(mb_h, mb_w)
+    intra = (mc != 0).repeat_interleave(4, 0).repeat_interleave(4, 1)
+    t8 = transform8x8.to(torch.bool)
+    q = luma_nnz.to(I32).reshape(-1, 2, 2, 2, 2)
+    qa = q.sum(dim=(2, 4), keepdim=True).expand(q.shape)
+    nnz_mb = torch.where(t8[:, None, None, None, None], qa, q).reshape(-1, 16)
+    nnz = nnz_mb.reshape(mb_h, mb_w, 4, 4).permute(0, 2, 1, 3).reshape(H, W)
+    mv0 = mv.to(I32).reshape(mb_h, mb_w, 4, 4, 2).permute(0, 2, 1, 3, 4) \
+        .reshape(H, W, 2)
+    mv1 = mv_l1.to(I32).reshape(mb_h, mb_w, 4, 4, 2).permute(0, 2, 1, 3, 4) \
+        .reshape(H, W, 2)
+
+    def expand_q(a8):
+        return a8.reshape(mb_h, mb_w, 2, 2).permute(0, 2, 1, 3) \
+            .reshape(2 * mb_h, 2 * mb_w) \
+            .repeat_interleave(2, 0).repeat_interleave(2, 1)
+
+    r0 = expand_q(ref_pic_id.to(torch.int64))
+    r1 = expand_q(ref_pic_id_l1.to(torch.int64))
+
+    def cmp_mv(a, b):
+        return (torch.abs(a - b) >= 4).any(dim=-1)
+
+    def edge_bs(sl_p, sl_q, is_mb_edge):
+        (ip, nn_p, m0p, m1p, r0p, r1p) = sl_p
+        (iq, nn_q, m0q, m1q, r0q, r1q) = sl_q
+        either_intra = ip | iq
+        coef = (nn_p > 0) | (nn_q > 0)
+        pair_straight = (r0p == r0q) & (r1p == r1q)
+        pair_cross = (r0p == r1q) & (r1p == r0q)
+        c00 = cmp_mv(m0p, m0q)
+        c11 = cmp_mv(m1p, m1q)
+        c01 = cmp_mv(m0p, m1q)
+        c10 = cmp_mv(m1p, m0q)
+        strv_same = (c00 | c11) & (c01 | c10)
+        strv = torch.where(~(pair_straight | pair_cross), True,
+                           torch.where(r0p != r1p,
+                                       torch.where(r0p == r0q, c00 | c11,
+                                                   c01 | c10),
+                                       strv_same)).to(torch.int8)
+        edge = torch.where(is_mb_edge, 4, 3).to(torch.int8)
+        return torch.where(either_intra, edge,
+                           torch.where(coef, torch.full_like(strv, 2), strv))
+
+    fields = (intra, nnz, mv0, mv1, r0, r1)
+    is_mb_v = torch.zeros((H, W - 1), dtype=torch.bool, device=dev)
+    is_mb_v[:, 3::4] = True
+    bs_v = torch.zeros((H, W), dtype=torch.int8, device=dev)
+    bs_v[:, 1:] = edge_bs(tuple(a[:, :-1] for a in fields),
+                          tuple(a[:, 1:] for a in fields), is_mb_v)
+    is_mb_h = torch.zeros((H - 1, W), dtype=torch.bool, device=dev)
+    is_mb_h[3::4, :] = True
+    bs_h = torch.zeros((H, W), dtype=torch.int8, device=dev)
+    bs_h[1:, :] = edge_bs(tuple(a[:-1] for a in fields),
+                          tuple(a[1:] for a in fields), is_mb_h)
+    return bs_v, bs_h
+
+
+# ---------------------------------------------------------------------------
+# edge filters (int32, one filter line per row of the last-but-one axis)
+# ---------------------------------------------------------------------------
+
+def _luma_edge(cols, bs, alpha, beta, tc0, enable):
+    """cols (..., 8) int32 = [p3 p2 p1 p0 q0 q1 q2 q3]; bs / tc0 per line,
+    alpha / beta / enable broadcastable. Returns the filtered (..., 8)."""
+    p3, p2, p1, p0 = cols[..., 0], cols[..., 1], cols[..., 2], cols[..., 3]
+    q0, q1, q2, q3 = cols[..., 4], cols[..., 5], cols[..., 6], cols[..., 7]
+    fflag = ((torch.abs(p0 - q0) < alpha) & (torch.abs(p1 - p0) < beta)
+             & (torch.abs(q1 - q0) < beta) & (bs > 0) & enable)
+    ap = torch.abs(p2 - p0) < beta
+    aq = torch.abs(q2 - q0) < beta
+
+    tc = tc0 + ap.to(I32) + aq.to(I32)
+    delta = torch.clamp((((q0 - p0) << 2) + (p1 - q1) + 4) >> 3, -tc, tc)
+    np0 = torch.clamp(p0 + delta, 0, 255)
+    nq0 = torch.clamp(q0 - delta, 0, 255)
+    np1 = p1 + torch.clamp((p2 + ((p0 + q0 + 1) >> 1) - 2 * p1) >> 1,
+                           -tc0, tc0)
+    nq1 = q1 + torch.clamp((q2 + ((p0 + q0 + 1) >> 1) - 2 * q1) >> 1,
+                           -tc0, tc0)
+    np1 = torch.where(ap, np1, p1)
+    nq1 = torch.where(aq, nq1, q1)
+
+    strong = torch.abs(p0 - q0) < ((alpha >> 2) + 2)
+    sap = strong & ap
+    saq = strong & aq
+    sp0 = torch.where(sap, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3,
+                      (2 * p1 + p0 + q1 + 2) >> 2)
+    sp1 = torch.where(sap, (p2 + p1 + p0 + q0 + 2) >> 2, p1)
+    sp2 = torch.where(sap, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3, p2)
+    sq0 = torch.where(saq, (q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3,
+                      (2 * q1 + q0 + p1 + 2) >> 2)
+    sq1 = torch.where(saq, (q2 + q1 + q0 + p0 + 2) >> 2, q1)
+    sq2 = torch.where(saq, (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3, q2)
+
+    is4 = bs == 4
+    out = [torch.where(is4, sp2, p2), torch.where(is4, sp1, np1),
+           torch.where(is4, sp0, np0), torch.where(is4, sq0, nq0),
+           torch.where(is4, sq1, nq1), torch.where(is4, sq2, q2)]
+    orig = [p2, p1, p0, q0, q1, q2]
+    out = [torch.where(fflag, o, v) for o, v in zip(out, orig)]
+    return torch.stack([p3, *out, q3], dim=-1)
+
+
+def _chroma_edge(cols, bs, alpha, beta, tc0, enable):
+    """cols (..., 4) int32 = [p1 p0 q0 q1]; only p0 / q0 change."""
+    p1, p0, q0, q1 = cols[..., 0], cols[..., 1], cols[..., 2], cols[..., 3]
+    fflag = ((torch.abs(p0 - q0) < alpha) & (torch.abs(p1 - p0) < beta)
+             & (torch.abs(q1 - q0) < beta) & (bs > 0) & enable)
+    tc = tc0 + 1
+    delta = torch.clamp((((q0 - p0) << 2) + (p1 - q1) + 4) >> 3, -tc, tc)
+    np0 = torch.clamp(p0 + delta, 0, 255)
+    nq0 = torch.clamp(q0 - delta, 0, 255)
+    sp0 = (2 * p1 + p0 + q1 + 2) >> 2
+    sq0 = (2 * q1 + q0 + p1 + 2) >> 2
+    is4 = bs == 4
+    rp0 = torch.where(fflag, torch.where(is4, sp0, np0), p0)
+    rq0 = torch.where(fflag, torch.where(is4, sq0, nq0), q0)
+    return torch.stack([p1, rp0, rq0, q1], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the plain wavefront
+# ---------------------------------------------------------------------------
+
+def _neighbor(v2d, axis: int):
+    """Left (axis=1) / top (axis=0) neighbour value, self at the border."""
+    if axis == 1:
+        return torch.cat([v2d[:, :1], v2d[:, :-1]], dim=1)
+    return torch.cat([v2d[:1], v2d[:-1]], dim=0)
+
+
+class _MbParams:
+    """Per-MB filter state of one picture, shared by both plain passes:
+    qp, offsets, the MB / left / top edge enables, neighbour qps."""
+
+    def __init__(self, qp, disable, a_off, b_off, slice_id, transform8x8,
+                 mb_w: int, mb_h: int):
+        dev = qp.device
+        self.qp = qp.to(I32).reshape(mb_h, mb_w)
+        dis = disable.to(I32).reshape(mb_h, mb_w)
+        self.ao = a_off.to(I32).reshape(mb_h, mb_w)
+        self.bo = b_off.to(I32).reshape(mb_h, mb_w)
+        sid = slice_id.to(I32).reshape(mb_h, mb_w)
+        self.t8 = transform8x8.to(I32).reshape(mb_h, mb_w) != 0
+        self.on = dis != 1
+        col = torch.arange(mb_w, device=dev)[None, :]
+        row = torch.arange(mb_h, device=dev)[:, None]
+        self.left_ok = self.on & (col > 0) & \
+            ~((dis == 2) & (_neighbor(sid, 1) != sid))
+        self.top_ok = self.on & (row > 0) & \
+            ~((dis == 2) & (_neighbor(sid, 0) != sid))
+        self.qp_l = _neighbor(self.qp, 1)
+        self.qp_t = _neighbor(self.qp, 0)
+        self.mb_w, self.mb_h = mb_w, mb_h
+
+    def waves(self, bs_v, bs_h):
+        """Per wave with MBs: (bb, cc, per-lane params, bv, bh) where bv /
+        bh (B, 4 edges, 4 block lines) are the lanes' bS."""
+        dev = self.qp.device
+        b_all = torch.arange(self.mb_h, device=dev)
+        a4 = torch.arange(4, device=dev)
+        bsv, bsh = bs_v.to(I32), bs_h.to(I32)
+        for wv in range(n_waves(self.mb_w, self.mb_h)):
+            c_all = wv - 2 * b_all
+            valid = (c_all >= 0) & (c_all < self.mb_w)
+            if not bool(valid.any()):
+                continue
+            bb, cc = b_all[valid], c_all[valid]
+            lane = {k: getattr(self, k)[bb, cc] for k in (
+                "qp", "qp_l", "qp_t", "ao", "bo", "on", "left_ok",
+                "top_ok", "t8")}
+            bv = bsv[(4 * bb)[:, None, None] + a4[None, None, :],
+                     (4 * cc)[:, None, None] + a4[None, :, None]]
+            bh = bsh[(4 * bb)[:, None, None] + a4[None, :, None],
+                     (4 * cc)[:, None, None] + a4[None, None, :]]
+            yield bb, cc, lane, bv, bh
+
+
+def _thresholds(qp_p, qp_q, ao, bo, dev):
+    """alpha, beta (B, 1) and the index A (B, 1) of a QP pair."""
+    qav = (qp_p + qp_q + 1) >> 1
+    ia = torch.clamp(qav + 2 * ao, 0, 51)
+    ib = torch.clamp(qav + 2 * bo, 0, 51)
+    return (on(ALPHA, dev)[ia.long()][:, None],
+            on(BETA, dev)[ib.long()][:, None], ia[:, None])
+
+
+def _tc0(bs_line, ia):
+    return on(TC0, bs_line.device)[((torch.clamp(bs_line, 1, 3) - 1) * 52
+                                    + ia).long()]
+
+
+def deblock_luma_plain(Y, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
+                       transform8x8, *, mb_w: int, mb_h: int):
+    """Plain twin of the luma kernel (K1): returns the filtered Y. Works
+    on an int32 copy padded by 4 samples top/left; per wave it gathers
+    every MB's 20x20 tile (the MB plus its left / top fringes), filters
+    the 4 vertical then the 4 horizontal edges and scatters the tiles
+    back (tiles of one wave are disjoint)."""
+    dev = Y.device
+    h, w = 16 * mb_h, 16 * mb_w
+    Yp = torch.zeros((h + 4, w + 4), dtype=I32, device=dev)
+    Yp[4:, 4:] = Y.to(I32)
+    mp = _MbParams(qp, disable, a_off, b_off, slice_id, transform8x8,
+                   mb_w, mb_h)
+    a20 = torch.arange(20, device=dev)
+    for bb, cc, ln, bv, bh in mp.waves(bs_v, bs_h):
+        ry = (16 * bb)[:, None, None] + a20[None, :, None]
+        rx = (16 * cc)[:, None, None] + a20[None, None, :]
+        tile = Yp[ry, rx]                                    # (B, 20, 20)
+        inner = ln["on"] & ~ln["t8"]
+        for ex in range(4):
+            en = ln["left_ok"] if ex == 0 else (inner if ex in (1, 3)
+                                                else ln["on"])
+            al, be, ia = _thresholds(ln["qp_l"] if ex == 0 else ln["qp"],
+                                     ln["qp"], ln["ao"], ln["bo"], dev)
+            bs_line = bv[:, ex].repeat_interleave(4, dim=1)   # (B, 16)
+            x = 4 * ex + 4
+            tile[:, 4:20, x - 4:x + 4] = _luma_edge(
+                tile[:, 4:20, x - 4:x + 4], bs_line, al, be,
+                _tc0(bs_line, ia), en[:, None])
+        for ey in range(4):
+            en = ln["top_ok"] if ey == 0 else (inner if ey in (1, 3)
+                                               else ln["on"])
+            al, be, ia = _thresholds(ln["qp_t"] if ey == 0 else ln["qp"],
+                                     ln["qp"], ln["ao"], ln["bo"], dev)
+            bs_line = bh[:, ey].repeat_interleave(4, dim=1)
+            y = 4 * ey + 4
+            rows = tile[:, y - 4:y + 4, 4:20].transpose(1, 2)
+            tile[:, y - 4:y + 4, 4:20] = _luma_edge(
+                rows, bs_line, al, be, _tc0(bs_line, ia),
+                en[:, None]).transpose(1, 2)
+        Yp[ry, rx] = tile
+    return Yp[4:, 4:].to(torch.uint8)
+
+
+def deblock_chroma_plain(U, V, bs_v, bs_h, qp, disable, a_off, b_off,
+                         slice_id, transform8x8, qpc_cb, qpc_cr, *,
+                         mb_w: int, mb_h: int):
+    """Plain twin of the chroma kernel (K2): returns filtered (U, V).
+    12x12 tiles per MB and component; edges 0 and 2 of each direction."""
+    dev = U.device
+    h, w = 8 * mb_h, 8 * mb_w
+    Cp = torch.zeros((2, h + 4, w + 4), dtype=I32, device=dev)
+    Cp[0, 4:, 4:] = U.to(I32)
+    Cp[1, 4:, 4:] = V.to(I32)
+    ctab = (qpc_cb.to(I32), qpc_cr.to(I32))
+    mp = _MbParams(qp, disable, a_off, b_off, slice_id, transform8x8,
+                   mb_w, mb_h)
+    a12 = torch.arange(12, device=dev)
+
+    def filt(cols, qp_p, ln, bs_line, en):
+        outs = []
+        for comp in range(2):
+            tab = ctab[comp]
+            al, be, ia = _thresholds(tab[torch.clamp(qp_p, 0, 51).long()],
+                                     tab[torch.clamp(ln["qp"], 0, 51).long()],
+                                     ln["ao"], ln["bo"], dev)
+            outs.append(_chroma_edge(cols[:, comp], bs_line, al, be,
+                                     _tc0(bs_line, ia), en[:, None]))
+        return torch.stack(outs, dim=1)
+
+    for bb, cc, ln, bv, bh in mp.waves(bs_v, bs_h):
+        cy = (8 * bb)[:, None, None] + a12[None, :, None]
+        cx = (8 * cc)[:, None, None] + a12[None, None, :]
+        ct = Cp[:, cy, cx].transpose(0, 1)                   # (B, 2, 12, 12)
+        for ex in (0, 2):
+            en = ln["left_ok"] if ex == 0 else ln["on"]
+            bs_line = bv[:, ex].repeat_interleave(2, dim=1)   # (B, 8)
+            c0 = 2 + 2 * ex
+            ct[:, :, 4:12, c0:c0 + 4] = filt(
+                ct[:, :, 4:12, c0:c0 + 4],
+                ln["qp_l"] if ex == 0 else ln["qp"], ln, bs_line, en)
+        for ey in (0, 2):
+            en = ln["top_ok"] if ey == 0 else ln["on"]
+            bs_line = bh[:, ey].repeat_interleave(2, dim=1)
+            r0 = 2 + 2 * ey
+            ct[:, :, r0:r0 + 4, 4:12] = filt(
+                ct[:, :, r0:r0 + 4, 4:12].transpose(2, 3),
+                ln["qp_t"] if ey == 0 else ln["qp"], ln, bs_line,
+                en).transpose(2, 3)
+        Cp[:, cy, cx] = ct.transpose(0, 1)
+    return Cp[0, 4:, 4:].to(torch.uint8), Cp[1, 4:, 4:].to(torch.uint8)
+
+
+def deblock_plain(Y, U, V, bs_v, bs_h, qp, disable, a_off, b_off,
+                  slice_id, transform8x8, qpc_cb, qpc_cr, *,
+                  mb_w: int, mb_h: int):
+    """The plain PyTorch twin of the deblock kernels (same signature as
+    ``deblock``): the luma and the chroma wavefronts."""
+    args = (bs_v, bs_h, qp, disable, a_off, b_off, slice_id, transform8x8)
+    Yd = deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)
+    Ud, Vd = deblock_chroma_plain(U, V, *args, qpc_cb, qpc_cr,
+                                  mb_w=mb_w, mb_h=mb_h)
+    return Yd, Ud, Vd
+
+
+def deblock(Y, U, V, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
+            transform8x8, qpc_cb, qpc_cr, *, mb_w: int, mb_h: int):
+    """Deblock a 4:2:0 frame picture; returns new (Y, U, V) uint8.
+
+    Y (16 mb_h, 16 mb_w) uint8, U/V (8 mb_h, 8 mb_w) uint8; bs_v/bs_h
+    (4 mb_h, 4 mb_w) int8; qp, disable, a_off, b_off, slice_id,
+    transform8x8 (N,) int32; qpc_cb / qpc_cr (52,) int32 QP -> QPc
+    tables. On CUDA the luma and chroma kernels run; on the CPU the plain
+    wavefront runs."""
+    args = (bs_v, bs_h, qp, disable, a_off, b_off, slice_id, transform8x8)
+    if Y.device.type == "cpu":
+        return deblock_plain(Y, U, V, *args, qpc_cb, qpc_cr,
+                             mb_w=mb_w, mb_h=mb_h)
+    from .. import kernels
+    Yd = kernels.deblock_luma(Y, *args, mb_w=mb_w, mb_h=mb_h)
+    Ud, Vd = kernels.deblock_chroma(U, V, *args, qpc_cb, qpc_cr,
+                                    mb_w=mb_w, mb_h=mb_h)
+    return Yd, Ud, Vd
