@@ -7,15 +7,25 @@ Run from the repository root on a machine with a CUDA card:
 Phases (any failure raises and exits non-zero):
   1. card name and power limit; build the CUDA kernels from the sources
      in jm_tpu_torch/kernels (into build/kernels) and time the build;
-  2. kernels: the luma (K1) and chroma (K2) deblock kernels against their
-     plain PyTorch versions on the card at 1080p, over random pictures
-     with random bS 0..4, per-MB QP 0..51, disable_deblocking_filter_idc
-     0/1/2 with several slice ids, non-zero alpha/beta offsets and 8x8
-     transform MBs; bit-exact required; CUDA-event times (median of 7
-     after warm-up) beside each kernel's bound;
+  2. kernels: the luma (K1) and chroma (K2) deblock kernels, one
+     persistent launch per picture each, against their plain PyTorch
+     versions on the card, over random pictures with random bS 0..4,
+     per-MB QP 0..51, disable_deblocking_filter_idc 0/1/2 with several
+     slice ids, non-zero alpha/beta offsets and 8x8 transform MBs;
+     bit-exact required at 1080p (three variants), at 3840x2160 (135 MB
+     rows, more than the card's SMs: CTAs take a second row), at 16x16,
+     32x1088, 1920x16 and 16x1088 (mb_w 1, mb_w 2, mb_h 1, one column),
+     and over 50 repeated launches at 1080p (a race in the row-progress
+     counters shows only now and then); CUDA-event times at 1080p (median
+     of 7 runs of 20 back-to-back calls, after warm-up) beside each
+     kernel's bound and beside the same kernel with every bS zero (the
+     dependency chain with no filtering), and the chain's two step costs,
+     with every bS zero: one MB row of 120 MBs (1920x16: an in-row step)
+     and one MB column of 68 rows (16x1088: a handoff between rows);
   3. encode: Encoder(...).encode_stream on the 17-frame 1080p IPPP
      sequence (QP 28, search range 16) with the kernel launch counters
-     reset just before and read just after;
+     reset just before and read just after: one launch per kernel and
+     frame;
   4. cross-check: the first two frames (IDR + P) encoded again on the
      CPU with the plain versions must give the same payloads and
      deblocked reconstruction;
@@ -43,10 +53,17 @@ from jm_tpu_torch import kernels  # noqa: E402
 from jm_tpu_torch.common.tables import chroma_qp  # noqa: E402
 from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig  # noqa: E402
 from jm_tpu_torch.ops.deblock import (  # noqa: E402
-    deblock_chroma_plain, deblock_luma_plain, n_waves)
+    deblock_chroma_plain, deblock_luma_plain)
 
 W, H = 1920, 1088
 N_FRAMES = 17
+# the kernels' edge shapes (one MB, mb_w 2, mb_h 1, one MB column), each
+# with a parameter variant ("mixed" may switch the one MB off), and 2160p
+# (135 rows)
+EDGE_SHAPES = ((16, 16, "plain"), (32, 1088, "mixed"), (1920, 16, "mixed"),
+               (16, 1088, "mixed"))
+UHD = (3840, 2160)
+REPEATS = 50
 QP = 28
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate
@@ -72,8 +89,11 @@ def make_sequence():
     return frames
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+def cuda_ms(fn, reps: int = 7, inner: int = 1) -> float:
+    """CUDA-event time of one fn() call in ms, after one warm-up call: the
+    median over `reps` runs of `inner` back-to-back calls, each run's time
+    divided by `inner` (so that a short kernel is not timed as the host's
+    enqueue latency)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -81,10 +101,11 @@ def cuda_ms(fn, reps: int = 7) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -128,6 +149,59 @@ def deblock_case(rng, mb_w: int, mb_h: int, variant: str):
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     per_mb = tuple(t(a) for a in (qp, disable, a_off, b_off, sid, t8))
     return (t(Y), t(U), t(V), t(bs_v), t(bs_h), per_mb, t(qpc_cb), t(qpc_cr))
+
+
+def check_case(rng, w: int, h: int, variant: str, repeats: int = 1):
+    """K1 and K2 against their plain versions on one random picture of
+    w x h, `repeats` launches each (every output must equal the plain
+    one). Returns (case, max |err| luma, chroma, samples changed)."""
+    mb_w, mb_h = w // 16, h // 16
+    case = deblock_case(rng, mb_w, mb_h, variant)
+    Y, U, V, bs_v, bs_h, per_mb, cb, cr = case
+    args = (bs_v, bs_h, *per_mb)
+    py = deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)
+    pu, pv = deblock_chroma_plain(U, V, *args, cb, cr, mb_w=mb_w, mb_h=mb_h)
+    y0, u0, v0 = Y.clone(), U.clone(), V.clone()
+    err_y = err_c = 0
+    for _ in range(repeats):
+        ky = kernels.deblock_luma(Y, *args, mb_w=mb_w, mb_h=mb_h)
+        ku, kv = kernels.deblock_chroma(U, V, *args, cb, cr,
+                                        mb_w=mb_w, mb_h=mb_h)
+        err_y = max(err_y, int((ky.int() - py.int()).abs().max()))
+        err_c = max(err_c, int((ku.int() - pu.int()).abs().max()),
+                    int((kv.int() - pv.int()).abs().max()))
+    torch.cuda.synchronize()
+    if not (torch.equal(Y, y0) and torch.equal(U, u0) and torch.equal(V, v0)):
+        raise AssertionError(f"deblock {w}x{h} {variant}: input modified")
+    changed = (int((py != Y).sum()), int((pu != U).sum())
+               + int((pv != V).sum()))
+    print(f"deblock {w}x{h} {variant} x{repeats}: luma max|err| {err_y}, "
+          f"chroma max|err| {err_c}, samples changed (luma, chroma) "
+          f"{changed}", flush=True)
+    if err_y or err_c:
+        raise AssertionError(f"deblock kernels differ from the plain "
+                             f"version ({w}x{h} {variant})")
+    return case, err_y, err_c, changed
+
+
+def chain_steps(rng) -> None:
+    """Prints the cost of one step of each kernel's dependency chain, with
+    every bS zero: one MB row (1920x16, 120 MBs one after the other in one
+    CTA) and one MB column (16x1088, 68 rows, each handed to the next
+    through the progress counters)."""
+    for w, h in ((1920, 16), (16, 1088)):
+        mb_w, mb_h = w // 16, h // 16
+        Y, U, V, bs_v, _, per_mb, cb, cr = deblock_case(rng, mb_w, mb_h,
+                                                        "plain")
+        z = torch.zeros_like(bs_v)
+        ms_y = cuda_ms(lambda: kernels.deblock_luma(
+            Y, z, z, *per_mb, mb_w=mb_w, mb_h=mb_h), inner=20)
+        ms_c = cuda_ms(lambda: kernels.deblock_chroma(
+            U, V, z, z, *per_mb, cb, cr, mb_w=mb_w, mb_h=mb_h), inner=20)
+        n = max(mb_w, mb_h)
+        print(f"chain step {w}x{h} (all bS 0, {n} steps): luma "
+              f"{ms_y:.4f} ms = {ms_y / n * 1e3:.3f} us/step, chroma "
+              f"{ms_c:.4f} ms = {ms_c / n * 1e3:.3f} us/step", flush=True)
 
 
 def filtered_lines(bs_v, bs_h, per_mb, mb_w: int, mb_h: int):
@@ -215,6 +289,12 @@ def profile_p_frame(enc, frame, cfg):
     for e in sorted(evs, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}",
               flush=True)
+    for e in evs:
+        if "deblock" in e.key:
+            print(f"  deblock: {dev_us(e) / 1e3:.4f} ms x{e.count} "
+                  f"{e.key[:60]} ({dev_us(e) / 1e3 / busy_ms:.4f} of the "
+                  f"device time, {dev_us(e) / 1e3 / wall_ms:.4f} of the "
+                  f"wall)", flush=True)
 
 
 def main() -> int:
@@ -235,72 +315,58 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
-    nw = n_waves(mb_w, mb_h)
     rng = np.random.default_rng(1)
     kstats = {}
     max_err = {"deblock_luma": 0, "deblock_chroma": 0}
-    for variant in ("mixed", "disable2", "plain"):
-        Y, U, V, bs_v, bs_h, per_mb, cb, cr = deblock_case(
-            rng, mb_w, mb_h, variant)
-        args = (bs_v, bs_h, *per_mb)
-        ky = kernels.deblock_luma(Y, *args, mb_w=mb_w, mb_h=mb_h)
-        ku, kv = kernels.deblock_chroma(U, V, *args, cb, cr,
-                                        mb_w=mb_w, mb_h=mb_h)
-        py = deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)
-        pu, pv = deblock_chroma_plain(U, V, *args, cb, cr,
-                                      mb_w=mb_w, mb_h=mb_h)
-        torch.cuda.synchronize()
-        err_y = int((ky.int() - py.int()).abs().max())
-        err_c = max(int((ku.int() - pu.int()).abs().max()),
-                    int((kv.int() - pv.int()).abs().max()))
-        changed = (int((ky != Y).sum()), int((ku != U).sum())
-                   + int((kv != V).sum()))
-        print(f"deblock {variant}: luma max|err| {err_y}, chroma max|err| "
-              f"{err_c}, samples changed (luma, chroma) {changed}",
-              flush=True)
+    cases = [(W, H, v, 1) for v in ("mixed", "disable2", "plain")]
+    cases += [(*UHD, "mixed", 1)] + [(w, h, v, 1) for w, h, v in EDGE_SHAPES]
+    cases += [(W, H, "mixed", REPEATS)]
+    for w, h, variant, repeats in cases:
+        case, err_y, err_c, changed = check_case(rng, w, h, variant,
+                                                 repeats)
         max_err["deblock_luma"] = max(max_err["deblock_luma"], err_y)
         max_err["deblock_chroma"] = max(max_err["deblock_chroma"], err_c)
-        if err_y or err_c:
-            raise AssertionError(f"deblock kernels differ from the plain "
-                                 f"version ({variant})")
-        if min(changed) == 0:
-            raise AssertionError(f"deblock {variant}: a plane unfiltered")
-        if variant != "mixed":
-            continue
-        lines_y, lines_c = filtered_lines(bs_v, bs_h, per_mb, mb_w, mb_h)
-        n = mb_w * mb_h
-        param_bytes = 6 * 4 * n + 2 * bs_v.numel()
-        bytes_y = 2 * Y.numel() + param_bytes
-        bytes_c = 2 * (U.numel() + V.numel()) + param_bytes + 2 * 52 * 4
-        for name, b, ops, kfn, pfn in (
-                ("deblock_luma", bytes_y, LUMA_LINE_OPS * lines_y,
-                 lambda: kernels.deblock_luma(Y, *args, mb_w=mb_w,
-                                              mb_h=mb_h),
-                 lambda: deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)),
-                ("deblock_chroma", bytes_c, CHROMA_LINE_OPS * lines_c,
-                 lambda: kernels.deblock_chroma(U, V, *args, cb, cr,
-                                                mb_w=mb_w, mb_h=mb_h),
-                 lambda: deblock_chroma_plain(U, V, *args, cb, cr,
-                                              mb_w=mb_w, mb_h=mb_h))):
-            t_bytes = b / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / INT_OPS_PER_S * 1e3
-            kstats[name] = {
-                "ms": cuda_ms(kfn), "plain_ms": cuda_ms(pfn),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": b, "ops": ops}
-        # the wave chain alone: the same launches with every bS zero, so
-        # each CTA only reads its parameters and returns
-        zbs = torch.zeros_like(bs_v)
-        chain_ms = cuda_ms(lambda: kernels.deblock_luma(
-            Y, zbs, zbs, *per_mb, mb_w=mb_w, mb_h=mb_h))
+        if h >= H and min(changed) == 0:
+            raise AssertionError(f"deblock {w}x{h} {variant}: a plane "
+                                 f"unfiltered")
+    # times on the last case: the main path's shapes, mixed parameters
+    Y, U, V, bs_v, bs_h, per_mb, cb, cr = case
+    args = (bs_v, bs_h, *per_mb)
+    zbs = torch.zeros_like(bs_v)
+    zargs = (zbs, zbs, *per_mb)
+    lines_y, lines_c = filtered_lines(bs_v, bs_h, per_mb, mb_w, mb_h)
+    n = mb_w * mb_h
+    param_bytes = 6 * 4 * n + 2 * bs_v.numel()
+    bytes_y = 2 * Y.numel() + param_bytes
+    bytes_c = 2 * (U.numel() + V.numel()) + param_bytes + 2 * 52 * 4
+    for name, b, ops, kfn, zfn, pfn in (
+            ("deblock_luma", bytes_y, LUMA_LINE_OPS * lines_y,
+             lambda: kernels.deblock_luma(Y, *args, mb_w=mb_w, mb_h=mb_h),
+             lambda: kernels.deblock_luma(Y, *zargs, mb_w=mb_w, mb_h=mb_h),
+             lambda: deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)),
+            ("deblock_chroma", bytes_c, CHROMA_LINE_OPS * lines_c,
+             lambda: kernels.deblock_chroma(U, V, *args, cb, cr,
+                                            mb_w=mb_w, mb_h=mb_h),
+             lambda: kernels.deblock_chroma(U, V, *zargs, cb, cr,
+                                            mb_w=mb_w, mb_h=mb_h),
+             lambda: deblock_chroma_plain(U, V, *args, cb, cr,
+                                          mb_w=mb_w, mb_h=mb_h))):
+        t_bytes = b / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT_OPS_PER_S * 1e3
+        kstats[name] = {
+            "ms": cuda_ms(kfn, inner=20), "chain_ms": cuda_ms(zfn, inner=20),
+            "single_ms": cuda_ms(kfn),
+            "plain_ms": cuda_ms(pfn, reps=3),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": b, "ops": ops}
     for name, s in kstats.items():
-        print(f"{name}: {s['ms']:.3f} ms (plain {s['plain_ms']:.1f} ms), "
-              f"bound {s['bound_ms'] * 1e3:.2f} us ({s['bound_by']}: "
-              f"{s['bytes']} B, {s['ops']} int ops), {nw} launches/frame",
-              flush=True)
-    print(f"wave chain with no filtering (luma, all bS 0): {chain_ms:.3f} ms"
-          f" = {chain_ms / nw * 1e3:.2f} us per wave", flush=True)
+        print(f"{name}: {s['ms']:.4f} ms (one call alone: {s['single_ms']:.4f}"
+              f" ms; all bS 0: {s['chain_ms']:.4f} ms; plain "
+              f"{s['plain_ms']:.1f} ms), bound {s['bound_ms'] * 1e3:.2f}"
+              f" us ({s['bound_by']}: {s['bytes']} B, {s['ops']} int ops), "
+              f"1 launch/frame", flush=True)
+    chain_steps(rng)
 
     # ---- 3. encode -----------------------------------------------------
     frames = make_sequence()
@@ -327,9 +393,9 @@ def main() -> int:
             b"\x00\x00\x00\x01\x67"):
         raise AssertionError("stream does not start with an SPS")
     for name, cnt in launches.items():
-        if cnt != N_FRAMES * nw:
-            raise AssertionError(f"{name}: {cnt} launches, expected "
-                                 f"{N_FRAMES} frames x {nw} waves")
+        if cnt != N_FRAMES:
+            raise AssertionError(f"{name}: {cnt} launches, expected one "
+                                 f"for each of {N_FRAMES} frames")
         kstats[name]["launches"] = cnt
 
     # ---- 4. CPU cross-check (IDR + P) ------------------------------------
@@ -359,7 +425,7 @@ def main() -> int:
             "launches": s["launches"], "max_abs_err": max_err[name],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": None})
+            "library_ms": None, "chain_ms": s["chain_ms"]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ use with ``torch.utils.cpp_extension.load`` into ``build/kernels`` under
 the repository root (git-ignored). Nothing is built or imported at
 module import time, so the CPU tests can import this module.
 
-Every wrapper checks its inputs, allocates its outputs, launches, and
-adds the kernel launches it made to ``launches``. A wrapper given CPU
+Every wrapper checks its inputs, allocates its outputs and the kernel's
+zeroed scratch, launches once, and adds the kernel launches it made to
+``launches``. The input planes are left as they are. A wrapper given CPU
 tensors raises: the plain PyTorch versions live beside their callers
 (ops/deblock.py ``deblock_plain``).
 """
@@ -74,25 +75,31 @@ def _check_mb_args(bs_v, bs_h, per_mb, mb_w: int, mb_h: int, device):
             raise ValueError(f"inputs on {t.device} and {device}")
 
 
+def _scratch(mb_h: int, device) -> torch.Tensor:
+    """The persistent kernels' (1 + mb_h,) int32 scratch, zeroed on the
+    current stream: the row ticket, then one progress counter per MB row."""
+    return torch.zeros(1 + mb_h, dtype=torch.int32, device=device)
+
+
 def deblock_luma(Y, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
                  transform8x8, *, mb_w: int, mb_h: int) -> torch.Tensor:
-    """K1: luma deblock of Y (16 mb_h, 16 mb_w) uint8; returns a new
-    plane. Per-MB arguments are (N,) int32, bs_v / bs_h (4 mb_h, 4 mb_w)
-    int8 (see ops/deblock.deblock)."""
+    """K1: luma deblock of Y (16 mb_h, 16 mb_w) uint8, one persistent
+    launch; returns a new plane. Per-MB arguments are (N,) int32, bs_v /
+    bs_h (4 mb_h, 4 mb_w) int8 (see ops/deblock.deblock)."""
     per_mb = (qp, disable, a_off, b_off, slice_id, transform8x8)
     _check(Y, torch.uint8, (16 * mb_h, 16 * mb_w), "Y")
     _check_mb_args(bs_v, bs_h, per_mb, mb_w, mb_h, Y.device)
     out = torch.empty_like(Y)
-    out.copy_(Y)
     launches["deblock_luma"] += load().deblock_luma(
-        out, bs_v, bs_h, *per_mb, mb_w, mb_h)
+        Y, out, _scratch(mb_h, Y.device), bs_v, bs_h, *per_mb, mb_w, mb_h)
     return out
 
 
 def deblock_chroma(U, V, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
                    transform8x8, qpc_cb, qpc_cr, *, mb_w: int, mb_h: int):
-    """K2: Cb and Cr deblock of U, V (8 mb_h, 8 mb_w) uint8 (4:2:0);
-    qpc_cb / qpc_cr (52,) int32 QP -> QPc tables. Returns new (U, V)."""
+    """K2: Cb and Cr deblock of U, V (8 mb_h, 8 mb_w) uint8 (4:2:0), one
+    persistent launch; qpc_cb / qpc_cr (52,) int32 QP -> QPc tables.
+    Returns new (U, V)."""
     per_mb = (qp, disable, a_off, b_off, slice_id, transform8x8)
     _check(U, torch.uint8, (8 * mb_h, 8 * mb_w), "U")
     _check(V, torch.uint8, (8 * mb_h, 8 * mb_w), "V")
@@ -103,9 +110,8 @@ def deblock_chroma(U, V, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
             or qpc_cr.device != U.device:
         raise ValueError("U, V and the QPc tables must share a device")
     out_u = torch.empty_like(U)
-    out_u.copy_(U)
     out_v = torch.empty_like(V)
-    out_v.copy_(V)
     launches["deblock_chroma"] += load().deblock_chroma(
-        out_u, out_v, bs_v, bs_h, *per_mb, qpc_cb, qpc_cr, mb_w, mb_h)
+        U, V, out_u, out_v, _scratch(mb_h, U.device), bs_v, bs_h, *per_mb,
+        qpc_cb, qpc_cr, mb_w, mb_h)
     return out_u, out_v

@@ -1,33 +1,62 @@
 // In-loop deblocking filter (H.264 spec 8.7) for 4:2:0 frame pictures,
 // hand-written for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of jm_tpu/ops/deblock_pallas.py:
-//   _luma_kernel   (K1, launched from deblock_pallas) -> deblock_luma_wave
-//   _chroma_kernel (K2, launched from deblock_pallas) -> deblock_chroma_wave
+// Replaces the two Pallas TPU kernels of jm_tpu/ops/deblock_pallas.py,
+// both launched from deblock_pallas (:394):
+//   _luma_kernel   (:213, pallas_call :416) -> K1 deblock_luma_rows
+//   _chroma_kernel (:310, pallas_call :424) -> K2 deblock_chroma_rows
 // and computes bit for bit what they (and jm_tpu/ops/deblock_jax.py) do.
 //
-// Dependency structure: MB (b, c) needs its left, top and top-right
-// neighbours filtered first, so the frame is walked in waves
-// w = 0 .. n_w-1 of MBs (b, w - 2b) (the 2:1 diagonals of lencod's
-// DeblockFrame, loopFilter.c:112); MBs of one wave touch disjoint pixels.
+// Dependencies: MB (b, c) filters its 4 vertical edges left to right,
+// then its 4 horizontal edges top to bottom (DeblockMb's order); its MB
+// edges rewrite 3 samples of its left (b, c-1) and top (b-1, c)
+// neighbours, and its top fringe is also rewritten by the left-edge filter
+// of (b-1, c+1). lencod's DeblockFrame (loopFilter.c:112) walks whole MBs
+// in 2:1 diagonals: (b, c) after row b-1 has filtered min(c+2, mb_w) MBs.
+// Split into phases, the dependency is shorter: the vertical edges of
+// (b, c) need only (b, c-1), and its horizontal edges need MB (b-1, c)
+// final, i.e. the vertical edges of (b-1, c+1) done.
 //
 // What bounds it on the H100: not bytes (a 1080p 4:2:0 frame read and
-// written once plus its bS is ~4.6 MB, ~1.4 us at 3.35 TB/s) and not
-// arithmetic (~1e8 integer ops), but the chain of n_w dependent waves
-// (254 at 1080p), each of which must see the previous wave's writes.
+// written once plus its bS and per-MB parameters is ~4.6 MB, 1.38 us at
+// 3.35 TB/s) and not arithmetic (~1e8 integer ops), but the dependency
+// chain. The 2:1 wavefront walks mb_w + 2 (mb_h - 1) MB steps one after
+// the other (254 at 1080p), 67 of which hand a row's progress from one SM
+// to the next through L2; split into phases, the chain is mb_w + mb_h - 1
+// MB steps (187), again with 67 handoffs.
 //
-// This design: one launch per wave on the caller's stream (stream order
-// is the inter-wave barrier), one CTA per MB of the wave, planar uint8
-// frame updated in place. Luma: 16 threads, one per filter line; each
-// thread runs the 4 vertical edges along its row, __syncthreads, then the
-// 4 horizontal edges down its column. Chroma: threads 0-7 filter Cb
-// lines, 8-15 Cr lines, 2 vertical then 2 horizontal edges. alpha, beta
-// and tc0 come from __constant__ tables indexed by the per-MB qp and
-// offsets; every sample is widened to int before arithmetic. The launch
-// chain costs ~one launch latency per wave; a persistent kernel with
-// per-row progress counters would remove it and is later work.
+// This design keeps the whole chain in one launch per picture and makes
+// each step short. Each CTA (one warp; lanes 0-15 are the 16 filter lines
+// of luma, 0-7 Cb and 8-15 Cr of chroma) takes an MB row from a global
+// ticket and walks it left to right. progress[b] counts the MBs of row b
+// that are final: filtered, stored, and with their right fringe rewritten
+// by the next MB's left edge (the last MB once filtered). So after the
+// vertical edges of MB c the row publishes c, after its last MB mb_w, and
+// the horizontal edges of (b, c) wait until progress[b-1] >= c+1. Rows
+// are claimed in increasing order, so a CTA only ever waits on a row that
+// a running CTA holds: no deadlock, whatever the grid size and residency,
+// and no cooperative launch. Per MB:
+//   - the interior comes from the unfiltered input plane (nothing writes
+//     (b, c)'s samples before (b, c) starts), prefetched one MB ahead;
+//   - the left 4 columns are what the CTA produced for (b, c-1), kept in
+//     shared memory;
+//   - the vertical edges need nothing of row b-1: they run, their left
+//     fringe is stored and MB c-1 is published before the wait;
+//   - after the wait, only the 4 rows above the MB come from the output
+//     plane, through L2 (__ldcg: never the read-only or L1 path, which are
+//     not coherent within a kernel);
+//   - then the horizontal edges and the stores of every sample they
+//     changed.
+// A publish is a warp barrier and one release store; a wait is one lane
+// polling with acquire loads, then a warp barrier. Each lane holds its
+// filter line in registers; a shared-memory tile turns the rows of the
+// vertical phase into the columns of the horizontal one. The input planes
+// are never written; the output planes are written once per sample, plus
+// the fringes that a later MB rewrites.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -51,6 +80,12 @@ __constant__ int kTc0[3][52] = {
      1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 4, 4, 4, 5, 6, 6, 7, 8, 9, 10, 11, 13,
      14, 16, 18, 20, 23, 25}};
 
+constexpr int kLanes = 16;                // threads per CTA
+constexpr unsigned kMask = 0xffffu;       // ... as a warp mask
+// A wait longer than this many polls (seconds) can only be a fault of the
+// schedule: trap, so the launch fails instead of hanging the card.
+constexpr int kMaxPolls = 1 << 24;
+
 __device__ __forceinline__ int clip3(int lo, int hi, int x) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
@@ -69,43 +104,65 @@ struct MbParams {
   int mb_h;
 };
 
-// Edge enables of MB addr (spec 8.7: disable_deblocking_filter_idc 1
-// switches the MB off, 2 stops at slice boundaries).
-__device__ __forceinline__ void mb_enables(const MbParams& m, int b, int c,
-                                           bool* on, bool* left_ok,
-                                           bool* top_ok) {
-  int addr = b * m.mb_w + c;
-  int dis = m.disable[addr];
-  int sid = m.slice_id[addr];
-  *on = dis != 1;
-  *left_ok = *on && c > 0 && !(dis == 2 && m.slice_id[addr - 1] != sid);
-  *top_ok = *on && b > 0 && !(dis == 2 && m.slice_id[addr - m.mb_w] != sid);
+// What one MB's edges need of the per-MB arrays (spec 8.7:
+// disable_deblocking_filter_idc 1 switches the MB off, 2 stops at slice
+// boundaries; the 8x8 transform switches the odd inner luma edges off).
+struct MbEdges {
+  bool on, left_ok, top_ok, inner;
+  int qp, qp_l, qp_t, ao, bo;
+};
+
+__device__ __forceinline__ MbEdges load_mb(const MbParams& m, int b, int c) {
+  const int addr = b * m.mb_w + c;
+  const int dis = __ldg(m.disable + addr);
+  const int sid = __ldg(m.slice_id + addr);
+  MbEdges e;
+  e.on = dis != 1;
+  e.left_ok = e.on && c > 0 &&
+              !(dis == 2 && __ldg(m.slice_id + addr - 1) != sid);
+  e.top_ok = e.on && b > 0 &&
+             !(dis == 2 && __ldg(m.slice_id + addr - m.mb_w) != sid);
+  e.inner = e.on && __ldg(m.t8 + addr) == 0;
+  e.qp = __ldg(m.qp + addr);
+  e.qp_l = c > 0 ? __ldg(m.qp + addr - 1) : e.qp;
+  e.qp_t = b > 0 ? __ldg(m.qp + addr - m.mb_w) : e.qp;
+  e.ao = __ldg(m.a_off + addr);
+  e.bo = __ldg(m.b_off + addr);
+  return e;
 }
 
-// Indices into the threshold tables for one QP pair (spec 8.7.2.2).
-__device__ __forceinline__ void edge_index(int qp_p, int qp_q, int ao,
-                                           int bo, int* ia, int* ib) {
-  int qav = (qp_p + qp_q + 1) >> 1;
-  *ia = clip3(0, 51, qav + 2 * ao);
-  *ib = clip3(0, 51, qav + 2 * bo);
+// alpha, beta and tc0 of an edge line (spec 8.7.2.2).
+struct Thresholds {
+  int alpha, beta, tc0;
+};
+
+__device__ __forceinline__ Thresholds thresholds(int qp_p, int qp_q, int ao,
+                                                 int bo, int bs) {
+  const int qav = (qp_p + qp_q + 1) >> 1;
+  const int ia = clip3(0, 51, qav + 2 * ao);
+  const int ib = clip3(0, 51, qav + 2 * bo);
+  return {kAlpha[ia], kBeta[ib], kTc0[clip3(1, 3, bs) - 1][ia]};
 }
 
-// One luma filter line: s points at q0, step is the distance between
-// neighbouring samples across the edge (1: vertical edge, stride:
-// horizontal edge).
-__device__ __forceinline__ void luma_line(uint8_t* s, int step, int bs,
-                                          int alpha, int beta, int tc0) {
-  int p0 = s[-step], p1 = s[-2 * step], p2 = s[-3 * step],
-      p3 = s[-4 * step];
-  int q0 = s[0], q1 = s[step], q2 = s[2 * step], q3 = s[3 * step];
-  if (!(abs(p0 - q0) < alpha && abs(p1 - p0) < beta &&
-        abs(q1 - q0) < beta))
+// The 4 bS values of one 32-bit word of a bS array (values 0..4).
+__device__ __forceinline__ int bs_byte(uint32_t w, int k) {
+  return (int)(int8_t)(w >> (8 * k));
+}
+
+// One luma filter line across an edge: s[-4..-1] = p3..p0, s[0..3] =
+// q0..q3, in a register array (the indices are constants once the edge
+// loops are unrolled).
+__device__ __forceinline__ void luma_line(int* s, int bs, Thresholds t) {
+  const int p0 = s[-1], p1 = s[-2], p2 = s[-3], p3 = s[-4];
+  const int q0 = s[0], q1 = s[1], q2 = s[2], q3 = s[3];
+  if (!(abs(p0 - q0) < t.alpha && abs(p1 - p0) < t.beta &&
+        abs(q1 - q0) < t.beta))
     return;
-  bool ap = abs(p2 - p0) < beta;
-  bool aq = abs(q2 - q0) < beta;
+  const bool ap = abs(p2 - p0) < t.beta;
+  const bool aq = abs(q2 - q0) < t.beta;
   int rp0, rp1 = p1, rp2 = p2, rq0, rq1 = q1, rq2 = q2;
   if (bs == 4) {
-    bool strong = abs(p0 - q0) < ((alpha >> 2) + 2);
+    const bool strong = abs(p0 - q0) < ((t.alpha >> 2) + 2);
     if (strong && ap) {
       rp0 = (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3;
       rp1 = (p2 + p1 + p0 + q0 + 2) >> 2;
@@ -121,126 +178,272 @@ __device__ __forceinline__ void luma_line(uint8_t* s, int step, int bs,
       rq0 = (2 * q1 + q0 + p1 + 2) >> 2;
     }
   } else {
-    int tc = tc0 + (ap ? 1 : 0) + (aq ? 1 : 0);
-    int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
+    const int tc = t.tc0 + (ap ? 1 : 0) + (aq ? 1 : 0);
+    const int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
     rp0 = clip3(0, 255, p0 + delta);
     rq0 = clip3(0, 255, q0 - delta);
-    if (ap) rp1 = p1 + clip3(-tc0, tc0, (p2 + ((p0 + q0 + 1) >> 1) - 2 * p1) >> 1);
-    if (aq) rq1 = q1 + clip3(-tc0, tc0, (q2 + ((p0 + q0 + 1) >> 1) - 2 * q1) >> 1);
+    const int avg = (p0 + q0 + 1) >> 1;
+    if (ap) rp1 = p1 + clip3(-t.tc0, t.tc0, (p2 + avg - 2 * p1) >> 1);
+    if (aq) rq1 = q1 + clip3(-t.tc0, t.tc0, (q2 + avg - 2 * q1) >> 1);
   }
-  s[-3 * step] = (uint8_t)rp2;
-  s[-2 * step] = (uint8_t)rp1;
-  s[-step] = (uint8_t)rp0;
-  s[0] = (uint8_t)rq0;
-  s[step] = (uint8_t)rq1;
-  s[2 * step] = (uint8_t)rq2;
+  s[-3] = rp2;
+  s[-2] = rp1;
+  s[-1] = rp0;
+  s[0] = rq0;
+  s[1] = rq1;
+  s[2] = rq2;
 }
 
-// One chroma filter line (only p0 / q0 change, tc = tc0 + 1).
-__device__ __forceinline__ void chroma_line(uint8_t* s, int step, int bs,
-                                            int alpha, int beta, int tc0) {
-  int p0 = s[-step], p1 = s[-2 * step];
-  int q0 = s[0], q1 = s[step];
-  if (!(abs(p0 - q0) < alpha && abs(p1 - p0) < beta &&
-        abs(q1 - q0) < beta))
+// One chroma filter line: s[-2..-1] = p1 p0, s[0..1] = q0 q1; only p0 and
+// q0 change, tc = tc0 + 1.
+__device__ __forceinline__ void chroma_line(int* s, int bs, Thresholds t) {
+  const int p0 = s[-1], p1 = s[-2];
+  const int q0 = s[0], q1 = s[1];
+  if (!(abs(p0 - q0) < t.alpha && abs(p1 - p0) < t.beta &&
+        abs(q1 - q0) < t.beta))
     return;
-  int rp0, rq0;
   if (bs == 4) {
-    rp0 = (2 * p1 + p0 + q1 + 2) >> 2;
-    rq0 = (2 * q1 + q0 + p1 + 2) >> 2;
+    s[-1] = (2 * p1 + p0 + q1 + 2) >> 2;
+    s[0] = (2 * q1 + q0 + p1 + 2) >> 2;
   } else {
-    int tc = tc0 + 1;
-    int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
-    rp0 = clip3(0, 255, p0 + delta);
-    rq0 = clip3(0, 255, q0 - delta);
-  }
-  s[-step] = (uint8_t)rp0;
-  s[0] = (uint8_t)rq0;
-}
-
-// K1: luma, one wave. grid.x = mb_h (lane b holds MB (b, w - 2b)),
-// block = 16 threads.
-__global__ void deblock_luma_wave(uint8_t* __restrict__ Y, int stride,
-                                  MbParams m, int w) {
-  int b = blockIdx.x;
-  int c = w - 2 * b;
-  if (c < 0 || c >= m.mb_w) return;
-  int t = threadIdx.x;
-  int addr = b * m.mb_w + c;
-  bool on, left_ok, top_ok;
-  mb_enables(m, b, c, &on, &left_ok, &top_ok);
-  int qp = m.qp[addr], ao = m.a_off[addr], bo = m.b_off[addr];
-  bool t8 = m.t8[addr] != 0;
-  int bs_stride = 4 * m.mb_w;
-
-  // vertical edges: thread t filters pixel row 16b + t
-  uint8_t* row = Y + (size_t)(16 * b + t) * stride + 16 * c;
-  for (int ex = 0; ex < 4; ++ex) {
-    bool en = ex == 0 ? left_ok : ((ex & 1) ? on && !t8 : on);
-    int bs = m.bs_v[(4 * b + (t >> 2)) * bs_stride + 4 * c + ex];
-    if (!en || bs <= 0) continue;
-    int ia, ib;
-    edge_index(ex == 0 ? m.qp[addr - 1] : qp, qp, ao, bo, &ia, &ib);
-    int tc0 = kTc0[clip3(1, 3, bs) - 1][ia];
-    luma_line(row + 4 * ex, 1, bs, kAlpha[ia], kBeta[ib], tc0);
-  }
-  __syncthreads();
-  // horizontal edges: thread t filters pixel column 16c + t
-  uint8_t* col = Y + (size_t)(16 * b) * stride + 16 * c + t;
-  for (int ey = 0; ey < 4; ++ey) {
-    bool en = ey == 0 ? top_ok : ((ey & 1) ? on && !t8 : on);
-    int bs = m.bs_h[(4 * b + ey) * bs_stride + 4 * c + (t >> 2)];
-    if (!en || bs <= 0) continue;
-    int ia, ib;
-    edge_index(ey == 0 ? m.qp[addr - m.mb_w] : qp, qp, ao, bo, &ia, &ib);
-    int tc0 = kTc0[clip3(1, 3, bs) - 1][ia];
-    luma_line(col + (size_t)(4 * ey) * stride, stride, bs, kAlpha[ia],
-              kBeta[ib], tc0);
+    const int tc = t.tc0 + 1;
+    const int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
+    s[-1] = clip3(0, 255, p0 + delta);
+    s[0] = clip3(0, 255, q0 - delta);
   }
 }
 
-// K2: Cb and Cr, one wave. block = 16 threads: 0-7 Cb lines, 8-15 Cr.
-__global__ void deblock_chroma_wave(uint8_t* __restrict__ U,
-                                    uint8_t* __restrict__ V, int stride,
-                                    MbParams m, const int32_t* qpc_cb,
-                                    const int32_t* qpc_cr, int w) {
-  int b = blockIdx.x;
-  int c = w - 2 * b;
-  if (c < 0 || c >= m.mb_w) return;
-  int comp = threadIdx.x >> 3;
-  int l = threadIdx.x & 7;
-  uint8_t* P = comp ? V : U;
+__device__ __forceinline__ void unpack(uint32_t w, int* v) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = (w >> (8 * k)) & 0xff;
+}
+
+// Lane 0 of the CTA takes the next MB row; every lane gets it.
+__device__ __forceinline__ int next_row(int* ticket) {
+  int b = 0;
+  if (threadIdx.x == 0) b = atomicAdd(ticket, 1);
+  return __shfl_sync(kMask, b, 0);
+}
+
+// Waits until `need` MBs of row b-1 are final. Lane 0 polls with acquire
+// loads (`seen` keeps the last value it read, so a satisfied wait costs
+// nothing); the warp barrier then orders every lane's later loads after
+// that acquire.
+__device__ __forceinline__ void wait_above(int* progress, int b, int need,
+                                           int& seen) {
+  if (threadIdx.x == 0 && seen < need) {
+    cuda::atomic_ref<int, cuda::thread_scope_device> above(progress[b - 1]);
+    for (int polls = 0;; ++polls) {
+      seen = above.load(cuda::memory_order_acquire);
+      if (seen >= need) break;
+      if (polls > kMaxPolls) __trap();
+      __nanosleep(32);
+    }
+  }
+  __syncwarp(kMask);
+}
+
+// Publishes that `done` MBs of row b are final: every lane's stores, then
+// the warp barrier, then one release store by lane 0. At device scope the
+// release orders every store that the barrier ordered before it; a full
+// __threadfence in front of it would order nothing more and stall the
+// warp on every MB.
+__device__ __forceinline__ void publish(int* progress, int b, int done) {
+  __syncwarp(kMask);
+  if (threadIdx.x == 0) {
+    cuda::atomic_ref<int, cuda::thread_scope_device> mine(progress[b]);
+    mine.store(done, cuda::memory_order_release);
+  }
+}
+
+// K1: luma. in / out (16 mb_h, 16 mb_w) uint8 planes with row pitch
+// `stride` (a multiple of 16, 16-byte aligned); ticket (1,) and progress
+// (mb_h,) int32, zero at launch. 16 threads per CTA, any grid size.
+__global__ void __launch_bounds__(kLanes)
+    deblock_luma_rows(const uint8_t* __restrict__ in, uint8_t* out,
+                      int stride, MbParams m, int* ticket, int* progress) {
+  __shared__ int tile[16][17];   // the MB after its vertical edges
+  __shared__ int left[16][4];    // columns 12-15 of the previous MB
+  const int t = threadIdx.x;
+  const int bs_stride = 4 * m.mb_w;
+  for (int b = next_row(ticket); b < m.mb_h; b = next_row(ticket)) {
+    const uint8_t* in_row = in + (size_t)(16 * b + t) * stride;
+    uint8_t* out_row = out + (size_t)(16 * b + t) * stride;
+    uint8_t* out_col = out + (ptrdiff_t)(16 * b - 4) * stride + t;
+    int seen = 0;
+    uint4 nxt = __ldg(reinterpret_cast<const uint4*>(in_row));
+    for (int c = 0; c < m.mb_w; ++c) {
+      const uint4 cur = nxt;
+      if (c + 1 < m.mb_w)
+        nxt = __ldg(reinterpret_cast<const uint4*>(in_row + 16 * (c + 1)));
+      const MbEdges e = load_mb(m, b, c);
+      const uint32_t bsv = __ldg(reinterpret_cast<const uint32_t*>(
+          m.bs_v + (4 * b + (t >> 2)) * bs_stride + 4 * c));
+      int bsh[4];
+#pragma unroll
+      for (int ey = 0; ey < 4; ++ey)
+        bsh[ey] = __ldg(m.bs_h + (4 * b + ey) * bs_stride + 4 * c + (t >> 2));
+
+      // vertical edges along row t: v = 4 left samples + 16 of the MB
+      int v[20];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = c > 0 ? left[t][k] : 0;
+      unpack(cur.x, v + 4);
+      unpack(cur.y, v + 8);
+      unpack(cur.z, v + 12);
+      unpack(cur.w, v + 16);
+#pragma unroll
+      for (int ex = 0; ex < 4; ++ex) {
+        const bool en = ex == 0 ? e.left_ok : ((ex & 1) ? e.inner : e.on);
+        const int bs = bs_byte(bsv, ex);
+        if (!en || bs <= 0) continue;
+        luma_line(v + 4 + 4 * ex, bs,
+                  thresholds(ex == 0 ? e.qp_l : e.qp, e.qp, e.ao, e.bo, bs));
+      }
+      if (c > 0) {
+#pragma unroll
+        for (int k = 1; k < 4; ++k) out_row[16 * c - 4 + k] = (uint8_t)v[k];
+      }
+#pragma unroll
+      for (int x = 0; x < 16; ++x) tile[t][x] = v[4 + x];
+      if (c > 0) publish(progress, b, c);     // MB c-1 is final
+
+      // horizontal edges down column t: h = 4 samples above + 16 of the MB
+      int h[20];
+      if (b > 0) {
+        wait_above(progress, b, c + 1, seen);
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+          h[y] = __ldcg(out_col + (size_t)y * stride + 16 * c);
+      } else {
+        __syncwarp(kMask);
+#pragma unroll
+        for (int y = 0; y < 4; ++y) h[y] = 0;
+      }
+#pragma unroll
+      for (int y = 0; y < 16; ++y) h[4 + y] = tile[y][t];
+#pragma unroll
+      for (int ey = 0; ey < 4; ++ey) {
+        const bool en = ey == 0 ? e.top_ok : ((ey & 1) ? e.inner : e.on);
+        const int bs = bsh[ey];
+        if (!en || bs <= 0) continue;
+        luma_line(h + 4 + 4 * ey, bs,
+                  thresholds(ey == 0 ? e.qp_t : e.qp, e.qp, e.ao, e.bo, bs));
+      }
+      if (b > 0) {
+#pragma unroll
+        for (int y = 1; y < 4; ++y)
+          out_col[(size_t)y * stride + 16 * c] = (uint8_t)h[y];
+      }
+#pragma unroll
+      for (int y = 4; y < 20; ++y)
+        out_col[(size_t)y * stride + 16 * c] = (uint8_t)h[y];
+      if (t >= 12) {
+#pragma unroll
+        for (int y = 0; y < 16; ++y) left[y][t - 12] = h[4 + y];
+      }
+      if (c + 1 == m.mb_w)
+        publish(progress, b, m.mb_w);         // the last MB has no right
+      else                                    // neighbour: final now
+        __syncwarp(kMask);
+    }
+  }
+}
+
+// K2: Cb and Cr. in_u / in_v / out_u / out_v (8 mb_h, 8 mb_w) uint8
+// planes with row pitch `stride` (a multiple of 8, 8-byte aligned);
+// qpc_cb / qpc_cr (52,) QP -> QPc; ticket and progress as for K1. Lanes
+// 0-7 filter Cb lines, 8-15 Cr lines: 2 vertical then 2 horizontal edges.
+__global__ void __launch_bounds__(kLanes)
+    deblock_chroma_rows(const uint8_t* __restrict__ in_u,
+                        const uint8_t* __restrict__ in_v, uint8_t* out_u,
+                        uint8_t* out_v, int stride, MbParams m,
+                        const int32_t* __restrict__ qpc_cb,
+                        const int32_t* __restrict__ qpc_cr, int* ticket,
+                        int* progress) {
+  __shared__ int tile[2][8][9];   // the MBs after their vertical edges
+  __shared__ int left[2][8][2];   // columns 6-7 of the previous MBs
+  const int comp = threadIdx.x >> 3;
+  const int l = threadIdx.x & 7;
+  const uint8_t* in = comp ? in_v : in_u;
+  uint8_t* out = comp ? out_v : out_u;
   const int32_t* tab = comp ? qpc_cr : qpc_cb;
-  int addr = b * m.mb_w + c;
-  bool on, left_ok, top_ok;
-  mb_enables(m, b, c, &on, &left_ok, &top_ok);
-  int qpc = tab[clip3(0, 51, m.qp[addr])];
-  int ao = m.a_off[addr], bo = m.b_off[addr];
-  int bs_stride = 4 * m.mb_w;
+  const int bs_stride = 4 * m.mb_w;
+  for (int b = next_row(ticket); b < m.mb_h; b = next_row(ticket)) {
+    const uint8_t* in_row = in + (size_t)(8 * b + l) * stride;
+    uint8_t* out_row = out + (size_t)(8 * b + l) * stride;
+    uint8_t* out_col = out + (ptrdiff_t)(8 * b - 2) * stride + l;
+    int seen = 0;
+    uint2 nxt = __ldg(reinterpret_cast<const uint2*>(in_row));
+    for (int c = 0; c < m.mb_w; ++c) {
+      const uint2 cur = nxt;
+      if (c + 1 < m.mb_w)
+        nxt = __ldg(reinterpret_cast<const uint2*>(in_row + 8 * (c + 1)));
+      const MbEdges e = load_mb(m, b, c);
+      const int qpc = __ldg(tab + clip3(0, 51, e.qp));
+      const int qpc_l = __ldg(tab + clip3(0, 51, e.qp_l));
+      const int qpc_t = __ldg(tab + clip3(0, 51, e.qp_t));
+      const uint32_t bsv = __ldg(reinterpret_cast<const uint32_t*>(
+          m.bs_v + (4 * b + (l >> 1)) * bs_stride + 4 * c));
+      int bsh[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        bsh[k] =
+            __ldg(m.bs_h + (4 * b + 2 * k) * bs_stride + 4 * c + (l >> 1));
 
-  uint8_t* row = P + (size_t)(8 * b + l) * stride + 8 * c;
-  for (int ex = 0; ex < 4; ex += 2) {
-    bool en = ex == 0 ? left_ok : on;
-    int bs = m.bs_v[(4 * b + (l >> 1)) * bs_stride + 4 * c + ex];
-    if (!en || bs <= 0) continue;
-    int qpc_p = ex == 0 ? tab[clip3(0, 51, m.qp[addr - 1])] : qpc;
-    int ia, ib;
-    edge_index(qpc_p, qpc, ao, bo, &ia, &ib);
-    int tc0 = kTc0[clip3(1, 3, bs) - 1][ia];
-    chroma_line(row + 2 * ex, 1, bs, kAlpha[ia], kBeta[ib], tc0);
-  }
-  __syncthreads();
-  uint8_t* col = P + (size_t)(8 * b) * stride + 8 * c + l;
-  for (int ey = 0; ey < 4; ey += 2) {
-    bool en = ey == 0 ? top_ok : on;
-    int bs = m.bs_h[(4 * b + ey) * bs_stride + 4 * c + (l >> 1)];
-    if (!en || bs <= 0) continue;
-    int qpc_p = ey == 0 ? tab[clip3(0, 51, m.qp[addr - m.mb_w])] : qpc;
-    int ia, ib;
-    edge_index(qpc_p, qpc, ao, bo, &ia, &ib);
-    int tc0 = kTc0[clip3(1, 3, bs) - 1][ia];
-    chroma_line(col + (size_t)(2 * ey) * stride, stride, bs, kAlpha[ia],
-                kBeta[ib], tc0);
+      // vertical edges 0 and 2 along row l: 2 left samples + 8 of the MB
+      int v[10];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) v[k] = c > 0 ? left[comp][l][k] : 0;
+      unpack(cur.x, v + 2);
+      unpack(cur.y, v + 6);
+#pragma unroll
+      for (int ex = 0; ex < 4; ex += 2) {
+        const bool en = ex == 0 ? e.left_ok : e.on;
+        const int bs = bs_byte(bsv, ex);
+        if (!en || bs <= 0) continue;
+        chroma_line(v + 2 + 2 * ex, bs,
+                    thresholds(ex == 0 ? qpc_l : qpc, qpc, e.ao, e.bo, bs));
+      }
+      if (c > 0) out_row[8 * c - 1] = (uint8_t)v[1];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) tile[comp][l][x] = v[2 + x];
+      if (c > 0) publish(progress, b, c);     // MB c-1 is final
+
+      // horizontal edges 0 and 2 down column l: 2 samples above + 8
+      int h[10];
+      if (b > 0) {
+        wait_above(progress, b, c + 1, seen);
+#pragma unroll
+        for (int y = 0; y < 2; ++y)
+          h[y] = __ldcg(out_col + (size_t)y * stride + 8 * c);
+      } else {
+        __syncwarp(kMask);
+        h[0] = h[1] = 0;
+      }
+#pragma unroll
+      for (int y = 0; y < 8; ++y) h[2 + y] = tile[comp][y][l];
+#pragma unroll
+      for (int ey = 0; ey < 4; ey += 2) {
+        const bool en = ey == 0 ? e.top_ok : e.on;
+        const int bs = bsh[ey >> 1];
+        if (!en || bs <= 0) continue;
+        chroma_line(h + 2 + 2 * ey, bs,
+                    thresholds(ey == 0 ? qpc_t : qpc, qpc, e.ao, e.bo, bs));
+      }
+      if (b > 0) out_col[(size_t)stride + 8 * c] = (uint8_t)h[1];
+#pragma unroll
+      for (int y = 2; y < 10; ++y)
+        out_col[(size_t)y * stride + 8 * c] = (uint8_t)h[y];
+      if (l >= 6) {
+#pragma unroll
+        for (int y = 0; y < 8; ++y) left[comp][y][l - 6] = h[2 + y];
+      }
+      if (c + 1 == m.mb_w)
+        publish(progress, b, m.mb_w);
+      else
+        __syncwarp(kMask);
+    }
   }
 }
 
@@ -265,29 +468,35 @@ MbParams make_params(const int32_t* qp, const int32_t* disable,
 
 }  // namespace
 
-// Host launchers: one wave each, on `stream`. They do not check errors;
-// the caller checks cudaGetLastError() right after each launch.
-void launch_deblock_luma_wave(uint8_t* Y, int stride, const int32_t* qp,
-                              const int32_t* disable, const int32_t* a_off,
-                              const int32_t* b_off, const int32_t* slice_id,
-                              const int32_t* t8, const int8_t* bs_v,
-                              const int8_t* bs_h, int mb_w, int mb_h, int w,
-                              cudaStream_t stream) {
+// Host launchers: one launch per picture on `stream`, `grid` CTAs.
+// scratch is (1 + mb_h,) int32 zeros: the row ticket, then progress.
+// They do not check errors; the caller checks cudaGetLastError() right
+// after each launch.
+void launch_deblock_luma(const uint8_t* in, uint8_t* out, int stride,
+                         const int32_t* qp, const int32_t* disable,
+                         const int32_t* a_off, const int32_t* b_off,
+                         const int32_t* slice_id, const int32_t* t8,
+                         const int8_t* bs_v, const int8_t* bs_h,
+                         int* scratch, int mb_w, int mb_h, int grid,
+                         cudaStream_t stream) {
   MbParams m = make_params(qp, disable, a_off, b_off, slice_id, t8, bs_v,
                            bs_h, mb_w, mb_h);
-  deblock_luma_wave<<<mb_h, 16, 0, stream>>>(Y, stride, m, w);
+  deblock_luma_rows<<<grid, kLanes, 0, stream>>>(in, out, stride, m,
+                                                 scratch, scratch + 1);
 }
 
-void launch_deblock_chroma_wave(uint8_t* U, uint8_t* V, int stride,
-                                const int32_t* qp, const int32_t* disable,
-                                const int32_t* a_off, const int32_t* b_off,
-                                const int32_t* slice_id, const int32_t* t8,
-                                const int8_t* bs_v, const int8_t* bs_h,
-                                const int32_t* qpc_cb, const int32_t* qpc_cr,
-                                int mb_w, int mb_h, int w,
-                                cudaStream_t stream) {
+void launch_deblock_chroma(const uint8_t* in_u, const uint8_t* in_v,
+                           uint8_t* out_u, uint8_t* out_v, int stride,
+                           const int32_t* qp, const int32_t* disable,
+                           const int32_t* a_off, const int32_t* b_off,
+                           const int32_t* slice_id, const int32_t* t8,
+                           const int8_t* bs_v, const int8_t* bs_h,
+                           const int32_t* qpc_cb, const int32_t* qpc_cr,
+                           int* scratch, int mb_w, int mb_h, int grid,
+                           cudaStream_t stream) {
   MbParams m = make_params(qp, disable, a_off, b_off, slice_id, t8, bs_v,
                            bs_h, mb_w, mb_h);
-  deblock_chroma_wave<<<mb_h, 16, 0, stream>>>(U, V, stride, m, qpc_cb,
-                                               qpc_cr, w);
+  deblock_chroma_rows<<<grid, kLanes, 0, stream>>>(
+      in_u, in_v, out_u, out_v, stride, m, qpc_cb, qpc_cr, scratch,
+      scratch + 1);
 }

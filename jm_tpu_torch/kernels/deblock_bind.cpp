@@ -8,92 +8,122 @@
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 
-void launch_deblock_luma_wave(uint8_t* Y, int stride, const int32_t* qp,
-                              const int32_t* disable, const int32_t* a_off,
-                              const int32_t* b_off, const int32_t* slice_id,
-                              const int32_t* t8, const int8_t* bs_v,
-                              const int8_t* bs_h, int mb_w, int mb_h, int w,
-                              cudaStream_t stream);
-void launch_deblock_chroma_wave(uint8_t* U, uint8_t* V, int stride,
-                                const int32_t* qp, const int32_t* disable,
-                                const int32_t* a_off, const int32_t* b_off,
-                                const int32_t* slice_id, const int32_t* t8,
-                                const int8_t* bs_v, const int8_t* bs_h,
-                                const int32_t* qpc_cb, const int32_t* qpc_cr,
-                                int mb_w, int mb_h, int w,
-                                cudaStream_t stream);
+#include <algorithm>
+
+void launch_deblock_luma(const uint8_t* in, uint8_t* out, int stride,
+                         const int32_t* qp, const int32_t* disable,
+                         const int32_t* a_off, const int32_t* b_off,
+                         const int32_t* slice_id, const int32_t* t8,
+                         const int8_t* bs_v, const int8_t* bs_h,
+                         int* scratch, int mb_w, int mb_h, int grid,
+                         cudaStream_t stream);
+void launch_deblock_chroma(const uint8_t* in_u, const uint8_t* in_v,
+                           uint8_t* out_u, uint8_t* out_v, int stride,
+                           const int32_t* qp, const int32_t* disable,
+                           const int32_t* a_off, const int32_t* b_off,
+                           const int32_t* slice_id, const int32_t* t8,
+                           const int8_t* bs_v, const int8_t* bs_h,
+                           const int32_t* qpc_cb, const int32_t* qpc_cr,
+                           int* scratch, int mb_w, int mb_h, int grid,
+                           cudaStream_t stream);
 
 namespace {
 
-void check(const torch::Tensor& t, torch::ScalarType dtype, const char* name) {
+void check(const torch::Tensor& t, torch::ScalarType dtype, const char* name,
+           int64_t align = 1) {
   TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
   TORCH_CHECK(t.scalar_type() == dtype, name, " has the wrong dtype");
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(t.data_ptr()) % align == 0, name,
+              " must be ", align, "-byte aligned");
 }
 
-int n_waves(int mb_w, int mb_h) {
-  return mb_h > 1 ? mb_w + 2 * (mb_h - 1) : mb_w;
+void check_mb_args(const torch::Tensor& bs_v, const torch::Tensor& bs_h,
+                   std::initializer_list<const torch::Tensor*> per_mb,
+                   const torch::Tensor& scratch, int64_t mb_h) {
+  // bS rows are read 4 entries (one 32-bit word) at a time
+  check(bs_v, torch::kInt8, "bs_v", 4);
+  check(bs_h, torch::kInt8, "bs_h");
+  for (auto* t : per_mb) check(*t, torch::kInt32, "per-MB parameter");
+  check(scratch, torch::kInt32, "scratch");
+  TORCH_CHECK(scratch.numel() == 1 + mb_h, "scratch must hold 1 + mb_h");
+}
+
+// One CTA per MB row, at most one per SM: a CTA that finishes its row
+// takes the next unclaimed one.
+int grid_size(int64_t mb_h) {
+  return (int)std::min<int64_t>(
+      mb_h, at::cuda::getCurrentDeviceProperties()->multiProcessorCount);
 }
 
 }  // namespace
 
-// Filters Y (16 mb_h, 16 mb_w) uint8 in place; returns the launch count.
-int64_t deblock_luma(torch::Tensor Y, torch::Tensor bs_v, torch::Tensor bs_h,
-                     torch::Tensor qp, torch::Tensor disable,
-                     torch::Tensor a_off, torch::Tensor b_off,
-                     torch::Tensor slice_id, torch::Tensor t8, int64_t mb_w,
-                     int64_t mb_h) {
-  check(Y, torch::kUInt8, "Y");
-  for (auto* t : {&bs_v, &bs_h}) check(*t, torch::kInt8, "bs");
-  for (auto* t : {&qp, &disable, &a_off, &b_off, &slice_id, &t8})
-    check(*t, torch::kInt32, "per-MB parameter");
+// K1: filters Y (16 mb_h, 16 mb_w) uint8 into Y_out; scratch is
+// (1 + mb_h,) int32 zeros. Returns the launch count (1).
+int64_t deblock_luma(torch::Tensor Y, torch::Tensor Y_out,
+                     torch::Tensor scratch, torch::Tensor bs_v,
+                     torch::Tensor bs_h, torch::Tensor qp,
+                     torch::Tensor disable, torch::Tensor a_off,
+                     torch::Tensor b_off, torch::Tensor slice_id,
+                     torch::Tensor t8, int64_t mb_w, int64_t mb_h) {
+  // the interior of each MB row is read as 16-byte vectors
+  check(Y, torch::kUInt8, "Y", 16);
+  check(Y_out, torch::kUInt8, "Y_out");
+  TORCH_CHECK(Y.sizes() == Y_out.sizes(), "Y and Y_out shapes differ");
+  check_mb_args(bs_v, bs_h, {&qp, &disable, &a_off, &b_off, &slice_id, &t8},
+                scratch, mb_h);
   const c10::cuda::CUDAGuard guard(Y.device());
-  cudaStream_t stream = at::cuda::getCurrentCUDAStream();
-  int nw = n_waves(mb_w, mb_h);
-  for (int w = 0; w < nw; ++w) {
-    launch_deblock_luma_wave(
-        Y.data_ptr<uint8_t>(), (int)Y.stride(0), qp.data_ptr<int32_t>(),
-        disable.data_ptr<int32_t>(), a_off.data_ptr<int32_t>(),
-        b_off.data_ptr<int32_t>(), slice_id.data_ptr<int32_t>(),
-        t8.data_ptr<int32_t>(), bs_v.data_ptr<int8_t>(),
-        bs_h.data_ptr<int8_t>(), (int)mb_w, (int)mb_h, w, stream);
-    C10_CUDA_KERNEL_LAUNCH_CHECK();
-  }
-  return nw;
+  launch_deblock_luma(
+      Y.data_ptr<uint8_t>(), Y_out.data_ptr<uint8_t>(), (int)Y.stride(0),
+      qp.data_ptr<int32_t>(), disable.data_ptr<int32_t>(),
+      a_off.data_ptr<int32_t>(), b_off.data_ptr<int32_t>(),
+      slice_id.data_ptr<int32_t>(), t8.data_ptr<int32_t>(),
+      bs_v.data_ptr<int8_t>(), bs_h.data_ptr<int8_t>(),
+      scratch.data_ptr<int32_t>(), (int)mb_w, (int)mb_h, grid_size(mb_h),
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return 1;
 }
 
-// Filters U and V (8 mb_h, 8 mb_w) uint8 in place; returns the launch count.
-int64_t deblock_chroma(torch::Tensor U, torch::Tensor V, torch::Tensor bs_v,
-                       torch::Tensor bs_h, torch::Tensor qp,
-                       torch::Tensor disable, torch::Tensor a_off,
-                       torch::Tensor b_off, torch::Tensor slice_id,
-                       torch::Tensor t8, torch::Tensor qpc_cb,
-                       torch::Tensor qpc_cr, int64_t mb_w, int64_t mb_h) {
-  check(U, torch::kUInt8, "U");
-  check(V, torch::kUInt8, "V");
-  TORCH_CHECK(U.stride(0) == V.stride(0), "U and V strides differ");
-  for (auto* t : {&bs_v, &bs_h}) check(*t, torch::kInt8, "bs");
-  for (auto* t : {&qp, &disable, &a_off, &b_off, &slice_id, &t8, &qpc_cb,
-                  &qpc_cr})
-    check(*t, torch::kInt32, "per-MB parameter");
+// K2: filters U and V (8 mb_h, 8 mb_w) uint8 into U_out and V_out;
+// scratch is (1 + mb_h,) int32 zeros. Returns the launch count (1).
+int64_t deblock_chroma(torch::Tensor U, torch::Tensor V, torch::Tensor U_out,
+                       torch::Tensor V_out, torch::Tensor scratch,
+                       torch::Tensor bs_v, torch::Tensor bs_h,
+                       torch::Tensor qp, torch::Tensor disable,
+                       torch::Tensor a_off, torch::Tensor b_off,
+                       torch::Tensor slice_id, torch::Tensor t8,
+                       torch::Tensor qpc_cb, torch::Tensor qpc_cr,
+                       int64_t mb_w, int64_t mb_h) {
+  // the interior of each MB row is read as 8-byte vectors
+  check(U, torch::kUInt8, "U", 8);
+  check(V, torch::kUInt8, "V", 8);
+  check(U_out, torch::kUInt8, "U_out");
+  check(V_out, torch::kUInt8, "V_out");
+  for (auto* t : {&V, &U_out, &V_out})
+    TORCH_CHECK(t->sizes() == U.sizes(), "chroma plane shapes differ");
+  check_mb_args(bs_v, bs_h,
+                {&qp, &disable, &a_off, &b_off, &slice_id, &t8, &qpc_cb,
+                 &qpc_cr},
+                scratch, mb_h);
   const c10::cuda::CUDAGuard guard(U.device());
-  cudaStream_t stream = at::cuda::getCurrentCUDAStream();
-  int nw = n_waves(mb_w, mb_h);
-  for (int w = 0; w < nw; ++w) {
-    launch_deblock_chroma_wave(
-        U.data_ptr<uint8_t>(), V.data_ptr<uint8_t>(), (int)U.stride(0),
-        qp.data_ptr<int32_t>(), disable.data_ptr<int32_t>(),
-        a_off.data_ptr<int32_t>(), b_off.data_ptr<int32_t>(),
-        slice_id.data_ptr<int32_t>(), t8.data_ptr<int32_t>(),
-        bs_v.data_ptr<int8_t>(), bs_h.data_ptr<int8_t>(),
-        qpc_cb.data_ptr<int32_t>(), qpc_cr.data_ptr<int32_t>(), (int)mb_w,
-        (int)mb_h, w, stream);
-    C10_CUDA_KERNEL_LAUNCH_CHECK();
-  }
-  return nw;
+  launch_deblock_chroma(
+      U.data_ptr<uint8_t>(), V.data_ptr<uint8_t>(),
+      U_out.data_ptr<uint8_t>(), V_out.data_ptr<uint8_t>(),
+      (int)U.stride(0), qp.data_ptr<int32_t>(), disable.data_ptr<int32_t>(),
+      a_off.data_ptr<int32_t>(), b_off.data_ptr<int32_t>(),
+      slice_id.data_ptr<int32_t>(), t8.data_ptr<int32_t>(),
+      bs_v.data_ptr<int8_t>(), bs_h.data_ptr<int8_t>(),
+      qpc_cb.data_ptr<int32_t>(), qpc_cr.data_ptr<int32_t>(),
+      scratch.data_ptr<int32_t>(), (int)mb_w, (int)mb_h, grid_size(mb_h),
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return 1;
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("deblock_luma", &deblock_luma, "K1: luma deblock, in place");
-  m.def("deblock_chroma", &deblock_chroma, "K2: chroma deblock, in place");
+  m.def("deblock_luma", &deblock_luma,
+        "K1: luma deblock, one persistent launch");
+  m.def("deblock_chroma", &deblock_chroma,
+        "K2: chroma deblock, one persistent launch");
 }

@@ -4,10 +4,13 @@ jm_tpu/ops/deblock_pallas.py.
 
 - ``compute_bs``: boundary strengths from the per-MB SoA state (mixed
   intra/inter, so the IDR frame uses it too);
-- ``deblock_plain``: the plain PyTorch wavefront;
+- ``deblock_plain``: the plain PyTorch wavefront, built on the per-MB
+  tile steps ``luma_vertical`` / ``luma_horizontal`` and their chroma
+  twins;
 - ``deblock``: the public entry. CUDA tensors go to the hand-written
-  kernels (jm_tpu_torch/kernels/deblock.cu); CPU tensors go to
-  ``deblock_plain``. Nothing falls back from one to the other.
+  kernels (jm_tpu_torch/kernels/deblock.cu, one persistent launch each);
+  CPU tensors go to ``deblock_plain``. Nothing falls back from one to the
+  other.
 
 Wavefront: macroblock (b, c) depends on its left (b, c-1) and top
 (b-1, c) neighbours and on (b-1, c+1), whose left-edge filter touches
@@ -16,7 +19,10 @@ the top MB's right columns. Wave w holds the MBs (b, w - 2b)
 diagonals), so n_w = mb_w + 2 (mb_h - 1) waves run in order and the MBs
 of one wave touch disjoint pixels. Per MB the order is DeblockMb's: four
 vertical edges left to right, then four horizontal edges top to bottom;
-MB-edge filters modify the neighbours' 3-pixel fringes in place.
+MB-edge filters modify the neighbours' 3-pixel fringes in place. The
+kernels walk the same dependency row by row: the vertical edges of
+(b, c) need only (b, c-1), and its horizontal edges need MB (b-1, c)
+final, i.e. also the vertical edges of (b-1, c+1).
 """
 
 from __future__ import annotations
@@ -187,7 +193,7 @@ def _neighbor(v2d, axis: int):
     return torch.cat([v2d[:1], v2d[:-1]], dim=0)
 
 
-class _MbParams:
+class MbParams:
     """Per-MB filter state of one picture, shared by both plain passes:
     qp, offsets, the MB / left / top edge enables, neighbour qps."""
 
@@ -211,27 +217,29 @@ class _MbParams:
         self.qp_t = _neighbor(self.qp, 0)
         self.mb_w, self.mb_h = mb_w, mb_h
 
-    def waves(self, bs_v, bs_h):
-        """Per wave with MBs: (bb, cc, per-lane params, bv, bh) where bv /
+    def lanes(self, bb, cc, bs_v, bs_h):
+        """The MBs (bb, cc) as lanes: (per-lane params, bv, bh) where bv /
         bh (B, 4 edges, 4 block lines) are the lanes' bS."""
-        dev = self.qp.device
-        b_all = torch.arange(self.mb_h, device=dev)
-        a4 = torch.arange(4, device=dev)
-        bsv, bsh = bs_v.to(I32), bs_h.to(I32)
+        a4 = torch.arange(4, device=bb.device)
+        lane = {k: getattr(self, k)[bb, cc] for k in (
+            "qp", "qp_l", "qp_t", "ao", "bo", "on", "left_ok", "top_ok",
+            "t8")}
+        bv = bs_v.to(I32)[(4 * bb)[:, None, None] + a4[None, None, :],
+                          (4 * cc)[:, None, None] + a4[None, :, None]]
+        bh = bs_h.to(I32)[(4 * bb)[:, None, None] + a4[None, :, None],
+                          (4 * cc)[:, None, None] + a4[None, None, :]]
+        return lane, bv, bh
+
+    def waves(self, bs_v, bs_h):
+        """Per wave with MBs: (bb, cc, *self.lanes(bb, cc, ...))."""
+        b_all = torch.arange(self.mb_h, device=self.qp.device)
         for wv in range(n_waves(self.mb_w, self.mb_h)):
             c_all = wv - 2 * b_all
             valid = (c_all >= 0) & (c_all < self.mb_w)
             if not bool(valid.any()):
                 continue
             bb, cc = b_all[valid], c_all[valid]
-            lane = {k: getattr(self, k)[bb, cc] for k in (
-                "qp", "qp_l", "qp_t", "ao", "bo", "on", "left_ok",
-                "top_ok", "t8")}
-            bv = bsv[(4 * bb)[:, None, None] + a4[None, None, :],
-                     (4 * cc)[:, None, None] + a4[None, :, None]]
-            bh = bsh[(4 * bb)[:, None, None] + a4[None, :, None],
-                     (4 * cc)[:, None, None] + a4[None, None, :]]
-            yield bb, cc, lane, bv, bh
+            yield (bb, cc, *self.lanes(bb, cc, bs_v, bs_h))
 
 
 def _thresholds(qp_p, qp_q, ao, bo, dev):
@@ -248,95 +256,124 @@ def _tc0(bs_line, ia):
                                     + ia).long()]
 
 
+def luma_vertical(tile, ln, bv):
+    """Filters the 4 vertical edges, left to right, of the 20x20 int32
+    tiles (B, 20, 20) of B MBs in place (each MB with the 4 samples left
+    of and above it). ln, bv: the MBs' ``MbParams.lanes``."""
+    dev = tile.device
+    inner = ln["on"] & ~ln["t8"]
+    for ex in range(4):
+        en = ln["left_ok"] if ex == 0 else (inner if ex in (1, 3)
+                                            else ln["on"])
+        al, be, ia = _thresholds(ln["qp_l"] if ex == 0 else ln["qp"],
+                                 ln["qp"], ln["ao"], ln["bo"], dev)
+        bs_line = bv[:, ex].repeat_interleave(4, dim=1)   # (B, 16)
+        x = 4 * ex + 4
+        tile[:, 4:20, x - 4:x + 4] = _luma_edge(
+            tile[:, 4:20, x - 4:x + 4], bs_line, al, be,
+            _tc0(bs_line, ia), en[:, None])
+
+
+def luma_horizontal(tile, ln, bh):
+    """The 4 horizontal edges, top to bottom, of the tiles of
+    ``luma_vertical``; ln, bh: the MBs' ``MbParams.lanes``."""
+    dev = tile.device
+    inner = ln["on"] & ~ln["t8"]
+    for ey in range(4):
+        en = ln["top_ok"] if ey == 0 else (inner if ey in (1, 3)
+                                           else ln["on"])
+        al, be, ia = _thresholds(ln["qp_t"] if ey == 0 else ln["qp"],
+                                 ln["qp"], ln["ao"], ln["bo"], dev)
+        bs_line = bh[:, ey].repeat_interleave(4, dim=1)
+        y = 4 * ey + 4
+        rows = tile[:, y - 4:y + 4, 4:20].transpose(1, 2)
+        tile[:, y - 4:y + 4, 4:20] = _luma_edge(
+            rows, bs_line, al, be, _tc0(bs_line, ia),
+            en[:, None]).transpose(1, 2)
+
+
 def deblock_luma_plain(Y, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
                        transform8x8, *, mb_w: int, mb_h: int):
     """Plain twin of the luma kernel (K1): returns the filtered Y. Works
     on an int32 copy padded by 4 samples top/left; per wave it gathers
     every MB's 20x20 tile (the MB plus its left / top fringes), filters
-    the 4 vertical then the 4 horizontal edges and scatters the tiles
-    back (tiles of one wave are disjoint)."""
+    it (``luma_vertical``, then ``luma_horizontal``) and scatters the
+    tiles back (tiles of one wave are disjoint)."""
     dev = Y.device
     h, w = 16 * mb_h, 16 * mb_w
     Yp = torch.zeros((h + 4, w + 4), dtype=I32, device=dev)
     Yp[4:, 4:] = Y.to(I32)
-    mp = _MbParams(qp, disable, a_off, b_off, slice_id, transform8x8,
-                   mb_w, mb_h)
+    mp = MbParams(qp, disable, a_off, b_off, slice_id, transform8x8,
+                  mb_w, mb_h)
     a20 = torch.arange(20, device=dev)
     for bb, cc, ln, bv, bh in mp.waves(bs_v, bs_h):
         ry = (16 * bb)[:, None, None] + a20[None, :, None]
         rx = (16 * cc)[:, None, None] + a20[None, None, :]
         tile = Yp[ry, rx]                                    # (B, 20, 20)
-        inner = ln["on"] & ~ln["t8"]
-        for ex in range(4):
-            en = ln["left_ok"] if ex == 0 else (inner if ex in (1, 3)
-                                                else ln["on"])
-            al, be, ia = _thresholds(ln["qp_l"] if ex == 0 else ln["qp"],
-                                     ln["qp"], ln["ao"], ln["bo"], dev)
-            bs_line = bv[:, ex].repeat_interleave(4, dim=1)   # (B, 16)
-            x = 4 * ex + 4
-            tile[:, 4:20, x - 4:x + 4] = _luma_edge(
-                tile[:, 4:20, x - 4:x + 4], bs_line, al, be,
-                _tc0(bs_line, ia), en[:, None])
-        for ey in range(4):
-            en = ln["top_ok"] if ey == 0 else (inner if ey in (1, 3)
-                                               else ln["on"])
-            al, be, ia = _thresholds(ln["qp_t"] if ey == 0 else ln["qp"],
-                                     ln["qp"], ln["ao"], ln["bo"], dev)
-            bs_line = bh[:, ey].repeat_interleave(4, dim=1)
-            y = 4 * ey + 4
-            rows = tile[:, y - 4:y + 4, 4:20].transpose(1, 2)
-            tile[:, y - 4:y + 4, 4:20] = _luma_edge(
-                rows, bs_line, al, be, _tc0(bs_line, ia),
-                en[:, None]).transpose(1, 2)
+        luma_vertical(tile, ln, bv)
+        luma_horizontal(tile, ln, bh)
         Yp[ry, rx] = tile
     return Yp[4:, 4:].to(torch.uint8)
+
+
+def _chroma_filter(cols, qp_p, ln, bs_line, en, qpc_cb, qpc_cr):
+    """Cb and Cr filter lines cols (B, 2, 8, 4) across one edge."""
+    outs = []
+    for comp, tab in enumerate((qpc_cb.to(I32), qpc_cr.to(I32))):
+        al, be, ia = _thresholds(tab[torch.clamp(qp_p, 0, 51).long()],
+                                 tab[torch.clamp(ln["qp"], 0, 51).long()],
+                                 ln["ao"], ln["bo"], cols.device)
+        outs.append(_chroma_edge(cols[:, comp], bs_line, al, be,
+                                 _tc0(bs_line, ia), en[:, None]))
+    return torch.stack(outs, dim=1)
+
+
+def chroma_vertical(ct, ln, bv, qpc_cb, qpc_cr):
+    """Filters vertical edges 0 and 2 of the 12x12 int32 tiles
+    (B, 2, 12, 12) of B MBs' Cb and Cr in place (each MB with the 4
+    samples left of and above it). ln, bv: the MBs' ``MbParams.lanes``;
+    qpc_cb / qpc_cr (52,) QP -> QPc."""
+    for ex in (0, 2):
+        en = ln["left_ok"] if ex == 0 else ln["on"]
+        bs_line = bv[:, ex].repeat_interleave(2, dim=1)       # (B, 8)
+        c0 = 2 + 2 * ex
+        ct[:, :, 4:12, c0:c0 + 4] = _chroma_filter(
+            ct[:, :, 4:12, c0:c0 + 4], ln["qp_l"] if ex == 0 else ln["qp"],
+            ln, bs_line, en, qpc_cb, qpc_cr)
+
+
+def chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr):
+    """Horizontal edges 0 and 2 of the tiles of ``chroma_vertical``."""
+    for ey in (0, 2):
+        en = ln["top_ok"] if ey == 0 else ln["on"]
+        bs_line = bh[:, ey].repeat_interleave(2, dim=1)
+        r0 = 2 + 2 * ey
+        ct[:, :, r0:r0 + 4, 4:12] = _chroma_filter(
+            ct[:, :, r0:r0 + 4, 4:12].transpose(2, 3),
+            ln["qp_t"] if ey == 0 else ln["qp"], ln, bs_line, en, qpc_cb,
+            qpc_cr).transpose(2, 3)
 
 
 def deblock_chroma_plain(U, V, bs_v, bs_h, qp, disable, a_off, b_off,
                          slice_id, transform8x8, qpc_cb, qpc_cr, *,
                          mb_w: int, mb_h: int):
     """Plain twin of the chroma kernel (K2): returns filtered (U, V).
-    12x12 tiles per MB and component; edges 0 and 2 of each direction."""
+    12x12 tiles per MB and component, filtered by ``chroma_vertical``,
+    then ``chroma_horizontal``."""
     dev = U.device
     h, w = 8 * mb_h, 8 * mb_w
     Cp = torch.zeros((2, h + 4, w + 4), dtype=I32, device=dev)
     Cp[0, 4:, 4:] = U.to(I32)
     Cp[1, 4:, 4:] = V.to(I32)
-    ctab = (qpc_cb.to(I32), qpc_cr.to(I32))
-    mp = _MbParams(qp, disable, a_off, b_off, slice_id, transform8x8,
-                   mb_w, mb_h)
+    mp = MbParams(qp, disable, a_off, b_off, slice_id, transform8x8,
+                  mb_w, mb_h)
     a12 = torch.arange(12, device=dev)
-
-    def filt(cols, qp_p, ln, bs_line, en):
-        outs = []
-        for comp in range(2):
-            tab = ctab[comp]
-            al, be, ia = _thresholds(tab[torch.clamp(qp_p, 0, 51).long()],
-                                     tab[torch.clamp(ln["qp"], 0, 51).long()],
-                                     ln["ao"], ln["bo"], dev)
-            outs.append(_chroma_edge(cols[:, comp], bs_line, al, be,
-                                     _tc0(bs_line, ia), en[:, None]))
-        return torch.stack(outs, dim=1)
-
     for bb, cc, ln, bv, bh in mp.waves(bs_v, bs_h):
         cy = (8 * bb)[:, None, None] + a12[None, :, None]
         cx = (8 * cc)[:, None, None] + a12[None, None, :]
         ct = Cp[:, cy, cx].transpose(0, 1)                   # (B, 2, 12, 12)
-        for ex in (0, 2):
-            en = ln["left_ok"] if ex == 0 else ln["on"]
-            bs_line = bv[:, ex].repeat_interleave(2, dim=1)   # (B, 8)
-            c0 = 2 + 2 * ex
-            ct[:, :, 4:12, c0:c0 + 4] = filt(
-                ct[:, :, 4:12, c0:c0 + 4],
-                ln["qp_l"] if ex == 0 else ln["qp"], ln, bs_line, en)
-        for ey in (0, 2):
-            en = ln["top_ok"] if ey == 0 else ln["on"]
-            bs_line = bh[:, ey].repeat_interleave(2, dim=1)
-            r0 = 2 + 2 * ey
-            ct[:, :, r0:r0 + 4, 4:12] = filt(
-                ct[:, :, r0:r0 + 4, 4:12].transpose(2, 3),
-                ln["qp_t"] if ey == 0 else ln["qp"], ln, bs_line,
-                en).transpose(2, 3)
+        chroma_vertical(ct, ln, bv, qpc_cb, qpc_cr)
+        chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr)
         Cp[:, cy, cx] = ct.transpose(0, 1)
     return Cp[0, 4:, 4:].to(torch.uint8), Cp[1, 4:, 4:].to(torch.uint8)
 
