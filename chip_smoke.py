@@ -30,7 +30,19 @@ Phases (any failure raises and exits non-zero):
      CPU with the plain versions must give the same payloads and
      deblocked reconstruction;
   5. torch.profiler over one P frame: wall and device-busy time, idle
-     share and the ops with the most device time.
+     share and the ops with the most device time;
+  6. decode on the card: after a warm-up decode of the first 3 frames,
+     H264Decoder(device="cuda").decode_annexb of the whole 17-frame
+     stream of phase 3, with the kernel launch counters reset just before
+     and read just after: every frame must equal the encoder's deblocked
+     recon byte for byte, and each kernel is launched once per picture.
+     Prints frames/s, IDR ms, P ms, the host parse / host intra recon /
+     device-stage split, and a torch.profiler view of the decode of the
+     IDR and of one P picture (the kernels' device time inside it).
+     Then the JM goldens tests/golden/ipp3.264 and qp20.264, decoded on
+     the card, must equal their _rec.yuv (JM ldecod's output);
+  7. decode cross-check: the first two frames (IDR + P) decoded on the
+     CPU (plain deblock) must equal the CUDA decode.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it holds the per-kernel numbers as JSON.
 """
@@ -51,6 +63,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from jm_tpu_torch import kernels  # noqa: E402
 from jm_tpu_torch.common.tables import chroma_qp  # noqa: E402
+from jm_tpu_torch.decoder.decoder import H264Decoder  # noqa: E402
 from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig  # noqa: E402
 from jm_tpu_torch.ops.deblock import (  # noqa: E402
     deblock_chroma_plain, deblock_luma_plain)
@@ -297,6 +310,112 @@ def profile_p_frame(enc, frame, cfg):
                   f"wall)", flush=True)
 
 
+def device_profile(fn, label: str) -> None:
+    """torch.profiler over fn(): wall and device-busy time, idle share,
+    and the deblock kernels' device time and launches."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    busy_ms = sum(dev_us(e) for e in evs) / 1e3
+    print(f"{label} profile: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{sum(e.count for e in evs)} device ops", flush=True)
+    for e in sorted(evs, key=dev_us, reverse=True)[:6]:
+        print(f"  {dev_us(e) / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}",
+              flush=True)
+    for e in evs:
+        if "deblock" in e.key:
+            print(f"  deblock: {dev_us(e) / 1e3:.4f} ms x{e.count} "
+                  f"{e.key[:60]}", flush=True)
+
+
+def check_frames(got, want, label: str) -> None:
+    """Decoded frames against (Y, U, V) planes, byte for byte."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} frames, expected "
+                             f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k, plane in enumerate("YUV"):
+            if not np.array_equal(getattr(g, plane), w[k]):
+                raise AssertionError(f"{label}: frame {i} {plane} differs")
+
+
+def decode_phase(payloads, enc):
+    """Phase 6: the 1080p stream decoded on the card, held against the
+    encoder's recon; returns (decoded frames, per-kernel launches)."""
+    data = b"".join(payloads)
+    H264Decoder(device="cuda").decode_annexb(b"".join(payloads[:3]))
+    torch.cuda.synchronize()
+    dec = H264Decoder(device="cuda")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = dec.decode_annexb(data)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
+                       for r in enc.results], f"decode {W}x{H}")
+    pics = dec.pictures
+    p_ms = [r["seconds"] * 1e3 for r in pics[1:]]
+    split = {k: sum(r[k] for r in pics) for k in
+             ("parse_s", "host_recon_s", "device_s")}
+    print(f"decode {W}x{H} {''.join(r['type'][0] for r in pics)} "
+          f"({[r['path'] for r in pics][:2]}...): {len(out) / total_s:.2f} "
+          f"frames/s, {total_s * 1e3 / len(out):.1f} ms/frame (IDR "
+          f"{pics[0]['seconds'] * 1e3:.1f} ms, P {statistics.mean(p_ms):.1f}"
+          f" ms avg, {min(p_ms):.1f}..{max(p_ms):.1f}), launches {launches}",
+          flush=True)
+    print(f"decode split over {len(out)} pictures: host parse "
+          f"{split['parse_s']:.3f} s, host intra recon "
+          f"{split['host_recon_s']:.3f} s, device stages (wall, incl. "
+          f"uploads and the download sync) {split['device_s']:.3f} s; IDR: "
+          f"parse {pics[0]['parse_s'] * 1e3:.1f} ms, intra recon "
+          f"{pics[0]['host_recon_s'] * 1e3:.1f} ms, device "
+          f"{pics[0]['device_s'] * 1e3:.1f} ms; P avg: parse "
+          f"{statistics.mean(r['parse_s'] for r in pics[1:]) * 1e3:.1f} ms, "
+          f"device "
+          f"{statistics.mean(r['device_s'] for r in pics[1:]) * 1e3:.1f} ms",
+          flush=True)
+    for name, cnt in launches.items():
+        if cnt != len(out):
+            raise AssertionError(f"decode: {name} launched {cnt} times, "
+                                 f"expected once for each of {len(out)} "
+                                 f"pictures")
+    prof_dec = H264Decoder(device="cuda")
+    device_profile(lambda: prof_dec.decode_annexb(payloads[0]), "decode IDR")
+    device_profile(lambda: prof_dec.decode_annexb(payloads[1]),
+                   "decode one P")
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name in ("ipp3", "qp20"):
+        path = os.path.join(root, "tests", "golden", f"{name}.264")
+        with open(path, "rb") as f:
+            got = H264Decoder(device="cuda").decode_annexb(f.read())
+        rec = np.fromfile(path[:-4] + "_rec.yuv", np.uint8)
+        h, w = got[0].Y.shape
+        fs = w * h * 3 // 2
+        want = [(rec[i * fs:i * fs + w * h].reshape(h, w),
+                 rec[i * fs + w * h:i * fs + w * h * 5 // 4]
+                 .reshape(h // 2, w // 2),
+                 rec[i * fs + w * h * 5 // 4:(i + 1) * fs]
+                 .reshape(h // 2, w // 2)) for i in range(rec.size // fs)]
+        check_frames(got, want, f"decode {name}.264")
+        print(f"decode {name}.264 on the card: {len(got)} frames equal "
+              f"JM ldecod's {name}_rec.yuv", flush=True)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -415,6 +534,17 @@ def main() -> int:
     # ---- 5. where one P frame's time goes ----------------------------
     profile_p_frame(enc, frames[-1], cfg)
 
+    # ---- 6. decode on the card ---------------------------------------
+    decoded, dec_launches = decode_phase(payloads, enc)
+
+    # ---- 7. decode cross-check (IDR + P on the CPU) --------------------
+    t0 = time.perf_counter()
+    cpu_out = H264Decoder(device="cpu").decode_annexb(b"".join(payloads[:2]))
+    check_frames(cpu_out, [(f.Y, f.U, f.V) for f in decoded[:2]],
+                 "decode cross-check")
+    print(f"decode cross-check: CPU IDR + P equal the CUDA decode "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     rows = []
     for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):
         s = kstats[name]
@@ -425,7 +555,8 @@ def main() -> int:
             "launches": s["launches"], "max_abs_err": max_err[name],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": None, "chain_ms": s["chain_ms"]})
+            "library_ms": None, "chain_ms": s["chain_ms"],
+            "decode_launches": dec_launches[name]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

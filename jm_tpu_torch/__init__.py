@@ -1,6 +1,7 @@
-"""PyTorch / CUDA port of the jm_tpu H.264 encoder.
+"""PyTorch / CUDA port of the jm_tpu H.264 encoder and decoder.
 
-The IPPP CAVLC 4:2:0 fast RD encode runs as tensor stages (ops/) on the
-card, with the in-loop deblock as hand-written CUDA kernels (kernels/);
-the host side (bitstream/, common/, encoder/) is numpy and pure Python.
-Entry point: ``jm_tpu_torch.encoder.Encoder``."""
+The IPPP CAVLC 4:2:0 fast RD encode and the P-picture decode run as
+tensor stages (ops/) on the card, with the in-loop deblock as
+hand-written CUDA kernels (kernels/); the host side (bitstream/,
+common/, encoder/, decoder/) is numpy and pure Python. Entry points:
+``jm_tpu_torch.encoder.Encoder``, ``jm_tpu_torch.decoder.decoder.H264Decoder``."""

@@ -1,11 +1,17 @@
-"""NAL unit framing for the encoder: NAL unit types, RBSP -> EBSP
-emulation prevention and Annex-B start codes (lencod/src/nal.c
-RBSPtoEBSP, lencod/src/annexb.c WriteAnnexbNALU).
+"""NAL unit framing: NAL unit types, Annex-B demux (decoder) and mux
+(encoder), EBSP <-> RBSP emulation prevention (ldecod/src/annexb.c
+get_annex_b_NALU, ldecod/src/nal.c EBSPtoRBSP, lencod/src/nal.c
+RBSPtoEBSP, lencod/src/annexb.c WriteAnnexbNALU). Start codes and
+emulation-prevention bytes are located with numpy scans over the whole
+buffer.
 """
 
 from __future__ import annotations
 
 import enum
+from dataclasses import dataclass
+
+import numpy as np
 
 
 class NalUnitType(enum.IntEnum):
@@ -26,6 +32,55 @@ class NalUnitType(enum.IntEnum):
     SUBSET_SPS = 15
     AUX_SLICE = 19
     SLICE_EXT = 20
+
+
+@dataclass
+class NalUnit:
+    nal_ref_idc: int
+    nal_unit_type: int
+    rbsp: bytes                 # emulation prevention removed, header stripped
+
+
+def ebsp_to_rbsp(ebsp: bytes) -> bytes:
+    """Strip emulation_prevention_three_byte (00 00 03 -> 00 00). The 03
+    ends the zero run, so candidates never overlap: all are removed."""
+    buf = np.frombuffer(ebsp, dtype=np.uint8)
+    if len(buf) < 3:
+        return ebsp
+    z = buf == 0
+    cand = np.flatnonzero((buf[2:] == 3) & z[1:-1] & z[:-2]) + 2
+    if len(cand) == 0:
+        return ebsp
+    return np.delete(buf, cand).tobytes()
+
+
+def _parse_nal_header(ebsp: bytes) -> NalUnit:
+    hdr = ebsp[0]
+    if hdr & 0x80:
+        raise ValueError("forbidden_zero_bit set")
+    ntype = hdr & 0x1F
+    # NAL types 14 / 20 carry a 3-byte MVC / SVC extension header
+    body = ebsp[4:] if ntype in (NalUnitType.PREFIX,
+                                 NalUnitType.SLICE_EXT) else ebsp[1:]
+    return NalUnit((hdr >> 5) & 3, ntype, ebsp_to_rbsp(body))
+
+
+def split_annexb(data: bytes) -> list[NalUnit]:
+    """Split an Annex-B byte stream into NAL units."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    z = buf == 0
+    sc3 = np.flatnonzero(z[:-2] & z[1:-1] & (buf[2:] == 1))   # 00 00 01 at i
+    units = []
+    starts = sc3 + 3                      # first payload byte
+    ends = list(sc3[1:]) + [len(buf)]     # payload runs to next start code
+    for s, e in zip(starts, ends):
+        # trailing zeros belong to the next start code's prefix (or are
+        # trailing_zero_8bits)
+        while e > s and buf[e - 1] == 0:
+            e -= 1
+        if e > s:
+            units.append(_parse_nal_header(buf[s:e].tobytes()))
+    return units
 
 
 def rbsp_to_ebsp(rbsp: bytes) -> bytes:

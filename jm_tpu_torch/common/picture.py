@@ -1,6 +1,6 @@
 """Picture-wide macroblock state (SoA) shared by the encoder's decision
-stages and the CAVLC serializer, with the MB class codes and the
-coded_block_pattern table (spec Table 9-4)."""
+stages, the CAVLC serializer and the decoder's slice parser, with the MB
+class codes and the coded_block_pattern table (spec Table 9-4)."""
 
 from __future__ import annotations
 
@@ -24,12 +24,15 @@ CBP_MAP_CHROMA = np.array([
 MB_INTER = 0
 MB_I4 = 1
 MB_I16 = 2
+MB_IPCM = 3
 
 
 @dataclass
 class PictureData:
     """Per-picture macroblock state (SoA) of a 4:2:0 frame, filled by the
-    encoder's decisions and read by the serializer (encoder/syntax.py)."""
+    encoder's decisions and read by the serializer (encoder/syntax.py),
+    or filled by the decoder's parser (decoder/mb_parse.py) and read by
+    its reconstruction."""
     mb_w: int
     mb_h: int
 
@@ -39,6 +42,7 @@ class PictureData:
         self.n_crows = 2                           # chroma 4x4-block rows
         self.mb_class = np.zeros(n, np.int8)            # MB_* class
         self.skip = np.zeros(n, bool)
+        self.transform8x8 = np.zeros(n, bool)           # always off here
         self.i4_modes = np.full((n, 16), -1, np.int8)   # raster block order
         self.i16_mode = np.full(n, -1, np.int8)
         self.chroma_mode = np.zeros(n, np.int8)
@@ -60,3 +64,11 @@ class PictureData:
         self.ref_idx_l1 = np.full((n, 4), -1, np.int8)
         self.sub_mode = np.zeros((n, 4), np.int8)          # P8x8 sub-partition
         self.inter_mode = np.full(n, -1, np.int8)          # P mb_type 0..3
+        # per-8x8 prediction direction (0 list0; -1 intra / not set)
+        self.pdir = np.full((n, 4), -1, np.int8)
+        # unique ids of the referenced pictures per 8x8 and list (bS)
+        self.ref_pic_id = np.full((n, 4), -1, np.int64)
+        self.ref_pic_id_l1 = np.full((n, 4), -1, np.int64)
+        # I_PCM samples by MB address: (16, 16) luma, (2, 8, 8) chroma
+        self.ipcm_luma = {}
+        self.ipcm_chroma = {}

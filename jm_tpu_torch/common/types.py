@@ -1,6 +1,6 @@
-"""Slice types and the SPS / PPS parameter sets as plain dataclasses
-(lcommon/inc/parsetcommon.h seq_parameter_set_rbsp_t,
-pic_parameter_set_rbsp_t).
+"""Slice types, the SPS / PPS parameter sets and the slice header as
+plain dataclasses (lcommon/inc/parsetcommon.h seq_parameter_set_rbsp_t,
+pic_parameter_set_rbsp_t; ldecod/inc/global.h Slice).
 """
 
 from __future__ import annotations
@@ -149,3 +149,49 @@ class PPS:
     def cr_qp_offset(self) -> int:
         off = self.second_chroma_qp_index_offset
         return self.chroma_qp_index_offset if off is None else off
+
+
+@dataclass
+class RefPicListMod:
+    """One ref_pic_list_modification command."""
+    op: int            # modification_of_pic_nums_idc (0, 1: short-term diff)
+    value: int         # abs_diff_pic_num_minus1
+
+
+@dataclass
+class MMCOOp:
+    """One memory_management_control_operation (parsed only to be
+    refused: the decoder keeps the sliding window)."""
+    op: int
+    value1: int = 0
+    value2: int = 0
+
+
+@dataclass
+class SliceHeader:
+    first_mb_in_slice: int = 0
+    slice_type: SliceType = SliceType.I
+    slice_type_all: bool = True   # slice_type value was >=5 (all slices same type)
+    pic_parameter_set_id: int = 0
+    frame_num: int = 0
+    idr_pic_id: int = 0
+    pic_order_cnt_lsb: int = 0
+    delta_pic_order_cnt_bottom: int = 0
+    delta_pic_order_cnt: tuple = (0, 0)
+    redundant_pic_cnt: int = 0
+    num_ref_idx_active_override_flag: int = 0
+    num_ref_idx_l0_active_minus1: int = 0
+    ref_pic_list_mod_l0: list = field(default_factory=list)
+    no_output_of_prior_pics_flag: int = 0
+    long_term_reference_flag: int = 0
+    adaptive_ref_pic_marking_mode_flag: int = 0
+    slice_qp_delta: int = 0
+    disable_deblocking_filter_idc: int = 0
+    slice_alpha_c0_offset_div2: int = 0
+    slice_beta_offset_div2: int = 0
+    # context (not syntax): nal info this header came from
+    nal_ref_idc: int = 0
+    is_idr: bool = False
+
+    def qp(self, pps: PPS) -> int:
+        return 26 + pps.pic_init_qp_minus26 + self.slice_qp_delta

@@ -1,9 +1,10 @@
 """State carried into the port from outside it.
 
 A codec has no weights: its state is the reference picture (the
-quarter-pel planes and padded chroma of the last decoded frame) and the
-QP tables. These helpers take that state as numpy arrays (for example
-jm_tpu's ``enc_jax.prep_ref`` output) and return the port's tensors.
+quarter-pel planes and padded chroma of the last decoded frame), the QP
+tables and a parsed picture's macroblock arrays. These helpers take that
+state as numpy arrays (for example jm_tpu's ``enc_jax.prep_ref`` output
+or its decoder's parsed ``PictureData``) and return the port's.
 """
 
 from __future__ import annotations
@@ -11,7 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .common.picture import PictureData
 from .common.tables import chroma_qp
+
+# the macroblock arrays a parsed picture carries into reconstruction
+_PICTURE_FIELDS = (
+    "mb_class", "skip", "transform8x8", "i4_modes", "i16_mode",
+    "chroma_mode", "cbp", "qp", "slice_id", "luma_coef", "luma_dc",
+    "chroma_dc", "chroma_coef", "luma_nnz", "chroma_nnz", "mv", "ref_idx",
+    "mv_l1", "ref_idx_l1", "sub_mode", "pdir", "ref_pic_id",
+    "ref_pic_id_l1")
 
 
 def ref_state_from_numpy(planes, padU, padV, device="cpu"):
@@ -28,3 +38,22 @@ def qpc_tables(pps, device="cpu"):
     cr = [chroma_qp(q, pps.cr_qp_offset) for q in range(52)]
     return (torch.tensor(cb, dtype=torch.int32, device=device),
             torch.tensor(cr, dtype=torch.int32, device=device))
+
+
+def picture_from_numpy(src) -> PictureData:
+    """A parsed 4:2:0 frame picture's SoA state (any object with numpy
+    arrays under PictureData's names, e.g. jm_tpu's decoder
+    ``PictureData``) as the port's PictureData; arrays are copied."""
+    pic = PictureData(src.mb_w, src.mb_h)
+    for name in _PICTURE_FIELDS:
+        dst = getattr(pic, name)
+        a = np.asarray(getattr(src, name))
+        if a.shape != dst.shape:
+            raise ValueError(f"picture_from_numpy: {name} has shape "
+                             f"{a.shape}, expected {dst.shape}")
+        dst[...] = a
+    pic.ipcm_luma = {int(k): np.array(v, np.uint8)
+                     for k, v in src.ipcm_luma.items()}
+    pic.ipcm_chroma = {int(k): np.array(v, np.uint8)
+                       for k, v in src.ipcm_chroma.items()}
+    return pic

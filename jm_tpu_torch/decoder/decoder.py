@@ -1,0 +1,306 @@
+"""Top-level H.264 decoder of the port: Annex-B in, YUV frames out; twin
+of jm_tpu.decoder.decoder.H264Decoder with ``device_recon=True``, for
+Baseline CAVLC I / P streams (4:2:0, 8-bit, frame pictures, one or more
+slices per picture in raster order, list0 with several references in a
+sliding-window DPB, POC types 0, 1 and 2).
+
+Two phases per picture: the serial host parse of its slices
+(decoder/mb_parse.py) fills the picture's SoA arrays, then one
+reconstruction:
+  - all-inter P picture: the levels, MVs, refs, QP and nnz go to the
+    device once; ops/dec.p_dec_residuals, ops/dec.inter_recon_p over the
+    stacked list0 reference states, ops/deblock.compute_bs + deblock (the
+    CUDA kernels K1 / K2 on the card), ops/enc.prep_ref;
+  - P picture with intra MBs: the same device inter recon gives the seed
+    planes; the host Reconstructor fills in the intra MBs; the planes go
+    back to the device for bS, deblock and prep_ref;
+  - I picture: the host Reconstructor, then the same device tail.
+The new reference state stays on the device in the DPB; the output
+planes are downloaded from the deblocked picture.
+
+The decoder runs on CUDA unless the caller passes device="cpu" (then
+the deblock is the plain PyTorch wavefront); a CUDA request without a
+card raises. A stream outside the scope raises NotImplementedError naming
+the construct before the picture that uses it is reconstructed; SEI,
+AUD, filler and end-of-sequence NAL units are skipped.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..bitstream.nal import NalUnit, NalUnitType, split_annexb
+from ..common.picture import MB_INTER, PictureData
+from ..common.types import SliceType
+from ..convert import qpc_tables
+from ..device import resolve
+from ..ops import dec as D
+from ..ops.deblock import compute_bs, deblock
+from ..ops.enc import prep_ref
+from .dpb import DPB, Frame
+from .header import PocContext, parse_slice_header
+from .mb_parse import MBParser, SliceContext
+from .parset import parse_pps, parse_sps
+from .recon import Reconstructor, build_inv_scale
+
+I32 = torch.int32
+
+
+@dataclass
+class DecodedFrame:
+    poc: int
+    Y: np.ndarray
+    U: np.ndarray
+    V: np.ndarray
+
+
+class H264Decoder:
+    """Decoder state (SPS / PPS maps, DPB, POC) persists across
+    ``decode_annexb`` calls, so a stream may be fed in pieces.
+    ``pictures`` holds one record per decoded picture: slice type, path
+    ("inter", "mixed", "intra") and the wall seconds of its host parse,
+    host intra recon, device stages and the whole picture."""
+
+    def __init__(self, device="cuda") -> None:
+        self.device = resolve(device, "H264Decoder")
+        self.sps_map: dict = {}
+        self.pps_map: dict = {}
+        self.dpb: DPB | None = None
+        self.poc_ctx = PocContext()
+        self._cur = None            # the picture being parsed
+        self._outputs: list[DecodedFrame] = []
+        self._tabs: dict = {}       # id(pps) -> (pps, device tables)
+        self.pictures: list[dict] = []
+
+    # ------------------------------------------------------------------
+
+    def decode_annexb(self, data: bytes) -> list[DecodedFrame]:
+        """Decode an Annex-B chunk; returns the frames completed by this
+        call, in decode order."""
+        start = len(self._outputs)
+        for nal in split_annexb(data):
+            try:
+                self._handle_nal(nal)
+            except EOFError as e:
+                raise ValueError(f"truncated NAL unit: {e}") from e
+        self._finish_picture()
+        return self._outputs[start:]
+
+    def _handle_nal(self, nal: NalUnit) -> None:
+        t = nal.nal_unit_type
+        if t == NalUnitType.SPS:
+            sps = parse_sps(nal.rbsp)
+            self.sps_map[sps.seq_parameter_set_id] = sps
+        elif t == NalUnitType.PPS:
+            pps = parse_pps(nal.rbsp, self.sps_map)
+            self.pps_map[pps.pic_parameter_set_id] = pps
+        elif t in (NalUnitType.SLICE, NalUnitType.IDR):
+            self._handle_slice(nal)
+        elif t in (NalUnitType.DPA, NalUnitType.DPB, NalUnitType.DPC):
+            raise NotImplementedError(
+                f"out of scope: data partitioning (NAL unit type {t})")
+        elif t in (NalUnitType.PREFIX, NalUnitType.SUBSET_SPS,
+                   NalUnitType.SLICE_EXT):
+            raise NotImplementedError(
+                f"out of scope: MVC / SVC (NAL unit type {t})")
+        # SEI, AUD, end of sequence / stream, filler, auxiliary: skipped
+
+    def _handle_slice(self, nal: NalUnit) -> None:
+        t0 = time.perf_counter()
+        hdr, br = parse_slice_header(nal, self.sps_map, self.pps_map)
+        pps = self.pps_map[hdr.pic_parameter_set_id]
+        sps = self.sps_map[pps.seq_parameter_set_id]
+        if self.dpb is None:
+            self.dpb = DPB(sps)
+        if self._is_new_picture(hdr):
+            self._finish_picture()
+            t0 = time.perf_counter()
+            self._cur = {
+                "pic": PictureData(sps.pic_width_in_mbs,
+                                   sps.frame_height_in_mbs),
+                "sps": sps, "pps": pps, "hdr0": hdr, "headers": [],
+                "poc": self.poc_ctx.compute(hdr, sps), "t0": t0,
+                "parse_s": 0.0, "refs": {},
+            }
+        cur = self._cur
+        pic = cur["pic"]
+
+        lst = []
+        if hdr.slice_type == SliceType.P:
+            nact = hdr.num_ref_idx_l0_active_minus1 + 1
+            lst = self.dpb.reorder_list(self.dpb.ref_list_p(hdr.frame_num),
+                                        hdr.ref_pic_list_mod_l0,
+                                        hdr.frame_num, nact)
+            if len(lst) < nact:
+                raise ValueError("insufficient reference frames")
+        sid = len(cur["headers"])
+        MBParser(pic, SliceContext(hdr, sps, pps, sid), br).parse_slice_data()
+        cur["headers"].append(hdr)
+        for f in lst:                    # the picture's references by uid
+            cur["refs"].setdefault(f.uid, f)
+
+        # per-MB ref uids for the deblock strengths
+        if lst:
+            mask = pic.slice_id == sid
+            uid = np.array([f.uid for f in lst], np.int64)
+            ridx = pic.ref_idx[mask]
+            pic.ref_pic_id[mask] = np.where(
+                ridx >= 0, uid[np.clip(ridx, 0, len(lst) - 1)], -1)
+        cur["parse_s"] += time.perf_counter() - t0
+
+    def _is_new_picture(self, hdr) -> bool:
+        """ldecod/src/image.c:2276 is_new_picture, for frame pictures."""
+        if self._cur is None:
+            return True
+        h0 = self._cur["hdr0"]
+        return (hdr.frame_num != h0.frame_num
+                or hdr.pic_parameter_set_id != h0.pic_parameter_set_id
+                or hdr.is_idr != h0.is_idr
+                or (hdr.is_idr and hdr.idr_pic_id != h0.idr_pic_id)
+                or hdr.pic_order_cnt_lsb != h0.pic_order_cnt_lsb
+                or hdr.delta_pic_order_cnt_bottom
+                != h0.delta_pic_order_cnt_bottom
+                or tuple(hdr.delta_pic_order_cnt)
+                != tuple(h0.delta_pic_order_cnt)
+                or (hdr.nal_ref_idc == 0) != (h0.nal_ref_idc == 0))
+
+    # ------------------------------------------------------------------
+
+    def _pps_tabs(self, pps):
+        """Device tables of a PPS: inter InvLevelScale lists 3 / 4 / 5
+        and the QP -> QPc maps of its Cb / Cr offsets."""
+        hit = self._tabs.get(id(pps))
+        if hit is None or hit[0] is not pps:
+            tab4 = build_inv_scale(pps)
+            hit = (pps, tuple(torch.as_tensor(tab4[i], device=self.device)
+                              for i in (3, 4, 5))
+                   + qpc_tables(pps, self.device))
+            self._tabs[id(pps)] = hit
+        return hit[1]
+
+    def _upload(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _inter_recon(self, pic, refs, tabs, inter, qp, mv):
+        """Device residual decode + inter recon of the inter MBs (qp, mv:
+        the picture's, on the device). refs: the picture's reference
+        frames; each MB's reference is found by uid, so slices with
+        different list0 orders share one stack."""
+        tabY, tabU, tabV, qpc_cb, qpc_cr = tabs
+        up = self._upload
+        res_l, res_c = D.p_dec_residuals(
+            up(pic.luma_coef), up(pic.chroma_dc), up(pic.chroma_coef),
+            qp, tabY, tabU, tabV, qpc_cb, qpc_cr,
+            mb_w=pic.mb_w, mb_h=pic.mb_h)
+        ref_idx = np.full(pic.ref_pic_id.shape, -1, np.int32)
+        for k, f in enumerate(refs):
+            ref_idx[pic.ref_pic_id == f.uid] = k
+        return D.inter_recon_p(
+            mv, up(ref_idx), res_l, res_c,
+            torch.stack([f.state[0] for f in refs]),
+            torch.stack([f.state[1] for f in refs]),
+            torch.stack([f.state[2] for f in refs]), up(inter),
+            mb_w=pic.mb_w, mb_h=pic.mb_h)
+
+    def _reconstruct(self, pic, cur, rec):
+        """Reconstruct, deblock and prep one parsed picture; fills the
+        timing record ``rec``. Returns (Y, U, V host planes, device
+        reference state)."""
+        pps = cur["pps"]
+        refs = list(cur["refs"].values())
+        tabs = self._pps_tabs(pps)
+        inter = pic.mb_class == MB_INTER
+        up = self._upload
+        t = time.perf_counter()
+        qp, mv = up(pic.qp), up(pic.mv)
+        if inter.all():
+            rec["path"] = "inter"
+            Y, U, V = self._inter_recon(pic, refs, tabs, inter, qp, mv)
+        else:
+            seed = None
+            if inter.any():
+                rec["path"] = "mixed"
+                seed = [p.cpu().numpy() for p in
+                        self._inter_recon(pic, refs, tabs, inter, qp, mv)]
+            else:
+                rec["path"] = "intra"
+            t1 = time.perf_counter()
+            rec["device_s"] += t1 - t
+            planes = Reconstructor(pic, pps).run(seed)
+            t = time.perf_counter()
+            rec["host_recon_s"] = t - t1
+            Y, U, V = (up(p) for p in planes)
+
+        n = pic.n_mbs
+        zeros = torch.zeros(n, dtype=I32, device=self.device)
+        bs_v, bs_h = compute_bs(
+            up(pic.mb_class), up(pic.luma_nnz), zeros, mv,
+            up(pic.mv_l1), up(pic.ref_pic_id), up(pic.ref_pic_id_l1),
+            pic.mb_w, pic.mb_h)
+        disable = np.zeros(n, np.int32)
+        a_off = np.zeros(n, np.int32)
+        b_off = np.zeros(n, np.int32)
+        for sid, hdr in enumerate(cur["headers"]):
+            m = pic.slice_id == sid
+            disable[m] = hdr.disable_deblocking_filter_idc
+            a_off[m] = hdr.slice_alpha_c0_offset_div2
+            b_off[m] = hdr.slice_beta_offset_div2
+        dY, dU, dV = deblock(
+            Y, U, V, bs_v, bs_h, qp, up(disable), up(a_off),
+            up(b_off), up(pic.slice_id), zeros, tabs[3], tabs[4],
+            mb_w=pic.mb_w, mb_h=pic.mb_h)
+        state = prep_ref(dY, dU, dV)
+        flat = torch.cat([dY.reshape(-1), dU.reshape(-1),
+                          dV.reshape(-1)]).cpu().numpy()
+        rec["device_s"] += time.perf_counter() - t
+        ny, nc = dY.numel(), dU.numel()
+        return (flat[:ny].reshape(dY.shape),
+                flat[ny:ny + nc].reshape(dU.shape),
+                flat[ny + nc:].reshape(dV.shape), state)
+
+    def _finish_picture(self) -> None:
+        if self._cur is None:
+            return
+        cur, self._cur = self._cur, None
+        pic, sps = cur["pic"], cur["sps"]
+        hdr0 = cur["hdr0"]
+        lost = int((pic.slice_id < 0).sum())
+        if lost:
+            raise NotImplementedError(
+                f"out of scope: missing slices (concealment): {lost} "
+                "macroblocks of the picture were not coded")
+        rec = {"type": hdr0.slice_type.name, "parse_s": cur["parse_s"],
+               "host_recon_s": 0.0, "device_s": 0.0}
+        Y, U, V, state = self._reconstruct(pic, cur, rec)
+        self.dpb.store(Frame(poc=cur["poc"], frame_num=hdr0.frame_num,
+                             state=state, is_ref=hdr0.nal_ref_idc != 0),
+                       idr=hdr0.is_idr)
+        self._outputs.append(DecodedFrame(cur["poc"],
+                                          *_crop_output(sps, Y, U, V)))
+        rec["seconds"] = time.perf_counter() - cur["t0"]
+        self.pictures.append(rec)
+
+
+def _crop_output(sps, Y, U, V):
+    """Apply the SPS frame cropping of a 4:2:0 frame (spec 7.4.2.1.1:
+    CropUnitX = CropUnitY = 2)."""
+    if not sps.frame_cropping_flag:
+        return Y, U, V
+    left = 2 * sps.frame_crop_left_offset
+    right = 2 * sps.frame_crop_right_offset
+    top = 2 * sps.frame_crop_top_offset
+    bot = 2 * sps.frame_crop_bottom_offset
+    H, W = Y.shape
+    return (Y[top:H - bot, left:W - right],
+            U[top // 2:(H - bot) // 2, left // 2:(W - right) // 2],
+            V[top // 2:(H - bot) // 2, left // 2:(W - right) // 2])
+
+
+def decode_file(path: str, device="cuda") -> list[DecodedFrame]:
+    with open(path, "rb") as f:
+        data = f.read()
+    return H264Decoder(device=device).decode_annexb(data)

@@ -1,0 +1,196 @@
+"""Slice header parsing (spec 7.3.3), POC derivation (spec 8.2.1) and the
+decoder's scope check; twin of jm_tpu/decoder/header.py for frame
+pictures of I and P slices (ldecod/src/header.c FirstPartOfSliceHeader:76,
+RestOfSliceHeader:113, ref_pic_list_reordering:350, decode_poc:720).
+
+What the decoder does not cover raises NotImplementedError naming the
+construct, before the slice's picture is decoded: ``check_scope`` for
+what the SPS / PPS declare, the header parse for B / SP / SI slices, a
+pred-weight table, MMCO, long-term references and redundant pictures.
+"""
+
+from __future__ import annotations
+
+from ..bitstream.bitreader import BitReader
+from ..bitstream.nal import NalUnit, NalUnitType
+from ..common.types import (MMCOOp, PPS, SPS, RefPicListMod, SliceHeader,
+                            SliceType)
+
+
+def check_scope(sps: SPS, pps: PPS) -> None:
+    """Raise NotImplementedError naming every construct of this SPS / PPS
+    pair that the decoder does not cover."""
+    out = []
+    if pps.entropy_coding_mode_flag:
+        out.append("CABAC")
+    if sps.chroma_format_idc != 1:
+        out.append(f"chroma_format_idc {sps.chroma_format_idc} (4:2:0 only)")
+    if sps.bit_depth_luma_minus8 or sps.bit_depth_chroma_minus8:
+        out.append("bit depth above 8")
+    if sps.qpprime_y_zero_transform_bypass_flag:
+        out.append("lossless (qpprime_y_zero_transform_bypass)")
+    if not sps.frame_mbs_only_flag:
+        out.append("fields / MBAFF (frame_mbs_only_flag 0)")
+    if pps.num_slice_groups_minus1 > 0:
+        out.append("FMO (slice groups)")
+    if pps.weighted_pred_flag or pps.weighted_bipred_idc:
+        out.append("weighted prediction")
+    if pps.transform_8x8_mode_flag:
+        out.append("8x8 transform")
+    if out:
+        raise NotImplementedError("out of scope: " + ", ".join(out))
+
+
+def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
+                       pps_map: dict[int, PPS]) -> tuple[SliceHeader, BitReader]:
+    """Parse a slice header; returns (header, reader positioned at slice data)."""
+    br = BitReader(nal.rbsp)
+    h = SliceHeader()
+    h.nal_ref_idc = nal.nal_ref_idc
+    h.is_idr = nal.nal_unit_type == NalUnitType.IDR
+
+    h.first_mb_in_slice = br.ue()
+    st = br.ue()
+    h.slice_type_all = st >= 5
+    h.slice_type = SliceType(st % 5)
+    if h.slice_type not in (SliceType.I, SliceType.P):
+        raise NotImplementedError(
+            f"out of scope: {h.slice_type.name} slices")
+    h.pic_parameter_set_id = br.ue()
+    pps = pps_map[h.pic_parameter_set_id]
+    sps = sps_map[pps.seq_parameter_set_id]
+    check_scope(sps, pps)
+
+    h.frame_num = br.u(sps.log2_max_frame_num_minus4 + 4)
+    if h.is_idr:
+        h.idr_pic_id = br.ue()
+    if sps.pic_order_cnt_type == 0:
+        h.pic_order_cnt_lsb = br.u(sps.log2_max_pic_order_cnt_lsb_minus4 + 4)
+        if pps.bottom_field_pic_order_in_frame_present_flag:
+            h.delta_pic_order_cnt_bottom = br.se()
+    elif sps.pic_order_cnt_type == 1 and not sps.delta_pic_order_always_zero_flag:
+        d0 = br.se()
+        d1 = 0
+        if pps.bottom_field_pic_order_in_frame_present_flag:
+            d1 = br.se()
+        h.delta_pic_order_cnt = (d0, d1)
+    if pps.redundant_pic_cnt_present_flag:
+        h.redundant_pic_cnt = br.ue()
+        if h.redundant_pic_cnt:
+            raise NotImplementedError("out of scope: redundant pictures")
+
+    h.num_ref_idx_l0_active_minus1 = pps.num_ref_idx_l0_default_active_minus1
+    if h.slice_type == SliceType.P:
+        h.num_ref_idx_active_override_flag = br.flag()
+        if h.num_ref_idx_active_override_flag:
+            h.num_ref_idx_l0_active_minus1 = br.ue()
+        if br.flag():  # ref_pic_list_modification_flag_l0 (7.3.3.1)
+            h.ref_pic_list_mod_l0 = _read_rplm(br)
+
+    # dec_ref_pic_marking (7.3.3.3)
+    if nal.nal_ref_idc != 0:
+        if h.is_idr:
+            h.no_output_of_prior_pics_flag = br.flag()
+            h.long_term_reference_flag = br.flag()
+            if h.long_term_reference_flag:
+                raise NotImplementedError("out of scope: long-term references")
+        else:
+            h.adaptive_ref_pic_marking_mode_flag = br.flag()
+            if h.adaptive_ref_pic_marking_mode_flag:
+                raise NotImplementedError(
+                    f"out of scope: MMCO ({_read_mmco(br)})")
+
+    h.slice_qp_delta = br.se()
+    if pps.deblocking_filter_control_present_flag:
+        h.disable_deblocking_filter_idc = br.ue()
+        if h.disable_deblocking_filter_idc != 1:
+            h.slice_alpha_c0_offset_div2 = br.se()
+            h.slice_beta_offset_div2 = br.se()
+    return h, br
+
+
+def _read_rplm(br: BitReader) -> list[RefPicListMod]:
+    out = []
+    while True:
+        idc = br.ue()
+        if idc == 3:
+            break
+        if idc not in (0, 1):
+            raise NotImplementedError(
+                f"out of scope: ref_pic_list_modification idc {idc} "
+                "(long-term / inter-view)")
+        out.append(RefPicListMod(idc, br.ue()))
+        if len(out) > 64:
+            raise ValueError("runaway ref_pic_list_modification")
+    return out
+
+
+def _read_mmco(br: BitReader) -> list[MMCOOp]:
+    """The MMCO commands, read for the error message."""
+    ops = []
+    while len(ops) < 66:
+        op = br.ue()
+        if op == 0:
+            break
+        m = MMCOOp(op)
+        if op in (1, 2, 3, 4, 6):
+            m.value1 = br.ue()
+        if op == 3:
+            m.value2 = br.ue()
+        ops.append(m)
+    return ops
+
+
+class PocContext:
+    """POC derivation state machine (spec 8.2.1) of frame pictures."""
+
+    def __init__(self) -> None:
+        self.msb = 0
+        self.prev_lsb = 0
+        self.prev_frame_num = 0
+        self.prev_frame_num_offset = 0
+
+    def compute(self, h: SliceHeader, sps: SPS) -> int:
+        """Returns the frame POC (TopFieldOrderCnt for types 0 and 2, the
+        smaller of top and bottom for type 1)."""
+        if sps.pic_order_cnt_type == 0:
+            max_lsb = sps.max_poc_lsb
+            if h.is_idr:
+                self.msb, self.prev_lsb = 0, 0
+            lsb = h.pic_order_cnt_lsb
+            if lsb < self.prev_lsb and (self.prev_lsb - lsb) >= max_lsb // 2:
+                msb = self.msb + max_lsb
+            elif lsb > self.prev_lsb and (lsb - self.prev_lsb) > max_lsb // 2:
+                msb = self.msb - max_lsb
+            else:
+                msb = self.msb
+            if h.nal_ref_idc:  # only reference pictures update prev
+                self.msb, self.prev_lsb = msb, lsb
+            return msb + lsb
+        if h.is_idr:
+            fno = 0
+        elif self.prev_frame_num > h.frame_num:
+            fno = self.prev_frame_num_offset + sps.max_frame_num
+        else:
+            fno = self.prev_frame_num_offset
+        self.prev_frame_num = h.frame_num
+        self.prev_frame_num_offset = fno
+        if sps.pic_order_cnt_type == 2:
+            return 2 * (fno + h.frame_num) - (0 if h.nal_ref_idc else 1)
+        # pic_order_cnt_type 1 (spec 8.2.1.2)
+        ncyc = len(sps.offset_for_ref_frame)
+        abs_fn = (fno + h.frame_num) if ncyc else 0
+        if h.nal_ref_idc == 0 and abs_fn > 0:
+            abs_fn -= 1
+        if abs_fn > 0:
+            cyc, in_cyc = divmod(abs_fn - 1, ncyc)
+            expected = cyc * sum(sps.offset_for_ref_frame) + \
+                sum(sps.offset_for_ref_frame[:in_cyc + 1])
+        else:
+            expected = 0
+        if h.nal_ref_idc == 0:
+            expected += sps.offset_for_non_ref_pic
+        top = expected + h.delta_pic_order_cnt[0]
+        bottom = (top + sps.offset_for_top_to_bottom_field
+                  + h.delta_pic_order_cnt[1])
+        return min(top, bottom)

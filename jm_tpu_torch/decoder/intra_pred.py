@@ -1,0 +1,220 @@
+"""Intra prediction on the host (spec 8.3): 4x4 luma (9 modes), 16x16
+luma (4 modes), chroma 8x8 (4 modes); numpy twin of predict_i4,
+predict_i16 and predict_chroma of jm_tpu/ops/intra.py
+(ldecod/src/intra4x4_pred_normal.c, intra16x16_pred_normal.c,
+intra_chroma_pred.c). The decoder's Reconstructor calls them per block;
+the encoder's batched I frame is ops/intra.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# 4x4 luma intra modes
+I4_VERT, I4_HOR, I4_DC, I4_DDL, I4_DDR, I4_VR, I4_HD, I4_VL, I4_HU = range(9)
+# 16x16 luma modes
+I16_VERT, I16_HOR, I16_DC, I16_PLANE = range(4)
+# chroma modes
+C_DC, C_HOR, C_VERT, C_PLANE = range(4)
+
+
+def predict_i4(mode: int, top: np.ndarray, left: np.ndarray, corner: int,
+               avail_top: bool, avail_left: bool,
+               dc: int = 128) -> np.ndarray:
+    """One 4x4 intra prediction. top: 8 samples A..H (up + up-right, the
+    caller already substitutes top[4:8]=top[3] when up-right is unavailable),
+    left: 4 samples, corner: sample M. Returns (4,4) int32.
+    """
+    t = top.astype(np.int32)
+    l = left.astype(np.int32)
+    m = int(corner)
+    p = np.zeros((4, 4), np.int32)
+    if mode == I4_VERT:
+        p[:, :] = t[:4][None, :]
+    elif mode == I4_HOR:
+        p[:, :] = l[:, None]
+    elif mode == I4_DC:
+        if avail_top and avail_left:
+            p[:, :] = (int(t[:4].sum()) + int(l.sum()) + 4) >> 3
+        elif avail_top:
+            p[:, :] = (int(t[:4].sum()) + 2) >> 2
+        elif avail_left:
+            p[:, :] = (int(l.sum()) + 2) >> 2
+        else:
+            p[:, :] = dc
+    elif mode == I4_DDL:
+        for y in range(4):
+            for x in range(4):
+                if x == 3 and y == 3:
+                    p[y, x] = (t[6] + 3 * t[7] + 2) >> 2
+                else:
+                    p[y, x] = (t[x + y] + 2 * t[x + y + 1] + t[x + y + 2] + 2) >> 2
+    elif mode == I4_DDR:
+        # tt[i+1] == p[i,-1] so index -1 resolves to the corner sample M
+        tt = np.concatenate([[m], t])
+        ll = np.concatenate([[m], l])
+        for y in range(4):
+            for x in range(4):
+                if x > y:
+                    p[y, x] = (tt[x - y - 1] + 2 * tt[x - y] + tt[x - y + 1] + 2) >> 2
+                elif x < y:
+                    p[y, x] = (ll[y - x - 1] + 2 * ll[y - x] + ll[y - x + 1] + 2) >> 2
+                else:
+                    p[y, x] = (t[0] + 2 * m + l[0] + 2) >> 2
+    elif mode == I4_VR:
+        tt = np.concatenate([[m], t])
+        for y in range(4):
+            for x in range(4):
+                z = 2 * x - y
+                k = x - (y >> 1)
+                if z >= 0 and z % 2 == 0:
+                    p[y, x] = (tt[k] + tt[k + 1] + 1) >> 1
+                elif z >= 0:
+                    p[y, x] = (tt[k - 1] + 2 * tt[k] + tt[k + 1] + 2) >> 2
+                elif z == -1:
+                    p[y, x] = (l[0] + 2 * m + t[0] + 2) >> 2
+                else:
+                    ll = np.concatenate([[m], l])
+                    p[y, x] = (ll[y] + 2 * ll[y - 1] + ll[y - 2] + 2) >> 2
+    elif mode == I4_HD:
+        ll = np.concatenate([[m], l])
+        for y in range(4):
+            for x in range(4):
+                z = 2 * y - x
+                k = y - (x >> 1)
+                if z >= 0 and z % 2 == 0:
+                    p[y, x] = (ll[k] + ll[k + 1] + 1) >> 1
+                elif z >= 0:
+                    p[y, x] = (ll[k - 1] + 2 * ll[k] + ll[k + 1] + 2) >> 2
+                elif z == -1:
+                    p[y, x] = (t[0] + 2 * m + l[0] + 2) >> 2
+                else:
+                    tt2 = np.concatenate([[m], t])
+                    p[y, x] = (tt2[x] + 2 * tt2[x - 1] + tt2[x - 2] + 2) >> 2
+    elif mode == I4_VL:
+        for y in range(4):
+            for x in range(4):
+                if y % 2 == 0:
+                    p[y, x] = (t[x + (y >> 1)] + t[x + (y >> 1) + 1] + 1) >> 1
+                else:
+                    p[y, x] = (t[x + (y >> 1)] + 2 * t[x + (y >> 1) + 1]
+                               + t[x + (y >> 1) + 2] + 2) >> 2
+    elif mode == I4_HU:
+        for y in range(4):
+            for x in range(4):
+                z = x + 2 * y
+                if z > 5:
+                    p[y, x] = l[3]
+                elif z == 5:
+                    p[y, x] = (l[2] + 3 * l[3] + 2) >> 2
+                elif z % 2 == 0:
+                    p[y, x] = (l[y + (x >> 1)] + l[y + (x >> 1) + 1] + 1) >> 1
+                else:
+                    p[y, x] = (l[y + (x >> 1)] + 2 * l[y + (x >> 1) + 1]
+                               + l[y + (x >> 1) + 2] + 2) >> 2
+    else:
+        raise ValueError(f"bad intra4x4 mode {mode}")
+    return p
+
+
+def predict_i16(mode: int, top: np.ndarray, left: np.ndarray, corner: int,
+                avail_top: bool, avail_left: bool, dc: int = 128,
+                cmax: int = 255) -> np.ndarray:
+    """16x16 luma intra prediction. top/left: 16 samples each."""
+    t = top.astype(np.int32)
+    l = left.astype(np.int32)
+    p = np.zeros((16, 16), np.int32)
+    if mode == I16_VERT:
+        p[:, :] = t[None, :]
+    elif mode == I16_HOR:
+        p[:, :] = l[:, None]
+    elif mode == I16_DC:
+        if avail_top and avail_left:
+            p[:, :] = (int(t.sum()) + int(l.sum()) + 16) >> 5
+        elif avail_top:
+            p[:, :] = (int(t.sum()) + 8) >> 4
+        elif avail_left:
+            p[:, :] = (int(l.sum()) + 8) >> 4
+        else:
+            p[:, :] = dc
+    elif mode == I16_PLANE:
+        m = int(corner)
+        tt = np.concatenate([[m], t])  # tt[i] = p[i-1, -1]
+        ll = np.concatenate([[m], l])
+        hh = sum((x + 1) * (int(tt[9 + x]) - int(tt[7 - x])) for x in range(8))
+        vv = sum((y + 1) * (int(ll[9 + y]) - int(ll[7 - y])) for y in range(8))
+        a = 16 * (int(l[15]) + int(t[15]))
+        b = (5 * hh + 32) >> 6
+        c = (5 * vv + 32) >> 6
+        ys, xs = np.mgrid[0:16, 0:16]
+        p = np.clip((a + b * (xs - 7) + c * (ys - 7) + 16) >> 5, 0, cmax)
+    else:
+        raise ValueError(f"bad intra16 mode {mode}")
+    return p
+
+
+def predict_chroma(mode: int, top: np.ndarray, left: np.ndarray, corner: int,
+                   avail_top: bool, avail_left: bool, dc: int = 128,
+                   cmax: int = 255) -> np.ndarray:
+    """Chroma intra prediction, 8x8 (4:2:0) or 8x16 (4:2:2) depending on
+    len(left).  Per-4x4-block DC position rules follow
+    ldecod/src/intra_chroma_pred.c:79-141 (block_pos table: 4:2:2 rows
+    below the first use the bottom-left / bottom-right rules); plane mode
+    uses the cr_MB_y-dependent ic scale of intra_chroma_pred.c:320-331."""
+    t = top.astype(np.int32)
+    l = left.astype(np.int32)
+    H = len(l)
+    p = np.zeros((H, 8), np.int32)
+    if mode == C_DC:
+        for by in range(H // 4):
+            yo = by * 4
+            for xo in (0, 4):
+                ts = int(t[xo:xo + 4].sum())
+                ls = int(l[yo:yo + 4].sum())
+                # block position code: row 0 -> TL/TR, lower rows -> BL/BR
+                pos = (0 if xo == 0 else 1) if by == 0 else (2 if xo == 0 else 3)
+                if pos in (0, 3):
+                    # "all" blocks use both edges when available
+                    if avail_top and avail_left:
+                        v = (ts + ls + 4) >> 3
+                    elif avail_top:
+                        v = (ts + 2) >> 2
+                    elif avail_left:
+                        v = (ls + 2) >> 2
+                    else:
+                        v = dc
+                elif pos == 1:  # top-right block prefers top
+                    if avail_top:
+                        v = (ts + 2) >> 2
+                    elif avail_left:
+                        v = (ls + 2) >> 2
+                    else:
+                        v = dc
+                else:  # bottom-left block prefers left
+                    if avail_left:
+                        v = (ls + 2) >> 2
+                    elif avail_top:
+                        v = (ts + 2) >> 2
+                    else:
+                        v = dc
+                p[yo:yo + 4, xo:xo + 4] = v
+    elif mode == C_HOR:
+        p[:, :] = l[:, None]
+    elif mode == C_VERT:
+        p[:, :] = t[None, :]
+    elif mode == C_PLANE:
+        m = int(corner)
+        h2 = H // 2
+        tt = np.concatenate([[m], t])
+        ll = np.concatenate([[m], l])
+        hh = sum((x + 1) * (int(tt[5 + x]) - int(tt[3 - x])) for x in range(4))
+        vv = sum((y + 1) * (int(ll[h2 + 1 + y]) - int(ll[h2 - 1 - y]))
+                 for y in range(h2))
+        a = 16 * (int(l[H - 1]) + int(t[7]))
+        b = (34 * hh + 32) >> 6
+        c = ((17 if H == 8 else 5) * vv + 2 * H) >> (5 if H == 8 else 6)
+        ys, xs = np.mgrid[0:H, 0:8]
+        p = np.clip((a + b * (xs - 3) + c * (ys - h2 + 1) + 16) >> 5, 0, cmax)
+    else:
+        raise ValueError(f"bad chroma mode {mode}")
+    return p

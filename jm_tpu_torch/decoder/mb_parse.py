@@ -1,0 +1,246 @@
+"""Macroblock-layer parsing of CAVLC I and P slices (spec 7.3.5, 7.4.5,
+9.2), twin of the Python path of jm_tpu/decoder/mb_parse.py for 4:2:0,
+8-bit frame pictures with the 4x4 transform.
+
+The serial parse walks the MBs of a slice in raster order and fills the
+picture-wide SoA arrays of common/picture.PictureData (modes, MVs,
+levels, nnz); reconstruction reads them as a whole. Neighbour-dependent
+predictors (nC, intra 4x4 mode, median MV, P_Skip MV) come from
+common/predict_ctx.PredCtx, the same code the encoder uses
+(ldecod/src/mb_read.c read_one_macroblock_i_slice_cavlc:1139,
+read_one_macroblock_p_slice_cavlc:1335; lcommon/src/mv_prediction.c).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..bitstream.bitreader import BitReader
+from ..common.picture import (CBP_MAP_CHROMA, MB_I4, MB_I16, MB_INTER,
+                              MB_IPCM, PictureData)
+from ..common.predict_ctx import CODE2RASTER, PredCtx
+from ..common.types import PPS, SPS, SliceHeader, SliceType
+from .cavlc import residual_block_cavlc
+
+# P mb_type 0..2 partitions and P8x8 sub-partitions, as (bx, by, bw, bh)
+# in 4x4 blocks
+_P_PARTS = {0: [(0, 0, 4, 4)],
+            1: [(0, 0, 4, 2), (0, 2, 4, 2)],
+            2: [(0, 0, 2, 4), (2, 0, 2, 4)]}
+_SUB_PARTS = {0: [(0, 0, 2, 2)],
+              1: [(0, 0, 2, 1), (0, 1, 2, 1)],
+              2: [(0, 0, 1, 2), (1, 0, 1, 2)],
+              3: [(0, 0, 1, 1), (1, 0, 1, 1), (0, 1, 1, 1), (1, 1, 1, 1)]}
+
+
+@dataclass
+class SliceContext:
+    header: SliceHeader
+    sps: SPS
+    pps: PPS
+    slice_id: int
+    qp: int = 0
+
+    def __post_init__(self) -> None:
+        self.qp = self.header.qp(self.pps)
+
+
+class MBParser:
+    """Serial CAVLC slice-data parser filling a PictureData."""
+
+    def __init__(self, pic: PictureData, ctx: SliceContext, br: BitReader):
+        self.pic = pic
+        self.ctx = ctx
+        self.br = br
+        self.qp = ctx.qp
+        self.pctx = PredCtx(pic)
+
+    # ---- residual reading -------------------------------------------------
+
+    def _read_luma_residual(self, addr: int, cbp: int, is_i16: bool) -> None:
+        pic, br, pctx = self.pic, self.br, self.pctx
+        if is_i16:
+            pic.luma_dc[addr], _tc = residual_block_cavlc(
+                br, pctx.nc_luma(addr, 0), 16)
+        for blk8 in range(4):
+            if not (cbp & (1 << blk8)):
+                continue
+            for sub in range(4):
+                blk = int(CODE2RASTER[blk8 * 4 + sub])
+                nc = pctx.nc_luma(addr, blk)
+                if is_i16:
+                    out = np.zeros(16, np.int32)
+                    out[1:16], tc = residual_block_cavlc(br, nc, 15)
+                else:
+                    out, tc = residual_block_cavlc(br, nc, 16)
+                pic.luma_coef[addr, blk] = out
+                pic.luma_nnz[addr, blk] = tc
+
+    def _read_chroma_residual(self, addr: int, cbp: int) -> None:
+        pic, br = self.pic, self.br
+        cbp_chroma = cbp >> 4
+        if cbp_chroma & 3:
+            for comp in range(2):
+                pic.chroma_dc[addr, comp], _tc = residual_block_cavlc(br, -1, 4)
+        if cbp_chroma & 2:
+            for comp in range(2):
+                for blk in range(4):
+                    nc = self.pctx.nc_chroma(addr, comp, blk)
+                    ac, tc = residual_block_cavlc(br, nc, 15)
+                    pic.chroma_coef[addr, comp, blk, 1:16] = ac
+                    pic.chroma_nnz[addr, comp, blk] = tc
+
+    def _read_qp_delta(self, addr: int) -> None:
+        dq = self.br.se()
+        if not -27 <= dq <= 26:
+            raise ValueError(f"mb_qp_delta {dq} out of range")
+        self.qp = (self.qp + dq + 52) % 52          # spec 7.4.5, 8-bit
+        self.pic.qp[addr] = self.qp
+
+    # ---- intra MB ---------------------------------------------------------
+
+    def _parse_intra_mb(self, addr: int, imb_type: int) -> None:
+        """imb_type: 0 = I_NxN, 1..24 = I_16x16, 25 = I_PCM."""
+        pic, br = self.pic, self.br
+        if imb_type == 25:
+            self._parse_ipcm(addr)
+            return
+        if imb_type == 0:
+            pic.mb_class[addr] = MB_I4
+            for code_idx in range(16):
+                blk = int(CODE2RASTER[code_idx])
+                pred = self.pctx.pred_intra4_mode(addr, blk)
+                if br.flag():  # prev_intra4x4_pred_mode_flag
+                    mode = pred
+                else:
+                    rem = br.u(3)
+                    mode = rem if rem < pred else rem + 1
+                pic.i4_modes[addr, blk] = mode
+            pic.chroma_mode[addr] = br.ue()
+            cbp = int(CBP_MAP_CHROMA[br.ue()][0])
+            pic.cbp[addr] = cbp
+            if cbp:
+                self._read_qp_delta(addr)
+            else:
+                pic.qp[addr] = self.qp
+            self._read_luma_residual(addr, cbp, is_i16=False)
+        else:
+            pic.mb_class[addr] = MB_I16
+            k = imb_type - 1
+            pic.i16_mode[addr] = k % 4
+            cbp = ((k // 4) % 3) << 4 | (15 if k >= 12 else 0)
+            pic.cbp[addr] = cbp
+            pic.chroma_mode[addr] = br.ue()
+            self._read_qp_delta(addr)
+            self._read_luma_residual(addr, cbp & 15, is_i16=True)
+        self._read_chroma_residual(addr, cbp)
+
+    def _parse_ipcm(self, addr: int) -> None:
+        pic, br = self.pic, self.br
+        pic.mb_class[addr] = MB_IPCM
+        br.align()
+        if br.pos + 384 * 8 > br.nbits:
+            raise EOFError("bitreader overrun in I_PCM samples")
+        samples = np.frombuffer(br.data, np.uint8, 384, br.pos >> 3)
+        br.pos += 384 * 8
+        pic.ipcm_luma[addr] = samples[:256].reshape(16, 16).copy()
+        pic.ipcm_chroma[addr] = samples[256:].reshape(2, 8, 8).copy()
+        pic.qp[addr] = self.qp
+        # PCM MBs count as 16 nnz for nC prediction and bS
+        pic.luma_nnz[addr] = 16
+        pic.chroma_nnz[addr] = 16
+
+    # ---- inter MB (P slices) ---------------------------------------------
+
+    def _fill_mv(self, addr, bx, by, bw, bh, ref) -> None:
+        """Read one partition's mvd, add its prediction and store the MV
+        over the partition's 4x4 blocks."""
+        br = self.br
+        mvd = np.array([br.se(), br.se()], np.int32)
+        mv = self.pctx.mv_pred(addr, bx, by, bw, bh, ref) + mvd
+        for yy in range(by, by + bh):
+            self.pic.mv[addr, yy * 4 + bx:yy * 4 + bx + bw] = mv
+
+    def _parse_p_mb(self, addr: int, mb_type: int) -> None:
+        if mb_type >= 5:
+            self._parse_intra_mb(addr, mb_type - 5)
+            return
+        pic, br = self.pic, self.br
+        nref = self.ctx.header.num_ref_idx_l0_active_minus1 + 1
+        pic.mb_class[addr] = MB_INTER
+        if mb_type < 3:
+            parts = _P_PARTS[mb_type]
+            refs = [br.te(nref - 1) if nref > 1 else 0 for _ in parts]
+            for (bx, by, bw, bh), ref in zip(parts, refs):
+                for yy in range(by // 2, (by + bh) // 2):
+                    for xx in range(bx // 2, (bx + bw) // 2):
+                        pic.ref_idx[addr, yy * 2 + xx] = ref
+            for (bx, by, bw, bh), ref in zip(parts, refs):
+                self._fill_mv(addr, bx, by, bw, bh, ref)
+        else:
+            sub_types = [br.ue() for _ in range(4)]
+            if any(t > 3 for t in sub_types):
+                raise ValueError("invalid sub_mb_type")
+            pic.sub_mode[addr] = sub_types
+            refs = [0, 0, 0, 0]
+            if mb_type == 3 and nref > 1:        # P_8x8ref0 keeps ref 0
+                refs = [br.te(nref - 1) for _ in range(4)]
+            pic.ref_idx[addr] = refs
+            for q in range(4):
+                qx, qy = (q % 2) * 2, (q // 2) * 2
+                for (sx, sy, sw, sh) in _SUB_PARTS[sub_types[q]]:
+                    self._fill_mv(addr, qx + sx, qy + sy, sw, sh, refs[q])
+
+        cbp = int(CBP_MAP_CHROMA[br.ue()][1])
+        pic.cbp[addr] = cbp
+        if cbp:
+            self._read_qp_delta(addr)
+        else:
+            pic.qp[addr] = self.qp
+        self._read_luma_residual(addr, cbp & 15, is_i16=False)
+        self._read_chroma_residual(addr, cbp)
+
+    def _parse_p_skip(self, addr: int) -> None:
+        """P_Skip: ref 0 and the skip MV prediction (spec 8.4.1.1)."""
+        pic = self.pic
+        pic.mb_class[addr] = MB_INTER
+        pic.skip[addr] = True
+        pic.ref_idx[addr] = 0
+        pic.qp[addr] = self.qp
+        pic.mv[addr] = self.pctx.skip_mv(addr)
+
+    # ---- slice loop -------------------------------------------------------
+
+    def parse_slice_data(self) -> None:
+        h = self.ctx.header
+        pic, br = self.pic, self.br
+        addr = h.first_mb_in_slice
+        n = pic.n_mbs
+        sid = self.ctx.slice_id
+        if addr >= n:
+            raise ValueError(f"first_mb_in_slice {addr} outside the picture")
+        if h.slice_type == SliceType.I:
+            while True:
+                pic.slice_id[addr] = sid
+                self._parse_intra_mb(addr, br.ue())
+                addr += 1
+                if addr >= n or not br.more_rbsp_data():
+                    break
+            return
+        while addr < n:
+            skip_run = br.ue()
+            for _ in range(skip_run):
+                if addr >= n:
+                    raise ValueError("mb_skip_run past end of picture")
+                pic.slice_id[addr] = sid
+                self._parse_p_skip(addr)
+                addr += 1
+            if addr >= n or not br.more_rbsp_data():
+                break
+            pic.slice_id[addr] = sid
+            self._parse_p_mb(addr, br.ue())
+            addr += 1
+            if not br.more_rbsp_data():
+                break

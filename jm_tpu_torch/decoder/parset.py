@@ -1,0 +1,162 @@
+"""SPS / PPS parsing (spec 7.3.2.1 / 7.3.2.2), twin of
+jm_tpu/decoder/parset.py without scaling lists and subset SPS
+(ldecod/src/parset.c InterpretSPS:61, InterpretPPS:389, ReadVUI:284).
+
+VUI and HRD parameters are read and dropped. A scaling matrix raises
+NotImplementedError: the decoder dequantizes with the flat lists only.
+"""
+
+from __future__ import annotations
+
+from ..bitstream.bitreader import BitReader
+from ..common.types import PPS, SPS
+
+FLAT_16 = [16] * 16
+FLAT_64 = [16] * 64
+
+# profiles whose SPS carries chroma_format_idc .. seq_scaling_matrix
+_FREXT_PROFILES = (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134,
+                   135)
+
+
+def parse_sps(rbsp: bytes) -> SPS:
+    br = BitReader(rbsp)
+    s = SPS()
+    s.profile_idc = br.u(8)
+    s.constraint_set_flags = br.u(8)
+    s.level_idc = br.u(8)
+    s.seq_parameter_set_id = br.ue()
+    if s.profile_idc in _FREXT_PROFILES:
+        s.chroma_format_idc = br.ue()
+        if s.chroma_format_idc == 3:
+            s.separate_colour_plane_flag = br.flag()
+        s.bit_depth_luma_minus8 = br.ue()
+        s.bit_depth_chroma_minus8 = br.ue()
+        s.qpprime_y_zero_transform_bypass_flag = br.flag()
+        s.seq_scaling_matrix_present_flag = br.flag()
+        if s.seq_scaling_matrix_present_flag:
+            raise NotImplementedError(
+                "out of scope: scaling matrices (seq_scaling_matrix_present)")
+    s.scaling_list_4x4 = [list(FLAT_16) for _ in range(6)]
+    s.scaling_list_8x8 = [list(FLAT_64) for _ in range(6)]
+    s.log2_max_frame_num_minus4 = br.ue()
+    s.pic_order_cnt_type = br.ue()
+    if s.pic_order_cnt_type == 0:
+        s.log2_max_pic_order_cnt_lsb_minus4 = br.ue()
+    elif s.pic_order_cnt_type == 1:
+        s.delta_pic_order_always_zero_flag = br.flag()
+        s.offset_for_non_ref_pic = br.se()
+        s.offset_for_top_to_bottom_field = br.se()
+        n = br.ue()
+        s.offset_for_ref_frame = [br.se() for _ in range(n)]
+    s.max_num_ref_frames = br.ue()
+    s.gaps_in_frame_num_value_allowed_flag = br.flag()
+    s.pic_width_in_mbs_minus1 = br.ue()
+    s.pic_height_in_map_units_minus1 = br.ue()
+    s.frame_mbs_only_flag = br.flag()
+    if not s.frame_mbs_only_flag:
+        s.mb_adaptive_frame_field_flag = br.flag()
+    s.direct_8x8_inference_flag = br.flag()
+    s.frame_cropping_flag = br.flag()
+    if s.frame_cropping_flag:
+        s.frame_crop_left_offset = br.ue()
+        s.frame_crop_right_offset = br.ue()
+        s.frame_crop_top_offset = br.ue()
+        s.frame_crop_bottom_offset = br.ue()
+    s.vui_parameters_present_flag = br.flag()
+    if s.vui_parameters_present_flag:
+        _skip_vui(br)
+    return s
+
+
+def _skip_hrd(br: BitReader) -> None:
+    cpb_cnt = br.ue() + 1
+    br.u(8)                        # bit_rate_scale, cpb_size_scale
+    for _ in range(cpb_cnt):
+        br.ue()                    # bit_rate_value_minus1
+        br.ue()                    # cpb_size_value_minus1
+        br.flag()                  # cbr_flag
+    br.u(20)                       # four delay / offset lengths
+
+
+def _skip_vui(br: BitReader) -> None:
+    if br.flag():                  # aspect_ratio_info_present
+        if br.u(8) == 255:         # Extended_SAR
+            br.u(32)
+    if br.flag():                  # overscan_info_present
+        br.flag()
+    if br.flag():                  # video_signal_type_present
+        br.u(4)
+        if br.flag():              # colour_description_present
+            br.u(24)
+    if br.flag():                  # chroma_loc_info_present
+        br.ue()
+        br.ue()
+    if br.flag():                  # timing_info_present
+        br.u(32)
+        br.u(32)
+        br.flag()
+    nal_hrd = br.flag()
+    if nal_hrd:
+        _skip_hrd(br)
+    vcl_hrd = br.flag()
+    if vcl_hrd:
+        _skip_hrd(br)
+    if nal_hrd or vcl_hrd:
+        br.flag()                  # low_delay_hrd
+    br.flag()                      # pic_struct_present
+    if br.flag():                  # bitstream_restriction
+        br.flag()
+        for _ in range(6):
+            br.ue()
+
+
+def parse_pps(rbsp: bytes, sps_map: dict[int, SPS]) -> PPS:
+    br = BitReader(rbsp)
+    p = PPS()
+    p.pic_parameter_set_id = br.ue()
+    p.seq_parameter_set_id = br.ue()
+    sps = sps_map[p.seq_parameter_set_id]
+    p.entropy_coding_mode_flag = br.flag()
+    p.bottom_field_pic_order_in_frame_present_flag = br.flag()
+    p.num_slice_groups_minus1 = br.ue()
+    if p.num_slice_groups_minus1 > 0:
+        # slice group maps are read so the rest of the PPS parses; a slice
+        # that uses them raises (decoder/header.check_scope)
+        p.slice_group_map_type = br.ue()
+        n = p.num_slice_groups_minus1
+        if p.slice_group_map_type == 0:
+            p.run_length_minus1 = [br.ue() for _ in range(n + 1)]
+        elif p.slice_group_map_type == 2:
+            for _ in range(n):
+                p.top_left.append(br.ue())
+                p.bottom_right.append(br.ue())
+        elif p.slice_group_map_type in (3, 4, 5):
+            p.slice_group_change_direction_flag = br.flag()
+            p.slice_group_change_rate_minus1 = br.ue()
+        elif p.slice_group_map_type == 6:
+            p.pic_size_in_map_units_minus1 = br.ue()
+            nbits = max(1, n.bit_length())
+            p.slice_group_id = [
+                br.u(nbits) for _ in range(p.pic_size_in_map_units_minus1 + 1)
+            ]
+    p.num_ref_idx_l0_default_active_minus1 = br.ue()
+    p.num_ref_idx_l1_default_active_minus1 = br.ue()
+    p.weighted_pred_flag = br.flag()
+    p.weighted_bipred_idc = br.u(2)
+    p.pic_init_qp_minus26 = br.se()
+    p.pic_init_qs_minus26 = br.se()
+    p.chroma_qp_index_offset = br.se()
+    p.deblocking_filter_control_present_flag = br.flag()
+    p.constrained_intra_pred_flag = br.flag()
+    p.redundant_pic_cnt_present_flag = br.flag()
+    p.scaling_list_4x4 = [list(x) for x in sps.scaling_list_4x4]
+    p.scaling_list_8x8 = [list(x) for x in sps.scaling_list_8x8]
+    if br.more_rbsp_data():
+        p.transform_8x8_mode_flag = br.flag()
+        p.pic_scaling_matrix_present_flag = br.flag()
+        if p.pic_scaling_matrix_present_flag:
+            raise NotImplementedError(
+                "out of scope: scaling matrices (pic_scaling_matrix_present)")
+        p.second_chroma_qp_index_offset = br.se()
+    return p

@@ -1,0 +1,263 @@
+"""Host reconstruction of a decoded picture's intra macroblocks, twin of
+jm_tpu/decoder/recon.py for 4:2:0, 8-bit frame pictures with the 4x4
+transform (ldecod/src/macroblock.c decode_one_macroblock:1402,
+block.c itrans4x4 / itrans_2).
+
+``decode_residuals`` is batched numpy over every MB of the picture;
+``Reconstructor`` then walks the intra (I4, I16, I_PCM) MBs in raster
+order, each predicted from the already reconstructed neighbours. Inter
+MBs are never predicted here: they arrive in the seed planes made on the
+device by ops/dec.inter_recon_p.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
+from ..common.predict_ctx import CODE2RASTER, RASTER2CODE
+from ..common.tables import DEQUANT_SCALE_4x4, ZIGZAG_4x4, chroma_qp
+from . import intra_pred as I
+
+_ZZ = np.asarray(ZIGZAG_4x4)
+
+
+def _rshift_rnd_sf(x, a: int):
+    return (x + (1 << (a - 1))) >> a
+
+
+def _inv_scan_4x4(coef_scan: np.ndarray) -> np.ndarray:
+    """(..., 16) zig-zag scan order -> (..., 4, 4) raster."""
+    out = np.zeros_like(coef_scan)
+    out[..., _ZZ] = coef_scan
+    return out.reshape(*coef_scan.shape[:-1], 4, 4)
+
+
+def _np_inv4(d):
+    """Batched spec inverse 4x4 (no rounding); d: (..., 4, 4) int."""
+    d = d.astype(np.int64)
+    e0 = d[..., :, 0] + d[..., :, 2]
+    e1 = d[..., :, 0] - d[..., :, 2]
+    e2 = (d[..., :, 1] >> 1) - d[..., :, 3]
+    e3 = d[..., :, 1] + (d[..., :, 3] >> 1)
+    f = np.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3], axis=-1)
+    g0 = f[..., 0, :] + f[..., 2, :]
+    g1 = f[..., 0, :] - f[..., 2, :]
+    g2 = (f[..., 1, :] >> 1) - f[..., 3, :]
+    g3 = f[..., 1, :] + (f[..., 3, :] >> 1)
+    return np.stack([g0 + g3, g1 + g2, g1 - g2, g0 - g3], axis=-2)
+
+
+def _np_hadamard4(d):
+    d = d.astype(np.int64)
+    a0 = d[..., :, 0] + d[..., :, 2]
+    a1 = d[..., :, 0] - d[..., :, 2]
+    a2 = d[..., :, 1] - d[..., :, 3]
+    a3 = d[..., :, 1] + d[..., :, 3]
+    f = np.stack([a0 + a3, a1 + a2, a1 - a2, a0 - a3], axis=-1)
+    b0 = f[..., 0, :] + f[..., 2, :]
+    b1 = f[..., 0, :] - f[..., 2, :]
+    b2 = f[..., 1, :] - f[..., 3, :]
+    b3 = f[..., 1, :] + f[..., 3, :]
+    return np.stack([b0 + b3, b1 + b2, b1 - b2, b0 - b3], axis=-2)
+
+
+def build_inv_scale(pps) -> np.ndarray:
+    """(6, 52, 4, 4) int32 InvLevelScale = V[qp % 6] * weightScale of the
+    PPS's six 4x4 lists (0 intra Y, 1 intra Cb, 2 intra Cr, 3 inter Y,
+    4 inter Cb, 5 inter Cr); flat here, since scaling matrices raise."""
+    tab4 = np.zeros((6, 52, 4, 4), np.int32)
+    v = DEQUANT_SCALE_4x4[np.arange(52) % 6]                 # (52, 4, 4)
+    for i in range(6):
+        ws = np.zeros(16, np.int64)
+        ws[_ZZ] = pps.scaling_list_4x4[i]
+        tab4[i] = v * ws.reshape(4, 4)
+    return tab4
+
+
+def decode_residuals(pic: PictureData, pps):
+    """Returns (res_luma (n, 16, 4, 4), res_chroma (n, 2, 4, 4, 4)) int32
+    spatial residuals of every MB (inverse scan -> dequant -> inverse
+    transform; I16 luma DC and chroma DC Hadamards); products in int64,
+    the dequantized levels kept as int32 as in jm_tpu."""
+    n = pic.n_mbs
+    qp = pic.qp.astype(np.int64)
+    tab4 = build_inv_scale(pps)
+    intra = pic.mb_class != MB_INTER
+    per = qp // 6
+
+    # ---- luma: intra -> list 0, inter -> list 3 ----
+    raster = _inv_scan_4x4(pic.luma_coef)                       # (n, 16, 4, 4)
+    scale_y = tab4[np.where(intra, 0, 3), qp].astype(np.int64)  # (n, 4, 4)
+    deq = _rshift_rnd_sf((raster.astype(np.int64) * scale_y[:, None])
+                         << per[:, None, None, None], 4).astype(np.int32)
+    i16 = pic.mb_class == MB_I16
+    if i16.any():
+        dc_t = _np_hadamard4(_inv_scan_4x4(pic.luma_dc))       # (n, 4, 4)
+        scale = scale_y[:, 0, 0][:, None, None]
+        dc_s = _rshift_rnd_sf((dc_t * scale) << per[:, None, None],
+                              6).astype(np.int32)
+        blk = np.arange(16)
+        deq_dc = deq.copy()
+        deq_dc[:, blk, 0, 0] = dc_s[:, blk // 4, blk % 4]
+        deq = np.where(i16[:, None, None, None], deq_dc, deq)
+    res_luma = ((_np_inv4(deq) + 32) >> 6).astype(np.int32)
+
+    # ---- chroma: lists 1 / 2 intra, 4 / 5 inter ----
+    qpc = np.array([[chroma_qp(int(q), pps.cb_qp_offset),
+                     chroma_qp(int(q), pps.cr_qp_offset)] for q in pic.qp],
+                   np.int64).reshape(n, 2)
+    c_raster = _inv_scan_4x4(pic.chroma_coef).astype(np.int64)  # (n,2,4,4,4)
+    scale_c = np.stack([tab4[np.where(intra, 1, 4), qpc[:, 0]],
+                        tab4[np.where(intra, 2, 5), qpc[:, 1]]],
+                       axis=1).astype(np.int64)                 # (n, 2, 4, 4)
+    perc = qpc // 6
+    c_deq = _rshift_rnd_sf((c_raster * scale_c[:, :, None])
+                           << perc[:, :, None, None, None], 4).astype(np.int32)
+    # chroma DC: 2x2 Hadamard, then scale (floor >> 5)
+    dc = pic.chroma_dc.reshape(n, 2, 2, 2).astype(np.int64)
+    a, b = dc[..., 0, 0], dc[..., 0, 1]
+    c, d = dc[..., 1, 0], dc[..., 1, 1]
+    f = np.stack([
+        np.stack([a + b + c + d, a - b + c - d], axis=-1),
+        np.stack([a + b - c - d, a - b - c + d], axis=-1)], axis=-2)
+    dc_s = (((f * scale_c[:, :, 0, 0][..., None, None])
+             << perc[..., None, None]) >> 5).astype(np.int32)
+    blk = np.arange(4)
+    c_deq[:, :, blk, 0, 0] = dc_s[:, :, blk // 2, blk % 2]
+    res_chroma = ((_np_inv4(c_deq) + 32) >> 6).astype(np.int32)
+    return res_luma, res_chroma
+
+
+class Reconstructor:
+    """Host reconstruction of one picture's intra and I_PCM macroblocks."""
+
+    def __init__(self, pic: PictureData, pps):
+        self.pic = pic
+        self.pps = pps
+        self.mb_w = pic.mb_w
+        self.w = pic.mb_w * 16
+        self.h = pic.mb_h * 16
+        self.Y = np.zeros((self.h, self.w), np.uint8)
+        self.U = np.zeros((self.h // 2, self.w // 2), np.uint8)
+        self.V = np.zeros((self.h // 2, self.w // 2), np.uint8)
+
+    # ---- availability (same slice, already decoded) -----------------------
+
+    def _mb_avail(self, naddr: int, addr: int) -> bool:
+        if naddr < 0 or naddr >= self.pic.n_mbs:
+            return False
+        return self.pic.slice_id[naddr] == self.pic.slice_id[addr]
+
+    def _block_avail(self, addr, gbx, gby, cur_code) -> bool:
+        """Availability of the 4x4 luma block at global block coordinates
+        for intra prediction of block cur_code (coding order) of MB addr."""
+        if gbx < 0 or gby < 0 or gbx >= self.mb_w * 4:
+            return False
+        naddr = (gby // 4) * self.mb_w + (gbx // 4)
+        if naddr == addr:
+            return RASTER2CODE[(gby % 4) * 4 + (gbx % 4)] < cur_code
+        if naddr > addr:
+            return False
+        return self._mb_avail(naddr, addr)
+
+    # ---- reconstruction ---------------------------------------------------
+
+    def run(self, seed=None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """seed: (Y, U, V) planes holding the inter MBs (ops/dec
+        .inter_recon_p), required when the picture has any. Returns the
+        (Y, U, V) uint8 planes, not yet deblocked."""
+        pic = self.pic
+        if seed is not None:
+            self.Y[:], self.U[:], self.V[:] = seed
+        elif (pic.mb_class == MB_INTER).any():
+            raise ValueError("inter macroblocks need the device seed planes")
+        res_l, res_c = decode_residuals(pic, self.pps)
+        for addr in range(pic.n_mbs):
+            cls = pic.mb_class[addr]
+            if cls == MB_I16:
+                self._recon_i16(addr, res_l, res_c)
+            elif cls == MB_I4:
+                self._recon_i4(addr, res_l, res_c)
+            elif cls == MB_IPCM:
+                self._recon_ipcm(addr)
+        return self.Y, self.U, self.V
+
+    def _recon_i4(self, addr, res_l, res_c):
+        pic = self.pic
+        mbx, mby = addr % self.mb_w, addr // self.mb_w
+        Y = self.Y
+        for code in range(16):
+            by, bx = divmod(int(CODE2RASTER[code]), 4)
+            gx, gy = mbx * 4 + bx, mby * 4 + by
+            x, y = gx * 4, gy * 4
+            avail_l = self._block_avail(addr, gx - 1, gy, code)
+            avail_t = self._block_avail(addr, gx, gy - 1, code)
+            avail_tl = self._block_avail(addr, gx - 1, gy - 1, code)
+            avail_tr = self._block_avail(addr, gx + 1, gy - 1, code)
+            top = np.zeros(8, np.int32)
+            left = np.zeros(4, np.int32)
+            corner = 0
+            if avail_t:
+                top[0:4] = Y[y - 1, x:x + 4]
+                if avail_tr:
+                    top[4:8] = Y[y - 1, x + 4:x + 8]
+                else:
+                    top[4:8] = Y[y - 1, x + 3]
+            if avail_l:
+                left[:] = Y[y:y + 4, x - 1]
+            if avail_tl:
+                corner = int(Y[y - 1, x - 1])
+            pred = I.predict_i4(int(pic.i4_modes[addr, by * 4 + bx]), top,
+                                left, corner, avail_t, avail_l)
+            Y[y:y + 4, x:x + 4] = np.clip(pred + res_l[addr, by * 4 + bx],
+                                          0, 255)
+        self._recon_chroma_intra(addr, res_c)
+
+    def _recon_i16(self, addr, res_l, res_c):
+        pic = self.pic
+        mbx, mby = addr % self.mb_w, addr // self.mb_w
+        px, py = mbx * 16, mby * 16
+        Y = self.Y
+        avail_l = self._mb_avail(addr - 1, addr) if mbx > 0 else False
+        avail_t = self._mb_avail(addr - self.mb_w, addr)
+        avail_tl = (mbx > 0) and self._mb_avail(addr - self.mb_w - 1, addr)
+        top = Y[py - 1, px:px + 16].astype(np.int32) if avail_t \
+            else np.zeros(16, np.int32)
+        left = Y[py:py + 16, px - 1].astype(np.int32) if avail_l \
+            else np.zeros(16, np.int32)
+        corner = int(Y[py - 1, px - 1]) if avail_tl else 0
+        pred = I.predict_i16(int(pic.i16_mode[addr]), top, left, corner,
+                             avail_t, avail_l)
+        res = res_l[addr].reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
+            .reshape(16, 16)
+        Y[py:py + 16, px:px + 16] = np.clip(pred + res, 0, 255)
+        self._recon_chroma_intra(addr, res_c)
+
+    def _recon_chroma_intra(self, addr, res_c):
+        mbx, mby = addr % self.mb_w, addr // self.mb_w
+        cx, cy = mbx * 8, mby * 8
+        avail_l = self._mb_avail(addr - 1, addr) if mbx > 0 else False
+        avail_t = self._mb_avail(addr - self.mb_w, addr)
+        avail_tl = (mbx > 0) and self._mb_avail(addr - self.mb_w - 1, addr)
+        mode = int(self.pic.chroma_mode[addr])
+        for comp, plane in ((0, self.U), (1, self.V)):
+            top = plane[cy - 1, cx:cx + 8].astype(np.int32) if avail_t \
+                else np.zeros(8, np.int32)
+            left = plane[cy:cy + 8, cx - 1].astype(np.int32) if avail_l \
+                else np.zeros(8, np.int32)
+            corner = int(plane[cy - 1, cx - 1]) if avail_tl else 0
+            pred = I.predict_chroma(mode, top, left, corner, avail_t,
+                                    avail_l)
+            res = res_c[addr, comp].reshape(2, 2, 4, 4).transpose(0, 2, 1, 3) \
+                .reshape(8, 8)
+            plane[cy:cy + 8, cx:cx + 8] = np.clip(pred + res, 0, 255)
+
+    def _recon_ipcm(self, addr):
+        pic = self.pic
+        mbx, mby = addr % self.mb_w, addr // self.mb_w
+        self.Y[mby * 16:mby * 16 + 16, mbx * 16:mbx * 16 + 16] = \
+            pic.ipcm_luma[addr]
+        ch = pic.ipcm_chroma[addr]
+        self.U[mby * 8:mby * 8 + 8, mbx * 8:mbx * 8 + 8] = ch[0]
+        self.V[mby * 8:mby * 8 + 8, mbx * 8:mbx * 8 + 8] = ch[1]

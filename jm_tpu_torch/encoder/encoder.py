@@ -35,6 +35,7 @@ from ..common.picture import MB_INTER, PictureData
 from ..common.tables import chroma_qp
 from ..common.types import PPS, SPS, SliceType
 from ..convert import qpc_tables
+from ..device import resolve
 from ..ops import enc as E
 from ..ops.deblock import compute_bs, deblock
 from ..ops.intra import i_frame_step
@@ -123,17 +124,8 @@ class Encoder:
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Encoder: CUDA requested but no CUDA device is "
-                    "available; pass device='cpu' to run on the CPU")
-        elif device.type != "cpu":
-            raise ValueError(f"Encoder: device {device} is neither cuda "
-                             "nor cpu")
         self.cfg = cfg
-        self.device = device
+        self.device = resolve(device, "Encoder")
         self.mb_w = cfg.width // 16
         self.mb_h = cfg.height // 16
         try:
@@ -154,7 +146,7 @@ class Encoder:
                        entropy_coding_mode_flag=0,
                        deblocking_filter_control_present_flag=0)
         self.qpc = chroma_qp(cfg.qp, self.pps.chroma_qp_index_offset)
-        self.qpc_cb, self.qpc_cr = qpc_tables(self.pps, device)
+        self.qpc_cb, self.qpc_cr = qpc_tables(self.pps, self.device)
         n = self.mb_w * self.mb_h
         # packed-word budget (~96 bits per MB on average); hotter frames
         # raise ovf and are serialized on the host

@@ -1,4 +1,6 @@
-"""Device copies of constant numpy tables.
+"""Device copies of constant numpy tables, and the quarter-pel layout of
+a reference picture (PAD, QPEL_TAB) shared by the encoder's motion
+search and the decoder's inter prediction.
 
 Every table the tensor stages index (quant scales, CAVLC code tables,
 deblock thresholds, ...) is a module-level numpy array; ``on(table,
@@ -23,3 +25,27 @@ def on(table: np.ndarray, device) -> torch.Tensor:
         _CACHE[key] = (t, table)          # keep the array alive: id() key
         return t
     return t[0]
+
+
+PAD = 32      # replicated reference padding (jm_tpu/ops/interp.py PAD)
+
+# quarter-pel selection (interp.QPEL_TAB): (xf, yf) -> (plane1, dx1, dy1,
+# plane2, dx2, dy2); planes 0=INT, 1=B (half-h), 2=H (half-v), 3=J
+QPEL_TAB = {
+    (0, 0): (0, 0, 0, -1, 0, 0),
+    (2, 0): (1, 0, 0, -1, 0, 0),
+    (0, 2): (2, 0, 0, -1, 0, 0),
+    (2, 2): (3, 0, 0, -1, 0, 0),
+    (1, 0): (0, 0, 0, 1, 0, 0),
+    (3, 0): (0, 1, 0, 1, 0, 0),
+    (0, 1): (0, 0, 0, 2, 0, 0),
+    (0, 3): (0, 0, 1, 2, 0, 0),
+    (2, 1): (1, 0, 0, 3, 0, 0),
+    (2, 3): (1, 0, 1, 3, 0, 0),
+    (1, 2): (2, 0, 0, 3, 0, 0),
+    (3, 2): (2, 1, 0, 3, 0, 0),
+    (1, 1): (1, 0, 0, 2, 0, 0),
+    (3, 1): (1, 0, 0, 2, 1, 0),
+    (1, 3): (1, 0, 1, 2, 0, 0),
+    (3, 3): (1, 0, 1, 2, 1, 0),
+}

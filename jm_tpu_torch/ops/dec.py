@@ -1,0 +1,144 @@
+"""The decoder's device stages for P pictures, twin of
+jm_tpu/ops/dec_jax.py: the residual decode and the inter reconstruction
+of every inter macroblock of a picture as batched tensor ops.
+
+Inter prediction does not depend on the current picture, so every inter
+4x4 block of the picture is predicted at once: one gather pulls each
+block's 5x5 window of the four quarter-pel planes (INT, B, H, J; see
+ops/enc.prep_ref) from the stacked list0 reference states, a 16-way
+select applies QPEL_TAB, and chroma takes 3x3 windows with eighth-pel
+bilinear weights (ldecod/src/mc_prediction.c get_block_luma:902,
+get_block_chroma). Window origins are clamped into the padded planes,
+whose replicated border makes the clamp exact for any MV.
+
+Both functions run on the tensors' device. Scope: 4:2:0 frame P pictures
+with the 4x4 transform, list0 only, no weighted prediction.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..common.tables import ZIGZAG_4x4
+from . import quant as Q
+from . import transform as T
+from .consts import PAD, QPEL_TAB, on
+
+I32 = torch.int32
+_ZZ = np.asarray(ZIGZAG_4x4, np.int64)
+
+
+def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
+                    qpc_cb, qpc_cr, *, mb_w: int, mb_h: int):
+    """Residual decode of a picture's MBs with the inter scaling lists:
+    inverse zig-zag -> dequant -> rounded inverse 4x4; chroma DC through
+    the 2x2 Hadamard (spec 8.5.11).
+
+    luma_coef (N, 16, 16) int scan order; chroma_dc (N, 2, 4); chroma_coef
+    (N, 2, 4, 16); qp (N,); tabY / tabU / tabV (52, 4, 4) int32
+    InvLevelScale (lists 3 / 4 / 5 of decoder/recon.build_inv_scale);
+    qpc_cb / qpc_cr (52,) int32 QP -> QPc with the PPS offsets.
+    Returns (res_l (N, 16, 4, 4), res_c (N, 2, 4, 4, 4)) int32."""
+    n = mb_w * mb_h
+    dev = luma_coef.device
+    zz = on(_ZZ, dev)
+    qp = qp.to(I32)
+
+    raster = torch.zeros((n, 16, 16), dtype=I32, device=dev)
+    raster[..., zz] = luma_coef.to(I32)
+    deq = Q.dequant_4x4(raster.reshape(n, 16, 4, 4), qp[:, None], tabY)
+    res_l = T.inverse4x4_round(deq)
+
+    qpi = torch.clamp(qp, 0, 51).long()
+    qpu, qpv = qpc_cb[qpi], qpc_cr[qpi]
+    craster = torch.zeros((n, 2, 4, 16), dtype=I32, device=dev)
+    craster[..., zz] = chroma_coef.to(I32)
+    craster = craster.reshape(n, 2, 4, 4, 4)
+    dequ = Q.dequant_4x4(craster[:, 0], qpu[:, None], tabU)
+    deqv = Q.dequant_4x4(craster[:, 1], qpv[:, None], tabV)
+    f = T.hadamard2x2(chroma_dc.reshape(n, 2, 2, 2))
+    dequ[:, :, 0, 0] = Q.dequant_chroma_dc(f[:, 0], qpu, tabU).reshape(n, 4)
+    deqv[:, :, 0, 0] = Q.dequant_chroma_dc(f[:, 1], qpv, tabV).reshape(n, 4)
+    res_c = torch.stack([T.inverse4x4_round(dequ),
+                         T.inverse4x4_round(deqv)], dim=1)
+    return res_l, res_c
+
+
+def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
+                  padV_stack, inter_mask, *, mb_w: int, mb_h: int):
+    """Inter reconstruction of every inter MB of a picture.
+
+    mv (N, 16, 2) quarter-pel per raster 4x4 block; ref_idx (N, 4) list0
+    index per 8x8; res_l (N, 16, 4, 4), res_c (N, 2, 4, 4, 4) int32;
+    planes_stack (R, 4, H+2P, W+2P) uint8, padU_stack / padV_stack
+    (R, H/2+2P, W/2+2P) uint8 (ops/enc.prep_ref of each reference);
+    inter_mask (N,) bool. Returns (Y, U, V) uint8 planes, the MBs outside
+    inter_mask zero."""
+    n = mb_w * mb_h
+    w, h = 16 * mb_w, 16 * mb_h
+    dev = mv.device
+    R, _, Hp, Wp = planes_stack.shape
+    blk = torch.arange(16, dtype=I32, device=dev)
+    bx, by = blk % 4, blk // 4
+    quad = ((by // 2) * 2 + bx // 2).long()
+    mbi = torch.arange(n, dtype=I32, device=dev)
+    px = (mbi % mb_w)[:, None] * 16 + bx[None] * 4           # (N, 16)
+    py = (mbi // mb_w)[:, None] * 16 + by[None] * 4
+    ref_b = torch.clamp(ref_idx.to(I32)[:, quad], 0, R - 1).long()
+    mvx = mv[..., 0].to(I32)
+    mvy = mv[..., 1].to(I32)
+
+    # ---- luma: one gather of (N, 16, 4 planes, 5, 5) windows ----------
+    x4 = px * 4 + mvx
+    y4 = py * 4 + mvy
+    xi = torch.clamp(x4 >> 2, -PAD, w + PAD - 5)
+    yi = torch.clamp(y4 >> 2, -PAD, h + PAD - 5)
+    xf, yf = x4 & 3, y4 & 3
+    i5 = torch.arange(5, device=dev)
+    p4 = torch.arange(4, device=dev)
+    rows = (yi + PAD).long()[..., None, None, None] + i5[:, None]
+    cols = (xi + PAD).long()[..., None, None, None] + i5
+    idx = ((ref_b[..., None, None, None] * 4 + p4[:, None, None]) * Hp
+           + rows) * Wp + cols                                  # (N,16,4,5,5)
+    win = planes_stack.reshape(-1)[idx].to(I32)
+    pred = torch.zeros((n, 16, 4, 4), dtype=I32, device=dev)
+    for (fx, fy), (p1, dx1, dy1, p2, dx2, dy2) in QPEL_TAB.items():
+        a = win[:, :, p1, dy1:dy1 + 4, dx1:dx1 + 4]
+        b = a if p2 < 0 else \
+            (a + win[:, :, p2, dy2:dy2 + 4, dx2:dx2 + 4] + 1) >> 1
+        pred = torch.where(((xf == fx) & (yf == fy))[..., None, None], b,
+                           pred)
+    mask = inter_mask.to(torch.bool)
+    recb = torch.clamp(pred + res_l, 0, 255) * mask[:, None, None, None]
+    Y = recb.to(torch.uint8).reshape(mb_h, mb_w, 4, 4, 4, 4) \
+        .permute(0, 2, 4, 1, 3, 5).reshape(h, w)
+
+    # ---- chroma (4:2:0): a 2x2 block per luma 4x4 block, eighth-pel ----
+    cw, ch = w // 2, h // 2
+    Hc, Wc = padU_stack.shape[1:]
+    cx8 = (px // 2) * 8 + mvx
+    cy8 = (py // 2) * 8 + mvy
+    cxi = torch.clamp(cx8 >> 3, -PAD, cw + PAD - 3)
+    cyi = torch.clamp(cy8 >> 3, -PAD, ch + PAD - 3)
+    i3 = torch.arange(3, device=dev)
+    cidx = (ref_b[..., None, None] * Hc + (cyi + PAD).long()[..., None, None]
+            + i3[:, None]) * Wc + (cxi + PAD).long()[..., None, None] + i3
+    cwin = torch.stack([padU_stack.reshape(-1)[cidx],
+                        padV_stack.reshape(-1)[cidx]], dim=2).to(I32)
+    wx = (cx8 & 7)[..., None, None, None]                    # (N,16,1,1,1)
+    wy = (cy8 & 7)[..., None, None, None]
+    cpred = ((8 - wx) * (8 - wy) * cwin[..., :2, :2]
+             + wx * (8 - wy) * cwin[..., :2, 1:]
+             + (8 - wx) * wy * cwin[..., 1:, :2]
+             + wx * wy * cwin[..., 1:, 1:] + 32) >> 6       # (N,16,2,2,2)
+    # per MB and component an 8x8 block: luma block (by, bx) covers chroma
+    # rows 2 by.., columns 2 bx..; chroma 4x4 block cb = 2 qy + qx
+    cpred = cpred.reshape(n, 4, 4, 2, 2, 2).permute(0, 3, 1, 4, 2, 5) \
+        .reshape(n, 2, 8, 8)
+    cres = res_c.reshape(n, 2, 2, 2, 4, 4).permute(0, 1, 2, 4, 3, 5) \
+        .reshape(n, 2, 8, 8)
+    rc = torch.clamp(cpred + cres, 0, 255) * mask[:, None, None, None]
+    UV = rc.to(torch.uint8).reshape(mb_h, mb_w, 2, 8, 8) \
+        .permute(2, 0, 3, 1, 4).reshape(2, ch, cw)
+    return Y, UV[0], UV[1]

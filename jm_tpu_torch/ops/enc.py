@@ -33,32 +33,10 @@ from ..common.tables import ZIGZAG_4x4
 from . import quant as Q
 from . import transform as T
 from .cavlc import median3
-from .consts import on
+from .consts import PAD, QPEL_TAB, on
 
 I32 = torch.int32
 
-PAD = 32      # replicated reference padding (jm_tpu/ops/interp.py PAD)
-
-# quarter-pel selection (interp.QPEL_TAB): (xf, yf) -> (plane1, dx1, dy1,
-# plane2, dx2, dy2); planes 0=INT, 1=B (half-h), 2=H (half-v), 3=J
-QPEL_TAB = {
-    (0, 0): (0, 0, 0, -1, 0, 0),
-    (2, 0): (1, 0, 0, -1, 0, 0),
-    (0, 2): (2, 0, 0, -1, 0, 0),
-    (2, 2): (3, 0, 0, -1, 0, 0),
-    (1, 0): (0, 0, 0, 1, 0, 0),
-    (3, 0): (0, 1, 0, 1, 0, 0),
-    (0, 1): (0, 0, 0, 2, 0, 0),
-    (0, 3): (0, 0, 1, 2, 0, 0),
-    (2, 1): (1, 0, 0, 3, 0, 0),
-    (2, 3): (1, 0, 1, 3, 0, 0),
-    (1, 2): (2, 0, 0, 3, 0, 0),
-    (3, 2): (2, 1, 0, 3, 0, 0),
-    (1, 1): (1, 0, 0, 2, 0, 0),
-    (3, 1): (1, 0, 0, 2, 1, 0),
-    (1, 3): (1, 0, 1, 2, 0, 0),
-    (3, 3): (1, 0, 1, 2, 1, 0),
-}
 
 # ---------------------------------------------------------------------------
 # static tables

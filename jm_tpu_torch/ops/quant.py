@@ -35,13 +35,31 @@ def rshift_rnd_sf(x: torch.Tensor, a: int) -> torch.Tensor:
     return (x + (1 << (a - 1))) >> a
 
 
-def dequant_4x4(coef: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
+def dequant_4x4(coef: torch.Tensor, qp: torch.Tensor,
+                tab: torch.Tensor | None = None) -> torch.Tensor:
     """coef (..., 4, 4) levels, qp (...,) int32 -> scaled coefficients
-    d = rshift_rnd_sf((c * InvScale[qp]) << (qp/6), 4)."""
+    d = rshift_rnd_sf((c * InvScale[qp]) << (qp/6), 4); tab: a (52, 4, 4)
+    int32 InvLevelScale table on coef's device (flat lists by default)."""
     qp = qp.to(torch.int32)
-    scale = on(FLAT_INV_SCALE_4x4, coef.device)[qp.long()]
+    if tab is None:
+        tab = on(FLAT_INV_SCALE_4x4, coef.device)
+    scale = tab[qp.long()]
     per = (qp // 6)[..., None, None]
     return rshift_rnd_sf((coef.to(torch.int32) * scale) << per, 4)
+
+
+def dequant_chroma_dc(dc: torch.Tensor, qp: torch.Tensor,
+                      tab: torch.Tensor) -> torch.Tensor:
+    """Chroma DC scaling after the 2x2 Hadamard (spec 8.5.11.2):
+    ((f * InvScale[qp][0, 0]) << (qp/6)) >> 5, floor; qp (B,) against dc
+    (B, ...), tab (52, 4, 4) int32."""
+    qp = qp.to(torch.int32)
+    scale = tab[qp.long(), 0, 0]
+    per = qp // 6
+    while scale.dim() < dc.dim():
+        scale = scale[..., None]
+        per = per[..., None]
+    return ((dc.to(torch.int32) * scale) << per) >> 5
 
 
 def dc_scale(qp: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,250 @@
+"""The port's decoder (jm_tpu_torch/decoder) against jm_tpu's on the CPU,
+byte for byte (the codec is integer-exact: the tolerance is zero):
+- SPS, PPS and slice headers of the in-scope goldens, field by field;
+- the in-scope goldens against jm_tpu's H264Decoder(device_recon=True)
+  and against JM ldecod's output (_rec.yuv);
+- jm_tpu encoder streams (IPPP, periodic IDR, a scene cut whose P
+  pictures carry intra MBs, several slices and references with POC
+  type 2, POC type 1 with intra refresh MBs, I_PCM) against jm_tpu's
+  decode and the encoder's reconstruction;
+- the port's own encoder stream;
+- jm_tpu's parse through convert.picture_from_numpy and the port's
+  reconstruction and deblock;
+- out-of-scope streams raise NotImplementedError naming the construct,
+  and a CUDA request without a card raises."""
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from jm_tpu.bitstream.nal import split_annexb as jm_split
+from jm_tpu.common.types import SliceHeader as JSliceHeader
+from jm_tpu.decoder import decoder as jm_decoder
+from jm_tpu.decoder.header import PocContext as JPocContext
+from jm_tpu.decoder.header import parse_slice_header as jm_slice_header
+from jm_tpu.decoder.parset import parse_pps as jm_pps
+from jm_tpu.decoder.parset import parse_sps as jm_sps
+from jm_tpu.encoder.encoder import Encoder as JEncoder
+from jm_tpu.encoder.encoder import EncoderConfig as JEncoderConfig
+from jm_tpu_torch.bitstream.nal import split_annexb
+from jm_tpu_torch.common.types import SPS, SliceHeader, SliceType
+from jm_tpu_torch.convert import picture_from_numpy
+from jm_tpu_torch.decoder import decoder as port_decoder
+from jm_tpu_torch.decoder.decoder import H264Decoder, decode_file
+from jm_tpu_torch.decoder.header import PocContext, parse_slice_header
+from jm_tpu_torch.decoder.parset import parse_pps, parse_sps
+from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig
+
+from test_pipe_stream import make_frames
+
+GOLDEN = Path(__file__).parent / "golden"
+IN_SCOPE = ["i1", "ipp3", "qp20", "qp36"]
+
+
+def _fields(obj, names):
+    out = {}
+    for k in names:
+        v = getattr(obj, k)
+        if k == "ref_pic_list_mod_l0":
+            v = [(m.op, m.value) for m in v]
+        out[k] = int(v) if isinstance(v, bool) else v
+    return out
+
+
+@pytest.mark.parametrize("name", IN_SCOPE)
+def test_headers_match_jm(name):
+    data = (GOLDEN / f"{name}.264").read_bytes()
+    units, jm_units = split_annexb(data), jm_split(data)
+    assert [(u.nal_unit_type, u.nal_ref_idc, u.rbsp) for u in units] == \
+        [(int(u.nal_unit_type), u.nal_ref_idc, u.rbsp) for u in jm_units]
+    sps_f = [f.name for f in dataclasses.fields(SPS) if f.name != "vui"]
+    hdr_f = [f.name for f in dataclasses.fields(SliceHeader)]
+    assert set(hdr_f) <= {f.name for f in dataclasses.fields(JSliceHeader)}
+    sm, pm, jsm, jpm = {}, {}, {}, {}
+    n_slices = 0
+    for u, ju in zip(units, jm_units):
+        if u.nal_unit_type == 7:
+            s, js = parse_sps(u.rbsp), jm_sps(ju.rbsp)
+            assert _fields(s, sps_f) == _fields(js, sps_f)
+            sm[s.seq_parameter_set_id] = s
+            jsm[js.seq_parameter_set_id] = js
+        elif u.nal_unit_type == 8:
+            p, jp = parse_pps(u.rbsp, sm), jm_pps(ju.rbsp, jsm)
+            assert dataclasses.asdict(p) == dataclasses.asdict(jp)
+            pm[p.pic_parameter_set_id] = p
+            jpm[jp.pic_parameter_set_id] = jp
+        elif u.nal_unit_type in (1, 5):
+            (h, br), (jh, jbr) = parse_slice_header(u, sm, pm), \
+                jm_slice_header(ju, jsm, jpm)
+            assert _fields(h, hdr_f) == _fields(jh, hdr_f)
+            assert br.pos == jbr.pos
+            n_slices += 1
+    assert n_slices >= 1
+
+
+def _equal(frames_a, frames_b):
+    assert len(frames_a) == len(frames_b)
+    for i, (a, b) in enumerate(zip(frames_a, frames_b)):
+        for p in "YUV":
+            assert np.array_equal(getattr(a, p), getattr(b, p)), \
+                f"frame {i} plane {p} differs"
+
+
+def _equal_yuv(frames, path):
+    rec = np.fromfile(path, np.uint8)
+    cat = np.concatenate([np.concatenate([f.Y.ravel(), f.U.ravel(),
+                                          f.V.ravel()]) for f in frames])
+    assert cat.size == rec.size
+    assert np.array_equal(cat, rec)
+
+
+@pytest.mark.parametrize("name", IN_SCOPE)
+def test_golden_decodes_like_jm_and_ldecod(name):
+    data = (GOLDEN / f"{name}.264").read_bytes()
+    dec = H264Decoder(device="cpu")
+    out = dec.decode_annexb(data)
+    _equal(out, jm_decoder.H264Decoder(device_recon=True).decode_annexb(data))
+    _equal_yuv(out, GOLDEN / f"{name}_rec.yuv")
+    assert [p["path"] for p in dec.pictures][0] == "intra"
+    assert {p["path"] for p in dec.pictures[1:]} <= {"inter", "mixed"}
+
+
+def test_decode_file_on_cpu():
+    out = decode_file(str(GOLDEN / "qp36.264"), device="cpu")
+    _equal_yuv(out, GOLDEN / "qp36_rec.yuv")
+
+
+# jm_tpu encoder streams at 96x80: (frames kwargs, encoder kwargs, a path
+# the port's decode must take)
+JM_STREAMS = {
+    "ippp": ({"n": 5}, {}, "inter"),
+    "periodic_idr": ({"n": 6}, {"intra_period": 3}, "inter"),
+    "scene_cut": ({"n": 4, "noise_at": 2}, {}, "mixed"),
+    "slices_refs_poc2": ({"n": 5, "seed": 3},
+                         {"slice_mode": 1, "slice_argument": 7, "num_ref": 3,
+                          "poc_type": 2, "sub8x8": True}, "inter"),
+    "poc1_intra_refresh": ({"n": 4, "seed": 4},
+                           {"poc_type": 1, "intra_mb_refresh": 3,
+                            "num_ref": 2}, "mixed"),
+    "ipcm": ({"n": 3, "seed": 5}, {"enable_ipcm": 2}, "intra"),
+}
+
+
+@pytest.mark.parametrize("name", list(JM_STREAMS))
+def test_jm_encoder_stream(name):
+    fkw, ekw, path = JM_STREAMS[name]
+    frames = make_frames(96, 80, **fkw)
+    enc = JEncoder(JEncoderConfig(width=96, height=80, qp=30, **ekw))
+    data = b"".join(enc.encode_frame(*f) for f in frames)
+    dec = H264Decoder(device="cpu")
+    out = dec.decode_annexb(data)
+    _equal(out, jm_decoder.H264Decoder(device_recon=True).decode_annexb(data))
+    _equal(out, [r["frame"] for r in sorted(enc.results,
+                                            key=lambda r: r["disp"])])
+    assert path in [p["path"] for p in dec.pictures]
+
+
+def test_port_encoder_stream():
+    frames = make_frames(96, 80, 4, seed=11)
+    enc = Encoder(EncoderConfig(width=96, height=80, qp=28), device="cpu")
+    data = b"".join(enc.encode_stream(frames))
+    dec = H264Decoder(device="cpu")
+    out = dec.decode_annexb(data)
+    _equal(out, [r["frame"] for r in enc.results])
+    assert [p["path"] for p in dec.pictures] == ["intra"] + ["inter"] * 3
+
+
+def test_picture_from_numpy_through_port_recon():
+    """jm_tpu's parse of each picture, converted, goes through the port's
+    reconstruction and deblock to the same planes."""
+    data = (GOLDEN / "ipp3.264").read_bytes()
+    jm_pics = []
+
+    class Capture(jm_decoder.H264Decoder):
+        def _finish_picture(self):
+            if self._cur is not None:
+                jm_pics.append(self._cur["pic"])
+            super()._finish_picture()
+
+    want = Capture(device_recon=True).decode_annexb(data)
+
+    class FromJm(port_decoder.H264Decoder):
+        def _finish_picture(self):
+            if self._cur is not None:
+                self._cur["pic"] = picture_from_numpy(jm_pics.pop(0))
+            super()._finish_picture()
+
+    _equal(FromJm(device="cpu").decode_annexb(data), want)
+    assert not jm_pics
+
+
+@pytest.mark.parametrize("name,construct", [
+    ("cabac_pp", "CABAC"),
+    ("cavlc_b", "B slices"),
+    ("high8x8", "8x8 transform"),
+    ("fmo_t1", "FMO"),
+    ("field1", "fields"),
+    ("wp_p", "weighted prediction"),
+    ("dp1", "data partitioning"),
+    ("high8x8sm", "scaling matrices"),
+    ("hi10c", "bit depth"),
+    ("y422c", "chroma_format_idc 2"),
+    ("lossless", "lossless"),
+    ("sp1", "SP slices"),
+])
+def test_out_of_scope_raises(name, construct):
+    data = (GOLDEN / f"{name}.264").read_bytes()
+    with pytest.raises(NotImplementedError, match=construct):
+        H264Decoder(device="cpu").decode_annexb(data)
+
+
+def test_mvc_nal_raises():
+    data = (GOLDEN / "i1.264").read_bytes() + b"\x00\x00\x00\x01\x6f\x42"
+    with pytest.raises(NotImplementedError, match="MVC"):
+        H264Decoder(device="cpu").decode_annexb(data)
+
+
+def test_missing_slice_raises():
+    """A picture whose MBs are not all coded needs concealment."""
+    frames = make_frames(96, 80, 1)
+    enc = JEncoder(JEncoderConfig(width=96, height=80, qp=30, slice_mode=1,
+                                  slice_argument=10))
+    units = enc.encode_frame(*frames[0]).split(b"\x00\x00\x00\x01")
+    # drop the picture's last slice NAL unit
+    data = b"".join(b"\x00\x00\x00\x01" + u for u in units[1:-1])
+    with pytest.raises(NotImplementedError, match="missing slices"):
+        H264Decoder(device="cpu").decode_annexb(data)
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        H264Decoder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_file(str(GOLDEN / "i1.264"))
+    with pytest.raises(ValueError, match="device"):
+        H264Decoder(device="meta")
+
+
+@pytest.mark.parametrize("poc_type", [1, 2])
+def test_poc_types_match_jm(poc_type):
+    """POC types 1 and 2 over a frame_num sequence that wraps, with
+    reference and non-reference pictures, against jm_tpu's PocContext."""
+    rng = np.random.default_rng(poc_type)
+    sps = SPS(pic_order_cnt_type=poc_type, log2_max_frame_num_minus4=0,
+              offset_for_non_ref_pic=-3, offset_for_top_to_bottom_field=1,
+              offset_for_ref_frame=[2, 4, 6])
+    ours, theirs = PocContext(), JPocContext()
+    fn = 0
+    for i in range(60):
+        idr = i % 23 == 0
+        fn = 0 if idr else (fn + 1) % 16
+        ref = int(rng.integers(0, 2)) or idr
+        kw = dict(frame_num=fn, is_idr=idr, nal_ref_idc=ref,
+                  delta_pic_order_cnt=(int(rng.integers(-2, 3)), 0),
+                  slice_type=SliceType.P)
+        h, jh = SliceHeader(**kw), JSliceHeader(**kw)
+        assert ours.compute(h, sps) == theirs.compute(jh, sps)
