@@ -42,7 +42,28 @@ Phases (any failure raises and exits non-zero):
      Then the JM goldens tests/golden/ipp3.264 and qp20.264, decoded on
      the card, must equal their _rec.yuv (JM ldecod's output);
   7. decode cross-check: the first two frames (IDR + P) decoded on the
-     CPU (plain deblock) must equal the CUDA decode.
+     CPU (plain deblock) must equal the CUDA decode;
+  8. md_low: the 17-frame sequence encoded with device_rd=False, one
+     launch per kernel and frame, frames/s and IDR / P ms, the P frames
+     serialized on the host (packer overflow); IDR + P encoded again on
+     the CPU must give the same payloads and recon; torch.profiler over
+     one md_low P frame's pipe;
+  9. a scene cut: the first CUT_FRAMES frames with frame 2 replaced by
+     independent content (another seed), so that the pipe's intra
+     speculation fails and the frame is finished on the per-frame path
+     (device encode reused, host intra re-encode, mixed deblock on the
+     card); the launch count must be one per frame, plus one per
+     fallback, plus one per re-dispatched next frame. Prints the intra
+     MBs re-encoded and each fallback frame's wall split (pipe,
+     download, host re-encode, device deblock + prep_ref, serialize,
+     re-dispatch); the same frames on the CPU must give the same
+     payloads and recon;
+ 10. the scene-cut stream decoded on the card (mixed P pictures): every
+     frame equal to the encoder's recon, one launch per kernel and
+     picture;
+ 11. the all-modes RD tier, p_mode_rd_device(top_modes=4), at 1080p on
+     the card against device="cpu" on the same inputs, every field
+     equal, with its device ms beside the pruned tier's.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it holds the per-kernel numbers as JSON.
 """
@@ -70,6 +91,8 @@ from jm_tpu_torch.ops.deblock import (  # noqa: E402
 
 W, H = 1920, 1088
 N_FRAMES = 17
+CUT_FRAMES = 4       # frames of the scene-cut stream (frame 2 replaced)
+DEVICE = "cuda"
 # the kernels' edge shapes (one MB, mb_w 2, mb_h 1, one MB column), each
 # with a parameter variant ("mixed" may switch the one MB off), and 2160p
 # (135 rows)
@@ -86,10 +109,10 @@ LUMA_LINE_OPS = 60
 CHROMA_LINE_OPS = 25
 
 
-def make_sequence():
+def make_sequence(seed: int = 0):
     """The 1080p sequence of bench.py: low-pass filtered noise with global
-    motion (deterministic)."""
-    rng = np.random.default_rng(0)
+    motion (deterministic; seed 0 is bench.py's)."""
+    rng = np.random.default_rng(seed)
     base = rng.integers(0, 256, (H + 96, W + 96)).astype(np.float32)
     k = np.ones(9) / 9
     base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, base)
@@ -260,10 +283,10 @@ class IdrTimedEncoder(Encoder):
             self.idr_seconds += time.perf_counter() - t0
 
 
-def profile_p_frame(enc, frame, cfg):
+def profile_p_frame(enc, frame, cfg, label: str = "P frame"):
     """torch.profiler over one P frame (p_frame_rd_pipe against the
-    encoder's last reference): wall time, device busy time, idle share,
-    and the ops with the most device time."""
+    encoder's last reference, with cfg's P tier): wall time, device busy
+    time, idle share, and the ops with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from jm_tpu_torch.encoder.encoder import lambda_me, lambda_mode4
@@ -274,7 +297,8 @@ def profile_p_frame(enc, frame, cfg):
         out, _ = p_frame_rd_pipe(
             packed, *enc.ref_state, cfg.qp, enc.qpc, lambda_me(cfg.qp),
             lambda_mode4(cfg.qp), enc.qpc_cb, enc.qpc_cr, mb_w=enc.mb_w,
-            mb_h=enc.mb_h, sr=cfg.search_range, max_words=enc.max_words)
+            mb_h=enc.mb_h, sr=cfg.search_range, max_words=enc.max_words,
+            rd=cfg.device_rd)
         return out["words_ext"].cpu()
 
     one()
@@ -296,7 +320,7 @@ def profile_p_frame(enc, frame, cfg):
 
     busy_ms = sum(dev_us(e) for e in evs) / 1e3
     n_launch = sum(e.count for e in evs)
-    print(f"P frame profile: wall {wall_ms:.1f} ms, device busy "
+    print(f"{label} profile: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{n_launch} device ops", flush=True)
     for e in sorted(evs, key=dev_us, reverse=True)[:10]:
@@ -416,6 +440,235 @@ def decode_phase(payloads, enc):
     return out, launches
 
 
+class SplitTimedEncoder(IdrTimedEncoder):
+    """IdrTimedEncoder that also times, with the card synchronized at each
+    step's ends, every P dispatch (by display index: the speculative one,
+    then a re-dispatch) and each step of the per-frame P path (download,
+    host commit with the intra re-encode, device deblock + prep_ref,
+    serialize) by display index. Synchronizing undoes the overlap of a
+    dispatch with the previous frame's finalize; the stream is the same."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.split = {}
+
+    def _timed(self, disp, name, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        self.split.setdefault(disp, {}).setdefault(name, []).append(
+            time.perf_counter() - t0)
+        return out
+
+    def _dispatch(self, *a):
+        return self._timed(self.display_idx - 1, "pipe", super()._dispatch,
+                           *a)
+
+    def _finish_p(self, core, disp, *a):
+        self._disp = disp
+        return super()._finish_p(core, disp, *a)
+
+    def _download_core(self, *a):
+        return self._timed(self._disp, "download", super()._download_core,
+                           *a)
+
+    def _commit_p(self, *a):
+        return self._timed(self._disp, "host_intra", super()._commit_p, *a)
+
+    def _deblock_p(self, *a):
+        return self._timed(self._disp, "deblock_prep", super()._deblock_p,
+                           *a)
+
+    def _serialize_p(self, *a):
+        return self._timed(self._disp, "serialize", super()._serialize_p,
+                           *a)
+
+
+def timed_encode(cfg, frames, cls=IdrTimedEncoder):
+    """Encode frames on the card with the launch counters reset just
+    before and read just after; returns (encoder, payloads, launches,
+    seconds)."""
+    enc = cls(cfg, device=DEVICE)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    payloads = enc.encode_stream(frames)
+    torch.cuda.synchronize()
+    return enc, payloads, dict(kernels.launches), time.perf_counter() - t0
+
+
+def cpu_cross_check(cfg, frames, payloads, enc, label: str) -> None:
+    """The frames encoded again on the CPU: the same payloads and recon."""
+    t0 = time.perf_counter()
+    cpu = Encoder(cfg, device="cpu")
+    cpu_payloads = cpu.encode_stream(frames)
+    for i, (a, b) in enumerate(zip(cpu_payloads, payloads)):
+        if a != b:
+            raise AssertionError(f"{label} frame {i}: CPU and CUDA payloads "
+                                 f"differ")
+    for i, (a, b) in enumerate(zip(cpu.results, enc.results)):
+        for plane in "YUV":
+            if not np.array_equal(getattr(a["frame"], plane),
+                                  getattr(b["frame"], plane)):
+                raise AssertionError(f"{label} frame {i} {plane}: recon "
+                                     f"differs")
+    if cpu.fallbacks != enc.fallbacks:
+        raise AssertionError(f"{label}: fallbacks {cpu.fallbacks} on the CPU,"
+                             f" {enc.fallbacks} on the card")
+    print(f"cross-check {label}: CPU payloads and recon of {len(frames)} "
+          f"frames equal the CUDA run ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def md_low_phase(frames):
+    """Phase 8: the sequence with md_low; returns per-kernel launches."""
+    cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                        device_rd=False)
+    enc, payloads, launches, total_s = timed_encode(cfg, frames)
+    n = len(frames)
+    p_ms = (total_s - enc.idr_seconds) / (n - 1) * 1e3
+    print(f"encode md_low 1080p {''.join(r['type'] for r in enc.results)}: "
+          f"{n / total_s:.2f} frames/s, {total_s * 1e3 / n:.1f} ms/frame "
+          f"(IDR {enc.idr_seconds * 1e3:.1f} ms, P {p_ms:.1f} ms avg), "
+          f"{sum(map(len, payloads))} stream bytes, launches {launches}; "
+          f"{len(enc.ovf)} of {n - 1} P frames serialized on the host "
+          f"(packer overflow)", flush=True)
+    if enc.fallbacks:
+        raise AssertionError(f"md_low: unexpected fallbacks {enc.fallbacks}")
+    for name, cnt in launches.items():
+        if cnt != n:
+            raise AssertionError(f"md_low: {name} launched {cnt} times, "
+                                 f"expected once for each of {n} frames")
+    cpu_cross_check(cfg, frames[:2], payloads[:2], enc, "md_low IDR + P")
+    profile_p_frame(enc, frames[-1], cfg, "md_low P frame (pipe only)")
+    return launches
+
+
+def scene_cut_phase(frames):
+    """Phase 9: the scene cut; returns (encoder, payloads, launches)."""
+    cut = list(frames[:CUT_FRAMES])
+    cut[2] = make_sequence(seed=1)[2]
+    cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                        device_rd=True)
+    enc, payloads, launches, total_s = timed_encode(cfg, cut,
+                                                    SplitTimedEncoder)
+    if 2 not in enc.fallbacks:
+        raise AssertionError(f"scene cut: frame 2 did not fall back "
+                             f"({enc.fallbacks})")
+    want = CUT_FRAMES + len(enc.fallbacks) + enc.redispatches
+    print(f"scene cut 1080p {CUT_FRAMES} frames: {total_s:.1f} s, "
+          f"fallbacks at frames {enc.fallbacks}, {enc.redispatches} "
+          f"re-dispatches, launches {launches} (expected {want} each: "
+          f"{CUT_FRAMES} frames + {len(enc.fallbacks)} mixed deblocks + "
+          f"{enc.redispatches} re-dispatched)", flush=True)
+    for name, cnt in launches.items():
+        if cnt != want:
+            raise AssertionError(f"scene cut: {name} launched {cnt} times, "
+                                 f"expected {want}")
+    n_mbs = (W // 16) * (H // 16)
+    for r in enc.results:
+        d = r["disp"]
+        if d not in enc.fallbacks:
+            continue
+        sp = {k: sum(v) * 1e3 for k, v in enc.split[d].items()}
+        spec = enc.split[d]["pipe"][0] * 1e3
+        redis = enc.split.get(d + 1, {}).get("pipe", [])
+        redis_ms = redis[1] * 1e3 if len(redis) > 1 else None
+        wall = spec + sum(sp[k] for k in ("download", "host_intra",
+                                          "deblock_prep", "serialize"))
+        print(f"fallback frame {d}: {r['intra_mbs']} of {n_mbs} MBs "
+              f"re-encoded intra; speculative pipe {spec:.1f} ms, download "
+              f"{sp['download']:.1f} ms, host re-encode "
+              f"{sp['host_intra']:.1f} ms "
+              f"({sp['host_intra'] / r['intra_mbs']:.3f} ms/MB), device "
+              f"deblock + prep_ref {sp['deblock_prep']:.1f} ms, serialize "
+              f"{sp['serialize']:.1f} ms, re-dispatch of frame {d + 1} "
+              f"{'none' if redis_ms is None else f'{redis_ms:.1f} ms'}; "
+              f"{wall + (redis_ms or 0):.1f} ms in all", flush=True)
+    cpu_cross_check(cfg, cut, payloads, enc, "scene cut")
+    return enc, payloads, launches
+
+
+def cut_decode_phase(enc, payloads):
+    """Phase 10: the scene-cut stream decoded on the card; returns the
+    per-kernel launches."""
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = dec.decode_annexb(b"".join(payloads))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
+                       for r in enc.results], "scene-cut decode")
+    paths = [r["path"] for r in dec.pictures]
+    if "mixed" not in paths:
+        raise AssertionError(f"scene-cut decode: no mixed picture ({paths})")
+    print(f"decode scene cut on the card: frames equal the encoder's recon; "
+          f"{total_s:.1f} s; per picture " + ", ".join(
+              f"{r['type'][0]}/{r['path']} {r['seconds'] * 1e3:.1f} ms "
+              f"(parse {r['parse_s'] * 1e3:.1f}, intra recon "
+              f"{r['host_recon_s'] * 1e3:.1f}, device "
+              f"{r['device_s'] * 1e3:.1f})" for r in dec.pictures)
+          + f"; launches {launches}", flush=True)
+    for name, cnt in launches.items():
+        if cnt != len(out):
+            raise AssertionError(f"scene-cut decode: {name} launched {cnt} "
+                                 f"times for {len(out)} pictures")
+    return launches
+
+
+def rd_full_phase(enc, frames) -> None:
+    """Phase 11: p_mode_rd_device(top_modes=4) on the card against the
+    CPU, on the inputs of the P frame of frames[-1] against the recon of
+    frames[-2] (the phase-3 encoder's)."""
+    from jm_tpu_torch.encoder.encoder import lambda_me
+    from jm_tpu_torch.ops import enc as E
+    from jm_tpu_torch.ops import enc_rd as RD
+    mb_w, mb_h = W // 16, H // 16
+    n = mb_w * mb_h
+    qp, lam = QP, lambda_me(QP)
+    qpc = chroma_qp(QP, 0)
+    dev = DEVICE
+    prev = enc.results[-2]["frame"]
+    ref = E.prep_ref(*(torch.as_tensor(p, device=dev)
+                       for p in (prev.Y, prev.U, prev.V)))
+    Y, U, V = (torch.as_tensor(p, device=dev) for p in frames[-1])
+    ar = torch.arange(n, device=dev)
+    mb_xy = torch.stack([(ar % mb_w) * 16, (ar // mb_w) * 16], dim=1)
+    orig_q = E.mb_tiles(Y, mb_h, mb_w, 16).reshape(n, 2, 8, 2, 8) \
+        .permute(0, 1, 3, 2, 4).reshape(n, 4, 8, 8).to(torch.int32)
+    int_mv, _ = E.me_int_sweep(Y, ref[0][0], mb_w, mb_h, 16, lam)
+    pred = E.approx_pred_field(int_mv[:, 0], mb_w, mb_h)
+    mv_q, cost_q, win = E.qpel_refine_dense(ref[0], orig_q, int_mv, pred,
+                                            lam, mb_xy, 16)
+    mode_satd = torch.stack(
+        [cost_q[:, list(jobs)].sum(dim=1) + lam * int(E.MODE_BITS[m])
+         for m, jobs in enumerate(E.MODE_JOBS)], dim=1).to(torch.int32)
+    args = (*ref, win, mv_q, int_mv, pred, orig_q,
+            E.mb_tiles(U, mb_h, mb_w, 8), E.mb_tiles(V, mb_h, mb_w, 8),
+            mb_xy, qp, qpc)
+    kw = dict(mb_w=mb_w, mb_h=mb_h, sr=16)
+    got = RD.p_mode_rd_device(*args, **kw, top_modes=4)
+    full_ms = cuda_ms(lambda: RD.p_mode_rd_device(*args, **kw, top_modes=4),
+                      reps=3)
+    pruned_ms = cuda_ms(lambda: RD.p_mode_rd_device(
+        *args, **kw, mode_satd=mode_satd, top_modes=2), reps=3)
+    t0 = time.perf_counter()
+    cpu_args = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+    want = RD.p_mode_rd_device(*cpu_args, **kw, top_modes=4)
+    cpu_s = time.perf_counter() - t0
+    for key, w in want.items():
+        if not torch.equal(w, got[key].cpu()):
+            raise AssertionError(f"p_mode_rd_device(top_modes=4): {key} "
+                                 f"differs between the card and the CPU")
+    modes = torch.bincount(got["inter_mode"].long(), minlength=4).tolist()
+    print(f"all-modes RD 1080p: every field equal to device=\"cpu\" "
+          f"({cpu_s:.1f} s on the CPU); device {full_ms:.1f} ms, pruned "
+          f"top-2 tier {pruned_ms:.1f} ms (CUDA events, median of 3); "
+          f"winners by mode (skip/16x16 share mode 0) {modes}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -507,7 +760,8 @@ def main() -> int:
     print(f"encode 1080p {types}: {N_FRAMES / total_s:.2f} frames/s, "
           f"{total_s * 1e3 / N_FRAMES:.1f} ms/frame (IDR {idr_s * 1e3:.1f} "
           f"ms, P {p_ms:.1f} ms avg), {sum(map(len, payloads))} stream "
-          f"bytes, launches {launches}", flush=True)
+          f"bytes, launches {launches}; {len(enc.ovf)} P frames serialized "
+          f"on the host (packer overflow)", flush=True)
     if len(payloads) != N_FRAMES or not payloads[0].startswith(
             b"\x00\x00\x00\x01\x67"):
         raise AssertionError("stream does not start with an SPS")
@@ -545,6 +799,12 @@ def main() -> int:
     print(f"decode cross-check: CPU IDR + P equal the CUDA decode "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # ---- 8-11. md_low, the scene cut, its decode, the all-modes RD ----
+    low_launches = md_low_phase(frames)
+    cut_enc, cut_payloads, cut_launches = scene_cut_phase(frames)
+    cut_dec_launches = cut_decode_phase(cut_enc, cut_payloads)
+    rd_full_phase(enc, frames)
+
     rows = []
     for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):
         s = kstats[name]
@@ -556,7 +816,10 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": None, "chain_ms": s["chain_ms"],
-            "decode_launches": dec_launches[name]})
+            "decode_launches": dec_launches[name],
+            "md_low_launches": low_launches[name],
+            "scene_cut_launches": cut_launches[name],
+            "scene_cut_decode_launches": cut_dec_launches[name]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Baseline H.264 encoder of the port: IPPP, CAVLC, 4:2:0, one slice,
-one reference, fixed QP, with the trial-encode RD P path (twin of
-jm_tpu.encoder.Encoder on its pipelined ``encode_stream`` fast path).
+one reference, fixed QP, with the trial-encode RD P path (device_rd) or
+md_low (twin of jm_tpu.encoder.Encoder with pipeline="device": its
+pipelined ``encode_stream`` and its per-frame ``encode_frame``).
 
 Per stream:
   - IDR frames: ops/intra.i_frame_step on the device, then boundary
@@ -13,12 +14,19 @@ Per stream:
     from the downloaded decisions instead.
 
 Frame N+1 is dispatched before frame N is finalized; the only host sync
-per P frame is the download of its packed words.
+per P frame is the download of its packed words. The pipe speculates
+that every MB is inter. When frame N's intra trigger fired (a scene cut),
+it is finished on the per-frame path with its device encode reused, and
+frame N+1 is dispatched again against the corrected reference.
+
+The per-frame path (``encode_frame``, and every frame when
+intra_mb_refresh > 0): ops/enc.p_frame_step on the device, the download
+of its fields, the host commit with the serial re-encode of the intra
+MBs (encoder/p_intra.py), boundary strengths + deblock + reference prep
+on the device, and the host serializer.
 
 The encoder runs on CUDA unless the caller passes device="cpu"; without a
-card a CUDA request raises. P frames whose intra trigger fires need the
-host intra re-encode of jm_tpu (encoder.py _encode_p_device), which is
-not ported yet: they raise NotImplementedError.
+card a CUDA request raises.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from ..device import resolve
 from ..ops import enc as E
 from ..ops.deblock import compute_bs, deblock
 from ..ops.intra import i_frame_step
+from .p_intra import CORE_FIELDS, PictureCommit
 from .syntax import serialize_slice, write_pps, write_slice_header, write_sps
 
 
@@ -54,9 +63,10 @@ def lambda_mode4(qp: int) -> int:
 
 @dataclass
 class EncoderConfig:
-    """The configurations this encoder covers: jm_tpu's pipelined IPPP
-    set (CAVLC, 4:2:0, one slice, one reference, fixed QP, deblocking on)
-    with device RD. Values outside it raise ValueError."""
+    """The configurations this encoder covers: jm_tpu's device IPPP set
+    (CAVLC, 4:2:0, one slice, one reference, fixed QP, deblocking on),
+    with device RD or md_low, and random intra refresh. Values outside it
+    raise ValueError."""
     width: int = 176
     height: int = 144
     qp: int = 28
@@ -64,13 +74,19 @@ class EncoderConfig:
     search_range: int = 16       # integer full search +-SR (<= 24)
     level_idc: int = 30          # raised to the smallest level that fits
     frame_rate: float = 30.0
-    device_rd: bool = True       # trial-encode RD mode decision
+    device_rd: bool = True       # trial-encode RD mode decision; False:
+                                 # md_low's cost-based decision
+    intra_mb_refresh: int = 0    # forced-intra MBs per P picture (lencod
+                                 # RandomIntraMBRefresh, intrarefresh.c)
 
 
 def _check_config(cfg: EncoderConfig) -> None:
-    if cfg.device_rd is not True:
-        raise ValueError(f"EncoderConfig.device_rd={cfg.device_rd!r}: only "
-                         "the RD P path (True) is ported")
+    if not isinstance(cfg.device_rd, bool):
+        raise ValueError(f"EncoderConfig.device_rd={cfg.device_rd!r}: "
+                         "True or False")
+    if cfg.intra_mb_refresh < 0:
+        raise ValueError(f"EncoderConfig.intra_mb_refresh="
+                         f"{cfg.intra_mb_refresh}: must be >= 0")
     if cfg.width <= 0 or cfg.height <= 0 or cfg.width % 16 \
             or cfg.height % 16:
         raise ValueError(f"EncoderConfig.width/height {cfg.width}x"
@@ -119,8 +135,10 @@ class Picture:
 
 class Encoder:
     """IPPP encoder: ``encode_stream(frames)`` returns one Annex-B payload
-    per frame. ``results`` holds one dict per coded picture (disp, type,
-    bits, qp, frame: a Picture with the deblocked recon)."""
+    per frame, as ``encode_frame(Y, U, V)`` does frame by frame.
+    ``results`` holds one dict per coded picture (disp, type, bits, qp,
+    frame: a Picture with the deblocked recon; intra_mbs: the MBs coded
+    intra, for P frames of the per-frame path)."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
@@ -158,6 +176,19 @@ class Encoder:
         self._idr_disp = 0
         self.ref_state = None         # the DPB: the last picture's state
         self.results = []
+        # display indices of the P frames finished on the per-frame path
+        # after the pipe's intra speculation failed, and the dispatches
+        # repeated against the corrected reference; display indices of
+        # the P frames serialized on the host because the packer
+        # overflowed
+        self.fallbacks = []
+        self.redispatches = 0
+        self.ovf = []
+        # random intra refresh (intrarefresh.c RandomIntraInit): a seeded
+        # permutation of MB addresses taken intra_mb_refresh at a time
+        self._refresh_perm = []
+        self._refresh_pos = 0
+        self._refresh_rng = np.random.default_rng(1)
 
     # ------------------------------------------------------------------
 
@@ -180,54 +211,111 @@ class Encoder:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    def _planes(self, packed):
+        """The (Y, U, V) views of an uploaded packed frame."""
+        h, cw = 16 * self.mb_h, 8 * self.mb_w
+        return packed[:h], packed[h:, :cw], packed[h:, cw:]
+
+    def _idr_due(self, idx: int) -> bool:
+        ip = self.cfg.intra_period
+        return idx == 0 or (ip > 0 and idx % ip == 0)
+
     def encode_stream(self, frames) -> list:
         """Encode (Y, U, V) display-order frames; returns the per-frame
-        Annex-B payloads (bytes)."""
-        cfg = self.cfg
-        h = 16 * self.mb_h
+        Annex-B payloads (bytes). With intra_mb_refresh > 0 every frame
+        takes the per-frame path (as jm_tpu's does)."""
+        if self.cfg.intra_mb_refresh > 0:
+            return [self.encode_frame(*f) for f in frames]
         payloads = []
-        pending = None       # (out, disp, state) of the dispatched P frame
+        pending = None       # (out, disp, state, frame) of the dispatched P
         state = None         # reference for the next dispatch
         for f in frames:
             packed = self._upload(f)
             idx = self.frame_idx + (1 if pending is not None else 0)
-            intra_due = cfg.intra_period > 0 and idx % cfg.intra_period == 0
-            if idx == 0 or intra_due or (self.ref_state is None
-                                         and pending is None):
+            if self._idr_due(idx) or (self.ref_state is None
+                                      and pending is None):
                 if pending is not None:
-                    payloads.append(self._finalize(*pending))
+                    payloads.append(self._finalize(*pending)[0])
                     pending = None
-                payloads.append(self._encode_idr(
-                    packed[:h], packed[h:, :8 * self.mb_w],
-                    packed[h:, 8 * self.mb_w:]))
+                payloads.append(self._encode_idr(*self._planes(packed)))
                 state = None
                 continue
             disp = self.display_idx
             self.display_idx += 1
-            ref = state if state is not None else self.ref_state
-            out, new_state = E.p_frame_rd_pipe(
-                packed, *ref, cfg.qp, self.qpc, lambda_me(cfg.qp),
-                lambda_mode4(cfg.qp), self.qpc_cb, self.qpc_cr,
-                mb_w=self.mb_w, mb_h=self.mb_h, sr=cfg.search_range,
-                max_words=self.max_words)
+            out, new_state = self._dispatch(
+                packed, state if state is not None else self.ref_state)
             if pending is not None:
-                payloads.append(self._finalize(*pending))
-            pending = (out, disp, new_state)
+                payload, fell_back = self._finalize(*pending)
+                payloads.append(payload)
+                if fell_back:
+                    # frame N+1 was speculated against frame N's all-inter
+                    # recon: dispatch it again against the corrected one
+                    self.redispatches += 1
+                    out, new_state = self._dispatch(packed, self.ref_state)
+            pending = (out, disp, new_state, f)
             state = new_state
         if pending is not None:
-            payloads.append(self._finalize(*pending))
+            payloads.append(self._finalize(*pending)[0])
         return payloads
+
+    def encode_frame(self, Y, U, V) -> bytes:
+        """Encode one display-order frame on the per-frame path and return
+        its Annex-B payload (there are no B pictures, so nothing is held
+        back)."""
+        cfg = self.cfg
+        packed = self._upload((Y, U, V))
+        if self._idr_due(self.frame_idx):
+            return self._encode_idr(*self._planes(packed))
+        disp = self.display_idx
+        self.display_idx += 1
+        forced = self._refresh_set()
+        core = E.p_frame_step(
+            *self._planes(packed), *self.ref_state, cfg.qp, self.qpc,
+            lambda_me(cfg.qp), lambda_mode4(cfg.qp), mb_w=self.mb_w,
+            mb_h=self.mb_h, sr=cfg.search_range, rd=cfg.device_rd)
+        return self._finish_p(core, disp, (Y, U, V), forced)
+
+    def flush(self) -> bytes:
+        """The end of the stream: nothing is buffered (no B pictures)."""
+        return b""
+
+    def _refresh_set(self) -> set:
+        """The next intra_mb_refresh MBs of the refresh permutation."""
+        k = self.cfg.intra_mb_refresh
+        n = self.mb_w * self.mb_h
+        out = set()
+        while len(out) < min(k, n):
+            if self._refresh_pos >= len(self._refresh_perm):
+                self._refresh_perm = list(self._refresh_rng.permutation(n))
+                self._refresh_pos = 0
+            out.add(int(self._refresh_perm[self._refresh_pos]))
+            self._refresh_pos += 1
+        return out
+
+    def _dispatch(self, packed, ref):
+        """The pipe of one P frame against the reference state ref."""
+        cfg = self.cfg
+        return E.p_frame_rd_pipe(
+            packed, *ref, cfg.qp, self.qpc, lambda_me(cfg.qp),
+            lambda_mode4(cfg.qp), self.qpc_cb, self.qpc_cr, mb_w=self.mb_w,
+            mb_h=self.mb_h, sr=cfg.search_range, max_words=self.max_words,
+            rd=cfg.device_rd)
 
     # ------------------------------------------------------------------
 
-    def _deblock_intra(self, rec, cls, lnnz):
-        """Boundary strengths + deblock of an all-intra picture."""
+    def _deblock(self, rec, mb_class, luma_nnz, mv=None, ref_pic_id=None):
+        """Boundary strengths + deblock of a picture (device tensors):
+        mb_class (N,) (0 inter), luma_nnz (N, 16), and for P pictures the
+        MVs (N, 16, 2) and reference ids (N, 4) (-1 for intra MBs)."""
         n = self.mb_w * self.mb_h
         dev = self.device
         zeros = torch.zeros(n, dtype=torch.int32, device=dev)
-        zmv = torch.zeros((n, 16, 2), dtype=torch.int32, device=dev)
-        noref = torch.full((n, 4), -1, dtype=torch.int32, device=dev)
-        bs_v, bs_h = compute_bs(cls, lnnz, zeros, zmv, zmv, noref, noref,
+        if mv is None:
+            mv = torch.zeros((n, 16, 2), dtype=torch.int32, device=dev)
+            ref_pic_id = torch.full((n, 4), -1, dtype=torch.int32, device=dev)
+        bs_v, bs_h = compute_bs(mb_class, luma_nnz, zeros, mv,
+                                torch.zeros_like(mv),
+                                ref_pic_id, torch.full_like(ref_pic_id, -1),
                                 self.mb_w, self.mb_h)
         qp_arr = torch.full((n,), self.cfg.qp, dtype=torch.int32, device=dev)
         return deblock(*rec, bs_v, bs_h, qp_arr, zeros, zeros, zeros, zeros,
@@ -243,7 +331,7 @@ class Encoder:
         self._idr_disp = disp
         out = i_frame_step(Y, U, V, qp, self.qpc, lambda_me(qp),
                            lambda_mode4(qp), mb_w=self.mb_w, mb_h=self.mb_h)
-        dY, dU, dV = self._deblock_intra(
+        dY, dU, dV = self._deblock(
             (out["recY"], out["recU"], out["recV"]), out["cls"], out["lnnz"])
         self.ref_state = E.prep_ref(dY, dU, dV)
         h = {k: out[k].cpu().numpy() for k in (
@@ -280,43 +368,87 @@ class Encoder:
                              "qp": qp})
         return payload
 
-    def _finalize(self, out, disp: int, new_state) -> bytes:
+    def _finalize(self, out, disp: int, new_state, frame):
         """Complete a dispatched P frame: download its packed words and
         prepend the slice header, or serialize it on the host when the
-        packer overflowed."""
+        packer overflowed. When its intra trigger fired, finish it on the
+        per-frame path with the dispatched encode reused. Returns
+        (payload, whether it fell back)."""
         ext = out["words_ext"].cpu().numpy()
         nbits, ovf, intra_any = (int(v) for v in ext[:3])
         if intra_any:
-            raise NotImplementedError(
-                "intra speculation fallback: not yet ported")
-        cfg = self.cfg
-        qp = cfg.qp
-        poc = 2 * (disp - self._idr_disp)
+            self.fallbacks.append(disp)
+            return self._finish_p(out["core"], disp, frame, ()), True
         if ovf:
-            rbsp = serialize_slice(
-                self._inter_picture(out), self.sps, self.pps,
-                slice_type=SliceType.P, frame_num=self.frame_num, idr=False,
-                qp=qp, poc_lsb=poc % 256, idr_pic_id=self.idr_pic_id)
+            self.ovf.append(disp)
+            rbsp = self._serialize_p(self._inter_picture(out), disp)
         else:
             k = (nbits + 31) // 32
             bw = BitWriter()
             write_slice_header(bw, self.sps, self.pps,
                                slice_type=SliceType.P,
                                frame_num=self.frame_num, idr=False,
-                               idr_pic_id=self.idr_pic_id, qp=qp,
-                               poc_lsb=poc % 256)
+                               idr_pic_id=self.idr_pic_id, qp=self.cfg.qp,
+                               poc_lsb=2 * (disp - self._idr_disp) % 256)
             bw.append_bitstream(ext[3:3 + k].astype(">u4").tobytes(), nbits)
             bw.rbsp_trailing_bits()
             rbsp = bw.get_bytes()
+        return self._commit_p_frame(rbsp, disp, new_state), False
+
+    def _commit_p_frame(self, rbsp: bytes, disp: int, state,
+                        **info) -> bytes:
+        """Store a coded P picture as the reference and in ``results``
+        (with the items of info); returns its slice NAL unit."""
         slice_bytes = annexb_bytes(3, NalUnitType.SLICE, rbsp)
-        self.ref_state = new_state
-        frame = Picture(poc, self.frame_num, state=new_state)
+        poc = 2 * (disp - self._idr_disp)
+        self.ref_state = state
+        frame = Picture(poc, self.frame_num, state=state)
         self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
         self.frame_idx += 1
         self.results.append({"disp": disp, "type": "P",
                              "bits": len(slice_bytes) * 8, "frame": frame,
-                             "qp": qp})
+                             "qp": self.cfg.qp, **info})
         return slice_bytes
+
+    # ---- the per-frame P path ----------------------------------------
+
+    def _finish_p(self, core, disp: int, frame, forced) -> bytes:
+        """The per-frame P path after the device encode `core`
+        (p_frame_step's fields): download, host commit with the intra
+        re-encode, deblock and reference prep on the device, host
+        serializer. frame: the source (Y, U, V) planes; forced: MBs of
+        the intra refresh."""
+        c = self._commit_p(self._download_core(core), frame, forced)
+        state = self._deblock_p(c)
+        return self._commit_p_frame(self._serialize_p(c.pic, disp), disp,
+                                    state, intra_mbs=len(c.intra_mbs))
+
+    def _download_core(self, core) -> dict:
+        return {k: core[k].cpu().numpy() for k in CORE_FIELDS}
+
+    def _commit_p(self, core, frame, forced) -> PictureCommit:
+        return PictureCommit(core, frame, self.cfg.qp, self.qpc, forced)
+
+    def _deblock_p(self, c: PictureCommit):
+        """The committed picture's boundary strengths, deblock and
+        reference prep on the device; returns the reference state."""
+        pic = c.pic
+
+        def up(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+        return E.prep_ref(*self._deblock(
+            tuple(up(p) for p in (c.recY, c.recU, c.recV)), up(pic.mb_class),
+            up(pic.luma_nnz), up(pic.mv), up(pic.ref_pic_id)))
+
+    def _serialize_p(self, pic: PictureData, disp: int) -> bytes:
+        """The RBSP of a P picture as one slice, serialized on the host."""
+        poc = 2 * (disp - self._idr_disp)
+        return serialize_slice(pic, self.sps, self.pps,
+                               slice_type=SliceType.P,
+                               frame_num=self.frame_num, idr=False,
+                               qp=self.cfg.qp, poc_lsb=poc % 256,
+                               idr_pic_id=self.idr_pic_id)
 
     def _inter_picture(self, out) -> PictureData:
         """The all-inter P picture's SoA state from the device decisions

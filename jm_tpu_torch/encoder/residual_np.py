@@ -1,0 +1,120 @@
+"""Numpy residual coding of single macroblocks for the host intra
+re-encode (encoder/p_intra.py): forward transforms, flat quant, the
+zig-zag scan, the decode-mirror recon of Intra16x16 luma and 4:2:0 chroma,
+and JM's run-weighted coefficient cost. A trimmed copy of
+jm_tpu/encoder/residual_np.py (frame scan, flat scaling lists); the
+inverse halves are the port's decoder's (decoder/recon.py), so the
+encoder's recon is what a decoder reconstructs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..common.tables import QUANT_SCALE_4x4, ZIGZAG_4x4
+from ..decoder.recon import _np_hadamard4, _np_inv4, _rshift_rnd_sf
+from ..ops.quant import FLAT_INV_SCALE_4x4
+
+_ZZ = np.asarray(ZIGZAG_4x4)
+
+# JM coefficient thresholding (lencod block.c COEFF_COST4x4:72; the chroma
+# AC of a component is dropped below CHROMA_COEFF_COST, block.c:1141)
+COEFF_COST4 = np.array([3, 2, 2, 1, 1, 1] + [0] * 10, np.int64)
+COST_BIG = 1 << 20       # stands in for JM's MAX_VALUE (any |level| > 1)
+CHROMA_COEFF_COST = 4
+
+
+def np_forward4x4(x: np.ndarray) -> np.ndarray:
+    """Batched forward core transform, (..., 4, 4) int."""
+    d = x.astype(np.int64)
+    p0 = d[..., 0, :] + d[..., 3, :]
+    p1 = d[..., 1, :] + d[..., 2, :]
+    m0 = d[..., 0, :] - d[..., 3, :]
+    m1 = d[..., 1, :] - d[..., 2, :]
+    t = np.stack([p0 + p1, 2 * m0 + m1, p0 - p1, m0 - 2 * m1], axis=-2)
+    p0 = t[..., :, 0] + t[..., :, 3]
+    p1 = t[..., :, 1] + t[..., :, 2]
+    m0 = t[..., :, 0] - t[..., :, 3]
+    m1 = t[..., :, 1] - t[..., :, 2]
+    return np.stack([p0 + p1, 2 * m0 + m1, p0 - p1, m0 - 2 * m1], axis=-1)
+
+
+def np_hadamard2x2(x: np.ndarray) -> np.ndarray:
+    a, b = x[..., 0, 0], x[..., 0, 1]
+    c, d = x[..., 1, 0], x[..., 1, 1]
+    r0 = np.stack([a + b + c + d, a - b + c - d], axis=-1)
+    r1 = np.stack([a + b - c - d, a - b - c + d], axis=-1)
+    return np.stack([r0, r1], axis=-2)
+
+
+def np_quant_4x4(w: np.ndarray, qp: int, intra: bool) -> np.ndarray:
+    mf = QUANT_SCALE_4x4[qp % 6].astype(np.int64)
+    qbits = 15 + qp // 6
+    f = (1 << qbits) // (3 if intra else 6)
+    lev = (np.abs(w.astype(np.int64)) * mf + f) >> qbits
+    return (np.sign(w) * lev).astype(np.int32)
+
+
+def np_quant_dc(dc: np.ndarray, qp: int, intra: bool) -> np.ndarray:
+    """DC quant after the forward Hadamard (luma 4x4 or chroma 2x2)."""
+    mf = int(QUANT_SCALE_4x4[qp % 6, 0, 0])
+    qbits = 15 + qp // 6
+    f = (1 << qbits) // (3 if intra else 6)
+    lev = (np.abs(dc.astype(np.int64)) * mf + 2 * f) >> (qbits + 1)
+    return (np.sign(dc) * lev).astype(np.int32)
+
+
+def to_scan(raster_blocks: np.ndarray) -> np.ndarray:
+    """(..., 4, 4) raster -> (..., 16) zig-zag order."""
+    return raster_blocks.reshape(*raster_blocks.shape[:-2], 16)[..., _ZZ]
+
+
+def from_scan(scan: np.ndarray) -> np.ndarray:
+    out = np.zeros_like(scan)
+    out[..., _ZZ] = scan
+    return out.reshape(*scan.shape[:-1], 4, 4)
+
+
+def _dequant_4x4(coef, qp: int):
+    scale = FLAT_INV_SCALE_4x4[qp]
+    return _rshift_rnd_sf((coef.astype(np.int64) * scale) << (qp // 6),
+                          4).astype(np.int32)
+
+
+def recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp: int):
+    """Decode-mirror Intra16x16 recon: pred_blocks (16, 4, 4), ac_scan
+    (16, 16) with [:, 0] == 0, dc_scan (16,) zig-zag DC levels."""
+    d = _dequant_4x4(from_scan(ac_scan), qp)
+    dc_t = _np_hadamard4(from_scan(dc_scan))
+    scale = int(FLAT_INV_SCALE_4x4[qp, 0, 0])
+    dc_s = _rshift_rnd_sf((dc_t.astype(np.int64) * scale) << (qp // 6), 6)
+    blk = np.arange(16)
+    d[blk, 0, 0] = dc_s[blk // 4, blk % 4]
+    r = (_np_inv4(d) + 32) >> 6
+    return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
+
+
+def recon_chroma(pred_blocks, ac_scan, dc_lev, qp_c: int):
+    """Decode-mirror chroma recon of one component: pred_blocks (4, 4, 4),
+    ac_scan (4, 16) with [:, 0] == 0, dc_lev (4,) raster DC levels."""
+    d = _dequant_4x4(from_scan(ac_scan), qp_c)
+    f = np_hadamard2x2(dc_lev.reshape(2, 2).astype(np.int64))
+    scale = int(FLAT_INV_SCALE_4x4[qp_c, 0, 0])
+    dc_s = ((f * scale) << (qp_c // 6)) >> 5
+    blk = np.arange(4)
+    d[blk, 0, 0] = dc_s[blk // 2, blk % 2]
+    r = (_np_inv4(d) + 32) >> 6
+    return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
+
+
+def coeff_cost_scan(scan, start: int = 0) -> int:
+    """Run-weighted coefficient cost of one scan array."""
+    cost, run = 0, 0
+    for k in range(start, len(scan)):
+        v = int(scan[k])
+        if v == 0:
+            run += 1
+        else:
+            cost += COST_BIG if abs(v) > 1 else int(COEFF_COST4[run])
+            run = 0
+    return cost

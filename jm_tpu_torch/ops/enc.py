@@ -1,12 +1,14 @@
-"""Whole-picture P-frame encode on tensors (twin of the RD fast path of
-jm_tpu/ops/enc_jax.py).
+"""Whole-picture P-frame encode on tensors (twin of the P fast path of
+jm_tpu/ops/enc_jax.py, both tiers).
 
 One call encodes every macroblock of a P picture as batched tensor ops:
 
   integer full-search ME (quadrant SADs of every MB per displacement)
   -> dense quarter-pel SATD refinement of all 9 partition jobs
   -> skip / intra-16 triggers
-  -> trial-encode RD mode decision (ops/enc_rd.py)
+  -> mode decision: the trial-encode RD (ops/enc_rd.py, rd=True) or
+     md_low's cost-based choice with its motion compensation and
+     residual coding (rd=False)
   -> boundary strengths + in-loop deblock (ops/deblock.py; the CUDA
      kernels on the card)
   -> next-reference prep (quarter-pel planes, padded chroma)
@@ -70,6 +72,11 @@ QUAD_X = np.array([0, 1, 0, 1], np.int64)
 QUAD_Y = np.array([0, 0, 1, 1], np.int64)
 BLK_QUAD = np.array([(b // 8) * 2 + ((b % 4) // 2) for b in range(16)],
                     np.int64)
+QUAD_BLKS = np.array([[0, 1, 4, 5], [2, 3, 6, 7], [8, 9, 12, 13],
+                      [10, 11, 14, 15]], np.int64)      # raster blocks of a quad
+QUAD_BITS = np.array([1, 2, 4, 8], np.int32)            # cbp bit of each quad
+# md_low's quadrant motion: the job serving each quad under each mode
+QUAD_JOB = BLK_JOB[:, [0, 2, 8, 10]]
 
 # refinement candidates: center first so ties keep the center
 DELTAS = [(0, 0)] + [(dx, dy) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
@@ -349,6 +356,36 @@ def chroma_residual(origU, origV, predU, predV, qpc: int, intra: bool):
     return dc_lev.to(I32), ac_scan.to(I32), nnz, cbp_c, rec[:, 0], rec[:, 1]
 
 
+def luma_residual_inter(orig, pred, qp: int):
+    """Inter luma residual of (N, 16, 16) MBs: 4x4 transform and quant,
+    JM's coefficient thresholding (macroblock.c:901,1248: an 8x8 quadrant
+    costing at most 4 is dropped, then the whole MB if what is left costs
+    at most 5), recon (enc_jax.luma_residual_inter twin). Returns (scan
+    (N, 16, 16), nnz (N, 16), cbp_luma (N,), rec (N, 16, 16) uint8), all
+    int32 but the recon."""
+    n = orig.shape[0]
+    dev = orig.device
+    blocks = (orig.to(I32) - pred.to(I32)).reshape(n, 4, 4, 4, 4) \
+        .permute(0, 1, 3, 2, 4).reshape(n, 16, 4, 4)
+    qpv = torch.full((n, 16), qp, dtype=I32, device=dev)
+    scan = to_scan(Q.quant_4x4(T.forward4x4(blocks), qpv, False))
+    quad_blks = on(QUAD_BLKS, dev)
+    cost_q = coeff_cost(scan)[:, quad_blks].sum(dim=2)          # (N, 4)
+    keep_q = cost_q > 4
+    keep_mb = torch.where(keep_q, cost_q, 0).sum(dim=1) > 5
+    keep_blk = keep_q[:, on(BLK_QUAD, dev)] & keep_mb[:, None]
+    scan = torch.where(keep_blk[..., None], scan, 0)
+    r = T.inverse4x4_round(Q.dequant_4x4(from_scan(scan), qpv))
+    pred_b = pred.to(I32).reshape(n, 4, 4, 4, 4).permute(0, 1, 3, 2, 4) \
+        .reshape(n, 16, 4, 4)
+    rec = torch.clamp(pred_b + r, 0, 255).reshape(n, 4, 4, 4, 4) \
+        .permute(0, 1, 3, 2, 4).reshape(n, 16, 16).to(torch.uint8)
+    nnz = (scan != 0).sum(dim=2).to(I32)
+    cbp = ((nnz[:, quad_blks].sum(dim=2) > 0).to(I32)
+           * on(QUAD_BITS, dev)).sum(dim=1)
+    return scan.to(I32), nnz, cbp.to(I32), rec
+
+
 # ---------------------------------------------------------------------------
 # reference windows
 # ---------------------------------------------------------------------------
@@ -571,14 +608,18 @@ def skip_cost(planes, skip_mv, mb_xy, orig_q, sr: int):
 # the P frame
 # ---------------------------------------------------------------------------
 
-def p_frame_core(origY, origU, origV, planes, padU, padV, qp: int, qpc: int,
-                 lam: int, lam4: int, *, mb_w: int, mb_h: int, sr: int):
-    """Whole-picture RD encode of a P picture against one reference
-    (twin of enc_jax._p_frame_core(rd=True)). Returns the committed
-    fields: inter_mode (N,), mv4 (N, 16, 2), luma_scan (N, 16, 16) int16,
-    luma_nnz (N, 16), cbp (N,), chroma_dc (N, 2, 4) int16, chroma_scan
-    (N, 2, 4, 16) int16, chroma_nnz (N, 2, 4), intra_mask (N,) bool and
-    the recon planes recY / recU / recV uint8; int32 unless stated."""
+def p_frame_step(origY, origU, origV, planes, padU, padV, qp: int, qpc: int,
+                 lam: int, lam4: int, *, mb_w: int, mb_h: int, sr: int,
+                 rd: bool = False):
+    """Whole-picture encode of a P picture against one reference (twin of
+    enc_jax.p_frame_step). rd=True decides the modes by the trial-encode
+    RD of ops/enc_rd.py; rd=False by md_low's costs: the cheapest of the
+    four partition modes' SATD costs, replaced by the approximate skip MV
+    where its SAD is no larger. Returns the committed fields: inter_mode
+    (N,), mv4 (N, 16, 2), luma_scan (N, 16, 16) int16, luma_nnz (N, 16),
+    cbp (N,), chroma_dc (N, 2, 4) int16, chroma_scan (N, 2, 4, 16) int16,
+    chroma_nnz (N, 2, 4), intra_mask (N,) bool and the recon planes
+    recY / recU / recV uint8; int32 unless stated."""
     from .enc_rd import p_mode_rd_device
     n = mb_w * mb_h
     dev = origY.device
@@ -597,73 +638,103 @@ def p_frame_core(origY, origU, origV, planes, padU, padV, qp: int, qpc: int,
          for m, jobs in enumerate(MODE_JOBS)], dim=1).to(I32)   # (N, 4)
     cost_inter = torch.min(mode_costs, dim=1).values
     cost_skip = skip_cost(planes, pred, mb_xy, orig_q, sr)
+    take_skip = cost_skip <= cost_inter
     cost_inter = torch.minimum(cost_inter, cost_skip)
     intra_mask = i16_source_cost(origY, mb_w, mb_h) + 2 * lam4 < cost_inter
 
     orig_u = mb_tiles(origU, mb_h, mb_w, 8)
     orig_v = mb_tiles(origV, mb_h, mb_w, 8)
-    r = p_mode_rd_device(planes, padU, padV, win, mv_q, int_mv, pred,
-                         orig_q, orig_u, orig_v, mb_xy, qp, qpc,
-                         mb_w=mb_w, mb_h=mb_h, sr=sr, mode_satd=mode_costs,
-                         top_modes=2)
-    mv4 = r["mv_quad"][:, on(BLK_QUAD, dev)]
+    if rd:
+        r = p_mode_rd_device(planes, padU, padV, win, mv_q, int_mv, pred,
+                             orig_q, orig_u, orig_v, mb_xy, qp, qpc,
+                             mb_w=mb_w, mb_h=mb_h, sr=sr,
+                             mode_satd=mode_costs, top_modes=2)
+        inter_mode, mv_quad = r["inter_mode"], r["mv_quad"]
+        scan, nnz, cbp = r["luma_scan"], r["luma_nnz"], r["cbp"]
+        cdc, cac, cnnz = r["chroma_dc"], r["chroma_scan"], r["chroma_nnz"]
+        recY, recU, recV = r["recY_mbs"], r["recU_mbs"], r["recV_mbs"]
+    else:
+        # one MV per 8x8 quadrant, the decision granularity of the 9 jobs
+        best_mode = torch.argmin(mode_costs, dim=1)
+        quad_job = on(QUAD_JOB, dev)[best_mode]                # (N, 4)
+        mv_quad = torch.gather(mv_q, 1, quad_job[..., None].expand(n, 4, 2))
+        mv_quad = torch.where(take_skip[:, None, None],
+                              pred[:, None, :].expand(n, 4, 2), mv_quad)
+        inter_mode = torch.where(take_skip, 0, best_mode)
+        scan, nnz, cbp_l, recY = luma_residual_inter(
+            orig_mbs, mc_luma_quads(planes, mv_quad, mb_xy, sr), qp)
+        pu, pv = mc_chroma_quads(padU, padV, mv_quad, mb_xy, sr)
+        cdc, cac, cnnz, cbp_c, recU, recV = chroma_residual(
+            orig_u, orig_v, pu, pv, qpc, False)
+        cbp = (cbp_c << 4) | cbp_l
     return {
-        "inter_mode": r["inter_mode"],
-        "mv4": mv4.to(I32),
-        "luma_scan": r["luma_scan"].to(torch.int16),
-        "luma_nnz": r["luma_nnz"].to(I32),
-        "cbp": r["cbp"].to(I32),
-        "chroma_dc": r["chroma_dc"].to(torch.int16),
-        "chroma_scan": r["chroma_scan"].to(torch.int16),
-        "chroma_nnz": r["chroma_nnz"].to(I32),
+        "inter_mode": inter_mode.to(I32),
+        "mv4": mv_quad[:, on(BLK_QUAD, dev)].to(I32),
+        "luma_scan": scan.to(torch.int16),
+        "luma_nnz": nnz.to(I32),
+        "cbp": cbp.to(I32),
+        "chroma_dc": cdc.to(torch.int16),
+        "chroma_scan": cac.to(torch.int16),
+        "chroma_nnz": cnnz.to(I32),
         "intra_mask": intra_mask,
-        "recY": mb_untile(r["recY_mbs"], mb_h, mb_w, 16),
-        "recU": mb_untile(r["recU_mbs"], mb_h, mb_w, 8),
-        "recV": mb_untile(r["recV_mbs"], mb_h, mb_w, 8),
+        "recY": mb_untile(recY, mb_h, mb_w, 16),
+        "recU": mb_untile(recU, mb_h, mb_w, 8),
+        "recV": mb_untile(recV, mb_h, mb_w, 8),
     }
+
+
+def p_frame_bs(luma_nnz, mv4, *, mb_w: int, mb_h: int):
+    """Boundary strengths of an all-inter P picture against one reference
+    (twin of enc_jax.p_frame_bs): (bs_v, bs_h) int8."""
+    from .deblock import compute_bs
+    n = mb_w * mb_h
+    dev = luma_nnz.device
+    zeros = torch.zeros(n, dtype=I32, device=dev)
+    return compute_bs(zeros, luma_nnz, zeros, mv4, torch.zeros_like(mv4),
+                      torch.full((n, 4), 7, dtype=I32, device=dev),
+                      torch.full((n, 4), -1, dtype=I32, device=dev),
+                      mb_w, mb_h)
 
 
 def p_frame_rd_pipe(packed_in, planes, padU, padV, qp: int, qpc: int,
                     lam: int, lam4: int, qpc_cb_tab, qpc_cr_tab, *,
-                    mb_w: int, mb_h: int, sr: int, max_words: int):
-    """One P frame end to end: RD encode -> boundary strengths -> deblock
-    -> next-reference prep -> CAVLC slice pack (twin of
-    enc_jax.p_frame_rd_pipe).
+                    mb_w: int, mb_h: int, sr: int, max_words: int,
+                    rd: bool = True):
+    """One P frame end to end: encode (p_frame_step, RD or md_low) ->
+    boundary strengths -> deblock -> next-reference prep -> CAVLC slice
+    pack (twin of enc_jax.p_frame_rd_pipe, and for rd=False of the same
+    stages as encoder.encode_stream composes them for md_low).
 
     packed_in: (24 mb_h, 16 mb_w) uint8, Y on top, U|V side by side below.
     Returns (out, state): out["words_ext"] (3 + max_words,) int64 holds
     [nbits, ovf, intra_any] then the packed 32-bit words (each masked to
-    32 bits); out["core"] the p_frame_core fields; out["skip"] (N,) bool.
+    32 bits); out["core"] the p_frame_step fields; out["skip"] (N,) bool.
     state is the deblocked picture as prep_ref output."""
     from . import cavlc as CV
-    from .deblock import compute_bs, deblock
+    from .deblock import deblock
     h, w = mb_h * 16, mb_w * 16
     n = mb_w * mb_h
     dev = packed_in.device
     origY = packed_in[:h]
     origU = packed_in[h:, :w // 2]
     origV = packed_in[h:, w // 2:]
-    core = p_frame_core(origY, origU, origV, planes, padU, padV, qp, qpc,
-                        lam, lam4, mb_w=mb_w, mb_h=mb_h, sr=sr)
+    core = p_frame_step(origY, origU, origV, planes, padU, padV, qp, qpc,
+                        lam, lam4, mb_w=mb_w, mb_h=mb_h, sr=sr, rd=rd)
+    bs_v, bs_h = p_frame_bs(core["luma_nnz"], core["mv4"], mb_w=mb_w,
+                            mb_h=mb_h)
     zeros = torch.zeros(n, dtype=I32, device=dev)
-    bs_v, bs_h = compute_bs(
-        zeros, core["luma_nnz"], zeros, core["mv4"],
-        torch.zeros_like(core["mv4"]),
-        torch.full((n, 4), 7, dtype=I32, device=dev),
-        torch.full((n, 4), -1, dtype=I32, device=dev), mb_w, mb_h)
     qp_arr = torch.full((n,), qp, dtype=I32, device=dev)
     dY, dU, dV = deblock(core["recY"], core["recU"], core["recV"], bs_v,
                          bs_h, qp_arr, zeros, zeros, zeros, zeros, zeros,
                          qpc_cb_tab, qpc_cr_tab, mb_w=mb_w, mb_h=mb_h)
     state = prep_ref(dY, dU, dV)
-    skip = CV.skip_field(core["inter_mode"], core["cbp"], core["mv4"],
-                         mb_w, mb_h)
-    packed = CV.pack_p_body(
-        skip, core["inter_mode"], core["mv4"], core["cbp"],
-        core["luma_scan"], core["luma_nnz"], core["chroma_dc"],
-        core["chroma_scan"], core["chroma_nnz"], mb_w, mb_h, max_words)
+    packed = CV.pack_p_slice_full(
+        core["inter_mode"], core["mv4"], core["cbp"], core["luma_scan"],
+        core["luma_nnz"], core["chroma_dc"], core["chroma_scan"],
+        core["chroma_nnz"], mb_w=mb_w, mb_h=mb_h, max_words=max_words)
     flags = torch.stack([packed["nbits"].to(torch.int64),
                          packed["ovf"].to(torch.int64),
                          core["intra_mask"].any().to(torch.int64)])
     words_ext = torch.cat([flags, packed["words"]])
-    return {"words_ext": words_ext, "core": core, "skip": skip}, state
+    return {"words_ext": words_ext, "core": core,
+            "skip": packed["skip"]}, state

@@ -1,14 +1,14 @@
 """Batched trial-encode RD mode decision for the P fast path (twin of
-jm_tpu/ops/enc_rd.py, the pruned top-2 tier).
+jm_tpu/ops/enc_rd.py: the all-modes tier and the pruned top-2 tier).
 
-Per MB the two best SATD-ranked partition modes and P_Skip are trial
-encoded: MC prediction from the refine windows, exact transform / quant
-/ recon, SSD, JM coefficient-cost thresholding, exact CAVLC bit lengths
+Per MB P_Skip and the partition modes (all four, or the two best
+SATD-ranked) are trial encoded: MC prediction from the refine windows,
+exact transform / quant / recon, SSD, JM coefficient-cost thresholding, exact CAVLC bit lengths
 (MB-external nC treated as unavailable), chroma trial per candidate.
 J = SSD + lambda_mode * bits picks the winner (lencod/src/md_high.c:38,
-md_highfast.c:95 preselection). J is float32 and computed as separate
-multiply and add ops, so no fused multiply-add changes its rounding;
-ties go to the first candidate (torch.argmin keeps the first minimum).
+md_highfast.c:95 preselection). J is float32 rounded once, as the fused
+multiply-add of jm_tpu's compiled program gives it (rd_cost); ties go to
+the first candidate (torch.argmin keeps the first minimum).
 """
 
 from __future__ import annotations
@@ -51,8 +51,6 @@ for _q in range(4):
 RASTER_FLAT = RASTER_OF.reshape(-1)
 INV_RASTER_FLAT = np.argsort(RASTER_FLAT)
 
-QUAD_BITS = np.array([1, 2, 4, 8], np.int32)      # cbp bit of each 8x8
-
 # mb_type ue(v) length per P mode + the four ue(0) sub_mb_types of 8x8
 MODE_HDR_BITS = np.array([1, 3, 3, 5 + 4], np.int32)
 
@@ -75,6 +73,17 @@ for _m in range(4):
 def lambda_mode_f(qp: int) -> float:
     """md_high lambda: 0.85 * 2^((qp-12)/3)."""
     return 0.85 * 2.0 ** ((qp - 12) / 3.0)
+
+
+def rd_cost(dist, bits, lam_f):
+    """J = float32(dist) + lam_f * float32(bits), rounded once to float32
+    as a fused multiply-add rounds it (XLA contracts this expression on
+    the CPU). The product is exact in float64, and so is the sum while
+    the addends span at most 53 bits: an MB's SSD is below 2^26 and
+    lam_f >= 2^-4 from QP 1 up; one rounding of it is then the fused
+    result."""
+    return (dist.to(torch.float32).double()
+            + lam_f.double() * bits.to(torch.float32).double()).float()
 
 
 def luma_quad_tq(oq, pred8, qp: int):
@@ -218,15 +227,176 @@ def p_mode_rd_device(planes, padU, padV, win, mv_q, int_mv, pred, orig_q,
                      orig_u, orig_v, mb_xy, qp: int, qpc: int, *,
                      mb_w: int, mb_h: int, sr: int, mode_satd=None,
                      top_modes: int = 4):
-    """Per-MB choice among {P_Skip, the top-2 SATD-ranked partition
-    modes} by J = SSD + lambda_mode * exact bits. Only the pruned tier
-    (top_modes=2 with mode_satd) is ported."""
-    if top_modes >= 4 or mode_satd is None:
-        raise NotImplementedError("all-modes RD (_p_mode_rd_full): "
-                                  "not yet ported")
-    return p_mode_rd_pruned(planes, padU, padV, win, mv_q, int_mv, pred,
-                            orig_q, orig_u, orig_v, mb_xy, qp, qpc,
-                            mode_satd, mb_w=mb_w, mb_h=mb_h, sr=sr)
+    """Per-MB choice among P_Skip and the partition modes by J = SSD +
+    lambda_mode * exact bits: all four modes, or with top_modes < 4 and
+    mode_satd (the SATD + rate mode costs) the two best SATD-ranked ones
+    (twin of enc_rd.p_mode_rd_device)."""
+    if top_modes < 4 and mode_satd is not None:
+        return p_mode_rd_pruned(planes, padU, padV, win, mv_q, int_mv, pred,
+                                orig_q, orig_u, orig_v, mb_xy, qp, qpc,
+                                mode_satd, mb_w=mb_w, mb_h=mb_h, sr=sr)
+    return p_mode_rd_full(planes, padU, padV, win, mv_q, int_mv, pred,
+                          orig_q, orig_u, orig_v, mb_xy, qp, qpc,
+                          mb_w=mb_w, mb_h=mb_h, sr=sr)
+
+
+def _mvd_bits(se, d):
+    """se(v) bits of the two components of (..., 2) MV differences."""
+    return se[torch.clamp(torch.abs(d[..., 0]), 0, 4095)] \
+        + se[torch.clamp(torch.abs(d[..., 1]), 0, 4095)]
+
+
+def _skip_trial(planes, padU, padV, smv, mb_xy, orig16, orig_u, orig_v,
+                sr: int):
+    """P_Skip at (N, 2) MVs: (mv_quad, luma pred, chroma preds, SSD)."""
+    n = smv.shape[0]
+    s4 = smv[:, None, :].expand(n, 4, 2)
+    p16 = E.mc_luma_quads(planes, s4, mb_xy, sr)
+    ssd_l = ((orig16 - p16) ** 2).sum(dim=(1, 2))
+    pu, pv = E.mc_chroma_quads(padU, padV, s4, mb_xy, sr)
+    sc = (((orig_u.to(I32) - pu) ** 2).sum(dim=(1, 2))
+          + ((orig_v.to(I32) - pv) ** 2).sum(dim=(1, 2)))
+    return s4, p16, pu, pv, (ssd_l + sc).to(torch.float32)
+
+
+def p_mode_rd_full(planes, padU, padV, win, mv_q, int_mv, pred, orig_q,
+                   orig_u, orig_v, mb_xy, qp: int, qpc: int, *,
+                   mb_w: int, mb_h: int, sr: int):
+    """Trial-encode RD over all four partition modes plus P_Skip (twin of
+    enc_rd._p_mode_rd_full, the top_modes=4 tier)."""
+    n = mb_w * mb_h
+    dev = mv_q.device
+    lam_f = torch.full((), lambda_mode_f(qp), dtype=torch.float32,
+                       device=dev)
+    cbp_inv = on(CBP_INTER_INV, dev)
+    se = on(E.SE_BITS, dev)
+    quad_w = on(E.QUAD_BITS, dev)
+    raster = on(RASTER_FLAT, dev)
+
+    # ---- per-qjob luma trials ----------------------------------------
+    blk_pred = E.qjob_pred_blocks(win, mv_q, int_mv)          # (N, 16, 8, 8)
+    oq = orig_q.to(I32)[:, on(E.QJ_QUAD, dev)]
+    scan4, costq, nnz4, ssd_c, ssd_z, rec8 = luma_quad_tq(
+        oq.reshape(n * 16, 8, 8), blk_pred.reshape(n * 16, 8, 8), qp)
+    scan4 = scan4.reshape(n, 16, 4, 16)
+    costq = costq.reshape(n, 16)
+    nnz4 = nnz4.reshape(n, 16, 4)
+    ssd_c = ssd_c.reshape(n, 16)
+    ssd_z = ssd_z.reshape(n, 16)
+    rec8 = rec8.reshape(n, 16, 8, 8)
+    tc_b, t1_b, rest_b = block_len_parts(scan4.reshape(n * 16 * 4, 16), 16)
+    tc_b = tc_b.reshape(n, 16, 4)
+    t1_b = t1_b.reshape(n, 16, 4)
+    rest_b = rest_b.reshape(n, 16, 4)
+
+    # ---- per-mode luma cost and chroma trial -------------------------
+    modes = []
+    for m in range(4):
+        sel = on(QJOB_OF, dev)[m]
+        cq = costq[:, sel]                                    # (N, 4)
+        keep_q = cq > 4
+        kept = keep_q & (torch.where(keep_q, cq, 0).sum(dim=1) > 5)[:, None]
+        luma_ssd = torch.where(kept, ssd_c[:, sel], ssd_z[:, sel]).sum(dim=1)
+        nnz_m = torch.where(kept[..., None], nnz4[:, sel], 0)  # (N, 4, 4)
+        nnz16 = nnz_m.reshape(n, 16)[:, on(INV_RASTER_FLAT, dev)]
+        nc16 = nc_cat(luma_nc_inmb(nnz16))
+        ct = ct_len(nc16[:, raster].reshape(n, 4, 4), t1_b[:, sel],
+                    tc_b[:, sel])
+        bl = (ct + rest_b[:, sel]).sum(dim=2)                 # (N, 4)
+        cbp_l = ((nnz_m.sum(dim=2) > 0).to(I32) * quad_w).sum(dim=1)
+        jobs = E.MODE_JOBS[m]
+        mv_jobs = mv_q[:, jobs[0]:jobs[-1] + 1]               # (N, jobs, 2)
+        mvq_m = mv_q[:, on(PARENT_OF, dev)[m]]                # (N, 4, 2)
+        modes.append(dict(
+            kept=kept, luma_ssd=luma_ssd,
+            luma_bits=torch.where(kept, bl, 0).sum(dim=1), cbp_l=cbp_l,
+            mvb=_mvd_bits(se, mv_jobs - pred[:, None]).sum(dim=1),
+            mv_jobs=mv_jobs, mvq=mvq_m,
+            chroma=chroma_trial(padU, padV, mvq_m, mb_xy, orig_u, orig_v,
+                                qpc, sr)))
+
+    orig16 = orig_q.to(I32).reshape(n, 2, 2, 8, 8).permute(0, 1, 3, 2, 4) \
+        .reshape(n, 16, 16)
+
+    def decide(mvb_by_mode, j_skip):
+        js = [j_skip]
+        for m, mf in enumerate(modes):
+            ch = mf["chroma"]
+            cbp_full = mf["cbp_l"] | (ch["cbp_c"] << 4)
+            cbp_bits = ue_len(cbp_inv[torch.clamp(cbp_full, 0, 47)])
+            dqp_bits = (cbp_full != 0).to(I32)
+            bits = (int(MODE_HDR_BITS[m]) + mvb_by_mode[m] + cbp_bits
+                    + dqp_bits + mf["luma_bits"] + ch["bits"])
+            js.append(rd_cost(mf["luma_ssd"] + ch["ssd"], bits, lam_f))
+        jstack = torch.stack(js, dim=1)                       # (N, 5)
+        return torch.argmin(jstack, dim=1), jstack
+
+    mvq_modes = torch.stack([mf["mvq"] for mf in modes], dim=1)  # (N,4,4,2)
+
+    # ---- pass 1: approximate (per-MB) predictor rate ------------------
+    skip4, _p16, _pu, _pv, ssd_skip = _skip_trial(
+        planes, padU, padV, pred, mb_xy, orig16, orig_u, orig_v, sr)
+    win_p1, _ = decide([mf["mvb"] for mf in modes], ssd_skip + lam_f)
+    best_p1 = torch.clamp(win_p1 - 1, 0, 3)
+    mv_quad_p1 = _take(mvq_modes, best_p1[:, None], 1)[:, 0]
+    mv_quad_p1 = torch.where((win_p1 == 0)[:, None, None], skip4, mv_quad_p1)
+    mode_p1 = torch.where(win_p1 == 0, 0, best_p1)
+
+    # ---- pass 2: exact median predictors from the pass-1 field --------
+    mv4_p1 = mv_quad_p1[:, on(E.BLK_QUAD, dev)]
+    allpred = mv_pred_parts(mv4_p1, mode_p1, mb_w, mb_h,
+                            all_modes=True)                   # (N, 4m, 4p, 2)
+    mvb_p2 = [_mvd_bits(se, mf["mv_jobs"]
+                        - allpred[:, m, :mf["mv_jobs"].shape[1]]).sum(dim=1)
+              for m, mf in enumerate(modes)]
+    skip4, pred16_skip, pu_s, pv_s, ssd_skip2 = _skip_trial(
+        planes, padU, padV, skip_mv_field(mv4_p1, mb_w, mb_h), mb_xy,
+        orig16, orig_u, orig_v, sr)
+    win_i, jstack = decide(mvb_p2, ssd_skip2)
+    is_skip = win_i == 0
+    best_m = torch.clamp(win_i - 1, 0, 3)
+
+    # ---- gather final fields (winner mode) ----------------------------
+    def take_mode(stack):
+        """(N, 4 modes, ...) -> (N, ...) at the winning mode."""
+        return _take(stack, best_m[:, None], 1)[:, 0]
+
+    sel_q = on(QJOB_OF, dev)[best_m]                          # (N, 4)
+    kept_w = take_mode(torch.stack([mf["kept"] for mf in modes], dim=1)) \
+        & ~is_skip[:, None]
+    scan_q = torch.where(kept_w[..., None, None], _take(scan4, sel_q, 1), 0)
+    nnz_q = torch.where(kept_w[..., None], _take(nnz4, sel_q, 1), 0)
+    rec_q = torch.where(
+        kept_w[..., None, None], _take(rec8, sel_q, 1),
+        torch.clamp(_take(blk_pred, sel_q, 1), 0, 255).to(torch.uint8))
+    skip_rec = pred16_skip.reshape(n, 2, 8, 2, 8).permute(0, 1, 3, 2, 4) \
+        .reshape(n, 4, 8, 8).to(torch.uint8)
+    rec_q = torch.where(is_skip[:, None, None, None], skip_rec, rec_q)
+
+    qb = on(QUAD_OF_BLK, dev)
+    sb = on(SUB_OF_BLK, dev)
+    recY = rec_q.reshape(n, 2, 2, 8, 8).permute(0, 1, 3, 2, 4) \
+        .reshape(n, 16, 16)
+
+    def ch_sel(key, when_skip=None):
+        v = take_mode(torch.stack([mf["chroma"][key] for mf in modes],
+                                  dim=1))
+        z = torch.zeros_like(v) if when_skip is None else when_skip
+        return torch.where(is_skip.reshape(n, *([1] * (v.dim() - 1))), z, v)
+
+    cbp_l = ((nnz_q.sum(dim=2) > 0).to(I32) * quad_w).sum(dim=1)
+    mv_quad = torch.where(is_skip[:, None, None], skip4, take_mode(mvq_modes))
+    return dict(inter_mode=torch.where(is_skip, 0, best_m).to(I32),
+                mv_quad=mv_quad.to(I32),
+                luma_scan=scan_q[:, qb, sb], luma_nnz=nnz_q[:, qb, sb],
+                cbp=(ch_sel("cbp_c") << 4) | cbp_l,
+                chroma_dc=ch_sel("dc"), chroma_scan=ch_sel("ac"),
+                chroma_nnz=ch_sel("cnnz"), recY_mbs=recY,
+                recU_mbs=ch_sel("recU",
+                                torch.clamp(pu_s, 0, 255).to(torch.uint8)),
+                recV_mbs=ch_sel("recV",
+                                torch.clamp(pv_s, 0, 255).to(torch.uint8)),
+                j_win=jstack.min(dim=1).values)
 
 
 def p_mode_rd_pruned(planes, padU, padV, win, mv_q, int_mv, pred, orig_q,
@@ -292,7 +462,7 @@ def p_mode_rd_pruned(planes, padU, padV, win, mv_q, int_mv, pred, orig_q,
                 t1_b, tc_b)
     bl = (ct + rest_b).sum(dim=3)                            # (N, 2, 4)
     luma_bits = torch.where(kept, bl, 0).sum(dim=2)          # (N, 2)
-    quad_w = on(QUAD_BITS, dev)
+    quad_w = on(E.QUAD_BITS, dev)
     cbp_l = ((nnz_m.sum(dim=3) > 0).to(I32) * quad_w).sum(dim=2)
 
     # ---- per-slot chroma trials --------------------------------------
@@ -303,20 +473,12 @@ def p_mode_rd_pruned(planes, padU, padV, win, mv_q, int_mv, pred, orig_q,
         .reshape(n, 16, 16)
 
     def skip_trial(smv):
-        s4 = smv[:, None, :].expand(n, 4, 2)
-        p16 = E.mc_luma_quads(planes, s4, mb_xy, sr)
-        ssd_l = ((orig16 - p16) ** 2).sum(dim=(1, 2))
-        pu, pv = E.mc_chroma_quads(padU, padV, s4, mb_xy, sr)
-        sc = (((orig_u.to(I32) - pu) ** 2).sum(dim=(1, 2))
-              + ((orig_v.to(I32) - pv) ** 2).sum(dim=(1, 2)))
-        return s4, p16, pu, pv, (ssd_l + sc).to(torch.float32)
+        return _skip_trial(planes, padU, padV, smv, mb_xy, orig16, orig_u,
+                           orig_v, sr)
 
     def mvb_of(predq):
         """predq (N, 2, 4, 2): predictor per slot per quad."""
-        d = mv_sel - predq
-        bits = se[torch.clamp(torch.abs(d[..., 0]), 0, 4095)] \
-            + se[torch.clamp(torch.abs(d[..., 1]), 0, 4095)]
-        return (firstq * bits).sum(dim=2)                    # (N, 2)
+        return (firstq * _mvd_bits(se, mv_sel - predq)).sum(dim=2)  # (N, 2)
 
     def decide(mvb, j_skip):
         js = [j_skip]
@@ -327,9 +489,7 @@ def p_mode_rd_pruned(planes, padU, padV, win, mv_q, int_mv, pred, orig_q,
             dqp_bits = (cbp_full != 0).to(I32)
             bits = (hdr_bits[:, s] + mvb[:, s] + cbp_bits + dqp_bits
                     + luma_bits[:, s] + ch["bits"])
-            dist = (luma_ssd[:, s] + ch["ssd"]).to(torch.float32)
-            rate = lam_f * bits.to(torch.float32)
-            js.append(dist + rate)
+            js.append(rd_cost(luma_ssd[:, s] + ch["ssd"], bits, lam_f))
         jstack = torch.stack(js, dim=1)                      # (N, 3)
         return torch.argmin(jstack, dim=1), jstack
 

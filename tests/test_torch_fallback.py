@@ -1,0 +1,63 @@
+"""The port's encoder with md_low (device_rd=False) against jm_tpu's
+Encoder(pipeline="device") on the CPU, exactly (tests/torch_streams.py
+clips, 96x80, QP 30): the IPPP, periodic-IDR and scene-cut streams are
+byte-identical with equal deblocked recon, the scene cuts fall back to
+the per-frame path (device encode reused, host intra re-encode, mixed
+deblock) and dispatch the next frame again, and every stream decodes
+with both decoders to the port's recon; encode_frame frame by frame,
+intra_mb_refresh=6, and a scene cut with a packer word budget too small
+(fallback and the overflow host serializer in one stream)."""
+
+import pytest
+
+import torch_streams as S
+
+RD = False
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return S.runs(RD)
+
+
+@pytest.mark.parametrize("clip", list(S.CLIPS))
+def test_md_low_stream_byte_identical(runs, clip):
+    S.check_byte_identical(runs[clip])
+
+
+@pytest.mark.parametrize("clip", list(S.CLIPS))
+def test_md_low_fallbacks(runs, clip):
+    S.check_fallbacks(runs[clip], clip)
+
+
+@pytest.mark.parametrize("clip", list(S.CLIPS))
+def test_md_low_stream_decodes_to_port_recon(runs, clip):
+    S.check_decodes(runs[clip])
+
+
+def test_encode_frame_per_frame_matches():
+    """encode_frame on the 5-frame scene cut: every P frame takes the
+    per-frame path, with intra MBs (frames 2, 3) and without."""
+    frames = S.clip_frames("cut5")
+    jenc = S.jax_encoder(RD)
+    enc = S.port_encoder(RD)
+    for i, f in enumerate(frames):
+        assert enc.encode_frame(*f) == jenc.encode_frame(*f), f"frame {i}"
+    assert enc.flush() == jenc.flush() == b""
+    S.same_recon(enc.results, jenc.results)
+    intra = [r.get("intra_mbs") for r in enc.results]
+    assert intra[0] is None and intra[1] == 0 and intra[2] > 0
+
+
+def test_intra_mb_refresh_matches():
+    S.check_intra_refresh(RD)
+
+
+def test_scene_cut_with_overflowing_packer(runs):
+    """A word budget too small for any P slice: frames 1 and 4 go to the
+    host serializer, frames 2 and 3 fall back; the bytes do not change."""
+    frames, want, _, _, _ = runs["cut5"]
+    enc = S.port_encoder(RD)
+    enc.max_words = 4
+    assert enc.encode_stream(frames) == want
+    assert enc.fallbacks == S.CUT_FALLBACKS and enc.ovf == [1, 4]

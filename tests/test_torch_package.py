@@ -1,9 +1,8 @@
 """Guards of the port's package boundary and entry point:
 - no module of jm_tpu_torch, nor chip_smoke.py, imports jax or jm_tpu;
 - a CUDA request without a card raises instead of running on the CPU;
-- configurations outside the ported set raise ValueError naming the field;
-- a P frame whose intra trigger fires raises NotImplementedError until
-  the intra re-encode fallback is ported."""
+- configurations outside the ported set raise ValueError naming the field
+  (md_low, device_rd=False, is inside it)."""
 
 import ast
 from pathlib import Path
@@ -14,7 +13,6 @@ import torch
 from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig
 from jm_tpu_torch.ops.deblock import deblock
 
-from test_pipe_stream import make_frames
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "jm_tpu_torch").rglob("*.py")) \
@@ -62,7 +60,7 @@ def test_deblock_never_falls_back_for_a_device_request():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("device_rd", False), ("search_range", 32), ("search_range", 0),
+    ("intra_mb_refresh", -1), ("search_range", 32), ("search_range", 0),
     ("intra_period", -1), ("qp", 52), ("qp", -1), ("width", 100),
     ("height", 40),
 ])
@@ -78,8 +76,13 @@ def test_unknown_device_raises():
         Encoder(EncoderConfig(width=32, height=32), device="meta")
 
 
-def test_scene_cut_intra_fallback_not_ported():
-    frames = make_frames(96, 80, 4, noise_at=2)
-    enc = Encoder(EncoderConfig(width=96, height=80, qp=30), device="cpu")
-    with pytest.raises(NotImplementedError, match="intra speculation"):
-        enc.encode_stream(frames)
+@pytest.mark.parametrize("device_rd", [True, False])
+def test_p_tiers_accepted(device_rd):
+    enc = Encoder(EncoderConfig(width=32, height=32, device_rd=device_rd),
+                  device="cpu")
+    assert enc.cfg.device_rd is device_rd
+
+
+def test_device_rd_must_be_a_bool():
+    with pytest.raises(ValueError, match="device_rd"):
+        Encoder(EncoderConfig(width=32, height=32, device_rd=2), device="cpu")

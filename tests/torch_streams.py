@@ -1,0 +1,111 @@
+"""Shared cases of the stream tests of the port's encoder
+(tests/test_torch_encoder.py for device_rd=True, test_torch_fallback.py
+for md_low): clips of tests/test_pipe_stream.py at 96x80, QP 30, encoded
+by jm_tpu's Encoder(pipeline="device") and by the port on the CPU, and
+the checks that hold them equal."""
+
+import numpy as np
+
+from jm_tpu.decoder.decoder import H264Decoder as JaxDecoder
+from jm_tpu.encoder.encoder import Encoder as JaxEncoder
+from jm_tpu.encoder.encoder import EncoderConfig as JaxConfig
+from jm_tpu_torch.decoder.decoder import H264Decoder
+from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig
+
+from test_pipe_stream import make_frames
+
+W, H, QP = 96, 80, 30
+# clip: (frames, intra_period, noise_at); the scene cuts replace frame 2
+# by noise, so the pipe's intra speculation fails on frames 2 and 3 (3
+# is predicted from the noise)
+CLIPS = {"ippp": (5, 0, None), "idr_every_3": (6, 3, None),
+         "cut4": (4, 0, 2), "cut5": (5, 0, 2)}
+CUT_FALLBACKS = [2, 3]
+
+
+def clip_frames(clip):
+    n, _ip, noise_at = CLIPS[clip]
+    return make_frames(W, H, n, noise_at=noise_at)
+
+
+def jax_encoder(rd: bool, clip="ippp", **kw):
+    return JaxEncoder(JaxConfig(width=W, height=H, qp=QP, pipeline="device",
+                                intra_period=CLIPS[clip][1], device_rd=rd,
+                                **kw))
+
+
+def port_encoder(rd: bool, clip="ippp", **kw):
+    return Encoder(EncoderConfig(width=W, height=H, qp=QP, device_rd=rd,
+                                 intra_period=CLIPS[clip][1], **kw),
+                   device="cpu")
+
+
+def runs(rd: bool):
+    """Per clip: (frames, jm_tpu payloads, jm_tpu results, port encoder,
+    port payloads)."""
+    out = {}
+    for clip in CLIPS:
+        frames = clip_frames(clip)
+        jenc = jax_encoder(rd, clip)
+        want = jenc.encode_stream(frames)
+        enc = port_encoder(rd, clip)
+        out[clip] = (frames, want, jenc.results, enc,
+                     enc.encode_stream(frames))
+    return out
+
+
+def same_recon(a_results, b_results):
+    assert [r["type"] for r in a_results] == [r["type"] for r in b_results]
+    for a, b in zip(a_results, b_results):
+        for plane in "YUV":
+            assert np.array_equal(getattr(a["frame"], plane),
+                                  getattr(b["frame"], plane))
+
+
+def check_byte_identical(run):
+    frames, want, want_res, enc, got = run
+    assert len(got) == len(want) == len(frames)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"frame {i} payload differs"
+    same_recon(enc.results, want_res)
+
+
+def check_fallbacks(run, clip):
+    """Which frames fell back to the per-frame path, with intra MBs
+    re-encoded, and how many dispatches were repeated: the frame after
+    each fallback, where there is one. No packer overflows here."""
+    frames, _, _, enc, _ = run
+    want = CUT_FALLBACKS if CLIPS[clip][2] is not None else []
+    assert enc.fallbacks == want and enc.ovf == []
+    assert enc.redispatches == sum(d + 1 < len(frames) for d in want)
+    for r in enc.results:
+        if r["disp"] in want:
+            assert 0 < r["intra_mbs"] <= (W // 16) * (H // 16)
+        else:
+            assert "intra_mbs" not in r
+
+
+def check_decodes(run):
+    """The stream decodes with the port's H264Decoder(device="cpu") and
+    with jm_tpu's H264Decoder to the port's recon."""
+    _, _, _, enc, got = run
+    data = b"".join(got)
+    want = sorted(enc.results, key=lambda r: r["disp"])
+    for dec in (H264Decoder(device="cpu"), JaxDecoder()):
+        out = dec.decode_annexb(data)
+        assert len(out) == len(want)
+        for frame, res in zip(out, want):
+            for plane in "YUV":
+                assert np.array_equal(getattr(frame, plane),
+                                      getattr(res["frame"], plane))
+
+
+def check_intra_refresh(rd: bool):
+    """intra_mb_refresh=6: every frame on the per-frame path, six forced
+    MBs per P frame at least."""
+    frames = make_frames(W, H, 5, seed=4)
+    want = jax_encoder(rd, intra_mb_refresh=6).encode_stream(frames)
+    enc = port_encoder(rd, intra_mb_refresh=6)
+    assert enc.encode_stream(frames) == want
+    assert all(r["intra_mbs"] >= 6 for r in enc.results[1:])
+    assert enc.fallbacks == [] and enc.redispatches == 0
