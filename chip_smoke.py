@@ -63,7 +63,20 @@ Phases (any failure raises and exits non-zero):
      picture;
  11. the all-modes RD tier, p_mode_rd_device(top_modes=4), at 1080p on
      the card against device="cpu" on the same inputs, every field
-     equal, with its device ms beside the pruned tier's.
+     equal, with its device ms beside the pruned tier's;
+ 12. CABAC encode: the first N_CABAC frames with entropy="cabac" and
+     cabac_adapt_init (the per-frame path for every frame), one launch
+     per kernel and frame, every deblocked recon equal to phase 3's (the
+     entropy coder changes no decision); frames/s, IDR and P ms, and per
+     frame the device encode, download + host commit, device deblock +
+     prep_ref and host CABAC serialize (ms per MB), the cabac_init_idc of
+     each P slice, and the CABAC bytes beside phase 3's CAVLC bytes of
+     the same frames;
+ 13. CABAC decode on the card: phase 12's stream, every frame equal to
+     the encoder's recon, one launch per kernel and picture, the parse /
+     host recon / device split per picture; then JM lencod's CABAC
+     golden tests/golden/cabac_pp.264 (I/P/P, two references) on the
+     card against its _rec.yuv.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it holds the per-kernel numbers as JSON.
 """
@@ -92,6 +105,7 @@ from jm_tpu_torch.ops.deblock import (  # noqa: E402
 W, H = 1920, 1088
 N_FRAMES = 17
 CUT_FRAMES = 4       # frames of the scene-cut stream (frame 2 replaced)
+N_CABAC = 4          # frames of the CABAC stream (phases 12-13)
 DEVICE = "cuda"
 # the kernels' edge shapes (one MB, mb_w 2, mb_h 1, one MB column), each
 # with a parameter variant ("mixed" may switch the one MB off), and 2160p
@@ -421,23 +435,29 @@ def decode_phase(payloads, enc):
     device_profile(lambda: prof_dec.decode_annexb(payloads[0]), "decode IDR")
     device_profile(lambda: prof_dec.decode_annexb(payloads[1]),
                    "decode one P")
-    root = os.path.dirname(os.path.abspath(__file__))
     for name in ("ipp3", "qp20"):
-        path = os.path.join(root, "tests", "golden", f"{name}.264")
-        with open(path, "rb") as f:
-            got = H264Decoder(device="cuda").decode_annexb(f.read())
-        rec = np.fromfile(path[:-4] + "_rec.yuv", np.uint8)
-        h, w = got[0].Y.shape
-        fs = w * h * 3 // 2
-        want = [(rec[i * fs:i * fs + w * h].reshape(h, w),
-                 rec[i * fs + w * h:i * fs + w * h * 5 // 4]
-                 .reshape(h // 2, w // 2),
-                 rec[i * fs + w * h * 5 // 4:(i + 1) * fs]
-                 .reshape(h // 2, w // 2)) for i in range(rec.size // fs)]
-        check_frames(got, want, f"decode {name}.264")
-        print(f"decode {name}.264 on the card: {len(got)} frames equal "
-              f"JM ldecod's {name}_rec.yuv", flush=True)
+        decode_golden(name)
     return out, launches
+
+
+def decode_golden(name: str) -> None:
+    """A JM golden stream tests/golden/<name>.264 decoded on the card must
+    equal JM ldecod's output <name>_rec.yuv."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "tests", "golden", f"{name}.264")
+    with open(path, "rb") as f:
+        got = H264Decoder(device=DEVICE).decode_annexb(f.read())
+    rec = np.fromfile(path[:-4] + "_rec.yuv", np.uint8)
+    h, w = got[0].Y.shape
+    fs = w * h * 3 // 2
+    want = [(rec[i * fs:i * fs + w * h].reshape(h, w),
+             rec[i * fs + w * h:i * fs + w * h * 5 // 4]
+             .reshape(h // 2, w // 2),
+             rec[i * fs + w * h * 5 // 4:(i + 1) * fs]
+             .reshape(h // 2, w // 2)) for i in range(rec.size // fs)]
+    check_frames(got, want, f"decode {name}.264")
+    print(f"decode {name}.264 on the card: {len(got)} frames equal "
+          f"JM ldecod's {name}_rec.yuv", flush=True)
 
 
 class SplitTimedEncoder(IdrTimedEncoder):
@@ -615,6 +635,104 @@ def cut_decode_phase(enc, payloads):
         if cnt != len(out):
             raise AssertionError(f"scene-cut decode: {name} launched {cnt} "
                                  f"times for {len(out)} pictures")
+    return launches
+
+
+class CabacTimedEncoder(SplitTimedEncoder):
+    """SplitTimedEncoder that also times, by display index, each whole
+    frame (``encode_frame``, "frame") and each host slice serialization,
+    I or P ("slice"); with CABAC every frame takes the per-frame path."""
+
+    def encode_frame(self, *planes):
+        return self._timed(self.display_idx, "frame", super().encode_frame,
+                           *planes)
+
+    def _slice_nal(self, *a):
+        return self._timed(self.display_idx - 1, "slice",
+                           super()._slice_nal, *a)
+
+
+def cabac_phase(frames, enc, payloads):
+    """Phase 12: the first N_CABAC frames with CABAC, held against phase
+    3's encoder `enc` and its CAVLC payloads; returns (encoder, payloads,
+    launches)."""
+    frames = frames[:N_CABAC]
+    cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                        device_rd=True, entropy="cabac",
+                        cabac_adapt_init=True)
+    cab, cab_payloads, launches, total_s = timed_encode(cfg, frames,
+                                                        CabacTimedEncoder)
+    for name, cnt in launches.items():
+        if cnt != N_CABAC:
+            raise AssertionError(f"CABAC: {name} launched {cnt} times, "
+                                 f"expected once for each of {N_CABAC} "
+                                 f"frames")
+    for i, (a, b) in enumerate(zip(cab.results, enc.results)):
+        for plane in "YUV":
+            if not np.array_equal(getattr(a["frame"], plane),
+                                  getattr(b["frame"], plane)):
+                raise AssertionError(f"CABAC frame {i} {plane}: recon "
+                                     f"differs from the CAVLC encode's")
+    if not cab_payloads[0].startswith(b"\x00\x00\x00\x01\x67\x4d"):
+        raise AssertionError("CABAC stream does not start with a Main SPS")
+    n_mbs = (W // 16) * (H // 16)
+    sp = {d: {k: sum(v) * 1e3 for k, v in cab.split[d].items()}
+          for d in range(N_CABAC)}
+    p_ms = [sp[d]["frame"] for d in range(1, N_CABAC)]
+    cavlc_bytes = sum(map(len, payloads[:N_CABAC]))
+    cabac_bytes = sum(map(len, cab_payloads))
+    print(f"encode CABAC {W}x{H} {''.join(r['type'] for r in cab.results)}: "
+          f"{N_CABAC / total_s:.3f} frames/s (IDR {sp[0]['frame']:.1f} ms, "
+          f"P {statistics.mean(p_ms):.1f} ms avg, synchronized steps); "
+          f"cabac_init_idc of the P slices "
+          f"{[r['cabac_init_idc'] for r in cab.results[1:]]}; {cabac_bytes} "
+          f"CABAC bytes against {cavlc_bytes} CAVLC bytes of the same "
+          f"frames and recon (phase 3), ratio "
+          f"{cabac_bytes / cavlc_bytes:.4f}; launches {launches}; recon of "
+          f"every frame equal to phase 3's", flush=True)
+    for d in range(N_CABAC):
+        t = sp[d]
+        ser = t["slice"]
+        host = sum(t.get(k, 0.0) for k in ("download", "host_intra"))
+        dev = t["frame"] - ser - host - t.get("deblock_prep", 0.0)
+        print(f"CABAC frame {d} ({cab.results[d]['type']}, "
+              f"{len(cab_payloads[d])} B against {len(payloads[d])} B "
+              f"CAVLC): wall {t['frame']:.1f} ms = device encode "
+              f"{dev:.1f} ms (upload, i_frame_step or p_frame_step; the IDR "
+              f"with its deblock and downloads), download + host commit "
+              f"{host:.1f} ms, device deblock + prep_ref "
+              f"{t.get('deblock_prep', 0.0):.1f} ms, host CABAC serialize "
+              f"{ser:.1f} ms ({ser / n_mbs:.3f} ms/MB"
+              f"{', 3 init models tried' if d else ''})", flush=True)
+    return cab, cab_payloads, launches
+
+
+def cabac_decode_phase(cab, cab_payloads):
+    """Phase 13: phase 12's CABAC stream decoded on the card, then the
+    cabac_pp golden; returns the per-kernel launches of the first."""
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = dec.decode_annexb(b"".join(cab_payloads))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
+                       for r in cab.results], "CABAC decode")
+    for name, cnt in launches.items():
+        if cnt != len(out):
+            raise AssertionError(f"CABAC decode: {name} launched {cnt} "
+                                 f"times for {len(out)} pictures")
+    n_mbs = (W // 16) * (H // 16)
+    print(f"decode CABAC {W}x{H} on the card: frames equal the encoder's "
+          f"recon; {len(out) / total_s:.3f} frames/s; per picture " +
+          ", ".join(f"{r['type'][0]}/{r['path']} {r['seconds'] * 1e3:.1f} "
+                    f"ms (parse {r['parse_s'] * 1e3:.1f} = "
+                    f"{r['parse_s'] * 1e3 / n_mbs:.3f} ms/MB, intra recon "
+                    f"{r['host_recon_s'] * 1e3:.1f}, device "
+                    f"{r['device_s'] * 1e3:.1f})" for r in dec.pictures)
+          + f"; launches {launches}", flush=True)
+    decode_golden("cabac_pp")
     return launches
 
 
@@ -805,6 +923,10 @@ def main() -> int:
     cut_dec_launches = cut_decode_phase(cut_enc, cut_payloads)
     rd_full_phase(enc, frames)
 
+    # ---- 12-13. CABAC encode and decode ----------------------------------
+    cab, cab_payloads, cab_launches = cabac_phase(frames, enc, payloads)
+    cab_dec_launches = cabac_decode_phase(cab, cab_payloads)
+
     rows = []
     for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):
         s = kstats[name]
@@ -819,7 +941,9 @@ def main() -> int:
             "decode_launches": dec_launches[name],
             "md_low_launches": low_launches[name],
             "scene_cut_launches": cut_launches[name],
-            "scene_cut_decode_launches": cut_dec_launches[name]})
+            "scene_cut_decode_launches": cut_dec_launches[name],
+            "cabac_launches": cab_launches[name],
+            "cabac_decode_launches": cab_dec_launches[name]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -86,8 +86,16 @@ class BitWriter:
     def bitpos(self) -> int:
         return len(self.buf) * 8 + self.nacc
 
+    def byte_aligned(self) -> bool:
+        return self.nacc == 0
+
     def rbsp_trailing_bits(self) -> None:
         self.u(1, 1)
+        self.align_zero()
+
+    def align_zero(self) -> None:
+        """Zero bits up to the next byte boundary (after a CABAC slice's
+        terminating bin, whose flush wrote the rbsp_stop_one_bit)."""
         if self.nacc:
             self.u(0, 8 - self.nacc)
 

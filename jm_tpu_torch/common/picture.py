@@ -1,6 +1,7 @@
 """Picture-wide macroblock state (SoA) shared by the encoder's decision
-stages, the CAVLC serializer and the decoder's slice parser, with the MB
-class codes and the coded_block_pattern table (spec Table 9-4)."""
+stages, the CAVLC and CABAC serializers and the decoder's slice parsers,
+with the MB class codes and the coded_block_pattern table (spec Table
+9-4)."""
 
 from __future__ import annotations
 
@@ -30,9 +31,10 @@ MB_IPCM = 3
 @dataclass
 class PictureData:
     """Per-picture macroblock state (SoA) of a 4:2:0 frame, filled by the
-    encoder's decisions and read by the serializer (encoder/syntax.py),
-    or filled by the decoder's parser (decoder/mb_parse.py) and read by
-    its reconstruction."""
+    encoder's decisions and read by the serializers (encoder/syntax.py,
+    encoder/syntax_cabac.py), or filled by the decoder's parsers
+    (decoder/mb_parse.py, decoder/mb_parse_cabac.py) and read by its
+    reconstruction."""
     mb_w: int
     mb_h: int
 
@@ -72,3 +74,9 @@ class PictureData:
         # I_PCM samples by MB address: (16, 16) luma, (2, 8, 8) chroma
         self.ipcm_luma = {}
         self.ipcm_chroma = {}
+        # CABAC context state: the mvd per list and 4x4 raster block, and
+        # the coded_block_flag bits in JM's layout (ldecod cabac.c
+        # s_cbp[0].bits: bit 0 luma DC, 1 + blk luma 4x4, 17 / 18 chroma
+        # DC, 19 + 4 y + x Cb AC, 35 + 4 y + x Cr AC)
+        self.mvd = np.zeros((n, 2, 16, 2), np.int32)
+        self.cbp_bits = np.zeros(n, np.int64)

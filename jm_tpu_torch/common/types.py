@@ -185,6 +185,7 @@ class SliceHeader:
     no_output_of_prior_pics_flag: int = 0
     long_term_reference_flag: int = 0
     adaptive_ref_pic_marking_mode_flag: int = 0
+    cabac_init_idc: int = 0
     slice_qp_delta: int = 0
     disable_deblocking_filter_idc: int = 0
     slice_alpha_c0_offset_div2: int = 0

@@ -1,12 +1,13 @@
 """Top-level H.264 decoder of the port: Annex-B in, YUV frames out; twin
 of jm_tpu.decoder.decoder.H264Decoder with ``device_recon=True``, for
-Baseline CAVLC I / P streams (4:2:0, 8-bit, frame pictures, one or more
-slices per picture in raster order, list0 with several references in a
-sliding-window DPB, POC types 0, 1 and 2).
+I / P streams, CAVLC (Baseline) or CABAC (Main) (4:2:0, 8-bit, frame
+pictures, one or more slices per picture in raster order, list0 with
+several references in a sliding-window DPB, POC types 0, 1 and 2).
 
 Two phases per picture: the serial host parse of its slices
-(decoder/mb_parse.py) fills the picture's SoA arrays, then one
-reconstruction:
+(decoder/mb_parse.py for CAVLC, decoder/mb_parse_cabac.py for CABAC)
+fills the picture's SoA arrays, then one reconstruction, the same for
+both entropy coders:
   - all-inter P picture: the levels, MVs, refs, QP and nnz go to the
     device once; ops/dec.p_dec_residuals, ops/dec.inter_recon_p over the
     stacked list0 reference states, ops/deblock.compute_bs + deblock (the
@@ -44,6 +45,7 @@ from ..ops.enc import prep_ref
 from .dpb import DPB, Frame
 from .header import PocContext, parse_slice_header
 from .mb_parse import MBParser, SliceContext
+from .mb_parse_cabac import MBParserCABAC
 from .parset import parse_pps, parse_sps
 from .recon import Reconstructor, build_inv_scale
 
@@ -138,7 +140,8 @@ class H264Decoder:
             if len(lst) < nact:
                 raise ValueError("insufficient reference frames")
         sid = len(cur["headers"])
-        MBParser(pic, SliceContext(hdr, sps, pps, sid), br).parse_slice_data()
+        parser = MBParserCABAC if pps.entropy_coding_mode_flag else MBParser
+        parser(pic, SliceContext(hdr, sps, pps, sid), br).parse_slice_data()
         cur["headers"].append(hdr)
         for f in lst:                    # the picture's references by uid
             cur["refs"].setdefault(f.uid, f)

@@ -1,7 +1,8 @@
 """Slice header parsing (spec 7.3.3), POC derivation (spec 8.2.1) and the
 decoder's scope check; twin of jm_tpu/decoder/header.py for frame
-pictures of I and P slices (ldecod/src/header.c FirstPartOfSliceHeader:76,
-RestOfSliceHeader:113, ref_pic_list_reordering:350, decode_poc:720).
+pictures of I and P slices, CAVLC or CABAC (ldecod/src/header.c
+FirstPartOfSliceHeader:76, RestOfSliceHeader:113,
+ref_pic_list_reordering:350, decode_poc:720).
 
 What the decoder does not cover raises NotImplementedError naming the
 construct, before the slice's picture is decoded: ``check_scope`` for
@@ -21,8 +22,6 @@ def check_scope(sps: SPS, pps: PPS) -> None:
     """Raise NotImplementedError naming every construct of this SPS / PPS
     pair that the decoder does not cover."""
     out = []
-    if pps.entropy_coding_mode_flag:
-        out.append("CABAC")
     if sps.chroma_format_idc != 1:
         out.append(f"chroma_format_idc {sps.chroma_format_idc} (4:2:0 only)")
     if sps.bit_depth_luma_minus8 or sps.bit_depth_chroma_minus8:
@@ -100,6 +99,10 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
                 raise NotImplementedError(
                     f"out of scope: MMCO ({_read_mmco(br)})")
 
+    if pps.entropy_coding_mode_flag and h.slice_type == SliceType.P:
+        h.cabac_init_idc = br.ue()
+        if h.cabac_init_idc > 2:
+            raise ValueError(f"cabac_init_idc {h.cabac_init_idc} out of range")
     h.slice_qp_delta = br.se()
     if pps.deblocking_filter_control_present_flag:
         h.disable_deblocking_filter_idc = br.ue()

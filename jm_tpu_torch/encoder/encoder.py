@@ -1,7 +1,8 @@
-"""Baseline H.264 encoder of the port: IPPP, CAVLC, 4:2:0, one slice,
-one reference, fixed QP, with the trial-encode RD P path (device_rd) or
-md_low (twin of jm_tpu.encoder.Encoder with pipeline="device": its
-pipelined ``encode_stream`` and its per-frame ``encode_frame``).
+"""H.264 encoder of the port: IPPP, 4:2:0, one slice, one reference,
+fixed QP, with the trial-encode RD P path (device_rd) or md_low, CAVLC
+(Baseline) or CABAC (Main) (twin of jm_tpu.encoder.Encoder with
+pipeline="device": its pipelined ``encode_stream`` and its per-frame
+``encode_frame``).
 
 Per stream:
   - IDR frames: ops/intra.i_frame_step on the device, then boundary
@@ -20,10 +21,15 @@ it is finished on the per-frame path with its device encode reused, and
 frame N+1 is dispatched again against the corrected reference.
 
 The per-frame path (``encode_frame``, and every frame when
-intra_mb_refresh > 0): ops/enc.p_frame_step on the device, the download
-of its fields, the host commit with the serial re-encode of the intra
-MBs (encoder/p_intra.py), boundary strengths + deblock + reference prep
-on the device, and the host serializer.
+intra_mb_refresh > 0 or with CABAC): ops/enc.p_frame_step on the device,
+the download of its fields, the host commit with the serial re-encode of
+the intra MBs (encoder/p_intra.py), boundary strengths + deblock +
+reference prep on the device, and the host serializer.
+
+With entropy="cabac" the device path and its decisions are the same;
+only the host serializer changes (encoder/syntax_cabac.py, with the
+cabac_init_idc of each P slice the shortest of the three when
+cabac_adapt_init is set, and the cabac_zero_words of clause 7.4.2.10).
 
 The encoder runs on CUDA unless the caller passes device="cpu"; without a
 card a CUDA request raises.
@@ -49,6 +55,7 @@ from ..ops.deblock import compute_bs, deblock
 from ..ops.intra import i_frame_step
 from .p_intra import CORE_FIELDS, PictureCommit
 from .syntax import serialize_slice, write_pps, write_slice_header, write_sps
+from .syntax_cabac import serialize_slice_cabac
 
 
 def lambda_me(qp: int) -> int:
@@ -64,9 +71,9 @@ def lambda_mode4(qp: int) -> int:
 @dataclass
 class EncoderConfig:
     """The configurations this encoder covers: jm_tpu's device IPPP set
-    (CAVLC, 4:2:0, one slice, one reference, fixed QP, deblocking on),
-    with device RD or md_low, and random intra refresh. Values outside it
-    raise ValueError."""
+    (4:2:0, one slice, one reference, fixed QP, deblocking on), with
+    device RD or md_low, CAVLC or CABAC, and random intra refresh. Values
+    outside it raise ValueError."""
     width: int = 176
     height: int = 144
     qp: int = 28
@@ -78,12 +85,20 @@ class EncoderConfig:
                                  # md_low's cost-based decision
     intra_mb_refresh: int = 0    # forced-intra MBs per P picture (lencod
                                  # RandomIntraMBRefresh, intrarefresh.c)
+    entropy: str = "cavlc"       # "cavlc" (Baseline) | "cabac" (Main)
+    cabac_adapt_init: bool = False   # per P slice, the shortest of the 3
+                                 # cabac_init_idc models (lencod
+                                 # ContextInitMethod = 1)
 
 
 def _check_config(cfg: EncoderConfig) -> None:
-    if not isinstance(cfg.device_rd, bool):
-        raise ValueError(f"EncoderConfig.device_rd={cfg.device_rd!r}: "
-                         "True or False")
+    for name in ("device_rd", "cabac_adapt_init"):
+        if not isinstance(getattr(cfg, name), bool):
+            raise ValueError(f"EncoderConfig.{name}="
+                             f"{getattr(cfg, name)!r}: True or False")
+    if cfg.entropy not in ("cavlc", "cabac"):
+        raise ValueError(f"EncoderConfig.entropy={cfg.entropy!r}: "
+                         "'cavlc' or 'cabac'")
     if cfg.intra_mb_refresh < 0:
         raise ValueError(f"EncoderConfig.intra_mb_refresh="
                          f"{cfg.intra_mb_refresh}: must be >= 0")
@@ -138,7 +153,8 @@ class Encoder:
     per frame, as ``encode_frame(Y, U, V)`` does frame by frame.
     ``results`` holds one dict per coded picture (disp, type, bits, qp,
     frame: a Picture with the deblocked recon; intra_mbs: the MBs coded
-    intra, for P frames of the per-frame path)."""
+    intra, for P frames of the per-frame path; cabac_init_idc: the
+    context model of a CABAC P slice)."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
@@ -152,8 +168,9 @@ class Encoder:
             level = cfg.level_idc
         except ValueError:
             level = minimum_level(self.mb_w, self.mb_h, cfg.frame_rate, 1)
+        cabac = cfg.entropy == "cabac"
         self.sps = SPS(
-            profile_idc=66, level_idc=level, log2_max_frame_num_minus4=4,
+            profile_idc=77 if cabac else 66, level_idc=level, log2_max_frame_num_minus4=4,
             pic_order_cnt_type=0, log2_max_pic_order_cnt_lsb_minus4=4,
             max_num_ref_frames=1,
             pic_width_in_mbs_minus1=self.mb_w - 1,
@@ -161,7 +178,7 @@ class Encoder:
             chroma_format_idc=1, frame_mbs_only_flag=1,
             direct_8x8_inference_flag=1)
         self.pps = PPS(num_ref_idx_l0_default_active_minus1=0,
-                       entropy_coding_mode_flag=0,
+                       entropy_coding_mode_flag=1 if cabac else 0,
                        deblocking_filter_control_present_flag=0)
         self.qpc = chroma_qp(cfg.qp, self.pps.chroma_qp_index_offset)
         self.qpc_cb, self.qpc_cr = qpc_tables(self.pps, self.device)
@@ -222,9 +239,10 @@ class Encoder:
 
     def encode_stream(self, frames) -> list:
         """Encode (Y, U, V) display-order frames; returns the per-frame
-        Annex-B payloads (bytes). With intra_mb_refresh > 0 every frame
-        takes the per-frame path (as jm_tpu's does)."""
-        if self.cfg.intra_mb_refresh > 0:
+        Annex-B payloads (bytes). With intra_mb_refresh > 0 or CABAC every
+        frame takes the per-frame path (as jm_tpu's does: its pipe packs
+        CAVLC only)."""
+        if self.cfg.intra_mb_refresh > 0 or self.cfg.entropy == "cabac":
             return [self.encode_frame(*f) for f in frames]
         payloads = []
         pending = None       # (out, disp, state, frame) of the dispatched P
@@ -352,12 +370,10 @@ class Encoder:
         pic.ref_idx[:] = -1
         pic.slice_id[:] = 0
         pic.qp[:] = qp
-        rbsp = serialize_slice(pic, self.sps, self.pps,
-                               slice_type=SliceType.I, frame_num=0, idr=True,
-                               qp=qp, poc_lsb=0, idr_pic_id=self.idr_pic_id)
+        nal, _info = self._slice_nal(pic, SliceType.I, 0)
         payload = (annexb_bytes(3, NalUnitType.SPS, write_sps(self.sps))
                    + annexb_bytes(3, NalUnitType.PPS, write_pps(self.pps))
-                   + annexb_bytes(3, NalUnitType.IDR, rbsp))
+                   + nal)
         frame = Picture(0, 0, planes=tuple(t.cpu().numpy()
                                            for t in (dY, dU, dV)))
         self.idr_pic_id = (self.idr_pic_id + 1) % 65536
@@ -381,7 +397,7 @@ class Encoder:
             return self._finish_p(out["core"], disp, frame, ()), True
         if ovf:
             self.ovf.append(disp)
-            rbsp = self._serialize_p(self._inter_picture(out), disp)
+            nal, info = self._serialize_p(self._inter_picture(out), disp)
         else:
             k = (nbits + 31) // 32
             bw = BitWriter()
@@ -392,14 +408,14 @@ class Encoder:
                                poc_lsb=2 * (disp - self._idr_disp) % 256)
             bw.append_bitstream(ext[3:3 + k].astype(">u4").tobytes(), nbits)
             bw.rbsp_trailing_bits()
-            rbsp = bw.get_bytes()
-        return self._commit_p_frame(rbsp, disp, new_state), False
+            nal, info = annexb_bytes(3, NalUnitType.SLICE, bw.get_bytes()), {}
+        return self._commit_p_frame(nal, disp, new_state, **info), False
 
-    def _commit_p_frame(self, rbsp: bytes, disp: int, state,
+    def _commit_p_frame(self, slice_bytes: bytes, disp: int, state,
                         **info) -> bytes:
-        """Store a coded P picture as the reference and in ``results``
-        (with the items of info); returns its slice NAL unit."""
-        slice_bytes = annexb_bytes(3, NalUnitType.SLICE, rbsp)
+        """Store a coded P picture (its slice NAL unit slice_bytes) as the
+        reference and in ``results`` (with the items of info); returns
+        slice_bytes."""
         poc = 2 * (disp - self._idr_disp)
         self.ref_state = state
         frame = Picture(poc, self.frame_num, state=state)
@@ -420,8 +436,9 @@ class Encoder:
         the intra refresh."""
         c = self._commit_p(self._download_core(core), frame, forced)
         state = self._deblock_p(c)
-        return self._commit_p_frame(self._serialize_p(c.pic, disp), disp,
-                                    state, intra_mbs=len(c.intra_mbs))
+        nal, info = self._serialize_p(c.pic, disp)
+        return self._commit_p_frame(nal, disp, state,
+                                    intra_mbs=len(c.intra_mbs), **info)
 
     def _download_core(self, core) -> dict:
         return {k: core[k].cpu().numpy() for k in CORE_FIELDS}
@@ -441,14 +458,63 @@ class Encoder:
             tuple(up(p) for p in (c.recY, c.recU, c.recV)), up(pic.mb_class),
             up(pic.luma_nnz), up(pic.mv), up(pic.ref_pic_id)))
 
-    def _serialize_p(self, pic: PictureData, disp: int) -> bytes:
-        """The RBSP of a P picture as one slice, serialized on the host."""
-        poc = 2 * (disp - self._idr_disp)
-        return serialize_slice(pic, self.sps, self.pps,
-                               slice_type=SliceType.P,
-                               frame_num=self.frame_num, idr=False,
-                               qp=self.cfg.qp, poc_lsb=poc % 256,
-                               idr_pic_id=self.idr_pic_id)
+    def _serialize_p(self, pic: PictureData, disp: int):
+        """A P picture as one slice serialized on the host: (its NAL
+        unit, what ``results`` records of it)."""
+        return self._slice_nal(pic, SliceType.P,
+                               2 * (disp - self._idr_disp) % 256)
+
+    def _slice_nal(self, pic: PictureData, slice_type: SliceType,
+                   poc_lsb: int):
+        """The picture as one slice NAL unit (an IDR for I slices), CAVLC
+        or CABAC; with CABAC followed by the cabac_zero_words its bin count
+        calls for. Returns (bytes, {"cabac_init_idc": idc} for a CABAC P
+        slice, else {})."""
+        idr = slice_type == SliceType.I
+        kw = dict(slice_type=slice_type, frame_num=self.frame_num, idr=idr,
+                  qp=self.cfg.qp, poc_lsb=poc_lsb,
+                  idr_pic_id=self.idr_pic_id)
+        nal_type = NalUnitType.IDR if idr else NalUnitType.SLICE
+        if self.cfg.entropy == "cavlc":
+            rbsp = serialize_slice(pic, self.sps, self.pps, **kw)
+            return annexb_bytes(3, nal_type, rbsp), {}
+        rbsp, bins, idc = self._serialize_cabac_best_init(pic, **kw)
+        nal = annexb_bytes(3, nal_type, rbsp)
+        return (nal + self._cabac_zero_words(nal, bins),
+                {} if idr else {"cabac_init_idc": idc})
+
+    def _serialize_cabac_best_init(self, pic: PictureData, **kw):
+        """CABAC slice with the context model of lencod's
+        ContextInitMethod = 1 when cabac_adapt_init is set: each P slice
+        is serialized under the three models and the shortest kept (the
+        first on a tie), as jm_tpu's exact version of JM's estimate does
+        (encoder.py _serialize_cabac_best_init). Returns (RBSP, bins
+        coded, cabac_init_idc)."""
+        stats = {}
+        if kw["slice_type"] == SliceType.I or not self.cfg.cabac_adapt_init:
+            rbsp = serialize_slice_cabac(pic, self.sps, self.pps,
+                                         stats=stats, **kw)
+            return rbsp, stats["bins"], 0
+        best = None
+        for idc in range(3):
+            rbsp = serialize_slice_cabac(pic, self.sps, self.pps,
+                                         cabac_init_idc=idc, stats=stats,
+                                         **kw)
+            if best is None or len(rbsp) < len(best[0]):
+                best = (rbsp, stats["bins"], idc)
+        return best
+
+    def _cabac_zero_words(self, nal: bytes, bins: int) -> bytes:
+        """Clause 7.4.2.10: cabac_zero_words (EBSP 00 00 03) after the
+        picture's slice NAL unit when the bins coded exceed what its size
+        allows (lencod/src/nal.c addCabacZeroWords; jm_tpu encoder.py
+        _cabac_zero_words). RawMbBits of 8-bit 4:2:0 is 3072."""
+        n_mbs = self.mb_w * self.mb_h
+        min_bytes = (96 * bins - 3072 * n_mbs * 3 + 1023) // 1024
+        vcl_bytes = len(nal) - 3       # NAL header + EBSP, as JM counts
+        if min_bytes <= vcl_bytes:
+            return b""
+        return b"\x00\x00\x03" * ((min_bytes - vcl_bytes + 2) // 3)
 
     def _inter_picture(self, out) -> PictureData:
         """The all-inter P picture's SoA state from the device decisions

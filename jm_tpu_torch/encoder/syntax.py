@@ -1,8 +1,8 @@
 """Bitstream syntax writers for the encoder's slice: SPS/PPS (spec
 7.3.2), the I/P frame slice header (7.3.3) and the CAVLC macroblock layer
-(7.3.5) serialized from PictureData.
+(7.3.5) serialized from PictureData (the CABAC one is syntax_cabac.py).
 
-Covers what the IPPP CAVLC 4:2:0 single-slice encoder emits: Baseline
+Covers what the IPPP 4:2:0 single-slice encoder emits: Baseline or Main
 SPS/PPS without VUI, scaling lists or FMO; I_NxN / I_16x16 macroblocks;
 P macroblocks with 16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks
 only) and one reference. Serialization is a pure function of the decided
@@ -82,9 +82,11 @@ def write_pps(pps) -> bytes:
 def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                        frame_num: int, idr: bool, idr_pic_id: int = 0,
                        qp: int, first_mb: int = 0, poc_lsb: int = 0,
-                       num_ref_idx_l0: int = 1) -> None:
+                       num_ref_idx_l0: int = 1,
+                       cabac_init_idc: int = 0) -> None:
     """Spec 7.3.3 slice header of an I or P frame-picture reference slice
-    with sliding-window marking (lencod/src/header.c:116 SliceHeader)."""
+    with sliding-window marking (lencod/src/header.c:116 SliceHeader);
+    cabac_init_idc is written for P slices of a CABAC PPS."""
     bw.ue(first_mb)
     bw.ue(int(slice_type) + 5)      # all slices in picture share the type
     bw.ue(pps.pic_parameter_set_id)
@@ -104,6 +106,8 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
         bw.flag(0)                  # long_term_reference_flag
     else:
         bw.flag(0)                  # adaptive_ref_pic_marking_mode_flag
+    if pps.entropy_coding_mode_flag and slice_type == SliceType.P:
+        bw.ue(cabac_init_idc)
     bw.se(qp - 26 - pps.pic_init_qp_minus26)
     if pps.deblocking_filter_control_present_flag:
         # the encoder only raises the control flag to switch the loop

@@ -1,13 +1,14 @@
 """The port's decoder (jm_tpu_torch/decoder) against jm_tpu's on the CPU,
 byte for byte (the codec is integer-exact: the tolerance is zero):
 - SPS, PPS and slice headers of the in-scope goldens, field by field;
-- the in-scope goldens against jm_tpu's H264Decoder(device_recon=True)
+- the in-scope goldens (CAVLC, and cabac_pp: JM lencod's CABAC I/P/P
+  with two references) against jm_tpu's H264Decoder(device_recon=True)
   and against JM ldecod's output (_rec.yuv);
 - jm_tpu encoder streams (IPPP, periodic IDR, a scene cut whose P
   pictures carry intra MBs, several slices and references with POC
-  type 2, POC type 1 with intra refresh MBs, I_PCM) against jm_tpu's
-  decode and the encoder's reconstruction;
-- the port's own encoder stream;
+  type 2, POC type 1 with intra refresh MBs, I_PCM), CAVLC and CABAC,
+  against jm_tpu's decode and the encoder's reconstruction;
+- the port's own encoder streams, CAVLC and CABAC;
 - jm_tpu's parse through convert.picture_from_numpy and the port's
   reconstruction and deblock;
 - out-of-scope streams raise NotImplementedError naming the construct,
@@ -41,7 +42,7 @@ from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig
 from test_pipe_stream import make_frames
 
 GOLDEN = Path(__file__).parent / "golden"
-IN_SCOPE = ["i1", "ipp3", "qp20", "qp36"]
+IN_SCOPE = ["i1", "ipp3", "qp20", "qp36", "cabac_pp"]
 
 
 def _fields(obj, names):
@@ -133,11 +134,11 @@ JM_STREAMS = {
 }
 
 
-@pytest.mark.parametrize("name", list(JM_STREAMS))
-def test_jm_encoder_stream(name):
+def _check_jm_stream(name, entropy):
     fkw, ekw, path = JM_STREAMS[name]
     frames = make_frames(96, 80, **fkw)
-    enc = JEncoder(JEncoderConfig(width=96, height=80, qp=30, **ekw))
+    enc = JEncoder(JEncoderConfig(width=96, height=80, qp=30,
+                                  entropy=entropy, **ekw))
     data = b"".join(enc.encode_frame(*f) for f in frames)
     dec = H264Decoder(device="cpu")
     out = dec.decode_annexb(data)
@@ -147,14 +148,33 @@ def test_jm_encoder_stream(name):
     assert path in [p["path"] for p in dec.pictures]
 
 
-def test_port_encoder_stream():
+@pytest.mark.parametrize("name", list(JM_STREAMS))
+def test_jm_encoder_stream(name):
+    _check_jm_stream(name, "cavlc")
+
+
+@pytest.mark.parametrize("name", list(JM_STREAMS))
+def test_jm_encoder_cabac_stream(name):
+    _check_jm_stream(name, "cabac")
+
+
+def _check_port_stream(**kw):
     frames = make_frames(96, 80, 4, seed=11)
-    enc = Encoder(EncoderConfig(width=96, height=80, qp=28), device="cpu")
+    enc = Encoder(EncoderConfig(width=96, height=80, qp=28, **kw),
+                  device="cpu")
     data = b"".join(enc.encode_stream(frames))
     dec = H264Decoder(device="cpu")
     out = dec.decode_annexb(data)
     _equal(out, [r["frame"] for r in enc.results])
     assert [p["path"] for p in dec.pictures] == ["intra"] + ["inter"] * 3
+
+
+def test_port_encoder_stream():
+    _check_port_stream()
+
+
+def test_port_encoder_cabac_stream():
+    _check_port_stream(entropy="cabac", cabac_adapt_init=True)
 
 
 def test_picture_from_numpy_through_port_recon():
@@ -182,7 +202,7 @@ def test_picture_from_numpy_through_port_recon():
 
 
 @pytest.mark.parametrize("name,construct", [
-    ("cabac_pp", "CABAC"),
+    ("main3", "B slices"),
     ("cavlc_b", "B slices"),
     ("high8x8", "8x8 transform"),
     ("fmo_t1", "FMO"),
@@ -193,6 +213,8 @@ def test_picture_from_numpy_through_port_recon():
     ("hi10c", "bit depth"),
     ("y422c", "chroma_format_idc 2"),
     ("lossless", "lossless"),
+    ("lossless_cabac", "lossless"),
+    ("fieldcab", "fields"),
     ("sp1", "SP slices"),
 ])
 def test_out_of_scope_raises(name, construct):

@@ -2,7 +2,7 @@
 - no module of jm_tpu_torch, nor chip_smoke.py, imports jax or jm_tpu;
 - a CUDA request without a card raises instead of running on the CPU;
 - configurations outside the ported set raise ValueError naming the field
-  (md_low, device_rd=False, is inside it)."""
+  (md_low, device_rd=False, is inside it, and so is entropy="cabac")."""
 
 import ast
 from pathlib import Path
@@ -62,7 +62,7 @@ def test_deblock_never_falls_back_for_a_device_request():
 @pytest.mark.parametrize("field,value", [
     ("intra_mb_refresh", -1), ("search_range", 32), ("search_range", 0),
     ("intra_period", -1), ("qp", 52), ("qp", -1), ("width", 100),
-    ("height", 40),
+    ("height", 40), ("entropy", "cavcl"), ("cabac_adapt_init", 1),
 ])
 def test_config_outside_slice_raises(field, value):
     cfg = EncoderConfig(width=32, height=32)
