@@ -5,8 +5,9 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
-  1. card name and power limit; build the CUDA kernels from the sources
-     in jm_tpu_torch/kernels (into build/kernels) and time the build;
+  1. card name and power limit; build the port's host C++ runtime from
+     jm_tpu_torch/native (g++, into build/native) and the CUDA kernels
+     from jm_tpu_torch/kernels (into build/kernels), and time both builds;
   2. kernels: the luma (K1) and chroma (K2) deblock kernels, one
      persistent launch per picture each, against their plain PyTorch
      versions on the card, over random pictures with random bS 0..4,
@@ -76,7 +77,19 @@ Phases (any failure raises and exits non-zero):
      the encoder's recon, one launch per kernel and picture, the parse /
      host recon / device split per picture; then JM lencod's CABAC
      golden tests/golden/cabac_pp.264 (I/P/P, two references) on the
-     card against its _rec.yuv.
+     card against its _rec.yuv;
+ 14. host runtime: the native C++ runtime against its Python twins at
+     1080p, each timed: the CAVLC serializer on phase 3's IDR and on one
+     of phase 8's packer-overflow P pictures (bytes equal to each other
+     and to the slice the phase emitted), the CAVLC parser on phase 3's
+     IDR and first P slice (every PictureData array equal), the intra
+     recon of that IDR (planes equal), and the CABAC parse of phase 12's
+     IDR with the native and the Python CabacEngine (arrays equal).
+Phases 3, 6 and 8-13 run on the native runtime, as the entry points do
+by default: each prints the runtime's route counters (reset just before
+its run) and fails unless every CAVLC slice was serialized and parsed,
+every intra picture reconstructed and every CABAC slice decoded by the
+native runtime.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it holds the per-kernel numbers as JSON.
 """
@@ -96,7 +109,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from jm_tpu_torch import kernels  # noqa: E402
+from jm_tpu_torch import native  # noqa: E402
 from jm_tpu_torch.common.tables import chroma_qp  # noqa: E402
+from jm_tpu_torch.common.types import SliceType  # noqa: E402
 from jm_tpu_torch.decoder.decoder import H264Decoder  # noqa: E402
 from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig  # noqa: E402
 from jm_tpu_torch.ops.deblock import (  # noqa: E402
@@ -284,9 +299,22 @@ def filtered_lines(bs_v, bs_h, per_mb, mb_w: int, mb_h: int):
 class IdrTimedEncoder(Encoder):
     """The port's Encoder with the wall time of its IDR frames summed in
     idr_seconds (an IDR ends in host downloads, so it ends synchronized;
-    the timer synchronizes at its start)."""
+    the timer synchronizes at its start). ``host_slices`` keeps the first
+    I and the first P picture serialized on the host, with the arguments
+    of that serialize_slice call (phase 14)."""
 
     idr_seconds = 0.0
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.host_slices = {}
+
+    def _slice_nal(self, pic, slice_type, poc_lsb):
+        kw = dict(slice_type=slice_type, frame_num=self.frame_num,
+                  idr=slice_type == SliceType.I, qp=self.cfg.qp,
+                  poc_lsb=poc_lsb, idr_pic_id=self.idr_pic_id)
+        self.host_slices.setdefault(slice_type.name, (pic, kw))
+        return super()._slice_nal(pic, slice_type, poc_lsb)
 
     def _encode_idr(self, *planes):
         torch.cuda.synchronize()
@@ -390,6 +418,20 @@ def check_frames(got, want, label: str) -> None:
                 raise AssertionError(f"{label}: frame {i} {plane} differs")
 
 
+def check_routes(label: str, **native_counts) -> None:
+    """Print the native runtime's route counters of the run just made
+    (reset just before it) and check them: native_counts gives, per kind
+    (serialize, parse, recon, cabac), how many slices or pictures must
+    have taken the native route; none may have taken another."""
+    print(f"{label}: native runtime routes {native.routes}", flush=True)
+    for kind, counts in native.routes.items():
+        want = native_counts.get(kind, 0)
+        if counts["native"] != want or any(
+                v for k, v in counts.items() if k != "native"):
+            raise AssertionError(f"{label}: {kind} routes {counts}, "
+                                 f"expected {want} native and no other")
+
+
 def decode_phase(payloads, enc):
     """Phase 6: the 1080p stream decoded on the card, held against the
     encoder's recon; returns (decoded frames, per-kernel launches)."""
@@ -398,6 +440,7 @@ def decode_phase(payloads, enc):
     torch.cuda.synchronize()
     dec = H264Decoder(device="cuda")
     kernels.reset_launches()
+    native.reset_routes()
     t0 = time.perf_counter()
     out = dec.decode_annexb(data)
     torch.cuda.synchronize()
@@ -406,6 +449,8 @@ def decode_phase(payloads, enc):
     check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
                        for r in enc.results], f"decode {W}x{H}")
     pics = dec.pictures
+    check_routes(f"decode {W}x{H}", parse=len(out), recon=sum(
+        r["path"] != "inter" for r in pics))
     p_ms = [r["seconds"] * 1e3 for r in pics[1:]]
     split = {k: sum(r[k] for r in pics) for k in
              ("parse_s", "host_recon_s", "device_s")}
@@ -511,6 +556,7 @@ def timed_encode(cfg, frames, cls=IdrTimedEncoder):
     seconds)."""
     enc = cls(cfg, device=DEVICE)
     kernels.reset_launches()
+    native.reset_routes()
     t0 = time.perf_counter()
     payloads = enc.encode_stream(frames)
     torch.cuda.synchronize()
@@ -541,7 +587,8 @@ def cpu_cross_check(cfg, frames, payloads, enc, label: str) -> None:
 
 
 def md_low_phase(frames):
-    """Phase 8: the sequence with md_low; returns per-kernel launches."""
+    """Phase 8: the sequence with md_low; returns (encoder, payloads,
+    per-kernel launches)."""
     cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
                         device_rd=False)
     enc, payloads, launches, total_s = timed_encode(cfg, frames)
@@ -553,6 +600,7 @@ def md_low_phase(frames):
           f"{sum(map(len, payloads))} stream bytes, launches {launches}; "
           f"{len(enc.ovf)} of {n - 1} P frames serialized on the host "
           f"(packer overflow)", flush=True)
+    check_routes("md_low", serialize=1 + len(enc.ovf))
     if enc.fallbacks:
         raise AssertionError(f"md_low: unexpected fallbacks {enc.fallbacks}")
     for name, cnt in launches.items():
@@ -561,7 +609,7 @@ def md_low_phase(frames):
                                  f"expected once for each of {n} frames")
     cpu_cross_check(cfg, frames[:2], payloads[:2], enc, "md_low IDR + P")
     profile_p_frame(enc, frames[-1], cfg, "md_low P frame (pipe only)")
-    return launches
+    return enc, payloads, launches
 
 
 def scene_cut_phase(frames):
@@ -572,6 +620,8 @@ def scene_cut_phase(frames):
                         device_rd=True)
     enc, payloads, launches, total_s = timed_encode(cfg, cut,
                                                     SplitTimedEncoder)
+    check_routes("scene cut",
+                 serialize=1 + len(enc.fallbacks) + len(enc.ovf))
     if 2 not in enc.fallbacks:
         raise AssertionError(f"scene cut: frame 2 did not fall back "
                              f"({enc.fallbacks})")
@@ -614,6 +664,7 @@ def cut_decode_phase(enc, payloads):
     per-kernel launches."""
     dec = H264Decoder(device=DEVICE)
     kernels.reset_launches()
+    native.reset_routes()
     t0 = time.perf_counter()
     out = dec.decode_annexb(b"".join(payloads))
     torch.cuda.synchronize()
@@ -621,6 +672,8 @@ def cut_decode_phase(enc, payloads):
     launches = dict(kernels.launches)
     check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
                        for r in enc.results], "scene-cut decode")
+    check_routes("scene-cut decode", parse=len(out), recon=sum(
+        r["path"] != "inter" for r in dec.pictures))
     paths = [r["path"] for r in dec.pictures]
     if "mixed" not in paths:
         raise AssertionError(f"scene-cut decode: no mixed picture ({paths})")
@@ -662,6 +715,7 @@ def cabac_phase(frames, enc, payloads):
                         cabac_adapt_init=True)
     cab, cab_payloads, launches, total_s = timed_encode(cfg, frames,
                                                         CabacTimedEncoder)
+    check_routes("CABAC encode (the CABAC writer is Python)")
     for name, cnt in launches.items():
         if cnt != N_CABAC:
             raise AssertionError(f"CABAC: {name} launched {cnt} times, "
@@ -712,6 +766,7 @@ def cabac_decode_phase(cab, cab_payloads):
     cabac_pp golden; returns the per-kernel launches of the first."""
     dec = H264Decoder(device=DEVICE)
     kernels.reset_launches()
+    native.reset_routes()
     t0 = time.perf_counter()
     out = dec.decode_annexb(b"".join(cab_payloads))
     torch.cuda.synchronize()
@@ -719,6 +774,8 @@ def cabac_decode_phase(cab, cab_payloads):
     launches = dict(kernels.launches)
     check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
                        for r in cab.results], "CABAC decode")
+    check_routes("CABAC decode", cabac=len(out), recon=sum(
+        r["path"] != "inter" for r in dec.pictures))
     for name, cnt in launches.items():
         if cnt != len(out):
             raise AssertionError(f"CABAC decode: {name} launched {cnt} "
@@ -787,6 +844,128 @@ def rd_full_phase(enc, frames) -> None:
           f"winners by mode (skip/16x16 share mode 0) {modes}", flush=True)
 
 
+def _ms(fn):
+    """(fn(), its wall time in ms)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _same_arrays(a, b, label: str) -> None:
+    """Every numpy array of two PictureData (and the I_PCM samples)
+    equal."""
+    fa = {k: v for k, v in vars(a).items() if isinstance(v, np.ndarray)}
+    fb = {k: v for k, v in vars(b).items() if isinstance(v, np.ndarray)}
+    if fa.keys() != fb.keys():
+        raise AssertionError(f"{label}: PictureData fields differ")
+    for k in fa:
+        if not np.array_equal(fa[k], fb[k]):
+            raise AssertionError(f"{label}: {k} differs")
+    if a.ipcm_luma.keys() != b.ipcm_luma.keys():
+        raise AssertionError(f"{label}: I_PCM MBs differ")
+
+
+def _slices(data: bytes):
+    """(SPS map, PPS map, slice NAL units) of a stream."""
+    from jm_tpu_torch.bitstream.nal import NalUnitType, split_annexb
+    from jm_tpu_torch.decoder.parset import parse_pps, parse_sps
+    sps_map, pps_map, slices = {}, {}, []
+    for u in split_annexb(data):
+        if u.nal_unit_type == NalUnitType.SPS:
+            sps = parse_sps(u.rbsp)
+            sps_map[sps.seq_parameter_set_id] = sps
+        elif u.nal_unit_type == NalUnitType.PPS:
+            pps = parse_pps(u.rbsp, sps_map)
+            pps_map[pps.pic_parameter_set_id] = pps
+        elif u.nal_unit_type in (NalUnitType.SLICE, NalUnitType.IDR):
+            slices.append(u)
+    return sps_map, pps_map, slices
+
+
+def _parse_twice(unit, sps_map, pps_map, parser):
+    """One slice parsed by parser(pic, ctx, reader, native=...) on the
+    native runtime and on the Python twins (PyBitReader, native=False);
+    returns [(picture, ms)] for both, and the PPS."""
+    from jm_tpu_torch.bitstream.bitreader import PyBitReader
+    from jm_tpu_torch.common.picture import PictureData
+    from jm_tpu_torch.decoder.header import parse_slice_header
+    from jm_tpu_torch.decoder.mb_parse import SliceContext
+    out = []
+    for nat in (True, False):
+        hdr, br = parse_slice_header(unit, sps_map, pps_map)
+        pps = pps_map[hdr.pic_parameter_set_id]
+        sps = sps_map[pps.seq_parameter_set_id]
+        if not nat:
+            pos, br = br.pos, PyBitReader(unit.rbsp)
+            br.pos = pos
+        pic = PictureData(sps.pic_width_in_mbs, sps.frame_height_in_mbs)
+        ctx = SliceContext(hdr, sps, pps, 0)
+        _, ms = _ms(lambda: parser(pic, ctx, br,
+                                   native=nat).parse_slice_data())
+        out.append((pic, ms))
+    return out, pps
+
+
+def host_runtime_phase(enc, payloads, low_enc, low_payloads, cab_payloads):
+    """Phase 14: the native runtime against its Python twins at 1080p,
+    each side timed once (wall ms on the host)."""
+    from jm_tpu_torch.bitstream.nal import NalUnitType, annexb_bytes
+    from jm_tpu_torch.decoder.mb_parse import MBParser
+    from jm_tpu_torch.decoder.mb_parse_cabac import MBParserCABAC
+    from jm_tpu_torch.decoder.recon import Reconstructor
+    from jm_tpu_torch.encoder.syntax import serialize_slice
+    n_mbs = (W // 16) * (H // 16)
+    for label, e, emitted, key, nal_type in (
+            ("IDR of phase 3", enc, payloads, "I", NalUnitType.IDR),
+            ("packer-overflow P of phase 8", low_enc, low_payloads, "P",
+             NalUnitType.SLICE)):
+        if key not in e.host_slices:
+            raise AssertionError(f"serialize {label}: no such picture was "
+                                 f"serialized on the host")
+        pic, kw = e.host_slices[key]
+        got, ms_n = _ms(lambda: serialize_slice(pic, e.sps, e.pps, **kw))
+        want, ms_p = _ms(lambda: serialize_slice(pic, e.sps, e.pps, **kw,
+                                                 native=False))
+        if got != want:
+            raise AssertionError(f"serialize {label}: native and Python "
+                                 f"bytes differ")
+        if annexb_bytes(3, nal_type, got) not in b"".join(emitted):
+            raise AssertionError(f"serialize {label}: not the slice the "
+                                 f"phase emitted")
+        print(f"host runtime, CAVLC serialize {label} ({len(got)} B): "
+              f"native {ms_n:.1f} ms, Python {ms_p:.1f} ms "
+              f"({ms_p / ms_n:.1f}x), bytes equal", flush=True)
+    sps_map, pps_map, units = _slices(payloads[0] + payloads[1])
+    for label, unit in zip(("IDR", "P"), units):
+        ((nat, ms_n), (twin, ms_p)), pps = _parse_twice(unit, sps_map,
+                                                        pps_map, MBParser)
+        _same_arrays(nat, twin, f"CAVLC parse {label}")
+        print(f"host runtime, CAVLC parse of phase 3's {label}: native "
+              f"{ms_n:.1f} ms ({ms_n / n_mbs * 1e3:.2f} us/MB), Python "
+              f"{ms_p:.1f} ms ({ms_p / ms_n:.1f}x), every PictureData "
+              f"array equal", flush=True)
+        if label == "IDR":
+            idr, idr_pps = nat, pps
+    got, ms_n = _ms(lambda: Reconstructor(idr, idr_pps).run(None))
+    want, ms_p = _ms(lambda: Reconstructor(idr, idr_pps).run(
+        None, native=False))
+    for a, b in zip(got, want):
+        if not np.array_equal(a, b):
+            raise AssertionError("intra recon: native and Python planes "
+                                 "differ")
+    print(f"host runtime, intra recon of phase 3's IDR (decode_residuals "
+          f"included): native {ms_n:.1f} ms, Python {ms_p:.1f} ms "
+          f"({ms_p / ms_n:.1f}x), planes equal", flush=True)
+    sps_map, pps_map, units = _slices(cab_payloads[0])
+    ((nat, ms_n), (twin, ms_p)), _ = _parse_twice(units[0], sps_map,
+                                                  pps_map, MBParserCABAC)
+    _same_arrays(nat, twin, "CABAC parse IDR")
+    print(f"host runtime, CABAC parse of phase 12's IDR: native "
+          f"CabacEngine {ms_n:.1f} ms ({ms_n / n_mbs:.3f} ms/MB), Python "
+          f"CabacEngine {ms_p:.1f} ms ({ms_p / ms_n:.2f}x), every "
+          f"PictureData array equal", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -800,6 +979,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. build ----------------------------------------------------
+    native.load()
+    print(f"native runtime build (g++, three sources) + import: "
+          f"{native.build_seconds:.1f} s", flush=True)
     kernels.load()
     print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
 
@@ -866,11 +1048,13 @@ def main() -> int:
     torch.cuda.synchronize()
     enc = IdrTimedEncoder(cfg, device="cuda")
     kernels.reset_launches()
+    native.reset_routes()
     t0 = time.perf_counter()
     payloads = enc.encode_stream(frames)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
+    check_routes("encode 1080p", serialize=1 + len(enc.ovf))
     idr_s = enc.idr_seconds
     n_p = N_FRAMES - 1
     p_ms = (total_s - idr_s) / n_p * 1e3
@@ -918,7 +1102,7 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- 8-11. md_low, the scene cut, its decode, the all-modes RD ----
-    low_launches = md_low_phase(frames)
+    low_enc, low_payloads, low_launches = md_low_phase(frames)
     cut_enc, cut_payloads, cut_launches = scene_cut_phase(frames)
     cut_dec_launches = cut_decode_phase(cut_enc, cut_payloads)
     rd_full_phase(enc, frames)
@@ -926,6 +1110,9 @@ def main() -> int:
     # ---- 12-13. CABAC encode and decode ----------------------------------
     cab, cab_payloads, cab_launches = cabac_phase(frames, enc, payloads)
     cab_dec_launches = cabac_decode_phase(cab, cab_payloads)
+
+    # ---- 14. the host runtime against its Python twins -----------------
+    host_runtime_phase(enc, payloads, low_enc, low_payloads, cab_payloads)
 
     rows = []
     for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):

@@ -1,17 +1,27 @@
-"""MSB-first bit reader over an RBSP byte buffer (twin of the Python
-BitReader of jm_tpu/bitstream/bitreader.py).
+"""MSB-first bit reader over an RBSP byte buffer, as in
+jm_tpu/bitstream/bitreader.py: ``BitReader`` is the native reader of
+the port's C++ runtime (jm_tpu_torch/native, jm_native.cpp), and
+``PyBitReader`` its Python twin with the same API.
 
 Fixed-length u(n), Exp-Golomb ue(v) / se(v) / te(v) and the
 rbsp_trailing_bits query used by slice-data parsing (ldecod/src/vlc.c
 u_v, ue_v, se_v; ldecod/src/nalu.c RBSPtoSODB). The buffer is kept as
-``bytes`` and the position of the rbsp_stop_one_bit is found once, at
-construction.
+``bytes`` (``data``), and the twin finds the position of the
+rbsp_stop_one_bit once, at construction.
 """
 
 from __future__ import annotations
 
+from .. import native
 
-class BitReader:
+
+def BitReader(data):
+    """The default reader: a jm_torch_native.BitReader over a copy of
+    ``data`` (the runtime is built at the first call)."""
+    return native.load().BitReader(data)
+
+
+class PyBitReader:
     """Reads bits MSB-first from a bytes-like RBSP buffer."""
 
     __slots__ = ("data", "nbits", "pos", "_stop")

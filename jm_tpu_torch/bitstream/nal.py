@@ -1,9 +1,10 @@
 """NAL unit framing: NAL unit types, Annex-B demux (decoder) and mux
 (encoder), EBSP <-> RBSP emulation prevention (ldecod/src/annexb.c
 get_annex_b_NALU, ldecod/src/nal.c EBSPtoRBSP, lencod/src/nal.c
-RBSPtoEBSP, lencod/src/annexb.c WriteAnnexbNALU). Start codes and
-emulation-prevention bytes are located with numpy scans over the whole
-buffer.
+RBSPtoEBSP, lencod/src/annexb.c WriteAnnexbNALU). Start codes are
+located with numpy scans over the whole buffer; the emulation-prevention
+escapes run in the port's C++ runtime (jm_tpu_torch/native), with the
+Python twins ``py_ebsp_to_rbsp`` / ``py_rbsp_to_ebsp``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import enum
 from dataclasses import dataclass
 
 import numpy as np
+
+from .. import native
 
 
 class NalUnitType(enum.IntEnum):
@@ -42,8 +45,13 @@ class NalUnit:
 
 
 def ebsp_to_rbsp(ebsp: bytes) -> bytes:
-    """Strip emulation_prevention_three_byte (00 00 03 -> 00 00). The 03
-    ends the zero run, so candidates never overlap: all are removed."""
+    """Strip emulation_prevention_three_byte (00 00 03 -> 00 00)."""
+    return native.load().ebsp_to_rbsp(ebsp)
+
+
+def py_ebsp_to_rbsp(ebsp: bytes) -> bytes:
+    """Python twin of ebsp_to_rbsp. The 03 ends the zero run, so
+    candidates never overlap: all are removed."""
     buf = np.frombuffer(ebsp, dtype=np.uint8)
     if len(buf) < 3:
         return ebsp
@@ -85,6 +93,11 @@ def split_annexb(data: bytes) -> list[NalUnit]:
 
 def rbsp_to_ebsp(rbsp: bytes) -> bytes:
     """Insert emulation prevention bytes: any 00 00 0x (x<=3) gets 03."""
+    return native.load().rbsp_to_ebsp(rbsp)
+
+
+def py_rbsp_to_ebsp(rbsp: bytes) -> bytes:
+    """Python twin of rbsp_to_ebsp."""
     out = bytearray()
     zeros = 0
     for b in rbsp:

@@ -54,6 +54,9 @@ class PictureData:
         # residuals in scan order
         self.luma_coef = np.zeros((n, 16, 16), np.int32)   # [mb][raster blk][scan]
         self.luma_dc = np.zeros((n, 16), np.int32)         # i16 DC, zigzag scan
+        # 8x8-transform levels (always zero here); the native serializer
+        # and parser (jm_tpu_torch/native) take the array as jm_tpu has it
+        self.luma_coef8 = np.zeros((n, 4, 64), np.int32)
         self.chroma_dc = np.zeros((n, 2, 4), np.int32)
         self.chroma_coef = np.zeros((n, 2, 4, 16), np.int32)
         # nnz per 4x4 block (raster in MB), for nC prediction

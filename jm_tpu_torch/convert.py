@@ -20,9 +20,9 @@ from .common.tables import chroma_qp
 _PICTURE_FIELDS = (
     "mb_class", "skip", "transform8x8", "i4_modes", "i16_mode",
     "chroma_mode", "cbp", "qp", "slice_id", "luma_coef", "luma_dc",
-    "chroma_dc", "chroma_coef", "luma_nnz", "chroma_nnz", "mv", "ref_idx",
-    "mv_l1", "ref_idx_l1", "sub_mode", "inter_mode", "pdir", "ref_pic_id",
-    "ref_pic_id_l1", "mvd", "cbp_bits")
+    "luma_coef8", "chroma_dc", "chroma_coef", "luma_nnz", "chroma_nnz", "mv",
+    "ref_idx", "mv_l1", "ref_idx_l1", "sub_mode", "inter_mode", "pdir",
+    "ref_pic_id", "ref_pic_id_l1", "mvd", "cbp_bits")
 
 
 def ref_state_from_numpy(planes, padU, padV, device="cpu"):

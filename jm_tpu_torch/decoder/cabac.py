@@ -1,7 +1,10 @@
 """CABAC decoding (spec 9.3): the arithmetic decoding engine, the context
-models of one slice and the residual block reader; twin of the Python
-engine of jm_tpu/decoder/cabac.py (``PyCabacEngine``, the context
-initialization and ``read_significance_and_levels``) for I and P slices.
+models of one slice and the residual block reader; twin of
+jm_tpu/decoder/cabac.py (the engine, the context initialization and
+``read_significance_and_levels``) for I and P slices. As there,
+``CabacEngine`` is the native engine of the port's C++ runtime
+(jm_tpu_torch/native, jm_native.cpp; it takes a native BitReader) and
+``PyCabacEngine`` its Python twin with the same API.
 
 Capability parity with ldecod/src/biaridecod.c (arithmetic core),
 context_ini.c (init_contexts) and cabac.c (read_significance_map,
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..bitstream.bitreader import BitReader
 from ..common import cabac_tables as CT
 
@@ -74,7 +78,13 @@ def pos2ctx_last(block_type):
     return POS2CTX_LAST4X4
 
 
-class CabacEngine:
+def CabacEngine(br):
+    """The default engine: a jm_torch_native.CabacEngine over the native
+    reader ``br``, positioned like PyCabacEngine's."""
+    return native.load().CabacEngine(br)
+
+
+class PyCabacEngine:
     """Arithmetic decoder (spec 9.3.3.2), bit-serial renormalization. A
     context group is an (..., 2) int32 array of [state, MPS] rows; a
     decision reads and updates row ``idx`` in place."""
@@ -249,7 +259,7 @@ class CabacContexts:
         self.abs = a(CT.INIT_ABS_I, CT.INIT_ABS_P)                  # (22, 5, 2)
 
 
-def read_significance_and_levels(eng: CabacEngine, ctxs: CabacContexts,
+def read_significance_and_levels(eng, ctxs: CabacContexts,
                                  block_type: int) -> np.ndarray:
     """Decode one residual block's coefficients (its coded_block_flag was
     1): the significance map, then the levels from the last significant

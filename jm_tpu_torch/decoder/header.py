@@ -36,6 +36,8 @@ def check_scope(sps: SPS, pps: PPS) -> None:
         out.append("weighted prediction")
     if pps.transform_8x8_mode_flag:
         out.append("8x8 transform")
+    if pps.constrained_intra_pred_flag:
+        out.append("constrained intra prediction")
     if out:
         raise NotImplementedError("out of scope: " + ", ".join(out))
 

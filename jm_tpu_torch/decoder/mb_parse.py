@@ -9,6 +9,13 @@ predictors (nC, intra 4x4 mode, median MV, P_Skip MV) come from
 common/predict_ctx.PredCtx, the same code the encoder uses
 (ldecod/src/mb_read.c read_one_macroblock_i_slice_cavlc:1139,
 read_one_macroblock_p_slice_cavlc:1335; lcommon/src/mv_prediction.c).
+
+A slice is parsed by the native parser of the port's C++ runtime
+(jm_tpu_torch/native, jm_dec.cpp parse_slice_cavlc) unless the caller
+asks for the Python parser (``native=False``); the C parser stops at an
+I_PCM MB, and the Python parser then reads the slice again from its
+start (jm_tpu/decoder/mb_parse.py _parse_native). native.routes["parse"]
+counts each slice's route.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native as N
 from ..bitstream.bitreader import BitReader
 from ..common.picture import (CBP_MAP_CHROMA, MB_I4, MB_I16, MB_INTER,
                               MB_IPCM, PictureData)
@@ -50,12 +58,14 @@ class SliceContext:
 class MBParser:
     """Serial CAVLC slice-data parser filling a PictureData."""
 
-    def __init__(self, pic: PictureData, ctx: SliceContext, br: BitReader):
+    def __init__(self, pic: PictureData, ctx: SliceContext, br: BitReader,
+                 native: bool = True):
         self.pic = pic
         self.ctx = ctx
         self.br = br
         self.qp = ctx.qp
         self.pctx = PredCtx(pic)
+        self.native = native
 
     # ---- residual reading -------------------------------------------------
 
@@ -211,6 +221,44 @@ class MBParser:
         pic.qp[addr] = self.qp
         pic.mv[addr] = self.pctx.skip_mv(addr)
 
+    # ---- native parse -----------------------------------------------------
+
+    def _parse_native(self) -> bool:
+        """Parse the slice with the native C parser (I/P CAVLC 4:2:0 at 8
+        bits, what decoder/header.check_scope admits; no FMO, so no
+        successor map). Returns False, with the reader where it was, when
+        the parser stopped at an I_PCM MB: the arrays it filled so far
+        are rewritten with the same values by the Python parser."""
+        h, pic, br = self.ctx.header, self.pic, self.br
+        params = {
+            "first_mb": int(h.first_mb_in_slice),
+            "n_mbs": pic.n_mbs,
+            "mb_w": pic.mb_w,
+            "stype": 0 if h.slice_type == SliceType.I else 1,
+            "slice_id": self.ctx.slice_id,
+            "qp": self.ctx.qp,
+            "nref": h.num_ref_idx_l0_active_minus1 + 1,
+            "t8": int(self.ctx.pps.transform_8x8_mode_flag),
+        }
+        arrays = {
+            "mb_class": pic.mb_class, "skip": pic.skip,
+            "transform8x8": pic.transform8x8, "i4_modes": pic.i4_modes,
+            "i16_mode": pic.i16_mode, "chroma_mode": pic.chroma_mode,
+            "cbp": pic.cbp, "qp": pic.qp, "slice_id": pic.slice_id,
+            "luma_coef": pic.luma_coef, "luma_dc": pic.luma_dc,
+            "chroma_dc": pic.chroma_dc, "chroma_coef": pic.chroma_coef,
+            "luma_coef8": pic.luma_coef8, "luma_nnz": pic.luma_nnz,
+            "chroma_nnz": pic.chroma_nnz, "mv": pic.mv,
+            "ref_idx": pic.ref_idx, "sub_mode": pic.sub_mode,
+            "succ": None,
+        }
+        status, pos = N.load().parse_slice_cavlc(br.data, br.pos, params,
+                                                 arrays)
+        if status:
+            return False
+        br.pos = pos
+        return True
+
     # ---- slice loop -------------------------------------------------------
 
     def parse_slice_data(self) -> None:
@@ -221,6 +269,13 @@ class MBParser:
         sid = self.ctx.slice_id
         if addr >= n:
             raise ValueError(f"first_mb_in_slice {addr} outside the picture")
+        if self.native:
+            if self._parse_native():
+                N.routes["parse"]["native"] += 1
+                return
+            N.routes["parse"]["rerun"] += 1
+        else:
+            N.routes["parse"]["python"] += 1
         if h.slice_type == SliceType.I:
             while True:
                 pic.slice_id[addr] = sid

@@ -10,20 +10,24 @@ context selections from the neighbouring MBs and blocks (the ctxIdxInc
 derivations of spec 9.3.3.1.1, ldecod/src/cabac.c); the encoder's
 writer (encoder/syntax_cabac.py) uses the same class. Predictors come
 from common/predict_ctx.PredCtx, as for CAVLC. B slices and the 8x8
-transform raise NotImplementedError.
+transform raise NotImplementedError. The arithmetic decoder is the
+native CabacEngine unless the caller asks for the Python twin
+(``native=False``); each slice's choice is counted in
+native.routes["cabac"].
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native as N
 from ..bitstream.bitreader import BitReader
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
 from .cabac import (CHROMA_AC, CHROMA_DC, LUMA_4x4, LUMA_16AC, LUMA_16DC,
                     TYPE2CTX_BCBP, CabacContexts, CabacEngine,
-                    read_significance_and_levels)
+                    PyCabacEngine, read_significance_and_levels)
 from .mb_parse import _P_PARTS, _SUB_PARTS, SliceContext
 
 
@@ -210,13 +214,18 @@ class CabacNeighbours:
 class MBParserCABAC(CabacNeighbours):
     """Serial CABAC slice-data parser filling a PictureData."""
 
-    def __init__(self, pic: PictureData, ctx: SliceContext, br: BitReader):
+    def __init__(self, pic: PictureData, ctx: SliceContext, br: BitReader,
+                 native: bool = True):
+        """native=False: the Python twin PyCabacEngine (which reads any
+        reader); the native engine needs a native BitReader."""
         if ctx.pps.transform_8x8_mode_flag:
             raise NotImplementedError("out of scope: 8x8 transform")
         super().__init__(pic)
         self.ctx = ctx
         self.qp = ctx.qp
-        self.eng = CabacEngine(br)
+        self._engine = CabacEngine if native else PyCabacEngine
+        N.routes["cabac"]["native" if native else "python"] += 1
+        self.eng = self._engine(br)
         self.ctxs = CabacContexts(ctx.header.slice_type == SliceType.I,
                                   ctx.header.cabac_init_idc, ctx.qp)
         self.last_dquant = 0
@@ -401,7 +410,7 @@ class MBParserCABAC(CabacNeighbours):
         pic.luma_nnz[addr] = 16
         pic.chroma_nnz[addr] = 16
         self.last_dquant = 0
-        self.eng = CabacEngine(br)
+        self.eng = self._engine(br)
 
     def _parse_intra_mb(self, addr, imb_type):
         """imb_type: 0 = I_NxN, 1..24 = I_16x16, 25 = I_PCM."""

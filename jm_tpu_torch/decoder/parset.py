@@ -4,6 +4,9 @@ jm_tpu/decoder/parset.py without scaling lists and subset SPS
 
 VUI and HRD parameters are read and dropped. A scaling matrix raises
 NotImplementedError: the decoder dequantizes with the flat lists only.
+An SPS whose FRExt read fails or is implausible is read again without
+the FRExt block, as jm_tpu does for JM 19.0's MVC writer (its base-view
+SPS says profile 100 but omits the block).
 """
 
 from __future__ import annotations
@@ -19,14 +22,49 @@ _FREXT_PROFILES = (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134,
                    135)
 
 
+def _sps_sane(s: SPS) -> bool:
+    """Spec bounds (7.4.2.1.1), which a read of the FRExt block that the
+    SPS does not carry breaks (jm_tpu/decoder/parset.py _sps_sane)."""
+    return (s.chroma_format_idc <= 3
+            and s.bit_depth_luma_minus8 <= 6
+            and s.bit_depth_chroma_minus8 <= 6
+            and s.log2_max_frame_num_minus4 <= 12
+            and (s.pic_order_cnt_type != 0
+                 or s.log2_max_pic_order_cnt_lsb_minus4 <= 12)
+            and s.pic_order_cnt_type <= 2
+            and s.max_num_ref_frames <= 32)
+
+
 def parse_sps(rbsp: bytes) -> SPS:
-    br = BitReader(rbsp)
+    try:
+        s = _parse_sps_data(BitReader(rbsp))
+        sane = _sps_sane(s)
+    except (EOFError, ValueError):
+        sane = False
+    if not sane:
+        s = _parse_sps_data(BitReader(rbsp), skip_frext=True)
+    if s.seq_scaling_matrix_present_flag:
+        raise NotImplementedError(
+            "out of scope: scaling matrices (seq_scaling_matrix_present)")
+    return s
+
+
+def _skip_scaling_list(br: BitReader, size: int) -> None:
+    """scaling_list() (spec 7.3.2.1.1.1), read and dropped."""
+    last = nxt = 8
+    for _ in range(size):
+        if nxt:
+            nxt = (last + br.se() + 256) % 256
+        last = nxt or last
+
+
+def _parse_sps_data(br: BitReader, skip_frext: bool = False) -> SPS:
     s = SPS()
     s.profile_idc = br.u(8)
     s.constraint_set_flags = br.u(8)
     s.level_idc = br.u(8)
     s.seq_parameter_set_id = br.ue()
-    if s.profile_idc in _FREXT_PROFILES:
+    if not skip_frext and s.profile_idc in _FREXT_PROFILES:
         s.chroma_format_idc = br.ue()
         if s.chroma_format_idc == 3:
             s.separate_colour_plane_flag = br.flag()
@@ -35,8 +73,9 @@ def parse_sps(rbsp: bytes) -> SPS:
         s.qpprime_y_zero_transform_bypass_flag = br.flag()
         s.seq_scaling_matrix_present_flag = br.flag()
         if s.seq_scaling_matrix_present_flag:
-            raise NotImplementedError(
-                "out of scope: scaling matrices (seq_scaling_matrix_present)")
+            for i in range(8 if s.chroma_format_idc != 3 else 12):
+                if br.flag():
+                    _skip_scaling_list(br, 16 if i < 6 else 64)
     s.scaling_list_4x4 = [list(FLAT_16) for _ in range(6)]
     s.scaling_list_8x8 = [list(FLAT_64) for _ in range(6)]
     s.log2_max_frame_num_minus4 = br.ue()

@@ -7,13 +7,18 @@ block.c itrans4x4 / itrans_2).
 ``Reconstructor`` then walks the intra (I4, I16, I_PCM) MBs in raster
 order, each predicted from the already reconstructed neighbours. Inter
 MBs are never predicted here: they arrive in the seed planes made on the
-device by ops/dec.inter_recon_p.
+device by ops/dec.inter_recon_p. The I4 / I16 walk runs in the port's
+C++ runtime (jm_tpu_torch/native, jm_dec.cpp intra_recon) unless the
+picture holds an I_PCM MB (whose samples feed later predictions, so the
+Python walk interleaves it) or the caller asks for the Python walk
+(``native=False``); native.routes["recon"] counts the route.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native as N
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, RASTER2CODE
 from ..common.tables import DEQUANT_SCALE_4x4, ZIGZAG_4x4, chroma_qp
@@ -163,7 +168,8 @@ class Reconstructor:
 
     # ---- reconstruction ---------------------------------------------------
 
-    def run(self, seed=None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def run(self, seed=None, native: bool = True
+            ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """seed: (Y, U, V) planes holding the inter MBs (ops/dec
         .inter_recon_p), required when the picture has any. Returns the
         (Y, U, V) uint8 planes, not yet deblocked."""
@@ -173,6 +179,17 @@ class Reconstructor:
         elif (pic.mb_class == MB_INTER).any():
             raise ValueError("inter macroblocks need the device seed planes")
         res_l, res_c = decode_residuals(pic, self.pps)
+        if native and not (pic.mb_class == MB_IPCM).any():
+            N.routes["recon"]["native"] += 1
+            N.load().intra_recon(
+                {"mb_w": pic.mb_w, "mb_h": pic.mb_h, "crows": pic.n_crows},
+                {"Y": self.Y, "U": self.U, "V": self.V,
+                 "mb_class": pic.mb_class, "transform8x8": pic.transform8x8,
+                 "i4_modes": pic.i4_modes, "i16_mode": pic.i16_mode,
+                 "chroma_mode": pic.chroma_mode, "slice_id": pic.slice_id,
+                 "res_l": res_l, "res_c": res_c})
+            return self.Y, self.U, self.V
+        N.routes["recon"]["python"] += 1
         for addr in range(pic.n_mbs):
             cls = pic.mb_class[addr]
             if cls == MB_I16:

@@ -11,8 +11,11 @@ PictureData (lencod/src/macroblock.c write_{i,p}_slice_MB_layer order).
 
 from __future__ import annotations
 
+import numpy as np
+
+from .. import native as N
 from ..bitstream.bitwriter import BitWriter
-from ..common.picture import CBP_MAP_CHROMA
+from ..common.picture import CBP_MAP_CHROMA, MB_IPCM
 from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
 from .cavlc_write import write_residual_block
@@ -260,16 +263,62 @@ class MBWriter:
 
 def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
                     idr: bool, qp: int, poc_lsb: int = 0, idr_pic_id: int = 0,
-                    num_ref_idx_l0: int = 1) -> bytes:
+                    num_ref_idx_l0: int = 1, native: bool = True) -> bytes:
     """Serialize the whole picture as one slice in raster order; returns
-    the RBSP."""
+    the RBSP. The MB layer goes through the native cavlc_slice_data
+    (jm_tpu_torch/native, jm_enc.cpp) unless a MB is I_PCM or the caller
+    asks for the Python MBWriter (native=False); native.routes
+    ["serialize"] counts the route taken."""
     bw = BitWriter()
     write_slice_header(bw, sps, pps, slice_type=slice_type,
                        frame_num=frame_num, idr=idr, idr_pic_id=idr_pic_id,
                        qp=qp, poc_lsb=poc_lsb, num_ref_idx_l0=num_ref_idx_l0)
+    if native and not (pic.mb_class == MB_IPCM).any():
+        N.routes["serialize"]["native"] += 1
+        return _native_slice_data(bw, pic, pps, slice_type, qp,
+                                  num_ref_idx_l0)
+    N.routes["serialize"]["python"] += 1
     w = MBWriter(bw, pic, sps, pps, qp)
     for addr in range(pic.n_mbs):
         w.write_mb(addr, slice_type)
     w.finish(slice_type)
     bw.rbsp_trailing_bits()
     return bw.get_bytes()
+
+
+def _native_slice_data(bw: BitWriter, pic, pps, slice_type: SliceType,
+                       qp: int, num_ref: int) -> bytes:
+    """The slice's MB layer and trailing bits appended by the native
+    serializer to the header in ``bw`` (handed over as its bytes and
+    its pending bits); returns the RBSP (jm_tpu/encoder/syntax.py
+    _native_slice_data)."""
+    c = np.ascontiguousarray
+    pic_dict = {
+        "mb_class": c(pic.mb_class, np.int8),
+        "skip": c(pic.skip, np.uint8),
+        "inter_mode": c(pic.inter_mode, np.int8),
+        "sub_mode": c(pic.sub_mode, np.int8),
+        "ref_idx": c(pic.ref_idx, np.int8),
+        "mv": c(pic.mv, np.int32),
+        "cbp": c(pic.cbp, np.int32),
+        "qp": c(pic.qp, np.int32),
+        "slice_id": c(pic.slice_id, np.int32),
+        "i4_modes": c(pic.i4_modes, np.int8),
+        "i16_mode": c(pic.i16_mode, np.int8),
+        "chroma_mode": c(pic.chroma_mode, np.int8),
+        "luma_coef": c(pic.luma_coef, np.int32),
+        "luma_dc": c(pic.luma_dc, np.int32),
+        "luma_coef8": c(pic.luma_coef8, np.int32),
+        "transform8x8": c(pic.transform8x8, np.uint8),
+        "luma_nnz": c(pic.luma_nnz, np.int32),
+        "chroma_dc": c(pic.chroma_dc, np.int32),
+        "chroma_coef": c(pic.chroma_coef, np.int32),
+        "chroma_nnz": c(pic.chroma_nnz, np.int32),
+        "mb_w": pic.mb_w,
+        "crows": pic.n_crows,
+    }
+    return N.load().cavlc_slice_data(
+        bytes(bw.buf), bw.acc, bw.nacc, pic_dict,
+        np.arange(pic.n_mbs, dtype=np.int32),
+        0 if slice_type == SliceType.P else 2, int(num_ref),
+        int(pps.transform_8x8_mode_flag), int(qp))

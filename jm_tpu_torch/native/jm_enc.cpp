@@ -1,0 +1,837 @@
+/* jm_torch_native, encoder part: the CAVLC slice serializer.
+ *
+ * The port's copy of jm_tpu's native/jm_enc.cpp without its
+ * deblock_frame: the port deblocks every picture on the card (kernels/
+ * deblock.cu K1/K2).
+ *
+ *   - cavlc_slice_data: serializes one slice's decided macroblocks from
+ *     the SoA PictureData arrays (parity: lencod/src/macroblock.c
+ *     write_macroblock:2810 + vlc.c writers; twin of the Python MBWriter
+ *     of jm_tpu_torch/encoder/syntax.py, byte-identical output). The
+ *     caller hands over the bits written so far (the slice header) and
+ *     gets the whole RBSP back.
+ *
+ * Normative VLC tables are installed from Python (set_cavlc_tables, from
+ * common/cavlc_tables.py) so the port's tables remain the single source
+ * of truth. Plain CPython C API + buffer protocol (no numpy C API); every
+ * array's byte size is checked against the picture's MB count.
+ */
+
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+#include <stdint.h>
+#include <string.h>
+#include <stdlib.h>
+
+/* ------------------------------------------------------------------ */
+/* small helpers                                                       */
+/* ------------------------------------------------------------------ */
+
+typedef struct {
+    Py_buffer view;
+    int ok;
+} Buf;
+
+static int get_arr(PyObject *dict, const char *key, Buf *b, int writable) {
+    PyObject *o = PyDict_GetItemString(dict, key);
+    if (!o) {
+        PyErr_Format(PyExc_KeyError, "missing array '%s'", key);
+        return -1;
+    }
+    int flags = writable ? (PyBUF_C_CONTIGUOUS | PyBUF_WRITABLE)
+                         : PyBUF_C_CONTIGUOUS;
+    if (PyObject_GetBuffer(o, &b->view, flags) < 0) return -1;
+    b->ok = 1;
+    return 0;
+}
+
+static void rel(Buf *b) {
+    if (b->ok) { PyBuffer_Release(&b->view); b->ok = 0; }
+}
+
+static int check_len(const Buf *b, const char *key, Py_ssize_t want) {
+    if (b->view.len != want) {
+        PyErr_Format(PyExc_ValueError, "array '%s': expected %zd bytes, "
+                     "got %zd", key, want, b->view.len);
+        return -1;
+    }
+    return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* BitWriter                                                           */
+/* ------------------------------------------------------------------ */
+
+typedef struct {
+    uint8_t *buf;
+    size_t len, cap;
+    uint64_t acc;
+    int nacc;
+    int err;
+} BW;
+
+static void bw_init(BW *w, const uint8_t *head, size_t headlen,
+                    uint64_t acc, int nacc) {
+    w->cap = headlen + 4096;
+    w->buf = (uint8_t *)malloc(w->cap);
+    memcpy(w->buf, head, headlen);
+    w->len = headlen;
+    w->acc = acc;
+    w->nacc = nacc;
+    w->err = 0;
+}
+
+static inline void bw_byte(BW *w, uint8_t v) {
+    if (w->len == w->cap) {
+        w->cap *= 2;
+        w->buf = (uint8_t *)realloc(w->buf, w->cap);
+    }
+    w->buf[w->len++] = v;
+}
+
+static inline void bw_u(BW *w, uint32_t value, int n) {
+    if (n == 0) return;
+    if (n > 32 || (n < 32 && (value >> n))) { w->err = 1; return; }
+    w->acc = (w->acc << n) | value;
+    w->nacc += n;
+    while (w->nacc >= 8) {
+        w->nacc -= 8;
+        bw_byte(w, (uint8_t)((w->acc >> w->nacc) & 0xFF));
+    }
+    w->acc &= (1ULL << w->nacc) - 1;
+}
+
+static inline void bw_ue(BW *w, uint32_t v) {
+    uint32_t code = v + 1;
+    int n = 32 - __builtin_clz(code);
+    bw_u(w, 0, n - 1);
+    bw_u(w, code, n);
+}
+
+static inline void bw_se(BW *w, int32_t v) {
+    uint32_t k = v > 0 ? (uint32_t)(2 * v - 1) : (uint32_t)(-2 * v);
+    bw_ue(w, k);
+}
+
+static inline void bw_te(BW *w, int32_t v, int rng) {
+    if (rng == 1) bw_u(w, (uint32_t)(1 - v), 1);
+    else bw_ue(w, (uint32_t)v);
+}
+
+static inline void bw_trailing(BW *w) {
+    bw_u(w, 1, 1);
+    if (w->nacc) bw_u(w, 0, 8 - w->nacc);
+}
+
+/* ------------------------------------------------------------------ */
+/* CAVLC tables (installed from Python)                                */
+/* ------------------------------------------------------------------ */
+
+static uint8_t g_ct_len[3][4][17];
+static uint16_t g_ct_cod[3][4][17];
+static uint8_t g_ctdc_len[2][4][9];
+static uint16_t g_ctdc_cod[2][4][9];
+static uint8_t g_tz_len[15][16];
+static uint16_t g_tz_cod[15][16];
+static uint8_t g_tzdc0_len[3][4];
+static uint16_t g_tzdc0_cod[3][4];
+static uint8_t g_tzdc1_len[7][8];
+static uint16_t g_tzdc1_cod[7][8];
+static uint8_t g_run_len[7][15];
+static uint16_t g_run_cod[7][15];
+static uint8_t g_cbp_inv_chroma[2][48];   /* [intra/inter][cbp] -> codeNum */
+static int g_tables_set = 0;
+
+static int copy_tab(PyObject *dict, const char *key, void *dst,
+                    size_t bytes, int is16) {
+    Buf b = {{0}, 0};
+    if (get_arr(dict, key, &b, 0) < 0) return -1;
+    if ((size_t)b.view.len != bytes * (is16 ? 2 : 1)) {
+        PyErr_Format(PyExc_ValueError, "table '%s': wrong size", key);
+        rel(&b);
+        return -1;
+    }
+    memcpy(dst, b.view.buf, b.view.len);
+    rel(&b);
+    return 0;
+}
+
+static PyObject *py_set_cavlc_tables(PyObject *self, PyObject *arg) {
+    if (!PyDict_Check(arg)) {
+        PyErr_SetString(PyExc_TypeError, "expected dict of arrays");
+        return NULL;
+    }
+    if (copy_tab(arg, "ct_len", g_ct_len, sizeof g_ct_len, 0) < 0 ||
+        copy_tab(arg, "ct_cod", g_ct_cod, sizeof g_ct_cod / 2, 1) < 0 ||
+        copy_tab(arg, "ctdc_len", g_ctdc_len, sizeof g_ctdc_len, 0) < 0 ||
+        copy_tab(arg, "ctdc_cod", g_ctdc_cod, sizeof g_ctdc_cod / 2, 1) < 0 ||
+        copy_tab(arg, "tz_len", g_tz_len, sizeof g_tz_len, 0) < 0 ||
+        copy_tab(arg, "tz_cod", g_tz_cod, sizeof g_tz_cod / 2, 1) < 0 ||
+        copy_tab(arg, "tzdc0_len", g_tzdc0_len, sizeof g_tzdc0_len, 0) < 0 ||
+        copy_tab(arg, "tzdc0_cod", g_tzdc0_cod, sizeof g_tzdc0_cod / 2, 1) < 0 ||
+        copy_tab(arg, "tzdc1_len", g_tzdc1_len, sizeof g_tzdc1_len, 0) < 0 ||
+        copy_tab(arg, "tzdc1_cod", g_tzdc1_cod, sizeof g_tzdc1_cod / 2, 1) < 0 ||
+        copy_tab(arg, "run_len", g_run_len, sizeof g_run_len, 0) < 0 ||
+        copy_tab(arg, "run_cod", g_run_cod, sizeof g_run_cod / 2, 1) < 0 ||
+        copy_tab(arg, "cbp_inv_chroma", g_cbp_inv_chroma,
+                 sizeof g_cbp_inv_chroma, 0) < 0)
+        return NULL;
+    g_tables_set = 1;
+    Py_RETURN_NONE;
+}
+
+/* ------------------------------------------------------------------ */
+/* residual block writer (cavlc_write.write_residual_block twin)       */
+/* ------------------------------------------------------------------ */
+
+static int write_residual(BW *w, const int32_t *c, int nc, int max_coeff) {
+    int nzpos[64], nz = 0;
+    for (int i = 0; i < max_coeff; i++)
+        if (c[i]) nzpos[nz++] = i;
+    int total = nz;
+
+    int trailing = 0;
+    for (int k = nz - 1; k >= 0; k--) {
+        int32_t v = c[nzpos[k]];
+        if ((v == 1 || v == -1) && trailing < 3) trailing++;
+        else break;
+    }
+
+    /* coeff_token */
+    if (nc >= 8) {
+        if (total == 0) bw_u(w, 3, 6);
+        else bw_u(w, (uint32_t)(((total - 1) << 2) | trailing), 6);
+    } else if (nc >= 0) {
+        int ti = nc < 2 ? 0 : (nc < 4 ? 1 : 2);
+        int ln = g_ct_len[ti][trailing][total];
+        if (ln == 0) return -1;
+        bw_u(w, g_ct_cod[ti][trailing][total], ln);
+    } else {
+        int ti = nc == -1 ? 0 : 1;
+        int ln = g_ctdc_len[ti][trailing][total];
+        if (ln == 0) return -1;
+        bw_u(w, g_ctdc_cod[ti][trailing][total], ln);
+    }
+    if (total == 0) return 0;
+
+    for (int k = nz - 1; k >= nz - trailing; k--)
+        bw_u(w, c[nzpos[k]] < 0 ? 1 : 0, 1);
+
+    int suffix_len = (total > 10 && trailing < 3) ? 1 : 0;
+    int first = 1;
+    for (int k = nz - 1 - trailing; k >= 0; k--) {
+        int32_t level = c[nzpos[k]];
+        int32_t level_code = level > 0 ? 2 * level - 2 : -2 * level - 1;
+        if (first && trailing < 3) level_code -= 2;
+        first = 0;
+        if (suffix_len == 0) {
+            if (level_code < 14) bw_u(w, 1, level_code + 1);
+            else if (level_code < 30) { bw_u(w, 1, 15); bw_u(w, level_code - 14, 4); }
+            else if (level_code < 30 + 4096) { bw_u(w, 1, 16); bw_u(w, level_code - 30, 12); }
+            else return -2;
+        } else {
+            int prefix = level_code >> suffix_len;
+            if (prefix < 15) {
+                bw_u(w, 1, prefix + 1);
+                bw_u(w, level_code & ((1 << suffix_len) - 1), suffix_len);
+            } else {
+                int esc = level_code - (15 << suffix_len);
+                if (esc >= 4096) return -2;
+                bw_u(w, 1, 16);
+                bw_u(w, esc, 12);
+            }
+        }
+        if (suffix_len == 0) suffix_len = 1;
+        int32_t alevel = level < 0 ? -level : level;
+        if (alevel > (3 << (suffix_len - 1)) && suffix_len < 6) suffix_len++;
+    }
+
+    int total_zeros = nzpos[nz - 1] + 1 - total;
+    if (total < max_coeff) {
+        int vlcnum = total - 1;
+        if (max_coeff == 4) bw_u(w, g_tzdc0_cod[vlcnum][total_zeros],
+                                 g_tzdc0_len[vlcnum][total_zeros]);
+        else if (max_coeff == 8) bw_u(w, g_tzdc1_cod[vlcnum][total_zeros],
+                                      g_tzdc1_len[vlcnum][total_zeros]);
+        else bw_u(w, g_tz_cod[vlcnum][total_zeros],
+                  g_tz_len[vlcnum][total_zeros]);
+    }
+
+    int zeros_left = total_zeros;
+    for (int j = nz - 1; j >= 1; j--) {
+        if (zeros_left <= 0) break;
+        int run = nzpos[j] - nzpos[j - 1] - 1;
+        int vlc = (zeros_left < 7 ? zeros_left : 7) - 1;
+        bw_u(w, g_run_cod[vlc][run], g_run_len[vlc][run]);
+        zeros_left -= run;
+    }
+    return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* picture state + prediction context (predict_ctx.py twin)            */
+/* ------------------------------------------------------------------ */
+
+static const int CODE2RASTER[16] = {0, 1, 4, 5, 2, 3, 6, 7,
+                                    8, 9, 12, 13, 10, 11, 14, 15};
+static const int RASTER2CODE[16] = {0, 1, 4, 5, 2, 3, 6, 7,
+                                    8, 9, 12, 13, 10, 11, 14, 15};
+/* RASTER2CODE = argsort(CODE2RASTER); computed below at init */
+static int g_r2c[16];
+static void init_r2c(void) {
+    for (int c = 0; c < 16; c++) g_r2c[CODE2RASTER[c]] = c;
+}
+
+typedef struct {
+    int n, mb_w, crows;
+    const int8_t *mb_class;
+    const uint8_t *skip;
+    const int8_t *inter_mode;
+    const int8_t *sub_mode;     /* (n,4) */
+    const int8_t *ref_idx;      /* (n,4) */
+    const int32_t *mv;          /* (n,16,2) */
+    const int32_t *cbp;
+    const int32_t *qp;
+    const int32_t *slice_id;
+    const int8_t *i4_modes;     /* (n,16) */
+    const int8_t *i16_mode;
+    const int8_t *chroma_mode;
+    const int32_t *luma_coef;   /* (n,16,16) */
+    const int32_t *luma_dc;     /* (n,16) */
+    const int32_t *luma_coef8;  /* (n,4,64) */
+    const uint8_t *transform8x8;
+    const int32_t *luma_nnz;    /* (n,16) */
+    const int32_t *chroma_dc;   /* (n,2,2*crows) */
+    const int32_t *chroma_coef; /* (n,2,2*crows,16) */
+    const int32_t *chroma_nnz;  /* (n,2,2*crows) */
+} Pic;
+
+static inline int avail(const Pic *p, int naddr, int cur) {
+    return naddr >= 0 && naddr < p->n
+        && p->slice_id[naddr] == p->slice_id[cur];
+}
+
+static inline int combine_nc(int na, int aa, int nb, int ab) {
+    if (aa && ab) return (na + nb + 1) >> 1;
+    if (aa) return na;
+    if (ab) return nb;
+    return 0;
+}
+
+static int nc_luma(const Pic *p, int addr, int blk) {
+    int by = blk / 4, bx = blk % 4;
+    int a_addr, a_blk, aa, b_addr, b_blk, ab;
+    if (bx > 0) { a_addr = addr; a_blk = blk - 1; aa = 1; }
+    else {
+        a_addr = (addr % p->mb_w) ? addr - 1 : -1;
+        a_blk = blk + 3;
+        aa = avail(p, a_addr, addr);
+    }
+    if (by > 0) { b_addr = addr; b_blk = blk - 4; ab = 1; }
+    else {
+        b_addr = addr - p->mb_w;
+        b_blk = blk + 12;
+        ab = avail(p, b_addr, addr);
+    }
+    return combine_nc(aa ? p->luma_nnz[a_addr * 16 + a_blk] : 0, aa,
+                      ab ? p->luma_nnz[b_addr * 16 + b_blk] : 0, ab);
+}
+
+static int nc_chroma(const Pic *p, int addr, int comp, int blk) {
+    int crows = p->crows, nb = 2 * crows;
+    int by = blk / 2, bx = blk % 2;
+    int a_addr, a_blk, aa, b_addr, b_blk, ab;
+    if (bx > 0) { a_addr = addr; a_blk = blk - 1; aa = 1; }
+    else {
+        a_addr = (addr % p->mb_w) ? addr - 1 : -1;
+        a_blk = blk + 1;
+        aa = avail(p, a_addr, addr);
+    }
+    if (by > 0) { b_addr = addr; b_blk = blk - 2; ab = 1; }
+    else {
+        b_addr = addr - p->mb_w;
+        b_blk = blk + 2 * (crows - 1);
+        ab = avail(p, b_addr, addr);
+    }
+    const int32_t *cn = p->chroma_nnz;
+    return combine_nc(aa ? cn[(a_addr * 2 + comp) * nb + a_blk] : 0, aa,
+                      ab ? cn[(b_addr * 2 + comp) * nb + b_blk] : 0, ab);
+}
+
+static int pred_intra4_mode(const Pic *p, int addr, int blk) {
+    int by = blk / 4, bx = blk % 4;
+    int ma, mb, aa, ab;
+    if (bx > 0) {
+        ma = p->i4_modes[addr * 16 + blk - 1];
+        aa = 1;
+        if (p->mb_class[addr] != 1) ma = 2;
+    } else {
+        int a_addr = (addr % p->mb_w) ? addr - 1 : -1;
+        aa = avail(p, a_addr, addr);
+        ma = aa ? p->i4_modes[a_addr * 16 + blk + 3] : -1;
+        if (aa && p->mb_class[a_addr] != 1) ma = 2;
+    }
+    if (by > 0) {
+        mb = p->i4_modes[addr * 16 + blk - 4];
+        ab = 1;
+        if (p->mb_class[addr] != 1) mb = 2;
+    } else {
+        int b_addr = addr - p->mb_w;
+        ab = avail(p, b_addr, addr);
+        mb = ab ? p->i4_modes[b_addr * 16 + blk + 12] : -1;
+        if (ab && p->mb_class[b_addr] != 1) mb = 2;
+    }
+    if (!aa || !ab) return 2;
+    return ma < mb ? ma : mb;
+}
+
+/* returns 1 if a neighbor exists; *mvx/*mvy/*ref filled ((0,0,-1) for
+ * intra / no-motion neighbors) */
+static int mv_neighbor(const Pic *p, int addr, int bx, int by, int cur_blk,
+                       int *mvx, int *mvy, int *ref) {
+    int mbx = addr % p->mb_w, mby = addr / p->mb_w;
+    int gx = mbx * 4 + bx, gy = mby * 4 + by;
+    if (gx < 0 || gy < 0 || gx >= p->mb_w * 4) return 0;
+    int naddr = (gy / 4) * p->mb_w + (gx / 4);
+    int nblk = (gy % 4) * 4 + (gx % 4);
+    if (naddr == addr) {
+        if (g_r2c[nblk] >= g_r2c[cur_blk]) return 0;
+    } else {
+        if (naddr > addr || !avail(p, naddr, addr)) return 0;
+    }
+    int q = (nblk / 8) * 2 + ((nblk % 4) / 2);
+    int r = p->ref_idx[naddr * 4 + q];
+    if (r < 0) { *mvx = 0; *mvy = 0; *ref = -1; return 1; }
+    *mvx = p->mv[(naddr * 16 + nblk) * 2];
+    *mvy = p->mv[(naddr * 16 + nblk) * 2 + 1];
+    *ref = r;
+    return 1;
+}
+
+static inline int med3(int a, int b, int c) {
+    int mx = a > b ? a : b;
+    if (c > mx) mx = c;
+    int mn = a < b ? a : b;
+    if (c < mn) mn = c;
+    return a + b + c - mx - mn;
+}
+
+static void mv_pred(const Pic *p, int addr, int bx, int by, int bw, int bh,
+                    int ref, int *px, int *py) {
+    int cur = by * 4 + bx;
+    int ax, ay, ar, bx_, by_, br, cx, cy, cr;
+    int ha = mv_neighbor(p, addr, bx - 1, by, cur, &ax, &ay, &ar);
+    int hb = mv_neighbor(p, addr, bx, by - 1, cur, &bx_, &by_, &br);
+    int hc = mv_neighbor(p, addr, bx + bw, by - 1, cur, &cx, &cy, &cr);
+    if (!hc) hc = mv_neighbor(p, addr, bx - 1, by - 1, cur, &cx, &cy, &cr);
+
+    if (bw == 4 && bh == 2) {
+        if (by == 0 && hb && br == ref) { *px = bx_; *py = by_; return; }
+        if (by == 2 && ha && ar == ref) { *px = ax; *py = ay; return; }
+    } else if (bw == 2 && bh == 4) {
+        if (bx == 0 && ha && ar == ref) { *px = ax; *py = ay; return; }
+        if (bx == 2 && hc && cr == ref) { *px = cx; *py = cy; return; }
+    }
+    int mva[2] = {ha ? ax : 0, ha ? ay : 0};
+    int mvb[2] = {hb ? bx_ : 0, hb ? by_ : 0};
+    int mvc[2] = {hc ? cx : 0, hc ? cy : 0};
+    int refa = ha ? ar : -2, refb = hb ? br : -2, refc = hc ? cr : -2;
+    if (ha && !hb && !hc) { *px = mva[0]; *py = mva[1]; return; }
+    int m0 = refa == ref, m1 = refb == ref, m2 = refc == ref;
+    if (m0 + m1 + m2 == 1) {
+        if (m0) { *px = mva[0]; *py = mva[1]; }
+        else if (m1) { *px = mvb[0]; *py = mvb[1]; }
+        else { *px = mvc[0]; *py = mvc[1]; }
+        return;
+    }
+    *px = med3(mva[0], mvb[0], mvc[0]);
+    *py = med3(mva[1], mvb[1], mvc[1]);
+}
+
+/* ------------------------------------------------------------------ */
+/* MB serialization                                                    */
+/* ------------------------------------------------------------------ */
+
+static const int PARTS[4][4][4] = {
+    /* mode -> list of (bx, by, bw, bh); unused rows bw=0 */
+    {{0, 0, 4, 4}, {0}, {0}, {0}},
+    {{0, 0, 4, 2}, {0, 2, 4, 2}, {0}, {0}},
+    {{0, 0, 2, 4}, {2, 0, 2, 4}, {0}, {0}},
+    {{0, 0, 2, 2}, {2, 0, 2, 2}, {0, 2, 2, 2}, {2, 2, 2, 2}},
+};
+static const int NPARTS[4] = {1, 2, 2, 4};
+/* P8x8 sub-partitions (me.SUB_PARTS): sub_mode -> (sx, sy, sw, sh) */
+static const int SUBP[4][4][4] = {
+    {{0, 0, 2, 2}, {0}, {0}, {0}},
+    {{0, 0, 2, 1}, {0, 1, 2, 1}, {0}, {0}},
+    {{0, 0, 1, 2}, {1, 0, 1, 2}, {0}, {0}},
+    {{0, 0, 1, 1}, {1, 0, 1, 1}, {0, 1, 1, 1}, {1, 1, 1, 1}},
+};
+static const int NSUBP[4] = {1, 2, 2, 4};
+
+typedef struct {
+    int slice_qp;      /* running QP for delta coding */
+    int skip_run;
+    int slice_type;    /* 0=P, 2=I (SliceType values) */
+    int num_ref;
+    int transform8x8_mode;
+} WState;
+
+static int write_qp_delta(BW *w, WState *st, const Pic *p, int addr) {
+    int dq = p->qp[addr] - st->slice_qp;
+    if (dq > 25) dq -= 52;
+    else if (dq < -26) dq += 52;
+    bw_se(w, dq);
+    st->slice_qp = p->qp[addr];
+    return 0;
+}
+
+static int write_luma_residual(BW *w, const Pic *p, int addr, int cbp,
+                               int is_i16) {
+    if (is_i16) {
+        int nc = nc_luma(p, addr, 0);
+        if (write_residual(w, &p->luma_dc[addr * 16], nc, 16) < 0) return -1;
+    }
+    for (int blk8 = 0; blk8 < 4; blk8++) {
+        if (!(cbp & (1 << blk8))) continue;
+        for (int sub = 0; sub < 4; sub++) {
+            int blk = CODE2RASTER[blk8 * 4 + sub];
+            int nc = nc_luma(p, addr, blk);
+            const int32_t *c = &p->luma_coef[(addr * 16 + blk) * 16];
+            if (is_i16) {
+                if (write_residual(w, c + 1, nc, 15) < 0) return -1;
+            } else {
+                if (write_residual(w, c, nc, 16) < 0) return -1;
+            }
+        }
+    }
+    return 0;
+}
+
+static int write_luma_residual_8x8(BW *w, const Pic *p, int addr, int cbp) {
+    int32_t tmp[16];
+    for (int blk8 = 0; blk8 < 4; blk8++) {
+        if (!(cbp & (1 << blk8))) continue;
+        int by0 = (blk8 / 2) * 2, bx0 = (blk8 % 2) * 2;
+        for (int dy = 0; dy < 2; dy++)
+            for (int dx = 0; dx < 2; dx++) {
+                int blk = (by0 + dy) * 4 + bx0 + dx;
+                int sub = 2 * dy + dx;
+                int nc = nc_luma(p, addr, blk);
+                const int32_t *c8 = &p->luma_coef8[(addr * 4 + blk8) * 64];
+                for (int k = 0; k < 16; k++) tmp[k] = c8[4 * k + sub];
+                if (write_residual(w, tmp, nc, 16) < 0) return -1;
+            }
+    }
+    return 0;
+}
+
+static int write_chroma_residual(BW *w, const Pic *p, int addr, int cbp) {
+    int cbp_chroma = cbp >> 4;
+    int nb = 2 * p->crows;
+    int dc_nc = p->crows == 2 ? -1 : -2;
+    if (cbp_chroma & 3) {
+        for (int comp = 0; comp < 2; comp++) {
+            const int32_t *dc = &p->chroma_dc[(addr * 2 + comp) * nb];
+            if (write_residual(w, dc, dc_nc, nb) < 0) return -1;
+        }
+    }
+    if (cbp_chroma & 2) {
+        for (int comp = 0; comp < 2; comp++)
+            for (int blk = 0; blk < nb; blk++) {
+                int nc = nc_chroma(p, addr, comp, blk);
+                const int32_t *c =
+                    &p->chroma_coef[((addr * 2 + comp) * nb + blk) * 16];
+                if (write_residual(w, c + 1, nc, 15) < 0) return -1;
+            }
+    }
+    return 0;
+}
+
+static int write_intra_mb(BW *w, WState *st, const Pic *p, int addr,
+                          int base) {
+    int cbp = p->cbp[addr];
+    if (p->mb_class[addr] == 1) {            /* I_NxN */
+        bw_ue(w, base + 0);
+        if (st->transform8x8_mode) bw_u(w, 0, 1);
+        for (int ci = 0; ci < 16; ci++) {
+            int blk = CODE2RASTER[ci];
+            int mode = p->i4_modes[addr * 16 + blk];
+            int pred = pred_intra4_mode(p, addr, blk);
+            if (mode == pred) bw_u(w, 1, 1);
+            else {
+                bw_u(w, 0, 1);
+                bw_u(w, mode < pred ? mode : mode - 1, 3);
+            }
+        }
+        bw_ue(w, p->chroma_mode[addr]);
+        bw_ue(w, g_cbp_inv_chroma[0][cbp]);
+        if (cbp) write_qp_delta(w, st, p, addr);
+        if (write_luma_residual(w, p, addr, cbp & 15, 0) < 0) return -1;
+        return write_chroma_residual(w, p, addr, cbp);
+    }
+    /* I_16x16 */
+    int cbp_luma_flag = (cbp & 15) ? 1 : 0;
+    int k = 1 + p->i16_mode[addr] + ((cbp >> 4) << 2) + cbp_luma_flag * 12;
+    bw_ue(w, base + k);
+    bw_ue(w, p->chroma_mode[addr]);
+    write_qp_delta(w, st, p, addr);
+    if (write_luma_residual(w, p, addr, cbp & 15, 1) < 0) return -1;
+    return write_chroma_residual(w, p, addr, cbp);
+}
+
+static int write_p_inter_mb(BW *w, WState *st, const Pic *p, int addr) {
+    int mode = p->inter_mode[addr];
+    if (mode < 0) mode = 0;
+    bw_ue(w, mode);
+    int num_ref = st->num_ref;
+    if (mode == 3) {
+        for (int q = 0; q < 4; q++)
+            bw_ue(w, p->sub_mode[addr * 4 + q]);
+        if (num_ref > 1)
+            for (int q = 0; q < 4; q++)
+                bw_te(w, p->ref_idx[addr * 4 + q], num_ref - 1);
+        for (int q = 0; q < 4; q++) {
+            int qx = (q % 2) * 2, qy = (q / 2) * 2;
+            int ref = p->ref_idx[addr * 4 + q];
+            int sm = p->sub_mode[addr * 4 + q];
+            for (int s = 0; s < NSUBP[sm]; s++) {
+                int sx = SUBP[sm][s][0], sy = SUBP[sm][s][1];
+                int sw = SUBP[sm][s][2], sh = SUBP[sm][s][3];
+                int bx = qx + sx, by = qy + sy, px, py;
+                mv_pred(p, addr, bx, by, sw, sh, ref, &px, &py);
+                const int32_t *mv = &p->mv[(addr * 16 + by * 4 + bx) * 2];
+                bw_se(w, mv[0] - px);
+                bw_se(w, mv[1] - py);
+            }
+        }
+    } else {
+        if (num_ref > 1)
+            for (int i = 0; i < NPARTS[mode]; i++) {
+                int bx = PARTS[mode][i][0], by = PARTS[mode][i][1];
+                int q = (by / 2) * 2 + bx / 2;
+                bw_te(w, p->ref_idx[addr * 4 + q], num_ref - 1);
+            }
+        for (int i = 0; i < NPARTS[mode]; i++) {
+            int bx = PARTS[mode][i][0], by = PARTS[mode][i][1];
+            int bw_ = PARTS[mode][i][2], bh = PARTS[mode][i][3];
+            int q = (by / 2) * 2 + bx / 2;
+            int ref = p->ref_idx[addr * 4 + q];
+            int px, py;
+            mv_pred(p, addr, bx, by, bw_, bh, ref, &px, &py);
+            const int32_t *mv = &p->mv[(addr * 16 + by * 4 + bx) * 2];
+            bw_se(w, mv[0] - px);
+            bw_se(w, mv[1] - py);
+        }
+    }
+    int cbp = p->cbp[addr];
+    bw_ue(w, g_cbp_inv_chroma[1][cbp]);
+    int allow8 = p->inter_mode[addr] != 3;
+    if (!allow8) {
+        allow8 = 1;
+        for (int q = 0; q < 4; q++)
+            if (p->sub_mode[addr * 4 + q]) allow8 = 0;
+    }
+    if (st->transform8x8_mode && (cbp & 15) && allow8)
+        bw_u(w, p->transform8x8[addr] ? 1 : 0, 1);
+    if (cbp) write_qp_delta(w, st, p, addr);
+    if (p->transform8x8[addr]) {
+        if (write_luma_residual_8x8(w, p, addr, cbp & 15) < 0) return -1;
+    } else {
+        if (write_luma_residual(w, p, addr, cbp & 15, 0) < 0) return -1;
+    }
+    return write_chroma_residual(w, p, addr, cbp);
+}
+
+static PyObject *py_cavlc_slice_data(PyObject *self, PyObject *args) {
+    PyObject *head_obj, *pic_dict, *addrs_obj;
+    unsigned long long acc;
+    int nacc, slice_type, num_ref, t8mode, slice_qp;
+    if (!PyArg_ParseTuple(args, "SKiOOiiii", &head_obj, &acc, &nacc,
+                          &pic_dict, &addrs_obj, &slice_type, &num_ref,
+                          &t8mode, &slice_qp))
+        return NULL;
+    if (!g_tables_set) {
+        PyErr_SetString(PyExc_RuntimeError, "cavlc tables not installed");
+        return NULL;
+    }
+
+    Buf b_class = {{0}, 0}, b_skip = {{0}, 0}, b_imode = {{0}, 0},
+        b_sub = {{0}, 0}, b_ref = {{0}, 0}, b_mv = {{0}, 0},
+        b_cbp = {{0}, 0}, b_qp = {{0}, 0}, b_sid = {{0}, 0},
+        b_i4 = {{0}, 0}, b_i16 = {{0}, 0}, b_cm = {{0}, 0},
+        b_lc = {{0}, 0}, b_ldc = {{0}, 0}, b_lc8 = {{0}, 0},
+        b_t8 = {{0}, 0}, b_lnnz = {{0}, 0}, b_cdc = {{0}, 0},
+        b_cc = {{0}, 0}, b_cnnz = {{0}, 0}, b_addrs = {{0}, 0};
+    PyObject *result = NULL;
+    BW w = {0};
+
+    if (get_arr(pic_dict, "mb_class", &b_class, 0) < 0 ||
+        get_arr(pic_dict, "skip", &b_skip, 0) < 0 ||
+        get_arr(pic_dict, "inter_mode", &b_imode, 0) < 0 ||
+        get_arr(pic_dict, "sub_mode", &b_sub, 0) < 0 ||
+        get_arr(pic_dict, "ref_idx", &b_ref, 0) < 0 ||
+        get_arr(pic_dict, "mv", &b_mv, 0) < 0 ||
+        get_arr(pic_dict, "cbp", &b_cbp, 0) < 0 ||
+        get_arr(pic_dict, "qp", &b_qp, 0) < 0 ||
+        get_arr(pic_dict, "slice_id", &b_sid, 0) < 0 ||
+        get_arr(pic_dict, "i4_modes", &b_i4, 0) < 0 ||
+        get_arr(pic_dict, "i16_mode", &b_i16, 0) < 0 ||
+        get_arr(pic_dict, "chroma_mode", &b_cm, 0) < 0 ||
+        get_arr(pic_dict, "luma_coef", &b_lc, 0) < 0 ||
+        get_arr(pic_dict, "luma_dc", &b_ldc, 0) < 0 ||
+        get_arr(pic_dict, "luma_coef8", &b_lc8, 0) < 0 ||
+        get_arr(pic_dict, "transform8x8", &b_t8, 0) < 0 ||
+        get_arr(pic_dict, "luma_nnz", &b_lnnz, 0) < 0 ||
+        get_arr(pic_dict, "chroma_dc", &b_cdc, 0) < 0 ||
+        get_arr(pic_dict, "chroma_coef", &b_cc, 0) < 0 ||
+        get_arr(pic_dict, "chroma_nnz", &b_cnnz, 0) < 0)
+        goto done;
+    if (PyObject_GetBuffer(addrs_obj, &b_addrs.view, PyBUF_C_CONTIGUOUS) < 0)
+        goto done;
+    b_addrs.ok = 1;
+
+    {
+        PyObject *mw_o = PyDict_GetItemString(pic_dict, "mb_w");
+        PyObject *cr_o = PyDict_GetItemString(pic_dict, "crows");
+        if (!mw_o || !cr_o) {
+            PyErr_SetString(PyExc_KeyError, "mb_w/crows missing");
+            goto done;
+        }
+        Pic p;
+        p.mb_w = (int)PyLong_AsLong(mw_o);
+        p.crows = (int)PyLong_AsLong(cr_o);
+        if (PyErr_Occurred()) goto done;
+        p.n = (int)b_class.view.len;
+        {
+            Py_ssize_t n = p.n, nb = 2 * (Py_ssize_t)p.crows;
+            if (p.mb_w <= 0 || (p.crows != 2 && p.crows != 4)) {
+                PyErr_SetString(PyExc_ValueError, "bad mb_w / crows");
+                goto done;
+            }
+            if (check_len(&b_skip, "skip", n) < 0 ||
+                check_len(&b_imode, "inter_mode", n) < 0 ||
+                check_len(&b_sub, "sub_mode", n * 4) < 0 ||
+                check_len(&b_ref, "ref_idx", n * 4) < 0 ||
+                check_len(&b_mv, "mv", n * 16 * 2 * 4) < 0 ||
+                check_len(&b_cbp, "cbp", n * 4) < 0 ||
+                check_len(&b_qp, "qp", n * 4) < 0 ||
+                check_len(&b_sid, "slice_id", n * 4) < 0 ||
+                check_len(&b_i4, "i4_modes", n * 16) < 0 ||
+                check_len(&b_i16, "i16_mode", n) < 0 ||
+                check_len(&b_cm, "chroma_mode", n) < 0 ||
+                check_len(&b_lc, "luma_coef", n * 16 * 16 * 4) < 0 ||
+                check_len(&b_ldc, "luma_dc", n * 16 * 4) < 0 ||
+                check_len(&b_lc8, "luma_coef8", n * 4 * 64 * 4) < 0 ||
+                check_len(&b_t8, "transform8x8", n) < 0 ||
+                check_len(&b_lnnz, "luma_nnz", n * 16 * 4) < 0 ||
+                check_len(&b_cdc, "chroma_dc", n * 2 * nb * 4) < 0 ||
+                check_len(&b_cc, "chroma_coef", n * 2 * nb * 16 * 4) < 0 ||
+                check_len(&b_cnnz, "chroma_nnz", n * 2 * nb * 4) < 0)
+                goto done;
+            if (b_addrs.view.len % 4) {
+                PyErr_SetString(PyExc_ValueError, "addrs must be int32");
+                goto done;
+            }
+            const int32_t *a = (const int32_t *)b_addrs.view.buf;
+            for (Py_ssize_t i = 0; i < b_addrs.view.len / 4; i++)
+                if (a[i] < 0 || a[i] >= n) {
+                    PyErr_Format(PyExc_ValueError, "MB address %d outside "
+                                 "the picture", (int)a[i]);
+                    goto done;
+                }
+        }
+        p.mb_class = (const int8_t *)b_class.view.buf;
+        p.skip = (const uint8_t *)b_skip.view.buf;
+        p.inter_mode = (const int8_t *)b_imode.view.buf;
+        p.sub_mode = (const int8_t *)b_sub.view.buf;
+        p.ref_idx = (const int8_t *)b_ref.view.buf;
+        p.mv = (const int32_t *)b_mv.view.buf;
+        p.cbp = (const int32_t *)b_cbp.view.buf;
+        p.qp = (const int32_t *)b_qp.view.buf;
+        p.slice_id = (const int32_t *)b_sid.view.buf;
+        p.i4_modes = (const int8_t *)b_i4.view.buf;
+        p.i16_mode = (const int8_t *)b_i16.view.buf;
+        p.chroma_mode = (const int8_t *)b_cm.view.buf;
+        p.luma_coef = (const int32_t *)b_lc.view.buf;
+        p.luma_dc = (const int32_t *)b_ldc.view.buf;
+        p.luma_coef8 = (const int32_t *)b_lc8.view.buf;
+        p.transform8x8 = (const uint8_t *)b_t8.view.buf;
+        p.luma_nnz = (const int32_t *)b_lnnz.view.buf;
+        p.chroma_dc = (const int32_t *)b_cdc.view.buf;
+        p.chroma_coef = (const int32_t *)b_cc.view.buf;
+        p.chroma_nnz = (const int32_t *)b_cnnz.view.buf;
+
+        const int32_t *addrs = (const int32_t *)b_addrs.view.buf;
+        Py_ssize_t naddrs = b_addrs.view.len / 4;
+
+        bw_init(&w, (const uint8_t *)PyBytes_AS_STRING(head_obj),
+                PyBytes_GET_SIZE(head_obj), acc, nacc);
+        WState st = {slice_qp, 0, slice_type, num_ref, t8mode};
+
+        int rc = 0;
+        for (Py_ssize_t i = 0; i < naddrs && rc == 0; i++) {
+            int addr = addrs[i];
+            if (st.slice_type == 0) {       /* P */
+                if (p.skip[addr]) { st.skip_run++; continue; }
+                bw_ue(&w, st.skip_run);
+                st.skip_run = 0;
+                if (p.mb_class[addr] == 0)
+                    rc = write_p_inter_mb(&w, &st, &p, addr);
+                else if (p.mb_class[addr] == 3)
+                    rc = -3;                 /* IPCM: python fallback */
+                else
+                    rc = write_intra_mb(&w, &st, &p, addr, 5);
+            } else {                         /* I */
+                if (p.mb_class[addr] == 3) rc = -3;
+                else rc = write_intra_mb(&w, &st, &p, addr, 0);
+            }
+        }
+        if (rc == 0) {
+            if (st.slice_type == 0 && st.skip_run > 0)
+                bw_ue(&w, st.skip_run);
+            bw_trailing(&w);
+        }
+        if (rc < 0 || w.err) {
+            PyErr_Format(PyExc_ValueError,
+                         "cavlc_slice_data failed (rc=%d err=%d)", rc, w.err);
+            goto done;
+        }
+        result = PyBytes_FromStringAndSize((const char *)w.buf,
+                                           (Py_ssize_t)w.len);
+    }
+
+done:
+    if (w.buf) free(w.buf);
+    rel(&b_class); rel(&b_skip); rel(&b_imode); rel(&b_sub); rel(&b_ref);
+    rel(&b_mv); rel(&b_cbp); rel(&b_qp); rel(&b_sid); rel(&b_i4);
+    rel(&b_i16); rel(&b_cm); rel(&b_lc); rel(&b_ldc); rel(&b_lc8);
+    rel(&b_t8); rel(&b_lnnz); rel(&b_cdc); rel(&b_cc); rel(&b_cnnz);
+    rel(&b_addrs);
+    return result;
+}
+
+/* ------------------------------------------------------------------ */
+/* registration                                                        */
+/* ------------------------------------------------------------------ */
+
+static PyMethodDef enc_methods[] = {
+    {"set_cavlc_tables", py_set_cavlc_tables, METH_O,
+     "install the normative CAVLC code tables (dict of arrays)"},
+    {"cavlc_slice_data", py_cavlc_slice_data, METH_VARARGS,
+     "serialize one slice's macroblocks (CAVLC) after a written header"},
+    {NULL, NULL, 0, NULL},
+};
+
+extern "C" int register_jm_torch_enc(PyObject *module) {
+    init_r2c();
+    for (PyMethodDef *def = enc_methods; def->ml_name; def++) {
+        PyObject *func = PyCFunction_NewEx(def, NULL, NULL);
+        if (!func) return -1;
+        if (PyModule_AddObject(module, def->ml_name, func) < 0) {
+            Py_DECREF(func);
+            return -1;
+        }
+    }
+    return 0;
+}

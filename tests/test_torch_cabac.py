@@ -29,13 +29,14 @@ from jm_tpu.encoder import cabac_write as jm_cabac_write
 from jm_tpu.encoder import syntax_cabac as jm_syntax_cabac
 from jm_tpu.encoder.encoder import Encoder as JaxEncoder
 from jm_tpu.encoder.encoder import EncoderConfig as JaxConfig
-from jm_tpu_torch.bitstream.bitreader import BitReader
+from jm_tpu_torch.bitstream.bitreader import BitReader, PyBitReader
 from jm_tpu_torch.bitstream.bitwriter import BitWriter
 from jm_tpu_torch.bitstream.nal import NalUnitType, annexb_bytes
 from jm_tpu_torch.common.types import SliceType
 from jm_tpu_torch.convert import _PICTURE_FIELDS, picture_from_numpy
 from jm_tpu_torch.decoder import decoder as port_decoder
-from jm_tpu_torch.decoder.cabac import CabacContexts, CabacEngine
+from jm_tpu_torch.decoder.cabac import (CabacContexts, CabacEngine,
+                                        PyCabacEngine)
 from jm_tpu_torch.encoder.cabac_write import CabacEncoder
 from jm_tpu_torch.encoder.syntax_cabac import serialize_slice_cabac
 
@@ -101,6 +102,7 @@ def test_arithmetic_coder_matches_jm(seed):
                                bins, _contexts(seed))
     assert ours == theirs and n_ours == n_theirs == len(bins)
     for eng in (CabacEngine(BitReader(ours)),
+                PyCabacEngine(PyBitReader(ours)),
                 jm_cabac.PyCabacEngine(JBitReader(ours))):
         ctx = _contexts(seed)
         got = []

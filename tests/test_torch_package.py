@@ -1,10 +1,13 @@
 """Guards of the port's package boundary and entry point:
 - no module of jm_tpu_torch, nor chip_smoke.py, imports jax or jm_tpu;
+- the port's C++ runtime is its own: built from jm_tpu_torch/native only,
+  under its own module name;
 - a CUDA request without a card raises instead of running on the CPU;
 - configurations outside the ported set raise ValueError naming the field
   (md_low, device_rd=False, is inside it, and so is entropy="cabac")."""
 
 import ast
+import subprocess
 from pathlib import Path
 
 import pytest
@@ -36,6 +39,49 @@ def test_port_imports_no_jax(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "jm_tpu"), \
             f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_scan_covers_the_native_loader():
+    assert ROOT / "jm_tpu_torch" / "native" / "__init__.py" in PORT_FILES
+
+
+def test_native_build_uses_only_the_ports_sources(monkeypatch, tmp_path):
+    """The loader's compile command names the three sources beside it and
+    nothing of native/ or jm_tpu/native/."""
+    from jm_tpu_torch import native as N
+    cmds = []
+
+    def run(cmd, **kw):
+        cmds.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(N.subprocess, "run", run)
+    out = N.build(build_dir=tmp_path)
+    assert out.parent == tmp_path and out.name.startswith("jm_torch_native")
+    (cmd,) = cmds
+    srcs = [Path(a) for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
+    assert sorted(p.name for p in srcs) == sorted(N.SOURCES)
+    for p in srcs:
+        assert p.parent == ROOT / "jm_tpu_torch" / "native"
+    for a in cmd:
+        for other in (ROOT / "native", ROOT / "jm_tpu" / "native"):
+            assert not Path(a).is_relative_to(other), a
+    # up to date now: a second call compiles nothing
+    N.build(build_dir=tmp_path)
+    assert len(cmds) == 1
+
+
+def test_native_module_has_its_own_name():
+    """Both packages' runtimes load in one process: the port's module and
+    its types are named jm_torch_native, not jm_native."""
+    from jm_tpu_torch import native as N
+    src = (ROOT / "jm_tpu_torch" / "native" / "jm_native.cpp").read_text()
+    assert "PyInit_jm_torch_native" in src and "PyInit_jm_native(" not in src
+    mod = N.load()
+    assert mod.__name__ == N.MODULE == "jm_torch_native"
+    assert type(mod.BitReader(b"\x80")).__module__ == "jm_torch_native"
+    assert mod.CabacEngine.__module__ == "jm_torch_native"
 
 
 def test_cuda_request_without_card_raises(monkeypatch):
