@@ -84,12 +84,32 @@ Phases (any failure raises and exits non-zero):
      and to the slice the phase emitted), the CAVLC parser on phase 3's
      IDR and first P slice (every PictureData array equal), the intra
      recon of that IDR (planes equal), and the CABAC parse of phase 12's
-     IDR with the native and the Python CabacEngine (arrays equal).
-Phases 3, 6 and 8-13 run on the native runtime, as the entry points do
-by default: each prints the runtime's route counters (reset just before
-its run) and fails unless every CAVLC slice was serialized and parsed,
-every intra picture reconstructed and every CABAC slice decoded by the
-native runtime.
+     IDR with the native and the Python CabacEngine (arrays equal);
+ 15. low latency at 1080p: the first LL_FRAMES frames with one MB row
+     per slice (68 slices), frame-level rate control at 8 Mbit/s and POC
+     type 2 (the per-frame path: the IDR's 68 slices through the serial
+     host intra encoder, each P at its own QP), one launch per kernel and
+     picture; frames/s, each picture's QP, bytes and slices, the IDR's
+     host intra encode in ms per MB, and each frame's split (device
+     encode, host intra encode, download + host commit, device deblock +
+     prep_ref, serialize); the stream decoded on the card equal to the
+     recon; the IDR and the first two P frames encoded again on the CPU
+     with the same bytes and QPs;
+ 16. FMO at CIF (352x288, N_CIF frames): map type 1 with two slice
+     groups, slices of at most 1500 bytes (slice_mode 2: pictures
+     re-coded until they fit), md_low, qp 28 / qp_p 30, POC type 1; one
+     launch per kernel and picture, every slice within its limit, the
+     codings per picture, and the stream decoded on the card equal to
+     the recon;
+ 17. CABAC at CIF with 22 MBs per slice, cabac_adapt_init and rate
+     control at 1 Mbit/s, encoded and decoded on the card as phase 16;
+     then JM's FMO goldens fmo_t1 / fmo_t3 / fmo_t5d1 / fmo_t6 decoded on
+     the card against their _rec.yuv.
+Phases 3, 6, 8-13 and 15-17 run on the native runtime, as the entry
+points do by default: each prints the runtime's route counters (reset
+just before its run) and fails unless every CAVLC slice was serialized
+and parsed, every intra picture reconstructed and every CABAC slice
+decoded by the native runtime.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it holds the per-kernel numbers as JSON.
 """
@@ -121,6 +141,8 @@ W, H = 1920, 1088
 N_FRAMES = 17
 CUT_FRAMES = 4       # frames of the scene-cut stream (frame 2 replaced)
 N_CABAC = 4          # frames of the CABAC stream (phases 12-13)
+LL_FRAMES = 9        # frames of the low-latency stream (phase 15)
+N_CIF = 5            # frames of the CIF streams (phases 16-17)
 DEVICE = "cuda"
 # the kernels' edge shapes (one MB, mb_w 2, mb_h 1, one MB column), each
 # with a parameter variant ("mixed" may switch the one MB off), and 2160p
@@ -301,7 +323,7 @@ class IdrTimedEncoder(Encoder):
     idr_seconds (an IDR ends in host downloads, so it ends synchronized;
     the timer synchronizes at its start). ``host_slices`` keeps the first
     I and the first P picture serialized on the host, with the arguments
-    of that serialize_slice call (phase 14)."""
+    of that serialize_slice call (phase 14: pictures of one slice)."""
 
     idr_seconds = 0.0
 
@@ -309,18 +331,18 @@ class IdrTimedEncoder(Encoder):
         super().__init__(*a, **kw)
         self.host_slices = {}
 
-    def _slice_nal(self, pic, slice_type, poc_lsb):
+    def _picture_nals(self, pic, slice_type, poc, qp, plan, sizes=None):
         kw = dict(slice_type=slice_type, frame_num=self.frame_num,
-                  idr=slice_type == SliceType.I, qp=self.cfg.qp,
-                  poc_lsb=poc_lsb, idr_pic_id=self.idr_pic_id)
+                  idr=slice_type == SliceType.I, qp=qp, poc_lsb=poc % 256,
+                  idr_pic_id=self.idr_pic_id)
         self.host_slices.setdefault(slice_type.name, (pic, kw))
-        return super()._slice_nal(pic, slice_type, poc_lsb)
+        return super()._picture_nals(pic, slice_type, poc, qp, plan, sizes)
 
-    def _encode_idr(self, *planes):
+    def _encode_idr(self, *a):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            return super()._encode_idr(*planes)
+            return super()._encode_idr(*a)
         finally:
             self.idr_seconds += time.perf_counter() - t0
 
@@ -693,16 +715,26 @@ def cut_decode_phase(enc, payloads):
 
 class CabacTimedEncoder(SplitTimedEncoder):
     """SplitTimedEncoder that also times, by display index, each whole
-    frame (``encode_frame``, "frame") and each host slice serialization,
-    I or P ("slice"); with CABAC every frame takes the per-frame path."""
+    frame (``encode_frame``, "frame"), each host serialization of a
+    picture's slices, I or P ("slice"), and each host intra encode of a
+    multi-slice I picture ("i_host"); every frame takes the per-frame
+    path (CABAC, slices, rate control)."""
 
     def encode_frame(self, *planes):
         return self._timed(self.display_idx, "frame", super().encode_frame,
                            *planes)
 
-    def _slice_nal(self, *a):
+    units = 0                    # slice NAL units serialized (with re-codes)
+
+    def _picture_nals(self, pic, slice_type, poc, qp, plan, sizes=None):
+        self.units += len(plan)
         return self._timed(self.display_idx - 1, "slice",
-                           super()._slice_nal, *a)
+                           super()._picture_nals, pic, slice_type, poc, qp,
+                           plan, sizes)
+
+    def _intra_host(self, *a):
+        return self._timed(self.display_idx - 1, "i_host",
+                           super()._intra_host, *a)
 
 
 def cabac_phase(frames, enc, payloads):
@@ -966,6 +998,174 @@ def host_runtime_phase(enc, payloads, low_enc, low_payloads, cab_payloads):
           f"PictureData array equal", flush=True)
 
 
+def card_decode(payloads, enc, label: str, cabac: bool = False):
+    """An encoder's stream decoded on the card with the launch and route
+    counters reset just before: every frame equal to the encoder's recon,
+    each kernel launched once per picture, every slice parsed (and every
+    picture with intra MBs reconstructed) by the native runtime. Returns
+    the per-kernel launches."""
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    out = dec.decode_annexb(b"".join(payloads))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
+                       for r in enc.results], label)
+    units = sum(r["slices"] for r in enc.results)
+    recon = sum(r["path"] != "inter" for r in dec.pictures)
+    check_routes(label, **({"cabac": units} if cabac else {"parse": units}),
+                 recon=recon)
+    for name, cnt in launches.items():
+        if cnt != len(out):
+            raise AssertionError(f"{label}: {name} launched {cnt} times for "
+                                 f"{len(out)} pictures")
+    print(f"{label} on the card: {len(out)} frames ({units} slices) equal "
+          f"the encoder's recon; {len(out) / total_s:.3f} frames/s; per "
+          f"picture " + ", ".join(
+              f"{r['type'][0]}/{r['path']} {r['seconds'] * 1e3:.1f} ms "
+              f"(parse {r['parse_s'] * 1e3:.1f}, intra recon "
+              f"{r['host_recon_s'] * 1e3:.1f}, device "
+              f"{r['device_s'] * 1e3:.1f})" for r in dec.pictures)
+          + f"; launches {launches}", flush=True)
+    return launches
+
+
+def per_frame_report(enc, payloads, label: str) -> None:
+    """Each picture's QP, bytes and slices, and its wall split on the
+    per-frame path (steps synchronized): device encode (upload,
+    i_frame_step or p_frame_step, rate control's MAD, the IDR's deblock
+    and downloads), host intra encode (multi-slice I), download + host
+    commit, device deblock + prep_ref, host serialize."""
+    for r, pay in zip(enc.results, payloads):
+        d = r["disp"]
+        t = {k: sum(v) * 1e3 for k, v in enc.split[d].items()}
+        host = t.get("download", 0.0) + t.get("host_intra", 0.0)
+        steps = host + t.get("i_host", 0.0) + t.get(
+            "deblock_prep", 0.0) + t["slice"]
+        print(f"{label} frame {d} {r['type']} QP {r['qp']}: {len(pay)} B, "
+              f"{r['slices']} slices, wall {t['frame']:.1f} ms = device "
+              f"encode {t['frame'] - steps:.1f} ms, host intra encode "
+              f"{t.get('i_host', 0.0):.1f} ms, download + host commit "
+              f"{host:.1f} ms, device deblock + prep_ref "
+              f"{t.get('deblock_prep', 0.0):.1f} ms, serialize "
+              f"{t['slice']:.1f} ms", flush=True)
+
+
+def check_launches(launches, n: int, label: str) -> None:
+    for name, cnt in launches.items():
+        if cnt != n:
+            raise AssertionError(f"{label}: {name} launched {cnt} times, "
+                                 f"expected once for each of {n} pictures")
+
+
+def low_latency_phase(frames):
+    """Phase 15: the low-latency 1080p stream (one MB row per slice, rate
+    control at 8 Mbit/s, POC type 2); returns (encode launches, decode
+    launches)."""
+    frames = frames[:LL_FRAMES]
+    n = len(frames)
+    cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                        device_rd=True, slice_mode=1, slice_argument=W // 16,
+                        rc_enable=True, rc_bitrate=8_000_000.0,
+                        frame_rate=30.0, poc_type=2)
+    enc, payloads, launches, total_s = timed_encode(cfg, frames,
+                                                    CabacTimedEncoder)
+    slices = [r["slices"] for r in enc.results]
+    if slices != [H // 16] * n:
+        raise AssertionError(f"low latency: slices per picture {slices}")
+    check_routes("low-latency encode", serialize=sum(slices))
+    check_launches(launches, n, "low-latency encode")
+    n_mbs = (W // 16) * (H // 16)
+    host_ms = sum(enc.split[0]["i_host"]) * 1e3
+    print(f"encode low latency 1080p {''.join(r['type'] for r in enc.results)}"
+          f" ({H // 16} slices of one MB row, RC 8 Mbit/s, POC type 2): "
+          f"{n / total_s:.3f} frames/s, {sum(map(len, payloads))} stream "
+          f"bytes, QPs {[r['qp'] for r in enc.results]}, bytes "
+          f"{[len(p) for p in payloads]}, launches {launches}; IDR host "
+          f"intra encode {host_ms:.0f} ms = {host_ms / n_mbs:.3f} ms/MB",
+          flush=True)
+    per_frame_report(enc, payloads, "low latency")
+    dec_launches = card_decode(payloads, enc, "decode low latency 1080p")
+    t0 = time.perf_counter()
+    cpu = Encoder(cfg, device="cpu")
+    cpu_payloads = cpu.encode_stream(frames[:3])
+    for i in range(3):
+        if cpu_payloads[i] != payloads[i]:
+            raise AssertionError(f"low latency frame {i}: CPU and CUDA "
+                                 f"payloads differ")
+    if [r["qp"] for r in cpu.results] != [r["qp"] for r in enc.results[:3]]:
+        raise AssertionError("low latency: CPU and CUDA QPs differ")
+    print(f"cross-check low latency: CPU IDR + 2 P payloads and QPs equal "
+          f"the CUDA run ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches, dec_launches
+
+
+def cif(frames, n: int):
+    """The top-left 352x288 of the first n frames."""
+    return [(Y[:288, :352].copy(), U[:144, :176].copy(), V[:144, :176].copy())
+            for Y, U, V in frames[:n]]
+
+
+def fmo_phase(frames):
+    """Phase 16: FMO type 1 (2 groups) with slices of at most 1500 bytes,
+    md_low, qp_p, POC type 1, at CIF; returns (encode launches, decode
+    launches)."""
+    from jm_tpu_torch.bitstream.nal import split_annexb
+    frames = cif(frames, N_CIF)
+    cfg = EncoderConfig(width=352, height=288, qp=28, qp_p=30,
+                        search_range=16, device_rd=False, num_slice_groups=2,
+                        slice_group_map_type=1, slice_mode=2,
+                        slice_argument=1500, poc_type=1)
+    enc, payloads, launches, total_s = timed_encode(cfg, frames,
+                                                    CabacTimedEncoder)
+    check_routes("FMO encode", serialize=enc.units)
+    check_launches(launches, N_CIF, "FMO encode")
+    sizes = [len(u.rbsp) for u in split_annexb(b"".join(payloads))
+             if u.nal_unit_type in (1, 5)]
+    if max(sizes) + 1 > 1500:
+        raise AssertionError(f"FMO: a slice of {max(sizes) + 1} bytes")
+    tries = {r["disp"]: len(enc.split[r["disp"]]["slice"])
+             for r in enc.results}
+    print(f"encode FMO CIF {''.join(r['type'] for r in enc.results)} (type "
+          f"1, 2 groups, slices <= 1500 B, md_low, qp 28 / qp_p 30, POC "
+          f"type 1): {N_CIF / total_s:.3f} frames/s, QPs "
+          f"{[r['qp'] for r in enc.results]}, bytes "
+          f"{[len(p) for p in payloads]}, slices "
+          f"{[r['slices'] for r in enc.results]}, codings per picture "
+          f"{list(tries.values())}, largest slice RBSP {max(sizes)} B, "
+          f"launches {launches}", flush=True)
+    per_frame_report(enc, payloads, "FMO")
+    return launches, card_decode(payloads, enc, "decode FMO CIF")
+
+
+def cabac_rc_phase(frames):
+    """Phase 17: CABAC with two MB rows per slice and rate control at
+    1 Mbit/s, at CIF; returns (encode launches, decode launches)."""
+    frames = cif(frames, N_CIF)
+    cfg = EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                        device_rd=True, entropy="cabac",
+                        cabac_adapt_init=True, slice_mode=1,
+                        slice_argument=22, rc_enable=True,
+                        rc_bitrate=1_000_000.0)
+    enc, payloads, launches, total_s = timed_encode(cfg, frames,
+                                                    CabacTimedEncoder)
+    check_routes("CABAC slices + RC encode (the CABAC writer is Python)")
+    check_launches(launches, N_CIF, "CABAC slices + RC encode")
+    print(f"encode CABAC slices + RC CIF "
+          f"{''.join(r['type'] for r in enc.results)} (22 MBs per slice, "
+          f"1 Mbit/s): {N_CIF / total_s:.3f} frames/s, QPs "
+          f"{[r['qp'] for r in enc.results]}, bytes "
+          f"{[len(p) for p in payloads]}, cabac_init_idc of the P slices "
+          f"{[r['cabac_init_idc'] for r in enc.results[1:]]}, launches "
+          f"{launches}", flush=True)
+    per_frame_report(enc, payloads, "CABAC slices + RC")
+    return launches, card_decode(payloads, enc,
+                                 "decode CABAC slices + RC CIF", cabac=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1114,6 +1314,13 @@ def main() -> int:
     # ---- 14. the host runtime against its Python twins -----------------
     host_runtime_phase(enc, payloads, low_enc, low_payloads, cab_payloads)
 
+    # ---- 15-17. slices, FMO, rate control, qp_p, POC types 1 / 2 -------
+    ll_launches, ll_dec_launches = low_latency_phase(frames)
+    fmo_launches, fmo_dec_launches = fmo_phase(frames)
+    crc_launches, crc_dec_launches = cabac_rc_phase(frames)
+    for name in ("fmo_t1", "fmo_t3", "fmo_t5d1", "fmo_t6"):
+        decode_golden(name)
+
     rows = []
     for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):
         s = kstats[name]
@@ -1130,7 +1337,13 @@ def main() -> int:
             "scene_cut_launches": cut_launches[name],
             "scene_cut_decode_launches": cut_dec_launches[name],
             "cabac_launches": cab_launches[name],
-            "cabac_decode_launches": cab_dec_launches[name]})
+            "cabac_decode_launches": cab_dec_launches[name],
+            "low_latency_launches": ll_launches[name],
+            "low_latency_decode_launches": ll_dec_launches[name],
+            "fmo_launches": fmo_launches[name],
+            "fmo_decode_launches": fmo_dec_launches[name],
+            "cabac_slices_rc_launches": crc_launches[name],
+            "cabac_slices_rc_decode_launches": crc_dec_launches[name]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

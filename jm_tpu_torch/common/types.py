@@ -190,6 +190,7 @@ class SliceHeader:
     disable_deblocking_filter_idc: int = 0
     slice_alpha_c0_offset_div2: int = 0
     slice_beta_offset_div2: int = 0
+    slice_group_change_cycle: int = 0
     # context (not syntax): nal info this header came from
     nal_ref_idc: int = 0
     is_idr: bool = False

@@ -1,7 +1,8 @@
 """Top-level H.264 decoder of the port: Annex-B in, YUV frames out; twin
 of jm_tpu.decoder.decoder.H264Decoder with ``device_recon=True``, for
 I / P streams, CAVLC (Baseline) or CABAC (Main) (4:2:0, 8-bit, frame
-pictures, one or more slices per picture in raster order, list0 with
+pictures, one or more slices per picture, FMO slice groups of map types
+0-6, list0 with
 several references in a sliding-window DPB, POC types 0, 1 and 2).
 
 Two phases per picture: the serial host parse of its slices
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..bitstream.nal import NalUnit, NalUnitType, split_annexb
+from ..common.fmo import mb_to_slice_group_map, next_mb_arrays
 from ..common.picture import MB_INTER, PictureData
 from ..common.types import SliceType
 from ..convert import qpc_tables
@@ -126,8 +128,12 @@ class H264Decoder:
                                    sps.frame_height_in_mbs),
                 "sps": sps, "pps": pps, "hdr0": hdr, "headers": [],
                 "poc": self.poc_ctx.compute(hdr, sps), "t0": t0,
-                "parse_s": 0.0, "refs": {},
+                "parse_s": 0.0, "refs": {}, "mb_succ": None,
             }
+            if pps.num_slice_groups_minus1 > 0:
+                # FMO: each slice walks its slice group's MBs
+                self._cur["mb_succ"] = next_mb_arrays(mb_to_slice_group_map(
+                    pps, sps, hdr.slice_group_change_cycle))
         cur = self._cur
         pic = cur["pic"]
 
@@ -141,7 +147,8 @@ class H264Decoder:
                 raise ValueError("insufficient reference frames")
         sid = len(cur["headers"])
         parser = MBParserCABAC if pps.entropy_coding_mode_flag else MBParser
-        parser(pic, SliceContext(hdr, sps, pps, sid), br).parse_slice_data()
+        parser(pic, SliceContext(hdr, sps, pps, sid, mb_succ=cur["mb_succ"]),
+               br).parse_slice_data()
         cur["headers"].append(hdr)
         for f in lst:                    # the picture's references by uid
             cur["refs"].setdefault(f.uid, f)

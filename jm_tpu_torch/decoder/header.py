@@ -30,8 +30,6 @@ def check_scope(sps: SPS, pps: PPS) -> None:
         out.append("lossless (qpprime_y_zero_transform_bypass)")
     if not sps.frame_mbs_only_flag:
         out.append("fields / MBAFF (frame_mbs_only_flag 0)")
-    if pps.num_slice_groups_minus1 > 0:
-        out.append("FMO (slice groups)")
     if pps.weighted_pred_flag or pps.weighted_bipred_idc:
         out.append("weighted prediction")
     if pps.transform_8x8_mode_flag:
@@ -111,6 +109,14 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
         if h.disable_deblocking_filter_idc != 1:
             h.slice_alpha_c0_offset_div2 = br.se()
             h.slice_beta_offset_div2 = br.se()
+    if pps.num_slice_groups_minus1 > 0 and \
+            pps.slice_group_map_type in (3, 4, 5):
+        units = sps.pic_width_in_mbs * sps.frame_height_in_mbs
+        rate = pps.slice_group_change_rate_minus1 + 1
+        # JM ldecod header.c:326-332: len = Ceil(units / rate), then
+        # CeilLog2(len + 1) bits
+        max_cycle = -(-units // rate)
+        h.slice_group_change_cycle = br.u(max(1, max_cycle.bit_length()))
     return h, br
 
 

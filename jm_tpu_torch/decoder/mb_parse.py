@@ -50,9 +50,15 @@ class SliceContext:
     pps: PPS
     slice_id: int
     qp: int = 0
+    # FMO: mb_succ[addr] is the next MB of addr's slice group
+    # (common/fmo.next_mb_arrays); None: raster order (one slice group)
+    mb_succ: object = None
 
     def __post_init__(self) -> None:
         self.qp = self.header.qp(self.pps)
+
+    def next_mb(self, addr: int) -> int:
+        return addr + 1 if self.mb_succ is None else int(self.mb_succ[addr])
 
 
 class MBParser:
@@ -225,8 +231,9 @@ class MBParser:
 
     def _parse_native(self) -> bool:
         """Parse the slice with the native C parser (I/P CAVLC 4:2:0 at 8
-        bits, what decoder/header.check_scope admits; no FMO, so no
-        successor map). Returns False, with the reader where it was, when
+        bits, what decoder/header.check_scope admits, with the FMO
+        successor map when the PPS has slice groups). Returns False, with
+        the reader where it was, when
         the parser stopped at an I_PCM MB: the arrays it filled so far
         are rewritten with the same values by the Python parser."""
         h, pic, br = self.ctx.header, self.pic, self.br
@@ -250,7 +257,8 @@ class MBParser:
             "luma_coef8": pic.luma_coef8, "luma_nnz": pic.luma_nnz,
             "chroma_nnz": pic.chroma_nnz, "mv": pic.mv,
             "ref_idx": pic.ref_idx, "sub_mode": pic.sub_mode,
-            "succ": None,
+            "succ": None if self.ctx.mb_succ is None else
+            np.ascontiguousarray(self.ctx.mb_succ, np.int32),
         }
         status, pos = N.load().parse_slice_cavlc(br.data, br.pos, params,
                                                  arrays)
@@ -276,11 +284,12 @@ class MBParser:
             N.routes["parse"]["rerun"] += 1
         else:
             N.routes["parse"]["python"] += 1
+        nxt = self.ctx.next_mb
         if h.slice_type == SliceType.I:
             while True:
                 pic.slice_id[addr] = sid
                 self._parse_intra_mb(addr, br.ue())
-                addr += 1
+                addr = nxt(addr)
                 if addr >= n or not br.more_rbsp_data():
                     break
             return
@@ -291,11 +300,11 @@ class MBParser:
                     raise ValueError("mb_skip_run past end of picture")
                 pic.slice_id[addr] = sid
                 self._parse_p_skip(addr)
-                addr += 1
+                addr = nxt(addr)
             if addr >= n or not br.more_rbsp_data():
                 break
             pic.slice_id[addr] = sid
             self._parse_p_mb(addr, br.ue())
-            addr += 1
+            addr = nxt(addr)
             if not br.more_rbsp_data():
                 break

@@ -540,6 +540,6 @@ class MBParserCABAC(CabacNeighbours):
                     self._parse_intra_mb(addr, 25)
                 else:
                     self._parse_intra_mb(addr, t - 6)
-            addr += 1
+            addr = self.ctx.next_mb(addr)
             if self.eng.terminate() or addr >= n:
                 break

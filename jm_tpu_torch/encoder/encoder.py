@@ -1,10 +1,13 @@
-"""H.264 encoder of the port: IPPP, 4:2:0, one slice, one reference,
-fixed QP, with the trial-encode RD P path (device_rd) or md_low, CAVLC
-(Baseline) or CABAC (Main) (twin of jm_tpu.encoder.Encoder with
-pipeline="device": its pipelined ``encode_stream`` and its per-frame
-``encode_frame``).
+"""H.264 encoder of the port: IPPP, 4:2:0, one reference, with the
+trial-encode RD P path (device_rd) or md_low, CAVLC (Baseline) or CABAC
+(Main), one or several slices per picture (slice_mode 1: MBs per slice,
+2: bytes per slice), FMO slice groups (Baseline), a fixed QP, a P QP of
+its own (qp_p) or frame-level JVT-G012 rate control, and POC types 0, 1
+and 2 (twin of jm_tpu.encoder.Encoder with pipeline="device": its
+pipelined ``encode_stream`` and its per-frame ``encode_frame``).
 
-Per stream:
+The pipe (``encode_stream`` of a CAVLC stream with one slice per picture,
+a fixed QP and no intra refresh, whatever its POC type):
   - IDR frames: ops/intra.i_frame_step on the device, then boundary
     strengths + deblock (the CUDA kernels on the card), then the host
     CAVLC serializer (encoder/syntax.py) with SPS / PPS;
@@ -20,11 +23,23 @@ that every MB is inter. When frame N's intra trigger fired (a scene cut),
 it is finished on the per-frame path with its device encode reused, and
 frame N+1 is dispatched again against the corrected reference.
 
-The per-frame path (``encode_frame``, and every frame when
-intra_mb_refresh > 0 or with CABAC): ops/enc.p_frame_step on the device,
-the download of its fields, the host commit with the serial re-encode of
-the intra MBs (encoder/p_intra.py), boundary strengths + deblock +
-reference prep on the device, and the host serializer.
+The per-frame path (``encode_frame``, and every frame of a stream with
+several slices or slice groups, rate control, qp_p, intra refresh or
+CABAC), at the picture's QP:
+  - I pictures: i_frame_step on the device when the picture is one
+    slice, else the serial host intra encoder (encoder/intra_host.py);
+  - P pictures: ops/enc.p_frame_step on the device, the download of its
+    fields, the host commit with the serial re-encode of the intra MBs
+    and the picture's slice boundaries (encoder/p_intra.py);
+then boundary strengths + deblock (per-MB QP and slice id) + reference
+prep on the device, and the host serializer, one NAL unit per slice.
+With slice_mode 2 the picture is re-coded on the host until every slice
+NAL unit fits slice_argument bytes (the device encode of a P picture
+does not depend on the slices and is downloaded once; the first try of
+an I picture is one slice per slice group, so with one group it runs on
+the device, and later tries on the host). Rate control takes each
+picture's bits (an IDR's with its SPS / PPS) and the mean absolute
+difference of the source and deblocked luma.
 
 With entropy="cabac" the device path and its decisions are the same;
 only the host serializer changes (encoder/syntax_cabac.py, with the
@@ -45,6 +60,7 @@ import torch
 from ..bitstream.bitwriter import BitWriter
 from ..bitstream.nal import NalUnitType, annexb_bytes
 from ..common.conformance import level_check, minimum_level
+from ..common.fmo import mb_to_slice_group_map
 from ..common.picture import MB_INTER, PictureData
 from ..common.tables import chroma_qp
 from ..common.types import PPS, SPS, SliceType
@@ -53,6 +69,8 @@ from ..device import resolve
 from ..ops import enc as E
 from ..ops.deblock import compute_bs, deblock
 from ..ops.intra import i_frame_step
+from ..ratectl import RateControl
+from .intra_host import IntraPicture
 from .p_intra import CORE_FIELDS, PictureCommit
 from .syntax import serialize_slice, write_pps, write_slice_header, write_sps
 from .syntax_cabac import serialize_slice_cabac
@@ -71,14 +89,16 @@ def lambda_mode4(qp: int) -> int:
 @dataclass
 class EncoderConfig:
     """The configurations this encoder covers: jm_tpu's device IPPP set
-    (4:2:0, one slice, one reference, fixed QP, deblocking on), with
-    device RD or md_low, CAVLC or CABAC, and random intra refresh. Values
-    outside it raise ValueError."""
+    (4:2:0, one reference, deblocking on), with device RD or md_low,
+    CAVLC or CABAC, random intra refresh, several slices per picture,
+    FMO slice groups (CAVLC only), a fixed QP, a P QP of its own or
+    frame-level rate control, and POC types 0, 1 and 2. Values outside
+    it raise ValueError."""
     width: int = 176
     height: int = 144
-    qp: int = 28
+    qp: int = 28                 # I-picture QP (and P without qp_p / RC)
     intra_period: int = 0        # 0: only the first frame is an IDR
-    search_range: int = 16       # integer full search +-SR (<= 24)
+    search_range: int = 16       # integer full search +-SR (1..16)
     level_idc: int = 30          # raised to the smallest level that fits
     frame_rate: float = 30.0
     device_rd: bool = True       # trial-encode RD mode decision; False:
@@ -89,10 +109,33 @@ class EncoderConfig:
     cabac_adapt_init: bool = False   # per P slice, the shortest of the 3
                                  # cabac_init_idc models (lencod
                                  # ContextInitMethod = 1)
+    qp_p: int | None = None      # P-picture QP (None: qp)
+    poc_type: int = 0            # pic_order_cnt_type 0, 1 (a 1-entry
+                                 # expected cycle) or 2
+    rc_enable: bool = False      # frame-level JVT-G012 rate control
+    rc_bitrate: float = 0.0      # its target bits/s
+    rc_initial_qp: int = 0       # 0: derived from the bits per pixel
+    rc_basic_unit: int = 0       # basic-unit rate control: not covered
+    # slices (lencod SliceMode / SliceArgument): 0 one slice per slice
+    # group, 1 slice_argument MBs per slice, 2 at most slice_argument
+    # bytes per slice NAL unit (the picture re-coded until it fits)
+    slice_mode: int = 0
+    slice_argument: int = 0
+    # FMO slice groups (fmo.c; Baseline only): map type 0 interleaved
+    # runs, 1 dispersed, 2 foreground boxes, 3-5 evolving, 6 explicit
+    num_slice_groups: int = 1
+    slice_group_map_type: int = 0
+    sg_run_length: tuple = ()            # type 0 (run_length_minus1 + 1)
+    sg_top_left: tuple = ()              # type 2
+    sg_bottom_right: tuple = ()          # type 2
+    sg_change_direction: int = 0         # types 3-5
+    sg_change_rate_minus1: int = 0       # types 3-5
+    sg_change_cycle: int = 1             # types 3-5 (written per slice)
+    sg_ids: tuple = ()                   # type 6: group of every MB
 
 
 def _check_config(cfg: EncoderConfig) -> None:
-    for name in ("device_rd", "cabac_adapt_init"):
+    for name in ("device_rd", "cabac_adapt_init", "rc_enable"):
         if not isinstance(getattr(cfg, name), bool):
             raise ValueError(f"EncoderConfig.{name}="
                              f"{getattr(cfg, name)!r}: True or False")
@@ -108,12 +151,55 @@ def _check_config(cfg: EncoderConfig) -> None:
                          f"{cfg.height}: positive multiples of 16 only")
     if not 0 <= cfg.qp <= 51:
         raise ValueError(f"EncoderConfig.qp={cfg.qp}: outside 0..51")
+    if cfg.qp_p is not None and not 0 <= cfg.qp_p <= 51:
+        raise ValueError(f"EncoderConfig.qp_p={cfg.qp_p}: outside 0..51")
     if cfg.intra_period < 0:
         raise ValueError(f"EncoderConfig.intra_period={cfg.intra_period}: "
                          "must be >= 0")
-    if not 0 < cfg.search_range <= 24:
+    # the device P path's plane padding (ops/enc.band_geometry, as
+    # jm_tpu's enc_jax.band_geometry) holds a search range of 16 at most
+    if not 0 < cfg.search_range <= 16:
         raise ValueError(f"EncoderConfig.search_range={cfg.search_range}: "
-                         "1..24 only")
+                         "1..16 only (the device path's plane padding)")
+    if cfg.poc_type not in (0, 1, 2):
+        raise ValueError(f"EncoderConfig.poc_type={cfg.poc_type}: 0, 1 or 2")
+    if cfg.rc_enable and not cfg.rc_bitrate > 0:
+        raise ValueError(f"EncoderConfig.rc_bitrate={cfg.rc_bitrate}: "
+                         "must be > 0 with rc_enable")
+    if not 0 <= cfg.rc_initial_qp <= 51:
+        raise ValueError(f"EncoderConfig.rc_initial_qp={cfg.rc_initial_qp}:"
+                         " outside 0..51")
+    if cfg.rc_basic_unit:
+        raise ValueError(f"EncoderConfig.rc_basic_unit={cfg.rc_basic_unit}:"
+                         " basic-unit rate control leaves the device path")
+    if cfg.slice_mode not in (0, 1, 2):
+        raise ValueError(f"EncoderConfig.slice_mode={cfg.slice_mode}: "
+                         "0, 1 or 2")
+    if cfg.slice_argument < 0:
+        raise ValueError(f"EncoderConfig.slice_argument="
+                         f"{cfg.slice_argument}: must be >= 0")
+    if not 1 <= cfg.num_slice_groups <= 8:
+        raise ValueError(f"EncoderConfig.num_slice_groups="
+                         f"{cfg.num_slice_groups}: 1..8")
+    if cfg.num_slice_groups > 1:
+        if cfg.entropy != "cavlc":
+            raise ValueError("EncoderConfig.num_slice_groups: FMO is not "
+                             "allowed in profile 77 (Baseline only)")
+        if cfg.slice_group_map_type not in range(7):
+            raise ValueError(f"EncoderConfig.slice_group_map_type="
+                             f"{cfg.slice_group_map_type}: 0..6")
+        n = (cfg.width // 16) * (cfg.height // 16)
+        t, k = cfg.slice_group_map_type, cfg.num_slice_groups
+        if t == 0 and cfg.sg_run_length and len(cfg.sg_run_length) != k:
+            raise ValueError("EncoderConfig.sg_run_length: one run per "
+                             "slice group")
+        if t == 2 and not len(cfg.sg_top_left) == len(
+                cfg.sg_bottom_right) == k - 1:
+            raise ValueError("EncoderConfig.sg_top_left / sg_bottom_right:"
+                             " one box per slice group but the last")
+        if t == 6 and len(cfg.sg_ids) != n:
+            raise ValueError("EncoderConfig.sg_ids: one slice group id per "
+                             "MB")
 
 
 class Picture:
@@ -152,9 +238,9 @@ class Encoder:
     """IPPP encoder: ``encode_stream(frames)`` returns one Annex-B payload
     per frame, as ``encode_frame(Y, U, V)`` does frame by frame.
     ``results`` holds one dict per coded picture (disp, type, bits, qp,
-    frame: a Picture with the deblocked recon; intra_mbs: the MBs coded
-    intra, for P frames of the per-frame path; cabac_init_idc: the
-    context model of a CABAC P slice)."""
+    slices, frame: a Picture with the deblocked recon; intra_mbs: the MBs
+    coded intra, for P frames of the per-frame path; cabac_init_idc: the
+    context model of each CABAC P slice)."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
@@ -170,8 +256,12 @@ class Encoder:
             level = minimum_level(self.mb_w, self.mb_h, cfg.frame_rate, 1)
         cabac = cfg.entropy == "cabac"
         self.sps = SPS(
-            profile_idc=77 if cabac else 66, level_idc=level, log2_max_frame_num_minus4=4,
-            pic_order_cnt_type=0, log2_max_pic_order_cnt_lsb_minus4=4,
+            profile_idc=77 if cabac else 66, level_idc=level,
+            log2_max_frame_num_minus4=4,
+            pic_order_cnt_type=cfg.poc_type,
+            delta_pic_order_always_zero_flag=1 if cfg.poc_type == 1 else 0,
+            offset_for_ref_frame=[2] if cfg.poc_type == 1 else [],
+            log2_max_pic_order_cnt_lsb_minus4=4,
             max_num_ref_frames=1,
             pic_width_in_mbs_minus1=self.mb_w - 1,
             pic_height_in_map_units_minus1=self.mb_h - 1,
@@ -180,6 +270,30 @@ class Encoder:
         self.pps = PPS(num_ref_idx_l0_default_active_minus1=0,
                        entropy_coding_mode_flag=1 if cabac else 0,
                        deblocking_filter_control_present_flag=0)
+        # FMO slice groups (lencod/src/fmo.c FmoInit)
+        self.group_map = None
+        if cfg.num_slice_groups > 1:
+            p = self.pps
+            p.num_slice_groups_minus1 = cfg.num_slice_groups - 1
+            t = p.slice_group_map_type = cfg.slice_group_map_type
+            if t == 0:
+                runs = cfg.sg_run_length or (1,) * cfg.num_slice_groups
+                p.run_length_minus1 = [r - 1 for r in runs]
+            elif t == 2:
+                p.top_left = list(cfg.sg_top_left)
+                p.bottom_right = list(cfg.sg_bottom_right)
+            elif t in (3, 4, 5):
+                p.slice_group_change_direction_flag = cfg.sg_change_direction
+                p.slice_group_change_rate_minus1 = cfg.sg_change_rate_minus1
+            elif t == 6:
+                p.slice_group_id = list(cfg.sg_ids)
+            self.group_map = mb_to_slice_group_map(p, self.sps,
+                                                   cfg.sg_change_cycle)
+        self.slice_plan = self._build_slice_plan()
+        self.rc = None
+        if cfg.rc_enable:
+            self.rc = RateControl(cfg.rc_bitrate, cfg.frame_rate, cfg.width,
+                                  cfg.height, initial_qp=cfg.rc_initial_qp)
         self.qpc = chroma_qp(cfg.qp, self.pps.chroma_qp_index_offset)
         self.qpc_cb, self.qpc_cr = qpc_tables(self.pps, self.device)
         n = self.mb_w * self.mb_h
@@ -206,6 +320,37 @@ class Encoder:
         self._refresh_perm = []
         self._refresh_pos = 0
         self._refresh_rng = np.random.default_rng(1)
+
+    def _build_slice_plan(self) -> list:
+        """Decode-order MB address lists, one per slice: the slice groups
+        in group order (each in raster order), with slice_mode 1 cut into
+        slices of slice_argument MBs (jm_tpu _build_slice_plan)."""
+        cfg = self.cfg
+        n = self.mb_w * self.mb_h
+        if self.group_map is None:
+            groups = [list(range(n))]
+        else:
+            groups = [[int(a) for a in np.flatnonzero(self.group_map == g)]
+                      for g in range(cfg.num_slice_groups)]
+        slices = []
+        for addrs in groups:
+            if not addrs:
+                continue
+            if cfg.slice_mode == 1 and cfg.slice_argument > 0:
+                k = cfg.slice_argument
+                slices.extend(addrs[i:i + k] for i in range(0, len(addrs), k))
+            else:
+                slices.append(addrs)
+        return slices
+
+    def _pipe_ok(self) -> bool:
+        """The pipe covers CAVLC with one slice group and no slice mode,
+        a fixed QP and no intra refresh, any POC type (jm_tpu _pipe_ok);
+        everything else takes the per-frame path."""
+        cfg = self.cfg
+        return (cfg.entropy == "cavlc" and cfg.intra_mb_refresh == 0
+                and cfg.slice_mode == 0 and cfg.num_slice_groups == 1
+                and self.rc is None and cfg.qp_p is None)
 
     # ------------------------------------------------------------------
 
@@ -239,10 +384,9 @@ class Encoder:
 
     def encode_stream(self, frames) -> list:
         """Encode (Y, U, V) display-order frames; returns the per-frame
-        Annex-B payloads (bytes). With intra_mb_refresh > 0 or CABAC every
-        frame takes the per-frame path (as jm_tpu's does: its pipe packs
-        CAVLC only)."""
-        if self.cfg.intra_mb_refresh > 0 or self.cfg.entropy == "cabac":
+        Annex-B payloads (bytes). Outside the pipe's cover (``_pipe_ok``)
+        every frame takes the per-frame path, as jm_tpu's does."""
+        if not self._pipe_ok():
             return [self.encode_frame(*f) for f in frames]
         payloads = []
         pending = None       # (out, disp, state, frame) of the dispatched P
@@ -255,7 +399,7 @@ class Encoder:
                 if pending is not None:
                     payloads.append(self._finalize(*pending)[0])
                     pending = None
-                payloads.append(self._encode_idr(*self._planes(packed)))
+                payloads.append(self._encode_idr(packed, f))
                 state = None
                 continue
             disp = self.display_idx
@@ -281,17 +425,21 @@ class Encoder:
         its Annex-B payload (there are no B pictures, so nothing is held
         back)."""
         cfg = self.cfg
-        packed = self._upload((Y, U, V))
+        frame = (Y, U, V)
+        packed = self._upload(frame)
         if self._idr_due(self.frame_idx):
-            return self._encode_idr(*self._planes(packed))
+            return self._encode_idr(packed, frame)
         disp = self.display_idx
         self.display_idx += 1
+        qp = self.rc.pict_qp("P") if self.rc is not None else \
+            (cfg.qp if cfg.qp_p is None else cfg.qp_p)
         forced = self._refresh_set()
         core = E.p_frame_step(
-            *self._planes(packed), *self.ref_state, cfg.qp, self.qpc,
-            lambda_me(cfg.qp), lambda_mode4(cfg.qp), mb_w=self.mb_w,
-            mb_h=self.mb_h, sr=cfg.search_range, rd=cfg.device_rd)
-        return self._finish_p(core, disp, (Y, U, V), forced)
+            *self._planes(packed), *self.ref_state, qp,
+            chroma_qp(qp, self.pps.chroma_qp_index_offset), lambda_me(qp),
+            lambda_mode4(qp), mb_w=self.mb_w, mb_h=self.mb_h,
+            sr=cfg.search_range, rd=cfg.device_rd)
+        return self._finish_p(core, disp, frame, forced, qp, packed)
 
     def flush(self) -> bytes:
         """The end of the stream: nothing is buffered (no B pictures)."""
@@ -321,37 +469,114 @@ class Encoder:
 
     # ------------------------------------------------------------------
 
-    def _deblock(self, rec, mb_class, luma_nnz, mv=None, ref_pic_id=None):
-        """Boundary strengths + deblock of a picture (device tensors):
-        mb_class (N,) (0 inter), luma_nnz (N, 16), and for P pictures the
-        MVs (N, 16, 2) and reference ids (N, 4) (-1 for intra MBs)."""
-        n = self.mb_w * self.mb_h
-        dev = self.device
-        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
-        if mv is None:
-            mv = torch.zeros((n, 16, 2), dtype=torch.int32, device=dev)
-            ref_pic_id = torch.full((n, 4), -1, dtype=torch.int32, device=dev)
-        bs_v, bs_h = compute_bs(mb_class, luma_nnz, zeros, mv,
-                                torch.zeros_like(mv),
-                                ref_pic_id, torch.full_like(ref_pic_id, -1),
+    def _deblock(self, rec, pic: PictureData):
+        """Boundary strengths + deblock of a coded picture on the device:
+        rec the (Y, U, V) recon planes (device tensors or numpy), pic its
+        PictureData (per-MB QP and slice id; MVs and reference ids, -1
+        for intra MBs). Returns the deblocked planes on the device."""
+        def up(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+        rec = tuple(p if isinstance(p, torch.Tensor) else up(p) for p in rec)
+        mv, ref_pic_id = up(pic.mv), up(pic.ref_pic_id)
+        zeros = torch.zeros(pic.n_mbs, dtype=torch.int32, device=self.device)
+        bs_v, bs_h = compute_bs(up(pic.mb_class), up(pic.luma_nnz), zeros,
+                                mv, torch.zeros_like(mv), ref_pic_id,
+                                torch.full_like(ref_pic_id, -1),
                                 self.mb_w, self.mb_h)
-        qp_arr = torch.full((n,), self.cfg.qp, dtype=torch.int32, device=dev)
-        return deblock(*rec, bs_v, bs_h, qp_arr, zeros, zeros, zeros, zeros,
-                       zeros, self.qpc_cb, self.qpc_cr,
+        return deblock(*rec, bs_v, bs_h, up(pic.qp), zeros, zeros, zeros,
+                       up(pic.slice_id), zeros, self.qpc_cb, self.qpc_cr,
                        mb_w=self.mb_w, mb_h=self.mb_h)
 
-    def _encode_idr(self, Y, U, V) -> bytes:
+    def _rc_update(self, label: str, qp: int, payload: bytes, src_y,
+                   rec_y) -> None:
+        """Rate control's update after a coded picture: its bits and the
+        mean absolute difference of the source and deblocked luma (device
+        tensors; summed in int64, divided in float64, as numpy's mean)."""
+        if self.rc is None:
+            return
+        diff = (src_y.to(torch.int32) - rec_y.to(torch.int32)).abs()
+        mad = int(diff.sum(dtype=torch.int64)) / diff.numel()
+        self.rc.update(label, qp, len(payload) * 8, mad)
+
+    def _fit_slices(self, code, serialize):
+        """Code and serialize a picture under the slice plan. code(plan)
+        returns the coded picture (an object with ``pic``);
+        serialize(pic, plan, sizes) its slice NAL units, appending each
+        one's size. With slice_mode 2 every slice over slice_argument
+        bytes (NAL unit without start code, lencod slice.c:524) is cut in
+        proportion and the picture re-coded, at most 12 times, until each
+        fits or is one MB (jm_tpu _fit_byte_slices). Returns (the coded
+        picture, its serialization, the plan)."""
+        limit = self.cfg.slice_argument
+        fit = self.cfg.slice_mode == 2 and limit > 0
+        plan = [list(a) for a in self.slice_plan]
+        for _ in range(12 if fit else 1):
+            coded = code(plan)
+            sizes = []
+            out = serialize(coded.pic, plan, sizes)
+            if not fit:
+                break
+            new_plan, changed = [], False
+            for addrs, sz in zip(plan, sizes):
+                if sz <= limit or len(addrs) == 1:
+                    new_plan.append(addrs)
+                    continue
+                changed = True
+                k = max(1, int(len(addrs) * limit / sz * 0.92))
+                new_plan.extend(addrs[i:i + k]
+                                for i in range(0, len(addrs), k))
+            if not changed:
+                break
+            plan = new_plan
+        return coded, out, plan
+
+    # ---- I pictures ----------------------------------------------------
+
+    def _encode_idr(self, packed, frame) -> bytes:
+        """An IDR picture at qp (or rate control's I QP) on the per-frame
+        path: coded on the device when it is one slice, on the host
+        otherwise."""
         cfg = self.cfg
-        qp = cfg.qp
         disp = self.display_idx
         self.display_idx += 1
         self.frame_num = 0
         self._idr_disp = disp
-        out = i_frame_step(Y, U, V, qp, self.qpc, lambda_me(qp),
-                           lambda_mode4(qp), mb_w=self.mb_w, mb_h=self.mb_h)
-        dY, dU, dV = self._deblock(
-            (out["recY"], out["recU"], out["recV"]), out["cls"], out["lnnz"])
+        if self.rc is not None:
+            gop = cfg.intra_period if cfg.intra_period > 0 else 32
+            self.rc.init_gop(gop - 1, 0)
+            qp = self.rc.pict_qp("I")
+        else:
+            qp = cfg.qp
+        planes = self._planes(packed)
+        coded, (nal, _info), plan = self._fit_slices(
+            lambda plan: self._code_i(planes, frame, qp, plan),
+            lambda pic, plan, sizes: self._picture_nals(
+                pic, SliceType.I, 0, qp, plan, sizes))
+        dY, dU, dV = self._deblock(coded.rec, coded.pic)
         self.ref_state = E.prep_ref(dY, dU, dV)
+        payload = (annexb_bytes(3, NalUnitType.SPS, write_sps(self.sps))
+                   + annexb_bytes(3, NalUnitType.PPS, write_pps(self.pps))
+                   + nal)
+        self._rc_update("I", qp, payload, planes[0], dY)
+        frame = Picture(0, 0, planes=tuple(t.cpu().numpy()
+                                           for t in (dY, dU, dV)))
+        self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
+        self.frame_idx += 1
+        self.results.append({"disp": disp, "type": "I",
+                             "bits": len(payload) * 8, "frame": frame,
+                             "qp": qp, "slices": len(plan)})
+        return payload
+
+    def _code_i(self, planes, frame, qp: int, plan):
+        """The I picture under the slice plan: ops/intra.i_frame_step on
+        the device for one slice, the host intra encoder for several."""
+        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
+        if len(plan) > 1:
+            return self._intra_host(frame, qp, qpc, plan)
+        out = i_frame_step(*planes, qp, qpc, lambda_me(qp), lambda_mode4(qp),
+                           mb_w=self.mb_w, mb_h=self.mb_h)
         h = {k: out[k].cpu().numpy() for k in (
             "cls", "i4m", "i16m", "cmode", "cbp", "lcoef", "ldc", "lnnz",
             "cdc", "cac", "cnnz")}
@@ -370,19 +595,14 @@ class Encoder:
         pic.ref_idx[:] = -1
         pic.slice_id[:] = 0
         pic.qp[:] = qp
-        nal, _info = self._slice_nal(pic, SliceType.I, 0)
-        payload = (annexb_bytes(3, NalUnitType.SPS, write_sps(self.sps))
-                   + annexb_bytes(3, NalUnitType.PPS, write_pps(self.pps))
-                   + nal)
-        frame = Picture(0, 0, planes=tuple(t.cpu().numpy()
-                                           for t in (dY, dU, dV)))
-        self.idr_pic_id = (self.idr_pic_id + 1) % 65536
-        self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
-        self.frame_idx += 1
-        self.results.append({"disp": disp, "type": "I",
-                             "bits": len(payload) * 8, "frame": frame,
-                             "qp": qp})
-        return payload
+        return _Coded(pic, (out["recY"], out["recU"], out["recV"]))
+
+    def _intra_host(self, frame, qp: int, qpc: int, plan) -> IntraPicture:
+        """The serial host intra encoder over the slice plan."""
+        return IntraPicture(frame, qp, qpc, lambda_me(qp), lambda_mode4(qp),
+                            plan)
+
+    # ---- P pictures of the pipe ----------------------------------------
 
     def _finalize(self, out, disp: int, new_state, frame):
         """Complete a dispatched P frame: download its packed words and
@@ -394,10 +614,13 @@ class Encoder:
         nbits, ovf, intra_any = (int(v) for v in ext[:3])
         if intra_any:
             self.fallbacks.append(disp)
-            return self._finish_p(out["core"], disp, frame, ()), True
+            return self._finish_p(out["core"], disp, frame, (),
+                                  self.cfg.qp), True
+        poc = 2 * (disp - self._idr_disp)
         if ovf:
             self.ovf.append(disp)
-            nal, info = self._serialize_p(self._inter_picture(out), disp)
+            nal, info = self._serialize_p(self._inter_picture(out), disp,
+                                          self.cfg.qp, self.slice_plan)
         else:
             k = (nbits + 31) // 32
             bw = BitWriter()
@@ -405,17 +628,18 @@ class Encoder:
                                slice_type=SliceType.P,
                                frame_num=self.frame_num, idr=False,
                                idr_pic_id=self.idr_pic_id, qp=self.cfg.qp,
-                               poc_lsb=2 * (disp - self._idr_disp) % 256)
+                               poc_lsb=poc % 256)
             bw.append_bitstream(ext[3:3 + k].astype(">u4").tobytes(), nbits)
             bw.rbsp_trailing_bits()
             nal, info = annexb_bytes(3, NalUnitType.SLICE, bw.get_bytes()), {}
-        return self._commit_p_frame(nal, disp, new_state, **info), False
+        return self._commit_p_frame(nal, disp, new_state, self.cfg.qp, 1,
+                                    **info), False
 
-    def _commit_p_frame(self, slice_bytes: bytes, disp: int, state,
-                        **info) -> bytes:
-        """Store a coded P picture (its slice NAL unit slice_bytes) as the
-        reference and in ``results`` (with the items of info); returns
-        slice_bytes."""
+    def _commit_p_frame(self, slice_bytes: bytes, disp: int, state, qp: int,
+                        n_slices: int, **info) -> bytes:
+        """Store a coded P picture (its slice NAL units slice_bytes) as
+        the reference and in ``results`` (with the items of info);
+        returns slice_bytes."""
         poc = 2 * (disp - self._idr_disp)
         self.ref_state = state
         frame = Picture(poc, self.frame_num, state=state)
@@ -423,65 +647,86 @@ class Encoder:
         self.frame_idx += 1
         self.results.append({"disp": disp, "type": "P",
                              "bits": len(slice_bytes) * 8, "frame": frame,
-                             "qp": self.cfg.qp, **info})
+                             "qp": qp, "slices": n_slices, **info})
         return slice_bytes
 
     # ---- the per-frame P path ----------------------------------------
 
-    def _finish_p(self, core, disp: int, frame, forced) -> bytes:
+    def _finish_p(self, core, disp: int, frame, forced, qp: int,
+                  packed=None) -> bytes:
         """The per-frame P path after the device encode `core`
-        (p_frame_step's fields): download, host commit with the intra
-        re-encode, deblock and reference prep on the device, host
-        serializer. frame: the source (Y, U, V) planes; forced: MBs of
-        the intra refresh."""
-        c = self._commit_p(self._download_core(core), frame, forced)
+        (p_frame_step's fields at qp): download, host commit with the
+        intra re-encode under the slice plan (re-coded until the slices
+        fit with slice_mode 2), deblock and reference prep on the device,
+        host serializer. frame: the source (Y, U, V) planes; forced: MBs
+        of the intra refresh; packed: the uploaded source (for rate
+        control)."""
+        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
+        host = self._download_core(core)
+        c, (nal, info), plan = self._fit_slices(
+            lambda plan: self._commit_p(host, frame, forced, qp, qpc, plan),
+            lambda pic, plan, sizes: self._serialize_p(pic, disp, qp, plan,
+                                                       sizes))
         state = self._deblock_p(c)
-        nal, info = self._serialize_p(c.pic, disp)
-        return self._commit_p_frame(nal, disp, state,
+        if self.rc is not None:
+            self._rc_update("P", qp, nal, self._planes(packed)[0],
+                            state[0][0][E.PAD:-E.PAD, E.PAD:-E.PAD])
+        return self._commit_p_frame(nal, disp, state, qp, len(plan),
                                     intra_mbs=len(c.intra_mbs), **info)
 
     def _download_core(self, core) -> dict:
         return {k: core[k].cpu().numpy() for k in CORE_FIELDS}
 
-    def _commit_p(self, core, frame, forced) -> PictureCommit:
-        return PictureCommit(core, frame, self.cfg.qp, self.qpc, forced)
+    def _commit_p(self, core, frame, forced, qp, qpc, plan) -> PictureCommit:
+        return PictureCommit(core, frame, qp, qpc, forced, plan)
 
     def _deblock_p(self, c: PictureCommit):
         """The committed picture's boundary strengths, deblock and
         reference prep on the device; returns the reference state."""
-        pic = c.pic
+        return E.prep_ref(*self._deblock(c.rec, c.pic))
 
-        def up(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+    def _serialize_p(self, pic: PictureData, disp: int, qp: int, plan,
+                     sizes=None):
+        """A P picture's slices serialized on the host: (their NAL units,
+        what ``results`` records of them)."""
+        return self._picture_nals(pic, SliceType.P,
+                                  2 * (disp - self._idr_disp), qp, plan,
+                                  sizes)
 
-        return E.prep_ref(*self._deblock(
-            tuple(up(p) for p in (c.recY, c.recU, c.recV)), up(pic.mb_class),
-            up(pic.luma_nnz), up(pic.mv), up(pic.ref_pic_id)))
+    # ---- host serializers ----------------------------------------------
 
-    def _serialize_p(self, pic: PictureData, disp: int):
-        """A P picture as one slice serialized on the host: (its NAL
-        unit, what ``results`` records of it)."""
-        return self._slice_nal(pic, SliceType.P,
-                               2 * (disp - self._idr_disp) % 256)
-
-    def _slice_nal(self, pic: PictureData, slice_type: SliceType,
-                   poc_lsb: int):
-        """The picture as one slice NAL unit (an IDR for I slices), CAVLC
-        or CABAC; with CABAC followed by the cabac_zero_words its bin count
-        calls for. Returns (bytes, {"cabac_init_idc": idc} for a CABAC P
-        slice, else {})."""
+    def _picture_nals(self, pic: PictureData, slice_type: SliceType,
+                      poc: int, qp: int, plan, sizes=None):
+        """The picture as one NAL unit per slice of plan (IDR units for I
+        slices), CAVLC or CABAC; with CABAC followed by the
+        cabac_zero_words its bin count calls for. The size of each unit
+        without its start code is appended to sizes. Returns (bytes,
+        {"cabac_init_idc": [each slice's]} for a CABAC P picture, else
+        {})."""
         idr = slice_type == SliceType.I
         kw = dict(slice_type=slice_type, frame_num=self.frame_num, idr=idr,
-                  qp=self.cfg.qp, poc_lsb=poc_lsb,
-                  idr_pic_id=self.idr_pic_id)
+                  qp=qp, poc_lsb=poc % 256, idr_pic_id=self.idr_pic_id)
         nal_type = NalUnitType.IDR if idr else NalUnitType.SLICE
-        if self.cfg.entropy == "cavlc":
-            rbsp = serialize_slice(pic, self.sps, self.pps, **kw)
-            return annexb_bytes(3, nal_type, rbsp), {}
-        rbsp, bins, idc = self._serialize_cabac_best_init(pic, **kw)
-        nal = annexb_bytes(3, nal_type, rbsp)
-        return (nal + self._cabac_zero_words(nal, bins),
-                {} if idr else {"cabac_init_idc": idc})
+        cabac = self.cfg.entropy == "cabac"
+        out, bins, idcs = b"", 0, []
+        for addrs in plan:
+            if cabac:
+                rbsp, b, idc = self._serialize_cabac_best_init(
+                    pic, mb_addrs=addrs, **kw)
+                bins += b
+                idcs.append(idc)
+            else:
+                rbsp = serialize_slice(
+                    pic, self.sps, self.pps, mb_addrs=addrs,
+                    slice_group_change_cycle=self.cfg.sg_change_cycle, **kw)
+            unit = annexb_bytes(3, nal_type, rbsp)
+            if sizes is not None:
+                sizes.append(len(unit) - 4)
+            out += unit
+        if not cabac:
+            return out, {}
+        out += self._cabac_zero_words(out, bins, len(plan))
+        return out, ({} if idr else {"cabac_init_idc": idcs})
 
     def _serialize_cabac_best_init(self, pic: PictureData, **kw):
         """CABAC slice with the context model of lencod's
@@ -504,14 +749,15 @@ class Encoder:
                 best = (rbsp, stats["bins"], idc)
         return best
 
-    def _cabac_zero_words(self, nal: bytes, bins: int) -> bytes:
+    def _cabac_zero_words(self, vcl: bytes, bins: int, n_units: int) -> bytes:
         """Clause 7.4.2.10: cabac_zero_words (EBSP 00 00 03) after the
-        picture's slice NAL unit when the bins coded exceed what its size
-        allows (lencod/src/nal.c addCabacZeroWords; jm_tpu encoder.py
-        _cabac_zero_words). RawMbBits of 8-bit 4:2:0 is 3072."""
+        picture's last slice NAL unit when the bins coded in the picture
+        exceed what its size allows (lencod/src/nal.c addCabacZeroWords;
+        jm_tpu encoder.py _cabac_zero_words). RawMbBits of 8-bit 4:2:0 is
+        3072; vcl holds the picture's n_units slice NAL units."""
         n_mbs = self.mb_w * self.mb_h
         min_bytes = (96 * bins - 3072 * n_mbs * 3 + 1023) // 1024
-        vcl_bytes = len(nal) - 3       # NAL header + EBSP, as JM counts
+        vcl_bytes = len(vcl) - 3 * n_units   # NAL header + EBSP, as JM
         if min_bytes <= vcl_bytes:
             return b""
         return b"\x00\x00\x03" * ((min_bytes - vcl_bytes + 2) // 3)
@@ -538,3 +784,11 @@ class Encoder:
         pic.slice_id[:] = 0
         pic.skip[:] = out["skip"].cpu().numpy()
         return pic
+
+
+class _Coded:
+    """A picture coded on the device: its PictureData and (Y, U, V)
+    undeblocked recon planes, device tensors."""
+
+    def __init__(self, pic: PictureData, rec):
+        self.pic, self.rec = pic, rec

@@ -2,10 +2,13 @@
 re-encode of its intra macroblocks (twin of the host part of
 jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_device, :2252-2293, and
 of its _i16_candidates, _eval_i16, _encode_i16, _encode_chroma_intra and
-_code_chroma_residual for 4:2:0 with flat quant and no trellis).
+_code_chroma_residual for 4:2:0 with flat quant and no trellis, which
+IntraMBCoder holds for this module and for encoder/intra_host.py).
 
 The device's fields (ops/enc.p_frame_step, downloaded) fill the
-PictureData and the undeblocked recon planes. Then, in raster order, each
+PictureData and the undeblocked recon planes; the picture's slice plan
+fills pic.slice_id, so that intra prediction, the P_Skip predictor and
+the serializers see the slice boundaries. Then, in raster order, each
 MB whose intra trigger fired, and each MB of the forced-refresh set, is
 re-encoded as Intra16x16 with its chroma from the recon neighbours, which
 are final: inter recon never reads the current picture, and each intra MB
@@ -30,61 +33,24 @@ CORE_FIELDS = ("inter_mode", "mv4", "luma_scan", "luma_nnz", "cbp",
                "recY", "recU", "recV")
 
 
-class PictureCommit:
-    """One P picture's host state: ``pic`` (PictureData) and the
-    undeblocked recon planes recY / recU / recV (numpy uint8).
-    ``intra_mbs`` lists the MBs re-encoded as intra."""
+class IntraMBCoder:
+    """The Intra16x16 and chroma intra coding of one MB of a picture with
+    source planes origY / origU / origV, recon planes recY / recU / recV,
+    PictureData ``pic`` with its PredCtx ``pctx``, and QPs qp / qpc."""
 
-    def __init__(self, core: dict, orig, qp: int, qpc: int, forced=()):
-        """core: the CORE_FIELDS as numpy arrays; orig: the source
-        (Y, U, V) uint8 planes; forced: MB addresses to code as intra
-        whatever the trigger says (intra refresh)."""
+    def _init_picture(self, orig, qp: int, qpc: int) -> PictureData:
         self.origY, self.origU, self.origV = (np.asarray(p, np.uint8)
                                               for p in orig)
         self.mb_h, self.mb_w = (s // 16 for s in self.origY.shape)
         self.qp, self.qpc = qp, qpc
-        pic = self.pic = PictureData(self.mb_w, self.mb_h)
-        self.pctx = PredCtx(pic)
-        pic.slice_id[:] = 0
-        pic.qp[:] = qp
-        pic.mb_class[:] = MB_INTER
-        pic.inter_mode[:] = core["inter_mode"]
-        pic.mv[:] = core["mv4"]
-        pic.ref_idx[:] = 0
-        pic.ref_pic_id[:] = 0
-        pic.pdir[:] = 0
-        pic.sub_mode[:] = 0
-        pic.luma_coef[:] = core["luma_scan"]
-        pic.luma_nnz[:] = core["luma_nnz"]
-        pic.chroma_dc[:] = core["chroma_dc"]
-        pic.chroma_coef[:] = core["chroma_scan"]
-        pic.chroma_nnz[:] = core["chroma_nnz"]
-        pic.cbp[:] = core["cbp"]
-        self.recY = np.array(core["recY"], np.uint8)
-        self.recU = np.array(core["recU"], np.uint8)
-        self.recV = np.array(core["recV"], np.uint8)
+        self.pic = PictureData(self.mb_w, self.mb_h)
+        self.pctx = PredCtx(self.pic)
+        return self.pic
 
-        intra = np.array(core["intra_mask"], bool)
-        intra[list(forced)] = True
-        self.intra_mbs = [int(a) for a in np.flatnonzero(intra)]
-        for addr in self.intra_mbs:
-            pic.ref_idx[addr] = -1
-            pic.ref_pic_id[addr] = -1
-            pic.mv[addr] = 0
-            origY_mb = self._mb_orig(addr)[0]
-            _c, m16, p16 = self._eval_i16(addr, origY_mb)
-            cbp_luma = self._encode_i16(addr, origY_mb, m16, p16)
-            cbp_chroma = self._encode_chroma_intra(addr)
-            pic.cbp[addr] = (cbp_chroma << 4) | cbp_luma
-
-        # P_Skip: 16x16, reference 0, no coefficients, MV == skip predictor
-        cand = np.flatnonzero((pic.cbp == 0) & (pic.inter_mode == 0)
-                              & (pic.mb_class == MB_INTER)
-                              & (pic.ref_idx[:, 0] == 0))
-        for addr in cand:
-            addr = int(addr)
-            if (pic.mv[addr, 0] == self.pctx.skip_mv(addr)).all():
-                pic.skip[addr] = True
+    @property
+    def rec(self):
+        """The undeblocked (Y, U, V) recon planes."""
+        return self.recY, self.recU, self.recV
 
     # ---- helpers ----------------------------------------------------------
 
@@ -233,3 +199,58 @@ class PictureCommit:
             plane[cy:cy + 8, cx:cx + 8] = \
                 rec.reshape(2, 2, 4, 4).transpose(0, 2, 1, 3).reshape(8, 8)
         return cbp_chroma
+
+
+class PictureCommit(IntraMBCoder):
+    """One P picture's host state: ``pic`` (PictureData) and the
+    undeblocked recon planes recY / recU / recV (numpy uint8).
+    ``intra_mbs`` lists the MBs re-encoded as intra."""
+
+    def __init__(self, core: dict, orig, qp: int, qpc: int, forced,
+                 slices):
+        """core: the CORE_FIELDS as numpy arrays; orig: the source
+        (Y, U, V) uint8 planes; forced: MB addresses to code as intra
+        whatever the trigger says (intra refresh); slices: the picture's
+        slice plan, MB address lists in decode order."""
+        pic = self._init_picture(orig, qp, qpc)
+        for sid, addrs in enumerate(slices):
+            pic.slice_id[addrs] = sid
+        pic.qp[:] = qp
+        pic.mb_class[:] = MB_INTER
+        pic.inter_mode[:] = core["inter_mode"]
+        pic.mv[:] = core["mv4"]
+        pic.ref_idx[:] = 0
+        pic.ref_pic_id[:] = 0
+        pic.pdir[:] = 0
+        pic.sub_mode[:] = 0
+        pic.luma_coef[:] = core["luma_scan"]
+        pic.luma_nnz[:] = core["luma_nnz"]
+        pic.chroma_dc[:] = core["chroma_dc"]
+        pic.chroma_coef[:] = core["chroma_scan"]
+        pic.chroma_nnz[:] = core["chroma_nnz"]
+        pic.cbp[:] = core["cbp"]
+        self.recY = np.array(core["recY"], np.uint8)
+        self.recU = np.array(core["recU"], np.uint8)
+        self.recV = np.array(core["recV"], np.uint8)
+
+        intra = np.array(core["intra_mask"], bool)
+        intra[list(forced)] = True
+        self.intra_mbs = [int(a) for a in np.flatnonzero(intra)]
+        for addr in self.intra_mbs:
+            pic.ref_idx[addr] = -1
+            pic.ref_pic_id[addr] = -1
+            pic.mv[addr] = 0
+            origY_mb = self._mb_orig(addr)[0]
+            _c, m16, p16 = self._eval_i16(addr, origY_mb)
+            cbp_luma = self._encode_i16(addr, origY_mb, m16, p16)
+            cbp_chroma = self._encode_chroma_intra(addr)
+            pic.cbp[addr] = (cbp_chroma << 4) | cbp_luma
+
+        # P_Skip: 16x16, reference 0, no coefficients, MV == skip predictor
+        cand = np.flatnonzero((pic.cbp == 0) & (pic.inter_mode == 0)
+                              & (pic.mb_class == MB_INTER)
+                              & (pic.ref_idx[:, 0] == 0))
+        for addr in cand:
+            addr = int(addr)
+            if (pic.mv[addr, 0] == self.pctx.skip_mv(addr)).all():
+                pic.skip[addr] = True

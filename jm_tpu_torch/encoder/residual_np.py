@@ -81,6 +81,13 @@ def _dequant_4x4(coef, qp: int):
                           4).astype(np.int32)
 
 
+def recon_luma_4x4(pred_blocks, lev_scan, qp: int):
+    """Decode-mirror recon of 4x4 luma blocks that are not Intra16x16:
+    pred_blocks (k, 4, 4), lev_scan (k, 16) zig-zag levels."""
+    r = (_np_inv4(_dequant_4x4(from_scan(lev_scan), qp)) + 32) >> 6
+    return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
+
+
 def recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp: int):
     """Decode-mirror Intra16x16 recon: pred_blocks (16, 4, 4), ac_scan
     (16, 16) with [:, 0] == 0, dc_scan (16,) zig-zag DC levels."""

@@ -2,9 +2,11 @@
 7.3.2), the I/P frame slice header (7.3.3) and the CAVLC macroblock layer
 (7.3.5) serialized from PictureData (the CABAC one is syntax_cabac.py).
 
-Covers what the IPPP 4:2:0 single-slice encoder emits: Baseline or Main
-SPS/PPS without VUI, scaling lists or FMO; I_NxN / I_16x16 macroblocks;
-P macroblocks with 16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks
+Covers what the IPPP 4:2:0 encoder emits: Baseline or Main SPS/PPS
+without VUI or scaling lists, with POC type 0, 1 or 2 and FMO slice
+groups of map types 0-6; slices of any MB address list (several per
+picture, in slice-group order); I_NxN / I_16x16 macroblocks; P
+macroblocks with 16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks
 only) and one reference. Serialization is a pure function of the decided
 PictureData (lencod/src/macroblock.c write_{i,p}_slice_MB_layer order).
 """
@@ -26,12 +28,15 @@ CBP_INV_CHROMA_INTER = {int(cbp): i for i, (_, cbp) in enumerate(CBP_MAP_CHROMA)
 
 
 def write_sps(sps) -> bytes:
-    """Seq_parameter_set_rbsp for a frame-coded Baseline stream with POC
-    type 0 and no VUI (lencod parset.c GenerateSeq_parameter_set_rbsp)."""
+    """Seq_parameter_set_rbsp for a frame-coded Baseline or Main stream
+    with POC type 0, 1 or 2 and no VUI (lencod parset.c
+    GenerateSeq_parameter_set_rbsp; jm_tpu/encoder/syntax.py
+    _write_sps_data)."""
     if sps.profile_idc in (100, 110, 122, 244, 44, 118, 128) \
-            or sps.pic_order_cnt_type != 0 or not sps.frame_mbs_only_flag:
-        raise ValueError("write_sps covers Baseline frame coding with "
-                         "pic_order_cnt_type 0")
+            or sps.pic_order_cnt_type not in (0, 1, 2) \
+            or not sps.frame_mbs_only_flag:
+        raise ValueError("write_sps covers Baseline / Main frame coding "
+                         "with pic_order_cnt_type 0, 1 or 2")
     bw = BitWriter()
     bw.u(sps.profile_idc, 8)
     bw.u(sps.constraint_set_flags, 8)
@@ -39,7 +44,16 @@ def write_sps(sps) -> bytes:
     bw.ue(sps.seq_parameter_set_id)
     bw.ue(sps.log2_max_frame_num_minus4)
     bw.ue(sps.pic_order_cnt_type)
-    bw.ue(sps.log2_max_pic_order_cnt_lsb_minus4)
+    if sps.pic_order_cnt_type == 0:
+        bw.ue(sps.log2_max_pic_order_cnt_lsb_minus4)
+    elif sps.pic_order_cnt_type == 1:
+        # spec 7.3.2.1.1 expected-POC-cycle syntax
+        bw.flag(sps.delta_pic_order_always_zero_flag)
+        bw.se(sps.offset_for_non_ref_pic)
+        bw.se(sps.offset_for_top_to_bottom_field)
+        bw.ue(len(sps.offset_for_ref_frame))
+        for off in sps.offset_for_ref_frame:
+            bw.se(off)
     bw.ue(sps.max_num_ref_frames)
     bw.flag(sps.gaps_in_frame_num_value_allowed_flag)
     bw.ue(sps.pic_width_in_mbs_minus1)
@@ -58,16 +72,37 @@ def write_sps(sps) -> bytes:
 
 
 def write_pps(pps) -> bytes:
-    """Pic_parameter_set_rbsp with one slice group and no FRExt
-    extension (lencod parset.c GeneratePic_parameter_set_rbsp)."""
-    if pps.num_slice_groups_minus1 or pps.transform_8x8_mode_flag:
-        raise ValueError("write_pps covers one slice group, 4x4 transform")
+    """Pic_parameter_set_rbsp with FMO slice groups of map types 0-6 and
+    no FRExt extension (lencod parset.c GeneratePic_parameter_set_rbsp;
+    jm_tpu/encoder/syntax.py write_pps)."""
+    if pps.transform_8x8_mode_flag:
+        raise ValueError("write_pps covers the 4x4 transform only")
     bw = BitWriter()
     bw.ue(pps.pic_parameter_set_id)
     bw.ue(pps.seq_parameter_set_id)
     bw.flag(pps.entropy_coding_mode_flag)
     bw.flag(pps.bottom_field_pic_order_in_frame_present_flag)
     bw.ue(pps.num_slice_groups_minus1)
+    if pps.num_slice_groups_minus1 > 0:
+        # slice-group syntax (spec 7.3.2.2; lencod/src/parset.c:877)
+        t = pps.slice_group_map_type
+        bw.ue(t)
+        if t == 0:
+            for r in pps.run_length_minus1:
+                bw.ue(r)
+        elif t == 2:
+            for tl, br_ in zip(pps.top_left, pps.bottom_right):
+                bw.ue(tl)
+                bw.ue(br_)
+        elif t in (3, 4, 5):
+            bw.flag(pps.slice_group_change_direction_flag)
+            bw.ue(pps.slice_group_change_rate_minus1)
+        elif t == 6:
+            ids = pps.slice_group_id
+            bw.ue(len(ids) - 1)
+            nbits = max(1, pps.num_slice_groups_minus1.bit_length())
+            for g in ids:
+                bw.u(g, nbits)
     bw.ue(pps.num_ref_idx_l0_default_active_minus1)
     bw.ue(pps.num_ref_idx_l1_default_active_minus1)
     bw.flag(pps.weighted_pred_flag)
@@ -85,18 +120,20 @@ def write_pps(pps) -> bytes:
 def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                        frame_num: int, idr: bool, idr_pic_id: int = 0,
                        qp: int, first_mb: int = 0, poc_lsb: int = 0,
-                       num_ref_idx_l0: int = 1,
-                       cabac_init_idc: int = 0) -> None:
+                       num_ref_idx_l0: int = 1, cabac_init_idc: int = 0,
+                       slice_group_change_cycle: int = 0) -> None:
     """Spec 7.3.3 slice header of an I or P frame-picture reference slice
-    with sliding-window marking (lencod/src/header.c:116 SliceHeader);
-    cabac_init_idc is written for P slices of a CABAC PPS."""
+    with sliding-window marking (lencod/src/header.c:116 SliceHeader):
+    pic_order_cnt_lsb for POC type 0 only, cabac_init_idc for P slices
+    of a CABAC PPS, slice_group_change_cycle for FMO map types 3-5."""
     bw.ue(first_mb)
     bw.ue(int(slice_type) + 5)      # all slices in picture share the type
     bw.ue(pps.pic_parameter_set_id)
     bw.u(frame_num, sps.log2_max_frame_num_minus4 + 4)
     if idr:
         bw.ue(idr_pic_id)
-    bw.u(poc_lsb, sps.log2_max_pic_order_cnt_lsb_minus4 + 4)
+    if sps.pic_order_cnt_type == 0:
+        bw.u(poc_lsb, sps.log2_max_pic_order_cnt_lsb_minus4 + 4)
     if slice_type == SliceType.P:
         override = ((num_ref_idx_l0 - 1) !=
                     pps.num_ref_idx_l0_default_active_minus1)
@@ -116,10 +153,19 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
         # the encoder only raises the control flag to switch the loop
         # filter OFF (LoopFilterDisable; lencod header.c DeblockFilter)
         bw.ue(1)
+    if pps.num_slice_groups_minus1 > 0 and \
+            pps.slice_group_map_type in (3, 4, 5):
+        units = sps.pic_width_in_mbs * sps.frame_height_in_mbs
+        rate = pps.slice_group_change_rate_minus1 + 1
+        # JM: len = Ceil(units / rate), CeilLog2(len + 1) bits (lencod
+        # header.c:243, ldecod header.c:326-332)
+        max_cycle = -(-units // rate)
+        nbits = max(1, max_cycle.bit_length())
+        bw.u(slice_group_change_cycle, nbits)
 
 
 class MBWriter:
-    """Serializes decided macroblocks of one slice in raster order."""
+    """Serializes decided macroblocks of one slice in the order given."""
 
     # P partitions per mb_type: (bx, by, bw, bh) in 4x4-block units
     PARTS = {0: [(0, 0, 4, 4)],
@@ -263,31 +309,38 @@ class MBWriter:
 
 def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
                     idr: bool, qp: int, poc_lsb: int = 0, idr_pic_id: int = 0,
-                    num_ref_idx_l0: int = 1, native: bool = True) -> bytes:
-    """Serialize the whole picture as one slice in raster order; returns
-    the RBSP. The MB layer goes through the native cavlc_slice_data
-    (jm_tpu_torch/native, jm_enc.cpp) unless a MB is I_PCM or the caller
-    asks for the Python MBWriter (native=False); native.routes
-    ["serialize"] counts the route taken."""
+                    num_ref_idx_l0: int = 1, mb_addrs=None,
+                    slice_group_change_cycle: int = 0,
+                    native: bool = True) -> bytes:
+    """Serialize one slice; mb_addrs: its MB addresses in decode order
+    (default: the whole picture in raster order). Returns the RBSP. The
+    MB layer goes through the native cavlc_slice_data
+    (jm_tpu_torch/native, jm_enc.cpp) unless a MB of the slice is I_PCM
+    or the caller asks for the Python MBWriter (native=False);
+    native.routes["serialize"] counts the route taken."""
+    addrs = np.ascontiguousarray(
+        np.arange(pic.n_mbs) if mb_addrs is None else mb_addrs, np.int32)
     bw = BitWriter()
     write_slice_header(bw, sps, pps, slice_type=slice_type,
                        frame_num=frame_num, idr=idr, idr_pic_id=idr_pic_id,
-                       qp=qp, poc_lsb=poc_lsb, num_ref_idx_l0=num_ref_idx_l0)
-    if native and not (pic.mb_class == MB_IPCM).any():
+                       qp=qp, first_mb=int(addrs[0]), poc_lsb=poc_lsb,
+                       num_ref_idx_l0=num_ref_idx_l0,
+                       slice_group_change_cycle=slice_group_change_cycle)
+    if native and not (pic.mb_class[addrs] == MB_IPCM).any():
         N.routes["serialize"]["native"] += 1
         return _native_slice_data(bw, pic, pps, slice_type, qp,
-                                  num_ref_idx_l0)
+                                  num_ref_idx_l0, addrs)
     N.routes["serialize"]["python"] += 1
     w = MBWriter(bw, pic, sps, pps, qp)
-    for addr in range(pic.n_mbs):
-        w.write_mb(addr, slice_type)
+    for addr in addrs:
+        w.write_mb(int(addr), slice_type)
     w.finish(slice_type)
     bw.rbsp_trailing_bits()
     return bw.get_bytes()
 
 
 def _native_slice_data(bw: BitWriter, pic, pps, slice_type: SliceType,
-                       qp: int, num_ref: int) -> bytes:
+                       qp: int, num_ref: int, addrs: np.ndarray) -> bytes:
     """The slice's MB layer and trailing bits appended by the native
     serializer to the header in ``bw`` (handed over as its bytes and
     its pending bits); returns the RBSP (jm_tpu/encoder/syntax.py
@@ -318,7 +371,6 @@ def _native_slice_data(bw: BitWriter, pic, pps, slice_type: SliceType,
         "crows": pic.n_crows,
     }
     return N.load().cavlc_slice_data(
-        bytes(bw.buf), bw.acc, bw.nacc, pic_dict,
-        np.arange(pic.n_mbs, dtype=np.int32),
+        bytes(bw.buf), bw.acc, bw.nacc, pic_dict, addrs,
         0 if slice_type == SliceType.P else 2, int(num_ref),
         int(pps.transform_8x8_mode_flag), int(qp))

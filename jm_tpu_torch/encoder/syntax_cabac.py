@@ -32,7 +32,7 @@ from .syntax import write_slice_header
 
 
 class MBWriterCABAC(CabacNeighbours):
-    """Serializes the MBs of one slice in raster order."""
+    """Serializes the MBs of one slice in the order given."""
 
     # P partitions per mb_type: (bx, by, bw, bh) in 4x4-block units
     PARTS = {0: [(0, 0, 4, 4)],
@@ -354,25 +354,30 @@ def serialize_slice_cabac(pic, sps, pps, *, slice_type: SliceType,
                           frame_num: int, idr: bool, qp: int,
                           poc_lsb: int = 0, idr_pic_id: int = 0,
                           num_ref_idx_l0: int = 1, cabac_init_idc: int = 0,
-                          stats: dict | None = None) -> bytes:
-    """Serialize the whole picture as one CABAC slice in raster order;
-    returns the RBSP. ``stats["bins"]`` receives the bins coded (for the
-    cabac_zero_word constraint). The writer updates pic.mvd and
-    pic.cbp_bits, as the parser does."""
+                          mb_addrs=None, stats: dict | None = None) -> bytes:
+    """Serialize one CABAC slice; mb_addrs: its MB addresses in decode
+    order (default: the whole picture in raster order). The arithmetic
+    coder and the contexts start afresh for each slice, and neighbours
+    count only inside the slice (pic.slice_id). Returns the RBSP;
+    ``stats["bins"]`` receives the bins coded (for the cabac_zero_word
+    constraint). The writer updates pic.mvd and pic.cbp_bits, as the
+    parser does."""
     if slice_type not in (SliceType.I, SliceType.P):
         raise NotImplementedError(f"{slice_type.name} slices (CABAC writer)")
+    addrs = list(range(pic.n_mbs) if mb_addrs is None else mb_addrs)
     bw = BitWriter()
     write_slice_header(bw, sps, pps, slice_type=slice_type,
                        frame_num=frame_num, idr=idr, idr_pic_id=idr_pic_id,
-                       qp=qp, poc_lsb=poc_lsb, num_ref_idx_l0=num_ref_idx_l0,
+                       qp=qp, first_mb=int(addrs[0]), poc_lsb=poc_lsb,
+                       num_ref_idx_l0=num_ref_idx_l0,
                        cabac_init_idc=cabac_init_idc)
     while not bw.byte_aligned():
         bw.u(1, 1)                  # cabac_alignment_one_bit
     w = MBWriterCABAC(bw, pic, slice_type, qp, cabac_init_idc,
                       num_ref=num_ref_idx_l0)
-    last = pic.n_mbs - 1
-    for addr in range(pic.n_mbs):
-        w.write_mb(addr)
+    last = addrs[-1]
+    for addr in addrs:
+        w.write_mb(int(addr))
         w.eng.terminate(1 if addr == last else 0)   # end_of_slice_flag
     bw.align_zero()
     if stats is not None:

@@ -1,9 +1,10 @@
 """The port's decoder (jm_tpu_torch/decoder) against jm_tpu's on the CPU,
 byte for byte (the codec is integer-exact: the tolerance is zero):
 - SPS, PPS and slice headers of the in-scope goldens, field by field;
-- the in-scope goldens (CAVLC, and cabac_pp: JM lencod's CABAC I/P/P
-  with two references) against jm_tpu's H264Decoder(device_recon=True)
-  and against JM ldecod's output (_rec.yuv);
+- the in-scope goldens (CAVLC, FMO slice groups of map types 1, 3, 5
+  and 6, and cabac_pp: JM lencod's CABAC I/P/P with two references)
+  against jm_tpu's H264Decoder(device_recon=True) and against JM
+  ldecod's output (_rec.yuv);
 - jm_tpu encoder streams (IPPP, periodic IDR, a scene cut whose P
   pictures carry intra MBs, several slices and references with POC
   type 2, POC type 1 with intra refresh MBs, I_PCM), CAVLC and CABAC,
@@ -42,10 +43,12 @@ from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig
 from test_pipe_stream import make_frames
 
 GOLDEN = Path(__file__).parent / "golden"
-IN_SCOPE = ["i1", "ipp3", "qp20", "qp36", "cabac_pp", "sei"]
+IN_SCOPE = ["i1", "ipp3", "qp20", "qp36", "cabac_pp", "sei", "fmo_t1",
+            "fmo_t3", "fmo_t5d1", "fmo_t6", "cif_fmo"]
 # goldens without JM ldecod's output in the repository (sei.264: its SEI
-# NAL units are skipped; held against jm_tpu's decode only)
-NO_LDECOD_REC = {"sei"}
+# NAL units are skipped; cif_fmo.264: FMO at CIF), held against jm_tpu's
+# decode only
+NO_LDECOD_REC = {"sei", "cif_fmo"}
 
 
 def _fields(obj, names):
@@ -105,8 +108,19 @@ def _equal_yuv(frames, path):
     assert np.array_equal(cat, rec)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The port's CPU decode runs many small tensor ops, which more
+    threads only slow down (cif_fmo: 30 CIF pictures take several times
+    as long with 8 threads as with 1)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", IN_SCOPE)
-def test_golden_decodes_like_jm_and_ldecod(name):
+def test_golden_decodes_like_jm_and_ldecod(name, one_torch_thread):
     data = (GOLDEN / f"{name}.264").read_bytes()
     dec = H264Decoder(device="cpu")
     out = dec.decode_annexb(data)
@@ -209,7 +223,7 @@ def test_picture_from_numpy_through_port_recon():
     ("main3", "B slices"),
     ("cavlc_b", "B slices"),
     ("high8x8", "8x8 transform"),
-    ("fmo_t1", "FMO"),
+    ("mbaff1", "fields"),
     ("field1", "fields"),
     ("wp_p", "weighted prediction"),
     ("dp1", "data partitioning"),

@@ -221,9 +221,13 @@ def test_serializer_bytes(port_stream):
     for pic, sps, pps, kw in pics:
         got = serialize_slice(pic, sps, pps, **kw)
         assert got == serialize_slice(pic, sps, pps, **kw, native=False)
-        # jm_tpu's runtime on the same arrays after the same header
+        # jm_tpu's runtime on the same arrays after the same header, over
+        # the slice's MB addresses (the whole picture here)
+        hdr = {k: v for k, v in kw.items() if k != "mb_addrs"}
+        addrs = np.ascontiguousarray(kw["mb_addrs"], np.int32)
+        assert np.array_equal(addrs, np.arange(pic.n_mbs))
         bw = BitWriter()
-        write_slice_header(bw, sps, pps, **kw)
+        write_slice_header(bw, sps, pps, first_mb=int(addrs[0]), **hdr)
         d = {k: np.ascontiguousarray(getattr(pic, k)) for k in (
             "mb_class", "inter_mode", "sub_mode", "ref_idx", "mv", "cbp",
             "qp", "slice_id", "i4_modes", "i16_mode", "chroma_mode",
@@ -233,8 +237,7 @@ def test_serializer_bytes(port_stream):
                  transform8x8=pic.transform8x8.astype(np.uint8),
                  mb_w=pic.mb_w, crows=pic.n_crows)
         want = jm_native.cavlc_slice_data(
-            bytes(bw.buf), bw.acc, bw.nacc, d,
-            np.arange(pic.n_mbs, dtype=np.int32),
+            bytes(bw.buf), bw.acc, bw.nacc, d, addrs,
             0 if kw["slice_type"] == SliceType.P else 2, 1, 0, kw["qp"])
         assert got == want
 

@@ -45,6 +45,14 @@ def test_scan_covers_the_native_loader():
     assert ROOT / "jm_tpu_torch" / "native" / "__init__.py" in PORT_FILES
 
 
+@pytest.mark.parametrize("rel", ["ratectl.py", "common/fmo.py",
+                                 "encoder/intra_host.py"])
+def test_scan_covers_the_ports_own_copies(rel):
+    """Rate control, the slice-group maps and the host intra encoder are
+    the port's own modules, not jm_tpu's."""
+    assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
+
+
 def test_native_build_uses_only_the_ports_sources(monkeypatch, tmp_path):
     """The loader's compile command names the three sources beside it and
     nothing of native/ or jm_tpu/native/."""
@@ -109,12 +117,35 @@ def test_deblock_never_falls_back_for_a_device_request():
     ("intra_mb_refresh", -1), ("search_range", 32), ("search_range", 0),
     ("intra_period", -1), ("qp", 52), ("qp", -1), ("width", 100),
     ("height", 40), ("entropy", "cavcl"), ("cabac_adapt_init", 1),
+    ("search_range", 17), ("qp_p", 52), ("poc_type", 3), ("slice_mode", 3),
+    ("slice_argument", -1), ("num_slice_groups", 9), ("rc_enable", 1),
+    ("rc_basic_unit", 4), ("rc_initial_qp", 52),
 ])
 def test_config_outside_slice_raises(field, value):
     cfg = EncoderConfig(width=32, height=32)
     setattr(cfg, field, value)
     with pytest.raises(ValueError, match=field):
         Encoder(cfg, device="cpu")
+
+
+def test_rate_control_needs_a_bit_rate():
+    with pytest.raises(ValueError, match="rc_bitrate"):
+        Encoder(EncoderConfig(width=32, height=32, rc_enable=True),
+                device="cpu")
+
+
+@pytest.mark.parametrize("kw,field", [
+    (dict(entropy="cabac"), "num_slice_groups"),
+    (dict(slice_group_map_type=7), "slice_group_map_type"),
+    (dict(slice_group_map_type=2, sg_top_left=(0,)), "sg_top_left"),
+    (dict(slice_group_map_type=6, sg_ids=(0, 1)), "sg_ids"),
+])
+def test_fmo_config_outside_slice_raises(kw, field):
+    """FMO is Baseline only (jm_tpu raises for profile 77 too), and the
+    map's parameters must fit the picture."""
+    with pytest.raises(ValueError, match=field):
+        Encoder(EncoderConfig(width=32, height=32, num_slice_groups=2, **kw),
+                device="cpu")
 
 
 def test_unknown_device_raises():
