@@ -93,8 +93,8 @@ Phases (any failure raises and exits non-zero):
      host intra encode in ms per MB, and each frame's split (device
      encode, host intra encode, download + host commit, device deblock +
      prep_ref, serialize); the stream decoded on the card equal to the
-     recon; the IDR and the first two P frames encoded again on the CPU
-     with the same bytes and QPs;
+     recon; the IDR and the first two P frames encoded on the CPU with
+     the same bytes and QPs;
  16. FMO at CIF (352x288, N_CIF frames): map type 1 with two slice
      groups, slices of at most 1500 bytes (slice_mode 2: pictures
      re-coded until they fit), md_low, qp 28 / qp_p 30, POC type 1; one
@@ -104,12 +104,49 @@ Phases (any failure raises and exits non-zero):
  17. CABAC at CIF with 22 MBs per slice, cabac_adapt_init and rate
      control at 1 Mbit/s, encoded and decoded on the card as phase 16;
      then JM's FMO goldens fmo_t1 / fmo_t3 / fmo_t5d1 / fmo_t6 decoded on
-     the card against their _rec.yuv.
-Phases 3, 6, 8-13 and 15-17 run on the native runtime, as the entry
+     the card against their _rec.yuv;
+ 18. a resilient 1080p stream through encode_stream (RES_FRAMES frames,
+     the per-frame path): data partitions, a long-term anchor every 2nd
+     picture (frame 3 predicts from frame 1, past the long-term frame 2),
+     VUI timing and a 16-byte user-data SEI; one launch per kernel and
+     frame, frames/s, each P frame's split (device encode, download +
+     host commit, device deblock + prep_ref, the Python DP serializer),
+     the bytes of partitions A / B / C; IDR + 3 P encoded on the CPU
+     with the same bytes and recon; decoded on the card (partitioned
+     slices on the Python parser) equal to the recon, with the user data
+     in sei_messages;
+ 19. redundant pictures through encode_frame + flush (the only route
+     that writes them, as in jm_tpu): a redundant coding after every 2nd
+     P at QP + 4, with POC-based MMCO; one launch per kernel and primary
+     picture (the redundant codings are not deblocked); each P frame's
+     split and its redundant coding's device encode, download + commit,
+     serialize and bytes; IDR + 3 P (two redundant codings) encoded on
+     the CPU with the same bytes and recon; decoded on the card equal to
+     the recon (the redundant codings discarded), and again with frame
+     2's primary dropped: its redundant coding decoded instead, the
+     first LOSSY_CPU pictures equal to the CPU decode of the same lossy
+     stream's first LOSSY_CPU pictures;
+ 20. the loop filter off (deblock=False, the per-frame path): no kernel
+     launch in the encode, frames/s beside phase 3's, the decode on the
+     card equal to the recon with its launches counted;
+ 21. JM's data-partitioned goldens on the card: dp1.264 equal to its
+     _rec.yuv and to the CPU decode, cif_dp.264 (MMCO, five references)
+     to the CPU decode; frames/s and the per-picture parse split.
+The CPU references of phases 15-21 (the encodes on the CPU, the CPU
+decodes of the lossy stream and of the DP goldens) run in CPU_WORKERS
+worker processes, started at phase 15 and stopped before the closing
+lines, while the card works through those phases.
+Phases 3, 6, 8-13 and 15-20 run on the native runtime, as the entry
 points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
 and parsed, every intra picture reconstructed and every CABAC slice
-decoded by the native runtime.
+decoded by the native runtime, but the data-partitioned slices of
+phase 18, which only the Python serializer and parser handle (route
+"dp").
+
+``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
+18-21 alone, without the closing JSON lines (a quicker check of those
+phases while they are developed).
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it holds the per-kernel numbers as JSON.
 """
@@ -143,6 +180,8 @@ CUT_FRAMES = 4       # frames of the scene-cut stream (frame 2 replaced)
 N_CABAC = 4          # frames of the CABAC stream (phases 12-13)
 LL_FRAMES = 9        # frames of the low-latency stream (phase 15)
 N_CIF = 5            # frames of the CIF streams (phases 16-17)
+RES_FRAMES = 9       # frames of the 1080p streams of phases 18-20
+LOSSY_CPU = 4        # pictures of phase 19's lossy stream decoded on the CPU
 DEVICE = "cuda"
 # the kernels' edge shapes (one MB, mb_w 2, mb_h 1, one MB column), each
 # with a parameter variant ("mixed" may switch the one MB off), and 2160p
@@ -331,12 +370,14 @@ class IdrTimedEncoder(Encoder):
         super().__init__(*a, **kw)
         self.host_slices = {}
 
-    def _picture_nals(self, pic, slice_type, poc, qp, plan, sizes=None):
+    def _picture_nals(self, pic, slice_type, poc, qp, plan, sizes=None,
+                      **hdr):
         kw = dict(slice_type=slice_type, frame_num=self.frame_num,
                   idr=slice_type == SliceType.I, qp=qp, poc_lsb=poc % 256,
-                  idr_pic_id=self.idr_pic_id)
+                  idr_pic_id=self.idr_pic_id, **hdr)
         self.host_slices.setdefault(slice_type.name, (pic, kw))
-        return super()._picture_nals(pic, slice_type, poc, qp, plan, sizes)
+        return super()._picture_nals(pic, slice_type, poc, qp, plan, sizes,
+                                     **hdr)
 
     def _encode_idr(self, *a):
         torch.cuda.synchronize()
@@ -359,7 +400,7 @@ def profile_p_frame(enc, frame, cfg, label: str = "P frame"):
 
     def one():
         out, _ = p_frame_rd_pipe(
-            packed, *enc.ref_state, cfg.qp, enc.qpc, lambda_me(cfg.qp),
+            packed, *enc.refs[0].state, cfg.qp, enc.qpc, lambda_me(cfg.qp),
             lambda_mode4(cfg.qp), enc.qpc_cb, enc.qpc_cr, mb_w=enc.mb_w,
             mb_h=enc.mb_h, sr=cfg.search_range, max_words=enc.max_words,
             rd=cfg.device_rd)
@@ -440,13 +481,21 @@ def check_frames(got, want, label: str) -> None:
                 raise AssertionError(f"{label}: frame {i} {plane} differs")
 
 
-def check_routes(label: str, **native_counts) -> None:
+def check_routes(label: str, dp=None, **native_counts) -> None:
     """Print the native runtime's route counters of the run just made
     (reset just before it) and check them: native_counts gives, per kind
     (serialize, parse, recon, cabac), how many slices or pictures must
-    have taken the native route; none may have taken another."""
+    have taken the native route; none may have taken another. dp gives
+    the data-partitioned slices serialized / parsed (the Python route of
+    kind "dp"; none unless given)."""
     print(f"{label}: native runtime routes {native.routes}", flush=True)
     for kind, counts in native.routes.items():
+        if kind == "dp":
+            want_dp = {"serialize": 0, "parse": 0, **(dp or {})}
+            if counts != want_dp:
+                raise AssertionError(f"{label}: dp routes {counts}, "
+                                     f"expected {want_dp}")
+            continue
         want = native_counts.get(kind, 0)
         if counts["native"] != want or any(
                 v for k, v in counts.items() if k != "native"):
@@ -539,10 +588,10 @@ class SplitTimedEncoder(IdrTimedEncoder):
         super().__init__(*a, **kw)
         self.split = {}
 
-    def _timed(self, disp, name, fn, *a):
+    def _timed(self, disp, name, fn, *a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(*a)
+        out = fn(*a, **kw)
         torch.cuda.synchronize()
         self.split.setdefault(disp, {}).setdefault(name, []).append(
             time.perf_counter() - t0)
@@ -552,9 +601,9 @@ class SplitTimedEncoder(IdrTimedEncoder):
         return self._timed(self.display_idx - 1, "pipe", super()._dispatch,
                            *a)
 
-    def _finish_p(self, core, disp, *a):
+    def _finish_p(self, core, disp, *a, **kw):
         self._disp = disp
-        return super()._finish_p(core, disp, *a)
+        return super()._finish_p(core, disp, *a, **kw)
 
     def _download_core(self, *a):
         return self._timed(self._disp, "download", super()._download_core,
@@ -567,9 +616,9 @@ class SplitTimedEncoder(IdrTimedEncoder):
         return self._timed(self._disp, "deblock_prep", super()._deblock_p,
                            *a)
 
-    def _serialize_p(self, *a):
+    def _serialize_p(self, *a, **kw):
         return self._timed(self._disp, "serialize", super()._serialize_p,
-                           *a)
+                           *a, **kw)
 
 
 def timed_encode(cfg, frames, cls=IdrTimedEncoder):
@@ -726,11 +775,12 @@ class CabacTimedEncoder(SplitTimedEncoder):
 
     units = 0                    # slice NAL units serialized (with re-codes)
 
-    def _picture_nals(self, pic, slice_type, poc, qp, plan, sizes=None):
+    def _picture_nals(self, pic, slice_type, poc, qp, plan, sizes=None,
+                      **hdr):
         self.units += len(plan)
         return self._timed(self.display_idx - 1, "slice",
                            super()._picture_nals, pic, slice_type, poc, qp,
-                           plan, sizes)
+                           plan, sizes, **hdr)
 
     def _intra_host(self, *a):
         return self._timed(self.display_idx - 1, "i_host",
@@ -998,13 +1048,16 @@ def host_runtime_phase(enc, payloads, low_enc, low_payloads, cab_payloads):
           f"PictureData array equal", flush=True)
 
 
-def card_decode(payloads, enc, label: str, cabac: bool = False):
+def card_decode(payloads, enc, label: str, cabac: bool = False,
+                dp_parse: int = 0, dec=None, once_per_picture: bool = True):
     """An encoder's stream decoded on the card with the launch and route
     counters reset just before: every frame equal to the encoder's recon,
-    each kernel launched once per picture, every slice parsed (and every
-    picture with intra MBs reconstructed) by the native runtime. Returns
-    the per-kernel launches."""
-    dec = H264Decoder(device=DEVICE)
+    each kernel launched once per picture (unless once_per_picture is
+    False: then only counted), every slice parsed (and every picture
+    with intra MBs reconstructed) by the native runtime, but dp_parse
+    data-partitioned slices by the Python parser. dec: the decoder to
+    use (a new one by default). Returns the per-kernel launches."""
+    dec = dec or H264Decoder(device=DEVICE)
     kernels.reset_launches()
     native.reset_routes()
     t0 = time.perf_counter()
@@ -1014,15 +1067,16 @@ def card_decode(payloads, enc, label: str, cabac: bool = False):
     launches = dict(kernels.launches)
     check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
                        for r in enc.results], label)
-    units = sum(r["slices"] for r in enc.results)
+    units = sum(r["slices"] for r in enc.results) - dp_parse
     recon = sum(r["path"] != "inter" for r in dec.pictures)
     check_routes(label, **({"cabac": units} if cabac else {"parse": units}),
-                 recon=recon)
+                 recon=recon, dp={"parse": dp_parse})
     for name, cnt in launches.items():
-        if cnt != len(out):
+        if once_per_picture and cnt != len(out):
             raise AssertionError(f"{label}: {name} launched {cnt} times for "
                                  f"{len(out)} pictures")
-    print(f"{label} on the card: {len(out)} frames ({units} slices) equal "
+    print(f"{label} on the card: {len(out)} frames ({units + dp_parse} "
+          f"slices) equal "
           f"the encoder's recon; {len(out) / total_s:.3f} frames/s; per "
           f"picture " + ", ".join(
               f"{r['type'][0]}/{r['path']} {r['seconds'] * 1e3:.1f} ms "
@@ -1061,16 +1115,125 @@ def check_launches(launches, n: int, label: str) -> None:
                                  f"expected once for each of {n} pictures")
 
 
-def low_latency_phase(frames):
+# The CPU references of phases 15-21 (encodes of their first pictures,
+# decodes) run in CPU_WORKERS worker processes while the card works
+# through those phases: on the card's host they take about half of the
+# phases' wall time when run in line.
+CPU_WORKERS = 2
+
+
+def _worker_init() -> None:
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // CPU_WORKERS))
+
+
+def cpu_encode(cfg, frames, per_frame: bool = False):
+    """The frames encoded on the CPU, through encode_frame when per_frame
+    else encode_stream: (payloads, recon (Y, U, V) of each picture, QPs,
+    fallbacks)."""
+    enc = Encoder(cfg, device="cpu")
+    payloads = ([enc.encode_frame(*f) for f in frames] if per_frame
+                else enc.encode_stream(frames))
+    return (payloads, [(r["frame"].Y, r["frame"].U, r["frame"].V)
+                       for r in enc.results], [r["qp"] for r in enc.results],
+            enc.fallbacks)
+
+
+def cpu_decode(data: bytes):
+    """The stream decoded on the CPU: (Y, U, V) of each picture."""
+    return [(f.Y, f.U, f.V)
+            for f in H264Decoder(device="cpu").decode_annexb(data)]
+
+
+def drop_primary(payloads, k: int) -> bytes:
+    """The stream of payloads with picture k's first NAL unit (its
+    primary slice) left out: picture k keeps its redundant coding."""
+    units = payloads[k].split(b"\x00\x00\x00\x01")[1:]
+    return (b"".join(payloads[:k]) + b"\x00\x00\x00\x01" + units[1]
+            + b"".join(payloads[k + 1:]))
+
+
+def cpu_redundant(cfg, frames):
+    """Phase 19's CPU reference: the frames encoded through encode_frame
+    and the decode of that stream with picture 2's primary dropped."""
+    out = cpu_encode(cfg, frames, per_frame=True)
+    return out + (cpu_decode(drop_primary(out[0], 2)),)
+
+
+def golden_bytes(name: str) -> bytes:
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "tests", "golden", f"{name}.264"),
+              "rb") as f:
+        return f.read()
+
+
+def start_cpu_references(pool, frames) -> dict:
+    """Submit the CPU references of phases 15-21 to the worker pool;
+    returns their AsyncResults by name."""
+    return {
+        "low_latency": pool.apply_async(
+            cpu_encode, (low_latency_cfg(), frames[:3])),
+        "resilient": pool.apply_async(
+            cpu_encode, (resilient_cfg(), frames[:4])),
+        "redundant": pool.apply_async(
+            cpu_redundant, (redundant_cfg(), frames[:LOSSY_CPU])),
+        **{name: pool.apply_async(cpu_decode, (golden_bytes(name),))
+           for name in ("dp1", "cif_dp")}}
+
+
+def check_cpu_encode(label: str, job, payloads, enc, n: int) -> tuple:
+    """The first n pictures of the CPU reference `job` (cpu_encode's
+    result, waited for here) against the card's payloads, recon, QPs and
+    fallbacks; returns the result."""
+    t0 = time.perf_counter()
+    out = job.get()
+    cpu_payloads, recon, qps, fallbacks = out[:4]
+    for i in range(n):
+        if cpu_payloads[i] != payloads[i]:
+            raise AssertionError(f"{label} frame {i}: CPU and CUDA payloads "
+                                 f"differ")
+        for k, plane in enumerate("YUV"):
+            if not np.array_equal(recon[i][k],
+                                  getattr(enc.results[i]["frame"], plane)):
+                raise AssertionError(f"{label} frame {i} {plane}: recon "
+                                     f"differs")
+    if qps[:n] != [r["qp"] for r in enc.results[:n]]:
+        raise AssertionError(f"{label}: CPU and CUDA QPs differ")
+    if fallbacks != [d for d in enc.fallbacks if d < n]:
+        raise AssertionError(f"{label}: fallbacks {fallbacks} on the CPU")
+    print(f"cross-check {label}: the CPU's payloads, recon and QPs of "
+          f"{n} pictures equal the CUDA run (CPU worker; waited "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
+def low_latency_cfg():
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=True, slice_mode=1,
+                         slice_argument=W // 16, rc_enable=True,
+                         rc_bitrate=8_000_000.0, frame_rate=30.0,
+                         poc_type=2)
+
+
+def resilient_cfg():
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=True, data_partition=1,
+                         long_term_period=2, enable_vui=True,
+                         sei_user_data=bytes(range(16)))
+
+
+def redundant_cfg():
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=True, redundant_period=2,
+                         redundant_qp_off=4, poc_mem_mgmt=1)
+
+
+def low_latency_phase(frames, cpu_ref):
     """Phase 15: the low-latency 1080p stream (one MB row per slice, rate
-    control at 8 Mbit/s, POC type 2); returns (encode launches, decode
-    launches)."""
+    control at 8 Mbit/s, POC type 2), held against its CPU reference
+    cpu_ref (IDR + 2 P); returns (encode launches, decode launches)."""
     frames = frames[:LL_FRAMES]
     n = len(frames)
-    cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
-                        device_rd=True, slice_mode=1, slice_argument=W // 16,
-                        rc_enable=True, rc_bitrate=8_000_000.0,
-                        frame_rate=30.0, poc_type=2)
+    cfg = low_latency_cfg()
     enc, payloads, launches, total_s = timed_encode(cfg, frames,
                                                     CabacTimedEncoder)
     slices = [r["slices"] for r in enc.results]
@@ -1089,17 +1252,7 @@ def low_latency_phase(frames):
           flush=True)
     per_frame_report(enc, payloads, "low latency")
     dec_launches = card_decode(payloads, enc, "decode low latency 1080p")
-    t0 = time.perf_counter()
-    cpu = Encoder(cfg, device="cpu")
-    cpu_payloads = cpu.encode_stream(frames[:3])
-    for i in range(3):
-        if cpu_payloads[i] != payloads[i]:
-            raise AssertionError(f"low latency frame {i}: CPU and CUDA "
-                                 f"payloads differ")
-    if [r["qp"] for r in cpu.results] != [r["qp"] for r in enc.results[:3]]:
-        raise AssertionError("low latency: CPU and CUDA QPs differ")
-    print(f"cross-check low latency: CPU IDR + 2 P payloads and QPs equal "
-          f"the CUDA run ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check_cpu_encode("low latency IDR + 2 P", cpu_ref, payloads, enc, 3)
     return launches, dec_launches
 
 
@@ -1166,6 +1319,218 @@ def cabac_rc_phase(frames):
                                  "decode CABAC slices + RC CIF", cabac=True)
 
 
+def nal_bytes(payloads, types) -> int:
+    """Bytes of the NAL units of the given types (start codes excluded)."""
+    from jm_tpu_torch.bitstream.nal import split_annexb
+    return sum(len(u.rbsp) + 1 for u in split_annexb(b"".join(payloads))
+               if u.nal_unit_type in types)
+
+
+def resilient_phase(frames, cpu_ref):
+    """Phase 18: a resilient 1080p stream through encode_stream (the
+    per-frame path): data partitions, a long-term anchor every 2nd
+    picture, VUI timing and a 16-byte user-data SEI, held against its CPU
+    reference cpu_ref (IDR + 3 P); returns (encode launches, decode
+    launches)."""
+    frames = frames[:RES_FRAMES]
+    n = len(frames)
+    cfg = resilient_cfg()
+    user_data = cfg.sei_user_data
+    enc, payloads, launches, total_s = timed_encode(cfg, frames,
+                                                    CabacTimedEncoder)
+    check_routes("resilient encode", serialize=1, dp={"serialize": n - 1})
+    check_launches(launches, n, "resilient encode")
+    # frame 3 predicts from frame 1, past the long-term frame 2
+    if [r.get("ref_poc") for r in enc.results[1:4]] != [0, 2, 2]:
+        raise AssertionError(f"resilient: references "
+                             f"{[r.get('ref_poc') for r in enc.results]}")
+    parts = {k: nal_bytes(payloads, (t,)) for k, t in (("A", 2), ("B", 3),
+                                                      ("C", 4))}
+    print(f"encode resilient 1080p {''.join(r['type'] for r in enc.results)}"
+          f" (data partitions, long-term every 2nd picture, VUI, SEI): "
+          f"{n / total_s:.3f} frames/s, {sum(map(len, payloads))} stream "
+          f"bytes, bytes {[len(p) for p in payloads]}, partitions A / B / C "
+          f"{parts['A']} / {parts['B']} / {parts['C']} B, references (POC) "
+          f"{[r.get('ref_poc') for r in enc.results[1:]]}, launches "
+          f"{launches}", flush=True)
+    per_frame_report(enc, payloads, "resilient (serialize = DP, Python)")
+    check_cpu_encode("resilient IDR + 3 P", cpu_ref, payloads, enc, 4)
+    dec = H264Decoder(device=DEVICE)
+    dec_launches = card_decode(payloads, enc, "decode resilient 1080p",
+                               dp_parse=n - 1, dec=dec)
+    ud = [m.fields["data"] for m in dec.sei_messages if m.payload_type == 5]
+    if ud != [user_data]:
+        raise AssertionError(f"resilient: SEI user data {ud}")
+    print(f"decode resilient: the SEI's user data {ud[0].hex()} in "
+          f"sei_messages", flush=True)
+    return launches, dec_launches
+
+
+class RedundantTimedEncoder(CabacTimedEncoder):
+    """CabacTimedEncoder that also times each device P encode ("p_step":
+    the primary's, then the redundant coding's) and each redundant
+    slice's serialization ("red_serialize")."""
+
+    def _p_step(self, *a):
+        return self._timed(self.display_idx - 1, "p_step", super()._p_step,
+                           *a)
+
+    def _serialize_redundant(self, *a):
+        return self._timed(self.display_idx - 1, "red_serialize",
+                           super()._serialize_redundant, *a)
+
+
+def redundant_phase(frames, cpu_ref):
+    """Phase 19: redundant pictures through encode_frame + flush (the only
+    route that writes them, as in jm_tpu): a redundant coding after every
+    2nd P picture at QP + 4, with POC-based MMCO, held against its CPU
+    reference cpu_ref (the first LOSSY_CPU pictures and the decode of
+    that stream with picture 2's primary dropped); returns (encode
+    launches, decode launches)."""
+    from jm_tpu_torch.bitstream.nal import split_annexb
+    frames = frames[:RES_FRAMES]
+    n = len(frames)
+    enc = RedundantTimedEncoder(redundant_cfg(), device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    payloads = [enc.encode_frame(*f) for f in frames] + [enc.flush()]
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    n_red = (n - 1) // 2
+    check_routes("redundant encode", serialize=n + n_red)
+    check_launches(launches, n, "redundant encode (primaries only)")
+    red_bytes = {}
+    for d, pay in enumerate(payloads[:n]):
+        units = split_annexb(pay)
+        red = [u for u in units if u.nal_unit_type == 1 and u.nal_ref_idc == 0]
+        if len(red) != (1 if d and d % 2 == 0 else 0):
+            raise AssertionError(f"redundant: frame {d} has {len(red)} "
+                                 f"redundant slices")
+        if red:
+            red_bytes[d] = len(red[0].rbsp) + 1
+    print(f"encode redundant 1080p {''.join(r['type'] for r in enc.results)}"
+          f" (redundant coding after every 2nd P at QP {QP + 4}, MMCO 1 by "
+          f"POC): {n / total_s:.3f} frames/s, {sum(map(len, payloads))} "
+          f"stream bytes, redundant slices {red_bytes} B, launches "
+          f"{launches}", flush=True)
+    for r in enc.results[1:]:
+        d = r["disp"]
+        t = {k: [x * 1e3 for x in v] for k, v in enc.split[d].items()}
+        line = (f"redundant frame {d}: wall {t['frame'][0]:.1f} ms; primary "
+                f"device encode {t['p_step'][0]:.1f} ms, download + commit "
+                f"{t['download'][0] + t['host_intra'][0]:.1f} ms, deblock + "
+                f"prep {t['deblock_prep'][0]:.1f} ms, serialize "
+                f"{t['slice'][0]:.1f} ms")
+        if d in red_bytes:
+            line += (f"; redundant device encode {t['p_step'][1]:.1f} ms, "
+                     f"download + commit "
+                     f"{t['download'][1] + t['host_intra'][1]:.1f} ms, "
+                     f"serialize {t['red_serialize'][0]:.1f} ms, "
+                     f"{red_bytes[d]} B")
+        print(line, flush=True)
+    cpu_lossy = check_cpu_encode(
+        "redundant IDR + 3 P (two redundant codings)", cpu_ref, payloads, enc,
+        LOSSY_CPU)[4]
+    dec_launches = card_decode(payloads, enc, "decode redundant 1080p "
+                               "(redundant codings discarded)")
+    # the first primary that has a redundant coding is lost
+    t0 = time.perf_counter()
+    got = H264Decoder(device=DEVICE).decode_annexb(drop_primary(payloads, 2))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    if len(got) != n:
+        raise AssertionError(f"lossy redundant decode: {len(got)} frames")
+    check_frames(got[:LOSSY_CPU], cpu_lossy, "lossy redundant decode")
+    diff = int(np.abs(got[2].Y.astype(np.int16)
+                      - enc.results[2]["frame"].Y.astype(np.int16)).max())
+    print(f"decode redundant with frame 2's primary lost: {n} frames on the "
+          f"card in {card_s * 1e3:.1f} ms, the first {LOSSY_CPU} equal to "
+          f"the CPU decode of the same stream's first {LOSSY_CPU} pictures; "
+          f"frame 2 from its redundant coding, max |diff| {diff} against "
+          f"the primary's recon", flush=True)
+    return launches, dec_launches
+
+
+def deblock_off_phase(frames, rd_fps: float):
+    """Phase 20: the loop filter off (deblock=False, the per-frame path);
+    returns (encode launches, decode launches)."""
+    frames = frames[:RES_FRAMES]
+    n = len(frames)
+    cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                        device_rd=True, deblock=False)
+    enc, payloads, launches, total_s = timed_encode(cfg, frames,
+                                                    CabacTimedEncoder)
+    check_routes("loop filter off encode", serialize=n)
+    if any(launches.values()):
+        raise AssertionError(f"loop filter off: encode launches {launches}")
+    print(f"encode loop filter off 1080p "
+          f"{''.join(r['type'] for r in enc.results)}: {n / total_s:.3f} "
+          f"frames/s (phase 3, the pipe with the filter on: "
+          f"{'not run' if rd_fps is None else f'{rd_fps:.3f}'}), "
+          f"{sum(map(len, payloads))} stream bytes, launches {launches}",
+          flush=True)
+    per_frame_report(enc, payloads, "loop filter off")
+    dec_launches = card_decode(payloads, enc, "decode loop filter off 1080p",
+                               once_per_picture=False)
+    return launches, dec_launches
+
+
+def dp_golden_phase(cpu_refs) -> None:
+    """Phase 21: JM's data-partitioned goldens on the card: dp1.264 equal
+    to its _rec.yuv and the CPU decode, cif_dp.264 (MMCO) to the CPU
+    decode (cpu_refs[name]); frames/s and the parse split."""
+    for name in ("dp1", "cif_dp"):
+        data = golden_bytes(name)
+        H264Decoder(device=DEVICE).decode_annexb(data)        # warm-up
+        torch.cuda.synchronize()
+        dec = H264Decoder(device=DEVICE)
+        native.reset_routes()
+        t0 = time.perf_counter()
+        got = dec.decode_annexb(data)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        routes = {k: dict(v) for k, v in native.routes.items()}
+        t0 = time.perf_counter()
+        check_frames(got, cpu_refs[name].get(), f"decode {name}")
+        cpu_s = time.perf_counter() - t0
+        if name == "dp1":
+            decode_golden(name)
+        p = [r for r in dec.pictures if r["type"] == "P"]
+        print(f"decode {name}.264 on the card: {len(got)} frames equal the "
+              f"CPU decode (CPU worker; waited {cpu_s:.1f} s); "
+              f"{len(got) / total_s:.3f} "
+              f"frames/s; P pictures: parse "
+              f"{np.mean([r['parse_s'] for r in p]) * 1e3:.1f} ms, intra "
+              f"recon {np.mean([r['host_recon_s'] for r in p]) * 1e3:.1f} "
+              f"ms, device {np.mean([r['device_s'] for r in p]) * 1e3:.1f} "
+              f"ms, wall {np.mean([r['seconds'] for r in p]) * 1e3:.1f} ms "
+              f"on average; routes {routes}", flush=True)
+
+
+def later_phases(frames, rd_fps, cpu_refs):
+    """Phases 18-21 with the CPU references cpu_refs; returns the
+    launches of each of their paths by name (resilient, redundant,
+    deblock_off, each also with _decode)."""
+    out = {}
+    for name, phase in (("resilient", resilient_phase),
+                        ("redundant", redundant_phase)):
+        out[name], out[f"{name}_decode"] = phase(frames, cpu_refs[name])
+    out["deblock_off"], out["deblock_off_decode"] = deblock_off_phase(
+        frames, rd_fps)
+    dp_golden_phase(cpu_refs)
+    return out
+
+
+def cpu_pool():
+    """The worker processes of the CPU references (spawned: this process
+    holds the card and threads)."""
+    import multiprocessing
+    return multiprocessing.get_context("spawn").Pool(
+        CPU_WORKERS, initializer=_worker_init)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1184,6 +1549,16 @@ def main() -> int:
           f"{native.build_seconds:.1f} s", flush=True)
     kernels.load()
     print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
+    frames = make_sequence()
+    if sys.argv[1:] == ["--from", "18"]:
+        pool = cpu_pool()
+        try:
+            later_phases(frames, None, start_cpu_references(pool, frames))
+        finally:
+            pool.terminate()
+            pool.join()
+        print("phases 18-21 passed (partial run: no closing lines)")
+        return 0
 
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
@@ -1241,7 +1616,6 @@ def main() -> int:
     chain_steps(rng)
 
     # ---- 3. encode -----------------------------------------------------
-    frames = make_sequence()
     cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
                         device_rd=True)
     Encoder(cfg, device="cuda").encode_stream(frames[:2])      # warm-up
@@ -1256,6 +1630,7 @@ def main() -> int:
     launches = dict(kernels.launches)
     check_routes("encode 1080p", serialize=1 + len(enc.ovf))
     idr_s = enc.idr_seconds
+    rd_fps = N_FRAMES / total_s
     n_p = N_FRAMES - 1
     p_ms = (total_s - idr_s) / n_p * 1e3
     types = "".join(r["type"] for r in enc.results)
@@ -1315,11 +1690,22 @@ def main() -> int:
     host_runtime_phase(enc, payloads, low_enc, low_payloads, cab_payloads)
 
     # ---- 15-17. slices, FMO, rate control, qp_p, POC types 1 / 2 -------
-    ll_launches, ll_dec_launches = low_latency_phase(frames)
-    fmo_launches, fmo_dec_launches = fmo_phase(frames)
-    crc_launches, crc_dec_launches = cabac_rc_phase(frames)
-    for name in ("fmo_t1", "fmo_t3", "fmo_t5d1", "fmo_t6"):
-        decode_golden(name)
+    pool = cpu_pool()
+    try:
+        cpu_refs = start_cpu_references(pool, frames)
+        ll_launches, ll_dec_launches = low_latency_phase(
+            frames, cpu_refs["low_latency"])
+        fmo_launches, fmo_dec_launches = fmo_phase(frames)
+        crc_launches, crc_dec_launches = cabac_rc_phase(frames)
+        for name in ("fmo_t1", "fmo_t3", "fmo_t5d1", "fmo_t6"):
+            decode_golden(name)
+
+        # ---- 18-21. data partitions, long-term anchors, redundant
+        # pictures, the loop filter off, SEI / VUI; the DP goldens ------
+        later = later_phases(frames, rd_fps, cpu_refs)
+    finally:
+        pool.terminate()
+        pool.join()
 
     rows = []
     for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):
@@ -1343,7 +1729,8 @@ def main() -> int:
             "fmo_launches": fmo_launches[name],
             "fmo_decode_launches": fmo_dec_launches[name],
             "cabac_slices_rc_launches": crc_launches[name],
-            "cabac_slices_rc_decode_launches": crc_dec_launches[name]})
+            "cabac_slices_rc_decode_launches": crc_dec_launches[name],
+            **{f"{k}_launches": v[name] for k, v in later.items()}})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -154,14 +154,17 @@ class PPS:
 @dataclass
 class RefPicListMod:
     """One ref_pic_list_modification command."""
-    op: int            # modification_of_pic_nums_idc (0, 1: short-term diff)
-    value: int         # abs_diff_pic_num_minus1
+    op: int            # modification_of_pic_nums_idc (0, 1: short-term
+                       # diff, 2: long-term)
+    value: int         # abs_diff_pic_num_minus1 or long_term_pic_num
 
 
 @dataclass
 class MMCOOp:
-    """One memory_management_control_operation (parsed only to be
-    refused: the decoder keeps the sliding window)."""
+    """One memory_management_control_operation (spec 7.3.3.3): value1 is
+    difference_of_pic_nums_minus1 (ops 1, 3), long_term_pic_num (2),
+    max_long_term_frame_idx_plus1 (4) or long_term_frame_idx (6); value2
+    the long_term_frame_idx of op 3."""
     op: int
     value1: int = 0
     value2: int = 0
@@ -185,6 +188,7 @@ class SliceHeader:
     no_output_of_prior_pics_flag: int = 0
     long_term_reference_flag: int = 0
     adaptive_ref_pic_marking_mode_flag: int = 0
+    mmco_ops: list = field(default_factory=list)
     cabac_init_idc: int = 0
     slice_qp_delta: int = 0
     disable_deblocking_filter_idc: int = 0

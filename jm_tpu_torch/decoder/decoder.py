@@ -1,9 +1,10 @@
 """Top-level H.264 decoder of the port: Annex-B in, YUV frames out; twin
 of jm_tpu.decoder.decoder.H264Decoder with ``device_recon=True``, for
-I / P streams, CAVLC (Baseline) or CABAC (Main) (4:2:0, 8-bit, frame
-pictures, one or more slices per picture, FMO slice groups of map types
-0-6, list0 with
-several references in a sliding-window DPB, POC types 0, 1 and 2).
+I / P streams, CAVLC (Baseline, Extended) or CABAC (Main) (4:2:0, 8-bit,
+frame pictures, one or more slices per picture, FMO slice groups of map
+types 0-6, data-partitioned CAVLC slices (NAL units 2-4), redundant
+pictures, list0 with several references, short- and long-term, in a DPB
+with the sliding window or MMCO marking, POC types 0, 1 and 2).
 
 Two phases per picture: the serial host parse of its slices
 (decoder/mb_parse.py for CAVLC, decoder/mb_parse_cabac.py for CABAC)
@@ -20,11 +21,18 @@ both entropy coders:
 The new reference state stays on the device in the DPB; the output
 planes are downloaded from the deblocked picture.
 
+A data-partitioned slice is assembled from its partitions A (header
+and MB headers), B (intra residual) and C (inter residual) before it is
+parsed. A redundant coding (redundant_pic_cnt > 0) is discarded when the
+primary coding of its picture was decoded, and decoded as the picture
+when the primary is missing. SEI messages are parsed into
+``sei_messages`` (decoder/sei.py).
+
 The decoder runs on CUDA unless the caller passes device="cpu" (then
 the deblock is the plain PyTorch wavefront); a CUDA request without a
 card raises. A stream outside the scope raises NotImplementedError naming
-the construct before the picture that uses it is reconstructed; SEI,
-AUD, filler and end-of-sequence NAL units are skipped.
+the construct before the picture that uses it is reconstructed; AUD,
+filler and end-of-sequence NAL units are skipped.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..bitstream.bitreader import BitReader
 from ..bitstream.nal import NalUnit, NalUnitType, split_annexb
 from ..common.fmo import mb_to_slice_group_map, next_mb_arrays
 from ..common.picture import MB_INTER, PictureData
@@ -50,6 +59,7 @@ from .mb_parse import MBParser, SliceContext
 from .mb_parse_cabac import MBParserCABAC
 from .parset import parse_pps, parse_sps
 from .recon import Reconstructor, build_inv_scale
+from .sei import parse_sei_rbsp
 
 I32 = torch.int32
 
@@ -67,7 +77,9 @@ class H264Decoder:
     ``decode_annexb`` calls, so a stream may be fed in pieces.
     ``pictures`` holds one record per decoded picture: slice type, path
     ("inter", "mixed", "intra") and the wall seconds of its host parse,
-    host intra recon, device stages and the whole picture."""
+    host intra recon, device stages and the whole picture.
+    ``sei_messages`` holds the parsed SEI messages (decoder/sei.py
+    SEIMessage) in stream order."""
 
     def __init__(self, device="cuda") -> None:
         self.device = resolve(device, "H264Decoder")
@@ -79,6 +91,10 @@ class H264Decoder:
         self._outputs: list[DecodedFrame] = []
         self._tabs: dict = {}       # id(pps) -> (pps, device tables)
         self.pictures: list[dict] = []
+        self.sei_messages: list = []
+        self._dp_pending = None     # the partitions of a DP slice so far
+        # (frame_num, pic_order_cnt_lsb) of the last primary pictures
+        self._primary_keys: list = []
 
     # ------------------------------------------------------------------
 
@@ -86,16 +102,28 @@ class H264Decoder:
         """Decode an Annex-B chunk; returns the frames completed by this
         call, in decode order."""
         start = len(self._outputs)
-        for nal in split_annexb(data):
-            try:
+        try:
+            for nal in split_annexb(data):
                 self._handle_nal(nal)
-            except EOFError as e:
-                raise ValueError(f"truncated NAL unit: {e}") from e
+            self._flush_dp()
+        except EOFError as e:
+            raise ValueError(f"truncated NAL unit: {e}") from e
         self._finish_picture()
         return self._outputs[start:]
 
     def _handle_nal(self, nal: NalUnit) -> None:
         t = nal.nal_unit_type
+        if t == NalUnitType.DPA:
+            self._flush_dp()
+            self._dp_pending = {"a": nal, "b": None, "c": None}
+            return
+        if t in (NalUnitType.DPB, NalUnitType.DPC):
+            # a partition B / C without its partition A is discarded, as
+            # ldecod does
+            if self._dp_pending is not None:
+                self._dp_pending["b" if t == NalUnitType.DPB else "c"] = nal
+            return
+        self._flush_dp()
         if t == NalUnitType.SPS:
             sps = parse_sps(nal.rbsp)
             self.sps_map[sps.seq_parameter_set_id] = sps
@@ -104,22 +132,55 @@ class H264Decoder:
             self.pps_map[pps.pic_parameter_set_id] = pps
         elif t in (NalUnitType.SLICE, NalUnitType.IDR):
             self._handle_slice(nal)
-        elif t in (NalUnitType.DPA, NalUnitType.DPB, NalUnitType.DPC):
-            raise NotImplementedError(
-                f"out of scope: data partitioning (NAL unit type {t})")
+        elif t == NalUnitType.SEI:
+            sps = next(iter(self.sps_map.values()), None)
+            self.sei_messages.extend(parse_sei_rbsp(nal.rbsp, sps))
         elif t in (NalUnitType.PREFIX, NalUnitType.SUBSET_SPS,
                    NalUnitType.SLICE_EXT):
             raise NotImplementedError(
                 f"out of scope: MVC / SVC (NAL unit type {t})")
-        # SEI, AUD, end of sequence / stream, filler, auxiliary: skipped
+        # AUD, end of sequence / stream, filler, auxiliary: skipped
 
-    def _handle_slice(self, nal: NalUnit) -> None:
+    def _flush_dp(self) -> None:
+        """Parse the pending data-partitioned slice: partitions B and C
+        open with slice_id (and redundant_pic_cnt when the PPS of
+        partition A's header has the flag; ldecod image.c read_new_slice,
+        jm_tpu decoder.py _flush_dp)."""
+        if self._dp_pending is None:
+            return
+        dp, self._dp_pending = self._dp_pending, None
+        peek = BitReader(dp["a"].rbsp)
+        peek.ue()                           # first_mb_in_slice
+        peek.ue()                           # slice_type
+        pps = self.pps_map.get(peek.ue())
+        readers = {}
+        for key in ("b", "c"):
+            if dp[key] is None:
+                continue
+            br = BitReader(dp[key].rbsp)
+            br.ue()                         # slice_id
+            if pps is not None and pps.redundant_pic_cnt_present_flag:
+                br.ue()                     # redundant_pic_cnt
+            readers[key] = br
+        self._handle_slice(dp["a"], dp_readers=readers)
+
+    def _handle_slice(self, nal: NalUnit, dp_readers=None) -> None:
+        """Parse one slice into the current picture; dp_readers: the
+        readers of partitions B and C when nal is a partition A."""
         t0 = time.perf_counter()
         hdr, br = parse_slice_header(nal, self.sps_map, self.pps_map)
         pps = self.pps_map[hdr.pic_parameter_set_id]
         sps = self.sps_map[pps.seq_parameter_set_id]
         if self.dpb is None:
             self.dpb = DPB(sps)
+        if hdr.redundant_pic_cnt > 0:
+            # a redundant coding (spec 7.4.3; jm_tpu decoder.py:159-168):
+            # discarded when the primary coding of its picture decoded,
+            # else decoded as the picture. Checked before _is_new_picture,
+            # which would open a new picture on its nal_ref_idc 0.
+            self._finish_picture()
+            if (hdr.frame_num, hdr.pic_order_cnt_lsb) in self._primary_keys:
+                return
         if self._is_new_picture(hdr):
             self._finish_picture()
             t0 = time.perf_counter()
@@ -146,9 +207,19 @@ class H264Decoder:
             if len(lst) < nact:
                 raise ValueError("insufficient reference frames")
         sid = len(cur["headers"])
-        parser = MBParserCABAC if pps.entropy_coding_mode_flag else MBParser
-        parser(pic, SliceContext(hdr, sps, pps, sid, mb_succ=cur["mb_succ"]),
-               br).parse_slice_data()
+        ctx = SliceContext(hdr, sps, pps, sid, mb_succ=cur["mb_succ"])
+        if pps.entropy_coding_mode_flag:
+            if dp_readers is not None:
+                raise ValueError("data partitioning is CAVLC-only")
+            parser = MBParserCABAC(pic, ctx, br)
+        else:
+            parser = MBParser(pic, ctx, br)
+            if dp_readers is not None:
+                br.ue()                     # partition A's slice_id
+                parser.dp_mode = True
+                parser.br_b = dp_readers.get("b")
+                parser.br_c = dp_readers.get("c")
+        parser.parse_slice_data()
         cur["headers"].append(hdr)
         for f in lst:                    # the picture's references by uid
             cur["refs"].setdefault(f.uid, f)
@@ -286,9 +357,18 @@ class H264Decoder:
         rec = {"type": hdr0.slice_type.name, "parse_s": cur["parse_s"],
                "host_recon_s": 0.0, "device_s": 0.0}
         Y, U, V, state = self._reconstruct(pic, cur, rec)
+        if hdr0.redundant_pic_cnt == 0:
+            # later redundant codings of this picture are discarded
+            self._primary_keys.append((hdr0.frame_num,
+                                       hdr0.pic_order_cnt_lsb))
+            del self._primary_keys[:-32]
         self.dpb.store(Frame(poc=cur["poc"], frame_num=hdr0.frame_num,
                              state=state, is_ref=hdr0.nal_ref_idc != 0),
-                       idr=hdr0.is_idr)
+                       mmco_ops=(hdr0.mmco_ops
+                                 if hdr0.adaptive_ref_pic_marking_mode_flag
+                                 else None),
+                       idr=hdr0.is_idr,
+                       long_term_flag=hdr0.long_term_reference_flag)
         self._outputs.append(DecodedFrame(cur["poc"],
                                           *_crop_output(sps, Y, U, V)))
         rec["seconds"] = time.perf_counter() - cur["t0"]

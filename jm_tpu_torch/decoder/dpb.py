@@ -1,8 +1,11 @@
-"""Decoded picture buffer of short-term reference frames (spec 8.2.4 /
-8.2.5.3): sliding window, IDR flush, P-slice list0 initialization and
-ref_pic_list_modification; twin of jm_tpu/decoder/dpb.py without MMCO
-and long-term references (ldecod/src/mbuffer.c store_picture_in_dpb,
-init_lists_p_slice, sliding_window_memory_management).
+"""Decoded picture buffer of reference frames (spec 8.2.4 / 8.2.5): the
+sliding window, IDR flush, adaptive marking (MMCO ops 1-6) with
+long-term references, P-slice list0 initialization (short-term by PicNum
+descending, then long-term by LongTermFrameIdx) and
+ref_pic_list_modification with short- and long-term commands; twin of
+jm_tpu/decoder/dpb.py for frame pictures (ldecod/src/mbuffer.c
+store_picture_in_dpb, adaptive_memory_management, init_lists_p_slice,
+sliding_window_memory_management).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ class Frame:
     frame_num: int
     state: tuple
     is_ref: bool = True
+    is_long_term: bool = False
+    long_term_frame_idx: int = -1
     uid: int = -1            # unique decode-order id (deblock bS compare)
 
 
@@ -31,50 +36,114 @@ class DPB:
     def idr_flush(self) -> None:
         self.frames.clear()
 
-    def store(self, frame: Frame, idr=False) -> None:
+    def store(self, frame: Frame, mmco_ops=None, idr=False,
+              long_term_flag=0) -> None:
+        """Mark and store a decoded picture: an IDR flushes the buffer
+        (and is long-term with long_term_flag), MMCO commands replace the
+        sliding window (spec 8.2.5.4), non-reference pictures only take
+        a uid."""
         frame.uid = self._uid
         self._uid += 1
         if idr:
             self.idr_flush()
+            if long_term_flag:
+                frame.is_long_term = True
+                frame.long_term_frame_idx = 0
         if not frame.is_ref:
             return
-        # sliding window (spec 8.2.5.3): drop the oldest short-term frame
-        while len(self.frames) >= self.max_refs and self.frames:
-            self.frames.remove(min(self.frames, key=lambda f: f.uid))
+        if mmco_ops:
+            self._apply_mmco(frame, mmco_ops)
+        else:
+            # sliding window (spec 8.2.5.3): long-term frames stay
+            short = [f for f in self.frames if not f.is_long_term]
+            num_long = len(self.frames) - len(short)
+            while len(short) + num_long >= self.max_refs and short:
+                oldest = min(short, key=lambda f: f.uid)
+                self.frames.remove(oldest)
+                short.remove(oldest)
         self.frames.append(frame)
 
-    def ref_list_p(self, cur_frame_num: int) -> list[Frame]:
-        """List0 for P slices: short-term frames by PicNum (FrameNumWrap)
-        descending."""
+    def _apply_mmco(self, frame: Frame, ops) -> None:
         max_fn = self.sps.max_frame_num
+        for op in ops:
+            if op.op == 1:   # unmark short-term
+                pic_num = frame.frame_num - (op.value1 + 1)
+                target = pic_num if pic_num >= 0 else pic_num + max_fn
+                for f in list(self.frames):
+                    if not f.is_long_term and f.frame_num == target:
+                        self.frames.remove(f)
+            elif op.op == 2:  # unmark long-term
+                for f in list(self.frames):
+                    if f.is_long_term and f.long_term_frame_idx == op.value1:
+                        self.frames.remove(f)
+            elif op.op == 3:  # short-term -> long-term
+                pic_num = frame.frame_num - (op.value1 + 1)
+                target = pic_num if pic_num >= 0 else pic_num + max_fn
+                self._unmark_lt_idx(op.value2)
+                for f in self.frames:
+                    if not f.is_long_term and f.frame_num == target:
+                        f.is_long_term = True
+                        f.long_term_frame_idx = op.value2
+            elif op.op == 4:  # max long-term index
+                for f in list(self.frames):
+                    if f.is_long_term and \
+                            f.long_term_frame_idx >= op.value1 - 1 >= -1:
+                        if f.long_term_frame_idx > op.value1 - 1:
+                            self.frames.remove(f)
+            elif op.op == 5:  # unmark all
+                self.frames.clear()
+            elif op.op == 6:  # current -> long-term
+                self._unmark_lt_idx(op.value1)
+                frame.is_long_term = True
+                frame.long_term_frame_idx = op.value1
 
-        def pic_num(f: Frame) -> int:
-            return (f.frame_num if f.frame_num <= cur_frame_num
-                    else f.frame_num - max_fn)
+    def _unmark_lt_idx(self, idx: int) -> None:
+        """Spec 8.2.5.4.3 / .6: a frame already holding this long-term
+        index is marked unused for reference."""
+        for f in list(self.frames):
+            if f.is_long_term and f.long_term_frame_idx == idx:
+                self.frames.remove(f)
 
-        return sorted(self.frames, key=pic_num, reverse=True)
+    # ---- reference list construction (spec 8.2.4.2) -----------------------
+
+    def _pic_num(self, f: Frame, cur_frame_num: int) -> int:
+        """PicNum (FrameNumWrap) of a short-term frame."""
+        return (f.frame_num if f.frame_num <= cur_frame_num
+                else f.frame_num - self.sps.max_frame_num)
+
+    def ref_list_p(self, cur_frame_num: int) -> list[Frame]:
+        """List0 for P slices: short-term frames by PicNum descending,
+        then long-term frames by LongTermPicNum ascending."""
+        short = sorted((f for f in self.frames if not f.is_long_term),
+                       key=lambda f: self._pic_num(f, cur_frame_num),
+                       reverse=True)
+        long = sorted((f for f in self.frames if f.is_long_term),
+                      key=lambda f: f.long_term_frame_idx)
+        return short + long
 
     def reorder_list(self, lst: list[Frame], mods, cur_frame_num: int,
                      num_active: int) -> list[Frame]:
-        """Apply ref_pic_list_modification commands (spec 8.2.4.3.1)."""
+        """Apply ref_pic_list_modification commands (spec 8.2.4.3.1 short-
+        term, 8.2.4.3.2 long-term)."""
         if not mods:
             return lst[:num_active]
         max_fn = self.sps.max_frame_num
         lst = list(lst)
         pred = cur_frame_num
         for idx, m in enumerate(mods):
-            diff = m.value + 1
-            pred = (pred - diff) % max_fn if m.op == 0 else (pred + diff) % max_fn
-            wanted = pred if pred <= cur_frame_num else pred - max_fn
-            target = None
-            for f in lst:
-                fpn = (f.frame_num if f.frame_num <= cur_frame_num
-                       else f.frame_num - max_fn)
-                if fpn == wanted:
-                    target = f
-                    break
+            if m.op in (0, 1):
+                diff = m.value + 1
+                pred = (pred - diff) % max_fn if m.op == 0 \
+                    else (pred + diff) % max_fn
+                wanted = pred if pred <= cur_frame_num else pred - max_fn
+                target = next((f for f in lst if not f.is_long_term and
+                               self._pic_num(f, cur_frame_num) == wanted),
+                              None)
+            else:
+                target = next((f for f in lst if f.is_long_term and
+                               f.long_term_frame_idx == m.value), None)
             if target is None:
-                raise ValueError("ref reorder: pic_num not found")
+                raise ValueError("ref reorder: picture not found")
             lst.remove(target)
             lst.insert(idx, target)
         return lst[:num_active]

@@ -4,10 +4,14 @@ pictures of I and P slices, CAVLC or CABAC (ldecod/src/header.c
 FirstPartOfSliceHeader:76, RestOfSliceHeader:113,
 ref_pic_list_reordering:350, decode_poc:720).
 
-What the decoder does not cover raises NotImplementedError naming the
-construct, before the slice's picture is decoded: ``check_scope`` for
-what the SPS / PPS declare, the header parse for B / SP / SI slices, a
-pred-weight table, MMCO, long-term references and redundant pictures.
+The header carries what the reference-management layer reads: the
+redundant_pic_cnt, ref_pic_list_modification with short-term (idc 0, 1)
+and long-term (idc 2) commands, and dec_ref_pic_marking (an IDR's
+long_term_reference_flag, MMCO ops 1-6; ldecod header.c
+dec_ref_pic_marking:635). What the decoder does not cover raises
+NotImplementedError naming the construct, before the slice's picture is
+decoded: ``check_scope`` for what the SPS / PPS declare, the header
+parse for B / SP / SI slices.
 """
 
 from __future__ import annotations
@@ -75,8 +79,6 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
         h.delta_pic_order_cnt = (d0, d1)
     if pps.redundant_pic_cnt_present_flag:
         h.redundant_pic_cnt = br.ue()
-        if h.redundant_pic_cnt:
-            raise NotImplementedError("out of scope: redundant pictures")
 
     h.num_ref_idx_l0_active_minus1 = pps.num_ref_idx_l0_default_active_minus1
     if h.slice_type == SliceType.P:
@@ -91,13 +93,10 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
         if h.is_idr:
             h.no_output_of_prior_pics_flag = br.flag()
             h.long_term_reference_flag = br.flag()
-            if h.long_term_reference_flag:
-                raise NotImplementedError("out of scope: long-term references")
         else:
             h.adaptive_ref_pic_marking_mode_flag = br.flag()
             if h.adaptive_ref_pic_marking_mode_flag:
-                raise NotImplementedError(
-                    f"out of scope: MMCO ({_read_mmco(br)})")
+                h.mmco_ops = _read_mmco(br)
 
     if pps.entropy_coding_mode_flag and h.slice_type == SliceType.P:
         h.cabac_init_idc = br.ue()
@@ -126,10 +125,10 @@ def _read_rplm(br: BitReader) -> list[RefPicListMod]:
         idc = br.ue()
         if idc == 3:
             break
-        if idc not in (0, 1):
+        if idc > 2:
             raise NotImplementedError(
                 f"out of scope: ref_pic_list_modification idc {idc} "
-                "(long-term / inter-view)")
+                "(inter-view)")
         out.append(RefPicListMod(idc, br.ue()))
         if len(out) > 64:
             raise ValueError("runaway ref_pic_list_modification")
@@ -137,12 +136,14 @@ def _read_rplm(br: BitReader) -> list[RefPicListMod]:
 
 
 def _read_mmco(br: BitReader) -> list[MMCOOp]:
-    """The MMCO commands, read for the error message."""
+    """The memory_management_control_operation commands up to op 0."""
     ops = []
-    while len(ops) < 66:
+    while True:
         op = br.ue()
         if op == 0:
             break
+        if op > 6 or len(ops) >= 66:
+            raise ValueError(f"invalid MMCO command list (op {op})")
         m = MMCOOp(op)
         if op in (1, 2, 3, 4, 6):
             m.value1 = br.ue()

@@ -12,10 +12,15 @@ read_one_macroblock_p_slice_cavlc:1335; lcommon/src/mv_prediction.c).
 
 A slice is parsed by the native parser of the port's C++ runtime
 (jm_tpu_torch/native, jm_dec.cpp parse_slice_cavlc) unless the caller
-asks for the Python parser (``native=False``); the C parser stops at an
-I_PCM MB, and the Python parser then reads the slice again from its
-start (jm_tpu/decoder/mb_parse.py _parse_native). native.routes["parse"]
-counts each slice's route.
+asks for the Python parser (``native=False``) or the slice is data-
+partitioned; the C parser stops at an I_PCM MB, and the Python parser
+then reads the slice again from its start (jm_tpu/decoder/mb_parse.py
+_parse_native). A data-partitioned slice (``dp_mode``) reads its MB
+headers from partition A (``br``) and the residual of intra MBs from
+partition B (``br_b``), of inter MBs from partition C (``br_c``);
+a residual whose partition is missing raises ValueError.
+native.routes["parse"] counts each slice's route, and
+native.routes["dp"]["parse"] the partitioned ones.
 """
 
 from __future__ import annotations
@@ -72,11 +77,26 @@ class MBParser:
         self.qp = ctx.qp
         self.pctx = PredCtx(pic)
         self.native = native
+        # data partitioning: the readers of partitions B and C (None when
+        # the partition is absent)
+        self.dp_mode = False
+        self.br_b = None
+        self.br_c = None
 
     # ---- residual reading -------------------------------------------------
 
+    def _res_br(self, addr: int):
+        """The reader of this MB's residual: partition B for intra MBs, C
+        for inter MBs, the slice's own reader without partitions."""
+        if not self.dp_mode:
+            return self.br
+        br = self.br_b if self.pic.mb_class[addr] != MB_INTER else self.br_c
+        if br is None:
+            raise ValueError("missing data partition for residual data")
+        return br
+
     def _read_luma_residual(self, addr: int, cbp: int, is_i16: bool) -> None:
-        pic, br, pctx = self.pic, self.br, self.pctx
+        pic, br, pctx = self.pic, self._res_br(addr), self.pctx
         if is_i16:
             pic.luma_dc[addr], _tc = residual_block_cavlc(
                 br, pctx.nc_luma(addr, 0), 16)
@@ -95,7 +115,7 @@ class MBParser:
                 pic.luma_nnz[addr, blk] = tc
 
     def _read_chroma_residual(self, addr: int, cbp: int) -> None:
-        pic, br = self.pic, self.br
+        pic, br = self.pic, self._res_br(addr)
         cbp_chroma = cbp >> 4
         if cbp_chroma & 3:
             for comp in range(2):
@@ -277,7 +297,9 @@ class MBParser:
         sid = self.ctx.slice_id
         if addr >= n:
             raise ValueError(f"first_mb_in_slice {addr} outside the picture")
-        if self.native:
+        if self.dp_mode:
+            N.routes["dp"]["parse"] += 1
+        elif self.native:
             if self._parse_native():
                 N.routes["parse"]["native"] += 1
                 return

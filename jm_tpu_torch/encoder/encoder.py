@@ -1,13 +1,16 @@
 """H.264 encoder of the port: IPPP, 4:2:0, one reference, with the
-trial-encode RD P path (device_rd) or md_low, CAVLC (Baseline) or CABAC
-(Main), one or several slices per picture (slice_mode 1: MBs per slice,
-2: bytes per slice), FMO slice groups (Baseline), a fixed QP, a P QP of
-its own (qp_p) or frame-level JVT-G012 rate control, and POC types 0, 1
-and 2 (twin of jm_tpu.encoder.Encoder with pipeline="device": its
-pipelined ``encode_stream`` and its per-frame ``encode_frame``).
+trial-encode RD P path (device_rd) or md_low, CAVLC (Baseline, or
+Extended with data partitioning) or CABAC (Main), one or several slices
+per picture (slice_mode 1: MBs per slice, 2: bytes per slice), FMO slice
+groups (Baseline), a fixed QP, a P QP of its own (qp_p) or frame-level
+JVT-G012 rate control, POC types 0, 1 and 2, long-term anchors, MMCO
+marking, redundant pictures, the loop filter on or off, a user-data SEI
+and VUI timing (twin of jm_tpu.encoder.Encoder with pipeline="device":
+its pipelined ``encode_stream`` and its per-frame ``encode_frame``).
 
 The pipe (``encode_stream`` of a CAVLC stream with one slice per picture,
-a fixed QP and no intra refresh, whatever its POC type):
+a fixed QP, no intra refresh, the loop filter on, no long-term anchors
+and no data partitioning, whatever its POC type):
   - IDR frames: ops/intra.i_frame_step on the device, then boundary
     strengths + deblock (the CUDA kernels on the card), then the host
     CAVLC serializer (encoder/syntax.py) with SPS / PPS;
@@ -23,16 +26,32 @@ that every MB is inter. When frame N's intra trigger fired (a scene cut),
 it is finished on the per-frame path with its device encode reused, and
 frame N+1 is dispatched again against the corrected reference.
 
-The per-frame path (``encode_frame``, and every frame of a stream with
-several slices or slice groups, rate control, qp_p, intra refresh or
-CABAC), at the picture's QP:
+The per-frame path (``encode_frame``, and every frame of a stream outside
+the pipe), at the picture's QP:
   - I pictures: i_frame_step on the device when the picture is one
     slice, else the serial host intra encoder (encoder/intra_host.py);
   - P pictures: ops/enc.p_frame_step on the device, the download of its
     fields, the host commit with the serial re-encode of the intra MBs
     and the picture's slice boundaries (encoder/p_intra.py);
-then boundary strengths + deblock (per-MB QP and slice id) + reference
-prep on the device, and the host serializer, one NAL unit per slice.
+then boundary strengths + deblock (per-MB QP and slice id; skipped with
+deblock=False) + reference prep on the device, and the host serializer,
+one NAL unit per slice (three, partitions A / B / C, for a P slice with
+data_partition). After every redundant_period-th P picture a redundant
+coding follows: a second device encode of the frame at qp +
+redundant_qp_off against the same reference, host commit and one slice
+with redundant_pic_cnt 1 and nal_ref_idc 0; it is neither deblocked nor
+stored.
+
+The encoder's DPB (``refs``, most recent first) holds the reference
+pictures with their device states: one short-term picture, and with
+long_term_period one long-term anchor beside it (every
+long_term_period-th picture: the IDR's long_term_reference_flag, MMCO 4
+and 6 on a P picture). List0 is the short-term pictures (by POC distance
+with ref_reorder, which writes the matching modification commands), then
+the long-term one; each P picture predicts from its head. poc_mem_mgmt
+unmarks the short-term picture of least POC by MMCO 1 when the DPB is
+full. The pipe writes no MMCO and no redundant coding: jm_tpu's pipe
+finalize has neither, and the port keeps its bytes.
 With slice_mode 2 the picture is re-coded on the host until every slice
 NAL unit fits slice_argument bytes (the device encode of a P picture
 does not depend on the slices and is downloaded once; the first try of
@@ -72,7 +91,9 @@ from ..ops.intra import i_frame_step
 from ..ratectl import RateControl
 from .intra_host import IntraPicture
 from .p_intra import CORE_FIELDS, PictureCommit
-from .syntax import serialize_slice, write_pps, write_slice_header, write_sps
+from .sei_write import build_sei_rbsp, user_data_unregistered
+from .syntax import (serialize_slice, serialize_slice_dp, write_pps,
+                     write_slice_header, write_sps)
 from .syntax_cabac import serialize_slice_cabac
 
 
@@ -89,11 +110,14 @@ def lambda_mode4(qp: int) -> int:
 @dataclass
 class EncoderConfig:
     """The configurations this encoder covers: jm_tpu's device IPPP set
-    (4:2:0, one reference, deblocking on), with device RD or md_low,
-    CAVLC or CABAC, random intra refresh, several slices per picture,
-    FMO slice groups (CAVLC only), a fixed QP, a P QP of its own or
-    frame-level rate control, and POC types 0, 1 and 2. Values outside
-    it raise ValueError."""
+    (4:2:0, one reference), with device RD or md_low, CAVLC or CABAC,
+    random intra refresh, several slices per picture, FMO slice groups
+    (CAVLC only), a fixed QP, a P QP of its own or frame-level rate
+    control, POC types 0, 1 and 2, the loop filter on or off, VUI timing,
+    a user-data SEI, long-term anchors, list reordering, POC-based MMCO,
+    data partitioning and redundant pictures. Values outside it raise
+    ValueError; redundant pictures with data partitioning raise
+    NotImplementedError, as in jm_tpu."""
     width: int = 176
     height: int = 144
     qp: int = 28                 # I-picture QP (and P without qp_p / RC)
@@ -132,10 +156,28 @@ class EncoderConfig:
     sg_change_rate_minus1: int = 0       # types 3-5
     sg_change_cycle: int = 1             # types 3-5 (written per slice)
     sg_ids: tuple = ()                   # type 6: group of every MB
+    deblock: bool = True         # False: the loop filter off in every slice
+                                 # (lencod LoopFilterDisable)
+    enable_vui: bool = False     # VUI timing info in the SPS
+    sei_user_data: bytes | None = None   # user_data_unregistered SEI
+                                 # before each IDR's slices
+    long_term_period: int = 0    # every Nth picture becomes the long-term
+                                 # anchor (IDR flag, P: MMCO 4 + 6)
+    ref_reorder: int = 0         # 1: list0 by POC distance, with its
+                                 # modification commands (ReferenceReorder)
+    poc_mem_mgmt: int = 0        # 1: MMCO 1 unmarks the least-POC short-
+                                 # term picture of a full DPB
+                                 # (PocMemoryManagement)
+    data_partition: int = 0      # 1: P slices as partitions A / B / C
+                                 # (PartitionMode; Extended profile)
+    redundant_period: int = 0    # a redundant coding after every Nth P
+                                 # picture (RedundantPicture)
+    redundant_qp_off: int = 4    # its QP above the primary's (0..51)
 
 
 def _check_config(cfg: EncoderConfig) -> None:
-    for name in ("device_rd", "cabac_adapt_init", "rc_enable"):
+    for name in ("device_rd", "cabac_adapt_init", "rc_enable", "deblock",
+                 "enable_vui"):
         if not isinstance(getattr(cfg, name), bool):
             raise ValueError(f"EncoderConfig.{name}="
                              f"{getattr(cfg, name)!r}: True or False")
@@ -200,23 +242,47 @@ def _check_config(cfg: EncoderConfig) -> None:
         if t == 6 and len(cfg.sg_ids) != n:
             raise ValueError("EncoderConfig.sg_ids: one slice group id per "
                              "MB")
+    if cfg.sei_user_data is not None and not isinstance(cfg.sei_user_data,
+                                                        bytes):
+        raise ValueError("EncoderConfig.sei_user_data: bytes or None")
+    for name in ("long_term_period", "redundant_period"):
+        if getattr(cfg, name) < 0:
+            raise ValueError(f"EncoderConfig.{name}={getattr(cfg, name)}: "
+                             "must be >= 0")
+    for name in ("ref_reorder", "poc_mem_mgmt", "data_partition"):
+        if getattr(cfg, name) not in (0, 1):
+            raise ValueError(f"EncoderConfig.{name}={getattr(cfg, name)}: "
+                             "0 or 1")
+    if not 0 <= cfg.redundant_qp_off <= 51:
+        raise ValueError(f"EncoderConfig.redundant_qp_off="
+                         f"{cfg.redundant_qp_off}: outside 0..51")
+    if cfg.redundant_period and cfg.data_partition:
+        raise NotImplementedError(
+            "redundant pictures: IPPP single-view frame coding only "
+            "(not with data partitioning, as in jm_tpu)")
 
 
 class Picture:
-    """A coded picture's deblocked reconstruction. Y / U / V are numpy
-    uint8 planes, downloaded from the device reference state on first
-    access (P frames) or given (IDR frames)."""
+    """A coded picture: its reference state on the device (``state``,
+    ops/enc.prep_ref of the deblocked recon) and its marking in the
+    encoder's DPB (uid, is_long_term, long_term_frame_idx). Y / U / V
+    are numpy uint8 planes, downloaded from the state on first access
+    (P frames) or given (IDR frames)."""
 
-    def __init__(self, poc: int, frame_num: int, state=None, planes=None):
+    def __init__(self, poc: int, frame_num: int, state, uid: int,
+                 planes=None):
         self.poc = poc
         self.frame_num = frame_num
-        self._state = state
+        self.state = state
+        self.uid = uid
+        self.is_long_term = False
+        self.long_term_frame_idx = -1
         self._planes = planes
 
     def _materialize(self):
         if self._planes is None:
             p = E.PAD
-            planes, padU, padV = self._state
+            planes, padU, padV = self.state
             self._planes = tuple(t.cpu().numpy()[p:-p, p:-p]
                                  for t in (planes[0], padU, padV))
         return self._planes
@@ -239,8 +305,9 @@ class Encoder:
     per frame, as ``encode_frame(Y, U, V)`` does frame by frame.
     ``results`` holds one dict per coded picture (disp, type, bits, qp,
     slices, frame: a Picture with the deblocked recon; intra_mbs: the MBs
-    coded intra, for P frames of the per-frame path; cabac_init_idc: the
-    context model of each CABAC P slice)."""
+    coded intra and ref_poc: the POC of the reference, for P frames of
+    the per-frame path; cabac_init_idc: the context model of each CABAC
+    P slice). ``refs`` is the DPB, most recent first."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
@@ -255,21 +322,34 @@ class Encoder:
         except ValueError:
             level = minimum_level(self.mb_w, self.mb_h, cfg.frame_rate, 1)
         cabac = cfg.entropy == "cabac"
+        # the DPB: one short-term reference, and the long-term anchor
+        self.dpb_size = 2 if cfg.long_term_period > 0 else 1
         self.sps = SPS(
-            profile_idc=77 if cabac else 66, level_idc=level,
+            profile_idc=88 if cfg.data_partition else (77 if cabac else 66),
+            level_idc=level,
             log2_max_frame_num_minus4=4,
             pic_order_cnt_type=cfg.poc_type,
             delta_pic_order_always_zero_flag=1 if cfg.poc_type == 1 else 0,
             offset_for_ref_frame=[2] if cfg.poc_type == 1 else [],
             log2_max_pic_order_cnt_lsb_minus4=4,
-            max_num_ref_frames=1,
+            max_num_ref_frames=self.dpb_size,
             pic_width_in_mbs_minus1=self.mb_w - 1,
             pic_height_in_map_units_minus1=self.mb_h - 1,
             chroma_format_idc=1, frame_mbs_only_flag=1,
             direct_8x8_inference_flag=1)
+        if cfg.enable_vui:
+            # timing info (lencod GenerateVUI_parameters_rbsp:1048): the
+            # frame rate as time_scale / (2 num_units_in_tick)
+            self.sps.vui_parameters_present_flag = 1
+            self.sps.vui = {"num_units_in_tick": 1000,
+                            "time_scale": int(round(cfg.frame_rate * 2000)),
+                            "fixed_frame_rate": 1, "pic_struct_present": 0}
         self.pps = PPS(num_ref_idx_l0_default_active_minus1=0,
                        entropy_coding_mode_flag=1 if cabac else 0,
-                       deblocking_filter_control_present_flag=0)
+                       redundant_pic_cnt_present_flag=
+                       1 if cfg.redundant_period else 0,
+                       deblocking_filter_control_present_flag=
+                       0 if cfg.deblock else 1)
         # FMO slice groups (lencod/src/fmo.c FmoInit)
         self.group_map = None
         if cfg.num_slice_groups > 1:
@@ -305,7 +385,9 @@ class Encoder:
         self.idr_pic_id = 0
         self.display_idx = 0
         self._idr_disp = 0
-        self.ref_state = None         # the DPB: the last picture's state
+        self.refs = []                # the DPB: references, most recent
+                                      # first
+        self._uid = 0
         self.results = []
         # display indices of the P frames finished on the per-frame path
         # after the pipe's intra speculation failed, and the dispatches
@@ -345,12 +427,15 @@ class Encoder:
 
     def _pipe_ok(self) -> bool:
         """The pipe covers CAVLC with one slice group and no slice mode,
-        a fixed QP and no intra refresh, any POC type (jm_tpu _pipe_ok);
-        everything else takes the per-frame path."""
+        a fixed QP, no intra refresh, the loop filter on, no long-term
+        anchors and no data partitioning, any POC type, with or without
+        redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI (jm_tpu
+        _pipe_ok); everything else takes the per-frame path."""
         cfg = self.cfg
         return (cfg.entropy == "cavlc" and cfg.intra_mb_refresh == 0
                 and cfg.slice_mode == 0 and cfg.num_slice_groups == 1
-                and self.rc is None and cfg.qp_p is None)
+                and self.rc is None and cfg.qp_p is None and cfg.deblock
+                and cfg.long_term_period == 0 and cfg.data_partition == 0)
 
     # ------------------------------------------------------------------
 
@@ -394,8 +479,7 @@ class Encoder:
         for f in frames:
             packed = self._upload(f)
             idx = self.frame_idx + (1 if pending is not None else 0)
-            if self._idr_due(idx) or (self.ref_state is None
-                                      and pending is None):
+            if self._idr_due(idx) or (not self.refs and pending is None):
                 if pending is not None:
                     payloads.append(self._finalize(*pending)[0])
                     pending = None
@@ -405,7 +489,7 @@ class Encoder:
             disp = self.display_idx
             self.display_idx += 1
             out, new_state = self._dispatch(
-                packed, state if state is not None else self.ref_state)
+                packed, state if state is not None else self.refs[0].state)
             if pending is not None:
                 payload, fell_back = self._finalize(*pending)
                 payloads.append(payload)
@@ -413,7 +497,8 @@ class Encoder:
                     # frame N+1 was speculated against frame N's all-inter
                     # recon: dispatch it again against the corrected one
                     self.redispatches += 1
-                    out, new_state = self._dispatch(packed, self.ref_state)
+                    out, new_state = self._dispatch(packed,
+                                                    self.refs[0].state)
             pending = (out, disp, new_state, f)
             state = new_state
         if pending is not None:
@@ -434,16 +519,113 @@ class Encoder:
         qp = self.rc.pict_qp("P") if self.rc is not None else \
             (cfg.qp if cfg.qp_p is None else cfg.qp_p)
         forced = self._refresh_set()
-        core = E.p_frame_step(
-            *self._planes(packed), *self.ref_state, qp,
-            chroma_qp(qp, self.pps.chroma_qp_index_offset), lambda_me(qp),
-            lambda_mode4(qp), mb_w=self.mb_w, mb_h=self.mb_h,
-            sr=cfg.search_range, rd=cfg.device_rd)
+        ref = self._ref_list_p(2 * (disp - self._idr_disp))[0]
+        core = self._p_step(packed, ref, qp)
         return self._finish_p(core, disp, frame, forced, qp, packed)
 
     def flush(self) -> bytes:
         """The end of the stream: nothing is buffered (no B pictures)."""
         return b""
+
+    def _p_step(self, packed, ref: Picture, qp: int):
+        """ops/enc.p_frame_step of the uploaded frame against ref at qp."""
+        return E.p_frame_step(
+            *self._planes(packed), *ref.state, qp,
+            chroma_qp(qp, self.pps.chroma_qp_index_offset), lambda_me(qp),
+            lambda_mode4(qp), mb_w=self.mb_w, mb_h=self.mb_h,
+            sr=self.cfg.search_range, rd=self.cfg.device_rd)
+
+    # ---- the DPB (jm_tpu encoder.py:501-578) ---------------------------
+
+    def _ref_list_p(self, poc: int) -> list:
+        """List0 of the P picture of POC poc being coded, as the decoder
+        builds it: the short-term references (by PicNum descending, which
+        is insertion order here; with ref_reorder by POC distance), then
+        the long-term one; one entry is active."""
+        st = [f for f in self.refs if not f.is_long_term]
+        if self.cfg.ref_reorder == 1:
+            st.sort(key=lambda f: (abs(f.poc - poc), 0 if f.poc > poc else 1))
+        lt = sorted((f for f in self.refs if f.is_long_term),
+                    key=lambda f: f.long_term_frame_idx)
+        return (st + lt)[:1]
+
+    def _picnum(self, f: Picture) -> int:
+        """PicNum of a short-term reference (spec 8.2.4.1)."""
+        return (f.frame_num if f.frame_num <= self.frame_num
+                else f.frame_num - self.sps.max_frame_num)
+
+    def _poc_reorder_cmds(self, poc: int):
+        """The ref_pic_list_modification commands that turn the decoder's
+        default list0 into _ref_list_p's order (lencod list_reorder.c
+        :196-238, stopping once the rest matches), or None."""
+        default = [f for f in self.refs if not f.is_long_term][:1]
+        target = [f for f in self._ref_list_p(poc) if not f.is_long_term]
+        n = len(target)
+        if [id(f) for f in target] == [id(f) for f in default[:n]]:
+            return None
+        max_fn = self.sps.max_frame_num
+        cmds = []
+        pred = self.frame_num
+        cur = [self._picnum(f) for f in default]
+        want = [self._picnum(f) for f in target]
+        for i, pn in enumerate(want):
+            diff = pn - pred
+            if diff <= 0:
+                amp = -diff - 1
+                cmds.append((0, max_fn - 1 if amp < 0 else amp))
+            else:
+                cmds.append((1, diff - 1))
+            pred = pn
+            rest = [x for x in cur[i:] if x != pn]
+            cur = cur[:i] + [pn] + rest
+            if cur[i + 1:n] == want[i + 1:]:
+                break
+        return cmds
+
+    def _poc_mmco(self):
+        """poc_mem_mgmt: with the DPB full, MMCO 1 unmarks the short-term
+        reference of least POC (lencod mmco.c
+        poc_based_ref_management_frame_pic:300). Returns (commands,
+        victim) or (None, None)."""
+        st = [f for f in self.refs if not f.is_long_term]
+        if len(self.refs) != self.sps.max_num_ref_frames or not st:
+            return None, None
+        victim = min(st, key=lambda f: f.poc)
+        return ((1, self.frame_num - self._picnum(victim) - 1),), victim
+
+    def _p_marking(self, poc: int):
+        """The marking of the P picture of POC poc being coded (jm_tpu
+        _emit_anchor): (whether it becomes the long-term anchor, the slice
+        header's marking and list-modification keywords, the reference
+        that its MMCO 1 unmarks)."""
+        cfg = self.cfg
+        lt = cfg.long_term_period > 0 and \
+            self.frame_idx % cfg.long_term_period == 0
+        mmco, victim = (((4, 1), (6, 0)) if lt else None), None
+        if cfg.poc_mem_mgmt == 1 and mmco is None:
+            mmco, victim = self._poc_mmco()
+        ref_mod = self._poc_reorder_cmds(poc) if cfg.ref_reorder == 1 \
+            else None
+        return lt, {"mmco_ops": mmco, "ref_mod_l0": ref_mod}, victim
+
+    def _store_ref(self, frame: Picture, long_term: bool = False) -> None:
+        """Store a coded picture as the newest reference (the decoder's
+        DPB.store: a new long-term anchor takes index 0 from its holder;
+        the sliding window spares long-term pictures)."""
+        if long_term:
+            self.refs = [f for f in self.refs if not (
+                f.is_long_term and f.long_term_frame_idx == 0)]
+            frame.is_long_term = True
+            frame.long_term_frame_idx = 0
+        self.refs.insert(0, frame)
+        st = [f for f in self.refs if not f.is_long_term]
+        while len(self.refs) > self.dpb_size and st:
+            self.refs.remove(st.pop())
+
+    def _new_picture(self, poc: int, state, planes=None) -> Picture:
+        frame = Picture(poc, self.frame_num, state, self._uid, planes)
+        self._uid += 1
+        return frame
 
     def _refresh_set(self) -> set:
         """The next intra_mb_refresh MBs of the refresh permutation."""
@@ -487,6 +669,16 @@ class Encoder:
         return deblock(*rec, bs_v, bs_h, up(pic.qp), zeros, zeros, zeros,
                        up(pic.slice_id), zeros, self.qpc_cb, self.qpc_cr,
                        mb_w=self.mb_w, mb_h=self.mb_h)
+
+    def _loop_filter(self, rec, pic: PictureData):
+        """The deblocked planes of a coded picture on the device (the
+        recon itself, uploaded where it is on the host, with
+        deblock=False)."""
+        if self.cfg.deblock:
+            return self._deblock(rec, pic)
+        return tuple(p if isinstance(p, torch.Tensor) else
+                     torch.as_tensor(np.ascontiguousarray(p),
+                                     device=self.device) for p in rec)
 
     def _rc_update(self, label: str, qp: int, payload: bytes, src_y,
                    rec_y) -> None:
@@ -548,19 +740,26 @@ class Encoder:
             qp = self.rc.pict_qp("I")
         else:
             qp = cfg.qp
+        lt = cfg.long_term_period > 0 and \
+            self.frame_idx % cfg.long_term_period == 0
         planes = self._planes(packed)
         coded, (nal, _info), plan = self._fit_slices(
             lambda plan: self._code_i(planes, frame, qp, plan),
             lambda pic, plan, sizes: self._picture_nals(
-                pic, SliceType.I, 0, qp, plan, sizes))
-        dY, dU, dV = self._deblock(coded.rec, coded.pic)
-        self.ref_state = E.prep_ref(dY, dU, dV)
+                pic, SliceType.I, 0, qp, plan, sizes,
+                long_term_flag=int(lt)))
+        dY, dU, dV = self._loop_filter(coded.rec, coded.pic)
         payload = (annexb_bytes(3, NalUnitType.SPS, write_sps(self.sps))
-                   + annexb_bytes(3, NalUnitType.PPS, write_pps(self.pps))
-                   + nal)
+                   + annexb_bytes(3, NalUnitType.PPS, write_pps(self.pps)))
+        if cfg.sei_user_data is not None:
+            payload += annexb_bytes(0, NalUnitType.SEI, build_sei_rbsp(
+                [user_data_unregistered(cfg.sei_user_data)]))
+        payload += nal
         self._rc_update("I", qp, payload, planes[0], dY)
-        frame = Picture(0, 0, planes=tuple(t.cpu().numpy()
-                                           for t in (dY, dU, dV)))
+        frame = self._new_picture(0, E.prep_ref(dY, dU, dV), planes=tuple(
+            t.cpu().numpy() for t in (dY, dU, dV)))
+        self.refs = []
+        self._store_ref(frame, long_term=lt)
         self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
         self.frame_idx += 1
@@ -614,8 +813,10 @@ class Encoder:
         nbits, ovf, intra_any = (int(v) for v in ext[:3])
         if intra_any:
             self.fallbacks.append(disp)
+            # jm_tpu's fallback runs encode_frame with the dispatched
+            # encode reused, also by the redundant coding (Queue 3)
             return self._finish_p(out["core"], disp, frame, (),
-                                  self.cfg.qp), True
+                                  self.cfg.qp, red_core=out["core"]), True
         poc = 2 * (disp - self._idr_disp)
         if ovf:
             self.ovf.append(disp)
@@ -636,13 +837,18 @@ class Encoder:
                                     **info), False
 
     def _commit_p_frame(self, slice_bytes: bytes, disp: int, state, qp: int,
-                        n_slices: int, **info) -> bytes:
-        """Store a coded P picture (its slice NAL units slice_bytes) as
-        the reference and in ``results`` (with the items of info);
-        returns slice_bytes."""
+                        n_slices: int, long_term: bool = False,
+                        victim: Picture | None = None, **info) -> bytes:
+        """Store a coded P picture (its NAL units slice_bytes) in the DPB,
+        after the reference its MMCO 1 unmarks (victim) leaves it, and in
+        ``results`` (with the items of info); returns slice_bytes."""
         poc = 2 * (disp - self._idr_disp)
-        self.ref_state = state
-        frame = Picture(poc, self.frame_num, state=state)
+        frame = self._new_picture(poc, state)
+        if victim is not None:
+            # the decoder runs the MMCO before it stores the picture
+            # (spec 8.2.5.4.1)
+            self.refs.remove(victim)
+        self._store_ref(frame, long_term=long_term)
         self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
         self.frame_idx += 1
         self.results.append({"disp": disp, "type": "P",
@@ -653,26 +859,67 @@ class Encoder:
     # ---- the per-frame P path ----------------------------------------
 
     def _finish_p(self, core, disp: int, frame, forced, qp: int,
-                  packed=None) -> bytes:
+                  packed=None, red_core=None) -> bytes:
         """The per-frame P path after the device encode `core`
-        (p_frame_step's fields at qp): download, host commit with the
-        intra re-encode under the slice plan (re-coded until the slices
-        fit with slice_mode 2), deblock and reference prep on the device,
-        host serializer. frame: the source (Y, U, V) planes; forced: MBs
-        of the intra refresh; packed: the uploaded source (for rate
-        control)."""
+        (p_frame_step's fields at qp, against the head of list0): download,
+        host commit with the intra re-encode under the slice plan
+        (re-coded until the slices fit with slice_mode 2), deblock and
+        reference prep on the device, host serializer with the picture's
+        marking, then the redundant coding when one is due. frame: the
+        source (Y, U, V) planes; forced: MBs of the intra refresh; packed:
+        the uploaded source (rate control, the redundant encode);
+        red_core: a device encode the redundant coding reuses."""
+        cfg = self.cfg
+        poc = 2 * (disp - self._idr_disp)
+        ref = self._ref_list_p(poc)[0]
+        lt, hdr, victim = self._p_marking(poc)
         qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
         host = self._download_core(core)
         c, (nal, info), plan = self._fit_slices(
             lambda plan: self._commit_p(host, frame, forced, qp, qpc, plan),
             lambda pic, plan, sizes: self._serialize_p(pic, disp, qp, plan,
-                                                       sizes))
+                                                       sizes, **hdr))
+        c.pic.ref_pic_id[c.pic.ref_pic_id >= 0] = ref.uid
         state = self._deblock_p(c)
+        if cfg.redundant_period and \
+                self.frame_idx % cfg.redundant_period == 0:
+            nal += self._redundant(packed, frame, poc, qp, ref, red_core)
         if self.rc is not None:
             self._rc_update("P", qp, nal, self._planes(packed)[0],
                             state[0][0][E.PAD:-E.PAD, E.PAD:-E.PAD])
         return self._commit_p_frame(nal, disp, state, qp, len(plan),
-                                    intra_mbs=len(c.intra_mbs), **info)
+                                    long_term=lt, victim=victim,
+                                    intra_mbs=len(c.intra_mbs),
+                                    ref_poc=ref.poc, **info)
+
+    def _redundant(self, packed, frame, poc: int, qp: int, ref: Picture,
+                   core=None) -> bytes:
+        """The redundant coding of the P picture just coded (jm_tpu
+        _emit_redundant, lencod.c:2225-2352): the frame encoded again on
+        the device at qp + redundant_qp_off (at most 51) against the
+        primary's reference ref (or core reused), the host commit under
+        the slice plan, and one slice with redundant_pic_cnt 1,
+        nal_ref_idc 0 and no marking. Decoders that have the primary
+        discard it; it is neither deblocked nor stored."""
+        qp_r = min(51, qp + self.cfg.redundant_qp_off)
+        if core is None:
+            core = self._p_step(packed, ref, qp_r)
+        c = self._commit_p(self._download_core(core), frame, (), qp_r,
+                           chroma_qp(qp_r, self.pps.chroma_qp_index_offset),
+                           self.slice_plan)
+        return annexb_bytes(0, NalUnitType.SLICE, self._serialize_redundant(
+            c.pic, poc, qp_r))
+
+    def _serialize_redundant(self, pic: PictureData, poc: int,
+                             qp: int) -> bytes:
+        """The redundant coding's slice RBSP, whatever the entropy coder
+        of the stream (jm_tpu writes it with its CAVLC serializer:
+        Queue 3)."""
+        return serialize_slice(pic, self.sps, self.pps,
+                               slice_type=SliceType.P,
+                               frame_num=self.frame_num, idr=False, qp=qp,
+                               poc_lsb=poc % 256, redundant_pic_cnt=1,
+                               is_ref=False)
 
     def _download_core(self, core) -> dict:
         return {k: core[k].cpu().numpy() for k in CORE_FIELDS}
@@ -681,35 +928,54 @@ class Encoder:
         return PictureCommit(core, frame, qp, qpc, forced, plan)
 
     def _deblock_p(self, c: PictureCommit):
-        """The committed picture's boundary strengths, deblock and
-        reference prep on the device; returns the reference state."""
-        return E.prep_ref(*self._deblock(c.rec, c.pic))
+        """The committed picture's boundary strengths, deblock (unless the
+        loop filter is off) and reference prep on the device; returns the
+        reference state."""
+        return E.prep_ref(*self._loop_filter(c.rec, c.pic))
 
     def _serialize_p(self, pic: PictureData, disp: int, qp: int, plan,
-                     sizes=None):
-        """A P picture's slices serialized on the host: (their NAL units,
-        what ``results`` records of them)."""
+                     sizes=None, **hdr):
+        """A P picture's slices serialized on the host (hdr: the marking
+        and list-modification keywords of its slice headers): (their NAL
+        units, what ``results`` records of them)."""
         return self._picture_nals(pic, SliceType.P,
                                   2 * (disp - self._idr_disp), qp, plan,
-                                  sizes)
+                                  sizes, **hdr)
 
     # ---- host serializers ----------------------------------------------
 
     def _picture_nals(self, pic: PictureData, slice_type: SliceType,
-                      poc: int, qp: int, plan, sizes=None):
+                      poc: int, qp: int, plan, sizes=None, **hdr):
         """The picture as one NAL unit per slice of plan (IDR units for I
-        slices), CAVLC or CABAC; with CABAC followed by the
-        cabac_zero_words its bin count calls for. The size of each unit
-        without its start code is appended to sizes. Returns (bytes,
+        slices), CAVLC or CABAC, hdr the slice headers' marking and
+        list-modification keywords; with CABAC followed by the
+        cabac_zero_words its bin count calls for. With data_partition a
+        CAVLC P slice is partitions A, B and C (NAL units 2-4, an empty
+        partition left out). The size of each slice without its first
+        start code is appended to sizes. Returns (bytes,
         {"cabac_init_idc": [each slice's]} for a CABAC P picture, else
         {})."""
         idr = slice_type == SliceType.I
         kw = dict(slice_type=slice_type, frame_num=self.frame_num, idr=idr,
-                  qp=qp, poc_lsb=poc % 256, idr_pic_id=self.idr_pic_id)
+                  qp=qp, poc_lsb=poc % 256, idr_pic_id=self.idr_pic_id,
+                  **hdr)
         nal_type = NalUnitType.IDR if idr else NalUnitType.SLICE
         cabac = self.cfg.entropy == "cabac"
+        dp = self.cfg.data_partition and not idr and not cabac
         out, bins, idcs = b"", 0, []
-        for addrs in plan:
+        for sid, addrs in enumerate(plan):
+            if dp:
+                parts = serialize_slice_dp(
+                    pic, self.sps, self.pps, slice_id=sid, mb_addrs=addrs,
+                    slice_group_change_cycle=self.cfg.sg_change_cycle, **kw)
+                unit = b"".join(
+                    annexb_bytes(3, t, rbsp) for t, rbsp in zip(
+                        (NalUnitType.DPA, NalUnitType.DPB, NalUnitType.DPC),
+                        parts) if rbsp)
+                if sizes is not None:
+                    sizes.append(len(unit) - 4)
+                out += unit
+                continue
             if cabac:
                 rbsp, b, idc = self._serialize_cabac_best_init(
                     pic, mb_addrs=addrs, **kw)

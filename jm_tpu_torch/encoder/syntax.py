@@ -2,13 +2,16 @@
 7.3.2), the I/P frame slice header (7.3.3) and the CAVLC macroblock layer
 (7.3.5) serialized from PictureData (the CABAC one is syntax_cabac.py).
 
-Covers what the IPPP 4:2:0 encoder emits: Baseline or Main SPS/PPS
-without VUI or scaling lists, with POC type 0, 1 or 2 and FMO slice
-groups of map types 0-6; slices of any MB address list (several per
-picture, in slice-group order); I_NxN / I_16x16 macroblocks; P
-macroblocks with 16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks
-only) and one reference. Serialization is a pure function of the decided
-PictureData (lencod/src/macroblock.c write_{i,p}_slice_MB_layer order).
+Covers what the IPPP 4:2:0 encoder emits: Baseline, Extended or Main
+SPS/PPS without scaling lists, with VUI, POC type 0, 1 or 2, FMO slice
+groups of map types 0-6 and redundant_pic_cnt; slices of any MB address
+list (several per picture, in slice-group order), with
+ref_pic_list_modification, dec_ref_pic_marking (long-term IDR, MMCO) and
+redundant_pic_cnt, whole or as three data partitions
+(``serialize_slice_dp``); I_NxN / I_16x16 macroblocks; P macroblocks with
+16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks only) and one
+reference. Serialization is a pure function of the decided PictureData
+(lencod/src/macroblock.c write_{i,p}_slice_MB_layer order).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import numpy as np
 
 from .. import native as N
 from ..bitstream.bitwriter import BitWriter
-from ..common.picture import CBP_MAP_CHROMA, MB_IPCM
+from ..common.picture import CBP_MAP_CHROMA, MB_INTER, MB_IPCM
 from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
 from .cavlc_write import write_residual_block
@@ -28,15 +31,15 @@ CBP_INV_CHROMA_INTER = {int(cbp): i for i, (_, cbp) in enumerate(CBP_MAP_CHROMA)
 
 
 def write_sps(sps) -> bytes:
-    """Seq_parameter_set_rbsp for a frame-coded Baseline or Main stream
-    with POC type 0, 1 or 2 and no VUI (lencod parset.c
-    GenerateSeq_parameter_set_rbsp; jm_tpu/encoder/syntax.py
+    """Seq_parameter_set_rbsp for a frame-coded Baseline, Extended or Main
+    stream with POC type 0, 1 or 2 and the VUI of ``sps.vui`` (lencod
+    parset.c GenerateSeq_parameter_set_rbsp; jm_tpu/encoder/syntax.py
     _write_sps_data)."""
     if sps.profile_idc in (100, 110, 122, 244, 44, 118, 128) \
             or sps.pic_order_cnt_type not in (0, 1, 2) \
             or not sps.frame_mbs_only_flag:
-        raise ValueError("write_sps covers Baseline / Main frame coding "
-                         "with pic_order_cnt_type 0, 1 or 2")
+        raise ValueError("write_sps covers Baseline / Extended / Main frame "
+                         "coding with pic_order_cnt_type 0, 1 or 2")
     bw = BitWriter()
     bw.u(sps.profile_idc, 8)
     bw.u(sps.constraint_set_flags, 8)
@@ -66,9 +69,92 @@ def write_sps(sps) -> bytes:
         bw.ue(sps.frame_crop_right_offset)
         bw.ue(sps.frame_crop_top_offset)
         bw.ue(sps.frame_crop_bottom_offset)
-    bw.flag(0)                                 # vui_parameters_present
+    if sps.vui:
+        bw.flag(1)                             # vui_parameters_present
+        _write_vui(bw, sps.vui)
+    else:
+        bw.flag(0)
     bw.rbsp_trailing_bits()
     return bw.get_bytes()
+
+
+def _write_vui(bw: BitWriter, v: dict) -> None:
+    """Vui_parameters (spec E.1.1) of a dict with the keys of the
+    decoder's VUI parse; lencod parset.c GenerateVUI_parameters_rbsp:1048
+    field order (jm_tpu/encoder/syntax.py _write_vui)."""
+    if "aspect_ratio_idc" in v:
+        bw.flag(1)
+        bw.u(v["aspect_ratio_idc"], 8)
+        if v["aspect_ratio_idc"] == 255:
+            bw.u(v["sar_width"], 16)
+            bw.u(v["sar_height"], 16)
+    else:
+        bw.flag(0)
+    if "overscan_appropriate" in v:
+        bw.flag(1)
+        bw.flag(v["overscan_appropriate"])
+    else:
+        bw.flag(0)
+    if "video_format" in v:
+        bw.flag(1)
+        bw.u(v["video_format"], 3)
+        bw.flag(v.get("video_full_range", 0))
+        if "colour_primaries" in v:
+            bw.flag(1)
+            bw.u(v["colour_primaries"], 8)
+            bw.u(v["transfer_characteristics"], 8)
+            bw.u(v["matrix_coefficients"], 8)
+        else:
+            bw.flag(0)
+    else:
+        bw.flag(0)
+    if "chroma_sample_loc_type_top" in v:
+        bw.flag(1)
+        bw.ue(v["chroma_sample_loc_type_top"])
+        bw.ue(v["chroma_sample_loc_type_bottom"])
+    else:
+        bw.flag(0)
+    if "num_units_in_tick" in v:
+        bw.flag(1)
+        bw.u(v["num_units_in_tick"], 32)
+        bw.u(v["time_scale"], 32)
+        bw.flag(v.get("fixed_frame_rate", 1))
+    else:
+        bw.flag(0)
+
+    def hrd(h):
+        bw.ue(h["cpb_cnt"] - 1)
+        bw.u(h["bit_rate_scale"], 4)
+        bw.u(h["cpb_size_scale"], 4)
+        for br_v, cpb_v, cbr_v in h["cpb"]:
+            bw.ue(br_v)
+            bw.ue(cpb_v)
+            bw.flag(cbr_v)
+        bw.u(h["initial_cpb_removal_delay_length"] - 1, 5)
+        bw.u(h["cpb_removal_delay_length"] - 1, 5)
+        bw.u(h["dpb_output_delay_length"] - 1, 5)
+        bw.u(h["time_offset_length"], 5)
+
+    for key in ("nal_hrd", "vcl_hrd"):
+        if key in v:
+            bw.flag(1)
+            hrd(v[key])
+        else:
+            bw.flag(0)
+    if "nal_hrd" in v or "vcl_hrd" in v:
+        bw.flag(v.get("low_delay_hrd", 0))
+    bw.flag(v.get("pic_struct_present", 0))
+    if "max_dec_frame_buffering" in v:
+        bw.flag(1)
+        bw.flag(v.get("motion_vectors_over_pic_boundaries", 1))
+        bw.ue(v.get("max_bytes_per_pic_denom", 0))
+        bw.ue(v.get("max_bits_per_mb_denom", 0))
+        bw.ue(v.get("log2_max_mv_length_horizontal", 16))
+        bw.ue(v.get("log2_max_mv_length_vertical", 16))
+        bw.ue(v.get("max_num_reorder_frames", 0))
+        bw.ue(v["max_dec_frame_buffering"])
+    else:
+        bw.flag(0)
 
 
 def write_pps(pps) -> bytes:
@@ -121,10 +207,17 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                        frame_num: int, idr: bool, idr_pic_id: int = 0,
                        qp: int, first_mb: int = 0, poc_lsb: int = 0,
                        num_ref_idx_l0: int = 1, cabac_init_idc: int = 0,
-                       slice_group_change_cycle: int = 0) -> None:
-    """Spec 7.3.3 slice header of an I or P frame-picture reference slice
-    with sliding-window marking (lencod/src/header.c:116 SliceHeader):
-    pic_order_cnt_lsb for POC type 0 only, cabac_init_idc for P slices
+                       slice_group_change_cycle: int = 0,
+                       is_ref: bool = True, long_term_flag: int = 0,
+                       mmco_ops=None, ref_mod_l0=None,
+                       redundant_pic_cnt: int = 0) -> None:
+    """Spec 7.3.3 slice header of an I or P frame-picture slice
+    (lencod/src/header.c:116 SliceHeader): pic_order_cnt_lsb for POC
+    type 0 only, redundant_pic_cnt when the PPS has the flag, ref_mod_l0
+    the (modification_of_pic_nums_idc, value) commands of list0,
+    dec_ref_pic_marking for reference slices only (is_ref): the IDR's
+    long_term_flag, else the MMCO commands mmco_ops ((op, value1[,
+    value2]) tuples) or the sliding window; cabac_init_idc for P slices
     of a CABAC PPS, slice_group_change_cycle for FMO map types 3-5."""
     bw.ue(first_mb)
     bw.ue(int(slice_type) + 5)      # all slices in picture share the type
@@ -134,18 +227,38 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
         bw.ue(idr_pic_id)
     if sps.pic_order_cnt_type == 0:
         bw.u(poc_lsb, sps.log2_max_pic_order_cnt_lsb_minus4 + 4)
+    if pps.redundant_pic_cnt_present_flag:
+        bw.ue(redundant_pic_cnt)
     if slice_type == SliceType.P:
         override = ((num_ref_idx_l0 - 1) !=
                     pps.num_ref_idx_l0_default_active_minus1)
         bw.flag(1 if override else 0)
         if override:
             bw.ue(num_ref_idx_l0 - 1)
-        bw.flag(0)                  # ref_pic_list_modification_flag_l0
-    if idr:
-        bw.flag(0)                  # no_output_of_prior_pics
-        bw.flag(0)                  # long_term_reference_flag
-    else:
-        bw.flag(0)                  # adaptive_ref_pic_marking_mode_flag
+        # ref_pic_list_modification (spec 7.3.3.1)
+        bw.flag(1 if ref_mod_l0 else 0)
+        if ref_mod_l0:
+            for idc, val in ref_mod_l0:
+                bw.ue(idc)
+                bw.ue(val)
+            bw.ue(3)
+    if is_ref:
+        if idr:
+            bw.flag(0)              # no_output_of_prior_pics
+            bw.flag(long_term_flag)
+        elif mmco_ops:
+            # dec_ref_pic_marking, adaptive mode (spec 7.3.3.3; lencod
+            # header.c dec_ref_pic_marking:373)
+            bw.flag(1)
+            for op in mmco_ops:
+                bw.ue(op[0])
+                if op[0] in (1, 2, 3, 4, 6):
+                    bw.ue(op[1])
+                if op[0] == 3:
+                    bw.ue(op[2])
+            bw.ue(0)                # end of the commands
+        else:
+            bw.flag(0)              # adaptive_ref_pic_marking_mode_flag
     if pps.entropy_coding_mode_flag and slice_type == SliceType.P:
         bw.ue(cabac_init_idc)
     bw.se(qp - 26 - pps.pic_init_qp_minus26)
@@ -165,7 +278,10 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
 
 
 class MBWriter:
-    """Serializes decided macroblocks of one slice in the order given."""
+    """Serializes decided macroblocks of one slice in the order given.
+    With data partitions (bw_b / bw_c set) the residual of intra MBs goes
+    to partition B and of inter MBs to partition C (lencod header.c:37
+    assignSE2partition_DP); everything else stays in bw (partition A)."""
 
     # P partitions per mb_type: (bx, by, bw, bh) in 4x4-block units
     PARTS = {0: [(0, 0, 4, 4)],
@@ -181,11 +297,18 @@ class MBWriter:
         self.pctx = PredCtx(pic)
         self.qp = slice_qp          # running QP for delta coding
         self.skip_run = 0
+        self.bw_b = None
+        self.bw_c = None
 
     # ---- residual ---------------------------------------------------------
 
+    def _res_bw(self, addr: int) -> BitWriter:
+        if self.bw_b is None:
+            return self.bw
+        return self.bw_b if self.pic.mb_class[addr] != MB_INTER else self.bw_c
+
     def _write_luma_residual(self, addr: int, cbp: int, is_i16: bool) -> None:
-        pic, bw = self.pic, self.bw
+        pic, bw = self.pic, self._res_bw(addr)
         if is_i16:
             nc = self.pctx.nc_luma(addr, 0)
             write_residual_block(bw, pic.luma_dc[addr], nc, 16)
@@ -201,7 +324,7 @@ class MBWriter:
                     write_residual_block(bw, pic.luma_coef[addr, blk], nc, 16)
 
     def _write_chroma_residual(self, addr: int, cbp: int) -> None:
-        pic, bw = self.pic, self.bw
+        pic, bw = self.pic, self._res_bw(addr)
         cbp_chroma = cbp >> 4
         if cbp_chroma & 3:
             for comp in range(2):
@@ -310,22 +433,22 @@ class MBWriter:
 def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
                     idr: bool, qp: int, poc_lsb: int = 0, idr_pic_id: int = 0,
                     num_ref_idx_l0: int = 1, mb_addrs=None,
-                    slice_group_change_cycle: int = 0,
-                    native: bool = True) -> bytes:
+                    native: bool = True, **header) -> bytes:
     """Serialize one slice; mb_addrs: its MB addresses in decode order
-    (default: the whole picture in raster order). Returns the RBSP. The
-    MB layer goes through the native cavlc_slice_data
-    (jm_tpu_torch/native, jm_enc.cpp) unless a MB of the slice is I_PCM
-    or the caller asks for the Python MBWriter (native=False);
-    native.routes["serialize"] counts the route taken."""
+    (default: the whole picture in raster order); header: the further
+    keywords of write_slice_header (slice_group_change_cycle, marking,
+    list modification, redundant_pic_cnt). Returns the RBSP. The MB
+    layer goes through the native cavlc_slice_data (jm_tpu_torch/native,
+    jm_enc.cpp) unless a MB of the slice is I_PCM or the caller asks for
+    the Python MBWriter (native=False); native.routes["serialize"] counts
+    the route taken."""
     addrs = np.ascontiguousarray(
         np.arange(pic.n_mbs) if mb_addrs is None else mb_addrs, np.int32)
     bw = BitWriter()
     write_slice_header(bw, sps, pps, slice_type=slice_type,
                        frame_num=frame_num, idr=idr, idr_pic_id=idr_pic_id,
                        qp=qp, first_mb=int(addrs[0]), poc_lsb=poc_lsb,
-                       num_ref_idx_l0=num_ref_idx_l0,
-                       slice_group_change_cycle=slice_group_change_cycle)
+                       num_ref_idx_l0=num_ref_idx_l0, **header)
     if native and not (pic.mb_class[addrs] == MB_IPCM).any():
         N.routes["serialize"]["native"] += 1
         return _native_slice_data(bw, pic, pps, slice_type, qp,
@@ -337,6 +460,44 @@ def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
     w.finish(slice_type)
     bw.rbsp_trailing_bits()
     return bw.get_bytes()
+
+
+def serialize_slice_dp(pic, sps, pps, *, slice_type: SliceType,
+                       slice_id: int, qp: int, num_ref_idx_l0: int = 1,
+                       mb_addrs=None, **header) -> list:
+    """Serialize one slice as three data partitions (jm_tpu/encoder/
+    syntax.py serialize_slice_dp; lencod header.c Partition_BC_Header:596):
+    A holds the slice header (header: the keywords of write_slice_header),
+    slice_id and the MB headers, MVDs and CBPs; B the residual of the
+    intra MBs and C of the inter MBs, each after its slice_id. Returns
+    the three RBSPs, b"" for a partition that received no residual. The
+    MB layer is the Python MBWriter (the native serializer has no
+    partitions); native.routes["dp"]["serialize"] counts the slices."""
+    addrs = [int(a) for a in (range(pic.n_mbs) if mb_addrs is None
+                              else mb_addrs)]
+    N.routes["dp"]["serialize"] += 1
+    bw = BitWriter()
+    write_slice_header(bw, sps, pps, slice_type=slice_type, qp=qp,
+                       first_mb=addrs[0], num_ref_idx_l0=num_ref_idx_l0,
+                       **header)
+    bw.ue(slice_id)
+    bwb, bwc = BitWriter(), BitWriter()
+    bwb.ue(slice_id)
+    bwc.ue(slice_id)
+    id_bits = bwb.bitpos
+    w = MBWriter(bw, pic, sps, pps, qp)
+    w.bw_b, w.bw_c = bwb, bwc
+    for addr in addrs:
+        w.write_mb(addr, slice_type)
+    w.finish(slice_type)
+    out = []
+    for b in (bw, bwb, bwc):
+        if b is not bw and b.bitpos <= id_bits:
+            out.append(b"")
+        else:
+            b.rbsp_trailing_bits()
+            out.append(b.get_bytes())
+    return out
 
 
 def _native_slice_data(bw: BitWriter, pic, pps, slice_type: SliceType,

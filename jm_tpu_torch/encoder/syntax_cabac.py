@@ -354,9 +354,12 @@ def serialize_slice_cabac(pic, sps, pps, *, slice_type: SliceType,
                           frame_num: int, idr: bool, qp: int,
                           poc_lsb: int = 0, idr_pic_id: int = 0,
                           num_ref_idx_l0: int = 1, cabac_init_idc: int = 0,
-                          mb_addrs=None, stats: dict | None = None) -> bytes:
+                          mb_addrs=None, stats: dict | None = None,
+                          **header) -> bytes:
     """Serialize one CABAC slice; mb_addrs: its MB addresses in decode
-    order (default: the whole picture in raster order). The arithmetic
+    order (default: the whole picture in raster order); header: the
+    further keywords of syntax.write_slice_header (marking, list
+    modification). The arithmetic
     coder and the contexts start afresh for each slice, and neighbours
     count only inside the slice (pic.slice_id). Returns the RBSP;
     ``stats["bins"]`` receives the bins coded (for the cabac_zero_word
@@ -370,7 +373,7 @@ def serialize_slice_cabac(pic, sps, pps, *, slice_type: SliceType,
                        frame_num=frame_num, idr=idr, idr_pic_id=idr_pic_id,
                        qp=qp, first_mb=int(addrs[0]), poc_lsb=poc_lsb,
                        num_ref_idx_l0=num_ref_idx_l0,
-                       cabac_init_idc=cabac_init_idc)
+                       cabac_init_idc=cabac_init_idc, **header)
     while not bw.byte_aligned():
         bw.u(1, 1)                  # cabac_alignment_one_bit
     w = MBWriterCABAC(bw, pic, slice_type, qp, cabac_init_idc,

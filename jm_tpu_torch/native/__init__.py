@@ -20,6 +20,9 @@ sites (an I_PCM MB keeps the Python path, by a check) and is counted in
              intra MBs)
   cabac      decoder/mb_parse_cabac.MBParserCABAC: the slice's arithmetic
              decoder, native / python
+  dp         data-partitioned slices, which only the Python MBWriter /
+             MBParser handle (as in jm_tpu): serialize
+             (encoder/syntax.serialize_slice_dp) / parse
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ MODULE = "jm_torch_native"
 routes = {"serialize": {"native": 0, "python": 0},
           "parse": {"native": 0, "python": 0, "rerun": 0},
           "recon": {"native": 0, "python": 0},
-          "cabac": {"native": 0, "python": 0}}
+          "cabac": {"native": 0, "python": 0},
+          "dp": {"serialize": 0, "parse": 0}}
 build_seconds = None        # wall time of load()'s build + import, once
 _mod = None
 

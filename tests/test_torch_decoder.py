@@ -2,9 +2,10 @@
 byte for byte (the codec is integer-exact: the tolerance is zero):
 - SPS, PPS and slice headers of the in-scope goldens, field by field;
 - the in-scope goldens (CAVLC, FMO slice groups of map types 1, 3, 5
-  and 6, and cabac_pp: JM lencod's CABAC I/P/P with two references)
-  against jm_tpu's H264Decoder(device_recon=True) and against JM
-  ldecod's output (_rec.yuv);
+  and 6, data partitioning (dp1; cif_dp with MMCO) and cabac_pp: JM
+  lencod's CABAC I/P/P with two references) against jm_tpu's
+  H264Decoder(device_recon=True) and against JM ldecod's output
+  (_rec.yuv);
 - jm_tpu encoder streams (IPPP, periodic IDR, a scene cut whose P
   pictures carry intra MBs, several slices and references with POC
   type 2, POC type 1 with intra refresh MBs, I_PCM), CAVLC and CABAC,
@@ -44,11 +45,11 @@ from test_pipe_stream import make_frames
 
 GOLDEN = Path(__file__).parent / "golden"
 IN_SCOPE = ["i1", "ipp3", "qp20", "qp36", "cabac_pp", "sei", "fmo_t1",
-            "fmo_t3", "fmo_t5d1", "fmo_t6", "cif_fmo"]
-# goldens without JM ldecod's output in the repository (sei.264: its SEI
-# NAL units are skipped; cif_fmo.264: FMO at CIF), held against jm_tpu's
-# decode only
-NO_LDECOD_REC = {"sei", "cif_fmo"}
+            "fmo_t3", "fmo_t5d1", "fmo_t6", "cif_fmo", "dp1", "cif_dp"]
+# goldens without JM ldecod's output in the repository (sei.264, cif_fmo
+# .264: FMO at CIF, cif_dp.264: data partitions and MMCO at CIF), held
+# against jm_tpu's decode only
+NO_LDECOD_REC = {"sei", "cif_fmo", "cif_dp"}
 
 
 def _fields(obj, names):
@@ -57,6 +58,8 @@ def _fields(obj, names):
         v = getattr(obj, k)
         if k == "ref_pic_list_mod_l0":
             v = [(m.op, m.value) for m in v]
+        elif k == "mmco_ops":
+            v = [(m.op, m.value1, m.value2) for m in v]
         out[k] = int(v) if isinstance(v, bool) else v
     return out
 
@@ -83,7 +86,7 @@ def test_headers_match_jm(name):
             assert dataclasses.asdict(p) == dataclasses.asdict(jp)
             pm[p.pic_parameter_set_id] = p
             jpm[jp.pic_parameter_set_id] = jp
-        elif u.nal_unit_type in (1, 5):
+        elif u.nal_unit_type in (1, 2, 5):
             (h, br), (jh, jbr) = parse_slice_header(u, sm, pm), \
                 jm_slice_header(ju, jsm, jpm)
             assert _fields(h, hdr_f) == _fields(jh, hdr_f)
@@ -226,7 +229,6 @@ def test_picture_from_numpy_through_port_recon():
     ("mbaff1", "fields"),
     ("field1", "fields"),
     ("wp_p", "weighted prediction"),
-    ("dp1", "data partitioning"),
     ("high8x8sm", "scaling matrices"),
     ("hi10c", "bit depth"),
     ("y422c", "chroma_format_idc 2"),

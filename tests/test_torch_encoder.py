@@ -9,6 +9,7 @@ port's H264Decoder to the port's reconstruction. The host-serializer path
 
 import pytest
 
+import torch_resilience as R
 import torch_streams as S
 
 RD = True
@@ -47,3 +48,14 @@ def test_host_serializer_path_on_overflow(jax_runs):
 
 def test_intra_mb_refresh_matches():
     S.check_intra_refresh(RD)
+
+
+@pytest.mark.parametrize("case", R.pipe_cases(True))
+def test_resilience_case_on_the_pipe(case):
+    """The device RD cases of tests/torch_resilience.py whose encode_stream
+    stays on the pipe (redundant pictures, POC-based MMCO, SEI and VUI
+    leave it in neither package): byte-identical payloads, equal recon,
+    both decodes equal to the recon, no redundant coding written, as
+    jm_tpu's pipe writes none. Their encode_frame route is in
+    tests/test_torch_resilience.py."""
+    R.check_all(R.CASES[case], "stream")

@@ -10,6 +10,7 @@ intra_mb_refresh=6, and a scene cut with a packer word budget too small
 
 import pytest
 
+import torch_resilience as R
 import torch_streams as S
 
 RD = False
@@ -61,3 +62,14 @@ def test_scene_cut_with_overflowing_packer(runs):
     enc.max_words = 4
     assert enc.encode_stream(frames) == want
     assert enc.fallbacks == S.CUT_FALLBACKS and enc.ovf == [1, 4]
+
+
+@pytest.mark.parametrize("case", R.pipe_cases(False))
+def test_resilience_case_on_the_pipe(case):
+    """The md_low cases of tests/torch_resilience.py whose encode_stream
+    stays on the pipe (redundant pictures, POC-based MMCO, SEI and VUI
+    leave it in neither package): byte-identical payloads, equal recon,
+    both decodes equal to the recon, no redundant coding written, as
+    jm_tpu's pipe writes none. Their encode_frame route is in
+    tests/test_torch_resilience.py."""
+    R.check_all(R.CASES[case], "stream")

@@ -46,10 +46,11 @@ def test_scan_covers_the_native_loader():
 
 
 @pytest.mark.parametrize("rel", ["ratectl.py", "common/fmo.py",
-                                 "encoder/intra_host.py"])
+                                 "encoder/intra_host.py",
+                                 "encoder/sei_write.py", "decoder/sei.py"])
 def test_scan_covers_the_ports_own_copies(rel):
-    """Rate control, the slice-group maps and the host intra encoder are
-    the port's own modules, not jm_tpu's."""
+    """Rate control, the slice-group maps, the host intra encoder and the
+    SEI writers and parser are the port's own modules, not jm_tpu's."""
     assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
 
 
@@ -119,7 +120,11 @@ def test_deblock_never_falls_back_for_a_device_request():
     ("height", 40), ("entropy", "cavcl"), ("cabac_adapt_init", 1),
     ("search_range", 17), ("qp_p", 52), ("poc_type", 3), ("slice_mode", 3),
     ("slice_argument", -1), ("num_slice_groups", 9), ("rc_enable", 1),
-    ("rc_basic_unit", 4), ("rc_initial_qp", 52),
+    ("rc_basic_unit", 4), ("rc_initial_qp", 52), ("deblock", 0),
+    ("enable_vui", 1), ("sei_user_data", "text"), ("long_term_period", -1),
+    ("ref_reorder", 2), ("poc_mem_mgmt", 2), ("data_partition", 2),
+    ("redundant_period", -1), ("redundant_qp_off", 52),
+    ("redundant_qp_off", -1),
 ])
 def test_config_outside_slice_raises(field, value):
     cfg = EncoderConfig(width=32, height=32)
