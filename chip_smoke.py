@@ -131,22 +131,45 @@ Phases (any failure raises and exits non-zero):
      card equal to the recon with its launches counted;
  21. JM's data-partitioned goldens on the card: dp1.264 equal to its
      _rec.yuv and to the CPU decode, cif_dp.264 (MMCO, five references)
-     to the CPU decode; frames/s and the per-picture parse split.
-The CPU references of phases 15-21 (the encodes on the CPU, the CPU
-decodes of the lossy stream and of the DP goldens) run in CPU_WORKERS
-worker processes, started at phase 15 and stopped before the closing
-lines, while the card works through those phases.
+     to the CPU decode; frames/s and the per-picture parse split;
+ 22. B pictures at 1080p: the first B_FRAMES frames through encode_frame
+     with num_b=1, CABAC, QP 28 (qp_b 30), SR 16, coded I0 P2 B1; one
+     launch per kernel and picture (K1/K2 deblock the non-reference B
+     too), frames/s, each picture's ms and bytes, the B picture's split
+     (device SAD tables of both lists, the serial host MB loop in ms per
+     MB, device deblock + prep_ref, the host CABAC serializer in ms per
+     MB) and its MB decisions (direct, skip, list 0, list 1, bi, intra);
+     the same frames encoded on the CPU give the same bytes and recon;
+ 23. B decode on the card: phase 22's stream, every frame equal to the
+     encoder's recon, one launch per kernel and picture, the per-picture
+     split (parse, intra recon, device B recon + bS + K1/K2 + prep_ref),
+     the B parse in ms per MB; then JM's B goldens cavlc_b, main3, main9,
+     main9t (temporal direct) and poc1b (POC type 1) against their
+     _rec.yuv in POC order, and cif_main (CABAC CIF, 19 B pictures)
+     against the CPU decode, each with one launch per kernel and picture
+     and its frames/s;
+ 24. GOP variants at CIF: GOP_FRAMES frames, num_b 3 as a dyadic pyramid,
+     intra_period 2 (anchors: the third is an open-GOP I), the recovery
+     point SEI and CRA marking, CAVLC, through encode_frame; one launch
+     per kernel and picture, the pictures' bytes and split; decoded on
+     the card equal to the recon with one recovery point per open-GOP I;
+     the IDR and the first mini-GOP (GOP_CPU frames) encoded on the CPU
+     with the same bytes and recon.
+The CPU references of phases 15-24 (the encodes on the CPU, the CPU
+decodes of the lossy stream and of the DP goldens and cif_main) run in
+CPU_WORKERS worker processes, started at phase 15 and stopped before the
+closing lines, while the card works through those phases.
 Phases 3, 6, 8-13 and 15-20 run on the native runtime, as the entry
 points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
 and parsed, every intra picture reconstructed and every CABAC slice
 decoded by the native runtime, but the data-partitioned slices of
-phase 18, which only the Python serializer and parser handle (route
-"dp").
+phase 18 and the B slices of phases 22-24, which only the Python
+serializers and parsers handle (routes "dp" and "b").
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-21 alone, without the closing JSON lines (a quicker check of those
-phases while they are developed).
+18-24 alone, ``--from 22`` phases 22-24, without the closing JSON lines
+(a quicker check of those phases while they are developed).
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it holds the per-kernel numbers as JSON.
 """
@@ -182,6 +205,12 @@ LL_FRAMES = 9        # frames of the low-latency stream (phase 15)
 N_CIF = 5            # frames of the CIF streams (phases 16-17)
 RES_FRAMES = 9       # frames of the 1080p streams of phases 18-20
 LOSSY_CPU = 4        # pictures of phase 19's lossy stream decoded on the CPU
+B_FRAMES = 3         # frames of the 1080p B stream (phases 22-23): I0 P2 B1
+GOP_FRAMES = 13      # frames of the CIF GOP stream (phase 24)
+GOP_CPU = 5          # of them encoded on the CPU: the IDR + first mini-GOP
+# JM's B goldens held against their _rec.yuv (phase 23; cif_main against
+# the CPU decode)
+B_GOLDENS = ("cavlc_b", "main3", "main9", "main9t", "poc1b")
 DEVICE = "cuda"
 # the kernels' edge shapes (one MB, mb_w 2, mb_h 1, one MB column), each
 # with a parameter variant ("mixed" may switch the one MB off), and 2160p
@@ -372,18 +401,20 @@ class IdrTimedEncoder(Encoder):
 
     def _picture_nals(self, pic, slice_type, poc, qp, plan, sizes=None,
                       **hdr):
-        kw = dict(slice_type=slice_type, frame_num=self.frame_num,
-                  idr=slice_type == SliceType.I, qp=qp, poc_lsb=poc % 256,
-                  idr_pic_id=self.idr_pic_id, **hdr)
+        kw = {k: v for k, v in hdr.items() if k != "nal_ref_idc"}
+        if kw.get("idr") is None:
+            kw["idr"] = slice_type == SliceType.I
+        kw.update(slice_type=slice_type, frame_num=self.frame_num, qp=qp,
+                  poc_lsb=poc % 256, idr_pic_id=self.idr_pic_id)
         self.host_slices.setdefault(slice_type.name, (pic, kw))
         return super()._picture_nals(pic, slice_type, poc, qp, plan, sizes,
                                      **hdr)
 
-    def _encode_idr(self, *a):
+    def _encode_i(self, *a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            return super()._encode_idr(*a)
+            return super()._encode_i(*a, **kw)
         finally:
             self.idr_seconds += time.perf_counter() - t0
 
@@ -481,20 +512,22 @@ def check_frames(got, want, label: str) -> None:
                 raise AssertionError(f"{label}: frame {i} {plane} differs")
 
 
-def check_routes(label: str, dp=None, **native_counts) -> None:
+def check_routes(label: str, dp=None, b=None, **native_counts) -> None:
     """Print the native runtime's route counters of the run just made
     (reset just before it) and check them: native_counts gives, per kind
     (serialize, parse, recon, cabac), how many slices or pictures must
     have taken the native route; none may have taken another. dp gives
     the data-partitioned slices serialized / parsed (the Python route of
-    kind "dp"; none unless given)."""
+    kind "dp"; none unless given), b the B slices (the Python route of
+    kind "b")."""
     print(f"{label}: native runtime routes {native.routes}", flush=True)
     for kind, counts in native.routes.items():
-        if kind == "dp":
-            want_dp = {"serialize": 0, "parse": 0, **(dp or {})}
-            if counts != want_dp:
-                raise AssertionError(f"{label}: dp routes {counts}, "
-                                     f"expected {want_dp}")
+        if kind in ("dp", "b"):
+            want = {"serialize": 0, "parse": 0,
+                    **((dp if kind == "dp" else b) or {})}
+            if counts != want:
+                raise AssertionError(f"{label}: {kind} routes {counts}, "
+                                     f"expected {want}")
             continue
         want = native_counts.get(kind, 0)
         if counts["native"] != want or any(
@@ -556,13 +589,17 @@ def decode_phase(payloads, enc):
     return out, launches
 
 
-def decode_golden(name: str) -> None:
+def decode_golden(name: str, dec=None) -> list:
     """A JM golden stream tests/golden/<name>.264 decoded on the card must
-    equal JM ldecod's output <name>_rec.yuv."""
+    equal JM ldecod's output <name>_rec.yuv (in output order: POC order,
+    which is the decode order of streams without B pictures). dec: the
+    decoder to use (a new one by default). Returns the decoded frames."""
     root = os.path.dirname(os.path.abspath(__file__))
     path = os.path.join(root, "tests", "golden", f"{name}.264")
     with open(path, "rb") as f:
-        got = H264Decoder(device=DEVICE).decode_annexb(f.read())
+        got = (dec or H264Decoder(device=DEVICE)).decode_annexb(f.read())
+    out = got
+    got = sorted(got, key=lambda fr: fr.poc)
     rec = np.fromfile(path[:-4] + "_rec.yuv", np.uint8)
     h, w = got[0].Y.shape
     fs = w * h * 3 // 2
@@ -574,6 +611,7 @@ def decode_golden(name: str) -> None:
     check_frames(got, want, f"decode {name}.264")
     print(f"decode {name}.264 on the card: {len(got)} frames equal "
           f"JM ldecod's {name}_rec.yuv", flush=True)
+    return out
 
 
 class SplitTimedEncoder(IdrTimedEncoder):
@@ -1049,14 +1087,17 @@ def host_runtime_phase(enc, payloads, low_enc, low_payloads, cab_payloads):
 
 
 def card_decode(payloads, enc, label: str, cabac: bool = False,
-                dp_parse: int = 0, dec=None, once_per_picture: bool = True):
+                dp_parse: int = 0, dec=None, once_per_picture: bool = True,
+                b_parse: int = 0):
     """An encoder's stream decoded on the card with the launch and route
     counters reset just before: every frame equal to the encoder's recon,
     each kernel launched once per picture (unless once_per_picture is
     False: then only counted), every slice parsed (and every picture
     with intra MBs reconstructed) by the native runtime, but dp_parse
-    data-partitioned slices by the Python parser. dec: the decoder to
-    use (a new one by default). Returns the per-kernel launches."""
+    data-partitioned slices and b_parse B slices by the Python parser (a
+    CABAC B slice's arithmetic decoder is the native one). dec: the
+    decoder to use (a new one by default). Returns the per-kernel
+    launches."""
     dec = dec or H264Decoder(device=DEVICE)
     kernels.reset_launches()
     native.reset_routes()
@@ -1069,8 +1110,9 @@ def card_decode(payloads, enc, label: str, cabac: bool = False,
                        for r in enc.results], label)
     units = sum(r["slices"] for r in enc.results) - dp_parse
     recon = sum(r["path"] != "inter" for r in dec.pictures)
-    check_routes(label, **({"cabac": units} if cabac else {"parse": units}),
-                 recon=recon, dp={"parse": dp_parse})
+    check_routes(label, **({"cabac": units} if cabac
+                           else {"parse": units - b_parse}),
+                 recon=recon, dp={"parse": dp_parse}, b={"parse": b_parse})
     for name, cnt in launches.items():
         if once_per_picture and cnt != len(out):
             raise AssertionError(f"{label}: {name} launched {cnt} times for "
@@ -1115,11 +1157,11 @@ def check_launches(launches, n: int, label: str) -> None:
                                  f"expected once for each of {n} pictures")
 
 
-# The CPU references of phases 15-21 (encodes of their first pictures,
+# The CPU references of phases 15-24 (encodes of their first pictures,
 # decodes) run in CPU_WORKERS worker processes while the card works
 # through those phases: on the card's host they take about half of the
 # phases' wall time when run in line.
-CPU_WORKERS = 2
+CPU_WORKERS = 3
 
 
 def _worker_init() -> None:
@@ -1167,9 +1209,14 @@ def golden_bytes(name: str) -> bytes:
 
 
 def start_cpu_references(pool, frames) -> dict:
-    """Submit the CPU references of phases 15-21 to the worker pool;
-    returns their AsyncResults by name."""
+    """Submit the CPU references of phases 15-24 to the worker pool (the
+    longest first); returns their AsyncResults by name."""
     return {
+        "b_encode": pool.apply_async(
+            cpu_encode, (b_cfg(), frames[:B_FRAMES], True)),
+        "gop": pool.apply_async(
+            cpu_encode, (gop_cfg(), cif(frames, GOP_CPU), True)),
+        "cif_main": pool.apply_async(cpu_decode, (golden_bytes("cif_main"),)),
         "low_latency": pool.apply_async(
             cpu_encode, (low_latency_cfg(), frames[:3])),
         "resilient": pool.apply_async(
@@ -1509,6 +1556,236 @@ def dp_golden_phase(cpu_refs) -> None:
               f"on average; routes {routes}", flush=True)
 
 
+# ---- 22-24: B pictures --------------------------------------------------
+
+def b_cfg():
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=True, num_b=1, entropy="cabac")
+
+
+def gop_cfg():
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         device_rd=True, num_b=3, hierarchical=1,
+                         intra_period=2, sei_recovery_point=True,
+                         mmco_policy="cra")
+
+
+class BTimedEncoder(SplitTimedEncoder):
+    """SplitTimedEncoder that also times each coded picture ("picture"),
+    anchor or B, by display index (the steps synchronized)."""
+
+    def _emit_anchor(self, frame, disp):
+        return self._timed(disp, "picture", super()._emit_anchor, frame,
+                           disp)
+
+    def _emit_b(self, frame, disp, *a, **kw):
+        return self._timed(disp, "picture", super()._emit_b, frame, disp,
+                           *a, **kw)
+
+
+def b_encode(cfg, frames):
+    """frames encoded on the card (with B pictures encode_stream takes
+    encode_frame for each frame: the calls that close a group return the
+    anchor and its Bs), with nothing left for flush; returns
+    timed_encode's (encoder, payload of each call, launches, seconds)."""
+    out = timed_encode(cfg, frames, BTimedEncoder)
+    if out[0].flush():
+        raise AssertionError("B encode: frames left for flush")
+    return out
+
+
+def b_report(enc, label: str) -> None:
+    """Each picture of a B stream (coding order): type, QP, bytes, wall ms
+    and its split: a P picture's download + host commit, device deblock +
+    prep_ref and serialize; a B picture's device SAD tables, host MB loop
+    and host serializer (ms per MB), device deblock + prep_ref, and its
+    MB decisions."""
+    n_mbs = enc.mb_w * enc.mb_h
+    for r in enc.results:
+        d = r["disp"]
+        t = {k: sum(v) * 1e3 for k, v in enc.split.get(d, {}).items()}
+        line = (f"{label} picture {d} {r['type']}"
+                f"{' (reference)' if r.get('ref') else ''} QP {r['qp']}: "
+                f"{r['bits'] // 8} B, {t.get('picture', 0.0):.1f} ms")
+        if r["type"] == "P":
+            line += (f" (download + host commit "
+                     f"{t.get('download', 0) + t.get('host_intra', 0):.1f}"
+                     f" ms, device deblock + prep_ref "
+                     f"{t.get('deblock_prep', 0.0):.1f} ms, serialize "
+                     f"{t.get('serialize', 0.0):.1f} ms)")
+        elif r["type"] == "B":
+            sp = {k: v * 1e3 for k, v in r["split"].items()}
+            line += (f" = device SAD tables {sp['sad_s']:.1f} ms, host MB "
+                     f"loop {sp['host_mb_s']:.1f} ms "
+                     f"({sp['host_mb_s'] / n_mbs:.3f} ms/MB), device "
+                     f"deblock + prep_ref {sp['deblock_s']:.1f} ms, host "
+                     f"serialize {sp['serialize_s']:.1f} ms "
+                     f"({sp['serialize_s'] / n_mbs:.3f} ms/MB); MBs "
+                     f"{r['mix']}")
+        print(line, flush=True)
+
+
+def b_encode_phase(frames, cpu_ref):
+    """Phase 22: I0 P2 B1 at 1080p, CABAC, through encode_frame, held
+    against the CPU encode cpu_ref; returns (encoder, payloads,
+    launches)."""
+    frames = frames[:B_FRAMES]
+    enc, payloads, launches, total_s = b_encode(b_cfg(), frames)
+    types = "".join(r["type"] for r in enc.results)
+    if types != "IPB":
+        raise AssertionError(f"B encode: pictures {types}")
+    check_routes("B encode (the CABAC writer is Python)", b={"serialize": 1})
+    check_launches(launches, len(types), "B encode")
+    print(f"encode B 1080p {types} (coding order; CABAC, num_b 1, QP {QP} / "
+          f"qp_b {enc.results[-1]['qp']}, SR 16): "
+          f"{len(frames) / total_s:.3f} frames/s, "
+          f"{sum(map(len, payloads))} stream bytes, launches {launches}",
+          flush=True)
+    b_report(enc, "B encode 1080p")
+    check_cpu_encode("B encode I + P + B", cpu_ref, payloads, enc,
+                     len(frames))
+    return enc, payloads, launches
+
+
+def b_parse_ms_per_mb(dec, n_mbs: int) -> float:
+    b = [r["parse_s"] for r in dec.pictures if r["type"] == "B"]
+    return sum(b) * 1e3 / (len(b) * n_mbs)
+
+
+def b_ops_timing() -> None:
+    """CUDA-event times at 1080p of the B path's tensor stages (candidates
+    for hand kernels, not kernels): the decoder's inter_recon_b against
+    inter_recon_p on the same random motion (two references, pdir 0..2,
+    MVs within +-16 pixels), and the B coder's full_search_sad16 of one
+    list at SR 16."""
+    from jm_tpu_torch.ops.dec import inter_recon_b, inter_recon_p
+    from jm_tpu_torch.ops.enc import full_search_sad16, prep_ref
+    rng = np.random.default_rng(5)
+    mb_w, mb_h = W // 16, H // 16
+    n = mb_w * mb_h
+
+    def t(a):
+        return torch.as_tensor(a, device=DEVICE)
+
+    states = [prep_ref(*(t(rng.integers(0, 256, s, dtype=np.uint8))
+                         for s in ((H, W), (H // 2, W // 2),
+                                   (H // 2, W // 2)))) for _ in range(2)]
+    stacks = tuple(torch.stack([st[i] for st in states]) for i in range(3))
+    mv = t(rng.integers(-64, 65, (n, 16, 2)).astype(np.int32))
+    mv1 = t(rng.integers(-64, 65, (n, 16, 2)).astype(np.int32))
+    r0 = t(np.zeros((n, 4), np.int32))
+    r1 = t(np.ones((n, 4), np.int32))
+    pdir = t(rng.integers(0, 3, (n, 4)).astype(np.int8))
+    res_l = t(np.zeros((n, 16, 4, 4), np.int32))
+    res_c = t(np.zeros((n, 2, 4, 4, 4), np.int32))
+    inter = t(np.ones(n, bool))
+    ms_p = cuda_ms(lambda: inter_recon_p(mv, r0, res_l, res_c, *stacks,
+                                         inter, mb_w=mb_w, mb_h=mb_h))
+    ms_b = cuda_ms(lambda: inter_recon_b(mv, mv1, r0, r1, pdir, res_l,
+                                         res_c, *stacks, inter, mb_w=mb_w,
+                                         mb_h=mb_h))
+    src = t(rng.integers(0, 256, (H, W), dtype=np.uint8))
+    ms_sad = cuda_ms(lambda: full_search_sad16(src, states[0][0][0], mb_w,
+                                               mb_h, 16), reps=3)
+    print(f"B tensor stages at {W}x{H} (CUDA events, median): "
+          f"inter_recon_b {ms_b:.3f} ms (inter_recon_p on the same motion "
+          f"{ms_p:.3f} ms), full_search_sad16 one list SR 16 {ms_sad:.3f} ms",
+          flush=True)
+
+
+def b_decode_phase(enc, payloads, cpu_refs):
+    """Phase 23: phase 22's stream decoded on the card, then JM's B goldens
+    (against their _rec.yuv; cif_main against the CPU decode); returns
+    (the stream's launches, the goldens' launches summed)."""
+    dec = H264Decoder(device=DEVICE)
+    launches = card_decode(payloads, enc, "decode B 1080p", cabac=True,
+                           dec=dec, b_parse=1)
+    n_mbs = (W // 16) * (H // 16)
+    b = [r for r in dec.pictures if r["type"] == "B"][0]
+    print(f"decode B 1080p: the B picture's parse {b['parse_s'] * 1e3:.1f} "
+          f"ms ({b_parse_ms_per_mb(dec, n_mbs):.3f} ms/MB), device B "
+          f"recon + bS + K1/K2 + prep_ref + download "
+          f"{b['device_s'] * 1e3:.1f} ms, intra recon "
+          f"{b['host_recon_s'] * 1e3:.1f} ms", flush=True)
+    b_ops_timing()
+    total = {}
+    for name in B_GOLDENS + ("cif_main",):
+        data = golden_bytes(name)
+        dec = H264Decoder(device=DEVICE)
+        kernels.reset_launches()
+        native.reset_routes()
+        t0 = time.perf_counter()
+        if name == "cif_main":
+            got = dec.decode_annexb(data)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            check_frames(got, cpu_refs[name].get(), f"decode {name}")
+            what = (f"equal the CPU decode (CPU worker; waited "
+                    f"{time.perf_counter() - t1:.1f} s)")
+        else:
+            got = decode_golden(name, dec)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            what = f"equal {name}_rec.yuv"
+        gl = dict(kernels.launches)
+        check_launches(gl, len(got), f"decode {name}")
+        for k, v in gl.items():
+            total[k] = total.get(k, 0) + v
+        mbs = got[0].Y.size // 256
+        print(f"decode {name}.264 on the card "
+              f"({''.join(r['type'][0] for r in dec.pictures)}): "
+              f"{len(got)} frames {what}; {len(got) / dt:.3f} frames/s; B "
+              f"parse {b_parse_ms_per_mb(dec, mbs):.3f} ms/MB; launches "
+              f"{gl}; routes {native.routes}", flush=True)
+    return launches, total
+
+
+def gop_phase(frames, cpu_ref):
+    """Phase 24: the CIF GOP variants (a dyadic pyramid of 3 Bs, an
+    open-GOP I every 2nd anchor with its recovery point SEI, CRA
+    marking), encoded and decoded on the card, the IDR and first
+    mini-GOP held against the CPU encode cpu_ref; returns (encode
+    launches, decode launches)."""
+    frames = cif(frames, GOP_FRAMES)
+    enc, payloads, launches, total_s = b_encode(gop_cfg(), frames)
+    types = "".join(r["type"] for r in enc.results)
+    if types != "IPBBBIBBBPBBB":
+        raise AssertionError(f"GOP: pictures {types}")
+    n_b = types.count("B")
+    check_routes("GOP encode", serialize=len(types) - n_b,
+                 b={"serialize": n_b})
+    check_launches(launches, len(types), "GOP encode")
+    print(f"encode GOP CIF {types} (coding order; num_b 3 as a pyramid, "
+          f"an open-GOP I every 2nd anchor with a recovery point SEI, CRA "
+          f"marking, CAVLC): {len(frames) / total_s:.3f} frames/s, "
+          f"{sum(map(len, payloads))} stream bytes, reference Bs "
+          f"{[r['disp'] for r in enc.results if r.get('ref')]}, QPs "
+          f"{[r['qp'] for r in enc.results]}, launches {launches}",
+          flush=True)
+    b_report(enc, "GOP CIF")
+    dec = H264Decoder(device=DEVICE)
+    dec_launches = card_decode(payloads, enc, "decode GOP CIF", dec=dec,
+                               b_parse=n_b)
+    points = [m for m in dec.sei_messages if m.payload_type == 6]
+    if len(points) != types[1:].count("I"):
+        raise AssertionError(f"GOP: {len(points)} recovery point SEIs")
+    check_cpu_encode("GOP IDR + first mini-GOP", cpu_ref, payloads, enc,
+                     GOP_CPU)
+    return launches, dec_launches
+
+
+def b_phases(frames, cpu_refs):
+    """Phases 22-24; returns the launches of each of their paths by name
+    (b, b_decode, b_goldens_decode, gop, gop_decode)."""
+    out = {}
+    enc, payloads, out["b"] = b_encode_phase(frames, cpu_refs["b_encode"])
+    out["b_decode"], out["b_goldens_decode"] = b_decode_phase(
+        enc, payloads, cpu_refs)
+    out["gop"], out["gop_decode"] = gop_phase(frames, cpu_refs["gop"])
+    return out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -1550,14 +1827,18 @@ def main() -> int:
     kernels.load()
     print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
     frames = make_sequence()
-    if sys.argv[1:] == ["--from", "18"]:
+    if sys.argv[1:] in (["--from", "18"], ["--from", "22"]):
         pool = cpu_pool()
         try:
-            later_phases(frames, None, start_cpu_references(pool, frames))
+            refs = start_cpu_references(pool, frames)
+            if sys.argv[2] == "18":
+                later_phases(frames, None, refs)
+            b_phases(frames, refs)
         finally:
             pool.terminate()
             pool.join()
-        print("phases 18-21 passed (partial run: no closing lines)")
+        print(f"phases {sys.argv[2]}-24 passed (partial run: no closing "
+              f"lines)")
         return 0
 
     # ---- 2. kernels against their plain versions ------------------------
@@ -1703,6 +1984,10 @@ def main() -> int:
         # ---- 18-21. data partitions, long-term anchors, redundant
         # pictures, the loop filter off, SEI / VUI; the DP goldens ------
         later = later_phases(frames, rd_fps, cpu_refs)
+
+        # ---- 22-24. B pictures: 1080p encode and decode, the B goldens,
+        # the CIF GOP variants ---------------------------------------------
+        later.update(b_phases(frames, cpu_refs))
     finally:
         pool.terminate()
         pool.join()

@@ -69,8 +69,13 @@ class PictureData:
         self.ref_idx_l1 = np.full((n, 4), -1, np.int8)
         self.sub_mode = np.zeros((n, 4), np.int8)          # P8x8 sub-partition
         self.inter_mode = np.full(n, -1, np.int8)          # P mb_type 0..3
-        # per-8x8 prediction direction (0 list0; -1 intra / not set)
+        # per-8x8 prediction direction (0 list0, 1 list1, 2 both; -1
+        # intra / not set)
         self.pdir = np.full((n, 4), -1, np.int8)
+        # B direct prediction: the whole MB (B_Skip, B_Direct_16x16) or
+        # one 8x8 of a B_8x8 MB (sub_mb_type B_Direct_8x8)
+        self.b_direct = np.zeros(n, bool)
+        self.b8_direct = np.zeros((n, 4), bool)
         # unique ids of the referenced pictures per 8x8 and list (bS)
         self.ref_pic_id = np.full((n, 4), -1, np.int64)
         self.ref_pic_id_l1 = np.full((n, 4), -1, np.int64)

@@ -182,9 +182,12 @@ class SliceHeader:
     delta_pic_order_cnt_bottom: int = 0
     delta_pic_order_cnt: tuple = (0, 0)
     redundant_pic_cnt: int = 0
+    direct_spatial_mv_pred_flag: int = 0
     num_ref_idx_active_override_flag: int = 0
     num_ref_idx_l0_active_minus1: int = 0
+    num_ref_idx_l1_active_minus1: int = 0
     ref_pic_list_mod_l0: list = field(default_factory=list)
+    ref_pic_list_mod_l1: list = field(default_factory=list)
     no_output_of_prior_pics_flag: int = 0
     long_term_reference_flag: int = 0
     adaptive_ref_pic_marking_mode_flag: int = 0

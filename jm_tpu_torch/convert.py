@@ -22,7 +22,8 @@ _PICTURE_FIELDS = (
     "chroma_mode", "cbp", "qp", "slice_id", "luma_coef", "luma_dc",
     "luma_coef8", "chroma_dc", "chroma_coef", "luma_nnz", "chroma_nnz", "mv",
     "ref_idx", "mv_l1", "ref_idx_l1", "sub_mode", "inter_mode", "pdir",
-    "ref_pic_id", "ref_pic_id_l1", "mvd", "cbp_bits")
+    "b_direct", "b8_direct", "ref_pic_id", "ref_pic_id_l1", "mvd",
+    "cbp_bits")
 
 
 def ref_state_from_numpy(planes, padU, padV, device="cpu"):

@@ -1,10 +1,13 @@
 """Top-level H.264 decoder of the port: Annex-B in, YUV frames out; twin
 of jm_tpu.decoder.decoder.H264Decoder with ``device_recon=True``, for
-I / P streams, CAVLC (Baseline, Extended) or CABAC (Main) (4:2:0, 8-bit,
-frame pictures, one or more slices per picture, FMO slice groups of map
-types 0-6, data-partitioned CAVLC slices (NAL units 2-4), redundant
-pictures, list0 with several references, short- and long-term, in a DPB
-with the sliding window or MMCO marking, POC types 0, 1 and 2).
+I / P / B streams, CAVLC (Baseline, Extended) or CABAC (Main) (4:2:0,
+8-bit, frame pictures, one or more slices per picture, FMO slice groups
+of map types 0-6, data-partitioned CAVLC slices (NAL units 2-4),
+redundant pictures, list0 and list1 with several references, short- and
+long-term, in a DPB with the sliding window or MMCO marking, spatial and
+temporal direct prediction, non-reference pictures, POC types 0, 1 and
+2). Frames come out in decode order, as jm_tpu's: callers sort them by
+POC.
 
 Two phases per picture: the serial host parse of its slices
 (decoder/mb_parse.py for CAVLC, decoder/mb_parse_cabac.py for CABAC)
@@ -17,7 +20,13 @@ both entropy coders:
   - P picture with intra MBs: the same device inter recon gives the seed
     planes; the host Reconstructor fills in the intra MBs; the planes go
     back to the device for bS, deblock and prep_ref;
-  - I picture: the host Reconstructor, then the same device tail.
+  - I picture: the host Reconstructor, then the same device tail;
+  - B picture: as a P picture, with ops/dec.inter_recon_b, which predicts
+    each block from list 0, list 1 or both over one stack of the
+    picture's references (jm_tpu reconstructs B pictures on the host);
+    the bS carries list-1 motion. Its reference lists come from
+    decoder/b_slice.ref_lists_b and the modification commands, the
+    direct prediction from the motion stored with list1[0].
 The new reference state stays on the device in the DPB; the output
 planes are downloaded from the deblocked picture.
 
@@ -53,6 +62,7 @@ from ..device import resolve
 from ..ops import dec as D
 from ..ops.deblock import compute_bs, deblock
 from ..ops.enc import prep_ref
+from .b_slice import ColMotion, compute_mvscale, ref_lists_b
 from .dpb import DPB, Frame
 from .header import PocContext, parse_slice_header
 from .mb_parse import MBParser, SliceContext
@@ -198,16 +208,36 @@ class H264Decoder:
         cur = self._cur
         pic = cur["pic"]
 
-        lst = []
+        lst, lst1 = [], []
+        nact = hdr.num_ref_idx_l0_active_minus1 + 1
         if hdr.slice_type == SliceType.P:
-            nact = hdr.num_ref_idx_l0_active_minus1 + 1
             lst = self.dpb.reorder_list(self.dpb.ref_list_p(hdr.frame_num),
                                         hdr.ref_pic_list_mod_l0,
                                         hdr.frame_num, nact)
-            if len(lst) < nact:
+        elif hdr.slice_type == SliceType.B:
+            b0, b1 = ref_lists_b(self.dpb.frames, cur["poc"])
+            lst = self.dpb.reorder_list(b0, hdr.ref_pic_list_mod_l0,
+                                        hdr.frame_num, nact)
+            lst1 = self.dpb.reorder_list(
+                b1, hdr.ref_pic_list_mod_l1, hdr.frame_num,
+                hdr.num_ref_idx_l1_active_minus1 + 1)
+            if not lst1:
                 raise ValueError("insufficient reference frames")
+        if hdr.slice_type != SliceType.I and len(lst) < nact:
+            raise ValueError("insufficient reference frames")
         sid = len(cur["headers"])
         ctx = SliceContext(hdr, sps, pps, sid, mb_succ=cur["mb_succ"])
+        if lst1:
+            # direct prediction (jm_tpu decoder.py:266-277)
+            col = lst1[0]
+            if col.motion is None:
+                raise ValueError("colocated picture has no stored motion")
+            mv0, r0, mv1, r1, rp0, rp1 = col.motion
+            ctx.b_col = ColMotion(mv0, r0, mv1, r1, pic.mb_w,
+                                  col.is_long_term, rp0, rp1)
+            ctx.b_tdirect = ({f.uid: i for i, f in enumerate(lst)},
+                             [f.is_long_term for f in lst],
+                             compute_mvscale(cur["poc"], lst, col.poc))
         if pps.entropy_coding_mode_flag:
             if dp_readers is not None:
                 raise ValueError("data partitioning is CAVLC-only")
@@ -221,16 +251,20 @@ class H264Decoder:
                 parser.br_c = dp_readers.get("c")
         parser.parse_slice_data()
         cur["headers"].append(hdr)
-        for f in lst:                    # the picture's references by uid
+        for f in lst + lst1:             # the picture's references by uid
             cur["refs"].setdefault(f.uid, f)
 
-        # per-MB ref uids for the deblock strengths
-        if lst:
-            mask = pic.slice_id == sid
-            uid = np.array([f.uid for f in lst], np.int64)
-            ridx = pic.ref_idx[mask]
-            pic.ref_pic_id[mask] = np.where(
-                ridx >= 0, uid[np.clip(ridx, 0, len(lst) - 1)], -1)
+        # per-MB ref uids of each list, for the deblock strengths and the
+        # recon's reference stack
+        mask = pic.slice_id == sid
+        for frames, ridx_arr, pid_arr in ((lst, pic.ref_idx, pic.ref_pic_id),
+                                          (lst1, pic.ref_idx_l1,
+                                           pic.ref_pic_id_l1)):
+            if frames:
+                uid = np.array([f.uid for f in frames], np.int64)
+                ridx = ridx_arr[mask]
+                pid_arr[mask] = np.where(
+                    ridx >= 0, uid[np.clip(ridx, 0, len(frames) - 1)], -1)
         cur["parse_s"] += time.perf_counter() - t0
 
     def _is_new_picture(self, hdr) -> bool:
@@ -266,26 +300,35 @@ class H264Decoder:
     def _upload(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
-    def _inter_recon(self, pic, refs, tabs, inter, qp, mv):
+    def _inter_recon(self, pic, refs, tabs, inter, qp, mv, is_b):
         """Device residual decode + inter recon of the inter MBs (qp, mv:
         the picture's, on the device). refs: the picture's reference
         frames; each MB's reference is found by uid, so slices with
-        different list0 orders share one stack."""
+        different list orders share one stack. is_b: a B picture, whose
+        blocks predict from list 0, list 1 or both."""
         tabY, tabU, tabV, qpc_cb, qpc_cr = tabs
         up = self._upload
         res_l, res_c = D.p_dec_residuals(
             up(pic.luma_coef), up(pic.chroma_dc), up(pic.chroma_coef),
             qp, tabY, tabU, tabV, qpc_cb, qpc_cr,
             mb_w=pic.mb_w, mb_h=pic.mb_h)
-        ref_idx = np.full(pic.ref_pic_id.shape, -1, np.int32)
-        for k, f in enumerate(refs):
-            ref_idx[pic.ref_pic_id == f.uid] = k
-        return D.inter_recon_p(
-            mv, up(ref_idx), res_l, res_c,
-            torch.stack([f.state[0] for f in refs]),
-            torch.stack([f.state[1] for f in refs]),
-            torch.stack([f.state[2] for f in refs]), up(inter),
-            mb_w=pic.mb_w, mb_h=pic.mb_h)
+
+        def stack_idx(pid):
+            idx = np.full(pid.shape, -1, np.int32)
+            for k, f in enumerate(refs):
+                idx[pid == f.uid] = k
+            return up(idx)
+
+        stacks = tuple(torch.stack([f.state[i] for f in refs])
+                       for i in range(3))
+        if is_b:
+            return D.inter_recon_b(
+                mv, up(pic.mv_l1), stack_idx(pic.ref_pic_id),
+                stack_idx(pic.ref_pic_id_l1), up(pic.pdir), res_l, res_c,
+                *stacks, up(inter), mb_w=pic.mb_w, mb_h=pic.mb_h)
+        return D.inter_recon_p(mv, stack_idx(pic.ref_pic_id), res_l, res_c,
+                               *stacks, up(inter), mb_w=pic.mb_w,
+                               mb_h=pic.mb_h)
 
     def _reconstruct(self, pic, cur, rec):
         """Reconstruct, deblock and prep one parsed picture; fills the
@@ -295,18 +338,19 @@ class H264Decoder:
         refs = list(cur["refs"].values())
         tabs = self._pps_tabs(pps)
         inter = pic.mb_class == MB_INTER
+        is_b = any(h.slice_type == SliceType.B for h in cur["headers"])
         up = self._upload
         t = time.perf_counter()
         qp, mv = up(pic.qp), up(pic.mv)
         if inter.all():
             rec["path"] = "inter"
-            Y, U, V = self._inter_recon(pic, refs, tabs, inter, qp, mv)
+            Y, U, V = self._inter_recon(pic, refs, tabs, inter, qp, mv, is_b)
         else:
             seed = None
             if inter.any():
                 rec["path"] = "mixed"
-                seed = [p.cpu().numpy() for p in
-                        self._inter_recon(pic, refs, tabs, inter, qp, mv)]
+                seed = [p.cpu().numpy() for p in self._inter_recon(
+                    pic, refs, tabs, inter, qp, mv, is_b)]
             else:
                 rec["path"] = "intra"
             t1 = time.perf_counter()
@@ -362,8 +406,11 @@ class H264Decoder:
             self._primary_keys.append((hdr0.frame_num,
                                        hdr0.pic_order_cnt_lsb))
             del self._primary_keys[:-32]
+        motion = (pic.mv, pic.ref_idx, pic.mv_l1, pic.ref_idx_l1,
+                  pic.ref_pic_id, pic.ref_pic_id_l1)
         self.dpb.store(Frame(poc=cur["poc"], frame_num=hdr0.frame_num,
-                             state=state, is_ref=hdr0.nal_ref_idc != 0),
+                             state=state, is_ref=hdr0.nal_ref_idc != 0,
+                             motion=motion),
                        mmco_ops=(hdr0.mmco_ops
                                  if hdr0.adaptive_ref_pic_marking_mode_flag
                                  else None),

@@ -5,7 +5,11 @@ descending, then long-term by LongTermFrameIdx) and
 ref_pic_list_modification with short- and long-term commands; twin of
 jm_tpu/decoder/dpb.py for frame pictures (ldecod/src/mbuffer.c
 store_picture_in_dpb, adaptive_memory_management, init_lists_p_slice,
-sliding_window_memory_management).
+sliding_window_memory_management). B slices take their initial lists
+from decoder/b_slice.ref_lists_b and the same modification. A
+non-reference picture takes a uid and is never stored. There is no
+output bumping, as in jm_tpu: the decoder returns pictures in decode
+order, and callers sort them by POC.
 """
 
 from __future__ import annotations
@@ -16,7 +20,10 @@ from dataclasses import dataclass
 @dataclass
 class Frame:
     """A decoded frame as a reference: its device reference state
-    (ops/enc.prep_ref: quarter-pel planes (4, H+2P, W+2P), padded U, V)."""
+    (ops/enc.prep_ref: quarter-pel planes (4, H+2P, W+2P), padded U, V)
+    and, for the direct prediction of the B pictures that take it as
+    list1[0], its motion (mv, ref_idx, mv_l1, ref_idx_l1, ref_pic_id,
+    ref_pic_id_l1: the PictureData arrays, host numpy)."""
     poc: int
     frame_num: int
     state: tuple
@@ -24,6 +31,7 @@ class Frame:
     is_long_term: bool = False
     long_term_frame_idx: int = -1
     uid: int = -1            # unique decode-order id (deblock bS compare)
+    motion: tuple | None = None
 
 
 class DPB:

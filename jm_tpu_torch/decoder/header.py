@@ -1,6 +1,6 @@
 """Slice header parsing (spec 7.3.3), POC derivation (spec 8.2.1) and the
 decoder's scope check; twin of jm_tpu/decoder/header.py for frame
-pictures of I and P slices, CAVLC or CABAC (ldecod/src/header.c
+pictures of I, P and B slices, CAVLC or CABAC (ldecod/src/header.c
 FirstPartOfSliceHeader:76, RestOfSliceHeader:113,
 ref_pic_list_reordering:350, decode_poc:720).
 
@@ -11,7 +11,8 @@ long_term_reference_flag, MMCO ops 1-6; ldecod header.c
 dec_ref_pic_marking:635). What the decoder does not cover raises
 NotImplementedError naming the construct, before the slice's picture is
 decoded: ``check_scope`` for what the SPS / PPS declare, the header
-parse for B / SP / SI slices.
+parse for SP / SI slices. A B slice adds direct_spatial_mv_pred_flag,
+num_ref_idx_l1_active_minus1 and the list-1 modification commands.
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
     st = br.ue()
     h.slice_type_all = st >= 5
     h.slice_type = SliceType(st % 5)
-    if h.slice_type not in (SliceType.I, SliceType.P):
+    st = h.slice_type
+    if st not in (SliceType.I, SliceType.P, SliceType.B):
         raise NotImplementedError(
             f"out of scope: {h.slice_type.name} slices")
     h.pic_parameter_set_id = br.ue()
@@ -80,13 +82,20 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
     if pps.redundant_pic_cnt_present_flag:
         h.redundant_pic_cnt = br.ue()
 
+    if st == SliceType.B:
+        h.direct_spatial_mv_pred_flag = br.flag()
     h.num_ref_idx_l0_active_minus1 = pps.num_ref_idx_l0_default_active_minus1
-    if h.slice_type == SliceType.P:
+    h.num_ref_idx_l1_active_minus1 = pps.num_ref_idx_l1_default_active_minus1
+    if st in (SliceType.P, SliceType.B):
         h.num_ref_idx_active_override_flag = br.flag()
         if h.num_ref_idx_active_override_flag:
             h.num_ref_idx_l0_active_minus1 = br.ue()
+            if st == SliceType.B:
+                h.num_ref_idx_l1_active_minus1 = br.ue()
         if br.flag():  # ref_pic_list_modification_flag_l0 (7.3.3.1)
             h.ref_pic_list_mod_l0 = _read_rplm(br)
+    if st == SliceType.B and br.flag():     # ..._flag_l1
+        h.ref_pic_list_mod_l1 = _read_rplm(br)
 
     # dec_ref_pic_marking (7.3.3.3)
     if nal.nal_ref_idc != 0:
@@ -98,7 +107,7 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
             if h.adaptive_ref_pic_marking_mode_flag:
                 h.mmco_ops = _read_mmco(br)
 
-    if pps.entropy_coding_mode_flag and h.slice_type == SliceType.P:
+    if pps.entropy_coding_mode_flag and st != SliceType.I:
         h.cabac_init_idc = br.ue()
         if h.cabac_init_idc > 2:
             raise ValueError(f"cabac_init_idc {h.cabac_init_idc} out of range")

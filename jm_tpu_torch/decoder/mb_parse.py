@@ -1,6 +1,6 @@
-"""Macroblock-layer parsing of CAVLC I and P slices (spec 7.3.5, 7.4.5,
-9.2), twin of the Python path of jm_tpu/decoder/mb_parse.py for 4:2:0,
-8-bit frame pictures with the 4x4 transform.
+"""Macroblock-layer parsing of CAVLC I, P and B slices (spec 7.3.5,
+7.4.5, 9.2), twin of the Python path of jm_tpu/decoder/mb_parse.py for
+4:2:0, 8-bit frame pictures with the 4x4 transform.
 
 The serial parse walks the MBs of a slice in raster order and fills the
 picture-wide SoA arrays of common/picture.PictureData (modes, MVs,
@@ -10,10 +10,14 @@ common/predict_ctx.PredCtx, the same code the encoder uses
 (ldecod/src/mb_read.c read_one_macroblock_i_slice_cavlc:1139,
 read_one_macroblock_p_slice_cavlc:1335; lcommon/src/mv_prediction.c).
 
-A slice is parsed by the native parser of the port's C++ runtime
-(jm_tpu_torch/native, jm_dec.cpp parse_slice_cavlc) unless the caller
-asks for the Python parser (``native=False``) or the slice is data-
-partitioned; the C parser stops at an I_PCM MB, and the Python parser
+A B slice's MBs (B_Skip and B_Direct_16x16 with decoder/b_slice's
+direct motion, the 16x16 / 16x8 / 8x16 partitions of list 0, list 1 or
+both, B_8x8 with direct 8x8s) are parsed in Python, as in jm_tpu, and
+counted in native.routes["b"]["parse"]. Any other slice is parsed by the
+native parser of the port's C++ runtime (jm_tpu_torch/native, jm_dec.cpp
+parse_slice_cavlc) unless the caller asks for the Python parser
+(``native=False``) or the slice is data-partitioned; the C parser stops
+at an I_PCM MB, and the Python parser
 then reads the slice again from its start (jm_tpu/decoder/mb_parse.py
 _parse_native). A data-partitioned slice (``dp_mode``) reads its MB
 headers from partition A (``br``) and the residual of intra MBs from
@@ -35,6 +39,7 @@ from ..common.picture import (CBP_MAP_CHROMA, MB_I4, MB_I16, MB_INTER,
                               MB_IPCM, PictureData)
 from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import PPS, SPS, SliceHeader, SliceType
+from . import b_slice as B
 from .cavlc import residual_block_cavlc
 
 # P mb_type 0..2 partitions and P8x8 sub-partitions, as (bx, by, bw, bh)
@@ -58,6 +63,11 @@ class SliceContext:
     # FMO: mb_succ[addr] is the next MB of addr's slice group
     # (common/fmo.next_mb_arrays); None: raster order (one slice group)
     mb_succ: object = None
+    # B slices: the co-located picture's motion (b_slice.ColMotion) and
+    # temporal direct's (list-0 uid -> index, long-term flags, scale
+    # factors), set by the decoder
+    b_col: object = None
+    b_tdirect: object = None
 
     def __post_init__(self) -> None:
         self.qp = self.header.qp(self.pps)
@@ -229,7 +239,13 @@ class MBParser:
                 for (sx, sy, sw, sh) in _SUB_PARTS[sub_types[q]]:
                     self._fill_mv(addr, qx + sx, qy + sy, sw, sh, refs[q])
 
-        cbp = int(CBP_MAP_CHROMA[br.ue()][1])
+        self._read_inter_residual(addr)
+
+    def _read_inter_residual(self, addr: int) -> None:
+        """coded_block_pattern, mb_qp_delta and the residual of an inter
+        MB."""
+        pic = self.pic
+        cbp = int(CBP_MAP_CHROMA[self.br.ue()][1])
         pic.cbp[addr] = cbp
         if cbp:
             self._read_qp_delta(addr)
@@ -246,6 +262,37 @@ class MBParser:
         pic.ref_idx[addr] = 0
         pic.qp[addr] = self.qp
         pic.mv[addr] = self.pctx.skip_mv(addr)
+
+    # ---- B MB (B slices) --------------------------------------------------
+
+    def _parse_b_skip(self, addr: int) -> None:
+        pic = self.pic
+        pic.mb_class[addr] = MB_INTER
+        pic.skip[addr] = True
+        pic.b_direct[addr] = True
+        pic.qp[addr] = self.qp
+        B.fill_direct_mb(self, addr)
+
+    def read_b_ref(self, addr, bx, by, lst) -> int:
+        h = self.ctx.header
+        n = (h.num_ref_idx_l1_active_minus1 if lst
+             else h.num_ref_idx_l0_active_minus1)
+        return self.br.te(n)
+
+    def read_b_mvd(self, addr, bx, by, lst):
+        return self.br.se(), self.br.se()
+
+    def _read_b_subs(self):
+        subs = [self.br.ue() for _ in range(4)]
+        if any(t > 12 for t in subs):
+            raise ValueError("invalid B sub_mb_type")
+        return subs
+
+    def _parse_b_mb(self, addr: int, coded: int) -> None:
+        """coded: B mb_type 0 (B_Direct_16x16), 1..21, 22 (B_8x8)."""
+        self.pic.mb_class[addr] = MB_INTER
+        B.parse_b_motion(self, addr, coded, self._read_b_subs)
+        self._read_inter_residual(addr)
 
     # ---- native parse -----------------------------------------------------
 
@@ -297,8 +344,11 @@ class MBParser:
         sid = self.ctx.slice_id
         if addr >= n:
             raise ValueError(f"first_mb_in_slice {addr} outside the picture")
+        is_b = h.slice_type == SliceType.B
         if self.dp_mode:
             N.routes["dp"]["parse"] += 1
+        elif is_b:
+            N.routes["b"]["parse"] += 1
         elif self.native:
             if self._parse_native():
                 N.routes["parse"]["native"] += 1
@@ -321,12 +371,21 @@ class MBParser:
                 if addr >= n:
                     raise ValueError("mb_skip_run past end of picture")
                 pic.slice_id[addr] = sid
-                self._parse_p_skip(addr)
+                if is_b:
+                    self._parse_b_skip(addr)
+                else:
+                    self._parse_p_skip(addr)
                 addr = nxt(addr)
             if addr >= n or not br.more_rbsp_data():
                 break
             pic.slice_id[addr] = sid
-            self._parse_p_mb(addr, br.ue())
+            mb_type = br.ue()
+            if not is_b:
+                self._parse_p_mb(addr, mb_type)
+            elif mb_type >= 23:
+                self._parse_intra_mb(addr, mb_type - 23)
+            else:
+                self._parse_b_mb(addr, mb_type)
             addr = nxt(addr)
             if not br.more_rbsp_data():
                 break

@@ -1,6 +1,6 @@
-"""Macroblock-layer parsing of CABAC I and P slices (spec 7.3.5, 9.3.3.1),
-twin of jm_tpu/decoder/mb_parse_cabac.py's MBParserCABAC for 4:2:0,
-8-bit frame pictures with the 4x4 transform.
+"""Macroblock-layer parsing of CABAC I, P and B slices (spec 7.3.5,
+9.3.3.1), twin of jm_tpu/decoder/mb_parse_cabac.py's MBParserCABAC for
+4:2:0, 8-bit frame pictures with the 4x4 transform.
 
 It fills the same picture-wide SoA arrays (common/picture.PictureData) as
 the CAVLC parser, plus the two the context selection reads: the mvd of
@@ -9,8 +9,13 @@ read_one_macroblock_{i,p}_slice_cabac). ``CabacNeighbours`` holds the
 context selections from the neighbouring MBs and blocks (the ctxIdxInc
 derivations of spec 9.3.3.1.1, ldecod/src/cabac.c); the encoder's
 writer (encoder/syntax_cabac.py) uses the same class. Predictors come
-from common/predict_ctx.PredCtx, as for CAVLC. B slices and the 8x8
-transform raise NotImplementedError. The arithmetic decoder is the
+from common/predict_ctx.PredCtx, as for CAVLC; B direct motion from
+decoder/b_slice.py. In B slices a neighbour coded B_Skip or
+B_Direct_16x16 does not count for the mb_type context, and a direct
+neighbour (MB or 8x8) none for the ref_idx context; the mvd context reads
+the list being coded. The 8x8 transform raises NotImplementedError, and
+every B slice counts in native.routes["b"]["parse"]. The arithmetic
+decoder is the
 native CabacEngine unless the caller asks for the Python twin
 (``native=False``); each slice's choice is counted in
 native.routes["cabac"].
@@ -25,6 +30,7 @@ from ..bitstream.bitreader import BitReader
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
+from . import b_slice as B
 from .cabac import (CHROMA_AC, CHROMA_DC, LUMA_4x4, LUMA_16AC, LUMA_16DC,
                     TYPE2CTX_BCBP, CabacContexts, CabacEngine,
                     PyCabacEngine, read_significance_and_levels)
@@ -77,10 +83,22 @@ class CabacNeighbours:
         return naddr, (gy % 2) * 2 + (gx % 2)
 
     def skip_ctx(self, addr) -> int:
+        """mb_skip_flag's context in P slices (B slices add 7)."""
         pic = self.pic
         la, ua = self._left_mb(addr), self._up_mb(addr)
         return ((1 if la >= 0 and not pic.skip[la] else 0)
                 + (1 if ua >= 0 and not pic.skip[ua] else 0))
+
+    def mb_type_b_ctx(self, addr) -> int:
+        """The first B mb_type bin's context: neighbours neither B_Skip
+        nor B_Direct_16x16."""
+        pic = self.pic
+
+        def term(n):
+            return 1 if n >= 0 and not (pic.skip[n] or pic.b_direct[n]) \
+                else 0
+
+        return term(self._left_mb(addr)) + term(self._up_mb(addr))
 
     def mb_type_i_ctx(self, addr) -> int:
         pic = self.pic
@@ -97,30 +115,34 @@ class CabacNeighbours:
 
         return term(self._left_mb(addr)) + term(self._up_mb(addr))
 
-    def ref_idx_ctx(self, addr, bx, by) -> int:
+    def ref_idx_ctx(self, addr, bx, by, lst=0) -> int:
+        """ref_idx_l<lst>'s context: neighbours with an index above 0,
+        not counting I_PCM, skipped and direct-predicted ones."""
         pic = self.pic
+        ref = pic.ref_idx if lst == 0 else pic.ref_idx_l1
 
         def term(nb):
             if nb is None:
                 return 0
             naddr, nblk = nb
             q = (nblk // 8) * 2 + ((nblk % 4) // 2)
-            if pic.mb_class[naddr] == MB_IPCM or pic.skip[naddr]:
+            if pic.mb_class[naddr] == MB_IPCM or pic.skip[naddr] \
+                    or pic.b_direct[naddr] or pic.b8_direct[naddr, q]:
                 return 0
-            return 1 if pic.ref_idx[naddr, q] > 0 else 0
+            return 1 if ref[naddr, q] > 0 else 0
 
         return (2 * term(self._blk_neighbor(addr, bx, by - 1))
                 + term(self._blk_neighbor(addr, bx - 1, by)))
 
-    def mvd_ctx(self, addr, bx, by, comp) -> int:
+    def mvd_ctx(self, addr, bx, by, comp, lst=0) -> int:
         """The first bin's context in mv_res[0]: from the sum of the
-        neighbours' |mvd| (spec Table 9-39, ucoff 3 / 32)."""
+        neighbours' |mvd| of list lst (spec Table 9-39, ucoff 3 / 32)."""
         pic = self.pic
         a = 0
         for nb in (self._blk_neighbor(addr, bx - 1, by),
                    self._blk_neighbor(addr, bx, by - 1)):
             if nb is not None:
-                a += abs(int(pic.mvd[nb[0], 0, nb[1], comp]))
+                a += abs(int(pic.mvd[nb[0], lst, nb[1], comp]))
         return 5 * comp + (0 if a < 3 else 3 if a > 32 else 2)
 
     def cbp_luma_ctx(self, addr, mb_x, mb_y, part) -> int:
@@ -270,6 +292,57 @@ class MBParserCABAC(CabacNeighbours):
         sym += eng.decision(ctx, 10)
         return sym
 
+    def read_mb_type_b(self, addr) -> int:
+        """B mb_type (readMB_typeInfo_CABAC_b_slice): 0 B_Direct_16x16,
+        1..21 the partitions, 22 B_8x8, 23 I_NxN, 24..47 I_16x16, 48
+        I_PCM."""
+        eng, ctx = self.eng, self.ctxs.mb_type[2]
+        if not eng.decision(ctx, self.mb_type_b_ctx(addr)):
+            return 0
+        if not eng.decision(ctx, 4):
+            return 2 if eng.decision(ctx, 6) else 1
+        if not eng.decision(ctx, 5):
+            sym = 3 + 4 * eng.decision(ctx, 6)
+            sym += 2 * eng.decision(ctx, 6)
+            return sym + eng.decision(ctx, 6)
+        sym = 12 + 8 * eng.decision(ctx, 6)
+        sym += 4 * eng.decision(ctx, 6)
+        sym += 2 * eng.decision(ctx, 6)
+        if sym == 24:
+            return 11
+        if sym == 26:
+            return 22
+        if sym == 22:
+            sym = 23
+        sym += eng.decision(ctx, 6)
+        if sym <= 23:                   # 12..21 inter, 23 I_NxN
+            return sym
+        if eng.terminate():             # 24: I_16x16 or I_PCM
+            return 48
+        ctx1 = self.ctxs.mb_type[1]
+        sym += eng.decision(ctx1, 8) * 12
+        if eng.decision(ctx1, 9):
+            sym += 4
+            if eng.decision(ctx1, 9):
+                sym += 4
+        sym += eng.decision(ctx1, 10) * 2
+        return sym + eng.decision(ctx1, 10)
+
+    def read_sub_mb_type_b(self) -> int:
+        """B sub_mb_type 0..12 (readB8_typeInfo_CABAC_b_slice)."""
+        eng, ctx = self.eng, self.ctxs.b8_type[1]
+        if not eng.decision(ctx, 0):
+            return 0
+        if not eng.decision(ctx, 1):
+            return 2 if eng.decision(ctx, 3) else 1
+        if eng.decision(ctx, 2):
+            if eng.decision(ctx, 3):
+                return 11 + eng.decision(ctx, 3)
+            sym = 7 + 2 * eng.decision(ctx, 3)
+        else:
+            sym = 3 + 2 * eng.decision(ctx, 3)
+        return sym + eng.decision(ctx, 3)
+
     def read_sub_mb_type_p(self) -> int:
         """0 = 8x8, 1 = 8x4, 2 = 4x8, 3 = 4x4."""
         eng, ctx = self.eng, self.ctxs.b8_type[0]
@@ -295,16 +368,16 @@ class MBParserCABAC(CabacNeighbours):
             sym = self.eng.unary_max(self.ctxs.cipr, 3, 3, 1) + 1
         return sym
 
-    def read_ref_idx(self, addr, bx, by) -> int:
+    def read_ref_idx(self, addr, bx, by, lst=0) -> int:
         ctx = self.ctxs.ref_no[0]
-        sym = self.eng.decision(ctx, self.ref_idx_ctx(addr, bx, by))
+        sym = self.eng.decision(ctx, self.ref_idx_ctx(addr, bx, by, lst))
         if sym:
             sym = self.eng.unary(ctx, 4, 5) + 1
         return sym
 
-    def read_mvd(self, addr, bx, by, comp) -> int:
+    def read_mvd(self, addr, bx, by, comp, lst=0) -> int:
         sym = self.eng.decision(self.ctxs.mv_res[0],
-                                self.mvd_ctx(addr, bx, by, comp))
+                                self.mvd_ctx(addr, bx, by, comp, lst))
         if sym:
             sym = self.eng.ueg3_mv(self.ctxs.mv_res[1], 5 * comp) + 1
             if self.eng.bypass():
@@ -493,15 +566,7 @@ class MBParserCABAC(CabacNeighbours):
                 qx, qy = (q % 2) * 2, (q // 2) * 2
                 for (sx, sy, sw, sh) in _SUB_PARTS[sub_types[q]]:
                     self._fill_mv(addr, qx + sx, qy + sy, sw, sh, refs[q])
-        cbp = self.read_cbp(addr)
-        pic.cbp[addr] = cbp
-        if cbp:
-            self._apply_dquant(addr)
-        else:
-            self.last_dquant = 0
-            pic.qp[addr] = self.qp
-        self._read_luma_residual(addr, cbp & 15, is_i16=False)
-        self._read_chroma_residual(addr, cbp)
+        self._read_inter_residual(addr)
 
     def _parse_p_skip(self, addr):
         pic = self.pic
@@ -511,6 +576,45 @@ class MBParserCABAC(CabacNeighbours):
         pic.qp[addr] = self.qp
         pic.mv[addr] = self.pctx.skip_mv(addr)
         self.last_dquant = 0
+
+    # ---- B MB ---------------------------------------------------------------
+
+    def _parse_b_skip(self, addr):
+        pic = self.pic
+        pic.mb_class[addr] = MB_INTER
+        pic.skip[addr] = True
+        pic.b_direct[addr] = True
+        pic.qp[addr] = self.qp
+        B.fill_direct_mb(self, addr)
+        self.last_dquant = 0
+
+    def read_b_ref(self, addr, bx, by, lst):
+        return self.read_ref_idx(addr, bx, by, lst)
+
+    def read_b_mvd(self, addr, bx, by, lst):
+        return (self.read_mvd(addr, bx, by, 0, lst),
+                self.read_mvd(addr, bx, by, 1, lst))
+
+    def _parse_b_mb(self, addr, coded):
+        """coded: B mb_type 0 (B_Direct_16x16), 1..21, 22 (B_8x8)."""
+        self.pic.mb_class[addr] = MB_INTER
+        B.parse_b_motion(self, addr, coded, lambda: [
+            self.read_sub_mb_type_b() for _ in range(4)])
+        self._read_inter_residual(addr)
+
+    def _read_inter_residual(self, addr):
+        """coded_block_pattern, mb_qp_delta and the residual of an inter
+        MB."""
+        pic = self.pic
+        cbp = self.read_cbp(addr)
+        pic.cbp[addr] = cbp
+        if cbp:
+            self._apply_dquant(addr)
+        else:
+            self.last_dquant = 0
+            pic.qp[addr] = self.qp
+        self._read_luma_residual(addr, cbp & 15, is_i16=False)
+        self._read_chroma_residual(addr, cbp)
 
     # ---- slice loop -------------------------------------------------------
 
@@ -522,13 +626,23 @@ class MBParserCABAC(CabacNeighbours):
         sid = self.ctx.slice_id
         if addr >= n:
             raise ValueError(f"first_mb_in_slice {addr} outside the picture")
-        if h.slice_type not in (SliceType.I, SliceType.P):
-            raise NotImplementedError(
-                f"out of scope: {h.slice_type.name} slices (CABAC)")
+        is_b = h.slice_type == SliceType.B
+        if is_b:
+            N.routes["b"]["parse"] += 1
         while True:
             pic.slice_id[addr] = sid
             if h.slice_type == SliceType.I:
                 self._parse_intra_mb(addr, self.read_mb_type_i(addr))
+            elif is_b:
+                if self.eng.decision(self.ctxs.mb_type[2],
+                                     7 + self.skip_ctx(addr)):
+                    self._parse_b_skip(addr)
+                else:
+                    t = self.read_mb_type_b(addr)
+                    if t <= 22:
+                        self._parse_b_mb(addr, t)
+                    else:
+                        self._parse_intra_mb(addr, 25 if t == 48 else t - 23)
             elif self.eng.decision(self.ctxs.mb_type[1],
                                    self.skip_ctx(addr)):
                 self._parse_p_skip(addr)

@@ -1,0 +1,248 @@
+"""The B macroblock coder of the port: twin of jm_tpu/encoder/encoder.py
+_FrameEncoder._encode_b_mb (:3418-3528) with _b_pred_assemble (:3360),
+_mc_blk_b (:3351), _mc_chroma (:3326), _commit_inter_residual (:3409)
+and _code_luma_inter (:3114), for 4:2:0 frame pictures with flat quant,
+the 4x4 transform, no weighted prediction and one reference per list.
+
+Per MB, in slice order (serial host code, as in jm_tpu):
+  - spatial direct: its motion (decoder/b_slice.py) and its prediction,
+    SAD + lambda;
+  - the best 16x16 list-0 and list-1 MVs: the integer full search over
+    the SAD table made on the device (ops/enc.full_search_sad16) plus
+    lambda-weighted mvd bits, with the spiral tie-break, then the
+    half- / quarter-pel SATD refinement, + 3 lambda each;
+  - the average of the two (bi-prediction), SAD + lambda * (5 + mvd
+    bits of both);
+  - the cheapest of the four, unless Intra16x16's SAD + 2 lambda_mode4
+    is below it (encoder/p_intra.py's IntraMBCoder codes it);
+then the inter residual (4x4 luma with JM's coefficient thresholding,
+4:2:0 chroma) and the recon. A direct MB without coefficients becomes
+B_Skip. The predictions are made per 4x4 block, each list's luma at
+quarter-pel and chroma at eighth-pel, the two averaged as
+(p0 + p1 + 1) >> 1: what a decoder reconstructs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..common.picture import MB_I16, MB_INTER
+from ..decoder import b_slice as B
+from . import me as ME
+from . import residual_np as RN
+from .p_intra import IntraMBCoder
+
+# the 4x4 blocks of each 8x8 quadrant (raster in the MB)
+_QUAD_BLKS = ([0, 1, 4, 5], [2, 3, 6, 7], [8, 9, 12, 13], [10, 11, 14, 15])
+
+
+@dataclass
+class HostRef:
+    """A reference picture's state on the host: the quarter-pel planes
+    (4, H + 2 PAD, W + 2 PAD), the padded chroma, and its uid."""
+    planes: np.ndarray
+    padU: np.ndarray
+    padV: np.ndarray
+    uid: int
+
+
+class BPicture(IntraMBCoder):
+    """One B picture coded MB by MB on the host: ``pic`` (PictureData)
+    and the undeblocked recon planes recY / recU / recV (numpy uint8).
+    ``mix`` counts the MBs by decision (direct, skip, l0, l1, bi, i16)."""
+
+    def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
+                 ref0: HostRef, ref1: HostRef, col: B.ColMotion, sads0,
+                 sads1, slices, sr: int):
+        """orig: the source (Y, U, V) uint8 planes; lam / lam4:
+        lambda_me and lambda_mode4 of qp; ref0 / ref1: list0[0] and
+        list1[0]; col: list1[0]'s motion; sads0 / sads1: the
+        (N, (2 sr + 1)^2) integer search tables against each; slices: the
+        slice plan, MB address lists in decode order."""
+        pic = self._init_picture(orig, qp, qpc)
+        self.lam, self.lam4 = lam, lam4
+        self.refs, self.col, self.sads = (ref0, ref1), col, (sads0, sads1)
+        self.sr = sr
+        self.h, self.w = self.origY.shape
+        self.recY = np.zeros_like(self.origY)
+        self.recU = np.zeros_like(self.origU)
+        self.recV = np.zeros_like(self.origV)
+        self.mix = dict.fromkeys(("direct", "skip", "l0", "l1", "bi",
+                                  "i16"), 0)
+        for sid, addrs in enumerate(slices):
+            for addr in addrs:
+                pic.slice_id[addr] = sid
+                pic.qp[addr] = qp
+                self._encode_b_mb(int(addr))
+
+    # ---- prediction -------------------------------------------------------
+
+    def _mc_blk(self, ref: HostRef, px, py, bx, by, mv):
+        """One 4x4 luma block and its 2x2 chroma blocks from one reference
+        (the decoder's per-4x4 motion compensation)."""
+        mvx, mvy = int(mv[0]), int(mv[1])
+        yb = ME.mc_luma_block(ref.planes, (px + bx * 4) * 4 + mvx,
+                              (py + by * 4) * 4 + mvy, 4, 4, self.w, self.h)
+        cx8 = (px // 2 + bx * 2) * 8 + mvx
+        cy8 = (py // 2 + by * 2) * 8 + mvy
+        cw, ch = self.w // 2, self.h // 2
+        return (yb, ME.mc_chroma_block(ref.padU, cx8, cy8, 2, 2, cw, ch),
+                ME.mc_chroma_block(ref.padV, cx8, cy8, 2, 2, cw, ch))
+
+    def _pred_assemble(self, addr):
+        """The MB's prediction from its motion rows in pic: (luma (16, 16),
+        Cb (8, 8), Cr (8, 8)) int32."""
+        pic = self.pic
+        px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
+        pred_y = np.zeros((16, 16), np.int32)
+        pred_u = np.zeros((8, 8), np.int32)
+        pred_v = np.zeros((8, 8), np.int32)
+        for blk in range(16):
+            by, bx = divmod(blk, 4)
+            q = (by // 2) * 2 + bx // 2
+            pd = int(pic.pdir[addr, q])
+            if pd in (B.PD_L0, B.PD_BI):
+                p0 = self._mc_blk(self.refs[0], px, py, bx, by,
+                                  pic.mv[addr, blk])
+            if pd in (B.PD_L1, B.PD_BI):
+                p1 = self._mc_blk(self.refs[1], px, py, bx, by,
+                                  pic.mv_l1[addr, blk])
+            if pd == B.PD_L0:
+                yb, ub, vb = p0
+            elif pd == B.PD_L1:
+                yb, ub, vb = p1
+            else:
+                yb, ub, vb = ((a + b + 1) >> 1 for a, b in zip(p0, p1))
+            pred_y[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = yb
+            pred_u[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = ub
+            pred_v[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = vb
+        return pred_y, pred_u, pred_v
+
+    # ---- residual ---------------------------------------------------------
+
+    def _code_luma_inter(self, addr, o, pred_y) -> int:
+        """The inter luma residual (4x4 transform, JM's thresholding of
+        cheap 8x8 quadrants and MBs, macroblock.c:901,1248): commits the
+        levels, nnz and recon; returns cbp_luma."""
+        pic = self.pic
+        px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
+        res = o.astype(np.int64) - pred_y
+        w4 = RN.np_forward4x4(res.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
+                              .reshape(16, 4, 4))
+        scan4 = RN.to_scan(RN.np_quant_4x4(w4, self.qp, False))
+        total = 0
+        for qb in _QUAD_BLKS:
+            cq = sum(RN.coeff_cost_scan(scan4[b]) for b in qb)
+            if cq <= RN.LUMA_COEFF_COST:
+                scan4[qb] = 0
+            else:
+                total += cq
+        if total <= RN.LUMA_MB_COEFF_COST:
+            scan4[:] = 0
+        pred_blocks = pred_y.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
+            .reshape(16, 4, 4)
+        rec = RN.recon_luma_4x4(pred_blocks, scan4, self.qp)
+        self.recY[py:py + 16, px:px + 16] = \
+            rec.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
+        pic.luma_coef[addr] = scan4
+        nnz = (scan4 != 0).sum(axis=1)
+        pic.luma_nnz[addr] = nnz
+        return sum(1 << q for q, qb in enumerate(_QUAD_BLKS)
+                   if nnz[qb].any())
+
+    def _commit_inter_residual(self, addr, o, pred_y, pred_u, pred_v):
+        cbp_luma = self._code_luma_inter(addr, o, pred_y)
+        cbp_chroma = self._code_chroma_residual(
+            addr, pred_u.astype(np.int64), pred_v.astype(np.int64),
+            intra=False)
+        self.pic.cbp[addr] = (cbp_chroma << 4) | cbp_luma
+
+    # ---- mode decision ----------------------------------------------------
+
+    def _best16(self, addr, origY_mb, lst):
+        """The best 16x16 MV of list lst: (quarter-pel MV, cost, its
+        prediction)."""
+        px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
+        pred_mv = self.pctx.mv_pred(addr, 0, 0, 4, 4, 0, lst)
+        csum = (self.sads[lst][addr].astype(np.int64)
+                + ME.int_rate_tab(pred_mv, self.sr, self.lam))
+        imv = ME.best_int_mv_tiebreak(
+            csum, ME.spiral_rank_tab(pred_mv, self.sr), self.sr)
+        qmv, cost = ME.subpel_refine(origY_mb, self.refs[lst].planes, px, py,
+                                     imv, self.w, self.h, pred_mv, self.lam)
+        return qmv, cost, pred_mv
+
+    def _encode_b_mb(self, addr: int) -> None:
+        pic, lam = self.pic, self.lam
+        px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
+        origY_mb = self._mb_orig(addr)[0]
+        o = origY_mb.astype(np.int32)
+        f0, f1 = self.refs
+
+        # spatial direct: writes the motion rows, which every other
+        # choice overwrites in full
+        dp = B.prepare_direct_params(self.pctx, addr)
+        for q in range(4):
+            B.spatial_direct_quadrant(pic, addr, q, *dp, self.col)
+        dpred = self._pred_assemble(addr)
+        cost_direct = int(np.abs(o - dpred[0]).sum()) + lam
+
+        mv0, cost_l0, pm0 = self._best16(addr, origY_mb, 0)
+        mv1, cost_l1, pm1 = self._best16(addr, origY_mb, 1)
+        cost_l0 += 3 * lam
+        cost_l1 += 3 * lam
+        p0 = ME.mc_luma_block(f0.planes, px * 4 + int(mv0[0]),
+                              py * 4 + int(mv0[1]), 16, 16, self.w, self.h)
+        p1 = ME.mc_luma_block(f1.planes, px * 4 + int(mv1[0]),
+                              py * 4 + int(mv1[1]), 16, 16, self.w, self.h)
+        cost_bi = int(np.abs(o - ((p0 + p1 + 1) >> 1)).sum()) + lam * (
+            5 + ME.mv_bits(int(mv0[0] - pm0[0]), int(mv0[1] - pm0[1]))
+            + ME.mv_bits(int(mv1[0] - pm1[0]), int(mv1[1] - pm1[1])))
+        best = min(cost_direct, cost_l0, cost_l1, cost_bi)
+
+        cost16, mode16, pred16 = self._eval_i16(addr, origY_mb)
+        if cost16 + 2 * self.lam4 < best:
+            pic.mb_class[addr] = MB_I16
+            pic.pdir[addr] = -1
+            pic.ref_idx[addr] = -1
+            pic.ref_idx_l1[addr] = -1
+            pic.ref_pic_id[addr] = -1
+            pic.ref_pic_id_l1[addr] = -1
+            pic.mv[addr] = 0
+            pic.mv_l1[addr] = 0
+            cbp_luma = self._encode_i16(addr, origY_mb, mode16, pred16)
+            pic.cbp[addr] = (self._encode_chroma_intra(addr) << 4) | cbp_luma
+            self.mix["i16"] += 1
+            return
+
+        pic.mb_class[addr] = MB_INTER
+        if best == cost_direct:
+            pic.b_direct[addr] = True
+            pic.ref_pic_id[addr] = np.where(pic.ref_idx[addr] >= 0, f0.uid,
+                                            -1)
+            pic.ref_pic_id_l1[addr] = np.where(pic.ref_idx_l1[addr] >= 0,
+                                               f1.uid, -1)
+            pred = dpred
+        else:
+            if best == cost_l0:
+                pd, r0, r1, mva, mvb, kind = B.PD_L0, 0, -1, mv0, (0, 0), "l0"
+            elif best == cost_l1:
+                pd, r0, r1, mva, mvb, kind = B.PD_L1, -1, 0, (0, 0), mv1, "l1"
+            else:
+                pd, r0, r1, mva, mvb, kind = B.PD_BI, 0, 0, mv0, mv1, "bi"
+            self.mix[kind] += 1
+            pic.pdir[addr] = pd
+            pic.ref_idx[addr] = r0
+            pic.ref_idx_l1[addr] = r1
+            pic.ref_pic_id[addr] = f0.uid if r0 >= 0 else -1
+            pic.ref_pic_id_l1[addr] = f1.uid if r1 >= 0 else -1
+            pic.mv[addr] = np.asarray(mva, np.int32)
+            pic.mv_l1[addr] = np.asarray(mvb, np.int32)
+            pred = self._pred_assemble(addr)
+        self._commit_inter_residual(addr, o, *pred)
+        if pic.b_direct[addr]:
+            # B_Skip: direct prediction without coded residual
+            pic.skip[addr] = pic.cbp[addr] == 0
+            self.mix["skip" if pic.skip[addr] else "direct"] += 1

@@ -1,16 +1,19 @@
-"""H.264 encoder of the port: IPPP, 4:2:0, one reference, with the
-trial-encode RD P path (device_rd) or md_low, CAVLC (Baseline, or
+"""H.264 encoder of the port: IPPP or with B pictures (IbP, a dyadic
+pyramid or an explicit GOP string), 4:2:0, one reference per list, with
+the trial-encode RD P path (device_rd) or md_low, CAVLC (Baseline, or
 Extended with data partitioning) or CABAC (Main), one or several slices
 per picture (slice_mode 1: MBs per slice, 2: bytes per slice), FMO slice
-groups (Baseline), a fixed QP, a P QP of its own (qp_p) or frame-level
-JVT-G012 rate control, POC types 0, 1 and 2, long-term anchors, MMCO
-marking, redundant pictures, the loop filter on or off, a user-data SEI
-and VUI timing (twin of jm_tpu.encoder.Encoder with pipeline="device":
-its pipelined ``encode_stream`` and its per-frame ``encode_frame``).
+groups (Baseline), a fixed QP, a P and a B QP of their own (qp_p, qp_b)
+or frame-level JVT-G012 rate control, POC types 0, 1 and 2, long-term
+anchors, MMCO marking, open-GOP I anchors with a recovery point SEI and
+CRA marking, redundant pictures, the loop filter on or off, a user-data
+SEI and VUI timing (twin of jm_tpu.encoder.Encoder with
+pipeline="device": its pipelined ``encode_stream`` and its per-frame
+``encode_frame``).
 
-The pipe (``encode_stream`` of a CAVLC stream with one slice per picture,
-a fixed QP, no intra refresh, the loop filter on, no long-term anchors
-and no data partitioning, whatever its POC type):
+The pipe (``encode_stream`` of a CAVLC stream without B pictures, with
+one slice per picture, a fixed QP, no intra refresh, the loop filter on,
+no long-term anchors and no data partitioning, whatever its POC type):
   - IDR frames: ops/intra.i_frame_step on the device, then boundary
     strengths + deblock (the CUDA kernels on the card), then the host
     CAVLC serializer (encoder/syntax.py) with SPS / PPS;
@@ -33,36 +36,51 @@ the pipe), at the picture's QP:
   - P pictures: ops/enc.p_frame_step on the device, the download of its
     fields, the host commit with the serial re-encode of the intra MBs
     and the picture's slice boundaries (encoder/p_intra.py);
-then boundary strengths + deblock (per-MB QP and slice id; skipped with
-deblock=False) + reference prep on the device, and the host serializer,
-one NAL unit per slice (three, partitions A / B / C, for a P slice with
-data_partition). After every redundant_period-th P picture a redundant
-coding follows: a second device encode of the frame at qp +
+  - B pictures (num_b): the frames between two anchors wait for the later
+    anchor, which is coded first; then each B: the 16x16 integer search
+    tables against both anchors on the device (ops/enc.full_search_sad16),
+    the serial host B coder (encoder/b_host.py: spatial direct / B_Skip,
+    16x16 list 0, list 1 or bi-predicted, Intra16x16), as jm_tpu's
+    _encode_b_mb;
+then boundary strengths (both lists' motion) + deblock (per-MB QP and
+slice id; skipped with deblock=False) + reference prep on the device,
+and the host serializer, one NAL unit per slice (three, partitions A /
+B / C, for a P slice with data_partition; B slices only through the
+Python writers, as in jm_tpu). After every redundant_period-th P picture
+a redundant coding follows: a second device encode of the frame at qp +
 redundant_qp_off against the same reference, host commit and one slice
 with redundant_pic_cnt 1 and nal_ref_idc 0; it is neither deblocked nor
 stored.
 
 The encoder's DPB (``refs``, most recent first) holds the reference
-pictures with their device states: one short-term picture, and with
-long_term_period one long-term anchor beside it (every
-long_term_period-th picture: the IDR's long_term_reference_flag, MMCO 4
-and 6 on a P picture). List0 is the short-term pictures (by POC distance
-with ref_reorder, which writes the matching modification commands), then
-the long-term one; each P picture predicts from its head. poc_mem_mgmt
-unmarks the short-term picture of least POC by MMCO 1 when the DPB is
-full. The pipe writes no MMCO and no redundant coding: jm_tpu's pipe
-finalize has neither, and the port keeps its bytes.
+pictures with their device states and motion (the direct prediction of
+later B pictures reads list1[0]'s): one short-term picture, two with B
+pictures (more for the reference Bs of a pyramid or GOP string), and
+with long_term_period one long-term anchor beside them (every
+long_term_period-th anchor: the IDR's long_term_reference_flag, MMCO 4
+and 6 on a P or open-GOP I picture). List0 of a P picture is the
+short-term pictures (by POC distance with ref_reorder, which writes the
+matching modification commands), then the long-term one; each P picture
+predicts from its head. A B picture predicts from the nearest references
+before and after it, with modification commands where they are not the
+heads of the decoder's default lists. poc_mem_mgmt unmarks the
+short-term picture of least POC by MMCO 1 when the DPB is full;
+mmco_policy "cra" unmarks, in the first P anchor after an open-GOP I,
+every short-term picture before that I. The pipe writes no MMCO and no
+redundant coding: jm_tpu's pipe finalize has neither, and the port keeps
+its bytes.
 With slice_mode 2 the picture is re-coded on the host until every slice
 NAL unit fits slice_argument bytes (the device encode of a P picture
 does not depend on the slices and is downloaded once; the first try of
 an I picture is one slice per slice group, so with one group it runs on
-the device, and later tries on the host). Rate control takes each
-picture's bits (an IDR's with its SPS / PPS) and the mean absolute
-difference of the source and deblocked luma.
+the device, and later tries on the host; a B picture is re-coded by the
+host B coder). Rate control takes each picture's bits (an IDR's with its
+SPS / PPS) and the mean absolute difference of the source and deblocked
+luma.
 
 With entropy="cabac" the device path and its decisions are the same;
 only the host serializer changes (encoder/syntax_cabac.py, with the
-cabac_init_idc of each P slice the shortest of the three when
+cabac_init_idc of each P or B slice the shortest of the three when
 cabac_adapt_init is set, and the cabac_zero_words of clause 7.4.2.10).
 
 The encoder runs on CUDA unless the caller passes device="cpu"; without a
@@ -71,6 +89,8 @@ card a CUDA request raises.
 
 from __future__ import annotations
 
+import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -84,14 +104,18 @@ from ..common.picture import MB_INTER, PictureData
 from ..common.tables import chroma_qp
 from ..common.types import PPS, SPS, SliceType
 from ..convert import qpc_tables
+from ..decoder.b_slice import ColMotion, ref_lists_b
 from ..device import resolve
 from ..ops import enc as E
 from ..ops.deblock import compute_bs, deblock
 from ..ops.intra import i_frame_step
 from ..ratectl import RateControl
+from .b_host import BPicture, HostRef
+from .gop import parse_explicit_hierarchy
 from .intra_host import IntraPicture
 from .p_intra import CORE_FIELDS, PictureCommit
-from .sei_write import build_sei_rbsp, user_data_unregistered
+from .sei_write import (build_sei_rbsp, recovery_point,
+                        user_data_unregistered)
 from .syntax import (serialize_slice, serialize_slice_dp, write_pps,
                      write_slice_header, write_sps)
 from .syntax_cabac import serialize_slice_cabac
@@ -115,9 +139,13 @@ class EncoderConfig:
     (CAVLC only), a fixed QP, a P QP of its own or frame-level rate
     control, POC types 0, 1 and 2, the loop filter on or off, VUI timing,
     a user-data SEI, long-term anchors, list reordering, POC-based MMCO,
-    data partitioning and redundant pictures. Values outside it raise
-    ValueError; redundant pictures with data partitioning raise
-    NotImplementedError, as in jm_tpu."""
+    data partitioning and redundant pictures; with num_b, B pictures
+    between the anchors (one per interval, a dyadic pyramid or an
+    explicit GOP string), open-GOP I anchors with a recovery point SEI
+    and CRA marking. Values outside it raise ValueError, as do jm_tpu's
+    refusals with B pictures (POC types 1 / 2, FMO); redundant pictures
+    with data partitioning or with B pictures, and weighted_bipred (not
+    in the port) raise NotImplementedError naming the field."""
     width: int = 176
     height: int = 144
     qp: int = 28                 # I-picture QP (and P without qp_p / RC)
@@ -173,6 +201,17 @@ class EncoderConfig:
     redundant_period: int = 0    # a redundant coding after every Nth P
                                  # picture (RedundantPicture)
     redundant_qp_off: int = 4    # its QP above the primary's (0..51)
+    num_b: int = 0               # B pictures between anchors (IbP, IbbP..)
+    hierarchical: int = 0        # 1: dyadic B pyramid, the middle B of each
+                                 # interval a reference (HierarchicalCoding)
+    explicit_gop: str = ""       # ExplicitHierarchyFormat coding order of
+                                 # the Bs (encoder/gop.py; over hierarchical)
+    qp_b: int | None = None      # B-picture QP (None: qp + 2)
+    sei_recovery_point: bool = False     # recovery point SEI before each
+                                 # open-GOP I (intra_period with num_b)
+    mmco_policy: str = ""        # "cra": the anchor after an open-GOP I
+                                 # unmarks the references before it (MMCO 1)
+    weighted_bipred: int = 0     # weighted bi-prediction: outside the port
 
 
 def _check_config(cfg: EncoderConfig) -> None:
@@ -260,14 +299,65 @@ def _check_config(cfg: EncoderConfig) -> None:
         raise NotImplementedError(
             "redundant pictures: IPPP single-view frame coding only "
             "(not with data partitioning, as in jm_tpu)")
+    _check_b_config(cfg)
+
+
+def _check_b_config(cfg: EncoderConfig) -> None:
+    """The B-picture fields, and jm_tpu's refusals with B pictures
+    (jm_tpu/encoder/encoder.py:297-331, :367)."""
+    for name in ("num_b", "weighted_bipred"):
+        if not isinstance(getattr(cfg, name), int) or getattr(cfg, name) < 0:
+            raise ValueError(f"EncoderConfig.{name}={getattr(cfg, name)!r}:"
+                             " an integer >= 0")
+    if cfg.hierarchical not in (0, 1):
+        raise ValueError(f"EncoderConfig.hierarchical={cfg.hierarchical}: "
+                         "0 or 1")
+    if not isinstance(cfg.explicit_gop, str):
+        raise ValueError("EncoderConfig.explicit_gop: a string")
+    if cfg.qp_b is not None and not 0 <= cfg.qp_b <= 51:
+        raise ValueError(f"EncoderConfig.qp_b={cfg.qp_b}: outside 0..51")
+    if not isinstance(cfg.sei_recovery_point, bool):
+        raise ValueError(f"EncoderConfig.sei_recovery_point="
+                         f"{cfg.sei_recovery_point!r}: True or False")
+    if cfg.mmco_policy not in ("", "cra"):
+        raise ValueError(f"EncoderConfig.mmco_policy={cfg.mmco_policy!r}: "
+                         "'' or 'cra'")
+    if cfg.weighted_bipred:
+        raise NotImplementedError(
+            f"EncoderConfig.weighted_bipred={cfg.weighted_bipred}: weighted "
+            "bi-prediction is not in the port")
+    if not cfg.num_b:
+        return
+    if cfg.explicit_gop:
+        # lencod refuses a GOP string that does not name every B position
+        # once (explicit_gop.c interpret_gop_structure)
+        positions = sorted(e.display_no for e in
+                           parse_explicit_hierarchy(cfg.explicit_gop))
+        if positions != list(range(cfg.num_b)):
+            raise ValueError(
+                f"EncoderConfig.explicit_gop names positions {positions}, "
+                f"expected exactly 0..{cfg.num_b - 1} (num_b={cfg.num_b})")
+    if cfg.poc_type:
+        raise ValueError(f"EncoderConfig.poc_type={cfg.poc_type}: POC types "
+                         "1 / 2 require decode order == display order (no B "
+                         "pictures)")
+    if cfg.num_slice_groups > 1:
+        raise ValueError("EncoderConfig.num_slice_groups: FMO is not allowed "
+                         "in profile 77 (B pictures)")
+    if cfg.redundant_period:
+        raise NotImplementedError(
+            "EncoderConfig.redundant_period: redundant pictures: IPPP "
+            "single-view frame coding only (not with B pictures, as in "
+            "jm_tpu)")
 
 
 class Picture:
     """A coded picture: its reference state on the device (``state``,
-    ops/enc.prep_ref of the deblocked recon) and its marking in the
-    encoder's DPB (uid, is_long_term, long_term_frame_idx). Y / U / V
-    are numpy uint8 planes, downloaded from the state on first access
-    (P frames) or given (IDR frames)."""
+    ops/enc.prep_ref of the deblocked recon), its marking in the
+    encoder's DPB (uid, is_long_term, long_term_frame_idx; a non-reference
+    B picture has uid -1) and its motion. Y / U / V are numpy uint8
+    planes, downloaded from the state on first access (P and B frames) or
+    given (I frames)."""
 
     def __init__(self, poc: int, frame_num: int, state, uid: int,
                  planes=None):
@@ -278,6 +368,18 @@ class Picture:
         self.is_long_term = False
         self.long_term_frame_idx = -1
         self._planes = planes
+        # (mv, ref_idx, mv_l1, ref_idx_l1, ref_pic_id, ref_pic_id_l1) of
+        # the coded picture, for the direct prediction of the B pictures
+        # that take it as list1[0]
+        self.motion = None
+        self._host_ref = None
+
+    def host_ref(self) -> HostRef:
+        """The reference state downloaded for the host B coder (once)."""
+        if self._host_ref is None:
+            self._host_ref = HostRef(*(t.cpu().numpy() for t in self.state),
+                                     self.uid)
+        return self._host_ref
 
     def _materialize(self):
         if self._planes is None:
@@ -301,13 +403,18 @@ class Picture:
 
 
 class Encoder:
-    """IPPP encoder: ``encode_stream(frames)`` returns one Annex-B payload
-    per frame, as ``encode_frame(Y, U, V)`` does frame by frame.
+    """IPPP / IBP encoder: ``encode_stream(frames)`` returns one Annex-B
+    payload per frame, as ``encode_frame(Y, U, V)`` does frame by frame
+    (with B pictures b"" for a frame held back, and ``flush()`` the
+    frames still held at the end).
     ``results`` holds one dict per coded picture (disp, type, bits, qp,
     slices, frame: a Picture with the deblocked recon; intra_mbs: the MBs
     coded intra and ref_poc: the POC of the reference, for P frames of
     the per-frame path; cabac_init_idc: the context model of each CABAC
-    P slice). ``refs`` is the DPB, most recent first."""
+    P or B slice; for B pictures ref: whether it is a reference, split:
+    the wall seconds of its device search tables, host MB loop, device
+    deblock + prep_ref and host serializer, mix: its MB decisions).
+    ``refs`` is the DPB, most recent first."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
@@ -315,17 +422,31 @@ class Encoder:
         self.device = resolve(device, "Encoder")
         self.mb_w = cfg.width // 16
         self.mb_h = cfg.height // 16
+        n_refs = 2 if cfg.num_b else 1
         try:
             level_check(self.mb_w, self.mb_h, cfg.frame_rate, cfg.level_idc,
-                        1)
+                        n_refs)
             level = cfg.level_idc
         except ValueError:
-            level = minimum_level(self.mb_w, self.mb_h, cfg.frame_rate, 1)
+            level = minimum_level(self.mb_w, self.mb_h, cfg.frame_rate,
+                                  n_refs)
         cabac = cfg.entropy == "cabac"
-        # the DPB: one short-term reference, and the long-term anchor
-        self.dpb_size = 2 if cfg.long_term_period > 0 else 1
+        # the DPB (jm_tpu encoder.py:285-296): one short-term reference,
+        # and the long-term anchor; with B pictures both anchors, and one
+        # reference B per pyramid level or per reference B of the GOP
+        # string
+        self.dpb_size = 2 if cfg.num_b else 1
+        if cfg.num_b and cfg.hierarchical:
+            levels = max(1, math.ceil(math.log2(cfg.num_b + 1)))
+            self.dpb_size = max(self.dpb_size, levels + 2)
+        if cfg.num_b and cfg.explicit_gop:
+            self.dpb_size = max(self.dpb_size, 2 + sum(
+                e.as_ref for e in parse_explicit_hierarchy(cfg.explicit_gop)))
+        if cfg.long_term_period > 0:
+            self.dpb_size = min(16, self.dpb_size + 1)
         self.sps = SPS(
-            profile_idc=88 if cfg.data_partition else (77 if cabac else 66),
+            profile_idc=88 if cfg.data_partition else (
+                77 if cabac or cfg.num_b else 66),
             level_idc=level,
             log2_max_frame_num_minus4=4,
             pic_order_cnt_type=cfg.poc_type,
@@ -373,7 +494,8 @@ class Encoder:
         self.rc = None
         if cfg.rc_enable:
             self.rc = RateControl(cfg.rc_bitrate, cfg.frame_rate, cfg.width,
-                                  cfg.height, initial_qp=cfg.rc_initial_qp)
+                                  cfg.height, num_b=cfg.num_b,
+                                  initial_qp=cfg.rc_initial_qp)
         self.qpc = chroma_qp(cfg.qp, self.pps.chroma_qp_index_offset)
         self.qpc_cb, self.qpc_cr = qpc_tables(self.pps, self.device)
         n = self.mb_w * self.mb_h
@@ -402,6 +524,8 @@ class Encoder:
         self._refresh_perm = []
         self._refresh_pos = 0
         self._refresh_rng = np.random.default_rng(1)
+        self._pending = []            # (disp, frame) of the Bs held back
+        self._cra_poc = None          # POC of the last open-GOP I
 
     def _build_slice_plan(self) -> list:
         """Decode-order MB address lists, one per slice: the slice groups
@@ -426,13 +550,14 @@ class Encoder:
         return slices
 
     def _pipe_ok(self) -> bool:
-        """The pipe covers CAVLC with one slice group and no slice mode,
-        a fixed QP, no intra refresh, the loop filter on, no long-term
+        """The pipe covers CAVLC without B pictures, with one slice group
+        and no slice mode, a fixed QP, no intra refresh, the loop filter on, no long-term
         anchors and no data partitioning, any POC type, with or without
         redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI (jm_tpu
         _pipe_ok); everything else takes the per-frame path."""
         cfg = self.cfg
-        return (cfg.entropy == "cavlc" and cfg.intra_mb_refresh == 0
+        return (cfg.num_b == 0 and cfg.entropy == "cavlc"
+                and cfg.intra_mb_refresh == 0
                 and cfg.slice_mode == 0 and cfg.num_slice_groups == 1
                 and self.rc is None and cfg.qp_p is None and cfg.deblock
                 and cfg.long_term_period == 0 and cfg.data_partition == 0)
@@ -470,7 +595,9 @@ class Encoder:
     def encode_stream(self, frames) -> list:
         """Encode (Y, U, V) display-order frames; returns the per-frame
         Annex-B payloads (bytes). Outside the pipe's cover (``_pipe_ok``)
-        every frame takes the per-frame path, as jm_tpu's does."""
+        every frame takes ``encode_frame``, as jm_tpu's does (with B
+        pictures, frames still held back at the end wait for ``flush``,
+        as in jm_tpu)."""
         if not self._pipe_ok():
             return [self.encode_frame(*f) for f in frames]
         payloads = []
@@ -483,7 +610,9 @@ class Encoder:
                 if pending is not None:
                     payloads.append(self._finalize(*pending)[0])
                     pending = None
-                payloads.append(self._encode_idr(packed, f))
+                disp = self.display_idx
+                self.display_idx += 1
+                payloads.append(self._encode_i(packed, f, disp))
                 state = None
                 continue
             disp = self.display_idx
@@ -507,15 +636,35 @@ class Encoder:
 
     def encode_frame(self, Y, U, V) -> bytes:
         """Encode one display-order frame on the per-frame path and return
-        its Annex-B payload (there are no B pictures, so nothing is held
-        back)."""
-        cfg = self.cfg
+        its Annex-B payload. With num_b the frames between two anchors are
+        held back until the next anchor arrives; that call returns the
+        anchor and then the B pictures, in coding order, and the others
+        b"" (jm_tpu encoder.py:604-631; lencod's frame reordering)."""
         frame = (Y, U, V)
-        packed = self._upload(frame)
-        if self._idr_due(self.frame_idx):
-            return self._encode_idr(packed, frame)
         disp = self.display_idx
         self.display_idx += 1
+        if self.cfg.num_b == 0 or not self.refs:
+            return self._emit_anchor(frame, disp)
+        self._pending.append((disp, tuple(np.asarray(p, np.uint8)
+                                          for p in frame)))
+        if len(self._pending) == self.cfg.num_b + 1:
+            return self._emit_group()
+        return b""
+
+    def flush(self) -> bytes:
+        """The end of the stream: the frames held back, the last one coded
+        as a P anchor, then the Bs before it."""
+        return self._emit_group() if self._pending else b""
+
+    def _emit_anchor(self, frame, disp: int) -> bytes:
+        """An I or P anchor (jm_tpu _emit_anchor): I when intra is due
+        (an IDR, or with num_b after the first an open-GOP I), else P on
+        the per-frame path against the head of list0."""
+        cfg = self.cfg
+        packed = self._upload(frame)
+        if self._idr_due(self.frame_idx):
+            return self._encode_i(packed, frame, disp, idr=(
+                self.frame_idx == 0 or cfg.num_b == 0))
         qp = self.rc.pict_qp("P") if self.rc is not None else \
             (cfg.qp if cfg.qp_p is None else cfg.qp_p)
         forced = self._refresh_set()
@@ -523,9 +672,150 @@ class Encoder:
         core = self._p_step(packed, ref, qp)
         return self._finish_p(core, disp, frame, forced, qp, packed)
 
-    def flush(self) -> bytes:
-        """The end of the stream: nothing is buffered (no B pictures)."""
-        return b""
+    # ---- B pictures (jm_tpu encoder.py:989-1051, 1706-1855) ------------
+
+    def _emit_group(self) -> bytes:
+        """The anchor that closes a group of held-back frames, then its B
+        pictures: one after the other, as a dyadic pyramid, or in the
+        explicit GOP string's order."""
+        (disp, frame), bs = self._pending[-1], self._pending[:-1]
+        self._pending = []
+        prev_anchor = self.refs[0]
+        out = self._emit_anchor(frame, disp)
+        next_anchor = self.refs[0]
+        if self.cfg.explicit_gop and bs:
+            out += self._emit_b_explicit(bs)
+        elif self.cfg.hierarchical and bs:
+            out += self._emit_b_pyramid(bs, 0, len(bs) - 1, 1)
+        else:
+            for bdisp, bframe in bs:
+                out += self._emit_b(bframe, bdisp, prev_anchor, next_anchor)
+        return out
+
+    def _emit_b_explicit(self, bs) -> bytes:
+        """The Bs in the GOP string's order, with its reference flags and
+        QP offsets; each predicts from the nearest references by POC."""
+        out = b""
+        for e in parse_explicit_hierarchy(self.cfg.explicit_gop):
+            if e.display_no >= len(bs):
+                continue                 # a trailing partial group
+            disp, frame = bs[e.display_no]
+            poc = 2 * (disp - self._idr_disp)
+            lower = [f for f in self.refs if f.poc < poc]
+            higher = [f for f in self.refs if f.poc > poc]
+            l0 = max(lower, key=lambda f: f.poc)
+            l1 = min(higher, key=lambda f: f.poc) if higher else l0
+            out += self._emit_b(frame, disp, l0, l1, as_ref=e.as_ref,
+                                qp_offset=e.qp_offset)
+        return out
+
+    def _emit_b_pyramid(self, bs, lo: int, hi: int, layer: int) -> bytes:
+        """The dyadic pyramid of bs[lo..hi]: the middle picture first, a
+        reference B unless it is a leaf, at layer's QP offset; then each
+        half. The nearest references by POC are the decoder's default
+        list heads."""
+        if lo > hi:
+            return b""
+        mid = (lo + hi) // 2
+        disp, frame = bs[mid]
+        poc = 2 * (disp - self._idr_disp)
+        l0 = max((f for f in self.refs if f.poc < poc), key=lambda f: f.poc)
+        l1 = min((f for f in self.refs if f.poc > poc), key=lambda f: f.poc)
+        out = self._emit_b(frame, disp, l0, l1, as_ref=hi > lo, layer=layer)
+        out += self._emit_b_pyramid(bs, lo, mid - 1, layer + 1)
+        return out + self._emit_b_pyramid(bs, mid + 1, hi, layer + 1)
+
+    def _ref_mod_ops(self, default_list, target):
+        """One ref_pic_list_modification command that puts target at
+        index 0 (spec 8.2.4.3), or None when it is there already."""
+        if default_list and default_list[0] is target:
+            return None
+        if target.is_long_term:
+            return [(2, target.long_term_frame_idx)]
+        diff = self.frame_num - self._picnum(target)
+        return [(0, diff - 1)] if diff > 0 else [(1, -diff - 1)]
+
+    def _emit_b(self, frame, disp: int, prev_anchor: Picture,
+                next_anchor: Picture, as_ref: bool = False, layer: int = 1,
+                qp_offset: int | None = None) -> bytes:
+        """One B picture predicting from prev_anchor (list 0) and
+        next_anchor (list 1), a non-reference picture unless as_ref: the
+        device's integer search tables, the serial host B coder
+        (encoder/b_host.py), boundary strengths + deblock + reference prep
+        on the device, the host serializer (with slice_mode 2 the picture
+        re-coded until its slices fit, the DPB reset before each try, as
+        jm_tpu does). results records the wall seconds of each step and
+        the MB decisions."""
+        cfg = self.cfg
+        poc = 2 * (disp - self._idr_disp)
+        if self.rc is not None:
+            qp = self.rc.pict_qp("B")
+        elif qp_offset is not None:      # the GOP string's offset
+            qp = max(0, min(51, cfg.qp + qp_offset))
+        else:
+            qp = cfg.qp_b if cfg.qp_b is not None else cfg.qp + 2
+            qp = min(51, qp + max(0, layer - 1))   # temporal-layer offset
+        split = {}
+        t = time.perf_counter()
+        packed = self._upload(frame)
+        srcY = self._planes(packed)[0]
+        sads = [E.full_search_sad16(srcY, f.state[0][0], self.mb_w,
+                                    self.mb_h, cfg.search_range)
+                .cpu().numpy() for f in (prev_anchor, next_anchor)]
+        refs = (prev_anchor.host_ref(), next_anchor.host_ref())
+        t, split["sad_s"] = time.perf_counter(), time.perf_counter() - t
+        m = next_anchor.motion
+        col = ColMotion(m[0], m[1], m[2], m[3], self.mb_w,
+                        next_anchor.is_long_term, m[4], m[5])
+        picture = Picture(poc, self.frame_num, None, -1)
+        snapshot = list(self.refs), self._uid
+        split["host_mb_s"] = split["serialize_s"] = 0.0
+
+        def code(plan):
+            t0 = time.perf_counter()
+            b = BPicture(frame, qp, chroma_qp(
+                qp, self.pps.chroma_qp_index_offset), lambda_me(qp),
+                lambda_mode4(qp), *refs, col, *sads, plan, cfg.search_range)
+            split["host_mb_s"] += time.perf_counter() - t0
+            return b
+
+        def serialize(pic, plan, sizes):
+            # the DPB as the decoder has it when it parses the slices: a
+            # reference B stored (from the state before each try), then
+            # the default lists (ref_lists_b), modified where a chosen
+            # reference is not at index 0
+            t0 = time.perf_counter()
+            self.refs, self._uid = list(snapshot[0]), snapshot[1]
+            if as_ref:
+                picture.uid = self._uid
+                self._uid += 1
+                self._store_ref(picture)
+            d0, d1 = ref_lists_b(self.refs, poc)
+            out = self._picture_nals(
+                pic, SliceType.B, poc, qp, plan, sizes,
+                nal_ref_idc=2 if as_ref else 0, is_ref=as_ref,
+                ref_mod_l0=self._ref_mod_ops(d0, prev_anchor),
+                ref_mod_l1=self._ref_mod_ops(d1, next_anchor))
+            split["serialize_s"] += time.perf_counter() - t0
+            return out
+
+        b, (payload, info), plan = self._fit_slices(code, serialize)
+        t = time.perf_counter()
+        dY, dU, dV = self._loop_filter(b.rec, b.pic)
+        picture.state = E.prep_ref(dY, dU, dV)
+        if as_ref:
+            picture.motion = _motion(b.pic)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        split["deblock_s"] = time.perf_counter() - t
+        if as_ref:
+            self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
+        self._rc_update("B", qp, payload, srcY, dY)
+        self.results.append({"disp": disp, "type": "B",
+                             "bits": len(payload) * 8, "frame": picture,
+                             "qp": qp, "slices": len(plan), "ref": as_ref,
+                             "split": split, "mix": b.mix, **info})
+        return payload
 
     def _p_step(self, packed, ref: Picture, qp: int):
         """ops/enc.p_frame_step of the uploaded frame against ref at qp."""
@@ -593,20 +883,35 @@ class Encoder:
         victim = min(st, key=lambda f: f.poc)
         return ((1, self.frame_num - self._picnum(victim) - 1),), victim
 
-    def _p_marking(self, poc: int):
-        """The marking of the P picture of POC poc being coded (jm_tpu
-        _emit_anchor): (whether it becomes the long-term anchor, the slice
-        header's marking and list-modification keywords, the reference
-        that its MMCO 1 unmarks)."""
+    def _anchor_marking(self, poc: int, intra: bool = False):
+        """The marking of the non-IDR anchor of POC poc being coded, a P
+        picture or (intra) an open-GOP I (jm_tpu _emit_anchor): (whether
+        it becomes the long-term anchor, the slice header's marking and
+        list-modification keywords, the references that its MMCO 1
+        commands unmark). The CRA marking and list modification are a P
+        picture's."""
         cfg = self.cfg
         lt = cfg.long_term_period > 0 and \
             self.frame_idx % cfg.long_term_period == 0
-        mmco, victim = (((4, 1), (6, 0)) if lt else None), None
+        mmco, victims = (((4, 1), (6, 0)) if lt else None), []
         if cfg.poc_mem_mgmt == 1 and mmco is None:
             mmco, victim = self._poc_mmco()
+            victims = [victim] if victim is not None else []
+        if cfg.mmco_policy == "cra" and mmco is None and not intra \
+                and self._cra_poc is not None:
+            # cra_ref_management_frame_pic (lencod mmco.c:151): MMCO 1 for
+            # every short-term reference before the last open-GOP I
+            victims = [f for f in self.refs if not f.is_long_term
+                       and f.poc < self._cra_poc]
+            if victims:
+                mmco = tuple((1, self.frame_num - self._picnum(f) - 1)
+                             for f in victims)
+                self._cra_poc = None
+        if intra:
+            return lt, {"mmco_ops": mmco}, victims
         ref_mod = self._poc_reorder_cmds(poc) if cfg.ref_reorder == 1 \
             else None
-        return lt, {"mmco_ops": mmco, "ref_mod_l0": ref_mod}, victim
+        return lt, {"mmco_ops": mmco, "ref_mod_l0": ref_mod}, victims
 
     def _store_ref(self, frame: Picture, long_term: bool = False) -> None:
         """Store a coded picture as the newest reference (the decoder's
@@ -654,18 +959,17 @@ class Encoder:
     def _deblock(self, rec, pic: PictureData):
         """Boundary strengths + deblock of a coded picture on the device:
         rec the (Y, U, V) recon planes (device tensors or numpy), pic its
-        PictureData (per-MB QP and slice id; MVs and reference ids, -1
-        for intra MBs). Returns the deblocked planes on the device."""
+        PictureData (per-MB QP and slice id; the MVs and reference ids of
+        both lists, -1 for intra MBs and unused lists). Returns the
+        deblocked planes on the device."""
         def up(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
         rec = tuple(p if isinstance(p, torch.Tensor) else up(p) for p in rec)
-        mv, ref_pic_id = up(pic.mv), up(pic.ref_pic_id)
         zeros = torch.zeros(pic.n_mbs, dtype=torch.int32, device=self.device)
         bs_v, bs_h = compute_bs(up(pic.mb_class), up(pic.luma_nnz), zeros,
-                                mv, torch.zeros_like(mv), ref_pic_id,
-                                torch.full_like(ref_pic_id, -1),
-                                self.mb_w, self.mb_h)
+                                up(pic.mv), up(pic.mv_l1), up(pic.ref_pic_id),
+                                up(pic.ref_pic_id_l1), self.mb_w, self.mb_h)
         return deblock(*rec, bs_v, bs_h, up(pic.qp), zeros, zeros, zeros,
                        up(pic.slice_id), zeros, self.qpc_cb, self.qpc_cr,
                        mb_w=self.mb_w, mb_h=self.mb_h)
@@ -725,42 +1029,63 @@ class Encoder:
 
     # ---- I pictures ----------------------------------------------------
 
-    def _encode_idr(self, packed, frame) -> bytes:
-        """An IDR picture at qp (or rate control's I QP) on the per-frame
-        path: coded on the device when it is one slice, on the host
-        otherwise."""
+    def _encode_i(self, packed, frame, disp: int, idr: bool = True) -> bytes:
+        """An I picture at qp (or rate control's I QP) on the per-frame
+        path, coded on the device when it is one slice, on the host
+        otherwise: an IDR (with SPS / PPS and the user-data SEI), or with
+        B pictures an open-GOP I (jm_tpu encoder.py:1196-1199), a
+        non-IDR reference picture after the recovery point SEI
+        (sei_recovery_point) whose POC the next anchors' CRA marking
+        reads."""
         cfg = self.cfg
-        disp = self.display_idx
-        self.display_idx += 1
-        self.frame_num = 0
-        self._idr_disp = disp
+        if idr:
+            self.frame_num = 0
+            self._idr_disp = disp
+        poc = 2 * (disp - self._idr_disp)
         if self.rc is not None:
             gop = cfg.intra_period if cfg.intra_period > 0 else 32
-            self.rc.init_gop(gop - 1, 0)
+            self.rc.init_gop(gop - 1, gop * cfg.num_b)
             qp = self.rc.pict_qp("I")
         else:
             qp = cfg.qp
-        lt = cfg.long_term_period > 0 and \
-            self.frame_idx % cfg.long_term_period == 0
+        if idr:
+            lt = cfg.long_term_period > 0 and \
+                self.frame_idx % cfg.long_term_period == 0
+            hdr, victims = {"long_term_flag": int(lt)}, []
+        else:
+            lt, hdr, victims = self._anchor_marking(poc, intra=True)
         planes = self._planes(packed)
         coded, (nal, _info), plan = self._fit_slices(
             lambda plan: self._code_i(planes, frame, qp, plan),
             lambda pic, plan, sizes: self._picture_nals(
-                pic, SliceType.I, 0, qp, plan, sizes,
-                long_term_flag=int(lt)))
+                pic, SliceType.I, poc, qp, plan, sizes, idr=idr, **hdr))
         dY, dU, dV = self._loop_filter(coded.rec, coded.pic)
-        payload = (annexb_bytes(3, NalUnitType.SPS, write_sps(self.sps))
-                   + annexb_bytes(3, NalUnitType.PPS, write_pps(self.pps)))
-        if cfg.sei_user_data is not None:
-            payload += annexb_bytes(0, NalUnitType.SEI, build_sei_rbsp(
-                [user_data_unregistered(cfg.sei_user_data)]))
+        payload = b""
+        if idr:
+            payload = (annexb_bytes(3, NalUnitType.SPS, write_sps(self.sps))
+                       + annexb_bytes(3, NalUnitType.PPS,
+                                      write_pps(self.pps)))
+        sei = []
+        if idr and cfg.sei_user_data is not None:
+            sei.append(user_data_unregistered(cfg.sei_user_data))
+        if not idr and cfg.sei_recovery_point:
+            # open-GOP random access point (lencod.c:999 EnableOpenGOP)
+            sei.append(recovery_point(0, exact_match=True))
+        if sei:
+            payload += annexb_bytes(0, NalUnitType.SEI, build_sei_rbsp(sei))
         payload += nal
         self._rc_update("I", qp, payload, planes[0], dY)
-        frame = self._new_picture(0, E.prep_ref(dY, dU, dV), planes=tuple(
+        frame = self._new_picture(poc, E.prep_ref(dY, dU, dV), planes=tuple(
             t.cpu().numpy() for t in (dY, dU, dV)))
-        self.refs = []
+        frame.motion = _motion(coded.pic)
+        if idr:
+            self.refs = []
+            self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        else:
+            self._cra_poc = poc
+        for victim in victims:
+            self.refs.remove(victim)
         self._store_ref(frame, long_term=lt)
-        self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
         self.frame_idx += 1
         self.results.append({"disp": disp, "type": "I",
@@ -837,14 +1162,16 @@ class Encoder:
                                     **info), False
 
     def _commit_p_frame(self, slice_bytes: bytes, disp: int, state, qp: int,
-                        n_slices: int, long_term: bool = False,
-                        victim: Picture | None = None, **info) -> bytes:
-        """Store a coded P picture (its NAL units slice_bytes) in the DPB,
-        after the reference its MMCO 1 unmarks (victim) leaves it, and in
-        ``results`` (with the items of info); returns slice_bytes."""
+                        n_slices: int, long_term: bool = False, victims=(),
+                        motion=None, **info) -> bytes:
+        """Store a coded P picture (its NAL units slice_bytes, its motion)
+        in the DPB, after the references its MMCO 1 commands unmark
+        (victims) leave it, and in ``results`` (with the items of info);
+        returns slice_bytes."""
         poc = 2 * (disp - self._idr_disp)
         frame = self._new_picture(poc, state)
-        if victim is not None:
+        frame.motion = motion
+        for victim in victims:
             # the decoder runs the MMCO before it stores the picture
             # (spec 8.2.5.4.1)
             self.refs.remove(victim)
@@ -872,7 +1199,7 @@ class Encoder:
         cfg = self.cfg
         poc = 2 * (disp - self._idr_disp)
         ref = self._ref_list_p(poc)[0]
-        lt, hdr, victim = self._p_marking(poc)
+        lt, hdr, victims = self._anchor_marking(poc)
         qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
         host = self._download_core(core)
         c, (nal, info), plan = self._fit_slices(
@@ -888,7 +1215,8 @@ class Encoder:
             self._rc_update("P", qp, nal, self._planes(packed)[0],
                             state[0][0][E.PAD:-E.PAD, E.PAD:-E.PAD])
         return self._commit_p_frame(nal, disp, state, qp, len(plan),
-                                    long_term=lt, victim=victim,
+                                    long_term=lt, victims=victims,
+                                    motion=_motion(c.pic),
                                     intra_mbs=len(c.intra_mbs),
                                     ref_poc=ref.poc, **info)
 
@@ -945,23 +1273,26 @@ class Encoder:
     # ---- host serializers ----------------------------------------------
 
     def _picture_nals(self, pic: PictureData, slice_type: SliceType,
-                      poc: int, qp: int, plan, sizes=None, **hdr):
-        """The picture as one NAL unit per slice of plan (IDR units for I
-        slices), CAVLC or CABAC, hdr the slice headers' marking and
-        list-modification keywords; with CABAC followed by the
-        cabac_zero_words its bin count calls for. With data_partition a
-        CAVLC P slice is partitions A, B and C (NAL units 2-4, an empty
-        partition left out). The size of each slice without its first
-        start code is appended to sizes. Returns (bytes,
-        {"cabac_init_idc": [each slice's]} for a CABAC P picture, else
-        {})."""
-        idr = slice_type == SliceType.I
+                      poc: int, qp: int, plan, sizes=None, idr=None,
+                      nal_ref_idc: int = 3, **hdr):
+        """The picture as one NAL unit per slice of plan (IDR units for an
+        IDR picture; idr None: every I picture is one), CAVLC or CABAC,
+        hdr the slice headers' marking and list keywords; with CABAC
+        followed by the cabac_zero_words its bin count calls for. With
+        data_partition a CAVLC P slice is partitions A, B and C (NAL units
+        2-4, an empty partition left out). The size of each slice without
+        its first start code is appended to sizes. Returns (bytes,
+        {"cabac_init_idc": [each slice's]} for a CABAC P or B picture,
+        else {})."""
+        if idr is None:
+            idr = slice_type == SliceType.I
         kw = dict(slice_type=slice_type, frame_num=self.frame_num, idr=idr,
                   qp=qp, poc_lsb=poc % 256, idr_pic_id=self.idr_pic_id,
                   **hdr)
         nal_type = NalUnitType.IDR if idr else NalUnitType.SLICE
         cabac = self.cfg.entropy == "cabac"
-        dp = self.cfg.data_partition and not idr and not cabac
+        dp = self.cfg.data_partition and slice_type == SliceType.P \
+            and not cabac
         out, bins, idcs = b"", 0, []
         for sid, addrs in enumerate(plan):
             if dp:
@@ -985,14 +1316,15 @@ class Encoder:
                 rbsp = serialize_slice(
                     pic, self.sps, self.pps, mb_addrs=addrs,
                     slice_group_change_cycle=self.cfg.sg_change_cycle, **kw)
-            unit = annexb_bytes(3, nal_type, rbsp)
+            unit = annexb_bytes(nal_ref_idc, nal_type, rbsp)
             if sizes is not None:
                 sizes.append(len(unit) - 4)
             out += unit
         if not cabac:
             return out, {}
         out += self._cabac_zero_words(out, bins, len(plan))
-        return out, ({} if idr else {"cabac_init_idc": idcs})
+        return out, ({} if slice_type == SliceType.I
+                     else {"cabac_init_idc": idcs})
 
     def _serialize_cabac_best_init(self, pic: PictureData, **kw):
         """CABAC slice with the context model of lencod's
@@ -1050,6 +1382,13 @@ class Encoder:
         pic.slice_id[:] = 0
         pic.skip[:] = out["skip"].cpu().numpy()
         return pic
+
+
+def _motion(pic: PictureData) -> tuple:
+    """The motion a coded picture leaves for the direct prediction of
+    later B pictures (the decoder's Frame.motion)."""
+    return (pic.mv, pic.ref_idx, pic.mv_l1, pic.ref_idx_l1, pic.ref_pic_id,
+            pic.ref_pic_id_l1)
 
 
 class _Coded:

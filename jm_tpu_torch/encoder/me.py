@@ -1,0 +1,141 @@
+"""Host motion search and motion compensation of the B macroblock coder
+(encoder/b_host.py): the mvd bit lengths, the 4x4 Hadamard SATD, the
+integer search's rate and spiral tie-break tables, its arg-min, the
+half- then quarter-pel refinement, and the quarter-pel luma / eighth-pel
+chroma block fetch. Twin of jm_tpu/encoder/me.py (mv_bits, satd,
+int_rate_tab, spiral_rank_tab, best_int_mv_tiebreak, subpel_refine) and
+jm_tpu/ops/interp.py (mc_luma_block, mc_chroma_block), numpy.
+
+A reference's planes are its device reference state downloaded
+(ops/enc.prep_ref: the INT, B, H, J quarter-pel planes and the padded
+chroma, PAD samples of replicated border), which holds the same samples
+as jm_tpu's interp.make_luma_planes / pad_plane. The integer search's SAD
+table is computed on the device (ops/enc.full_search_sad16).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..ops.consts import PAD, QPEL_TAB
+
+
+def ue_len(v: int) -> int:
+    return 2 * (v + 1).bit_length() - 1
+
+
+def se_len(v: int) -> int:
+    return ue_len(2 * v - 1 if v > 0 else -2 * v)
+
+
+def mv_bits(mvd_x: int, mvd_y: int) -> int:
+    return se_len(int(mvd_x)) + se_len(int(mvd_y))
+
+
+_H4 = np.array([[1, 1, 1, 1],
+                [1, 1, -1, -1],
+                [1, -1, -1, 1],
+                [1, -1, 1, -1]], np.int32)
+
+
+def satd(diff: np.ndarray) -> int:
+    """4x4 Hadamard SATD of a residual block (lencod me_distortion.c
+    HadamardSAD4x4:175): sum |H d H^T| >> 1, tiled over the block."""
+    bh, bw = diff.shape
+    d = diff.reshape(bh // 4, 4, bw // 4, 4).transpose(0, 2, 1, 3)
+    t = np.einsum("ij,bcjk,lk->bcil", _H4, d.astype(np.int64), _H4)
+    return int(np.abs(t).sum() >> 1)
+
+
+# se(v) bit length by |quarter-pel value| (the mvd rate table)
+_SE_BITS_TAB = np.array(
+    [1] + [2 * int(2 * a).bit_length() - 1 for a in range(1, 1 << 14)],
+    np.int32)
+
+
+def int_rate_tab(pred_mv, sr: int, lam: int) -> np.ndarray:
+    """lambda-weighted mvd bits of every integer displacement of the
+    (2 sr + 1)^2 window against a quarter-pel predictor, row-major
+    (dy, dx) (lencod me_fullsearch.c:93 MV_COST)."""
+    d = 4 * np.arange(-sr, sr + 1, dtype=np.int32)
+    bx = _SE_BITS_TAB[np.minimum(np.abs(d - int(pred_mv[0])), (1 << 14) - 1)]
+    by = _SE_BITS_TAB[np.minimum(np.abs(d - int(pred_mv[1])), (1 << 14) - 1)]
+    return lam * (by[:, None] + bx[None, :]).reshape(-1)
+
+
+def spiral_rank_tab(pred_mv, sr: int) -> np.ndarray:
+    """Tie-break ranks of the reference's spiral order around the
+    predictor (me_fullsearch.c: on equal cost the nearer candidate
+    wins), row-major (side * side,), values < 2^13."""
+    cx = int(np.clip(round(pred_mv[0] / 4), -sr, sr))
+    cy = int(np.clip(round(pred_mv[1] / 4), -sr, sr))
+    d = np.arange(-sr, sr + 1, dtype=np.int64)
+    ring = np.maximum(np.abs(d[:, None] - cy), np.abs(d[None, :] - cx))
+    sub = np.abs(d[:, None] - cy) + np.abs(d[None, :] - cx)
+    return (ring * 64 + np.minimum(sub, 63)).reshape(-1)
+
+
+def best_int_mv_tiebreak(costs: np.ndarray, rank: np.ndarray, sr: int):
+    """Arg-min of (side * side,) costs with the spiral tie-break, as an
+    integer MV."""
+    side = 2 * sr + 1
+    flat = int(np.argmin(costs.astype(np.int64) * 8192 + rank))
+    return np.array([flat % side - sr, flat // side - sr], np.int32)
+
+
+def mc_luma_block(planes, x4: int, y4: int, bw: int, bh: int,
+                  w: int, h: int) -> np.ndarray:
+    """The (bh, bw) luma prediction at quarter-pel position (x4, y4) from
+    the four quarter-pel planes (4, h + 2 PAD, w + 2 PAD)."""
+    xi = max(-PAD, min(w + PAD - bw - 1, x4 >> 2))
+    yi = max(-PAD, min(h + PAD - bh - 1, y4 >> 2))
+    p1, dx1, dy1, p2, dx2, dy2 = QPEL_TAB[(x4 & 3, y4 & 3)]
+    a = planes[p1][PAD + yi + dy1:PAD + yi + dy1 + bh,
+                   PAD + xi + dx1:PAD + xi + dx1 + bw].astype(np.int32)
+    if p2 < 0:
+        return a
+    b = planes[p2][PAD + yi + dy2:PAD + yi + dy2 + bh,
+                   PAD + xi + dx2:PAD + xi + dx2 + bw].astype(np.int32)
+    return (a + b + 1) >> 1
+
+
+def mc_chroma_block(plane: np.ndarray, x8: int, y8: int, bw: int, bh: int,
+                    w: int, h: int) -> np.ndarray:
+    """Eighth-pel bilinear chroma prediction (spec 8.4.2.2.2) from a
+    padded chroma plane (h + 2 PAD, w + 2 PAD)."""
+    xi = max(-PAD, min(w + PAD - bw - 1, x8 >> 3))
+    yi = max(-PAD, min(h + PAD - bh - 1, y8 >> 3))
+    xf, yf = x8 & 7, y8 & 7
+    A = plane[PAD + yi:PAD + yi + bh + 1,
+              PAD + xi:PAD + xi + bw + 1].astype(np.int32)
+    return ((8 - xf) * (8 - yf) * A[:bh, :bw] + xf * (8 - yf) * A[:bh, 1:]
+            + (8 - xf) * yf * A[1:, :bw] + xf * yf * A[1:, 1:] + 32) >> 6
+
+
+def subpel_refine(orig_blk: np.ndarray, planes, px: int, py: int,
+                  int_mv, w: int, h: int, pred_mv, lam: int):
+    """Half- then quarter-pel refinement of one block around its integer
+    MV: 8 neighbours per step, SATD plus lam * mvd bits. Returns (quarter-
+    pel MV, cost)."""
+    o = orig_blk.astype(np.int32)
+    bh, bw = o.shape
+
+    def cost_at(mvq):
+        d = o - mc_luma_block(planes, px * 4 + int(mvq[0]),
+                              py * 4 + int(mvq[1]), bw, bh, w, h)
+        return satd(d) + lam * mv_bits(int(mvq[0] - pred_mv[0]),
+                                       int(mvq[1] - pred_mv[1]))
+
+    best = np.array([int_mv[0] * 4, int_mv[1] * 4], np.int32)
+    bcost = cost_at(best)
+    for step in (2, 1):
+        center = best.copy()
+        for dy in (-step, 0, step):
+            for dx in (-step, 0, step):
+                if dx == 0 and dy == 0:
+                    continue
+                mv = center + (dx, dy)
+                c = cost_at(mv)
+                if c < bcost:
+                    best, bcost = mv, c
+    return best, bcost

@@ -3,7 +3,8 @@ re-encode of its intra macroblocks (twin of the host part of
 jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_device, :2252-2293, and
 of its _i16_candidates, _eval_i16, _encode_i16, _encode_chroma_intra and
 _code_chroma_residual for 4:2:0 with flat quant and no trellis, which
-IntraMBCoder holds for this module and for encoder/intra_host.py).
+IntraMBCoder holds for this module, encoder/intra_host.py and
+encoder/b_host.py).
 
 The device's fields (ops/enc.p_frame_step, downloaded) fill the
 PictureData and the undeblocked recon planes; the picture's slice plan
@@ -159,10 +160,11 @@ class IntraMBCoder:
         self.pic.chroma_mode[addr] = mode
         return self._code_chroma_residual(addr, predU, predV)
 
-    def _code_chroma_residual(self, addr, predU, predV) -> int:
-        """Quantize, commit and reconstruct the intra chroma residual of
-        MB addr (2x2 DC Hadamard, block.c:954-1160); returns cbp_chroma
-        (0/1/2)."""
+    def _code_chroma_residual(self, addr, predU, predV,
+                              intra: bool = True) -> int:
+        """Quantize, commit and reconstruct the chroma residual of MB addr
+        (2x2 DC Hadamard, block.c:954-1160) with the intra or the inter
+        rounding offset; returns cbp_chroma (0/1/2)."""
         pic, qpc = self.pic, self.qpc
         cy, cx = (addr // self.mb_w) * 8, (addr % self.mb_w) * 8
         origU, origV = self._mb_orig(addr)[1:]
@@ -173,8 +175,8 @@ class IntraMBCoder:
                                  .reshape(4, 4, 4))
             dc_lev = RN.np_quant_dc(RN.np_hadamard2x2(w[:, 0, 0]
                                                       .reshape(2, 2)),
-                                    qpc, True).reshape(4)
-            ac_scan = RN.to_scan(RN.np_quant_4x4(w, qpc, True))
+                                    qpc, intra).reshape(4)
+            ac_scan = RN.to_scan(RN.np_quant_4x4(w, qpc, intra))
             ac_scan[:, 0] = 0
             cost_c = sum(RN.coeff_cost_scan(ac_scan[b], start=1)
                          for b in range(4))

@@ -1,5 +1,6 @@
 """Numpy residual coding of single macroblocks for the host intra
-re-encode (encoder/p_intra.py): forward transforms, flat quant, the
+re-encode (encoder/p_intra.py) and the B macroblock coder
+(encoder/b_host.py): forward transforms, flat quant, the
 zig-zag scan, the decode-mirror recon of Intra16x16 luma and 4:2:0 chroma,
 and JM's run-weighted coefficient cost. A trimmed copy of
 jm_tpu/encoder/residual_np.py (frame scan, flat scaling lists); the
@@ -21,6 +22,8 @@ _ZZ = np.asarray(ZIGZAG_4x4)
 # AC of a component is dropped below CHROMA_COEFF_COST, block.c:1141)
 COEFF_COST4 = np.array([3, 2, 2, 1, 1, 1] + [0] * 10, np.int64)
 COST_BIG = 1 << 20       # stands in for JM's MAX_VALUE (any |level| > 1)
+LUMA_COEFF_COST = 4      # per inter 8x8 quadrant (macroblock.c:901)
+LUMA_MB_COEFF_COST = 5   # per inter MB (macroblock.c:1248)
 CHROMA_COEFF_COST = 4
 
 

@@ -1,6 +1,7 @@
 """Bitstream syntax writers for the encoder's slice: SPS/PPS (spec
-7.3.2), the I/P frame slice header (7.3.3) and the CAVLC macroblock layer
-(7.3.5) serialized from PictureData (the CABAC one is syntax_cabac.py).
+7.3.2), the I/P/B frame slice header (7.3.3) and the CAVLC macroblock
+layer (7.3.5) serialized from PictureData (the CABAC one is
+syntax_cabac.py).
 
 Covers what the IPPP 4:2:0 encoder emits: Baseline, Extended or Main
 SPS/PPS without scaling lists, with VUI, POC type 0, 1 or 2, FMO slice
@@ -10,8 +11,12 @@ ref_pic_list_modification, dec_ref_pic_marking (long-term IDR, MMCO) and
 redundant_pic_cnt, whole or as three data partitions
 (``serialize_slice_dp``); I_NxN / I_16x16 macroblocks; P macroblocks with
 16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks only) and one
-reference. Serialization is a pure function of the decided PictureData
-(lencod/src/macroblock.c write_{i,p}_slice_MB_layer order).
+reference; B macroblocks as the B coder decides them (B_Skip,
+B_Direct_16x16, 16x16 list 0 / list 1 / bi-predicted, intra), one
+reference per list, whose slices only the Python MBWriter writes (as in
+jm_tpu; native.routes["b"]["serialize"]). Serialization is a pure
+function of the decided PictureData (lencod/src/macroblock.c
+write_{i,p,b}_slice_MB_layer order).
 """
 
 from __future__ import annotations
@@ -23,7 +28,11 @@ from ..bitstream.bitwriter import BitWriter
 from ..common.picture import CBP_MAP_CHROMA, MB_INTER, MB_IPCM
 from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
+from ..decoder.b_slice import PD_BI, PD_L0, PD_L1
 from .cavlc_write import write_residual_block
+
+# B mb_type of a 16x16 partition by prediction direction
+B_MBTYPE_16x16 = {PD_L0: 1, PD_L1: 2, PD_BI: 3}
 
 # inverse of spec Table 9-4: cbp -> codeNum
 CBP_INV_CHROMA_INTRA = {int(cbp): i for i, (cbp, _) in enumerate(CBP_MAP_CHROMA)}
@@ -210,15 +219,18 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                        slice_group_change_cycle: int = 0,
                        is_ref: bool = True, long_term_flag: int = 0,
                        mmco_ops=None, ref_mod_l0=None,
-                       redundant_pic_cnt: int = 0) -> None:
-    """Spec 7.3.3 slice header of an I or P frame-picture slice
+                       redundant_pic_cnt: int = 0, num_ref_idx_l1: int = 1,
+                       ref_mod_l1=None) -> None:
+    """Spec 7.3.3 slice header of an I, P or B frame-picture slice
     (lencod/src/header.c:116 SliceHeader): pic_order_cnt_lsb for POC
-    type 0 only, redundant_pic_cnt when the PPS has the flag, ref_mod_l0
-    the (modification_of_pic_nums_idc, value) commands of list0,
-    dec_ref_pic_marking for reference slices only (is_ref): the IDR's
-    long_term_flag, else the MMCO commands mmco_ops ((op, value1[,
-    value2]) tuples) or the sliding window; cabac_init_idc for P slices
-    of a CABAC PPS, slice_group_change_cycle for FMO map types 3-5."""
+    type 0 only, redundant_pic_cnt when the PPS has the flag; for B
+    direct_spatial_mv_pred_flag 1 and the list-1 active count;
+    ref_mod_l0 / ref_mod_l1 the (modification_of_pic_nums_idc, value)
+    commands of each list, dec_ref_pic_marking for reference slices only
+    (is_ref): the IDR's long_term_flag, else the MMCO commands mmco_ops
+    ((op, value1[, value2]) tuples) or the sliding window;
+    cabac_init_idc for P and B slices of a CABAC PPS,
+    slice_group_change_cycle for FMO map types 3-5."""
     bw.ue(first_mb)
     bw.ue(int(slice_type) + 5)      # all slices in picture share the type
     bw.ue(pps.pic_parameter_set_id)
@@ -229,19 +241,28 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
         bw.u(poc_lsb, sps.log2_max_pic_order_cnt_lsb_minus4 + 4)
     if pps.redundant_pic_cnt_present_flag:
         bw.ue(redundant_pic_cnt)
-    if slice_type == SliceType.P:
+    is_b = slice_type == SliceType.B
+    if is_b:
+        bw.flag(1)                  # direct_spatial_mv_pred_flag
+    if slice_type in (SliceType.P, SliceType.B):
         override = ((num_ref_idx_l0 - 1) !=
                     pps.num_ref_idx_l0_default_active_minus1)
+        if is_b:
+            override = override or ((num_ref_idx_l1 - 1) !=
+                                    pps.num_ref_idx_l1_default_active_minus1)
         bw.flag(1 if override else 0)
         if override:
             bw.ue(num_ref_idx_l0 - 1)
+            if is_b:
+                bw.ue(num_ref_idx_l1 - 1)
         # ref_pic_list_modification (spec 7.3.3.1)
-        bw.flag(1 if ref_mod_l0 else 0)
-        if ref_mod_l0:
-            for idc, val in ref_mod_l0:
-                bw.ue(idc)
-                bw.ue(val)
-            bw.ue(3)
+        for mods in (ref_mod_l0, ref_mod_l1) if is_b else (ref_mod_l0,):
+            bw.flag(1 if mods else 0)
+            if mods:
+                for idc, val in mods:
+                    bw.ue(idc)
+                    bw.ue(val)
+                bw.ue(3)
     if is_ref:
         if idr:
             bw.flag(0)              # no_output_of_prior_pics
@@ -259,7 +280,7 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
             bw.ue(0)                # end of the commands
         else:
             bw.flag(0)              # adaptive_ref_pic_marking_mode_flag
-    if pps.entropy_coding_mode_flag and slice_type == SliceType.P:
+    if pps.entropy_coding_mode_flag and slice_type != SliceType.I:
         bw.ue(cabac_init_idc)
     bw.se(qp - 26 - pps.pic_init_qp_minus26)
     if pps.deblocking_filter_control_present_flag:
@@ -347,9 +368,10 @@ class MBWriter:
 
     # ---- intra ------------------------------------------------------------
 
-    def _write_intra_mb(self, addr: int, p_slice: bool) -> None:
+    def _write_intra_mb(self, addr: int, base: int) -> None:
+        """base: the mb_type offset of the intra types in the slice (0 I,
+        5 P, 23 B)."""
         pic, bw = self.pic, self.bw
-        base = 5 if p_slice else 0
         if pic.mb_class[addr] == 1:          # I_NxN (4x4)
             bw.ue(base + 0)
             for code_idx in range(16):
@@ -407,25 +429,53 @@ class MBWriter:
         self._write_luma_residual(addr, cbp & 15, is_i16=False)
         self._write_chroma_residual(addr, cbp)
 
+    def _write_b_inter_mb(self, addr: int) -> None:
+        """B_Direct_16x16, or a 16x16 partition of list 0, list 1 or both
+        with one reference each (jm_tpu syntax.py _write_b_inter_mb)."""
+        pic, bw = self.pic, self.bw
+        if pic.b_direct[addr]:
+            bw.ue(0)
+        else:
+            pd = int(pic.pdir[addr, 0])
+            bw.ue(B_MBTYPE_16x16[pd])
+            for lst, use in enumerate(((PD_L0, PD_BI), (PD_L1, PD_BI))):
+                if pd not in use:
+                    continue
+                ref = int((pic.ref_idx if lst == 0 else
+                           pic.ref_idx_l1)[addr, 0])
+                pred = self.pctx.mv_pred(addr, 0, 0, 4, 4, ref, lst)
+                mv = (pic.mv if lst == 0 else pic.mv_l1)[addr, 0]
+                bw.se(int(mv[0] - pred[0]))
+                bw.se(int(mv[1] - pred[1]))
+        cbp = int(pic.cbp[addr])
+        bw.ue(CBP_INV_CHROMA_INTER[cbp])
+        if cbp:
+            self._write_qp_delta(addr)
+        self._write_luma_residual(addr, cbp & 15, is_i16=False)
+        self._write_chroma_residual(addr, cbp)
+
     # ---- MB dispatch -------------------------------------------------------
 
     def write_mb(self, addr: int, slice_type: SliceType) -> None:
         pic, bw = self.pic, self.bw
-        if slice_type == SliceType.P:
-            if pic.skip[addr]:
-                self.skip_run += 1
-                return
-            bw.ue(self.skip_run)
-            self.skip_run = 0
-            if pic.mb_class[addr] == 0:
-                self._write_p_inter_mb(addr)
-            else:
-                self._write_intra_mb(addr, p_slice=True)
+        if slice_type == SliceType.I:
+            self._write_intra_mb(addr, 0)
+            return
+        if pic.skip[addr]:
+            self.skip_run += 1
+            return
+        bw.ue(self.skip_run)
+        self.skip_run = 0
+        is_b = slice_type == SliceType.B
+        if pic.mb_class[addr] != MB_INTER:
+            self._write_intra_mb(addr, 23 if is_b else 5)
+        elif is_b:
+            self._write_b_inter_mb(addr)
         else:
-            self._write_intra_mb(addr, p_slice=False)
+            self._write_p_inter_mb(addr)
 
     def finish(self, slice_type: SliceType) -> None:
-        if slice_type == SliceType.P and self.skip_run > 0:
+        if slice_type != SliceType.I and self.skip_run > 0:
             self.bw.ue(self.skip_run)
             self.skip_run = 0
 
@@ -437,11 +487,13 @@ def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
     """Serialize one slice; mb_addrs: its MB addresses in decode order
     (default: the whole picture in raster order); header: the further
     keywords of write_slice_header (slice_group_change_cycle, marking,
-    list modification, redundant_pic_cnt). Returns the RBSP. The MB
-    layer goes through the native cavlc_slice_data (jm_tpu_torch/native,
+    list modification, redundant_pic_cnt, the list-1 keywords of a B
+    slice). Returns the RBSP. The MB layer of an I or P slice goes
+    through the native cavlc_slice_data (jm_tpu_torch/native,
     jm_enc.cpp) unless a MB of the slice is I_PCM or the caller asks for
     the Python MBWriter (native=False); native.routes["serialize"] counts
-    the route taken."""
+    the route taken. A B slice takes the Python MBWriter, counted in
+    native.routes["b"]["serialize"]."""
     addrs = np.ascontiguousarray(
         np.arange(pic.n_mbs) if mb_addrs is None else mb_addrs, np.int32)
     bw = BitWriter()
@@ -449,11 +501,14 @@ def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
                        frame_num=frame_num, idr=idr, idr_pic_id=idr_pic_id,
                        qp=qp, first_mb=int(addrs[0]), poc_lsb=poc_lsb,
                        num_ref_idx_l0=num_ref_idx_l0, **header)
-    if native and not (pic.mb_class[addrs] == MB_IPCM).any():
+    if slice_type == SliceType.B:
+        N.routes["b"]["serialize"] += 1
+    elif native and not (pic.mb_class[addrs] == MB_IPCM).any():
         N.routes["serialize"]["native"] += 1
         return _native_slice_data(bw, pic, pps, slice_type, qp,
                                   num_ref_idx_l0, addrs)
-    N.routes["serialize"]["python"] += 1
+    else:
+        N.routes["serialize"]["python"] += 1
     w = MBWriter(bw, pic, sps, pps, qp)
     for addr in addrs:
         w.write_mb(int(addr), slice_type)

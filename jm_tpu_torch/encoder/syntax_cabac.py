@@ -1,15 +1,17 @@
 """CABAC macroblock layer (spec 7.3.5, 9.3) serialized from PictureData,
 twin of jm_tpu/encoder/syntax_cabac.py's MBWriterCABAC and
-serialize_slice_cabac for I and P slices of 4:2:0 frame pictures with the
-4x4 transform: I_NxN and I_16x16 MBs (also inside P slices), P_Skip and
-P MBs with 16x16 / 16x8 / 8x16 / 8x8 partitions, sub-8x8 partitions and
-several references.
+serialize_slice_cabac for I, P and B slices of 4:2:0 frame pictures with
+the 4x4 transform: I_NxN and I_16x16 MBs (also inside P and B slices),
+P_Skip and P MBs with 16x16 / 16x8 / 8x16 / 8x8 partitions, sub-8x8
+partitions and several references; B_Skip, B_Direct_16x16 and 16x16 B
+MBs of list 0, list 1 or both with one reference each (the B coder's
+set). Every B slice counts in native.routes["b"]["serialize"].
 
 Every writer is the exact inverse of its reader in
 decoder/mb_parse_cabac.py and takes its contexts from the same
 CabacNeighbours (lencod/src/cabac.c writeMB_typeInfo_CABAC, writeCBP_CABAC,
 write_and_store_CBP_block_bit, writeRunLevel_CABAC). The encoder emits no
-I_PCM and no B slices; an I_PCM MB raises NotImplementedError.
+I_PCM; an I_PCM MB raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..bitstream.bitwriter import BitWriter
+from .. import native as N
 from ..common.picture import MB_I4, MB_INTER, MB_IPCM
 from ..common.predict_ctx import CODE2RASTER
 from ..common.types import SliceType
@@ -28,7 +31,8 @@ from ..decoder.cabac import (C1ISDC, CHROMA_AC, CHROMA_DC, LUMA_4x4,
 from ..decoder.mb_parse import _SUB_PARTS
 from ..decoder.mb_parse_cabac import CabacNeighbours
 from .cabac_write import CabacEncoder
-from .syntax import write_slice_header
+from .syntax import B_MBTYPE_16x16, write_slice_header
+from ..decoder.b_slice import PD_BI, PD_L0, PD_L1
 
 
 class MBWriterCABAC(CabacNeighbours):
@@ -96,6 +100,56 @@ class MBWriterCABAC(CabacNeighbours):
             eng.decision(ctx, 10, (j % 4) >> 1)
             eng.decision(ctx, 10, (j % 4) & 1)
 
+    def write_mb_type_b(self, addr, coded: int):
+        """Inverse of read_mb_type_b: 0 B_Direct_16x16, 1..21 the
+        partitions, 22 B_8x8, 23 I_NxN, 24 the I_16x16 escape (its
+        continuation is write_mb_type_b_i16)."""
+        eng, ctx = self.eng, self.ctxs.mb_type[2]
+        eng.decision(ctx, self.mb_type_b_ctx(addr), 1 if coded else 0)
+        if coded == 0:
+            return
+        if coded in (1, 2):
+            eng.decision(ctx, 4, 0)
+            eng.decision(ctx, 6, coded - 1)
+            return
+        if coded <= 10:
+            eng.decision(ctx, 4, 1)
+            eng.decision(ctx, 5, 0)
+            k = coded - 3
+            for b in (2, 1, 0):
+                eng.decision(ctx, 6, (k >> b) & 1)
+            return
+        # the high branch: raw = 12 + 8 b + 4 b + 2 b, then a remap or one
+        # more bin
+        if coded == 11:
+            raw, extra = 24, None
+        elif coded == 22:
+            raw, extra = 26, None
+        elif coded in (23, 24):
+            raw, extra = 22, coded - 23
+        else:                       # 12..21
+            raw, extra = 12 + ((coded - 12) & ~1), (coded - 12) & 1
+        eng.decision(ctx, 4, 1)
+        eng.decision(ctx, 5, 1)
+        for b in (3, 2, 1):
+            eng.decision(ctx, 6, ((raw - 12) >> b) & 1)
+        if extra is not None:
+            eng.decision(ctx, 6, extra)
+        if coded == 24:
+            eng.terminate(0)        # not I_PCM
+
+    def write_mb_type_b_i16(self, k: int):
+        """The I_16x16 continuation after the B escape (k = I_16x16 type
+        - 1, 0..23), on the P contexts."""
+        eng, ctx1 = self.eng, self.ctxs.mb_type[1]
+        eng.decision(ctx1, 8, 1 if k >= 12 else 0)
+        cc = (k // 4) % 3
+        eng.decision(ctx1, 9, 1 if cc else 0)
+        if cc:
+            eng.decision(ctx1, 9, 1 if cc == 2 else 0)
+        eng.decision(ctx1, 10, (k % 4) >> 1)
+        eng.decision(ctx1, 10, (k % 4) & 1)
+
     def write_sub_mb_type_p(self, sm: int):
         """Inverse of read_sub_mb_type_p: 0 = 8x8, 1 = 8x4, 2 = 4x8,
         3 = 4x4."""
@@ -123,16 +177,16 @@ class MBWriterCABAC(CabacNeighbours):
         if mode:
             self.eng.unary_max(self.ctxs.cipr, 3, 3, mode - 1, 1)
 
-    def write_ref_idx(self, addr, bx, by, value: int):
+    def write_ref_idx(self, addr, bx, by, value: int, lst: int = 0):
         ctx = self.ctxs.ref_no[0]
-        self.eng.decision(ctx, self.ref_idx_ctx(addr, bx, by),
+        self.eng.decision(ctx, self.ref_idx_ctx(addr, bx, by, lst),
                           1 if value else 0)
         if value:
             self.eng.unary(ctx, 4, 5, value - 1)
 
-    def write_mvd(self, addr, bx, by, comp, value: int):
+    def write_mvd(self, addr, bx, by, comp, value: int, lst: int = 0):
         self.eng.decision(self.ctxs.mv_res[0],
-                          self.mvd_ctx(addr, bx, by, comp),
+                          self.mvd_ctx(addr, bx, by, comp, lst),
                           1 if value else 0)
         if value:
             self.eng.ueg3_mv(self.ctxs.mv_res[1], 5 * comp, abs(value) - 1)
@@ -257,7 +311,7 @@ class MBWriterCABAC(CabacNeighbours):
         self.qp = int(self.pic.qp[addr])
         return dq
 
-    def _write_intra_mb(self, addr, p_slice: bool):
+    def _write_intra_mb(self, addr):
         pic = self.pic
         if pic.mb_class[addr] == MB_IPCM:
             raise NotImplementedError(f"MB {addr}: I_PCM (the CABAC writer "
@@ -268,7 +322,11 @@ class MBWriterCABAC(CabacNeighbours):
         else:
             imb = 1 + int(pic.i16_mode[addr]) + ((cbp >> 4) << 2) \
                 + (12 if cbp & 15 else 0)
-        if p_slice:
+        if self.stype == SliceType.B:
+            self.write_mb_type_b(addr, 24 if imb else 23)
+            if imb:
+                self.write_mb_type_b_i16(imb - 1)
+        elif self.stype == SliceType.P:
             self.write_mb_type_p(6 + imb)
         else:
             self.write_mb_type_i(addr, imb)
@@ -325,6 +383,36 @@ class MBWriterCABAC(CabacNeighbours):
             for (bx, by, bw_, bh_) in parts:
                 emit_mvd(bx, by, bw_, bh_,
                          int(pic.ref_idx[addr, (by // 2) * 2 + bx // 2]))
+        self._write_inter_residual(addr)
+
+    def _write_b_inter_mb(self, addr):
+        """B_Direct_16x16, or a 16x16 partition of list 0, list 1 or both
+        with one reference each (jm_tpu syntax_cabac.py
+        _write_b_inter_mb); each list's mvd is stored over the MB for the
+        later contexts."""
+        pic = self.pic
+        if pic.b_direct[addr]:
+            self.write_mb_type_b(addr, 0)
+        else:
+            pd = int(pic.pdir[addr, 0])
+            self.write_mb_type_b(addr, B_MBTYPE_16x16[pd])
+            for lst, use in enumerate(((PD_L0, PD_BI), (PD_L1, PD_BI))):
+                if pd not in use:
+                    continue
+                ref = int((pic.ref_idx if lst == 0 else
+                           pic.ref_idx_l1)[addr, 0])
+                pred = self.pctx.mv_pred(addr, 0, 0, 4, 4, ref, lst)
+                mv = (pic.mv if lst == 0 else pic.mv_l1)[addr, 0]
+                mvdx, mvdy = int(mv[0] - pred[0]), int(mv[1] - pred[1])
+                self.write_mvd(addr, 0, 0, 0, mvdx, lst)
+                self.write_mvd(addr, 0, 0, 1, mvdy, lst)
+                pic.mvd[addr, lst] = (mvdx, mvdy)
+        self._write_inter_residual(addr)
+
+    def _write_inter_residual(self, addr):
+        """coded_block_pattern, mb_qp_delta and the residual of an inter
+        MB."""
+        pic = self.pic
         cbp = int(pic.cbp[addr])
         self.write_cbp(addr, cbp)
         if cbp:
@@ -336,18 +424,25 @@ class MBWriterCABAC(CabacNeighbours):
 
     def write_mb(self, addr):
         pic = self.pic
-        if self.stype == SliceType.P:
-            skipped = bool(pic.skip[addr])
+        if self.stype == SliceType.I:
+            self._write_intra_mb(addr)
+            return
+        skipped = bool(pic.skip[addr])
+        is_b = self.stype == SliceType.B
+        if is_b:
+            self.eng.decision(self.ctxs.mb_type[2], 7 + self.skip_ctx(addr),
+                              1 if skipped else 0)
+        else:
             self.eng.decision(self.ctxs.mb_type[1], self.skip_ctx(addr),
                               1 if skipped else 0)
-            if skipped:
-                self.last_dquant = 0
-            elif pic.mb_class[addr] == MB_INTER:
-                self._write_p_inter_mb(addr)
-            else:
-                self._write_intra_mb(addr, p_slice=True)
+        if skipped:
+            self.last_dquant = 0
+        elif pic.mb_class[addr] != MB_INTER:
+            self._write_intra_mb(addr)
+        elif is_b:
+            self._write_b_inter_mb(addr)
         else:
-            self._write_intra_mb(addr, p_slice=False)
+            self._write_p_inter_mb(addr)
 
 
 def serialize_slice_cabac(pic, sps, pps, *, slice_type: SliceType,
@@ -359,14 +454,14 @@ def serialize_slice_cabac(pic, sps, pps, *, slice_type: SliceType,
     """Serialize one CABAC slice; mb_addrs: its MB addresses in decode
     order (default: the whole picture in raster order); header: the
     further keywords of syntax.write_slice_header (marking, list
-    modification). The arithmetic
+    modification, the list-1 keywords of a B slice). The arithmetic
     coder and the contexts start afresh for each slice, and neighbours
     count only inside the slice (pic.slice_id). Returns the RBSP;
     ``stats["bins"]`` receives the bins coded (for the cabac_zero_word
     constraint). The writer updates pic.mvd and pic.cbp_bits, as the
     parser does."""
-    if slice_type not in (SliceType.I, SliceType.P):
-        raise NotImplementedError(f"{slice_type.name} slices (CABAC writer)")
+    if slice_type == SliceType.B:
+        N.routes["b"]["serialize"] += 1
     addrs = list(range(pic.n_mbs) if mb_addrs is None else mb_addrs)
     bw = BitWriter()
     write_slice_header(bw, sps, pps, slice_type=slice_type,

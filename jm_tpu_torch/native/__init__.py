@@ -23,6 +23,11 @@ sites (an I_PCM MB keeps the Python path, by a check) and is counted in
   dp         data-partitioned slices, which only the Python MBWriter /
              MBParser handle (as in jm_tpu): serialize
              (encoder/syntax.serialize_slice_dp) / parse
+  b          B slices, whose MB layer only the Python writers and parsers
+             handle (as in jm_tpu): serialize (encoder/syntax
+             .serialize_slice, encoder/syntax_cabac.serialize_slice_cabac)
+             / parse (both parsers; a CABAC B slice also counts its
+             arithmetic decoder under cabac)
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ routes = {"serialize": {"native": 0, "python": 0},
           "parse": {"native": 0, "python": 0, "rerun": 0},
           "recon": {"native": 0, "python": 0},
           "cabac": {"native": 0, "python": 0},
-          "dp": {"serialize": 0, "parse": 0}}
+          "dp": {"serialize": 0, "parse": 0},
+          "b": {"serialize": 0, "parse": 0}}
 build_seconds = None        # wall time of load()'s build + import, once
 _mod = None
 

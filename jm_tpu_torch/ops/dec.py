@@ -1,6 +1,7 @@
-"""The decoder's device stages for P pictures, twin of
-jm_tpu/ops/dec_jax.py: the residual decode and the inter reconstruction
-of every inter macroblock of a picture as batched tensor ops.
+"""The decoder's device stages, twin of jm_tpu/ops/dec_jax.py: the
+residual decode and the inter reconstruction of every inter macroblock of
+a P picture as batched tensor ops, and the same for B pictures, which
+jm_tpu reconstructs on the host (decoder/recon.py _recon_inter).
 
 Inter prediction does not depend on the current picture, so every inter
 4x4 block of the picture is predicted at once: one gather pulls each
@@ -11,8 +12,10 @@ bilinear weights (ldecod/src/mc_prediction.c get_block_luma:902,
 get_block_chroma). Window origins are clamped into the padded planes,
 whose replicated border makes the clamp exact for any MV.
 
-Both functions run on the tensors' device. Scope: 4:2:0 frame P pictures
-with the 4x4 transform, list0 only, no weighted prediction.
+A B picture's blocks are predicted from each list in the same way and
+combined per 8x8 prediction direction. Every function runs on the
+tensors' device. Scope: 4:2:0 frame pictures with the 4x4 transform, no
+weighted prediction.
 """
 
 from __future__ import annotations
@@ -65,16 +68,13 @@ def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
     return res_l, res_c
 
 
-def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
-                  padV_stack, inter_mask, *, mb_w: int, mb_h: int):
-    """Inter reconstruction of every inter MB of a picture.
-
-    mv (N, 16, 2) quarter-pel per raster 4x4 block; ref_idx (N, 4) list0
-    index per 8x8; res_l (N, 16, 4, 4), res_c (N, 2, 4, 4, 4) int32;
-    planes_stack (R, 4, H+2P, W+2P) uint8, padU_stack / padV_stack
-    (R, H/2+2P, W/2+2P) uint8 (ops/enc.prep_ref of each reference);
-    inter_mask (N,) bool. Returns (Y, U, V) uint8 planes, the MBs outside
-    inter_mask zero."""
+def _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack, *,
+             mb_w: int, mb_h: int):
+    """Motion-compensated prediction of every 4x4 block of the picture
+    from one list: mv (N, 16, 2) quarter-pel; ref_idx (N, 4) index into
+    the stacks per 8x8 (negative entries predict from stack entry 0 and
+    are masked by the caller). Returns (luma (N, 16, 4, 4), chroma
+    (N, 16, 2, 2, 2): Cb and Cr 2x2 of each luma block) int32."""
     n = mb_w * mb_h
     w, h = 16 * mb_w, 16 * mb_h
     dev = mv.device
@@ -109,10 +109,6 @@ def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
             (a + win[:, :, p2, dy2:dy2 + 4, dx2:dx2 + 4] + 1) >> 1
         pred = torch.where(((xf == fx) & (yf == fy))[..., None, None], b,
                            pred)
-    mask = inter_mask.to(torch.bool)
-    recb = torch.clamp(pred + res_l, 0, 255) * mask[:, None, None, None]
-    Y = recb.to(torch.uint8).reshape(mb_h, mb_w, 4, 4, 4, 4) \
-        .permute(0, 2, 4, 1, 3, 5).reshape(h, w)
 
     # ---- chroma (4:2:0): a 2x2 block per luma 4x4 block, eighth-pel ----
     cw, ch = w // 2, h // 2
@@ -132,6 +128,18 @@ def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
              + wx * (8 - wy) * cwin[..., :2, 1:]
              + (8 - wx) * wy * cwin[..., 1:, :2]
              + wx * wy * cwin[..., 1:, 1:] + 32) >> 6       # (N,16,2,2,2)
+    return pred, cpred
+
+
+def _recon(pred, cpred, res_l, res_c, inter_mask, *, mb_w: int, mb_h: int):
+    """Prediction + residual, clipped, as (Y, U, V) uint8 planes; the
+    MBs outside inter_mask zero."""
+    n = mb_w * mb_h
+    w, h = 16 * mb_w, 16 * mb_h
+    mask = inter_mask.to(torch.bool)
+    recb = torch.clamp(pred + res_l, 0, 255) * mask[:, None, None, None]
+    Y = recb.to(torch.uint8).reshape(mb_h, mb_w, 4, 4, 4, 4) \
+        .permute(0, 2, 4, 1, 3, 5).reshape(h, w)
     # per MB and component an 8x8 block: luma block (by, bx) covers chroma
     # rows 2 by.., columns 2 bx..; chroma 4x4 block cb = 2 qy + qx
     cpred = cpred.reshape(n, 4, 4, 2, 2, 2).permute(0, 3, 1, 4, 2, 5) \
@@ -140,5 +148,50 @@ def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
         .reshape(n, 2, 8, 8)
     rc = torch.clamp(cpred + cres, 0, 255) * mask[:, None, None, None]
     UV = rc.to(torch.uint8).reshape(mb_h, mb_w, 2, 8, 8) \
-        .permute(2, 0, 3, 1, 4).reshape(2, ch, cw)
+        .permute(2, 0, 3, 1, 4).reshape(2, h // 2, w // 2)
     return Y, UV[0], UV[1]
+
+
+def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
+                  padV_stack, inter_mask, *, mb_w: int, mb_h: int):
+    """Inter reconstruction of every inter MB of a P picture.
+
+    mv (N, 16, 2) quarter-pel per raster 4x4 block; ref_idx (N, 4) list0
+    index per 8x8; res_l (N, 16, 4, 4), res_c (N, 2, 4, 4, 4) int32;
+    planes_stack (R, 4, H+2P, W+2P) uint8, padU_stack / padV_stack
+    (R, H/2+2P, W/2+2P) uint8 (ops/enc.prep_ref of each reference);
+    inter_mask (N,) bool. Returns (Y, U, V) uint8 planes, the MBs outside
+    inter_mask zero."""
+    pred, cpred = _mc_pred(mv, ref_idx, planes_stack, padU_stack,
+                           padV_stack, mb_w=mb_w, mb_h=mb_h)
+    return _recon(pred, cpred, res_l, res_c, inter_mask, mb_w=mb_w,
+                  mb_h=mb_h)
+
+
+def inter_recon_b(mv, mv_l1, ref_idx, ref_idx_l1, pdir, res_l, res_c,
+                  planes_stack, padU_stack, padV_stack, inter_mask, *,
+                  mb_w: int, mb_h: int):
+    """Inter reconstruction of every inter MB of a B picture (defined by
+    jm_tpu/decoder/recon.py Reconstructor._recon_inter / _mc_4x4, spec
+    8.4.2.3.1): each 4x4 block is predicted from list 0, list 1 or both
+    as the pdir of its 8x8 says (0, 1, 2), both lists averaged as
+    (p0 + p1 + 1) >> 1 after each list's MC, in luma and in eighth-pel
+    chroma (default weights).
+
+    mv / mv_l1 (N, 16, 2); ref_idx / ref_idx_l1 (N, 4) indices into the
+    one stack of the picture's references (-1 where the list is unused);
+    pdir (N, 4); the rest as inter_recon_p."""
+    p0, c0 = _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack,
+                      mb_w=mb_w, mb_h=mb_h)
+    p1, c1 = _mc_pred(mv_l1, ref_idx_l1, planes_stack, padU_stack,
+                      padV_stack, mb_w=mb_w, mb_h=mb_h)
+    blk = torch.arange(16, device=mv.device)
+    quad = (blk // 8) * 2 + (blk % 4) // 2
+    pd = pdir.to(I32)[:, quad]                                  # (N, 16)
+    lum, chrom = pd[..., None, None], pd[..., None, None, None]
+    pred = torch.where(lum == 1, p1,
+                       torch.where(lum == 2, (p0 + p1 + 1) >> 1, p0))
+    cpred = torch.where(chrom == 1, c1,
+                        torch.where(chrom == 2, (c0 + c1 + 1) >> 1, c0))
+    return _recon(pred, cpred, res_l, res_c, inter_mask, mb_w=mb_w,
+                  mb_h=mb_h)

@@ -210,6 +210,29 @@ def me_int_sweep(origY, ref_int, mb_w: int, mb_h: int, sr: int, lam: int):
 # SATD, predictors, intra-16 trigger
 # ---------------------------------------------------------------------------
 
+def full_search_sad16(origY, ref_int, mb_w: int, mb_h: int, sr: int):
+    """The 16x16 SAD of every MB at every integer displacement of the
+    +-sr window: (N, (2 sr + 1)^2) int32, row-major (dy, dx), the B
+    macroblock coder's integer search table (jm_tpu/encoder/me.py
+    full_search_blk4_sads(...).sum(axis=2), whose per-4x4 table is never
+    made here). origY (H, W) uint8; ref_int the padded integer plane (pad
+    PAD). One row of displacements is evaluated at a time."""
+    side = 2 * sr + 1
+    h, w = 16 * mb_h, 16 * mb_w
+    n = mb_w * mb_h
+    o = origY.to(torch.int16)
+    out = torch.empty((n, side * side), dtype=I32, device=origY.device)
+    for iy in range(side):
+        y0 = PAD + iy - sr
+        slab = ref_int[y0:y0 + h, PAD - sr:PAD + sr + w].to(torch.int16)
+        d = (slab.unfold(1, w, 1) - o[:, None, :]).abs()     # (h, side, w)
+        s = d.reshape(mb_h, 16, side, mb_w, 16).sum(dim=(1, 4),
+                                                     dtype=I32)
+        out[:, iy * side:(iy + 1) * side] = s.permute(0, 2, 1) \
+            .reshape(n, side)
+    return out
+
+
 def satd8_raw(diff: torch.Tensor) -> torch.Tensor:
     """(..., 8, 8) int32 -> (...,) sum over the four 4x4 tiles of
     sum |H d H^T| (no final >> 1)."""

@@ -2,10 +2,11 @@
 byte for byte (the codec is integer-exact: the tolerance is zero):
 - SPS, PPS and slice headers of the in-scope goldens, field by field;
 - the in-scope goldens (CAVLC, FMO slice groups of map types 1, 3, 5
-  and 6, data partitioning (dp1; cif_dp with MMCO) and cabac_pp: JM
-  lencod's CABAC I/P/P with two references) against jm_tpu's
-  H264Decoder(device_recon=True) and against JM ldecod's output
-  (_rec.yuv);
+  and 6, data partitioning (dp1; cif_dp with MMCO), cabac_pp: JM
+  lencod's CABAC I/P/P with two references, and the B goldens: cavlc_b,
+  main3, main9, main9t (temporal direct), poc1b (POC type 1), cif_main)
+  against jm_tpu's H264Decoder(device_recon=True) and against JM
+  ldecod's output (_rec.yuv, in POC order);
 - jm_tpu encoder streams (IPPP, periodic IDR, a scene cut whose P
   pictures carry intra MBs, several slices and references with POC
   type 2, POC type 1 with intra refresh MBs, I_PCM), CAVLC and CABAC,
@@ -44,19 +45,21 @@ from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig
 from test_pipe_stream import make_frames
 
 GOLDEN = Path(__file__).parent / "golden"
+B_GOLDENS = ["cavlc_b", "main3", "main9", "main9t", "poc1b", "cif_main"]
 IN_SCOPE = ["i1", "ipp3", "qp20", "qp36", "cabac_pp", "sei", "fmo_t1",
-            "fmo_t3", "fmo_t5d1", "fmo_t6", "cif_fmo", "dp1", "cif_dp"]
+            "fmo_t3", "fmo_t5d1", "fmo_t6", "cif_fmo", "dp1",
+            "cif_dp"] + B_GOLDENS
 # goldens without JM ldecod's output in the repository (sei.264, cif_fmo
-# .264: FMO at CIF, cif_dp.264: data partitions and MMCO at CIF), held
-# against jm_tpu's decode only
-NO_LDECOD_REC = {"sei", "cif_fmo", "cif_dp"}
+# .264: FMO at CIF, cif_dp.264: data partitions and MMCO at CIF,
+# cif_main.264: CABAC I/P/B at CIF), held against jm_tpu's decode only
+NO_LDECOD_REC = {"sei", "cif_fmo", "cif_dp", "cif_main"}
 
 
 def _fields(obj, names):
     out = {}
     for k in names:
         v = getattr(obj, k)
-        if k == "ref_pic_list_mod_l0":
+        if k.startswith("ref_pic_list_mod_l"):
             v = [(m.op, m.value) for m in v]
         elif k == "mmco_ops":
             v = [(m.op, m.value1, m.value2) for m in v]
@@ -129,7 +132,9 @@ def test_golden_decodes_like_jm_and_ldecod(name, one_torch_thread):
     out = dec.decode_annexb(data)
     _equal(out, jm_decoder.H264Decoder(device_recon=True).decode_annexb(data))
     if name not in NO_LDECOD_REC:
-        _equal_yuv(out, GOLDEN / f"{name}_rec.yuv")
+        # ldecod writes in output order: the B streams' is the POC order
+        _equal_yuv(sorted(out, key=lambda f: f.poc) if name in B_GOLDENS
+                   else out, GOLDEN / f"{name}_rec.yuv")
     assert [p["path"] for p in dec.pictures][0] == "intra"
     assert {p["path"] for p in dec.pictures[1:]} <= {"inter", "mixed"}
 
@@ -223,8 +228,8 @@ def test_picture_from_numpy_through_port_recon():
 
 
 @pytest.mark.parametrize("name,construct", [
-    ("main3", "B slices"),
-    ("cavlc_b", "B slices"),
+    ("wp_bi", "weighted prediction"),
+    ("wp_both", "weighted prediction"),
     ("high8x8", "8x8 transform"),
     ("mbaff1", "fields"),
     ("field1", "fields"),

@@ -47,10 +47,14 @@ def test_scan_covers_the_native_loader():
 
 @pytest.mark.parametrize("rel", ["ratectl.py", "common/fmo.py",
                                  "encoder/intra_host.py",
-                                 "encoder/sei_write.py", "decoder/sei.py"])
+                                 "encoder/sei_write.py", "decoder/sei.py",
+                                 "decoder/b_slice.py", "encoder/b_host.py",
+                                 "encoder/gop.py", "encoder/me.py"])
 def test_scan_covers_the_ports_own_copies(rel):
-    """Rate control, the slice-group maps, the host intra encoder and the
-    SEI writers and parser are the port's own modules, not jm_tpu's."""
+    """Rate control, the slice-group maps, the host intra encoder, the
+    SEI writers and parser, the B-slice motion, the B MB coder with its
+    motion search and the GOP strings are the port's own modules, not
+    jm_tpu's."""
     assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
 
 
@@ -124,7 +128,9 @@ def test_deblock_never_falls_back_for_a_device_request():
     ("enable_vui", 1), ("sei_user_data", "text"), ("long_term_period", -1),
     ("ref_reorder", 2), ("poc_mem_mgmt", 2), ("data_partition", 2),
     ("redundant_period", -1), ("redundant_qp_off", 52),
-    ("redundant_qp_off", -1),
+    ("redundant_qp_off", -1), ("num_b", -1), ("num_b", 1.5),
+    ("hierarchical", 2), ("explicit_gop", 3), ("qp_b", 52), ("qp_b", -1),
+    ("sei_recovery_point", 1), ("mmco_policy", "idr"),
 ])
 def test_config_outside_slice_raises(field, value):
     cfg = EncoderConfig(width=32, height=32)
