@@ -47,8 +47,8 @@ Phases (any failure raises and exits non-zero):
   8. md_low: the 17-frame sequence encoded with device_rd=False, one
      launch per kernel and frame, frames/s and IDR / P ms, the P frames
      serialized on the host (packer overflow); IDR + P encoded again on
-     the CPU must give the same payloads and recon; torch.profiler over
-     one md_low P frame's pipe;
+     the CPU (by a worker, checked after phase 14) must give the same
+     payloads and recon; torch.profiler over one md_low P frame's pipe;
   9. a scene cut: the first CUT_FRAMES frames with frame 2 replaced by
      independent content (another seed), so that the pipe's intra
      speculation fails and the frame is finished on the per-frame path
@@ -57,8 +57,8 @@ Phases (any failure raises and exits non-zero):
      fallback, plus one per re-dispatched next frame. Prints the intra
      MBs re-encoded and each fallback frame's wall split (pipe,
      download, host re-encode, device deblock + prep_ref, serialize,
-     re-dispatch); the same frames on the CPU must give the same
-     payloads and recon;
+     re-dispatch); the same frames on the CPU (by a worker, checked
+     after phase 14) must give the same payloads and recon;
  10. the scene-cut stream decoded on the card (mixed P pictures): every
      frame equal to the encoder's recon, one launch per kernel and
      picture;
@@ -154,22 +154,47 @@ Phases (any failure raises and exits non-zero):
      per kernel and picture, the pictures' bytes and split; decoded on
      the card equal to the recon with one recovery point per open-GOP I;
      the IDR and the first mini-GOP (GOP_CPU frames) encoded on the CPU
-     with the same bytes and recon.
-The CPU references of phases 15-24 (the encodes on the CPU, the CPU
-decodes of the lossy stream and of the DP goldens and cif_main) run in
-CPU_WORKERS worker processes, started at phase 15 and stopped before the
-closing lines, while the card works through those phases.
+     with the same bytes and recon;
+ 25. weighted P at 1080p: the first WP_FRAMES frames as a fade to black
+     (luma scaled by 1 - WP_FADE k, chroma pulled toward 128 alike),
+     QP 28, SR 16, CAVLC (Main), weighted_pred 1, through
+     encode_stream: one launch per kernel and picture; the IDR and P
+     ms, the weighted P picture's split (reference download, estimate,
+     device quadrant SAD table, the serial host P coder's MB loop in ms
+     per MB, device deblock + prep_ref, serialize), its MB decisions and
+     table, its bytes beside the same frames with weighted_pred 0 on
+     the device pipe; both pictures encoded on the CPU with the same
+     bytes and recon;
+ 26. weighted CIF streams of the fade's top-left 352x288 (WP_CIF): (a)
+     num_b 1, CABAC, weighted P and explicit weighted B; (b) a pyramid
+     of 3 Bs with implicit weights, CAVLC; (c) weighted P with the LMS
+     estimate and wp_mcprec (each P picture coded, and deblocked, three
+     times); each with frames/s, the per-picture split, bytes and
+     launches, and encoded on the CPU with the same bytes and recon;
+ 27. weighted decode on the card: the streams of phases 25-26, each
+     equal to its encoder's recon and to its CPU decode, one launch per
+     kernel and picture; JM's goldens wp_p (explicit P), wp_bi
+     (implicit B) and wp_both (explicit P and B) against their
+     _rec.yuv, with the parse and device ms of each picture; CUDA-event
+     ms of the weighted inter_recon_p / inter_recon_b at 1080p beside
+     the unweighted ones on the same motion.
+The CPU references of phases 8-27 (the encodes on the CPU, the CPU
+decodes of the lossy stream, of the DP goldens, cif_main and the
+weighted streams) run in CPU_WORKERS worker processes, started at phase
+8 and stopped before the closing lines, while the card works through
+those phases.
 Phases 3, 6, 8-13 and 15-20 run on the native runtime, as the entry
 points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
 and parsed, every intra picture reconstructed and every CABAC slice
 decoded by the native runtime, but the data-partitioned slices of
-phase 18 and the B slices of phases 22-24, which only the Python
+phase 18 and the B slices of phases 22-27, which only the Python
 serializers and parsers handle (routes "dp" and "b").
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-24 alone, ``--from 22`` phases 22-24, without the closing JSON lines
-(a quicker check of those phases while they are developed).
+18-27 alone, ``--from 22`` phases 22-27, ``--from 25`` phases 25-27,
+without the closing JSON lines (a quicker check of those phases while
+they are developed).
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it holds the per-kernel numbers as JSON.
 """
@@ -211,6 +236,15 @@ GOP_CPU = 5          # of them encoded on the CPU: the IDR + first mini-GOP
 # JM's B goldens held against their _rec.yuv (phase 23; cif_main against
 # the CPU decode)
 B_GOLDENS = ("cavlc_b", "main3", "main9", "main9t", "poc1b")
+WP_FRAMES = 2        # frames of the 1080p weighted P stream (phase 25)
+WP_FADE = 0.05       # the fade's step per frame (phases 25-26)
+# phase 26's CIF configurations of the fade: (label, frames, keywords)
+WP_CIF = (("a", 5, dict(num_b=1, entropy="cabac", weighted_pred=1,
+                        weighted_bipred=1)),
+          ("b", 5, dict(num_b=3, hierarchical=1, weighted_bipred=2)),
+          ("c", 3, dict(weighted_pred=1, wp_method=1, wp_mcprec=1)))
+# JM's weighted prediction goldens (phase 27)
+WP_GOLDENS = ("wp_p", "wp_bi", "wp_both")
 DEVICE = "cuda"
 # the kernels' edge shapes (one MB, mb_w 2, mb_h 1, one MB column), each
 # with a parameter variant ("mixed" may switch the one MB off), and 2160p
@@ -643,6 +677,10 @@ class SplitTimedEncoder(IdrTimedEncoder):
         self._disp = disp
         return super()._finish_p(core, disp, *a, **kw)
 
+    def _encode_p_wp(self, packed, frame, disp, *a, **kw):
+        self._disp = disp
+        return super()._encode_p_wp(packed, frame, disp, *a, **kw)
+
     def _download_core(self, *a):
         return self._timed(self._disp, "download", super()._download_core,
                            *a)
@@ -672,34 +710,16 @@ def timed_encode(cfg, frames, cls=IdrTimedEncoder):
     return enc, payloads, dict(kernels.launches), time.perf_counter() - t0
 
 
-def cpu_cross_check(cfg, frames, payloads, enc, label: str) -> None:
-    """The frames encoded again on the CPU: the same payloads and recon."""
-    t0 = time.perf_counter()
-    cpu = Encoder(cfg, device="cpu")
-    cpu_payloads = cpu.encode_stream(frames)
-    for i, (a, b) in enumerate(zip(cpu_payloads, payloads)):
-        if a != b:
-            raise AssertionError(f"{label} frame {i}: CPU and CUDA payloads "
-                                 f"differ")
-    for i, (a, b) in enumerate(zip(cpu.results, enc.results)):
-        for plane in "YUV":
-            if not np.array_equal(getattr(a["frame"], plane),
-                                  getattr(b["frame"], plane)):
-                raise AssertionError(f"{label} frame {i} {plane}: recon "
-                                     f"differs")
-    if cpu.fallbacks != enc.fallbacks:
-        raise AssertionError(f"{label}: fallbacks {cpu.fallbacks} on the CPU,"
-                             f" {enc.fallbacks} on the card")
-    print(f"cross-check {label}: CPU payloads and recon of {len(frames)} "
-          f"frames equal the CUDA run ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+def md_low_cfg():
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=False)
 
 
 def md_low_phase(frames):
-    """Phase 8: the sequence with md_low; returns (encoder, payloads,
-    per-kernel launches)."""
-    cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
-                        device_rd=False)
+    """Phase 8: the sequence with md_low (its IDR + P are held against the
+    CPU encode after phase 14); returns (encoder, payloads, per-kernel
+    launches)."""
+    cfg = md_low_cfg()
     enc, payloads, launches, total_s = timed_encode(cfg, frames)
     n = len(frames)
     p_ms = (total_s - enc.idr_seconds) / (n - 1) * 1e3
@@ -716,18 +736,28 @@ def md_low_phase(frames):
         if cnt != n:
             raise AssertionError(f"md_low: {name} launched {cnt} times, "
                                  f"expected once for each of {n} frames")
-    cpu_cross_check(cfg, frames[:2], payloads[:2], enc, "md_low IDR + P")
     profile_p_frame(enc, frames[-1], cfg, "md_low P frame (pipe only)")
     return enc, payloads, launches
 
 
-def scene_cut_phase(frames):
-    """Phase 9: the scene cut; returns (encoder, payloads, launches)."""
+def cut_frames(frames):
+    """The scene cut: the first CUT_FRAMES frames, frame 2 from another
+    sequence."""
     cut = list(frames[:CUT_FRAMES])
     cut[2] = make_sequence(seed=1)[2]
-    cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
-                        device_rd=True)
-    enc, payloads, launches, total_s = timed_encode(cfg, cut,
+    return cut
+
+
+def rd_cfg():
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=True)
+
+
+def scene_cut_phase(frames):
+    """Phase 9: the scene cut (held against the CPU encode after phase
+    14); returns (encoder, payloads, launches)."""
+    cut = cut_frames(frames)
+    enc, payloads, launches, total_s = timed_encode(rd_cfg(), cut,
                                                     SplitTimedEncoder)
     check_routes("scene cut",
                  serialize=1 + len(enc.fallbacks) + len(enc.ovf))
@@ -764,7 +794,6 @@ def scene_cut_phase(frames):
               f"{sp['serialize']:.1f} ms, re-dispatch of frame {d + 1} "
               f"{'none' if redis_ms is None else f'{redis_ms:.1f} ms'}; "
               f"{wall + (redis_ms or 0):.1f} ms in all", flush=True)
-    cpu_cross_check(cfg, cut, payloads, enc, "scene cut")
     return enc, payloads, launches
 
 
@@ -1157,7 +1186,7 @@ def check_launches(launches, n: int, label: str) -> None:
                                  f"expected once for each of {n} pictures")
 
 
-# The CPU references of phases 15-24 (encodes of their first pictures,
+# The CPU references of phases 8-27 (encodes of their first pictures,
 # decodes) run in CPU_WORKERS worker processes while the card works
 # through those phases: on the card's host they take about half of the
 # phases' wall time when run in line.
@@ -1208,23 +1237,33 @@ def golden_bytes(name: str) -> bytes:
         return f.read()
 
 
-def start_cpu_references(pool, frames) -> dict:
-    """Submit the CPU references of phases 15-24 to the worker pool (the
-    longest first); returns their AsyncResults by name."""
-    return {
-        "b_encode": pool.apply_async(
-            cpu_encode, (b_cfg(), frames[:B_FRAMES], True)),
-        "gop": pool.apply_async(
-            cpu_encode, (gop_cfg(), cif(frames, GOP_CPU), True)),
-        "cif_main": pool.apply_async(cpu_decode, (golden_bytes("cif_main"),)),
-        "low_latency": pool.apply_async(
-            cpu_encode, (low_latency_cfg(), frames[:3])),
-        "resilient": pool.apply_async(
-            cpu_encode, (resilient_cfg(), frames[:4])),
-        "redundant": pool.apply_async(
-            cpu_redundant, (redundant_cfg(), frames[:LOSSY_CPU])),
-        **{name: pool.apply_async(cpu_decode, (golden_bytes(name),))
-           for name in ("dp1", "cif_dp")}}
+def start_cpu_references(pool, frames, first: int = 8) -> dict:
+    """Submit the CPU references of phases first..27 (8, 18, 22 or 25)
+    to the worker pool (the longest first within each group of phases);
+    returns their AsyncResults by name."""
+    jobs = []
+    if first <= 8:
+        jobs += [("scene_cut", cpu_encode, (rd_cfg(), cut_frames(frames))),
+                 ("md_low", cpu_encode, (md_low_cfg(), frames[:2]))]
+    if first <= 22:
+        jobs += [("b_encode", cpu_encode, (b_cfg(), frames[:B_FRAMES], True)),
+                 ("gop", cpu_encode, (gop_cfg(), cif(frames, GOP_CPU),
+                                      True)),
+                 ("cif_main", cpu_decode, (golden_bytes("cif_main"),))]
+    if first <= 8:
+        jobs += [("low_latency", cpu_encode, (low_latency_cfg(),
+                                              frames[:3]))]
+    if first <= 18:
+        jobs += [("resilient", cpu_encode, (resilient_cfg(), frames[:4])),
+                 ("redundant", cpu_redundant, (redundant_cfg(),
+                                               frames[:LOSSY_CPU]))]
+        jobs += [(name, cpu_decode, (golden_bytes(name),))
+                 for name in ("dp1", "cif_dp")]
+    jobs += [("wp_p", cpu_encode, (wp_cfg(), fade(frames[:WP_FRAMES])))]
+    jobs += [(f"wp_cif_{label}", cpu_encode,
+              (wp_cif_cfg(kw), cif(fade(frames[:n]), n)))
+             for label, n, kw in WP_CIF]
+    return {name: pool.apply_async(fn, args) for name, fn, args in jobs}
 
 
 def check_cpu_encode(label: str, job, payloads, enc, n: int) -> tuple:
@@ -1786,6 +1825,239 @@ def b_phases(frames, cpu_refs):
     return out
 
 
+# ---- 25-27: weighted prediction -----------------------------------------
+
+def fade(frames, step: float = WP_FADE):
+    """A fade to black: frame k's luma scaled by 1 - step k, its chroma
+    pulled toward 128 by the same factor."""
+    out = []
+    for k, (Y, U, V) in enumerate(frames):
+        f = 1.0 - step * k
+        out.append(tuple(
+            np.clip(c + (p.astype(np.float64) - c) * f, 0, 255)
+            .astype(np.uint8) for p, c in ((Y, 0.0), (U, 128.0),
+                                           (V, 128.0))))
+    return out
+
+
+def wp_cfg(weighted_pred: int = 1):
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=True, weighted_pred=weighted_pred)
+
+
+def wp_cif_cfg(kw):
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         device_rd=True, **kw)
+
+
+def wp_report(enc, label: str) -> None:
+    """Each picture of a weighted stream (coding order): type, QP, bytes,
+    wall ms, and a host-coded picture's split (reference download,
+    estimate, device SAD table, host MB loop in ms per MB, device deblock
+    + prep_ref, host serialize), its MB decisions, the host P coder's MB
+    loop by part (partition search, skip candidate, intra, inter commit;
+    ms per MB) and its tables."""
+    n_mbs = enc.mb_w * enc.mb_h
+    names = (("download_s", "reference download"), ("estimate_s",
+             "estimate"), ("sad_s", "device SAD table"), ("host_mb_s",
+             "host MB loop"), ("deblock_s", "device deblock + prep_ref"),
+             ("serialize_s", "host serialize"))
+    for r in enc.results:
+        d = r["disp"]
+        t = sum(enc.split.get(d, {}).get("picture", [0.0])) * 1e3
+        line = (f"{label} picture {d} {r['type']}"
+                f"{' (reference)' if r.get('ref') else ''} QP {r['qp']}: "
+                f"{r['bits'] // 8} B, {t:.1f} ms")
+        if "split" in r:
+            sp = {k: v * 1e3 for k, v in r["split"].items()}
+            line += " = " + ", ".join(
+                f"{name} {sp[k]:.1f} ms" for k, name in names if k in sp)
+            line += (f" ({sp['host_mb_s'] / n_mbs:.3f} ms/MB in the MB "
+                     f"loop); MBs {r['mix']}")
+            if r.get("mb_parts"):
+                line += "; MB loop parts " + ", ".join(
+                    f"{k} {v * 1e3 / n_mbs:.3f}"
+                    for k, v in r["mb_parts"].items()) + " ms/MB"
+            if r.get("wp_l0") is not None:
+                line += f"; table {r['wp_l0']}"
+        print(line, flush=True)
+
+
+def wp_p_phase(frames, cpu_ref, pool):
+    """Phase 25: the fade's IDR and weighted P picture at 1080p through
+    encode_stream (CAVLC, Main), beside the same frames with
+    weighted_pred 0 on the device pipe, held against the CPU encode
+    cpu_ref; returns (encoder, payloads, launches, the CPU decode job of
+    the stream)."""
+    frames = fade(frames[:WP_FRAMES])
+    enc, payloads, launches, total_s = b_encode(wp_cfg(), frames)
+    types = "".join(r["type"] for r in enc.results)
+    if types != "IP":
+        raise AssertionError(f"WP P: pictures {types}")
+    check_routes("WP P encode", serialize=2)
+    check_launches(launches, 2, "WP P encode")
+    plain, plain_payloads, _l, plain_s = timed_encode(wp_cfg(0), frames)
+    t = {d: sum(enc.split[d]["picture"]) * 1e3 for d in (0, 1)}
+    print(f"encode WP P 1080p {types} (fade {WP_FADE} per frame, CAVLC "
+          f"Main, weighted_pred 1, QP {QP}, SR 16): IDR {t[0]:.1f} ms, "
+          f"P {t[1]:.1f} ms, {sum(map(len, payloads))} stream bytes (the "
+          f"P picture {len(payloads[1])} B); weighted_pred 0 on the pipe: "
+          f"{sum(map(len, plain_payloads))} bytes (P "
+          f"{len(plain_payloads[1])} B), {plain_s * 1e3:.1f} ms for both; "
+          f"launches {launches}", flush=True)
+    wp_report(enc, "WP P 1080p")
+    check_cpu_encode("WP P IDR + P", cpu_ref, payloads, enc, 2)
+    return enc, payloads, launches, pool.apply_async(
+        cpu_decode, (b"".join(payloads),))
+
+
+def wp_cif_phase(frames, cpu_refs, pool) -> list:
+    """Phase 26: the fade's top-left 352x288 under WP_CIF's three
+    configurations, each through encode_stream on the card, one launch
+    per kernel and coding of a picture (wp_mcprec codes each P picture
+    three times), held against its CPU encode; returns per
+    configuration (label, encoder, payloads, launches, the CPU decode
+    job of the stream)."""
+    out = []
+    for label, n, kw in WP_CIF:
+        enc, payloads, launches, total_s = b_encode(
+            wp_cif_cfg(kw), cif(fade(frames[:n]), n))
+        types = "".join(r["type"] for r in enc.results)
+        n_b = types.count("B")
+        trials = 3 if kw.get("wp_mcprec") else 1
+        n_ser = (types.count("I") + trials * types.count("P")
+                 if kw.get("entropy") != "cabac" else 0)
+        check_routes(f"WP CIF ({label})", serialize=n_ser,
+                     b={"serialize": n_b})
+        # wp_mcprec codes (and deblocks, for its J) each P picture
+        # three times
+        check_launches(launches, len(types) + (trials - 1) *
+                       types.count("P"), f"WP CIF ({label})")
+        print(f"encode WP CIF ({label}) {types} (coding order; {kw}): "
+              f"{n / total_s:.3f} frames/s, {sum(map(len, payloads))} "
+              f"stream bytes, launches {launches}", flush=True)
+        wp_report(enc, f"WP CIF ({label})")
+        check_cpu_encode(f"WP CIF ({label})", cpu_refs[f"wp_cif_{label}"],
+                         payloads, enc, len(types))
+        out.append((label, enc, payloads, launches, pool.apply_async(
+            cpu_decode, (b"".join(payloads),))))
+    return out
+
+
+def wp_ops_timing() -> None:
+    """CUDA-event times at 1080p of the weighted device recon against the
+    unweighted one on the same random motion (two references, pdir
+    0..2, MVs within +-16 pixels; random weights and offsets, logWD 5):
+    inter_recon_p and inter_recon_b, median of 7."""
+    from jm_tpu_torch.ops.dec import inter_recon_b, inter_recon_p
+    from jm_tpu_torch.ops.enc import prep_ref
+    rng = np.random.default_rng(6)
+    mb_w, mb_h = W // 16, H // 16
+    n = mb_w * mb_h
+
+    def t(a):
+        return torch.as_tensor(a, device=DEVICE)
+
+    states = [prep_ref(*(t(rng.integers(0, 256, s, dtype=np.uint8))
+                         for s in ((H, W), (H // 2, W // 2),
+                                   (H // 2, W // 2)))) for _ in range(2)]
+    stacks = tuple(torch.stack([st[i] for st in states]) for i in range(3))
+    mv = t(rng.integers(-64, 65, (n, 16, 2)).astype(np.int32))
+    mv1 = t(rng.integers(-64, 65, (n, 16, 2)).astype(np.int32))
+    r0 = t(np.zeros((n, 4), np.int32))
+    r1 = t(np.ones((n, 4), np.int32))
+    pdir = t(rng.integers(0, 3, (n, 4)).astype(np.int8))
+    res_l = t(np.zeros((n, 16, 4, 4), np.int32))
+    res_c = t(np.zeros((n, 2, 4, 4, 4), np.int32))
+    inter = t(np.ones(n, bool))
+    wp = (t(rng.integers(-128, 128, (n, 4, 3)).astype(np.int32)),
+          t(rng.integers(-128, 128, (n, 4, 3)).astype(np.int32)),
+          t(rng.integers(-128, 128, (n, 4, 3)).astype(np.int32)),
+          t(rng.integers(-128, 128, (n, 4, 3)).astype(np.int32)),
+          t(np.full((n, 2), 5, np.int32)))
+    kw = dict(mb_w=mb_w, mb_h=mb_h)
+    ms = {}
+    for name, weights in (("p", None), ("p_wp", wp), ("b", None),
+                          ("b_wp", wp)):
+        if name.startswith("p"):
+            ms[name] = cuda_ms(lambda w=weights: inter_recon_p(
+                mv, r0, res_l, res_c, *stacks, inter, wp=w, **kw))
+        else:
+            ms[name] = cuda_ms(lambda w=weights: inter_recon_b(
+                mv, mv1, r0, r1, pdir, res_l, res_c, *stacks, inter, wp=w,
+                **kw))
+    print(f"WP tensor stages at {W}x{H} (CUDA events, median of 7): "
+          f"inter_recon_p weighted {ms['p_wp']:.3f} ms (unweighted "
+          f"{ms['p']:.3f} ms), inter_recon_b weighted {ms['b_wp']:.3f} ms "
+          f"(unweighted {ms['b']:.3f} ms)", flush=True)
+
+
+def wp_decode_phase(streams) -> dict:
+    """Phase 27: the streams of phases 25-26 decoded on the card, each
+    equal to its encoder's recon and to its CPU decode, one launch per
+    kernel and picture; the goldens wp_p, wp_bi, wp_both against their
+    _rec.yuv; the weighted stages timed. streams: (label, encoder,
+    payloads, CPU decode job). Returns the launches of each decode by
+    name (wp_p_decode, wp_cif_<label>_decode, wp_goldens_decode)."""
+    out = {}
+    for label, enc, payloads, job in streams:
+        n_b = sum(r["type"] == "B" for r in enc.results)
+        cabac = enc.cfg.entropy == "cabac"
+        dec = H264Decoder(device=DEVICE)
+        out[f"{label}_decode"] = card_decode(
+            payloads, enc, f"decode {label}", cabac=cabac, dec=dec,
+            b_parse=n_b)
+        t0 = time.perf_counter()
+        cpu = job.get()
+        got = [(r["frame"].Y, r["frame"].U, r["frame"].V)
+               for r in enc.results]
+        if len(cpu) != len(got) or any(
+                not np.array_equal(a[k], b[k]) for a, b in zip(cpu, got)
+                for k in range(3)):
+            raise AssertionError(f"decode {label}: the CPU decode differs")
+        print(f"decode {label}: the CPU decode equals the card's (CPU "
+              f"worker; waited {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    total = {}
+    for name in WP_GOLDENS:
+        dec = H264Decoder(device=DEVICE)
+        kernels.reset_launches()
+        native.reset_routes()
+        t0 = time.perf_counter()
+        got = decode_golden(name, dec)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gl = dict(kernels.launches)
+        check_launches(gl, len(got), f"decode {name}")
+        for k, v in gl.items():
+            total[k] = total.get(k, 0) + v
+        print(f"decode {name}.264 on the card "
+              f"({''.join(r['type'][0] for r in dec.pictures)}): "
+              f"{len(got)} frames equal {name}_rec.yuv; "
+              f"{len(got) / dt:.3f} frames/s; per picture " + ", ".join(
+                  f"{r['type'][0]} parse {r['parse_s'] * 1e3:.1f} ms, "
+                  f"device {r['device_s'] * 1e3:.1f} ms"
+                  for r in dec.pictures) + f"; launches {gl}", flush=True)
+    out["wp_goldens_decode"] = total
+    wp_ops_timing()
+    return out
+
+
+def wp_phases(frames, cpu_refs, pool) -> dict:
+    """Phases 25-27; returns the launches of each of their paths by name
+    (wp_p, wp_cif_a..c, each also with _decode, wp_goldens_decode)."""
+    out = {}
+    enc, payloads, out["wp_p"], job = wp_p_phase(frames, cpu_refs["wp_p"],
+                                                 pool)
+    streams = [("wp_p", enc, payloads, job)]
+    for label, cenc, cpay, launches, cjob in wp_cif_phase(frames, cpu_refs,
+                                                          pool):
+        out[f"wp_cif_{label}"] = launches
+        streams.append((f"wp_cif_{label}", cenc, cpay, cjob))
+    out.update(wp_decode_phase(streams))
+    return out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -1827,17 +2099,20 @@ def main() -> int:
     kernels.load()
     print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
     frames = make_sequence()
-    if sys.argv[1:] in (["--from", "18"], ["--from", "22"]):
+    if sys.argv[1:] in (["--from", "18"], ["--from", "22"],
+                        ["--from", "25"]):
         pool = cpu_pool()
         try:
-            refs = start_cpu_references(pool, frames)
+            refs = start_cpu_references(pool, frames, int(sys.argv[2]))
             if sys.argv[2] == "18":
                 later_phases(frames, None, refs)
-            b_phases(frames, refs)
+            if sys.argv[2] in ("18", "22"):
+                b_phases(frames, refs)
+            wp_phases(frames, refs, pool)
         finally:
             pool.terminate()
             pool.join()
-        print(f"phases {sys.argv[2]}-24 passed (partial run: no closing "
+        print(f"phases {sys.argv[2]}-27 passed (partial run: no closing "
               f"lines)")
         return 0
 
@@ -1957,23 +2232,30 @@ def main() -> int:
     print(f"decode cross-check: CPU IDR + P equal the CUDA decode "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # ---- 8-11. md_low, the scene cut, its decode, the all-modes RD ----
-    low_enc, low_payloads, low_launches = md_low_phase(frames)
-    cut_enc, cut_payloads, cut_launches = scene_cut_phase(frames)
-    cut_dec_launches = cut_decode_phase(cut_enc, cut_payloads)
-    rd_full_phase(enc, frames)
-
-    # ---- 12-13. CABAC encode and decode ----------------------------------
-    cab, cab_payloads, cab_launches = cabac_phase(frames, enc, payloads)
-    cab_dec_launches = cabac_decode_phase(cab, cab_payloads)
-
-    # ---- 14. the host runtime against its Python twins -----------------
-    host_runtime_phase(enc, payloads, low_enc, low_payloads, cab_payloads)
-
-    # ---- 15-17. slices, FMO, rate control, qp_p, POC types 1 / 2 -------
     pool = cpu_pool()
     try:
         cpu_refs = start_cpu_references(pool, frames)
+
+        # ---- 8-11. md_low, the scene cut, its decode, the all-modes RD
+        low_enc, low_payloads, low_launches = md_low_phase(frames)
+        cut_enc, cut_payloads, cut_launches = scene_cut_phase(frames)
+        cut_dec_launches = cut_decode_phase(cut_enc, cut_payloads)
+        rd_full_phase(enc, frames)
+
+        # ---- 12-13. CABAC encode and decode ------------------------------
+        cab, cab_payloads, cab_launches = cabac_phase(frames, enc, payloads)
+        cab_dec_launches = cabac_decode_phase(cab, cab_payloads)
+
+        # ---- 14. the host runtime against its Python twins -------------
+        host_runtime_phase(enc, payloads, low_enc, low_payloads,
+                           cab_payloads)
+        # the CPU encodes of phases 8 and 9, made by the workers meanwhile
+        check_cpu_encode("md_low IDR + P", cpu_refs["md_low"], low_payloads,
+                         low_enc, 2)
+        check_cpu_encode("scene cut", cpu_refs["scene_cut"], cut_payloads,
+                         cut_enc, CUT_FRAMES)
+
+        # ---- 15-17. slices, FMO, rate control, qp_p, POC types 1 / 2 ---
         ll_launches, ll_dec_launches = low_latency_phase(
             frames, cpu_refs["low_latency"])
         fmo_launches, fmo_dec_launches = fmo_phase(frames)
@@ -1988,6 +2270,10 @@ def main() -> int:
         # ---- 22-24. B pictures: 1080p encode and decode, the B goldens,
         # the CIF GOP variants ---------------------------------------------
         later.update(b_phases(frames, cpu_refs))
+
+        # ---- 25-27. weighted prediction: the 1080p weighted P picture,
+        # the CIF weighted P / B streams, their decode and the WP goldens
+        later.update(wp_phases(frames, cpu_refs, pool))
     finally:
         pool.terminate()
         pool.join()

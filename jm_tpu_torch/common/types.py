@@ -188,6 +188,13 @@ class SliceHeader:
     num_ref_idx_l1_active_minus1: int = 0
     ref_pic_list_mod_l0: list = field(default_factory=list)
     ref_pic_list_mod_l1: list = field(default_factory=list)
+    # pred_weight_table (spec 7.3.3.2), set only when the PPS asks for it:
+    # one {"luma": (w, o), "chroma": [[w, o], [w, o]]} entry per active
+    # reference of each list
+    luma_log2_weight_denom: int = 0
+    chroma_log2_weight_denom: int = 0
+    wp_l0: list = field(default_factory=list)
+    wp_l1: list = field(default_factory=list)
     no_output_of_prior_pics_flag: int = 0
     long_term_reference_flag: int = 0
     adaptive_ref_pic_marking_mode_flag: int = 0

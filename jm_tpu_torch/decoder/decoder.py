@@ -5,9 +5,9 @@ I / P / B streams, CAVLC (Baseline, Extended) or CABAC (Main) (4:2:0,
 of map types 0-6, data-partitioned CAVLC slices (NAL units 2-4),
 redundant pictures, list0 and list1 with several references, short- and
 long-term, in a DPB with the sliding window or MMCO marking, spatial and
-temporal direct prediction, non-reference pictures, POC types 0, 1 and
-2). Frames come out in decode order, as jm_tpu's: callers sort them by
-POC.
+temporal direct prediction, explicit and implicit weighted prediction,
+non-reference pictures, POC types 0, 1 and 2). Frames come out in
+decode order, as jm_tpu's: callers sort them by POC.
 
 Two phases per picture: the serial host parse of its slices
 (decoder/mb_parse.py for CAVLC, decoder/mb_parse_cabac.py for CABAC)
@@ -27,6 +27,10 @@ both entropy coders:
     the bS carries list-1 motion. Its reference lists come from
     decoder/b_slice.ref_lists_b and the modification commands, the
     direct prediction from the motion stored with list1[0].
+  - weighted prediction (explicit P and B, implicit B): each slice's
+    tables (decoder/wp.WPParams) become per-8x8 weights and offsets on
+    the host (wp.block_tables), which the device inter recon applies
+    (jm_tpu applies them in its host Reconstructor).
 The new reference state stays on the device in the DPB; the output
 planes are downloaded from the deblocked picture.
 
@@ -70,6 +74,7 @@ from .mb_parse_cabac import MBParserCABAC
 from .parset import parse_pps, parse_sps
 from .recon import Reconstructor, build_inv_scale
 from .sei import parse_sei_rbsp
+from .wp import WPParams, block_tables
 
 I32 = torch.int32
 
@@ -199,7 +204,7 @@ class H264Decoder:
                                    sps.frame_height_in_mbs),
                 "sps": sps, "pps": pps, "hdr0": hdr, "headers": [],
                 "poc": self.poc_ctx.compute(hdr, sps), "t0": t0,
-                "parse_s": 0.0, "refs": {}, "mb_succ": None,
+                "parse_s": 0.0, "refs": {}, "mb_succ": None, "wps": [],
             }
             if pps.num_slice_groups_minus1 > 0:
                 # FMO: each slice walks its slice group's MBs
@@ -251,6 +256,7 @@ class H264Decoder:
                 parser.br_c = dp_readers.get("c")
         parser.parse_slice_data()
         cur["headers"].append(hdr)
+        cur["wps"].append(WPParams(hdr, pps, lst, lst1, cur["poc"]))
         for f in lst + lst1:             # the picture's references by uid
             cur["refs"].setdefault(f.uid, f)
 
@@ -300,12 +306,14 @@ class H264Decoder:
     def _upload(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
-    def _inter_recon(self, pic, refs, tabs, inter, qp, mv, is_b):
+    def _inter_recon(self, pic, refs, tabs, inter, qp, mv, is_b, wps):
         """Device residual decode + inter recon of the inter MBs (qp, mv:
         the picture's, on the device). refs: the picture's reference
         frames; each MB's reference is found by uid, so slices with
         different list orders share one stack. is_b: a B picture, whose
-        blocks predict from list 0, list 1 or both."""
+        blocks predict from list 0, list 1 or both. wps: each slice's
+        WPParams; the weights are indexed by slice, list and ref_idx, not
+        by the stack (decoder/wp.block_tables)."""
         tabY, tabU, tabV, qpc_cb, qpc_cr = tabs
         up = self._upload
         res_l, res_c = D.p_dec_residuals(
@@ -321,14 +329,17 @@ class H264Decoder:
 
         stacks = tuple(torch.stack([f.state[i] for f in refs])
                        for i in range(3))
+        wp = None
+        if any(w.mode for w in wps):
+            wp = tuple(up(t) for t in block_tables(wps, pic))
         if is_b:
             return D.inter_recon_b(
                 mv, up(pic.mv_l1), stack_idx(pic.ref_pic_id),
                 stack_idx(pic.ref_pic_id_l1), up(pic.pdir), res_l, res_c,
-                *stacks, up(inter), mb_w=pic.mb_w, mb_h=pic.mb_h)
+                *stacks, up(inter), mb_w=pic.mb_w, mb_h=pic.mb_h, wp=wp)
         return D.inter_recon_p(mv, stack_idx(pic.ref_pic_id), res_l, res_c,
                                *stacks, up(inter), mb_w=pic.mb_w,
-                               mb_h=pic.mb_h)
+                               mb_h=pic.mb_h, wp=wp)
 
     def _reconstruct(self, pic, cur, rec):
         """Reconstruct, deblock and prep one parsed picture; fills the
@@ -344,13 +355,14 @@ class H264Decoder:
         qp, mv = up(pic.qp), up(pic.mv)
         if inter.all():
             rec["path"] = "inter"
-            Y, U, V = self._inter_recon(pic, refs, tabs, inter, qp, mv, is_b)
+            Y, U, V = self._inter_recon(pic, refs, tabs, inter, qp, mv, is_b,
+                                        cur["wps"])
         else:
             seed = None
             if inter.any():
                 rec["path"] = "mixed"
                 seed = [p.cpu().numpy() for p in self._inter_recon(
-                    pic, refs, tabs, inter, qp, mv, is_b)]
+                    pic, refs, tabs, inter, qp, mv, is_b, cur["wps"])]
             else:
                 rec["path"] = "intra"
             t1 = time.perf_counter()

@@ -12,7 +12,9 @@ dec_ref_pic_marking:635). What the decoder does not cover raises
 NotImplementedError naming the construct, before the slice's picture is
 decoded: ``check_scope`` for what the SPS / PPS declare, the header
 parse for SP / SI slices. A B slice adds direct_spatial_mv_pred_flag,
-num_ref_idx_l1_active_minus1 and the list-1 modification commands.
+num_ref_idx_l1_active_minus1 and the list-1 modification commands; a P
+slice of a PPS with weighted_pred_flag, and a B slice of one with
+weighted_bipred_idc 1, the pred_weight_table (spec 7.3.3.2).
 """
 
 from __future__ import annotations
@@ -35,8 +37,6 @@ def check_scope(sps: SPS, pps: PPS) -> None:
         out.append("lossless (qpprime_y_zero_transform_bypass)")
     if not sps.frame_mbs_only_flag:
         out.append("fields / MBAFF (frame_mbs_only_flag 0)")
-    if pps.weighted_pred_flag or pps.weighted_bipred_idc:
-        out.append("weighted prediction")
     if pps.transform_8x8_mode_flag:
         out.append("8x8 transform")
     if pps.constrained_intra_pred_flag:
@@ -97,6 +97,11 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
     if st == SliceType.B and br.flag():     # ..._flag_l1
         h.ref_pic_list_mod_l1 = _read_rplm(br)
 
+    # pred_weight_table (7.3.3.2)
+    if (pps.weighted_pred_flag and st == SliceType.P) or (
+            pps.weighted_bipred_idc == 1 and st == SliceType.B):
+        _read_pred_weight_table(br, h)
+
     # dec_ref_pic_marking (7.3.3.3)
     if nal.nal_ref_idc != 0:
         if h.is_idr:
@@ -142,6 +147,33 @@ def _read_rplm(br: BitReader) -> list[RefPicListMod]:
         if len(out) > 64:
             raise ValueError("runaway ref_pic_list_modification")
     return out
+
+
+def _read_pred_weight_table(br: BitReader, h: SliceHeader) -> None:
+    """The weights and offsets of every active reference of list 0 (and
+    list 1 of a B slice), num_ref_idx_lX_active_minus1 + 1 entries after
+    the slice's override; an entry without its flag takes the default
+    weight 1 << denom and offset 0 (4:2:0: chroma always present)."""
+    h.luma_log2_weight_denom = br.ue()
+    h.chroma_log2_weight_denom = br.ue()
+    for lst, nref in ((0, h.num_ref_idx_l0_active_minus1 + 1),
+                      (1, h.num_ref_idx_l1_active_minus1 + 1)):
+        if lst == 1 and h.slice_type != SliceType.B:
+            break
+        table = []
+        for _ in range(nref):
+            lw, lo = 1 << h.luma_log2_weight_denom, 0
+            if br.flag():           # luma_weight_flag
+                lw, lo = br.se(), br.se()
+            cw = [[1 << h.chroma_log2_weight_denom, 0] for _ in range(2)]
+            if br.flag():           # chroma_weight_flag
+                for j in range(2):
+                    cw[j] = [br.se(), br.se()]
+            table.append({"luma": (lw, lo), "chroma": cw})
+        if lst == 0:
+            h.wp_l0 = table
+        else:
+            h.wp_l1 = table
 
 
 def _read_mmco(br: BitReader) -> list[MMCOOp]:

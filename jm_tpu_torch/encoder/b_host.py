@@ -2,7 +2,9 @@
 _FrameEncoder._encode_b_mb (:3418-3528) with _b_pred_assemble (:3360),
 _mc_blk_b (:3351), _mc_chroma (:3326), _commit_inter_residual (:3409)
 and _code_luma_inter (:3114), for 4:2:0 frame pictures with flat quant,
-the 4x4 transform, no weighted prediction and one reference per list.
+the 4x4 transform and one reference per list. InterMBCoder holds the
+motion compensation and the inter residual that the P macroblock coder
+(encoder/p_host.py) shares.
 
 Per MB, in slice order (serial host code, as in jm_tpu):
   - spatial direct: its motion (decoder/b_slice.py) and its prediction,
@@ -19,7 +21,10 @@ then the inter residual (4x4 luma with JM's coefficient thresholding,
 4:2:0 chroma) and the recon. A direct MB without coefficients becomes
 B_Skip. The predictions are made per 4x4 block, each list's luma at
 quarter-pel and chroma at eighth-pel, the two averaged as
-(p0 + p1 + 1) >> 1: what a decoder reconstructs.
+(p0 + p1 + 1) >> 1, or with weighted bi-prediction (wp, the decoder's
+WPParams) weighted as a decoder does: what a decoder reconstructs. As in
+jm_tpu, only the direct candidate's cost and the coded prediction are
+weighted; the searches and the bi candidate's cost are not.
 """
 
 from __future__ import annotations
@@ -34,9 +39,6 @@ from . import me as ME
 from . import residual_np as RN
 from .p_intra import IntraMBCoder
 
-# the 4x4 blocks of each 8x8 quadrant (raster in the MB)
-_QUAD_BLKS = ([0, 1, 4, 5], [2, 3, 6, 7], [8, 9, 12, 13], [10, 11, 14, 15])
-
 
 @dataclass
 class HostRef:
@@ -48,21 +50,79 @@ class HostRef:
     uid: int
 
 
-class BPicture(IntraMBCoder):
+class InterMBCoder(IntraMBCoder):
+    """The inter side of a host MB coder: a reference's 4x4 motion
+    compensation and the inter residual, over the IntraMBCoder state (and
+    w / h, the picture's luma size)."""
+
+    def _mc_blk(self, ref: HostRef, px, py, bx, by, mv):
+        """One 4x4 luma block and its 2x2 chroma blocks from one reference
+        (the decoder's per-4x4 motion compensation)."""
+        mvx, mvy = int(mv[0]), int(mv[1])
+        yb = ME.mc_luma_block(ref.planes, (px + bx * 4) * 4 + mvx,
+                              (py + by * 4) * 4 + mvy, 4, 4, self.w, self.h)
+        cx8 = (px // 2 + bx * 2) * 8 + mvx
+        cy8 = (py // 2 + by * 2) * 8 + mvy
+        cw, ch = self.w // 2, self.h // 2
+        return (yb, ME.mc_chroma_block(ref.padU, cx8, cy8, 2, 2, cw, ch),
+                ME.mc_chroma_block(ref.padV, cx8, cy8, 2, 2, cw, ch))
+
+    # ---- residual ---------------------------------------------------------
+
+    def _code_luma_inter(self, addr, o, pred_y) -> int:
+        """The inter luma residual (4x4 transform, JM's thresholding of
+        cheap 8x8 quadrants and MBs, macroblock.c:901,1248): commits the
+        levels, nnz and recon; returns cbp_luma."""
+        pic = self.pic
+        px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
+        res = o.astype(np.int64) - pred_y
+        w4 = RN.np_forward4x4(res.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
+                              .reshape(16, 4, 4))
+        scan4 = RN.to_scan(RN.np_quant_4x4(w4, self.qp, False))
+        total = 0
+        for qb in ME.QUAD_BLKS:
+            cq = sum(RN.coeff_cost_scan(scan4[b]) for b in qb)
+            if cq <= RN.LUMA_COEFF_COST:
+                scan4[qb] = 0
+            else:
+                total += cq
+        if total <= RN.LUMA_MB_COEFF_COST:
+            scan4[:] = 0
+        pred_blocks = pred_y.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
+            .reshape(16, 4, 4)
+        rec = RN.recon_luma_4x4(pred_blocks, scan4, self.qp)
+        self.recY[py:py + 16, px:px + 16] = \
+            rec.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
+        pic.luma_coef[addr] = scan4
+        nnz = (scan4 != 0).sum(axis=1)
+        pic.luma_nnz[addr] = nnz
+        return sum(1 << q for q, qb in enumerate(ME.QUAD_BLKS)
+                   if nnz[qb].any())
+
+    def _commit_inter_residual(self, addr, o, pred_y, pred_u, pred_v):
+        cbp_luma = self._code_luma_inter(addr, o, pred_y)
+        cbp_chroma = self._code_chroma_residual(
+            addr, pred_u.astype(np.int64), pred_v.astype(np.int64),
+            intra=False)
+        self.pic.cbp[addr] = (cbp_chroma << 4) | cbp_luma
+
+
+class BPicture(InterMBCoder):
     """One B picture coded MB by MB on the host: ``pic`` (PictureData)
     and the undeblocked recon planes recY / recU / recV (numpy uint8).
     ``mix`` counts the MBs by decision (direct, skip, l0, l1, bi, i16)."""
 
     def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
                  ref0: HostRef, ref1: HostRef, col: B.ColMotion, sads0,
-                 sads1, slices, sr: int):
+                 sads1, slices, sr: int, wp=None):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
         lambda_me and lambda_mode4 of qp; ref0 / ref1: list0[0] and
         list1[0]; col: list1[0]'s motion; sads0 / sads1: the
         (N, (2 sr + 1)^2) integer search tables against each; slices: the
-        slice plan, MB address lists in decode order."""
+        slice plan, MB address lists in decode order; wp: the slice's
+        weighted prediction (decoder/wp.WPParams) or None."""
         pic = self._init_picture(orig, qp, qpc)
-        self.lam, self.lam4 = lam, lam4
+        self.lam, self.lam4, self.wp = lam, lam4, wp
         self.refs, self.col, self.sads = (ref0, ref1), col, (sads0, sads1)
         self.sr = sr
         self.h, self.w = self.origY.shape
@@ -78,18 +138,6 @@ class BPicture(IntraMBCoder):
                 self._encode_b_mb(int(addr))
 
     # ---- prediction -------------------------------------------------------
-
-    def _mc_blk(self, ref: HostRef, px, py, bx, by, mv):
-        """One 4x4 luma block and its 2x2 chroma blocks from one reference
-        (the decoder's per-4x4 motion compensation)."""
-        mvx, mvy = int(mv[0]), int(mv[1])
-        yb = ME.mc_luma_block(ref.planes, (px + bx * 4) * 4 + mvx,
-                              (py + by * 4) * 4 + mvy, 4, 4, self.w, self.h)
-        cx8 = (px // 2 + bx * 2) * 8 + mvx
-        cy8 = (py // 2 + by * 2) * 8 + mvy
-        cw, ch = self.w // 2, self.h // 2
-        return (yb, ME.mc_chroma_block(ref.padU, cx8, cy8, 2, 2, cw, ch),
-                ME.mc_chroma_block(ref.padV, cx8, cy8, 2, 2, cw, ch))
 
     def _pred_assemble(self, addr):
         """The MB's prediction from its motion rows in pic: (luma (16, 16),
@@ -109,55 +157,27 @@ class BPicture(IntraMBCoder):
             if pd in (B.PD_L1, B.PD_BI):
                 p1 = self._mc_blk(self.refs[1], px, py, bx, by,
                                   pic.mv_l1[addr, blk])
+            wp = self.wp
+            r0, r1 = int(pic.ref_idx[addr, q]), int(pic.ref_idx_l1[addr, q])
             if pd == B.PD_L0:
                 yb, ub, vb = p0
+                if wp is not None:
+                    yb, ub, vb = (wp.uni(p, 0, r0, c) for c, p in
+                                  enumerate(p0))
             elif pd == B.PD_L1:
                 yb, ub, vb = p1
+                if wp is not None:
+                    yb, ub, vb = (wp.uni(p, 1, r1, c) for c, p in
+                                  enumerate(p1))
+            elif wp is not None:
+                yb, ub, vb = (wp.bi(a, b, r0, r1, c) for c, (a, b) in
+                              enumerate(zip(p0, p1)))
             else:
                 yb, ub, vb = ((a + b + 1) >> 1 for a, b in zip(p0, p1))
             pred_y[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = yb
             pred_u[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = ub
             pred_v[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = vb
         return pred_y, pred_u, pred_v
-
-    # ---- residual ---------------------------------------------------------
-
-    def _code_luma_inter(self, addr, o, pred_y) -> int:
-        """The inter luma residual (4x4 transform, JM's thresholding of
-        cheap 8x8 quadrants and MBs, macroblock.c:901,1248): commits the
-        levels, nnz and recon; returns cbp_luma."""
-        pic = self.pic
-        px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
-        res = o.astype(np.int64) - pred_y
-        w4 = RN.np_forward4x4(res.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
-                              .reshape(16, 4, 4))
-        scan4 = RN.to_scan(RN.np_quant_4x4(w4, self.qp, False))
-        total = 0
-        for qb in _QUAD_BLKS:
-            cq = sum(RN.coeff_cost_scan(scan4[b]) for b in qb)
-            if cq <= RN.LUMA_COEFF_COST:
-                scan4[qb] = 0
-            else:
-                total += cq
-        if total <= RN.LUMA_MB_COEFF_COST:
-            scan4[:] = 0
-        pred_blocks = pred_y.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
-            .reshape(16, 4, 4)
-        rec = RN.recon_luma_4x4(pred_blocks, scan4, self.qp)
-        self.recY[py:py + 16, px:px + 16] = \
-            rec.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
-        pic.luma_coef[addr] = scan4
-        nnz = (scan4 != 0).sum(axis=1)
-        pic.luma_nnz[addr] = nnz
-        return sum(1 << q for q, qb in enumerate(_QUAD_BLKS)
-                   if nnz[qb].any())
-
-    def _commit_inter_residual(self, addr, o, pred_y, pred_u, pred_v):
-        cbp_luma = self._code_luma_inter(addr, o, pred_y)
-        cbp_chroma = self._code_chroma_residual(
-            addr, pred_u.astype(np.int64), pred_v.astype(np.int64),
-            intra=False)
-        self.pic.cbp[addr] = (cbp_chroma << 4) | cbp_luma
 
     # ---- mode decision ----------------------------------------------------
 

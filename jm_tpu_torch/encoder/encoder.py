@@ -7,13 +7,15 @@ groups (Baseline), a fixed QP, a P and a B QP of their own (qp_p, qp_b)
 or frame-level JVT-G012 rate control, POC types 0, 1 and 2, long-term
 anchors, MMCO marking, open-GOP I anchors with a recovery point SEI and
 CRA marking, redundant pictures, the loop filter on or off, a user-data
-SEI and VUI timing (twin of jm_tpu.encoder.Encoder with
+SEI and VUI timing, weighted prediction of P pictures (explicit) and of B
+pictures (explicit or implicit) (twin of jm_tpu.encoder.Encoder with
 pipeline="device": its pipelined ``encode_stream`` and its per-frame
 ``encode_frame``).
 
 The pipe (``encode_stream`` of a CAVLC stream without B pictures, with
 one slice per picture, a fixed QP, no intra refresh, the loop filter on,
-no long-term anchors and no data partitioning, whatever its POC type):
+no long-term anchors, no data partitioning and no weighted prediction,
+whatever its POC type):
   - IDR frames: ops/intra.i_frame_step on the device, then boundary
     strengths + deblock (the CUDA kernels on the card), then the host
     CAVLC serializer (encoder/syntax.py) with SPS / PPS;
@@ -36,12 +38,22 @@ the pipe), at the picture's QP:
   - P pictures: ops/enc.p_frame_step on the device, the download of its
     fields, the host commit with the serial re-encode of the intra MBs
     and the picture's slice boundaries (encoder/p_intra.py);
+  - P pictures with weighted_pred (jm_tpu never sends them down its
+    device path): the explicit table of each reference, estimated from
+    the source and the reference's deblocked planes (encoder/wp_est.py,
+    wp_method / wp_iter_mc), the quadrant integer search table on the
+    device (ops/enc.full_search_sad_quad), the serial host P coder
+    (encoder/p_host.py, jm_tpu's _encode_p_mb); with wp_mcprec the
+    picture is also coded with the offset-only and the default tables,
+    and the coding of least frame-level J = SSD + lambda_mode 8 bytes
+    ships (not under rate control, as in jm_tpu);
   - B pictures (num_b): the frames between two anchors wait for the later
     anchor, which is coded first; then each B: the 16x16 integer search
     tables against both anchors on the device (ops/enc.full_search_sad16),
     the serial host B coder (encoder/b_host.py: spatial direct / B_Skip,
     16x16 list 0, list 1 or bi-predicted, Intra16x16), as jm_tpu's
-    _encode_b_mb;
+    _encode_b_mb, with weighted_bipred 1 each list's estimated table in
+    the slice header, with 2 the implicit weights;
 then boundary strengths (both lists' motion) + deblock (per-MB QP and
 slice id; skipped with deblock=False) + reference prep on the device,
 and the host serializer, one NAL unit per slice (three, partitions A /
@@ -113,12 +125,15 @@ from ..ratectl import RateControl
 from .b_host import BPicture, HostRef
 from .gop import parse_explicit_hierarchy
 from .intra_host import IntraPicture
+from .p_host import PPicture
 from .p_intra import CORE_FIELDS, PictureCommit
 from .sei_write import (build_sei_rbsp, recovery_point,
                         user_data_unregistered)
 from .syntax import (serialize_slice, serialize_slice_dp, write_pps,
                      write_slice_header, write_sps)
 from .syntax_cabac import serialize_slice_cabac
+from .wp_est import (build_wp_params, estimate_explicit, estimate_lms,
+                     estimate_mc_iter)
 
 
 def lambda_me(qp: int) -> int:
@@ -129,6 +144,12 @@ def lambda_me(qp: int) -> int:
 def lambda_mode4(qp: int) -> int:
     """Penalty unit for non-most-probable intra-4x4 modes (4 lambda_me)."""
     return 4 * lambda_me(qp)
+
+
+def lambda_mode(qp: int) -> float:
+    """The SSD-domain Lagrange multiplier 0.85 * 2^((QP-12)/3) (lencod
+    lambda.c; jm_tpu/encoder/rdo.py lambda_mode), float64."""
+    return 0.85 * 2.0 ** ((qp - 12) / 3.0)
 
 
 @dataclass
@@ -142,10 +163,12 @@ class EncoderConfig:
     data partitioning and redundant pictures; with num_b, B pictures
     between the anchors (one per interval, a dyadic pyramid or an
     explicit GOP string), open-GOP I anchors with a recovery point SEI
-    and CRA marking. Values outside it raise ValueError, as do jm_tpu's
-    refusals with B pictures (POC types 1 / 2, FMO); redundant pictures
-    with data partitioning or with B pictures, and weighted_bipred (not
-    in the port) raise NotImplementedError naming the field."""
+    and CRA marking; explicit weighted prediction of P pictures and
+    explicit or implicit weighted bi-prediction. Values outside it raise
+    ValueError, as do jm_tpu's refusals with B pictures (POC types 1 / 2,
+    FMO) and FMO with weighted prediction (profile 77) without data
+    partitioning; redundant pictures with data partitioning or with B
+    pictures raise NotImplementedError naming the field."""
     width: int = 176
     height: int = 144
     qp: int = 28                 # I-picture QP (and P without qp_p / RC)
@@ -211,7 +234,16 @@ class EncoderConfig:
                                  # open-GOP I (intra_period with num_b)
     mmco_policy: str = ""        # "cra": the anchor after an open-GOP I
                                  # unmarks the references before it (MMCO 1)
-    weighted_bipred: int = 0     # weighted bi-prediction: outside the port
+    weighted_pred: int = 0       # 1: explicit weighted prediction of P
+                                 # pictures (lencod WeightedPrediction)
+    wp_method: int = 0           # its estimate: 0 the DC ratio, 1 LMS
+                                 # (wp_lms.c)
+    wp_iter_mc: int = 0          # > 0: that many rounds of the motion-
+                                 # compensated estimate (WPIterMC)
+    wp_mcprec: int = 0           # 1: also code each P picture with the
+                                 # offset-only and the default tables, keep
+                                 # the least frame J (WPMCPrecision)
+    weighted_bipred: int = 0     # B pictures: 0 off, 1 explicit, 2 implicit
 
 
 def _check_config(cfg: EncoderConfig) -> None:
@@ -299,13 +331,35 @@ def _check_config(cfg: EncoderConfig) -> None:
         raise NotImplementedError(
             "redundant pictures: IPPP single-view frame coding only "
             "(not with data partitioning, as in jm_tpu)")
+    _check_wp_config(cfg)
     _check_b_config(cfg)
+
+
+def _check_wp_config(cfg: EncoderConfig) -> None:
+    """The weighted prediction fields, and jm_tpu's refusal of FMO in
+    profile 77 (weighted prediction makes a CAVLC stream Main unless data
+    partitioning makes it Extended)."""
+    for name, values in (("weighted_pred", (0, 1)), ("wp_method", (0, 1)),
+                         ("wp_mcprec", (0, 1)),
+                         ("weighted_bipred", (0, 1, 2))):
+        if getattr(cfg, name) not in values or \
+                isinstance(getattr(cfg, name), bool):
+            raise ValueError(f"EncoderConfig.{name}={getattr(cfg, name)!r}:"
+                             f" one of {values}")
+    if not isinstance(cfg.wp_iter_mc, int) or cfg.wp_iter_mc < 0 \
+            or isinstance(cfg.wp_iter_mc, bool):
+        raise ValueError(f"EncoderConfig.wp_iter_mc={cfg.wp_iter_mc!r}: an "
+                         "integer >= 0")
+    if (cfg.weighted_pred or cfg.weighted_bipred) and \
+            cfg.num_slice_groups > 1 and not cfg.data_partition:
+        raise ValueError("EncoderConfig.num_slice_groups: FMO is not "
+                         "allowed in profile 77 (weighted prediction)")
 
 
 def _check_b_config(cfg: EncoderConfig) -> None:
     """The B-picture fields, and jm_tpu's refusals with B pictures
     (jm_tpu/encoder/encoder.py:297-331, :367)."""
-    for name in ("num_b", "weighted_bipred"):
+    for name in ("num_b",):
         if not isinstance(getattr(cfg, name), int) or getattr(cfg, name) < 0:
             raise ValueError(f"EncoderConfig.{name}={getattr(cfg, name)!r}:"
                              " an integer >= 0")
@@ -322,10 +376,6 @@ def _check_b_config(cfg: EncoderConfig) -> None:
     if cfg.mmco_policy not in ("", "cra"):
         raise ValueError(f"EncoderConfig.mmco_policy={cfg.mmco_policy!r}: "
                          "'' or 'cra'")
-    if cfg.weighted_bipred:
-        raise NotImplementedError(
-            f"EncoderConfig.weighted_bipred={cfg.weighted_bipred}: weighted "
-            "bi-prediction is not in the port")
     if not cfg.num_b:
         return
     if cfg.explicit_gop:
@@ -446,7 +496,8 @@ class Encoder:
             self.dpb_size = min(16, self.dpb_size + 1)
         self.sps = SPS(
             profile_idc=88 if cfg.data_partition else (
-                77 if cabac or cfg.num_b else 66),
+                77 if cabac or cfg.num_b or cfg.weighted_pred
+                or cfg.weighted_bipred else 66),
             level_idc=level,
             log2_max_frame_num_minus4=4,
             pic_order_cnt_type=cfg.poc_type,
@@ -467,6 +518,8 @@ class Encoder:
                             "fixed_frame_rate": 1, "pic_struct_present": 0}
         self.pps = PPS(num_ref_idx_l0_default_active_minus1=0,
                        entropy_coding_mode_flag=1 if cabac else 0,
+                       weighted_pred_flag=cfg.weighted_pred,
+                       weighted_bipred_idc=cfg.weighted_bipred,
                        redundant_pic_cnt_present_flag=
                        1 if cfg.redundant_period else 0,
                        deblocking_filter_control_present_flag=
@@ -551,12 +604,14 @@ class Encoder:
 
     def _pipe_ok(self) -> bool:
         """The pipe covers CAVLC without B pictures, with one slice group
-        and no slice mode, a fixed QP, no intra refresh, the loop filter on, no long-term
-        anchors and no data partitioning, any POC type, with or without
-        redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI (jm_tpu
-        _pipe_ok); everything else takes the per-frame path."""
+        and no slice mode, a fixed QP, no intra refresh, the loop filter
+        on, no long-term anchors, no data partitioning and no weighted
+        prediction, any POC type, with or without redundant_period,
+        poc_mem_mgmt, ref_reorder, SEI or VUI (jm_tpu _pipe_ok);
+        everything else takes the per-frame path."""
         cfg = self.cfg
         return (cfg.num_b == 0 and cfg.entropy == "cavlc"
+                and not cfg.weighted_pred
                 and cfg.intra_mb_refresh == 0
                 and cfg.slice_mode == 0 and cfg.num_slice_groups == 1
                 and self.rc is None and cfg.qp_p is None and cfg.deblock
@@ -668,6 +723,8 @@ class Encoder:
         qp = self.rc.pict_qp("P") if self.rc is not None else \
             (cfg.qp if cfg.qp_p is None else cfg.qp_p)
         forced = self._refresh_set()
+        if cfg.weighted_pred:
+            return self._encode_p_wp(packed, frame, disp, forced, qp)
         ref = self._ref_list_p(2 * (disp - self._idr_disp))[0]
         core = self._p_step(packed, ref, qp)
         return self._finish_p(core, disp, frame, forced, qp, packed)
@@ -744,8 +801,8 @@ class Encoder:
         (encoder/b_host.py), boundary strengths + deblock + reference prep
         on the device, the host serializer (with slice_mode 2 the picture
         re-coded until its slices fit, the DPB reset before each try, as
-        jm_tpu does). results records the wall seconds of each step and
-        the MB decisions."""
+        jm_tpu does; with weighted_bipred the tables first). results
+        records the wall seconds of each step and the MB decisions."""
         cfg = self.cfg
         poc = 2 * (disp - self._idr_disp)
         if self.rc is not None:
@@ -757,6 +814,18 @@ class Encoder:
             qp = min(51, qp + max(0, layer - 1))   # temporal-layer offset
         split = {}
         t = time.perf_counter()
+        wp_l0 = wp_l1 = wp = None
+        if cfg.weighted_bipred:
+            # each list's reference's table (jm_tpu encoder.py:1723-1736)
+            if cfg.weighted_bipred == 1:
+                est = estimate_lms if cfg.wp_method == 1 \
+                    else estimate_explicit
+                wp_l0 = est(*frame, [prev_anchor])
+                wp_l1 = est(*frame, [next_anchor])
+            wp = build_wp_params(SliceType.B, self.pps, [prev_anchor],
+                                 [next_anchor], poc, wp_l0, wp_l1)
+        t, split["estimate_s"] = time.perf_counter(), \
+            time.perf_counter() - t
         packed = self._upload(frame)
         srcY = self._planes(packed)[0]
         sads = [E.full_search_sad16(srcY, f.state[0][0], self.mb_w,
@@ -775,7 +844,8 @@ class Encoder:
             t0 = time.perf_counter()
             b = BPicture(frame, qp, chroma_qp(
                 qp, self.pps.chroma_qp_index_offset), lambda_me(qp),
-                lambda_mode4(qp), *refs, col, *sads, plan, cfg.search_range)
+                lambda_mode4(qp), *refs, col, *sads, plan, cfg.search_range,
+                wp)
             split["host_mb_s"] += time.perf_counter() - t0
             return b
 
@@ -795,7 +865,8 @@ class Encoder:
                 pic, SliceType.B, poc, qp, plan, sizes,
                 nal_ref_idc=2 if as_ref else 0, is_ref=as_ref,
                 ref_mod_l0=self._ref_mod_ops(d0, prev_anchor),
-                ref_mod_l1=self._ref_mod_ops(d1, next_anchor))
+                ref_mod_l1=self._ref_mod_ops(d1, next_anchor),
+                wp_l0=wp_l0, wp_l1=wp_l1)
             split["serialize_s"] += time.perf_counter() - t0
             return out
 
@@ -1219,6 +1290,98 @@ class Encoder:
                                     motion=_motion(c.pic),
                                     intra_mbs=len(c.intra_mbs),
                                     ref_poc=ref.poc, **info)
+
+    def _encode_p_wp(self, packed, frame, disp: int, forced, qp: int) -> bytes:
+        """A P picture with weighted prediction (jm_tpu _emit_anchor
+        :1226-1351 and _FrameEncoder's host path): the reference's
+        deblocked planes downloaded once, the explicit table estimated
+        (wp_iter_mc, else wp_method); with wp_mcprec and no rate control
+        also the offset-only and the default tables. Each table: the
+        quadrant search table on the device, the serial host P coder
+        under the slice plan (re-coded until the slices fit with
+        slice_mode 2), deblock on the device, the host serializer with
+        the table in every slice header; of several, the coding of least
+        frame-level J = SSD + lambda_mode(qp) 8 bytes (the first on a
+        tie). Then the reference prep, the redundant coding when one is
+        due, and the DPB. results records the table, the wall seconds of
+        each step, the MB decisions and the host MB loop's parts."""
+        cfg = self.cfg
+        poc = 2 * (disp - self._idr_disp)
+        ref = self._ref_list_p(poc)[0]
+        lt, hdr, victims = self._anchor_marking(poc)
+        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
+        frame = tuple(np.asarray(p, np.uint8) for p in frame)
+        split = {}
+        t = time.perf_counter()
+        host = ref.host_ref()
+        _ = ref.Y                        # the deblocked planes, once
+        t, split["download_s"] = time.perf_counter(), \
+            time.perf_counter() - t
+        refs = [ref]
+        if cfg.wp_iter_mc > 0:
+            table = estimate_mc_iter(*frame, refs, iters=cfg.wp_iter_mc)
+        else:
+            est = estimate_lms if cfg.wp_method == 1 else estimate_explicit
+            table = est(*frame, refs)
+        tables = [table]
+        if cfg.wp_mcprec and self.rc is None:
+            tables += [estimate_lms(*frame, refs, select_offset=1),
+                       [{"luma": (32, 0), "chroma": ((32, 0), (32, 0))}
+                        for _ in refs]]
+        t, split["estimate_s"] = time.perf_counter(), \
+            time.perf_counter() - t
+        planes = self._planes(packed)
+        sads = E.full_search_sad_quad(planes[0], ref.state[0][0], self.mb_w,
+                                      self.mb_h, cfg.search_range) \
+            .cpu().numpy()
+        split["sad_s"] = time.perf_counter() - t
+        split["host_mb_s"] = split["serialize_s"] = split["deblock_s"] = 0.0
+        best = None
+        for table in tables:
+            wp = build_wp_params(SliceType.P, self.pps, refs, [], poc,
+                                 wp_l0=table)
+
+            def code(plan, wp=wp):
+                t0 = time.perf_counter()
+                c = PPicture(frame, qp, qpc, lambda_me(qp), lambda_mode4(qp),
+                             host, sads, plan, cfg.search_range, forced, wp)
+                split["host_mb_s"] += time.perf_counter() - t0
+                return c
+
+            def serialize(pic, plan, sizes, table=table):
+                t0 = time.perf_counter()
+                out = self._serialize_p(pic, disp, qp, plan, sizes,
+                                        wp_l0=table, **hdr)
+                split["serialize_s"] += time.perf_counter() - t0
+                return out
+
+            c, (nal, info), plan = self._fit_slices(code, serialize)
+            t = time.perf_counter()
+            dec = self._loop_filter(c.rec, c.pic)
+            j = 0.0
+            if len(tables) > 1:
+                ssd = sum(int(((s.to(torch.int64) - d.to(torch.int64)) ** 2)
+                              .sum()) for s, d in zip(planes, dec))
+                j = float(ssd) + lambda_mode(qp) * 8 * len(nal)
+            split["deblock_s"] += time.perf_counter() - t
+            if best is None or j < best[0]:
+                best = (j, c, nal, info, plan, dec, table)
+        _j, c, nal, info, plan, dec, table = best
+        t = time.perf_counter()
+        state = E.prep_ref(*dec)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        split["deblock_s"] += time.perf_counter() - t
+        if cfg.redundant_period and \
+                self.frame_idx % cfg.redundant_period == 0:
+            nal += self._redundant(packed, frame, poc, qp, ref)
+        self._rc_update("P", qp, nal, planes[0], dec[0])
+        return self._commit_p_frame(nal, disp, state, qp, len(plan),
+                                    long_term=lt, victims=victims,
+                                    motion=_motion(c.pic),
+                                    intra_mbs=c.mix["i16"], ref_poc=ref.poc,
+                                    wp_l0=table, split=split, mix=c.mix,
+                                    mb_parts=c.part_s, **info)
 
     def _redundant(self, packed, frame, poc: int, qp: int, ref: Picture,
                    core=None) -> bytes:

@@ -1,16 +1,19 @@
-"""Host motion search and motion compensation of the B macroblock coder
-(encoder/b_host.py): the mvd bit lengths, the 4x4 Hadamard SATD, the
+"""Host motion search and motion compensation of the B and P macroblock
+coders (encoder/b_host.py, encoder/p_host.py): the quadrants' 4x4
+blocks, the mvd bit lengths, the 4x4 Hadamard SATD, the
 integer search's rate and spiral tie-break tables, its arg-min, the
 half- then quarter-pel refinement, and the quarter-pel luma / eighth-pel
-chroma block fetch. Twin of jm_tpu/encoder/me.py (mv_bits, satd,
-int_rate_tab, spiral_rank_tab, best_int_mv_tiebreak, subpel_refine) and
+chroma block fetch. Twin of jm_tpu/encoder/me.py (QUAD_BLKS, mv_bits,
+satd, int_rate_tab, spiral_rank_tab, best_int_mv_tiebreak, subpel_refine
+with its SATD default) and
 jm_tpu/ops/interp.py (mc_luma_block, mc_chroma_block), numpy.
 
 A reference's planes are its device reference state downloaded
 (ops/enc.prep_ref: the INT, B, H, J quarter-pel planes and the padded
 chroma, PAD samples of replicated border), which holds the same samples
 as jm_tpu's interp.make_luma_planes / pad_plane. The integer search's SAD
-table is computed on the device (ops/enc.full_search_sad16).
+tables are computed on the device (ops/enc.full_search_sad16 and
+full_search_sad_quad).
 """
 
 from __future__ import annotations
@@ -18,6 +21,11 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.consts import PAD, QPEL_TAB
+
+
+# the 4x4 blocks of each 8x8 quadrant (raster in the MB)
+QUAD_BLKS = np.array([[0, 1, 4, 5], [2, 3, 6, 7],
+                      [8, 9, 12, 13], [10, 11, 14, 15]], np.int32)
 
 
 def ue_len(v: int) -> int:

@@ -30,6 +30,7 @@ from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
 from ..decoder.b_slice import PD_BI, PD_L0, PD_L1
 from .cavlc_write import write_residual_block
+from .wp_est import CHROMA_DENOM, LUMA_DENOM
 
 # B mb_type of a 16x16 partition by prediction direction
 B_MBTYPE_16x16 = {PD_L0: 1, PD_L1: 2, PD_BI: 3}
@@ -212,6 +213,35 @@ def write_pps(pps) -> bytes:
     return bw.get_bytes()
 
 
+def _write_pred_weight_table(bw: BitWriter, slice_type: SliceType, wp_l0,
+                             wp_l1, num_l0: int, num_l1: int) -> None:
+    """Spec 7.3.3.2 at denominator 5 (encoder/wp_est.py), 4:2:0: a flag
+    and the weight and offset of each component whose entry is not the
+    default (jm_tpu/encoder/syntax.py _write_pred_weight_table; lencod
+    header.c pred_weight_table)."""
+    bw.ue(LUMA_DENOM)
+    bw.ue(CHROMA_DENOM)
+    dl, dc = 1 << LUMA_DENOM, 1 << CHROMA_DENOM
+    lists = ((wp_l0, num_l0), (wp_l1, num_l1)) \
+        if slice_type == SliceType.B else ((wp_l0, num_l0),)
+    for table, nref in lists:
+        for r in range(nref):
+            e = table[r] if r < len(table) else {
+                "luma": (dl, 0), "chroma": ((dc, 0), (dc, 0))}
+            lw, lo = e["luma"]
+            bw.flag(1 if (lw, lo) != (dl, 0) else 0)
+            if (lw, lo) != (dl, 0):
+                bw.se(lw)
+                bw.se(lo)
+            cws = [tuple(c) for c in e["chroma"]]
+            nondefault = any(c != (dc, 0) for c in cws)
+            bw.flag(1 if nondefault else 0)
+            if nondefault:
+                for cw, co in cws:
+                    bw.se(cw)
+                    bw.se(co)
+
+
 def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                        frame_num: int, idr: bool, idr_pic_id: int = 0,
                        qp: int, first_mb: int = 0, poc_lsb: int = 0,
@@ -220,7 +250,7 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                        is_ref: bool = True, long_term_flag: int = 0,
                        mmco_ops=None, ref_mod_l0=None,
                        redundant_pic_cnt: int = 0, num_ref_idx_l1: int = 1,
-                       ref_mod_l1=None) -> None:
+                       ref_mod_l1=None, wp_l0=None, wp_l1=None) -> None:
     """Spec 7.3.3 slice header of an I, P or B frame-picture slice
     (lencod/src/header.c:116 SliceHeader): pic_order_cnt_lsb for POC
     type 0 only, redundant_pic_cnt when the PPS has the flag; for B
@@ -230,7 +260,11 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
     (is_ref): the IDR's long_term_flag, else the MMCO commands mmco_ops
     ((op, value1[, value2]) tuples) or the sliding window;
     cabac_init_idc for P and B slices of a CABAC PPS,
-    slice_group_change_cycle for FMO map types 3-5."""
+    slice_group_change_cycle for FMO map types 3-5; the pred_weight_table
+    of wp_l0 / wp_l1 (each active reference's {"luma": (w, o), "chroma":
+    ((w, o), (w, o))}, a missing entry the default) in a P slice of a PPS
+    with weighted_pred_flag and a B slice of one with weighted_bipred_idc
+    1."""
     bw.ue(first_mb)
     bw.ue(int(slice_type) + 5)      # all slices in picture share the type
     bw.ue(pps.pic_parameter_set_id)
@@ -263,6 +297,10 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                     bw.ue(idc)
                     bw.ue(val)
                 bw.ue(3)
+    if (pps.weighted_pred_flag and slice_type == SliceType.P) or \
+            (pps.weighted_bipred_idc == 1 and is_b):
+        _write_pred_weight_table(bw, slice_type, wp_l0 or [], wp_l1 or [],
+                                 num_ref_idx_l0, num_ref_idx_l1)
     if is_ref:
         if idr:
             bw.flag(0)              # no_output_of_prior_pics

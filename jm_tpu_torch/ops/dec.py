@@ -13,9 +13,13 @@ get_block_chroma). Window origins are clamped into the padded planes,
 whose replicated border makes the clamp exact for any MV.
 
 A B picture's blocks are predicted from each list in the same way and
-combined per 8x8 prediction direction. Every function runs on the
-tensors' device. Scope: 4:2:0 frame pictures with the 4x4 transform, no
-weighted prediction.
+combined per 8x8 prediction direction. With weighted prediction (the
+optional ``wp`` argument) each 8x8's weights and offsets, made on the
+host from the slice tables (decoder/wp.py), are applied to the
+predictions before the residual (spec 8.4.2.3), as jm_tpu does on the
+host (decoder/recon.py _recon_inter with WPParams.uni / .bi). Every
+function runs on the tensors' device. Scope: 4:2:0 frame pictures with
+the 4x4 transform.
 """
 
 from __future__ import annotations
@@ -131,6 +135,42 @@ def _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack, *,
     return pred, cpred
 
 
+def _weigh(p0, p1, pd, w0, o0, w1, o1, logwd):
+    """Spec 8.4.2.3.2 on blocks of either plane: p0 / p1 the list-0 / 1
+    predictions (p1 None for a P picture), pd the direction of each block
+    (0 list 0, 1 list 1, 2 both), w0 / o0 / w1 / o1 each block's weights
+    and offsets, logwd its logWD, all broadcast to p0. One list:
+    ((p w + 2^(logWD - 1)) >> logWD) + o (no rounding term at logWD 0);
+    both: ((p0 w0 + p1 w1 + 2^logWD) >> (logWD + 1)) + ((o0 + o1 + 1)
+    >> 1). Clipped to 0..255 (before the residual is added)."""
+    one = torch.ones_like(logwd)
+    half = (one << logwd) >> 1
+    out = ((p0 * w0 + half) >> logwd) + o0
+    if p1 is not None:
+        u1 = ((p1 * w1 + half) >> logwd) + o1
+        bi = ((p0 * w0 + p1 * w1 + (one << logwd)) >> (logwd + 1)) \
+            + ((o0 + o1 + 1) >> 1)
+        out = torch.where(pd == 1, u1, torch.where(pd == 2, bi, out))
+    return torch.clamp(out, 0, 255)
+
+
+def _weigh_planes(pred, cpred, pred1, cpred1, pd, wp):
+    """The weighted luma (N, 16, 4, 4) and chroma (N, 16, 2, 2, 2)
+    predictions. wp = (w0, o0, w1, o1, logwd): the weights and offsets of
+    each list (N, 4, 3) per 8x8 and component (Y, Cb, Cr), logwd (N, 2)
+    the luma and chroma logWD of each MB; pd (N, 16) per 4x4 block."""
+    w0, o0, w1, o1, logwd = (t.to(I32) for t in wp)
+    blk = torch.arange(16, device=pred.device)
+    quad = (blk // 8) * 2 + (blk % 4) // 2
+    y = [t[:, quad, 0, None, None] for t in (w0, o0, w1, o1)]
+    c = [t[:, quad, 1:, None, None] for t in (w0, o0, w1, o1)]
+    lum, chrom = pd[..., None, None], pd[..., None, None, None]
+    py = _weigh(pred, pred1, lum, *y, logwd[:, 0, None, None, None])
+    pc = _weigh(cpred, cpred1, chrom, *c,
+                logwd[:, 1, None, None, None, None])
+    return py, pc
+
+
 def _recon(pred, cpred, res_l, res_c, inter_mask, *, mb_w: int, mb_h: int):
     """Prediction + residual, clipped, as (Y, U, V) uint8 planes; the
     MBs outside inter_mask zero."""
@@ -153,24 +193,30 @@ def _recon(pred, cpred, res_l, res_c, inter_mask, *, mb_w: int, mb_h: int):
 
 
 def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
-                  padV_stack, inter_mask, *, mb_w: int, mb_h: int):
+                  padV_stack, inter_mask, *, mb_w: int, mb_h: int,
+                  wp=None):
     """Inter reconstruction of every inter MB of a P picture.
 
     mv (N, 16, 2) quarter-pel per raster 4x4 block; ref_idx (N, 4) list0
     index per 8x8; res_l (N, 16, 4, 4), res_c (N, 2, 4, 4, 4) int32;
     planes_stack (R, 4, H+2P, W+2P) uint8, padU_stack / padV_stack
     (R, H/2+2P, W/2+2P) uint8 (ops/enc.prep_ref of each reference);
-    inter_mask (N,) bool. Returns (Y, U, V) uint8 planes, the MBs outside
-    inter_mask zero."""
+    inter_mask (N,) bool; wp None (default prediction) or the explicit
+    weighted prediction (w0, o0, w1, o1, logwd) of _weigh_planes (the
+    list-1 tables unused). Returns (Y, U, V) uint8 planes, the MBs
+    outside inter_mask zero."""
     pred, cpred = _mc_pred(mv, ref_idx, planes_stack, padU_stack,
                            padV_stack, mb_w=mb_w, mb_h=mb_h)
+    if wp is not None:
+        pd = torch.zeros(pred.shape[:2], dtype=I32, device=pred.device)
+        pred, cpred = _weigh_planes(pred, cpred, None, None, pd, wp)
     return _recon(pred, cpred, res_l, res_c, inter_mask, mb_w=mb_w,
                   mb_h=mb_h)
 
 
 def inter_recon_b(mv, mv_l1, ref_idx, ref_idx_l1, pdir, res_l, res_c,
                   planes_stack, padU_stack, padV_stack, inter_mask, *,
-                  mb_w: int, mb_h: int):
+                  mb_w: int, mb_h: int, wp=None):
     """Inter reconstruction of every inter MB of a B picture (defined by
     jm_tpu/decoder/recon.py Reconstructor._recon_inter / _mc_4x4, spec
     8.4.2.3.1): each 4x4 block is predicted from list 0, list 1 or both
@@ -180,7 +226,9 @@ def inter_recon_b(mv, mv_l1, ref_idx, ref_idx_l1, pdir, res_l, res_c,
 
     mv / mv_l1 (N, 16, 2); ref_idx / ref_idx_l1 (N, 4) indices into the
     one stack of the picture's references (-1 where the list is unused);
-    pdir (N, 4); the rest as inter_recon_p."""
+    pdir (N, 4); wp None or the weighted prediction of _weigh_planes
+    (explicit or implicit: a table per 8x8 made for its direction); the
+    rest as inter_recon_p."""
     p0, c0 = _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack,
                       mb_w=mb_w, mb_h=mb_h)
     p1, c1 = _mc_pred(mv_l1, ref_idx_l1, planes_stack, padU_stack,
@@ -188,6 +236,10 @@ def inter_recon_b(mv, mv_l1, ref_idx, ref_idx_l1, pdir, res_l, res_c,
     blk = torch.arange(16, device=mv.device)
     quad = (blk // 8) * 2 + (blk % 4) // 2
     pd = pdir.to(I32)[:, quad]                                  # (N, 16)
+    if wp is not None:
+        pred, cpred = _weigh_planes(p0, c0, p1, c1, pd, wp)
+        return _recon(pred, cpred, res_l, res_c, inter_mask, mb_w=mb_w,
+                      mb_h=mb_h)
     lum, chrom = pd[..., None, None], pd[..., None, None, None]
     pred = torch.where(lum == 1, p1,
                        torch.where(lum == 2, (p0 + p1 + 1) >> 1, p0))

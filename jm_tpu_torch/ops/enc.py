@@ -210,27 +210,40 @@ def me_int_sweep(origY, ref_int, mb_w: int, mb_h: int, sr: int, lam: int):
 # SATD, predictors, intra-16 trigger
 # ---------------------------------------------------------------------------
 
-def full_search_sad16(origY, ref_int, mb_w: int, mb_h: int, sr: int):
-    """The 16x16 SAD of every MB at every integer displacement of the
-    +-sr window: (N, (2 sr + 1)^2) int32, row-major (dy, dx), the B
-    macroblock coder's integer search table (jm_tpu/encoder/me.py
-    full_search_blk4_sads(...).sum(axis=2), whose per-4x4 table is never
-    made here). origY (H, W) uint8; ref_int the padded integer plane (pad
-    PAD). One row of displacements is evaluated at a time."""
+def full_search_sad_quad(origY, ref_int, mb_w: int, mb_h: int, sr: int):
+    """The SAD of each 8x8 quadrant of every MB at every integer
+    displacement of the +-sr window: (N, (2 sr + 1)^2, 4) int32, row-major
+    (dy, dx), quadrants in raster order: the host P coder's integer search
+    table (jm_tpu/encoder/me.py full_search_blk4_sads summed over each
+    quadrant's 4x4 blocks, QUAD_BLKS; its per-4x4 table is never made
+    here, since the port codes no sub-8x8 partition). origY (H, W) uint8;
+    ref_int the padded integer plane (pad PAD). One row of displacements
+    is evaluated at a time."""
     side = 2 * sr + 1
     h, w = 16 * mb_h, 16 * mb_w
     n = mb_w * mb_h
     o = origY.to(torch.int16)
-    out = torch.empty((n, side * side), dtype=I32, device=origY.device)
+    out = torch.empty((n, side * side, 4), dtype=I32, device=origY.device)
     for iy in range(side):
         y0 = PAD + iy - sr
         slab = ref_int[y0:y0 + h, PAD - sr:PAD + sr + w].to(torch.int16)
         d = (slab.unfold(1, w, 1) - o[:, None, :]).abs()     # (h, side, w)
-        s = d.reshape(mb_h, 16, side, mb_w, 16).sum(dim=(1, 4),
-                                                     dtype=I32)
-        out[:, iy * side:(iy + 1) * side] = s.permute(0, 2, 1) \
-            .reshape(n, side)
+        s = d.reshape(mb_h, 2, 8, side, mb_w, 2, 8).sum(dim=(2, 6),
+                                                        dtype=I32)
+        # (mb_h, qy, side, mb_w, qx) -> (N, side, 4)
+        out[:, iy * side:(iy + 1) * side] = s.permute(0, 3, 2, 1, 4) \
+            .reshape(n, side, 4)
     return out
+
+
+def full_search_sad16(origY, ref_int, mb_w: int, mb_h: int, sr: int):
+    """The 16x16 SAD of every MB at every integer displacement of the
+    +-sr window: (N, (2 sr + 1)^2) int32, row-major (dy, dx), the B
+    macroblock coder's integer search table (jm_tpu/encoder/me.py
+    full_search_blk4_sads(...).sum(axis=2)): the sum of the four columns
+    of full_search_sad_quad."""
+    return full_search_sad_quad(origY, ref_int, mb_w, mb_h, sr).sum(
+        dim=2, dtype=I32)
 
 
 def satd8_raw(diff: torch.Tensor) -> torch.Tensor:

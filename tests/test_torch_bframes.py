@@ -10,8 +10,11 @@ GOP string, qp_b, rate control, open-GOP I anchors with the recovery
 point SEI and CRA marking, and the port's other options beside B
 pictures (slices of both modes, md_low, data partitioning, long-term
 anchors with POC-based MMCO and list reordering, intra refresh with the
-loop filter off). Configurations jm_tpu refuses with B pictures, and
-weighted bi-prediction (not in the port), raise at construction."""
+loop filter off); weighted bi-prediction, explicit and implicit, on a
+fade (the wp_ cases: IbP, a pyramid and a GOP string, CAVLC and CABAC,
+with weighted P anchors, the LMS estimate, slices, data partitions and
+a long-term anchor). Configurations jm_tpu refuses with B pictures, and
+weighted_bipred values outside 0..2, raise at construction."""
 
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from jm_tpu_torch.decoder.decoder import H264Decoder
 from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig
 
 from test_pipe_stream import make_frames
+from torch_streams import fade
 
 W, H, QP = 64, 48, 28
 # case: (frames, encoder keywords)
@@ -47,6 +51,24 @@ CASES = {
                                 ref_reorder=1, mmco_policy="cra")),
     "refresh_no_filter": (5, dict(num_b=1, intra_mb_refresh=2,
                                   deblock=False, entropy="cabac")),
+    # weighted bi-prediction, on a fade
+    "wp_explicit": (5, dict(num_b=1, weighted_bipred=1)),
+    "wp_explicit_p_cabac": (5, dict(num_b=1, weighted_bipred=1,
+                                    weighted_pred=1, entropy="cabac",
+                                    cabac_adapt_init=True)),
+    "wp_implicit_pyramid": (9, dict(num_b=3, hierarchical=1,
+                                    weighted_bipred=2)),
+    "wp_implicit_gop_p": (9, dict(num_b=3, explicit_gop="b2r0b0e1b1e1",
+                                  weighted_bipred=2, weighted_pred=1)),
+    "wp_lms_slices": (7, dict(num_b=2, weighted_bipred=1, wp_method=1,
+                              slice_mode=2, slice_argument=60)),
+    "wp_data_partition": (7, dict(num_b=2, weighted_bipred=1,
+                                  weighted_pred=1, data_partition=1)),
+    "wp_implicit_long_term": (11, dict(num_b=3, hierarchical=1,
+                                       long_term_period=2, intra_period=2,
+                                       poc_mem_mgmt=1, ref_reorder=1,
+                                       weighted_bipred=2,
+                                       weighted_pred=1)),
 }
 
 
@@ -64,6 +86,8 @@ def runs():
         if case not in cache:
             n, kw = CASES[case]
             frames = make_frames(W, H, n, seed=n)
+            if case.startswith("wp_"):
+                frames = fade(frames)
             # jm_tpu's device path defaults to md_low, the port's to RD
             jkw = {"device_rd": True, **kw}
             jenc = JaxEncoder(JaxConfig(width=W, height=H, qp=QP,
@@ -132,10 +156,11 @@ def test_jm_refusals_with_b_raise(kw, exc, field):
         Encoder(EncoderConfig(width=W, height=H, **kw), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(weighted_bipred=1),
-                                dict(num_b=1, weighted_bipred=2)])
+@pytest.mark.parametrize("kw", [dict(weighted_bipred=3),
+                                dict(num_b=1, weighted_bipred=-1)])
 def test_weighted_bipred_raises(kw):
-    with pytest.raises(NotImplementedError, match="weighted_bipred"):
+    """weighted_bipred is 0, 1 (explicit) or 2 (implicit)."""
+    with pytest.raises(ValueError, match="weighted_bipred"):
         Encoder(EncoderConfig(width=W, height=H, **kw), device="cpu")
 
 

@@ -1,6 +1,8 @@
 """The port's decoder (jm_tpu_torch/decoder) against jm_tpu's on the CPU,
 byte for byte (the codec is integer-exact: the tolerance is zero):
-- SPS, PPS and slice headers of the in-scope goldens, field by field;
+- SPS, PPS and slice headers of the in-scope goldens, field by field
+  (and of the weighted prediction goldens wp_p, wp_bi and wp_both, whose
+  decode tests/test_torch_wp.py holds);
 - the in-scope goldens (CAVLC, FMO slice groups of map types 1, 3, 5
   and 6, data partitioning (dp1; cif_dp with MMCO), cabac_pp: JM
   lencod's CABAC I/P/P with two references, and the B goldens: cavlc_b,
@@ -53,6 +55,7 @@ IN_SCOPE = ["i1", "ipp3", "qp20", "qp36", "cabac_pp", "sei", "fmo_t1",
 # .264: FMO at CIF, cif_dp.264: data partitions and MMCO at CIF,
 # cif_main.264: CABAC I/P/B at CIF), held against jm_tpu's decode only
 NO_LDECOD_REC = {"sei", "cif_fmo", "cif_dp", "cif_main"}
+WP_GOLDENS = ["wp_p", "wp_bi", "wp_both"]
 
 
 def _fields(obj, names):
@@ -67,7 +70,7 @@ def _fields(obj, names):
     return out
 
 
-@pytest.mark.parametrize("name", IN_SCOPE)
+@pytest.mark.parametrize("name", IN_SCOPE + WP_GOLDENS)
 def test_headers_match_jm(name):
     data = (GOLDEN / f"{name}.264").read_bytes()
     units, jm_units = split_annexb(data), jm_split(data)
@@ -228,15 +231,16 @@ def test_picture_from_numpy_through_port_recon():
 
 
 @pytest.mark.parametrize("name,construct", [
-    ("wp_bi", "weighted prediction"),
-    ("wp_both", "weighted prediction"),
+    ("high8x8c", "8x8 transform"),
+    ("cif_sp", "SP"),
     ("high8x8", "8x8 transform"),
     ("mbaff1", "fields"),
     ("field1", "fields"),
-    ("wp_p", "weighted prediction"),
+    ("y422", "chroma_format_idc 2"),
     ("high8x8sm", "scaling matrices"),
     ("hi10c", "bit depth"),
     ("y422c", "chroma_format_idc 2"),
+    ("hi10", "bit depth"),
     ("lossless", "lossless"),
     ("lossless_cabac", "lossless"),
     ("fieldcab", "fields"),

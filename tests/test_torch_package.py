@@ -49,12 +49,14 @@ def test_scan_covers_the_native_loader():
                                  "encoder/intra_host.py",
                                  "encoder/sei_write.py", "decoder/sei.py",
                                  "decoder/b_slice.py", "encoder/b_host.py",
-                                 "encoder/gop.py", "encoder/me.py"])
+                                 "encoder/gop.py", "encoder/me.py",
+                                 "decoder/wp.py", "encoder/wp_est.py",
+                                 "encoder/p_host.py"])
 def test_scan_covers_the_ports_own_copies(rel):
     """Rate control, the slice-group maps, the host intra encoder, the
-    SEI writers and parser, the B-slice motion, the B MB coder with its
-    motion search and the GOP strings are the port's own modules, not
-    jm_tpu's."""
+    SEI writers and parser, the B-slice motion, the B and P MB coders
+    with their motion search, the GOP strings and the weighted prediction
+    tables and estimates are the port's own modules, not jm_tpu's."""
     assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
 
 
@@ -131,6 +133,9 @@ def test_deblock_never_falls_back_for_a_device_request():
     ("redundant_qp_off", -1), ("num_b", -1), ("num_b", 1.5),
     ("hierarchical", 2), ("explicit_gop", 3), ("qp_b", 52), ("qp_b", -1),
     ("sei_recovery_point", 1), ("mmco_policy", "idr"),
+    ("weighted_pred", 2), ("weighted_pred", True), ("wp_method", 2),
+    ("wp_iter_mc", -1), ("wp_iter_mc", 1.5), ("wp_mcprec", 2),
+    ("weighted_bipred", 3),
 ])
 def test_config_outside_slice_raises(field, value):
     cfg = EncoderConfig(width=32, height=32)
@@ -147,13 +152,16 @@ def test_rate_control_needs_a_bit_rate():
 
 @pytest.mark.parametrize("kw,field", [
     (dict(entropy="cabac"), "num_slice_groups"),
+    (dict(weighted_pred=1), "num_slice_groups"),
+    (dict(weighted_bipred=2), "num_slice_groups"),
     (dict(slice_group_map_type=7), "slice_group_map_type"),
     (dict(slice_group_map_type=2, sg_top_left=(0,)), "sg_top_left"),
     (dict(slice_group_map_type=6, sg_ids=(0, 1)), "sg_ids"),
 ])
 def test_fmo_config_outside_slice_raises(kw, field):
-    """FMO is Baseline only (jm_tpu raises for profile 77 too), and the
-    map's parameters must fit the picture."""
+    """FMO is Baseline only (jm_tpu raises for profile 77, which CABAC or
+    weighted prediction make, too), and the map's parameters must fit
+    the picture."""
     with pytest.raises(ValueError, match=field):
         Encoder(EncoderConfig(width=32, height=32, num_slice_groups=2, **kw),
                 device="cpu")

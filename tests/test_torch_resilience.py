@@ -6,7 +6,8 @@ long-term anchors (device RD and md_low), POC-based MMCO, list
 reordering with a long-term anchor, redundant pictures (device RD and
 md_low) and data partitioning (alone, with slice_mode 1, with FMO map
 type 1, with a long-term anchor, and with intra MBs in P slices by
-intra refresh). Each case through ``encode_frame``, and through
+intra refresh), and a weighted bi-prediction PPS without B pictures.
+Each case through ``encode_frame``, and through
 ``encode_stream`` where that takes the per-frame path (where it stays
 on the pipe the case runs in tests/test_torch_encoder.py or
 test_torch_fallback.py, which compile jm_tpu's pipe anyway). Per case

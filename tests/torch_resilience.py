@@ -39,11 +39,13 @@ CASES = {
     "dp_long_term2": dict(data_partition=1, long_term_period=2),
     # intra MBs in P slices: their residual in partition B
     "dp_intra_refresh": dict(data_partition=1, intra_mb_refresh=4),
+    # a weighted bi-prediction PPS (Main profile) without B pictures
+    "weighted_bipred_no_b": dict(weighted_bipred=1),
 }
-# jm_tpu's _pipe_ok has no term for redundant_period, poc_mem_mgmt, SEI
-# or VUI: streams with only these stay on the pipe
+# jm_tpu's _pipe_ok has no term for redundant_period, poc_mem_mgmt, SEI,
+# VUI or weighted_bipred: streams with only these stay on the pipe
 PIPE_NEUTRAL = {"redundant_period", "poc_mem_mgmt", "enable_vui",
-                "sei_user_data", "device_rd"}
+                "sei_user_data", "device_rd", "weighted_bipred"}
 _RUNS = {}
 _DECODED = {}
 

@@ -2,7 +2,8 @@
 (tests/test_torch_encoder.py for device_rd=True, test_torch_fallback.py
 for md_low): clips of tests/test_pipe_stream.py at 96x80, QP 30, encoded
 by jm_tpu's Encoder(pipeline="device") and by the port on the CPU, and
-the checks that hold them equal."""
+the checks that hold them equal; and the fade of the weighted prediction
+tests."""
 
 import numpy as np
 
@@ -109,3 +110,17 @@ def check_intra_refresh(rd: bool):
     assert enc.encode_stream(frames) == want
     assert all(r["intra_mbs"] >= 6 for r in enc.results[1:])
     assert enc.fallbacks == [] and enc.redispatches == 0
+
+
+def fade(frames, step: float = 0.08):
+    """A fade to black of (Y, U, V) frames: frame k's luma scaled by
+    1 - step k, its chroma pulled toward 128 by the same factor (the
+    content weighted prediction is for)."""
+    out = []
+    for k, (Y, U, V) in enumerate(frames):
+        f = 1.0 - step * k
+        out.append(tuple(
+            np.clip(c + (p.astype(np.float64) - c) * f, 0, 255)
+            .astype(np.uint8) for p, c in ((Y, 0.0), (U, 128.0),
+                                           (V, 128.0))))
+    return out
