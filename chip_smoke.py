@@ -177,10 +177,33 @@ Phases (any failure raises and exits non-zero):
      (implicit B) and wp_both (explicit P and B) against their
      _rec.yuv, with the parse and device ms of each picture; CUDA-event
      ms of the weighted inter_recon_p / inter_recon_b at 1080p beside
-     the unweighted ones on the same motion.
-The CPU references of phases 8-27 (the encodes on the CPU, the CPU
-decodes of the lossy stream, of the DP goldens, cif_main and the
-weighted streams) run in CPU_WORKERS worker processes, started at phase
+     the unweighted ones on the same motion;
+ 28. the host pipeline and the High profile at 1080p: the first
+     HIGH_FRAMES frames, QP 28, SR 16, CAVLC, pipeline="host",
+     transform8x8, through encode_stream: one launch per kernel and
+     picture, both slices serialized natively; the IDR's ms (the host
+     IntraPicture, ms per MB) and the P's split (device quadrant SAD
+     table, the host MB loop in ms per MB by part, device deblock +
+     prep_ref, the native serializer), the MB decisions with the MBs
+     coded 8x8, the bytes beside phase 3's first two pictures; both
+     pictures encoded on the CPU with the same bytes and recon;
+ 29. CIF host-pipeline streams of the top-left 352x288 (HIGH_CIF): (a)
+     jm_tpu's default configuration, IPPP; (b) CABAC, transform8x8,
+     num_b 1; (c) scaling_matrix 3 with the spec's default lists, the
+     default offsets, adaptive rounding and transform8x8; each with
+     frames/s, the per-picture split, bytes and launches, and encoded on
+     the CPU with the same bytes and recon;
+ 30. High decode on the card: the streams of phases 28-29, each equal to
+     its encoder's recon and to its CPU decode, one launch per kernel
+     and picture, every CAVLC 8x8 slice parsed and every Intra8x8
+     picture reconstructed natively; JM's goldens high8x8, high8x8c and
+     high8x8sm against their _rec.yuv with frames/s and the per-picture
+     parse / intra recon / device split; CUDA-event ms of
+     p_dec_residuals at 1080p without and with every MB's 8x8 transform
+     on the same levels.
+The CPU references of phases 8-30 (the encodes on the CPU, the CPU
+decodes of the lossy stream, of the DP goldens, cif_main, the weighted
+and the High streams) run in CPU_WORKERS worker processes, started at phase
 8 and stopped before the closing lines, while the card works through
 those phases.
 Phases 3, 6, 8-13 and 15-20 run on the native runtime, as the entry
@@ -188,15 +211,15 @@ points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
 and parsed, every intra picture reconstructed and every CABAC slice
 decoded by the native runtime, but the data-partitioned slices of
-phase 18 and the B slices of phases 22-27, which only the Python
+phase 18 and the B slices of phases 22-30, which only the Python
 serializers and parsers handle (routes "dp" and "b").
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-27 alone, ``--from 22`` phases 22-27, ``--from 25`` phases 25-27,
-without the closing JSON lines (a quicker check of those phases while
-they are developed).
-The last line of standard output is {"ok": true, "device": {...}}; the
-line before it holds the per-kernel numbers as JSON.
+18-30 alone, ``--from 22`` phases 22-30, ``--from 25`` phases 25-30,
+``--from 28`` phases 28-30, without the closing JSON lines (a quicker
+check of those phases while they are developed). The last line of
+standard output is {"ok": true, "device": {...}}; the line before it
+holds the per-kernel numbers as JSON.
 """
 
 from __future__ import annotations
@@ -245,6 +268,15 @@ WP_CIF = (("a", 5, dict(num_b=1, entropy="cabac", weighted_pred=1,
           ("c", 3, dict(weighted_pred=1, wp_method=1, wp_mcprec=1)))
 # JM's weighted prediction goldens (phase 27)
 WP_GOLDENS = ("wp_p", "wp_bi", "wp_both")
+HIGH_FRAMES = 2      # frames of the 1080p host-pipeline High stream (28)
+# phase 29's CIF host-pipeline streams: (label, frames, EncoderConfig
+# keywords; "defaults" stands for the spec's default scaling lists with
+# the default quant offsets)
+HIGH_CIF = (("a", 4, {}),
+            ("b", 5, dict(entropy="cabac", transform8x8=True, num_b=1)),
+            ("c", 4, dict(scaling_matrix=3, transform8x8=True,
+                          adaptive_rounding=True, defaults=True)))
+HIGH_GOLDENS = ("high8x8", "high8x8c", "high8x8sm")
 DEVICE = "cuda"
 # the kernels' edge shapes (one MB, mb_w 2, mb_h 1, one MB column), each
 # with a parameter variant ("mixed" may switch the one MB off), and 2160p
@@ -677,9 +709,9 @@ class SplitTimedEncoder(IdrTimedEncoder):
         self._disp = disp
         return super()._finish_p(core, disp, *a, **kw)
 
-    def _encode_p_wp(self, packed, frame, disp, *a, **kw):
+    def _encode_p_host(self, packed, frame, disp, *a, **kw):
         self._disp = disp
-        return super()._encode_p_wp(packed, frame, disp, *a, **kw)
+        return super()._encode_p_host(packed, frame, disp, *a, **kw)
 
     def _download_core(self, *a):
         return self._timed(self._disp, "download", super()._download_core,
@@ -1238,9 +1270,10 @@ def golden_bytes(name: str) -> bytes:
 
 
 def start_cpu_references(pool, frames, first: int = 8) -> dict:
-    """Submit the CPU references of phases first..27 (8, 18, 22 or 25)
-    to the worker pool (the longest first within each group of phases);
-    returns their AsyncResults by name."""
+    """Submit the CPU references of phases first..30 (8, 18, 22, 25 or
+    28) to the worker pool (the longest first: phase 28's 1080p host
+    encode, then within each group of phases); returns their
+    AsyncResults by name."""
     jobs = []
     if first <= 8:
         jobs += [("scene_cut", cpu_encode, (rd_cfg(), cut_frames(frames))),
@@ -1259,10 +1292,16 @@ def start_cpu_references(pool, frames, first: int = 8) -> dict:
                                                frames[:LOSSY_CPU]))]
         jobs += [(name, cpu_decode, (golden_bytes(name),))
                  for name in ("dp1", "cif_dp")]
-    jobs += [("wp_p", cpu_encode, (wp_cfg(), fade(frames[:WP_FRAMES])))]
-    jobs += [(f"wp_cif_{label}", cpu_encode,
-              (wp_cif_cfg(kw), cif(fade(frames[:n]), n)))
-             for label, n, kw in WP_CIF]
+    jobs = [("high", cpu_encode, (high_cfg(), frames[:HIGH_FRAMES]))] + jobs
+    if first <= 25:
+        jobs += [("wp_p", cpu_encode, (wp_cfg(),
+                                       fade(frames[:WP_FRAMES])))]
+        jobs += [(f"wp_cif_{label}", cpu_encode,
+                  (wp_cif_cfg(kw), cif(fade(frames[:n]), n)))
+                 for label, n, kw in WP_CIF]
+    jobs += [(f"high_cif_{label}", cpu_encode,
+              (high_cif_cfg(kw), cif(frames, n)))
+             for label, n, kw in HIGH_CIF]
     return {name: pool.apply_async(fn, args) for name, fn, args in jobs}
 
 
@@ -2058,6 +2097,212 @@ def wp_phases(frames, cpu_refs, pool) -> dict:
     return out
 
 
+# ---- 28-30: the host pipeline and the High profile ------------------------
+
+def high_cfg():
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         pipeline="host", transform8x8=True)
+
+
+def high_cif_cfg(kw):
+    """A HIGH_CIF configuration: jm_tpu's defaults (pipeline "host") at
+    352x288 with kw; with "defaults", the spec's default scaling lists
+    (Tables 7-3 / 7-4, raster order) and the default quant offsets."""
+    kw = dict(kw)
+    if kw.pop("defaults", False):
+        from jm_tpu_torch.decoder import parset
+        from jm_tpu_torch.encoder import qmatrix
+        kw.update(
+            scaling_lists4=tuple(tuple(qmatrix.from_zigzag4(
+                parset.DEFAULT_4x4_INTRA if i < 3 else
+                parset.DEFAULT_4x4_INTER)) for i in range(6)),
+            scaling_lists8=tuple(tuple(qmatrix.from_zigzag8(lst)) for lst in (
+                parset.DEFAULT_8x8_INTRA, parset.DEFAULT_8x8_INTER)),
+            offset_matrix=tuple(tuple(map(tuple, m.tolist()))
+                                for m in qmatrix.default_offsets()))
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         pipeline="host", **kw)
+
+
+def high_report(enc, label: str) -> None:
+    """wp_report's lines, then the IDR's host intra encode in ms per MB
+    and the MBs coded with the 8x8 transform."""
+    wp_report(enc, label)
+    n_mbs = enc.mb_w * enc.mb_h
+    idr = sum(enc.split[0]["picture"]) * 1e3
+    t8 = sum(r["mix"]["t8"] for r in enc.results if "mix" in r)
+    print(f"{label}: IDR host intra encode {idr:.1f} ms = "
+          f"{idr / n_mbs:.3f} ms/MB; {t8} inter MBs coded with the 8x8 "
+          f"transform", flush=True)
+
+
+def high_1080p_phase(frames, cpu_ref, main_payloads, pool):
+    """Phase 28: the first HIGH_FRAMES frames at 1080p, pipeline "host",
+    the 8x8 transform, CAVLC, QP 28, SR 16, through encode_stream: one
+    launch per kernel and picture, both CAVLC 8x8 slices serialized
+    natively, the IDR's and the P's ms and split, the bytes beside phase
+    3's first pictures (main_payloads; None when phase 3 did not run),
+    held against the CPU encode cpu_ref; returns (encoder, payloads,
+    launches, the CPU decode job of the stream)."""
+    frames = frames[:HIGH_FRAMES]
+    enc, payloads, launches, total_s = b_encode(high_cfg(), frames)
+    types = "".join(r["type"] for r in enc.results)
+    if types != "IP":
+        raise AssertionError(f"High 1080p: pictures {types}")
+    check_routes("High 1080p encode", serialize=2)
+    check_launches(launches, 2, "High 1080p encode")
+    t = {d: sum(enc.split[d]["picture"]) * 1e3 for d in (0, 1)}
+    main = ("phase 3 did not run" if main_payloads is None else
+            f"phase 3's device RD pipe: {len(main_payloads[0])} + "
+            f"{len(main_payloads[1])} B")
+    print(f"encode High 1080p {types} (pipeline host, transform8x8, "
+          f"CAVLC High, QP {QP}, SR 16): IDR {t[0]:.1f} ms, P {t[1]:.1f} "
+          f"ms, {len(payloads[0])} + {len(payloads[1])} B ({main}); "
+          f"launches {launches}", flush=True)
+    high_report(enc, "High 1080p")
+    check_cpu_encode("High 1080p IDR + P", cpu_ref, payloads, enc, 2)
+    return enc, payloads, launches, pool.apply_async(
+        cpu_decode, (b"".join(payloads),))
+
+
+def high_cif_phase(frames, cpu_refs, pool) -> list:
+    """Phase 29: the CIF host-pipeline streams of HIGH_CIF, each through
+    encode_stream on the card with one launch per kernel and picture,
+    frames/s, the per-picture split, bytes, held against its CPU encode;
+    returns per stream (label, encoder, payloads, launches, the CPU
+    decode job of the stream)."""
+    out = []
+    for label, n, kw in HIGH_CIF:
+        enc, payloads, launches, total_s = b_encode(high_cif_cfg(kw),
+                                                    cif(frames, n))
+        types = "".join(r["type"] for r in enc.results)
+        n_b = types.count("B")
+        cabac = kw.get("entropy") == "cabac"
+        check_routes(f"High CIF ({label})",
+                     serialize=0 if cabac else len(types),
+                     b={"serialize": n_b})
+        check_launches(launches, len(types), f"High CIF ({label})")
+        print(f"encode High CIF ({label}) {types} (coding order; pipeline "
+              f"host, {kw}): {n / total_s:.3f} frames/s, "
+              f"{sum(map(len, payloads))} stream bytes "
+              f"{[len(p) for p in payloads]}, profile "
+              f"{enc.sps.profile_idc}, launches {launches}", flush=True)
+        high_report(enc, f"High CIF ({label})")
+        check_cpu_encode(f"High CIF ({label})", cpu_refs[f"high_cif_{label}"],
+                         payloads, enc, len(types))
+        out.append((f"high_cif_{label}", enc, payloads, launches,
+                    pool.apply_async(cpu_decode, (b"".join(payloads),))))
+    return out
+
+
+def high_ops_timing() -> None:
+    """CUDA-event times at 1080p of ops/dec.p_dec_residuals on the same
+    seeded levels without and with every MB's 8x8 transform (the inter
+    scaling lists flat), median of 7."""
+    from jm_tpu_torch.common.types import PPS
+    from jm_tpu_torch.convert import qpc_tables
+    from jm_tpu_torch.decoder.recon import build_inv_scale, build_inv_scale8
+    from jm_tpu_torch.ops.dec import p_dec_residuals
+    rng = np.random.default_rng(7)
+    n = (W // 16) * (H // 16)
+
+    def t(a):
+        return torch.as_tensor(a, device=DEVICE)
+
+    def levels(shape):
+        a = rng.integers(-20, 21, shape).astype(np.int32)
+        return a * (rng.random(shape) < 0.2)
+
+    pps = PPS(scaling_list_4x4=[[16] * 16] * 6,
+              scaling_list_8x8=[[16] * 64] * 6)
+    tab4 = build_inv_scale(pps)
+    tabs = tuple(t(tab4[i]) for i in (3, 4, 5)) + qpc_tables(pps, DEVICE)
+    args = (t(levels((n, 16, 16))), t(levels((n, 2, 4))),
+            t(levels((n, 2, 4, 16))), t(np.full(n, QP, np.int32)))
+    kw = dict(mb_w=W // 16, mb_h=H // 16)
+    t8 = dict(luma_coef8=t(levels((n, 4, 64))),
+              transform8x8=t(np.ones(n, bool)),
+              tab8=t(build_inv_scale8(pps)[1]))
+    ms4 = cuda_ms(lambda: p_dec_residuals(*args, *tabs, **kw))
+    ms8 = cuda_ms(lambda: p_dec_residuals(*args, *tabs, **kw, **t8))
+    print(f"High tensor stage at {W}x{H} (CUDA events, median of 7): "
+          f"p_dec_residuals {ms4:.3f} ms without 8x8 MBs, {ms8:.3f} ms with "
+          f"every MB's 8x8 transform", flush=True)
+
+
+def high_decode_phase(streams) -> dict:
+    """Phase 30: the streams of phases 28-29 decoded on the card, each
+    equal to its encoder's recon and to its CPU decode, one launch per
+    kernel and picture, every CAVLC I / P slice parsed and every intra
+    picture reconstructed by the native runtime; JM's goldens high8x8,
+    high8x8c and high8x8sm against their _rec.yuv with frames/s and the
+    per-picture split; p_dec_residuals timed. streams: (label, encoder,
+    payloads, CPU decode job). Returns the launches of each decode by
+    name (<label>_decode, high_goldens_decode)."""
+    out = {}
+    for label, enc, payloads, job in streams:
+        n_b = sum(r["type"] == "B" for r in enc.results)
+        dec = H264Decoder(device=DEVICE)
+        out[f"{label}_decode"] = card_decode(
+            payloads, enc, f"decode {label}",
+            cabac=enc.cfg.entropy == "cabac", dec=dec, b_parse=n_b)
+        t0 = time.perf_counter()
+        cpu = job.get()
+        got = [(r["frame"].Y, r["frame"].U, r["frame"].V)
+               for r in enc.results]
+        if len(cpu) != len(got) or any(
+                not np.array_equal(a[k], b[k]) for a, b in zip(cpu, got)
+                for k in range(3)):
+            raise AssertionError(f"decode {label}: the CPU decode differs")
+        print(f"decode {label}: the CPU decode equals the card's (CPU "
+              f"worker; waited {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    total = {}
+    for name in HIGH_GOLDENS:
+        dec = H264Decoder(device=DEVICE)
+        kernels.reset_launches()
+        native.reset_routes()
+        t0 = time.perf_counter()
+        got = decode_golden(name, dec)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gl = dict(kernels.launches)
+        check_launches(gl, len(got), f"decode {name}")
+        r = native.routes
+        if r["parse"]["python"] or r["parse"]["rerun"] or \
+                r["recon"]["python"] or not r["recon"]["native"]:
+            raise AssertionError(f"decode {name}: routes {r}")
+        for k, v in gl.items():
+            total[k] = total.get(k, 0) + v
+        print(f"decode {name}.264 on the card "
+              f"({''.join(p['type'][0] for p in dec.pictures)}): "
+              f"{len(got)} frames equal {name}_rec.yuv; "
+              f"{len(got) / dt:.3f} frames/s; per picture " + ", ".join(
+                  f"{p['type'][0]}/{p['path']} parse "
+                  f"{p['parse_s'] * 1e3:.1f}, intra recon "
+                  f"{p['host_recon_s'] * 1e3:.1f}, device "
+                  f"{p['device_s'] * 1e3:.1f} ms" for p in dec.pictures)
+              + f"; launches {gl}; routes {r}", flush=True)
+    out["high_goldens_decode"] = total
+    high_ops_timing()
+    return out
+
+
+def high_phases(frames, cpu_refs, pool, main_payloads) -> dict:
+    """Phases 28-30; returns the launches of each of their paths by name
+    (high, high_cif_a..c, each also with _decode, high_goldens_decode)."""
+    out = {}
+    enc, payloads, out["high"], job = high_1080p_phase(
+        frames, cpu_refs["high"], main_payloads, pool)
+    streams = [("high", enc, payloads, job)]
+    for label, cenc, cpay, launches, cjob in high_cif_phase(frames, cpu_refs,
+                                                            pool):
+        out[label] = launches
+        streams.append((label, cenc, cpay, cjob))
+    out.update(high_decode_phase(streams))
+    return out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -2100,20 +2345,22 @@ def main() -> int:
     print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
     frames = make_sequence()
     if sys.argv[1:] in (["--from", "18"], ["--from", "22"],
-                        ["--from", "25"]):
+                        ["--from", "25"], ["--from", "28"]):
+        first = int(sys.argv[2])
         pool = cpu_pool()
         try:
-            refs = start_cpu_references(pool, frames, int(sys.argv[2]))
-            if sys.argv[2] == "18":
+            refs = start_cpu_references(pool, frames, first)
+            if first <= 18:
                 later_phases(frames, None, refs)
-            if sys.argv[2] in ("18", "22"):
+            if first <= 22:
                 b_phases(frames, refs)
-            wp_phases(frames, refs, pool)
+            if first <= 25:
+                wp_phases(frames, refs, pool)
+            high_phases(frames, refs, pool, None)
         finally:
             pool.terminate()
             pool.join()
-        print(f"phases {sys.argv[2]}-27 passed (partial run: no closing "
-              f"lines)")
+        print(f"phases {first}-30 passed (partial run: no closing lines)")
         return 0
 
     # ---- 2. kernels against their plain versions ------------------------
@@ -2274,6 +2521,11 @@ def main() -> int:
         # ---- 25-27. weighted prediction: the 1080p weighted P picture,
         # the CIF weighted P / B streams, their decode and the WP goldens
         later.update(wp_phases(frames, cpu_refs, pool))
+
+        # ---- 28-30. the host pipeline and the High profile: the 1080p
+        # High picture pair, the CIF host streams, their decode and the
+        # High goldens ---------------------------------------------------
+        later.update(high_phases(frames, cpu_refs, pool, payloads))
     finally:
         pool.terminate()
         pool.join()

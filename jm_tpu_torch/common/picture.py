@@ -44,7 +44,7 @@ class PictureData:
         self.n_crows = 2                           # chroma 4x4-block rows
         self.mb_class = np.zeros(n, np.int8)            # MB_* class
         self.skip = np.zeros(n, bool)
-        self.transform8x8 = np.zeros(n, bool)           # always off here
+        self.transform8x8 = np.zeros(n, bool)           # 8x8 luma transform
         self.i4_modes = np.full((n, 16), -1, np.int8)   # raster block order
         self.i16_mode = np.full(n, -1, np.int8)
         self.chroma_mode = np.zeros(n, np.int8)
@@ -54,12 +54,12 @@ class PictureData:
         # residuals in scan order
         self.luma_coef = np.zeros((n, 16, 16), np.int32)   # [mb][raster blk][scan]
         self.luma_dc = np.zeros((n, 16), np.int32)         # i16 DC, zigzag scan
-        # 8x8-transform levels (always zero here); the native serializer
-        # and parser (jm_tpu_torch/native) take the array as jm_tpu has it
+        # 8x8-transform levels: [mb][8x8 quadrant][8x8 zig-zag scan]
         self.luma_coef8 = np.zeros((n, 4, 64), np.int32)
         self.chroma_dc = np.zeros((n, 2, 4), np.int32)
         self.chroma_coef = np.zeros((n, 2, 4, 16), np.int32)
-        # nnz per 4x4 block (raster in MB), for nC prediction
+        # nnz per 4x4 block (raster in MB), for nC prediction; of an 8x8
+        # block, each 4x4's interleaved count in CAVLC, the 8x8's in CABAC
         self.luma_nnz = np.zeros((n, 16), np.int32)
         self.chroma_nnz = np.zeros((n, 2, 4), np.int32)
         # motion: quarter-pel MVs per 4x4 raster block, refs per 8x8

@@ -1,9 +1,10 @@
 """Normative constant tables from ISO/IEC 14496-10 (H.264).
 
-These are spec tables, not code: the 4x4 zig-zag scan (Table 8-13), 4x4
-quantizer scale matrices (8.5.12), chroma QP mapping (Table 8-15),
-deblocking alpha/beta/tc0 (Table 8-16). The reference keeps the same values in
-lcommon/inc/ctx_tables.h, ldecod/src/quant.c, ldecod/src/loop_filter_normal.c.
+These are spec tables, not code: the 4x4 and 8x8 zig-zag scans (Table
+8-13), the 4x4 and 8x8 quantizer scale matrices (8.5.12, 8.5.13), chroma
+QP mapping (Table 8-15), deblocking alpha/beta/tc0 (Table 8-16). The
+reference keeps the same values in lcommon/inc/ctx_tables.h,
+ldecod/src/quant.c, ldecod/src/loop_filter_normal.c.
 """
 
 from __future__ import annotations
@@ -15,6 +16,14 @@ import numpy as np
 # 4x4 zig-zag scan: sequence of (row, col) == (j, i); flat index = 4*j + i
 ZIGZAG_4x4 = np.array(
     [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15], dtype=np.int32)
+
+# 8x8 zig-zag scan, flat index = 8*j + i
+ZIGZAG_8x8 = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+], dtype=np.int32)
 
 # -- 4x4 quantizer scale classes --------------------------------------------
 # position class for (j, i): 0 for both even/even "corner" {(0,0),(0,2),(2,0),(2,2)},
@@ -53,6 +62,40 @@ _QUANT_MF_4 = np.array([
 # (6, 4, 4) expanded tables
 DEQUANT_SCALE_4x4 = _NORM_ADJUST_4[:, _POS4]       # V[m, j, i]
 QUANT_SCALE_4x4 = _QUANT_MF_4[:, _POS4]            # MF[m, j, i]
+
+# -- 8x8 quantizer scale classes --------------------------------------------
+# by (j % 4, i % 4): 0 (0, 0); 1 both odd; 2 (2, 2); 3 one 0, the other
+# odd; 4 (0, 2) or (2, 0); 5 one 2, the other odd
+
+_CLASS8 = np.array([[0, 3, 4, 3],
+                    [3, 1, 5, 1],
+                    [4, 5, 2, 5],
+                    [3, 1, 5, 1]], dtype=np.int32)
+_POS8 = np.tile(_CLASS8, (2, 2))
+
+# normAdjust8x8[m][class] (spec 8-317): dequant scale V8
+_NORM_ADJUST_8 = np.array([
+    [20, 18, 32, 19, 25, 24],
+    [22, 19, 35, 21, 28, 26],
+    [26, 23, 42, 24, 33, 31],
+    [28, 25, 45, 26, 35, 33],
+    [32, 28, 51, 30, 40, 38],
+    [36, 32, 58, 34, 46, 43],
+], dtype=np.int32)
+
+# forward quant MF8[m][class] (JM lencod quant_coef8)
+_QUANT_MF_8 = np.array([
+    [13107, 11428, 20972, 12222, 16777, 15481],
+    [11916, 10826, 19174, 11058, 14980, 14290],
+    [10082, 8943, 15978, 9675, 12710, 11985],
+    [9362, 8228, 14913, 8931, 11984, 11259],
+    [8192, 7346, 13159, 7740, 10486, 9777],
+    [7282, 6428, 11570, 6830, 9118, 8640],
+], dtype=np.int32)
+
+# (6, 8, 8) expanded tables
+DEQUANT_SCALE_8x8 = _NORM_ADJUST_8[:, _POS8]
+QUANT_SCALE_8x8 = _QUANT_MF_8[:, _POS8]
 
 # -- chroma QP mapping (Table 8-15) -----------------------------------------
 

@@ -1,20 +1,24 @@
 """Top-level H.264 decoder of the port: Annex-B in, YUV frames out; twin
-of jm_tpu.decoder.decoder.H264Decoder with ``device_recon=True``, for
-I / P / B streams, CAVLC (Baseline, Extended) or CABAC (Main) (4:2:0,
-8-bit, frame pictures, one or more slices per picture, FMO slice groups
-of map types 0-6, data-partitioned CAVLC slices (NAL units 2-4),
-redundant pictures, list0 and list1 with several references, short- and
-long-term, in a DPB with the sliding window or MMCO marking, spatial and
-temporal direct prediction, explicit and implicit weighted prediction,
-non-reference pictures, POC types 0, 1 and 2). Frames come out in
-decode order, as jm_tpu's: callers sort them by POC.
+of jm_tpu.decoder.decoder.H264Decoder with ``device_recon=True``, for I
+/ P / B streams, CAVLC (Baseline, Extended) or CABAC (Main, High)
+(4:2:0, 8-bit, frame pictures, the 4x4 and the adaptive 8x8 transform
+with I8x8 prediction, flat or scaling-matrix dequantization, one or more
+slices per picture, FMO slice groups of map types 0-6, data-partitioned
+CAVLC slices (NAL units 2-4), redundant pictures, list0 and list1 with
+several references, short- and long-term, in a DPB with the sliding
+window or MMCO marking, spatial and temporal direct prediction, explicit
+and implicit weighted prediction, non-reference pictures, POC types 0, 1
+and 2). Frames come out in decode order, as jm_tpu's: callers sort them
+by POC.
 
 Two phases per picture: the serial host parse of its slices
 (decoder/mb_parse.py for CAVLC, decoder/mb_parse_cabac.py for CABAC)
 fills the picture's SoA arrays, then one reconstruction, the same for
 both entropy coders:
   - all-inter P picture: the levels, MVs, refs, QP and nnz go to the
-    device once; ops/dec.p_dec_residuals, ops/dec.inter_recon_p over the
+    device once; ops/dec.p_dec_residuals (with the 8x8 inverse transform
+    of the MBs that use it, which jm_tpu reconstructs on the host),
+    ops/dec.inter_recon_p over the
     stacked list0 reference states, ops/deblock.compute_bs + deblock (the
     CUDA kernels K1 / K2 on the card), ops/enc.prep_ref;
   - P picture with intra MBs: the same device inter recon gives the seed
@@ -72,7 +76,7 @@ from .header import PocContext, parse_slice_header
 from .mb_parse import MBParser, SliceContext
 from .mb_parse_cabac import MBParserCABAC
 from .parset import parse_pps, parse_sps
-from .recon import Reconstructor, build_inv_scale
+from .recon import Reconstructor, build_inv_scale, build_inv_scale8
 from .sei import parse_sei_rbsp
 from .wp import WPParams, block_tables
 
@@ -292,14 +296,17 @@ class H264Decoder:
     # ------------------------------------------------------------------
 
     def _pps_tabs(self, pps):
-        """Device tables of a PPS: inter InvLevelScale lists 3 / 4 / 5
-        and the QP -> QPc maps of its Cb / Cr offsets."""
+        """Device tables of a PPS: inter InvLevelScale lists 3 / 4 / 5,
+        the QP -> QPc maps of its Cb / Cr offsets and the inter
+        LevelScale8 (list 7)."""
         hit = self._tabs.get(id(pps))
         if hit is None or hit[0] is not pps:
             tab4 = build_inv_scale(pps)
             hit = (pps, tuple(torch.as_tensor(tab4[i], device=self.device)
                               for i in (3, 4, 5))
-                   + qpc_tables(pps, self.device))
+                   + qpc_tables(pps, self.device)
+                   + (torch.as_tensor(build_inv_scale8(pps)[1],
+                                      device=self.device),))
             self._tabs[id(pps)] = hit
         return hit[1]
 
@@ -314,12 +321,16 @@ class H264Decoder:
         blocks predict from list 0, list 1 or both. wps: each slice's
         WPParams; the weights are indexed by slice, list and ref_idx, not
         by the stack (decoder/wp.block_tables)."""
-        tabY, tabU, tabV, qpc_cb, qpc_cr = tabs
+        tabY, tabU, tabV, qpc_cb, qpc_cr, tab8 = tabs
         up = self._upload
+        t8 = {}
+        if pic.transform8x8.any():
+            t8 = dict(luma_coef8=up(pic.luma_coef8),
+                      transform8x8=up(pic.transform8x8), tab8=tab8)
         res_l, res_c = D.p_dec_residuals(
             up(pic.luma_coef), up(pic.chroma_dc), up(pic.chroma_coef),
             qp, tabY, tabU, tabV, qpc_cb, qpc_cr,
-            mb_w=pic.mb_w, mb_h=pic.mb_h)
+            mb_w=pic.mb_w, mb_h=pic.mb_h, **t8)
 
         def stack_idx(pid):
             idx = np.full(pid.shape, -1, np.int32)
@@ -373,9 +384,9 @@ class H264Decoder:
             Y, U, V = (up(p) for p in planes)
 
         n = pic.n_mbs
-        zeros = torch.zeros(n, dtype=I32, device=self.device)
+        t8 = up(pic.transform8x8.astype(np.int32))
         bs_v, bs_h = compute_bs(
-            up(pic.mb_class), up(pic.luma_nnz), zeros, mv,
+            up(pic.mb_class), up(pic.luma_nnz), t8, mv,
             up(pic.mv_l1), up(pic.ref_pic_id), up(pic.ref_pic_id_l1),
             pic.mb_w, pic.mb_h)
         disable = np.zeros(n, np.int32)
@@ -388,7 +399,7 @@ class H264Decoder:
             b_off[m] = hdr.slice_beta_offset_div2
         dY, dU, dV = deblock(
             Y, U, V, bs_v, bs_h, qp, up(disable), up(a_off),
-            up(b_off), up(pic.slice_id), zeros, tabs[3], tabs[4],
+            up(b_off), up(pic.slice_id), t8, tabs[3], tabs[4],
             mb_w=pic.mb_w, mb_h=pic.mb_h)
         state = prep_ref(dY, dU, dV)
         flat = torch.cat([dY.reshape(-1), dU.reshape(-1),

@@ -37,8 +37,6 @@ def check_scope(sps: SPS, pps: PPS) -> None:
         out.append("lossless (qpprime_y_zero_transform_bypass)")
     if not sps.frame_mbs_only_flag:
         out.append("fields / MBAFF (frame_mbs_only_flag 0)")
-    if pps.transform_8x8_mode_flag:
-        out.append("8x8 transform")
     if pps.constrained_intra_pred_flag:
         out.append("constrained intra prediction")
     if out:

@@ -1,6 +1,6 @@
-"""Intra prediction on the host (spec 8.3): 4x4 luma (9 modes), 16x16
-luma (4 modes), chroma 8x8 (4 modes); numpy twin of predict_i4,
-predict_i16 and predict_chroma of jm_tpu/ops/intra.py
+"""Intra prediction on the host (spec 8.3): 4x4 and 8x8 luma (9 modes),
+16x16 luma (4 modes), chroma 8x8 (4 modes); numpy twin of predict_i4,
+predict_i8, predict_i16 and predict_chroma of jm_tpu/ops/intra.py
 (ldecod/src/intra4x4_pred_normal.c, intra16x16_pred_normal.c,
 intra_chroma_pred.c). The decoder's Reconstructor calls them per block;
 the encoder's batched I frame is ops/intra.py.
@@ -114,6 +114,139 @@ def predict_i4(mode: int, top: np.ndarray, left: np.ndarray, corner: int,
                                + l[y + (x >> 1) + 2] + 2) >> 2
     else:
         raise ValueError(f"bad intra4x4 mode {mode}")
+    return p
+
+
+def predict_i8(mode: int, top: np.ndarray, left: np.ndarray, corner: int,
+               avail_top: bool, avail_left: bool, avail_corner: bool,
+               dc: int = 128) -> np.ndarray:
+    """One 8x8 luma intra prediction (the 9 modes of the 4x4 one) after
+    the reference-sample filter of spec 8.3.2.2.1. top: 16 samples (up +
+    up-right; the caller substitutes top[8:] = top[7] when up-right is
+    unavailable), left: 8 samples, corner: sample p[-1, -1]. Returns
+    (8, 8) int32 (jm_tpu/ops/intra.py predict_i8)."""
+    t = top.astype(np.int32).copy()
+    l = left.astype(np.int32).copy()
+    m = int(corner)
+    # ---- reference sample filtering (8.3.2.2.1) ----
+    if avail_top:
+        ft = np.empty(16, np.int32)
+        if avail_corner:
+            ft[0] = (m + 2 * t[0] + t[1] + 2) >> 2
+        else:
+            ft[0] = (3 * t[0] + t[1] + 2) >> 2
+        for x in range(1, 15):
+            ft[x] = (t[x - 1] + 2 * t[x] + t[x + 1] + 2) >> 2
+        ft[15] = (t[14] + 3 * t[15] + 2) >> 2
+    if avail_corner:
+        if avail_top and avail_left:
+            fm = (t[0] + 2 * m + l[0] + 2) >> 2
+        elif avail_top:
+            fm = (3 * m + t[0] + 2) >> 2
+        elif avail_left:
+            fm = (3 * m + l[0] + 2) >> 2
+        else:
+            fm = m
+    if avail_left:
+        fl = np.empty(8, np.int32)
+        if avail_corner:
+            fl[0] = (m + 2 * l[0] + l[1] + 2) >> 2
+        else:
+            fl[0] = (3 * l[0] + l[1] + 2) >> 2
+        for y in range(1, 7):
+            fl[y] = (l[y - 1] + 2 * l[y] + l[y + 1] + 2) >> 2
+        fl[7] = (l[6] + 3 * l[7] + 2) >> 2
+    t = ft if avail_top else t
+    l = fl if avail_left else l
+    m = fm if avail_corner else m
+
+    p = np.zeros((8, 8), np.int32)
+    if mode == I4_VERT:
+        p[:, :] = t[:8][None, :]
+    elif mode == I4_HOR:
+        p[:, :] = l[:, None]
+    elif mode == I4_DC:
+        if avail_top and avail_left:
+            p[:, :] = (int(t[:8].sum()) + int(l.sum()) + 8) >> 4
+        elif avail_top:
+            p[:, :] = (int(t[:8].sum()) + 4) >> 3
+        elif avail_left:
+            p[:, :] = (int(l.sum()) + 4) >> 3
+        else:
+            p[:, :] = dc
+    elif mode == I4_DDL:
+        for y in range(8):
+            for x in range(8):
+                if x == 7 and y == 7:
+                    p[y, x] = (t[14] + 3 * t[15] + 2) >> 2
+                else:
+                    p[y, x] = (t[x + y] + 2 * t[x + y + 1] + t[x + y + 2] + 2) >> 2
+    elif mode == I4_DDR:
+        tt = np.concatenate([[m], t])
+        ll = np.concatenate([[m], l])
+        for y in range(8):
+            for x in range(8):
+                if x > y:
+                    p[y, x] = (tt[x - y - 1] + 2 * tt[x - y] + tt[x - y + 1] + 2) >> 2
+                elif x < y:
+                    p[y, x] = (ll[y - x - 1] + 2 * ll[y - x] + ll[y - x + 1] + 2) >> 2
+                else:
+                    p[y, x] = (t[0] + 2 * m + l[0] + 2) >> 2
+    elif mode == I4_VR:
+        tt = np.concatenate([[m], t])
+        for y in range(8):
+            for x in range(8):
+                z = 2 * x - y
+                k = x - (y >> 1)
+                if z >= 0 and z % 2 == 0:
+                    p[y, x] = (tt[k] + tt[k + 1] + 1) >> 1
+                elif z >= 0:
+                    p[y, x] = (tt[k - 1] + 2 * tt[k] + tt[k + 1] + 2) >> 2
+                elif z == -1:
+                    p[y, x] = (l[0] + 2 * m + t[0] + 2) >> 2
+                else:
+                    ll = np.concatenate([[m], l])
+                    p[y, x] = (ll[y - 2 * x] + 2 * ll[y - 2 * x - 1]
+                               + ll[y - 2 * x - 2] + 2) >> 2
+    elif mode == I4_HD:
+        ll = np.concatenate([[m], l])
+        for y in range(8):
+            for x in range(8):
+                z = 2 * y - x
+                k = y - (x >> 1)
+                if z >= 0 and z % 2 == 0:
+                    p[y, x] = (ll[k] + ll[k + 1] + 1) >> 1
+                elif z >= 0:
+                    p[y, x] = (ll[k - 1] + 2 * ll[k] + ll[k + 1] + 2) >> 2
+                elif z == -1:
+                    p[y, x] = (t[0] + 2 * m + l[0] + 2) >> 2
+                else:
+                    tt2 = np.concatenate([[m], t])
+                    p[y, x] = (tt2[x - 2 * y] + 2 * tt2[x - 2 * y - 1]
+                               + tt2[x - 2 * y - 2] + 2) >> 2
+    elif mode == I4_VL:
+        for y in range(8):
+            for x in range(8):
+                k = x + (y >> 1)
+                if y % 2 == 0:
+                    p[y, x] = (t[k] + t[k + 1] + 1) >> 1
+                else:
+                    p[y, x] = (t[k] + 2 * t[k + 1] + t[k + 2] + 2) >> 2
+    elif mode == I4_HU:
+        for y in range(8):
+            for x in range(8):
+                z = x + 2 * y
+                if z > 13:
+                    p[y, x] = l[7]
+                elif z == 13:
+                    p[y, x] = (l[6] + 3 * l[7] + 2) >> 2
+                elif z % 2 == 0:
+                    p[y, x] = (l[y + (x >> 1)] + l[y + (x >> 1) + 1] + 1) >> 1
+                else:
+                    p[y, x] = (l[y + (x >> 1)] + 2 * l[y + (x >> 1) + 1]
+                               + l[y + (x >> 1) + 2] + 2) >> 2
+    else:
+        raise ValueError(f"bad intra8x8 mode {mode}")
     return p
 
 

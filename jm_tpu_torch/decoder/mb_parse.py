@@ -1,6 +1,10 @@
 """Macroblock-layer parsing of CAVLC I, P and B slices (spec 7.3.5,
 7.4.5, 9.2), twin of the Python path of jm_tpu/decoder/mb_parse.py for
-4:2:0, 8-bit frame pictures with the 4x4 transform.
+4:2:0, 8-bit frame pictures with the 4x4 and the adaptive 8x8 transform
+(transform_size_8x8_flag after an I_NxN mb_type, or after the cbp of an
+inter MB with luma coefficients whose partitions are all 8x8 or larger;
+an 8x8 block is read as four 4x4 blocks interleaved, each with its own
+nnz, ldecod read_comp_cavlc.c read_comp_coeff_8x8_CAVLC).
 
 The serial parse walks the MBs of a slice in raster order and fills the
 picture-wide SoA arrays of common/picture.PictureData (modes, MVs,
@@ -51,6 +55,24 @@ _SUB_PARTS = {0: [(0, 0, 2, 2)],
               1: [(0, 0, 2, 1), (0, 1, 2, 1)],
               2: [(0, 0, 1, 2), (1, 0, 1, 2)],
               3: [(0, 0, 1, 1), (1, 0, 1, 1), (0, 1, 1, 1), (1, 1, 1, 1)]}
+
+
+def p_allow8(mb_type: int, sub_types) -> bool:
+    """Whether a P MB of mb_type 0..4 may carry transform_size_8x8_flag:
+    no partition below 8x8 (spec 7.3.5)."""
+    return mb_type < 3 or not any(sub_types)
+
+
+def b_allow8(coded: int, subs, sps: SPS) -> bool:
+    """Whether a coded B MB (mb_type 0..22; subs: a B_8x8's sub_mb_types)
+    may carry transform_size_8x8_flag: a direct prediction only under
+    direct_8x8_inference_flag, and no partition below 8x8 (spec 7.3.5)."""
+    if coded == 0:
+        return bool(sps.direct_8x8_inference_flag)
+    if coded != 22:
+        return True
+    return all(t <= 3 for t in subs) and (
+        bool(sps.direct_8x8_inference_flag) or all(t != 0 for t in subs))
 
 
 @dataclass
@@ -124,6 +146,37 @@ class MBParser:
                 pic.luma_coef[addr, blk] = out
                 pic.luma_nnz[addr, blk] = tc
 
+    def _read_luma_residual_8x8(self, addr: int, cbp: int) -> None:
+        """Each coded 8x8 as four interleaved 4x4 CAVLC blocks: the k-th
+        coefficient of 4x4 block sub is the 8x8's scan position 4 k + sub
+        (jm_tpu mb_parse.py _read_luma_residual_8x8)."""
+        pic, br, pctx = self.pic, self._res_br(addr), self.pctx
+        for blk8 in range(4):
+            if not (cbp & (1 << blk8)):
+                continue
+            by0, bx0 = (blk8 // 2) * 2, (blk8 % 2) * 2
+            for sub in range(4):
+                blk = (by0 + sub // 2) * 4 + bx0 + sub % 2
+                coeffs, tc = residual_block_cavlc(br, pctx.nc_luma(addr, blk),
+                                                  16)
+                pic.luma_nnz[addr, blk] = tc
+                pic.luma_coef8[addr, blk8, sub::4] = coeffs
+
+    def _read_i8_modes(self, addr: int) -> None:
+        """The four Intra8x8 modes, each stored over its quadrant's 4x4
+        blocks."""
+        pic, br = self.pic, self.br
+        for q in range(4):
+            blk = (q // 2) * 8 + (q % 2) * 2
+            pred = self.pctx.pred_intra4_mode(addr, blk)
+            if br.flag():
+                mode = pred
+            else:
+                rem = br.u(3)
+                mode = rem if rem < pred else rem + 1
+            for b in (blk, blk + 1, blk + 4, blk + 5):
+                pic.i4_modes[addr, b] = mode
+
     def _read_chroma_residual(self, addr: int, cbp: int) -> None:
         pic, br = self.pic, self._res_br(addr)
         cbp_chroma = cbp >> 4
@@ -155,15 +208,20 @@ class MBParser:
             return
         if imb_type == 0:
             pic.mb_class[addr] = MB_I4
-            for code_idx in range(16):
-                blk = int(CODE2RASTER[code_idx])
-                pred = self.pctx.pred_intra4_mode(addr, blk)
-                if br.flag():  # prev_intra4x4_pred_mode_flag
-                    mode = pred
-                else:
-                    rem = br.u(3)
-                    mode = rem if rem < pred else rem + 1
-                pic.i4_modes[addr, blk] = mode
+            if self.ctx.pps.transform_8x8_mode_flag:
+                pic.transform8x8[addr] = bool(br.flag())
+            if pic.transform8x8[addr]:
+                self._read_i8_modes(addr)
+            else:
+                for code_idx in range(16):
+                    blk = int(CODE2RASTER[code_idx])
+                    pred = self.pctx.pred_intra4_mode(addr, blk)
+                    if br.flag():  # prev_intra4x4_pred_mode_flag
+                        mode = pred
+                    else:
+                        rem = br.u(3)
+                        mode = rem if rem < pred else rem + 1
+                    pic.i4_modes[addr, blk] = mode
             pic.chroma_mode[addr] = br.ue()
             cbp = int(CBP_MAP_CHROMA[br.ue()][0])
             pic.cbp[addr] = cbp
@@ -171,7 +229,10 @@ class MBParser:
                 self._read_qp_delta(addr)
             else:
                 pic.qp[addr] = self.qp
-            self._read_luma_residual(addr, cbp, is_i16=False)
+            if pic.transform8x8[addr]:
+                self._read_luma_residual_8x8(addr, cbp & 15)
+            else:
+                self._read_luma_residual(addr, cbp, is_i16=False)
         else:
             pic.mb_class[addr] = MB_I16
             k = imb_type - 1
@@ -216,6 +277,7 @@ class MBParser:
         pic, br = self.pic, self.br
         nref = self.ctx.header.num_ref_idx_l0_active_minus1 + 1
         pic.mb_class[addr] = MB_INTER
+        sub_types = ()
         if mb_type < 3:
             parts = _P_PARTS[mb_type]
             refs = [br.te(nref - 1) if nref > 1 else 0 for _ in parts]
@@ -239,19 +301,25 @@ class MBParser:
                 for (sx, sy, sw, sh) in _SUB_PARTS[sub_types[q]]:
                     self._fill_mv(addr, qx + sx, qy + sy, sw, sh, refs[q])
 
-        self._read_inter_residual(addr)
+        self._read_inter_residual(addr, p_allow8(mb_type, sub_types))
 
-    def _read_inter_residual(self, addr: int) -> None:
-        """coded_block_pattern, mb_qp_delta and the residual of an inter
-        MB."""
+    def _read_inter_residual(self, addr: int, allow8: bool) -> None:
+        """coded_block_pattern, transform_size_8x8_flag (when the PPS has
+        the 8x8 transform, luma is coded and allow8), mb_qp_delta and the
+        residual of an inter MB."""
         pic = self.pic
         cbp = int(CBP_MAP_CHROMA[self.br.ue()][1])
         pic.cbp[addr] = cbp
+        if self.ctx.pps.transform_8x8_mode_flag and cbp & 15 and allow8:
+            pic.transform8x8[addr] = bool(self.br.flag())
         if cbp:
             self._read_qp_delta(addr)
         else:
             pic.qp[addr] = self.qp
-        self._read_luma_residual(addr, cbp & 15, is_i16=False)
+        if pic.transform8x8[addr]:
+            self._read_luma_residual_8x8(addr, cbp & 15)
+        else:
+            self._read_luma_residual(addr, cbp & 15, is_i16=False)
         self._read_chroma_residual(addr, cbp)
 
     def _parse_p_skip(self, addr: int) -> None:
@@ -286,13 +354,16 @@ class MBParser:
         subs = [self.br.ue() for _ in range(4)]
         if any(t > 12 for t in subs):
             raise ValueError("invalid B sub_mb_type")
+        self._b_subs = subs
         return subs
 
     def _parse_b_mb(self, addr: int, coded: int) -> None:
         """coded: B mb_type 0 (B_Direct_16x16), 1..21, 22 (B_8x8)."""
         self.pic.mb_class[addr] = MB_INTER
+        self._b_subs = ()
         B.parse_b_motion(self, addr, coded, self._read_b_subs)
-        self._read_inter_residual(addr)
+        self._read_inter_residual(addr, b_allow8(coded, self._b_subs,
+                                                 self.ctx.sps))
 
     # ---- native parse -----------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Macroblock-layer parsing of CABAC I, P and B slices (spec 7.3.5,
 9.3.3.1), twin of jm_tpu/decoder/mb_parse_cabac.py's MBParserCABAC for
-4:2:0, 8-bit frame pictures with the 4x4 transform.
+4:2:0, 8-bit frame pictures with the 4x4 and the adaptive 8x8 transform.
 
 It fills the same picture-wide SoA arrays (common/picture.PictureData) as
 the CAVLC parser, plus the two the context selection reads: the mvd of
@@ -13,8 +13,12 @@ from common/predict_ctx.PredCtx, as for CAVLC; B direct motion from
 decoder/b_slice.py. In B slices a neighbour coded B_Skip or
 B_Direct_16x16 does not count for the mb_type context, and a direct
 neighbour (MB or 8x8) none for the ref_idx context; the mvd context reads
-the list being coded. The 8x8 transform raises NotImplementedError, and
-every B slice counts in native.routes["b"]["parse"]. The arithmetic
+the list being coded. transform_size_8x8_flag takes its context from the
+neighbours' flags; an 8x8 block is one LUMA_8x8 block (category 5, no
+coded_block_flag, the frame 8x8 significance and last maps), which
+stands for each of its four 4x4 blocks in the coded_block_flag bits
+that later contexts read, and whose count is their nnz. Every B slice counts in
+native.routes["b"]["parse"]. The arithmetic
 decoder is the
 native CabacEngine unless the caller asks for the Python twin
 (``native=False``); each slice's choice is counted in
@@ -31,10 +35,11 @@ from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
 from . import b_slice as B
-from .cabac import (CHROMA_AC, CHROMA_DC, LUMA_4x4, LUMA_16AC, LUMA_16DC,
-                    TYPE2CTX_BCBP, CabacContexts, CabacEngine,
+from .cabac import (CHROMA_AC, CHROMA_DC, LUMA_4x4, LUMA_8x8, LUMA_16AC,
+                    LUMA_16DC, TYPE2CTX_BCBP, CabacContexts, CabacEngine,
                     PyCabacEngine, read_significance_and_levels)
-from .mb_parse import _P_PARTS, _SUB_PARTS, SliceContext
+from .mb_parse import (_P_PARTS, _SUB_PARTS, SliceContext, b_allow8,
+                       p_allow8)
 
 
 class CabacNeighbours:
@@ -182,6 +187,20 @@ class CabacNeighbours:
         return (2 * term(self._up_mb(addr))
                 + term(self._left_mb(addr)))
 
+    def transform_size_ctx(self, addr) -> int:
+        """transform_size_8x8_flag: the left and upper MBs' flags."""
+        la, ua = self._left_mb(addr), self._up_mb(addr)
+        t8 = self.pic.transform8x8
+        return int(la >= 0 and t8[la]) + int(ua >= 0 and t8[ua])
+
+    def mark_8x8(self, addr, blk8, coeff) -> None:
+        """A coded 8x8 block stands for its four 4x4 blocks in the
+        coded_block_flag bits that later contexts read (JM's 0x33
+        pattern)."""
+        if np.any(coeff):
+            self.pic.cbp_bits[addr] |= np.int64(0x33) << (
+                1 + (blk8 // 2) * 8 + (blk8 % 2) * 2)
+
     def cbf_ctx(self, addr, block_type, bx=0, by=0, comp=0):
         """coded_block_flag: (context 2 upper + left from the neighbours'
         bits, this block's bit in pic.cbp_bits)."""
@@ -240,8 +259,6 @@ class MBParserCABAC(CabacNeighbours):
                  native: bool = True):
         """native=False: the Python twin PyCabacEngine (which reads any
         reader); the native engine needs a native BitReader."""
-        if ctx.pps.transform_8x8_mode_flag:
-            raise NotImplementedError("out of scope: 8x8 transform")
         super().__init__(pic)
         self.ctx = ctx
         self.qp = ctx.qp
@@ -352,6 +369,10 @@ class MBParserCABAC(CabacNeighbours):
             return 2 if eng.decision(ctx, 4) else 3
         return 1
 
+    def read_transform_size(self, addr) -> bool:
+        return bool(self.eng.decision(self.ctxs.transform_size,
+                                      self.transform_size_ctx(addr)))
+
     def read_intra4_mode(self) -> int:
         """-1 = the predicted mode, else rem (0..7, bins LSB first)."""
         eng, ctx = self.eng, self.ctxs.ipr
@@ -444,6 +465,19 @@ class MBParserCABAC(CabacNeighbours):
                 if c is not None:
                     pic.luma_nnz[addr, blk] = int(np.count_nonzero(c))
 
+    def _read_luma_residual_8x8(self, addr, cbp):
+        """Each coded 8x8 as one LUMA_8x8 block, always present; its
+        count is the nnz of each of its 4x4 blocks."""
+        for blk8 in range(4):
+            if cbp & (1 << blk8):
+                c = read_significance_and_levels(self.eng, self.ctxs,
+                                                 LUMA_8x8)
+                self.pic.luma_coef8[addr, blk8] = c
+                self.mark_8x8(addr, blk8, c)
+                b = (blk8 // 2) * 8 + (blk8 % 2) * 2
+                self.pic.luma_nnz[addr, [b, b + 1, b + 4, b + 5]] = \
+                    np.count_nonzero(c)
+
     def _read_chroma_residual(self, addr, cbp):
         pic = self.pic
         cbp_chroma = cbp >> 4
@@ -493,12 +527,17 @@ class MBParserCABAC(CabacNeighbours):
             return
         if imb_type == 0:
             pic.mb_class[addr] = MB_I4
-            for code_idx in range(16):
+            if self.ctx.pps.transform_8x8_mode_flag:
+                pic.transform8x8[addr] = self.read_transform_size(addr)
+            t8 = pic.transform8x8[addr]
+            # Intra8x8: one mode per quadrant, over its four 4x4 blocks
+            for code_idx in range(0, 16, 4) if t8 else range(16):
                 blk = int(CODE2RASTER[code_idx])
                 pred = self.pctx.pred_intra4_mode(addr, blk)
                 rem = self.read_intra4_mode()
-                pic.i4_modes[addr, blk] = pred if rem < 0 else (
-                    rem if rem < pred else rem + 1)
+                mode = pred if rem < 0 else (rem if rem < pred else rem + 1)
+                for b in (blk, blk + 1, blk + 4, blk + 5) if t8 else (blk,):
+                    pic.i4_modes[addr, b] = mode
             pic.chroma_mode[addr] = self.read_chroma_pred_mode(addr)
             cbp = self.read_cbp(addr)
             pic.cbp[addr] = cbp
@@ -507,7 +546,10 @@ class MBParserCABAC(CabacNeighbours):
             else:
                 self.last_dquant = 0
                 pic.qp[addr] = self.qp
-            self._read_luma_residual(addr, cbp & 15, is_i16=False)
+            if t8:
+                self._read_luma_residual_8x8(addr, cbp & 15)
+            else:
+                self._read_luma_residual(addr, cbp & 15, is_i16=False)
         else:
             pic.mb_class[addr] = MB_I16
             k = imb_type - 1
@@ -541,6 +583,7 @@ class MBParserCABAC(CabacNeighbours):
         pic = self.pic
         nref = self.ctx.header.num_ref_idx_l0_active_minus1 + 1
         pic.mb_class[addr] = MB_INTER
+        sub_types = ()
         if internal_type < 4:
             parts = _P_PARTS[internal_type - 1]
             refs = []
@@ -566,7 +609,8 @@ class MBParserCABAC(CabacNeighbours):
                 qx, qy = (q % 2) * 2, (q // 2) * 2
                 for (sx, sy, sw, sh) in _SUB_PARTS[sub_types[q]]:
                     self._fill_mv(addr, qx + sx, qy + sy, sw, sh, refs[q])
-        self._read_inter_residual(addr)
+        self._read_inter_residual(addr, p_allow8(internal_type - 1,
+                                                 sub_types))
 
     def _parse_p_skip(self, addr):
         pic = self.pic
@@ -598,22 +642,33 @@ class MBParserCABAC(CabacNeighbours):
     def _parse_b_mb(self, addr, coded):
         """coded: B mb_type 0 (B_Direct_16x16), 1..21, 22 (B_8x8)."""
         self.pic.mb_class[addr] = MB_INTER
-        B.parse_b_motion(self, addr, coded, lambda: [
-            self.read_sub_mb_type_b() for _ in range(4)])
-        self._read_inter_residual(addr)
+        subs = []
 
-    def _read_inter_residual(self, addr):
-        """coded_block_pattern, mb_qp_delta and the residual of an inter
-        MB."""
+        def read_subs():
+            subs.extend(self.read_sub_mb_type_b() for _ in range(4))
+            return subs
+
+        B.parse_b_motion(self, addr, coded, read_subs)
+        self._read_inter_residual(addr, b_allow8(coded, subs, self.ctx.sps))
+
+    def _read_inter_residual(self, addr, allow8):
+        """coded_block_pattern, transform_size_8x8_flag (when the PPS has
+        the 8x8 transform, luma is coded and allow8), mb_qp_delta and the
+        residual of an inter MB."""
         pic = self.pic
         cbp = self.read_cbp(addr)
         pic.cbp[addr] = cbp
+        if self.ctx.pps.transform_8x8_mode_flag and cbp & 15 and allow8:
+            pic.transform8x8[addr] = self.read_transform_size(addr)
         if cbp:
             self._apply_dquant(addr)
         else:
             self.last_dquant = 0
             pic.qp[addr] = self.qp
-        self._read_luma_residual(addr, cbp & 15, is_i16=False)
+        if pic.transform8x8[addr]:
+            self._read_luma_residual_8x8(addr, cbp & 15)
+        else:
+            self._read_luma_residual(addr, cbp & 15, is_i16=False)
         self._read_chroma_residual(addr, cbp)
 
     # ---- slice loop -------------------------------------------------------

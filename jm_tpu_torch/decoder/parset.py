@@ -1,12 +1,17 @@
 """SPS / PPS parsing (spec 7.3.2.1 / 7.3.2.2), twin of
-jm_tpu/decoder/parset.py without scaling lists and subset SPS
-(ldecod/src/parset.c InterpretSPS:61, InterpretPPS:389, ReadVUI:284).
+jm_tpu/decoder/parset.py without the subset SPS (ldecod/src/parset.c
+InterpretSPS:61, InterpretPPS:389, Scaling_List, ReadVUI:284).
 
-VUI and HRD parameters are read and dropped. A scaling matrix raises
-NotImplementedError: the decoder dequantizes with the flat lists only.
-An SPS whose FRExt read fails or is implausible is read again without
-the FRExt block, as jm_tpu does for JM 19.0's MVC writer (its base-view
-SPS says profile 100 but omits the block).
+VUI and HRD parameters are read and dropped. The SPS and PPS scaling
+lists are read with the spec's fall-back rules (Table 7-2): rule A in
+the SPS (an absent list 0 / 3 / 6 / 7 takes the default list, any other
+the list before it of its kind), rule B in a PPS of an SPS with scaling
+matrices (an absent list 0 / 3 / 6 / 7 takes the SPS's), and a first
+delta that gives 0 selects the default list
+(useDefaultScalingMatrixFlag). Lists are kept in zig-zag order. An SPS
+whose FRExt read fails or is implausible is read again without the FRExt
+block, as jm_tpu does for JM 19.0's MVC writer (its base-view SPS says
+profile 100 but omits the block).
 """
 
 from __future__ import annotations
@@ -14,8 +19,30 @@ from __future__ import annotations
 from ..bitstream.bitreader import BitReader
 from ..common.types import PPS, SPS
 
+# the default scaling lists, zig-zag order (spec Tables 7-3 / 7-4)
+DEFAULT_4x4_INTRA = [6, 13, 13, 20, 20, 20, 28, 28, 28, 28, 32, 32, 32, 37,
+                     37, 42]
+DEFAULT_4x4_INTER = [10, 14, 14, 20, 20, 20, 24, 24, 24, 24, 27, 27, 27, 30,
+                     30, 34]
+DEFAULT_8x8_INTRA = [
+    6, 10, 10, 13, 11, 13, 16, 16, 16, 16, 18, 18, 18, 18, 18, 23,
+    23, 23, 23, 23, 23, 25, 25, 25, 25, 25, 25, 25, 27, 27, 27, 27,
+    27, 27, 27, 27, 29, 29, 29, 29, 29, 29, 29, 31, 31, 31, 31, 31,
+    31, 33, 33, 33, 33, 33, 36, 36, 36, 36, 38, 38, 38, 40, 40, 42,
+]
+DEFAULT_8x8_INTER = [
+    9, 13, 13, 15, 13, 15, 17, 17, 17, 17, 19, 19, 19, 19, 19, 21,
+    21, 21, 21, 21, 21, 22, 22, 22, 22, 22, 22, 22, 24, 24, 24, 24,
+    24, 24, 24, 24, 25, 25, 25, 25, 25, 25, 25, 27, 27, 27, 27, 27,
+    27, 28, 28, 28, 28, 28, 30, 30, 30, 30, 32, 32, 32, 33, 33, 35,
+]
 FLAT_16 = [16] * 16
 FLAT_64 = [16] * 64
+
+# fall-back rule A: an absent list 0 / 3 (4x4) or 6 / 7 (8x8) of the SPS
+# takes the default list
+_SPS_FALLBACK_4 = {0: DEFAULT_4x4_INTRA, 3: DEFAULT_4x4_INTER}
+_SPS_FALLBACK_8 = {0: DEFAULT_8x8_INTRA, 1: DEFAULT_8x8_INTER}
 
 # profiles whose SPS carries chroma_format_idc .. seq_scaling_matrix
 _FREXT_PROFILES = (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134,
@@ -43,19 +70,51 @@ def parse_sps(rbsp: bytes) -> SPS:
         sane = False
     if not sane:
         s = _parse_sps_data(BitReader(rbsp), skip_frext=True)
-    if s.seq_scaling_matrix_present_flag:
-        raise NotImplementedError(
-            "out of scope: scaling matrices (seq_scaling_matrix_present)")
     return s
 
 
-def _skip_scaling_list(br: BitReader, size: int) -> None:
-    """scaling_list() (spec 7.3.2.1.1.1), read and dropped."""
+def _read_scaling_list(br: BitReader, size: int):
+    """scaling_list() (spec 7.3.2.1.1.1): (the list, zig-zag order;
+    useDefaultScalingMatrixFlag)."""
     last = nxt = 8
-    for _ in range(size):
+    out = []
+    use_default = False
+    for j in range(size):
         if nxt:
             nxt = (last + br.se() + 256) % 256
+            use_default = use_default or (j == 0 and nxt == 0)
         last = nxt or last
+        out.append(last)
+    return out, use_default
+
+
+def _read_all_scaling_lists(br: BitReader, n_lists: int, fallback_4x4,
+                            fallback_8x8):
+    """The scaling-list loop of an SPS or PPS (jm_tpu/decoder/parset.py
+    _read_all_scaling_lists): fallback_* give the lists an absent list
+    0 / 3 / 6 / 7 takes (rule A: the defaults; rule B: the SPS's); any
+    other absent list takes the list before it of its kind. Returns
+    (six 4x4 lists, n_lists - 6 8x8 lists)."""
+    l4 = [None] * 6
+    l8 = [None] * (n_lists - 6)
+    for i in range(n_lists):
+        present = br.flag()
+        if i < 6:
+            if present:
+                lst, use_def = _read_scaling_list(br, 16)
+                l4[i] = list(DEFAULT_4x4_INTRA if i < 3
+                             else DEFAULT_4x4_INTER) if use_def else lst
+            else:
+                l4[i] = list(fallback_4x4[i] if i in (0, 3) else l4[i - 1])
+        else:
+            k = i - 6
+            if present:
+                lst, use_def = _read_scaling_list(br, 64)
+                l8[k] = list(DEFAULT_8x8_INTRA if k % 2 == 0
+                             else DEFAULT_8x8_INTER) if use_def else lst
+            else:
+                l8[k] = list(fallback_8x8[k] if k < 2 else l8[k - 2])
+    return l4, l8
 
 
 def _parse_sps_data(br: BitReader, skip_frext: bool = False) -> SPS:
@@ -73,11 +132,12 @@ def _parse_sps_data(br: BitReader, skip_frext: bool = False) -> SPS:
         s.qpprime_y_zero_transform_bypass_flag = br.flag()
         s.seq_scaling_matrix_present_flag = br.flag()
         if s.seq_scaling_matrix_present_flag:
-            for i in range(8 if s.chroma_format_idc != 3 else 12):
-                if br.flag():
-                    _skip_scaling_list(br, 16 if i < 6 else 64)
-    s.scaling_list_4x4 = [list(FLAT_16) for _ in range(6)]
-    s.scaling_list_8x8 = [list(FLAT_64) for _ in range(6)]
+            s.scaling_list_4x4, s.scaling_list_8x8 = _read_all_scaling_lists(
+                br, 12 if s.chroma_format_idc == 3 else 8, _SPS_FALLBACK_4,
+                _SPS_FALLBACK_8)
+    if not s.scaling_list_4x4:
+        s.scaling_list_4x4 = [list(FLAT_16) for _ in range(6)]
+        s.scaling_list_8x8 = [list(FLAT_64) for _ in range(6)]
     s.log2_max_frame_num_minus4 = br.ue()
     s.pic_order_cnt_type = br.ue()
     if s.pic_order_cnt_type == 0:
@@ -195,7 +255,16 @@ def parse_pps(rbsp: bytes, sps_map: dict[int, SPS]) -> PPS:
         p.transform_8x8_mode_flag = br.flag()
         p.pic_scaling_matrix_present_flag = br.flag()
         if p.pic_scaling_matrix_present_flag:
-            raise NotImplementedError(
-                "out of scope: scaling matrices (pic_scaling_matrix_present)")
+            n = 6 + (2 if sps.chroma_format_idc != 3 else 6) \
+                * p.transform_8x8_mode_flag
+            if sps.seq_scaling_matrix_present_flag:
+                # rule B: an absent list 0 / 3 / 6 / 7 takes the SPS's
+                fb4 = {0: p.scaling_list_4x4[0], 3: p.scaling_list_4x4[3]}
+                fb8 = {0: p.scaling_list_8x8[0], 1: p.scaling_list_8x8[1]}
+            else:
+                fb4, fb8 = _SPS_FALLBACK_4, _SPS_FALLBACK_8
+            p.scaling_list_4x4, l8 = _read_all_scaling_lists(br, n, fb4, fb8)
+            for k, lst in enumerate(l8):
+                p.scaling_list_8x8[k] = lst
         p.second_chroma_qp_index_offset = br.se()
     return p

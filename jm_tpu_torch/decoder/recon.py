@@ -1,14 +1,15 @@
 """Host reconstruction of a decoded picture's intra macroblocks, twin of
 jm_tpu/decoder/recon.py for 4:2:0, 8-bit frame pictures with the 4x4
-transform (ldecod/src/macroblock.c decode_one_macroblock:1402,
-block.c itrans4x4 / itrans_2).
+and the 8x8 transform and scaling matrices (ldecod/src/macroblock.c
+decode_one_macroblock:1402, block.c itrans4x4 / itrans_2 /
+itrans8x8).
 
 ``decode_residuals`` is batched numpy over every MB of the picture;
-``Reconstructor`` then walks the intra (I4, I16, I_PCM) MBs in raster
-order, each predicted from the already reconstructed neighbours. Inter
+``Reconstructor`` then walks the intra (I4, I8, I16, I_PCM) MBs in
+raster order, each predicted from the already reconstructed neighbours. Inter
 MBs are never predicted here: they arrive in the seed planes made on the
-device by ops/dec.inter_recon_p. The I4 / I16 walk runs in the port's
-C++ runtime (jm_tpu_torch/native, jm_dec.cpp intra_recon) unless the
+device by ops/dec.inter_recon_p. The I4 / I8 / I16 walk runs in the
+port's C++ runtime (jm_tpu_torch/native, jm_dec.cpp intra_recon) unless the
 picture holds an I_PCM MB (whose samples feed later predictions, so the
 Python walk interleaves it) or the caller asks for the Python walk
 (``native=False``); native.routes["recon"] counts the route.
@@ -21,10 +22,13 @@ import numpy as np
 from .. import native as N
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, RASTER2CODE
-from ..common.tables import DEQUANT_SCALE_4x4, ZIGZAG_4x4, chroma_qp
+from ..common.tables import (DEQUANT_SCALE_4x4, DEQUANT_SCALE_8x8,
+                             ZIGZAG_4x4, ZIGZAG_8x8, chroma_qp)
+from ..ops.transform import inv8_1d, split_8x8
 from . import intra_pred as I
 
 _ZZ = np.asarray(ZIGZAG_4x4)
+_ZZ8 = np.asarray(ZIGZAG_8x8)
 
 
 def _rshift_rnd_sf(x, a: int):
@@ -67,10 +71,17 @@ def _np_hadamard4(d):
     return np.stack([b0 + b3, b1 + b2, b1 - b2, b0 - b3], axis=-2)
 
 
+def _np_inv8(d):
+    """Batched spec inverse 8x8 (no rounding); d: (..., 8, 8) int."""
+    d = d.astype(np.int64)
+    t = np.stack(inv8_1d(tuple(d[..., :, i] for i in range(8))), axis=-1)
+    return np.stack(inv8_1d(tuple(t[..., j, :] for j in range(8))), axis=-2)
+
+
 def build_inv_scale(pps) -> np.ndarray:
     """(6, 52, 4, 4) int32 InvLevelScale = V[qp % 6] * weightScale of the
     PPS's six 4x4 lists (0 intra Y, 1 intra Cb, 2 intra Cr, 3 inter Y,
-    4 inter Cb, 5 inter Cr); flat here, since scaling matrices raise."""
+    4 inter Cb, 5 inter Cr; zig-zag order in the PPS)."""
     tab4 = np.zeros((6, 52, 4, 4), np.int32)
     v = DEQUANT_SCALE_4x4[np.arange(52) % 6]                 # (52, 4, 4)
     for i in range(6):
@@ -80,11 +91,26 @@ def build_inv_scale(pps) -> np.ndarray:
     return tab4
 
 
+def build_inv_scale8(pps) -> np.ndarray:
+    """(2, 52, 8, 8) int32 LevelScale8 = V8[qp % 6] * weightScale8 of the
+    PPS's two 4:2:0 8x8 lists (0 intra Y, 1 inter Y: spec lists 6 and
+    7)."""
+    tab8 = np.zeros((2, 52, 8, 8), np.int32)
+    v = DEQUANT_SCALE_8x8[np.arange(52) % 6]                 # (52, 8, 8)
+    for i in range(2):
+        ws = np.zeros(64, np.int64)
+        ws[_ZZ8] = pps.scaling_list_8x8[i]
+        tab8[i] = v * ws.reshape(8, 8)
+    return tab8
+
+
 def decode_residuals(pic: PictureData, pps):
     """Returns (res_luma (n, 16, 4, 4), res_chroma (n, 2, 4, 4, 4)) int32
     spatial residuals of every MB (inverse scan -> dequant -> inverse
-    transform; I16 luma DC and chroma DC Hadamards); products in int64,
-    the dequantized levels kept as int32 as in jm_tpu."""
+    transform; I16 luma DC and chroma DC Hadamards; the 8x8 transform of
+    MBs with transform8x8, its output split into their 16 raster 4x4
+    blocks); products in int64, the dequantized levels kept as int32 as
+    in jm_tpu."""
     n = pic.n_mbs
     qp = pic.qp.astype(np.int64)
     tab4 = build_inv_scale(pps)
@@ -107,6 +133,18 @@ def decode_residuals(pic: PictureData, pps):
         deq_dc[:, blk, 0, 0] = dc_s[:, blk // 4, blk % 4]
         deq = np.where(i16[:, None, None, None], deq_dc, deq)
     res_luma = ((_np_inv4(deq) + 32) >> 6).astype(np.int32)
+
+    # ---- luma of 8x8-transform MBs: intra -> list 6, inter -> list 7 ----
+    t8 = np.asarray(pic.transform8x8)
+    if t8.any():
+        r8 = np.zeros((n, 4, 64), np.int64)
+        r8[..., _ZZ8] = pic.luma_coef8
+        scale8 = build_inv_scale8(pps)[np.where(intra, 0, 1), qp] \
+            .astype(np.int64)                                   # (n, 8, 8)
+        deq8 = _rshift_rnd_sf((r8.reshape(n, 4, 8, 8) * scale8[:, None])
+                              << per[:, None, None, None], 6)
+        res8 = split_8x8(((_np_inv8(deq8) + 32) >> 6).astype(np.int32))
+        res_luma = np.where(t8[:, None, None, None], res8, res_luma)
 
     # ---- chroma: lists 1 / 2 intra, 4 / 5 inter ----
     qpc = np.array([[chroma_qp(int(q), pps.cb_qp_offset),
@@ -194,6 +232,8 @@ class Reconstructor:
             cls = pic.mb_class[addr]
             if cls == MB_I16:
                 self._recon_i16(addr, res_l, res_c)
+            elif cls == MB_I4 and pic.transform8x8[addr]:
+                self._recon_i8(addr, res_l, res_c)
             elif cls == MB_I4:
                 self._recon_i4(addr, res_l, res_c)
             elif cls == MB_IPCM:
@@ -229,6 +269,42 @@ class Reconstructor:
                                 left, corner, avail_t, avail_l)
             Y[y:y + 4, x:x + 4] = np.clip(pred + res_l[addr, by * 4 + bx],
                                           0, 255)
+        self._recon_chroma_intra(addr, res_c)
+
+    def _recon_i8(self, addr, res_l, res_c):
+        """Intra 8x8: the four quadrants in order, each predicted from
+        the filtered reference samples (intra_pred.predict_i8); the
+        up-right samples of quadrant 1 come from the MB above right, of
+        quadrant 3 never (jm_tpu/decoder/recon.py _recon_i8)."""
+        pic = self.pic
+        mbx, mby = addr % self.mb_w, addr // self.mb_w
+        Y = self.Y
+        for q in range(4):
+            by, bx = (q // 2) * 2, (q % 2) * 2     # its top-left 4x4
+            gx, gy = mbx * 4 + bx, mby * 4 + by
+            x, y = gx * 4, gy * 4
+            code = int(RASTER2CODE[by * 4 + bx])
+            avail_l = self._block_avail(addr, gx - 1, gy, code)
+            avail_t = self._block_avail(addr, gx, gy - 1, code)
+            avail_tl = self._block_avail(addr, gx - 1, gy - 1, code)
+            avail_tr = self._block_avail(addr, gx + 2, gy - 1, code)
+            top = np.zeros(16, np.int32)
+            left = np.zeros(8, np.int32)
+            corner = 0
+            if avail_t:
+                top[0:8] = Y[y - 1, x:x + 8]
+                top[8:16] = Y[y - 1, x + 8:x + 16] if avail_tr \
+                    else Y[y - 1, x + 7]
+            if avail_l:
+                left[:] = Y[y:y + 8, x - 1]
+            if avail_tl:
+                corner = int(Y[y - 1, x - 1])
+            pred = I.predict_i8(int(pic.i4_modes[addr, by * 4 + bx]), top,
+                                left, corner, avail_t, avail_l, avail_tl)
+            blks = [(by + dy) * 4 + bx + dx for dy in (0, 1) for dx in (0, 1)]
+            res = res_l[addr, blks].reshape(2, 2, 4, 4).transpose(
+                0, 2, 1, 3).reshape(8, 8)
+            Y[y:y + 8, x:x + 8] = np.clip(pred + res, 0, 255)
         self._recon_chroma_intra(addr, res_c)
 
     def _recon_i16(self, addr, res_l, res_c):

@@ -1,10 +1,11 @@
 """The B macroblock coder of the port: twin of jm_tpu/encoder/encoder.py
 _FrameEncoder._encode_b_mb (:3418-3528) with _b_pred_assemble (:3360),
 _mc_blk_b (:3351), _mc_chroma (:3326), _commit_inter_residual (:3409)
-and _code_luma_inter (:3114), for 4:2:0 frame pictures with flat quant,
-the 4x4 transform and one reference per list. InterMBCoder holds the
-motion compensation and the inter residual that the P macroblock coder
-(encoder/p_host.py) shares.
+and _code_luma_inter (:3114), for 4:2:0 frame pictures with one
+reference per list, flat quant or the custom quant of
+encoder/qmatrix.QuantCtx, the 4x4 or the adaptive 8x8 transform.
+InterMBCoder holds the motion compensation and the inter residual that
+the P macroblock coder (encoder/p_host.py) shares.
 
 Per MB, in slice order (serial host code, as in jm_tpu):
   - spatial direct: its motion (decoder/b_slice.py) and its prediction,
@@ -17,14 +18,16 @@ Per MB, in slice order (serial host code, as in jm_tpu):
     bits of both);
   - the cheapest of the four, unless Intra16x16's SAD + 2 lambda_mode4
     is below it (encoder/p_intra.py's IntraMBCoder codes it);
-then the inter residual (4x4 luma with JM's coefficient thresholding,
-4:2:0 chroma) and the recon. A direct MB without coefficients becomes
-B_Skip. The predictions are made per 4x4 block, each list's luma at
-quarter-pel and chroma at eighth-pel, the two averaged as
-(p0 + p1 + 1) >> 1, or with weighted bi-prediction (wp, the decoder's
-WPParams) weighted as a decoder does: what a decoder reconstructs. As in
-jm_tpu, only the direct candidate's cost and the coded prediction are
-weighted; the searches and the bi candidate's cost are not.
+then the inter residual (4x4 luma with JM's coefficient thresholding;
+with transform8x8 also the 8x8 transform, kept by SSD + lambda_mode4
+per level; 4:2:0 chroma) and the recon. A direct MB without
+coefficients becomes B_Skip. The predictions are made per 4x4 block,
+each list's luma at quarter-pel and chroma at eighth-pel, the two
+averaged as (p0 + p1 + 1) >> 1, or with weighted bi-prediction (wp, the
+decoder's WPParams) weighted as a decoder does: what a decoder
+reconstructs. As in jm_tpu, only the direct candidate's cost and the
+coded prediction are weighted; the searches and the bi candidate's cost
+are not.
 """
 
 from __future__ import annotations
@@ -53,7 +56,10 @@ class HostRef:
 class InterMBCoder(IntraMBCoder):
     """The inter side of a host MB coder: a reference's 4x4 motion
     compensation and the inter residual, over the IntraMBCoder state (and
-    w / h, the picture's luma size)."""
+    w / h, the picture's luma size; transform8x8: the PPS's
+    transform_8x8_mode_flag)."""
+
+    transform8x8 = False
 
     def _mc_blk(self, ref: HostRef, px, py, bx, by, mv):
         """One 4x4 luma block and its 2x2 chroma blocks from one reference
@@ -71,14 +77,17 @@ class InterMBCoder(IntraMBCoder):
 
     def _code_luma_inter(self, addr, o, pred_y) -> int:
         """The inter luma residual (4x4 transform, JM's thresholding of
-        cheap 8x8 quadrants and MBs, macroblock.c:901,1248): commits the
-        levels, nnz and recon; returns cbp_luma."""
+        cheap 8x8 quadrants and MBs, macroblock.c:901,1248; with
+        transform8x8 and no partition below 8x8 also the 8x8 transform
+        with its own thresholds, kept when its SSD + lambda_mode4 per
+        nonzero level is below the 4x4's): commits the levels, nnz and
+        recon; returns cbp_luma."""
         pic = self.pic
         px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
         res = o.astype(np.int64) - pred_y
         w4 = RN.np_forward4x4(res.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
                               .reshape(16, 4, 4))
-        scan4 = RN.to_scan(RN.np_quant_4x4(w4, self.qp, False))
+        scan4 = RN.to_scan(self._q4(w4, self.qp, False))
         total = 0
         for qb in ME.QUAD_BLKS:
             cq = sum(RN.coeff_cost_scan(scan4[b]) for b in qb)
@@ -90,14 +99,67 @@ class InterMBCoder(IntraMBCoder):
             scan4[:] = 0
         pred_blocks = pred_y.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
             .reshape(16, 4, 4)
-        rec = RN.recon_luma_4x4(pred_blocks, scan4, self.qp)
-        self.recY[py:py + 16, px:px + 16] = \
-            rec.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
+        rec = RN.recon_luma_4x4(pred_blocks, scan4, self.qp,
+                                tab=self._itab4(False)) \
+            .reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
+        if self.transform8x8 and (int(pic.inter_mode[addr]) != 3
+                                  or not pic.sub_mode[addr].any()):
+            t8 = self._code_luma_8x8(addr, o, pred_y, res, rec, scan4)
+            if t8 is not None:
+                return t8
+        self.recY[py:py + 16, px:px + 16] = rec
         pic.luma_coef[addr] = scan4
         nnz = (scan4 != 0).sum(axis=1)
         pic.luma_nnz[addr] = nnz
         return sum(1 << q for q, qb in enumerate(ME.QUAD_BLKS)
                    if nnz[qb].any())
+
+    def _code_luma_8x8(self, addr, o, pred_y, res, rec4, scan4):
+        """The 8x8-transform coding of the inter luma residual res
+        (jm_tpu encoder.py:3163-3198): committed, returning cbp_luma, when
+        it has a nonzero level after the thresholds and its SSD +
+        lambda_mode4 per nonzero level is below the 4x4 coding's (rec4,
+        scan4); else None. In CAVLC each 4x4 block of an 8x8 holds every
+        fourth level of its scan, whose count is the block's nnz."""
+        w8 = RN.np_forward8x8(res.reshape(2, 8, 2, 8).transpose(0, 2, 1, 3)
+                              .reshape(4, 8, 8))
+        scan8 = RN.to_scan8(self._q8(w8, self.qp, False))       # (4, 64)
+        total = 0
+        for q in range(4):
+            c8 = RN.coeff_cost_scan(scan8[q], tab=RN.COEFF_COST8)
+            if c8 <= RN.LUMA_COEFF_COST:
+                scan8[q] = 0
+            else:
+                total += c8
+        if total <= RN.LUMA_MB_COEFF_COST:
+            scan8[:] = 0
+        n8 = int((scan8 != 0).sum())
+        if not n8:
+            return None
+        rec8 = RN.recon_luma_8x8(
+            pred_y.reshape(2, 8, 2, 8).transpose(0, 2, 1, 3).reshape(4, 8, 8),
+            scan8, self.qp, tab=self._itab8(False)) \
+            .reshape(2, 2, 8, 8).transpose(0, 2, 1, 3).reshape(16, 16)
+        o64 = o.astype(np.int64)
+        d4 = int(((o64 - rec4) ** 2).sum())
+        d8 = int(((o64 - rec8) ** 2).sum())
+        n4 = int((scan4 != 0).sum())
+        if not d8 + self.lam4 * n8 < d4 + self.lam4 * n4:
+            return None
+        pic = self.pic
+        pic.transform8x8[addr] = True
+        pic.luma_coef8[addr] = scan8
+        cbp_luma = 0
+        for q in range(4):
+            if scan8[q].any():
+                cbp_luma |= 1 << q
+            by0, bx0 = (q // 2) * 2, (q % 2) * 2
+            for sub in range(4):
+                pic.luma_nnz[addr, (by0 + sub // 2) * 4 + bx0 + sub % 2] = \
+                    int((scan8[q, sub::4] != 0).sum())
+        px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
+        self.recY[py:py + 16, px:px + 16] = rec8
+        return cbp_luma
 
     def _commit_inter_residual(self, addr, o, pred_y, pred_u, pred_v):
         cbp_luma = self._code_luma_inter(addr, o, pred_y)
@@ -110,19 +172,25 @@ class InterMBCoder(IntraMBCoder):
 class BPicture(InterMBCoder):
     """One B picture coded MB by MB on the host: ``pic`` (PictureData)
     and the undeblocked recon planes recY / recU / recV (numpy uint8).
-    ``mix`` counts the MBs by decision (direct, skip, l0, l1, bi, i16)."""
+    ``mix`` counts the MBs by decision (direct, skip, l0, l1, bi, i16;
+    t8: the inter MBs coded with the 8x8 transform)."""
 
     def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
                  ref0: HostRef, ref1: HostRef, col: B.ColMotion, sads0,
-                 sads1, slices, sr: int, wp=None):
+                 sads1, slices, sr: int, wp=None, transform8x8=False,
+                 qctx=None, ar_period: int = 0):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
         lambda_me and lambda_mode4 of qp; ref0 / ref1: list0[0] and
         list1[0]; col: list1[0]'s motion; sads0 / sads1: the
         (N, (2 sr + 1)^2) integer search tables against each; slices: the
         slice plan, MB address lists in decode order; wp: the slice's
-        weighted prediction (decoder/wp.WPParams) or None."""
-        pic = self._init_picture(orig, qp, qpc)
+        weighted prediction (decoder/wp.WPParams) or None; transform8x8,
+        qctx, ar_period: the adaptive 8x8 transform and the custom quant
+        (InterMBCoder, IntraMBCoder)."""
+        self._init_picture(orig, qp, qpc)
         self.lam, self.lam4, self.wp = lam, lam4, wp
+        self.transform8x8 = transform8x8
+        self.qctx, self.ar_period = qctx, ar_period
         self.refs, self.col, self.sads = (ref0, ref1), col, (sads0, sads1)
         self.sr = sr
         self.h, self.w = self.origY.shape
@@ -130,12 +198,8 @@ class BPicture(InterMBCoder):
         self.recU = np.zeros_like(self.origU)
         self.recV = np.zeros_like(self.origV)
         self.mix = dict.fromkeys(("direct", "skip", "l0", "l1", "bi",
-                                  "i16"), 0)
-        for sid, addrs in enumerate(slices):
-            for addr in addrs:
-                pic.slice_id[addr] = sid
-                pic.qp[addr] = qp
-                self._encode_b_mb(int(addr))
+                                  "i16", "t8"), 0)
+        self._code_slices(slices, qp, self._encode_b_mb)
 
     # ---- prediction -------------------------------------------------------
 
@@ -262,6 +326,7 @@ class BPicture(InterMBCoder):
             pic.mv_l1[addr] = np.asarray(mvb, np.int32)
             pred = self._pred_assemble(addr)
         self._commit_inter_residual(addr, o, *pred)
+        self.mix["t8"] += int(pic.transform8x8[addr])
         if pic.b_direct[addr]:
             # B_Skip: direct prediction without coded residual
             pic.skip[addr] = pic.cbp[addr] == 0

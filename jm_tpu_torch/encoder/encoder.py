@@ -1,16 +1,26 @@
 """H.264 encoder of the port: IPPP or with B pictures (IbP, a dyadic
 pyramid or an explicit GOP string), 4:2:0, one reference per list, with
-the trial-encode RD P path (device_rd) or md_low, CAVLC (Baseline, or
-Extended with data partitioning) or CABAC (Main), one or several slices
+the trial-encode RD P path (device_rd) or md_low, or every picture coded
+by the serial host coders (pipeline="host"), CAVLC (Baseline, or
+Extended with data partitioning) or CABAC (Main), the High profile (the
+adaptive 8x8 transform, scaling matrices, explicit quant offsets and
+adaptive rounding), one or several slices
 per picture (slice_mode 1: MBs per slice, 2: bytes per slice), FMO slice
 groups (Baseline), a fixed QP, a P and a B QP of their own (qp_p, qp_b)
 or frame-level JVT-G012 rate control, POC types 0, 1 and 2, long-term
 anchors, MMCO marking, open-GOP I anchors with a recovery point SEI and
 CRA marking, redundant pictures, the loop filter on or off, a user-data
 SEI and VUI timing, weighted prediction of P pictures (explicit) and of B
-pictures (explicit or implicit) (twin of jm_tpu.encoder.Encoder with
-pipeline="device": its pipelined ``encode_stream`` and its per-frame
-``encode_frame``).
+pictures (explicit or implicit) (twin of jm_tpu.encoder.Encoder: its
+pipelined ``encode_stream`` and its per-frame ``encode_frame``).
+
+Each picture takes the route jm_tpu gives it (``_device_path_ok``,
+``_device_i_path_ok``): with pipeline="device" and neither custom quant
+nor the 8x8 transform, I pictures of one slice and P pictures without
+weighted prediction are coded on the device as below; every other
+picture, and every picture with pipeline="host", is coded MB by MB by
+the serial host coders (encoder/intra_host.py, p_host.py, b_host.py),
+deblocked on the device all the same.
 
 The pipe (``encode_stream`` of a CAVLC stream without B pictures, with
 one slice per picture, a fixed QP, no intra refresh, the loop filter on,
@@ -33,20 +43,21 @@ frame N+1 is dispatched again against the corrected reference.
 
 The per-frame path (``encode_frame``, and every frame of a stream outside
 the pipe), at the picture's QP:
-  - I pictures: i_frame_step on the device when the picture is one
-    slice, else the serial host intra encoder (encoder/intra_host.py);
-  - P pictures: ops/enc.p_frame_step on the device, the download of its
-    fields, the host commit with the serial re-encode of the intra MBs
-    and the picture's slice boundaries (encoder/p_intra.py);
-  - P pictures with weighted_pred (jm_tpu never sends them down its
-    device path): the explicit table of each reference, estimated from
-    the source and the reference's deblocked planes (encoder/wp_est.py,
-    wp_method / wp_iter_mc), the quadrant integer search table on the
-    device (ops/enc.full_search_sad_quad), the serial host P coder
-    (encoder/p_host.py, jm_tpu's _encode_p_mb); with wp_mcprec the
-    picture is also coded with the offset-only and the default tables,
-    and the coding of least frame-level J = SSD + lambda_mode 8 bytes
-    ships (not under rate control, as in jm_tpu);
+  - I pictures: i_frame_step on the device on the device route, else
+    the serial host intra encoder (encoder/intra_host.py);
+  - P pictures on the device route: ops/enc.p_frame_step on the device,
+    the download of its fields, the host commit with the serial
+    re-encode of the intra MBs and the picture's slice boundaries
+    (encoder/p_intra.py);
+  - other P pictures: the quadrant integer search table on the device
+    (ops/enc.full_search_sad_quad), the serial host P coder
+    (encoder/p_host.py, jm_tpu's _encode_p_mb); with weighted_pred
+    first the explicit table of each reference, estimated from the
+    source and the reference's deblocked planes (encoder/wp_est.py,
+    wp_method / wp_iter_mc), and with wp_mcprec the picture is also
+    coded with the offset-only and the default tables, and the coding
+    of least frame-level J = SSD + lambda_mode 8 bytes ships (not under
+    rate control, as in jm_tpu);
   - B pictures (num_b): the frames between two anchors wait for the later
     anchor, which is coded first; then each B: the 16x16 integer search
     tables against both anchors on the device (ops/enc.full_search_sad16),
@@ -59,10 +70,17 @@ slice id; skipped with deblock=False) + reference prep on the device,
 and the host serializer, one NAL unit per slice (three, partitions A /
 B / C, for a P slice with data_partition; B slices only through the
 Python writers, as in jm_tpu). After every redundant_period-th P picture
-a redundant coding follows: a second device encode of the frame at qp +
-redundant_qp_off against the same reference, host commit and one slice
+a redundant coding follows: a second encode of the frame at qp +
+redundant_qp_off against the same reference (on the device route a
+device encode and host commit, else the host P coder) and one slice
 with redundant_pic_cnt 1 and nal_ref_idc 0; it is neither deblocked nor
 stored.
+
+Custom quant (scaling_matrix, offset_matrix, adaptive_rounding) gives
+each host coding an encoder/qmatrix.QuantCtx; the adaptive-rounding
+offsets carry from coding to coding, re-codings and redundant codings
+included, as in jm_tpu. The encoder codes no Intra8x8: with the 8x8
+transform only inter MBs choose it.
 
 The encoder's DPB (``refs``, most recent first) holds the reference
 pictures with their device states and motion (the direct prediction of
@@ -127,6 +145,7 @@ from .gop import parse_explicit_hierarchy
 from .intra_host import IntraPicture
 from .p_host import PPicture
 from .p_intra import CORE_FIELDS, PictureCommit
+from .qmatrix import QuantCtx, default_offsets, to_zigzag4, to_zigzag8
 from .sei_write import (build_sei_rbsp, recovery_point,
                         user_data_unregistered)
 from .syntax import (serialize_slice, serialize_slice_dp, write_pps,
@@ -164,11 +183,22 @@ class EncoderConfig:
     between the anchors (one per interval, a dyadic pyramid or an
     explicit GOP string), open-GOP I anchors with a recovery point SEI
     and CRA marking; explicit weighted prediction of P pictures and
-    explicit or implicit weighted bi-prediction. Values outside it raise
-    ValueError, as do jm_tpu's refusals with B pictures (POC types 1 / 2,
-    FMO) and FMO with weighted prediction (profile 77) without data
-    partitioning; redundant pictures with data partitioning or with B
-    pictures raise NotImplementedError naming the field."""
+    explicit or implicit weighted bi-prediction; pipeline="host"; the
+    High profile: the adaptive 8x8 transform, scaling matrices (the
+    lists in raster order, in the SPS, the PPS or both), explicit quant
+    offsets and adaptive rounding. Values outside it raise ValueError,
+    as do jm_tpu's refusals with B pictures (POC types 1 / 2, FMO), FMO
+    in profile 77 (weighted prediction) or 100 (the 8x8 transform,
+    scaling matrices) without data partitioning, and scaling matrices
+    with data partitioning (profile 88); redundant pictures with data
+    partitioning or with B pictures, and the 8x8 transform with data
+    partitioning, raise NotImplementedError naming the field.
+
+    The defaults differ from jm_tpu's in two fields: jm_tpu codes every
+    picture on the host by default (pipeline="host") with md_low
+    (device_rd=False); the port's default is its device pipeline with
+    the trial-encode RD, the main path. EncoderConfig(pipeline="host")
+    writes jm_tpu's EncoderConfig() stream, whatever device_rd says."""
     width: int = 176
     height: int = 144
     qp: int = 28                 # I-picture QP (and P without qp_p / RC)
@@ -244,11 +274,43 @@ class EncoderConfig:
                                  # offset-only and the default tables, keep
                                  # the least frame J (WPMCPrecision)
     weighted_bipred: int = 0     # B pictures: 0 off, 1 explicit, 2 implicit
+    pipeline: str = "device"     # "device": the device route where it
+                                 # covers the picture; "host": every
+                                 # picture by the serial host coders
+                                 # (jm_tpu's default)
+    transform8x8: bool = False   # the adaptive 8x8 transform of inter MBs
+                                 # (High profile)
+    scaling_matrix: int = 0      # scaling lists: 1 in the SPS, 2 in the
+                                 # PPS, 3 both (ScalingMatrixPresentFlag)
+    scaling_lists4: tuple = ()   # 6 raster 16-entry lists (flat: ())
+    scaling_lists8: tuple = ()   # 2 raster 64-entry lists (intra, inter)
+    scaling_present: tuple = ()  # 8 per-list flags 0..3 (ScalingList-
+                                 # PresentFlagN; () all)
+    offset_matrix: tuple = ()    # (off4 (15, 16), off8 (5, 64)) explicit
+                                 # quant offsets (QOffsetMatrixFile)
+    adaptive_rounding: bool = False  # JVT-N011 (AdaptiveRounding)
+    adapt_rnd_period: int = 16   # its offset-list refresh, in MBs of a slice
+    adapt_rnd_w: int = 4         # its weight (AdaptRndWFactor)
+
+
+def _profile(cfg: EncoderConfig) -> int:
+    """profile_idc of the stream (jm_tpu encoder.py:277-281): Extended with
+    data partitioning, else High with the 8x8 transform or scaling
+    matrices, else Main with CABAC, B pictures or weighted prediction,
+    else Baseline."""
+    if cfg.data_partition:
+        return 88
+    if cfg.transform8x8 or cfg.scaling_matrix:
+        return 100
+    if cfg.entropy == "cabac" or cfg.num_b or cfg.weighted_pred \
+            or cfg.weighted_bipred:
+        return 77
+    return 66
 
 
 def _check_config(cfg: EncoderConfig) -> None:
     for name in ("device_rd", "cabac_adapt_init", "rc_enable", "deblock",
-                 "enable_vui"):
+                 "enable_vui", "transform8x8", "adaptive_rounding"):
         if not isinstance(getattr(cfg, name), bool):
             raise ValueError(f"EncoderConfig.{name}="
                              f"{getattr(cfg, name)!r}: True or False")
@@ -331,8 +393,57 @@ def _check_config(cfg: EncoderConfig) -> None:
         raise NotImplementedError(
             "redundant pictures: IPPP single-view frame coding only "
             "(not with data partitioning, as in jm_tpu)")
+    if cfg.pipeline not in ("host", "device"):
+        raise ValueError(f"EncoderConfig.pipeline={cfg.pipeline!r}: 'host' "
+                         "or 'device'")
     _check_wp_config(cfg)
     _check_b_config(cfg)
+    _check_quant_config(cfg)
+
+
+def _check_quant_config(cfg: EncoderConfig) -> None:
+    """The custom-quant fields, and jm_tpu's refusals of scaling matrices
+    outside the High profile and of FMO in it."""
+    if cfg.scaling_matrix not in (0, 1, 2, 3) \
+            or isinstance(cfg.scaling_matrix, bool):
+        raise ValueError(f"EncoderConfig.scaling_matrix="
+                         f"{cfg.scaling_matrix!r}: 0, 1, 2 or 3")
+    for name, n, size in (("scaling_lists4", 6, 16),
+                          ("scaling_lists8", 2, 64)):
+        lists = getattr(cfg, name)
+        if lists and (len(lists) != n or any(
+                len(x) != size or not all(1 <= int(v) <= 255 for v in x)
+                for x in lists)):
+            raise ValueError(f"EncoderConfig.{name}: () or {n} lists of "
+                             f"{size} values in 1..255")
+    if len(cfg.scaling_present) > 8 or not all(
+            p in (0, 1, 2, 3) for p in cfg.scaling_present):
+        raise ValueError("EncoderConfig.scaling_present: at most 8 flags "
+                         "0..3")
+    if cfg.offset_matrix and (
+            len(cfg.offset_matrix) != 2
+            or np.shape(cfg.offset_matrix[0]) != (15, 16)
+            or np.shape(cfg.offset_matrix[1]) != (5, 64)):
+        raise ValueError("EncoderConfig.offset_matrix: () or (off4 (15, 16),"
+                         " off8 (5, 64))")
+    for name in ("adapt_rnd_period", "adapt_rnd_w"):
+        v = getattr(cfg, name)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            raise ValueError(f"EncoderConfig.{name}={v!r}: an integer >= 0")
+    if cfg.scaling_matrix and _profile(cfg) != 100:
+        raise ValueError("EncoderConfig.scaling_matrix: scaling matrices "
+                         "need a High profile (not with data_partition)")
+    if cfg.transform8x8 and cfg.data_partition:
+        # jm_tpu writes the 8x8 residual of a partitioned slice into
+        # partition A, where its own decoder (and the spec) reads it from
+        # partition C: a reference fault the port does not copy
+        raise NotImplementedError(
+            "EncoderConfig.transform8x8 with data_partition: the 8x8 "
+            "transform in partitioned slices is not covered")
+    if cfg.num_slice_groups > 1 and _profile(cfg) == 100:
+        raise ValueError("EncoderConfig.num_slice_groups: FMO is not "
+                         "allowed in profile 100 (the 8x8 transform, "
+                         "scaling matrices)")
 
 
 def _check_wp_config(cfg: EncoderConfig) -> None:
@@ -495,9 +606,7 @@ class Encoder:
         if cfg.long_term_period > 0:
             self.dpb_size = min(16, self.dpb_size + 1)
         self.sps = SPS(
-            profile_idc=88 if cfg.data_partition else (
-                77 if cabac or cfg.num_b or cfg.weighted_pred
-                or cfg.weighted_bipred else 66),
+            profile_idc=_profile(cfg),
             level_idc=level,
             log2_max_frame_num_minus4=4,
             pic_order_cnt_type=cfg.poc_type,
@@ -518,12 +627,14 @@ class Encoder:
                             "fixed_frame_rate": 1, "pic_struct_present": 0}
         self.pps = PPS(num_ref_idx_l0_default_active_minus1=0,
                        entropy_coding_mode_flag=1 if cabac else 0,
+                       transform_8x8_mode_flag=int(cfg.transform8x8),
                        weighted_pred_flag=cfg.weighted_pred,
                        weighted_bipred_idc=cfg.weighted_bipred,
                        redundant_pic_cnt_present_flag=
                        1 if cfg.redundant_period else 0,
                        deblocking_filter_control_present_flag=
                        0 if cfg.deblock else 1)
+        self._init_quant()
         # FMO slice groups (lencod/src/fmo.c FmoInit)
         self.group_map = None
         if cfg.num_slice_groups > 1:
@@ -580,6 +691,88 @@ class Encoder:
         self._pending = []            # (disp, frame) of the Bs held back
         self._cra_poc = None          # POC of the last open-GOP I
 
+    def _init_quant(self) -> None:
+        """Custom quant (jm_tpu encoder.py:374-425): the raster scaling
+        lists of the QuantCtx (flat without a matrix), the offset lists
+        that adaptive rounding carries (``_ar_state``), and the lists
+        the SPS and PPS transmit: each list in the sets its
+        scaling_present flag names, or in every set of scaling_matrix
+        when the flag names none of them, as jm_tpu does (a list sent in
+        the SPS only takes the PPS's fall-back in a decoder, while the
+        quant uses the configured list: jm_tpu's fault, copied)."""
+        cfg = self.cfg
+        self.quant_custom = bool(cfg.scaling_matrix or cfg.offset_matrix
+                                 or cfg.adaptive_rounding)
+        self.qm_lists4 = [list(x) for x in cfg.scaling_lists4] or \
+            [[16] * 16 for _ in range(6)]
+        self.qm_lists8 = [list(x) for x in cfg.scaling_lists8] or \
+            [[16] * 64 for _ in range(2)]
+        self._ar_state = None
+        self.sps_scaling = self.pps_scaling = None
+        if not self.quant_custom:
+            return
+        if cfg.offset_matrix:
+            self._ar_state = tuple(np.array(m, np.int32)
+                                   for m in cfg.offset_matrix)
+        else:
+            self._ar_state = default_offsets()
+        sm = cfg.scaling_matrix
+        if not sm:
+            return
+        pres = list(cfg.scaling_present) or [3] * 8
+        pres = [(p & sm) or sm for p in pres + [0] * (8 - len(pres))]
+        n8 = 2 if cfg.transform8x8 else 0
+        zz4 = [to_zigzag4(x) for x in self.qm_lists4]
+        zz8 = [to_zigzag8(x) for x in self.qm_lists8]
+        lists = zz4 + zz8[:n8]
+        if sm & 1:
+            self.sps.seq_scaling_matrix_present_flag = 1
+            self.sps.scaling_list_4x4 = [list(x) for x in zz4]
+            self.sps.scaling_list_8x8 = [list(x) for x in zz8] \
+                + [[16] * 64] * 4
+            self.sps_scaling = ([p & 1 for p in pres[:6 + n8]], lists)
+        if sm & 2:
+            self.pps.pic_scaling_matrix_present_flag = 1
+            self.pps_scaling = ([(p >> 1) & 1 for p in pres[:6 + n8]],
+                                lists)
+        self.pps.scaling_list_4x4 = [list(x) for x in zz4]
+        self.pps.scaling_list_8x8 = [list(x) for x in zz8] + [[16] * 64] * 4
+
+    def _qctx(self, kind: str):
+        """The custom quant of one coding of a picture of slice type kind
+        ("I", "P", "B"), over the carried offsets (jm_tpu _FrameEncoder
+        :1913-1921); None without custom quant."""
+        if not self.quant_custom:
+            return None
+        cfg = self.cfg
+        return QuantCtx(self.qm_lists4, self.qm_lists8, kind,
+                        off_state=self._ar_state,
+                        ar_weight=cfg.adapt_rnd_w if cfg.adaptive_rounding
+                        else 0)
+
+    def _quant_kw(self, kind: str) -> dict:
+        """The host coders' quant keywords for a coding of slice type
+        kind."""
+        return dict(qctx=self._qctx(kind),
+                    ar_period=self.cfg.adapt_rnd_period)
+
+    def _device_path_ok(self, weighted: bool = False) -> bool:
+        """Whether a P picture is coded on the device (jm_tpu
+        _FrameEncoder._device_path_ok, encoder.py:2070): the device
+        pipeline, flat quant, no weighted prediction (weighted: its table
+        is in use), the 4x4 transform."""
+        cfg = self.cfg
+        return (cfg.pipeline == "device" and not self.quant_custom
+                and not weighted and not cfg.transform8x8)
+
+    def _device_i_path_ok(self, plan) -> bool:
+        """Whether an I picture is coded on the device (jm_tpu
+        _device_i_path_ok, encoder.py:2091): the device pipeline, flat
+        quant, one slice in plan, the 4x4 transform."""
+        cfg = self.cfg
+        return (cfg.pipeline == "device" and not self.quant_custom
+                and len(plan) == 1 and not cfg.transform8x8)
+
     def _build_slice_plan(self) -> list:
         """Decode-order MB address lists, one per slice: the slice groups
         in group order (each in raster order), with slice_mode 1 cut into
@@ -603,15 +796,16 @@ class Encoder:
         return slices
 
     def _pipe_ok(self) -> bool:
-        """The pipe covers CAVLC without B pictures, with one slice group
-        and no slice mode, a fixed QP, no intra refresh, the loop filter
-        on, no long-term anchors, no data partitioning and no weighted
-        prediction, any POC type, with or without redundant_period,
-        poc_mem_mgmt, ref_reorder, SEI or VUI (jm_tpu _pipe_ok);
-        everything else takes the per-frame path."""
+        """The pipe covers the device route's P pictures (the device
+        pipeline, flat quant, no weighted prediction, the 4x4 transform)
+        in CAVLC without B pictures, with one slice group and no slice
+        mode, a fixed QP, no intra refresh, the loop filter on, no
+        long-term anchors and no data partitioning, any POC type, with or
+        without redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI
+        (jm_tpu _pipe_ok); everything else takes the per-frame path."""
         cfg = self.cfg
-        return (cfg.num_b == 0 and cfg.entropy == "cavlc"
-                and not cfg.weighted_pred
+        return (self._device_path_ok(weighted=bool(cfg.weighted_pred))
+                and cfg.num_b == 0 and cfg.entropy == "cavlc"
                 and cfg.intra_mb_refresh == 0
                 and cfg.slice_mode == 0 and cfg.num_slice_groups == 1
                 and self.rc is None and cfg.qp_p is None and cfg.deblock
@@ -723,8 +917,8 @@ class Encoder:
         qp = self.rc.pict_qp("P") if self.rc is not None else \
             (cfg.qp if cfg.qp_p is None else cfg.qp_p)
         forced = self._refresh_set()
-        if cfg.weighted_pred:
-            return self._encode_p_wp(packed, frame, disp, forced, qp)
+        if not self._device_path_ok(weighted=bool(cfg.weighted_pred)):
+            return self._encode_p_host(packed, frame, disp, forced, qp)
         ref = self._ref_list_p(2 * (disp - self._idr_disp))[0]
         core = self._p_step(packed, ref, qp)
         return self._finish_p(core, disp, frame, forced, qp, packed)
@@ -845,7 +1039,7 @@ class Encoder:
             b = BPicture(frame, qp, chroma_qp(
                 qp, self.pps.chroma_qp_index_offset), lambda_me(qp),
                 lambda_mode4(qp), *refs, col, *sads, plan, cfg.search_range,
-                wp)
+                wp, transform8x8=cfg.transform8x8, **self._quant_kw("B"))
             split["host_mb_s"] += time.perf_counter() - t0
             return b
 
@@ -1030,19 +1224,21 @@ class Encoder:
     def _deblock(self, rec, pic: PictureData):
         """Boundary strengths + deblock of a coded picture on the device:
         rec the (Y, U, V) recon planes (device tensors or numpy), pic its
-        PictureData (per-MB QP and slice id; the MVs and reference ids of
-        both lists, -1 for intra MBs and unused lists). Returns the
+        PictureData (per-MB QP, slice id and transform8x8, whose inner 4x4
+        edges the filter skips; the MVs and reference ids of both lists,
+        -1 for intra MBs and unused lists). Returns the
         deblocked planes on the device."""
         def up(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
         rec = tuple(p if isinstance(p, torch.Tensor) else up(p) for p in rec)
         zeros = torch.zeros(pic.n_mbs, dtype=torch.int32, device=self.device)
-        bs_v, bs_h = compute_bs(up(pic.mb_class), up(pic.luma_nnz), zeros,
+        t8 = up(pic.transform8x8.astype(np.int32))
+        bs_v, bs_h = compute_bs(up(pic.mb_class), up(pic.luma_nnz), t8,
                                 up(pic.mv), up(pic.mv_l1), up(pic.ref_pic_id),
                                 up(pic.ref_pic_id_l1), self.mb_w, self.mb_h)
         return deblock(*rec, bs_v, bs_h, up(pic.qp), zeros, zeros, zeros,
-                       up(pic.slice_id), zeros, self.qpc_cb, self.qpc_cr,
+                       up(pic.slice_id), t8, self.qpc_cb, self.qpc_cr,
                        mb_w=self.mb_w, mb_h=self.mb_h)
 
     def _loop_filter(self, rec, pic: PictureData):
@@ -1133,9 +1329,10 @@ class Encoder:
         dY, dU, dV = self._loop_filter(coded.rec, coded.pic)
         payload = b""
         if idr:
-            payload = (annexb_bytes(3, NalUnitType.SPS, write_sps(self.sps))
+            payload = (annexb_bytes(3, NalUnitType.SPS,
+                                    write_sps(self.sps, self.sps_scaling))
                        + annexb_bytes(3, NalUnitType.PPS,
-                                      write_pps(self.pps)))
+                                      write_pps(self.pps, self.pps_scaling)))
         sei = []
         if idr and cfg.sei_user_data is not None:
             sei.append(user_data_unregistered(cfg.sei_user_data))
@@ -1166,9 +1363,10 @@ class Encoder:
 
     def _code_i(self, planes, frame, qp: int, plan):
         """The I picture under the slice plan: ops/intra.i_frame_step on
-        the device for one slice, the host intra encoder for several."""
+        the device route (_device_i_path_ok), else the host intra
+        encoder."""
         qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
-        if len(plan) > 1:
+        if not self._device_i_path_ok(plan):
             return self._intra_host(frame, qp, qpc, plan)
         out = i_frame_step(*planes, qp, qpc, lambda_me(qp), lambda_mode4(qp),
                            mb_w=self.mb_w, mb_h=self.mb_h)
@@ -1195,7 +1393,7 @@ class Encoder:
     def _intra_host(self, frame, qp: int, qpc: int, plan) -> IntraPicture:
         """The serial host intra encoder over the slice plan."""
         return IntraPicture(frame, qp, qpc, lambda_me(qp), lambda_mode4(qp),
-                            plan)
+                            plan, **self._quant_kw("I"))
 
     # ---- P pictures of the pipe ----------------------------------------
 
@@ -1291,32 +1489,12 @@ class Encoder:
                                     intra_mbs=len(c.intra_mbs),
                                     ref_poc=ref.poc, **info)
 
-    def _encode_p_wp(self, packed, frame, disp: int, forced, qp: int) -> bytes:
-        """A P picture with weighted prediction (jm_tpu _emit_anchor
-        :1226-1351 and _FrameEncoder's host path): the reference's
-        deblocked planes downloaded once, the explicit table estimated
-        (wp_iter_mc, else wp_method); with wp_mcprec and no rate control
-        also the offset-only and the default tables. Each table: the
-        quadrant search table on the device, the serial host P coder
-        under the slice plan (re-coded until the slices fit with
-        slice_mode 2), deblock on the device, the host serializer with
-        the table in every slice header; of several, the coding of least
-        frame-level J = SSD + lambda_mode(qp) 8 bytes (the first on a
-        tie). Then the reference prep, the redundant coding when one is
-        due, and the DPB. results records the table, the wall seconds of
-        each step, the MB decisions and the host MB loop's parts."""
+    def _wp_tables(self, frame, ref: Picture) -> list:
+        """The explicit weight tables a weighted P picture is coded with
+        (jm_tpu _emit_anchor :1226-1296): the estimate (wp_iter_mc, else
+        wp_method), and with wp_mcprec and no rate control also the
+        offset-only and the default tables."""
         cfg = self.cfg
-        poc = 2 * (disp - self._idr_disp)
-        ref = self._ref_list_p(poc)[0]
-        lt, hdr, victims = self._anchor_marking(poc)
-        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
-        frame = tuple(np.asarray(p, np.uint8) for p in frame)
-        split = {}
-        t = time.perf_counter()
-        host = ref.host_ref()
-        _ = ref.Y                        # the deblocked planes, once
-        t, split["download_s"] = time.perf_counter(), \
-            time.perf_counter() - t
         refs = [ref]
         if cfg.wp_iter_mc > 0:
             table = estimate_mc_iter(*frame, refs, iters=cfg.wp_iter_mc)
@@ -1328,6 +1506,36 @@ class Encoder:
             tables += [estimate_lms(*frame, refs, select_offset=1),
                        [{"luma": (32, 0), "chroma": ((32, 0), (32, 0))}
                         for _ in refs]]
+        return tables
+
+    def _encode_p_host(self, packed, frame, disp: int, forced,
+                       qp: int) -> bytes:
+        """A P picture coded by the serial host P coder (jm_tpu
+        _emit_anchor :1226-1351 with _FrameEncoder's host path): the
+        reference downloaded once, with weighted_pred its tables
+        (_wp_tables; else one coding without a table), the quadrant
+        search table on the device. Each coding: the host P coder under
+        the slice plan (re-coded until the slices fit with slice_mode 2),
+        deblock on the device, the host serializer with the table in
+        every slice header; of several, the coding of least frame-level
+        J = SSD + lambda_mode(qp) 8 bytes (the first on a tie). Then the
+        reference prep, the redundant coding when one is due, and the
+        DPB. results records the table, the wall seconds of each step,
+        the MB decisions and the host MB loop's parts."""
+        cfg = self.cfg
+        poc = 2 * (disp - self._idr_disp)
+        ref = self._ref_list_p(poc)[0]
+        lt, hdr, victims = self._anchor_marking(poc)
+        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
+        frame = tuple(np.asarray(p, np.uint8) for p in frame)
+        split = {}
+        t = time.perf_counter()
+        host = ref.host_ref()
+        if cfg.weighted_pred:
+            _ = ref.Y                    # the deblocked planes, once
+        t, split["download_s"] = time.perf_counter(), \
+            time.perf_counter() - t
+        tables = self._wp_tables(frame, ref) if cfg.weighted_pred else [None]
         t, split["estimate_s"] = time.perf_counter(), \
             time.perf_counter() - t
         planes = self._planes(packed)
@@ -1338,13 +1546,15 @@ class Encoder:
         split["host_mb_s"] = split["serialize_s"] = split["deblock_s"] = 0.0
         best = None
         for table in tables:
-            wp = build_wp_params(SliceType.P, self.pps, refs, [], poc,
-                                 wp_l0=table)
+            wp = None if table is None else build_wp_params(
+                SliceType.P, self.pps, [ref], [], poc, wp_l0=table)
 
             def code(plan, wp=wp):
                 t0 = time.perf_counter()
                 c = PPicture(frame, qp, qpc, lambda_me(qp), lambda_mode4(qp),
-                             host, sads, plan, cfg.search_range, forced, wp)
+                             host, sads, plan, cfg.search_range, forced, wp,
+                             transform8x8=cfg.transform8x8,
+                             **self._quant_kw("P"))
                 split["host_mb_s"] += time.perf_counter() - t0
                 return c
 
@@ -1374,7 +1584,7 @@ class Encoder:
         split["deblock_s"] += time.perf_counter() - t
         if cfg.redundant_period and \
                 self.frame_idx % cfg.redundant_period == 0:
-            nal += self._redundant(packed, frame, poc, qp, ref)
+            nal += self._redundant(packed, frame, poc, qp, ref, sads=sads)
         self._rc_update("P", qp, nal, planes[0], dec[0])
         return self._commit_p_frame(nal, disp, state, qp, len(plan),
                                     long_term=lt, victims=victims,
@@ -1384,20 +1594,29 @@ class Encoder:
                                     mb_parts=c.part_s, **info)
 
     def _redundant(self, packed, frame, poc: int, qp: int, ref: Picture,
-                   core=None) -> bytes:
+                   core=None, sads=None) -> bytes:
         """The redundant coding of the P picture just coded (jm_tpu
-        _emit_redundant, lencod.c:2225-2352): the frame encoded again on
-        the device at qp + redundant_qp_off (at most 51) against the
-        primary's reference ref (or core reused), the host commit under
-        the slice plan, and one slice with redundant_pic_cnt 1,
-        nal_ref_idc 0 and no marking. Decoders that have the primary
+        _emit_redundant, lencod.c:2225-2352): the frame coded again at
+        qp + redundant_qp_off (at most 51) against the primary's
+        reference ref, without weighted prediction or intra refresh: on
+        the device route a device encode (or core reused) and the host
+        commit, else the host P coder over the primary's search table
+        sads; under the slice plan, then one slice with redundant_pic_cnt
+        1, nal_ref_idc 0 and no marking. Decoders that have the primary
         discard it; it is neither deblocked nor stored."""
         qp_r = min(51, qp + self.cfg.redundant_qp_off)
-        if core is None:
-            core = self._p_step(packed, ref, qp_r)
-        c = self._commit_p(self._download_core(core), frame, (), qp_r,
-                           chroma_qp(qp_r, self.pps.chroma_qp_index_offset),
-                           self.slice_plan)
+        qpc_r = chroma_qp(qp_r, self.pps.chroma_qp_index_offset)
+        if self._device_path_ok():
+            if core is None:
+                core = self._p_step(packed, ref, qp_r)
+            c = self._commit_p(self._download_core(core), frame, (), qp_r,
+                               qpc_r, self.slice_plan)
+        else:
+            c = PPicture(frame, qp_r, qpc_r, lambda_me(qp_r),
+                         lambda_mode4(qp_r), ref.host_ref(), sads,
+                         self.slice_plan, self.cfg.search_range,
+                         transform8x8=self.cfg.transform8x8,
+                         **self._quant_kw("P"))
         return annexb_bytes(0, NalUnitType.SLICE, self._serialize_redundant(
             c.pic, poc, qp_r))
 

@@ -1,10 +1,12 @@
 """The serial host P macroblock coder of the port: twin of
 jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_mb (:2706-2878) in its
-full-search branch, with _commit_inter_p (:3019-3113) and its 4x4
-_code_luma_inter, for 4:2:0 frame pictures with flat quant, one
-reference, no sub-8x8 partitions, no RD tier and no I_PCM. jm_tpu codes
-every P picture with weighted prediction this way (its device path
-requires wp None), and so does the port.
+full-search branch, with _commit_inter_p (:3019-3113) and its
+_code_luma_inter, for 4:2:0 frame pictures with one reference, no
+sub-8x8 partitions, no RD tier and no I_PCM, flat quant or the custom
+quant of encoder/qmatrix.QuantCtx, the 4x4 or the adaptive 8x8
+transform. jm_tpu codes every P picture this way whose pipeline is
+"host", or whose coding its device path does not cover (weighted
+prediction, custom quant, the 8x8 transform), and so does the port.
 
 Per MB, in slice order:
   - an MB of the intra refresh set is coded Intra16x16 with its chroma;
@@ -44,27 +46,33 @@ PART_TABLE = {
 }
 # the rate term of each mode in the decision, in lambdas
 MODE_BITS = {0: 1, 1: 3, 2: 3, 3: 5 + 4}
-_MIX = ("skip", "p16x16", "p16x8", "p8x16", "p8x8", "i16")
+_MIX = ("skip", "p16x16", "p16x8", "p8x16", "p8x8", "i16", "t8")
 
 
 class PPicture(InterMBCoder):
     """One P picture coded MB by MB on the host: ``pic`` (PictureData)
     and the undeblocked recon planes recY / recU / recV (numpy uint8).
     ``mix`` counts the MBs by decision (skip, p16x16, p16x8, p8x16,
-    p8x8, i16: intra, forced or chosen); ``part_s`` the wall seconds of
+    p8x8, i16: intra, forced or chosen; t8: the inter MBs coded with the
+    8x8 transform); ``part_s`` the wall seconds of
     the MB loop's parts: the partition-mode search, the skip candidate,
     the intra evaluation and coding, the inter commit."""
 
     def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
-                 ref: HostRef, sads, slices, sr: int, forced=(), wp=None):
+                 ref: HostRef, sads, slices, sr: int, forced=(), wp=None,
+                 transform8x8=False, qctx=None, ar_period: int = 0):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
         lambda_me and lambda_mode4 of qp; ref: list0[0]; sads: the
         (N, (2 sr + 1)^2, 4) quadrant integer search table against it;
         slices: the slice plan, MB address lists in decode order; forced:
         the MBs of the intra refresh; wp: the slice's weighted prediction
-        (decoder/wp.WPParams) or None."""
-        pic = self._init_picture(orig, qp, qpc)
+        (decoder/wp.WPParams) or None; transform8x8, qctx, ar_period: the
+        adaptive 8x8 transform and the custom quant (InterMBCoder,
+        IntraMBCoder)."""
+        self._init_picture(orig, qp, qpc)
         self.lam, self.lam4, self.wp = lam, lam4, wp
+        self.transform8x8 = transform8x8
+        self.qctx, self.ar_period = qctx, ar_period
         self.ref, self.sads, self.sr = ref, sads, sr
         self.forced = set(forced)
         self.h, self.w = self.origY.shape
@@ -74,11 +82,7 @@ class PPicture(InterMBCoder):
         self.mix = dict.fromkeys(_MIX, 0)
         self.part_s = dict.fromkeys(("search", "skip", "intra", "commit"),
                                     0.0)
-        for sid, addrs in enumerate(slices):
-            for addr in addrs:
-                pic.slice_id[addr] = sid
-                pic.qp[addr] = qp
-                self._encode_p_mb(int(addr))
+        self._code_slices(slices, qp, self._encode_p_mb)
 
     def _intra16(self, addr, origY_mb, mode16, pred16) -> None:
         pic = self.pic
@@ -191,3 +195,4 @@ class PPicture(InterMBCoder):
                 and (pic.mv[addr, 0] == skip_mv).all()):
             pic.skip[addr] = True
         self.mix["skip" if pic.skip[addr] else _MIX[1 + mode]] += 1
+        self.mix["t8"] += int(pic.transform8x8[addr])

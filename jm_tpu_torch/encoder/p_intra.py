@@ -2,9 +2,12 @@
 re-encode of its intra macroblocks (twin of the host part of
 jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_device, :2252-2293, and
 of its _i16_candidates, _eval_i16, _encode_i16, _encode_chroma_intra and
-_code_chroma_residual for 4:2:0 with flat quant and no trellis, which
-IntraMBCoder holds for this module, encoder/intra_host.py and
-encoder/b_host.py).
+_code_chroma_residual for 4:2:0 without trellis, which IntraMBCoder holds
+for this module, encoder/intra_host.py, encoder/b_host.py and
+encoder/p_host.py, with jm_tpu's quant dispatch: flat quant, or the
+picture's encoder/qmatrix.QuantCtx, ``qctx``, for scaling matrices,
+explicit offsets and adaptive rounding; the device path's commit here is
+always flat).
 
 The device's fields (ops/enc.p_frame_step, downloaded) fill the
 PictureData and the undeblocked recon planes; the picture's slice plan
@@ -37,7 +40,51 @@ CORE_FIELDS = ("inter_mode", "mv4", "luma_scan", "luma_nnz", "cbp",
 class IntraMBCoder:
     """The Intra16x16 and chroma intra coding of one MB of a picture with
     source planes origY / origU / origV, recon planes recY / recU / recV,
-    PictureData ``pic`` with its PredCtx ``pctx``, and QPs qp / qpc."""
+    PictureData ``pic`` with its PredCtx ``pctx``, and QPs qp / qpc;
+    qctx: the custom quant (None: flat), whose adaptive-rounding lists
+    are refreshed every ar_period MBs of a slice."""
+
+    qctx = None
+    ar_period = 0
+
+    def _code_slices(self, slices, qp: int, code_mb) -> None:
+        """Code the slice plan's MBs in order with code_mb(addr), each
+        in its slice at qp, with the adaptive-rounding refresh before
+        each MB and the commit after it (jm_tpu _FrameEncoder.encode
+        :2175-2202)."""
+        pic, qctx = self.pic, self.qctx
+        for sid, addrs in enumerate(slices):
+            for mb_i, addr in enumerate(addrs):
+                if qctx is not None:
+                    qctx.maybe_refresh(mb_i, self.ar_period)
+                pic.slice_id[addr] = sid
+                pic.qp[addr] = qp
+                code_mb(int(addr))
+                if qctx is not None:
+                    qctx.ar_commit_mb()
+
+    # ---- quant dispatch (jm_tpu encoder.py:1925-1946) ---------------------
+
+    def _q4(self, w, qp, intra, plane=0):
+        if self.qctx is None:
+            return RN.np_quant_4x4(w, qp, intra)
+        return self.qctx.quant_4x4(w, qp, plane, intra)
+
+    def _qdc(self, dc, qp, intra, plane=0):
+        if self.qctx is None:
+            return RN.np_quant_dc(dc, qp, intra)
+        return self.qctx.quant_dc(dc, qp, plane, intra)
+
+    def _q8(self, w, qp, intra):
+        if self.qctx is None:
+            return RN.np_quant_8x8(w, qp, intra)
+        return self.qctx.quant_8x8(w, qp, intra)
+
+    def _itab4(self, intra, plane=0):
+        return None if self.qctx is None else self.qctx.inv_tab4(plane, intra)
+
+    def _itab8(self, intra):
+        return None if self.qctx is None else self.qctx.inv_tab8(intra)
 
     def _init_picture(self, orig, qp: int, qpc: int) -> PictureData:
         self.origY, self.origU, self.origV = (np.asarray(p, np.uint8)
@@ -106,9 +153,8 @@ class IntraMBCoder:
         w = RN.np_forward4x4(blocks)
         # JM's forward Hadamard carries a >> 1 (lcommon transform.c:163)
         dc_t = _np_hadamard4(w[:, 0, 0].reshape(4, 4)) >> 1
-        dc_scan = RN.to_scan(RN.np_quant_dc(dc_t, qp, True)
-                             .reshape(1, 4, 4))[0]
-        ac_scan = RN.to_scan(RN.np_quant_4x4(w, qp, True))
+        dc_scan = RN.to_scan(self._qdc(dc_t, qp, True).reshape(1, 4, 4))[0]
+        ac_scan = RN.to_scan(self._q4(w, qp, True))
         ac_scan[:, 0] = 0
         pic.mb_class[addr] = MB_I16
         pic.i16_mode[addr] = mode
@@ -121,7 +167,8 @@ class IntraMBCoder:
         pic.luma_nnz[addr] = nnz
         pred_blocks = pred.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
             .reshape(16, 4, 4)
-        rec = RN.recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp)
+        rec = RN.recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp,
+                                tab=self._itab4(True))
         self.recY[py:py + 16, px:px + 16] = \
             rec.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
         return cbp_luma
@@ -169,14 +216,13 @@ class IntraMBCoder:
         cy, cx = (addr // self.mb_w) * 8, (addr % self.mb_w) * 8
         origU, origV = self._mb_orig(addr)[1:]
         store = []
-        for pred, orig in ((predU, origU), (predV, origV)):
+        for plane, pred, orig in ((1, predU, origU), (2, predV, origV)):
             res = orig.astype(np.int64) - pred
             w = RN.np_forward4x4(res.reshape(2, 4, 2, 4).transpose(0, 2, 1, 3)
                                  .reshape(4, 4, 4))
-            dc_lev = RN.np_quant_dc(RN.np_hadamard2x2(w[:, 0, 0]
-                                                      .reshape(2, 2)),
-                                    qpc, intra).reshape(4)
-            ac_scan = RN.to_scan(RN.np_quant_4x4(w, qpc, intra))
+            dc_lev = self._qdc(RN.np_hadamard2x2(w[:, 0, 0].reshape(2, 2)),
+                               qpc, intra, plane).reshape(4)
+            ac_scan = RN.to_scan(self._q4(w, qpc, intra, plane))
             ac_scan[:, 0] = 0
             cost_c = sum(RN.coeff_cost_scan(ac_scan[b], start=1)
                          for b in range(4))
@@ -196,7 +242,8 @@ class IntraMBCoder:
             pic.chroma_nnz[addr, comp] = (ac_scan[:, 1:] != 0).sum(axis=1)
             pred_blocks = pred.reshape(2, 4, 2, 4).transpose(0, 2, 1, 3) \
                 .reshape(4, 4, 4)
-            rec = RN.recon_chroma(pred_blocks, ac_scan, dc_lev, qpc)
+            rec = RN.recon_chroma(pred_blocks, ac_scan, dc_lev, qpc,
+                                  tab=self._itab4(intra, comp + 1))
             plane = self.recU if comp == 0 else self.recV
             plane[cy:cy + 8, cx:cx + 8] = \
                 rec.reshape(2, 2, 4, 4).transpose(0, 2, 1, 3).reshape(8, 8)

@@ -1,26 +1,33 @@
-"""Numpy residual coding of single macroblocks for the host intra
-re-encode (encoder/p_intra.py) and the B macroblock coder
-(encoder/b_host.py): forward transforms, flat quant, the
-zig-zag scan, the decode-mirror recon of Intra16x16 luma and 4:2:0 chroma,
-and JM's run-weighted coefficient cost. A trimmed copy of
-jm_tpu/encoder/residual_np.py (frame scan, flat scaling lists); the
-inverse halves are the port's decoder's (decoder/recon.py), so the
-encoder's recon is what a decoder reconstructs.
+"""Numpy residual coding of single macroblocks for the host coders
+(encoder/p_intra.py, intra_host.py, b_host.py, p_host.py): the forward
+4x4 and 8x8 transforms, flat quant, the 4x4 and 8x8 zig-zag scans, the
+decode-mirror recon of 4x4, 8x8 and Intra16x16 luma and of 4:2:0 chroma
+(flat, or with a scaling matrix's inverse table ``tab``), and JM's
+run-weighted coefficient costs. A trimmed copy of
+jm_tpu/encoder/residual_np.py (frame scan); the inverse halves are the
+port's decoder's (decoder/recon.py), so the encoder's recon is what a
+decoder reconstructs.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..common.tables import QUANT_SCALE_4x4, ZIGZAG_4x4
-from ..decoder.recon import _np_hadamard4, _np_inv4, _rshift_rnd_sf
+from ..common.tables import (DEQUANT_SCALE_8x8, QUANT_SCALE_4x4,
+                             QUANT_SCALE_8x8, ZIGZAG_4x4, ZIGZAG_8x8)
+from ..decoder.recon import _np_hadamard4, _np_inv4, _np_inv8, _rshift_rnd_sf
 from ..ops.quant import FLAT_INV_SCALE_4x4
+from ..ops.transform import fwd8_1d
 
 _ZZ = np.asarray(ZIGZAG_4x4)
+_ZZ8 = np.asarray(ZIGZAG_8x8)
+FLAT_INV_SCALE_8x8 = (DEQUANT_SCALE_8x8[np.arange(52) % 6] * 16) \
+    .astype(np.int32)
 
 # JM coefficient thresholding (lencod block.c COEFF_COST4x4:72; the chroma
 # AC of a component is dropped below CHROMA_COEFF_COST, block.c:1141)
 COEFF_COST4 = np.array([3, 2, 2, 1, 1, 1] + [0] * 10, np.int64)
+COEFF_COST8 = np.array([3] * 4 + [2] * 8 + [1] * 12 + [0] * 40, np.int64)
 COST_BIG = 1 << 20       # stands in for JM's MAX_VALUE (any |level| > 1)
 LUMA_COEFF_COST = 4      # per inter 8x8 quadrant (macroblock.c:901)
 LUMA_MB_COEFF_COST = 5   # per inter MB (macroblock.c:1248)
@@ -67,6 +74,41 @@ def np_quant_dc(dc: np.ndarray, qp: int, intra: bool) -> np.ndarray:
     return (np.sign(dc) * lev).astype(np.int32)
 
 
+def np_forward8x8(x: np.ndarray) -> np.ndarray:
+    """Batched forward 8x8 transform, (..., 8, 8) int (lencod
+    transform8x8.c forward8x8)."""
+    d = x.astype(np.int64)
+    t = np.stack(fwd8_1d(tuple(d[..., j, :] for j in range(8))), axis=-2)
+    return np.stack(fwd8_1d(tuple(t[..., :, i] for i in range(8))), axis=-1)
+
+
+def np_quant_8x8(w: np.ndarray, qp: int, intra: bool) -> np.ndarray:
+    """Flat 8x8 quant (lencod quant8x8_normal.c: qbits 16 + qp / 6)."""
+    mf = QUANT_SCALE_8x8[qp % 6].astype(np.int64)
+    qbits = 16 + qp // 6
+    f = (1 << qbits) // (3 if intra else 6)
+    lev = (np.abs(w.astype(np.int64)) * mf + f) >> qbits
+    return (np.sign(w) * lev).astype(np.int32)
+
+
+def to_scan8(raster: np.ndarray) -> np.ndarray:
+    """(..., 8, 8) raster -> (..., 64) 8x8 zig-zag order."""
+    return raster.reshape(*raster.shape[:-2], 64)[..., _ZZ8]
+
+
+def recon_luma_8x8(pred_q, lev_scan, qp: int, tab=None):
+    """Decode-mirror 8x8 recon: pred_q (..., 8, 8) + lev_scan (..., 64)
+    8x8 zig-zag levels; tab: the (52, 8, 8) LevelScale8 (flat by
+    default)."""
+    r = np.zeros((*lev_scan.shape[:-1], 64), np.int64)
+    r[..., _ZZ8] = lev_scan
+    r = r.reshape(*lev_scan.shape[:-1], 8, 8)
+    scale = (FLAT_INV_SCALE_8x8 if tab is None else tab)[qp].astype(np.int64)
+    deq = _rshift_rnd_sf((r * scale) << (qp // 6), 6)
+    return np.clip(pred_q + ((_np_inv8(deq) + 32) >> 6), 0, 255) \
+        .astype(np.uint8)
+
+
 def to_scan(raster_blocks: np.ndarray) -> np.ndarray:
     """(..., 4, 4) raster -> (..., 16) zig-zag order."""
     return raster_blocks.reshape(*raster_blocks.shape[:-2], 16)[..., _ZZ]
@@ -78,25 +120,27 @@ def from_scan(scan: np.ndarray) -> np.ndarray:
     return out.reshape(*scan.shape[:-1], 4, 4)
 
 
-def _dequant_4x4(coef, qp: int):
-    scale = FLAT_INV_SCALE_4x4[qp]
+def _dequant_4x4(coef, qp: int, tab=None):
+    scale = (FLAT_INV_SCALE_4x4 if tab is None else tab)[qp]
     return _rshift_rnd_sf((coef.astype(np.int64) * scale) << (qp // 6),
                           4).astype(np.int32)
 
 
-def recon_luma_4x4(pred_blocks, lev_scan, qp: int):
+def recon_luma_4x4(pred_blocks, lev_scan, qp: int, tab=None):
     """Decode-mirror recon of 4x4 luma blocks that are not Intra16x16:
-    pred_blocks (k, 4, 4), lev_scan (k, 16) zig-zag levels."""
-    r = (_np_inv4(_dequant_4x4(from_scan(lev_scan), qp)) + 32) >> 6
+    pred_blocks (k, 4, 4), lev_scan (k, 16) zig-zag levels; tab: the
+    (52, 4, 4) InvLevelScale (flat by default), as for every recon
+    here."""
+    r = (_np_inv4(_dequant_4x4(from_scan(lev_scan), qp, tab)) + 32) >> 6
     return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
 
 
-def recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp: int):
+def recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp: int, tab=None):
     """Decode-mirror Intra16x16 recon: pred_blocks (16, 4, 4), ac_scan
     (16, 16) with [:, 0] == 0, dc_scan (16,) zig-zag DC levels."""
-    d = _dequant_4x4(from_scan(ac_scan), qp)
+    d = _dequant_4x4(from_scan(ac_scan), qp, tab)
     dc_t = _np_hadamard4(from_scan(dc_scan))
-    scale = int(FLAT_INV_SCALE_4x4[qp, 0, 0])
+    scale = int((FLAT_INV_SCALE_4x4 if tab is None else tab)[qp, 0, 0])
     dc_s = _rshift_rnd_sf((dc_t.astype(np.int64) * scale) << (qp // 6), 6)
     blk = np.arange(16)
     d[blk, 0, 0] = dc_s[blk // 4, blk % 4]
@@ -104,12 +148,12 @@ def recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp: int):
     return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
 
 
-def recon_chroma(pred_blocks, ac_scan, dc_lev, qp_c: int):
+def recon_chroma(pred_blocks, ac_scan, dc_lev, qp_c: int, tab=None):
     """Decode-mirror chroma recon of one component: pred_blocks (4, 4, 4),
     ac_scan (4, 16) with [:, 0] == 0, dc_lev (4,) raster DC levels."""
-    d = _dequant_4x4(from_scan(ac_scan), qp_c)
+    d = _dequant_4x4(from_scan(ac_scan), qp_c, tab)
     f = np_hadamard2x2(dc_lev.reshape(2, 2).astype(np.int64))
-    scale = int(FLAT_INV_SCALE_4x4[qp_c, 0, 0])
+    scale = int((FLAT_INV_SCALE_4x4 if tab is None else tab)[qp_c, 0, 0])
     dc_s = ((f * scale) << (qp_c // 6)) >> 5
     blk = np.arange(4)
     d[blk, 0, 0] = dc_s[blk // 2, blk % 2]
@@ -117,14 +161,15 @@ def recon_chroma(pred_blocks, ac_scan, dc_lev, qp_c: int):
     return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
 
 
-def coeff_cost_scan(scan, start: int = 0) -> int:
-    """Run-weighted coefficient cost of one scan array."""
+def coeff_cost_scan(scan, tab=COEFF_COST4, start: int = 0) -> int:
+    """Run-weighted coefficient cost of one scan array (tab: COEFF_COST4,
+    or COEFF_COST8 for an 8x8 block)."""
     cost, run = 0, 0
     for k in range(start, len(scan)):
         v = int(scan[k])
         if v == 0:
             run += 1
         else:
-            cost += COST_BIG if abs(v) > 1 else int(COEFF_COST4[run])
+            cost += COST_BIG if abs(v) > 1 else int(tab[run])
             run = 0
     return cost

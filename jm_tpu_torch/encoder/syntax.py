@@ -3,15 +3,17 @@
 layer (7.3.5) serialized from PictureData (the CABAC one is
 syntax_cabac.py).
 
-Covers what the IPPP 4:2:0 encoder emits: Baseline, Extended or Main
-SPS/PPS without scaling lists, with VUI, POC type 0, 1 or 2, FMO slice
+Covers what the 4:2:0 encoder emits: Baseline, Extended, Main or High
+SPS/PPS (High: the 8x8 transform flag and the SPS / PPS scaling lists),
+with VUI, POC type 0, 1 or 2, FMO slice
 groups of map types 0-6 and redundant_pic_cnt; slices of any MB address
 list (several per picture, in slice-group order), with
 ref_pic_list_modification, dec_ref_pic_marking (long-term IDR, MMCO) and
 redundant_pic_cnt, whole or as three data partitions
-(``serialize_slice_dp``); I_NxN / I_16x16 macroblocks; P macroblocks with
-16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks only) and one
-reference; B macroblocks as the B coder decides them (B_Skip,
+(``serialize_slice_dp``); I_NxN (4x4) / I_16x16 macroblocks; P
+macroblocks with 16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks
+only) and one reference; with the 8x8 transform, transform_size_8x8_flag
+and each 8x8 block as four interleaved 4x4 blocks; B macroblocks as the B coder decides them (B_Skip,
 B_Direct_16x16, 16x16 list 0 / list 1 / bi-predicted, intra), one
 reference per list, whose slices only the Python MBWriter writes (as in
 jm_tpu; native.routes["b"]["serialize"]). Serialization is a pure
@@ -30,6 +32,7 @@ from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
 from ..decoder.b_slice import PD_BI, PD_L0, PD_L1
 from .cavlc_write import write_residual_block
+from .qmatrix import write_scaling_list
 from .wp_est import CHROMA_DENOM, LUMA_DENOM
 
 # B mb_type of a 16x16 partition by prediction direction
@@ -40,21 +43,47 @@ CBP_INV_CHROMA_INTRA = {int(cbp): i for i, (cbp, _) in enumerate(CBP_MAP_CHROMA)
 CBP_INV_CHROMA_INTER = {int(cbp): i for i, (_, cbp) in enumerate(CBP_MAP_CHROMA)}
 
 
-def write_sps(sps) -> bytes:
-    """Seq_parameter_set_rbsp for a frame-coded Baseline, Extended or Main
-    stream with POC type 0, 1 or 2 and the VUI of ``sps.vui`` (lencod
-    parset.c GenerateSeq_parameter_set_rbsp; jm_tpu/encoder/syntax.py
-    _write_sps_data)."""
-    if sps.profile_idc in (100, 110, 122, 244, 44, 118, 128) \
+def _write_scaling_lists(bw: BitWriter, scaling, n_lists: int) -> None:
+    """The scaling-list loop of an SPS or PPS (spec 7.3.2.1.1 / 7.3.2.2);
+    scaling: (scaling_list_present_flag of each list, the zig-zag
+    lists)."""
+    present, lists = scaling
+    for i in range(n_lists):
+        p = present[i] if i < len(present) else 0
+        bw.flag(1 if p else 0)
+        if p:
+            write_scaling_list(bw, lists[i], 16 if i < 6 else 64)
+
+
+def write_sps(sps, scaling=None) -> bytes:
+    """Seq_parameter_set_rbsp for a frame-coded Baseline, Extended, Main
+    or High (4:2:0, 8 bits) stream with POC type 0, 1 or 2 and the VUI
+    of ``sps.vui``; scaling: the lists a High SPS with
+    seq_scaling_matrix_present_flag transmits, as _write_scaling_lists
+    takes them (lencod parset.c GenerateSeq_parameter_set_rbsp;
+    jm_tpu/encoder/syntax.py _write_sps_data)."""
+    if sps.profile_idc in (110, 122, 244, 44, 118, 128) \
+            or sps.chroma_format_idc != 1 \
             or sps.pic_order_cnt_type not in (0, 1, 2) \
             or not sps.frame_mbs_only_flag:
-        raise ValueError("write_sps covers Baseline / Extended / Main frame "
-                         "coding with pic_order_cnt_type 0, 1 or 2")
+        raise ValueError("write_sps covers Baseline / Extended / Main / "
+                         "High 4:2:0 frame coding with pic_order_cnt_type "
+                         "0, 1 or 2")
     bw = BitWriter()
     bw.u(sps.profile_idc, 8)
     bw.u(sps.constraint_set_flags, 8)
     bw.u(sps.level_idc, 8)
     bw.ue(sps.seq_parameter_set_id)
+    if sps.profile_idc == 100:
+        bw.ue(sps.chroma_format_idc)
+        bw.ue(sps.bit_depth_luma_minus8)
+        bw.ue(sps.bit_depth_chroma_minus8)
+        bw.flag(sps.qpprime_y_zero_transform_bypass_flag)
+        if sps.seq_scaling_matrix_present_flag and scaling:
+            bw.flag(1)
+            _write_scaling_lists(bw, scaling, 8)
+        else:
+            bw.flag(0)                    # seq_scaling_matrix_present_flag
     bw.ue(sps.log2_max_frame_num_minus4)
     bw.ue(sps.pic_order_cnt_type)
     if sps.pic_order_cnt_type == 0:
@@ -167,12 +196,14 @@ def _write_vui(bw: BitWriter, v: dict) -> None:
         bw.flag(0)
 
 
-def write_pps(pps) -> bytes:
-    """Pic_parameter_set_rbsp with FMO slice groups of map types 0-6 and
-    no FRExt extension (lencod parset.c GeneratePic_parameter_set_rbsp;
-    jm_tpu/encoder/syntax.py write_pps)."""
-    if pps.transform_8x8_mode_flag:
-        raise ValueError("write_pps covers the 4x4 transform only")
+def write_pps(pps, scaling=None) -> bytes:
+    """Pic_parameter_set_rbsp with FMO slice groups of map types 0-6 and,
+    with the 8x8 transform or scaling lists, the High extension:
+    transform_8x8_mode_flag, the lists (scaling: as write_sps takes them,
+    for a PPS with pic_scaling_matrix_present_flag) and
+    second_chroma_qp_index_offset (lencod parset.c
+    GeneratePic_parameter_set_rbsp; jm_tpu/encoder/syntax.py
+    write_pps)."""
     bw = BitWriter()
     bw.ue(pps.pic_parameter_set_id)
     bw.ue(pps.seq_parameter_set_id)
@@ -209,6 +240,14 @@ def write_pps(pps) -> bytes:
     bw.flag(pps.deblocking_filter_control_present_flag)
     bw.flag(pps.constrained_intra_pred_flag)
     bw.flag(pps.redundant_pic_cnt_present_flag)
+    lists = pps.pic_scaling_matrix_present_flag and scaling
+    if pps.transform_8x8_mode_flag or lists:
+        bw.flag(pps.transform_8x8_mode_flag)
+        bw.flag(1 if lists else 0)
+        if lists:
+            _write_scaling_lists(bw, scaling,
+                                 6 + 2 * pps.transform_8x8_mode_flag)
+        bw.se(pps.cr_qp_offset)           # second_chroma_qp_index_offset
     bw.rbsp_trailing_bits()
     return bw.get_bytes()
 
@@ -382,6 +421,37 @@ class MBWriter:
                 else:
                     write_residual_block(bw, pic.luma_coef[addr, blk], nc, 16)
 
+    def _write_luma_residual_8x8(self, addr: int, cbp: int) -> None:
+        """Each coded 8x8 as four interleaved 4x4 blocks: 4x4 block sub
+        holds every fourth level of the 8x8 scan from sub (the inverse of
+        decoder/mb_parse.py _read_luma_residual_8x8)."""
+        pic, bw = self.pic, self._res_bw(addr)
+        for blk8 in range(4):
+            if not (cbp & (1 << blk8)):
+                continue
+            by0, bx0 = (blk8 // 2) * 2, (blk8 % 2) * 2
+            for sub in range(4):
+                blk = (by0 + sub // 2) * 4 + bx0 + sub % 2
+                write_residual_block(bw, pic.luma_coef8[addr, blk8, sub::4],
+                                     self.pctx.nc_luma(addr, blk), 16)
+
+    def _write_inter_residual(self, addr: int, allow8: bool = True) -> None:
+        """coded_block_pattern, transform_size_8x8_flag (with the PPS's
+        8x8 transform, coded luma and no partition below 8x8),
+        mb_qp_delta and the residual of an inter MB."""
+        pic, bw = self.pic, self.bw
+        cbp = int(pic.cbp[addr])
+        bw.ue(CBP_INV_CHROMA_INTER[cbp])
+        if self.pps.transform_8x8_mode_flag and cbp & 15 and allow8:
+            bw.flag(1 if pic.transform8x8[addr] else 0)
+        if cbp:
+            self._write_qp_delta(addr)
+        if pic.transform8x8[addr]:
+            self._write_luma_residual_8x8(addr, cbp & 15)
+        else:
+            self._write_luma_residual(addr, cbp & 15, is_i16=False)
+        self._write_chroma_residual(addr, cbp)
+
     def _write_chroma_residual(self, addr: int, cbp: int) -> None:
         pic, bw = self.pic, self._res_bw(addr)
         cbp_chroma = cbp >> 4
@@ -412,6 +482,8 @@ class MBWriter:
         pic, bw = self.pic, self.bw
         if pic.mb_class[addr] == 1:          # I_NxN (4x4)
             bw.ue(base + 0)
+            if self.pps.transform_8x8_mode_flag:
+                bw.flag(0)                   # transform_size_8x8_flag
             for code_idx in range(16):
                 blk = int(CODE2RASTER[code_idx])
                 mode = int(pic.i4_modes[addr, blk])
@@ -460,12 +532,7 @@ class MBWriter:
             mv = pic.mv[addr, by * 4 + bx]
             bw.se(int(mv[0] - pred[0]))
             bw.se(int(mv[1] - pred[1]))
-        cbp = int(pic.cbp[addr])
-        bw.ue(CBP_INV_CHROMA_INTER[cbp])
-        if cbp:
-            self._write_qp_delta(addr)
-        self._write_luma_residual(addr, cbp & 15, is_i16=False)
-        self._write_chroma_residual(addr, cbp)
+        self._write_inter_residual(addr)
 
     def _write_b_inter_mb(self, addr: int) -> None:
         """B_Direct_16x16, or a 16x16 partition of list 0, list 1 or both
@@ -485,12 +552,7 @@ class MBWriter:
                 mv = (pic.mv if lst == 0 else pic.mv_l1)[addr, 0]
                 bw.se(int(mv[0] - pred[0]))
                 bw.se(int(mv[1] - pred[1]))
-        cbp = int(pic.cbp[addr])
-        bw.ue(CBP_INV_CHROMA_INTER[cbp])
-        if cbp:
-            self._write_qp_delta(addr)
-        self._write_luma_residual(addr, cbp & 15, is_i16=False)
-        self._write_chroma_residual(addr, cbp)
+        self._write_inter_residual(addr)
 
     # ---- MB dispatch -------------------------------------------------------
 

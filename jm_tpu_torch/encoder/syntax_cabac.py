@@ -1,8 +1,9 @@
 """CABAC macroblock layer (spec 7.3.5, 9.3) serialized from PictureData,
 twin of jm_tpu/encoder/syntax_cabac.py's MBWriterCABAC and
 serialize_slice_cabac for I, P and B slices of 4:2:0 frame pictures with
-the 4x4 transform: I_NxN and I_16x16 MBs (also inside P and B slices),
-P_Skip and P MBs with 16x16 / 16x8 / 8x16 / 8x8 partitions, sub-8x8
+the 4x4 or the adaptive 8x8 transform (transform_size_8x8_flag, each 8x8
+block one LUMA_8x8 block): I_NxN (4x4) and I_16x16 MBs (also inside P
+and B slices), P_Skip and P MBs with 16x16 / 16x8 / 8x16 / 8x8 partitions, sub-8x8
 partitions and several references; B_Skip, B_Direct_16x16 and 16x16 B
 MBs of list 0, list 1 or both with one reference each (the B coder's
 set). Every B slice counts in native.routes["b"]["serialize"].
@@ -24,7 +25,7 @@ from ..common.picture import MB_I4, MB_INTER, MB_IPCM
 from ..common.predict_ctx import CODE2RASTER
 from ..common.types import SliceType
 from ..decoder.cabac import (C1ISDC, CHROMA_AC, CHROMA_DC, LUMA_4x4,
-                             LUMA_16AC, LUMA_16DC, MAX_C2, MAXPOS,
+                             LUMA_8x8, LUMA_16AC, LUMA_16DC, MAX_C2, MAXPOS,
                              TYPE2CTX_ABS, TYPE2CTX_BCBP, TYPE2CTX_LAST,
                              TYPE2CTX_MAP, TYPE2CTX_ONE, CabacContexts,
                              pos2ctx_last, pos2ctx_map)
@@ -45,8 +46,11 @@ class MBWriterCABAC(CabacNeighbours):
              3: [(0, 0, 2, 2), (2, 0, 2, 2), (0, 2, 2, 2), (2, 2, 2, 2)]}
 
     def __init__(self, bw: BitWriter, pic, slice_type: SliceType,
-                 slice_qp: int, cabac_init_idc: int = 0, num_ref: int = 1):
+                 slice_qp: int, cabac_init_idc: int = 0, num_ref: int = 1,
+                 t8_mode: bool = False):
+        """t8_mode: the PPS's transform_8x8_mode_flag."""
         super().__init__(pic)
+        self.t8_mode = t8_mode
         self.stype = slice_type
         self.num_ref = num_ref
         self.qp = slice_qp          # running QP for delta coding
@@ -285,6 +289,20 @@ class MBWriterCABAC(CabacNeighbours):
                     self._write_block(addr, LUMA_4x4,
                                       pic.luma_coef[addr, blk], bx, by)
 
+    def write_transform_size(self, addr, flag: bool):
+        self.eng.decision(self.ctxs.transform_size,
+                          self.transform_size_ctx(addr), 1 if flag else 0)
+
+    def _write_luma_residual_8x8(self, addr, cbp):
+        """Each coded 8x8 as one LUMA_8x8 block without coded_block_flag,
+        marking its 4x4 blocks' coded_block_flag bits as the parser
+        does."""
+        for blk8 in range(4):
+            if cbp & (1 << blk8):
+                coeff = self.pic.luma_coef8[addr, blk8]
+                self._write_sig_and_levels(LUMA_8x8, coeff)
+                self.mark_8x8(addr, blk8, coeff)
+
     def _write_chroma_residual(self, addr, cbp):
         pic = self.pic
         cc = cbp >> 4
@@ -331,6 +349,8 @@ class MBWriterCABAC(CabacNeighbours):
         else:
             self.write_mb_type_i(addr, imb)
         if imb == 0:
+            if self.t8_mode:
+                self.write_transform_size(addr, False)
             for code_idx in range(16):
                 blk = int(CODE2RASTER[code_idx])
                 pred = self.pctx.pred_intra4_mode(addr, blk)
@@ -415,11 +435,18 @@ class MBWriterCABAC(CabacNeighbours):
         pic = self.pic
         cbp = int(pic.cbp[addr])
         self.write_cbp(addr, cbp)
+        if self.t8_mode and cbp & 15 and (
+                int(pic.inter_mode[addr]) != 3
+                or not pic.sub_mode[addr].any()):
+            self.write_transform_size(addr, bool(pic.transform8x8[addr]))
         if cbp:
             self.write_dquant(self._dquant_for(addr))
         else:
             self.last_dquant = 0
-        self._write_luma_residual(addr, cbp & 15, is_i16=False)
+        if pic.transform8x8[addr]:
+            self._write_luma_residual_8x8(addr, cbp & 15)
+        else:
+            self._write_luma_residual(addr, cbp & 15, is_i16=False)
         self._write_chroma_residual(addr, cbp)
 
     def write_mb(self, addr):
@@ -472,7 +499,8 @@ def serialize_slice_cabac(pic, sps, pps, *, slice_type: SliceType,
     while not bw.byte_aligned():
         bw.u(1, 1)                  # cabac_alignment_one_bit
     w = MBWriterCABAC(bw, pic, slice_type, qp, cabac_init_idc,
-                      num_ref=num_ref_idx_l0)
+                      num_ref=num_ref_idx_l0,
+                      t8_mode=bool(pps.transform_8x8_mode_flag))
     last = addrs[-1]
     for addr in addrs:
         w.write_mb(int(addr))

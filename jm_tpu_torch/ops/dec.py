@@ -17,9 +17,10 @@ combined per 8x8 prediction direction. With weighted prediction (the
 optional ``wp`` argument) each 8x8's weights and offsets, made on the
 host from the slice tables (decoder/wp.py), are applied to the
 predictions before the residual (spec 8.4.2.3), as jm_tpu does on the
-host (decoder/recon.py _recon_inter with WPParams.uni / .bi). Every
-function runs on the tensors' device. Scope: 4:2:0 frame pictures with
-the 4x4 transform.
+host (decoder/recon.py _recon_inter with WPParams.uni / .bi). The
+residual decode also takes the 8x8 transform of the MBs that use it
+(spec 8.5.13), which jm_tpu reconstructs on the host. Every function runs
+on the tensors' device. Scope: 4:2:0 frame pictures.
 """
 
 from __future__ import annotations
@@ -27,25 +28,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..common.tables import ZIGZAG_4x4
+from ..common.tables import ZIGZAG_4x4, ZIGZAG_8x8
 from . import quant as Q
 from . import transform as T
 from .consts import PAD, QPEL_TAB, on
 
 I32 = torch.int32
 _ZZ = np.asarray(ZIGZAG_4x4, np.int64)
+_ZZ8 = np.asarray(ZIGZAG_8x8, np.int64)
 
 
 def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
-                    qpc_cb, qpc_cr, *, mb_w: int, mb_h: int):
+                    qpc_cb, qpc_cr, *, mb_w: int, mb_h: int,
+                    luma_coef8=None, transform8x8=None, tab8=None):
     """Residual decode of a picture's MBs with the inter scaling lists:
     inverse zig-zag -> dequant -> rounded inverse 4x4; chroma DC through
-    the 2x2 Hadamard (spec 8.5.11).
+    the 2x2 Hadamard (spec 8.5.11); with transform8x8, the luma of those
+    MBs through the 8x8 zig-zag, dequant and rounded inverse 8x8 (spec
+    8.5.13) in int64, split into their 16 raster 4x4 blocks.
 
     luma_coef (N, 16, 16) int scan order; chroma_dc (N, 2, 4); chroma_coef
     (N, 2, 4, 16); qp (N,); tabY / tabU / tabV (52, 4, 4) int32
     InvLevelScale (lists 3 / 4 / 5 of decoder/recon.build_inv_scale);
-    qpc_cb / qpc_cr (52,) int32 QP -> QPc with the PPS offsets.
+    qpc_cb / qpc_cr (52,) int32 QP -> QPc with the PPS offsets;
+    luma_coef8 (N, 4, 64) 8x8 scan order, transform8x8 (N,) bool and
+    tab8 (52, 8, 8) int32 LevelScale8 (list 1 of
+    decoder/recon.build_inv_scale8), all three or none.
     Returns (res_l (N, 16, 4, 4), res_c (N, 2, 4, 4, 4)) int32."""
     n = mb_w * mb_h
     dev = luma_coef.device
@@ -56,6 +64,13 @@ def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
     raster[..., zz] = luma_coef.to(I32)
     deq = Q.dequant_4x4(raster.reshape(n, 16, 4, 4), qp[:, None], tabY)
     res_l = T.inverse4x4_round(deq)
+    if transform8x8 is not None:
+        r8 = torch.zeros((n, 4, 64), dtype=torch.int64, device=dev)
+        r8[..., on(_ZZ8, dev)] = luma_coef8.to(torch.int64)
+        deq8 = Q.dequant_8x8(r8.reshape(n, 4, 8, 8), qp[:, None], tab8)
+        res8 = T.split_8x8(T.inverse8x8_round(deq8)).to(I32)
+        res_l = torch.where(transform8x8.to(torch.bool)[:, None, None, None],
+                            res8, res_l)
 
     qpi = torch.clamp(qp, 0, 51).long()
     qpu, qpv = qpc_cb[qpi], qpc_cr[qpi]

@@ -1,5 +1,5 @@
-"""Bit-exact 4x4 quantization / dequantization on int32 tensors (twin of
-the flat-matrix part of jm_tpu/ops/quant.py).
+"""Bit-exact 4x4 quantization / dequantization on int32 tensors and the
+8x8 dequantization (twin of the decoder half of jm_tpu/ops/quant.py).
 
 Decoder-side scaling follows spec 8.5.10-8.5.12; encoder-side forward
 quant is JM's "normal" strategy (lencod/src/quant4x4_normal.c:
@@ -46,6 +46,19 @@ def dequant_4x4(coef: torch.Tensor, qp: torch.Tensor,
     scale = tab[qp.long()]
     per = (qp // 6)[..., None, None]
     return rshift_rnd_sf((coef.to(torch.int32) * scale) << per, 4)
+
+
+def dequant_8x8(coef: torch.Tensor, qp: torch.Tensor,
+                tab: torch.Tensor) -> torch.Tensor:
+    """coef (..., 8, 8) levels, qp (...,) -> scaled coefficients (spec
+    8.5.13.1) d = rshift_rnd_sf((c * LevelScale8[qp]) << (qp/6), 6), which
+    is the left shift by qp/6 - 6 for qp >= 36 and the rounded right shift
+    by 6 - qp/6 below; tab: a (52, 8, 8) LevelScale8 table on coef's
+    device. In int64, so that any level is exact."""
+    qp = qp.to(torch.int64)
+    scale = tab[qp].to(torch.int64)
+    per = (qp // 6)[..., None, None]
+    return rshift_rnd_sf((coef.to(torch.int64) * scale) << per, 6)
 
 
 def dequant_chroma_dc(dc: torch.Tensor, qp: torch.Tensor,

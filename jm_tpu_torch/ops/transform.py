@@ -1,13 +1,17 @@
 """Bit-exact H.264 integer transforms on int32 tensors, batched over
-leading dims (twin of jm_tpu/ops/transform.py, 4x4 subset).
+leading dims (twin of jm_tpu/ops/transform.py: the 4x4 core transform,
+the Hadamards and the 8x8 inverse; the 1-D 8x8 stages also take numpy
+arrays, so the host coders' forward 8x8 and the decoder's numpy inverse
+are the same code).
 
-Trailing two dims are the block: (..., 4, 4) / (..., 2, 2). "Rows" are
+Trailing two dims are the block: (..., 4, 4) / (..., 2, 2) / (..., 8, 8). "Rows" are
 the last-but-one axis (vertical index j), "cols" the last axis, matching
 the spec's d[j][i] (ISO/IEC 14496-10 8.5.10-8.5.12).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -75,3 +79,52 @@ def hadamard2x2(x: torch.Tensor) -> torch.Tensor:
     r0 = torch.stack([a + b + c + d, a - b + c - d], dim=-1)
     r1 = torch.stack([a + b - c - d, a - b - c + d], dim=-1)
     return torch.stack([r0, r1], dim=-2)
+
+
+def fwd8_1d(d):
+    """One 1-D stage of the forward 8x8 transform (lencod transform8x8.c
+    forward8x8); d: 8 arrays or tensors. Returns the 8 outputs."""
+    a0, a1, a2, a3 = d[0] + d[7], d[1] + d[6], d[2] + d[5], d[3] + d[4]
+    a4, a5, a6, a7 = d[0] - d[7], d[1] - d[6], d[2] - d[5], d[3] - d[4]
+    b0, b1, b2, b3 = a0 + a3, a1 + a2, a0 - a3, a1 - a2
+    b4 = a5 + a6 + ((a4 >> 1) + a4)
+    b5 = a4 - a7 - ((a6 >> 1) + a6)
+    b6 = a4 + a7 - ((a5 >> 1) + a5)
+    b7 = a5 - a6 + ((a7 >> 1) + a7)
+    return (b0 + b1, b4 + (b7 >> 2), b2 + (b3 >> 1), b5 + (b6 >> 2),
+            b0 - b1, b6 - (b5 >> 2), (b2 >> 1) - b3, -(b4 >> 2) + b7)
+
+
+def inv8_1d(d):
+    """One 1-D stage of the inverse 8x8 transform (spec 8.5.13.2); d: 8
+    arrays or tensors. Returns the 8 outputs."""
+    a0, a4 = d[0] + d[4], d[0] - d[4]
+    a2, a6 = (d[2] >> 1) - d[6], d[2] + (d[6] >> 1)
+    b0, b2, b4, b6 = a0 + a6, a4 + a2, a4 - a2, a0 - a6
+    a1 = -d[3] + d[5] - d[7] - (d[7] >> 1)
+    a3 = d[1] + d[7] - d[3] - (d[3] >> 1)
+    a5 = -d[1] + d[7] + d[5] + (d[5] >> 1)
+    a7 = d[3] + d[5] + d[1] + (d[1] >> 1)
+    b1, b7 = a1 + (a7 >> 2), a7 - (a1 >> 2)
+    b3, b5 = a3 + (a5 >> 2), (a3 >> 2) - a5
+    return (b0 + b7, b2 + b5, b4 + b3, b6 + b1,
+            b6 - b1, b4 - b3, b2 - b5, b0 - b7)
+
+
+def inverse8x8_round(x: torch.Tensor) -> torch.Tensor:
+    """Inverse 8x8 transform, rows then columns, with the normative
+    rounding (f + 32) >> 6, in x's integer dtype."""
+    t = torch.stack(inv8_1d(tuple(x[..., :, i] for i in range(8))), dim=-1)
+    v = torch.stack(inv8_1d(tuple(t[..., j, :] for j in range(8))), dim=-2)
+    return (v + 32) >> 6
+
+
+def split_8x8(a):
+    """(..., 4, 8, 8) quadrants -> (..., 16, 4, 4) raster 4x4 blocks, the
+    layout of the 4x4 residuals; numpy arrays or tensors."""
+    sh = a.shape[:-3]
+    k = len(sh)
+    perm = (*range(k), k, k + 2, k + 1, k + 4, k + 3, k + 5)
+    a = a.reshape(*sh, 2, 2, 2, 4, 2, 4)
+    a = a.transpose(perm) if isinstance(a, np.ndarray) else a.permute(perm)
+    return a.reshape(*sh, 16, 4, 4)

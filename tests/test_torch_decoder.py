@@ -231,13 +231,13 @@ def test_picture_from_numpy_through_port_recon():
 
 
 @pytest.mark.parametrize("name,construct", [
-    ("high8x8c", "8x8 transform"),
+    ("cif_422", "chroma_format_idc 2"),
     ("cif_sp", "SP"),
-    ("high8x8", "8x8 transform"),
+    ("cif_field", "fields"),
     ("mbaff1", "fields"),
     ("field1", "fields"),
     ("y422", "chroma_format_idc 2"),
-    ("high8x8sm", "scaling matrices"),
+    ("field2", "fields"),
     ("hi10c", "bit depth"),
     ("y422c", "chroma_format_idc 2"),
     ("hi10", "bit depth"),

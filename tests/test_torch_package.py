@@ -51,12 +51,13 @@ def test_scan_covers_the_native_loader():
                                  "decoder/b_slice.py", "encoder/b_host.py",
                                  "encoder/gop.py", "encoder/me.py",
                                  "decoder/wp.py", "encoder/wp_est.py",
-                                 "encoder/p_host.py"])
+                                 "encoder/p_host.py", "encoder/qmatrix.py"])
 def test_scan_covers_the_ports_own_copies(rel):
     """Rate control, the slice-group maps, the host intra encoder, the
     SEI writers and parser, the B-slice motion, the B and P MB coders
     with their motion search, the GOP strings and the weighted prediction
-    tables and estimates are the port's own modules, not jm_tpu's."""
+    tables and estimates and the custom quant are the port's own modules,
+    not jm_tpu's."""
     assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
 
 
@@ -135,7 +136,11 @@ def test_deblock_never_falls_back_for_a_device_request():
     ("sei_recovery_point", 1), ("mmco_policy", "idr"),
     ("weighted_pred", 2), ("weighted_pred", True), ("wp_method", 2),
     ("wp_iter_mc", -1), ("wp_iter_mc", 1.5), ("wp_mcprec", 2),
-    ("weighted_bipred", 3),
+    ("weighted_bipred", 3), ("pipeline", "gpu"), ("transform8x8", 1),
+    ("adaptive_rounding", 1), ("scaling_matrix", 4), ("scaling_matrix", True),
+    ("scaling_lists4", ((16,) * 16,)), ("scaling_lists8", ((0,) * 64,) * 2),
+    ("scaling_present", (4,)), ("offset_matrix", ((0,),)),
+    ("adapt_rnd_period", -1), ("adapt_rnd_w", 1.5),
 ])
 def test_config_outside_slice_raises(field, value):
     cfg = EncoderConfig(width=32, height=32)

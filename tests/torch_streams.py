@@ -2,10 +2,14 @@
 (tests/test_torch_encoder.py for device_rd=True, test_torch_fallback.py
 for md_low): clips of tests/test_pipe_stream.py at 96x80, QP 30, encoded
 by jm_tpu's Encoder(pipeline="device") and by the port on the CPU, and
-the checks that hold them equal; and the fade of the weighted prediction
+the checks that hold them equal; the same for a configuration encoded
+frame by frame through both encoders' host coders (the host pipeline
+and High-profile tests); and the fade of the weighted prediction
 tests."""
 
 import numpy as np
+import pytest
+import torch
 
 from jm_tpu.decoder.decoder import H264Decoder as JaxDecoder
 from jm_tpu.encoder.encoder import Encoder as JaxEncoder
@@ -124,3 +128,56 @@ def fade(frames, step: float = 0.08):
             .astype(np.uint8) for p, c in ((Y, 0.0), (U, 128.0),
                                            (V, 128.0))))
     return out
+
+
+def frame_run(cfg: dict, n: int, pipeline: str = "host"):
+    """The 96x80 QP 30 clip's first n frames encoded through encode_frame
+    and flush by jm_tpu's Encoder and by the port's with the same
+    EncoderConfig keywords cfg and pipeline: (jm_tpu payloads, jm_tpu
+    results, port encoder, port payloads)."""
+    frames = make_frames(W, H, n)
+    jenc = JaxEncoder(JaxConfig(width=W, height=H, qp=QP, pipeline=pipeline,
+                                **cfg))
+    enc = Encoder(EncoderConfig(width=W, height=H, qp=QP, pipeline=pipeline,
+                                **cfg), device="cpu")
+    return ([jenc.encode_frame(*f) for f in frames] + [jenc.flush()],
+            jenc.results, enc,
+            [enc.encode_frame(*f) for f in frames] + [enc.flush()])
+
+
+def check_frame_run_payloads(run):
+    want, _, _, got = run
+    assert [len(p) for p in got] == [len(p) for p in want]
+    assert got == want
+
+
+def check_frame_run_recon(run):
+    _, want, enc, _ = run
+    assert [(r["disp"], r["type"]) for r in enc.results] == \
+        [(r["disp"], r["type"]) for r in want]
+    same_recon(enc.results, want)
+
+
+def check_frame_run_decodes(run):
+    """The port's decode of the stream equals the recon (POC counts from
+    the clip's only IDR, frame 0)."""
+    _, _, enc, got = run
+    out = H264Decoder(device="cpu").decode_annexb(b"".join(got))
+    by_disp = {r["disp"]: r["frame"] for r in enc.results}
+    assert sorted(f.poc // 2 for f in out) == sorted(by_disp)
+    for f in out:
+        for p in "YUV":
+            assert np.array_equal(getattr(f, p),
+                                  getattr(by_disp[f.poc // 2], p))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The host coders' and the CPU decode's tensor steps are small: more
+    threads only slow them down (a 96x80 host-pipeline case takes 1.4x
+    as long with 8 threads as with 1), the more so beside other test
+    workers. Imported by the test modules that use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
