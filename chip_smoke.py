@@ -28,8 +28,8 @@ Phases (any failure raises and exits non-zero):
      reset just before and read just after: one launch per kernel and
      frame;
   4. cross-check: the first two frames (IDR + P) encoded again on the
-     CPU with the plain versions must give the same payloads and
-     deblocked reconstruction;
+     CPU (by a worker) with the plain versions must give the same
+     payloads and deblocked reconstruction;
   5. torch.profiler over one P frame: wall and device-busy time, idle
      share and the ops with the most device time;
   6. decode on the card: after a warm-up decode of the first 3 frames,
@@ -188,7 +188,7 @@ Phases (any failure raises and exits non-zero):
      coded 8x8, the bytes beside phase 3's first two pictures; both
      pictures encoded on the CPU with the same bytes and recon;
  29. CIF host-pipeline streams of the top-left 352x288 (HIGH_CIF): (a)
-     jm_tpu's default configuration, IPPP; (b) CABAC, transform8x8,
+     jm_tpu's default configuration, IPP; (b) CABAC, transform8x8,
      num_b 1; (c) scaling_matrix 3 with the spec's default lists, the
      default offsets, adaptive rounding and transform8x8; each with
      frames/s, the per-picture split, bytes and launches, and encoded on
@@ -200,24 +200,48 @@ Phases (any failure raises and exits non-zero):
      high8x8sm against their _rec.yuv with frames/s and the per-picture
      parse / intra recon / device split; CUDA-event ms of
      p_dec_residuals at 1080p without and with every MB's 8x8 transform
-     on the same levels.
-The CPU references of phases 8-30 (the encodes on the CPU, the CPU
-decodes of the lossy stream, of the DP goldens, cif_main, the weighted
-and the High streams) run in CPU_WORKERS worker processes, started at phase
-8 and stopped before the closing lines, while the card works through
-those phases.
+     on the same levels;
+ 31. the host coders' motion options at 1080p: the first MOTION_FRAMES
+     frames, QP 28, SR 16, CAVLC, the device pipeline with num_ref 2 and
+     EPZS with HME, through encode_stream: the IDR and the first P on
+     the device route (one active reference), the second P by the host
+     P coder with two references; one launch per kernel and picture;
+     each picture's ms, the host P's split and ms per MB by part, its
+     searcher's SAD evaluations per MB, its partitions from reference 1,
+     its bytes beside phase 3's second P; all three pictures encoded on
+     the CPU with the same bytes and recon;
+ 32. CIF streams of the top-left 352x288 (MOTION_CIF): (a) pipeline
+     "host", num_ref 2, sub8x8, transform8x8, CAVLC, with the 4x4 SAD
+     tables' build and download; (b) UMHex, num_ref 2, SAD in the
+     fractional search, CABAC, num_b 1; (c) UMHex simple with long-term
+     references (long_term_period 3), num_ref 2; (d) basic-unit rate
+     control (one CIF MB row per unit) with its QPs and the MBs of the
+     QP fault it copies from jm_tpu; (e) the explicit sequence script of
+     tests/test_explicit_seq.py with num_ref 2; each with frames/s, the
+     per-picture split, bytes and launches, and encoded on the CPU with
+     the same bytes and recon;
+ 33. their decodes on the card: each equal to its CPU decode and, but
+     (d), to its encoder's recon; (d)'s MBs that differ from the recon
+     counted; one launch per kernel and picture.
+The CPU references of phases 4-33 (the encodes on the CPU, the CPU
+decodes of the lossy stream, of the DP goldens, cif_main, the weighted,
+High and motion-option streams) run in
+CPU_WORKERS worker processes, started before the kernel build and
+stopped before the closing lines, while the card works through the
+phases.
 Phases 3, 6, 8-13 and 15-20 run on the native runtime, as the entry
 points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
 and parsed, every intra picture reconstructed and every CABAC slice
 decoded by the native runtime, but the data-partitioned slices of
-phase 18 and the B slices of phases 22-30, which only the Python
+phase 18 and the B slices of phases 22-33, which only the Python
 serializers and parsers handle (routes "dp" and "b").
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-30 alone, ``--from 22`` phases 22-30, ``--from 25`` phases 25-30,
-``--from 28`` phases 28-30, without the closing JSON lines (a quicker
-check of those phases while they are developed). The last line of
+18-33 alone, ``--from 22`` phases 22-33, ``--from 25`` phases 25-33,
+``--from 28`` phases 28-33, ``--from 31`` phases 31-33, without the
+closing JSON lines (a quicker check of those phases while they are
+developed). The last line of
 standard output is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel numbers as JSON.
 """
@@ -249,9 +273,9 @@ W, H = 1920, 1088
 N_FRAMES = 17
 CUT_FRAMES = 4       # frames of the scene-cut stream (frame 2 replaced)
 N_CABAC = 4          # frames of the CABAC stream (phases 12-13)
-LL_FRAMES = 9        # frames of the low-latency stream (phase 15)
+LL_FRAMES = 4        # frames of the low-latency stream (phase 15)
 N_CIF = 5            # frames of the CIF streams (phases 16-17)
-RES_FRAMES = 9       # frames of the 1080p streams of phases 18-20
+RES_FRAMES = 5       # frames of the 1080p streams of phases 18-20
 LOSSY_CPU = 4        # pictures of phase 19's lossy stream decoded on the CPU
 B_FRAMES = 3         # frames of the 1080p B stream (phases 22-23): I0 P2 B1
 GOP_FRAMES = 13      # frames of the CIF GOP stream (phase 24)
@@ -262,21 +286,38 @@ B_GOLDENS = ("cavlc_b", "main3", "main9", "main9t", "poc1b")
 WP_FRAMES = 2        # frames of the 1080p weighted P stream (phase 25)
 WP_FADE = 0.05       # the fade's step per frame (phases 25-26)
 # phase 26's CIF configurations of the fade: (label, frames, keywords)
-WP_CIF = (("a", 5, dict(num_b=1, entropy="cabac", weighted_pred=1,
+WP_CIF = (("a", 3, dict(num_b=1, entropy="cabac", weighted_pred=1,
                         weighted_bipred=1)),
           ("b", 5, dict(num_b=3, hierarchical=1, weighted_bipred=2)),
-          ("c", 3, dict(weighted_pred=1, wp_method=1, wp_mcprec=1)))
+          ("c", 2, dict(weighted_pred=1, wp_method=1, wp_mcprec=1)))
 # JM's weighted prediction goldens (phase 27)
 WP_GOLDENS = ("wp_p", "wp_bi", "wp_both")
 HIGH_FRAMES = 2      # frames of the 1080p host-pipeline High stream (28)
 # phase 29's CIF host-pipeline streams: (label, frames, EncoderConfig
 # keywords; "defaults" stands for the spec's default scaling lists with
 # the default quant offsets)
-HIGH_CIF = (("a", 4, {}),
-            ("b", 5, dict(entropy="cabac", transform8x8=True, num_b=1)),
-            ("c", 4, dict(scaling_matrix=3, transform8x8=True,
+HIGH_CIF = (("a", 3, {}),
+            ("b", 3, dict(entropy="cabac", transform8x8=True, num_b=1)),
+            ("c", 3, dict(scaling_matrix=3, transform8x8=True,
                           adaptive_rounding=True, defaults=True)))
 HIGH_GOLDENS = ("high8x8", "high8x8c", "high8x8sm")
+MOTION_FRAMES = 3    # frames of the 1080p motion-option stream (31)
+# phase 32's CIF streams: (label, frames, EncoderConfig keywords); (e) is
+# the explicit sequence script (EXPLICIT_SCRIPT), (d) basic-unit RC
+MOTION_CIF = (("a", 3, dict(pipeline="host", num_ref=2, sub8x8=True,
+                            transform8x8=True)),
+              ("b", 5, dict(search_mode=1, num_ref=2, subpel_satd=False,
+                            entropy="cabac", num_b=1)),
+              ("c", 3, dict(search_mode=2, long_term_period=3, num_ref=2)),
+              ("d", 4, dict(rc_enable=True, rc_bitrate=1_000_000.0,
+                            rc_basic_unit=22)),
+              ("e", 5, dict(num_b=1, num_ref=2)))
+EXPLICIT_SCRIPT = """Sequence { FrameCount : 5
+Frame { SeqNumber : 0 SliceType : I IDRPicture : 1 Reference : 1 }
+Frame { SeqNumber : 2 SliceType : P Reference : 1 }
+Frame { SeqNumber : 1 SliceType : B Reference : 0 }
+Frame { SeqNumber : 4 SliceType : P Reference : 1 }
+Frame { SeqNumber : 3 SliceType : B Reference : 1 } }"""
 DEVICE = "cuda"
 # the kernels' edge shapes (one MB, mb_w 2, mb_h 1, one MB column), each
 # with a parameter variant ("mixed" may switch the one MB off), and 2160p
@@ -1269,11 +1310,12 @@ def golden_bytes(name: str) -> bytes:
         return f.read()
 
 
-def start_cpu_references(pool, frames, first: int = 8) -> dict:
-    """Submit the CPU references of phases first..30 (8, 18, 22, 25 or
-    28) to the worker pool (the longest first: phase 28's 1080p host
-    encode, then within each group of phases); returns their
-    AsyncResults by name."""
+def start_cpu_references(pool, frames, first: int) -> dict:
+    """Submit the CPU references of phases first..33 (4, 18, 22, 25, 28
+    or 31) to the worker pool: phase 4's IDR + P first, then the longest,
+    phase 28's 1080p host encode, then by phase, phase 31's 1080p host
+    encode after those of phases 4-21, which are needed before it;
+    returns their AsyncResults by name."""
     jobs = []
     if first <= 8:
         jobs += [("scene_cut", cpu_encode, (rd_cfg(), cut_frames(frames))),
@@ -1292,16 +1334,26 @@ def start_cpu_references(pool, frames, first: int = 8) -> dict:
                                                frames[:LOSSY_CPU]))]
         jobs += [(name, cpu_decode, (golden_bytes(name),))
                  for name in ("dp1", "cif_dp")]
-    jobs = [("high", cpu_encode, (high_cfg(), frames[:HIGH_FRAMES]))] + jobs
+    if first <= 28:
+        jobs = [("high", cpu_encode, (high_cfg(), frames[:HIGH_FRAMES]))] \
+            + jobs
+    if first <= 4:
+        jobs = [("main", cpu_encode, (rd_cfg(), frames[:2]))] + jobs
+    jobs += [("motion", cpu_encode, (motion_cfg(), frames[:MOTION_FRAMES]))]
     if first <= 25:
         jobs += [("wp_p", cpu_encode, (wp_cfg(),
                                        fade(frames[:WP_FRAMES])))]
         jobs += [(f"wp_cif_{label}", cpu_encode,
                   (wp_cif_cfg(kw), cif(fade(frames[:n]), n)))
                  for label, n, kw in WP_CIF]
-    jobs += [(f"high_cif_{label}", cpu_encode,
-              (high_cif_cfg(kw), cif(frames, n)))
-             for label, n, kw in HIGH_CIF]
+    if first <= 28:
+        jobs += [(f"high_cif_{label}", cpu_encode,
+                  (high_cif_cfg(kw), cif(frames, n)))
+                 for label, n, kw in HIGH_CIF]
+    jobs += [(f"motion_cif_{label}",
+              cpu_explicit if label == "e" else cpu_encode,
+              (motion_cif_cfg(kw), cif(frames, n)))
+             for label, n, kw in MOTION_CIF]
     return {name: pool.apply_async(fn, args) for name, fn, args in jobs}
 
 
@@ -1652,9 +1704,9 @@ class BTimedEncoder(SplitTimedEncoder):
     """SplitTimedEncoder that also times each coded picture ("picture"),
     anchor or B, by display index (the steps synchronized)."""
 
-    def _emit_anchor(self, frame, disp):
+    def _emit_anchor(self, frame, disp, **kw):
         return self._timed(disp, "picture", super()._emit_anchor, frame,
-                           disp)
+                           disp, **kw)
 
     def _emit_b(self, frame, disp, *a, **kw):
         return self._timed(disp, "picture", super()._emit_b, frame, disp,
@@ -2303,6 +2355,215 @@ def high_phases(frames, cpu_refs, pool, main_payloads) -> dict:
     return out
 
 
+# ---- 31-33: the host coders' motion options, basic-unit RC ---------------
+
+def motion_cfg():
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         num_ref=2, search_mode=3, hme=True)
+
+
+def motion_cif_cfg(kw):
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         **kw)
+
+
+def explicit_encode(enc, frames):
+    """The explicit sequence script over frames by the encoder enc:
+    (enc, payload of each coded picture, launches, seconds), the counters
+    reset just before."""
+    from jm_tpu_torch.encoder.gop import (encode_explicit_seq,
+                                          parse_explicit_seq_file)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    payloads = encode_explicit_seq(enc, frames,
+                                   parse_explicit_seq_file(EXPLICIT_SCRIPT))
+    if enc.device.type == "cuda":
+        torch.cuda.synchronize()
+    return enc, payloads, dict(kernels.launches), time.perf_counter() - t0
+
+
+def cpu_explicit(cfg, frames):
+    """Phase 32 (e)'s CPU reference, as cpu_encode's result."""
+    enc, payloads, _l, _s = explicit_encode(Encoder(cfg, device="cpu"),
+                                            frames)
+    return (payloads, [(r["frame"].Y, r["frame"].U, r["frame"].V)
+                       for r in enc.results], [r["qp"] for r in enc.results],
+            enc.fallbacks)
+
+
+def motion_report(enc, label: str) -> None:
+    """wp_report's lines, then for each host-coded P picture the
+    searcher's SAD evaluations per MB, the partitions (and sub-8x8
+    quadrants) coded from reference 1, and with basic units the MB QPs
+    and the MBs whose QP is not sent (jm_tpu's fault, copied)."""
+    wp_report(enc, label)
+    n_mbs = enc.mb_w * enc.mb_h
+    for r in enc.results:
+        if r["type"] != "P" or "mix" not in r:
+            continue
+        line = (f"{label} picture {r['disp']} P (host): "
+                f"{r['evals'] / n_mbs:.1f} searcher SAD evaluations per MB; "
+                f"{r['ref1']} partitions from reference 1")
+        if "mb_qps" in r:
+            line += (f"; basic units: MB QPs {list(r['mb_qps'])}, "
+                     f"{r['qp_unsent']} MBs whose QP is not sent")
+        print(line, flush=True)
+
+
+def motion_1080p_phase(frames, cpu_ref, main_payloads, pool):
+    """Phase 31: the first MOTION_FRAMES frames at 1080p, pipeline
+    "device", num_ref 2, EPZS with HME, through encode_stream (off the
+    pipe: encode_frame): the IDR and the first P on the device route (one
+    active reference), the second P by the host P coder with two; one
+    launch per kernel and picture; the host P's ms per MB by part, its
+    SAD evaluations per MB and partitions from reference 1, its bytes
+    beside phase 3's second P (main_payloads; None when phase 3 did not
+    run); held against the CPU encode cpu_ref. Returns (encoder,
+    payloads, launches, the CPU decode job of the stream)."""
+    frames = frames[:MOTION_FRAMES]
+    enc, payloads, launches, total_s = b_encode(motion_cfg(), frames)
+    types = "".join(r["type"] for r in enc.results)
+    host = ["mix" in r for r in enc.results]
+    if types != "IPP" or host != [False, False, True]:
+        raise AssertionError(f"motion 1080p: pictures {types}, host {host}")
+    check_routes("motion 1080p encode", serialize=3)
+    check_launches(launches, 3, "motion 1080p encode")
+    t = {d: sum(enc.split[d]["picture"]) * 1e3 for d in range(3)}
+    main = ("phase 3 did not run" if main_payloads is None else
+            f"phase 3's second P: {len(main_payloads[2])} B")
+    print(f"encode motion 1080p {types} (num_ref 2, EPZS + HME, device "
+          f"pipeline, QP {QP}, SR 16): IDR {t[0]:.1f} ms, P (device route) "
+          f"{t[1]:.1f} ms, P (host, 2 references) {t[2]:.1f} ms; bytes "
+          f"{[len(p) for p in payloads]} ({main}); launches {launches}",
+          flush=True)
+    motion_report(enc, "motion 1080p")
+    check_cpu_encode("motion 1080p", cpu_ref, payloads, enc, 3)
+    return enc, payloads, launches, pool.apply_async(
+        cpu_decode, (b"".join(payloads),))
+
+
+def motion_cif_phase(frames, cpu_refs, pool) -> list:
+    """Phase 32: the CIF streams of MOTION_CIF on the card (through
+    encode_stream; (e) through the explicit sequence coder), one launch
+    per kernel and picture, frames/s, the per-picture split (with (a)
+    the 4x4 tables' build and download), the searchers' evaluations, the
+    partitions from reference 1, (d)'s QPs and the MBs of the copied QP
+    fault, held against its CPU encode; returns per stream (label,
+    encoder, payloads, launches, the CPU decode job of the stream)."""
+    out = []
+    for label, n, kw in MOTION_CIF:
+        cfg = motion_cif_cfg(kw)
+        if label == "e":
+            enc, payloads, launches, total_s = explicit_encode(
+                BTimedEncoder(cfg, device=DEVICE), cif(frames, n))
+        else:
+            enc, payloads, launches, total_s = b_encode(cfg, cif(frames, n))
+        types = "".join(r["type"] for r in enc.results)
+        n_b = types.count("B")
+        cabac = kw.get("entropy") == "cabac"
+        check_routes(f"motion CIF ({label})",
+                     serialize=0 if cabac else len(types) - n_b,
+                     b={"serialize": n_b})
+        check_launches(launches, len(types), f"motion CIF ({label})")
+        print(f"encode motion CIF ({label}) {types} (coding order; {kw}): "
+              f"{len(types) / total_s:.3f} frames/s, "
+              f"{sum(map(len, payloads))} stream bytes "
+              f"{[len(p) for p in payloads]}, QPs "
+              f"{[r['qp'] for r in enc.results]}, launches {launches}",
+              flush=True)
+        if kw.get("sub8x8"):
+            side = 2 * 16 + 1
+            print(f"motion CIF ({label}): the 4x4 SAD tables (int16, "
+                  f"{396 * side * side * 16 * 2 / 1e6:.1f} MB a reference) "
+                  f"built and downloaded in " + ", ".join(
+                      f"{r['split']['sad_s'] * 1e3:.1f} ms (picture "
+                      f"{r['disp']}, {kw['num_ref']} references)"
+                      for r in enc.results if "split" in r
+                      and r["type"] == "P"), flush=True)
+        motion_report(enc, f"motion CIF ({label})")
+        check_cpu_encode(f"motion CIF ({label})",
+                         cpu_refs[f"motion_cif_{label}"], payloads, enc,
+                         len(types))
+        out.append((f"motion_cif_{label}", enc, payloads, launches,
+                    pool.apply_async(cpu_decode, (b"".join(payloads),))))
+    return out
+
+
+def fault_decode(payloads, enc, label: str, job):
+    """Phase 33 (d): the basic-unit stream decoded on the card, equal to
+    its CPU decode (the decoders give the QP a skipped MB inherits, where
+    the encoder deblocked with its unit's), one launch per kernel and
+    picture; prints the MBs that differ from the recon. Returns the
+    launches."""
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    out = dec.decode_annexb(b"".join(payloads))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check_launches(launches, len(out), label)
+    check_frames(out, job.get(), label)
+    mw = enc.mb_w
+    differ = []
+    for f, r in zip(out, enc.results):
+        d = np.abs(f.Y.astype(np.int32) - r["frame"].Y.astype(np.int32))
+        for p in "UV":
+            c = np.abs(getattr(f, p).astype(np.int32)
+                       - getattr(r["frame"], p).astype(np.int32))
+            d = np.maximum(d, np.kron(c, np.ones((2, 2), np.int32)))
+        mbs = d.reshape(enc.mb_h, 16, mw, 16).max(axis=(1, 3))
+        differ.append(int((mbs > 0).sum()))
+    print(f"{label} on the card: {len(out)} frames equal the CPU decode; "
+          f"MBs that differ from the recon per picture {differ} (jm_tpu's "
+          f"basic-unit QP fault, copied); launches {launches}", flush=True)
+    return launches
+
+
+def motion_decode_phase(streams) -> dict:
+    """Phase 33: the streams of phases 31-32 decoded on the card, each
+    equal to its CPU decode and, but (d), to its encoder's recon, one
+    launch per kernel and picture. streams: (label, encoder, payloads,
+    CPU decode job). Returns the launches of each decode by name."""
+    out = {}
+    for label, enc, payloads, job in streams:
+        if label == "motion_cif_d":
+            out[f"{label}_decode"] = fault_decode(payloads, enc,
+                                                  f"decode {label}", job)
+            continue
+        n_b = sum(r["type"] == "B" for r in enc.results)
+        out[f"{label}_decode"] = card_decode(
+            payloads, enc, f"decode {label}",
+            cabac=enc.cfg.entropy == "cabac", b_parse=n_b)
+        t0 = time.perf_counter()
+        cpu = job.get()
+        got = [(r["frame"].Y, r["frame"].U, r["frame"].V)
+               for r in enc.results]
+        if len(cpu) != len(got) or any(
+                not np.array_equal(a[k], b[k]) for a, b in zip(cpu, got)
+                for k in range(3)):
+            raise AssertionError(f"decode {label}: the CPU decode differs")
+        print(f"decode {label}: the CPU decode equals the card's (CPU "
+              f"worker; waited {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    return out
+
+
+def motion_phases(frames, cpu_refs, pool, main_payloads) -> dict:
+    """Phases 31-33; returns the launches of each of their paths by name
+    (motion, motion_cif_a..e, each also with _decode)."""
+    out = {}
+    enc, payloads, out["motion"], job = motion_1080p_phase(
+        frames, cpu_refs["motion"], main_payloads, pool)
+    streams = [("motion", enc, payloads, job)]
+    for label, cenc, cpay, launches, cjob in motion_cif_phase(
+            frames, cpu_refs, pool):
+        out[label] = launches
+        streams.append((label, cenc, cpay, cjob))
+    out.update(motion_decode_phase(streams))
+    return out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -2337,32 +2598,48 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 1. build ----------------------------------------------------
+    # ---- 1. build, with the CPU references of the later phases started in
+    # the worker pool meanwhile --------------------------------------------
     native.load()
     print(f"native runtime build (g++, three sources) + import: "
           f"{native.build_seconds:.1f} s", flush=True)
-    kernels.load()
-    print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
+    partial = sys.argv[1:] in (["--from", "18"], ["--from", "22"],
+                               ["--from", "25"], ["--from", "28"],
+                               ["--from", "31"])
+    first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
-    if sys.argv[1:] in (["--from", "18"], ["--from", "22"],
-                        ["--from", "25"], ["--from", "28"]):
-        first = int(sys.argv[2])
-        pool = cpu_pool()
-        try:
-            refs = start_cpu_references(pool, frames, first)
-            if first <= 18:
-                later_phases(frames, None, refs)
-            if first <= 22:
-                b_phases(frames, refs)
-            if first <= 25:
-                wp_phases(frames, refs, pool)
-            high_phases(frames, refs, pool, None)
-        finally:
-            pool.terminate()
-            pool.join()
-        print(f"phases {first}-30 passed (partial run: no closing lines)")
-        return 0
+    pool = cpu_pool()
+    try:
+        refs = start_cpu_references(pool, frames, first)
+        kernels.load()
+        print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
+        if partial:
+            return partial_run(frames, pool, refs, first)
+        return full_run(frames, pool, refs, smi)
+    finally:
+        pool.terminate()
+        pool.join()
 
+
+def partial_run(frames, pool, refs, first: int) -> int:
+    """Phases first..33 (18, 22, 25, 28 or 31) without the closing JSON
+    lines; refs: their CPU references."""
+    if first <= 18:
+        later_phases(frames, None, refs)
+    if first <= 22:
+        b_phases(frames, refs)
+    if first <= 25:
+        wp_phases(frames, refs, pool)
+    if first <= 28:
+        high_phases(frames, refs, pool, None)
+    motion_phases(frames, refs, pool, None)
+    print(f"phases {first}-33 passed (partial run: no closing lines)")
+    return 0
+
+
+def full_run(frames, pool, cpu_refs, smi: str) -> int:
+    """Phases 2-33 and the closing lines; cpu_refs: the CPU references of
+    phases 4-33."""
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
     rng = np.random.default_rng(1)
@@ -2451,19 +2728,8 @@ def main() -> int:
                                  f"for each of {N_FRAMES} frames")
         kstats[name]["launches"] = cnt
 
-    # ---- 4. CPU cross-check (IDR + P) ------------------------------------
-    t0 = time.perf_counter()
-    cpu = Encoder(cfg, device="cpu")
-    cpu_payloads = cpu.encode_stream(frames[:2])
-    for i in range(2):
-        if cpu_payloads[i] != payloads[i]:
-            raise AssertionError(f"frame {i}: CPU and CUDA payloads differ")
-        a, b = cpu.results[i]["frame"], enc.results[i]["frame"]
-        for plane in "YUV":
-            if not np.array_equal(getattr(a, plane), getattr(b, plane)):
-                raise AssertionError(f"frame {i} {plane}: recon differs")
-    print(f"cross-check: CPU IDR + P payloads and recon equal the CUDA run "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    # ---- 4. CPU cross-check (IDR + P, encoded by a worker) ----------------
+    check_cpu_encode("IDR + P", cpu_refs["main"], payloads, enc, 2)
 
     # ---- 5. where one P frame's time goes ----------------------------
     profile_p_frame(enc, frames[-1], cfg)
@@ -2471,7 +2737,8 @@ def main() -> int:
     # ---- 6. decode on the card ---------------------------------------
     decoded, dec_launches = decode_phase(payloads, enc)
 
-    # ---- 7. decode cross-check (IDR + P on the CPU) --------------------
+    # ---- 7. decode cross-check (IDR + P on the CPU, in line: a job
+    # submitted now would queue behind the later phases' references) ----
     t0 = time.perf_counter()
     cpu_out = H264Decoder(device="cpu").decode_annexb(b"".join(payloads[:2]))
     check_frames(cpu_out, [(f.Y, f.U, f.V) for f in decoded[:2]],
@@ -2479,56 +2746,56 @@ def main() -> int:
     print(f"decode cross-check: CPU IDR + P equal the CUDA decode "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    pool = cpu_pool()
-    try:
-        cpu_refs = start_cpu_references(pool, frames)
 
-        # ---- 8-11. md_low, the scene cut, its decode, the all-modes RD
-        low_enc, low_payloads, low_launches = md_low_phase(frames)
-        cut_enc, cut_payloads, cut_launches = scene_cut_phase(frames)
-        cut_dec_launches = cut_decode_phase(cut_enc, cut_payloads)
-        rd_full_phase(enc, frames)
+    # ---- 8-11. md_low, the scene cut, its decode, the all-modes RD
+    low_enc, low_payloads, low_launches = md_low_phase(frames)
+    cut_enc, cut_payloads, cut_launches = scene_cut_phase(frames)
+    cut_dec_launches = cut_decode_phase(cut_enc, cut_payloads)
+    rd_full_phase(enc, frames)
 
-        # ---- 12-13. CABAC encode and decode ------------------------------
-        cab, cab_payloads, cab_launches = cabac_phase(frames, enc, payloads)
-        cab_dec_launches = cabac_decode_phase(cab, cab_payloads)
+    # ---- 12-13. CABAC encode and decode ------------------------------
+    cab, cab_payloads, cab_launches = cabac_phase(frames, enc, payloads)
+    cab_dec_launches = cabac_decode_phase(cab, cab_payloads)
 
-        # ---- 14. the host runtime against its Python twins -------------
-        host_runtime_phase(enc, payloads, low_enc, low_payloads,
-                           cab_payloads)
-        # the CPU encodes of phases 8 and 9, made by the workers meanwhile
-        check_cpu_encode("md_low IDR + P", cpu_refs["md_low"], low_payloads,
-                         low_enc, 2)
-        check_cpu_encode("scene cut", cpu_refs["scene_cut"], cut_payloads,
-                         cut_enc, CUT_FRAMES)
+    # ---- 14. the host runtime against its Python twins -------------
+    host_runtime_phase(enc, payloads, low_enc, low_payloads,
+                       cab_payloads)
+    # the CPU encodes of phases 8 and 9, made by the workers meanwhile
+    check_cpu_encode("md_low IDR + P", cpu_refs["md_low"], low_payloads,
+                     low_enc, 2)
+    check_cpu_encode("scene cut", cpu_refs["scene_cut"], cut_payloads,
+                     cut_enc, CUT_FRAMES)
 
-        # ---- 15-17. slices, FMO, rate control, qp_p, POC types 1 / 2 ---
-        ll_launches, ll_dec_launches = low_latency_phase(
-            frames, cpu_refs["low_latency"])
-        fmo_launches, fmo_dec_launches = fmo_phase(frames)
-        crc_launches, crc_dec_launches = cabac_rc_phase(frames)
-        for name in ("fmo_t1", "fmo_t3", "fmo_t5d1", "fmo_t6"):
-            decode_golden(name)
+    # ---- 15-17. slices, FMO, rate control, qp_p, POC types 1 / 2 ---
+    ll_launches, ll_dec_launches = low_latency_phase(
+        frames, cpu_refs["low_latency"])
+    fmo_launches, fmo_dec_launches = fmo_phase(frames)
+    crc_launches, crc_dec_launches = cabac_rc_phase(frames)
+    for name in ("fmo_t1", "fmo_t3", "fmo_t5d1", "fmo_t6"):
+        decode_golden(name)
 
-        # ---- 18-21. data partitions, long-term anchors, redundant
-        # pictures, the loop filter off, SEI / VUI; the DP goldens ------
-        later = later_phases(frames, rd_fps, cpu_refs)
+    # ---- 18-21. data partitions, long-term anchors, redundant
+    # pictures, the loop filter off, SEI / VUI; the DP goldens ------
+    later = later_phases(frames, rd_fps, cpu_refs)
 
-        # ---- 22-24. B pictures: 1080p encode and decode, the B goldens,
-        # the CIF GOP variants ---------------------------------------------
-        later.update(b_phases(frames, cpu_refs))
+    # ---- 22-24. B pictures: 1080p encode and decode, the B goldens,
+    # the CIF GOP variants ---------------------------------------------
+    later.update(b_phases(frames, cpu_refs))
 
-        # ---- 25-27. weighted prediction: the 1080p weighted P picture,
-        # the CIF weighted P / B streams, their decode and the WP goldens
-        later.update(wp_phases(frames, cpu_refs, pool))
+    # ---- 25-27. weighted prediction: the 1080p weighted P picture,
+    # the CIF weighted P / B streams, their decode and the WP goldens
+    later.update(wp_phases(frames, cpu_refs, pool))
 
-        # ---- 28-30. the host pipeline and the High profile: the 1080p
-        # High picture pair, the CIF host streams, their decode and the
-        # High goldens ---------------------------------------------------
-        later.update(high_phases(frames, cpu_refs, pool, payloads))
-    finally:
-        pool.terminate()
-        pool.join()
+    # ---- 28-30. the host pipeline and the High profile: the 1080p
+    # High picture pair, the CIF host streams, their decode and the
+    # High goldens ---------------------------------------------------
+    later.update(high_phases(frames, cpu_refs, pool, payloads))
+
+    # ---- 31-33. the host coders' motion options and basic-unit RC:
+    # the 1080p two-reference EPZS picture, the CIF streams (sub8x8,
+    # UMHex, UMHex simple with long-term references, basic units,
+    # the explicit sequence script), their decodes -------------------
+    later.update(motion_phases(frames, cpu_refs, pool, payloads))
 
     rows = []
     for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):

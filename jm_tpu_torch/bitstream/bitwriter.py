@@ -49,6 +49,14 @@ class BitWriter:
         k = 2 * value - 1 if value > 0 else -2 * value
         self.ue(k)
 
+    def te(self, value: int, rng: int) -> None:
+        """te(v) with the range rng: one inverted bit when it is 1, else
+        ue(v)."""
+        if rng == 1:
+            self.u(1 - value, 1)
+        else:
+            self.ue(value)
+
     def append_bitstream(self, data: bytes, nbits: int) -> None:
         """Append `nbits` MSB-first bits taken from `data` (a packed byte
         string) in one vectorized operation — the host-side merge point

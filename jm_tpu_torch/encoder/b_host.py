@@ -12,8 +12,9 @@ Per MB, in slice order (serial host code, as in jm_tpu):
     SAD + lambda;
   - the best 16x16 list-0 and list-1 MVs: the integer full search over
     the SAD table made on the device (ops/enc.full_search_sad16) plus
-    lambda-weighted mvd bits, with the spiral tie-break, then the
-    half- / quarter-pel SATD refinement, + 3 lambda each;
+    lambda-weighted mvd bits, with the spiral tie-break, or each list's
+    EPZS / UMHex searcher (encoder/me_epzs.py), then the half- /
+    quarter-pel SATD (or SAD) refinement, + 3 lambda each;
   - the average of the two (bi-prediction), SAD + lambda * (5 + mvd
     bits of both);
   - the cheapest of the four, unless Intra16x16's SAD + 2 lambda_mode4
@@ -178,28 +179,35 @@ class BPicture(InterMBCoder):
     def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
                  ref0: HostRef, ref1: HostRef, col: B.ColMotion, sads0,
                  sads1, slices, sr: int, wp=None, transform8x8=False,
-                 qctx=None, ar_period: int = 0):
+                 qctx=None, ar_period: int = 0, searchers=None,
+                 subpel_satd: bool = True):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
         lambda_me and lambda_mode4 of qp; ref0 / ref1: list0[0] and
         list1[0]; col: list1[0]'s motion; sads0 / sads1: the
-        (N, (2 sr + 1)^2) integer search tables against each; slices: the
-        slice plan, MB address lists in decode order; wp: the slice's
-        weighted prediction (decoder/wp.WPParams) or None; transform8x8,
-        qctx, ar_period: the adaptive 8x8 transform and the custom quant
-        (InterMBCoder, IntraMBCoder)."""
+        (N, (2 sr + 1)^2) integer search tables against each (None with a
+        searcher); slices: the slice plan, MB address lists in decode
+        order; wp: the slice's weighted prediction (decoder/wp.WPParams)
+        or None; transform8x8, qctx, ar_period: the adaptive 8x8
+        transform and the custom quant (InterMBCoder, IntraMBCoder);
+        searchers: for each list a maker of its EPZS / UMHex searcher
+        from the list's motion field (encoder/me_epzs.py), or None for
+        the full search; subpel_satd: SATD (else SAD) in the fractional
+        search."""
         self._init_picture(orig, qp, qpc)
         self.lam, self.lam4, self.wp = lam, lam4, wp
         self.transform8x8 = transform8x8
         self.qctx, self.ar_period = qctx, ar_period
         self.refs, self.col, self.sads = (ref0, ref1), col, (sads0, sads1)
-        self.sr = sr
+        self.searchers = None if searchers is None else (
+            searchers[0](self.pic.mv), searchers[1](self.pic.mv_l1))
+        self.sr, self.satd = sr, subpel_satd
         self.h, self.w = self.origY.shape
         self.recY = np.zeros_like(self.origY)
         self.recU = np.zeros_like(self.origU)
         self.recV = np.zeros_like(self.origV)
         self.mix = dict.fromkeys(("direct", "skip", "l0", "l1", "bi",
                                   "i16", "t8"), 0)
-        self._code_slices(slices, qp, self._encode_b_mb)
+        self._code_slices(slices, self._encode_b_mb)
 
     # ---- prediction -------------------------------------------------------
 
@@ -250,12 +258,16 @@ class BPicture(InterMBCoder):
         prediction)."""
         px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
         pred_mv = self.pctx.mv_pred(addr, 0, 0, 4, 4, 0, lst)
-        csum = (self.sads[lst][addr].astype(np.int64)
-                + ME.int_rate_tab(pred_mv, self.sr, self.lam))
-        imv = ME.best_int_mv_tiebreak(
-            csum, ME.spiral_rank_tab(pred_mv, self.sr), self.sr)
+        if self.searchers is not None:
+            imv = self.searchers[lst].search(addr, 0, (0, 1, 2, 3), pred_mv)
+        else:
+            csum = (self.sads[lst][addr].astype(np.int64)
+                    + ME.int_rate_tab(pred_mv, self.sr, self.lam))
+            imv = ME.best_int_mv_tiebreak(
+                csum, ME.spiral_rank_tab(pred_mv, self.sr), self.sr)
         qmv, cost = ME.subpel_refine(origY_mb, self.refs[lst].planes, px, py,
-                                     imv, self.w, self.h, pred_mv, self.lam)
+                                     imv, self.w, self.h, pred_mv, self.lam,
+                                     use_satd=self.satd)
         return qmv, cost, pred_mv
 
     def _encode_b_mb(self, addr: int) -> None:

@@ -1,5 +1,6 @@
 """H.264 encoder of the port: IPPP or with B pictures (IbP, a dyadic
-pyramid or an explicit GOP string), 4:2:0, one reference per list, with
+pyramid or an explicit GOP string), 4:2:0, one or several list-0
+references for a P picture (one per list for a B picture), with
 the trial-encode RD P path (device_rd) or md_low, or every picture coded
 by the serial host coders (pipeline="host"), CAVLC (Baseline, or
 Extended with data partitioning) or CABAC (Main), the High profile (the
@@ -7,7 +8,8 @@ adaptive 8x8 transform, scaling matrices, explicit quant offsets and
 adaptive rounding), one or several slices
 per picture (slice_mode 1: MBs per slice, 2: bytes per slice), FMO slice
 groups (Baseline), a fixed QP, a P and a B QP of their own (qp_p, qp_b)
-or frame-level JVT-G012 rate control, POC types 0, 1 and 2, long-term
+or JVT-G012 rate control by picture or by basic unit, POC types 0, 1
+and 2, long-term
 anchors, MMCO marking, open-GOP I anchors with a recovery point SEI and
 CRA marking, redundant pictures, the loop filter on or off, a user-data
 SEI and VUI timing, weighted prediction of P pictures (explicit) and of B
@@ -17,7 +19,8 @@ pipelined ``encode_stream`` and its per-frame ``encode_frame``).
 Each picture takes the route jm_tpu gives it (``_device_path_ok``,
 ``_device_i_path_ok``): with pipeline="device" and neither custom quant
 nor the 8x8 transform, I pictures of one slice and P pictures without
-weighted prediction are coded on the device as below; every other
+weighted prediction, sub-8x8 partitions or basic units and with one
+active reference are coded on the device as below; every other
 picture, and every picture with pipeline="host", is coded MB by MB by
 the serial host coders (encoder/intra_host.py, p_host.py, b_host.py),
 deblocked on the device all the same.
@@ -49,9 +52,12 @@ the pipe), at the picture's QP:
     the download of its fields, the host commit with the serial
     re-encode of the intra MBs and the picture's slice boundaries
     (encoder/p_intra.py);
-  - other P pictures: the quadrant integer search table on the device
-    (ops/enc.full_search_sad_quad), the serial host P coder
-    (encoder/p_host.py, jm_tpu's _encode_p_mb); with weighted_pred
+  - other P pictures: the quadrant integer search table of each active
+    reference on the device (ops/enc.full_search_sad_quad; with sub8x8
+    the 4x4 tables of full_search_sad_blk4), or with search_mode 1-3 the
+    EPZS / UMHex searcher (encoder/me_epzs.py, me_umhex.py), the serial
+    host P coder (encoder/p_host.py, jm_tpu's _encode_p_mb; with
+    rc_basic_unit and a target a QP per basic unit); with weighted_pred
     first the explicit table of each reference, estimated from the
     source and the reference's deblocked planes (encoder/wp_est.py,
     wp_method / wp_iter_mc), and with wp_mcprec the picture is also
@@ -60,7 +66,8 @@ the pipe), at the picture's QP:
     rate control, as in jm_tpu);
   - B pictures (num_b): the frames between two anchors wait for the later
     anchor, which is coded first; then each B: the 16x16 integer search
-    tables against both anchors on the device (ops/enc.full_search_sad16),
+    tables against both anchors on the device (ops/enc.full_search_sad16)
+    or each list's searcher,
     the serial host B coder (encoder/b_host.py: spatial direct / B_Skip,
     16x16 list 0, list 1 or bi-predicted, Intra16x16), as jm_tpu's
     _encode_b_mb, with weighted_bipred 1 each list's estimated table in
@@ -84,14 +91,17 @@ transform only inter MBs choose it.
 
 The encoder's DPB (``refs``, most recent first) holds the reference
 pictures with their device states and motion (the direct prediction of
-later B pictures reads list1[0]'s): one short-term picture, two with B
-pictures (more for the reference Bs of a pyramid or GOP string), and
+later B pictures reads list1[0]'s, an EPZS search its temporal
+predictors): num_ref short-term pictures, at least two with B pictures
+(more for the reference Bs of a pyramid or GOP string), and
 with long_term_period one long-term anchor beside them (every
 long_term_period-th anchor: the IDR's long_term_reference_flag, MMCO 4
 and 6 on a P or open-GOP I picture). List0 of a P picture is the
 short-term pictures (by POC distance with ref_reorder, which writes the
 matching modification commands), then the long-term one; each P picture
-predicts from its head. A B picture predicts from the nearest references
+predicts from its first num_ref_active entries, as many as the DPB holds
+up to num_ref (the slice header overrides the PPS's num_ref where fewer
+are active). A B picture predicts from the nearest references
 before and after it, with modification commands where they are not the
 heads of the decoder's default lists. poc_mem_mgmt unmarks the
 short-term picture of least POC by MMCO 1 when the DPB is full;
@@ -130,7 +140,7 @@ from ..bitstream.bitwriter import BitWriter
 from ..bitstream.nal import NalUnitType, annexb_bytes
 from ..common.conformance import level_check, minimum_level
 from ..common.fmo import mb_to_slice_group_map
-from ..common.picture import MB_INTER, PictureData
+from ..common.picture import MB_I16, MB_INTER, PictureData
 from ..common.tables import chroma_qp
 from ..common.types import PPS, SPS, SliceType
 from ..convert import qpc_tables
@@ -139,13 +149,17 @@ from ..device import resolve
 from ..ops import enc as E
 from ..ops.deblock import compute_bs, deblock
 from ..ops.intra import i_frame_step
-from ..ratectl import RateControl
+from ..ratectl import BasicUnitRC, RateControl
 from .b_host import BPicture, HostRef
 from .gop import parse_explicit_hierarchy
 from .intra_host import IntraPicture
+from .me import QUAD_BLKS
+from .me_epzs import EPZSearcher
+from .me_umhex import UMHexSearcher, UMHexSmpSearcher
 from .p_host import PPicture
 from .p_intra import CORE_FIELDS, PictureCommit
 from .qmatrix import QuantCtx, default_offsets, to_zigzag4, to_zigzag8
+from .rdo import count_mb_bits
 from .sei_write import (build_sei_rbsp, recovery_point,
                         user_data_unregistered)
 from .syntax import (serialize_slice, serialize_slice_dp, write_pps,
@@ -174,9 +188,9 @@ def lambda_mode(qp: int) -> float:
 @dataclass
 class EncoderConfig:
     """The configurations this encoder covers: jm_tpu's device IPPP set
-    (4:2:0, one reference), with device RD or md_low, CAVLC or CABAC,
-    random intra refresh, several slices per picture, FMO slice groups
-    (CAVLC only), a fixed QP, a P QP of its own or frame-level rate
+    (4:2:0), with device RD or md_low, CAVLC or CABAC, random intra
+    refresh, several slices per picture, FMO slice groups (CAVLC only),
+    a fixed QP, a P QP of its own, frame-level or basic-unit rate
     control, POC types 0, 1 and 2, the loop filter on or off, VUI timing,
     a user-data SEI, long-term anchors, list reordering, POC-based MMCO,
     data partitioning and redundant pictures; with num_b, B pictures
@@ -186,7 +200,10 @@ class EncoderConfig:
     explicit or implicit weighted bi-prediction; pipeline="host"; the
     High profile: the adaptive 8x8 transform, scaling matrices (the
     lists in raster order, in the SPS, the PPS or both), explicit quant
-    offsets and adaptive rounding. Values outside it raise ValueError,
+    offsets and adaptive rounding; the host coders' motion options: up
+    to 16 list-0 references, P8x8 sub-partitions, SAD or SATD in the
+    fractional search, the full, UMHex, UMHex simple or EPZS search with
+    HME predictors. Values outside it raise ValueError,
     as do jm_tpu's refusals with B pictures (POC types 1 / 2, FMO), FMO
     in profile 77 (weighted prediction) or 100 (the 8x8 transform,
     scaling matrices) without data partitioning, and scaling matrices
@@ -220,7 +237,9 @@ class EncoderConfig:
     rc_enable: bool = False      # frame-level JVT-G012 rate control
     rc_bitrate: float = 0.0      # its target bits/s
     rc_initial_qp: int = 0       # 0: derived from the bits per pixel
-    rc_basic_unit: int = 0       # basic-unit rate control: not covered
+    rc_basic_unit: int = 0       # > 0: MBs per basic unit, the QP moving
+                                 # from unit to unit within each P picture
+                                 # (lencod BasicUnit; 0: one QP per picture)
     # slices (lencod SliceMode / SliceArgument): 0 one slice per slice
     # group, 1 slice_argument MBs per slice, 2 at most slice_argument
     # bytes per slice NAL unit (the picture re-coded until it fits)
@@ -291,6 +310,18 @@ class EncoderConfig:
     adaptive_rounding: bool = False  # JVT-N011 (AdaptiveRounding)
     adapt_rnd_period: int = 16   # its offset-list refresh, in MBs of a slice
     adapt_rnd_w: int = 4         # its weight (AdaptRndWFactor)
+    # the host coders' motion options (a P picture with several active
+    # references or sub8x8 is coded by the host P coder; search_mode and
+    # hme act only where a host coder searches, as in jm_tpu)
+    num_ref: int = 1             # list-0 references (NumberReferenceFrames)
+    sub8x8: bool = False         # P8x8 sub-partitions 8x4 / 4x8 / 4x4
+                                 # (InterSearch8x4 / 4x8 / 4x4)
+    subpel_satd: bool = True     # SATD in the fractional search, else SAD
+                                 # (MEDistortionHPel / QPel)
+    search_mode: int = 0         # -1 / 0 full search, 1 UMHex, 2 UMHex
+                                 # simple, 3 EPZS (SearchMode)
+    hme: bool = False            # HME pyramid predictors for those
+                                 # searchers (HMEEnable)
 
 
 def _profile(cfg: EncoderConfig) -> int:
@@ -310,7 +341,8 @@ def _profile(cfg: EncoderConfig) -> int:
 
 def _check_config(cfg: EncoderConfig) -> None:
     for name in ("device_rd", "cabac_adapt_init", "rc_enable", "deblock",
-                 "enable_vui", "transform8x8", "adaptive_rounding"):
+                 "enable_vui", "transform8x8", "adaptive_rounding", "sub8x8",
+                 "subpel_satd", "hme"):
         if not isinstance(getattr(cfg, name), bool):
             raise ValueError(f"EncoderConfig.{name}="
                              f"{getattr(cfg, name)!r}: True or False")
@@ -344,9 +376,13 @@ def _check_config(cfg: EncoderConfig) -> None:
     if not 0 <= cfg.rc_initial_qp <= 51:
         raise ValueError(f"EncoderConfig.rc_initial_qp={cfg.rc_initial_qp}:"
                          " outside 0..51")
-    if cfg.rc_basic_unit:
-        raise ValueError(f"EncoderConfig.rc_basic_unit={cfg.rc_basic_unit}:"
-                         " basic-unit rate control leaves the device path")
+    for name, lo, hi in (("rc_basic_unit", 0, None), ("num_ref", 1, 16),
+                         ("search_mode", -1, 3)):
+        v = getattr(cfg, name)
+        if not isinstance(v, int) or isinstance(v, bool) or v < lo or (
+                hi is not None and v > hi):
+            raise ValueError(f"EncoderConfig.{name}={v!r}: an integer "
+                             f"{lo}..{hi if hi is not None else ''}")
     if cfg.slice_mode not in (0, 1, 2):
         raise ValueError(f"EncoderConfig.slice_mode={cfg.slice_mode}: "
                          "0, 1 or 2")
@@ -542,6 +578,12 @@ class Picture:
                                      self.uid)
         return self._host_ref
 
+    @property
+    def luma_planes(self):
+        """The quarter-pel luma planes of the reference state, downloaded
+        (the searchers' reference, encoder/me_epzs.py)."""
+        return self.host_ref().planes
+
     def _materialize(self):
         if self._planes is None:
             p = E.PAD
@@ -583,7 +625,7 @@ class Encoder:
         self.device = resolve(device, "Encoder")
         self.mb_w = cfg.width // 16
         self.mb_h = cfg.height // 16
-        n_refs = 2 if cfg.num_b else 1
+        n_refs = max(cfg.num_ref, 2 if cfg.num_b else 1)
         try:
             level_check(self.mb_w, self.mb_h, cfg.frame_rate, cfg.level_idc,
                         n_refs)
@@ -592,11 +634,11 @@ class Encoder:
             level = minimum_level(self.mb_w, self.mb_h, cfg.frame_rate,
                                   n_refs)
         cabac = cfg.entropy == "cabac"
-        # the DPB (jm_tpu encoder.py:285-296): one short-term reference,
-        # and the long-term anchor; with B pictures both anchors, and one
-        # reference B per pyramid level or per reference B of the GOP
-        # string
-        self.dpb_size = 2 if cfg.num_b else 1
+        # the DPB (jm_tpu encoder.py:285-296): num_ref short-term
+        # references, and the long-term anchor; with B pictures at least
+        # both anchors, and one reference B per pyramid level or per
+        # reference B of the GOP string
+        self.dpb_size = max(cfg.num_ref, 2) if cfg.num_b else cfg.num_ref
         if cfg.num_b and cfg.hierarchical:
             levels = max(1, math.ceil(math.log2(cfg.num_b + 1)))
             self.dpb_size = max(self.dpb_size, levels + 2)
@@ -625,7 +667,7 @@ class Encoder:
             self.sps.vui = {"num_units_in_tick": 1000,
                             "time_scale": int(round(cfg.frame_rate * 2000)),
                             "fixed_frame_rate": 1, "pic_struct_present": 0}
-        self.pps = PPS(num_ref_idx_l0_default_active_minus1=0,
+        self.pps = PPS(num_ref_idx_l0_default_active_minus1=cfg.num_ref - 1,
                        entropy_coding_mode_flag=1 if cabac else 0,
                        transform_8x8_mode_flag=int(cfg.transform8x8),
                        weighted_pred_flag=cfg.weighted_pred,
@@ -690,6 +732,7 @@ class Encoder:
         self._refresh_rng = np.random.default_rng(1)
         self._pending = []            # (disp, frame) of the Bs held back
         self._cra_poc = None          # POC of the last open-GOP I
+        self.num_ref_active = 1       # list0 entries of the P picture coded
 
     def _init_quant(self) -> None:
         """Custom quant (jm_tpu encoder.py:374-425): the raster scaling
@@ -756,14 +799,21 @@ class Encoder:
         return dict(qctx=self._qctx(kind),
                     ar_period=self.cfg.adapt_rnd_period)
 
-    def _device_path_ok(self, weighted: bool = False) -> bool:
+    def _device_path_ok(self, weighted: bool = False,
+                        basic_units: bool = False) -> bool:
         """Whether a P picture is coded on the device (jm_tpu
         _FrameEncoder._device_path_ok, encoder.py:2070): the device
         pipeline, flat quant, no weighted prediction (weighted: its table
-        is in use), the 4x4 transform."""
+        is in use), the 4x4 transform, one active reference, no sub-8x8
+        partitions and no basic units of rate control (basic_units: the
+        picture has them). search_mode and hme are no terms, as in
+        jm_tpu: the device route searches its own way whatever they
+        say."""
         cfg = self.cfg
         return (cfg.pipeline == "device" and not self.quant_custom
-                and not weighted and not cfg.transform8x8)
+                and not weighted and not cfg.transform8x8
+                and self.num_ref_active == 1 and not cfg.sub8x8
+                and not basic_units)
 
     def _device_i_path_ok(self, plan) -> bool:
         """Whether an I picture is coded on the device (jm_tpu
@@ -797,7 +847,8 @@ class Encoder:
 
     def _pipe_ok(self) -> bool:
         """The pipe covers the device route's P pictures (the device
-        pipeline, flat quant, no weighted prediction, the 4x4 transform)
+        pipeline, flat quant, no weighted prediction, the 4x4 transform,
+        no sub-8x8 partitions) with one reference (num_ref 1),
         in CAVLC without B pictures, with one slice group and no slice
         mode, a fixed QP, no intra refresh, the loop filter on, no
         long-term anchors and no data partitioning, any POC type, with or
@@ -805,6 +856,7 @@ class Encoder:
         (jm_tpu _pipe_ok); everything else takes the per-frame path."""
         cfg = self.cfg
         return (self._device_path_ok(weighted=bool(cfg.weighted_pred))
+                and cfg.num_ref == 1
                 and cfg.num_b == 0 and cfg.entropy == "cavlc"
                 and cfg.intra_mb_refresh == 0
                 and cfg.slice_mode == 0 and cfg.num_slice_groups == 1
@@ -905,20 +957,31 @@ class Encoder:
         as a P anchor, then the Bs before it."""
         return self._emit_group() if self._pending else b""
 
-    def _emit_anchor(self, frame, disp: int) -> bytes:
+    def _emit_anchor(self, frame, disp: int, force=None) -> bytes:
         """An I or P anchor (jm_tpu _emit_anchor): I when intra is due
         (an IDR, or with num_b after the first an open-GOP I), else P on
-        the per-frame path against the head of list0."""
+        the per-frame path against list0's num_ref_active heads; force
+        (the explicit sequence coder's {"intra", "idr"}) overrides the
+        type. A P picture with basic units of rate control (a positive
+        target under rc_basic_unit) is coded by the host P coder."""
         cfg = self.cfg
         packed = self._upload(frame)
-        if self._idr_due(self.frame_idx):
-            return self._encode_i(packed, frame, disp, idr=(
-                self.frame_idx == 0 or cfg.num_b == 0))
+        intra = self._idr_due(self.frame_idx)
+        idr = self.frame_idx == 0 or cfg.num_b == 0
+        if force is not None:
+            intra = bool(force.get("intra", intra))
+            idr = bool(force.get("idr", idr))
+        self.num_ref_active = max(1, min(cfg.num_ref, len(self.refs)))
+        if intra:
+            return self._encode_i(packed, frame, disp, idr=idr)
         qp = self.rc.pict_qp("P") if self.rc is not None else \
             (cfg.qp if cfg.qp_p is None else cfg.qp_p)
         forced = self._refresh_set()
-        if not self._device_path_ok(weighted=bool(cfg.weighted_pred)):
-            return self._encode_p_host(packed, frame, disp, forced, qp)
+        units = (self.rc is not None and cfg.rc_basic_unit > 0
+                 and self.rc.target > 0)
+        if not self._device_path_ok(weighted=bool(cfg.weighted_pred),
+                                    basic_units=units):
+            return self._encode_p_host(packed, frame, disp, forced, qp, units)
         ref = self._ref_list_p(2 * (disp - self._idr_disp))[0]
         core = self._p_step(packed, ref, qp)
         return self._finish_p(core, disp, frame, forced, qp, packed)
@@ -1022,9 +1085,17 @@ class Encoder:
             time.perf_counter() - t
         packed = self._upload(frame)
         srcY = self._planes(packed)[0]
-        sads = [E.full_search_sad16(srcY, f.state[0][0], self.mb_w,
-                                    self.mb_h, cfg.search_range)
-                .cpu().numpy() for f in (prev_anchor, next_anchor)]
+        anchors = (prev_anchor, next_anchor)
+        # with search_mode 1-3 each list's searcher over its reference
+        # (jm_tpu :2147-2158), else the 16x16 tables
+        makers = [self._searcher(np.asarray(frame[0], np.uint8), [f], qp)
+                  for f in anchors]
+        sads = [None, None]
+        if makers[0] is None:
+            makers = None
+            sads = [E.full_search_sad16(srcY, f.state[0][0], self.mb_w,
+                                        self.mb_h, cfg.search_range)
+                    .cpu().numpy() for f in anchors]
         refs = (prev_anchor.host_ref(), next_anchor.host_ref())
         t, split["sad_s"] = time.perf_counter(), time.perf_counter() - t
         m = next_anchor.motion
@@ -1039,7 +1110,8 @@ class Encoder:
             b = BPicture(frame, qp, chroma_qp(
                 qp, self.pps.chroma_qp_index_offset), lambda_me(qp),
                 lambda_mode4(qp), *refs, col, *sads, plan, cfg.search_range,
-                wp, transform8x8=cfg.transform8x8, **self._quant_kw("B"))
+                wp, transform8x8=cfg.transform8x8, searchers=makers,
+                subpel_satd=cfg.subpel_satd, **self._quant_kw("B"))
             split["host_mb_s"] += time.perf_counter() - t0
             return b
 
@@ -1096,13 +1168,13 @@ class Encoder:
         """List0 of the P picture of POC poc being coded, as the decoder
         builds it: the short-term references (by PicNum descending, which
         is insertion order here; with ref_reorder by POC distance), then
-        the long-term one; one entry is active."""
+        the long-term ones; num_ref_active entries are active."""
         st = [f for f in self.refs if not f.is_long_term]
         if self.cfg.ref_reorder == 1:
             st.sort(key=lambda f: (abs(f.poc - poc), 0 if f.poc > poc else 1))
         lt = sorted((f for f in self.refs if f.is_long_term),
                     key=lambda f: f.long_term_frame_idx)
-        return (st + lt)[:1]
+        return (st + lt)[:self.num_ref_active]
 
     def _picnum(self, f: Picture) -> int:
         """PicNum of a short-term reference (spec 8.2.4.1)."""
@@ -1113,7 +1185,8 @@ class Encoder:
         """The ref_pic_list_modification commands that turn the decoder's
         default list0 into _ref_list_p's order (lencod list_reorder.c
         :196-238, stopping once the rest matches), or None."""
-        default = [f for f in self.refs if not f.is_long_term][:1]
+        default = [f for f in self.refs
+                   if not f.is_long_term][:self.num_ref_active]
         target = [f for f in self._ref_list_p(poc) if not f.is_long_term]
         n = len(target)
         if [id(f) for f in target] == [id(f) for f in default[:n]]:
@@ -1412,10 +1485,16 @@ class Encoder:
             return self._finish_p(out["core"], disp, frame, (),
                                   self.cfg.qp, red_core=out["core"]), True
         poc = 2 * (disp - self._idr_disp)
+        motion = None
         if ovf:
+            # the picture serialized on the host leaves its motion, as in
+            # jm_tpu (the temporal predictors of a later EPZS search)
             self.ovf.append(disp)
-            nal, info = self._serialize_p(self._inter_picture(out), disp,
-                                          self.cfg.qp, self.slice_plan)
+            pic = self._inter_picture(out)
+            pic.ref_pic_id[:] = self.refs[0].uid
+            motion = _motion(pic)
+            nal, info = self._serialize_p(pic, disp, self.cfg.qp,
+                                          self.slice_plan)
         else:
             k = (nbits + 31) // 32
             bw = BitWriter()
@@ -1423,12 +1502,13 @@ class Encoder:
                                slice_type=SliceType.P,
                                frame_num=self.frame_num, idr=False,
                                idr_pic_id=self.idr_pic_id, qp=self.cfg.qp,
-                               poc_lsb=poc % 256)
+                               poc_lsb=poc % 256,
+                               num_ref_idx_l0=self.num_ref_active)
             bw.append_bitstream(ext[3:3 + k].astype(">u4").tobytes(), nbits)
             bw.rbsp_trailing_bits()
             nal, info = annexb_bytes(3, NalUnitType.SLICE, bw.get_bytes()), {}
         return self._commit_p_frame(nal, disp, new_state, self.cfg.qp, 1,
-                                    **info), False
+                                    motion=motion, **info), False
 
     def _commit_p_frame(self, slice_bytes: bytes, disp: int, state, qp: int,
                         n_slices: int, long_term: bool = False, victims=(),
@@ -1489,13 +1569,13 @@ class Encoder:
                                     intra_mbs=len(c.intra_mbs),
                                     ref_poc=ref.poc, **info)
 
-    def _wp_tables(self, frame, ref: Picture) -> list:
+    def _wp_tables(self, frame, refs) -> list:
         """The explicit weight tables a weighted P picture is coded with
-        (jm_tpu _emit_anchor :1226-1296): the estimate (wp_iter_mc, else
-        wp_method), and with wp_mcprec and no rate control also the
-        offset-only and the default tables."""
+        (jm_tpu _emit_anchor :1226-1296), one entry per active reference
+        of refs: the estimate (wp_iter_mc, else wp_method), and with
+        wp_mcprec and no rate control also the offset-only and the default
+        tables."""
         cfg = self.cfg
-        refs = [ref]
         if cfg.wp_iter_mc > 0:
             table = estimate_mc_iter(*frame, refs, iters=cfg.wp_iter_mc)
         else:
@@ -1508,52 +1588,60 @@ class Encoder:
                         for _ in refs]]
         return tables
 
-    def _encode_p_host(self, packed, frame, disp: int, forced,
-                       qp: int) -> bytes:
+    def _encode_p_host(self, packed, frame, disp: int, forced, qp: int,
+                       units: bool = False) -> bytes:
         """A P picture coded by the serial host P coder (jm_tpu
-        _emit_anchor :1226-1351 with _FrameEncoder's host path): the
-        reference downloaded once, with weighted_pred its tables
-        (_wp_tables; else one coding without a table), the quadrant
-        search table on the device. Each coding: the host P coder under
-        the slice plan (re-coded until the slices fit with slice_mode 2),
-        deblock on the device, the host serializer with the table in
-        every slice header; of several, the coding of least frame-level
-        J = SSD + lambda_mode(qp) 8 bytes (the first on a tie). Then the
-        reference prep, the redundant coding when one is due, and the
-        DPB. results records the table, the wall seconds of each step,
-        the MB decisions and the host MB loop's parts."""
+        _emit_anchor :1226-1351 with _FrameEncoder's host path): its
+        active references (_ref_list_p) downloaded once, with
+        weighted_pred their tables (_wp_tables; else one coding without a
+        table); the integer search: each reference's quadrant table on the
+        device (with sub8x8 its 4x4 table, whose quadrant sums are taken
+        on the host), or with search_mode 1-3 the picture's searcher
+        (_searcher). Each coding: the host P coder under the slice plan
+        (re-coded until the slices fit with slice_mode 2; with units, the
+        basic units of rate control afresh), deblock on the device, the
+        host serializer with the table in every slice header; of several,
+        the coding of least frame-level J = SSD + lambda_mode(qp) 8 bytes
+        (the first on a tie). Then the reference prep, the redundant
+        coding when one is due, and the DPB. results records the table,
+        the wall seconds of each step, the MB decisions, the host MB
+        loop's parts, the partitions coded from a later reference (ref1)
+        and the searcher's SAD evaluations (evals)."""
         cfg = self.cfg
         poc = 2 * (disp - self._idr_disp)
-        ref = self._ref_list_p(poc)[0]
+        refs = self._ref_list_p(poc)
         lt, hdr, victims = self._anchor_marking(poc)
         qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
         frame = tuple(np.asarray(p, np.uint8) for p in frame)
         split = {}
         t = time.perf_counter()
-        host = ref.host_ref()
+        hosts = [r.host_ref() for r in refs]
         if cfg.weighted_pred:
-            _ = ref.Y                    # the deblocked planes, once
+            for r in refs:
+                _ = r.Y                  # the deblocked planes, once
         t, split["download_s"] = time.perf_counter(), \
             time.perf_counter() - t
-        tables = self._wp_tables(frame, ref) if cfg.weighted_pred else [None]
+        tables = self._wp_tables(frame, refs) if cfg.weighted_pred \
+            else [None]
         t, split["estimate_s"] = time.perf_counter(), \
             time.perf_counter() - t
         planes = self._planes(packed)
-        sads = E.full_search_sad_quad(planes[0], ref.state[0][0], self.mb_w,
-                                      self.mb_h, cfg.search_range) \
-            .cpu().numpy()
+        sads, blk4 = self._search_tables(planes[0], refs)
         split["sad_s"] = time.perf_counter() - t
         split["host_mb_s"] = split["serialize_s"] = split["deblock_s"] = 0.0
         best = None
         for table in tables:
             wp = None if table is None else build_wp_params(
-                SliceType.P, self.pps, [ref], [], poc, wp_l0=table)
+                SliceType.P, self.pps, refs, [], poc, wp_l0=table)
 
             def code(plan, wp=wp):
                 t0 = time.perf_counter()
                 c = PPicture(frame, qp, qpc, lambda_me(qp), lambda_mode4(qp),
-                             host, sads, plan, cfg.search_range, forced, wp,
-                             transform8x8=cfg.transform8x8,
+                             hosts, sads, plan, cfg.search_range, forced, wp,
+                             transform8x8=cfg.transform8x8, blk4=blk4,
+                             searcher=self._searcher(frame[0], refs, qp),
+                             sub8x8=cfg.sub8x8, subpel_satd=cfg.subpel_satd,
+                             units=_BasicUnits(self, qp) if units else None,
                              **self._quant_kw("P"))
                 split["host_mb_s"] += time.perf_counter() - t0
                 return c
@@ -1584,27 +1672,68 @@ class Encoder:
         split["deblock_s"] += time.perf_counter() - t
         if cfg.redundant_period and \
                 self.frame_idx % cfg.redundant_period == 0:
-            nal += self._redundant(packed, frame, poc, qp, ref, sads=sads)
+            nal += self._redundant(
+                packed, frame, poc, qp, refs[0],
+                sads=None if sads is None else sads[:1],
+                blk4=None if blk4 is None else blk4[:1])
         self._rc_update("P", qp, nal, planes[0], dec[0])
+        if units:
+            info.update(mb_qps=tuple(int(q) for q in np.unique(c.pic.qp)),
+                        qp_unsent=_qp_unsent(c.pic, plan, qp))
         return self._commit_p_frame(nal, disp, state, qp, len(plan),
                                     long_term=lt, victims=victims,
                                     motion=_motion(c.pic),
-                                    intra_mbs=c.mix["i16"], ref_poc=ref.poc,
-                                    wp_l0=table, split=split, mix=c.mix,
-                                    mb_parts=c.part_s, **info)
+                                    intra_mbs=c.mix["i16"],
+                                    ref_poc=refs[0].poc, wp_l0=table,
+                                    split=split, mix=c.mix,
+                                    mb_parts=c.part_s, ref1=c.ref1,
+                                    evals=c.evals, **info)
+
+    def _search_tables(self, srcY, refs):
+        """The full search's integer tables against each reference on
+        the device, downloaded: (quadrant tables, 4x4 tables with sub8x8
+        else None); (None, None) when a searcher searches
+        (search_mode 1-3)."""
+        cfg = self.cfg
+        if cfg.search_mode >= 1:
+            return None, None
+        args = (self.mb_w, self.mb_h, cfg.search_range)
+        if not cfg.sub8x8:
+            return [E.full_search_sad_quad(srcY, r.state[0][0], *args)
+                    .cpu().numpy() for r in refs], None
+        blk4 = [E.full_search_sad_blk4(srcY, r.state[0][0], *args)
+                .cpu().numpy() for r in refs]
+        return [b[:, :, QUAD_BLKS].sum(axis=3, dtype=np.int32)
+                for b in blk4], blk4
+
+    def _searcher(self, srcY, refs, qp: int):
+        """With search_mode 1-3, the maker of a picture's searcher over
+        refs (Pictures) from its motion field (UMHex, UMHex simple or
+        EPZS, at lambda_me(qp), with hme's predictors: jm_tpu
+        _FrameEncoder.encode :2118-2160); else None."""
+        cfg = self.cfg
+        if cfg.search_mode < 1:
+            return None
+        cls = {1: UMHexSearcher, 2: UMHexSmpSearcher}.get(cfg.search_mode,
+                                                           EPZSearcher)
+        return lambda mv: cls(srcY, refs, self.mb_w, self.mb_h,
+                              cfg.search_range, lambda_me(qp), mv,
+                              use_hme=cfg.hme)
 
     def _redundant(self, packed, frame, poc: int, qp: int, ref: Picture,
-                   core=None, sads=None) -> bytes:
+                   core=None, sads=None, blk4=None) -> bytes:
         """The redundant coding of the P picture just coded (jm_tpu
         _emit_redundant, lencod.c:2225-2352): the frame coded again at
-        qp + redundant_qp_off (at most 51) against the primary's
-        reference ref, without weighted prediction or intra refresh: on
-        the device route a device encode (or core reused) and the host
-        commit, else the host P coder over the primary's search table
-        sads; under the slice plan, then one slice with redundant_pic_cnt
-        1, nal_ref_idc 0 and no marking. Decoders that have the primary
+        qp + redundant_qp_off (at most 51) against the primary's first
+        reference ref, without weighted prediction, intra refresh or basic
+        units: on the device route a device encode (or core reused) and
+        the host commit, else the host P coder over the primary's search
+        tables of ref (sads, blk4) or its own searcher; under the slice
+        plan, then one slice with redundant_pic_cnt 1, nal_ref_idc 0, one
+        active reference and no marking. Decoders that have the primary
         discard it; it is neither deblocked nor stored."""
-        qp_r = min(51, qp + self.cfg.redundant_qp_off)
+        cfg = self.cfg
+        qp_r = min(51, qp + cfg.redundant_qp_off)
         qpc_r = chroma_qp(qp_r, self.pps.chroma_qp_index_offset)
         if self._device_path_ok():
             if core is None:
@@ -1613,9 +1742,11 @@ class Encoder:
                                qpc_r, self.slice_plan)
         else:
             c = PPicture(frame, qp_r, qpc_r, lambda_me(qp_r),
-                         lambda_mode4(qp_r), ref.host_ref(), sads,
-                         self.slice_plan, self.cfg.search_range,
-                         transform8x8=self.cfg.transform8x8,
+                         lambda_mode4(qp_r), [ref.host_ref()], sads,
+                         self.slice_plan, cfg.search_range,
+                         transform8x8=cfg.transform8x8, blk4=blk4,
+                         searcher=self._searcher(frame[0], [ref], qp_r),
+                         sub8x8=cfg.sub8x8, subpel_satd=cfg.subpel_satd,
                          **self._quant_kw("P"))
         return annexb_bytes(0, NalUnitType.SLICE, self._serialize_redundant(
             c.pic, poc, qp_r))
@@ -1671,6 +1802,8 @@ class Encoder:
         kw = dict(slice_type=slice_type, frame_num=self.frame_num, idr=idr,
                   qp=qp, poc_lsb=poc % 256, idr_pic_id=self.idr_pic_id,
                   **hdr)
+        if slice_type == SliceType.P:
+            kw["num_ref_idx_l0"] = self.num_ref_active
         nal_type = NalUnitType.IDR if idr else NalUnitType.SLICE
         cabac = self.cfg.entropy == "cabac"
         dp = self.cfg.data_partition and slice_type == SliceType.P \
@@ -1766,6 +1899,23 @@ class Encoder:
         return pic
 
 
+def _qp_unsent(pic: PictureData, plan, slice_qp: int) -> int:
+    """The MBs of a picture coded in basic units whose pic.qp is not the
+    QP a decoder derives for them: MBs that send no mb_qp_delta (P_Skip,
+    and inter or I_NxN MBs without coefficients) take the QP of the MB
+    before them in the slice (spec 7.4.5), while jm_tpu, and the port
+    after it, deblock them with their unit's QP (ROADMAP Queue 3)."""
+    n = 0
+    for addrs in plan:
+        qp = slice_qp
+        for a in addrs:
+            if not pic.skip[a] and (pic.cbp[a] or pic.mb_class[a] == MB_I16):
+                qp = int(pic.qp[a])
+            elif int(pic.qp[a]) != qp:
+                n += 1
+    return n
+
+
 def _motion(pic: PictureData) -> tuple:
     """The motion a coded picture leaves for the direct prediction of
     later B pictures (the decoder's Frame.motion)."""
@@ -1779,3 +1929,26 @@ class _Coded:
 
     def __init__(self, pic: PictureData, rec):
         self.pic, self.rec = pic, rec
+
+
+class _BasicUnits:
+    """The basic units of rate control in one coding of a P picture (the
+    host P coder's ``units``; jm_tpu _FrameEncoder.encode :2179-2203): a
+    ratectl.BasicUnitRC from the picture's QP and rate control's target
+    bits, each MB's QP with its chroma QP and lambdas, and each coded
+    MB's bits counted by rdo.count_mb_bits."""
+
+    def __init__(self, enc: Encoder, qp: int):
+        self.rc = BasicUnitRC(qp, enc.rc.target, enc.mb_w * enc.mb_h,
+                              enc.cfg.rc_basic_unit)
+        self.sps, self.pps = enc.sps, enc.pps
+        self.num_ref = enc.num_ref_active
+
+    def params(self):
+        q = self.rc.mb_qp()
+        return (q, chroma_qp(q, self.pps.chroma_qp_index_offset),
+                lambda_me(q), lambda_mode4(q))
+
+    def report(self, pic: PictureData, addr: int, qp: int) -> None:
+        self.rc.report(count_mb_bits(pic, self.sps, self.pps, qp, addr,
+                                     SliceType.P, self.num_ref))

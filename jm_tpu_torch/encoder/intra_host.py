@@ -51,7 +51,7 @@ class IntraPicture(IntraMBCoder):
         self.recY = np.zeros_like(self.origY)
         self.recU = np.zeros_like(self.origU)
         self.recV = np.zeros_like(self.origV)
-        self._code_slices(slices, qp, self._encode_intra_mb)
+        self._code_slices(slices, self._encode_intra_mb)
 
     def _encode_intra_mb(self, addr: int) -> None:
         pic = self.pic

@@ -3,17 +3,17 @@ coders (encoder/b_host.py, encoder/p_host.py): the quadrants' 4x4
 blocks, the mvd bit lengths, the 4x4 Hadamard SATD, the
 integer search's rate and spiral tie-break tables, its arg-min, the
 half- then quarter-pel refinement, and the quarter-pel luma / eighth-pel
-chroma block fetch. Twin of jm_tpu/encoder/me.py (QUAD_BLKS, mv_bits,
-satd, int_rate_tab, spiral_rank_tab, best_int_mv_tiebreak, subpel_refine
-with its SATD default) and
+chroma block fetch, and the P8x8 sub-partitions. Twin of
+jm_tpu/encoder/me.py (QUAD_BLKS, SUB_PARTS, SUB_MODE_BITS, mv_bits, satd,
+int_rate_tab, spiral_rank_tab, best_int_mv_tiebreak, subpel_refine) and
 jm_tpu/ops/interp.py (mc_luma_block, mc_chroma_block), numpy.
 
 A reference's planes are its device reference state downloaded
 (ops/enc.prep_ref: the INT, B, H, J quarter-pel planes and the padded
 chroma, PAD samples of replicated border), which holds the same samples
 as jm_tpu's interp.make_luma_planes / pad_plane. The integer search's SAD
-tables are computed on the device (ops/enc.full_search_sad16 and
-full_search_sad_quad).
+tables are computed on the device (ops/enc.full_search_sad16,
+full_search_sad_quad and, for the sub-8x8 search, full_search_sad_blk4).
 """
 
 from __future__ import annotations
@@ -26,6 +26,16 @@ from ..ops.consts import PAD, QPEL_TAB
 # the 4x4 blocks of each 8x8 quadrant (raster in the MB)
 QUAD_BLKS = np.array([[0, 1, 4, 5], [2, 3, 6, 7],
                       [8, 9, 12, 13], [10, 11, 14, 15]], np.int32)
+
+# P8x8 sub-partitions: sub_mb_type -> [(sx, sy, sw, sh)] in 4x4 units
+SUB_PARTS = {
+    0: [(0, 0, 2, 2)],
+    1: [(0, 0, 2, 1), (0, 1, 2, 1)],
+    2: [(0, 0, 1, 2), (1, 0, 1, 2)],
+    3: [(0, 0, 1, 1), (1, 0, 1, 1), (0, 1, 1, 1), (1, 1, 1, 1)],
+}
+# the rate term of each sub_mb_type in the decision, in lambdas
+SUB_MODE_BITS = {0: 1, 1: 3, 2: 3, 3: 5}
 
 
 def ue_len(v: int) -> int:
@@ -48,11 +58,14 @@ _H4 = np.array([[1, 1, 1, 1],
 
 def satd(diff: np.ndarray) -> int:
     """4x4 Hadamard SATD of a residual block (lencod me_distortion.c
-    HadamardSAD4x4:175): sum |H d H^T| >> 1, tiled over the block."""
+    HadamardSAD4x4:175): sum |H d H^T| >> 1, tiled over the block, as
+    two batched 4x4 matrix products (jm_tpu's einsum of the same sum is
+    several times slower on such small tiles, and this runs for every
+    candidate of the fractional search); a coefficient is at most
+    16 x 255, so int32 holds it exactly."""
     bh, bw = diff.shape
     d = diff.reshape(bh // 4, 4, bw // 4, 4).transpose(0, 2, 1, 3)
-    t = np.einsum("ij,bcjk,lk->bcil", _H4, d.astype(np.int64), _H4)
-    return int(np.abs(t).sum() >> 1)
+    return int(np.abs(_H4 @ d @ _H4.T).sum() >> 1)
 
 
 # se(v) bit length by |quarter-pel value| (the mvd rate table)
@@ -121,20 +134,27 @@ def mc_chroma_block(plane: np.ndarray, x8: int, y8: int, bw: int, bh: int,
 
 
 def subpel_refine(orig_blk: np.ndarray, planes, px: int, py: int,
-                  int_mv, w: int, h: int, pred_mv, lam: int):
+                  int_mv, w: int, h: int, pred_mv, lam: int,
+                  extra_bits: int = 0, use_satd: bool = True,
+                  qpel_start: bool = False):
     """Half- then quarter-pel refinement of one block around its integer
-    MV: 8 neighbours per step, SATD plus lam * mvd bits. Returns (quarter-
-    pel MV, cost)."""
+    MV (qpel_start: around a quarter-pel MV): 8 neighbours per step, the
+    4x4 Hadamard SATD (use_satd; else the SAD) plus lam * (mvd bits +
+    extra_bits). Returns (quarter-pel MV, cost)."""
     o = orig_blk.astype(np.int32)
     bh, bw = o.shape
 
     def cost_at(mvq):
         d = o - mc_luma_block(planes, px * 4 + int(mvq[0]),
                               py * 4 + int(mvq[1]), bw, bh, w, h)
-        return satd(d) + lam * mv_bits(int(mvq[0] - pred_mv[0]),
-                                       int(mvq[1] - pred_mv[1]))
+        dist = satd(d) if use_satd else int(np.abs(d).sum())
+        return dist + lam * (mv_bits(int(mvq[0] - pred_mv[0]),
+                                     int(mvq[1] - pred_mv[1])) + extra_bits)
 
-    best = np.array([int_mv[0] * 4, int_mv[1] * 4], np.int32)
+    if qpel_start:
+        best = np.asarray(int_mv, np.int32).copy()
+    else:
+        best = np.array([int_mv[0] * 4, int_mv[1] * 4], np.int32)
     bcost = cost_at(best)
     for step in (2, 1):
         center = best.copy()

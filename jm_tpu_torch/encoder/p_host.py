@@ -1,29 +1,45 @@
 """The serial host P macroblock coder of the port: twin of
-jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_mb (:2706-2878) in its
-full-search branch, with _commit_inter_p (:3019-3113) and its
-_code_luma_inter, for 4:2:0 frame pictures with one reference, no
-sub-8x8 partitions, no RD tier and no I_PCM, flat quant or the custom
-quant of encoder/qmatrix.QuantCtx, the 4x4 or the adaptive 8x8
-transform. jm_tpu codes every P picture this way whose pipeline is
-"host", or whose coding its device path does not cover (weighted
-prediction, custom quant, the 8x8 transform), and so does the port.
+jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_mb (:2706-2878) without
+an RD tier or I_PCM, with _commit_inter_p (:3019-3113) and its
+_code_luma_inter, for 4:2:0 frame pictures: one or several list-0
+references, P8x8 sub-partitions (sub8x8), the full search or the EPZS /
+UMHex searchers (encoder/me_epzs.py, me_umhex.py), the fractional
+search by SATD or SAD (subpel_satd), a QP per basic unit (basic-unit
+rate control), flat quant or the custom quant of
+encoder/qmatrix.QuantCtx, the 4x4 or the adaptive 8x8 transform. jm_tpu
+codes every P picture this way whose pipeline is "host", or whose coding
+its device path does not cover (several active references, sub-8x8
+partitions, basic-unit rate control, weighted prediction, custom quant,
+the 8x8 transform), and so does the port.
 
-Per MB, in slice order:
+Per MB, in slice order (with basic units, at the QP of the MB's unit):
   - an MB of the intra refresh set is coded Intra16x16 with its chroma;
   - else, for each partition mode (16x16, 16x8, 8x16, 8x8) and each of
-    its partitions: the MV predictor (seeing the mode's earlier
-    partitions, committed provisionally), the integer MV of least SAD +
-    lambda-weighted mvd bits over the quadrant SAD table made on the
-    device (ops/enc.full_search_sad_quad) with the spiral tie-break, then
-    the half- / quarter-pel SATD refinement on the unweighted reference;
-    the mode of least total cost (lambda times its mb_type bits added);
-  - P_Skip's prediction, weighted, replaces it when its SAD is not above
-    it; Intra16x16 replaces both when its SAD + 2 lambda_mode4 is below;
-then the prediction of each 4x4 block (quarter-pel luma, eighth-pel
-chroma), weighted by the slice's explicit table (decoder/wp.WPParams),
-the inter residual and the recon (encoder/b_host.InterMBCoder). As in
-jm_tpu, the motion search ignores the weights: only the skip cost and
-the coded prediction are weighted.
+    its partitions, for each reference r: the MV predictor (seeing the
+    mode's earlier partitions, committed provisionally), the integer MV
+    of least SAD + lambda-weighted mvd bits, over the quadrant SAD table
+    of r made on the device (ops/enc.full_search_sad_quad) with the
+    spiral tie-break, or by the picture's searcher (seeded with
+    reference 0's MV), then the half- / quarter-pel refinement on the
+    unweighted reference with the ref_idx bits added; the reference of
+    least cost (the first on a tie); the mode of least total cost
+    (lambda times its mb_type bits added);
+  - with sub8x8, each quadrant of the 8x8 mode tries the sub-partitions
+    8x8, 8x4, 4x8 and 4x4 on the quadrant's reference, each sub-block by
+    its own integer search over the 4x4 table (ops/enc
+    .full_search_sad_blk4) and refinement, or under a searcher refined
+    from the quadrant's quarter-pel MV; the quadrants in order, each
+    seeing the sub-motion chosen before it; the 8x8 mode takes the
+    sub-partitions when their total is below its own;
+  - P_Skip's prediction (reference 0), weighted, replaces it when its
+    SAD is not above it; Intra16x16 replaces both when its SAD + 2
+    lambda_mode4 is below;
+then the prediction of each 4x4 block from its quadrant's reference
+(quarter-pel luma, eighth-pel chroma), weighted by the slice's explicit
+table of that reference (decoder/wp.WPParams), the inter residual and
+the recon (encoder/b_host.InterMBCoder). As in jm_tpu, the motion search
+ignores the weights: only the skip cost and the coded prediction are
+weighted.
 """
 
 from __future__ import annotations
@@ -34,7 +50,7 @@ import numpy as np
 
 from ..common.picture import MB_INTER
 from . import me as ME
-from .b_host import HostRef, InterMBCoder
+from .b_host import InterMBCoder
 
 # partition mode -> [(bx, by, bw, bh, quadrants)] in 4x4-block units
 PART_TABLE = {
@@ -54,35 +70,51 @@ class PPicture(InterMBCoder):
     and the undeblocked recon planes recY / recU / recV (numpy uint8).
     ``mix`` counts the MBs by decision (skip, p16x16, p16x8, p8x16,
     p8x8, i16: intra, forced or chosen; t8: the inter MBs coded with the
-    8x8 transform); ``part_s`` the wall seconds of
-    the MB loop's parts: the partition-mode search, the skip candidate,
-    the intra evaluation and coding, the inter commit."""
+    8x8 transform); ``ref1`` the partitions (and sub-8x8 quadrants) coded
+    from a reference other than reference 0; ``part_s`` the wall seconds
+    of the MB loop's parts: the partition-mode search, the skip
+    candidate, the intra evaluation and coding, the inter commit;
+    ``evals`` the searcher's SAD evaluations (0 under full search)."""
 
     def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
-                 ref: HostRef, sads, slices, sr: int, forced=(), wp=None,
-                 transform8x8=False, qctx=None, ar_period: int = 0):
+                 refs, sads, slices, sr: int, forced=(), wp=None,
+                 transform8x8=False, qctx=None, ar_period: int = 0,
+                 blk4=None, searcher=None, sub8x8: bool = False,
+                 subpel_satd: bool = True, units=None):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
-        lambda_me and lambda_mode4 of qp; ref: list0[0]; sads: the
-        (N, (2 sr + 1)^2, 4) quadrant integer search table against it;
-        slices: the slice plan, MB address lists in decode order; forced:
-        the MBs of the intra refresh; wp: the slice's weighted prediction
+        lambda_me and lambda_mode4 of qp; refs: list0's active references
+        (HostRef), by ref_idx; sads: their (N, (2 sr + 1)^2, 4) quadrant
+        integer search tables (None with a searcher); slices: the slice
+        plan, MB address lists in decode order; forced: the MBs of the
+        intra refresh; wp: the slice's weighted prediction
         (decoder/wp.WPParams) or None; transform8x8, qctx, ar_period: the
         adaptive 8x8 transform and the custom quant (InterMBCoder,
-        IntraMBCoder)."""
+        IntraMBCoder); blk4: the references' (N, (2 sr + 1)^2, 16) 4x4
+        tables, for sub8x8 under full search; searcher: searcher(pic_mv)
+        makes the picture's EPZS / UMHex searcher over its motion field
+        (encoder/me_epzs.py), or None for the full search; sub8x8: the
+        P8x8 sub-partitions; subpel_satd: SATD (else SAD) in the
+        fractional search; units: the basic units of rate control
+        (IntraMBCoder._code_slices), or None."""
         self._init_picture(orig, qp, qpc)
         self.lam, self.lam4, self.wp = lam, lam4, wp
         self.transform8x8 = transform8x8
         self.qctx, self.ar_period = qctx, ar_period
-        self.ref, self.sads, self.sr = ref, sads, sr
+        self.refs, self.sads, self.blk4, self.sr = refs, sads, blk4, sr
+        self.sub8x8, self.satd = sub8x8, subpel_satd
+        self.units = units
+        self.searcher = searcher(self.pic.mv) if searcher else None
         self.forced = set(forced)
         self.h, self.w = self.origY.shape
         self.recY = np.zeros_like(self.origY)
         self.recU = np.zeros_like(self.origU)
         self.recV = np.zeros_like(self.origV)
         self.mix = dict.fromkeys(_MIX, 0)
+        self.ref1 = 0
         self.part_s = dict.fromkeys(("search", "skip", "intra", "commit"),
                                     0.0)
-        self._code_slices(slices, qp, self._encode_p_mb)
+        self._code_slices(slices, self._encode_p_mb)
+        self.evals = 0 if self.searcher is None else self.searcher.n_evals
 
     def _intra16(self, addr, origY_mb, mode16, pred16) -> None:
         pic = self.pic
@@ -91,8 +123,19 @@ class PPicture(InterMBCoder):
         pic.cbp[addr] = (self._encode_chroma_intra(addr) << 4) | cbp_luma
         self.mix["i16"] += 1
 
+    def _int_search(self, addr, r, quads, pred, seed):
+        """The integer MV of a partition (its quadrants) from reference r:
+        the searcher's, or the full search's over r's quadrant table."""
+        if self.searcher is not None:
+            return self.searcher.search(addr, r, quads, pred, seed=seed)
+        csum = (self.sads[r][addr][:, list(quads)].sum(axis=1,
+                                                        dtype=np.int64)
+                + ME.int_rate_tab(pred, self.sr, self.lam))
+        return ME.best_int_mv_tiebreak(
+            csum, ME.spiral_rank_tab(pred, self.sr), self.sr)
+
     def _encode_p_mb(self, addr: int) -> None:
-        pic, lam, sr = self.pic, self.lam, self.sr
+        pic, lam = self.pic, self.lam
         px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
         origY_mb = self._mb_orig(addr)[0]
         t0 = time.perf_counter()
@@ -102,10 +145,14 @@ class PPicture(InterMBCoder):
             self.part_s["intra"] += time.perf_counter() - t0
             return
         o = origY_mb.astype(np.int32)
+        nref = len(self.refs)
+        # te(v) of ref_idx: one bit with two references, else ue(v)
+        ref_bits = [(1 if nref == 2 else ME.ue_len(r)) if nref > 1 else 0
+                    for r in range(nref)]
 
-        # the partition modes over the quadrant table; each partition's
-        # predictor sees the mode's earlier partitions (provisional
-        # commits), as the reference's PartitionMotionSearch
+        # the partition modes; each partition's predictor sees the mode's
+        # earlier partitions (provisional commits), as the reference's
+        # PartitionMotionSearch
         candidates = {}
         for mode, parts in PART_TABLE.items():
             total = lam * MODE_BITS[mode]
@@ -115,25 +162,29 @@ class PPicture(InterMBCoder):
             for (bx, by, bw, bh, quads) in parts:
                 blk = self.origY[py + by * 4:py + by * 4 + bh * 4,
                                  px + bx * 4:px + bx * 4 + bw * 4]
-                pred = self.pctx.mv_pred(addr, bx, by, bw, bh, 0)
-                csum = (self.sads[addr][:, list(quads)]
-                        .sum(axis=1, dtype=np.int64)
-                        + ME.int_rate_tab(pred, sr, lam))
-                imv0 = ME.best_int_mv_tiebreak(
-                    csum, ME.spiral_rank_tab(pred, sr), sr)
-                qmv, cost = ME.subpel_refine(
-                    blk, self.ref.planes, px + bx * 4, py + by * 4, imv0,
-                    self.w, self.h, pred, lam)
-                total += cost
-                commit.append((bx, by, bw, bh, quads, qmv))
+                best, seed = None, None
+                for r in range(nref):
+                    pred = self.pctx.mv_pred(addr, bx, by, bw, bh, r)
+                    imv0 = self._int_search(addr, r, quads, pred, seed)
+                    if r == 0 and self.searcher is not None:
+                        seed = imv0
+                    qmv, cost = ME.subpel_refine(
+                        blk, self.refs[r].planes, px + bx * 4, py + by * 4,
+                        imv0, self.w, self.h, pred, lam,
+                        extra_bits=ref_bits[r], use_satd=self.satd)
+                    if best is None or cost < best[0]:
+                        best = (cost, r, qmv)
+                total += best[0]
+                commit.append((bx, by, bw, bh, quads, best[1], best[2]))
                 for yy in range(by, by + bh):
                     for xx in range(bx, bx + bw):
-                        pic.mv[addr, yy * 4 + xx] = qmv
+                        pic.mv[addr, yy * 4 + xx] = best[2]
                 for q in quads:
-                    pic.ref_idx[addr, q] = 0
+                    pic.ref_idx[addr, q] = best[1]
             candidates[mode] = (total, commit)
         pic.mv[addr] = 0
         pic.ref_idx[addr] = -1
+        sub_commit = self._sub8x8(addr, candidates) if self.sub8x8 else None
         t1 = time.perf_counter()
         self.part_s["search"] += t1 - t0
         skip_mv = self.pctx.skip_mv(addr)
@@ -142,14 +193,14 @@ class PPicture(InterMBCoder):
 
         # the skip candidate: 16x16, reference 0, the predicted MV, no bits
         skip_pred = ME.mc_luma_block(
-            self.ref.planes, px * 4 + int(skip_mv[0]),
+            self.refs[0].planes, px * 4 + int(skip_mv[0]),
             py * 4 + int(skip_mv[1]), 16, 16, self.w, self.h)
         if self.wp is not None:
             skip_pred = self.wp.uni(skip_pred, 0, 0, 0)
         cost_skip = int(np.abs(o - skip_pred).sum())
         if cost_skip <= cost_inter:
             best_mode, cost_inter = 0, cost_skip
-            commit = [(0, 0, 4, 4, (0, 1, 2, 3), skip_mv.copy())]
+            commit = [(0, 0, 4, 4, (0, 1, 2, 3), 0, skip_mv.copy())]
         t2 = time.perf_counter()
         self.part_s["skip"] += t2 - t1
 
@@ -161,37 +212,115 @@ class PPicture(InterMBCoder):
             return
         t3 = time.perf_counter()
         self.part_s["intra"] += t3 - t2
-        self._commit_inter(addr, best_mode, commit, skip_mv, o)
+        self._commit_inter(addr, best_mode, commit, sub_commit, skip_mv, o)
         self.part_s["commit"] += time.perf_counter() - t3
 
-    def _commit_inter(self, addr, mode, commit, skip_mv, o) -> None:
-        """Commit the chosen motion, predict (weighted), code the
-        residual; P_Skip when the 16x16 coding is the skip coding."""
+    def _sub8x8(self, addr, candidates):
+        """The P8x8 sub-partition refinement (jm_tpu :2783-2848): each
+        quadrant of the 8x8 mode on its reference, the sub-modes in
+        SUB_PARTS order, each sub-block by its own integer search over the
+        4x4 table or, under a searcher, refined from the quadrant's
+        quarter-pel MV. Replaces the 8x8 mode's cost and returns the
+        sub-commits when their total is below it, else None."""
+        pic, lam, sr = self.pic, self.lam, self.sr
+        px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
+        total3 = lam * MODE_BITS[3]
+        sub_commit = []
+        pic.mv[addr] = 0
+        pic.ref_idx[addr] = -1
+        for (bx, by, _bw, _bh, quads, r, qmv8) in candidates[3][1]:
+            planes = self.refs[r].planes
+            pic.ref_idx[addr, quads[0]] = r
+            best_q = None
+            for sm, parts in ME.SUB_PARTS.items():
+                mvs, cost_q = [], lam * ME.SUB_MODE_BITS[sm]
+                for (sx, sy, sw, sh) in parts:
+                    x0, y0 = px + (bx + sx) * 4, py + (by + sy) * 4
+                    pred = self.pctx.mv_pred(addr, bx + sx, by + sy, sw, sh,
+                                             r)
+                    blk = self.origY[y0:y0 + sh * 4, x0:x0 + sw * 4]
+                    if self.searcher is None:
+                        ids = [(by + sy + yy) * 4 + bx + sx + xx
+                               for yy in range(sh) for xx in range(sw)]
+                        csum = (self.blk4[r][addr][:, ids]
+                                .sum(axis=1, dtype=np.int64)
+                                + ME.int_rate_tab(pred, sr, lam))
+                        simv = ME.best_int_mv_tiebreak(
+                            csum, ME.spiral_rank_tab(pred, sr), sr)
+                        qmv, c = ME.subpel_refine(
+                            blk, planes, x0, y0, simv, self.w, self.h, pred,
+                            lam, use_satd=self.satd)
+                    else:
+                        qmv, c = ME.subpel_refine(
+                            blk, planes, x0, y0, qmv8, self.w, self.h, pred,
+                            lam, use_satd=self.satd, qpel_start=True)
+                    mvs.append(qmv)
+                    cost_q += c
+                    for yy in range(by + sy, by + sy + sh):
+                        for xx in range(bx + sx, bx + sx + sw):
+                            pic.mv[addr, yy * 4 + xx] = qmv
+                if best_q is None or cost_q < best_q[0]:
+                    best_q = (cost_q, sm, mvs)
+            # the winner's motion stays for the next quadrants' predictors
+            for (sx, sy, sw, sh), qmv in zip(ME.SUB_PARTS[best_q[1]],
+                                             best_q[2]):
+                for yy in range(by + sy, by + sy + sh):
+                    for xx in range(bx + sx, bx + sx + sw):
+                        pic.mv[addr, yy * 4 + xx] = qmv
+            total3 += best_q[0]
+            sub_commit.append((bx, by, quads[0], r, best_q[1], best_q[2]))
+        pic.mv[addr] = 0
+        pic.ref_idx[addr] = -1
+        if total3 < candidates[3][0]:
+            candidates[3] = (total3, candidates[3][1])
+            return sub_commit
+        return None
+
+    def _commit_inter(self, addr, mode, commit, sub_commit, skip_mv,
+                      o) -> None:
+        """Commit the chosen motion (the sub-partitions' with P_8x8 and
+        sub_commit), predict each 4x4 block from its quadrant's reference
+        (weighted), code the residual; P_Skip when the 16x16 coding is the
+        skip coding."""
         pic = self.pic
         px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
         pic.mb_class[addr] = MB_INTER
         pic.inter_mode[addr] = mode
-        for (bx, by, bw, bh, quads, qmv) in commit:
-            for yy in range(by, by + bh):
-                for xx in range(bx, bx + bw):
-                    pic.mv[addr, yy * 4 + xx] = qmv
-            for q in quads:
-                pic.ref_idx[addr, q] = 0
-                pic.ref_pic_id[addr, q] = self.ref.uid
+        if mode == 3 and sub_commit is not None:
+            for (bx, by, q, r, sm, mvs) in sub_commit:
+                pic.sub_mode[addr, q] = sm
+                pic.ref_idx[addr, q] = r
+                pic.ref_pic_id[addr, q] = self.refs[r].uid
                 pic.pdir[addr, q] = 0
+                for (sx, sy, sw, sh), qmv in zip(ME.SUB_PARTS[sm], mvs):
+                    for yy in range(by + sy, by + sy + sh):
+                        for xx in range(bx + sx, bx + sx + sw):
+                            pic.mv[addr, yy * 4 + xx] = qmv
+                self.ref1 += r > 0
+        else:
+            for (bx, by, bw, bh, quads, r, qmv) in commit:
+                for yy in range(by, by + bh):
+                    for xx in range(bx, bx + bw):
+                        pic.mv[addr, yy * 4 + xx] = qmv
+                for q in quads:
+                    pic.ref_idx[addr, q] = r
+                    pic.ref_pic_id[addr, q] = self.refs[r].uid
+                    pic.pdir[addr, q] = 0
+                self.ref1 += r > 0
         pred_y = np.zeros((16, 16), np.int64)
         pred_u = np.zeros((8, 8), np.int64)
         pred_v = np.zeros((8, 8), np.int64)
         for blk in range(16):
             by, bx = divmod(blk, 4)
-            p = self._mc_blk(self.ref, px, py, bx, by, pic.mv[addr, blk])
+            r = int(pic.ref_idx[addr, (by // 2) * 2 + bx // 2])
+            p = self._mc_blk(self.refs[r], px, py, bx, by, pic.mv[addr, blk])
             if self.wp is not None:
-                p = [self.wp.uni(b, 0, 0, c) for c, b in enumerate(p)]
+                p = [self.wp.uni(b, 0, r, c) for c, b in enumerate(p)]
             pred_y[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = p[0]
             pred_u[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = p[1]
             pred_v[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = p[2]
         self._commit_inter_residual(addr, o, pred_y, pred_u, pred_v)
-        if (mode == 0 and pic.cbp[addr] == 0
+        if (mode == 0 and pic.cbp[addr] == 0 and pic.ref_idx[addr, 0] == 0
                 and (pic.mv[addr, 0] == skip_mv).all()):
             pic.skip[addr] = True
         self.mix["skip" if pic.skip[addr] else _MIX[1 + mode]] += 1

@@ -46,22 +46,30 @@ class IntraMBCoder:
 
     qctx = None
     ar_period = 0
+    units = None
 
-    def _code_slices(self, slices, qp: int, code_mb) -> None:
+    def _code_slices(self, slices, code_mb) -> None:
         """Code the slice plan's MBs in order with code_mb(addr), each
-        in its slice at qp, with the adaptive-rounding refresh before
-        each MB and the commit after it (jm_tpu _FrameEncoder.encode
-        :2175-2202)."""
-        pic, qctx = self.pic, self.qctx
+        in its slice at the coder's qp, with the adaptive-rounding refresh
+        before each MB and the commit after it; with basic units
+        (``units``), the QP, chroma QP and lambdas of each MB's unit set
+        before it (pic.qp takes it whether the MB sends it or not, as in
+        jm_tpu) and the MB's bits reported after it (jm_tpu
+        _FrameEncoder.encode :2175-2203)."""
+        pic, qctx, units = self.pic, self.qctx, self.units
         for sid, addrs in enumerate(slices):
             for mb_i, addr in enumerate(addrs):
                 if qctx is not None:
                     qctx.maybe_refresh(mb_i, self.ar_period)
+                if units is not None:
+                    self.qp, self.qpc, self.lam, self.lam4 = units.params()
                 pic.slice_id[addr] = sid
-                pic.qp[addr] = qp
+                pic.qp[addr] = self.qp
                 code_mb(int(addr))
                 if qctx is not None:
                     qctx.ar_commit_mb()
+                if units is not None:
+                    units.report(pic, int(addr), self.qp)
 
     # ---- quant dispatch (jm_tpu encoder.py:1925-1946) ---------------------
 

@@ -11,9 +11,11 @@ list (several per picture, in slice-group order), with
 ref_pic_list_modification, dec_ref_pic_marking (long-term IDR, MMCO) and
 redundant_pic_cnt, whole or as three data partitions
 (``serialize_slice_dp``); I_NxN (4x4) / I_16x16 macroblocks; P
-macroblocks with 16x16/16x8/8x16/8x8 partitions (8x8 sub-macroblocks
-only) and one reference; with the 8x8 transform, transform_size_8x8_flag
-and each 8x8 block as four interleaved 4x4 blocks; B macroblocks as the B coder decides them (B_Skip,
+macroblocks with 16x16/16x8/8x16/8x8 partitions, P_8x8's sub-macroblocks
+of 8x8, 8x4, 4x8 or 4x4, and each partition's ref_idx as te(v) when
+several references are active; with the 8x8 transform,
+transform_size_8x8_flag (absent below 8x8) and each 8x8 block as four
+interleaved 4x4 blocks; B macroblocks as the B coder decides them (B_Skip,
 B_Direct_16x16, 16x16 list 0 / list 1 / bi-predicted, intra), one
 reference per list, whose slices only the Python MBWriter writes (as in
 jm_tpu; native.routes["b"]["serialize"]). Serialization is a pure
@@ -32,6 +34,7 @@ from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
 from ..decoder.b_slice import PD_BI, PD_L0, PD_L1
 from .cavlc_write import write_residual_block
+from .me import SUB_PARTS
 from .qmatrix import write_scaling_list
 from .wp_est import CHROMA_DENOM, LUMA_DENOM
 
@@ -514,25 +517,39 @@ class MBWriter:
             raise ValueError(f"MB {addr}: unsupported intra class "
                              f"{int(pic.mb_class[addr])}")
 
-    # ---- inter (P: 16x16/16x8/8x16/8x8 with 8x8 sub-macroblocks) -----------
+    # ---- inter (P: 16x16/16x8/8x16/8x8 with its sub-macroblocks) ---------
 
-    def _write_p_inter_mb(self, addr: int) -> None:
+    def _write_p_inter_mb(self, addr: int, num_ref: int) -> None:
+        """mb_type, the ref_idx of each partition as te(v) when more than
+        one reference is active, with P_8x8 the sub_mb_types first and
+        each sub-partition's mvd (spec 7.3.5.1-2), then the residual."""
         pic, bw = self.pic, self.bw
         mode = max(int(pic.inter_mode[addr]), 0)
         bw.ue(mode)
         if mode == 3:
-            if pic.sub_mode[addr].any():
-                raise ValueError(f"MB {addr}: sub-8x8 partitions")
-            for _ in range(4):
-                bw.ue(0)                      # sub_mb_type P_L0_8x8
-        for (bx, by, bw_, bh_) in self.PARTS[mode]:
-            q = (by // 2) * 2 + bx // 2
-            ref = int(pic.ref_idx[addr, q])
+            for q in range(4):
+                bw.ue(int(pic.sub_mode[addr, q]))
+            if num_ref > 1:
+                for q in range(4):
+                    bw.te(int(pic.ref_idx[addr, q]), num_ref - 1)
+            parts = [((q % 2) * 2 + sx, (q // 2) * 2 + sy, sw, sh)
+                     for q in range(4)
+                     for (sx, sy, sw, sh) in SUB_PARTS[int(pic.sub_mode[addr,
+                                                                        q])]]
+        else:
+            parts = self.PARTS[mode]
+            if num_ref > 1:
+                for (bx, by, _bw, _bh) in parts:
+                    bw.te(int(pic.ref_idx[addr, (by // 2) * 2 + bx // 2]),
+                          num_ref - 1)
+        for (bx, by, bw_, bh_) in parts:
+            ref = int(pic.ref_idx[addr, (by // 2) * 2 + bx // 2])
             pred = self.pctx.mv_pred(addr, bx, by, bw_, bh_, ref)
             mv = pic.mv[addr, by * 4 + bx]
             bw.se(int(mv[0] - pred[0]))
             bw.se(int(mv[1] - pred[1]))
-        self._write_inter_residual(addr)
+        self._write_inter_residual(
+            addr, allow8=mode != 3 or not pic.sub_mode[addr].any())
 
     def _write_b_inter_mb(self, addr: int) -> None:
         """B_Direct_16x16, or a 16x16 partition of list 0, list 1 or both
@@ -556,7 +573,10 @@ class MBWriter:
 
     # ---- MB dispatch -------------------------------------------------------
 
-    def write_mb(self, addr: int, slice_type: SliceType) -> None:
+    def write_mb(self, addr: int, slice_type: SliceType,
+                 num_ref: int = 1) -> None:
+        """MB addr of a slice of slice_type with num_ref active list-0
+        references (a P slice's; a B slice's lists hold one each)."""
         pic, bw = self.pic, self.bw
         if slice_type == SliceType.I:
             self._write_intra_mb(addr, 0)
@@ -572,7 +592,7 @@ class MBWriter:
         elif is_b:
             self._write_b_inter_mb(addr)
         else:
-            self._write_p_inter_mb(addr)
+            self._write_p_inter_mb(addr, num_ref)
 
     def finish(self, slice_type: SliceType) -> None:
         if slice_type != SliceType.I and self.skip_run > 0:
@@ -611,7 +631,7 @@ def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
         N.routes["serialize"]["python"] += 1
     w = MBWriter(bw, pic, sps, pps, qp)
     for addr in addrs:
-        w.write_mb(int(addr), slice_type)
+        w.write_mb(int(addr), slice_type, num_ref_idx_l0)
     w.finish(slice_type)
     bw.rbsp_trailing_bits()
     return bw.get_bytes()
@@ -643,7 +663,7 @@ def serialize_slice_dp(pic, sps, pps, *, slice_type: SliceType,
     w = MBWriter(bw, pic, sps, pps, qp)
     w.bw_b, w.bw_c = bwb, bwc
     for addr in addrs:
-        w.write_mb(addr, slice_type)
+        w.write_mb(addr, slice_type, num_ref_idx_l0)
     w.finish(slice_type)
     out = []
     for b in (bw, bwb, bwc):

@@ -215,10 +215,10 @@ def full_search_sad_quad(origY, ref_int, mb_w: int, mb_h: int, sr: int):
     displacement of the +-sr window: (N, (2 sr + 1)^2, 4) int32, row-major
     (dy, dx), quadrants in raster order: the host P coder's integer search
     table (jm_tpu/encoder/me.py full_search_blk4_sads summed over each
-    quadrant's 4x4 blocks, QUAD_BLKS; its per-4x4 table is never made
-    here, since the port codes no sub-8x8 partition). origY (H, W) uint8;
-    ref_int the padded integer plane (pad PAD). One row of displacements
-    is evaluated at a time."""
+    quadrant's 4x4 blocks, QUAD_BLKS; the per-4x4 table,
+    full_search_sad_blk4, is made only for the sub-8x8 search). origY
+    (H, W) uint8; ref_int the padded integer plane (pad PAD). One row of
+    displacements is evaluated at a time."""
     side = 2 * sr + 1
     h, w = 16 * mb_h, 16 * mb_w
     n = mb_w * mb_h
@@ -233,6 +233,33 @@ def full_search_sad_quad(origY, ref_int, mb_w: int, mb_h: int, sr: int):
         # (mb_h, qy, side, mb_w, qx) -> (N, side, 4)
         out[:, iy * side:(iy + 1) * side] = s.permute(0, 3, 2, 1, 4) \
             .reshape(n, side, 4)
+    return out
+
+
+def full_search_sad_blk4(origY, ref_int, mb_w: int, mb_h: int, sr: int):
+    """The SAD of each 4x4 block of every MB at every integer displacement
+    of the +-sr window: (N, (2 sr + 1)^2, 16) int16 (a 4x4 SAD is at most
+    16 * 255 = 4080), row-major (dy, dx), blocks in raster order in the
+    MB: jm_tpu/encoder/me.py full_search_blk4_sads, the host P coder's
+    table when it searches sub-8x8 partitions by full search (the sums of
+    its quadrants' blocks are full_search_sad_quad). origY (H, W) uint8;
+    ref_int the padded integer plane (pad PAD). One row of displacements
+    is evaluated at a time."""
+    side = 2 * sr + 1
+    h, w = 16 * mb_h, 16 * mb_w
+    n = mb_w * mb_h
+    o = origY.to(torch.int16)
+    out = torch.empty((n, side * side, 16), dtype=torch.int16,
+                      device=origY.device)
+    for iy in range(side):
+        y0 = PAD + iy - sr
+        slab = ref_int[y0:y0 + h, PAD - sr:PAD + sr + w].to(torch.int16)
+        d = (slab.unfold(1, w, 1) - o[:, None, :]).abs()     # (h, side, w)
+        s = d.reshape(mb_h, 4, 4, side, mb_w, 4, 4).sum(dim=(2, 6),
+                                                        dtype=I32)
+        # (mb_h, by, side, mb_w, bx) -> (N, side, 16)
+        out[:, iy * side:(iy + 1) * side] = s.permute(0, 3, 2, 1, 4) \
+            .reshape(n, side, 16).to(torch.int16)
     return out
 
 

@@ -1,10 +1,9 @@
 """Rate control of the port: the JVT-G012 quadratic model at frame level
-(RC_MODE_0), a copy of jm_tpu/ratectl.py's qp2qstep / qstep2qp,
-_two_pass_lsq, _lin_two_pass and RateControl, statement for statement:
-QP decisions are step functions of least-squares fits in Python floats
-(float64), so any reordering of the arithmetic can flip one QP and every
-byte after it. Basic-unit rate control is not ported (the encoder's
-configuration check refuses rc_basic_unit > 0).
+(RC_MODE_0) and the basic units within a P picture, a copy of
+jm_tpu/ratectl.py's qp2qstep / qstep2qp, _two_pass_lsq, _lin_two_pass,
+RateControl and BasicUnitRC, statement for statement: QP decisions are
+step functions of least-squares fits in Python floats (float64), so any
+reordering of the arithmetic can flip one QP and every byte after it.
 
 Behavioral parity with lencod/src/rc_quadratic.c / ratectl.c:
   - initial QP from bpp thresholds              (rc_init_seq:268-292)
@@ -21,6 +20,8 @@ Behavioral parity with lencod/src/rc_quadratic.c / ratectl.c:
   - MAD prediction: linear model MAD = C1*MAD_prev + C2 fitted the same
     way (updateMADModel:1128, MADModelEstimator:1218)
   - QP<->Qstep maps                             (ratectl.c QP2Qstep/Qstep2QP)
+  - basic units: the QP of the next unit moves with the bits spent
+    against the picture's target      (updateQPRC0/1 basic-unit branch)
 
 The controller runs on the host: its decisions are scalar control flow.
 """
@@ -296,3 +297,45 @@ class RateControl:
             self.prev_last_qp = qp
             self.curr_last_qp = qp
             self.prev_mad = mad
+
+
+class BasicUnitRC:
+    """Basic-unit QP adaptation within a P picture (lencod rc_quadratic.c
+    updateQPRC0/1 basic-unit branch): the picture's target bits are
+    spread over its MBs; after each basic unit of basic_unit MBs the QP
+    of the next moves with the bits spent against the share expected so
+    far, by at most 2 per unit and 6 around the picture's QP."""
+
+    def __init__(self, frame_qp: int, target_bits: float, n_mbs: int,
+                 basic_unit: int):
+        self.frame_qp = frame_qp
+        self.qp = frame_qp
+        self.target = max(float(target_bits), 1.0)
+        self.n_mbs = n_mbs
+        self.bu = max(1, basic_unit)
+        self.spent = 0.0
+        self.done = 0
+
+    def mb_qp(self) -> int:
+        return self.qp
+
+    def report(self, mb_bits: int) -> None:
+        """Account one coded MB; adapt the QP at a basic unit's end."""
+        self.spent += mb_bits
+        self.done += 1
+        if self.done % self.bu or self.done >= self.n_mbs:
+            return
+        expected = self.target * self.done / self.n_mbs
+        ratio = self.spent / max(expected, 1.0)
+        step = 0
+        if ratio > 1.25:
+            step = 2
+        elif ratio > 1.08:
+            step = 1
+        elif ratio < 0.80:
+            step = -2
+        elif ratio < 0.92:
+            step = -1
+        self.qp = max(self.frame_qp - 6,
+                      min(self.frame_qp + 6, self.qp + step))
+        self.qp = max(0, min(51, self.qp))

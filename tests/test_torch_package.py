@@ -51,13 +51,16 @@ def test_scan_covers_the_native_loader():
                                  "decoder/b_slice.py", "encoder/b_host.py",
                                  "encoder/gop.py", "encoder/me.py",
                                  "decoder/wp.py", "encoder/wp_est.py",
-                                 "encoder/p_host.py", "encoder/qmatrix.py"])
+                                 "encoder/p_host.py", "encoder/qmatrix.py",
+                                 "encoder/me_epzs.py", "encoder/me_umhex.py",
+                                 "encoder/rdo.py"])
 def test_scan_covers_the_ports_own_copies(rel):
     """Rate control, the slice-group maps, the host intra encoder, the
     SEI writers and parser, the B-slice motion, the B and P MB coders
-    with their motion search, the GOP strings and the weighted prediction
-    tables and estimates and the custom quant are the port's own modules,
-    not jm_tpu's."""
+    with their motion search and fast searchers, the GOP strings and the
+    explicit sequence coder, the weighted prediction tables and
+    estimates, the custom quant and the basic units' bit count are the
+    port's own modules, not jm_tpu's."""
     assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
 
 
@@ -127,7 +130,7 @@ def test_deblock_never_falls_back_for_a_device_request():
     ("height", 40), ("entropy", "cavcl"), ("cabac_adapt_init", 1),
     ("search_range", 17), ("qp_p", 52), ("poc_type", 3), ("slice_mode", 3),
     ("slice_argument", -1), ("num_slice_groups", 9), ("rc_enable", 1),
-    ("rc_basic_unit", 4), ("rc_initial_qp", 52), ("deblock", 0),
+    ("rc_basic_unit", -1), ("rc_initial_qp", 52), ("deblock", 0),
     ("enable_vui", 1), ("sei_user_data", "text"), ("long_term_period", -1),
     ("ref_reorder", 2), ("poc_mem_mgmt", 2), ("data_partition", 2),
     ("redundant_period", -1), ("redundant_qp_off", 52),
@@ -141,6 +144,7 @@ def test_deblock_never_falls_back_for_a_device_request():
     ("scaling_lists4", ((16,) * 16,)), ("scaling_lists8", ((0,) * 64,) * 2),
     ("scaling_present", (4,)), ("offset_matrix", ((0,),)),
     ("adapt_rnd_period", -1), ("adapt_rnd_w", 1.5),
+    ("search_mode", 4), ("num_ref", 0), ("num_ref", 17),
 ])
 def test_config_outside_slice_raises(field, value):
     cfg = EncoderConfig(width=32, height=32)

@@ -207,7 +207,7 @@ def test_host_p_coder_matches_jm(field, two_pictures):
                                   ref.state[0][0], enc.mb_w, enc.mb_h,
                                   16).numpy()
     c = PPicture(frames[1], QP, chroma_qp(QP, 0), lambda_me(QP),
-                 lambda_mode4(QP), ref.host_ref(), sads,
+                 lambda_mode4(QP), [ref.host_ref()], [sads],
                  [list(range(enc.mb_w * enc.mb_h))], 16, (), wp)
     fe = jenc._last_fe
     assert np.array_equal(getattr(c.pic, field), getattr(fe.pic, field))

@@ -41,11 +41,15 @@ CASES = {
     "dp_intra_refresh": dict(data_partition=1, intra_mb_refresh=4),
     # a weighted bi-prediction PPS (Main profile) without B pictures
     "weighted_bipred_no_b": dict(weighted_bipred=1),
+    # the host coders' searchers, which the device route ignores
+    "search_mode_hme": dict(search_mode=3, hme=True),
 }
 # jm_tpu's _pipe_ok has no term for redundant_period, poc_mem_mgmt, SEI,
-# VUI or weighted_bipred: streams with only these stay on the pipe
+# VUI, weighted_bipred, search_mode or hme: streams with only these stay
+# on the pipe
 PIPE_NEUTRAL = {"redundant_period", "poc_mem_mgmt", "enable_vui",
-                "sei_user_data", "device_rd", "weighted_bipred"}
+                "sei_user_data", "device_rd", "weighted_bipred",
+                "search_mode", "hme"}
 _RUNS = {}
 _DECODED = {}
 

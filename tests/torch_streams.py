@@ -4,8 +4,9 @@ for md_low): clips of tests/test_pipe_stream.py at 96x80, QP 30, encoded
 by jm_tpu's Encoder(pipeline="device") and by the port on the CPU, and
 the checks that hold them equal; the same for a configuration encoded
 frame by frame through both encoders' host coders (the host pipeline
-and High-profile tests); and the fade of the weighted prediction
-tests."""
+and High-profile tests); the fade of the weighted prediction tests;
+and the clip of blockwise motion of the motion-option tests, with their
+run of a configuration through both encoders (``option_run``)."""
 
 import numpy as np
 import pytest
@@ -92,14 +93,14 @@ def check_fallbacks(run, clip):
 
 def check_decodes(run):
     """The stream decodes with the port's H264Decoder(device="cpu") and
-    with jm_tpu's H264Decoder to the port's recon."""
+    with jm_tpu's H264Decoder to the port's recon, picture by picture in
+    decode order (the order of ``results``)."""
     _, _, _, enc, got = run
     data = b"".join(got)
-    want = sorted(enc.results, key=lambda r: r["disp"])
     for dec in (H264Decoder(device="cpu"), JaxDecoder()):
         out = dec.decode_annexb(data)
-        assert len(out) == len(want)
-        for frame, res in zip(out, want):
+        assert len(out) == len(enc.results)
+        for frame, res in zip(out, enc.results):
             for plane in "YUV":
                 assert np.array_equal(getattr(frame, plane),
                                       getattr(res["frame"], plane))
@@ -133,16 +134,11 @@ def fade(frames, step: float = 0.08):
 def frame_run(cfg: dict, n: int, pipeline: str = "host"):
     """The 96x80 QP 30 clip's first n frames encoded through encode_frame
     and flush by jm_tpu's Encoder and by the port's with the same
-    EncoderConfig keywords cfg and pipeline: (jm_tpu payloads, jm_tpu
-    results, port encoder, port payloads)."""
-    frames = make_frames(W, H, n)
-    jenc = JaxEncoder(JaxConfig(width=W, height=H, qp=QP, pipeline=pipeline,
-                                **cfg))
-    enc = Encoder(EncoderConfig(width=W, height=H, qp=QP, pipeline=pipeline,
-                                **cfg), device="cpu")
-    return ([jenc.encode_frame(*f) for f in frames] + [jenc.flush()],
-            jenc.results, enc,
-            [enc.encode_frame(*f) for f in frames] + [enc.flush()])
+    EncoderConfig keywords cfg and pipeline (option_run): (jm_tpu
+    payloads, jm_tpu results, port encoder, port payloads)."""
+    _frames, want, results, enc, got = option_run(
+        cfg, make_frames(W, H, n), pipeline)
+    return want, results, enc, got
 
 
 def check_frame_run_payloads(run):
@@ -181,3 +177,59 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def motion_clip(n: int, w: int = W, h: int = H, seed: int = 3):
+    """n frames of seeded smoothed noise in which every 4x4 block moves
+    with its 8x8 block's velocity, a quarter of them with an offset of
+    their own, and frame 3 repeats frame 1: content on which the host P
+    coder chooses sub-8x8 partitions and, with several references, the
+    older one."""
+    rng = np.random.default_rng(seed)
+    pad = 24
+    base = rng.integers(0, 256, (h + 2 * pad + 8 * n,
+                                 w + 2 * pad + 8 * n)).astype(np.float64)
+    k = np.ones(5) / 5
+    base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, base)
+    base = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, base)
+    base = np.clip((base - 128) * 3 + 128, 0, 255)
+    vel = np.repeat(np.repeat(rng.integers(-1, 2, (h // 8, w // 8, 2)), 2,
+                              axis=0), 2, axis=1)
+    vel = vel + rng.integers(-1, 2, vel.shape) * (
+        rng.random(vel.shape[:2]) < 0.25)[..., None]
+    out = []
+    for t in [0, 1, 2, 1, 3, 4, 5, 6][:n]:
+        Y = np.empty((h, w))
+        for by in range(h // 4):
+            for bx in range(w // 4):
+                vy, vx = vel[by, bx]
+                y0 = pad + by * 4 + t * (1 + vy)
+                x0 = pad + bx * 4 + t * (2 + vx)
+                Y[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = \
+                    base[y0:y0 + 4, x0:x0 + 4]
+        Y = Y.astype(np.uint8)
+        out.append((Y, (Y[::2, ::2] // 2 + 64).astype(np.uint8),
+                    (Y[1::2, 1::2] // 3 + 90).astype(np.uint8)))
+    return out
+
+
+def option_run(cfg: dict, frames, pipeline: str = "host",
+               stream: bool = False):
+    """frames encoded at their size, QP 30, by jm_tpu's Encoder and by the
+    port's with the same EncoderConfig keywords cfg and pipeline, through
+    encode_frame and flush (stream: encode_stream, then flush), shaped as
+    runs(): (frames, jm_tpu payloads, jm_tpu results, port encoder, port
+    payloads), a final flush's payload appended to the last."""
+    h, w = frames[0][0].shape
+    jenc = JaxEncoder(JaxConfig(width=w, height=h, qp=QP, pipeline=pipeline,
+                                **cfg))
+    enc = Encoder(EncoderConfig(width=w, height=h, qp=QP, pipeline=pipeline,
+                                **cfg), device="cpu")
+    out = []
+    for e in (jenc, enc):
+        pay = e.encode_stream(frames) if stream else \
+            [e.encode_frame(*f) for f in frames]
+        pay[-1] += e.flush()
+        out.append(pay)
+    return frames, out[0], jenc.results, enc, out[1]
+
