@@ -222,10 +222,34 @@ Phases (any failure raises and exits non-zero):
      the same bytes and recon;
  33. their decodes on the card: each equal to its CPU decode and, but
      (d), to its encoder's recon; (d)'s MBs that differ from the recon
-     counted; one launch per kernel and picture.
-The CPU references of phases 4-33 (the encodes on the CPU, the CPU
+     counted; one launch per kernel and picture;
+ 34. the RD tiers on the device route at 1080p: the first RD_FRAMES
+     frames (IDR + 2 P) with rd_cfg()'s RD CAVLC, rd_picture_decision
+     and rdoq with rdoq_dc, rdoq_cr and rdoq_dc_cr, through
+     encode_stream (off the pipe): each P coded on the device at QP,
+     QP - 1 and QP + 1, each coding committed on the host (its intra MBs
+     trellis-coded), deblocked by K1/K2 and serialized, the least frame
+     J shipped; one launch per kernel and coding (1 + 3 + 3); each
+     coding's QP, bytes, J and wall ms and the intra MBs re-encoded; all
+     three pictures encoded on the CPU with the same bytes and recon;
+ 35. the host RD tiers at QCIF (176x144, the top-left of the sequence,
+     pipeline "host", RD_QCIF_FRAMES frames each, RD_QCIF): (a) CAVLC,
+     rdo 1, enable_ipcm 1 and the four trellis flags at QP 12, with a new
+     seeded noise patch in each frame, where I_PCM wins MBs; (b) CABAC,
+     rdo 2, the trellis flags, transform8x8, num_b 1; (c) rdo 3 with two
+     simulated lossy decoders at 5 % loss; (d) CABAC, enable_ipcm 2,
+     num_b 1; (e) CAVLC, rdo 4, rd_picture_decision; each with frames/s,
+     the per-picture split and host MB loop in ms per MB, MB classes,
+     I_PCM MBs and codings, one launch per kernel and coding, the CAVLC
+     slices with I_PCM on the Python serializer, and encoded on the CPU
+     with the same bytes and recon;
+ 36. their decodes on the card: each equal to its encoder's recon and
+     to its CPU decode, one launch per kernel and picture, the pictures
+     with I_PCM MBs on the Python parser (CAVLC) and intra recon.
+The wall seconds of each group of phases are printed after phase 36.
+The CPU references of phases 4-36 (the encodes on the CPU, the CPU
 decodes of the lossy stream, of the DP goldens, cif_main, the weighted,
-High and motion-option streams) run in
+High, motion-option and RD streams) run in
 CPU_WORKERS worker processes, started before the kernel build and
 stopped before the closing lines, while the card works through the
 phases.
@@ -234,14 +258,16 @@ points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
 and parsed, every intra picture reconstructed and every CABAC slice
 decoded by the native runtime, but the data-partitioned slices of
-phase 18 and the B slices of phases 22-33, which only the Python
-serializers and parsers handle (routes "dp" and "b").
+phase 18 and the B slices of phases 22-36, which only the Python
+serializers and parsers handle (routes "dp" and "b"), and the CAVLC I /
+P slices and pictures with an I_PCM MB of phases 35-36 (the Python
+serializer, parser and intra recon).
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-33 alone, ``--from 22`` phases 22-33, ``--from 25`` phases 25-33,
-``--from 28`` phases 28-33, ``--from 31`` phases 31-33, without the
-closing JSON lines (a quicker check of those phases while they are
-developed). The last line of
+18-36 alone, ``--from 22`` phases 22-36, ``--from 25`` phases 25-36,
+``--from 28`` phases 28-36, ``--from 31`` phases 31-36, ``--from 34``
+phases 34-36, without the closing JSON lines (a quicker check of those
+phases while they are developed). The last line of
 standard output is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel numbers as JSON.
 """
@@ -333,6 +359,17 @@ INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate
 # formulas (deblock.cu luma_line / chroma_line, normal and strong paths)
 LUMA_LINE_OPS = 60
 CHROMA_LINE_OPS = 25
+RD_FRAMES = 3        # frames of the 1080p rd_picture_decision stream (34)
+RDOQ_ALL = dict(rdoq=1, rdoq_dc=1, rdoq_cr=1, rdoq_dc_cr=1)
+RD_QCIF_FRAMES = 3   # frames of each QCIF host RD stream (35)
+# phase 35's QCIF host RD streams: (label, QP, EncoderConfig keywords,
+# whether a new noise patch is pasted into each frame)
+RD_QCIF = (("a", 12, dict(RDOQ_ALL, rdo=1, enable_ipcm=1), True),
+           ("b", QP, dict(RDOQ_ALL, rdo=2, entropy="cabac",
+                          transform8x8=True, num_b=1), False),
+           ("c", QP, dict(rdo=3, num_decoders=2, loss_rate_a=5), False),
+           ("d", QP, dict(enable_ipcm=2, entropy="cabac", num_b=1), False),
+           ("e", QP, dict(rdo=4, rd_picture_decision=True), False))
 
 
 def make_sequence(seed: int = 0):
@@ -619,14 +656,16 @@ def check_frames(got, want, label: str) -> None:
                 raise AssertionError(f"{label}: frame {i} {plane} differs")
 
 
-def check_routes(label: str, dp=None, b=None, **native_counts) -> None:
+def check_routes(label: str, dp=None, b=None, other=None,
+                 **native_counts) -> None:
     """Print the native runtime's route counters of the run just made
     (reset just before it) and check them: native_counts gives, per kind
     (serialize, parse, recon, cabac), how many slices or pictures must
-    have taken the native route; none may have taken another. dp gives
-    the data-partitioned slices serialized / parsed (the Python route of
-    kind "dp"; none unless given), b the B slices (the Python route of
-    kind "b")."""
+    have taken the native route; none may have taken another but as
+    other gives ({kind: {route: count}}: the Python routes of slices and
+    pictures with an I_PCM MB). dp gives the data-partitioned slices
+    serialized / parsed (the Python route of kind "dp"; none unless
+    given), b the B slices (the Python route of kind "b")."""
     print(f"{label}: native runtime routes {native.routes}", flush=True)
     for kind, counts in native.routes.items():
         if kind in ("dp", "b"):
@@ -636,11 +675,11 @@ def check_routes(label: str, dp=None, b=None, **native_counts) -> None:
                 raise AssertionError(f"{label}: {kind} routes {counts}, "
                                      f"expected {want}")
             continue
-        want = native_counts.get(kind, 0)
-        if counts["native"] != want or any(
-                v for k, v in counts.items() if k != "native"):
+        want = {"native": native_counts.get(kind, 0),
+                **(other or {}).get(kind, {})}
+        if any(v != want.get(k, 0) for k, v in counts.items()):
             raise AssertionError(f"{label}: {kind} routes {counts}, "
-                                 f"expected {want} native and no other")
+                                 f"expected {want} and no other")
 
 
 def decode_phase(payloads, enc):
@@ -1190,16 +1229,19 @@ def host_runtime_phase(enc, payloads, low_enc, low_payloads, cab_payloads):
 
 def card_decode(payloads, enc, label: str, cabac: bool = False,
                 dp_parse: int = 0, dec=None, once_per_picture: bool = True,
-                b_parse: int = 0):
+                b_parse: int = 0, ipcm=()):
     """An encoder's stream decoded on the card with the launch and route
     counters reset just before: every frame equal to the encoder's recon,
     each kernel launched once per picture (unless once_per_picture is
     False: then only counted), every slice parsed (and every picture
     with intra MBs reconstructed) by the native runtime, but dp_parse
     data-partitioned slices and b_parse B slices by the Python parser (a
-    CABAC B slice's arithmetic decoder is the native one). dec: the
-    decoder to use (a new one by default). Returns the per-kernel
-    launches."""
+    CABAC B slice's arithmetic decoder is the native one), and the
+    pictures with an I_PCM MB (ipcm: their types, one slice each): a
+    CAVLC I or P slice parsed again by the Python parser after the
+    native one stopped at the I_PCM MB, the picture's intra recon the
+    Python walk. dec: the decoder to use (a new one by default). Returns
+    the per-kernel launches."""
     dec = dec or H264Decoder(device=DEVICE)
     kernels.reset_launches()
     native.reset_routes()
@@ -1212,9 +1254,13 @@ def card_decode(payloads, enc, label: str, cabac: bool = False,
                        for r in enc.results], label)
     units = sum(r["slices"] for r in enc.results) - dp_parse
     recon = sum(r["path"] != "inter" for r in dec.pictures)
+    rerun = 0 if cabac else sum(t != "B" for t in ipcm)
     check_routes(label, **({"cabac": units} if cabac
-                           else {"parse": units - b_parse}),
-                 recon=recon, dp={"parse": dp_parse}, b={"parse": b_parse})
+                           else {"parse": units - b_parse - rerun}),
+                 recon=recon - len(ipcm), dp={"parse": dp_parse},
+                 b={"parse": b_parse},
+                 other={"parse": {"rerun": rerun},
+                        "recon": {"python": len(ipcm)}})
     for name, cnt in launches.items():
         if once_per_picture and cnt != len(out):
             raise AssertionError(f"{label}: {name} launched {cnt} times for "
@@ -1311,10 +1357,11 @@ def golden_bytes(name: str) -> bytes:
 
 
 def start_cpu_references(pool, frames, first: int) -> dict:
-    """Submit the CPU references of phases first..33 (4, 18, 22, 25, 28
-    or 31) to the worker pool: phase 4's IDR + P first, then the longest,
-    phase 28's 1080p host encode, then by phase, phase 31's 1080p host
-    encode after those of phases 4-21, which are needed before it;
+    """Submit the CPU references of phases first..36 (4, 18, 22, 25, 28,
+    31 or 34) to the worker pool: phase 4's IDR + P first, then the
+    longest, phase 28's 1080p host encode and phase 34's 1080p encode,
+    then by phase, phase 31's 1080p host encode after those of phases
+    4-21, which are needed before it, phase 35's QCIF encodes last;
     returns their AsyncResults by name."""
     jobs = []
     if first <= 8:
@@ -1337,9 +1384,14 @@ def start_cpu_references(pool, frames, first: int) -> dict:
     if first <= 28:
         jobs = [("high", cpu_encode, (high_cfg(), frames[:HIGH_FRAMES]))] \
             + jobs
+    # phase 34's 1080p encode (an IDR and six device codings on the CPU)
+    # is long: it starts with the first jobs
+    jobs = [("rdpd", cpu_encode, (rdpd_cfg(), frames[:RD_FRAMES]))] + jobs
     if first <= 4:
         jobs = [("main", cpu_encode, (rd_cfg(), frames[:2]))] + jobs
-    jobs += [("motion", cpu_encode, (motion_cfg(), frames[:MOTION_FRAMES]))]
+    if first <= 31:
+        jobs += [("motion", cpu_encode, (motion_cfg(),
+                                         frames[:MOTION_FRAMES]))]
     if first <= 25:
         jobs += [("wp_p", cpu_encode, (wp_cfg(),
                                        fade(frames[:WP_FRAMES])))]
@@ -1350,10 +1402,14 @@ def start_cpu_references(pool, frames, first: int) -> dict:
         jobs += [(f"high_cif_{label}", cpu_encode,
                   (high_cif_cfg(kw), cif(frames, n)))
                  for label, n, kw in HIGH_CIF]
-    jobs += [(f"motion_cif_{label}",
-              cpu_explicit if label == "e" else cpu_encode,
-              (motion_cif_cfg(kw), cif(frames, n)))
-             for label, n, kw in MOTION_CIF]
+    if first <= 31:
+        jobs += [(f"motion_cif_{label}",
+                  cpu_explicit if label == "e" else cpu_encode,
+                  (motion_cif_cfg(kw), cif(frames, n)))
+                 for label, n, kw in MOTION_CIF]
+    jobs += [(f"rd_qcif_{label}", cpu_encode,
+              (rd_qcif_cfg(qp, kw), qcif_frames(frames, patch)))
+             for label, qp, kw, patch in RD_QCIF]
     return {name: pool.apply_async(fn, args) for name, fn, args in jobs}
 
 
@@ -2564,6 +2620,190 @@ def motion_phases(frames, cpu_refs, pool, main_payloads) -> dict:
     return out
 
 
+def rdpd_cfg():
+    """Phase 34: rd_cfg() with rd_picture_decision and the four trellis
+    flags."""
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=True, rd_picture_decision=True,
+                         **RDOQ_ALL)
+
+
+def rd_qcif_cfg(qp: int, kw):
+    """A RD_QCIF configuration: pipeline "host" at 176x144, SR 16."""
+    return EncoderConfig(width=176, height=144, qp=qp, search_range=16,
+                         pipeline="host", **kw)
+
+
+def qcif_frames(frames, patch: bool):
+    """The top-left 176x144 of the first RD_QCIF_FRAMES frames (the size
+    of JM's foreman clip); with patch a new seeded uniform-noise 32x32
+    luma patch (16x16 chroma) at (32, 32) in each frame, where I_PCM wins
+    MBs at a low QP."""
+    rng = np.random.default_rng(9)
+    out = []
+    for Y, U, V in frames[:RD_QCIF_FRAMES]:
+        Y, U, V = Y[:144, :176].copy(), U[:72, :88].copy(), V[:72, :88].copy()
+        if patch:
+            Y[32:64, 32:64] = rng.integers(0, 256, (32, 32), np.uint8)
+            U[16:32, 16:32] = rng.integers(0, 256, (16, 16), np.uint8)
+            V[16:32, 16:32] = rng.integers(0, 256, (16, 16), np.uint8)
+        out.append((Y, U, V))
+    return out
+
+
+def ipcm_mbs(r) -> int:
+    """The I_PCM MBs of a coded picture's results record."""
+    return r.get("mix", r.get("mb_classes", {})).get("ipcm", 0)
+
+
+def codings(enc) -> int:
+    """Every coding of the encoder's pictures: one each, three for a
+    picture of rd_picture_decision (each deblocked and serialized)."""
+    return sum(len(r.get("trials", (None,))) for r in enc.results)
+
+
+def rd_report(enc, label: str) -> None:
+    """wp_report's lines, then each picture's MB classes and I_PCM MBs
+    (an I picture's ms per MB over the whole picture), the intra MBs a
+    device-route P re-encoded on the host (trellis-coded in CAVLC with
+    rdoq), and with rd_picture_decision each coding's QP, bytes, frame J
+    and wall ms beside the QP shipped."""
+    wp_report(enc, label)
+    n_mbs = enc.mb_w * enc.mb_h
+    for r in enc.results:
+        d = r["disp"]
+        classes = r.get("mix", r.get("mb_classes", "(device route)"))
+        line = (f"{label} picture {d} {r['type']} QP {r['qp']}: MB classes "
+                f"{classes}, {ipcm_mbs(r)} I_PCM MBs")
+        if r["type"] == "I":
+            t = sum(enc.split.get(d, {}).get("picture", [0.0])) * 1e3
+            line += f", {t / n_mbs:.3f} ms/MB over the picture"
+        if "intra_mbs" in r and "mix" not in r:
+            line += f", {r['intra_mbs']} intra MBs re-encoded on the host"
+        if "trials" in r:
+            line += "; codings " + ", ".join(
+                f"QP {t['qp']}: {t['bytes']} B, J {t['j']:.1f}, "
+                f"{t['ms']:.1f} ms" for t in r["trials"]) + \
+                f"; QP {r['qp']} shipped"
+        print(line, flush=True)
+
+
+def rdpd_1080p_phase(frames, cpu_ref, pool):
+    """Phase 34: the first RD_FRAMES frames at 1080p on the device route
+    (RD, CAVLC) with rd_picture_decision and the trellis flags, through
+    encode_stream (off the pipe): the IDR once, each P picture coded on
+    the device at QP, QP - 1 and QP + 1, each coding committed on the
+    host (its intra MBs trellis-coded), deblocked by K1/K2 and
+    serialized; the least frame J shipped. One launch per kernel and
+    coding; each coding's QP, bytes, J and wall ms; held against the CPU
+    encode cpu_ref. Returns (encoder, payloads, launches, the CPU decode
+    job of the stream)."""
+    frames = frames[:RD_FRAMES]
+    enc, payloads, launches, total_s = b_encode(rdpd_cfg(), frames)
+    types = "".join(r["type"] for r in enc.results)
+    trials = [len(r.get("trials", ())) for r in enc.results]
+    if types != "IPP" or trials != [0, 3, 3] or any(
+            "mix" in r for r in enc.results):
+        raise AssertionError(f"rdpd 1080p: pictures {types}, codings "
+                             f"{trials}, host-coded P pictures")
+    n = codings(enc)
+    check_routes("rdpd 1080p encode", serialize=n)
+    check_launches(launches, n, "rdpd 1080p encode")
+    t = [sum(enc.split[d]["picture"]) * 1e3 for d in range(RD_FRAMES)]
+    print(f"encode rdpd 1080p {types} (device route, RD, CAVLC, QP {QP}, "
+          f"SR 16, rd_picture_decision, rdoq with rdoq_dc / rdoq_cr / "
+          f"rdoq_dc_cr): IDR {t[0]:.1f} ms, P {t[1]:.1f} / {t[2]:.1f} ms "
+          f"for three codings each; bytes {[len(p) for p in payloads]}; "
+          f"QPs {[r['qp'] for r in enc.results]}; launches {launches} "
+          f"({n} codings)", flush=True)
+    rd_report(enc, "rdpd 1080p")
+    check_cpu_encode("rdpd 1080p", cpu_ref, payloads, enc, RD_FRAMES)
+    return enc, payloads, launches, pool.apply_async(
+        cpu_decode, (b"".join(payloads),))
+
+
+def rd_qcif_phase(frames, cpu_refs, pool) -> list:
+    """Phase 35: the QCIF host RD streams of RD_QCIF through encode_stream
+    (pipeline "host": every picture by the serial host coders), one
+    launch per kernel and coding, CAVLC I / P slices with an I_PCM MB on
+    the Python serializer, frames/s, each picture's split, MB classes,
+    I_PCM MBs and codings, held against its CPU encode; returns per
+    stream (label, encoder, payloads, launches, the CPU decode job)."""
+    out = []
+    for label, qp, kw, patch in RD_QCIF:
+        enc, payloads, launches, total_s = b_encode(
+            rd_qcif_cfg(qp, kw), qcif_frames(frames, patch))
+        types = "".join(r["type"] for r in enc.results)
+        n_b = types.count("B")
+        n = codings(enc)
+        cabac = kw.get("entropy") == "cabac"
+        pcm = 0 if cabac else sum(ipcm_mbs(r) > 0 for r in enc.results
+                                  if r["type"] != "B")
+        check_routes(f"RD QCIF ({label})",
+                     serialize=0 if cabac else n - n_b - pcm,
+                     other={"serialize": {"python": pcm}},
+                     b={"serialize": n_b})
+        check_launches(launches, n, f"RD QCIF ({label})")
+        if kw.get("enable_ipcm") and not any(map(ipcm_mbs, enc.results)):
+            raise AssertionError(f"RD QCIF ({label}): no I_PCM MB")
+        print(f"encode RD QCIF ({label}) {types} (coding order; pipeline "
+              f"host, QP {qp}, {kw}{', noise patch' if patch else ''}): "
+              f"{len(types) / total_s:.3f} frames/s, "
+              f"{sum(map(len, payloads))} stream bytes "
+              f"{[len(p) for p in payloads]}, QPs "
+              f"{[r['qp'] for r in enc.results]}, launches {launches} ({n} "
+              f"codings)", flush=True)
+        rd_report(enc, f"RD QCIF ({label})")
+        check_cpu_encode(f"RD QCIF ({label})", cpu_refs[f"rd_qcif_{label}"],
+                         payloads, enc, len(types))
+        out.append((f"rd_qcif_{label}", enc, payloads, launches,
+                    pool.apply_async(cpu_decode, (b"".join(payloads),))))
+    return out
+
+
+def rd_decode_phase(streams) -> dict:
+    """Phase 36: the streams of phases 34-35 decoded on the card, each
+    equal to its encoder's recon and to its CPU decode, one launch per
+    kernel and picture; the pictures with I_PCM MBs handed to the Python
+    parser (CAVLC I / P) and intra recon. streams: (label, encoder,
+    payloads, CPU decode job). Returns the launches of each decode by
+    name."""
+    out = {}
+    for label, enc, payloads, job in streams:
+        n_b = sum(r["type"] == "B" for r in enc.results)
+        out[f"{label}_decode"] = card_decode(
+            payloads, enc, f"decode {label}",
+            cabac=enc.cfg.entropy == "cabac", b_parse=n_b,
+            ipcm=[r["type"] for r in enc.results if ipcm_mbs(r)])
+        t0 = time.perf_counter()
+        cpu = job.get()
+        got = [(r["frame"].Y, r["frame"].U, r["frame"].V)
+               for r in enc.results]
+        if len(cpu) != len(got) or any(
+                not np.array_equal(a[k], b[k]) for a, b in zip(cpu, got)
+                for k in range(3)):
+            raise AssertionError(f"decode {label}: the CPU decode differs")
+        print(f"decode {label}: the CPU decode equals the card's (CPU "
+              f"worker; waited {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    return out
+
+
+def rd_phases(frames, cpu_refs, pool) -> dict:
+    """Phases 34-36; returns the launches of each of their paths by name
+    (rdpd, rd_qcif_a..e, each also with _decode)."""
+    out = {}
+    enc, payloads, out["rdpd"], job = rdpd_1080p_phase(
+        frames, cpu_refs["rdpd"], pool)
+    streams = [("rdpd", enc, payloads, job)]
+    for label, cenc, cpay, launches, cjob in rd_qcif_phase(frames, cpu_refs,
+                                                           pool):
+        out[label] = launches
+        streams.append((label, cenc, cpay, cjob))
+    out.update(rd_decode_phase(streams))
+    return out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -2605,7 +2845,7 @@ def main() -> int:
           f"{native.build_seconds:.1f} s", flush=True)
     partial = sys.argv[1:] in (["--from", "18"], ["--from", "22"],
                                ["--from", "25"], ["--from", "28"],
-                               ["--from", "31"])
+                               ["--from", "31"], ["--from", "34"])
     first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
     pool = cpu_pool()
@@ -2622,24 +2862,52 @@ def main() -> int:
 
 
 def partial_run(frames, pool, refs, first: int) -> int:
-    """Phases first..33 (18, 22, 25, 28 or 31) without the closing JSON
-    lines; refs: their CPU references."""
+    """Phases first..36 (18, 22, 25, 28, 31 or 34) without the closing
+    JSON lines; refs: their CPU references."""
+    clock = PhaseClock()
     if first <= 18:
         later_phases(frames, None, refs)
+        clock.lap("18-21")
     if first <= 22:
         b_phases(frames, refs)
+        clock.lap("22-24")
     if first <= 25:
         wp_phases(frames, refs, pool)
+        clock.lap("25-27")
     if first <= 28:
         high_phases(frames, refs, pool, None)
-    motion_phases(frames, refs, pool, None)
-    print(f"phases {first}-33 passed (partial run: no closing lines)")
+        clock.lap("28-30")
+    if first <= 31:
+        motion_phases(frames, refs, pool, None)
+        clock.lap("31-33")
+    rd_phases(frames, refs, pool)
+    clock.lap("34-36")
+    clock.report()
+    print(f"phases {first}-36 passed (partial run: no closing lines)")
     return 0
 
 
+class PhaseClock:
+    """Wall seconds of each group of phases, from the end of the one
+    before (the first from the clock's start)."""
+
+    def __init__(self):
+        self.t0, self.laps = time.perf_counter(), []
+
+    def lap(self, phases: str) -> None:
+        t = time.perf_counter()
+        self.laps.append((phases, t - self.t0))
+        self.t0 = t
+
+    def report(self) -> None:
+        print("phase times: " + ", ".join(f"{p} {s:.1f} s"
+                                          for p, s in self.laps), flush=True)
+
+
 def full_run(frames, pool, cpu_refs, smi: str) -> int:
-    """Phases 2-33 and the closing lines; cpu_refs: the CPU references of
-    phases 4-33."""
+    """Phases 2-36 and the closing lines; cpu_refs: the CPU references of
+    phases 4-36."""
+    clock = PhaseClock()
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
     rng = np.random.default_rng(1)
@@ -2694,6 +2962,7 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
               f" us ({s['bound_by']}: {s['bytes']} B, {s['ops']} int ops), "
               f"1 launch/frame", flush=True)
     chain_steps(rng)
+    clock.lap("2")
 
     # ---- 3. encode -----------------------------------------------------
     cfg = EncoderConfig(width=W, height=H, qp=QP, search_range=16,
@@ -2745,13 +3014,14 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
                  "decode cross-check")
     print(f"decode cross-check: CPU IDR + P equal the CUDA decode "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-
+    clock.lap("3-7")
 
     # ---- 8-11. md_low, the scene cut, its decode, the all-modes RD
     low_enc, low_payloads, low_launches = md_low_phase(frames)
     cut_enc, cut_payloads, cut_launches = scene_cut_phase(frames)
     cut_dec_launches = cut_decode_phase(cut_enc, cut_payloads)
     rd_full_phase(enc, frames)
+    clock.lap("8-11")
 
     # ---- 12-13. CABAC encode and decode ------------------------------
     cab, cab_payloads, cab_launches = cabac_phase(frames, enc, payloads)
@@ -2765,6 +3035,7 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
                      low_enc, 2)
     check_cpu_encode("scene cut", cpu_refs["scene_cut"], cut_payloads,
                      cut_enc, CUT_FRAMES)
+    clock.lap("12-14")
 
     # ---- 15-17. slices, FMO, rate control, qp_p, POC types 1 / 2 ---
     ll_launches, ll_dec_launches = low_latency_phase(
@@ -2773,29 +3044,42 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
     crc_launches, crc_dec_launches = cabac_rc_phase(frames)
     for name in ("fmo_t1", "fmo_t3", "fmo_t5d1", "fmo_t6"):
         decode_golden(name)
+    clock.lap("15-17")
 
     # ---- 18-21. data partitions, long-term anchors, redundant
     # pictures, the loop filter off, SEI / VUI; the DP goldens ------
     later = later_phases(frames, rd_fps, cpu_refs)
+    clock.lap("18-21")
 
     # ---- 22-24. B pictures: 1080p encode and decode, the B goldens,
     # the CIF GOP variants ---------------------------------------------
     later.update(b_phases(frames, cpu_refs))
+    clock.lap("22-24")
 
     # ---- 25-27. weighted prediction: the 1080p weighted P picture,
     # the CIF weighted P / B streams, their decode and the WP goldens
     later.update(wp_phases(frames, cpu_refs, pool))
+    clock.lap("25-27")
 
     # ---- 28-30. the host pipeline and the High profile: the 1080p
     # High picture pair, the CIF host streams, their decode and the
     # High goldens ---------------------------------------------------
     later.update(high_phases(frames, cpu_refs, pool, payloads))
+    clock.lap("28-30")
 
     # ---- 31-33. the host coders' motion options and basic-unit RC:
     # the 1080p two-reference EPZS picture, the CIF streams (sub8x8,
     # UMHex, UMHex simple with long-term references, basic units,
     # the explicit sequence script), their decodes -------------------
     later.update(motion_phases(frames, cpu_refs, pool, payloads))
+    clock.lap("31-33")
+
+    # ---- 34-36. the RD tiers: the 1080p device-route stream with
+    # rd_picture_decision and the trellis, the QCIF host RD streams
+    # (rdo 1-4, errdo, I_PCM, the trellis), their decodes --------------
+    later.update(rd_phases(frames, cpu_refs, pool))
+    clock.lap("34-36")
+    clock.report()
 
     rows = []
     for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):

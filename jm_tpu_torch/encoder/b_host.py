@@ -3,7 +3,9 @@ _FrameEncoder._encode_b_mb (:3418-3528) with _b_pred_assemble (:3360),
 _mc_blk_b (:3351), _mc_chroma (:3326), _commit_inter_residual (:3409)
 and _code_luma_inter (:3114), for 4:2:0 frame pictures with one
 reference per list, flat quant or the custom quant of
-encoder/qmatrix.QuantCtx, the 4x4 or the adaptive 8x8 transform.
+encoder/qmatrix.QuantCtx, the 4x4 or the adaptive 8x8 transform, the
+trellis (rdoq: the 4x4 blocks, and the 8x8 blocks in CABAC, while the
+coder's IntraMBCoder._rdoq_on holds) and forced I_PCM (enable_ipcm 2).
 InterMBCoder holds the motion compensation and the inter residual that
 the P macroblock coder (encoder/p_host.py) shares.
 
@@ -38,8 +40,11 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..common.picture import MB_I16, MB_INTER
+from ..common.predict_ctx import CODE2RASTER
+from ..common.types import SliceType
 from ..decoder import b_slice as B
 from . import me as ME
+from . import rdoq as RQ
 from . import residual_np as RN
 from .p_intra import IntraMBCoder
 
@@ -88,7 +93,18 @@ class InterMBCoder(IntraMBCoder):
         res = o.astype(np.int64) - pred_y
         w4 = RN.np_forward4x4(res.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
                               .reshape(16, 4, 4))
-        scan4 = RN.to_scan(self._q4(w4, self.qp, False))
+        rdoq = self._rdoq_on
+        if rdoq:
+            # each block trellis quantized in coding order, its nnz stored
+            # for the next blocks' nC (jm_tpu :3124-3130)
+            scan4 = np.zeros((16, 16), np.int64)
+            for code in range(16):
+                blk = int(CODE2RASTER[code])
+                scan4[blk] = self._trellis_luma4(addr, w4[blk], blk,
+                                                 intra=False)
+                pic.luma_nnz[addr, blk] = int((scan4[blk] != 0).sum())
+        else:
+            scan4 = RN.to_scan(self._q4(w4, self.qp, False))
         total = 0
         for qb in ME.QUAD_BLKS:
             cq = sum(RN.coeff_cost_scan(scan4[b]) for b in qb)
@@ -98,6 +114,8 @@ class InterMBCoder(IntraMBCoder):
                 total += cq
         if total <= RN.LUMA_MB_COEFF_COST:
             scan4[:] = 0
+        if rdoq:
+            pic.luma_nnz[addr] = (scan4 != 0).sum(axis=1)
         pred_blocks = pred_y.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
             .reshape(16, 4, 4)
         rec = RN.recon_luma_4x4(pred_blocks, scan4, self.qp,
@@ -124,7 +142,15 @@ class InterMBCoder(IntraMBCoder):
         fourth level of its scan, whose count is the block's nnz."""
         w8 = RN.np_forward8x8(res.reshape(2, 8, 2, 8).transpose(0, 2, 1, 3)
                               .reshape(4, 8, 8))
-        scan8 = RN.to_scan8(self._q8(w8, self.qp, False))       # (4, 64)
+        if self._rdoq_on and self.rd.cabac:
+            # the trellis of 8x8 blocks is CABAC's (jm_tpu :3160-3169)
+            scan8 = np.zeros((4, 64), np.int64)
+            for q in range(4):
+                scan8[q] = RQ.trellis_8x8(
+                    RN.to_scan8(w8[q][None])[0], self.qp, False,
+                    self._rdoq_lam(), ctxs=self.cabac_rate.w.ctxs)
+        else:
+            scan8 = RN.to_scan8(self._q8(w8, self.qp, False))   # (4, 64)
         total = 0
         for q in range(4):
             c8 = RN.coeff_cost_scan(scan8[q], tab=RN.COEFF_COST8)
@@ -173,14 +199,16 @@ class InterMBCoder(IntraMBCoder):
 class BPicture(InterMBCoder):
     """One B picture coded MB by MB on the host: ``pic`` (PictureData)
     and the undeblocked recon planes recY / recU / recV (numpy uint8).
-    ``mix`` counts the MBs by decision (direct, skip, l0, l1, bi, i16;
-    t8: the inter MBs coded with the 8x8 transform)."""
+    ``mix`` counts the MBs by decision (direct, skip, l0, l1, bi, i16,
+    ipcm; t8: the inter MBs coded with the 8x8 transform)."""
+
+    stype = SliceType.B
 
     def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
                  ref0: HostRef, ref1: HostRef, col: B.ColMotion, sads0,
                  sads1, slices, sr: int, wp=None, transform8x8=False,
                  qctx=None, ar_period: int = 0, searchers=None,
-                 subpel_satd: bool = True):
+                 subpel_satd: bool = True, rd=None):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
         lambda_me and lambda_mode4 of qp; ref0 / ref1: list0[0] and
         list1[0]; col: list1[0]'s motion; sads0 / sads1: the
@@ -192,7 +220,10 @@ class BPicture(InterMBCoder):
         searchers: for each list a maker of its EPZS / UMHex searcher
         from the list's motion field (encoder/me_epzs.py), or None for
         the full search; subpel_satd: SATD (else SAD) in the fractional
-        search."""
+        search; rd: the RD tools (rdo.RDOptions; a B picture has no RD
+        tier: forced I_PCM and, in CAVLC, the trellis act)."""
+        if rd is not None:
+            self.rd = rd
         self._init_picture(orig, qp, qpc)
         self.lam, self.lam4, self.wp = lam, lam4, wp
         self.transform8x8 = transform8x8
@@ -206,7 +237,7 @@ class BPicture(InterMBCoder):
         self.recU = np.zeros_like(self.origU)
         self.recV = np.zeros_like(self.origV)
         self.mix = dict.fromkeys(("direct", "skip", "l0", "l1", "bi",
-                                  "i16", "t8"), 0)
+                                  "i16", "ipcm", "t8"), 0)
         self._code_slices(slices, self._encode_b_mb)
 
     # ---- prediction -------------------------------------------------------
@@ -272,6 +303,12 @@ class BPicture(InterMBCoder):
 
     def _encode_b_mb(self, addr: int) -> None:
         pic, lam = self.pic, self.lam
+        if self.rd.enable_ipcm >= 2:         # forced I_PCM (:3425-3429)
+            self._commit_ipcm(addr)
+            pic.pdir[addr] = -1
+            pic.ref_idx_l1[addr] = -1
+            self.mix["ipcm"] += 1
+            return
         px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
         origY_mb = self._mb_orig(addr)[0]
         o = origY_mb.astype(np.int32)

@@ -132,3 +132,79 @@ def write_residual_block(bw: BitWriter, coeffs_scan: np.ndarray, nc: int,
         bw.u(_RUN_COD[vlc][run], _RUN_LEN[vlc][run])
         zeros_left -= run
     return total_coeff
+
+
+def _level_bits(level: int, suffix_len: int, adjust: bool) -> int:
+    """The length of one non-trailing level as _write_level writes it."""
+    level_code = 2 * level - 2 if level > 0 else -2 * level - 1
+    if adjust:
+        level_code -= 2
+    if suffix_len == 0:
+        if level_code < 14:
+            return level_code + 1
+        if level_code < 30:
+            return 19
+        if level_code < 30 + 4096:
+            return 28
+    else:
+        prefix = level_code >> suffix_len
+        if prefix < 15:
+            return prefix + 1 + suffix_len
+        if level_code - (15 << suffix_len) < 4096:
+            return 28
+    raise NotImplementedError("extended level prefix >= 16")
+
+
+def residual_block_bits(coeffs, nc: int, max_coeff: int) -> int:
+    """The number of bits write_residual_block writes for coeffs (a
+    sequence of ints in scan order), counted without writing them: the
+    rate of the trellis and of the RD mode decision."""
+    nz = [i for i in range(max_coeff) if coeffs[i]]
+    total_coeff = len(nz)
+    trailing = 0
+    for idx in reversed(nz):
+        if coeffs[idx] in (1, -1) and trailing < 3:
+            trailing += 1
+        else:
+            break
+    if nc >= 8:
+        bits = 6
+    else:
+        if nc >= 0:
+            lentab = _CT_LEN[0 if nc < 2 else (1 if nc < 4 else 2)]
+        else:
+            lentab = _CT_DC_LEN[0 if nc == -1 else 1]
+        bits = lentab[trailing][total_coeff]
+        if bits == 0:
+            raise ValueError(f"invalid coeff_token tc={total_coeff} "
+                             f"t1={trailing}")
+    if total_coeff == 0:
+        return bits
+    bits += trailing
+    suffix_len = 1 if (total_coeff > 10 and trailing < 3) else 0
+    first = True
+    for idx in reversed(nz[:total_coeff - trailing]):
+        level = int(coeffs[idx])
+        bits += _level_bits(level, suffix_len, first and trailing < 3)
+        first = False
+        if suffix_len == 0:
+            suffix_len = 1
+        if abs(level) > (3 << (suffix_len - 1)) and suffix_len < 6:
+            suffix_len += 1
+    total_zeros = nz[-1] + 1 - total_coeff
+    if total_coeff < max_coeff:
+        vlcnum = total_coeff - 1
+        if max_coeff == 4:
+            bits += _TZ_DC_LEN[0][vlcnum][total_zeros]
+        elif max_coeff == 8:
+            bits += _TZ_DC_LEN[1][vlcnum][total_zeros]
+        else:
+            bits += _TZ_LEN[vlcnum][total_zeros]
+    zeros_left = total_zeros
+    for j in range(total_coeff - 1, 0, -1):
+        if zeros_left <= 0:
+            break
+        run = nz[j] - nz[j - 1] - 1
+        bits += _RUN_LEN[min(zeros_left, 7) - 1][run]
+        zeros_left -= run
+    return bits

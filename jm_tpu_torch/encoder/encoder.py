@@ -18,17 +18,22 @@ pipelined ``encode_stream`` and its per-frame ``encode_frame``).
 
 Each picture takes the route jm_tpu gives it (``_device_path_ok``,
 ``_device_i_path_ok``): with pipeline="device" and neither custom quant
-nor the 8x8 transform, I pictures of one slice and P pictures without
-weighted prediction, sub-8x8 partitions or basic units and with one
-active reference are coded on the device as below; every other
-picture, and every picture with pipeline="host", is coded MB by MB by
-the serial host coders (encoder/intra_host.py, p_host.py, b_host.py),
-deblocked on the device all the same.
+nor the 8x8 transform, an RD tier (rdo) or I_PCM, I pictures of one
+slice and P pictures without weighted prediction, sub-8x8 partitions,
+basic units or simulated lossy decoders and with one active reference
+are coded on the device as below; every other picture, and every
+picture with pipeline="host", is coded MB by MB by the serial host
+coders (encoder/intra_host.py, p_host.py, b_host.py, with the RD tools
+of encoder/rdo.py, rdoq.py and errdo.py), deblocked on the device all
+the same. With rd_picture_decision each picture after the first is
+coded, on its route, at QP, QP - 1 and QP + 1, each coding deblocked,
+and the coding of least frame-level J = SSD + lambda_mode(QP) 8 bytes
+ships (not under rate control, as in jm_tpu).
 
 The pipe (``encode_stream`` of a CAVLC stream without B pictures, with
 one slice per picture, a fixed QP, no intra refresh, the loop filter on,
-no long-term anchors, no data partitioning and no weighted prediction,
-whatever its POC type):
+no long-term anchors, no data partitioning, no weighted prediction, no
+trellis and no rd_picture_decision, whatever its POC type):
   - IDR frames: ops/intra.i_frame_step on the device, then boundary
     strengths + deblock (the CUDA kernels on the card), then the host
     CAVLC serializer (encoder/syntax.py) with SPS / PPS;
@@ -140,7 +145,7 @@ from ..bitstream.bitwriter import BitWriter
 from ..bitstream.nal import NalUnitType, annexb_bytes
 from ..common.conformance import level_check, minimum_level
 from ..common.fmo import mb_to_slice_group_map
-from ..common.picture import MB_I16, MB_INTER, PictureData
+from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.tables import chroma_qp
 from ..common.types import PPS, SPS, SliceType
 from ..convert import qpc_tables
@@ -159,7 +164,8 @@ from .me_umhex import UMHexSearcher, UMHexSmpSearcher
 from .p_host import PPicture
 from .p_intra import CORE_FIELDS, PictureCommit
 from .qmatrix import QuantCtx, default_offsets, to_zigzag4, to_zigzag8
-from .rdo import count_mb_bits
+from .errdo import ErrdoState
+from .rdo import RDOptions, count_mb_bits, lambda_mode
 from .sei_write import (build_sei_rbsp, recovery_point,
                         user_data_unregistered)
 from .syntax import (serialize_slice, serialize_slice_dp, write_pps,
@@ -177,12 +183,6 @@ def lambda_me(qp: int) -> int:
 def lambda_mode4(qp: int) -> int:
     """Penalty unit for non-most-probable intra-4x4 modes (4 lambda_me)."""
     return 4 * lambda_me(qp)
-
-
-def lambda_mode(qp: int) -> float:
-    """The SSD-domain Lagrange multiplier 0.85 * 2^((QP-12)/3) (lencod
-    lambda.c; jm_tpu/encoder/rdo.py lambda_mode), float64."""
-    return 0.85 * 2.0 ** ((qp - 12) / 3.0)
 
 
 @dataclass
@@ -203,7 +203,10 @@ class EncoderConfig:
     offsets and adaptive rounding; the host coders' motion options: up
     to 16 list-0 references, P8x8 sub-partitions, SAD or SATD in the
     fractional search, the full, UMHex, UMHex simple or EPZS search with
-    HME predictors. Values outside it raise ValueError,
+    HME predictors; the RD tiers: rdo 0-4 (tier 3 with num_decoders /
+    loss_rate_a), the trellis (rdoq with rdoq_dc, rdoq_cr, rdoq_dc_cr),
+    I_PCM (enable_ipcm 1 or 2) and rd_picture_decision. Values outside it
+    raise ValueError,
     as do jm_tpu's refusals with B pictures (POC types 1 / 2, FMO), FMO
     in profile 77 (weighted prediction) or 100 (the 8x8 transform,
     scaling matrices) without data partitioning, and scaling matrices
@@ -322,6 +325,24 @@ class EncoderConfig:
                                  # simple, 3 EPZS (SearchMode)
     hme: bool = False            # HME pyramid predictors for those
                                  # searchers (HMEEnable)
+    # the RD tiers (a picture with rdo, I_PCM or the lossy decoders is
+    # coded by the host coders, as in jm_tpu)
+    rdo: int = 0                 # RDOptimization: 0 cost-based, 1 md_high,
+                                 # 2 md_highfast, 3 md_highloss, 4
+                                 # md_high_updated (trial codings by J)
+    rdoq: int = 0                # trellis quantization (UseRDOQuant)
+    rdoq_dc: int = 0             # ... of the Intra16x16 DC blocks (RDOQ_DC)
+    rdoq_cr: int = 0             # ... of chroma AC (RDOQ_CR)
+    rdoq_dc_cr: int = 0          # ... of chroma DC (RDOQ_DC_CR)
+    enable_ipcm: int = 0         # 1: I_PCM an RD candidate, 2: every MB
+                                 # I_PCM (EnableIPCM)
+    rd_picture_decision: bool = False  # code each picture after the first
+                                 # at QP, QP - 1 and QP + 1 and keep the
+                                 # least frame J (RDPictureDecision; not
+                                 # under rate control)
+    num_decoders: int = 0        # rdo 3's simulated lossy decoders
+    loss_rate_a: int = 0         # their picture loss rate, percent
+                                 # (NumberOfDecoders / LossRateA)
 
 
 def _profile(cfg: EncoderConfig) -> int:
@@ -342,7 +363,7 @@ def _profile(cfg: EncoderConfig) -> int:
 def _check_config(cfg: EncoderConfig) -> None:
     for name in ("device_rd", "cabac_adapt_init", "rc_enable", "deblock",
                  "enable_vui", "transform8x8", "adaptive_rounding", "sub8x8",
-                 "subpel_satd", "hme"):
+                 "subpel_satd", "hme", "rd_picture_decision"):
         if not isinstance(getattr(cfg, name), bool):
             raise ValueError(f"EncoderConfig.{name}="
                              f"{getattr(cfg, name)!r}: True or False")
@@ -377,7 +398,11 @@ def _check_config(cfg: EncoderConfig) -> None:
         raise ValueError(f"EncoderConfig.rc_initial_qp={cfg.rc_initial_qp}:"
                          " outside 0..51")
     for name, lo, hi in (("rc_basic_unit", 0, None), ("num_ref", 1, 16),
-                         ("search_mode", -1, 3)):
+                         ("search_mode", -1, 3), ("rdo", 0, 4),
+                         ("rdoq", 0, 1), ("rdoq_dc", 0, 1),
+                         ("rdoq_cr", 0, 1), ("rdoq_dc_cr", 0, 1),
+                         ("enable_ipcm", 0, 2), ("num_decoders", 0, None),
+                         ("loss_rate_a", 0, 100)):
         v = getattr(cfg, name)
         if not isinstance(v, int) or isinstance(v, bool) or v < lo or (
                 hi is not None and v > hi):
@@ -616,8 +641,11 @@ class Encoder:
     the per-frame path; cabac_init_idc: the context model of each CABAC
     P or B slice; for B pictures ref: whether it is a reference, split:
     the wall seconds of its device search tables, host MB loop, device
-    deblock + prep_ref and host serializer, mix: its MB decisions).
-    ``refs`` is the DPB, most recent first."""
+    deblock + prep_ref and host serializer, mix: its MB decisions; for
+    I pictures mb_classes: the MBs coded Intra4x4, Intra16x16 and I_PCM;
+    with rd_picture_decision, for each picture after the first, trials:
+    each coding's QP, bytes, frame J and wall ms, the QP shipped being
+    ``qp``). ``refs`` is the DPB, most recent first."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
@@ -733,6 +761,15 @@ class Encoder:
         self._pending = []            # (disp, frame) of the Bs held back
         self._cra_poc = None          # POC of the last open-GOP I
         self.num_ref_active = 1       # list0 entries of the P picture coded
+        # rdo 3's simulated lossy decoders, advanced once per anchor
+        self.errdo = ErrdoState(cfg.num_decoders, cfg.loss_rate_a,
+                                cfg.height, cfg.width) \
+            if cfg.num_decoders > 0 and cfg.loss_rate_a > 0 else None
+        self.rd = RDOptions(
+            rdo=cfg.rdo, rdoq=cfg.rdoq, rdoq_dc=cfg.rdoq_dc,
+            rdoq_cr=cfg.rdoq_cr, rdoq_dc_cr=cfg.rdoq_dc_cr,
+            enable_ipcm=cfg.enable_ipcm, cabac=cabac, sps=self.sps,
+            pps=self.pps, errdo=self.errdo)
 
     def _init_quant(self) -> None:
         """Custom quant (jm_tpu encoder.py:374-425): the raster scaling
@@ -794,10 +831,10 @@ class Encoder:
                         else 0)
 
     def _quant_kw(self, kind: str) -> dict:
-        """The host coders' quant keywords for a coding of slice type
-        kind."""
+        """The host coders' quant and RD keywords for a coding of slice
+        type kind."""
         return dict(qctx=self._qctx(kind),
-                    ar_period=self.cfg.adapt_rnd_period)
+                    ar_period=self.cfg.adapt_rnd_period, rd=self.rd)
 
     def _device_path_ok(self, weighted: bool = False,
                         basic_units: bool = False) -> bool:
@@ -805,23 +842,27 @@ class Encoder:
         _FrameEncoder._device_path_ok, encoder.py:2070): the device
         pipeline, flat quant, no weighted prediction (weighted: its table
         is in use), the 4x4 transform, one active reference, no sub-8x8
-        partitions and no basic units of rate control (basic_units: the
-        picture has them). search_mode and hme are no terms, as in
-        jm_tpu: the device route searches its own way whatever they
-        say."""
+        partitions, no basic units of rate control (basic_units: the
+        picture has them), no RD tier, no I_PCM and no simulated lossy
+        decoders. search_mode, hme and rdoq are no terms, as in jm_tpu:
+        the device route searches its own way, and with rdoq only the
+        host re-encode of its intra MBs takes the trellis (in CAVLC)."""
         cfg = self.cfg
         return (cfg.pipeline == "device" and not self.quant_custom
                 and not weighted and not cfg.transform8x8
                 and self.num_ref_active == 1 and not cfg.sub8x8
-                and not basic_units)
+                and not basic_units and not cfg.rdo
+                and cfg.enable_ipcm == 0 and self.errdo is None)
 
     def _device_i_path_ok(self, plan) -> bool:
         """Whether an I picture is coded on the device (jm_tpu
         _device_i_path_ok, encoder.py:2091): the device pipeline, flat
-        quant, one slice in plan, the 4x4 transform."""
+        quant, one slice in plan, the 4x4 transform, no RD tier and no
+        I_PCM (rdoq is no term: the device I picture has no trellis)."""
         cfg = self.cfg
         return (cfg.pipeline == "device" and not self.quant_custom
-                and len(plan) == 1 and not cfg.transform8x8)
+                and len(plan) == 1 and not cfg.transform8x8
+                and not cfg.rdo and cfg.enable_ipcm == 0)
 
     def _build_slice_plan(self) -> list:
         """Decode-order MB address lists, one per slice: the slice groups
@@ -851,9 +892,10 @@ class Encoder:
         no sub-8x8 partitions) with one reference (num_ref 1),
         in CAVLC without B pictures, with one slice group and no slice
         mode, a fixed QP, no intra refresh, the loop filter on, no
-        long-term anchors and no data partitioning, any POC type, with or
-        without redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI
-        (jm_tpu _pipe_ok); everything else takes the per-frame path."""
+        long-term anchors, no data partitioning, no trellis and no
+        rd_picture_decision, any POC type, with or without
+        redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI (jm_tpu
+        _pipe_ok); everything else takes the per-frame path."""
         cfg = self.cfg
         return (self._device_path_ok(weighted=bool(cfg.weighted_pred))
                 and cfg.num_ref == 1
@@ -861,7 +903,8 @@ class Encoder:
                 and cfg.intra_mb_refresh == 0
                 and cfg.slice_mode == 0 and cfg.num_slice_groups == 1
                 and self.rc is None and cfg.qp_p is None and cfg.deblock
-                and cfg.long_term_period == 0 and cfg.data_partition == 0)
+                and cfg.long_term_period == 0 and cfg.data_partition == 0
+                and not cfg.rdoq and not cfg.rd_picture_decision)
 
     # ------------------------------------------------------------------
 
@@ -1395,11 +1438,17 @@ class Encoder:
         else:
             lt, hdr, victims = self._anchor_marking(poc, intra=True)
         planes = self._planes(packed)
-        coded, (nal, _info), plan = self._fit_slices(
-            lambda plan: self._code_i(planes, frame, qp, plan),
-            lambda pic, plan, sizes: self._picture_nals(
-                pic, SliceType.I, poc, qp, plan, sizes, idr=idr, **hdr))
-        dY, dU, dV = self._loop_filter(coded.rec, coded.pic)
+        trials = _Trials(self, planes, qp)
+        for q in trials.qps:
+            trials.start()
+            coded, (nal, _info), plan = self._fit_slices(
+                lambda plan, q=q: self._code_i(planes, frame, q, plan),
+                lambda pic, plan, sizes, q=q: self._picture_nals(
+                    pic, SliceType.I, poc, q, plan, sizes, idr=idr, **hdr))
+            trials.add(q, nal, self._loop_filter(coded.rec, coded.pic),
+                       coded, plan)
+        qp, nal, (dY, dU, dV), (coded, plan) = trials.best()
+        self._errdo_update(coded.pic, dY)
         payload = b""
         if idr:
             payload = (annexb_bytes(3, NalUnitType.SPS,
@@ -1429,9 +1478,13 @@ class Encoder:
         self._store_ref(frame, long_term=lt)
         self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
         self.frame_idx += 1
+        classes = coded.pic.mb_class
         self.results.append({"disp": disp, "type": "I",
                              "bits": len(payload) * 8, "frame": frame,
-                             "qp": qp, "slices": len(plan)})
+                             "qp": qp, "slices": len(plan),
+                             "mb_classes": {k: int((classes == c).sum())
+                                            for k, c in _INTRA_CLASSES},
+                             **trials.info()})
         return payload
 
     def _code_i(self, planes, frame, qp: int, plan):
@@ -1549,25 +1602,34 @@ class Encoder:
         poc = 2 * (disp - self._idr_disp)
         ref = self._ref_list_p(poc)[0]
         lt, hdr, victims = self._anchor_marking(poc)
-        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
-        host = self._download_core(core)
-        c, (nal, info), plan = self._fit_slices(
-            lambda plan: self._commit_p(host, frame, forced, qp, qpc, plan),
-            lambda pic, plan, sizes: self._serialize_p(pic, disp, qp, plan,
-                                                       sizes, **hdr))
-        c.pic.ref_pic_id[c.pic.ref_pic_id >= 0] = ref.uid
-        state = self._deblock_p(c)
+        trials = _Trials(self, None if packed is None
+                         else self._planes(packed), qp)
+        for i, q in enumerate(trials.qps):
+            trials.start()
+            qpc = chroma_qp(q, self.pps.chroma_qp_index_offset)
+            host = self._download_core(core if i == 0
+                                       else self._p_step(packed, ref, q))
+            c, (nal, info), plan = self._fit_slices(
+                lambda plan, q=q, qpc=qpc, host=host: self._commit_p(
+                    host, frame, forced, q, qpc, plan),
+                lambda pic, plan, sizes, q=q: self._serialize_p(
+                    pic, disp, q, plan, sizes, **hdr))
+            c.pic.ref_pic_id[c.pic.ref_pic_id >= 0] = ref.uid
+            dec, state = self._deblock_p(c)
+            trials.add(q, nal, dec, c, info, plan, state)
+        qp, nal, dec, (c, info, plan, state) = trials.best()
+        self._errdo_update(c.pic, dec[0])
         if cfg.redundant_period and \
                 self.frame_idx % cfg.redundant_period == 0:
             nal += self._redundant(packed, frame, poc, qp, ref, red_core)
         if self.rc is not None:
-            self._rc_update("P", qp, nal, self._planes(packed)[0],
-                            state[0][0][E.PAD:-E.PAD, E.PAD:-E.PAD])
+            self._rc_update("P", qp, nal, self._planes(packed)[0], dec[0])
         return self._commit_p_frame(nal, disp, state, qp, len(plan),
                                     long_term=lt, victims=victims,
                                     motion=_motion(c.pic),
                                     intra_mbs=len(c.intra_mbs),
-                                    ref_poc=ref.poc, **info)
+                                    ref_poc=ref.poc, **info,
+                                    **trials.info())
 
     def _wp_tables(self, frame, refs) -> list:
         """The explicit weight tables a weighted P picture is coded with
@@ -1611,7 +1673,6 @@ class Encoder:
         poc = 2 * (disp - self._idr_disp)
         refs = self._ref_list_p(poc)
         lt, hdr, victims = self._anchor_marking(poc)
-        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
         frame = tuple(np.asarray(p, np.uint8) for p in frame)
         split = {}
         t = time.perf_counter()
@@ -1629,26 +1690,32 @@ class Encoder:
         sads, blk4 = self._search_tables(planes[0], refs)
         split["sad_s"] = time.perf_counter() - t
         split["host_mb_s"] = split["serialize_s"] = split["deblock_s"] = 0.0
-        best = None
-        for table in tables:
+        trials = _Trials(self, planes, qp, extra=len(tables) - 1)
+        # rd_picture_decision's QPs with the first table, then wp_mcprec's
+        # tables at qp (jm_tpu :1281-1303)
+        codings = [(q, tables[0]) for q in trials.qps] + \
+            [(qp, t) for t in tables[1:]]
+        for q, table in codings:
+            trials.start()
             wp = None if table is None else build_wp_params(
                 SliceType.P, self.pps, refs, [], poc, wp_l0=table)
 
-            def code(plan, wp=wp):
+            def code(plan, q=q, wp=wp):
                 t0 = time.perf_counter()
-                c = PPicture(frame, qp, qpc, lambda_me(qp), lambda_mode4(qp),
-                             hosts, sads, plan, cfg.search_range, forced, wp,
-                             transform8x8=cfg.transform8x8, blk4=blk4,
-                             searcher=self._searcher(frame[0], refs, qp),
-                             sub8x8=cfg.sub8x8, subpel_satd=cfg.subpel_satd,
-                             units=_BasicUnits(self, qp) if units else None,
-                             **self._quant_kw("P"))
+                c = PPicture(frame, q, chroma_qp(
+                    q, self.pps.chroma_qp_index_offset), lambda_me(q),
+                    lambda_mode4(q), hosts, sads, plan, cfg.search_range,
+                    forced, wp, transform8x8=cfg.transform8x8, blk4=blk4,
+                    searcher=self._searcher(frame[0], refs, q),
+                    sub8x8=cfg.sub8x8, subpel_satd=cfg.subpel_satd,
+                    units=_BasicUnits(self, q) if units else None,
+                    **self._quant_kw("P"))
                 split["host_mb_s"] += time.perf_counter() - t0
                 return c
 
-            def serialize(pic, plan, sizes, table=table):
+            def serialize(pic, plan, sizes, q=q, table=table):
                 t0 = time.perf_counter()
-                out = self._serialize_p(pic, disp, qp, plan, sizes,
+                out = self._serialize_p(pic, disp, q, plan, sizes,
                                         wp_l0=table, **hdr)
                 split["serialize_s"] += time.perf_counter() - t0
                 return out
@@ -1656,15 +1723,10 @@ class Encoder:
             c, (nal, info), plan = self._fit_slices(code, serialize)
             t = time.perf_counter()
             dec = self._loop_filter(c.rec, c.pic)
-            j = 0.0
-            if len(tables) > 1:
-                ssd = sum(int(((s.to(torch.int64) - d.to(torch.int64)) ** 2)
-                              .sum()) for s, d in zip(planes, dec))
-                j = float(ssd) + lambda_mode(qp) * 8 * len(nal)
+            trials.add(q, nal, dec, c, info, plan, table)
             split["deblock_s"] += time.perf_counter() - t
-            if best is None or j < best[0]:
-                best = (j, c, nal, info, plan, dec, table)
-        _j, c, nal, info, plan, dec, table = best
+        qp, nal, dec, (c, info, plan, table) = trials.best()
+        self._errdo_update(c.pic, dec[0])
         t = time.perf_counter()
         state = E.prep_ref(*dec)
         if self.device.type == "cuda":
@@ -1683,11 +1745,12 @@ class Encoder:
         return self._commit_p_frame(nal, disp, state, qp, len(plan),
                                     long_term=lt, victims=victims,
                                     motion=_motion(c.pic),
-                                    intra_mbs=c.mix["i16"],
+                                    intra_mbs=sum(c.mix[k] for k in (
+                                        "i16", "i4", "ipcm")),
                                     ref_poc=refs[0].poc, wp_l0=table,
                                     split=split, mix=c.mix,
                                     mb_parts=c.part_s, ref1=c.ref1,
-                                    evals=c.evals, **info)
+                                    evals=c.evals, **info, **trials.info())
 
     def _search_tables(self, srcY, refs):
         """The full search's integer tables against each reference on
@@ -1747,7 +1810,7 @@ class Encoder:
                          transform8x8=cfg.transform8x8, blk4=blk4,
                          searcher=self._searcher(frame[0], [ref], qp_r),
                          sub8x8=cfg.sub8x8, subpel_satd=cfg.subpel_satd,
-                         **self._quant_kw("P"))
+                         num_ref=self.num_ref_active, **self._quant_kw("P"))
         return annexb_bytes(0, NalUnitType.SLICE, self._serialize_redundant(
             c.pic, poc, qp_r))
 
@@ -1766,13 +1829,22 @@ class Encoder:
         return {k: core[k].cpu().numpy() for k in CORE_FIELDS}
 
     def _commit_p(self, core, frame, forced, qp, qpc, plan) -> PictureCommit:
-        return PictureCommit(core, frame, qp, qpc, forced, plan)
+        return PictureCommit(core, frame, qp, qpc, forced, plan, rd=self.rd)
 
     def _deblock_p(self, c: PictureCommit):
         """The committed picture's boundary strengths, deblock (unless the
         loop filter is off) and reference prep on the device; returns the
-        reference state."""
-        return E.prep_ref(*self._loop_filter(c.rec, c.pic))
+        deblocked planes and the reference state."""
+        dec = self._loop_filter(c.rec, c.pic)
+        return dec, E.prep_ref(*dec)
+
+    def _errdo_update(self, pic: PictureData, rec_y) -> None:
+        """Advance rdo 3's simulated lossy decoders past the anchor that
+        ships (pic, its deblocked luma on the device), once per anchor
+        (jm_tpu encoder.py:1378)."""
+        if self.errdo is not None:
+            self.errdo.update(pic, rec_y.cpu().numpy(), self.mb_w,
+                              is_ref=True)
 
     def _serialize_p(self, pic: PictureData, disp: int, qp: int, plan,
                      sizes=None, **hdr):
@@ -1899,6 +1971,10 @@ class Encoder:
         return pic
 
 
+# results' names of the intra MB classes
+_INTRA_CLASSES = (("i4", MB_I4), ("i16", MB_I16), ("ipcm", MB_IPCM))
+
+
 def _qp_unsent(pic: PictureData, plan, slice_qp: int) -> int:
     """The MBs of a picture coded in basic units whose pic.qp is not the
     QP a decoder derives for them: MBs that send no mb_qp_delta (P_Skip,
@@ -1923,6 +1999,49 @@ def _motion(pic: PictureData) -> tuple:
             pic.ref_pic_id_l1)
 
 
+class _Trials:
+    """The codings of one anchor among which rd_picture_decision and
+    wp_mcprec choose (jm_tpu _emit_anchor :1281-1345): ``qps``, the QPs
+    to code it at (qp, qp - 1 and qp + 1, clamped to 0..51, after the
+    first picture without rate control, else qp alone), and extra
+    codings at qp (wp_mcprec's tables). add() takes each coding's slice
+    NAL units, its deblocked planes on the device and what the caller
+    keeps of it; best() the coding of least frame J = SSD of the
+    deblocked Y + U + V against the source planes + lambda_mode(qp) 8
+    bytes (the first on a tie), as (its QP, NAL units, deblocked planes,
+    the kept tuple); info() results' record of the codings, when there
+    are several: each one's QP, bytes, J and wall ms."""
+
+    def __init__(self, enc: Encoder, planes, qp: int, extra: int = 0):
+        self.planes, self.qp = planes, qp
+        self.qps = [qp]
+        if enc.cfg.rd_picture_decision and enc.frame_idx > 0 \
+                and enc.rc is None:
+            self.qps = [qp, max(0, qp - 1), min(51, qp + 1)]
+        self.several = len(self.qps) + extra > 1
+        self.rows, self._best, self._t0 = [], None, 0.0
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def add(self, q: int, nal: bytes, dec, *keep) -> None:
+        j = 0.0
+        if self.several:
+            ssd = sum(int(((s.to(torch.int64) - d.to(torch.int64)) ** 2)
+                          .sum()) for s, d in zip(self.planes, dec))
+            j = float(ssd) + lambda_mode(self.qp) * 8 * len(nal)
+            self.rows.append({"qp": q, "bytes": len(nal), "j": j,
+                              "ms": (time.perf_counter() - self._t0) * 1e3})
+        if self._best is None or j < self._best[0]:
+            self._best = (j, q, nal, dec, keep)
+
+    def best(self):
+        return self._best[1:]
+
+    def info(self) -> dict:
+        return {"trials": self.rows} if self.rows else {}
+
+
 class _Coded:
     """A picture coded on the device: its PictureData and (Y, U, V)
     undeblocked recon planes, device tensors."""
@@ -1936,7 +2055,9 @@ class _BasicUnits:
     host P coder's ``units``; jm_tpu _FrameEncoder.encode :2179-2203): a
     ratectl.BasicUnitRC from the picture's QP and rate control's target
     bits, each MB's QP with its chroma QP and lambdas, and each coded
-    MB's bits counted by rdo.count_mb_bits."""
+    MB's bits counted by rdo.count_mb_bits (arithmetic-coded bits in a
+    CABAC picture whose RD tools installed a running engine, as in
+    jm_tpu)."""
 
     def __init__(self, enc: Encoder, qp: int):
         self.rc = BasicUnitRC(qp, enc.rc.target, enc.mb_w * enc.mb_h,
@@ -1949,6 +2070,9 @@ class _BasicUnits:
         return (q, chroma_qp(q, self.pps.chroma_qp_index_offset),
                 lambda_me(q), lambda_mode4(q))
 
-    def report(self, pic: PictureData, addr: int, qp: int) -> None:
-        self.rc.report(count_mb_bits(pic, self.sps, self.pps, qp, addr,
-                                     SliceType.P, self.num_ref))
+    def report(self, coder, addr: int) -> None:
+        """Report MB addr of the host P coder `coder` (at its running QP;
+        counted by its slice's CABAC engine where one is installed)."""
+        self.rc.report(count_mb_bits(coder.pic, self.sps, self.pps,
+                                     coder.qp, addr, SliceType.P,
+                                     self.num_ref, coder.cabac_rate))

@@ -56,18 +56,6 @@ _H4 = np.array([[1, 1, 1, 1],
                 [1, -1, 1, -1]], np.int32)
 
 
-def satd(diff: np.ndarray) -> int:
-    """4x4 Hadamard SATD of a residual block (lencod me_distortion.c
-    HadamardSAD4x4:175): sum |H d H^T| >> 1, tiled over the block, as
-    two batched 4x4 matrix products (jm_tpu's einsum of the same sum is
-    several times slower on such small tiles, and this runs for every
-    candidate of the fractional search); a coefficient is at most
-    16 x 255, so int32 holds it exactly."""
-    bh, bw = diff.shape
-    d = diff.reshape(bh // 4, 4, bw // 4, 4).transpose(0, 2, 1, 3)
-    return int(np.abs(_H4 @ d @ _H4.T).sum() >> 1)
-
-
 # se(v) bit length by |quarter-pel value| (the mvd rate table)
 _SE_BITS_TAB = np.array(
     [1] + [2 * int(2 * a).bit_length() - 1 for a in range(1, 1 << 14)],
@@ -139,31 +127,43 @@ def subpel_refine(orig_blk: np.ndarray, planes, px: int, py: int,
                   qpel_start: bool = False):
     """Half- then quarter-pel refinement of one block around its integer
     MV (qpel_start: around a quarter-pel MV): 8 neighbours per step, the
-    4x4 Hadamard SATD (use_satd; else the SAD) plus lam * (mvd bits +
-    extra_bits). Returns (quarter-pel MV, cost)."""
+    4x4 Hadamard SATD (use_satd; lencod me_distortion.c
+    HadamardSAD4x4:175: sum |H d H^T| >> 1 over the block's 4x4 tiles;
+    else the SAD) plus lam * (mvd bits + extra_bits). Returns
+    (quarter-pel MV, cost). A step's 8 candidates are costed together,
+    their SATDs as batched 4x4 matrix products (jm_tpu's einsum of the
+    same sums is several times slower on such small tiles); a
+    coefficient is at most 16 x 255, so int32 holds it exactly."""
     o = orig_blk.astype(np.int32)
     bh, bw = o.shape
 
-    def cost_at(mvq):
-        d = o - mc_luma_block(planes, px * 4 + int(mvq[0]),
-                              py * 4 + int(mvq[1]), bw, bh, w, h)
-        dist = satd(d) if use_satd else int(np.abs(d).sum())
-        return dist + lam * (mv_bits(int(mvq[0] - pred_mv[0]),
-                                     int(mvq[1] - pred_mv[1])) + extra_bits)
+    def costs(mvs):
+        d = o[None] - np.stack([
+            mc_luma_block(planes, px * 4 + int(m[0]), py * 4 + int(m[1]),
+                          bw, bh, w, h) for m in mvs])
+        if use_satd:
+            t = d.reshape(len(mvs), bh // 4, 4, bw // 4, 4) \
+                .transpose(0, 1, 3, 2, 4)
+            dist = np.abs(_H4 @ t @ _H4.T).sum(axis=(1, 2, 3, 4)) >> 1
+        else:
+            dist = np.abs(d).sum(axis=(1, 2))
+        return [int(dist[i]) + lam * (mv_bits(int(m[0] - pred_mv[0]),
+                                             int(m[1] - pred_mv[1]))
+                                     + extra_bits)
+                for i, m in enumerate(mvs)]
 
     if qpel_start:
         best = np.asarray(int_mv, np.int32).copy()
     else:
         best = np.array([int_mv[0] * 4, int_mv[1] * 4], np.int32)
-    bcost = cost_at(best)
+    bcost = costs([best])[0]
     for step in (2, 1):
-        center = best.copy()
-        for dy in (-step, 0, step):
-            for dx in (-step, 0, step):
-                if dx == 0 and dy == 0:
-                    continue
-                mv = center + (dx, dy)
-                c = cost_at(mv)
-                if c < bcost:
-                    best, bcost = mv, c
+        # the 8 neighbours at once; the first of least cost replaces the
+        # centre when below it (the reference's sequential scan)
+        mvs = [best + (dx, dy) for dy in (-step, 0, step)
+               for dx in (-step, 0, step) if dx or dy]
+        c = costs(mvs)
+        i = min(range(8), key=c.__getitem__)
+        if c[i] < bcost:
+            best, bcost = mvs[i], c[i]
     return best, bcost

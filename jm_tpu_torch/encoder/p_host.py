@@ -1,7 +1,8 @@
 """The serial host P macroblock coder of the port: twin of
-jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_mb (:2706-2878) without
-an RD tier or I_PCM, with _commit_inter_p (:3019-3113) and its
-_code_luma_inter, for 4:2:0 frame pictures: one or several list-0
+jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_mb (:2706-2878) with
+its RD tiers _p_mode_rd and _highfast_intra_skip (:2905-3017),
+_commit_inter_p (:3019-3113) and its _code_luma_inter, for 4:2:0 frame
+pictures: one or several list-0
 references, P8x8 sub-partitions (sub8x8), the full search or the EPZS /
 UMHex searchers (encoder/me_epzs.py, me_umhex.py), the fractional
 search by SATD or SAD (subpel_satd), a QP per basic unit (basic-unit
@@ -10,9 +11,11 @@ encoder/qmatrix.QuantCtx, the 4x4 or the adaptive 8x8 transform. jm_tpu
 codes every P picture this way whose pipeline is "host", or whose coding
 its device path does not cover (several active references, sub-8x8
 partitions, basic-unit rate control, weighted prediction, custom quant,
-the 8x8 transform), and so does the port.
+the 8x8 transform, an RD tier, I_PCM, simulated lossy decoders), and so
+does the port.
 
 Per MB, in slice order (with basic units, at the QP of the MB's unit):
+  - with enable_ipcm 2, I_PCM;
   - an MB of the intra refresh set is coded Intra16x16 with its chroma;
   - else, for each partition mode (16x16, 16x8, 8x16, 8x8) and each of
     its partitions, for each reference r: the MV predictor (seeing the
@@ -31,9 +34,11 @@ Per MB, in slice order (with basic units, at the QP of the MB's unit):
     from the quadrant's quarter-pel MV; the quadrants in order, each
     seeing the sub-motion chosen before it; the 8x8 mode takes the
     sub-partitions when their total is below its own;
-  - P_Skip's prediction (reference 0), weighted, replaces it when its
-    SAD is not above it; Intra16x16 replaces both when its SAD + 2
-    lambda_mode4 is below;
+  - with rdo, the RD decision of _p_mode_rd over full codings of the
+    partition modes, the forced P_Skip, Intra16x16, Intra4x4 and, with
+    enable_ipcm, I_PCM; else P_Skip's prediction (reference 0),
+    weighted, replaces the mode when its SAD is not above it, and
+    Intra16x16 replaces both when its SAD + 2 lambda_mode4 is below;
 then the prediction of each 4x4 block from its quadrant's reference
 (quarter-pel luma, eighth-pel chroma), weighted by the slice's explicit
 table of that reference (decoder/wp.WPParams), the inter residual and
@@ -48,9 +53,11 @@ import time
 
 import numpy as np
 
-from ..common.picture import MB_INTER
+from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM
+from ..common.types import SliceType
 from . import me as ME
 from .b_host import InterMBCoder
+from .rdo import MBState, lambda_mode, mb_ssd
 
 # partition mode -> [(bx, by, bw, bh, quadrants)] in 4x4-block units
 PART_TABLE = {
@@ -62,25 +69,32 @@ PART_TABLE = {
 }
 # the rate term of each mode in the decision, in lambdas
 MODE_BITS = {0: 1, 1: 3, 2: 3, 3: 5 + 4}
-_MIX = ("skip", "p16x16", "p16x8", "p8x16", "p8x8", "i16", "t8")
+_MIX = ("skip", "p16x16", "p16x8", "p8x16", "p8x8", "i16", "i4", "ipcm",
+        "t8")
+_INTRA_MIX = {MB_I16: "i16", MB_I4: "i4", MB_IPCM: "ipcm"}
 
 
 class PPicture(InterMBCoder):
     """One P picture coded MB by MB on the host: ``pic`` (PictureData)
     and the undeblocked recon planes recY / recU / recV (numpy uint8).
     ``mix`` counts the MBs by decision (skip, p16x16, p16x8, p8x16,
-    p8x8, i16: intra, forced or chosen; t8: the inter MBs coded with the
-    8x8 transform); ``ref1`` the partitions (and sub-8x8 quadrants) coded
-    from a reference other than reference 0; ``part_s`` the wall seconds
-    of the MB loop's parts: the partition-mode search, the skip
-    candidate, the intra evaluation and coding, the inter commit;
-    ``evals`` the searcher's SAD evaluations (0 under full search)."""
+    p8x8, i16: Intra16x16, forced or chosen, i4: Intra4x4, ipcm: I_PCM;
+    t8: the inter MBs coded with the 8x8 transform); ``ref1`` the
+    partitions (and sub-8x8 quadrants) coded from a reference other than
+    reference 0; ``part_s`` the wall seconds of the MB loop's parts: the
+    partition-mode search, the skip candidate, the intra evaluation and
+    coding, the inter commit, and with rdo the trial codings of the RD
+    decision (rd); ``evals`` the searcher's SAD evaluations (0 under full
+    search)."""
+
+    stype = SliceType.P
 
     def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
                  refs, sads, slices, sr: int, forced=(), wp=None,
                  transform8x8=False, qctx=None, ar_period: int = 0,
                  blk4=None, searcher=None, sub8x8: bool = False,
-                 subpel_satd: bool = True, units=None):
+                 subpel_satd: bool = True, units=None, rd=None,
+                 num_ref: int | None = None):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
         lambda_me and lambda_mode4 of qp; refs: list0's active references
         (HostRef), by ref_idx; sads: their (N, (2 sr + 1)^2, 4) quadrant
@@ -95,12 +109,20 @@ class PPicture(InterMBCoder):
         (encoder/me_epzs.py), or None for the full search; sub8x8: the
         P8x8 sub-partitions; subpel_satd: SATD (else SAD) in the
         fractional search; units: the basic units of rate control
-        (IntraMBCoder._code_slices), or None."""
+        (IntraMBCoder._code_slices), or None; rd: the RD tools
+        (rdo.RDOptions: the RD tiers of _p_mode_rd, the trellis, I_PCM,
+        the simulated lossy decoders of tier 3); num_ref: the active
+        list-0 references that the RD bit counts write (len(refs) unless
+        given: the redundant coding, one reference, counts the
+        primary's, as jm_tpu does)."""
+        if rd is not None:
+            self.rd = rd
         self._init_picture(orig, qp, qpc)
         self.lam, self.lam4, self.wp = lam, lam4, wp
         self.transform8x8 = transform8x8
         self.qctx, self.ar_period = qctx, ar_period
         self.refs, self.sads, self.blk4, self.sr = refs, sads, blk4, sr
+        self.num_ref = len(refs) if num_ref is None else num_ref
         self.sub8x8, self.satd = sub8x8, subpel_satd
         self.units = units
         self.searcher = searcher(self.pic.mv) if searcher else None
@@ -111,8 +133,8 @@ class PPicture(InterMBCoder):
         self.recV = np.zeros_like(self.origV)
         self.mix = dict.fromkeys(_MIX, 0)
         self.ref1 = 0
-        self.part_s = dict.fromkeys(("search", "skip", "intra", "commit"),
-                                    0.0)
+        self.part_s = dict.fromkeys(("search", "skip", "intra", "commit",
+                                     "rd"), 0.0)
         self._code_slices(slices, self._encode_p_mb)
         self.evals = 0 if self.searcher is None else self.searcher.n_evals
 
@@ -121,7 +143,20 @@ class PPicture(InterMBCoder):
         pic.ref_idx[addr] = -1
         cbp_luma = self._encode_i16(addr, origY_mb, mode16, pred16)
         pic.cbp[addr] = (self._encode_chroma_intra(addr) << 4) | cbp_luma
-        self.mix["i16"] += 1
+
+    def _tally(self, addr) -> None:
+        """Count the decided MB in mix and its partitions from a later
+        reference in ref1."""
+        pic = self.pic
+        cls = int(pic.mb_class[addr])
+        if cls != MB_INTER:
+            self.mix[_INTRA_MIX[cls]] += 1
+            return
+        mode = int(pic.inter_mode[addr])
+        self.mix["skip" if pic.skip[addr] else _MIX[1 + mode]] += 1
+        self.mix["t8"] += int(pic.transform8x8[addr])
+        self.ref1 += sum(int(pic.ref_idx[addr, quads[0]]) > 0
+                         for (_x, _y, _w, _h, quads) in PART_TABLE[mode])
 
     def _int_search(self, addr, r, quads, pred, seed):
         """The integer MV of a partition (its quadrants) from reference r:
@@ -135,10 +170,18 @@ class PPicture(InterMBCoder):
             csum, ME.spiral_rank_tab(pred, self.sr), self.sr)
 
     def _encode_p_mb(self, addr: int) -> None:
+        self._code_p_mb(addr)
+        self._tally(addr)
+
+    def _code_p_mb(self, addr: int) -> None:
         pic, lam = self.pic, self.lam
         px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
         origY_mb = self._mb_orig(addr)[0]
         t0 = time.perf_counter()
+        if self.rd.enable_ipcm >= 2:       # forced I_PCM (jm_tpu :2713)
+            self._commit_ipcm(addr)
+            self.part_s["intra"] += time.perf_counter() - t0
+            return
         if addr in self.forced:            # intra refresh
             self._intra16(addr, origY_mb, *self._eval_i16(addr,
                                                           origY_mb)[1:])
@@ -188,6 +231,10 @@ class PPicture(InterMBCoder):
         t1 = time.perf_counter()
         self.part_s["search"] += t1 - t0
         skip_mv = self.pctx.skip_mv(addr)
+        if self.rd.rdo:
+            self._p_mode_rd(addr, candidates, sub_commit, skip_mv, o)
+            self.part_s["rd"] += time.perf_counter() - t1
+            return
         best_mode = min(candidates, key=lambda m: candidates[m][0])
         cost_inter, commit = candidates[best_mode]
 
@@ -276,12 +323,13 @@ class PPicture(InterMBCoder):
             return sub_commit
         return None
 
-    def _commit_inter(self, addr, mode, commit, sub_commit, skip_mv,
-                      o) -> None:
+    def _commit_inter(self, addr, mode, commit, sub_commit, skip_mv, o,
+                      no_residual: bool = False) -> None:
         """Commit the chosen motion (the sub-partitions' with P_8x8 and
         sub_commit), predict each 4x4 block from its quadrant's reference
-        (weighted), code the residual; P_Skip when the 16x16 coding is the
-        skip coding."""
+        (weighted), code the residual (with no_residual none: the forced
+        P_Skip trial of the RD decision, whose recon is the prediction);
+        P_Skip when the 16x16 coding is the skip coding."""
         pic = self.pic
         px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
         pic.mb_class[addr] = MB_INTER
@@ -296,7 +344,6 @@ class PPicture(InterMBCoder):
                     for yy in range(by + sy, by + sy + sh):
                         for xx in range(bx + sx, bx + sx + sw):
                             pic.mv[addr, yy * 4 + xx] = qmv
-                self.ref1 += r > 0
         else:
             for (bx, by, bw, bh, quads, r, qmv) in commit:
                 for yy in range(by, by + bh):
@@ -306,7 +353,6 @@ class PPicture(InterMBCoder):
                     pic.ref_idx[addr, q] = r
                     pic.ref_pic_id[addr, q] = self.refs[r].uid
                     pic.pdir[addr, q] = 0
-                self.ref1 += r > 0
         pred_y = np.zeros((16, 16), np.int64)
         pred_u = np.zeros((8, 8), np.int64)
         pred_v = np.zeros((8, 8), np.int64)
@@ -319,9 +365,105 @@ class PPicture(InterMBCoder):
             pred_y[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = p[0]
             pred_u[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = p[1]
             pred_v[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = p[2]
-        self._commit_inter_residual(addr, o, pred_y, pred_u, pred_v)
+        if no_residual:
+            self.recY[py:py + 16, px:px + 16] = np.clip(pred_y, 0, 255)
+            self.recU[py // 2:py // 2 + 8, px // 2:px // 2 + 8] = \
+                np.clip(pred_u, 0, 255)
+            self.recV[py // 2:py // 2 + 8, px // 2:px // 2 + 8] = \
+                np.clip(pred_v, 0, 255)
+            pic.cbp[addr] = 0
+        else:
+            self._commit_inter_residual(addr, o, pred_y, pred_u, pred_v)
         if (mode == 0 and pic.cbp[addr] == 0 and pic.ref_idx[addr, 0] == 0
                 and (pic.mv[addr, 0] == skip_mv).all()):
             pic.skip[addr] = True
-        self.mix["skip" if pic.skip[addr] else _MIX[1 + mode]] += 1
-        self.mix["t8"] += int(pic.transform8x8[addr])
+
+    # ---- the RD tiers (jm_tpu encoder.py:2905-3017) ------------------------
+
+    def _p_mode_rd(self, addr, candidates, sub_commit, skip_mv, o) -> None:
+        """The md_high family (lencod rdopt.c:242): each candidate coded
+        in full from the same state and the least J = SSD +
+        lambda_mode times its bits kept (the first on a tie), plus with
+        the simulated lossy decoders (tier 3) the error energy an inter
+        MB inherits. Candidates: the partition modes, by their search
+        cost (tier 4: 8x8, 8x16, 16x8, 16x16, md_high_updated's order),
+        tier 2 stopping when the 16x16 coding is P_Skip (EarlySkip); the
+        forced P_Skip without residual, after which tier 2 drops the intra
+        trials when the best rate is at most the boundary error
+        (_highfast_intra_skip); Intra16x16; Intra4x4; with enable_ipcm,
+        I_PCM."""
+        pic, rd = self.pic, self.rd
+        tier = rd.rdo
+        lam = lambda_mode(self.qp)
+        base = MBState(self, addr)
+        best, best_bits = None, 0
+        errdo = rd.errdo
+
+        def consider():
+            nonlocal best, best_bits
+            bits = self._mb_bits(addr)
+            j = mb_ssd(self, addr) + lam * bits
+            if errdo is not None:
+                j += errdo.mb_error_energy(pic, addr, self.mb_w)
+            if best is None or j < best[0]:
+                best, best_bits = (j, MBState(self, addr)), bits
+
+        if tier == 4:
+            order = [m for m in (3, 2, 1, 0) if m in candidates]
+        else:
+            order = sorted(candidates, key=lambda k: candidates[k][0])
+        for m in order:
+            base.restore()
+            self._commit_inter(addr, m, candidates[m][1],
+                               sub_commit if m == 3 else None, skip_mv, o)
+            consider()
+            if tier == 2 and m == 0 and pic.skip[addr]:
+                best[1].restore()
+                return
+        base.restore()
+        self._commit_inter(addr, 0, [(0, 0, 4, 4, (0, 1, 2, 3), 0,
+                                      skip_mv.copy())], None, skip_mv, o,
+                           no_residual=True)
+        consider()
+        if tier == 2 and self._highfast_intra_skip(addr, best_bits):
+            best[1].restore()
+            return
+        origY_mb = self._mb_orig(addr)[0]
+        base.restore()
+        self._intra16(addr, origY_mb, *self._eval_i16(addr, origY_mb)[1:])
+        consider()
+        base.restore()
+        pic.ref_idx[addr] = -1
+        _c4, cbp_luma4 = self._encode_i4_mb(addr, origY_mb)
+        pic.cbp[addr] = (self._encode_chroma_intra(addr) << 4) | cbp_luma4
+        consider()
+        if rd.enable_ipcm:
+            base.restore()
+            self._commit_ipcm(addr)
+            consider()
+        best[1].restore()
+
+    def _highfast_intra_skip(self, addr, best_bits: int) -> bool:
+        """md_highfast's SelectiveIntraEnable (md_highfast.c:40): drop the
+        intra trials when the best inter coding's average rate bits / 384
+        is at most the average boundary error (the SAD of the source's top
+        row and left column against the recon beside them, luma and both
+        chroma, / 64); never at the picture's border."""
+        mbx, mby = addr % self.mb_w, addr // self.mb_w
+        if (mbx == 0 or mby == 0 or mbx == self.mb_w - 1
+                or mby == self.mb_h - 1):
+            return False
+        px, py = mbx * 16, mby * 16
+        o = self._mb_orig(addr)[0].astype(np.int32)
+        sbe = int(np.abs(o[0] - self.recY[py - 1, px:px + 16]
+                         .astype(np.int32)).sum())
+        sbe += int(np.abs(o[:, 0] - self.recY[py:py + 16, px - 1]
+                          .astype(np.int32)).sum())
+        cx, cy = mbx * 8, mby * 8
+        for plane, orig in ((self.recU, self.origU), (self.recV, self.origV)):
+            oc = orig[cy:cy + 8, cx:cx + 8].astype(np.int32)
+            sbe += int(np.abs(oc[0] - plane[cy - 1, cx:cx + 8]
+                              .astype(np.int32)).sum())
+            sbe += int(np.abs(oc[:, 0] - plane[cy:cy + 8, cx - 1]
+                              .astype(np.int32)).sum())
+        return best_bits / 384.0 <= sbe / 64.0

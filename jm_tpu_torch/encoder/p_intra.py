@@ -1,13 +1,18 @@
 """Host commit of a P picture encoded on the device, with the serial
 re-encode of its intra macroblocks (twin of the host part of
-jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_device, :2252-2293, and
-of its _i16_candidates, _eval_i16, _encode_i16, _encode_chroma_intra and
-_code_chroma_residual for 4:2:0 without trellis, which IntraMBCoder holds
-for this module, encoder/intra_host.py, encoder/b_host.py and
-encoder/p_host.py, with jm_tpu's quant dispatch: flat quant, or the
-picture's encoder/qmatrix.QuantCtx, ``qctx``, for scaling matrices,
-explicit offsets and adaptive rounding; the device path's commit here is
-always flat).
+jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_device, :2252-2293),
+and IntraMBCoder, the intra and trellis half of every host MB coder
+(jm_tpu _FrameEncoder's _i16_candidates, _eval_i16, _encode_i16,
+_encode_i4_mb, _blk_avail, _encode_chroma_intra, _code_chroma_residual,
+_commit_ipcm, the RDOQ dispatch _rdoq_on .. _trellis_chroma_ac and the
+slice loop of encode(), for 4:2:0), which encoder/intra_host.py,
+encoder/b_host.py and encoder/p_host.py build on, with jm_tpu's quant
+dispatch: flat quant, or the picture's encoder/qmatrix.QuantCtx,
+``qctx``, for scaling matrices, explicit offsets and adaptive rounding
+(the device path's commit here is always flat), and jm_tpu's RD tools
+(encoder/rdo.RDOptions, ``rd``): the trellis of encoder/rdoq.py, I_PCM,
+the per-mode RD of each Intra4x4 block, and per slice the running CABAC
+engine of the bit counts (rdo.CabacRate).
 
 The device's fields (ops/enc.p_frame_step, downloaded) fill the
 PictureData and the undeblocked recon planes; the picture's slice plan
@@ -16,20 +21,26 @@ the serializers see the slice boundaries. Then, in raster order, each
 MB whose intra trigger fired, and each MB of the forced-refresh set, is
 re-encoded as Intra16x16 with its chroma from the recon neighbours, which
 are final: inter recon never reads the current picture, and each intra MB
-predicts from the intra MBs re-encoded before it. Last, P_Skip is derived
-from the committed state (spec 8.4.1.1). This loop is serial by nature,
-one MB after the other, as in jm_tpu.
+predicts from the intra MBs re-encoded before it. With rdoq its levels
+are trellis-quantized in a CAVLC stream (a CABAC stream's device route
+has no running engine, so no trellis, as in jm_tpu). Last, P_Skip is
+derived from the committed state (spec 8.4.1.1). This loop is serial by
+nature, one MB after the other, as in jm_tpu.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..common.picture import MB_I16, MB_INTER, PictureData
-from ..common.predict_ctx import PredCtx
+from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
+from ..common.predict_ctx import CODE2RASTER, RASTER2CODE, PredCtx
+from ..common.types import SliceType
 from ..decoder import intra_pred as IP
 from ..decoder.recon import _np_hadamard4
+from . import rdoq as RQ
 from . import residual_np as RN
+from .cavlc_write import residual_block_bits
+from .rdo import CabacRate, RDOptions, count_mb_bits, lambda_mode
 
 # the device fields the commit reads (ops/enc.p_frame_step's keys)
 CORE_FIELDS = ("inter_mode", "mv4", "luma_scan", "luma_nnz", "cbp",
@@ -38,15 +49,23 @@ CORE_FIELDS = ("inter_mode", "mv4", "luma_scan", "luma_nnz", "cbp",
 
 
 class IntraMBCoder:
-    """The Intra16x16 and chroma intra coding of one MB of a picture with
-    source planes origY / origU / origV, recon planes recY / recU / recV,
-    PictureData ``pic`` with its PredCtx ``pctx``, and QPs qp / qpc;
-    qctx: the custom quant (None: flat), whose adaptive-rounding lists
-    are refreshed every ar_period MBs of a slice."""
+    """The intra coding of one MB (Intra16x16, Intra4x4, I_PCM, chroma)
+    and the trellis of every residual block, in a picture with source
+    planes origY / origU / origV, recon planes recY / recU / recV,
+    PictureData ``pic`` with its PredCtx ``pctx``, slice type ``stype``,
+    QPs qp / qpc and num_ref active list-0 references; qctx: the custom
+    quant (None: flat), whose adaptive-rounding lists are refreshed every
+    ar_period MBs of a slice; rd: the RD tools (rdo.RDOptions; the class
+    default has every tool off); cabac_rate: the slice's running CABAC
+    engine while one is installed (_code_slices)."""
 
     qctx = None
     ar_period = 0
     units = None
+    rd = RDOptions()
+    stype = SliceType.P
+    num_ref = 1
+    cabac_rate = None
 
     def _code_slices(self, slices, code_mb) -> None:
         """Code the slice plan's MBs in order with code_mb(addr), each
@@ -54,22 +73,39 @@ class IntraMBCoder:
         before each MB and the commit after it; with basic units
         (``units``), the QP, chroma QP and lambdas of each MB's unit set
         before it (pic.qp takes it whether the MB sends it or not, as in
-        jm_tpu) and the MB's bits reported after it (jm_tpu
-        _FrameEncoder.encode :2175-2203)."""
-        pic, qctx, units = self.pic, self.qctx, self.units
+        jm_tpu) and the MB's bits reported after it; in a CABAC I or P
+        picture with rdo or rdoq, a fresh CabacRate per slice, started at
+        the coder's QP of the moment, into which each MB is committed
+        once decided (jm_tpu _FrameEncoder.encode :2165-2204)."""
+        pic, qctx, units, rd = self.pic, self.qctx, self.units, self.rd
+        rate = rd.cabac and bool(rd.rdo or rd.rdoq) \
+            and self.stype in (SliceType.I, SliceType.P)
         for sid, addrs in enumerate(slices):
+            if rate:
+                self.cabac_rate = CabacRate(self, self.stype)
             for mb_i, addr in enumerate(addrs):
+                addr = int(addr)
                 if qctx is not None:
                     qctx.maybe_refresh(mb_i, self.ar_period)
                 if units is not None:
                     self.qp, self.qpc, self.lam, self.lam4 = units.params()
                 pic.slice_id[addr] = sid
                 pic.qp[addr] = self.qp
-                code_mb(int(addr))
+                code_mb(addr)
+                if rate:
+                    self.cabac_rate.commit(addr)
                 if qctx is not None:
                     qctx.ar_commit_mb()
                 if units is not None:
-                    units.report(pic, int(addr), self.qp)
+                    units.report(self, addr)
+            self.cabac_rate = None
+
+    def _mb_bits(self, addr: int) -> int:
+        """The bits of the MB staged at addr (rdo.count_mb_bits at the
+        coder's running QP)."""
+        rd = self.rd
+        return count_mb_bits(self.pic, rd.sps, rd.pps, self.qp, addr,
+                             self.stype, self.num_ref, self.cabac_rate)
 
     # ---- quant dispatch (jm_tpu encoder.py:1925-1946) ---------------------
 
@@ -93,6 +129,99 @@ class IntraMBCoder:
 
     def _itab8(self, intra):
         return None if self.qctx is None else self.qctx.inv_tab8(intra)
+
+    # ---- the trellis (jm_tpu encoder.py:1963-2066) ------------------------
+
+    @property
+    def _rdoq_on(self) -> bool:
+        """rdoq under flat quant, in CABAC only while the slice's engine
+        is installed (its context states price the levels)."""
+        rd = self.rd
+        return bool(rd.rdoq) and self.qctx is None \
+            and not (rd.cabac and self.cabac_rate is None)
+
+    def _rdoq_lam(self) -> float:
+        return lambda_mode(self.qp, intra_rdoq=(
+            self._rdoq_on and self.stype == SliceType.I))
+
+    def _trellis_luma4(self, addr, w_raster, blk, intra, i16ac=False):
+        """One luma 4x4 (or Intra16x16 AC) block's levels in scan order,
+        16 of them (position 0 zero for AC)."""
+        w_scan = RN.to_scan(w_raster[None])[0]
+        lam = self._rdoq_lam()
+        out = np.zeros(16, np.int32)
+        by, bx = blk // 4, blk % 4
+        if not self.rd.cabac:
+            nc = self.pctx.nc_luma(addr, blk)
+            if i16ac:
+                out[1:] = RQ.trellis_4x4(
+                    w_scan[1:], self.qp, intra, lam, entropy="cavlc",
+                    block_type=1, nc=nc, max_coeff=15, start=1)
+            else:
+                out[:] = RQ.trellis_4x4(
+                    w_scan, self.qp, intra, lam, entropy="cavlc",
+                    block_type=5, nc=nc, max_coeff=16)
+            return out
+        w = self.cabac_rate.w
+        if i16ac:
+            ctx, _ = w.cbf_ctx(addr, 1, bx, by)
+            out[1:] = RQ.trellis_4x4(
+                w_scan[1:], self.qp, intra, lam, entropy="cabac",
+                block_type=1, ctxs=w.ctxs, cbf_ctx=ctx, start=1)
+        else:
+            ctx, _ = w.cbf_ctx(addr, 5, bx, by)
+            out[:] = RQ.trellis_4x4(
+                w_scan, self.qp, intra, lam, entropy="cabac",
+                block_type=5, ctxs=w.ctxs, cbf_ctx=ctx)
+        return out
+
+    def _trellis_luma_dc(self, addr, dc_t):
+        """The Intra16x16 DC block (Hadamard domain, (4, 4) raster):
+        levels in scan order (16,)."""
+        w_scan = RN.to_scan(dc_t[None].astype(np.int64))[0]
+        lam = self._rdoq_lam()
+        if not self.rd.cabac:
+            nc = self.pctx.nc_luma(addr, 0)
+            return RQ.trellis_4x4(w_scan, self.qp, True, lam,
+                                  entropy="cavlc", block_type=0, nc=nc,
+                                  max_coeff=16, dc=True)
+        w = self.cabac_rate.w
+        ctx, _ = w.cbf_ctx(addr, 0)
+        return RQ.trellis_4x4(w_scan, self.qp, True, lam, entropy="cabac",
+                              block_type=0, ctxs=w.ctxs, cbf_ctx=ctx,
+                              dc=True)
+
+    def _trellis_chroma_dc(self, addr, dc_t_flat, comp, intra):
+        """A chroma DC block (4 Hadamard-domain values in raster order):
+        levels (4,)."""
+        lam = self._rdoq_lam()
+        if not self.rd.cabac:
+            return RQ.trellis_4x4(dc_t_flat, self.qpc, intra, lam,
+                                  entropy="cavlc", block_type=6, nc=-1,
+                                  max_coeff=4, dc=True)
+        w = self.cabac_rate.w
+        ctx, _ = w.cbf_ctx(addr, 6, comp=comp)
+        return RQ.trellis_4x4(dc_t_flat, self.qpc, intra, lam,
+                              entropy="cabac", block_type=6, ctxs=w.ctxs,
+                              cbf_ctx=ctx, dc=True)
+
+    def _trellis_chroma_ac(self, addr, w_raster, comp, blk, intra):
+        """A chroma AC 4x4 block (positions 1..15): scan levels (16,)."""
+        w_scan = RN.to_scan(w_raster[None])[0]
+        lam = self._rdoq_lam()
+        out = np.zeros(16, np.int32)
+        if not self.rd.cabac:
+            nc = self.pctx.nc_chroma(addr, comp, blk)
+            out[1:] = RQ.trellis_4x4(w_scan[1:], self.qpc, intra, lam,
+                                     entropy="cavlc", block_type=7, nc=nc,
+                                     max_coeff=15, start=1)
+            return out
+        w = self.cabac_rate.w
+        ctx, _ = w.cbf_ctx(addr, 7, blk % 2, blk // 2, comp)
+        out[1:] = RQ.trellis_4x4(w_scan[1:], self.qpc, intra, lam,
+                                 entropy="cabac", block_type=7,
+                                 ctxs=w.ctxs, cbf_ctx=ctx, start=1)
+        return out
 
     def _init_picture(self, orig, qp: int, qpc: int) -> PictureData:
         self.origY, self.origU, self.origV = (np.asarray(p, np.uint8)
@@ -123,6 +252,30 @@ class IntraMBCoder:
         return (left and av(addr - 1, addr), av(addr - self.mb_w, addr),
                 left and av(addr - self.mb_w - 1, addr))
 
+    # ---- I_PCM (jm_tpu encoder.py:2880-2903) ------------------------------
+
+    def _commit_ipcm(self, addr) -> None:
+        """I_PCM: the source samples are the recon, raised to 1 below the
+        High profiles (lencod.c min_IPCM_value); nnz 16 for the nC of
+        later blocks, no residual, the running QP kept."""
+        pic = self.pic
+        py, px = (addr // self.mb_w) * 16, (addr % self.mb_w) * 16
+        oY, oU, oV = self._mb_orig(addr)
+        minv = 1 if self.rd.sps.profile_idc < 100 else 0
+        Y, U, V = (np.maximum(p, minv).astype(np.uint8) for p in (oY, oU,
+                                                                  oV))
+        pic.mb_class[addr] = MB_IPCM
+        pic.ipcm_luma[addr] = Y
+        pic.ipcm_chroma[addr] = np.stack([U, V])
+        pic.luma_nnz[addr] = 16
+        pic.chroma_nnz[addr] = 16
+        pic.qp[addr] = self.qp
+        pic.ref_idx[addr] = -1
+        pic.cbp[addr] = 0
+        self.recY[py:py + 16, px:px + 16] = Y
+        self.recU[py // 2:py // 2 + 8, px // 2:px // 2 + 8] = U
+        self.recV[py // 2:py // 2 + 8, px // 2:px // 2 + 8] = V
+
     # ---- Intra16x16 luma --------------------------------------------------
 
     def _eval_i16(self, addr, origY_mb):
@@ -152,7 +305,10 @@ class IntraMBCoder:
         return best
 
     def _encode_i16(self, addr, origY_mb, mode, pred) -> int:
-        """Code MB addr as Intra16x16 with `pred`; returns cbp_luma."""
+        """Code MB addr as Intra16x16 with `pred`; returns cbp_luma. With
+        the trellis on, each AC block (in coding order, its nnz stored for
+        the next blocks' nC) and, with rdoq_dc, the DC block are trellis
+        quantized."""
         pic, qp = self.pic, self.qp
         py, px = (addr // self.mb_w) * 16, (addr % self.mb_w) * 16
         res = origY_mb.astype(np.int64) - pred
@@ -161,9 +317,23 @@ class IntraMBCoder:
         w = RN.np_forward4x4(blocks)
         # JM's forward Hadamard carries a >> 1 (lcommon transform.c:163)
         dc_t = _np_hadamard4(w[:, 0, 0].reshape(4, 4)) >> 1
-        dc_scan = RN.to_scan(self._qdc(dc_t, qp, True).reshape(1, 4, 4))[0]
-        ac_scan = RN.to_scan(self._q4(w, qp, True))
-        ac_scan[:, 0] = 0
+        if self._rdoq_on:
+            if self.rd.rdoq_dc:
+                dc_scan = self._trellis_luma_dc(addr, dc_t).astype(np.int64)
+            else:
+                dc_scan = RN.to_scan(self._qdc(dc_t, qp, True)
+                                     .reshape(1, 4, 4))[0]
+            ac_scan = np.zeros((16, 16), np.int64)
+            for code in range(16):
+                blk = int(CODE2RASTER[code])
+                ac_scan[blk] = self._trellis_luma4(addr, w[blk], blk, True,
+                                                   i16ac=True)
+                pic.luma_nnz[addr, blk] = int((ac_scan[blk] != 0).sum())
+        else:
+            dc_scan = RN.to_scan(self._qdc(dc_t, qp, True)
+                                 .reshape(1, 4, 4))[0]
+            ac_scan = RN.to_scan(self._q4(w, qp, True))
+            ac_scan[:, 0] = 0
         pic.mb_class[addr] = MB_I16
         pic.i16_mode[addr] = mode
         pic.luma_dc[addr] = dc_scan
@@ -180,6 +350,115 @@ class IntraMBCoder:
         self.recY[py:py + 16, px:px + 16] = \
             rec.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
         return cbp_luma
+
+    # ---- Intra4x4 luma (jm_tpu encoder.py:2407-2522) ----------------------
+
+    def _blk_avail(self, addr: int, gx: int, gy: int, code: int):
+        """(left, top, top-left, top-right) availability of the 4x4 block
+        at block coordinates (gx, gy), the code-th of MB addr."""
+
+        def ok(nx, ny):
+            if nx < 0 or ny < 0 or nx >= self.mb_w * 4:
+                return False
+            naddr = (ny // 4) * self.mb_w + (nx // 4)
+            if naddr == addr:
+                return RASTER2CODE[(ny % 4) * 4 + (nx % 4)] < code
+            if naddr > addr:
+                return False
+            return self.pctx.avail(naddr, addr)
+        return (ok(gx - 1, gy), ok(gx, gy - 1), ok(gx - 1, gy - 1),
+                ok(gx + 1, gy - 1))
+
+    def _encode_i4_mb(self, addr: int, origY_mb):
+        """Code MB addr as Intra4x4, block after block (each coded and
+        reconstructed before the next); returns (the sum of the chosen
+        modes' costs, cbp_luma). A block's mode: by SAD plus lambda_mode4
+        off the most probable mode, or with rdo by J = SSD +
+        lambda_mode (mode bits + the block's CAVLC bits, whatever the
+        entropy coder) over every candidate coded and reconstructed (its
+        cost int(J)); with the trellis on, its levels trellis
+        quantized."""
+        pic, qp, Y = self.pic, self.qp, self.recY
+        mbx, mby = addr % self.mb_w, addr // self.mb_w
+        pic.mb_class[addr] = MB_I4
+        total_cost = 0
+        coded_quads = set()
+        for code in range(16):
+            blk = int(CODE2RASTER[code])
+            by, bx = divmod(blk, 4)
+            gx, gy = mbx * 4 + bx, mby * 4 + by
+            x, y = gx * 4, gy * 4
+            avail_l, avail_t, avail_tl, avail_tr = self._blk_avail(
+                addr, gx, gy, code)
+            top = np.zeros(8, np.int32)
+            left = np.zeros(4, np.int32)
+            corner = 0
+            if avail_t:
+                top[0:4] = Y[y - 1, x:x + 4]
+                top[4:8] = Y[y - 1, x + 4:x + 8] if avail_tr \
+                    else Y[y - 1, x + 3]
+            if avail_l:
+                left[:] = Y[y:y + 4, x - 1]
+            if avail_tl:
+                corner = int(Y[y - 1, x - 1])
+            mpm = self.pctx.pred_intra4_mode(addr, blk)
+            o = origY_mb[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] \
+                .astype(np.int32)
+            cand = [IP.I4_DC]
+            if avail_t:
+                cand += [IP.I4_VERT, IP.I4_VL, IP.I4_DDL]
+            if avail_l:
+                cand += [IP.I4_HOR, IP.I4_HU]
+            if avail_t and avail_l and avail_tl:
+                cand += [IP.I4_DDR, IP.I4_VR, IP.I4_HD]
+            preds = IP.predict_i4_all(top, left, corner, avail_t, avail_l)
+            scan = None
+            if self.rd.rdo:
+                # rdcost_for_4x4_intra_blocks (lencod rdopt.c:523)
+                lam_md = self._rdoq_lam()
+                nc = self.pctx.nc_luma(addr, blk)
+                best = None
+                for m in cand:
+                    pred = preds[m]
+                    w = RN.np_forward4x4((o - pred)[None])[0]
+                    scan_m = self._i4_levels(addr, w, blk)
+                    rec_m = RN.recon_luma_4x4(pred[None], scan_m[None], qp,
+                                              tab=self._itab4(True))[0]
+                    ssd = int(((o - rec_m.astype(np.int64)) ** 2).sum())
+                    j = ssd + lam_md * ((1 if m == mpm else 4)
+                                        + residual_block_bits(
+                                            scan_m.tolist(), nc, 16))
+                    if best is None or j < best[0]:
+                        best = (j, m, pred, scan_m)
+                j, m, pred, scan = best
+                cost = int(j)
+            else:
+                # SAD + lambda_mode4 off the most probable mode, the first
+                # candidate of least cost
+                c = np.array(cand)
+                costs = np.abs(o[None] - preds[c]).sum(axis=(1, 2)) \
+                    + self.lam4 * (c != mpm)
+                i = int(np.argmin(costs))
+                cost, m, pred = int(costs[i]), cand[i], preds[cand[i]]
+            total_cost += cost
+            pic.i4_modes[addr, blk] = m
+            if scan is None:
+                scan = self._i4_levels(addr, RN.np_forward4x4(
+                    (o - pred)[None])[0], blk)
+            pic.luma_coef[addr, blk] = scan
+            tc = int((scan != 0).sum())
+            pic.luma_nnz[addr, blk] = tc
+            if tc:
+                coded_quads.add((by // 2) * 2 + bx // 2)
+            Y[y:y + 4, x:x + 4] = RN.recon_luma_4x4(
+                pred[None], scan[None], qp, tab=self._itab4(True))[0]
+        return total_cost, sum(1 << q for q in coded_quads)
+
+    def _i4_levels(self, addr, w, blk):
+        """An Intra4x4 block's levels in scan order: trellis or quant."""
+        if self._rdoq_on:
+            return self._trellis_luma4(addr, w, blk, intra=True)
+        return RN.to_scan(self._q4(w[None], self.qp, True))[0]
 
     # ---- chroma -----------------------------------------------------------
 
@@ -219,19 +498,33 @@ class IntraMBCoder:
                               intra: bool = True) -> int:
         """Quantize, commit and reconstruct the chroma residual of MB addr
         (2x2 DC Hadamard, block.c:954-1160) with the intra or the inter
-        rounding offset; returns cbp_chroma (0/1/2)."""
-        pic, qpc = self.pic, self.qpc
+        rounding offset, the trellis on the DC (rdoq_dc_cr) and AC
+        (rdoq_cr) blocks while it is on; returns cbp_chroma (0/1/2)."""
+        pic, qpc, rd = self.pic, self.qpc, self.rd
         cy, cx = (addr // self.mb_w) * 8, (addr % self.mb_w) * 8
         origU, origV = self._mb_orig(addr)[1:]
+        rdoq = self._rdoq_on
         store = []
-        for plane, pred, orig in ((1, predU, origU), (2, predV, origV)):
+        for comp, pred, orig in ((0, predU, origU), (1, predV, origV)):
             res = orig.astype(np.int64) - pred
             w = RN.np_forward4x4(res.reshape(2, 4, 2, 4).transpose(0, 2, 1, 3)
                                  .reshape(4, 4, 4))
-            dc_lev = self._qdc(RN.np_hadamard2x2(w[:, 0, 0].reshape(2, 2)),
-                               qpc, intra, plane).reshape(4)
-            ac_scan = RN.to_scan(self._q4(w, qpc, intra, plane))
-            ac_scan[:, 0] = 0
+            dc_t = RN.np_hadamard2x2(w[:, 0, 0].reshape(2, 2))
+            if rdoq and rd.rdoq_dc_cr:
+                dc_lev = self._trellis_chroma_dc(
+                    addr, dc_t.reshape(4), comp, intra).astype(np.int64)
+            else:
+                dc_lev = self._qdc(dc_t, qpc, intra, comp + 1).reshape(4)
+            if rdoq and rd.rdoq_cr:
+                ac_scan = np.zeros((4, 16), np.int64)
+                for blk in range(4):
+                    ac_scan[blk] = self._trellis_chroma_ac(addr, w[blk], comp,
+                                                           blk, intra)
+                    pic.chroma_nnz[addr, comp, blk] = int(
+                        (ac_scan[blk] != 0).sum())
+            else:
+                ac_scan = RN.to_scan(self._q4(w, qpc, intra, comp + 1))
+                ac_scan[:, 0] = 0
             cost_c = sum(RN.coeff_cost_scan(ac_scan[b], start=1)
                          for b in range(4))
             if cost_c < RN.CHROMA_COEFF_COST:
@@ -264,11 +557,14 @@ class PictureCommit(IntraMBCoder):
     ``intra_mbs`` lists the MBs re-encoded as intra."""
 
     def __init__(self, core: dict, orig, qp: int, qpc: int, forced,
-                 slices):
+                 slices, rd: RDOptions | None = None):
         """core: the CORE_FIELDS as numpy arrays; orig: the source
         (Y, U, V) uint8 planes; forced: MB addresses to code as intra
         whatever the trigger says (intra refresh); slices: the picture's
-        slice plan, MB address lists in decode order."""
+        slice plan, MB address lists in decode order; rd: the RD tools
+        (of which only the trellis acts here)."""
+        if rd is not None:
+            self.rd = rd
         pic = self._init_picture(orig, qp, qpc)
         for sid, addrs in enumerate(slices):
             pic.slice_id[addrs] = sid

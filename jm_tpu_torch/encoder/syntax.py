@@ -10,7 +10,7 @@ groups of map types 0-6 and redundant_pic_cnt; slices of any MB address
 list (several per picture, in slice-group order), with
 ref_pic_list_modification, dec_ref_pic_marking (long-term IDR, MMCO) and
 redundant_pic_cnt, whole or as three data partitions
-(``serialize_slice_dp``); I_NxN (4x4) / I_16x16 macroblocks; P
+(``serialize_slice_dp``); I_NxN (4x4), I_16x16 and I_PCM macroblocks; P
 macroblocks with 16x16/16x8/8x16/8x8 partitions, P_8x8's sub-macroblocks
 of 8x8, 8x4, 4x8 or 4x4, and each partition's ref_idx as te(v) when
 several references are active; with the 8x8 transform,
@@ -483,6 +483,14 @@ class MBWriter:
         """base: the mb_type offset of the intra types in the slice (0 I,
         5 P, 23 B)."""
         pic, bw = self.pic, self.bw
+        if pic.mb_class[addr] == MB_IPCM:    # I_PCM: aligned raw samples
+            bw.ue(base + 25)
+            bw.align_zero()                  # pcm_alignment_zero_bit
+            for v in pic.ipcm_luma[addr].ravel():
+                bw.u(int(v), 8)
+            for v in pic.ipcm_chroma[addr].ravel():
+                bw.u(int(v), 8)
+            return
         if pic.mb_class[addr] == 1:          # I_NxN (4x4)
             bw.ue(base + 0)
             if self.pps.transform_8x8_mode_flag:

@@ -2,8 +2,8 @@
 twin of jm_tpu/encoder/syntax_cabac.py's MBWriterCABAC and
 serialize_slice_cabac for I, P and B slices of 4:2:0 frame pictures with
 the 4x4 or the adaptive 8x8 transform (transform_size_8x8_flag, each 8x8
-block one LUMA_8x8 block): I_NxN (4x4) and I_16x16 MBs (also inside P
-and B slices), P_Skip and P MBs with 16x16 / 16x8 / 8x16 / 8x8 partitions, sub-8x8
+block one LUMA_8x8 block): I_NxN (4x4), I_16x16 and I_PCM MBs (also
+inside P and B slices), P_Skip and P MBs with 16x16 / 16x8 / 8x16 / 8x8 partitions, sub-8x8
 partitions and several references; B_Skip, B_Direct_16x16 and 16x16 B
 MBs of list 0, list 1 or both with one reference each (the B coder's
 set). Every B slice counts in native.routes["b"]["serialize"].
@@ -11,8 +11,9 @@ set). Every B slice counts in native.routes["b"]["serialize"].
 Every writer is the exact inverse of its reader in
 decoder/mb_parse_cabac.py and takes its contexts from the same
 CabacNeighbours (lencod/src/cabac.c writeMB_typeInfo_CABAC, writeCBP_CABAC,
-write_and_store_CBP_block_bit, writeRunLevel_CABAC). The encoder emits no
-I_PCM; an I_PCM MB raises NotImplementedError.
+write_and_store_CBP_block_bit, writeRunLevel_CABAC). An I_PCM MB, in any
+slice type, flushes the arithmetic coder before its aligned samples and
+restarts it after them, as the parser does.
 """
 
 from __future__ import annotations
@@ -329,11 +330,46 @@ class MBWriterCABAC(CabacNeighbours):
         self.qp = int(self.pic.qp[addr])
         return dq
 
+    def _write_ipcm(self, addr):
+        """I_PCM (lencod macroblock.c writeIPCMData; jm_tpu syntax_cabac
+        _write_ipcm): the mb_type bins up to the I_PCM escape,
+        terminate(1), which flushes the arithmetic coder, the aligned raw
+        samples, then a new engine over the same contexts (its bits_out
+        carried on, alignment and samples included)."""
+        pic, eng = self.pic, self.eng
+        if self.stype == SliceType.B:
+            ctx = self.ctxs.mb_type[2]
+            eng.decision(ctx, self.mb_type_b_ctx(addr), 1)
+            eng.decision(ctx, 4, 1)
+            eng.decision(ctx, 5, 1)
+            eng.decision(ctx, 6, 1)      # raw 12 + 8
+            eng.decision(ctx, 6, 0)
+            eng.decision(ctx, 6, 1)      # + 2: raw 22, the intra prefix
+            eng.decision(ctx, 6, 1)      # + 1: the I_16x16 / I_PCM escape
+        elif self.stype == SliceType.P:
+            ctx = self.ctxs.mb_type[1]
+            eng.decision(ctx, 4, 1)
+            eng.decision(ctx, 7, 1)
+        else:
+            eng.decision(self.ctxs.mb_type[0], self.mb_type_i_ctx(addr), 1)
+        eng.terminate(1)
+        bw = eng.bw
+        pos0 = bw.bitpos
+        bw.align_zero()                  # pcm_alignment_zero_bit
+        for v in pic.ipcm_luma[addr].ravel():
+            bw.u(int(v), 8)
+        for v in pic.ipcm_chroma[addr].ravel():
+            bw.u(int(v), 8)
+        ne = CabacEncoder(bw)
+        ne.bits_out = eng.bits_out + (bw.bitpos - pos0)
+        self.eng = ne
+        self.last_dquant = 0
+
     def _write_intra_mb(self, addr):
         pic = self.pic
         if pic.mb_class[addr] == MB_IPCM:
-            raise NotImplementedError(f"MB {addr}: I_PCM (the CABAC writer "
-                                      "covers I_NxN and I_16x16)")
+            self._write_ipcm(addr)
+            return
         cbp = int(pic.cbp[addr])
         if pic.mb_class[addr] == MB_I4:
             imb = 0

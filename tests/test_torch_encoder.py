@@ -5,7 +5,8 @@ byte-identical and the deblocked reconstructions equal, also on the scene
 cuts, whose frames 2 and 3 fall back to the per-frame path and whose next
 frames are dispatched again; every stream decodes with jm_tpu's and the
 port's H264Decoder to the port's reconstruction. The host-serializer path
-(packer overflow) and intra_mb_refresh must give the same bytes."""
+(packer overflow) and intra_mb_refresh must give the same bytes, and so
+must rdoq and rd_picture_decision on the device route."""
 
 import pytest
 
@@ -59,3 +60,55 @@ def test_resilience_case_on_the_pipe(case):
     jm_tpu's pipe writes none. Their encode_frame route is in
     tests/test_torch_resilience.py."""
     R.check_all(R.CASES[case], "stream")
+
+
+# the RD options on the device route (rdoq leaves the pipe but not the
+# device route; rd_picture_decision codes each picture three times on
+# it), after test_intra_mb_refresh_matches has compiled jm_tpu's
+# per-frame device step in this process
+_TRELLIS = dict(rdoq=1, rdoq_dc=1, rdoq_cr=1, rdoq_dc_cr=1)
+RD_CASES = {"rdoq_refresh": dict(_TRELLIS, intra_mb_refresh=6),
+            "rdpd_intra": dict(rd_picture_decision=True, intra_period=2,
+                               rdoq=1)}
+_RD_RUNS = {}
+
+
+def _rd_run(case):
+    if case not in _RD_RUNS:
+        frames = S.make_frames(S.W, S.H, 3, seed=4)
+        _RD_RUNS[case] = S.option_run(dict(RD_CASES[case], device_rd=RD),
+                                      frames, pipeline="device",
+                                      stream=True)
+    return _RD_RUNS[case]
+
+
+@pytest.mark.parametrize("case", list(RD_CASES))
+def test_rd_options_on_the_device_route_match(case):
+    S.check_byte_identical(_rd_run(case))
+
+
+@pytest.mark.parametrize("case", list(RD_CASES))
+def test_rd_options_on_the_device_route_decode(case):
+    S.check_decodes(_rd_run(case))
+
+
+@pytest.mark.parametrize("case", list(RD_CASES))
+def test_rd_options_on_the_device_route_act(case):
+    """Off the pipe, on the device route: with rdoq the trellis codes the
+    forced intra MBs of the P pictures (their bytes change, the device I
+    picture's do not); with rd_picture_decision each picture after the
+    first records its three codings and ships the one of least J."""
+    frames, _want, _res, enc, got = _rd_run(case)
+    assert enc.fallbacks == []
+    for r in enc.results:
+        assert r["type"] == "I" or ("intra_mbs" in r and "mix" not in r)
+    if case == "rdoq_refresh":
+        plain = S.Encoder(S.EncoderConfig(
+            width=S.W, height=S.H, qp=S.QP, device_rd=RD,
+            intra_mb_refresh=6), device="cpu").encode_stream(frames)
+        assert plain[0] == got[0] and plain[1:] != got[1:]
+    else:
+        for r in enc.results[1:]:
+            trials = r["trials"]
+            assert [t["qp"] for t in trials] == [S.QP, S.QP - 1, S.QP + 1]
+            assert r["qp"] == min(trials, key=lambda t: t["j"])["qp"]

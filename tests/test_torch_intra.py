@@ -45,3 +45,23 @@ def test_i_frame_step_matches_jax(kind, qp):
         assert np.array_equal(want, got[k].numpy()), k
     classes = set(got["cls"].tolist())
     assert classes <= {1, 2}
+
+
+def test_predict_i4_all_is_predict_i4():
+    """decoder/intra_pred.predict_i4_all, the host Intra4x4 coder's nine
+    predictions at once, equals predict_i4 mode by mode on seeded edges
+    (saturated ones among them) under every neighbour availability."""
+    from jm_tpu_torch.decoder import intra_pred as IP
+    rng = np.random.default_rng(4)
+    for k in range(300):
+        top = rng.integers(0, 256, 8).astype(np.int32)
+        left = rng.integers(0, 256, 4).astype(np.int32)
+        if k % 5 == 0:
+            top[:], left[:] = 255, 255
+        corner = int(rng.integers(0, 256))
+        for avail_t in (False, True):
+            for avail_l in (False, True):
+                got = IP.predict_i4_all(top, left, corner, avail_t, avail_l)
+                for m in range(9):
+                    assert np.array_equal(got[m], IP.predict_i4(
+                        m, top, left, corner, avail_t, avail_l)), m

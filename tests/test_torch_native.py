@@ -378,8 +378,8 @@ def test_intra_recon_planes(port_stream):
 def test_ipcm_takes_the_counted_python_route(monkeypatch):
     """An I_PCM MB: the C parser stops and the Python parser reads the
     slice again (parse "rerun"), the picture's intra recon is the Python
-    walk, and the serializer routes the picture to the Python MBWriter
-    (which does not write I_PCM)."""
+    walk, and the serializer routes the picture to the Python MBWriter,
+    which writes the slice jm_tpu wrote."""
     frames = make_frames(96, 80, 3, seed=5)
     enc = JEncoder(JEncoderConfig(width=96, height=80, qp=30,
                                   enable_ipcm=2))
@@ -392,10 +392,10 @@ def test_ipcm_takes_the_counted_python_route(monkeypatch):
     pic = next(p for p in dec.pics if (p.mb_class == MB_IPCM).any())
     sps, pps = dec.sps_map[0], dec.pps_map[0]
     N.reset_routes()
-    with pytest.raises(ValueError, match="unsupported intra class"):
-        serialize_slice(pic, sps, pps, slice_type=SliceType.I, frame_num=0,
-                        idr=True, qp=30)
+    rbsp = serialize_slice(pic, sps, pps, slice_type=SliceType.I,
+                           frame_num=0, idr=True, qp=30)
     assert N.routes["serialize"] == {"native": 0, "python": 1}
+    assert nal.annexb_bytes(3, nal.NalUnitType.IDR, rbsp) in data
 
 
 def test_failed_build_raises(tmp_path):

@@ -53,14 +53,16 @@ def test_scan_covers_the_native_loader():
                                  "decoder/wp.py", "encoder/wp_est.py",
                                  "encoder/p_host.py", "encoder/qmatrix.py",
                                  "encoder/me_epzs.py", "encoder/me_umhex.py",
-                                 "encoder/rdo.py"])
+                                 "encoder/rdo.py", "encoder/rdoq.py",
+                                 "encoder/errdo.py"])
 def test_scan_covers_the_ports_own_copies(rel):
     """Rate control, the slice-group maps, the host intra encoder, the
     SEI writers and parser, the B-slice motion, the B and P MB coders
     with their motion search and fast searchers, the GOP strings and the
     explicit sequence coder, the weighted prediction tables and
-    estimates, the custom quant and the basic units' bit count are the
-    port's own modules, not jm_tpu's."""
+    estimates, the custom quant, the RD tools with the basic units' bit
+    count, the trellis and the simulated lossy decoders are the port's
+    own modules, not jm_tpu's."""
     assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
 
 
