@@ -245,11 +245,35 @@ Phases (any failure raises and exits non-zero):
      with the same bytes and recon;
  36. their decodes on the card: each equal to its encoder's recon and
      to its CPU decode, one launch per kernel and picture, the pictures
-     with I_PCM MBs on the Python parser (CAVLC) and intra recon.
-The wall seconds of each group of phases are printed after phase 36.
-The CPU references of phases 4-36 (the encodes on the CPU, the CPU
+     with I_PCM MBs on the Python parser (CAVLC) and intra recon;
+ 37. K2-422, the chroma kernel at 4:2:2 (kernels.deblock_chroma with
+     crows 4: 16 chroma lines per MB), against deblock_chroma_plain on
+     the card, bit for bit, at 1080p 4:2:2 (chroma 960x1088 a plane) in
+     the three parameter variants, at 3840x2160, at the four edge
+     shapes and over REPEATS launches; CUDA-event times at 1080p (median
+     of 7 runs of 20 calls) beside its bound, its all-bS-zero chain and
+     the plain twin;
+ 38. 4:2:2 encodes, every picture on the host coders (as in jm_tpu):
+     the first frame at 1080p with 4:2:2 chroma (to_422: Cb / Cr the
+     even / odd columns of each luma row), CAVLC, QP 28, an IDR through
+     IntraPicture: one launch each of K1 and K2-422, its ms and ms per
+     MB, its bytes, its deblock held against deblock_plain on the card
+     on the same pre-deblock planes; then the CIF 4:2:2 streams of
+     Y422_CIF, (a) CAVLC IPP and (b) CABAC IbP with transform8x8 and
+     scaling_matrix 3, each with frames/s, the per-picture split,
+     bytes and launches; all encoded again on the CPU with the same
+     bytes and recon;
+ 39. 4:2:2 decodes on the card: phase 38's streams, each equal to its
+     encoder's recon and to its CPU decode, one launch each of K1 and
+     K2-422 per picture, the CAVLC I / P slices on the Python parser
+     (route "yuv422", as in jm_tpu); JM's goldens y422 (CABAC IPB, 8x8)
+     and y422c (CAVLC IPP) against their _rec.yuv, and cif_422 (30 CIF
+     frames) against the sha256 of ldecod's output, each with frames/s
+     and the per-picture parse / host recon / device split.
+The wall seconds of each group of phases are printed after phase 39.
+The CPU references of phases 4-39 (the encodes on the CPU, the CPU
 decodes of the lossy stream, of the DP goldens, cif_main, the weighted,
-High, motion-option and RD streams) run in
+High, motion-option, RD and 4:2:2 streams) run in
 CPU_WORKERS worker processes, started before the kernel build and
 stopped before the closing lines, while the card works through the
 phases.
@@ -258,16 +282,19 @@ points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
 and parsed, every intra picture reconstructed and every CABAC slice
 decoded by the native runtime, but the data-partitioned slices of
-phase 18 and the B slices of phases 22-36, which only the Python
-serializers and parsers handle (routes "dp" and "b"), and the CAVLC I /
+phase 18 and the B slices of phases 22-39, which only the Python
+serializers and parsers handle (routes "dp" and "b"), the CAVLC I /
 P slices and pictures with an I_PCM MB of phases 35-36 (the Python
-serializer, parser and intra recon).
+serializer, parser and intra recon), and the CAVLC I / P slices of the
+4:2:2 streams of phase 39 (the Python parser, route "yuv422"; their
+serialization is native).
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-36 alone, ``--from 22`` phases 22-36, ``--from 25`` phases 25-36,
-``--from 28`` phases 28-36, ``--from 31`` phases 31-36, ``--from 34``
-phases 34-36, without the closing JSON lines (a quicker check of those
-phases while they are developed). The last line of
+18-39 alone, ``--from 22`` phases 22-39, ``--from 25`` phases 25-39,
+``--from 28`` phases 28-39, ``--from 31`` phases 31-39, ``--from 34``
+phases 34-39, ``--from 37`` phases 37-39, without the closing JSON
+lines (a quicker check of those phases while they are developed). The
+last line of
 standard output is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel numbers as JSON.
 """
@@ -293,7 +320,7 @@ from jm_tpu_torch.common.types import SliceType  # noqa: E402
 from jm_tpu_torch.decoder.decoder import H264Decoder  # noqa: E402
 from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig  # noqa: E402
 from jm_tpu_torch.ops.deblock import (  # noqa: E402
-    deblock_chroma_plain, deblock_luma_plain)
+    deblock_chroma_plain, deblock_luma_plain, deblock_plain)
 
 W, H = 1920, 1088
 N_FRAMES = 17
@@ -370,6 +397,15 @@ RD_QCIF = (("a", 12, dict(RDOQ_ALL, rdo=1, enable_ipcm=1), True),
            ("c", QP, dict(rdo=3, num_decoders=2, loss_rate_a=5), False),
            ("d", QP, dict(enable_ipcm=2, entropy="cabac", num_b=1), False),
            ("e", QP, dict(rdo=4, rd_picture_decision=True), False))
+# phase 38's CIF 4:2:2 streams: (label, frames, EncoderConfig keywords)
+Y422_CIF = (("a", 3, {}),
+            ("b", 3, dict(entropy="cabac", num_b=1, transform8x8=True,
+                          scaling_matrix=3)))
+Y422_GOLDENS = ("y422", "y422c")      # JM's 4:2:2 goldens (phase 39)
+# sha256 of JM ldecod's output of tests/golden/cif_422.264 (30 CIF 4:2:2
+# frames; tests/test_cif_conformance.py records it)
+CIF_422_SHA256 = ("1b12ba64b1981f0edb4705ee4d3daf4bdde030e0877fb77b5dc0"
+                  "64198d75d2a3")
 
 
 def make_sequence(seed: int = 0):
@@ -408,13 +444,14 @@ def cuda_ms(fn, reps: int = 7, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def deblock_case(rng, mb_w: int, mb_h: int, variant: str):
-    """Random picture + per-MB deblock parameters on the card."""
+def deblock_case(rng, mb_w: int, mb_h: int, variant: str, crows: int = 2):
+    """Random picture + per-MB deblock parameters on the card; chroma
+    planes of 4 crows rows per MB (crows 2: 4:2:0, 4: 4:2:2)."""
     n = mb_w * mb_h
-    dev = "cuda"
+    dev = DEVICE
     Y = rng.integers(0, 256, (16 * mb_h, 16 * mb_w), np.uint8)
-    U = rng.integers(0, 256, (8 * mb_h, 8 * mb_w), np.uint8)
-    V = rng.integers(0, 256, (8 * mb_h, 8 * mb_w), np.uint8)
+    U = rng.integers(0, 256, (4 * crows * mb_h, 8 * mb_w), np.uint8)
+    V = rng.integers(0, 256, (4 * crows * mb_h, 8 * mb_w), np.uint8)
     # low-amplitude content over the top three quarters, so the filter
     # thresholds pass and the normal and strong filters both run
     for P in (Y, U, V):
@@ -503,10 +540,14 @@ def chain_steps(rng) -> None:
               f"{ms_c:.4f} ms = {ms_c / n * 1e3:.3f} us/step", flush=True)
 
 
-def filtered_lines(bs_v, bs_h, per_mb, mb_w: int, mb_h: int):
+def filtered_lines(bs_v, bs_h, per_mb, mb_w: int, mb_h: int,
+                   crows: int = 2):
     """(luma, chroma) filter lines these inputs switch on: bS > 0 and the
     edge enabled (disable != 1; left / top MB edges off at the picture
-    border, or across slices with disable 2; 8x8-transform inner edges)."""
+    border, or across slices with disable 2; 8x8-transform inner edges,
+    which at 4:2:2 (crows 4) switch no chroma edge off: its horizontal
+    chroma edges are at every luma edge, its vertical ones 16 lines
+    tall)."""
     qp, dis, _ao, _bo, sid, t8 = (a.reshape(mb_h, mb_w) for a in per_mb)
     on = dis != 1
     sid_l = torch.cat([sid[:, :1], sid[:, :-1]], 1)
@@ -517,16 +558,20 @@ def filtered_lines(bs_v, bs_h, per_mb, mb_w: int, mb_h: int):
     top = on & (row > 0) & ~((dis == 2) & (sid_t != sid))
     inner = on & (t8 == 0)
 
-    def edges(bs, first, axis):
+    def edges(bs, first, axis, mid=inner):
         b = (bs > 0).reshape(mb_h, 4, mb_w, 4).permute(0, 2, 1, 3)
         e = b if axis == 1 else b.transpose(2, 3)      # [mb, line blk, edge]
-        en = torch.stack([first, inner, on, inner], -1)[:, :, None, :]
+        en = torch.stack([first, mid, on, mid], -1)[:, :, None, :]
         return e & en
 
     ev = edges(bs_v, left, 1)
     eh = edges(bs_h, top, 0)
     luma = 4 * int(ev.sum() + eh.sum())
-    chroma = 2 * 2 * int(ev[..., 0::2].sum() + eh[..., 0::2].sum())
+    if crows == 2:
+        chroma = 2 * 2 * int(ev[..., 0::2].sum() + eh[..., 0::2].sum())
+    else:
+        chroma = 2 * (4 * int(ev[..., 0::2].sum())
+                      + 2 * int(edges(bs_h, top, 0, on).sum()))
     return luma, chroma
 
 
@@ -695,7 +740,7 @@ def decode_phase(payloads, enc):
     out = dec.decode_annexb(data)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
                        for r in enc.results], f"decode {W}x{H}")
     pics = dec.pictures
@@ -738,7 +783,8 @@ def decode_phase(payloads, enc):
 def decode_golden(name: str, dec=None) -> list:
     """A JM golden stream tests/golden/<name>.264 decoded on the card must
     equal JM ldecod's output <name>_rec.yuv (in output order: POC order,
-    which is the decode order of streams without B pictures). dec: the
+    which is the decode order of streams without B pictures; 4:2:0 or
+    4:2:2 as the stream says). dec: the
     decoder to use (a new one by default). Returns the decoded frames."""
     root = os.path.dirname(os.path.abspath(__file__))
     path = os.path.join(root, "tests", "golden", f"{name}.264")
@@ -748,12 +794,13 @@ def decode_golden(name: str, dec=None) -> list:
     got = sorted(got, key=lambda fr: fr.poc)
     rec = np.fromfile(path[:-4] + "_rec.yuv", np.uint8)
     h, w = got[0].Y.shape
-    fs = w * h * 3 // 2
+    ch = got[0].U.shape[0]                  # h / 2 (4:2:0) or h (4:2:2)
+    cs = ch * (w // 2)
+    fs = w * h + 2 * cs
     want = [(rec[i * fs:i * fs + w * h].reshape(h, w),
-             rec[i * fs + w * h:i * fs + w * h * 5 // 4]
-             .reshape(h // 2, w // 2),
-             rec[i * fs + w * h * 5 // 4:(i + 1) * fs]
-             .reshape(h // 2, w // 2)) for i in range(rec.size // fs)]
+             rec[i * fs + w * h:i * fs + w * h + cs].reshape(ch, w // 2),
+             rec[i * fs + w * h + cs:(i + 1) * fs].reshape(ch, w // 2))
+            for i in range(rec.size // fs)]
     check_frames(got, want, f"decode {name}.264")
     print(f"decode {name}.264 on the card: {len(got)} frames equal "
           f"JM ldecod's {name}_rec.yuv", flush=True)
@@ -819,7 +866,8 @@ def timed_encode(cfg, frames, cls=IdrTimedEncoder):
     t0 = time.perf_counter()
     payloads = enc.encode_stream(frames)
     torch.cuda.synchronize()
-    return enc, payloads, dict(kernels.launches), time.perf_counter() - t0
+    return enc, payloads, launch_counts(cfg.chroma_format == 2), \
+        time.perf_counter() - t0
 
 
 def md_low_cfg():
@@ -919,7 +967,7 @@ def cut_decode_phase(enc, payloads):
     out = dec.decode_annexb(b"".join(payloads))
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
                        for r in enc.results], "scene-cut decode")
     check_routes("scene-cut decode", parse=len(out), recon=sum(
@@ -1032,7 +1080,7 @@ def cabac_decode_phase(cab, cab_payloads):
     out = dec.decode_annexb(b"".join(cab_payloads))
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
                        for r in cab.results], "CABAC decode")
     check_routes("CABAC decode", cabac=len(out), recon=sum(
@@ -1235,7 +1283,8 @@ def card_decode(payloads, enc, label: str, cabac: bool = False,
     each kernel launched once per picture (unless once_per_picture is
     False: then only counted), every slice parsed (and every picture
     with intra MBs reconstructed) by the native runtime, but dp_parse
-    data-partitioned slices and b_parse B slices by the Python parser (a
+    data-partitioned slices, b_parse B slices and a 4:2:2 stream's CAVLC
+    I / P slices (route "yuv422") by the Python parser (a
     CABAC B slice's arithmetic decoder is the native one), and the
     pictures with an I_PCM MB (ipcm: their types, one slice each): a
     CAVLC I or P slice parsed again by the Python parser after the
@@ -1249,18 +1298,21 @@ def card_decode(payloads, enc, label: str, cabac: bool = False,
     out = dec.decode_annexb(b"".join(payloads))
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = launch_counts(enc.cfg.chroma_format == 2)
     check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
                        for r in enc.results], label)
     units = sum(r["slices"] for r in enc.results) - dp_parse
     recon = sum(r["path"] != "inter" for r in dec.pictures)
     rerun = 0 if cabac else sum(t != "B" for t in ipcm)
+    # 4:2:2 CAVLC I / P slices: the Python parser, as in jm_tpu
+    y422 = 0 if cabac or enc.cfg.chroma_format == 1 else units - b_parse
     check_routes(label, **({"cabac": units} if cabac
-                           else {"parse": units - b_parse - rerun}),
+                           else {"parse": units - b_parse - rerun - y422}),
                  recon=recon - len(ipcm), dp={"parse": dp_parse},
                  b={"parse": b_parse},
                  other={"parse": {"rerun": rerun},
-                        "recon": {"python": len(ipcm)}})
+                        "recon": {"python": len(ipcm)},
+                        "yuv422": {"parse": y422}})
     for name, cnt in launches.items():
         if once_per_picture and cnt != len(out):
             raise AssertionError(f"{label}: {name} launched {cnt} times for "
@@ -1296,6 +1348,18 @@ def per_frame_report(enc, payloads, label: str) -> None:
               f"{host:.1f} ms, device deblock + prep_ref "
               f"{t.get('deblock_prep', 0.0):.1f} ms, serialize "
               f"{t['slice']:.1f} ms", flush=True)
+
+
+def launch_counts(fmt422: bool = False) -> dict:
+    """The kernel launches since the last reset: K1's and those of the
+    chroma kernel of the picture format (K2 at 4:2:0, K2-422 at 4:2:2 with
+    fmt422); the other chroma kernel must not have been launched."""
+    out = dict(kernels.launches)
+    other = "deblock_chroma" if fmt422 else "deblock_chroma422"
+    if out.pop(other):
+        raise AssertionError(f"{other} launched on a "
+                             f"{'4:2:2' if fmt422 else '4:2:0'} path")
+    return out
 
 
 def check_launches(launches, n: int, label: str) -> None:
@@ -1357,12 +1421,13 @@ def golden_bytes(name: str) -> bytes:
 
 
 def start_cpu_references(pool, frames, first: int) -> dict:
-    """Submit the CPU references of phases first..36 (4, 18, 22, 25, 28,
-    31 or 34) to the worker pool: phase 4's IDR + P first, then the
-    longest, phase 28's 1080p host encode and phase 34's 1080p encode,
-    then by phase, phase 31's 1080p host encode after those of phases
-    4-21, which are needed before it, phase 35's QCIF encodes last;
-    returns their AsyncResults by name."""
+    """Submit the CPU references of phases first..39 (4, 18, 22, 25, 28,
+    31, 34 or 37) to the worker pool: phase 4's IDR + P first, then the
+    longest, phase 28's 1080p host encode and phase 34's and phase 38's
+    1080p encodes, then by phase, phase 31's 1080p host encode after
+    those of phases 4-21, which are needed before it, phase 35's QCIF
+    and phase 38's CIF encodes last; returns their AsyncResults by
+    name."""
     jobs = []
     if first <= 8:
         jobs += [("scene_cut", cpu_encode, (rd_cfg(), cut_frames(frames))),
@@ -1386,7 +1451,11 @@ def start_cpu_references(pool, frames, first: int) -> dict:
             + jobs
     # phase 34's 1080p encode (an IDR and six device codings on the CPU)
     # is long: it starts with the first jobs
-    jobs = [("rdpd", cpu_encode, (rdpd_cfg(), frames[:RD_FRAMES]))] + jobs
+    if first <= 34:
+        jobs = [("rdpd", cpu_encode, (rdpd_cfg(), frames[:RD_FRAMES]))] \
+            + jobs
+    # so is phase 38's 1080p 4:2:2 IDR (the host intra coder)
+    jobs = [("y422", cpu_encode, (y422_cfg(), to_422(frames[:1])))] + jobs
     if first <= 4:
         jobs = [("main", cpu_encode, (rd_cfg(), frames[:2]))] + jobs
     if first <= 31:
@@ -1407,9 +1476,13 @@ def start_cpu_references(pool, frames, first: int) -> dict:
                   cpu_explicit if label == "e" else cpu_encode,
                   (motion_cif_cfg(kw), cif(frames, n)))
                  for label, n, kw in MOTION_CIF]
-    jobs += [(f"rd_qcif_{label}", cpu_encode,
-              (rd_qcif_cfg(qp, kw), qcif_frames(frames, patch)))
-             for label, qp, kw, patch in RD_QCIF]
+    if first <= 34:
+        jobs += [(f"rd_qcif_{label}", cpu_encode,
+                  (rd_qcif_cfg(qp, kw), qcif_frames(frames, patch)))
+                 for label, qp, kw, patch in RD_QCIF]
+    jobs += [(f"y422_cif_{label}", cpu_encode,
+              (y422_cif_cfg(kw), to_422(cif(frames, n))))
+             for label, n, kw in Y422_CIF]
     return {name: pool.apply_async(fn, args) for name, fn, args in jobs}
 
 
@@ -1630,7 +1703,7 @@ def redundant_phase(frames, cpu_ref):
     payloads = [enc.encode_frame(*f) for f in frames] + [enc.flush()]
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     n_red = (n - 1) // 2
     check_routes("redundant encode", serialize=n + n_red)
     check_launches(launches, n, "redundant encode (primaries only)")
@@ -1914,7 +1987,7 @@ def b_decode_phase(enc, payloads, cpu_refs):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             what = f"equal {name}_rec.yuv"
-        gl = dict(kernels.launches)
+        gl = launch_counts()
         check_launches(gl, len(got), f"decode {name}")
         for k, v in gl.items():
             total[k] = total.get(k, 0) + v
@@ -2174,7 +2247,7 @@ def wp_decode_phase(streams) -> dict:
         got = decode_golden(name, dec)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        gl = dict(kernels.launches)
+        gl = launch_counts()
         check_launches(gl, len(got), f"decode {name}")
         for k, v in gl.items():
             total[k] = total.get(k, 0) + v
@@ -2374,7 +2447,7 @@ def high_decode_phase(streams) -> dict:
         got = decode_golden(name, dec)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        gl = dict(kernels.launches)
+        gl = launch_counts()
         check_launches(gl, len(got), f"decode {name}")
         r = native.routes
         if r["parse"]["python"] or r["parse"]["rerun"] or \
@@ -2436,7 +2509,7 @@ def explicit_encode(enc, frames):
                                    parse_explicit_seq_file(EXPLICIT_SCRIPT))
     if enc.device.type == "cuda":
         torch.cuda.synchronize()
-    return enc, payloads, dict(kernels.launches), time.perf_counter() - t0
+    return enc, payloads, launch_counts(), time.perf_counter() - t0
 
 
 def cpu_explicit(cfg, frames):
@@ -2557,7 +2630,7 @@ def fault_decode(payloads, enc, label: str, job):
     native.reset_routes()
     out = dec.decode_annexb(b"".join(payloads))
     torch.cuda.synchronize()
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     check_launches(launches, len(out), label)
     check_frames(out, job.get(), label)
     mw = enc.mb_w
@@ -2804,6 +2877,268 @@ def rd_phases(frames, cpu_refs, pool) -> dict:
     return out
 
 
+# ---- 37-39: 4:2:2 chroma (High 4:2:2) --------------------------------------
+
+def to_422(frames):
+    """Frames with 4:2:2 chroma made from their luma: Cb and Cr the even
+    and odd columns of every luma row, (H, W / 2) each."""
+    return [(Y, Y[:, ::2].copy(), Y[:, 1::2].copy()) for Y, _, _ in frames]
+
+
+def y422_cfg():
+    """Phase 38's 1080p configuration: chroma_format 2 (every picture on
+    the host coders, as in jm_tpu), CAVLC, QP 28, SR 16."""
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         chroma_format=2)
+
+
+def y422_cif_cfg(kw):
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         chroma_format=2, **kw)
+
+
+def k2_422_phase(rng) -> dict:
+    """Phase 37: K2-422 (kernels.deblock_chroma at crows 4) against
+    deblock_chroma_plain on the card, bit for bit, at 1080p 4:2:2 (chroma
+    960x1088 a plane) with the three parameter variants, at 3840x2160, at
+    the edge shapes and over REPEATS launches; CUDA-event times at 1080p
+    (median of 7 runs of 20 calls) beside its bound, its all-bS-zero chain
+    and the plain twin. Returns K2-422's statistics."""
+    cases = [(W, H, v, 1) for v in ("mixed", "disable2", "plain")]
+    cases += [(*UHD, "mixed", 1)] + [(w, h, v, 1) for w, h, v in EDGE_SHAPES]
+    cases += [(W, H, "mixed", REPEATS)]
+    max_err = 0
+    for w, h, variant, repeats in cases:
+        mb_w, mb_h = w // 16, h // 16
+        case = deblock_case(rng, mb_w, mb_h, variant, crows=4)
+        _, U, V, bs_v, bs_h, per_mb, cb, cr = case
+        args = (bs_v, bs_h, *per_mb)
+        pu, pv = deblock_chroma_plain(U, V, *args, cb, cr, mb_w=mb_w,
+                                      mb_h=mb_h)
+        u0, v0 = U.clone(), V.clone()
+        err = 0
+        for _ in range(repeats):
+            ku, kv = kernels.deblock_chroma(U, V, *args, cb, cr, mb_w=mb_w,
+                                            mb_h=mb_h, crows=4)
+            err = max(err, int((ku.int() - pu.int()).abs().max()),
+                      int((kv.int() - pv.int()).abs().max()))
+        torch.cuda.synchronize()
+        if not (torch.equal(U, u0) and torch.equal(V, v0)):
+            raise AssertionError(f"K2-422 {w}x{h} {variant}: input modified")
+        changed = int((pu != U).sum()) + int((pv != V).sum())
+        print(f"deblock 4:2:2 {w}x{h} {variant} x{repeats}: K2-422 max|err| "
+              f"{err}, chroma samples changed {changed}", flush=True)
+        if err:
+            raise AssertionError(f"K2-422 differs from the plain version "
+                                 f"({w}x{h} {variant})")
+        if h >= H and changed == 0:
+            raise AssertionError(f"K2-422 {w}x{h} {variant}: unfiltered")
+        max_err = max(max_err, err)
+    mb_w, mb_h = W // 16, H // 16
+    _, U, V, bs_v, bs_h, per_mb, cb, cr = case
+    args = (bs_v, bs_h, *per_mb)
+    zbs = torch.zeros_like(bs_v)
+    lines = filtered_lines(bs_v, bs_h, per_mb, mb_w, mb_h, crows=4)[1]
+    b = 2 * (U.numel() + V.numel()) + 6 * 4 * mb_w * mb_h \
+        + 2 * bs_v.numel() + 2 * 52 * 4
+    ops = CHROMA_LINE_OPS * lines
+    t_bytes = b / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    kw = dict(mb_w=mb_w, mb_h=mb_h)
+    s = {"ms": cuda_ms(lambda: kernels.deblock_chroma(
+             U, V, *args, cb, cr, crows=4, **kw), inner=20),
+         "chain_ms": cuda_ms(lambda: kernels.deblock_chroma(
+             U, V, zbs, zbs, *per_mb, cb, cr, crows=4, **kw), inner=20),
+         "single_ms": cuda_ms(lambda: kernels.deblock_chroma(
+             U, V, *args, cb, cr, crows=4, **kw)),
+         "plain_ms": cuda_ms(lambda: deblock_chroma_plain(
+             U, V, *args, cb, cr, **kw), reps=3),
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "bytes": b, "ops": ops, "max_err": max_err}
+    print(f"deblock_chroma422 (K2-422) at {W}x{H} 4:2:2: {s['ms']:.4f} ms "
+          f"(one call alone: {s['single_ms']:.4f} ms; all bS 0: "
+          f"{s['chain_ms']:.4f} ms; plain {s['plain_ms']:.1f} ms), bound "
+          f"{s['bound_ms'] * 1e3:.2f} us ({s['bound_by']}: {b} B, {ops} int "
+          f"ops), 1 launch/picture", flush=True)
+    return s
+
+
+class Y422Encoder(BTimedEncoder):
+    """BTimedEncoder keeping the arguments and the output of each call of
+    the encoder's deblock (the pre-deblock planes and parameters)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.deblocks = []
+
+    def _deblock(self, rec, pic):
+        import jm_tpu_torch.encoder.encoder as EM
+        orig = EM.deblock
+
+        def spy(*a, **k):
+            out = orig(*a, **k)
+            self.deblocks.append((a, k, out))
+            return out
+
+        EM.deblock = spy
+        try:
+            return super()._deblock(rec, pic)
+        finally:
+            EM.deblock = orig
+
+
+def y422_1080p_phase(frames, cpu_ref, pool):
+    """Phase 38a: the first frame at 1080p 4:2:2, CAVLC, an IDR through
+    encode_stream on the host route (IntraPicture): one launch each of K1
+    and K2-422; its ms, ms per MB and bytes; its deblock (the kernels) held
+    against deblock_plain on the card on the same pre-deblock planes and
+    parameters; held against the CPU encode cpu_ref. Returns (encoder,
+    payloads, launches, the CPU decode job of the stream)."""
+    t0 = time.perf_counter()
+    enc = Y422Encoder(y422_cfg(), device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    payloads = enc.encode_stream(to_422(frames[:1]))
+    torch.cuda.synchronize()
+    launches = launch_counts(True)
+    if [r["type"] for r in enc.results] != ["I"] or len(enc.deblocks) != 1:
+        raise AssertionError("4:2:2 1080p: not one deblocked IDR")
+    check_routes("4:2:2 1080p encode", serialize=1)
+    check_launches(launches, 1, "4:2:2 1080p encode")
+    a, k, out = enc.deblocks[0]
+    t1 = time.perf_counter()
+    plain = deblock_plain(*a, **k)
+    for p, q, name in zip(plain, out, "YUV"):
+        if p.shape != q.shape or not torch.equal(p, q):
+            raise AssertionError(f"4:2:2 1080p: deblock {name} differs from "
+                                 f"the plain twins")
+    plain_s = time.perf_counter() - t1
+    n_mbs = enc.mb_w * enc.mb_h
+    t = sum(enc.split[0]["picture"]) * 1e3
+    print(f"encode 4:2:2 1080p IDR (host route: IntraPicture; CAVLC High "
+          f"4:2:2, profile {enc.sps.profile_idc}, QP {QP}): {t:.1f} ms = "
+          f"{t / n_mbs:.3f} ms/MB, {len(payloads[0])} B, MB classes "
+          f"{enc.results[0]['mb_classes']}; launches {launches}; its "
+          f"deblock equals deblock_plain's on the same pre-deblock planes "
+          f"(plain twins {plain_s:.1f} s); phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check_cpu_encode("4:2:2 1080p IDR", cpu_ref, payloads, enc, 1)
+    return enc, payloads, launches, pool.apply_async(
+        cpu_decode, (b"".join(payloads),))
+
+
+def y422_cif_phase(frames, cpu_refs, pool) -> list:
+    """Phase 38b: the CIF 4:2:2 streams of Y422_CIF through encode_stream,
+    each picture on the host coders, one launch each of K1 and K2-422 per
+    picture, frames/s, the per-picture split and bytes, held against its
+    CPU encode; returns per stream (label, encoder, payloads, launches,
+    the CPU decode job of the stream)."""
+    out = []
+    for label, n, kw in Y422_CIF:
+        enc, payloads, launches, total_s = b_encode(
+            y422_cif_cfg(kw), to_422(cif(frames, n)))
+        types = "".join(r["type"] for r in enc.results)
+        n_b = types.count("B")
+        cabac = kw.get("entropy") == "cabac"
+        check_routes(f"4:2:2 CIF ({label})",
+                     serialize=0 if cabac else len(types),
+                     b={"serialize": n_b})
+        check_launches(launches, len(types), f"4:2:2 CIF ({label})")
+        print(f"encode 4:2:2 CIF ({label}) {types} (coding order; {kw}): "
+              f"{n / total_s:.3f} frames/s, {sum(map(len, payloads))} "
+              f"stream bytes {[len(p) for p in payloads]}, profile "
+              f"{enc.sps.profile_idc}, launches {launches}", flush=True)
+        high_report(enc, f"4:2:2 CIF ({label})")
+        check_cpu_encode(f"4:2:2 CIF ({label})", cpu_refs[f"y422_cif_{label}"],
+                         payloads, enc, len(types))
+        out.append((f"y422_cif_{label}", enc, payloads, launches,
+                    pool.apply_async(cpu_decode, (b"".join(payloads),))))
+    return out
+
+
+def y422_decode_phase(streams) -> dict:
+    """Phase 39: the streams of phase 38 decoded on the card, each equal
+    to its encoder's recon and to its CPU decode, one launch each of K1
+    and K2-422 per picture, the CAVLC I / P slices on the Python parser
+    (route "yuv422"); JM's goldens y422 and y422c against their _rec.yuv
+    and cif_422 against the sha256 of ldecod's output, with frames/s and
+    the per-picture parse / host recon / device split. streams: (label,
+    encoder, payloads, CPU decode job). Returns the launches of each
+    decode by name (<label>_decode, y422_goldens_decode)."""
+    import hashlib
+    out = {}
+    for label, enc, payloads, job in streams:
+        n_b = sum(r["type"] == "B" for r in enc.results)
+        out[f"{label}_decode"] = card_decode(
+            payloads, enc, f"decode {label}",
+            cabac=enc.cfg.entropy == "cabac", b_parse=n_b)
+        t0 = time.perf_counter()
+        cpu = job.get()
+        got = [(r["frame"].Y, r["frame"].U, r["frame"].V)
+               for r in enc.results]
+        if len(cpu) != len(got) or any(
+                not np.array_equal(a[k], b[k]) for a, b in zip(cpu, got)
+                for k in range(3)):
+            raise AssertionError(f"decode {label}: the CPU decode differs")
+        print(f"decode {label}: the CPU decode equals the card's (CPU "
+              f"worker; waited {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    total = {}
+    for name in Y422_GOLDENS + ("cif_422",):
+        dec = H264Decoder(device=DEVICE)
+        kernels.reset_launches()
+        native.reset_routes()
+        t0 = time.perf_counter()
+        if name == "cif_422":
+            got = dec.decode_annexb(golden_bytes(name))
+            frames = sorted(got, key=lambda f: f.poc)
+            sha = hashlib.sha256(b"".join(
+                f.Y.tobytes() + f.U.tobytes() + f.V.tobytes()
+                for f in frames)).hexdigest()
+            if len(got) != 30 or sha != CIF_422_SHA256:
+                raise AssertionError(f"decode cif_422: {len(got)} frames, "
+                                     f"sha256 {sha}")
+            what = "whose sha256 equals ldecod's output's"
+        else:
+            got = decode_golden(name, dec)
+            what = f"equal {name}_rec.yuv"
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gl = launch_counts(True)
+        check_launches(gl, len(got), f"decode {name}")
+        for k, v in gl.items():
+            total[k] = total.get(k, 0) + v
+        print(f"decode {name}.264 on the card "
+              f"({''.join(p['type'][0] for p in dec.pictures)}): "
+              f"{len(got)} frames {what}; {len(got) / dt:.3f} frames/s; "
+              f"per picture " + ", ".join(
+                  f"{p['type'][0]}/{p['path']} parse "
+                  f"{p['parse_s'] * 1e3:.1f}, intra recon "
+                  f"{p['host_recon_s'] * 1e3:.1f}, device "
+                  f"{p['device_s'] * 1e3:.1f} ms" for p in dec.pictures)
+              + f"; launches {gl}; routes {native.routes}", flush=True)
+    out["y422_goldens_decode"] = total
+    return out
+
+
+def y422_phases(frames, cpu_refs, pool, rng) -> tuple:
+    """Phases 37-39; returns (K2-422's statistics, the launches of each of
+    the 4:2:2 paths by name: y422, y422_cif_a / b, each also with
+    _decode, y422_goldens_decode)."""
+    stats = k2_422_phase(rng)
+    out = {}
+    enc, payloads, out["y422"], job = y422_1080p_phase(
+        frames, cpu_refs["y422"], pool)
+    streams = [("y422", enc, payloads, job)]
+    for label, cenc, cpay, launches, cjob in y422_cif_phase(frames, cpu_refs,
+                                                            pool):
+        out[label] = launches
+        streams.append((label, cenc, cpay, cjob))
+    out.update(y422_decode_phase(streams))
+    return stats, out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -2845,7 +3180,8 @@ def main() -> int:
           f"{native.build_seconds:.1f} s", flush=True)
     partial = sys.argv[1:] in (["--from", "18"], ["--from", "22"],
                                ["--from", "25"], ["--from", "28"],
-                               ["--from", "31"], ["--from", "34"])
+                               ["--from", "31"], ["--from", "34"],
+                               ["--from", "37"])
     first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
     pool = cpu_pool()
@@ -2862,8 +3198,8 @@ def main() -> int:
 
 
 def partial_run(frames, pool, refs, first: int) -> int:
-    """Phases first..36 (18, 22, 25, 28, 31 or 34) without the closing
-    JSON lines; refs: their CPU references."""
+    """Phases first..39 (18, 22, 25, 28, 31, 34 or 37) without the
+    closing JSON lines; refs: their CPU references."""
     clock = PhaseClock()
     if first <= 18:
         later_phases(frames, None, refs)
@@ -2880,10 +3216,13 @@ def partial_run(frames, pool, refs, first: int) -> int:
     if first <= 31:
         motion_phases(frames, refs, pool, None)
         clock.lap("31-33")
-    rd_phases(frames, refs, pool)
-    clock.lap("34-36")
+    if first <= 34:
+        rd_phases(frames, refs, pool)
+        clock.lap("34-36")
+    y422_phases(frames, refs, pool, np.random.default_rng(37))
+    clock.lap("37-39")
     clock.report()
-    print(f"phases {first}-36 passed (partial run: no closing lines)")
+    print(f"phases {first}-39 passed (partial run: no closing lines)")
     return 0
 
 
@@ -2905,8 +3244,8 @@ class PhaseClock:
 
 
 def full_run(frames, pool, cpu_refs, smi: str) -> int:
-    """Phases 2-36 and the closing lines; cpu_refs: the CPU references of
-    phases 4-36."""
+    """Phases 2-39 and the closing lines; cpu_refs: the CPU references of
+    phases 4-39."""
     clock = PhaseClock()
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
@@ -2976,7 +3315,7 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
     payloads = enc.encode_stream(frames)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     check_routes("encode 1080p", serialize=1 + len(enc.ovf))
     idr_s = enc.idr_seconds
     rd_fps = N_FRAMES / total_s
@@ -3079,10 +3418,21 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
     # (rdo 1-4, errdo, I_PCM, the trellis), their decodes --------------
     later.update(rd_phases(frames, cpu_refs, pool))
     clock.lap("34-36")
+
+    # ---- 37-39. 4:2:2 chroma: K2-422 against its plain twin, the 1080p
+    # 4:2:2 IDR and two CIF 4:2:2 streams on the host coders, their
+    # decodes, the 4:2:2 goldens ------------------------------------------
+    k422, y422 = y422_phases(frames, cpu_refs, pool, rng)
+    k422["launches"] = y422["y422"]["deblock_chroma422"]
+    kstats["deblock_chroma422"] = k422
+    max_err["deblock_chroma422"] = k422["max_err"]
+    later.update(y422)
+    clock.lap("37-39")
     clock.report()
 
     rows = []
-    for name, line in (("deblock_luma", 213), ("deblock_chroma", 310)):
+    for name, line in (("deblock_luma", 213), ("deblock_chroma", 310),
+                       ("deblock_chroma422", 310)):
         s = kstats[name]
         rows.append({
             "name": name, "route": "cuda",
@@ -3092,19 +3442,20 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": None, "chain_ms": s["chain_ms"],
-            "decode_launches": dec_launches[name],
-            "md_low_launches": low_launches[name],
-            "scene_cut_launches": cut_launches[name],
-            "scene_cut_decode_launches": cut_dec_launches[name],
-            "cabac_launches": cab_launches[name],
-            "cabac_decode_launches": cab_dec_launches[name],
-            "low_latency_launches": ll_launches[name],
-            "low_latency_decode_launches": ll_dec_launches[name],
-            "fmo_launches": fmo_launches[name],
-            "fmo_decode_launches": fmo_dec_launches[name],
-            "cabac_slices_rc_launches": crc_launches[name],
-            "cabac_slices_rc_decode_launches": crc_dec_launches[name],
-            **{f"{k}_launches": v[name] for k, v in later.items()}})
+            "decode_launches": dec_launches.get(name, 0),
+            "md_low_launches": low_launches.get(name, 0),
+            "scene_cut_launches": cut_launches.get(name, 0),
+            "scene_cut_decode_launches": cut_dec_launches.get(name, 0),
+            "cabac_launches": cab_launches.get(name, 0),
+            "cabac_decode_launches": cab_dec_launches.get(name, 0),
+            "low_latency_launches": ll_launches.get(name, 0),
+            "low_latency_decode_launches": ll_dec_launches.get(name, 0),
+            "fmo_launches": fmo_launches.get(name, 0),
+            "fmo_decode_launches": fmo_dec_launches.get(name, 0),
+            "cabac_slices_rc_launches": crc_launches.get(name, 0),
+            "cabac_slices_rc_decode_launches": crc_dec_launches.get(name, 0),
+            **{f"{k}_launches": v.get(name, 0)
+               for k, v in later.items()}})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -30,18 +30,22 @@ MB_IPCM = 3
 
 @dataclass
 class PictureData:
-    """Per-picture macroblock state (SoA) of a 4:2:0 frame, filled by the
-    encoder's decisions and read by the serializers (encoder/syntax.py,
+    """Per-picture macroblock state (SoA) of a 4:2:0 or 4:2:2 frame
+    (chroma_format_idc 1 or 2), filled by the encoder's decisions and
+    read by the serializers (encoder/syntax.py,
     encoder/syntax_cabac.py), or filled by the decoder's parsers
     (decoder/mb_parse.py, decoder/mb_parse_cabac.py) and read by its
     reconstruction."""
     mb_w: int
     mb_h: int
+    chroma_format_idc: int = 1
 
     def __post_init__(self) -> None:
         n = self.mb_w * self.mb_h
         self.n_mbs = n
-        self.n_crows = 2                           # chroma 4x4-block rows
+        # chroma 4x4-block rows per MB: 2 at 4:2:0, 4 at 4:2:2
+        crows = 4 if self.chroma_format_idc == 2 else 2
+        self.n_crows = crows
         self.mb_class = np.zeros(n, np.int8)            # MB_* class
         self.skip = np.zeros(n, bool)
         self.transform8x8 = np.zeros(n, bool)           # 8x8 luma transform
@@ -56,12 +60,12 @@ class PictureData:
         self.luma_dc = np.zeros((n, 16), np.int32)         # i16 DC, zigzag scan
         # 8x8-transform levels: [mb][8x8 quadrant][8x8 zig-zag scan]
         self.luma_coef8 = np.zeros((n, 4, 64), np.int32)
-        self.chroma_dc = np.zeros((n, 2, 4), np.int32)
-        self.chroma_coef = np.zeros((n, 2, 4, 16), np.int32)
+        self.chroma_dc = np.zeros((n, 2, 2 * crows), np.int32)   # scan order
+        self.chroma_coef = np.zeros((n, 2, 2 * crows, 16), np.int32)
         # nnz per 4x4 block (raster in MB), for nC prediction; of an 8x8
         # block, each 4x4's interleaved count in CAVLC, the 8x8's in CABAC
         self.luma_nnz = np.zeros((n, 16), np.int32)
-        self.chroma_nnz = np.zeros((n, 2, 4), np.int32)
+        self.chroma_nnz = np.zeros((n, 2, 2 * crows), np.int32)
         # motion: quarter-pel MVs per 4x4 raster block, refs per 8x8
         self.mv = np.zeros((n, 16, 2), np.int32)
         self.ref_idx = np.full((n, 4), -1, np.int8)        # -1 intra
@@ -79,7 +83,8 @@ class PictureData:
         # unique ids of the referenced pictures per 8x8 and list (bS)
         self.ref_pic_id = np.full((n, 4), -1, np.int64)
         self.ref_pic_id_l1 = np.full((n, 4), -1, np.int64)
-        # I_PCM samples by MB address: (16, 16) luma, (2, 8, 8) chroma
+        # I_PCM samples by MB address: (16, 16) luma, (2, 4 crows, 8)
+        # chroma
         self.ipcm_luma = {}
         self.ipcm_chroma = {}
         # CABAC context state: the mvd per list and 4x4 raster block, and

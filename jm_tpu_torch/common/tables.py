@@ -25,6 +25,10 @@ ZIGZAG_8x8 = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
 ], dtype=np.int32)
 
+# 4:2:2 chroma DC scan: (column, row) of the 2x4 DC array per
+# transmission position (ldecod/inc/macroblock.h:63 SCAN_YUV422)
+SCAN_YUV422 = [(0, 0), (0, 1), (1, 0), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3)]
+
 # -- 4x4 quantizer scale classes --------------------------------------------
 # position class for (j, i): 0 for both even/even "corner" {(0,0),(0,2),(2,0),(2,2)},
 # 1 for both odd {(1,1),(1,3),(3,1),(3,3)}, 2 otherwise.

@@ -43,10 +43,11 @@ def qpc_tables(pps, device="cpu"):
 
 
 def picture_from_numpy(src) -> PictureData:
-    """A parsed 4:2:0 frame picture's SoA state (any object with numpy
-    arrays under PictureData's names, e.g. jm_tpu's decoder
+    """A parsed 4:2:0 or 4:2:2 frame picture's SoA state (any object with
+    numpy arrays under PictureData's names, e.g. jm_tpu's decoder
     ``PictureData``) as the port's PictureData; arrays are copied."""
-    pic = PictureData(src.mb_w, src.mb_h)
+    pic = PictureData(src.mb_w, src.mb_h,
+                      getattr(src, "chroma_format_idc", 1))
     for name in _PICTURE_FIELDS:
         dst = getattr(pic, name)
         a = np.asarray(getattr(src, name))

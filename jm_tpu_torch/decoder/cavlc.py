@@ -39,15 +39,17 @@ def _ct_entries(lentab, codtab):
 _CT_W = 16
 CT_LUT = [_compile_lut(_ct_entries(_CT_LEN[i], _CT_COD[i]), _CT_W)
           for i in range(3)]
-CT_DC_LUT = _compile_lut(_ct_entries(_CT_DC_LEN[0], _CT_DC_COD[0]), _CT_W)
+# chroma DC: [4:2:0 (nC -1), 4:2:2 (nC -2)]
+CT_DC_LUT = [_compile_lut(_ct_entries(_CT_DC_LEN[i], _CT_DC_COD[i]), _CT_W)
+             for i in range(2)]
 
 _TZ_W = 9
 TZ_LUT = [_compile_lut(
     ((_TZ_LEN[i][z], _TZ_COD[i][z], z) for z in range(len(_TZ_LEN[i]))), _TZ_W)
     for i in range(15)]
-TZ_DC_LUT = [_compile_lut(
+TZ_DC_LUT = [[_compile_lut(
     ((ln[z], cd[z], z) for z in range(len(ln))), _TZ_W)
-    for ln, cd in zip(_TZ_DC_LEN[0], _TZ_DC_COD[0])]
+    for ln, cd in zip(_TZ_DC_LEN[i], _TZ_DC_COD[i])] for i in range(2)]
 
 _RUN_W = 11
 RUN_LUT = [_compile_lut(
@@ -65,7 +67,8 @@ def _read_lut(br: BitReader, lut: np.ndarray, width: int) -> int:
 
 
 def read_coeff_token(br: BitReader, nc: int) -> tuple[int, int]:
-    """Returns (total_coeff, trailing_ones); nc = -1: 4:2:0 chroma DC."""
+    """Returns (total_coeff, trailing_ones); nc = -1: 4:2:0 chroma DC,
+    -2: 4:2:2 chroma DC."""
     if nc >= 8:
         code = br.u(6)
         t1 = code & 3
@@ -76,7 +79,7 @@ def read_coeff_token(br: BitReader, nc: int) -> tuple[int, int]:
     if nc >= 0:
         lut = CT_LUT[0 if nc < 2 else (1 if nc < 4 else 2)]
     else:
-        lut = CT_DC_LUT
+        lut = CT_DC_LUT[-1 - nc]
     payload = _read_lut(br, lut, _CT_W)
     return payload >> 2, payload & 3
 
@@ -123,7 +126,8 @@ def residual_block_cavlc(br: BitReader, nc: int,
             suffix_len += 1
 
     if total_coeff < max_coeff:
-        lut = (TZ_DC_LUT if max_coeff == 4 else TZ_LUT)[total_coeff - 1]
+        tabs = {4: TZ_DC_LUT[0], 8: TZ_DC_LUT[1]}.get(max_coeff, TZ_LUT)
+        lut = tabs[total_coeff - 1]
         total_zeros = _read_lut(br, lut, _TZ_W)
     else:
         total_zeros = 0

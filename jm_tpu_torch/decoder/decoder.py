@@ -1,15 +1,15 @@
 """Top-level H.264 decoder of the port: Annex-B in, YUV frames out; twin
 of jm_tpu.decoder.decoder.H264Decoder with ``device_recon=True``, for I
-/ P / B streams, CAVLC (Baseline, Extended) or CABAC (Main, High)
-(4:2:0, 8-bit, frame pictures, the 4x4 and the adaptive 8x8 transform
-with I8x8 prediction, flat or scaling-matrix dequantization, one or more
-slices per picture, FMO slice groups of map types 0-6, data-partitioned
-CAVLC slices (NAL units 2-4), redundant pictures, list0 and list1 with
-several references, short- and long-term, in a DPB with the sliding
-window or MMCO marking, spatial and temporal direct prediction, explicit
-and implicit weighted prediction, non-reference pictures, POC types 0, 1
-and 2). Frames come out in decode order, as jm_tpu's: callers sort them
-by POC.
+/ P / B streams, CAVLC (Baseline, Extended) or CABAC (Main, High, High
+4:2:2) (4:2:0 or 4:2:2, 8-bit, frame pictures, the 4x4 and the adaptive
+8x8 transform with I8x8 prediction, flat or scaling-matrix
+dequantization, one or more slices per picture, FMO slice groups of map
+types 0-6, data-partitioned CAVLC slices (NAL units 2-4), redundant
+pictures, list0 and list1 with several references, short- and long-term,
+in a DPB with the sliding window or MMCO marking, spatial and temporal
+direct prediction, explicit and implicit weighted prediction,
+non-reference pictures, POC types 0, 1 and 2). Frames come out in decode
+order, as jm_tpu's: callers sort them by POC.
 
 Two phases per picture: the serial host parse of its slices
 (decoder/mb_parse.py for CAVLC, decoder/mb_parse_cabac.py for CABAC)
@@ -205,7 +205,8 @@ class H264Decoder:
             t0 = time.perf_counter()
             self._cur = {
                 "pic": PictureData(sps.pic_width_in_mbs,
-                                   sps.frame_height_in_mbs),
+                                   sps.frame_height_in_mbs,
+                                   sps.chroma_format_idc),
                 "sps": sps, "pps": pps, "hdr0": hdr, "headers": [],
                 "poc": self.poc_ctx.compute(hdr, sps), "t0": t0,
                 "parse_s": 0.0, "refs": {}, "mb_succ": None, "wps": [],
@@ -446,18 +447,20 @@ class H264Decoder:
 
 
 def _crop_output(sps, Y, U, V):
-    """Apply the SPS frame cropping of a 4:2:0 frame (spec 7.4.2.1.1:
-    CropUnitX = CropUnitY = 2)."""
+    """Apply the SPS frame cropping of a 4:2:0 or 4:2:2 frame (spec
+    7.4.2.1.1: CropUnitX = 2, CropUnitY = SubHeightC, 2 at 4:2:0 and 1 at
+    4:2:2)."""
     if not sps.frame_cropping_flag:
         return Y, U, V
+    sub_h = 1 if sps.chroma_format_idc == 2 else 2
     left = 2 * sps.frame_crop_left_offset
     right = 2 * sps.frame_crop_right_offset
-    top = 2 * sps.frame_crop_top_offset
-    bot = 2 * sps.frame_crop_bottom_offset
+    top = sub_h * sps.frame_crop_top_offset
+    bot = sub_h * sps.frame_crop_bottom_offset
     H, W = Y.shape
     return (Y[top:H - bot, left:W - right],
-            U[top // 2:(H - bot) // 2, left // 2:(W - right) // 2],
-            V[top // 2:(H - bot) // 2, left // 2:(W - right) // 2])
+            U[top // sub_h:(H - bot) // sub_h, left // 2:(W - right) // 2],
+            V[top // sub_h:(H - bot) // sub_h, left // 2:(W - right) // 2])
 
 
 def decode_file(path: str, device="cuda") -> list[DecodedFrame]:

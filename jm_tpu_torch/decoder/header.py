@@ -29,8 +29,9 @@ def check_scope(sps: SPS, pps: PPS) -> None:
     """Raise NotImplementedError naming every construct of this SPS / PPS
     pair that the decoder does not cover."""
     out = []
-    if sps.chroma_format_idc != 1:
-        out.append(f"chroma_format_idc {sps.chroma_format_idc} (4:2:0 only)")
+    if sps.chroma_format_idc not in (1, 2):
+        out.append(f"chroma_format_idc {sps.chroma_format_idc} "
+                   "(4:2:0 and 4:2:2 only)")
     if sps.bit_depth_luma_minus8 or sps.bit_depth_chroma_minus8:
         out.append("bit depth above 8")
     if sps.qpprime_y_zero_transform_bypass_flag:

@@ -1,10 +1,10 @@
 """Macroblock-layer parsing of CAVLC I, P and B slices (spec 7.3.5,
 7.4.5, 9.2), twin of the Python path of jm_tpu/decoder/mb_parse.py for
-4:2:0, 8-bit frame pictures with the 4x4 and the adaptive 8x8 transform
-(transform_size_8x8_flag after an I_NxN mb_type, or after the cbp of an
-inter MB with luma coefficients whose partitions are all 8x8 or larger;
-an 8x8 block is read as four 4x4 blocks interleaved, each with its own
-nnz, ldecod read_comp_cavlc.c read_comp_coeff_8x8_CAVLC).
+4:2:0 and 4:2:2, 8-bit frame pictures with the 4x4 and the adaptive 8x8
+transform (transform_size_8x8_flag after an I_NxN mb_type, or after the
+cbp of an inter MB with luma coefficients whose partitions are all 8x8
+or larger; an 8x8 block is read as four 4x4 blocks interleaved, each
+with its own nnz, ldecod read_comp_cavlc.c read_comp_coeff_8x8_CAVLC).
 
 The serial parse walks the MBs of a slice in raster order and fills the
 picture-wide SoA arrays of common/picture.PictureData (modes, MVs,
@@ -13,6 +13,10 @@ predictors (nC, intra 4x4 mode, median MV, P_Skip MV) come from
 common/predict_ctx.PredCtx, the same code the encoder uses
 (ldecod/src/mb_read.c read_one_macroblock_i_slice_cavlc:1139,
 read_one_macroblock_p_slice_cavlc:1335; lcommon/src/mv_prediction.c).
+
+A 4:2:2 picture's chroma residual is a 2x4 DC read with nC -2 and 8 AC
+blocks per component; its CAVLC I / P slices are parsed in Python, as
+in jm_tpu (mb_parse.py:597), and counted in native.routes["yuv422"].
 
 A B slice's MBs (B_Skip and B_Direct_16x16 with decoder/b_slice's
 direct motion, the 16x16 / 16x8 / 8x16 partitions of list 0, list 1 or
@@ -73,6 +77,15 @@ def b_allow8(coded: int, subs, sps: SPS) -> bool:
         return True
     return all(t <= 3 for t in subs) and (
         bool(sps.direct_8x8_inference_flag) or all(t != 0 for t in subs))
+
+
+def ipcm_format_check(pic: PictureData) -> None:
+    """An I_PCM MB of a 4:2:2 picture raises, as jm_tpu's parser does
+    (jm_tpu/decoder/mb_parse.py:339), although jm_tpu's encoder writes
+    such MBs (ROADMAP Queue 3)."""
+    if pic.n_crows != 2:
+        raise NotImplementedError(
+            "out of scope: I_PCM at chroma_format_idc 2")
 
 
 @dataclass
@@ -178,14 +191,18 @@ class MBParser:
                 pic.i4_modes[addr, b] = mode
 
     def _read_chroma_residual(self, addr: int, cbp: int) -> None:
+        """The chroma DC (2x2 with nC -1 at 4:2:0, 2x4 with nC -2 at
+        4:2:2), then 2 n_crows AC blocks per component."""
         pic, br = self.pic, self._res_br(addr)
         cbp_chroma = cbp >> 4
+        n_dc = 2 * pic.n_crows
         if cbp_chroma & 3:
             for comp in range(2):
-                pic.chroma_dc[addr, comp], _tc = residual_block_cavlc(br, -1, 4)
+                pic.chroma_dc[addr, comp], _tc = residual_block_cavlc(
+                    br, -1 if n_dc == 4 else -2, n_dc)
         if cbp_chroma & 2:
             for comp in range(2):
-                for blk in range(4):
+                for blk in range(n_dc):
                     nc = self.pctx.nc_chroma(addr, comp, blk)
                     ac, tc = residual_block_cavlc(br, nc, 15)
                     pic.chroma_coef[addr, comp, blk, 1:16] = ac
@@ -246,6 +263,7 @@ class MBParser:
 
     def _parse_ipcm(self, addr: int) -> None:
         pic, br = self.pic, self.br
+        ipcm_format_check(pic)
         pic.mb_class[addr] = MB_IPCM
         br.align()
         if br.pos + 384 * 8 > br.nbits:
@@ -420,6 +438,8 @@ class MBParser:
             N.routes["dp"]["parse"] += 1
         elif is_b:
             N.routes["b"]["parse"] += 1
+        elif pic.n_crows != 2:
+            N.routes["yuv422"]["parse"] += 1
         elif self.native:
             if self._parse_native():
                 N.routes["parse"]["native"] += 1

@@ -35,11 +35,12 @@ from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, PredCtx
 from ..common.types import SliceType
 from . import b_slice as B
-from .cabac import (CHROMA_AC, CHROMA_DC, LUMA_4x4, LUMA_8x8, LUMA_16AC,
-                    LUMA_16DC, TYPE2CTX_BCBP, CabacContexts, CabacEngine,
-                    PyCabacEngine, read_significance_and_levels)
+from .cabac import (CHROMA_AC, CHROMA_DC, CHROMA_DC_2x4, LUMA_4x4,
+                    LUMA_8x8, LUMA_16AC, LUMA_16DC, TYPE2CTX_BCBP,
+                    CabacContexts, CabacEngine, PyCabacEngine,
+                    read_significance_and_levels)
 from .mb_parse import (_P_PARTS, _SUB_PARTS, SliceContext, b_allow8,
-                       p_allow8)
+                       ipcm_format_check, p_allow8)
 
 
 class CabacNeighbours:
@@ -75,17 +76,19 @@ class CabacNeighbours:
         return naddr, (gy % 4) * 4 + (gx % 4)
 
     def _cblk_neighbor(self, addr, cx, cy):
-        """The chroma 4x4 block at (cx, cy) on the MB's 2x2 grid:
-        (naddr, blk) or None (ldecod get4x4NeighbourBase on chroma)."""
+        """The chroma 4x4 block at (cx, cy) on the MB's 2-wide grid of
+        n_crows rows (2x2 at 4:2:0, 2x4 at 4:2:2): (naddr, blk) or None
+        (ldecod get4x4NeighbourBase on chroma)."""
+        crows = self.pic.n_crows
         mbx, mby = addr % self.mb_w, addr // self.mb_w
-        gx, gy = mbx * 2 + cx, mby * 2 + cy
+        gx, gy = mbx * 2 + cx, mby * crows + cy
         if gx < 0 or gy < 0 or gx >= self.mb_w * 2:
             return None
-        naddr = (gy // 2) * self.mb_w + (gx // 2)
+        naddr = (gy // crows) * self.mb_w + (gx // 2)
         if naddr != addr and (naddr > addr
                               or not self.pctx.avail(naddr, addr)):
             return None
-        return naddr, (gy % 2) * 2 + (gx % 2)
+        return naddr, (gy % crows) * 2 + (gx % 2)
 
     def skip_ctx(self, addr) -> int:
         """mb_skip_flag's context in P slices (B slices add 7)."""
@@ -229,7 +232,7 @@ class CabacNeighbours:
             if na is not None:
                 lb = nbit(na[0], 1 + na[1])
             bit0 = 1 + by * 4 + bx
-        elif block_type == CHROMA_DC:
+        elif block_type in (CHROMA_DC, CHROMA_DC_2x4):
             ub = lb = default
             bit0 = 17 if comp == 0 else 18
             la, ua = self._left_mb(addr), self._up_mb(addr)
@@ -481,14 +484,15 @@ class MBParserCABAC(CabacNeighbours):
     def _read_chroma_residual(self, addr, cbp):
         pic = self.pic
         cbp_chroma = cbp >> 4
+        dc_type = CHROMA_DC_2x4 if pic.n_crows == 4 else CHROMA_DC
         if cbp_chroma & 3:
             for comp in range(2):
-                c = self._read_block(addr, CHROMA_DC, comp=comp)
+                c = self._read_block(addr, dc_type, comp=comp)
                 if c is not None:
                     pic.chroma_dc[addr, comp] = c
         if cbp_chroma & 2:
             for comp in range(2):
-                for blk in range(4):
+                for blk in range(2 * pic.n_crows):
                     by, bx = divmod(blk, 2)
                     c = self._read_block(addr, CHROMA_AC, bx, by, comp)
                     if c is not None:
@@ -505,6 +509,7 @@ class MBParserCABAC(CabacNeighbours):
         restarting the arithmetic engine; the contexts are kept."""
         pic = self.pic
         br = self.eng.br
+        ipcm_format_check(pic)
         pic.mb_class[addr] = MB_IPCM
         br.align()
         if br.pos + 384 * 8 > br.nbits:

@@ -1,8 +1,8 @@
 """Host reconstruction of a decoded picture's intra macroblocks, twin of
-jm_tpu/decoder/recon.py for 4:2:0, 8-bit frame pictures with the 4x4
-and the 8x8 transform and scaling matrices (ldecod/src/macroblock.c
-decode_one_macroblock:1402, block.c itrans4x4 / itrans_2 /
-itrans8x8).
+jm_tpu/decoder/recon.py for 4:2:0 and 4:2:2, 8-bit frame pictures with
+the 4x4 and the 8x8 transform and scaling matrices
+(ldecod/src/macroblock.c decode_one_macroblock:1402, block.c itrans4x4 /
+itrans_2 / itrans8x8).
 
 ``decode_residuals`` is batched numpy over every MB of the picture;
 ``Reconstructor`` then walks the intra (I4, I8, I16, I_PCM) MBs in
@@ -23,7 +23,7 @@ from .. import native as N
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, RASTER2CODE
 from ..common.tables import (DEQUANT_SCALE_4x4, DEQUANT_SCALE_8x8,
-                             ZIGZAG_4x4, ZIGZAG_8x8, chroma_qp)
+                             SCAN_YUV422, ZIGZAG_4x4, ZIGZAG_8x8, chroma_qp)
 from ..ops.transform import inv8_1d, split_8x8
 from . import intra_pred as I
 
@@ -71,6 +71,23 @@ def _np_hadamard4(d):
     return np.stack([b0 + b3, b1 + b2, b1 - b2, b0 - b3], axis=-2)
 
 
+def _np_ihadamard2x4(dc):
+    """4:2:2 chroma DC levels (..., 8) in SCAN_YUV422 order through the
+    2-point horizontal and 4-point vertical Hadamard (ldecod
+    read_comp_cavlc.c:1406-1467): (..., 2, 4) int64, [column][row]."""
+    m3 = np.zeros((*np.shape(dc)[:-1], 2, 4), np.int64)
+    for k, (i, j) in enumerate(SCAN_YUV422):
+        m3[..., i, j] = np.asarray(dc)[..., k]
+    m4 = np.stack([m3[..., 0, :] + m3[..., 1, :],
+                   m3[..., 0, :] - m3[..., 1, :]], axis=-2)
+    m6_0 = m4[..., 0] + m4[..., 2]
+    m6_1 = m4[..., 0] - m4[..., 2]
+    m6_2 = m4[..., 1] - m4[..., 3]
+    m6_3 = m4[..., 1] + m4[..., 3]
+    return np.stack([m6_0 + m6_3, m6_1 + m6_2, m6_1 - m6_2, m6_0 - m6_3],
+                    axis=-1)
+
+
 def _np_inv8(d):
     """Batched spec inverse 8x8 (no rounding); d: (..., 8, 8) int."""
     d = d.astype(np.int64)
@@ -105,9 +122,10 @@ def build_inv_scale8(pps) -> np.ndarray:
 
 
 def decode_residuals(pic: PictureData, pps):
-    """Returns (res_luma (n, 16, 4, 4), res_chroma (n, 2, 4, 4, 4)) int32
-    spatial residuals of every MB (inverse scan -> dequant -> inverse
-    transform; I16 luma DC and chroma DC Hadamards; the 8x8 transform of
+    """Returns (res_luma (n, 16, 4, 4), res_chroma (n, 2, 2 crows, 4, 4))
+    int32 spatial residuals of every MB (inverse scan -> dequant -> inverse
+    transform; I16 luma DC and chroma DC Hadamards, 2x2 at 4:2:0, 2x4 at
+    4:2:2 scaled at QPc + 3; the 8x8 transform of
     MBs with transform8x8, its output split into their 16 raster 4x4
     blocks); products in int64, the dequantized levels kept as int32 as
     in jm_tpu."""
@@ -157,17 +175,32 @@ def decode_residuals(pic: PictureData, pps):
     perc = qpc // 6
     c_deq = _rshift_rnd_sf((c_raster * scale_c[:, :, None])
                            << perc[:, :, None, None, None], 4).astype(np.int32)
-    # chroma DC: 2x2 Hadamard, then scale (floor >> 5)
-    dc = pic.chroma_dc.reshape(n, 2, 2, 2).astype(np.int64)
-    a, b = dc[..., 0, 0], dc[..., 0, 1]
-    c, d = dc[..., 1, 0], dc[..., 1, 1]
-    f = np.stack([
-        np.stack([a + b + c + d, a - b + c - d], axis=-1),
-        np.stack([a + b - c - d, a - b - c + d], axis=-1)], axis=-2)
-    dc_s = (((f * scale_c[:, :, 0, 0][..., None, None])
-             << perc[..., None, None]) >> 5).astype(np.int32)
-    blk = np.arange(4)
-    c_deq[:, :, blk, 0, 0] = dc_s[:, :, blk // 2, blk % 2]
+    if pic.n_crows == 2:
+        # chroma DC: 2x2 Hadamard, then scale (floor >> 5)
+        dc = pic.chroma_dc.reshape(n, 2, 2, 2).astype(np.int64)
+        a, b = dc[..., 0, 0], dc[..., 0, 1]
+        c, d = dc[..., 1, 0], dc[..., 1, 1]
+        f = np.stack([
+            np.stack([a + b + c + d, a - b + c - d], axis=-1),
+            np.stack([a + b - c - d, a - b - c + d], axis=-1)], axis=-2)
+        dc_s = (((f * scale_c[:, :, 0, 0][..., None, None])
+                 << perc[..., None, None]) >> 5).astype(np.int32)
+        blk = np.arange(4)
+        c_deq[:, :, blk, 0, 0] = dc_s[:, :, blk // 2, blk % 2]
+    else:
+        # 4:2:2 chroma DC: the 2x4 Hadamard, scaled at QPc + 3 with a
+        # rounded >> 6
+        f = _np_ihadamard2x4(pic.chroma_dc)                 # [column][row]
+        qpdc = qpc + 3
+        scale_dc = np.stack([tab4[np.where(intra, 1, 4), qpdc[:, 0]],
+                             tab4[np.where(intra, 2, 5), qpdc[:, 1]]],
+                            axis=1)[:, :, 0, 0].astype(np.int64)
+        dc_s = _rshift_rnd_sf((f * scale_dc[..., None, None])
+                              << (qpdc // 6)[..., None, None],
+                              6).astype(np.int32)
+        for j in range(4):
+            for i in range(2):
+                c_deq[:, :, 2 * j + i, 0, 0] = dc_s[:, :, i, j]
     res_chroma = ((_np_inv4(c_deq) + 32) >> 6).astype(np.int32)
     return res_luma, res_chroma
 
@@ -181,9 +214,10 @@ class Reconstructor:
         self.mb_w = pic.mb_w
         self.w = pic.mb_w * 16
         self.h = pic.mb_h * 16
+        self.ch = 4 * pic.n_crows                 # chroma MB height: 8 or 16
         self.Y = np.zeros((self.h, self.w), np.uint8)
-        self.U = np.zeros((self.h // 2, self.w // 2), np.uint8)
-        self.V = np.zeros((self.h // 2, self.w // 2), np.uint8)
+        self.U = np.zeros((self.ch * pic.mb_h, self.w // 2), np.uint8)
+        self.V = np.zeros((self.ch * pic.mb_h, self.w // 2), np.uint8)
 
     # ---- availability (same slice, already decoded) -----------------------
 
@@ -329,7 +363,8 @@ class Reconstructor:
 
     def _recon_chroma_intra(self, addr, res_c):
         mbx, mby = addr % self.mb_w, addr // self.mb_w
-        cx, cy = mbx * 8, mby * 8
+        ch = self.ch
+        cx, cy = mbx * 8, mby * ch
         avail_l = self._mb_avail(addr - 1, addr) if mbx > 0 else False
         avail_t = self._mb_avail(addr - self.mb_w, addr)
         avail_tl = (mbx > 0) and self._mb_avail(addr - self.mb_w - 1, addr)
@@ -337,20 +372,20 @@ class Reconstructor:
         for comp, plane in ((0, self.U), (1, self.V)):
             top = plane[cy - 1, cx:cx + 8].astype(np.int32) if avail_t \
                 else np.zeros(8, np.int32)
-            left = plane[cy:cy + 8, cx - 1].astype(np.int32) if avail_l \
-                else np.zeros(8, np.int32)
+            left = plane[cy:cy + ch, cx - 1].astype(np.int32) if avail_l \
+                else np.zeros(ch, np.int32)
             corner = int(plane[cy - 1, cx - 1]) if avail_tl else 0
             pred = I.predict_chroma(mode, top, left, corner, avail_t,
                                     avail_l)
-            res = res_c[addr, comp].reshape(2, 2, 4, 4).transpose(0, 2, 1, 3) \
-                .reshape(8, 8)
-            plane[cy:cy + 8, cx:cx + 8] = np.clip(pred + res, 0, 255)
+            res = res_c[addr, comp].reshape(ch // 4, 2, 4, 4) \
+                .transpose(0, 2, 1, 3).reshape(ch, 8)
+            plane[cy:cy + ch, cx:cx + 8] = np.clip(pred + res, 0, 255)
 
     def _recon_ipcm(self, addr):
         pic = self.pic
         mbx, mby = addr % self.mb_w, addr // self.mb_w
         self.Y[mby * 16:mby * 16 + 16, mbx * 16:mbx * 16 + 16] = \
             pic.ipcm_luma[addr]
-        ch = pic.ipcm_chroma[addr]
-        self.U[mby * 8:mby * 8 + 8, mbx * 8:mbx * 8 + 8] = ch[0]
-        self.V[mby * 8:mby * 8 + 8, mbx * 8:mbx * 8 + 8] = ch[1]
+        c, ch = pic.ipcm_chroma[addr], self.ch
+        self.U[mby * ch:mby * ch + ch, mbx * 8:mbx * 8 + 8] = c[0]
+        self.V[mby * ch:mby * ch + ch, mbx * 8:mbx * 8 + 8] = c[1]

@@ -68,16 +68,21 @@ class InterMBCoder(IntraMBCoder):
     transform8x8 = False
 
     def _mc_blk(self, ref: HostRef, px, py, bx, by, mv):
-        """One 4x4 luma block and its 2x2 chroma blocks from one reference
-        (the decoder's per-4x4 motion compensation)."""
+        """One 4x4 luma block and its chroma blocks from one reference
+        (the decoder's per-4x4 motion compensation): 2x2 at 4:2:0; 2 wide
+        and 4 tall at 4:2:2, where the vertical chroma displacement is the
+        luma MV in quarter samples (jm_tpu _mc_chroma, encoder.py:3326)."""
         mvx, mvy = int(mv[0]), int(mv[1])
         yb = ME.mc_luma_block(ref.planes, (px + bx * 4) * 4 + mvx,
                               (py + by * 4) * 4 + mvy, 4, 4, self.w, self.h)
         cx8 = (px // 2 + bx * 2) * 8 + mvx
-        cy8 = (py // 2 + by * 2) * 8 + mvy
-        cw, ch = self.w // 2, self.h // 2
-        return (yb, ME.mc_chroma_block(ref.padU, cx8, cy8, 2, 2, cw, ch),
-                ME.mc_chroma_block(ref.padV, cx8, cy8, 2, 2, cw, ch))
+        if self.crows == 2:
+            cy8 = (py // 2 + by * 2) * 8 + mvy
+        else:
+            cy8 = (py + by * 4) * 8 + 2 * mvy
+        cw, ch, cbh = self.w // 2, self.ch * self.mb_h, self.crows
+        return (yb, ME.mc_chroma_block(ref.padU, cx8, cy8, 2, cbh, cw, ch),
+                ME.mc_chroma_block(ref.padV, cx8, cy8, 2, cbh, cw, ch))
 
     # ---- residual ---------------------------------------------------------
 
@@ -244,12 +249,13 @@ class BPicture(InterMBCoder):
 
     def _pred_assemble(self, addr):
         """The MB's prediction from its motion rows in pic: (luma (16, 16),
-        Cb (8, 8), Cr (8, 8)) int32."""
+        Cb (ch, 8), Cr (ch, 8)) int32."""
         pic = self.pic
         px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
+        cbh = self.crows                 # chroma rows per luma 4x4 row
         pred_y = np.zeros((16, 16), np.int32)
-        pred_u = np.zeros((8, 8), np.int32)
-        pred_v = np.zeros((8, 8), np.int32)
+        pred_u = np.zeros((self.ch, 8), np.int32)
+        pred_v = np.zeros((self.ch, 8), np.int32)
         for blk in range(16):
             by, bx = divmod(blk, 4)
             q = (by // 2) * 2 + bx // 2
@@ -278,8 +284,8 @@ class BPicture(InterMBCoder):
             else:
                 yb, ub, vb = ((a + b + 1) >> 1 for a, b in zip(p0, p1))
             pred_y[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = yb
-            pred_u[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = ub
-            pred_v[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = vb
+            pred_u[by * cbh:(by + 1) * cbh, bx * 2:bx * 2 + 2] = ub
+            pred_v[by * cbh:(by + 1) * cbh, bx * 2:bx * 2 + 2] = vb
         return pred_y, pred_u, pred_v
 
     # ---- mode decision ----------------------------------------------------

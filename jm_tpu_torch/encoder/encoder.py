@@ -1,5 +1,6 @@
 """H.264 encoder of the port: IPPP or with B pictures (IbP, a dyadic
-pyramid or an explicit GOP string), 4:2:0, one or several list-0
+pyramid or an explicit GOP string), 4:2:0 or 4:2:2 (High 4:2:2, every
+picture coded by the host coders), one or several list-0
 references for a P picture (one per list for a B picture), with
 the trial-encode RD P path (device_rd) or md_low, or every picture coded
 by the serial host coders (pipeline="host"), CAVLC (Baseline, or
@@ -188,31 +189,31 @@ def lambda_mode4(qp: int) -> int:
 @dataclass
 class EncoderConfig:
     """The configurations this encoder covers: jm_tpu's device IPPP set
-    (4:2:0), with device RD or md_low, CAVLC or CABAC, random intra
-    refresh, several slices per picture, FMO slice groups (CAVLC only),
-    a fixed QP, a P QP of its own, frame-level or basic-unit rate
-    control, POC types 0, 1 and 2, the loop filter on or off, VUI timing,
-    a user-data SEI, long-term anchors, list reordering, POC-based MMCO,
-    data partitioning and redundant pictures; with num_b, B pictures
-    between the anchors (one per interval, a dyadic pyramid or an
-    explicit GOP string), open-GOP I anchors with a recovery point SEI
-    and CRA marking; explicit weighted prediction of P pictures and
-    explicit or implicit weighted bi-prediction; pipeline="host"; the
-    High profile: the adaptive 8x8 transform, scaling matrices (the
-    lists in raster order, in the SPS, the PPS or both), explicit quant
-    offsets and adaptive rounding; the host coders' motion options: up
-    to 16 list-0 references, P8x8 sub-partitions, SAD or SATD in the
-    fractional search, the full, UMHex, UMHex simple or EPZS search with
-    HME predictors; the RD tiers: rdo 0-4 (tier 3 with num_decoders /
-    loss_rate_a), the trellis (rdoq with rdoq_dc, rdoq_cr, rdoq_dc_cr),
-    I_PCM (enable_ipcm 1 or 2) and rd_picture_decision. Values outside it
-    raise ValueError,
-    as do jm_tpu's refusals with B pictures (POC types 1 / 2, FMO), FMO
-    in profile 77 (weighted prediction) or 100 (the 8x8 transform,
-    scaling matrices) without data partitioning, and scaling matrices
-    with data partitioning (profile 88); redundant pictures with data
-    partitioning or with B pictures, and the 8x8 transform with data
-    partitioning, raise NotImplementedError naming the field.
+    (4:2:0; chroma_format 2, High 4:2:2, codes every picture on the host
+    coders, as jm_tpu does), with device RD or md_low, CAVLC or CABAC,
+    random intra refresh, several slices per picture, FMO slice groups
+    (CAVLC only), a fixed QP, a P QP of its own, frame-level or basic-unit
+    rate control, POC types 0, 1 and 2, the loop filter on or off, VUI
+    timing, a user-data SEI, long-term anchors, list reordering, POC-based
+    MMCO, data partitioning and redundant pictures; with num_b, B pictures
+    between the anchors (one per interval, a dyadic pyramid or an explicit
+    GOP string), open-GOP I anchors with a recovery point SEI and CRA
+    marking; explicit weighted prediction of P pictures and explicit or
+    implicit weighted bi-prediction; pipeline="host"; the High profile: the
+    adaptive 8x8 transform, scaling matrices (the lists in raster order, in
+    the SPS, the PPS or both), explicit quant offsets and adaptive rounding;
+    the host coders' motion options: up to 16 list-0 references, P8x8
+    sub-partitions, SAD or SATD in the fractional search, the full, UMHex,
+    UMHex simple or EPZS search with HME predictors; the RD tiers: rdo 0-4
+    (tier 3 with num_decoders / loss_rate_a), the trellis (rdoq with
+    rdoq_dc, rdoq_cr, rdoq_dc_cr), I_PCM (enable_ipcm 1 or 2) and
+    rd_picture_decision. Values outside it raise ValueError, as do jm_tpu's
+    refusals with B pictures (POC types 1 / 2, FMO), FMO in profile 77
+    (weighted prediction), 100 (the 8x8 transform, scaling matrices) or 122
+    (4:2:2) without data partitioning, and scaling matrices with data
+    partitioning (profile 88); redundant pictures with data partitioning or
+    with B pictures, and the 8x8 transform with data partitioning, raise
+    NotImplementedError naming the field.
 
     The defaults differ from jm_tpu's in two fields: jm_tpu codes every
     picture on the host by default (pipeline="host") with md_low
@@ -343,13 +344,17 @@ class EncoderConfig:
     num_decoders: int = 0        # rdo 3's simulated lossy decoders
     loss_rate_a: int = 0         # their picture loss rate, percent
                                  # (NumberOfDecoders / LossRateA)
+    chroma_format: int = 1       # 1 4:2:0, 2 4:2:2 (High 4:2:2 profile;
+                                 # U / V of (height, width / 2))
 
 
 def _profile(cfg: EncoderConfig) -> int:
-    """profile_idc of the stream (jm_tpu encoder.py:277-281): Extended with
-    data partitioning, else High with the 8x8 transform or scaling
-    matrices, else Main with CABAC, B pictures or weighted prediction,
-    else Baseline."""
+    """profile_idc of the stream (jm_tpu encoder.py:277-286): High 4:2:2
+    at chroma_format 2, else Extended with data partitioning, else High
+    with the 8x8 transform or scaling matrices, else Main with CABAC, B
+    pictures or weighted prediction, else Baseline."""
+    if cfg.chroma_format == 2:
+        return 122
     if cfg.data_partition:
         return 88
     if cfg.transform8x8 or cfg.scaling_matrix:
@@ -370,6 +375,10 @@ def _check_config(cfg: EncoderConfig) -> None:
     if cfg.entropy not in ("cavlc", "cabac"):
         raise ValueError(f"EncoderConfig.entropy={cfg.entropy!r}: "
                          "'cavlc' or 'cabac'")
+    if cfg.chroma_format not in (1, 2) or isinstance(cfg.chroma_format,
+                                                     bool):
+        raise ValueError(f"EncoderConfig.chroma_format={cfg.chroma_format!r}"
+                         ": 1 (4:2:0) or 2 (4:2:2)")
     if cfg.intra_mb_refresh < 0:
         raise ValueError(f"EncoderConfig.intra_mb_refresh="
                          f"{cfg.intra_mb_refresh}: must be >= 0")
@@ -491,7 +500,7 @@ def _check_quant_config(cfg: EncoderConfig) -> None:
         v = getattr(cfg, name)
         if not isinstance(v, int) or isinstance(v, bool) or v < 0:
             raise ValueError(f"EncoderConfig.{name}={v!r}: an integer >= 0")
-    if cfg.scaling_matrix and _profile(cfg) != 100:
+    if cfg.scaling_matrix and _profile(cfg) not in (100, 122):
         raise ValueError("EncoderConfig.scaling_matrix: scaling matrices "
                          "need a High profile (not with data_partition)")
     if cfg.transform8x8 and cfg.data_partition:
@@ -501,10 +510,10 @@ def _check_quant_config(cfg: EncoderConfig) -> None:
         raise NotImplementedError(
             "EncoderConfig.transform8x8 with data_partition: the 8x8 "
             "transform in partitioned slices is not covered")
-    if cfg.num_slice_groups > 1 and _profile(cfg) == 100:
+    if cfg.num_slice_groups > 1 and _profile(cfg) in (100, 122):
         raise ValueError("EncoderConfig.num_slice_groups: FMO is not "
-                         "allowed in profile 100 (the 8x8 transform, "
-                         "scaling matrices)")
+                         f"allowed in profile {_profile(cfg)} (the 8x8 "
+                         "transform, scaling matrices, 4:2:2)")
 
 
 def _check_wp_config(cfg: EncoderConfig) -> None:
@@ -686,7 +695,7 @@ class Encoder:
             max_num_ref_frames=self.dpb_size,
             pic_width_in_mbs_minus1=self.mb_w - 1,
             pic_height_in_map_units_minus1=self.mb_h - 1,
-            chroma_format_idc=1, frame_mbs_only_flag=1,
+            chroma_format_idc=cfg.chroma_format, frame_mbs_only_flag=1,
             direct_8x8_inference_flag=1)
         if cfg.enable_vui:
             # timing info (lencod GenerateVUI_parameters_rbsp:1048): the
@@ -844,11 +853,13 @@ class Encoder:
         is in use), the 4x4 transform, one active reference, no sub-8x8
         partitions, no basic units of rate control (basic_units: the
         picture has them), no RD tier, no I_PCM and no simulated lossy
-        decoders. search_mode, hme and rdoq are no terms, as in jm_tpu:
-        the device route searches its own way, and with rdoq only the
-        host re-encode of its intra MBs takes the trellis (in CAVLC)."""
+        decoders, at 4:2:0. search_mode, hme and rdoq are no terms, as in
+        jm_tpu: the device route searches its own way, and with rdoq only
+        the host re-encode of its intra MBs takes the trellis (in
+        CAVLC)."""
         cfg = self.cfg
         return (cfg.pipeline == "device" and not self.quant_custom
+                and cfg.chroma_format == 1
                 and not weighted and not cfg.transform8x8
                 and self.num_ref_active == 1 and not cfg.sub8x8
                 and not basic_units and not cfg.rdo
@@ -857,10 +868,12 @@ class Encoder:
     def _device_i_path_ok(self, plan) -> bool:
         """Whether an I picture is coded on the device (jm_tpu
         _device_i_path_ok, encoder.py:2091): the device pipeline, flat
-        quant, one slice in plan, the 4x4 transform, no RD tier and no
-        I_PCM (rdoq is no term: the device I picture has no trellis)."""
+        quant, one slice in plan, the 4x4 transform, no RD tier, no I_PCM,
+        at 4:2:0 (rdoq is no term: the device I picture has no
+        trellis)."""
         cfg = self.cfg
         return (cfg.pipeline == "device" and not self.quant_custom
+                and cfg.chroma_format == 1
                 and len(plan) == 1 and not cfg.transform8x8
                 and not cfg.rdo and cfg.enable_ipcm == 0)
 
@@ -889,7 +902,7 @@ class Encoder:
     def _pipe_ok(self) -> bool:
         """The pipe covers the device route's P pictures (the device
         pipeline, flat quant, no weighted prediction, the 4x4 transform,
-        no sub-8x8 partitions) with one reference (num_ref 1),
+        no sub-8x8 partitions, 4:2:0) with one reference (num_ref 1),
         in CAVLC without B pictures, with one slice group and no slice
         mode, a fixed QP, no intra refresh, the loop filter on, no
         long-term anchors, no data partitioning, no trellis and no
@@ -912,12 +925,14 @@ class Encoder:
         """Y on top, U | V side by side below, in one host buffer and one
         copy to the device."""
         Y, U, V = (np.asarray(p, np.uint8) for p in frame)
+        ch = 8 * self.cfg.chroma_format            # chroma rows per MB
         if Y.shape != (16 * self.mb_h, 16 * self.mb_w) \
-                or U.shape != (8 * self.mb_h, 8 * self.mb_w) \
+                or U.shape != (ch * self.mb_h, 8 * self.mb_w) \
                 or V.shape != U.shape:
             raise ValueError(f"frame planes {Y.shape}/{U.shape}/{V.shape} "
                              f"do not match {self.cfg.width}x"
-                             f"{self.cfg.height} 4:2:0")
+                             f"{self.cfg.height} "
+                             f"{'4:2:2' if ch == 16 else '4:2:0'}")
         buf = np.empty((Y.shape[0] + U.shape[0], Y.shape[1]), np.uint8)
         buf[:Y.shape[0]] = Y
         buf[Y.shape[0]:, :U.shape[1]] = U
@@ -1938,10 +1953,13 @@ class Encoder:
         """Clause 7.4.2.10: cabac_zero_words (EBSP 00 00 03) after the
         picture's last slice NAL unit when the bins coded in the picture
         exceed what its size allows (lencod/src/nal.c addCabacZeroWords;
-        jm_tpu encoder.py _cabac_zero_words). RawMbBits of 8-bit 4:2:0 is
-        3072; vcl holds the picture's n_units slice NAL units."""
+        jm_tpu encoder.py _cabac_zero_words). RawMbBits of 8-bit video is
+        256 * 8 luma bits and 2 * 8 * ch * 8 chroma bits (3072 at 4:2:0,
+        4096 at 4:2:2); vcl holds the picture's n_units slice NAL
+        units."""
         n_mbs = self.mb_w * self.mb_h
-        min_bytes = (96 * bins - 3072 * n_mbs * 3 + 1023) // 1024
+        raw_mb_bits = 256 * 8 + 2 * 8 * 8 * self.cfg.chroma_format * 8
+        min_bytes = (96 * bins - raw_mb_bits * n_mbs * 3 + 1023) // 1024
         vcl_bytes = len(vcl) - 3 * n_units   # NAL header + EBSP, as JM
         if min_bytes <= vcl_bytes:
             return b""

@@ -1,7 +1,7 @@
 """Serial host intra encoder of an I picture (twin of jm_tpu/encoder/
-encoder.py _FrameEncoder._encode_intra_mb, :2639-2689, for 4:2:0, flat
-or with the custom quant of encoder/qmatrix.QuantCtx, with its RD tools:
-rdo, the trellis, I_PCM).
+encoder.py _FrameEncoder._encode_intra_mb, :2639-2689, for 4:2:0 and
+4:2:2, flat or with the custom quant of encoder/qmatrix.QuantCtx, with
+its RD tools: rdo, the trellis, I_PCM).
 
 jm_tpu codes an I picture on the device (ops/intra.i_frame_step) only
 when it is one slice of the device pipeline without custom quant, the
@@ -19,7 +19,8 @@ only the MBs of its own slice coded before it. Per MB:
     mode), and Intra16x16 replaces it when its SAD plus 24 lambda_me is
     below the Intra4x4 cost; then the chroma mode and residual.
 The Intra4x4, Intra16x16, I_PCM and chroma coding are
-encoder/p_intra.py's IntraMBCoder; the predictors are
+encoder/p_intra.py's IntraMBCoder (its Intra4x4 MB in the native
+runtime without rdo, the trellis or custom quant); the predictors are
 decoder/intra_pred.py's. jm_tpu's encoder has no Intra8x8: an I_NxN MB
 is always 4x4.
 """

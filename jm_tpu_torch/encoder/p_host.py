@@ -353,9 +353,10 @@ class PPicture(InterMBCoder):
                     pic.ref_idx[addr, q] = r
                     pic.ref_pic_id[addr, q] = self.refs[r].uid
                     pic.pdir[addr, q] = 0
+        cbh = self.crows                 # chroma rows per luma 4x4 row
         pred_y = np.zeros((16, 16), np.int64)
-        pred_u = np.zeros((8, 8), np.int64)
-        pred_v = np.zeros((8, 8), np.int64)
+        pred_u = np.zeros((self.ch, 8), np.int64)
+        pred_v = np.zeros((self.ch, 8), np.int64)
         for blk in range(16):
             by, bx = divmod(blk, 4)
             r = int(pic.ref_idx[addr, (by // 2) * 2 + bx // 2])
@@ -363,14 +364,12 @@ class PPicture(InterMBCoder):
             if self.wp is not None:
                 p = [self.wp.uni(b, 0, r, c) for c, b in enumerate(p)]
             pred_y[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = p[0]
-            pred_u[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = p[1]
-            pred_v[by * 2:by * 2 + 2, bx * 2:bx * 2 + 2] = p[2]
+            pred_u[by * cbh:(by + 1) * cbh, bx * 2:bx * 2 + 2] = p[1]
+            pred_v[by * cbh:(by + 1) * cbh, bx * 2:bx * 2 + 2] = p[2]
         if no_residual:
             self.recY[py:py + 16, px:px + 16] = np.clip(pred_y, 0, 255)
-            self.recU[py // 2:py // 2 + 8, px // 2:px // 2 + 8] = \
-                np.clip(pred_u, 0, 255)
-            self.recV[py // 2:py // 2 + 8, px // 2:px // 2 + 8] = \
-                np.clip(pred_v, 0, 255)
+            self.recU[self._csl(addr)] = np.clip(pred_u, 0, 255)
+            self.recV[self._csl(addr)] = np.clip(pred_v, 0, 255)
             pic.cbp[addr] = 0
         else:
             self._commit_inter_residual(addr, o, pred_y, pred_u, pred_v)
@@ -459,11 +458,12 @@ class PPicture(InterMBCoder):
                          .astype(np.int32)).sum())
         sbe += int(np.abs(o[:, 0] - self.recY[py:py + 16, px - 1]
                           .astype(np.int32)).sum())
-        cx, cy = mbx * 8, mby * 8
+        mh = self.ch
+        cx, cy = mbx * 8, mby * mh
         for plane, orig in ((self.recU, self.origU), (self.recV, self.origV)):
-            oc = orig[cy:cy + 8, cx:cx + 8].astype(np.int32)
+            oc = orig[cy:cy + mh, cx:cx + 8].astype(np.int32)
             sbe += int(np.abs(oc[0] - plane[cy - 1, cx:cx + 8]
                               .astype(np.int32)).sum())
-            sbe += int(np.abs(oc[:, 0] - plane[cy:cy + 8, cx - 1]
+            sbe += int(np.abs(oc[:, 0] - plane[cy:cy + mh, cx - 1]
                               .astype(np.int32)).sum())
         return best_bits / 384.0 <= sbe / 64.0

@@ -5,7 +5,8 @@ and IntraMBCoder, the intra and trellis half of every host MB coder
 (jm_tpu _FrameEncoder's _i16_candidates, _eval_i16, _encode_i16,
 _encode_i4_mb, _blk_avail, _encode_chroma_intra, _code_chroma_residual,
 _commit_ipcm, the RDOQ dispatch _rdoq_on .. _trellis_chroma_ac and the
-slice loop of encode(), for 4:2:0), which encoder/intra_host.py,
+slice loop of encode(), for 4:2:0 and 4:2:2, the format read from the
+source planes' shapes), which encoder/intra_host.py,
 encoder/b_host.py and encoder/p_host.py build on, with jm_tpu's quant
 dispatch: flat quant, or the picture's encoder/qmatrix.QuantCtx,
 ``qctx``, for scaling matrices, explicit offsets and adaptive rounding
@@ -32,15 +33,23 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native as N
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, RASTER2CODE, PredCtx
+from ..common.tables import QUANT_SCALE_4x4
 from ..common.types import SliceType
 from ..decoder import intra_pred as IP
 from ..decoder.recon import _np_hadamard4
+from ..ops.quant import FLAT_INV_SCALE_4x4
 from . import rdoq as RQ
 from . import residual_np as RN
 from .cavlc_write import residual_block_bits
 from .rdo import CabacRate, RDOptions, count_mb_bits, lambda_mode
+
+# the native Intra4x4 coder's flat tables: MF by qp % 6, the inverse
+# scale by qp, (4, 4) int32 each
+_MF4 = np.ascontiguousarray(QUANT_SCALE_4x4, np.int32)
+_VS4 = np.ascontiguousarray(FLAT_INV_SCALE_4x4, np.int32)
 
 # the device fields the commit reads (ops/enc.p_frame_step's keys)
 CORE_FIELDS = ("inter_mode", "mv4", "luma_scan", "luma_nnz", "cbp",
@@ -60,6 +69,7 @@ class IntraMBCoder:
     engine while one is installed (_code_slices)."""
 
     qctx = None
+    native_i4 = True
     ar_period = 0
     units = None
     rd = RDOptions()
@@ -224,11 +234,17 @@ class IntraMBCoder:
         return out
 
     def _init_picture(self, orig, qp: int, qpc: int) -> PictureData:
+        """The source planes, QPs and an empty PictureData; chroma planes
+        as tall as the luma make a 4:2:2 picture (crows 4, chroma MBs
+        ch = 16 rows), else 4:2:0 (crows 2, ch = 8)."""
         self.origY, self.origU, self.origV = (np.asarray(p, np.uint8)
                                               for p in orig)
         self.mb_h, self.mb_w = (s // 16 for s in self.origY.shape)
         self.qp, self.qpc = qp, qpc
-        self.pic = PictureData(self.mb_w, self.mb_h)
+        cfi = 2 if self.origU.shape[0] == self.origY.shape[0] else 1
+        self.pic = PictureData(self.mb_w, self.mb_h, cfi)
+        self.crows = self.pic.n_crows
+        self.ch = 4 * self.crows
         self.pctx = PredCtx(self.pic)
         return self.pic
 
@@ -242,8 +258,12 @@ class IntraMBCoder:
     def _mb_orig(self, addr):
         py, px = (addr // self.mb_w) * 16, (addr % self.mb_w) * 16
         return (self.origY[py:py + 16, px:px + 16],
-                self.origU[py // 2:py // 2 + 8, px // 2:px // 2 + 8],
-                self.origV[py // 2:py // 2 + 8, px // 2:px // 2 + 8])
+                *(p[self._csl(addr)] for p in (self.origU, self.origV)))
+
+    def _csl(self, addr):
+        """MB addr's chroma block (ch x 8) as a pair of slices."""
+        cy, cx = (addr // self.mb_w) * self.ch, (addr % self.mb_w) * 8
+        return slice(cy, cy + self.ch), slice(cx, cx + 8)
 
     def _avail(self, addr):
         """(left, top, top-left) neighbour availability of MB addr."""
@@ -273,8 +293,8 @@ class IntraMBCoder:
         pic.ref_idx[addr] = -1
         pic.cbp[addr] = 0
         self.recY[py:py + 16, px:px + 16] = Y
-        self.recU[py // 2:py // 2 + 8, px // 2:px // 2 + 8] = U
-        self.recV[py // 2:py // 2 + 8, px // 2:px // 2 + 8] = V
+        self.recU[self._csl(addr)] = U
+        self.recV[self._csl(addr)] = V
 
     # ---- Intra16x16 luma --------------------------------------------------
 
@@ -377,7 +397,22 @@ class IntraMBCoder:
         lambda_mode (mode bits + the block's CAVLC bits, whatever the
         entropy coder) over every candidate coded and reconstructed (its
         cost int(J)); with the trellis on, its levels trellis
-        quantized."""
+        quantized. Without an RD tier, the trellis or custom quant the MB
+        is coded by the native runtime's twin of this loop
+        (jm_tpu_torch/native, jm_dec.cpp encode_i4_mb; ``native_i4``
+        False: this loop)."""
+        if self.native_i4 and not self.rd.rdo and self.qctx is None \
+                and not self._rdoq_on:
+            pic = self.pic
+            return N.load().encode_i4_mb(
+                {"mb_w": self.mb_w, "mb_h": self.mb_h, "addr": addr,
+                 "qp": self.qp, "lam4": int(self.lam4)},
+                {"Y": self.recY, "orig": np.ascontiguousarray(origY_mb,
+                                                              np.uint8),
+                 "mb_class": pic.mb_class, "i4_modes": pic.i4_modes,
+                 "slice_id": pic.slice_id, "luma_coef": pic.luma_coef,
+                 "luma_nnz": pic.luma_nnz, "mf": _MF4[self.qp % 6],
+                 "vs": _VS4[self.qp]})
         pic, qp, Y = self.pic, self.qp, self.recY
         mbx, mby = addr % self.mb_w, addr // self.mb_w
         pic.mb_class[addr] = MB_I4
@@ -463,8 +498,10 @@ class IntraMBCoder:
     # ---- chroma -----------------------------------------------------------
 
     def _encode_chroma_intra(self, addr) -> int:
-        """Best-SAD chroma mode over Cb + Cr, coded; returns cbp_chroma."""
-        cy, cx = (addr // self.mb_w) * 8, (addr % self.mb_w) * 8
+        """Best-SAD chroma mode over Cb + Cr (8x8, or 8x16 at 4:2:2),
+        coded; returns cbp_chroma."""
+        ch = self.ch
+        cy, cx = (addr // self.mb_w) * ch, (addr % self.mb_w) * 8
         avail_l, avail_t, avail_tl = self._avail(addr)
         origU, origV = self._mb_orig(addr)[1:]
         modes = [IP.C_DC]
@@ -481,8 +518,8 @@ class IntraMBCoder:
             for plane, orig in ((self.recU, origU), (self.recV, origV)):
                 top = plane[cy - 1, cx:cx + 8].astype(np.int32) if avail_t \
                     else np.zeros(8, np.int32)
-                left = plane[cy:cy + 8, cx - 1].astype(np.int32) if avail_l \
-                    else np.zeros(8, np.int32)
+                left = plane[cy:cy + ch, cx - 1].astype(np.int32) \
+                    if avail_l else np.zeros(ch, np.int32)
                 corner = int(plane[cy - 1, cx - 1]) if avail_tl else 0
                 pred = IP.predict_chroma(m, top, left, corner, avail_t,
                                          avail_l)
@@ -497,27 +534,34 @@ class IntraMBCoder:
     def _code_chroma_residual(self, addr, predU, predV,
                               intra: bool = True) -> int:
         """Quantize, commit and reconstruct the chroma residual of MB addr
-        (2x2 DC Hadamard, block.c:954-1160) with the intra or the inter
-        rounding offset, the trellis on the DC (rdoq_dc_cr) and AC
+        (block.c:954-1160: the 2x2 DC Hadamard at 4:2:0, the 2x4 one at
+        QPc + 3 at 4:2:2) with the intra or the inter rounding offset, the
+        trellis on the DC (rdoq_dc_cr, 4:2:0 only, as in jm_tpu) and AC
         (rdoq_cr) blocks while it is on; returns cbp_chroma (0/1/2)."""
         pic, qpc, rd = self.pic, self.qpc, self.rd
-        cy, cx = (addr // self.mb_w) * 8, (addr % self.mb_w) * 8
+        crows, nb = self.crows, 2 * self.crows
         origU, origV = self._mb_orig(addr)[1:]
         rdoq = self._rdoq_on
         store = []
         for comp, pred, orig in ((0, predU, origU), (1, predV, origV)):
             res = orig.astype(np.int64) - pred
-            w = RN.np_forward4x4(res.reshape(2, 4, 2, 4).transpose(0, 2, 1, 3)
-                                 .reshape(4, 4, 4))
-            dc_t = RN.np_hadamard2x2(w[:, 0, 0].reshape(2, 2))
-            if rdoq and rd.rdoq_dc_cr:
-                dc_lev = self._trellis_chroma_dc(
-                    addr, dc_t.reshape(4), comp, intra).astype(np.int64)
+            w = RN.np_forward4x4(res.reshape(crows, 4, 2, 4)
+                                 .transpose(0, 2, 1, 3).reshape(nb, 4, 4))
+            if crows == 4:
+                dc_lev = RN.quant_dc422(
+                    w[:, 0, 0], qpc, intra,
+                    qfn=lambda f, q, i, c=comp + 1: self._qdc(f, q, i, c))
             else:
-                dc_lev = self._qdc(dc_t, qpc, intra, comp + 1).reshape(4)
+                dc_t = RN.np_hadamard2x2(w[:, 0, 0].reshape(2, 2))
+                if rdoq and rd.rdoq_dc_cr:
+                    dc_lev = self._trellis_chroma_dc(
+                        addr, dc_t.reshape(4), comp, intra).astype(np.int64)
+                else:
+                    dc_lev = self._qdc(dc_t, qpc, intra,
+                                       comp + 1).reshape(4)
             if rdoq and rd.rdoq_cr:
-                ac_scan = np.zeros((4, 16), np.int64)
-                for blk in range(4):
+                ac_scan = np.zeros((nb, 16), np.int64)
+                for blk in range(nb):
                     ac_scan[blk] = self._trellis_chroma_ac(addr, w[blk], comp,
                                                            blk, intra)
                     pic.chroma_nnz[addr, comp, blk] = int(
@@ -526,7 +570,7 @@ class IntraMBCoder:
                 ac_scan = RN.to_scan(self._q4(w, qpc, intra, comp + 1))
                 ac_scan[:, 0] = 0
             cost_c = sum(RN.coeff_cost_scan(ac_scan[b], start=1)
-                         for b in range(4))
+                         for b in range(nb))
             if cost_c < RN.CHROMA_COEFF_COST:
                 ac_scan[:, :] = 0
             store.append((dc_lev, ac_scan, pred))
@@ -541,13 +585,14 @@ class IntraMBCoder:
             pic.chroma_dc[addr, comp] = dc_lev
             pic.chroma_coef[addr, comp] = ac_scan
             pic.chroma_nnz[addr, comp] = (ac_scan[:, 1:] != 0).sum(axis=1)
-            pred_blocks = pred.reshape(2, 4, 2, 4).transpose(0, 2, 1, 3) \
-                .reshape(4, 4, 4)
-            rec = RN.recon_chroma(pred_blocks, ac_scan, dc_lev, qpc,
-                                  tab=self._itab4(intra, comp + 1))
+            pred_blocks = pred.reshape(crows, 4, 2, 4).transpose(0, 2, 1, 3) \
+                .reshape(nb, 4, 4)
+            recon = RN.recon_chroma if crows == 2 else RN.recon_chroma422
+            rec = recon(pred_blocks, ac_scan, dc_lev, qpc,
+                        tab=self._itab4(intra, comp + 1))
             plane = self.recU if comp == 0 else self.recV
-            plane[cy:cy + 8, cx:cx + 8] = \
-                rec.reshape(2, 2, 4, 4).transpose(0, 2, 1, 3).reshape(8, 8)
+            plane[self._csl(addr)] = rec.reshape(crows, 2, 4, 4) \
+                .transpose(0, 2, 1, 3).reshape(self.ch, 8)
         return cbp_chroma
 
 

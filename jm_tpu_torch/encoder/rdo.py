@@ -72,8 +72,7 @@ class MBState:
         self.rows = {k: getattr(pic, k)[addr].copy() for k in _PIC_ROWS}
         self.recY = coder.recY[self.py:self.py + 16,
                                self.px:self.px + 16].copy()
-        self._csl = (slice(mby * 8, mby * 8 + 8),
-                     slice(self.px // 2, self.px // 2 + 8))
+        self._csl = coder._csl(addr)          # the MB's chroma block
         self.recU = coder.recU[self._csl].copy()
         self.recV = coder.recV[self._csl].copy()
 
@@ -88,14 +87,15 @@ class MBState:
 
 
 def mb_ssd(coder, addr: int) -> int:
-    """Reconstruction SSD over Y + U + V of one MB."""
+    """Reconstruction SSD over Y + U + V of one MB (its chroma 8x8, or
+    8x16 at 4:2:2)."""
     mbx, mby = addr % coder.mb_w, addr // coder.mb_w
     px, py = mbx * 16, mby * 16
     oY, oU, oV = coder._mb_orig(addr)
-    cy, cx = mby * 8, px // 2
+    csl = coder._csl(addr)
     dy = oY.astype(np.int64) - coder.recY[py:py + 16, px:px + 16]
-    du = oU.astype(np.int64) - coder.recU[cy:cy + 8, cx:cx + 8]
-    dv = oV.astype(np.int64) - coder.recV[cy:cy + 8, cx:cx + 8]
+    du = oU.astype(np.int64) - coder.recU[csl]
+    dv = oV.astype(np.int64) - coder.recV[csl]
     return int((dy * dy).sum() + (du * du).sum() + (dv * dv).sum())
 
 

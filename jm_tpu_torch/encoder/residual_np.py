@@ -1,8 +1,9 @@
 """Numpy residual coding of single macroblocks for the host coders
 (encoder/p_intra.py, intra_host.py, b_host.py, p_host.py): the forward
 4x4 and 8x8 transforms, flat quant, the 4x4 and 8x8 zig-zag scans, the
-decode-mirror recon of 4x4, 8x8 and Intra16x16 luma and of 4:2:0 chroma
-(flat, or with a scaling matrix's inverse table ``tab``), and JM's
+decode-mirror recon of 4x4, 8x8 and Intra16x16 luma and of 4:2:0 and
+4:2:2 chroma (flat, or with a scaling matrix's inverse table ``tab``;
+the 4:2:2 chroma DC is a 2x4 Hadamard quantized at QPc + 3), and JM's
 run-weighted coefficient costs. A trimmed copy of
 jm_tpu/encoder/residual_np.py (frame scan); the inverse halves are the
 port's decoder's (decoder/recon.py), so the encoder's recon is what a
@@ -14,8 +15,10 @@ from __future__ import annotations
 import numpy as np
 
 from ..common.tables import (DEQUANT_SCALE_8x8, QUANT_SCALE_4x4,
-                             QUANT_SCALE_8x8, ZIGZAG_4x4, ZIGZAG_8x8)
-from ..decoder.recon import _np_hadamard4, _np_inv4, _np_inv8, _rshift_rnd_sf
+                             QUANT_SCALE_8x8, SCAN_YUV422, ZIGZAG_4x4,
+                             ZIGZAG_8x8)
+from ..decoder.recon import (_np_hadamard4, _np_ihadamard2x4, _np_inv4,
+                             _np_inv8, _rshift_rnd_sf)
 from ..ops.quant import FLAT_INV_SCALE_4x4
 from ..ops.transform import fwd8_1d
 
@@ -157,6 +160,44 @@ def recon_chroma(pred_blocks, ac_scan, dc_lev, qp_c: int, tab=None):
     dc_s = ((f * scale) << (qp_c // 6)) >> 5
     blk = np.arange(4)
     d[blk, 0, 0] = dc_s[blk // 2, blk % 2]
+    r = (_np_inv4(d) + 32) >> 6
+    return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
+
+
+def np_hadamard4x2(dc_cols: np.ndarray) -> np.ndarray:
+    """Forward 4:2:2 chroma DC Hadamard (lcommon/src/transform.c
+    hadamard4x2:220) of (2, 4) DCs in the [column i][row j] layout."""
+    d = dc_cols.astype(np.int64)
+    tmp = np.stack([d[0] + d[1], d[0] - d[1]])          # (2, 4)
+    p0, p1, p2, p3 = tmp[:, 0], tmp[:, 1], tmp[:, 2], tmp[:, 3]
+    t0, t1 = p0 + p3, p1 + p2
+    t2, t3 = p1 - p2, p0 - p3
+    return np.stack([t0 + t1, t3 + t2, t0 - t1, t3 - t2], axis=-1)
+
+
+def quant_dc422(dc_raster: np.ndarray, qp_c: int, intra: bool,
+                qfn=None) -> np.ndarray:
+    """The 8 chroma DC levels in SCAN_YUV422 order of one 8x16 component
+    from its blocks' raster DCs (8,) (lencod block.c:1056-1076: the 2x4
+    Hadamard, then the DC quant at QPc + 3); qfn: the QuantCtx DC
+    quantizer of a scaling matrix, else np_quant_dc."""
+    cols = np.stack([dc_raster[0::2], dc_raster[1::2]])   # [col i][row j]
+    lev = (qfn or np_quant_dc)(np_hadamard4x2(cols), qp_c + 3, intra)
+    return np.array([lev[i, j] for (i, j) in SCAN_YUV422], np.int32)
+
+
+def recon_chroma422(pred_blocks, ac_scan, dc_scan, qp_c: int, tab=None):
+    """Decode-mirror 4:2:2 chroma recon of one component: pred_blocks
+    (8, 4, 4) raster blocks (2 wide, 4 tall), ac_scan (8, 16) with
+    [:, 0] == 0, dc_scan (8,) DC levels in SCAN_YUV422 order."""
+    t = FLAT_INV_SCALE_4x4 if tab is None else tab
+    d = _dequant_4x4(from_scan(ac_scan), qp_c, tab)
+    f = _np_ihadamard2x4(dc_scan)                       # (2 cols, 4 rows)
+    qpdc = qp_c + 3
+    dc_s = _rshift_rnd_sf((f * int(t[qpdc, 0, 0])) << (qpdc // 6), 6)
+    for j in range(4):
+        for i in range(2):
+            d[2 * j + i, 0, 0] = dc_s[i, j]
     r = (_np_inv4(d) + 32) >> 6
     return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
 

@@ -59,25 +59,27 @@ def _write_scaling_lists(bw: BitWriter, scaling, n_lists: int) -> None:
 
 
 def write_sps(sps, scaling=None) -> bytes:
-    """Seq_parameter_set_rbsp for a frame-coded Baseline, Extended, Main
-    or High (4:2:0, 8 bits) stream with POC type 0, 1 or 2 and the VUI
-    of ``sps.vui``; scaling: the lists a High SPS with
-    seq_scaling_matrix_present_flag transmits, as _write_scaling_lists
-    takes them (lencod parset.c GenerateSeq_parameter_set_rbsp;
-    jm_tpu/encoder/syntax.py _write_sps_data)."""
-    if sps.profile_idc in (110, 122, 244, 44, 118, 128) \
-            or sps.chroma_format_idc != 1 \
+    """Seq_parameter_set_rbsp for a frame-coded Baseline, Extended, Main,
+    High (4:2:0) or High 4:2:2 (profile 122, chroma_format_idc 2) stream
+    of 8 bits with POC type 0, 1 or 2 and the VUI of ``sps.vui``;
+    scaling: the lists a High SPS with seq_scaling_matrix_present_flag
+    transmits, as _write_scaling_lists takes them (lencod parset.c
+    GenerateSeq_parameter_set_rbsp; jm_tpu/encoder/syntax.py
+    _write_sps_data)."""
+    if sps.profile_idc in (110, 244, 44, 118, 128) \
+            or sps.chroma_format_idc != (2 if sps.profile_idc == 122
+                                         else 1) \
             or sps.pic_order_cnt_type not in (0, 1, 2) \
             or not sps.frame_mbs_only_flag:
         raise ValueError("write_sps covers Baseline / Extended / Main / "
-                         "High 4:2:0 frame coding with pic_order_cnt_type "
-                         "0, 1 or 2")
+                         "High 4:2:0 and High 4:2:2 frame coding with "
+                         "pic_order_cnt_type 0, 1 or 2")
     bw = BitWriter()
     bw.u(sps.profile_idc, 8)
     bw.u(sps.constraint_set_flags, 8)
     bw.u(sps.level_idc, 8)
     bw.ue(sps.seq_parameter_set_id)
-    if sps.profile_idc == 100:
+    if sps.profile_idc in (100, 122):
         bw.ue(sps.chroma_format_idc)
         bw.ue(sps.bit_depth_luma_minus8)
         bw.ue(sps.bit_depth_chroma_minus8)
@@ -456,14 +458,18 @@ class MBWriter:
         self._write_chroma_residual(addr, cbp)
 
     def _write_chroma_residual(self, addr: int, cbp: int) -> None:
+        """The chroma DC (2x2 with nC -1, or 2x4 with nC -2 at 4:2:2),
+        then 2 n_crows AC blocks per component."""
         pic, bw = self.pic, self._res_bw(addr)
         cbp_chroma = cbp >> 4
+        n_dc = 2 * pic.n_crows
         if cbp_chroma & 3:
             for comp in range(2):
-                write_residual_block(bw, pic.chroma_dc[addr, comp], -1, 4)
+                write_residual_block(bw, pic.chroma_dc[addr, comp],
+                                     -1 if n_dc == 4 else -2, n_dc)
         if cbp_chroma & 2:
             for comp in range(2):
-                for blk in range(4):
+                for blk in range(n_dc):
                     nc = self.pctx.nc_chroma(addr, comp, blk)
                     write_residual_block(
                         bw, pic.chroma_coef[addr, comp, blk, 1:], nc, 15)

@@ -25,8 +25,9 @@ from .. import native as N
 from ..common.picture import MB_I4, MB_INTER, MB_IPCM
 from ..common.predict_ctx import CODE2RASTER
 from ..common.types import SliceType
-from ..decoder.cabac import (C1ISDC, CHROMA_AC, CHROMA_DC, LUMA_4x4,
-                             LUMA_8x8, LUMA_16AC, LUMA_16DC, MAX_C2, MAXPOS,
+from ..decoder.cabac import (C1ISDC, CHROMA_AC, CHROMA_DC, CHROMA_DC_2x4,
+                             LUMA_4x4, LUMA_8x8, LUMA_16AC, LUMA_16DC,
+                             MAX_C2, MAXPOS,
                              TYPE2CTX_ABS, TYPE2CTX_BCBP, TYPE2CTX_LAST,
                              TYPE2CTX_MAP, TYPE2CTX_ONE, CabacContexts,
                              pos2ctx_last, pos2ctx_map)
@@ -305,15 +306,18 @@ class MBWriterCABAC(CabacNeighbours):
                 self.mark_8x8(addr, blk8, coeff)
 
     def _write_chroma_residual(self, addr, cbp):
+        """The chroma DC blocks (CHROMA_DC, or CHROMA_DC_2x4 at 4:2:2),
+        then 2 n_crows AC blocks per component."""
         pic = self.pic
         cc = cbp >> 4
+        dc_type = CHROMA_DC_2x4 if pic.n_crows == 4 else CHROMA_DC
         if cc & 3:
             for comp in range(2):
-                self._write_block(addr, CHROMA_DC, pic.chroma_dc[addr, comp],
+                self._write_block(addr, dc_type, pic.chroma_dc[addr, comp],
                                   comp=comp)
         if cc & 2:
             for comp in range(2):
-                for blk in range(4):
+                for blk in range(2 * pic.n_crows):
                     by, bx = divmod(blk, 2)
                     self._write_block(addr, CHROMA_AC,
                                       pic.chroma_coef[addr, comp, blk, 1:16],

@@ -8,7 +8,9 @@ module import time, so the CPU tests can import this module.
 
 Every wrapper checks its inputs, allocates its outputs and the kernel's
 zeroed scratch, launches once, and adds the kernel launches it made to
-``launches``. The input planes are left as they are. A wrapper given CPU
+``launches``: K1 under "deblock_luma", K2 (4:2:0 chroma) under
+"deblock_chroma", K2-422 (4:2:2 chroma) under "deblock_chroma422". The
+input planes are left as they are. A wrapper given CPU
 tensors raises: the plain PyTorch versions live beside their callers
 (ops/deblock.py ``deblock_plain``).
 """
@@ -24,7 +26,7 @@ import torch
 _SRC = Path(__file__).resolve().parent
 BUILD_DIR = _SRC.parents[1] / "build" / "kernels"
 
-launches = {"deblock_luma": 0, "deblock_chroma": 0}
+launches = {"deblock_luma": 0, "deblock_chroma": 0, "deblock_chroma422": 0}
 build_seconds = None            # wall time of the build, once built
 _ext = None
 
@@ -96,13 +98,18 @@ def deblock_luma(Y, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
 
 
 def deblock_chroma(U, V, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
-                   transform8x8, qpc_cb, qpc_cr, *, mb_w: int, mb_h: int):
-    """K2: Cb and Cr deblock of U, V (8 mb_h, 8 mb_w) uint8 (4:2:0), one
-    persistent launch; qpc_cb / qpc_cr (52,) int32 QP -> QPc tables.
-    Returns new (U, V)."""
+                   transform8x8, qpc_cb, qpc_cr, *, mb_w: int, mb_h: int,
+                   crows: int = 2):
+    """Cb and Cr deblock of U, V (4 crows mb_h, 8 mb_w) uint8, one
+    persistent launch: K2 at 4:2:0 (crows 2), K2-422 at 4:2:2 (crows 4),
+    counted under their own keys. qpc_cb / qpc_cr (52,) int32 QP -> QPc
+    tables. Returns new (U, V)."""
+    if crows not in (2, 4):
+        raise ValueError(f"crows {crows}: 2 (4:2:0) or 4 (4:2:2)")
     per_mb = (qp, disable, a_off, b_off, slice_id, transform8x8)
-    _check(U, torch.uint8, (8 * mb_h, 8 * mb_w), "U")
-    _check(V, torch.uint8, (8 * mb_h, 8 * mb_w), "V")
+    shape = (4 * crows * mb_h, 8 * mb_w)
+    _check(U, torch.uint8, shape, "U")
+    _check(V, torch.uint8, shape, "V")
     _check(qpc_cb, torch.int32, (52,), "qpc_cb")
     _check(qpc_cr, torch.int32, (52,), "qpc_cr")
     _check_mb_args(bs_v, bs_h, per_mb, mb_w, mb_h, U.device)
@@ -111,7 +118,8 @@ def deblock_chroma(U, V, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
         raise ValueError("U, V and the QPc tables must share a device")
     out_u = torch.empty_like(U)
     out_v = torch.empty_like(V)
-    launches["deblock_chroma"] += load().deblock_chroma(
+    key = "deblock_chroma" if crows == 2 else "deblock_chroma422"
+    launches[key] += load().deblock_chroma(
         U, V, out_u, out_v, _scratch(mb_h, U.device), bs_v, bs_h, *per_mb,
-        qpc_cb, qpc_cr, mb_w, mb_h)
+        qpc_cb, qpc_cr, mb_w, mb_h, 4 * crows)
     return out_u, out_v

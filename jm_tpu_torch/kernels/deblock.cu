@@ -1,11 +1,14 @@
-// In-loop deblocking filter (H.264 spec 8.7) for 4:2:0 frame pictures,
-// hand-written for Hopper (sm_90a).
+// In-loop deblocking filter (H.264 spec 8.7) for 4:2:0 and 4:2:2 frame
+// pictures, hand-written for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of jm_tpu/ops/deblock_pallas.py,
 // both launched from deblock_pallas (:394):
 //   _luma_kernel   (:213, pallas_call :416) -> K1 deblock_luma_rows
-//   _chroma_kernel (:310, pallas_call :424) -> K2 deblock_chroma_rows
+//   _chroma_kernel (:310, pallas_call :424) -> K2 deblock_chroma_rows<8>
 // and computes bit for bit what they (and jm_tpu/ops/deblock_jax.py) do.
+// K2-422, deblock_chroma_rows<16>, is the same kernel at 4:2:2, where the
+// TPU kernel has no variant: it computes what jm_tpu's host loops do
+// (jm_tpu/ops/deblock.py:297-380). K1 serves both formats.
 //
 // Dependencies: MB (b, c) filters its 4 vertical edges left to right,
 // then its 4 horizontal edges top to bottom (DeblockMb's order); its MB
@@ -19,15 +22,17 @@
 //
 // What bounds it on the H100: not bytes (a 1080p 4:2:0 frame read and
 // written once plus its bS and per-MB parameters is ~4.6 MB, 1.38 us at
-// 3.35 TB/s) and not arithmetic (~1e8 integer ops), but the dependency
-// chain. The 2:1 wavefront walks mb_w + 2 (mb_h - 1) MB steps one after
-// the other (254 at 1080p), 67 of which hand a row's progress from one SM
-// to the next through L2; split into phases, the chain is mb_w + mb_h - 1
-// MB steps (187), again with 67 handoffs.
+// 3.35 TB/s; K2-422's two 960x1088 planes read and written ~4.2 MB) and
+// not arithmetic (~1e8 integer ops), but the dependency chain. The 2:1
+// wavefront walks mb_w + 2 (mb_h - 1) MB steps one after the other (254 at
+// 1080p), 67 of which hand a row's progress from one SM to the next
+// through L2; split into phases, the chain is mb_w + mb_h - 1 MB steps
+// (187), again with 67 handoffs.
 //
 // This design keeps the whole chain in one launch per picture and makes
 // each step short. Each CTA (one warp; lanes 0-15 are the 16 filter lines
-// of luma, 0-7 Cb and 8-15 Cr of chroma) takes an MB row from a global
+// of luma, 0-7 Cb and 8-15 Cr of 4:2:0 chroma, 0-15 Cb and 16-31 Cr of
+// 4:2:2 chroma) takes an MB row from a global
 // ticket and walks it left to right. progress[b] counts the MBs of row b
 // that are final: filtered, stored, and with their right fringe rewritten
 // by the next MB's left edge (the last MB once filtered). So after the
@@ -218,11 +223,13 @@ __device__ __forceinline__ void unpack(uint32_t w, int* v) {
   for (int k = 0; k < 4; ++k) v[k] = (w >> (8 * k)) & 0xff;
 }
 
-// Lane 0 of the CTA takes the next MB row; every lane gets it.
-__device__ __forceinline__ int next_row(int* ticket) {
+// Lane 0 of the CTA takes the next MB row; every lane of `mask` (the
+// CTA's lanes) gets it.
+__device__ __forceinline__ int next_row(int* ticket,
+                                        unsigned mask = kMask) {
   int b = 0;
   if (threadIdx.x == 0) b = atomicAdd(ticket, 1);
-  return __shfl_sync(kMask, b, 0);
+  return __shfl_sync(mask, b, 0);
 }
 
 // Waits until `need` MBs of row b-1 are final. Lane 0 polls with acquire
@@ -230,7 +237,8 @@ __device__ __forceinline__ int next_row(int* ticket) {
 // nothing); the warp barrier then orders every lane's later loads after
 // that acquire.
 __device__ __forceinline__ void wait_above(int* progress, int b, int need,
-                                           int& seen) {
+                                           int& seen,
+                                           unsigned mask = kMask) {
   if (threadIdx.x == 0 && seen < need) {
     cuda::atomic_ref<int, cuda::thread_scope_device> above(progress[b - 1]);
     for (int polls = 0;; ++polls) {
@@ -240,7 +248,7 @@ __device__ __forceinline__ void wait_above(int* progress, int b, int need,
       __nanosleep(32);
     }
   }
-  __syncwarp(kMask);
+  __syncwarp(mask);
 }
 
 // Publishes that `done` MBs of row b are final: every lane's stores, then
@@ -248,8 +256,9 @@ __device__ __forceinline__ void wait_above(int* progress, int b, int need,
 // release orders every store that the barrier ordered before it; a full
 // __threadfence in front of it would order nothing more and stall the
 // warp on every MB.
-__device__ __forceinline__ void publish(int* progress, int b, int done) {
-  __syncwarp(kMask);
+__device__ __forceinline__ void publish(int* progress, int b, int done,
+                                        unsigned mask = kMask) {
+  __syncwarp(mask);
   if (threadIdx.x == 0) {
     cuda::atomic_ref<int, cuda::thread_scope_device> mine(progress[b]);
     mine.store(done, cuda::memory_order_release);
@@ -350,29 +359,58 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
-// K2: Cb and Cr. in_u / in_v / out_u / out_v (8 mb_h, 8 mb_w) uint8
-// planes with row pitch `stride` (a multiple of 8, 8-byte aligned);
-// qpc_cb / qpc_cr (52,) QP -> QPc; ticket and progress as for K1. Lanes
-// 0-7 filter Cb lines, 8-15 Cr lines: 2 vertical then 2 horizontal edges.
-__global__ void __launch_bounds__(kLanes)
+// K2 (kRows 8, 4:2:0) and K2-422 (kRows 16, 4:2:2): Cb and Cr. in_u /
+// in_v / out_u / out_v (kRows mb_h, 8 mb_w) uint8 planes with row pitch
+// `stride` (a multiple of 8, 8-byte aligned); qpc_cb / qpc_cr (52,) QP ->
+// QPc; ticket and progress as for K1. 2 kRows lanes per CTA. Vertical
+// edges 0 and 2: lanes 0..kRows-1 filter the Cb lines, the rest the Cr
+// lines (4:2:2 fills the warp), each line with the bS of its own luma
+// line (chroma line l is luma line 16 l / kRows). Horizontal edges:
+// lanes 0-7 Cb and 8-15 Cr columns, each down its whole column (the edges
+// at chroma rows 0, 4, ... with the bS of luma edges 0, 2 at 4:2:0 and
+// 0, 1, 2, 3 at 4:2:2; the 8x8 transform switches none of them off, so
+// at 4:2:2 rows 4 and 12 run where luma edges 1 and 3 do not, ldecod
+// loopFilter.c:488); at 4:2:2 lanes 16-31 wait at the barriers.
+//
+// The row-progress rule is K1's at both formats. A chroma filter line
+// reads p1..q1 and changes only p0 and q0, so (b, c)'s top edge rewrites
+// the last row of (b-1, c) and reads the one above it, and (b-1, c+1)'s
+// left edge rewrites column 7 of (b-1, c) down all its lines, the last
+// row included: the horizontal edges of (b, c) wait for progress[b-1] >=
+// c+1, as at 4:2:0, and nothing of row b-1 touches (b-1, c) after that.
+// The taller MB changes the lines each step carries, not the rule.
+template <int kRows>
+__global__ void __launch_bounds__(2 * kRows)
     deblock_chroma_rows(const uint8_t* __restrict__ in_u,
                         const uint8_t* __restrict__ in_v, uint8_t* out_u,
                         uint8_t* out_v, int stride, MbParams m,
                         const int32_t* __restrict__ qpc_cb,
                         const int32_t* __restrict__ qpc_cr, int* ticket,
                         int* progress) {
-  __shared__ int tile[2][8][9];   // the MBs after their vertical edges
-  __shared__ int left[2][8][2];   // columns 6-7 of the previous MBs
-  const int comp = threadIdx.x >> 3;
-  const int l = threadIdx.x & 7;
+  static_assert(kRows == 8 || kRows == 16, "4:2:0 or 4:2:2");
+  constexpr unsigned kWarp = kRows == 16 ? 0xffffffffu : kMask;
+  constexpr int kLumaStep = 16 / kRows;   // luma lines per chroma line
+  __shared__ int tile[2][kRows][9];   // the MBs after their vertical edges
+  __shared__ int left[2][kRows][2];   // columns 6-7 of the previous MBs
+  const int t = threadIdx.x;
+  // vertical phase: line l of component comp
+  const int comp = t / kRows;
+  const int l = t % kRows;
+  // horizontal phase: column col of component hcomp (lanes 0-15)
+  const bool hlane = t < 16;
+  const int hcomp = (t >> 3) & 1;
+  const int col = t & 7;
   const uint8_t* in = comp ? in_v : in_u;
   uint8_t* out = comp ? out_v : out_u;
+  uint8_t* hout = hcomp ? out_v : out_u;
   const int32_t* tab = comp ? qpc_cr : qpc_cb;
+  const int32_t* htab = hcomp ? qpc_cr : qpc_cb;
   const int bs_stride = 4 * m.mb_w;
-  for (int b = next_row(ticket); b < m.mb_h; b = next_row(ticket)) {
-    const uint8_t* in_row = in + (size_t)(8 * b + l) * stride;
-    uint8_t* out_row = out + (size_t)(8 * b + l) * stride;
-    uint8_t* out_col = out + (ptrdiff_t)(8 * b - 2) * stride + l;
+  for (int b = next_row(ticket, kWarp); b < m.mb_h;
+       b = next_row(ticket, kWarp)) {
+    const uint8_t* in_row = in + (size_t)(kRows * b + l) * stride;
+    uint8_t* out_row = out + (size_t)(kRows * b + l) * stride;
+    uint8_t* out_col = hout + (ptrdiff_t)(kRows * b - 2) * stride + col;
     int seen = 0;
     uint2 nxt = __ldg(reinterpret_cast<const uint2*>(in_row));
     for (int c = 0; c < m.mb_w; ++c) {
@@ -380,69 +418,72 @@ __global__ void __launch_bounds__(kLanes)
       if (c + 1 < m.mb_w)
         nxt = __ldg(reinterpret_cast<const uint2*>(in_row + 8 * (c + 1)));
       const MbEdges e = load_mb(m, b, c);
-      const int qpc = __ldg(tab + clip3(0, 51, e.qp));
-      const int qpc_l = __ldg(tab + clip3(0, 51, e.qp_l));
-      const int qpc_t = __ldg(tab + clip3(0, 51, e.qp_t));
       const uint32_t bsv = __ldg(reinterpret_cast<const uint32_t*>(
-          m.bs_v + (4 * b + (l >> 1)) * bs_stride + 4 * c));
-      int bsh[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k)
-        bsh[k] =
-            __ldg(m.bs_h + (4 * b + 2 * k) * bs_stride + 4 * c + (l >> 1));
+          m.bs_v + (4 * b + ((kLumaStep * l) >> 2)) * bs_stride + 4 * c));
 
-      // vertical edges 0 and 2 along row l: 2 left samples + 8 of the MB
-      int v[10];
+      // vertical edges 0 and 2 along line l: 2 left samples + 8 of the MB
+      {
+        const int qpc = __ldg(tab + clip3(0, 51, e.qp));
+        const int qpc_l = __ldg(tab + clip3(0, 51, e.qp_l));
+        int v[10];
 #pragma unroll
-      for (int k = 0; k < 2; ++k) v[k] = c > 0 ? left[comp][l][k] : 0;
-      unpack(cur.x, v + 2);
-      unpack(cur.y, v + 6);
+        for (int k = 0; k < 2; ++k) v[k] = c > 0 ? left[comp][l][k] : 0;
+        unpack(cur.x, v + 2);
+        unpack(cur.y, v + 6);
 #pragma unroll
-      for (int ex = 0; ex < 4; ex += 2) {
-        const bool en = ex == 0 ? e.left_ok : e.on;
-        const int bs = bs_byte(bsv, ex);
-        if (!en || bs <= 0) continue;
-        chroma_line(v + 2 + 2 * ex, bs,
-                    thresholds(ex == 0 ? qpc_l : qpc, qpc, e.ao, e.bo, bs));
+        for (int ex = 0; ex < 4; ex += 2) {
+          const bool en = ex == 0 ? e.left_ok : e.on;
+          const int bs = bs_byte(bsv, ex);
+          if (!en || bs <= 0) continue;
+          chroma_line(v + 2 + 2 * ex, bs,
+                      thresholds(ex == 0 ? qpc_l : qpc, qpc, e.ao, e.bo, bs));
+        }
+        if (c > 0) out_row[8 * c - 1] = (uint8_t)v[1];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) tile[comp][l][x] = v[2 + x];
       }
-      if (c > 0) out_row[8 * c - 1] = (uint8_t)v[1];
-#pragma unroll
-      for (int x = 0; x < 8; ++x) tile[comp][l][x] = v[2 + x];
-      if (c > 0) publish(progress, b, c);     // MB c-1 is final
+      if (c > 0) publish(progress, b, c, kWarp);   // MB c-1 is final
 
-      // horizontal edges 0 and 2 down column l: 2 samples above + 8
-      int h[10];
-      if (b > 0) {
-        wait_above(progress, b, c + 1, seen);
+      // horizontal edges down column col: 2 samples above + kRows
+      if (b > 0)
+        wait_above(progress, b, c + 1, seen, kWarp);
+      else
+        __syncwarp(kWarp);
+      if (hlane) {
+        const int qpc = __ldg(htab + clip3(0, 51, e.qp));
+        const int qpc_t = __ldg(htab + clip3(0, 51, e.qp_t));
+        int h[2 + kRows];
+        if (b > 0) {
 #pragma unroll
-        for (int y = 0; y < 2; ++y)
-          h[y] = __ldcg(out_col + (size_t)y * stride + 8 * c);
-      } else {
-        __syncwarp(kMask);
-        h[0] = h[1] = 0;
-      }
+          for (int y = 0; y < 2; ++y)
+            h[y] = __ldcg(out_col + (size_t)y * stride + 8 * c);
+        } else {
+          h[0] = h[1] = 0;
+        }
 #pragma unroll
-      for (int y = 0; y < 8; ++y) h[2 + y] = tile[comp][y][l];
+        for (int y = 0; y < kRows; ++y) h[2 + y] = tile[hcomp][y][col];
 #pragma unroll
-      for (int ey = 0; ey < 4; ey += 2) {
-        const bool en = ey == 0 ? e.top_ok : e.on;
-        const int bs = bsh[ey >> 1];
-        if (!en || bs <= 0) continue;
-        chroma_line(h + 2 + 2 * ey, bs,
-                    thresholds(ey == 0 ? qpc_t : qpc, qpc, e.ao, e.bo, bs));
-      }
-      if (b > 0) out_col[(size_t)stride + 8 * c] = (uint8_t)h[1];
+        for (int k = 0; k < kRows / 4; ++k) {
+          const bool en = k == 0 ? e.top_ok : e.on;
+          const int bs = __ldg(m.bs_h + (4 * b + kLumaStep * k) * bs_stride +
+                               4 * c + (col >> 1));
+          if (!en || bs <= 0) continue;
+          chroma_line(h + 2 + 4 * k, bs,
+                      thresholds(k == 0 ? qpc_t : qpc, qpc, e.ao, e.bo, bs));
+        }
+        if (b > 0) out_col[(size_t)stride + 8 * c] = (uint8_t)h[1];
 #pragma unroll
-      for (int y = 2; y < 10; ++y)
-        out_col[(size_t)y * stride + 8 * c] = (uint8_t)h[y];
-      if (l >= 6) {
+        for (int y = 2; y < 2 + kRows; ++y)
+          out_col[(size_t)y * stride + 8 * c] = (uint8_t)h[y];
+        if (col >= 6) {
 #pragma unroll
-        for (int y = 0; y < 8; ++y) left[comp][y][l - 6] = h[2 + y];
+          for (int y = 0; y < kRows; ++y) left[hcomp][y][col - 6] = h[2 + y];
+        }
       }
       if (c + 1 == m.mb_w)
-        publish(progress, b, m.mb_w);
+        publish(progress, b, m.mb_w, kWarp);
       else
-        __syncwarp(kMask);
+        __syncwarp(kWarp);
     }
   }
 }
@@ -492,11 +533,16 @@ void launch_deblock_chroma(const uint8_t* in_u, const uint8_t* in_v,
                            const int32_t* slice_id, const int32_t* t8,
                            const int8_t* bs_v, const int8_t* bs_h,
                            const int32_t* qpc_cb, const int32_t* qpc_cr,
-                           int* scratch, int mb_w, int mb_h, int grid,
-                           cudaStream_t stream) {
+                           int* scratch, int mb_w, int mb_h, int rows,
+                           int grid, cudaStream_t stream) {
   MbParams m = make_params(qp, disable, a_off, b_off, slice_id, t8, bs_v,
                            bs_h, mb_w, mb_h);
-  deblock_chroma_rows<<<grid, kLanes, 0, stream>>>(
-      in_u, in_v, out_u, out_v, stride, m, qpc_cb, qpc_cr, scratch,
-      scratch + 1);
+  if (rows == 16)
+    deblock_chroma_rows<16><<<grid, 32, 0, stream>>>(
+        in_u, in_v, out_u, out_v, stride, m, qpc_cb, qpc_cr, scratch,
+        scratch + 1);
+  else
+    deblock_chroma_rows<8><<<grid, 16, 0, stream>>>(
+        in_u, in_v, out_u, out_v, stride, m, qpc_cb, qpc_cr, scratch,
+        scratch + 1);
 }

@@ -24,8 +24,8 @@ void launch_deblock_chroma(const uint8_t* in_u, const uint8_t* in_v,
                            const int32_t* slice_id, const int32_t* t8,
                            const int8_t* bs_v, const int8_t* bs_h,
                            const int32_t* qpc_cb, const int32_t* qpc_cr,
-                           int* scratch, int mb_w, int mb_h, int grid,
-                           cudaStream_t stream);
+                           int* scratch, int mb_w, int mb_h, int rows,
+                           int grid, cudaStream_t stream);
 
 namespace {
 
@@ -85,8 +85,9 @@ int64_t deblock_luma(torch::Tensor Y, torch::Tensor Y_out,
   return 1;
 }
 
-// K2: filters U and V (8 mb_h, 8 mb_w) uint8 into U_out and V_out;
-// scratch is (1 + mb_h,) int32 zeros. Returns the launch count (1).
+// K2 (rows 8, 4:2:0) and K2-422 (rows 16, 4:2:2): filters U and V
+// (rows mb_h, 8 mb_w) uint8 into U_out and V_out; scratch is (1 + mb_h,)
+// int32 zeros. Returns the launch count (1).
 int64_t deblock_chroma(torch::Tensor U, torch::Tensor V, torch::Tensor U_out,
                        torch::Tensor V_out, torch::Tensor scratch,
                        torch::Tensor bs_v, torch::Tensor bs_h,
@@ -94,7 +95,10 @@ int64_t deblock_chroma(torch::Tensor U, torch::Tensor V, torch::Tensor U_out,
                        torch::Tensor a_off, torch::Tensor b_off,
                        torch::Tensor slice_id, torch::Tensor t8,
                        torch::Tensor qpc_cb, torch::Tensor qpc_cr,
-                       int64_t mb_w, int64_t mb_h) {
+                       int64_t mb_w, int64_t mb_h, int64_t rows) {
+  TORCH_CHECK(rows == 8 || rows == 16, "chroma rows per MB: 8 or 16");
+  TORCH_CHECK(U.size(0) == rows * mb_h && U.size(1) == 8 * mb_w,
+              "U must be (rows mb_h, 8 mb_w)");
   // the interior of each MB row is read as 8-byte vectors
   check(U, torch::kUInt8, "U", 8);
   check(V, torch::kUInt8, "V", 8);
@@ -115,8 +119,8 @@ int64_t deblock_chroma(torch::Tensor U, torch::Tensor V, torch::Tensor U_out,
       slice_id.data_ptr<int32_t>(), t8.data_ptr<int32_t>(),
       bs_v.data_ptr<int8_t>(), bs_h.data_ptr<int8_t>(),
       qpc_cb.data_ptr<int32_t>(), qpc_cr.data_ptr<int32_t>(),
-      scratch.data_ptr<int32_t>(), (int)mb_w, (int)mb_h, grid_size(mb_h),
-      at::cuda::getCurrentCUDAStream());
+      scratch.data_ptr<int32_t>(), (int)mb_w, (int)mb_h, (int)rows,
+      grid_size(mb_h), at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return 1;
 }
@@ -125,5 +129,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("deblock_luma", &deblock_luma,
         "K1: luma deblock, one persistent launch");
   m.def("deblock_chroma", &deblock_chroma,
-        "K2: chroma deblock, one persistent launch");
+        "K2 / K2-422: chroma deblock, one persistent launch");
 }

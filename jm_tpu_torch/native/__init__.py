@@ -2,8 +2,9 @@
 
 The sources beside this file (jm_native.cpp: BitReader, CabacEngine,
 EBSP <-> RBSP; jm_enc.cpp: the CAVLC slice serializer; jm_dec.cpp: the
-CAVLC slice parser and the intra reconstruction) are the port's own copy
-of jm_tpu's native/ runtime, without its deblock (the card deblocks). They
+CAVLC slice parser, the intra reconstruction and the encoder's Intra4x4
+MB coder) are the port's own copy of jm_tpu's native/ runtime, without
+its deblock (the card deblocks), with the Intra4x4 coder added. They
 include only Python.h and are compiled with g++ at first use into
 ``build/native`` under the repository root (git-ignored), and rebuilt
 when a source is newer than the module. Nothing is built at import time.
@@ -28,6 +29,8 @@ sites (an I_PCM MB keeps the Python path, by a check) and is counted in
              .serialize_slice, encoder/syntax_cabac.serialize_slice_cabac)
              / parse (both parsers; a CABAC B slice also counts its
              arithmetic decoder under cabac)
+  yuv422     CAVLC I / P slices of 4:2:2 pictures, which the Python
+             MBParser parses (as in jm_tpu; the C parser is 4:2:0): parse
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ routes = {"serialize": {"native": 0, "python": 0},
           "recon": {"native": 0, "python": 0},
           "cabac": {"native": 0, "python": 0},
           "dp": {"serialize": 0, "parse": 0},
-          "b": {"serialize": 0, "parse": 0}}
+          "b": {"serialize": 0, "parse": 0},
+          "yuv422": {"parse": 0}}
 build_seconds = None        # wall time of load()'s build + import, once
 _mod = None
 
@@ -163,7 +167,7 @@ def _install_tables(mod) -> None:
         "cbp_inv_chroma": cbp_inv,
     })
     mod.set_cavlc_dec_tables(
-        [c(t, np.int32) for t in DC.CT_LUT], [c(DC.CT_DC_LUT, np.int32)],
+        [c(t, np.int32) for t in DC.CT_LUT], [c(DC.CT_DC_LUT[0], np.int32)],
         [c(t, np.int32) for t in DC.TZ_LUT],
-        [c(t, np.int32) for t in DC.TZ_DC_LUT],
+        [c(t, np.int32) for t in DC.TZ_DC_LUT[0]],
         [c(t, np.int32) for t in DC.RUN_LUT])

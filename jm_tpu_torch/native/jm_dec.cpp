@@ -21,6 +21,11 @@
  * raster order (twin of decoder/recon.py Reconstructor's intra loop),
  * given the spatial residuals and planes that already hold the inter MBs.
  *
+ * encode_i4_mb codes one MB as Intra4x4 for the encoder's host coders
+ * (twin of encoder/p_intra.py IntraMBCoder._encode_i4_mb under flat
+ * quant without an RD tier or the trellis), on the same predictors and
+ * inverse transform as intra_recon.
+ *
  * The CAVLC peek-LUTs are installed from Python (set_cavlc_dec_tables,
  * compiled by decoder/cavlc.py from common/cavlc_tables.py), the single
  * source of truth.
@@ -1571,9 +1576,207 @@ static PyObject *m_intra_recon(PyObject *mod, PyObject *args) {
     Py_RETURN_NONE;
 }
 
+/* ------------------------------------------------------------------ */
+/* the encoder's Intra4x4 MB (encoder/p_intra.py IntraMBCoder            */
+/* _encode_i4_mb without an RD tier, trellis or custom quant)            */
+/* ------------------------------------------------------------------ */
+
+static const int ZZ4[16] = {0, 1, 4, 8, 5, 2, 3, 6,
+                            9, 12, 13, 10, 7, 11, 14, 15};
+
+/* forward core transform of a raster 4x4 (encoder/residual_np.py
+ * np_forward4x4): the columns, then the rows */
+static void fwd4x4(const int64_t d[16], int64_t out[16]) {
+    int64_t t[16];
+    for (int c = 0; c < 4; c++) {
+        int64_t p0 = d[c] + d[12 + c], p1 = d[4 + c] + d[8 + c];
+        int64_t m0 = d[c] - d[12 + c], m1 = d[4 + c] - d[8 + c];
+        t[c] = p0 + p1;
+        t[4 + c] = 2 * m0 + m1;
+        t[8 + c] = p0 - p1;
+        t[12 + c] = m0 - 2 * m1;
+    }
+    for (int r = 0; r < 4; r++) {
+        const int64_t *a = t + 4 * r;
+        int64_t p0 = a[0] + a[3], p1 = a[1] + a[2];
+        int64_t m0 = a[0] - a[3], m1 = a[1] - a[2];
+        out[4 * r] = p0 + p1;
+        out[4 * r + 1] = 2 * m0 + m1;
+        out[4 * r + 2] = p0 - p1;
+        out[4 * r + 3] = m0 - 2 * m1;
+    }
+}
+
+/* inverse core transform, unrounded (decoder/recon.py _np_inv4): the
+ * rows, then the columns */
+static void inv4x4(const int64_t d[16], int64_t out[16]) {
+    int64_t f[16];
+    for (int r = 0; r < 4; r++) {
+        const int64_t *a = d + 4 * r;
+        int64_t e0 = a[0] + a[2], e1 = a[0] - a[2];
+        int64_t e2 = (a[1] >> 1) - a[3], e3 = a[1] + (a[3] >> 1);
+        f[4 * r] = e0 + e3;
+        f[4 * r + 1] = e1 + e2;
+        f[4 * r + 2] = e1 - e2;
+        f[4 * r + 3] = e0 - e3;
+    }
+    for (int c = 0; c < 4; c++) {
+        int64_t g0 = f[c] + f[8 + c], g1 = f[c] - f[8 + c];
+        int64_t g2 = (f[4 + c] >> 1) - f[12 + c];
+        int64_t g3 = f[4 + c] + (f[12 + c] >> 1);
+        out[c] = g0 + g3;
+        out[4 + c] = g1 + g2;
+        out[8 + c] = g1 - g2;
+        out[12 + c] = g0 - g3;
+    }
+}
+
+/* encode_i4_mb(params, arrays) -> (cost, cbp_luma): MB addr coded as
+ * Intra4x4, block after block in coding order, each block's mode the
+ * first candidate of least SAD + lam4 (mode != most probable), its
+ * residual transformed, quantized (intra rounding, the flat MF table of
+ * qp, "mf"), written in zig-zag order with its nnz, and reconstructed
+ * into Y with the flat inverse scale of qp ("vs") before the next
+ * block. params: mb_w, mb_h, addr, qp, lam4; arrays: Y (the recon
+ * plane), orig (the MB's 16x16 source), mb_class, i4_modes, slice_id,
+ * luma_coef, luma_nnz (the PictureData's), mf, vs ((4, 4) int32). */
+static PyObject *m_encode_i4_mb(PyObject *mod, PyObject *args) {
+    PyObject *params, *arrays;
+    if (!PyArg_ParseTuple(args, "OO", &params, &arrays)) return NULL;
+    long long v[5];
+    const char *names[5] = {"mb_w", "mb_h", "addr", "qp", "lam4"};
+    for (int i = 0; i < 5; i++) {
+        PyObject *o = PyDict_GetItemString(params, names[i]);
+        if (!o) {
+            PyErr_Format(PyExc_KeyError, "missing param '%s'", names[i]);
+            return NULL;
+        }
+        v[i] = PyLong_AsLongLong(o);
+        if (v[i] == -1 && PyErr_Occurred()) return NULL;
+    }
+    int mb_w = (int)v[0], mb_h = (int)v[1], addr = (int)v[2];
+    int qp = (int)v[3];
+    int64_t lam4 = v[4];
+    long long n = (long long)mb_w * mb_h;
+    if (mb_w <= 0 || mb_h <= 0 || addr < 0 || addr >= n || qp < 0
+            || qp > 51) {
+        PyErr_SetString(PyExc_ValueError, "encode_i4_mb: bad params");
+        return NULL;
+    }
+    Held held[10];
+    int nheld = 0, ok = 1;
+    IR q;
+    Pic p;
+    memset(&q, 0, sizeof(q));
+    memset(&p, 0, sizeof(p));
+    q.mb_w = p.mb_w = mb_w;
+    q.n = p.n = (int)n;
+    int stride = 16 * mb_w;
+    uint8_t *Y = NULL;
+    const uint8_t *orig = NULL;
+    int32_t *coef = NULL, *nnz = NULL, *mf = NULL, *vs = NULL;
+#define ARR(dst, key, want) \
+    if (ok && !(dst = (decltype(dst))want_arr(arrays, key, held, &nheld, \
+                                                want))) ok = 0;
+    ARR(Y, "Y", (long long)stride * 16 * mb_h)
+    ARR(orig, "orig", 256)
+    ARR(p.mb_class, "mb_class", n)
+    ARR(p.i4_modes, "i4_modes", n * 16)
+    ARR(p.slice_id, "slice_id", n * 4)
+    ARR(coef, "luma_coef", n * 16 * 16 * 4)
+    ARR(nnz, "luma_nnz", n * 16 * 4)
+    ARR(mf, "mf", 16 * 4)
+    ARR(vs, "vs", 16 * 4)
+#undef ARR
+    int64_t total = 0;
+    int cbp = 0;
+    if (ok) {
+        q.slice_id = p.slice_id;
+        int mbx = addr % mb_w, mby = addr / mb_w;
+        int qbits = 15 + qp / 6, per = qp / 6;
+        int64_t f = ((int64_t)1 << qbits) / 3;
+        p.mb_class[addr] = 1;
+        for (int code = 0; code < 16; code++) {
+            int blk = CODE2RASTER[code];
+            int by = blk >> 2, bx = blk & 3;
+            int gx = mbx * 4 + bx, gy = mby * 4 + by;
+            int x = gx * 4, y = gy * 4;
+            int al = ir_block_avail(&q, addr, gx - 1, gy, code);
+            int at = ir_block_avail(&q, addr, gx, gy - 1, code);
+            int atl = ir_block_avail(&q, addr, gx - 1, gy - 1, code);
+            int atr = ir_block_avail(&q, addr, gx + 1, gy - 1, code);
+            int32_t t[8] = {0}, l[4] = {0}, m = 0;
+            if (at) {
+                for (int i = 0; i < 4; i++) t[i] = Y[(y - 1) * stride + x + i];
+                for (int i = 0; i < 4; i++)
+                    t[4 + i] = atr ? Y[(y - 1) * stride + x + 4 + i] : t[3];
+            }
+            if (al)
+                for (int i = 0; i < 4; i++) l[i] = Y[(y + i) * stride + x - 1];
+            if (atl) m = Y[(y - 1) * stride + x - 1];
+            int mpm = pred_intra4_mode(&p, addr, blk);
+            int cand[9], nc = 0;
+            cand[nc++] = 2;                                   /* DC */
+            if (at) { cand[nc++] = 0; cand[nc++] = 7; cand[nc++] = 3; }
+            if (al) { cand[nc++] = 1; cand[nc++] = 8; }
+            if (at && al && atl) {
+                cand[nc++] = 4; cand[nc++] = 5; cand[nc++] = 6;
+            }
+            int32_t o[16];
+            for (int yy = 0; yy < 4; yy++)
+                for (int xx = 0; xx < 4; xx++)
+                    o[yy * 4 + xx] = orig[(by * 4 + yy) * 16 + bx * 4 + xx];
+            int64_t best = 0;
+            int best_m = -1;
+            int32_t best_p[4][4], pr[4][4];
+            for (int i = 0; i < nc; i++) {
+                predict_i4(cand[i], t, l, m, at, al, pr);
+                int64_t c = cand[i] != mpm ? lam4 : 0;
+                for (int k = 0; k < 16; k++) {
+                    int32_t dlt = o[k] - pr[k >> 2][k & 3];
+                    c += dlt < 0 ? -dlt : dlt;
+                }
+                if (best_m < 0 || c < best) {
+                    best = c;
+                    best_m = cand[i];
+                    memcpy(best_p, pr, sizeof(pr));
+                }
+            }
+            total += best;
+            p.i4_modes[addr * 16 + blk] = (int8_t)best_m;
+            int64_t d[16], w[16], r[16];
+            for (int k = 0; k < 16; k++) d[k] = o[k] - best_p[k >> 2][k & 3];
+            fwd4x4(d, w);
+            int32_t *sc = coef + ((size_t)addr * 16 + blk) * 16;
+            int tc = 0;
+            for (int k = 0; k < 16; k++) {
+                int pos = ZZ4[k];
+                int64_t a = w[pos] < 0 ? -w[pos] : w[pos];
+                int64_t lev = (a * mf[pos] + f) >> qbits;
+                sc[k] = (int32_t)(w[pos] < 0 ? -lev : lev);
+                tc += sc[k] != 0;
+                /* dequant (flat: ((c vs) << per + 8) >> 4, kept int32) */
+                d[pos] = (int32_t)((((int64_t)sc[k] * vs[pos]) << per) + 8
+                                   >> 4);
+            }
+            nnz[addr * 16 + blk] = tc;
+            if (tc) cbp |= 1 << ((by >> 1) * 2 + (bx >> 1));
+            inv4x4(d, r);
+            for (int k = 0; k < 16; k++)
+                Y[(y + (k >> 2)) * stride + x + (k & 3)] = clip255(
+                    best_p[k >> 2][k & 3] + (int32_t)((r[k] + 32) >> 6));
+        }
+    }
+    for (int i = 0; i < nheld; i++) PyBuffer_Release(&held[i].view);
+    if (!ok) return NULL;
+    return Py_BuildValue("(Li)", (long long)total, cbp);
+}
+
 static PyMethodDef dec_methods[] = {
     {"intra_recon", m_intra_recon, METH_VARARGS,
      "reconstruct all intra MBs of a picture in place"},
+    {"encode_i4_mb", m_encode_i4_mb, METH_VARARGS,
+     "code one MB as Intra4x4 (flat quant, SAD mode decision)"},
     {"set_cavlc_dec_tables", m_set_cavlc_dec_tables, METH_VARARGS,
      "install CAVLC decode peek-LUTs (ct, ct_dc, tz, tz_dc420, run)"},
     {"parse_slice_cavlc", m_parse_slice_cavlc, METH_VARARGS,

@@ -123,9 +123,11 @@ def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
 # edge filters (int32, one filter line per row of the last-but-one axis)
 # ---------------------------------------------------------------------------
 
-def _luma_edge(cols, bs, alpha, beta, tc0, enable):
+def _luma_edge(cols, bs, alpha, beta, tc0, enable, strong=True):
     """cols (..., 8) int32 = [p3 p2 p1 p0 q0 q1 q2 q3]; bs / tc0 per line,
-    alpha / beta / enable broadcastable. Returns the filtered (..., 8)."""
+    alpha / beta / enable broadcastable. Returns the filtered (..., 8).
+    strong=False when no line has bS 4: the strong filter is not
+    computed (its lines would be selected by nothing)."""
     p3, p2, p1, p0 = cols[..., 0], cols[..., 1], cols[..., 2], cols[..., 3]
     q0, q1, q2, q3 = cols[..., 4], cols[..., 5], cols[..., 6], cols[..., 7]
     fflag = ((torch.abs(p0 - q0) < alpha) & (torch.abs(p1 - p0) < beta)
@@ -143,6 +145,10 @@ def _luma_edge(cols, bs, alpha, beta, tc0, enable):
                            -tc0, tc0)
     np1 = torch.where(ap, np1, p1)
     nq1 = torch.where(aq, nq1, q1)
+    if not strong:
+        out = [torch.where(fflag, o, v) for o, v in zip(
+            (np1, np0, nq0, nq1), (p1, p0, q0, q1))]
+        return torch.stack([p3, p2, *out, q2, q3], dim=-1)
 
     strong = torch.abs(p0 - q0) < ((alpha >> 2) + 2)
     sap = strong & ap
@@ -262,16 +268,18 @@ def luma_vertical(tile, ln, bv):
     of and above it). ln, bv: the MBs' ``MbParams.lanes``."""
     dev = tile.device
     inner = ln["on"] & ~ln["t8"]
+    th = [_thresholds(qp_p, ln["qp"], ln["ao"], ln["bo"], dev)
+          for qp_p in (ln["qp_l"], ln["qp"])]     # the MB edge, the inner
+    has4 = (bv == 4).any(dim=2).any(dim=0).tolist()
     for ex in range(4):
         en = ln["left_ok"] if ex == 0 else (inner if ex in (1, 3)
                                             else ln["on"])
-        al, be, ia = _thresholds(ln["qp_l"] if ex == 0 else ln["qp"],
-                                 ln["qp"], ln["ao"], ln["bo"], dev)
+        al, be, ia = th[ex > 0]
         bs_line = bv[:, ex].repeat_interleave(4, dim=1)   # (B, 16)
         x = 4 * ex + 4
         tile[:, 4:20, x - 4:x + 4] = _luma_edge(
             tile[:, 4:20, x - 4:x + 4], bs_line, al, be,
-            _tc0(bs_line, ia), en[:, None])
+            _tc0(bs_line, ia), en[:, None], has4[ex])
 
 
 def luma_horizontal(tile, ln, bh):
@@ -279,17 +287,19 @@ def luma_horizontal(tile, ln, bh):
     ``luma_vertical``; ln, bh: the MBs' ``MbParams.lanes``."""
     dev = tile.device
     inner = ln["on"] & ~ln["t8"]
+    th = [_thresholds(qp_p, ln["qp"], ln["ao"], ln["bo"], dev)
+          for qp_p in (ln["qp_t"], ln["qp"])]
+    has4 = (bh == 4).any(dim=2).any(dim=0).tolist()
     for ey in range(4):
         en = ln["top_ok"] if ey == 0 else (inner if ey in (1, 3)
                                            else ln["on"])
-        al, be, ia = _thresholds(ln["qp_t"] if ey == 0 else ln["qp"],
-                                 ln["qp"], ln["ao"], ln["bo"], dev)
+        al, be, ia = th[ey > 0]
         bs_line = bh[:, ey].repeat_interleave(4, dim=1)
         y = 4 * ey + 4
         rows = tile[:, y - 4:y + 4, 4:20].transpose(1, 2)
         tile[:, y - 4:y + 4, 4:20] = _luma_edge(
-            rows, bs_line, al, be, _tc0(bs_line, ia),
-            en[:, None]).transpose(1, 2)
+            rows, bs_line, al, be, _tc0(bs_line, ia), en[:, None],
+            has4[ey]).transpose(1, 2)
 
 
 def deblock_luma_plain(Y, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
@@ -316,66 +326,98 @@ def deblock_luma_plain(Y, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
     return Yp[4:, 4:].to(torch.uint8)
 
 
-def _chroma_filter(cols, qp_p, ln, bs_line, en, qpc_cb, qpc_cr):
-    """Cb and Cr filter lines cols (B, 2, 8, 4) across one edge."""
-    outs = []
-    for comp, tab in enumerate((qpc_cb.to(I32), qpc_cr.to(I32))):
-        al, be, ia = _thresholds(tab[torch.clamp(qp_p, 0, 51).long()],
-                                 tab[torch.clamp(ln["qp"], 0, 51).long()],
-                                 ln["ao"], ln["bo"], cols.device)
-        outs.append(_chroma_edge(cols[:, comp], bs_line, al, be,
-                                 _tc0(bs_line, ia), en[:, None]))
-    return torch.stack(outs, dim=1)
+def _chroma_edges(lines, qp_p, ln, bs_line, en, qpc_cb, qpc_cr):
+    """Cb and Cr filter lines (B, 2, E, n, 4) across E edges that touch
+    disjoint samples, filtered at once: qp_p (B, E) the luma QP of each
+    edge's p side (the MB's own is ln["qp"]), bs_line (B, E, n), en (B,
+    E) the edge enables. Returns the filtered lines."""
+    dev = lines.device
+    tabs = torch.stack([qpc_cb.to(I32), qpc_cr.to(I32)])       # (2, 52)
+    qpc_p = tabs[:, torch.clamp(qp_p, 0, 51).long()]            # (2, B, E)
+    qpc_q = tabs[:, torch.clamp(ln["qp"], 0, 51).long()][:, :, None]
+    qav = (qpc_p + qpc_q + 1) >> 1
+    ia = torch.clamp(qav + 2 * ln["ao"][None, :, None], 0, 51) \
+        .permute(1, 0, 2)[..., None]                            # (B, 2, E, 1)
+    ib = torch.clamp(qav + 2 * ln["bo"][None, :, None], 0, 51) \
+        .permute(1, 0, 2)[..., None]
+    bs = bs_line[:, None]                                       # (B, 1, E, n)
+    return _chroma_edge(lines, bs, on(ALPHA, dev)[ia.long()],
+                        on(BETA, dev)[ib.long()], _tc0(bs, ia),
+                        en[:, None, :, None])
 
 
 def chroma_vertical(ct, ln, bv, qpc_cb, qpc_cr):
-    """Filters vertical edges 0 and 2 of the 12x12 int32 tiles
-    (B, 2, 12, 12) of B MBs' Cb and Cr in place (each MB with the 4
-    samples left of and above it). ln, bv: the MBs' ``MbParams.lanes``;
-    qpc_cb / qpc_cr (52,) QP -> QPc."""
-    for ex in (0, 2):
-        en = ln["left_ok"] if ex == 0 else ln["on"]
-        bs_line = bv[:, ex].repeat_interleave(2, dim=1)       # (B, 8)
-        c0 = 2 + 2 * ex
-        ct[:, :, 4:12, c0:c0 + 4] = _chroma_filter(
-            ct[:, :, 4:12, c0:c0 + 4], ln["qp_l"] if ex == 0 else ln["qp"],
-            ln, bs_line, en, qpc_cb, qpc_cr)
+    """Filters vertical edges 0 and 2 of the int32 tiles
+    (B, 2, 4 + 4 crows, 12) of B MBs' Cb and Cr in place (each MB with
+    the 4 samples left of and above it; crows 2 at 4:2:0, 4 at 4:2:2,
+    where each chroma line takes the bS of its own luma line). A chroma
+    filter reads two samples on each side and writes one, so the two
+    edges (tile columns 2-5 and 6-9) are filtered together. ln, bv: the
+    MBs' ``MbParams.lanes``; qpc_cb / qpc_cr (52,) QP -> QPc."""
+    B, n = ct.shape[0], ct.shape[2] - 4                   # 8 or 16 lines
+    lines = ct[:, :, 4:, 2:10].reshape(B, 2, n, 2, 4).permute(0, 1, 3, 2, 4)
+    out = _chroma_edges(
+        lines, torch.stack([ln["qp_l"], ln["qp"]], 1), ln,
+        bv[:, 0::2].repeat_interleave(n // 4, dim=2),
+        torch.stack([ln["left_ok"], ln["on"]], 1), qpc_cb, qpc_cr)
+    ct[:, :, 4:, 2:10] = out.permute(0, 1, 3, 2, 4).reshape(B, 2, n, 8)
 
 
 def chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr):
-    """Horizontal edges 0 and 2 of the tiles of ``chroma_vertical``."""
-    for ey in (0, 2):
-        en = ln["top_ok"] if ey == 0 else ln["on"]
-        bs_line = bh[:, ey].repeat_interleave(2, dim=1)
-        r0 = 2 + 2 * ey
-        ct[:, :, r0:r0 + 4, 4:12] = _chroma_filter(
-            ct[:, :, r0:r0 + 4, 4:12].transpose(2, 3),
-            ln["qp_t"] if ey == 0 else ln["qp"], ln, bs_line, en, qpc_cb,
-            qpc_cr).transpose(2, 3)
+    """The horizontal edges of the tiles of ``chroma_vertical``: at
+    4:2:0 chroma rows 0 and 4 with the bS of luma edges 0 and 2; at 4:2:2
+    rows 0, 4, 8 and 12 with the bS of luma edges 0-3; all of them
+    together (tile rows 2 .. n + 1, four per edge). The 8x8 transform
+    switches none of them off: at 4:2:2 rows 4 and 12 run although luma
+    edges 1 and 3 do not (ldecod loopFilter.c:488)."""
+    B, n = ct.shape[0], ct.shape[2] - 4
+    k = n // 4                                            # edges
+    lines = ct[:, :, 2:2 + n, 4:12].reshape(B, 2, k, 4, 8).transpose(3, 4)
+    out = _chroma_edges(
+        lines, torch.cat([ln["qp_t"][:, None],
+                          ln["qp"][:, None].expand(B, k - 1)], 1), ln,
+        bh[:, [j * 16 // n for j in range(k)]].repeat_interleave(2, dim=2),
+        torch.cat([ln["top_ok"][:, None],
+                   ln["on"][:, None].expand(B, k - 1)], 1),
+        qpc_cb, qpc_cr)
+    ct[:, :, 2:2 + n, 4:12] = out.transpose(3, 4).reshape(B, 2, n, 8)
 
 
 def deblock_chroma_plain(U, V, bs_v, bs_h, qp, disable, a_off, b_off,
                          slice_id, transform8x8, qpc_cb, qpc_cr, *,
                          mb_w: int, mb_h: int):
-    """Plain twin of the chroma kernel (K2): returns filtered (U, V).
-    12x12 tiles per MB and component, filtered by ``chroma_vertical``,
-    then ``chroma_horizontal``."""
+    """Plain twin of the chroma kernels (K2 at 4:2:0, K2-422 at 4:2:2):
+    returns filtered (U, V) of (4 crows mb_h, 8 mb_w), the format read
+    from the planes' height. (4 + 4 crows) x 12 tiles per MB and
+    component, filtered by ``chroma_vertical``, then
+    ``chroma_horizontal``."""
     dev = U.device
-    h, w = 8 * mb_h, 8 * mb_w
+    n = chroma_rows(U, mb_h)
+    h, w = n * mb_h, 8 * mb_w
     Cp = torch.zeros((2, h + 4, w + 4), dtype=I32, device=dev)
     Cp[0, 4:, 4:] = U.to(I32)
     Cp[1, 4:, 4:] = V.to(I32)
     mp = MbParams(qp, disable, a_off, b_off, slice_id, transform8x8,
                   mb_w, mb_h)
+    ay = torch.arange(n + 4, device=dev)
     a12 = torch.arange(12, device=dev)
     for bb, cc, ln, bv, bh in mp.waves(bs_v, bs_h):
-        cy = (8 * bb)[:, None, None] + a12[None, :, None]
+        cy = (n * bb)[:, None, None] + ay[None, :, None]
         cx = (8 * cc)[:, None, None] + a12[None, None, :]
-        ct = Cp[:, cy, cx].transpose(0, 1)                   # (B, 2, 12, 12)
+        ct = Cp[:, cy, cx].transpose(0, 1)           # (B, 2, n + 4, 12)
         chroma_vertical(ct, ln, bv, qpc_cb, qpc_cr)
         chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr)
         Cp[:, cy, cx] = ct.transpose(0, 1)
     return Cp[0, 4:, 4:].to(torch.uint8), Cp[1, 4:, 4:].to(torch.uint8)
+
+
+def chroma_rows(U, mb_h: int) -> int:
+    """Chroma lines per MB of a plane: 8 (4:2:0) or 16 (4:2:2)."""
+    n = U.shape[0] // mb_h
+    if n not in (8, 16) or U.shape[0] != n * mb_h:
+        raise ValueError(f"chroma plane of {U.shape[0]} rows is neither "
+                         f"4:2:0 nor 4:2:2 for {mb_h} MB rows")
+    return n
 
 
 def deblock_plain(Y, U, V, bs_v, bs_h, qp, disable, a_off, b_off,
@@ -392,9 +434,11 @@ def deblock_plain(Y, U, V, bs_v, bs_h, qp, disable, a_off, b_off,
 
 def deblock(Y, U, V, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
             transform8x8, qpc_cb, qpc_cr, *, mb_w: int, mb_h: int):
-    """Deblock a 4:2:0 frame picture; returns new (Y, U, V) uint8.
+    """Deblock a 4:2:0 or 4:2:2 frame picture; returns new (Y, U, V)
+    uint8.
 
-    Y (16 mb_h, 16 mb_w) uint8, U/V (8 mb_h, 8 mb_w) uint8; bs_v/bs_h
+    Y (16 mb_h, 16 mb_w) uint8, U/V (8 mb_h, 8 mb_w) uint8 at 4:2:0 or
+    (16 mb_h, 8 mb_w) at 4:2:2 (K2-422 on CUDA); bs_v/bs_h
     (4 mb_h, 4 mb_w) int8; qp, disable, a_off, b_off, slice_id,
     transform8x8 (N,) int32; qpc_cb / qpc_cr (52,) int32 QP -> QPc
     tables. On CUDA the luma and chroma kernels run; on the CPU the plain
@@ -406,5 +450,6 @@ def deblock(Y, U, V, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
     from .. import kernels
     Yd = kernels.deblock_luma(Y, *args, mb_w=mb_w, mb_h=mb_h)
     Ud, Vd = kernels.deblock_chroma(U, V, *args, qpc_cb, qpc_cr,
-                                    mb_w=mb_w, mb_h=mb_h)
+                                    mb_w=mb_w, mb_h=mb_h,
+                                    crows=chroma_rows(U, mb_h) // 4)
     return Yd, Ud, Vd

@@ -20,7 +20,12 @@ predictions before the residual (spec 8.4.2.3), as jm_tpu does on the
 host (decoder/recon.py _recon_inter with WPParams.uni / .bi). The
 residual decode also takes the 8x8 transform of the MBs that use it
 (spec 8.5.13), which jm_tpu reconstructs on the host. Every function runs
-on the tensors' device. Scope: 4:2:0 frame pictures.
+on the tensors' device. Scope: 4:2:0 and 4:2:2 frame pictures. At 4:2:2
+(crows 4: four rows of chroma 4x4 blocks per MB) the chroma DC is 2x4
+(scaled at QPc + 3), each luma 4x4 block covers a 2x4 chroma block, and
+the vertical chroma displacement is the luma MV in quarter samples
+(spec 8.4.2.2.2), where jm_tpu reconstructs 4:2:2 inter pictures on the
+host (decoder/recon.py, _device_recon_ok refuses them).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..common.tables import ZIGZAG_4x4, ZIGZAG_8x8
+from ..common.tables import SCAN_YUV422, ZIGZAG_4x4, ZIGZAG_8x8
 from . import quant as Q
 from . import transform as T
 from .consts import PAD, QPEL_TAB, on
@@ -47,14 +52,15 @@ def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
     MBs through the 8x8 zig-zag, dequant and rounded inverse 8x8 (spec
     8.5.13) in int64, split into their 16 raster 4x4 blocks.
 
-    luma_coef (N, 16, 16) int scan order; chroma_dc (N, 2, 4); chroma_coef
-    (N, 2, 4, 16); qp (N,); tabY / tabU / tabV (52, 4, 4) int32
+    luma_coef (N, 16, 16) int scan order; chroma_dc (N, 2, 2 crows);
+    chroma_coef (N, 2, 2 crows, 16) (crows 2 at 4:2:0, 4 at 4:2:2); qp
+    (N,); tabY / tabU / tabV (52, 4, 4) int32
     InvLevelScale (lists 3 / 4 / 5 of decoder/recon.build_inv_scale);
     qpc_cb / qpc_cr (52,) int32 QP -> QPc with the PPS offsets;
     luma_coef8 (N, 4, 64) 8x8 scan order, transform8x8 (N,) bool and
     tab8 (52, 8, 8) int32 LevelScale8 (list 1 of
     decoder/recon.build_inv_scale8), all three or none.
-    Returns (res_l (N, 16, 4, 4), res_c (N, 2, 4, 4, 4)) int32."""
+    Returns (res_l (N, 16, 4, 4), res_c (N, 2, 2 crows, 4, 4)) int32."""
     n = mb_w * mb_h
     dev = luma_coef.device
     zz = on(_ZZ, dev)
@@ -74,17 +80,47 @@ def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
 
     qpi = torch.clamp(qp, 0, 51).long()
     qpu, qpv = qpc_cb[qpi], qpc_cr[qpi]
-    craster = torch.zeros((n, 2, 4, 16), dtype=I32, device=dev)
+    nb = chroma_coef.shape[2]                       # 4 (4:2:0) or 8 (4:2:2)
+    craster = torch.zeros((n, 2, nb, 16), dtype=I32, device=dev)
     craster[..., zz] = chroma_coef.to(I32)
-    craster = craster.reshape(n, 2, 4, 4, 4)
+    craster = craster.reshape(n, 2, nb, 4, 4)
     dequ = Q.dequant_4x4(craster[:, 0], qpu[:, None], tabU)
     deqv = Q.dequant_4x4(craster[:, 1], qpv[:, None], tabV)
-    f = T.hadamard2x2(chroma_dc.reshape(n, 2, 2, 2))
-    dequ[:, :, 0, 0] = Q.dequant_chroma_dc(f[:, 0], qpu, tabU).reshape(n, 4)
-    deqv[:, :, 0, 0] = Q.dequant_chroma_dc(f[:, 1], qpv, tabV).reshape(n, 4)
+    if nb == 4:
+        f = T.hadamard2x2(chroma_dc.reshape(n, 2, 2, 2))
+        dequ[:, :, 0, 0] = Q.dequant_chroma_dc(f[:, 0], qpu, tabU) \
+            .reshape(n, 4)
+        deqv[:, :, 0, 0] = Q.dequant_chroma_dc(f[:, 1], qpv, tabV) \
+            .reshape(n, 4)
+    else:
+        dequ[:, :, 0, 0] = _chroma_dc422(chroma_dc[:, 0], qpu, tabU)
+        deqv[:, :, 0, 0] = _chroma_dc422(chroma_dc[:, 1], qpv, tabV)
     res_c = torch.stack([T.inverse4x4_round(dequ),
                          T.inverse4x4_round(deqv)], dim=1)
     return res_l, res_c
+
+
+def _chroma_dc422(dc, qpc, tab):
+    """One component's 4:2:2 chroma DC (spec 8.5.11.2, jm_tpu
+    decoder/recon.py decode_residuals): dc (N, 8) in SCAN_YUV422 order
+    through the 2-point horizontal and 4-point vertical Hadamard, scaled
+    at QPc + 3 with a rounded >> 6, in int64. Returns (N, 8) int32, the
+    DC of chroma block 2 row + column."""
+    n = dc.shape[0]
+    m3 = torch.zeros((n, 2, 4), dtype=torch.int64, device=dc.device)
+    for k, (i, j) in enumerate(SCAN_YUV422):
+        m3[:, i, j] = dc[:, k].to(torch.int64)
+    m4 = torch.stack([m3[:, 0] + m3[:, 1], m3[:, 0] - m3[:, 1]], dim=1)
+    m6_0 = m4[..., 0] + m4[..., 2]
+    m6_1 = m4[..., 0] - m4[..., 2]
+    m6_2 = m4[..., 1] - m4[..., 3]
+    m6_3 = m4[..., 1] + m4[..., 3]
+    f = torch.stack([m6_0 + m6_3, m6_1 + m6_2, m6_1 - m6_2, m6_0 - m6_3],
+                    dim=-1)                                # (N, col, row)
+    qpdc = qpc.to(torch.int64) + 3
+    scale = tab[qpdc, 0, 0].to(torch.int64)[:, None, None]
+    s = Q.rshift_rnd_sf((f * scale) << (qpdc // 6)[:, None, None], 6)
+    return s.transpose(1, 2).reshape(n, 8).to(I32)
 
 
 def _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack, *,
@@ -93,7 +129,9 @@ def _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack, *,
     from one list: mv (N, 16, 2) quarter-pel; ref_idx (N, 4) index into
     the stacks per 8x8 (negative entries predict from stack entry 0 and
     are masked by the caller). Returns (luma (N, 16, 4, 4), chroma
-    (N, 16, 2, 2, 2): Cb and Cr 2x2 of each luma block) int32."""
+    (N, 16, 2, cbh, 2): the Cb and Cr 2 x cbh block of each luma block,
+    cbh 2 at 4:2:0 and 4 at 4:2:2, read from the padded planes' height)
+    int32."""
     n = mb_w * mb_h
     w, h = 16 * mb_w, 16 * mb_h
     dev = mv.device
@@ -129,24 +167,27 @@ def _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack, *,
         pred = torch.where(((xf == fx) & (yf == fy))[..., None, None], b,
                            pred)
 
-    # ---- chroma (4:2:0): a 2x2 block per luma 4x4 block, eighth-pel ----
-    cw, ch = w // 2, h // 2
+    # ---- chroma: a 2 x cbh block per luma 4x4 block, eighth-pel; cbh 2
+    # at 4:2:0, 4 at 4:2:2, where the vertical MV is in quarter samples
     Hc, Wc = padU_stack.shape[1:]
+    cw, ch = w // 2, Hc - 2 * PAD
+    cbh = ch // (4 * mb_h)
     cx8 = (px // 2) * 8 + mvx
-    cy8 = (py // 2) * 8 + mvy
+    cy8 = (py // 2) * 8 + mvy if cbh == 2 else py * 8 + 2 * mvy
     cxi = torch.clamp(cx8 >> 3, -PAD, cw + PAD - 3)
-    cyi = torch.clamp(cy8 >> 3, -PAD, ch + PAD - 3)
+    cyi = torch.clamp(cy8 >> 3, -PAD, ch + PAD - cbh - 1)
     i3 = torch.arange(3, device=dev)
+    iy = torch.arange(cbh + 1, device=dev)
     cidx = (ref_b[..., None, None] * Hc + (cyi + PAD).long()[..., None, None]
-            + i3[:, None]) * Wc + (cxi + PAD).long()[..., None, None] + i3
+            + iy[:, None]) * Wc + (cxi + PAD).long()[..., None, None] + i3
     cwin = torch.stack([padU_stack.reshape(-1)[cidx],
                         padV_stack.reshape(-1)[cidx]], dim=2).to(I32)
     wx = (cx8 & 7)[..., None, None, None]                    # (N,16,1,1,1)
     wy = (cy8 & 7)[..., None, None, None]
-    cpred = ((8 - wx) * (8 - wy) * cwin[..., :2, :2]
-             + wx * (8 - wy) * cwin[..., :2, 1:]
+    cpred = ((8 - wx) * (8 - wy) * cwin[..., :cbh, :2]
+             + wx * (8 - wy) * cwin[..., :cbh, 1:]
              + (8 - wx) * wy * cwin[..., 1:, :2]
-             + wx * wy * cwin[..., 1:, 1:] + 32) >> 6       # (N,16,2,2,2)
+             + wx * wy * cwin[..., 1:, 1:] + 32) >> 6     # (N,16,2,cbh,2)
     return pred, cpred
 
 
@@ -170,7 +211,7 @@ def _weigh(p0, p1, pd, w0, o0, w1, o1, logwd):
 
 
 def _weigh_planes(pred, cpred, pred1, cpred1, pd, wp):
-    """The weighted luma (N, 16, 4, 4) and chroma (N, 16, 2, 2, 2)
+    """The weighted luma (N, 16, 4, 4) and chroma (N, 16, 2, cbh, 2)
     predictions. wp = (w0, o0, w1, o1, logwd): the weights and offsets of
     each list (N, 4, 3) per 8x8 and component (Y, Cb, Cr), logwd (N, 2)
     the luma and chroma logWD of each MB; pd (N, 16) per 4x4 block."""
@@ -195,15 +236,17 @@ def _recon(pred, cpred, res_l, res_c, inter_mask, *, mb_w: int, mb_h: int):
     recb = torch.clamp(pred + res_l, 0, 255) * mask[:, None, None, None]
     Y = recb.to(torch.uint8).reshape(mb_h, mb_w, 4, 4, 4, 4) \
         .permute(0, 2, 4, 1, 3, 5).reshape(h, w)
-    # per MB and component an 8x8 block: luma block (by, bx) covers chroma
-    # rows 2 by.., columns 2 bx..; chroma 4x4 block cb = 2 qy + qx
-    cpred = cpred.reshape(n, 4, 4, 2, 2, 2).permute(0, 3, 1, 4, 2, 5) \
-        .reshape(n, 2, 8, 8)
-    cres = res_c.reshape(n, 2, 2, 2, 4, 4).permute(0, 1, 2, 4, 3, 5) \
-        .reshape(n, 2, 8, 8)
+    # per MB and component a 4 cbh x 8 block: luma block (by, bx) covers
+    # chroma rows cbh by.., columns 2 bx..; chroma 4x4 block 2 qy + qx
+    cbh = cpred.shape[3]
+    ch = 4 * cbh
+    cpred = cpred.reshape(n, 4, 4, 2, cbh, 2).permute(0, 3, 1, 4, 2, 5) \
+        .reshape(n, 2, ch, 8)
+    cres = res_c.reshape(n, 2, cbh, 2, 4, 4).permute(0, 1, 2, 4, 3, 5) \
+        .reshape(n, 2, ch, 8)
     rc = torch.clamp(cpred + cres, 0, 255) * mask[:, None, None, None]
-    UV = rc.to(torch.uint8).reshape(mb_h, mb_w, 2, 8, 8) \
-        .permute(2, 0, 3, 1, 4).reshape(2, h // 2, w // 2)
+    UV = rc.to(torch.uint8).reshape(mb_h, mb_w, 2, ch, 8) \
+        .permute(2, 0, 3, 1, 4).reshape(2, ch * mb_h, w // 2)
     return Y, UV[0], UV[1]
 
 
@@ -213,9 +256,10 @@ def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
     """Inter reconstruction of every inter MB of a P picture.
 
     mv (N, 16, 2) quarter-pel per raster 4x4 block; ref_idx (N, 4) list0
-    index per 8x8; res_l (N, 16, 4, 4), res_c (N, 2, 4, 4, 4) int32;
+    index per 8x8; res_l (N, 16, 4, 4), res_c (N, 2, 2 crows, 4, 4) int32;
     planes_stack (R, 4, H+2P, W+2P) uint8, padU_stack / padV_stack
-    (R, H/2+2P, W/2+2P) uint8 (ops/enc.prep_ref of each reference);
+    (R, H/2+2P, W/2+2P) uint8 at 4:2:0, (R, H+2P, W/2+2P) at 4:2:2
+    (ops/enc.prep_ref of each reference);
     inter_mask (N,) bool; wp None (default prediction) or the explicit
     weighted prediction (w0, o0, w1, o1, logwd) of _weigh_planes (the
     list-1 tables unused). Returns (Y, U, V) uint8 planes, the MBs

@@ -106,6 +106,36 @@ def test_deblock_plain_matches_jax_and_pallas(mb_w, mb_h, seed, kw, skw):
         assert torch.equal(g, e), name
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_deblock_plain_random_bs_matches_jax(seed):
+    """bS drawn at random, 4 on inner edges too (as chip_smoke.py's kernel
+    checks draw it), with every per-MB parameter random: deblock_plain,
+    whose luma steps skip the strong filter where no line of an edge has
+    bS 4, equals deblock_jax at 6x4."""
+    rng = np.random.default_rng(seed)
+    mb_w, mb_h, n = 6, 4, 24
+    planes = [(rng.integers(0, 256, (h, w)) // 20 + 100).astype(np.uint8)
+              for h, w in ((64, 96), (32, 48), (32, 48))]
+    bs = [rng.integers(0, 5, (16, 24)).astype(np.int8) for _ in range(2)]
+    bs[0][:, 0] = 0
+    bs[1][0] = 0
+    per_mb = (rng.integers(0, 52, n), rng.integers(0, 3, n),
+              rng.integers(-6, 7, n), rng.integers(-6, 7, n),
+              np.arange(n) * 3 // n, rng.random(n) < 0.3)
+    per_mb = tuple(np.asarray(a, np.int32) for a in per_mb)
+    tabs = [np.array([chroma_qp(q, off) for q in range(52)], np.int32)
+            for off in (-2, 3)]
+    ref = deblock_jax(*(jnp.asarray(a) for a in (*planes, *bs, *per_mb,
+                                                 *tabs)),
+                      mb_w=mb_w, mb_h=mb_h)
+    got = deblock_plain(*(torch.from_numpy(a) for a in (*planes, *bs,
+                                                        *per_mb, *tabs)),
+                        mb_w=mb_w, mb_h=mb_h)
+    for r, g, p, name in zip(ref, got, planes, "YUV"):
+        assert np.array_equal(np.asarray(r), g.numpy()), name
+        assert not np.array_equal(g.numpy(), p), name
+
+
 def test_kernel_constant_tables_match_numpy():
     src = (Path(kernels.__file__).parent / "deblock.cu").read_text()
 

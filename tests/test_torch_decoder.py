@@ -231,15 +231,12 @@ def test_picture_from_numpy_through_port_recon():
 
 
 @pytest.mark.parametrize("name,construct", [
-    ("cif_422", "chroma_format_idc 2"),
     ("cif_sp", "SP"),
     ("cif_field", "fields"),
     ("mbaff1", "fields"),
     ("field1", "fields"),
-    ("y422", "chroma_format_idc 2"),
     ("field2", "fields"),
     ("hi10c", "bit depth"),
-    ("y422c", "chroma_format_idc 2"),
     ("hi10", "bit depth"),
     ("lossless", "lossless"),
     ("lossless_cabac", "lossless"),

@@ -7,6 +7,9 @@ twins and against jm_tpu's runtime, on the CPU, exactly:
 - the CAVLC slice parser and the intra recon, through whole decodes of
   JM goldens and of the port encoder's stream, with every PictureData
   field and every plane held equal;
+- the encoder's native Intra4x4 MB coder (encode_i4_mb) against the
+  Python loop of encoder/p_intra.py, through whole host intra pictures
+  at 4:2:0 and 4:2:2, several slices and QPs;
 - the counted Python route of an I_PCM MB, and a failing build that
   raises."""
 
@@ -39,7 +42,9 @@ from jm_tpu_torch.decoder.cabac import (CabacContexts, CabacEngine,
 from jm_tpu_torch.decoder.mb_parse import MBParser
 from jm_tpu_torch.decoder.mb_parse_cabac import MBParserCABAC
 from jm_tpu_torch.decoder.recon import Reconstructor
+from jm_tpu_torch.common.tables import chroma_qp
 from jm_tpu_torch.encoder import encoder as port_encoder
+from jm_tpu_torch.encoder.intra_host import IntraPicture
 from jm_tpu_torch.encoder.syntax import serialize_slice, write_slice_header
 
 sys.path.insert(0, str(Path(__file__).parent))
@@ -396,6 +401,35 @@ def test_ipcm_takes_the_counted_python_route(monkeypatch):
                            frame_num=0, idr=True, qp=30)
     assert N.routes["serialize"] == {"native": 0, "python": 1}
     assert nal.annexb_bytes(3, nal.NalUnitType.IDR, rbsp) in data
+
+
+@pytest.mark.parametrize("fmt,qp,n_slices", [(1, 28, 1), (2, 12, 2),
+                                             (1, 40, 3), (2, 30, 1)])
+def test_native_intra4x4_coder(fmt, qp, n_slices, monkeypatch):
+    """IntraPicture with the native encode_i4_mb against the same picture
+    with IntraMBCoder's Python loop: every PictureData array of the
+    coding and the recon planes equal."""
+    rng = np.random.default_rng(qp)
+    h, w = 64, 96
+    Y = rng.integers(0, 256, (h, w)).astype(np.int32)
+    Y = ((Y + np.roll(Y, 1, 0) + np.roll(Y, 1, 1)) // 3).astype(np.uint8)
+    U, V = ((Y[:, ::2], Y[:, 1::2]) if fmt == 2
+            else (Y[::2, ::2], Y[1::2, ::2]))
+    n = (w // 16) * (h // 16)
+    plan = [list(range(k * n // n_slices, (k + 1) * n // n_slices))
+            for k in range(n_slices)]
+    args = ((Y, U.copy(), V.copy()), qp, chroma_qp(qp, 0),
+            port_encoder.lambda_me(qp), port_encoder.lambda_mode4(qp), plan)
+    got = IntraPicture(*args)
+    monkeypatch.setattr(IntraPicture, "native_i4", False)
+    want = IntraPicture(*args)
+    assert (got.pic.mb_class == 1).sum() > n // 2
+    for k in ("mb_class", "i4_modes", "i16_mode", "cbp", "luma_coef",
+              "luma_dc", "luma_nnz", "chroma_mode", "chroma_dc",
+              "chroma_coef", "chroma_nnz"):
+        assert np.array_equal(getattr(got.pic, k), getattr(want.pic, k)), k
+    for a, b in zip(got.rec, want.rec):
+        assert np.array_equal(a, b)
 
 
 def test_failed_build_raises(tmp_path):
