@@ -20,7 +20,9 @@ Phases (any failure raises and exits non-zero):
      counters shows only now and then); CUDA-event times at 1080p (median
      of 7 runs of 20 back-to-back calls, after warm-up) beside each
      kernel's bound and beside the same kernel with every bS zero (the
-     dependency chain with no filtering), and the chain's two step costs,
+     dependency chain with no filtering) and the plain version's time
+     (its checking call on that 1080p case, by CUDA events), and the
+     chain's two step costs,
      with every bS zero: one MB row of 120 MBs (1920x16: an in-row step)
      and one MB column of 68 rows (16x1088: a handoff between rows);
   3. encode: Encoder(...).encode_stream on the 17-frame 1080p IPPP
@@ -252,7 +254,7 @@ Phases (any failure raises and exits non-zero):
      the three parameter variants, at 3840x2160, at the four edge
      shapes and over REPEATS launches; CUDA-event times at 1080p (median
      of 7 runs of 20 calls) beside its bound, its all-bS-zero chain and
-     the plain twin;
+     the plain twin (its checking call at 1080p);
  38. 4:2:2 encodes, every picture on the host coders (as in jm_tpu):
      the first frame at 1080p with 4:2:2 chroma (to_422: Cb / Cr the
      even / odd columns of each luma row), CAVLC, QP 28, an IDR through
@@ -269,14 +271,40 @@ Phases (any failure raises and exits non-zero):
      (route "yuv422", as in jm_tpu); JM's goldens y422 (CABAC IPB, 8x8)
      and y422c (CAVLC IPP) against their _rec.yuv, and cif_422 (30 CIF
      frames) against the sha256 of ldecod's output, each with frames/s
-     and the per-picture parse / host recon / device split.
-The wall seconds of each group of phases are printed after phase 39.
+     and the per-picture parse / host recon / device split;
+ 40. the >8-bit deblock kernels (int16 planes: K1-HBD, K2-HBD and
+     K2-422-HBD, counted under deblock_luma16, deblock_chroma16 and
+     deblock_chroma422_16) against the plain twins on the card, bit for
+     bit, at 1080p in the three parameter variants at 10 bits (the
+     mixed one over REPEATS launches) and the mixed one at 14 bits, and
+     at the four edge shapes at 10 and 14 bits, with per-MB QPY from
+     -QpBdOffsetY to 51 and chroma QP offsets; at 1080p 10 bits each
+     variant's CUDA-event time beside its bound (2 bytes a sample), its
+     all-bS-zero chain and the plain twin (its checking call);
+ 41. High 10 decodes on the card: phase 3's first HBD_FRAMES pictures
+     under a High 10 SPS (reheaded: profile 110, 10-bit luma and
+     chroma; other pictures than the 8-bit decode, fixed by the spec):
+     one launch each of K1-HBD and K2-HBD per picture and no 8-bit
+     kernel, every CAVLC slice on the native parser, the intra recon on
+     the Python walk; frames/s and the per-picture parse / intra recon /
+     device split; every frame equal to the CPU decode (a worker's); the
+     same for phase 38's CIF 4:2:2 stream (a) under a 10-bit profile-122
+     SPS (K1-HBD and K2-422-HBD); JM's goldens hi10c (CAVLC) and hi10
+     (CABAC, B pictures) against their _rec.yuv (uint16);
+ 42. lossless decodes on the card: JM's goldens lossless (CAVLC) and
+     lossless_cabac (profile 244, every MB at QP 0: transform bypass and
+     intra DPCM), whose sha256 must equal the one tier-1 holds against
+     jm_tpu's decode (LOSSLESS_SHA256), one launch of K1 and K2 a
+     picture.
+The wall seconds of each group of phases are printed after phase 42.
 The CPU references of phases 4-39 (the encodes on the CPU, the CPU
 decodes of the lossy stream, of the DP goldens, cif_main, the weighted,
 High, motion-option, RD and 4:2:2 streams) run in
 CPU_WORKERS worker processes, started before the kernel build and
 stopped before the closing lines, while the card works through the
-phases.
+phases, queued in the order of the phase that checks each; one more
+worker takes the CPU decodes of phase 41, which can start only once
+phases 3 and 38 have made their streams.
 Phases 3, 6, 8-13 and 15-20 run on the native runtime, as the entry
 points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
@@ -286,14 +314,17 @@ phase 18 and the B slices of phases 22-39, which only the Python
 serializers and parsers handle (routes "dp" and "b"), the CAVLC I /
 P slices and pictures with an I_PCM MB of phases 35-36 (the Python
 serializer, parser and intra recon), and the CAVLC I / P slices of the
-4:2:2 streams of phase 39 (the Python parser, route "yuv422"; their
-serialization is native).
+4:2:2 streams of phases 39 and 41 (the Python parser, route "yuv422";
+their serialization is native); the >8-bit pictures of phase 41 take
+the Python intra recon (the native one is 8-bit).
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-39 alone, ``--from 22`` phases 22-39, ``--from 25`` phases 25-39,
-``--from 28`` phases 28-39, ``--from 31`` phases 31-39, ``--from 34``
-phases 34-39, ``--from 37`` phases 37-39, without the closing JSON
-lines (a quicker check of those phases while they are developed). The
+18-42 alone, ``--from 22`` phases 22-42, ``--from 25`` phases 25-42,
+``--from 28`` phases 28-42, ``--from 31`` phases 31-42, ``--from 34``
+phases 34-42, ``--from 37`` phases 37-42, ``--from 40`` phases 40-42
+(after encoding phase 3's first HBD_FRAMES pictures and phase 38's
+CIF stream (a) on the card), without the closing JSON lines (a quicker
+check of those phases while they are developed). The
 last line of
 standard output is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel numbers as JSON.
@@ -490,13 +521,16 @@ def deblock_case(rng, mb_w: int, mb_h: int, variant: str, crows: int = 2):
 def check_case(rng, w: int, h: int, variant: str, repeats: int = 1):
     """K1 and K2 against their plain versions on one random picture of
     w x h, `repeats` launches each (every output must equal the plain
-    one). Returns (case, max |err| luma, chroma, samples changed)."""
+    one). Returns (case, max |err| luma, chroma, samples changed, the
+    plain versions' CUDA-event ms (luma, chroma) of this one call)."""
     mb_w, mb_h = w // 16, h // 16
     case = deblock_case(rng, mb_w, mb_h, variant)
     Y, U, V, bs_v, bs_h, per_mb, cb, cr = case
     args = (bs_v, bs_h, *per_mb)
-    py = deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)
-    pu, pv = deblock_chroma_plain(U, V, *args, cb, cr, mb_w=mb_w, mb_h=mb_h)
+    py, ms_y = event_ms(lambda: deblock_luma_plain(Y, *args, mb_w=mb_w,
+                                                   mb_h=mb_h))
+    (pu, pv), ms_c = event_ms(lambda: deblock_chroma_plain(
+        U, V, *args, cb, cr, mb_w=mb_w, mb_h=mb_h))
     y0, u0, v0 = Y.clone(), U.clone(), V.clone()
     err_y = err_c = 0
     for _ in range(repeats):
@@ -517,7 +551,7 @@ def check_case(rng, w: int, h: int, variant: str, repeats: int = 1):
     if err_y or err_c:
         raise AssertionError(f"deblock kernels differ from the plain "
                              f"version ({w}x{h} {variant})")
-    return case, err_y, err_c, changed
+    return case, err_y, err_c, changed, (ms_y, ms_c)
 
 
 def chain_steps(rng) -> None:
@@ -784,7 +818,7 @@ def decode_golden(name: str, dec=None) -> list:
     """A JM golden stream tests/golden/<name>.264 decoded on the card must
     equal JM ldecod's output <name>_rec.yuv (in output order: POC order,
     which is the decode order of streams without B pictures; 4:2:0 or
-    4:2:2 as the stream says). dec: the
+    4:2:2 as the stream says; uint16 samples above 8 bits). dec: the
     decoder to use (a new one by default). Returns the decoded frames."""
     root = os.path.dirname(os.path.abspath(__file__))
     path = os.path.join(root, "tests", "golden", f"{name}.264")
@@ -792,7 +826,7 @@ def decode_golden(name: str, dec=None) -> list:
         got = (dec or H264Decoder(device=DEVICE)).decode_annexb(f.read())
     out = got
     got = sorted(got, key=lambda fr: fr.poc)
-    rec = np.fromfile(path[:-4] + "_rec.yuv", np.uint8)
+    rec = np.fromfile(path[:-4] + "_rec.yuv", got[0].Y.dtype)
     h, w = got[0].Y.shape
     ch = got[0].U.shape[0]                  # h / 2 (4:2:0) or h (4:2:2)
     cs = ch * (w // 2)
@@ -1351,15 +1385,18 @@ def per_frame_report(enc, payloads, label: str) -> None:
 
 
 def launch_counts(fmt422: bool = False) -> dict:
-    """The kernel launches since the last reset: K1's and those of the
-    chroma kernel of the picture format (K2 at 4:2:0, K2-422 at 4:2:2 with
-    fmt422); the other chroma kernel must not have been launched."""
+    """The kernel launches since the last reset on an 8-bit path: K1's and
+    those of the chroma kernel of the picture format (K2 at 4:2:0, K2-422
+    at 4:2:2 with fmt422); no other kernel (the other format's chroma
+    kernel, a >8-bit variant) may have been launched."""
+    keys = ("deblock_luma",
+            "deblock_chroma422" if fmt422 else "deblock_chroma")
     out = dict(kernels.launches)
-    other = "deblock_chroma" if fmt422 else "deblock_chroma422"
-    if out.pop(other):
-        raise AssertionError(f"{other} launched on a "
+    extra = {k: v for k, v in out.items() if k not in keys and v}
+    if extra:
+        raise AssertionError(f"kernels {extra} launched on an 8-bit "
                              f"{'4:2:2' if fmt422 else '4:2:0'} path")
-    return out
+    return {k: out[k] for k in keys}
 
 
 def check_launches(launches, n: int, label: str) -> None:
@@ -1422,68 +1459,64 @@ def golden_bytes(name: str) -> bytes:
 
 def start_cpu_references(pool, frames, first: int) -> dict:
     """Submit the CPU references of phases first..39 (4, 18, 22, 25, 28,
-    31, 34 or 37) to the worker pool: phase 4's IDR + P first, then the
-    longest, phase 28's 1080p host encode and phase 34's and phase 38's
-    1080p encodes, then by phase, phase 31's 1080p host encode after
-    those of phases 4-21, which are needed before it, phase 35's QCIF
-    and phase 38's CIF encodes last; returns their AsyncResults by
-    name."""
-    jobs = []
-    if first <= 8:
-        jobs += [("scene_cut", cpu_encode, (rd_cfg(), cut_frames(frames))),
-                 ("md_low", cpu_encode, (md_low_cfg(), frames[:2]))]
-    if first <= 22:
-        jobs += [("b_encode", cpu_encode, (b_cfg(), frames[:B_FRAMES], True)),
-                 ("gop", cpu_encode, (gop_cfg(), cif(frames, GOP_CPU),
-                                      True)),
-                 ("cif_main", cpu_decode, (golden_bytes("cif_main"),))]
-    if first <= 8:
-        jobs += [("low_latency", cpu_encode, (low_latency_cfg(),
-                                              frames[:3]))]
-    if first <= 18:
-        jobs += [("resilient", cpu_encode, (resilient_cfg(), frames[:4])),
-                 ("redundant", cpu_redundant, (redundant_cfg(),
-                                               frames[:LOSSY_CPU]))]
-        jobs += [(name, cpu_decode, (golden_bytes(name),))
-                 for name in ("dp1", "cif_dp")]
-    if first <= 28:
-        jobs = [("high", cpu_encode, (high_cfg(), frames[:HIGH_FRAMES]))] \
-            + jobs
-    # phase 34's 1080p encode (an IDR and six device codings on the CPU)
-    # is long: it starts with the first jobs
-    if first <= 34:
-        jobs = [("rdpd", cpu_encode, (rdpd_cfg(), frames[:RD_FRAMES]))] \
-            + jobs
-    # so is phase 38's 1080p 4:2:2 IDR (the host intra coder)
-    jobs = [("y422", cpu_encode, (y422_cfg(), to_422(frames[:1])))] + jobs
+    31, 34 or 37) to the worker pool in the order of the phase that
+    checks each (phases 8-9's after phase 14), so that the pool finishes
+    each before the card needs it (PR 15 runs 2-3, with the long 1080p
+    host encodes of phases 28 and 34 first, waited 24.2 / 44.9 s for phase
+    19's); returns their AsyncResults by name."""
+    jobs = []                   # (the phase that checks it, name, fn, args)
     if first <= 4:
-        jobs = [("main", cpu_encode, (rd_cfg(), frames[:2]))] + jobs
-    if first <= 31:
-        jobs += [("motion", cpu_encode, (motion_cfg(),
-                                         frames[:MOTION_FRAMES]))]
+        jobs += [(4, "main", cpu_encode, (rd_cfg(), frames[:2]))]
+    if first <= 8:
+        jobs += [(14, "scene_cut", cpu_encode, (rd_cfg(),
+                                                cut_frames(frames))),
+                 (14, "md_low", cpu_encode, (md_low_cfg(), frames[:2])),
+                 (15, "low_latency", cpu_encode, (low_latency_cfg(),
+                                                  frames[:3]))]
+    if first <= 18:
+        jobs += [(18, "resilient", cpu_encode, (resilient_cfg(),
+                                                frames[:4])),
+                 (19, "redundant", cpu_redundant, (redundant_cfg(),
+                                                   frames[:LOSSY_CPU]))]
+        jobs += [(21, name, cpu_decode, (golden_bytes(name),))
+                 for name in ("dp1", "cif_dp")]
+    if first <= 22:
+        jobs += [(22, "b_encode", cpu_encode, (b_cfg(), frames[:B_FRAMES],
+                                               True)),
+                 (23, "cif_main", cpu_decode, (golden_bytes("cif_main"),)),
+                 (24, "gop", cpu_encode, (gop_cfg(), cif(frames, GOP_CPU),
+                                          True))]
     if first <= 25:
-        jobs += [("wp_p", cpu_encode, (wp_cfg(),
-                                       fade(frames[:WP_FRAMES])))]
-        jobs += [(f"wp_cif_{label}", cpu_encode,
+        jobs += [(25, "wp_p", cpu_encode, (wp_cfg(),
+                                           fade(frames[:WP_FRAMES])))]
+        jobs += [(26, f"wp_cif_{label}", cpu_encode,
                   (wp_cif_cfg(kw), cif(fade(frames[:n]), n)))
                  for label, n, kw in WP_CIF]
     if first <= 28:
-        jobs += [(f"high_cif_{label}", cpu_encode,
+        jobs += [(28, "high", cpu_encode, (high_cfg(),
+                                           frames[:HIGH_FRAMES]))]
+        jobs += [(29, f"high_cif_{label}", cpu_encode,
                   (high_cif_cfg(kw), cif(frames, n)))
                  for label, n, kw in HIGH_CIF]
     if first <= 31:
-        jobs += [(f"motion_cif_{label}",
+        jobs += [(31, "motion", cpu_encode, (motion_cfg(),
+                                             frames[:MOTION_FRAMES]))]
+        jobs += [(32, f"motion_cif_{label}",
                   cpu_explicit if label == "e" else cpu_encode,
                   (motion_cif_cfg(kw), cif(frames, n)))
                  for label, n, kw in MOTION_CIF]
     if first <= 34:
-        jobs += [(f"rd_qcif_{label}", cpu_encode,
+        jobs += [(34, "rdpd", cpu_encode, (rdpd_cfg(), frames[:RD_FRAMES]))]
+        jobs += [(35, f"rd_qcif_{label}", cpu_encode,
                   (rd_qcif_cfg(qp, kw), qcif_frames(frames, patch)))
                  for label, qp, kw, patch in RD_QCIF]
-    jobs += [(f"y422_cif_{label}", cpu_encode,
-              (y422_cif_cfg(kw), to_422(cif(frames, n))))
-             for label, n, kw in Y422_CIF]
-    return {name: pool.apply_async(fn, args) for name, fn, args in jobs}
+    if first <= 37:
+        jobs += [(38, "y422", cpu_encode, (y422_cfg(), to_422(frames[:1])))]
+        jobs += [(38, f"y422_cif_{label}", cpu_encode,
+                  (y422_cif_cfg(kw), to_422(cif(frames, n))))
+                 for label, n, kw in Y422_CIF]
+    jobs.sort(key=lambda j: j[0])
+    return {name: pool.apply_async(fn, args) for _, name, fn, args in jobs}
 
 
 def check_cpu_encode(label: str, job, payloads, enc, n: int) -> tuple:
@@ -2913,8 +2946,8 @@ def k2_422_phase(rng) -> dict:
         case = deblock_case(rng, mb_w, mb_h, variant, crows=4)
         _, U, V, bs_v, bs_h, per_mb, cb, cr = case
         args = (bs_v, bs_h, *per_mb)
-        pu, pv = deblock_chroma_plain(U, V, *args, cb, cr, mb_w=mb_w,
-                                      mb_h=mb_h)
+        (pu, pv), plain_ms = event_ms(lambda: deblock_chroma_plain(
+            U, V, *args, cb, cr, mb_w=mb_w, mb_h=mb_h))
         u0, v0 = U.clone(), V.clone()
         err = 0
         for _ in range(repeats):
@@ -2951,8 +2984,7 @@ def k2_422_phase(rng) -> dict:
              U, V, zbs, zbs, *per_mb, cb, cr, crows=4, **kw), inner=20),
          "single_ms": cuda_ms(lambda: kernels.deblock_chroma(
              U, V, *args, cb, cr, crows=4, **kw)),
-         "plain_ms": cuda_ms(lambda: deblock_chroma_plain(
-             U, V, *args, cb, cr, **kw), reps=3),
+         "plain_ms": plain_ms,         # the last (1080p) case's check
          "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
          "bytes": b, "ops": ops, "max_err": max_err}
@@ -3125,7 +3157,7 @@ def y422_decode_phase(streams) -> dict:
 def y422_phases(frames, cpu_refs, pool, rng) -> tuple:
     """Phases 37-39; returns (K2-422's statistics, the launches of each of
     the 4:2:2 paths by name: y422, y422_cif_a / b, each also with
-    _decode, y422_goldens_decode)."""
+    _decode, y422_goldens_decode; the payloads of CIF stream (a))."""
     stats = k2_422_phase(rng)
     out = {}
     enc, payloads, out["y422"], job = y422_1080p_phase(
@@ -3136,6 +3168,323 @@ def y422_phases(frames, cpu_refs, pool, rng) -> tuple:
         out[label] = launches
         streams.append((label, cenc, cpay, cjob))
     out.update(y422_decode_phase(streams))
+    return stats, out, streams[1][2]
+
+
+# ---------------------------------------------------------------------------
+# phases 40-42: High 10 and lossless decoding, the >8-bit deblock kernels
+# ---------------------------------------------------------------------------
+
+HBD_DEPTHS = (10, 14)     # the bit depths of phase 40's kernel checks
+HBD_FRAMES = 3            # IDR + 2 P of the re-headed phase-3 stream (41)
+HBD_GOLDENS = ("hi10c", "hi10")      # JM's High 10 goldens (phase 41)
+# sha256 of the lossless goldens' decode (Y, U, V of each frame in POC
+# order, uint8), which tests/test_torch_lossless_decode.py holds against
+# jm_tpu's decode (phase 42; both goldens code the same source frames)
+LOSSLESS_SHA256 = {
+    "lossless": ("b721aed52a9ba57916b9d22a1e84faca4d706ae69513e98a033e1f3e"
+                 "5a288479"),
+    "lossless_cabac": ("b721aed52a9ba57916b9d22a1e84faca4d706ae69513e98a03"
+                       "3e1f3e5a288479")}
+HBD_KEYS = {2: ("deblock_luma16", "deblock_chroma16"),
+            4: ("deblock_luma16", "deblock_chroma422_16")}
+
+
+def reheaded(data: bytes, profile: int, bit_depth: int = 8,
+             bypass: int = 0) -> bytes:
+    """The stream with each SPS written again by the port's write_sps, at
+    profile 100 (122 at 4:2:2) with bit_depth_luma / chroma_minus8 =
+    bit_depth - 8 and qpprime_y_zero_transform_bypass_flag = bypass, and
+    its profile_idc byte set to ``profile`` (110 High 10, 244 High 4:4:4
+    Predictive: their SPS layout at 4:2:0 is High's). The PPS and slices
+    stay as they are: a valid stream whose pictures the spec fixes."""
+    from jm_tpu_torch.bitstream.nal import (NalUnitType, annexb_bytes,
+                                            split_annexb)
+    from jm_tpu_torch.decoder.parset import parse_sps
+    from jm_tpu_torch.encoder.syntax import write_sps
+    out = []
+    for nal in split_annexb(data):
+        rbsp = nal.rbsp
+        if nal.nal_unit_type == NalUnitType.SPS:
+            sps = parse_sps(rbsp)
+            sps.profile_idc = 122 if sps.chroma_format_idc == 2 else 100
+            sps.bit_depth_luma_minus8 = bit_depth - 8
+            sps.bit_depth_chroma_minus8 = bit_depth - 8
+            sps.qpprime_y_zero_transform_bypass_flag = bypass
+            rbsp = bytes([profile]) + write_sps(sps)[1:]
+        out.append(annexb_bytes(nal.nal_ref_idc, nal.nal_unit_type, rbsp))
+    return b"".join(out)
+
+
+def hbd_launch_counts(crows: int = 2) -> dict:
+    """The kernel launches since the last reset on a >8-bit path: K1-HBD's
+    and those of the >8-bit chroma kernel of the format; no other kernel
+    may have been launched."""
+    keys = HBD_KEYS[crows]
+    out = dict(kernels.launches)
+    extra = {k: v for k, v in out.items() if k not in keys and v}
+    if extra:
+        raise AssertionError(f"kernels {extra} launched on a >8-bit "
+                             f"{'4:2:2' if crows == 4 else '4:2:0'} path")
+    return {k: out[k] for k in keys}
+
+
+def hbd_case(rng, mb_w: int, mb_h: int, variant: str, bd: int,
+             crows: int = 2):
+    """deblock_case at bit depth bd: int16 planes of samples 0 ..
+    (1 << bd) - 1 (the top three quarters low-amplitude, as deblock_case's
+    scaled by 1 << (bd - 8) plus noise in the low bits), per-MB QPY drawn
+    from -QpBdOffsetY .. 51, chroma offsets -2 / 3, the QPc tables from
+    QPY -QpBdOffsetY (convert.qpc_tables' layout)."""
+    Y, U, V, bs_v, bs_h, per_mb, _, _ = deblock_case(rng, mb_w, mb_h,
+                                                     variant, crows)
+    s = bd - 8
+    off = 6 * s
+    planes = []
+    for P in (Y, U, V):
+        p = P.cpu().numpy().astype(np.int32)
+        hi = rng.integers(0, 1 << s, p.shape) if s else 0
+        planes.append(torch.as_tensor(((p << s) | hi).astype(np.int16),
+                                      device=DEVICE))
+    n = mb_w * mb_h
+    qp = torch.as_tensor(rng.integers(-off, 52, n).astype(np.int32),
+                         device=DEVICE)
+    cb, cr = (torch.as_tensor(np.array([chroma_qp(q, o, bd)
+                                        for q in range(-off, 52)],
+                                       np.int32), device=DEVICE)
+              for o in (-2, 3))
+    return (*planes, bs_v, bs_h, (qp,) + per_mb[1:], cb, cr)
+
+
+def event_ms(fn):
+    """fn() once, timed by CUDA events: (its result, ms)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def hbd_kernel_phase(rng) -> dict:
+    """Phase 40: K1-HBD, K2-HBD and K2-422-HBD (kernels.deblock_luma /
+    deblock_chroma on int16 planes) against the plain twins on the card,
+    bit for bit: at 1080p with the three parameter variants at 10 bits
+    (the mixed one over REPEATS launches) and the mixed one at 14 bits,
+    and at the edge shapes of phases 2 and 37 at 10 and 14 bits; per-MB
+    QPY from -QpBdOffsetY to 51. At 1080p 10 bits, mixed parameters:
+    CUDA-event times (median of 7 runs of 20 calls), the all-bS-zero
+    chain, the plain twin (the checking call, timed by events) and the
+    bound. Returns each variant's statistics by launch key."""
+    cases = [(W, H, "mixed", 10, REPEATS), (W, H, "disable2", 10, 1),
+             (W, H, "plain", 10, 1), (W, H, "mixed", 14, 1)]
+    cases += [(w, h, v, bd, 1) for bd in HBD_DEPTHS
+              for w, h, v in EDGE_SHAPES]
+    stats = {k: {"max_err": 0} for k in
+             ("deblock_luma16", "deblock_chroma16", "deblock_chroma422_16")}
+    for w, h, variant, bd, repeats in cases:
+        mb_w, mb_h = w // 16, h // 16
+        kw = dict(mb_w=mb_w, mb_h=mb_h)
+        timed = (w, h, variant, bd) == (W, H, "mixed", 10)
+        for crows in (2, 4):
+            Y, U, V, bs_v, bs_h, per_mb, cb, cr = hbd_case(
+                rng, mb_w, mb_h, variant, bd, crows)
+            args = (bs_v, bs_h, *per_mb)
+            kl, kc = HBD_KEYS[crows]
+            plain = [(kc, lambda: deblock_chroma_plain(
+                U, V, *args, cb, cr, bd=bd, **kw),
+                lambda: kernels.deblock_chroma(
+                    U, V, *args, cb, cr, crows=crows, bd=bd, **kw))]
+            if crows == 2:
+                plain.insert(0, (kl, lambda: (deblock_luma_plain(
+                    Y, *args, bd=bd, **kw),), lambda: (kernels.deblock_luma(
+                        Y, *args, bd=bd, **kw),)))
+            ins = [p.clone() for p in (Y, U, V)]
+            for key, pfn, kfn in plain:
+                want, p_ms = event_ms(pfn)
+                err = 0
+                for _ in range(repeats):
+                    got = kfn()
+                    err = max(err, *(int((g.int() - p.int()).abs().max())
+                                     for g, p in zip(got, want)))
+                torch.cuda.synchronize()
+                changed = sum(int((p != q).sum()) for p, q in
+                              zip(want, (Y,) if key == kl else (U, V)))
+                print(f"deblock {bd}-bit {w}x{h} "
+                      f"{'4:2:2' if crows == 4 else '4:2:0'} {variant} "
+                      f"x{repeats}: {key} max|err| {err}, samples changed "
+                      f"{changed}", flush=True)
+                if err:
+                    raise AssertionError(f"{key} differs from the plain "
+                                         f"twin ({w}x{h} {variant} {bd}-bit)")
+                if h >= H and changed == 0:
+                    raise AssertionError(f"{key} {w}x{h} {variant}: "
+                                         f"unfiltered")
+                stats[key]["max_err"] = max(stats[key]["max_err"], err)
+                if timed:
+                    stats[key]["plain_ms"] = p_ms
+            if not all(torch.equal(a, b) for a, b in zip(ins, (Y, U, V))):
+                raise AssertionError(f"{bd}-bit {w}x{h}: input modified")
+            if timed:
+                hbd_times(stats, (Y, U, V), args, (cb, cr), crows, kw)
+    for key, s in stats.items():
+        print(f"{key} at {W}x{H} 10 bits: {s['ms']:.4f} ms (one call "
+              f"alone: {s['single_ms']:.4f} ms; all bS 0: "
+              f"{s['chain_ms']:.4f} ms; plain {s['plain_ms']:.1f} ms), bound "
+              f"{s['bound_ms'] * 1e3:.2f} us ({s['bound_by']}: {s['bytes']} "
+              f"B, {s['ops']} int ops), 1 launch/picture", flush=True)
+    return stats
+
+
+def hbd_times(stats, planes, args, tabs, crows: int, kw) -> None:
+    """Times of the >8-bit kernels of one format on the 1080p mixed case
+    into stats: CUDA events, the all-bS-zero chain, the bound (2 bytes a
+    sample read and written once, the bS and per-MB parameters and the
+    QPc tables; integer ops of the filtered lines)."""
+    Y, U, V = planes
+    bs_v, bs_h, *per_mb = args
+    z = torch.zeros_like(bs_v)
+    mb_w, mb_h = kw["mb_w"], kw["mb_h"]
+    lines_y, lines_c = filtered_lines(bs_v, bs_h, per_mb, mb_w, mb_h, crows)
+    param_bytes = 6 * 4 * mb_w * mb_h + 2 * bs_v.numel()
+    kl, kc = HBD_KEYS[crows]
+    fns = [(kc, 2 * 2 * (U.numel() + V.numel()) + param_bytes
+            + 2 * 4 * tabs[0].numel(), CHROMA_LINE_OPS * lines_c,
+            lambda b: kernels.deblock_chroma(U, V, *b, *per_mb, *tabs,
+                                             crows=crows, bd=10, **kw))]
+    if crows == 2:
+        fns.insert(0, (kl, 2 * 2 * Y.numel() + param_bytes,
+                       LUMA_LINE_OPS * lines_y,
+                       lambda b: kernels.deblock_luma(Y, *b, *per_mb,
+                                                      bd=10, **kw)))
+    for key, nbytes, ops, fn in fns:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT_OPS_PER_S * 1e3
+        stats[key].update(
+            ms=cuda_ms(lambda: fn((bs_v, bs_h)), inner=20),
+            chain_ms=cuda_ms(lambda: fn((z, z)), inner=20),
+            single_ms=cuda_ms(lambda: fn((bs_v, bs_h))),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, ops=ops)
+
+
+def hbd_decode_phase(payloads, y422_payloads, jobs) -> dict:
+    """Phase 41: the first HBD_FRAMES pictures of phase 3's stream with a
+    High 10 SPS (reheaded: 10-bit luma and chroma, other pictures than
+    the 8-bit decode) decoded on the card, with the launch and route
+    counters reset just before: each >8-bit kernel once per picture, no
+    8-bit kernel, every slice parsed by the native parser, the intra
+    recon on the Python walk (the native one is 8-bit); every frame equal
+    to the CPU decode of the same stream (jobs["hbd_1080p"], a worker's);
+    frames/s and each picture's parse / host intra recon / device split.
+    Then phase 38's CIF 4:2:2 stream (a) under a 10-bit profile-122 SPS
+    (K1-HBD and K2-422-HBD once per picture, equal to jobs["hbd_422"]),
+    and JM's High 10 goldens on the card against their _rec.yuv. Returns
+    the launches by path (hbd_1080p_decode, hbd_422_decode,
+    hbd_goldens_decode)."""
+    out = {"hbd_1080p_decode": hbd_stream_decode(
+        reheaded(b"".join(payloads[:HBD_FRAMES]), 110, 10),
+        jobs["hbd_1080p"], "High 10 1080p", 2),
+        "hbd_422_decode": hbd_stream_decode(
+        reheaded(b"".join(y422_payloads), 122, 10), jobs["hbd_422"],
+        "10-bit 4:2:2 CIF", 4)}
+    total = {}
+    for name in HBD_GOLDENS:
+        kernels.reset_launches()
+        dec = H264Decoder(device=DEVICE)
+        t0 = time.perf_counter()
+        got = decode_golden(name, dec)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gl = hbd_launch_counts()
+        check_launches(gl, len(got), f"decode {name}")
+        for k, v in gl.items():
+            total[k] = total.get(k, 0) + v
+        print(f"decode {name}.264 (High 10, "
+              f"{''.join(p['type'][0] for p in dec.pictures)}): "
+              f"{len(got) / dt:.3f} frames/s; launches {gl}", flush=True)
+    out["hbd_goldens_decode"] = total
+    return out
+
+
+def hbd_stream_decode(data: bytes, cpu_job, label: str, crows: int) -> dict:
+    """One >8-bit stream decoded on the card (phase 41), checked and
+    reported; returns its launches."""
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    out = dec.decode_annexb(data)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = hbd_launch_counts(crows)
+    check_launches(launches, len(out), f"{label} decode")
+    recon = sum(p["path"] != "inter" for p in dec.pictures)
+    # the CAVLC slices: the native parser at 4:2:0, the Python one at
+    # 4:2:2 (route "yuv422", as for 8 bits)
+    check_routes(f"{label} decode", parse=len(out) if crows == 2 else 0,
+                 other={"recon": {"python": recon},
+                        "yuv422": {"parse": 0 if crows == 2 else len(out)}})
+    if out[0].Y.dtype != np.uint16 or int(out[0].Y.max()) < 256:
+        raise AssertionError(f"{label} decode: not 10-bit planes")
+    print(f"decode {label} ({len(data)} B) on the card: {len(out)} "
+          f"frames, {len(out) / total_s:.3f} frames/s; per picture "
+          + ", ".join(
+              f"{p['type'][0]}/{p['path']} {p['seconds'] * 1e3:.1f} ms "
+              f"(parse {p['parse_s'] * 1e3:.1f}, intra recon "
+              f"{p['host_recon_s'] * 1e3:.1f}, device "
+              f"{p['device_s'] * 1e3:.1f})" for p in dec.pictures)
+          + f"; launches {launches}", flush=True)
+    t1 = time.perf_counter()
+    check_frames(out, cpu_job.get(), f"{label} decode against the CPU")
+    print(f"decode {label}: every frame equals the CPU decode (CPU "
+          f"worker; waited {time.perf_counter() - t1:.1f} s)", flush=True)
+    return launches
+
+
+def lossless_phase() -> dict:
+    """Phase 42: JM's lossless goldens (profile 244, every MB at QP 0:
+    transform bypass, intra DPCM; CAVLC and CABAC I P P) decoded on the
+    card: the sha256 of the frames equals the one tier-1 holds against
+    jm_tpu's decode, one launch of K1 and K2 per picture. Returns the
+    launches (lossless_goldens_decode)."""
+    import hashlib
+    total = {}
+    for name, want in LOSSLESS_SHA256.items():
+        dec = H264Decoder(device=DEVICE)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = sorted(dec.decode_annexb(golden_bytes(name)),
+                     key=lambda f: f.poc)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        sha = hashlib.sha256(b"".join(
+            f.Y.tobytes() + f.U.tobytes() + f.V.tobytes()
+            for f in got)).hexdigest()
+        if sha != want:
+            raise AssertionError(f"decode {name}: sha256 {sha}")
+        gl = launch_counts()
+        check_launches(gl, len(got), f"decode {name}")
+        for k, v in gl.items():
+            total[k] = total.get(k, 0) + v
+        print(f"decode {name}.264 on the card "
+              f"({''.join(p['type'][0] for p in dec.pictures)}, "
+              f"{'/'.join(p['path'] for p in dec.pictures)}): {len(got)} "
+              f"frames whose sha256 equals jm_tpu's decode's; "
+              f"{len(got) / dt:.3f} frames/s; launches {gl}", flush=True)
+    return {"lossless_goldens_decode": total}
+
+
+def hbd_phases(payloads, y422_payloads, jobs, rng) -> tuple:
+    """Phases 40-42 (payloads: phase 3's, y422_payloads: phase 38's CIF
+    (a); jobs: their CPU decodes, hbd_cpu_jobs); returns (the >8-bit
+    kernels' statistics by launch key, the launches of phases 41-42's
+    paths by name)."""
+    stats = hbd_kernel_phase(rng)
+    out = hbd_decode_phase(payloads, y422_payloads, jobs)
+    out.update(lossless_phase())
     return stats, out
 
 
@@ -3153,12 +3502,12 @@ def later_phases(frames, rd_fps, cpu_refs):
     return out
 
 
-def cpu_pool():
+def cpu_pool(workers: int = CPU_WORKERS):
     """The worker processes of the CPU references (spawned: this process
     holds the card and threads)."""
     import multiprocessing
     return multiprocessing.get_context("spawn").Pool(
-        CPU_WORKERS, initializer=_worker_init)
+        workers, initializer=_worker_init)
 
 
 def main() -> int:
@@ -3181,25 +3530,48 @@ def main() -> int:
     partial = sys.argv[1:] in (["--from", "18"], ["--from", "22"],
                                ["--from", "25"], ["--from", "28"],
                                ["--from", "31"], ["--from", "34"],
-                               ["--from", "37"])
+                               ["--from", "37"], ["--from", "40"])
     first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
     pool = cpu_pool()
+    # one more worker for phase 41's CPU decodes, which can start only
+    # once phases 3 and 38 have made their streams (a job of the pool
+    # above would queue behind all of its references); idle until then
+    hbd_pool = cpu_pool(1)
     try:
         refs = start_cpu_references(pool, frames, first)
         kernels.load()
         print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
         if partial:
-            return partial_run(frames, pool, refs, first)
-        return full_run(frames, pool, refs, smi)
+            return partial_run(frames, pool, hbd_pool, refs, first)
+        return full_run(frames, pool, hbd_pool, refs, smi)
     finally:
-        pool.terminate()
-        pool.join()
+        for p in (pool, hbd_pool):
+            p.terminate()
+            p.join()
 
 
-def partial_run(frames, pool, refs, first: int) -> int:
-    """Phases first..39 (18, 22, 25, 28, 31, 34 or 37) without the
-    closing JSON lines; refs: their CPU references."""
+def hbd_cpu_jobs(hbd_pool, payloads=None, y422_payloads=None) -> dict:
+    """Phase 41's CPU decodes, submitted to hbd_pool: the re-headed 1080p
+    High 10 stream (payloads: phase 3's; a full run submits it after
+    phase 33, when most references have left the cores) and the
+    re-headed 10-bit CIF 4:2:2 stream (y422_payloads: phase 38's CIF
+    (a)); returns the jobs by name."""
+    jobs = {}
+    if payloads is not None:
+        jobs["hbd_1080p"] = hbd_pool.apply_async(cpu_decode, (reheaded(
+            b"".join(payloads[:HBD_FRAMES]), 110, 10),))
+    if y422_payloads is not None:
+        jobs["hbd_422"] = hbd_pool.apply_async(cpu_decode, (reheaded(
+            b"".join(y422_payloads), 122, 10),))
+    return jobs
+
+
+def partial_run(frames, pool, hbd_pool, refs, first: int) -> int:
+    """Phases first..42 (18, 22, 25, 28, 31, 34, 37 or 40) without the
+    closing JSON lines; refs: their CPU references. From 40, phase 3's
+    first HBD_FRAMES pictures and phase 38's CIF stream (a) are encoded
+    on the card first."""
     clock = PhaseClock()
     if first <= 18:
         later_phases(frames, None, refs)
@@ -3219,10 +3591,20 @@ def partial_run(frames, pool, refs, first: int) -> int:
     if first <= 34:
         rd_phases(frames, refs, pool)
         clock.lap("34-36")
-    y422_phases(frames, refs, pool, np.random.default_rng(37))
-    clock.lap("37-39")
+    if first <= 37:
+        y422_cif_a = y422_phases(frames, refs, pool,
+                                 np.random.default_rng(37))[2]
+        clock.lap("37-39")
+    else:
+        y422_cif_a = b_encode(y422_cif_cfg(Y422_CIF[0][2]),
+                              to_422(cif(frames, Y422_CIF[0][1])))[1]
+    payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(
+        frames[:HBD_FRAMES])
+    jobs = hbd_cpu_jobs(hbd_pool, payloads, y422_cif_a)
+    hbd_phases(payloads, y422_cif_a, jobs, np.random.default_rng(40))
+    clock.lap("40-42")
     clock.report()
-    print(f"phases {first}-39 passed (partial run: no closing lines)")
+    print(f"phases {first}-42 passed (partial run: no closing lines)")
     return 0
 
 
@@ -3243,9 +3625,9 @@ class PhaseClock:
                                           for p, s in self.laps), flush=True)
 
 
-def full_run(frames, pool, cpu_refs, smi: str) -> int:
-    """Phases 2-39 and the closing lines; cpu_refs: the CPU references of
-    phases 4-39."""
+def full_run(frames, pool, hbd_pool, cpu_refs, smi: str) -> int:
+    """Phases 2-42 and the closing lines; cpu_refs: the CPU references of
+    phases 4-39; hbd_pool: the worker of phase 41's CPU decodes."""
     clock = PhaseClock()
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
@@ -3256,8 +3638,8 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
     cases += [(*UHD, "mixed", 1)] + [(w, h, v, 1) for w, h, v in EDGE_SHAPES]
     cases += [(W, H, "mixed", REPEATS)]
     for w, h, variant, repeats in cases:
-        case, err_y, err_c, changed = check_case(rng, w, h, variant,
-                                                 repeats)
+        case, err_y, err_c, changed, plain_ms = check_case(rng, w, h,
+                                                           variant, repeats)
         max_err["deblock_luma"] = max(max_err["deblock_luma"], err_y)
         max_err["deblock_chroma"] = max(max_err["deblock_chroma"], err_c)
         if h >= H and min(changed) == 0:
@@ -3273,24 +3655,24 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
     param_bytes = 6 * 4 * n + 2 * bs_v.numel()
     bytes_y = 2 * Y.numel() + param_bytes
     bytes_c = 2 * (U.numel() + V.numel()) + param_bytes + 2 * 52 * 4
-    for name, b, ops, kfn, zfn, pfn in (
+    # the plain versions' ms: their checking call on this case
+    for name, b, ops, kfn, zfn, p_ms in (
             ("deblock_luma", bytes_y, LUMA_LINE_OPS * lines_y,
              lambda: kernels.deblock_luma(Y, *args, mb_w=mb_w, mb_h=mb_h),
              lambda: kernels.deblock_luma(Y, *zargs, mb_w=mb_w, mb_h=mb_h),
-             lambda: deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)),
+             plain_ms[0]),
             ("deblock_chroma", bytes_c, CHROMA_LINE_OPS * lines_c,
              lambda: kernels.deblock_chroma(U, V, *args, cb, cr,
                                             mb_w=mb_w, mb_h=mb_h),
              lambda: kernels.deblock_chroma(U, V, *zargs, cb, cr,
                                             mb_w=mb_w, mb_h=mb_h),
-             lambda: deblock_chroma_plain(U, V, *args, cb, cr,
-                                          mb_w=mb_w, mb_h=mb_h))):
+             plain_ms[1])):
         t_bytes = b / HBM_BYTES_PER_S * 1e3
         t_ops = ops / INT_OPS_PER_S * 1e3
         kstats[name] = {
             "ms": cuda_ms(kfn, inner=20), "chain_ms": cuda_ms(zfn, inner=20),
             "single_ms": cuda_ms(kfn),
-            "plain_ms": cuda_ms(pfn, reps=3),
+            "plain_ms": p_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": b, "ops": ops}
@@ -3411,6 +3793,7 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
     # UMHex, UMHex simple with long-term references, basic units,
     # the explicit sequence script), their decodes -------------------
     later.update(motion_phases(frames, cpu_refs, pool, payloads))
+    hbd_jobs = hbd_cpu_jobs(hbd_pool, payloads)
     clock.lap("31-33")
 
     # ---- 34-36. the RD tiers: the 1080p device-route stream with
@@ -3422,17 +3805,33 @@ def full_run(frames, pool, cpu_refs, smi: str) -> int:
     # ---- 37-39. 4:2:2 chroma: K2-422 against its plain twin, the 1080p
     # 4:2:2 IDR and two CIF 4:2:2 streams on the host coders, their
     # decodes, the 4:2:2 goldens ------------------------------------------
-    k422, y422 = y422_phases(frames, cpu_refs, pool, rng)
+    k422, y422, y422_cif_a = y422_phases(frames, cpu_refs, pool, rng)
+    hbd_jobs.update(hbd_cpu_jobs(hbd_pool, y422_payloads=y422_cif_a))
     k422["launches"] = y422["y422"]["deblock_chroma422"]
     kstats["deblock_chroma422"] = k422
     max_err["deblock_chroma422"] = k422["max_err"]
     later.update(y422)
     clock.lap("37-39")
+
+    # ---- 40-42. High 10 and lossless: the >8-bit kernels against their
+    # twins, the re-headed 1080p High 10 and CIF 4:2:2 10-bit decodes,
+    # the High 10 and lossless goldens -----------------------------------
+    khbd, hbd = hbd_phases(payloads, y422_cif_a, hbd_jobs, rng)
+    for key, path in (("deblock_luma16", "hbd_1080p_decode"),
+                      ("deblock_chroma16", "hbd_1080p_decode"),
+                      ("deblock_chroma422_16", "hbd_422_decode")):
+        khbd[key]["launches"] = hbd[path][key]
+        kstats[key] = khbd[key]
+        max_err[key] = khbd[key]["max_err"]
+    later.update(hbd)
+    clock.lap("40-42")
     clock.report()
 
     rows = []
     for name, line in (("deblock_luma", 213), ("deblock_chroma", 310),
-                       ("deblock_chroma422", 310)):
+                       ("deblock_chroma422", 310), ("deblock_luma16", 213),
+                       ("deblock_chroma16", 310),
+                       ("deblock_chroma422_16", 310)):
         s = kstats[name]
         rows.append({
             "name": name, "route": "cuda",

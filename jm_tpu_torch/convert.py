@@ -33,19 +33,25 @@ def ref_state_from_numpy(planes, padU, padV, device="cpu"):
                  for a in (planes, padU, padV))
 
 
-def qpc_tables(pps, device="cpu"):
-    """(qpc_cb, qpc_cr): (52,) int32 luma QP -> chroma QP tables of the
-    PPS's Cb / Cr offsets (spec Table 8-15)."""
-    cb = [chroma_qp(q, pps.cb_qp_offset) for q in range(52)]
-    cr = [chroma_qp(q, pps.cr_qp_offset) for q in range(52)]
+def qpc_tables(pps, device="cpu", bd=(8, 8)):
+    """(qpc_cb, qpc_cr): the luma QP -> chroma QP tables of the PPS's Cb /
+    Cr offsets (spec 8.5.8, Table 8-15) at bit depths bd = (luma,
+    chroma), (52 + QpBdOffsetY,) int32 each: entry QPY + QpBdOffsetY
+    holds QPc (from -QpBdOffsetC to 51; jm_tpu/ops/deblock.py
+    deblock_picture's tables from QPY -48). A caller indexes them with
+    that offset, which the length gives: 8 bits, (52,), offset 0."""
+    off = 6 * (bd[0] - 8)
+    cb = [chroma_qp(q, pps.cb_qp_offset, bd[1]) for q in range(-off, 52)]
+    cr = [chroma_qp(q, pps.cr_qp_offset, bd[1]) for q in range(-off, 52)]
     return (torch.tensor(cb, dtype=torch.int32, device=device),
             torch.tensor(cr, dtype=torch.int32, device=device))
 
 
 def picture_from_numpy(src) -> PictureData:
-    """A parsed 4:2:0 or 4:2:2 frame picture's SoA state (any object with
-    numpy arrays under PictureData's names, e.g. jm_tpu's decoder
-    ``PictureData``) as the port's PictureData; arrays are copied."""
+    """A parsed 4:2:0 or 4:2:2 frame picture's SoA state, of any bit
+    depth (any object with numpy arrays under PictureData's names, e.g.
+    jm_tpu's decoder ``PictureData``) as the port's PictureData; arrays
+    are copied."""
     pic = PictureData(src.mb_w, src.mb_h,
                       getattr(src, "chroma_format_idc", 1))
     for name in _PICTURE_FIELDS:
@@ -55,8 +61,8 @@ def picture_from_numpy(src) -> PictureData:
             raise ValueError(f"picture_from_numpy: {name} has shape "
                              f"{a.shape}, expected {dst.shape}")
         dst[...] = a
-    pic.ipcm_luma = {int(k): np.array(v, np.uint8)
-                     for k, v in src.ipcm_luma.items()}
-    pic.ipcm_chroma = {int(k): np.array(v, np.uint8)
+    # I_PCM samples keep their dtype: uint8, or uint16 above 8 bits
+    pic.ipcm_luma = {int(k): np.array(v) for k, v in src.ipcm_luma.items()}
+    pic.ipcm_chroma = {int(k): np.array(v)
                        for k, v in src.ipcm_chroma.items()}
     return pic

@@ -1,7 +1,9 @@
 """Top-level H.264 decoder of the port: Annex-B in, YUV frames out; twin
 of jm_tpu.decoder.decoder.H264Decoder with ``device_recon=True``, for I
 / P / B streams, CAVLC (Baseline, Extended) or CABAC (Main, High, High
-4:2:2) (4:2:0 or 4:2:2, 8-bit, frame pictures, the 4x4 and the adaptive
+10, High 4:2:2, and the 4:2:0 streams of High 4:4:4 Predictive) (4:2:0
+or 4:2:2 frame pictures of 8 to 14 bits, lossless macroblocks under
+qpprime_y_zero_transform_bypass_flag, the 4x4 and the adaptive
 8x8 transform with I8x8 prediction, flat or scaling-matrix
 dequantization, one or more slices per picture, FMO slice groups of map
 types 0-6, data-partitioned CAVLC slices (NAL units 2-4), redundant
@@ -9,7 +11,8 @@ pictures, list0 and list1 with several references, short- and long-term,
 in a DPB with the sliding window or MMCO marking, spatial and temporal
 direct prediction, explicit and implicit weighted prediction,
 non-reference pictures, POC types 0, 1 and 2). Frames come out in decode
-order, as jm_tpu's: callers sort them by POC.
+order, as jm_tpu's: callers sort them by POC; their planes are uint8 at
+8 bits and uint16 above, as jm_tpu's.
 
 Two phases per picture: the serial host parse of its slices
 (decoder/mb_parse.py for CAVLC, decoder/mb_parse_cabac.py for CABAC)
@@ -35,6 +38,14 @@ both entropy coders:
     tables (decoder/wp.WPParams) become per-8x8 weights and offsets on
     the host (wp.block_tables), which the device inter recon applies
     (jm_tpu applies them in its host Reconstructor).
+  - above 8 bits (bd = the SPS's luma / chroma bit depths): the same
+    stages at QP' = QP + QpBdOffset and clips at (1 << bd) - 1, on
+    int16 device planes (ops/consts.plane_dtype), the >8-bit deblock
+    kernels (jm_tpu reconstructs and deblocks such pictures on the
+    host); the host intra recon is the Python walk (the native one is
+    8-bit). Lossless MBs (QP'Y 0 under the bypass flag) take the
+    transform bypass: on the device for inter MBs, with the intra DPCM
+    in the host Reconstructor.
 The new reference state stays on the device in the DPB; the output
 planes are downloaded from the deblocked picture.
 
@@ -261,7 +272,9 @@ class H264Decoder:
                 parser.br_c = dp_readers.get("c")
         parser.parse_slice_data()
         cur["headers"].append(hdr)
-        cur["wps"].append(WPParams(hdr, pps, lst, lst1, cur["poc"]))
+        cur["wps"].append(WPParams(hdr, pps, lst, lst1, cur["poc"],
+                                   (sps.bit_depth_luma,
+                                    sps.bit_depth_chroma)))
         for f in lst + lst1:             # the picture's references by uid
             cur["refs"].setdefault(f.uid, f)
 
@@ -296,32 +309,38 @@ class H264Decoder:
 
     # ------------------------------------------------------------------
 
-    def _pps_tabs(self, pps):
-        """Device tables of a PPS: inter InvLevelScale lists 3 / 4 / 5,
-        the QP -> QPc maps of its Cb / Cr offsets and the inter
-        LevelScale8 (list 7)."""
-        hit = self._tabs.get(id(pps))
+    def _pps_tabs(self, pps, bd):
+        """Device tables of a PPS at the SPS's bit depths bd = (luma,
+        chroma): inter InvLevelScale lists 3 / 4 / 5 by QP', the QP ->
+        QPc maps of its Cb / Cr offsets (convert.qpc_tables: indexed at
+        QPY + QpBdOffsetY) and the inter LevelScale8 (list 7)."""
+        hit = self._tabs.get((id(pps), bd))
         if hit is None or hit[0] is not pps:
             tab4 = build_inv_scale(pps)
             hit = (pps, tuple(torch.as_tensor(tab4[i], device=self.device)
                               for i in (3, 4, 5))
-                   + qpc_tables(pps, self.device)
+                   + qpc_tables(pps, self.device, bd)
                    + (torch.as_tensor(build_inv_scale8(pps)[1],
                                       device=self.device),))
-            self._tabs[id(pps)] = hit
+            self._tabs[(id(pps), bd)] = hit
         return hit[1]
 
     def _upload(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint16:          # >8-bit host planes: int16 on
+            a = a.view(np.int16)          # the device (consts.plane_dtype)
+        return torch.as_tensor(a, device=self.device)
 
-    def _inter_recon(self, pic, refs, tabs, inter, qp, mv, is_b, wps):
+    def _inter_recon(self, pic, refs, tabs, inter, qp, mv, is_b, wps, bd,
+                     ll):
         """Device residual decode + inter recon of the inter MBs (qp, mv:
         the picture's, on the device). refs: the picture's reference
         frames; each MB's reference is found by uid, so slices with
         different list orders share one stack. is_b: a B picture, whose
         blocks predict from list 0, list 1 or both. wps: each slice's
         WPParams; the weights are indexed by slice, list and ref_idx, not
-        by the stack (decoder/wp.block_tables)."""
+        by the stack (decoder/wp.block_tables). bd: the (luma, chroma) bit
+        depths; ll: the (N,) bool mask of lossless MBs, or None."""
         tabY, tabU, tabV, qpc_cb, qpc_cr, tab8 = tabs
         up = self._upload
         t8 = {}
@@ -331,7 +350,8 @@ class H264Decoder:
         res_l, res_c = D.p_dec_residuals(
             up(pic.luma_coef), up(pic.chroma_dc), up(pic.chroma_coef),
             qp, tabY, tabU, tabV, qpc_cb, qpc_cr,
-            mb_w=pic.mb_w, mb_h=pic.mb_h, **t8)
+            mb_w=pic.mb_w, mb_h=pic.mb_h, bd=bd,
+            lossless=None if ll is None else up(ll), **t8)
 
         def stack_idx(pid):
             idx = np.full(pid.shape, -1, np.int32)
@@ -348,38 +368,47 @@ class H264Decoder:
             return D.inter_recon_b(
                 mv, up(pic.mv_l1), stack_idx(pic.ref_pic_id),
                 stack_idx(pic.ref_pic_id_l1), up(pic.pdir), res_l, res_c,
-                *stacks, up(inter), mb_w=pic.mb_w, mb_h=pic.mb_h, wp=wp)
+                *stacks, up(inter), mb_w=pic.mb_w, mb_h=pic.mb_h, wp=wp,
+                bd=bd)
         return D.inter_recon_p(mv, stack_idx(pic.ref_pic_id), res_l, res_c,
                                *stacks, up(inter), mb_w=pic.mb_w,
-                               mb_h=pic.mb_h, wp=wp)
+                               mb_h=pic.mb_h, wp=wp, bd=bd)
 
     def _reconstruct(self, pic, cur, rec):
         """Reconstruct, deblock and prep one parsed picture; fills the
         timing record ``rec``. Returns (Y, U, V host planes, device
         reference state)."""
-        pps = cur["pps"]
+        pps, sps = cur["pps"], cur["sps"]
+        bd = (sps.bit_depth_luma, sps.bit_depth_chroma)
         refs = list(cur["refs"].values())
-        tabs = self._pps_tabs(pps)
+        tabs = self._pps_tabs(pps, bd)
         inter = pic.mb_class == MB_INTER
         is_b = any(h.slice_type == SliceType.B for h in cur["headers"])
+        # lossless MBs (QP'Y 0 under the bypass flag), or None
+        ll = None
+        if sps.qpprime_y_zero_transform_bypass_flag:
+            ll = pic.qp + 6 * sps.bit_depth_luma_minus8 == 0
         up = self._upload
         t = time.perf_counter()
         qp, mv = up(pic.qp), up(pic.mv)
         if inter.all():
             rec["path"] = "inter"
             Y, U, V = self._inter_recon(pic, refs, tabs, inter, qp, mv, is_b,
-                                        cur["wps"])
+                                        cur["wps"], bd, ll)
         else:
             seed = None
             if inter.any():
                 rec["path"] = "mixed"
                 seed = [p.cpu().numpy() for p in self._inter_recon(
-                    pic, refs, tabs, inter, qp, mv, is_b, cur["wps"])]
+                    pic, refs, tabs, inter, qp, mv, is_b, cur["wps"], bd,
+                    ll)]
             else:
                 rec["path"] = "intra"
             t1 = time.perf_counter()
             rec["device_s"] += t1 - t
-            planes = Reconstructor(pic, pps).run(seed)
+            planes = Reconstructor(
+                pic, pps, bd,
+                bool(sps.qpprime_y_zero_transform_bypass_flag)).run(seed)
             t = time.perf_counter()
             rec["host_recon_s"] = t - t1
             Y, U, V = (up(p) for p in planes)
@@ -401,10 +430,12 @@ class H264Decoder:
         dY, dU, dV = deblock(
             Y, U, V, bs_v, bs_h, qp, up(disable), up(a_off),
             up(b_off), up(pic.slice_id), t8, tabs[3], tabs[4],
-            mb_w=pic.mb_w, mb_h=pic.mb_h)
-        state = prep_ref(dY, dU, dV)
+            mb_w=pic.mb_w, mb_h=pic.mb_h, bd=bd)
+        state = prep_ref(dY, dU, dV, bd[0])
         flat = torch.cat([dY.reshape(-1), dU.reshape(-1),
                           dV.reshape(-1)]).cpu().numpy()
+        if flat.dtype == np.int16:        # >8-bit: uint16 host planes
+            flat = flat.view(np.uint16)
         rec["device_s"] += time.perf_counter() - t
         ny, nc = dY.numel(), dU.numel()
         return (flat[:ny].reshape(dY.shape),

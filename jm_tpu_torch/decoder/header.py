@@ -32,10 +32,8 @@ def check_scope(sps: SPS, pps: PPS) -> None:
     if sps.chroma_format_idc not in (1, 2):
         out.append(f"chroma_format_idc {sps.chroma_format_idc} "
                    "(4:2:0 and 4:2:2 only)")
-    if sps.bit_depth_luma_minus8 or sps.bit_depth_chroma_minus8:
-        out.append("bit depth above 8")
-    if sps.qpprime_y_zero_transform_bypass_flag:
-        out.append("lossless (qpprime_y_zero_transform_bypass)")
+    if sps.bit_depth_luma_minus8 > 6 or sps.bit_depth_chroma_minus8 > 6:
+        out.append("bit depth above 14 (no conforming profile)")
     if not sps.frame_mbs_only_flag:
         out.append("fields / MBAFF (frame_mbs_only_flag 0)")
     if pps.constrained_intra_pred_flag:

@@ -1,6 +1,7 @@
 """Macroblock-layer parsing of CAVLC I, P and B slices (spec 7.3.5,
 7.4.5, 9.2), twin of the Python path of jm_tpu/decoder/mb_parse.py for
-4:2:0 and 4:2:2, 8-bit frame pictures with the 4x4 and the adaptive 8x8
+4:2:0 and 4:2:2 frame pictures of 8 to 14 bits (the QP wraps over
+[-QpBdOffsetY, 51], I_PCM samples take bit_depth bits) with the 4x4 and the adaptive 8x8
 transform (transform_size_8x8_flag after an I_NxN mb_type, or after the
 cbp of an inter MB with luma coefficients whose partitions are all 8x8
 or larger; an 8x8 block is read as four 4x4 blocks interleaved, each
@@ -86,6 +87,33 @@ def ipcm_format_check(pic: PictureData) -> None:
     if pic.n_crows != 2:
         raise NotImplementedError(
             "out of scope: I_PCM at chroma_format_idc 2")
+
+
+def apply_qp_delta(qp: int, dq: int, sps: SPS) -> int:
+    """QPY after an mb_qp_delta (spec 7.4.5): the modular wrap over
+    [-QpBdOffsetY, 51], with jm_tpu's range check of the delta
+    (jm_tpu/decoder/mb_parse.py _read_qp_delta)."""
+    off = 6 * sps.bit_depth_luma_minus8              # QpBdOffsetY
+    if not -(27 + off // 2) <= dq <= 26 + off // 2:
+        raise ValueError(f"mb_qp_delta {dq} out of range")
+    return (qp + dq + 52 + 2 * off) % (52 + off) - off
+
+
+def read_pcm_samples(br: BitReader, sps: SPS):
+    """The 256 luma and 2 x 64 chroma samples of a 4:2:0 I_PCM MB from a
+    byte-aligned reader, of bit_depth bits each (spec 7.3.5): (luma
+    (16, 16), chroma (2, 8, 8)), uint8 at 8 bits, else uint16."""
+    bdl, bdc = sps.bit_depth_luma, sps.bit_depth_chroma
+    if br.pos + 256 * bdl + 128 * bdc > br.nbits:
+        raise EOFError("bitreader overrun in I_PCM samples")
+    if bdl == bdc == 8:
+        samples = np.frombuffer(br.data, np.uint8, 384, br.pos >> 3)
+        br.pos += 384 * 8
+        return (samples[:256].reshape(16, 16).copy(),
+                samples[256:].reshape(2, 8, 8).copy())
+    luma = np.array([br.u(bdl) for _ in range(256)], np.uint16)
+    chroma = np.array([br.u(bdc) for _ in range(128)], np.uint16)
+    return luma.reshape(16, 16), chroma.reshape(2, 8, 8)
 
 
 @dataclass
@@ -209,10 +237,7 @@ class MBParser:
                     pic.chroma_nnz[addr, comp, blk] = tc
 
     def _read_qp_delta(self, addr: int) -> None:
-        dq = self.br.se()
-        if not -27 <= dq <= 26:
-            raise ValueError(f"mb_qp_delta {dq} out of range")
-        self.qp = (self.qp + dq + 52) % 52          # spec 7.4.5, 8-bit
+        self.qp = apply_qp_delta(self.qp, self.br.se(), self.ctx.sps)
         self.pic.qp[addr] = self.qp
 
     # ---- intra MB ---------------------------------------------------------
@@ -266,12 +291,8 @@ class MBParser:
         ipcm_format_check(pic)
         pic.mb_class[addr] = MB_IPCM
         br.align()
-        if br.pos + 384 * 8 > br.nbits:
-            raise EOFError("bitreader overrun in I_PCM samples")
-        samples = np.frombuffer(br.data, np.uint8, 384, br.pos >> 3)
-        br.pos += 384 * 8
-        pic.ipcm_luma[addr] = samples[:256].reshape(16, 16).copy()
-        pic.ipcm_chroma[addr] = samples[256:].reshape(2, 8, 8).copy()
+        pic.ipcm_luma[addr], pic.ipcm_chroma[addr] = read_pcm_samples(
+            br, self.ctx.sps)
         pic.qp[addr] = self.qp
         # PCM MBs count as 16 nnz for nC prediction and bS
         pic.luma_nnz[addr] = 16
@@ -386,9 +407,10 @@ class MBParser:
     # ---- native parse -----------------------------------------------------
 
     def _parse_native(self) -> bool:
-        """Parse the slice with the native C parser (I/P CAVLC 4:2:0 at 8
-        bits, what decoder/header.check_scope admits, with the FMO
-        successor map when the PPS has slice groups). Returns False, with
+        """Parse the slice with the native C parser (I/P CAVLC 4:2:0 at
+        any bit depth: the parser wraps the QP over [-QpBdOffsetY, 51],
+        where jm_tpu keeps >8-bit slices on its Python parser; with the
+        FMO successor map when the PPS has slice groups). Returns False, with
         the reader where it was, when
         the parser stopped at an I_PCM MB: the arrays it filled so far
         are rewritten with the same values by the Python parser."""
@@ -402,6 +424,7 @@ class MBParser:
             "qp": self.ctx.qp,
             "nref": h.num_ref_idx_l0_active_minus1 + 1,
             "t8": int(self.ctx.pps.transform_8x8_mode_flag),
+            "qp_bd_offset": 6 * self.ctx.sps.bit_depth_luma_minus8,
         }
         arrays = {
             "mb_class": pic.mb_class, "skip": pic.skip,

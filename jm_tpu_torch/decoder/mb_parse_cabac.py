@@ -1,6 +1,7 @@
 """Macroblock-layer parsing of CABAC I, P and B slices (spec 7.3.5,
 9.3.3.1), twin of jm_tpu/decoder/mb_parse_cabac.py's MBParserCABAC for
-4:2:0, 8-bit frame pictures with the 4x4 and the adaptive 8x8 transform.
+frame pictures of 8 to 14 bits with the 4x4 and the adaptive 8x8
+transform.
 
 It fills the same picture-wide SoA arrays (common/picture.PictureData) as
 the CAVLC parser, plus the two the context selection reads: the mvd of
@@ -40,7 +41,8 @@ from .cabac import (CHROMA_AC, CHROMA_DC, CHROMA_DC_2x4, LUMA_4x4,
                     CabacContexts, CabacEngine, PyCabacEngine,
                     read_significance_and_levels)
 from .mb_parse import (_P_PARTS, _SUB_PARTS, SliceContext, b_allow8,
-                       ipcm_format_check, p_allow8)
+                       apply_qp_delta, ipcm_format_check, p_allow8,
+                       read_pcm_samples)
 
 
 class CabacNeighbours:
@@ -512,12 +514,10 @@ class MBParserCABAC(CabacNeighbours):
         ipcm_format_check(pic)
         pic.mb_class[addr] = MB_IPCM
         br.align()
-        if br.pos + 384 * 8 > br.nbits:
-            raise EOFError("bitreader overrun in I_PCM samples")
-        samples = np.frombuffer(br.data, np.uint8, 384, br.pos >> 3)
-        br.pos += 384 * 8
-        pic.ipcm_luma[addr] = samples[:256].reshape(16, 16).copy()
-        pic.ipcm_chroma[addr] = samples[256:].reshape(2, 8, 8).copy()
+        # bit_depth bits a sample (spec 7.3.5), where jm_tpu's CABAC parser
+        # reads 8 (ROADMAP Queue 3)
+        pic.ipcm_luma[addr], pic.ipcm_chroma[addr] = read_pcm_samples(
+            br, self.ctx.sps)
         pic.qp[addr] = self.qp
         pic.luma_nnz[addr] = 16
         pic.chroma_nnz[addr] = 16
@@ -567,10 +567,7 @@ class MBParserCABAC(CabacNeighbours):
         self._read_chroma_residual(addr, cbp)
 
     def _apply_dquant(self, addr):
-        dq = self.read_dquant()
-        if not -27 <= dq <= 26:
-            raise ValueError(f"mb_qp_delta {dq} out of range")
-        self.qp = (self.qp + dq + 52) % 52          # spec 7.4.5, 8-bit
+        self.qp = apply_qp_delta(self.qp, self.read_dquant(), self.ctx.sps)
         self.pic.qp[addr] = self.qp
 
     def _fill_mv(self, addr, bx, by, bw, bh, ref):

@@ -1,8 +1,11 @@
 """Host reconstruction of a decoded picture's intra macroblocks, twin of
-jm_tpu/decoder/recon.py for 4:2:0 and 4:2:2, 8-bit frame pictures with
-the 4x4 and the 8x8 transform and scaling matrices
+jm_tpu/decoder/recon.py for 4:2:0 and 4:2:2 frame pictures of 8 to 14
+bits with the 4x4 and the 8x8 transform and scaling matrices
 (ldecod/src/macroblock.c decode_one_macroblock:1402, block.c itrans4x4 /
-itrans_2 / itrans8x8).
+itrans_2 / itrans8x8), and the lossless macroblocks of
+qpprime_y_zero_transform_bypass_flag (QP'Y 0: the levels are the
+residual, intra prediction of modes vertical and horizontal accumulates
+it, ldecod block.c itrans4x4_ls / Inv_Residual_trans_*).
 
 ``decode_residuals`` is batched numpy over every MB of the picture;
 ``Reconstructor`` then walks the intra (I4, I8, I16, I_PCM) MBs in
@@ -11,8 +14,10 @@ MBs are never predicted here: they arrive in the seed planes made on the
 device by ops/dec.inter_recon_p. The I4 / I8 / I16 walk runs in the
 port's C++ runtime (jm_tpu_torch/native, jm_dec.cpp intra_recon) unless the
 picture holds an I_PCM MB (whose samples feed later predictions, so the
-Python walk interleaves it) or the caller asks for the Python walk
-(``native=False``); native.routes["recon"] counts the route.
+Python walk interleaves it), is above 8 bits or holds a lossless MB (the
+C++ walk is 8-bit and has no DPCM), or the caller asks for the Python
+walk (``native=False``); native.routes["recon"] counts the route.
+Planes are uint8 at 8 bits, uint16 when either bit depth is above 8.
 """
 
 from __future__ import annotations
@@ -95,12 +100,17 @@ def _np_inv8(d):
     return np.stack(inv8_1d(tuple(t[..., j, :] for j in range(8))), axis=-2)
 
 
+# QP' rows of the scaling tables: 0 .. 51 + QpBdOffset (36 at 14 bits)
+QP_ROWS = 88
+
+
 def build_inv_scale(pps) -> np.ndarray:
-    """(6, 52, 4, 4) int32 InvLevelScale = V[qp % 6] * weightScale of the
+    """(6, 88, 4, 4) int32 InvLevelScale = V[qp % 6] * weightScale of the
     PPS's six 4x4 lists (0 intra Y, 1 intra Cb, 2 intra Cr, 3 inter Y,
-    4 inter Cb, 5 inter Cr; zig-zag order in the PPS)."""
-    tab4 = np.zeros((6, 52, 4, 4), np.int32)
-    v = DEQUANT_SCALE_4x4[np.arange(52) % 6]                 # (52, 4, 4)
+    4 inter Cb, 5 inter Cr; zig-zag order in the PPS), one row per QP'
+    (QP + QpBdOffset)."""
+    tab4 = np.zeros((6, QP_ROWS, 4, 4), np.int32)
+    v = DEQUANT_SCALE_4x4[np.arange(QP_ROWS) % 6]            # (88, 4, 4)
     for i in range(6):
         ws = np.zeros(16, np.int64)
         ws[_ZZ] = pps.scaling_list_4x4[i]
@@ -109,11 +119,11 @@ def build_inv_scale(pps) -> np.ndarray:
 
 
 def build_inv_scale8(pps) -> np.ndarray:
-    """(2, 52, 8, 8) int32 LevelScale8 = V8[qp % 6] * weightScale8 of the
+    """(2, 88, 8, 8) int32 LevelScale8 = V8[qp % 6] * weightScale8 of the
     PPS's two 4:2:0 8x8 lists (0 intra Y, 1 inter Y: spec lists 6 and
-    7)."""
-    tab8 = np.zeros((2, 52, 8, 8), np.int32)
-    v = DEQUANT_SCALE_8x8[np.arange(52) % 6]                 # (52, 8, 8)
+    7), one row per QP'."""
+    tab8 = np.zeros((2, QP_ROWS, 8, 8), np.int32)
+    v = DEQUANT_SCALE_8x8[np.arange(QP_ROWS) % 6]            # (88, 8, 8)
     for i in range(2):
         ws = np.zeros(64, np.int64)
         ws[_ZZ8] = pps.scaling_list_8x8[i]
@@ -121,16 +131,21 @@ def build_inv_scale8(pps) -> np.ndarray:
     return tab8
 
 
-def decode_residuals(pic: PictureData, pps):
+def decode_residuals(pic: PictureData, pps, bd=(8, 8), lossless=None):
     """Returns (res_luma (n, 16, 4, 4), res_chroma (n, 2, 2 crows, 4, 4))
     int32 spatial residuals of every MB (inverse scan -> dequant -> inverse
     transform; I16 luma DC and chroma DC Hadamards, 2x2 at 4:2:0, 2x4 at
     4:2:2 scaled at QPc + 3; the 8x8 transform of
     MBs with transform8x8, its output split into their 16 raster 4x4
     blocks); products in int64, the dequantized levels kept as int32 as
-    in jm_tpu."""
+    in jm_tpu. bd = (luma, chroma) bit depths: the scaling runs at QP' =
+    QP + QpBdOffset (spec 8.5.8). lossless: None or the (n,) bool mask of
+    the transform-bypass MBs, whose residual is their inverse-scanned
+    levels, the luma DC of I16 and the chroma DC placed raw (ldecod
+    block.c itrans4x4_ls, read_comp_cavlc.c:2004; jm_tpu
+    decode_residuals(bd=, lossless=))."""
     n = pic.n_mbs
-    qp = pic.qp.astype(np.int64)
+    qp = pic.qp.astype(np.int64) + 6 * (bd[0] - 8)
     tab4 = build_inv_scale(pps)
     intra = pic.mb_class != MB_INTER
     per = qp // 6
@@ -151,6 +166,16 @@ def decode_residuals(pic: PictureData, pps):
         deq_dc[:, blk, 0, 0] = dc_s[:, blk // 4, blk % 4]
         deq = np.where(i16[:, None, None, None], deq_dc, deq)
     res_luma = ((_np_inv4(deq) + 32) >> 6).astype(np.int32)
+    ll = lossless is not None and bool(np.any(lossless))
+    if ll:
+        ll_res = raster.astype(np.int32)
+        if i16.any():
+            blk = np.arange(16)
+            ll_dc = ll_res.copy()
+            ll_dc[:, blk, 0, 0] = _inv_scan_4x4(pic.luma_dc)[:, blk // 4,
+                                                             blk % 4]
+            ll_res = np.where(i16[:, None, None, None], ll_dc, ll_res)
+        res_luma = np.where(lossless[:, None, None, None], ll_res, res_luma)
 
     # ---- luma of 8x8-transform MBs: intra -> list 6, inter -> list 7 ----
     t8 = np.asarray(pic.transform8x8)
@@ -159,15 +184,20 @@ def decode_residuals(pic: PictureData, pps):
         r8[..., _ZZ8] = pic.luma_coef8
         scale8 = build_inv_scale8(pps)[np.where(intra, 0, 1), qp] \
             .astype(np.int64)                                   # (n, 8, 8)
-        deq8 = _rshift_rnd_sf((r8.reshape(n, 4, 8, 8) * scale8[:, None])
+        r8 = r8.reshape(n, 4, 8, 8)
+        deq8 = _rshift_rnd_sf((r8 * scale8[:, None])
                               << per[:, None, None, None], 6)
-        res8 = split_8x8(((_np_inv8(deq8) + 32) >> 6).astype(np.int32))
+        sp8 = (_np_inv8(deq8) + 32) >> 6
+        if ll:
+            sp8 = np.where(lossless[:, None, None, None], r8, sp8)
+        res8 = split_8x8(sp8.astype(np.int32))
         res_luma = np.where(t8[:, None, None, None], res8, res_luma)
 
     # ---- chroma: lists 1 / 2 intra, 4 / 5 inter ----
-    qpc = np.array([[chroma_qp(int(q), pps.cb_qp_offset),
-                     chroma_qp(int(q), pps.cr_qp_offset)] for q in pic.qp],
-                   np.int64).reshape(n, 2)
+    cbdo = 6 * (bd[1] - 8)                          # QpBdOffsetC
+    qpc = np.array([[chroma_qp(int(q), pps.cb_qp_offset, bd[1]),
+                     chroma_qp(int(q), pps.cr_qp_offset, bd[1])]
+                    for q in pic.qp], np.int64).reshape(n, 2) + cbdo
     c_raster = _inv_scan_4x4(pic.chroma_coef).astype(np.int64)  # (n,2,4,4,4)
     scale_c = np.stack([tab4[np.where(intra, 1, 4), qpc[:, 0]],
                         tab4[np.where(intra, 2, 5), qpc[:, 1]]],
@@ -202,22 +232,41 @@ def decode_residuals(pic: PictureData, pps):
             for i in range(2):
                 c_deq[:, :, 2 * j + i, 0, 0] = dc_s[:, :, i, j]
     res_chroma = ((_np_inv4(c_deq) + 32) >> 6).astype(np.int32)
+    if ll:
+        ll_c = c_raster.astype(np.int32)
+        if pic.n_crows == 2:
+            ll_c[:, :, :, 0, 0] = pic.chroma_dc
+        else:
+            # column-major 2x4 placement (ldecod read_comp_cavlc.c:1468)
+            for k, (i, j) in enumerate(SCAN_YUV422):
+                ll_c[:, :, 2 * j + i, 0, 0] = pic.chroma_dc[:, :, k]
+        res_chroma = np.where(lossless[:, None, None, None, None], ll_c,
+                              res_chroma)
     return res_luma, res_chroma
 
 
 class Reconstructor:
-    """Host reconstruction of one picture's intra and I_PCM macroblocks."""
+    """Host reconstruction of one picture's intra and I_PCM macroblocks.
+    bd: the (luma, chroma) bit depths; bypass: the SPS's
+    qpprime_y_zero_transform_bypass_flag, which makes the MBs of QP'Y 0
+    lossless (ldecod macroblock.c:196, jm_tpu recon.py:352-355)."""
 
-    def __init__(self, pic: PictureData, pps):
+    def __init__(self, pic: PictureData, pps, bd=(8, 8), bypass=False):
         self.pic = pic
         self.pps = pps
+        self.bd = bd
         self.mb_w = pic.mb_w
         self.w = pic.mb_w * 16
         self.h = pic.mb_h * 16
         self.ch = 4 * pic.n_crows                 # chroma MB height: 8 or 16
-        self.Y = np.zeros((self.h, self.w), np.uint8)
-        self.U = np.zeros((self.ch * pic.mb_h, self.w // 2), np.uint8)
-        self.V = np.zeros((self.ch * pic.mb_h, self.w // 2), np.uint8)
+        self.maxY, self.maxC = (1 << bd[0]) - 1, (1 << bd[1]) - 1
+        self.dcY, self.dcC = 1 << (bd[0] - 1), 1 << (bd[1] - 1)
+        self.ll = (pic.qp + 6 * (bd[0] - 8) == 0) if bypass \
+            else np.zeros(pic.n_mbs, bool)
+        dt = np.uint8 if bd == (8, 8) else np.uint16
+        self.Y = np.zeros((self.h, self.w), dt)
+        self.U = np.zeros((self.ch * pic.mb_h, self.w // 2), dt)
+        self.V = np.zeros((self.ch * pic.mb_h, self.w // 2), dt)
 
     # ---- availability (same slice, already decoded) -----------------------
 
@@ -244,14 +293,15 @@ class Reconstructor:
             ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """seed: (Y, U, V) planes holding the inter MBs (ops/dec
         .inter_recon_p), required when the picture has any. Returns the
-        (Y, U, V) uint8 planes, not yet deblocked."""
+        (Y, U, V) planes, not yet deblocked."""
         pic = self.pic
         if seed is not None:
             self.Y[:], self.U[:], self.V[:] = seed
         elif (pic.mb_class == MB_INTER).any():
             raise ValueError("inter macroblocks need the device seed planes")
-        res_l, res_c = decode_residuals(pic, self.pps)
-        if native and not (pic.mb_class == MB_IPCM).any():
+        res_l, res_c = decode_residuals(pic, self.pps, self.bd, self.ll)
+        if native and self.bd == (8, 8) and not self.ll.any() \
+                and not (pic.mb_class == MB_IPCM).any():
             N.routes["recon"]["native"] += 1
             N.load().intra_recon(
                 {"mb_w": pic.mb_w, "mb_h": pic.mb_h, "crows": pic.n_crows},
@@ -299,10 +349,11 @@ class Reconstructor:
                 left[:] = Y[y:y + 4, x - 1]
             if avail_tl:
                 corner = int(Y[y - 1, x - 1])
-            pred = I.predict_i4(int(pic.i4_modes[addr, by * 4 + bx]), top,
-                                left, corner, avail_t, avail_l)
-            Y[y:y + 4, x:x + 4] = np.clip(pred + res_l[addr, by * 4 + bx],
-                                          0, 255)
+            mode = int(pic.i4_modes[addr, by * 4 + bx])
+            pred = I.predict_i4(mode, top, left, corner, avail_t, avail_l,
+                                dc=self.dcY)
+            res = self._dpcm(addr, res_l[addr, by * 4 + bx], mode)
+            Y[y:y + 4, x:x + 4] = np.clip(pred + res, 0, self.maxY)
         self._recon_chroma_intra(addr, res_c)
 
     def _recon_i8(self, addr, res_l, res_c):
@@ -333,12 +384,14 @@ class Reconstructor:
                 left[:] = Y[y:y + 8, x - 1]
             if avail_tl:
                 corner = int(Y[y - 1, x - 1])
-            pred = I.predict_i8(int(pic.i4_modes[addr, by * 4 + bx]), top,
-                                left, corner, avail_t, avail_l, avail_tl)
+            mode = int(pic.i4_modes[addr, by * 4 + bx])
+            pred = I.predict_i8(mode, top, left, corner, avail_t, avail_l,
+                                avail_tl, dc=self.dcY)
             blks = [(by + dy) * 4 + bx + dx for dy in (0, 1) for dx in (0, 1)]
             res = res_l[addr, blks].reshape(2, 2, 4, 4).transpose(
                 0, 2, 1, 3).reshape(8, 8)
-            Y[y:y + 8, x:x + 8] = np.clip(pred + res, 0, 255)
+            res = self._dpcm(addr, res, mode)
+            Y[y:y + 8, x:x + 8] = np.clip(pred + res, 0, self.maxY)
         self._recon_chroma_intra(addr, res_c)
 
     def _recon_i16(self, addr, res_l, res_c):
@@ -354,11 +407,13 @@ class Reconstructor:
         left = Y[py:py + 16, px - 1].astype(np.int32) if avail_l \
             else np.zeros(16, np.int32)
         corner = int(Y[py - 1, px - 1]) if avail_tl else 0
-        pred = I.predict_i16(int(pic.i16_mode[addr]), top, left, corner,
-                             avail_t, avail_l)
+        mode = int(pic.i16_mode[addr])
+        pred = I.predict_i16(mode, top, left, corner, avail_t, avail_l,
+                             dc=self.dcY, cmax=self.maxY)
         res = res_l[addr].reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
             .reshape(16, 16)
-        Y[py:py + 16, px:px + 16] = np.clip(pred + res, 0, 255)
+        res = self._dpcm(addr, res, mode)
+        Y[py:py + 16, px:px + 16] = np.clip(pred + res, 0, self.maxY)
         self._recon_chroma_intra(addr, res_c)
 
     def _recon_chroma_intra(self, addr, res_c):
@@ -376,10 +431,21 @@ class Reconstructor:
                 else np.zeros(ch, np.int32)
             corner = int(plane[cy - 1, cx - 1]) if avail_tl else 0
             pred = I.predict_chroma(mode, top, left, corner, avail_t,
-                                    avail_l)
+                                    avail_l, dc=self.dcC, cmax=self.maxC)
             res = res_c[addr, comp].reshape(ch // 4, 2, 4, 4) \
                 .transpose(0, 2, 1, 3).reshape(ch, 8)
-            plane[cy:cy + ch, cx:cx + 8] = np.clip(pred + res, 0, 255)
+            # chroma modes: 1 horizontal, 2 vertical (luma: 0 / 1)
+            res = self._dpcm(addr, res, {1: 1, 2: 0}.get(mode, -1))
+            plane[cy:cy + ch, cx:cx + 8] = np.clip(pred + res, 0, self.maxC)
+
+    def _dpcm(self, addr, res, mode: int):
+        """The residual of a block predicted in ``mode`` (luma numbering:
+        0 vertical, 1 horizontal): a lossless MB's vertical / horizontal
+        prediction adds the residual up down the columns / along the rows
+        (spec 8.5.15; jm_tpu recon.py:491, 535, 556, 580)."""
+        if not self.ll[addr] or mode not in (0, 1):
+            return res
+        return np.cumsum(res, axis=0 if mode == 0 else 1)
 
     def _recon_ipcm(self, addr):
         pic = self.pic

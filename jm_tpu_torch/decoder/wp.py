@@ -1,6 +1,8 @@
 """Weighted prediction tables of a slice (spec 8.4.2.3; twin of
 jm_tpu/decoder/wp.py, ldecod image.c fill_wp_params and mc_prediction.c
-weighted_mc_prediction / weighted_bi_prediction), 8-bit samples.
+weighted_mc_prediction / weighted_bi_prediction), samples of 8 to 14
+bits: the explicit offsets are scaled by 1 << (bitDepth - 8) and the
+predictions clipped at (1 << bitDepth) - 1 (spec 8.4.2.3.2, 8.4.3).
 
 ``WPParams`` holds a slice's explicit tables (mode 1: a P slice of a PPS
 with weighted_pred_flag, a B slice with weighted_bipred_idc 1) or its
@@ -27,10 +29,14 @@ class WPParams:
 
     weight[l][ref][comp], offset[l][ref][comp] (comp 0 Y, 1 Cb, 2 Cr) for
     single-list prediction; wbp_w0 / wbp_w1 [ref0][ref1][comp] for
-    bi-prediction; luma_denom / chroma_denom the logWD of each."""
+    bi-prediction; luma_denom / chroma_denom the logWD of each; the
+    offsets already scaled to bd = (luma, chroma) bits, ``cmax`` the clip
+    of each component."""
 
-    def __init__(self, hdr, pps, lst0, lst1, cur_poc: int):
+    def __init__(self, hdr, pps, lst0, lst1, cur_poc: int, bd=(8, 8)):
         self.mode = 0
+        self.cmax = ((1 << bd[0]) - 1, (1 << bd[1]) - 1, (1 << bd[1]) - 1)
+        oscale = (1 << (bd[0] - 8), 1 << (bd[1] - 8))
         st = hdr.slice_type
         if st == SliceType.P and pps.weighted_pred_flag:
             self.mode = 1
@@ -49,11 +55,13 @@ class WPParams:
                 for r in range(m):
                     if r < len(table):
                         e = table[r]
-                        self.weight[lst, r, 0], self.offset[lst, r, 0] = \
-                            e["luma"]
+                        w, o = e["luma"]
+                        self.weight[lst, r, 0] = w
+                        self.offset[lst, r, 0] = o * oscale[0]
                         for j in range(2):
-                            self.weight[lst, r, 1 + j], \
-                                self.offset[lst, r, 1 + j] = e["chroma"][j]
+                            w, o = e["chroma"][j]
+                            self.weight[lst, r, 1 + j] = w
+                            self.offset[lst, r, 1 + j] = o * oscale[1]
                     else:
                         # a missing entry: the default weight, offset 0
                         self.weight[lst, r, 0] = 1 << self.luma_denom
@@ -88,17 +96,18 @@ class WPParams:
         self.wbp_w0, self.wbp_w1 = w0, w1
 
     def uni(self, pred, lst: int, ref: int, comp: int) -> np.ndarray:
-        """Weighted single-list prediction of a block, clipped to 0..255."""
+        """Weighted single-list prediction of a block, clipped to
+        0..cmax."""
         w = int(self.weight[lst, ref, comp])
         o = int(self.offset[lst, ref, comp])
         d = self.luma_denom if comp == 0 else self.chroma_denom
         x = pred.astype(np.int64) * w
         if d > 0:
             x = (x + (1 << (d - 1))) >> d
-        return np.clip(x + o, 0, 255)
+        return np.clip(x + o, 0, self.cmax[comp])
 
     def bi(self, p0, p1, ref0: int, ref1: int, comp: int) -> np.ndarray:
-        """Weighted bi-prediction of a block, clipped to 0..255."""
+        """Weighted bi-prediction of a block, clipped to 0..cmax."""
         w0 = int(self.wbp_w0[ref0, ref1, comp])
         w1 = int(self.wbp_w1[ref0, ref1, comp])
         o = (int(self.offset[0, ref0, comp])
@@ -106,7 +115,7 @@ class WPParams:
         d = (self.luma_denom if comp == 0 else self.chroma_denom) + 1
         x = (p0.astype(np.int64) * w0 + p1.astype(np.int64) * w1
              + (1 << (d - 1))) >> d
-        return np.clip(x + o, 0, 255)
+        return np.clip(x + o, 0, self.cmax[comp])
 
 
 def block_tables(wps, pic) -> tuple:

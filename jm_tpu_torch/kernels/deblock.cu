@@ -10,6 +10,17 @@
 // TPU kernel has no variant: it computes what jm_tpu's host loops do
 // (jm_tpu/ops/deblock.py:297-380). K1 serves both formats.
 //
+// Both kernels are templates of the sample type as well: uint8_t for 8-bit
+// pictures, int16_t for 9- to 14-bit ones (K1-HBD, K2-HBD, K2-422-HBD;
+// jm_tpu deblocks those on the host, deblock_picture(bd=),
+// jm_tpu/ops/deblock.py:227-380). The bit depth is a runtime argument
+// (Depth): alpha, beta and tC0 are the tables' values times
+// 1 << (bitDepth - 8) (spec 8.7.2.2), filtered samples clip at
+// (1 << bitDepth) - 1, and the chroma QP tables start at QPY =
+// -QpBdOffsetY (their entry QPY + qoff), where QPY may be negative. At
+// uint8_t the depth is the compile-time constant (0, 255, 0), so the 8-bit
+// kernels compile to what they were; the schedule is the same for both.
+//
 // Dependencies: MB (b, c) filters its 4 vertical edges left to right,
 // then its 4 horizontal edges top to bottom (DeblockMb's order); its MB
 // edges rewrite 3 samples of its left (b, c-1) and top (b-1, c)
@@ -95,6 +106,31 @@ __device__ __forceinline__ int clip3(int lo, int hi, int x) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// The bit depth of a plane: shift = bitDepth - 8 of the thresholds, maxv =
+// (1 << bitDepth) - 1, qoff = QpBdOffsetY, where the chroma QP tables
+// hold QPY = 0.
+struct Depth {
+  int shift, maxv, qoff;
+};
+
+// The depth the kernel runs at: the argument for int16_t planes, the 8-bit
+// constants for uint8_t ones (so that the compiler folds them).
+template <typename T>
+__device__ __forceinline__ Depth depth_of(Depth d) {
+  return d;
+}
+template <>
+__device__ __forceinline__ Depth depth_of<uint8_t>(Depth) {
+  return {0, 255, 0};
+}
+
+// The chroma QP table entry of luma QP qp: clipped at 8 bits (every QP is
+// 0..51 there), offset by QpBdOffsetY above.
+template <typename T>
+__device__ __forceinline__ int qpc_index(int qp, const Depth& d) {
+  return sizeof(T) == 1 ? clip3(0, 51, qp) : qp + d.qoff;
+}
+
 // Per-MB state shared by the luma and chroma kernels.
 struct MbParams {
   const int32_t* qp;
@@ -142,11 +178,12 @@ struct Thresholds {
 };
 
 __device__ __forceinline__ Thresholds thresholds(int qp_p, int qp_q, int ao,
-                                                 int bo, int bs) {
+                                                 int bo, int bs, int shift) {
   const int qav = (qp_p + qp_q + 1) >> 1;
   const int ia = clip3(0, 51, qav + 2 * ao);
   const int ib = clip3(0, 51, qav + 2 * bo);
-  return {kAlpha[ia], kBeta[ib], kTc0[clip3(1, 3, bs) - 1][ia]};
+  return {kAlpha[ia] << shift, kBeta[ib] << shift,
+          kTc0[clip3(1, 3, bs) - 1][ia] << shift};
 }
 
 // The 4 bS values of one 32-bit word of a bS array (values 0..4).
@@ -157,7 +194,8 @@ __device__ __forceinline__ int bs_byte(uint32_t w, int k) {
 // One luma filter line across an edge: s[-4..-1] = p3..p0, s[0..3] =
 // q0..q3, in a register array (the indices are constants once the edge
 // loops are unrolled).
-__device__ __forceinline__ void luma_line(int* s, int bs, Thresholds t) {
+__device__ __forceinline__ void luma_line(int* s, int bs, Thresholds t,
+                                          int maxv) {
   const int p0 = s[-1], p1 = s[-2], p2 = s[-3], p3 = s[-4];
   const int q0 = s[0], q1 = s[1], q2 = s[2], q3 = s[3];
   if (!(abs(p0 - q0) < t.alpha && abs(p1 - p0) < t.beta &&
@@ -185,8 +223,8 @@ __device__ __forceinline__ void luma_line(int* s, int bs, Thresholds t) {
   } else {
     const int tc = t.tc0 + (ap ? 1 : 0) + (aq ? 1 : 0);
     const int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
-    rp0 = clip3(0, 255, p0 + delta);
-    rq0 = clip3(0, 255, q0 - delta);
+    rp0 = clip3(0, maxv, p0 + delta);
+    rq0 = clip3(0, maxv, q0 - delta);
     const int avg = (p0 + q0 + 1) >> 1;
     if (ap) rp1 = p1 + clip3(-t.tc0, t.tc0, (p2 + avg - 2 * p1) >> 1);
     if (aq) rq1 = q1 + clip3(-t.tc0, t.tc0, (q2 + avg - 2 * q1) >> 1);
@@ -201,7 +239,8 @@ __device__ __forceinline__ void luma_line(int* s, int bs, Thresholds t) {
 
 // One chroma filter line: s[-2..-1] = p1 p0, s[0..1] = q0 q1; only p0 and
 // q0 change, tc = tc0 + 1.
-__device__ __forceinline__ void chroma_line(int* s, int bs, Thresholds t) {
+__device__ __forceinline__ void chroma_line(int* s, int bs, Thresholds t,
+                                            int maxv) {
   const int p0 = s[-1], p1 = s[-2];
   const int q0 = s[0], q1 = s[1];
   if (!(abs(p0 - q0) < t.alpha && abs(p1 - p0) < t.beta &&
@@ -213,8 +252,8 @@ __device__ __forceinline__ void chroma_line(int* s, int bs, Thresholds t) {
   } else {
     const int tc = t.tc0 + 1;
     const int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
-    s[-1] = clip3(0, 255, p0 + delta);
-    s[0] = clip3(0, 255, q0 - delta);
+    s[-1] = clip3(0, maxv, p0 + delta);
+    s[0] = clip3(0, maxv, q0 - delta);
   }
 }
 
@@ -222,6 +261,67 @@ __device__ __forceinline__ void unpack(uint32_t w, int* v) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) v[k] = (w >> (8 * k)) & 0xff;
 }
+
+// Two int16 samples (0..16383) of one 32-bit word.
+__device__ __forceinline__ void unpack16(uint32_t w, int* v) {
+  v[0] = w & 0xffff;
+  v[1] = w >> 16;
+}
+
+// kN consecutive samples of a row (one MB's line: 16 luma, 8 chroma), read
+// through the read-only path as aligned 16-byte vectors (8-byte for 8
+// uint8 samples); the kernels prefetch them one MB ahead.
+template <typename T, int kN>
+struct Line;
+template <>
+struct Line<uint8_t, 16> {
+  uint4 w;
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void unpack_to(int* v) const {
+    unpack(w.x, v);
+    unpack(w.y, v + 4);
+    unpack(w.z, v + 8);
+    unpack(w.w, v + 12);
+  }
+};
+template <>
+struct Line<uint8_t, 8> {
+  uint2 w;
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    w = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ void unpack_to(int* v) const {
+    unpack(w.x, v);
+    unpack(w.y, v + 4);
+  }
+};
+template <>
+struct Line<int16_t, 8> {
+  uint4 w;
+  __device__ __forceinline__ void load(const int16_t* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void unpack_to(int* v) const {
+    unpack16(w.x, v);
+    unpack16(w.y, v + 2);
+    unpack16(w.z, v + 4);
+    unpack16(w.w, v + 6);
+  }
+};
+template <>
+struct Line<int16_t, 16> {
+  Line<int16_t, 8> a, b;
+  __device__ __forceinline__ void load(const int16_t* p) {
+    a.load(p);
+    b.load(p + 8);
+  }
+  __device__ __forceinline__ void unpack_to(int* v) const {
+    a.unpack_to(v);
+    b.unpack_to(v + 8);
+  }
+};
 
 // Lane 0 of the CTA takes the next MB row; every lane of `mask` (the
 // CTA's lanes) gets it.
@@ -265,26 +365,29 @@ __device__ __forceinline__ void publish(int* progress, int b, int done,
   }
 }
 
-// K1: luma. in / out (16 mb_h, 16 mb_w) uint8 planes with row pitch
-// `stride` (a multiple of 16, 16-byte aligned); ticket (1,) and progress
+// K1 (T uint8_t) and K1-HBD (T int16_t): luma. in / out (16 mb_h,
+// 16 mb_w) planes of T with row pitch `stride` samples (16-byte aligned
+// rows); d the bit depth (ignored at uint8_t); ticket (1,) and progress
 // (mb_h,) int32, zero at launch. 16 threads per CTA, any grid size.
+template <typename T>
 __global__ void __launch_bounds__(kLanes)
-    deblock_luma_rows(const uint8_t* __restrict__ in, uint8_t* out,
-                      int stride, MbParams m, int* ticket, int* progress) {
+    deblock_luma_rows(const T* __restrict__ in, T* out, int stride,
+                      MbParams m, Depth depth, int* ticket, int* progress) {
   __shared__ int tile[16][17];   // the MB after its vertical edges
   __shared__ int left[16][4];    // columns 12-15 of the previous MB
+  const Depth d = depth_of<T>(depth);
   const int t = threadIdx.x;
   const int bs_stride = 4 * m.mb_w;
   for (int b = next_row(ticket); b < m.mb_h; b = next_row(ticket)) {
-    const uint8_t* in_row = in + (size_t)(16 * b + t) * stride;
-    uint8_t* out_row = out + (size_t)(16 * b + t) * stride;
-    uint8_t* out_col = out + (ptrdiff_t)(16 * b - 4) * stride + t;
+    const T* in_row = in + (size_t)(16 * b + t) * stride;
+    T* out_row = out + (size_t)(16 * b + t) * stride;
+    T* out_col = out + (ptrdiff_t)(16 * b - 4) * stride + t;
     int seen = 0;
-    uint4 nxt = __ldg(reinterpret_cast<const uint4*>(in_row));
+    Line<T, 16> nxt;
+    nxt.load(in_row);
     for (int c = 0; c < m.mb_w; ++c) {
-      const uint4 cur = nxt;
-      if (c + 1 < m.mb_w)
-        nxt = __ldg(reinterpret_cast<const uint4*>(in_row + 16 * (c + 1)));
+      const Line<T, 16> cur = nxt;
+      if (c + 1 < m.mb_w) nxt.load(in_row + 16 * (c + 1));
       const MbEdges e = load_mb(m, b, c);
       const uint32_t bsv = __ldg(reinterpret_cast<const uint32_t*>(
           m.bs_v + (4 * b + (t >> 2)) * bs_stride + 4 * c));
@@ -297,21 +400,20 @@ __global__ void __launch_bounds__(kLanes)
       int v[20];
 #pragma unroll
       for (int k = 0; k < 4; ++k) v[k] = c > 0 ? left[t][k] : 0;
-      unpack(cur.x, v + 4);
-      unpack(cur.y, v + 8);
-      unpack(cur.z, v + 12);
-      unpack(cur.w, v + 16);
+      cur.unpack_to(v + 4);
 #pragma unroll
       for (int ex = 0; ex < 4; ++ex) {
         const bool en = ex == 0 ? e.left_ok : ((ex & 1) ? e.inner : e.on);
         const int bs = bs_byte(bsv, ex);
         if (!en || bs <= 0) continue;
         luma_line(v + 4 + 4 * ex, bs,
-                  thresholds(ex == 0 ? e.qp_l : e.qp, e.qp, e.ao, e.bo, bs));
+                  thresholds(ex == 0 ? e.qp_l : e.qp, e.qp, e.ao, e.bo, bs,
+                             d.shift),
+                  d.maxv);
       }
       if (c > 0) {
 #pragma unroll
-        for (int k = 1; k < 4; ++k) out_row[16 * c - 4 + k] = (uint8_t)v[k];
+        for (int k = 1; k < 4; ++k) out_row[16 * c - 4 + k] = (T)v[k];
       }
 #pragma unroll
       for (int x = 0; x < 16; ++x) tile[t][x] = v[4 + x];
@@ -337,16 +439,18 @@ __global__ void __launch_bounds__(kLanes)
         const int bs = bsh[ey];
         if (!en || bs <= 0) continue;
         luma_line(h + 4 + 4 * ey, bs,
-                  thresholds(ey == 0 ? e.qp_t : e.qp, e.qp, e.ao, e.bo, bs));
+                  thresholds(ey == 0 ? e.qp_t : e.qp, e.qp, e.ao, e.bo, bs,
+                             d.shift),
+                  d.maxv);
       }
       if (b > 0) {
 #pragma unroll
         for (int y = 1; y < 4; ++y)
-          out_col[(size_t)y * stride + 16 * c] = (uint8_t)h[y];
+          out_col[(size_t)y * stride + 16 * c] = (T)h[y];
       }
 #pragma unroll
       for (int y = 4; y < 20; ++y)
-        out_col[(size_t)y * stride + 16 * c] = (uint8_t)h[y];
+        out_col[(size_t)y * stride + 16 * c] = (T)h[y];
       if (t >= 12) {
 #pragma unroll
         for (int y = 0; y < 16; ++y) left[y][t - 12] = h[4 + y];
@@ -359,10 +463,12 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
-// K2 (kRows 8, 4:2:0) and K2-422 (kRows 16, 4:2:2): Cb and Cr. in_u /
-// in_v / out_u / out_v (kRows mb_h, 8 mb_w) uint8 planes with row pitch
-// `stride` (a multiple of 8, 8-byte aligned); qpc_cb / qpc_cr (52,) QP ->
-// QPc; ticket and progress as for K1. 2 kRows lanes per CTA. Vertical
+// K2 (kRows 8, 4:2:0) and K2-422 (kRows 16, 4:2:2), of T uint8_t, and
+// their >8-bit variants K2-HBD / K2-422-HBD (T int16_t): Cb and Cr. in_u /
+// in_v / out_u / out_v (kRows mb_h, 8 mb_w) planes of T with row pitch
+// `stride` samples (8-byte aligned rows at uint8_t, 16-byte at int16_t);
+// qpc_cb / qpc_cr (52 + d.qoff,) QPY -> QPc from QPY -d.qoff; d the bit
+// depth; ticket and progress as for K1. 2 kRows lanes per CTA. Vertical
 // edges 0 and 2: lanes 0..kRows-1 filter the Cb lines, the rest the Cr
 // lines (4:2:2 fills the warp), each line with the bS of its own luma
 // line (chroma line l is luma line 16 l / kRows). Horizontal edges:
@@ -379,19 +485,20 @@ __global__ void __launch_bounds__(kLanes)
 // row included: the horizontal edges of (b, c) wait for progress[b-1] >=
 // c+1, as at 4:2:0, and nothing of row b-1 touches (b-1, c) after that.
 // The taller MB changes the lines each step carries, not the rule.
-template <int kRows>
+template <int kRows, typename T>
 __global__ void __launch_bounds__(2 * kRows)
-    deblock_chroma_rows(const uint8_t* __restrict__ in_u,
-                        const uint8_t* __restrict__ in_v, uint8_t* out_u,
-                        uint8_t* out_v, int stride, MbParams m,
+    deblock_chroma_rows(const T* __restrict__ in_u,
+                        const T* __restrict__ in_v, T* out_u, T* out_v,
+                        int stride, MbParams m,
                         const int32_t* __restrict__ qpc_cb,
-                        const int32_t* __restrict__ qpc_cr, int* ticket,
-                        int* progress) {
+                        const int32_t* __restrict__ qpc_cr, Depth depth,
+                        int* ticket, int* progress) {
   static_assert(kRows == 8 || kRows == 16, "4:2:0 or 4:2:2");
   constexpr unsigned kWarp = kRows == 16 ? 0xffffffffu : kMask;
   constexpr int kLumaStep = 16 / kRows;   // luma lines per chroma line
   __shared__ int tile[2][kRows][9];   // the MBs after their vertical edges
   __shared__ int left[2][kRows][2];   // columns 6-7 of the previous MBs
+  const Depth d = depth_of<T>(depth);
   const int t = threadIdx.x;
   // vertical phase: line l of component comp
   const int comp = t / kRows;
@@ -400,45 +507,46 @@ __global__ void __launch_bounds__(2 * kRows)
   const bool hlane = t < 16;
   const int hcomp = (t >> 3) & 1;
   const int col = t & 7;
-  const uint8_t* in = comp ? in_v : in_u;
-  uint8_t* out = comp ? out_v : out_u;
-  uint8_t* hout = hcomp ? out_v : out_u;
+  const T* in = comp ? in_v : in_u;
+  T* out = comp ? out_v : out_u;
+  T* hout = hcomp ? out_v : out_u;
   const int32_t* tab = comp ? qpc_cr : qpc_cb;
   const int32_t* htab = hcomp ? qpc_cr : qpc_cb;
   const int bs_stride = 4 * m.mb_w;
   for (int b = next_row(ticket, kWarp); b < m.mb_h;
        b = next_row(ticket, kWarp)) {
-    const uint8_t* in_row = in + (size_t)(kRows * b + l) * stride;
-    uint8_t* out_row = out + (size_t)(kRows * b + l) * stride;
-    uint8_t* out_col = hout + (ptrdiff_t)(kRows * b - 2) * stride + col;
+    const T* in_row = in + (size_t)(kRows * b + l) * stride;
+    T* out_row = out + (size_t)(kRows * b + l) * stride;
+    T* out_col = hout + (ptrdiff_t)(kRows * b - 2) * stride + col;
     int seen = 0;
-    uint2 nxt = __ldg(reinterpret_cast<const uint2*>(in_row));
+    Line<T, 8> nxt;
+    nxt.load(in_row);
     for (int c = 0; c < m.mb_w; ++c) {
-      const uint2 cur = nxt;
-      if (c + 1 < m.mb_w)
-        nxt = __ldg(reinterpret_cast<const uint2*>(in_row + 8 * (c + 1)));
+      const Line<T, 8> cur = nxt;
+      if (c + 1 < m.mb_w) nxt.load(in_row + 8 * (c + 1));
       const MbEdges e = load_mb(m, b, c);
       const uint32_t bsv = __ldg(reinterpret_cast<const uint32_t*>(
           m.bs_v + (4 * b + ((kLumaStep * l) >> 2)) * bs_stride + 4 * c));
 
       // vertical edges 0 and 2 along line l: 2 left samples + 8 of the MB
       {
-        const int qpc = __ldg(tab + clip3(0, 51, e.qp));
-        const int qpc_l = __ldg(tab + clip3(0, 51, e.qp_l));
+        const int qpc = __ldg(tab + qpc_index<T>(e.qp, d));
+        const int qpc_l = __ldg(tab + qpc_index<T>(e.qp_l, d));
         int v[10];
 #pragma unroll
         for (int k = 0; k < 2; ++k) v[k] = c > 0 ? left[comp][l][k] : 0;
-        unpack(cur.x, v + 2);
-        unpack(cur.y, v + 6);
+        cur.unpack_to(v + 2);
 #pragma unroll
         for (int ex = 0; ex < 4; ex += 2) {
           const bool en = ex == 0 ? e.left_ok : e.on;
           const int bs = bs_byte(bsv, ex);
           if (!en || bs <= 0) continue;
           chroma_line(v + 2 + 2 * ex, bs,
-                      thresholds(ex == 0 ? qpc_l : qpc, qpc, e.ao, e.bo, bs));
+                      thresholds(ex == 0 ? qpc_l : qpc, qpc, e.ao, e.bo, bs,
+                                 d.shift),
+                      d.maxv);
         }
-        if (c > 0) out_row[8 * c - 1] = (uint8_t)v[1];
+        if (c > 0) out_row[8 * c - 1] = (T)v[1];
 #pragma unroll
         for (int x = 0; x < 8; ++x) tile[comp][l][x] = v[2 + x];
       }
@@ -450,8 +558,8 @@ __global__ void __launch_bounds__(2 * kRows)
       else
         __syncwarp(kWarp);
       if (hlane) {
-        const int qpc = __ldg(htab + clip3(0, 51, e.qp));
-        const int qpc_t = __ldg(htab + clip3(0, 51, e.qp_t));
+        const int qpc = __ldg(htab + qpc_index<T>(e.qp, d));
+        const int qpc_t = __ldg(htab + qpc_index<T>(e.qp_t, d));
         int h[2 + kRows];
         if (b > 0) {
 #pragma unroll
@@ -469,12 +577,14 @@ __global__ void __launch_bounds__(2 * kRows)
                                4 * c + (col >> 1));
           if (!en || bs <= 0) continue;
           chroma_line(h + 2 + 4 * k, bs,
-                      thresholds(k == 0 ? qpc_t : qpc, qpc, e.ao, e.bo, bs));
+                      thresholds(k == 0 ? qpc_t : qpc, qpc, e.ao, e.bo, bs,
+                                 d.shift),
+                      d.maxv);
         }
-        if (b > 0) out_col[(size_t)stride + 8 * c] = (uint8_t)h[1];
+        if (b > 0) out_col[(size_t)stride + 8 * c] = (T)h[1];
 #pragma unroll
         for (int y = 2; y < 2 + kRows; ++y)
-          out_col[(size_t)y * stride + 8 * c] = (uint8_t)h[y];
+          out_col[(size_t)y * stride + 8 * c] = (T)h[y];
         if (col >= 6) {
 #pragma unroll
           for (int y = 0; y < kRows; ++y) left[hcomp][y][col - 6] = h[2 + y];
@@ -512,7 +622,38 @@ MbParams make_params(const int32_t* qp, const int32_t* disable,
 // Host launchers: one launch per picture on `stream`, `grid` CTAs.
 // scratch is (1 + mb_h,) int32 zeros: the row ticket, then progress.
 // They do not check errors; the caller checks cudaGetLastError() right
-// after each launch.
+// after each launch. The 16-bit launchers take the bit depth (8-14) and,
+// for chroma, QpBdOffsetY (qoff: the tables hold 52 + qoff entries).
+namespace {
+
+template <typename T>
+void launch_luma(const T* in, T* out, int stride, const MbParams& m,
+                 Depth d, int* scratch, int grid, cudaStream_t stream) {
+  deblock_luma_rows<T><<<grid, kLanes, 0, stream>>>(in, out, stride, m, d,
+                                                    scratch, scratch + 1);
+}
+
+template <typename T>
+void launch_chroma(const T* in_u, const T* in_v, T* out_u, T* out_v,
+                   int stride, const MbParams& m, const int32_t* qpc_cb,
+                   const int32_t* qpc_cr, Depth d, int* scratch, int rows,
+                   int grid, cudaStream_t stream) {
+  if (rows == 16)
+    deblock_chroma_rows<16, T><<<grid, 32, 0, stream>>>(
+        in_u, in_v, out_u, out_v, stride, m, qpc_cb, qpc_cr, d, scratch,
+        scratch + 1);
+  else
+    deblock_chroma_rows<8, T><<<grid, 16, 0, stream>>>(
+        in_u, in_v, out_u, out_v, stride, m, qpc_cb, qpc_cr, d, scratch,
+        scratch + 1);
+}
+
+Depth make_depth(int bd, int qoff) {
+  return {bd - 8, (1 << bd) - 1, qoff};
+}
+
+}  // namespace
+
 void launch_deblock_luma(const uint8_t* in, uint8_t* out, int stride,
                          const int32_t* qp, const int32_t* disable,
                          const int32_t* a_off, const int32_t* b_off,
@@ -520,10 +661,10 @@ void launch_deblock_luma(const uint8_t* in, uint8_t* out, int stride,
                          const int8_t* bs_v, const int8_t* bs_h,
                          int* scratch, int mb_w, int mb_h, int grid,
                          cudaStream_t stream) {
-  MbParams m = make_params(qp, disable, a_off, b_off, slice_id, t8, bs_v,
-                           bs_h, mb_w, mb_h);
-  deblock_luma_rows<<<grid, kLanes, 0, stream>>>(in, out, stride, m,
-                                                 scratch, scratch + 1);
+  launch_luma(in, out, stride,
+              make_params(qp, disable, a_off, b_off, slice_id, t8, bs_v,
+                          bs_h, mb_w, mb_h),
+              make_depth(8, 0), scratch, grid, stream);
 }
 
 void launch_deblock_chroma(const uint8_t* in_u, const uint8_t* in_v,
@@ -535,14 +676,39 @@ void launch_deblock_chroma(const uint8_t* in_u, const uint8_t* in_v,
                            const int32_t* qpc_cb, const int32_t* qpc_cr,
                            int* scratch, int mb_w, int mb_h, int rows,
                            int grid, cudaStream_t stream) {
-  MbParams m = make_params(qp, disable, a_off, b_off, slice_id, t8, bs_v,
-                           bs_h, mb_w, mb_h);
-  if (rows == 16)
-    deblock_chroma_rows<16><<<grid, 32, 0, stream>>>(
-        in_u, in_v, out_u, out_v, stride, m, qpc_cb, qpc_cr, scratch,
-        scratch + 1);
-  else
-    deblock_chroma_rows<8><<<grid, 16, 0, stream>>>(
-        in_u, in_v, out_u, out_v, stride, m, qpc_cb, qpc_cr, scratch,
-        scratch + 1);
+  launch_chroma(in_u, in_v, out_u, out_v, stride,
+                make_params(qp, disable, a_off, b_off, slice_id, t8, bs_v,
+                            bs_h, mb_w, mb_h),
+                qpc_cb, qpc_cr, make_depth(8, 0), scratch, rows, grid,
+                stream);
+}
+
+void launch_deblock_luma16(const int16_t* in, int16_t* out, int stride,
+                           const int32_t* qp, const int32_t* disable,
+                           const int32_t* a_off, const int32_t* b_off,
+                           const int32_t* slice_id, const int32_t* t8,
+                           const int8_t* bs_v, const int8_t* bs_h,
+                           int* scratch, int mb_w, int mb_h, int bd,
+                           int grid, cudaStream_t stream) {
+  launch_luma(in, out, stride,
+              make_params(qp, disable, a_off, b_off, slice_id, t8, bs_v,
+                          bs_h, mb_w, mb_h),
+              make_depth(bd, 0), scratch, grid, stream);
+}
+
+void launch_deblock_chroma16(const int16_t* in_u, const int16_t* in_v,
+                             int16_t* out_u, int16_t* out_v, int stride,
+                             const int32_t* qp, const int32_t* disable,
+                             const int32_t* a_off, const int32_t* b_off,
+                             const int32_t* slice_id, const int32_t* t8,
+                             const int8_t* bs_v, const int8_t* bs_h,
+                             const int32_t* qpc_cb, const int32_t* qpc_cr,
+                             int* scratch, int mb_w, int mb_h, int rows,
+                             int bd, int qoff, int grid,
+                             cudaStream_t stream) {
+  launch_chroma(in_u, in_v, out_u, out_v, stride,
+                make_params(qp, disable, a_off, b_off, slice_id, t8, bs_v,
+                            bs_h, mb_w, mb_h),
+                qpc_cb, qpc_cr, make_depth(bd, qoff), scratch, rows, grid,
+                stream);
 }

@@ -1,4 +1,5 @@
-// PyTorch binding of the deblock kernels (deblock.cu). The only file of
+// PyTorch binding of the deblock kernels (deblock.cu): the 8-bit K1 / K2 /
+// K2-422 on uint8 planes and their >8-bit variants on int16 planes. The only file of
 // the extension that includes torch/extension.h: the .cu source has a
 // plain C++ interface, so nvcc never compiles PyTorch's headers.
 
@@ -26,6 +27,23 @@ void launch_deblock_chroma(const uint8_t* in_u, const uint8_t* in_v,
                            const int32_t* qpc_cb, const int32_t* qpc_cr,
                            int* scratch, int mb_w, int mb_h, int rows,
                            int grid, cudaStream_t stream);
+void launch_deblock_luma16(const int16_t* in, int16_t* out, int stride,
+                           const int32_t* qp, const int32_t* disable,
+                           const int32_t* a_off, const int32_t* b_off,
+                           const int32_t* slice_id, const int32_t* t8,
+                           const int8_t* bs_v, const int8_t* bs_h,
+                           int* scratch, int mb_w, int mb_h, int bd,
+                           int grid, cudaStream_t stream);
+void launch_deblock_chroma16(const int16_t* in_u, const int16_t* in_v,
+                             int16_t* out_u, int16_t* out_v, int stride,
+                             const int32_t* qp, const int32_t* disable,
+                             const int32_t* a_off, const int32_t* b_off,
+                             const int32_t* slice_id, const int32_t* t8,
+                             const int8_t* bs_v, const int8_t* bs_h,
+                             const int32_t* qpc_cb, const int32_t* qpc_cr,
+                             int* scratch, int mb_w, int mb_h, int rows,
+                             int bd, int qoff, int grid,
+                             cudaStream_t stream);
 
 namespace {
 
@@ -125,9 +143,91 @@ int64_t deblock_chroma(torch::Tensor U, torch::Tensor V, torch::Tensor U_out,
   return 1;
 }
 
+// K1-HBD: filters Y (16 mb_h, 16 mb_w) int16 samples of bd bits (8-14)
+// into Y_out. Returns the launch count (1).
+int64_t deblock_luma16(torch::Tensor Y, torch::Tensor Y_out,
+                       torch::Tensor scratch, torch::Tensor bs_v,
+                       torch::Tensor bs_h, torch::Tensor qp,
+                       torch::Tensor disable, torch::Tensor a_off,
+                       torch::Tensor b_off, torch::Tensor slice_id,
+                       torch::Tensor t8, int64_t mb_w, int64_t mb_h,
+                       int64_t bd) {
+  TORCH_CHECK(bd >= 8 && bd <= 14, "bit depth 8..14");
+  // the interior of each MB row is read as two 16-byte vectors
+  check(Y, torch::kInt16, "Y", 16);
+  check(Y_out, torch::kInt16, "Y_out");
+  TORCH_CHECK(Y.sizes() == Y_out.sizes(), "Y and Y_out shapes differ");
+  TORCH_CHECK(Y.size(0) == 16 * mb_h && Y.size(1) == 16 * mb_w,
+              "Y must be (16 mb_h, 16 mb_w)");
+  check_mb_args(bs_v, bs_h, {&qp, &disable, &a_off, &b_off, &slice_id, &t8},
+                scratch, mb_h);
+  const c10::cuda::CUDAGuard guard(Y.device());
+  launch_deblock_luma16(
+      Y.data_ptr<int16_t>(), Y_out.data_ptr<int16_t>(), (int)Y.stride(0),
+      qp.data_ptr<int32_t>(), disable.data_ptr<int32_t>(),
+      a_off.data_ptr<int32_t>(), b_off.data_ptr<int32_t>(),
+      slice_id.data_ptr<int32_t>(), t8.data_ptr<int32_t>(),
+      bs_v.data_ptr<int8_t>(), bs_h.data_ptr<int8_t>(),
+      scratch.data_ptr<int32_t>(), (int)mb_w, (int)mb_h, (int)bd,
+      grid_size(mb_h), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return 1;
+}
+
+// K2-HBD (rows 8) and K2-422-HBD (rows 16): filters U and V (rows mb_h,
+// 8 mb_w) int16 samples of bd bits; qpc_cb / qpc_cr hold 52 + QpBdOffsetY
+// entries, from QPY -QpBdOffsetY. Returns the launch count (1).
+int64_t deblock_chroma16(torch::Tensor U, torch::Tensor V,
+                         torch::Tensor U_out, torch::Tensor V_out,
+                         torch::Tensor scratch, torch::Tensor bs_v,
+                         torch::Tensor bs_h, torch::Tensor qp,
+                         torch::Tensor disable, torch::Tensor a_off,
+                         torch::Tensor b_off, torch::Tensor slice_id,
+                         torch::Tensor t8, torch::Tensor qpc_cb,
+                         torch::Tensor qpc_cr, int64_t mb_w, int64_t mb_h,
+                         int64_t rows, int64_t bd) {
+  TORCH_CHECK(rows == 8 || rows == 16, "chroma rows per MB: 8 or 16");
+  TORCH_CHECK(bd >= 8 && bd <= 14, "bit depth 8..14");
+  TORCH_CHECK(U.size(0) == rows * mb_h && U.size(1) == 8 * mb_w,
+              "U must be (rows mb_h, 8 mb_w)");
+  const int64_t qoff = qpc_cb.numel() - 52;
+  TORCH_CHECK(qoff >= 0 && qoff <= 36 && qoff % 6 == 0 &&
+                  qpc_cr.numel() == qpc_cb.numel(),
+              "QPc tables of 52 + QpBdOffsetY entries");
+  // the interior of each MB row is read as one 16-byte vector
+  check(U, torch::kInt16, "U", 16);
+  check(V, torch::kInt16, "V", 16);
+  check(U_out, torch::kInt16, "U_out");
+  check(V_out, torch::kInt16, "V_out");
+  for (auto* t : {&V, &U_out, &V_out})
+    TORCH_CHECK(t->sizes() == U.sizes(), "chroma plane shapes differ");
+  check_mb_args(bs_v, bs_h,
+                {&qp, &disable, &a_off, &b_off, &slice_id, &t8, &qpc_cb,
+                 &qpc_cr},
+                scratch, mb_h);
+  const c10::cuda::CUDAGuard guard(U.device());
+  launch_deblock_chroma16(
+      U.data_ptr<int16_t>(), V.data_ptr<int16_t>(),
+      U_out.data_ptr<int16_t>(), V_out.data_ptr<int16_t>(),
+      (int)U.stride(0), qp.data_ptr<int32_t>(), disable.data_ptr<int32_t>(),
+      a_off.data_ptr<int32_t>(), b_off.data_ptr<int32_t>(),
+      slice_id.data_ptr<int32_t>(), t8.data_ptr<int32_t>(),
+      bs_v.data_ptr<int8_t>(), bs_h.data_ptr<int8_t>(),
+      qpc_cb.data_ptr<int32_t>(), qpc_cr.data_ptr<int32_t>(),
+      scratch.data_ptr<int32_t>(), (int)mb_w, (int)mb_h, (int)rows, (int)bd,
+      (int)qoff, grid_size(mb_h), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return 1;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("deblock_luma", &deblock_luma,
         "K1: luma deblock, one persistent launch");
   m.def("deblock_chroma", &deblock_chroma,
         "K2 / K2-422: chroma deblock, one persistent launch");
+  m.def("deblock_luma16", &deblock_luma16,
+        "K1-HBD: >8-bit luma deblock, one persistent launch");
+  m.def("deblock_chroma16", &deblock_chroma16,
+        "K2-HBD / K2-422-HBD: >8-bit chroma deblock, one persistent "
+        "launch");
 }

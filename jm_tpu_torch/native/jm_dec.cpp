@@ -506,17 +506,21 @@ typedef struct {
     int sid;
     int nref;
     int t8_flag;            /* pps transform_8x8_mode_flag */
+    int qp_off;             /* QpBdOffsetY = 6 * bit_depth_luma_minus8 */
 } Ctx;
 
+/* spec 7.4.5: QPY wraps over [-QpBdOffsetY, 51]; the delta's range check
+ * is jm_tpu's (mb_parse.py _read_qp_delta) */
 static int read_qp_delta(Ctx *c, int addr) {
     int64_t dq = rd_se(c->r);
     if (c->r->err) return -1;
-    if (dq < -27 || dq > 26) {
+    const int off = c->qp_off;
+    if (dq < -(27 + off / 2) || dq > 26 + off / 2) {
         PyErr_Format(PyExc_ValueError, "mb_qp_delta %lld out of range",
                      (long long)dq);
         return -1;
     }
-    c->qp = (int)((c->qp + dq + 52) % 52);
+    c->qp = (int)((c->qp + dq + 52 + 2 * off) % (52 + off)) - off;
     c->p->qp[addr] = c->qp;
     return 0;
 }
@@ -872,6 +876,7 @@ static PyObject *m_parse_slice_cavlc(PyObject *mod, PyObject *args) {
     GETI(qp)
     GETI(nref)
     GETI(t8)
+    GETI(qp_bd_offset)
 #undef GETI
 
     Held held[24];
@@ -928,6 +933,7 @@ static PyObject *m_parse_slice_cavlc(PyObject *mod, PyObject *args) {
         c.sid = (int)slice_id;
         c.nref = (int)nref;
         c.t8_flag = (int)t8;
+        c.qp_off = (int)qp_bd_offset;
 
 #define NEXT(a) (pic.succ ? pic.succ[a] : (a) + 1)
         if (stype == 0) {              /* I slice */

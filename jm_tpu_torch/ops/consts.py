@@ -29,6 +29,15 @@ def on(table: np.ndarray, device) -> torch.Tensor:
 
 PAD = 32      # replicated reference padding (jm_tpu/ops/interp.py PAD)
 
+
+def plane_dtype(bd) -> torch.dtype:
+    """The dtype of a picture's device planes at bit depths bd = (luma,
+    chroma): uint8 at 8 bits, int16 when either is above 8. int16 holds
+    every sample up to 14 bits exactly and, unlike torch's uint16, has
+    the CUDA ops the stages use (arithmetic, indexing, cat, clamp); host
+    planes of such pictures are numpy uint16, as in jm_tpu."""
+    return torch.uint8 if max(bd) == 8 else torch.int16
+
 # quarter-pel selection (interp.QPEL_TAB): (xf, yf) -> (plane1, dx1, dy1,
 # plane2, dx2, dy2); planes 0=INT, 1=B (half-h), 2=H (half-v), 3=J
 QPEL_TAB = {

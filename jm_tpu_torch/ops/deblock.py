@@ -8,9 +8,17 @@ jm_tpu/ops/deblock_pallas.py.
   tile steps ``luma_vertical`` / ``luma_horizontal`` and their chroma
   twins;
 - ``deblock``: the public entry. CUDA tensors go to the hand-written
-  kernels (jm_tpu_torch/kernels/deblock.cu, one persistent launch each);
-  CPU tensors go to ``deblock_plain``. Nothing falls back from one to the
-  other.
+  kernels (jm_tpu_torch/kernels/deblock.cu, one persistent launch each;
+  the 8-bit kernels for uint8 planes, their >8-bit variants for int16
+  planes); CPU tensors go to ``deblock_plain``. Nothing falls back from
+  one to the other.
+
+Above 8 bits (bd = (luma, chroma) bit depths, 9-14) alpha, beta and tC0
+are the tables' values times 1 << (bitDepth - 8) (spec 8.7.2.2), the
+filtered samples are clipped at (1 << bitDepth) - 1, and QPY and QPc may
+be negative: the QP -> QPc tables of convert.qpc_tables are indexed at
+QPY + QpBdOffsetY (their length less 52), as jm_tpu's host
+deblock_picture(bd=) does (jm_tpu/ops/deblock.py:227-380).
 
 Wavefront: macroblock (b, c) depends on its left (b, c-1) and top
 (b-1, c) neighbours and on (b-1, c+1), whose left-edge filter touches
@@ -123,11 +131,13 @@ def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
 # edge filters (int32, one filter line per row of the last-but-one axis)
 # ---------------------------------------------------------------------------
 
-def _luma_edge(cols, bs, alpha, beta, tc0, enable, strong=True):
+def _luma_edge(cols, bs, alpha, beta, tc0, enable, strong=True,
+               cmax: int = 255):
     """cols (..., 8) int32 = [p3 p2 p1 p0 q0 q1 q2 q3]; bs / tc0 per line,
     alpha / beta / enable broadcastable. Returns the filtered (..., 8).
     strong=False when no line has bS 4: the strong filter is not
-    computed (its lines would be selected by nothing)."""
+    computed (its lines would be selected by nothing). cmax: the sample
+    maximum, (1 << bitDepth) - 1."""
     p3, p2, p1, p0 = cols[..., 0], cols[..., 1], cols[..., 2], cols[..., 3]
     q0, q1, q2, q3 = cols[..., 4], cols[..., 5], cols[..., 6], cols[..., 7]
     fflag = ((torch.abs(p0 - q0) < alpha) & (torch.abs(p1 - p0) < beta)
@@ -137,8 +147,8 @@ def _luma_edge(cols, bs, alpha, beta, tc0, enable, strong=True):
 
     tc = tc0 + ap.to(I32) + aq.to(I32)
     delta = torch.clamp((((q0 - p0) << 2) + (p1 - q1) + 4) >> 3, -tc, tc)
-    np0 = torch.clamp(p0 + delta, 0, 255)
-    nq0 = torch.clamp(q0 - delta, 0, 255)
+    np0 = torch.clamp(p0 + delta, 0, cmax)
+    nq0 = torch.clamp(q0 - delta, 0, cmax)
     np1 = p1 + torch.clamp((p2 + ((p0 + q0 + 1) >> 1) - 2 * p1) >> 1,
                            -tc0, tc0)
     nq1 = q1 + torch.clamp((q2 + ((p0 + q0 + 1) >> 1) - 2 * q1) >> 1,
@@ -171,15 +181,16 @@ def _luma_edge(cols, bs, alpha, beta, tc0, enable, strong=True):
     return torch.stack([p3, *out, q3], dim=-1)
 
 
-def _chroma_edge(cols, bs, alpha, beta, tc0, enable):
-    """cols (..., 4) int32 = [p1 p0 q0 q1]; only p0 / q0 change."""
+def _chroma_edge(cols, bs, alpha, beta, tc0, enable, cmax: int = 255):
+    """cols (..., 4) int32 = [p1 p0 q0 q1]; only p0 / q0 change, clipped
+    at cmax."""
     p1, p0, q0, q1 = cols[..., 0], cols[..., 1], cols[..., 2], cols[..., 3]
     fflag = ((torch.abs(p0 - q0) < alpha) & (torch.abs(p1 - p0) < beta)
              & (torch.abs(q1 - q0) < beta) & (bs > 0) & enable)
     tc = tc0 + 1
     delta = torch.clamp((((q0 - p0) << 2) + (p1 - q1) + 4) >> 3, -tc, tc)
-    np0 = torch.clamp(p0 + delta, 0, 255)
-    nq0 = torch.clamp(q0 - delta, 0, 255)
+    np0 = torch.clamp(p0 + delta, 0, cmax)
+    nq0 = torch.clamp(q0 - delta, 0, cmax)
     sp0 = (2 * p1 + p0 + q1 + 2) >> 2
     sq0 = (2 * q1 + q0 + p1 + 2) >> 2
     is4 = bs == 4
@@ -248,27 +259,29 @@ class MbParams:
             yield (bb, cc, *self.lanes(bb, cc, bs_v, bs_h))
 
 
-def _thresholds(qp_p, qp_q, ao, bo, dev):
-    """alpha, beta (B, 1) and the index A (B, 1) of a QP pair."""
+def _thresholds(qp_p, qp_q, ao, bo, dev, bd: int = 8):
+    """alpha, beta (B, 1), scaled to bd bits, and the index A (B, 1) of a
+    QP pair (which may be negative above 8 bits: indexA clips at 0)."""
     qav = (qp_p + qp_q + 1) >> 1
     ia = torch.clamp(qav + 2 * ao, 0, 51)
     ib = torch.clamp(qav + 2 * bo, 0, 51)
-    return (on(ALPHA, dev)[ia.long()][:, None],
-            on(BETA, dev)[ib.long()][:, None], ia[:, None])
+    return (on(ALPHA, dev)[ia.long()][:, None] << (bd - 8),
+            on(BETA, dev)[ib.long()][:, None] << (bd - 8), ia[:, None])
 
 
-def _tc0(bs_line, ia):
+def _tc0(bs_line, ia, bd: int = 8):
     return on(TC0, bs_line.device)[((torch.clamp(bs_line, 1, 3) - 1) * 52
-                                    + ia).long()]
+                                    + ia).long()] << (bd - 8)
 
 
-def luma_vertical(tile, ln, bv):
+def luma_vertical(tile, ln, bv, bd: int = 8):
     """Filters the 4 vertical edges, left to right, of the 20x20 int32
     tiles (B, 20, 20) of B MBs in place (each MB with the 4 samples left
-    of and above it). ln, bv: the MBs' ``MbParams.lanes``."""
+    of and above it). ln, bv: the MBs' ``MbParams.lanes``; bd the luma
+    bit depth."""
     dev = tile.device
     inner = ln["on"] & ~ln["t8"]
-    th = [_thresholds(qp_p, ln["qp"], ln["ao"], ln["bo"], dev)
+    th = [_thresholds(qp_p, ln["qp"], ln["ao"], ln["bo"], dev, bd)
           for qp_p in (ln["qp_l"], ln["qp"])]     # the MB edge, the inner
     has4 = (bv == 4).any(dim=2).any(dim=0).tolist()
     for ex in range(4):
@@ -279,15 +292,15 @@ def luma_vertical(tile, ln, bv):
         x = 4 * ex + 4
         tile[:, 4:20, x - 4:x + 4] = _luma_edge(
             tile[:, 4:20, x - 4:x + 4], bs_line, al, be,
-            _tc0(bs_line, ia), en[:, None], has4[ex])
+            _tc0(bs_line, ia, bd), en[:, None], has4[ex], (1 << bd) - 1)
 
 
-def luma_horizontal(tile, ln, bh):
+def luma_horizontal(tile, ln, bh, bd: int = 8):
     """The 4 horizontal edges, top to bottom, of the tiles of
     ``luma_vertical``; ln, bh: the MBs' ``MbParams.lanes``."""
     dev = tile.device
     inner = ln["on"] & ~ln["t8"]
-    th = [_thresholds(qp_p, ln["qp"], ln["ao"], ln["bo"], dev)
+    th = [_thresholds(qp_p, ln["qp"], ln["ao"], ln["bo"], dev, bd)
           for qp_p in (ln["qp_t"], ln["qp"])]
     has4 = (bh == 4).any(dim=2).any(dim=0).tolist()
     for ey in range(4):
@@ -298,13 +311,14 @@ def luma_horizontal(tile, ln, bh):
         y = 4 * ey + 4
         rows = tile[:, y - 4:y + 4, 4:20].transpose(1, 2)
         tile[:, y - 4:y + 4, 4:20] = _luma_edge(
-            rows, bs_line, al, be, _tc0(bs_line, ia), en[:, None],
-            has4[ey]).transpose(1, 2)
+            rows, bs_line, al, be, _tc0(bs_line, ia, bd), en[:, None],
+            has4[ey], (1 << bd) - 1).transpose(1, 2)
 
 
 def deblock_luma_plain(Y, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
-                       transform8x8, *, mb_w: int, mb_h: int):
-    """Plain twin of the luma kernel (K1): returns the filtered Y. Works
+                       transform8x8, *, mb_w: int, mb_h: int, bd: int = 8):
+    """Plain twin of the luma kernel (K1, and K1-HBD above 8 bits:
+    bd): returns the filtered Y in its dtype. Works
     on an int32 copy padded by 4 samples top/left; per wave it gathers
     every MB's 20x20 tile (the MB plus its left / top fringes), filters
     it (``luma_vertical``, then ``luma_horizontal``) and scatters the
@@ -320,50 +334,55 @@ def deblock_luma_plain(Y, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
         ry = (16 * bb)[:, None, None] + a20[None, :, None]
         rx = (16 * cc)[:, None, None] + a20[None, None, :]
         tile = Yp[ry, rx]                                    # (B, 20, 20)
-        luma_vertical(tile, ln, bv)
-        luma_horizontal(tile, ln, bh)
+        luma_vertical(tile, ln, bv, bd)
+        luma_horizontal(tile, ln, bh, bd)
         Yp[ry, rx] = tile
-    return Yp[4:, 4:].to(torch.uint8)
+    return Yp[4:, 4:].to(Y.dtype)
 
 
-def _chroma_edges(lines, qp_p, ln, bs_line, en, qpc_cb, qpc_cr):
+def _chroma_edges(lines, qp_p, ln, bs_line, en, qpc_cb, qpc_cr,
+                  bd: int = 8):
     """Cb and Cr filter lines (B, 2, E, n, 4) across E edges that touch
     disjoint samples, filtered at once: qp_p (B, E) the luma QP of each
     edge's p side (the MB's own is ln["qp"]), bs_line (B, E, n), en (B,
-    E) the edge enables. Returns the filtered lines."""
+    E) the edge enables; qpc_cb / qpc_cr indexed at QPY + their length
+    less 52; bd the chroma bit depth. Returns the filtered lines."""
     dev = lines.device
-    tabs = torch.stack([qpc_cb.to(I32), qpc_cr.to(I32)])       # (2, 52)
-    qpc_p = tabs[:, torch.clamp(qp_p, 0, 51).long()]            # (2, B, E)
-    qpc_q = tabs[:, torch.clamp(ln["qp"], 0, 51).long()][:, :, None]
+    off = qpc_cb.shape[0] - 52                                  # QpBdOffsetY
+    tabs = torch.stack([qpc_cb.to(I32), qpc_cr.to(I32)])
+    qpc_p = tabs[:, (qp_p + off).long()]                        # (2, B, E)
+    qpc_q = tabs[:, (ln["qp"] + off).long()][:, :, None]
     qav = (qpc_p + qpc_q + 1) >> 1
     ia = torch.clamp(qav + 2 * ln["ao"][None, :, None], 0, 51) \
         .permute(1, 0, 2)[..., None]                            # (B, 2, E, 1)
     ib = torch.clamp(qav + 2 * ln["bo"][None, :, None], 0, 51) \
         .permute(1, 0, 2)[..., None]
     bs = bs_line[:, None]                                       # (B, 1, E, n)
-    return _chroma_edge(lines, bs, on(ALPHA, dev)[ia.long()],
-                        on(BETA, dev)[ib.long()], _tc0(bs, ia),
-                        en[:, None, :, None])
+    return _chroma_edge(lines, bs, on(ALPHA, dev)[ia.long()] << (bd - 8),
+                        on(BETA, dev)[ib.long()] << (bd - 8),
+                        _tc0(bs, ia, bd), en[:, None, :, None],
+                        (1 << bd) - 1)
 
 
-def chroma_vertical(ct, ln, bv, qpc_cb, qpc_cr):
+def chroma_vertical(ct, ln, bv, qpc_cb, qpc_cr, bd: int = 8):
     """Filters vertical edges 0 and 2 of the int32 tiles
     (B, 2, 4 + 4 crows, 12) of B MBs' Cb and Cr in place (each MB with
     the 4 samples left of and above it; crows 2 at 4:2:0, 4 at 4:2:2,
     where each chroma line takes the bS of its own luma line). A chroma
     filter reads two samples on each side and writes one, so the two
     edges (tile columns 2-5 and 6-9) are filtered together. ln, bv: the
-    MBs' ``MbParams.lanes``; qpc_cb / qpc_cr (52,) QP -> QPc."""
+    MBs' ``MbParams.lanes``; qpc_cb / qpc_cr the QP -> QPc tables
+    (convert.qpc_tables); bd the chroma bit depth."""
     B, n = ct.shape[0], ct.shape[2] - 4                   # 8 or 16 lines
     lines = ct[:, :, 4:, 2:10].reshape(B, 2, n, 2, 4).permute(0, 1, 3, 2, 4)
     out = _chroma_edges(
         lines, torch.stack([ln["qp_l"], ln["qp"]], 1), ln,
         bv[:, 0::2].repeat_interleave(n // 4, dim=2),
-        torch.stack([ln["left_ok"], ln["on"]], 1), qpc_cb, qpc_cr)
+        torch.stack([ln["left_ok"], ln["on"]], 1), qpc_cb, qpc_cr, bd)
     ct[:, :, 4:, 2:10] = out.permute(0, 1, 3, 2, 4).reshape(B, 2, n, 8)
 
 
-def chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr):
+def chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr, bd: int = 8):
     """The horizontal edges of the tiles of ``chroma_vertical``: at
     4:2:0 chroma rows 0 and 4 with the bS of luma edges 0 and 2; at 4:2:2
     rows 0, 4, 8 and 12 with the bS of luma edges 0-3; all of them
@@ -379,15 +398,16 @@ def chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr):
         bh[:, [j * 16 // n for j in range(k)]].repeat_interleave(2, dim=2),
         torch.cat([ln["top_ok"][:, None],
                    ln["on"][:, None].expand(B, k - 1)], 1),
-        qpc_cb, qpc_cr)
+        qpc_cb, qpc_cr, bd)
     ct[:, :, 2:2 + n, 4:12] = out.transpose(3, 4).reshape(B, 2, n, 8)
 
 
 def deblock_chroma_plain(U, V, bs_v, bs_h, qp, disable, a_off, b_off,
                          slice_id, transform8x8, qpc_cb, qpc_cr, *,
-                         mb_w: int, mb_h: int):
-    """Plain twin of the chroma kernels (K2 at 4:2:0, K2-422 at 4:2:2):
-    returns filtered (U, V) of (4 crows mb_h, 8 mb_w), the format read
+                         mb_w: int, mb_h: int, bd: int = 8):
+    """Plain twin of the chroma kernels (K2 at 4:2:0, K2-422 at 4:2:2,
+    and their >8-bit variants: bd the chroma bit depth): returns filtered
+    (U, V) of (4 crows mb_h, 8 mb_w) in their dtype, the format read
     from the planes' height. (4 + 4 crows) x 12 tiles per MB and
     component, filtered by ``chroma_vertical``, then
     ``chroma_horizontal``."""
@@ -405,10 +425,10 @@ def deblock_chroma_plain(U, V, bs_v, bs_h, qp, disable, a_off, b_off,
         cy = (n * bb)[:, None, None] + ay[None, :, None]
         cx = (8 * cc)[:, None, None] + a12[None, None, :]
         ct = Cp[:, cy, cx].transpose(0, 1)           # (B, 2, n + 4, 12)
-        chroma_vertical(ct, ln, bv, qpc_cb, qpc_cr)
-        chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr)
+        chroma_vertical(ct, ln, bv, qpc_cb, qpc_cr, bd)
+        chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr, bd)
         Cp[:, cy, cx] = ct.transpose(0, 1)
-    return Cp[0, 4:, 4:].to(torch.uint8), Cp[1, 4:, 4:].to(torch.uint8)
+    return Cp[0, 4:, 4:].to(U.dtype), Cp[1, 4:, 4:].to(U.dtype)
 
 
 def chroma_rows(U, mb_h: int) -> int:
@@ -422,34 +442,38 @@ def chroma_rows(U, mb_h: int) -> int:
 
 def deblock_plain(Y, U, V, bs_v, bs_h, qp, disable, a_off, b_off,
                   slice_id, transform8x8, qpc_cb, qpc_cr, *,
-                  mb_w: int, mb_h: int):
+                  mb_w: int, mb_h: int, bd=(8, 8)):
     """The plain PyTorch twin of the deblock kernels (same signature as
     ``deblock``): the luma and the chroma wavefronts."""
     args = (bs_v, bs_h, qp, disable, a_off, b_off, slice_id, transform8x8)
-    Yd = deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h)
+    Yd = deblock_luma_plain(Y, *args, mb_w=mb_w, mb_h=mb_h, bd=bd[0])
     Ud, Vd = deblock_chroma_plain(U, V, *args, qpc_cb, qpc_cr,
-                                  mb_w=mb_w, mb_h=mb_h)
+                                  mb_w=mb_w, mb_h=mb_h, bd=bd[1])
     return Yd, Ud, Vd
 
 
 def deblock(Y, U, V, bs_v, bs_h, qp, disable, a_off, b_off, slice_id,
-            transform8x8, qpc_cb, qpc_cr, *, mb_w: int, mb_h: int):
-    """Deblock a 4:2:0 or 4:2:2 frame picture; returns new (Y, U, V)
-    uint8.
+            transform8x8, qpc_cb, qpc_cr, *, mb_w: int, mb_h: int,
+            bd=(8, 8)):
+    """Deblock a 4:2:0 or 4:2:2 frame picture; returns new (Y, U, V) of
+    the planes' dtype.
 
-    Y (16 mb_h, 16 mb_w) uint8, U/V (8 mb_h, 8 mb_w) uint8 at 4:2:0 or
-    (16 mb_h, 8 mb_w) at 4:2:2 (K2-422 on CUDA); bs_v/bs_h
-    (4 mb_h, 4 mb_w) int8; qp, disable, a_off, b_off, slice_id,
-    transform8x8 (N,) int32; qpc_cb / qpc_cr (52,) int32 QP -> QPc
-    tables. On CUDA the luma and chroma kernels run; on the CPU the plain
-    wavefront runs."""
+    Y (16 mb_h, 16 mb_w), U/V (8 mb_h, 8 mb_w) at 4:2:0 or
+    (16 mb_h, 8 mb_w) at 4:2:2 (K2-422 on CUDA), uint8 at bd = (8, 8),
+    int16 (ops/consts.plane_dtype) when either bit depth is above 8;
+    bs_v/bs_h (4 mb_h, 4 mb_w) int8; qp, disable, a_off, b_off,
+    slice_id, transform8x8 (N,) int32; qpc_cb / qpc_cr (52 +
+    QpBdOffsetY,) int32 QP -> QPc tables (convert.qpc_tables). On CUDA
+    the luma and chroma kernels run, their variant chosen by the planes'
+    dtype; on the CPU the plain wavefront runs."""
     args = (bs_v, bs_h, qp, disable, a_off, b_off, slice_id, transform8x8)
     if Y.device.type == "cpu":
         return deblock_plain(Y, U, V, *args, qpc_cb, qpc_cr,
-                             mb_w=mb_w, mb_h=mb_h)
+                             mb_w=mb_w, mb_h=mb_h, bd=bd)
     from .. import kernels
-    Yd = kernels.deblock_luma(Y, *args, mb_w=mb_w, mb_h=mb_h)
+    Yd = kernels.deblock_luma(Y, *args, mb_w=mb_w, mb_h=mb_h, bd=bd[0])
     Ud, Vd = kernels.deblock_chroma(U, V, *args, qpc_cb, qpc_cr,
                                     mb_w=mb_w, mb_h=mb_h,
-                                    crows=chroma_rows(U, mb_h) // 4)
+                                    crows=chroma_rows(U, mb_h) // 4,
+                                    bd=bd[1])
     return Yd, Ud, Vd

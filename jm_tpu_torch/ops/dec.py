@@ -25,7 +25,13 @@ on the tensors' device. Scope: 4:2:0 and 4:2:2 frame pictures. At 4:2:2
 (scaled at QPc + 3), each luma 4x4 block covers a 2x4 chroma block, and
 the vertical chroma displacement is the luma MV in quarter samples
 (spec 8.4.2.2.2), where jm_tpu reconstructs 4:2:2 inter pictures on the
-host (decoder/recon.py, _device_recon_ok refuses them).
+host (decoder/recon.py, _device_recon_ok refuses them). Samples of 9 to
+14 bits (``bd``) and lossless MBs, which jm_tpu also reconstructs on the
+host, run here too: the residual scaling at QP' = QP + QpBdOffset over
+88-row tables (int64 above 8 bits, as jm_tpu's numpy decode), the
+transform bypass of the lossless mask, weights with offsets scaled to
+the bit depth and clips at (1 << bd) - 1, planes of
+ops/consts.plane_dtype (int16 above 8 bits).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch
 from ..common.tables import SCAN_YUV422, ZIGZAG_4x4, ZIGZAG_8x8
 from . import quant as Q
 from . import transform as T
-from .consts import PAD, QPEL_TAB, on
+from .consts import PAD, QPEL_TAB, on, plane_dtype
 
 I32 = torch.int32
 _ZZ = np.asarray(ZIGZAG_4x4, np.int64)
@@ -45,7 +51,8 @@ _ZZ8 = np.asarray(ZIGZAG_8x8, np.int64)
 
 def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
                     qpc_cb, qpc_cr, *, mb_w: int, mb_h: int,
-                    luma_coef8=None, transform8x8=None, tab8=None):
+                    luma_coef8=None, transform8x8=None, tab8=None,
+                    bd=(8, 8), lossless=None):
     """Residual decode of a picture's MBs with the inter scaling lists:
     inverse zig-zag -> dequant -> rounded inverse 4x4; chroma DC through
     the 2x2 Hadamard (spec 8.5.11); with transform8x8, the luma of those
@@ -54,49 +61,76 @@ def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
 
     luma_coef (N, 16, 16) int scan order; chroma_dc (N, 2, 2 crows);
     chroma_coef (N, 2, 2 crows, 16) (crows 2 at 4:2:0, 4 at 4:2:2); qp
-    (N,); tabY / tabU / tabV (52, 4, 4) int32
-    InvLevelScale (lists 3 / 4 / 5 of decoder/recon.build_inv_scale);
-    qpc_cb / qpc_cr (52,) int32 QP -> QPc with the PPS offsets;
-    luma_coef8 (N, 4, 64) 8x8 scan order, transform8x8 (N,) bool and
-    tab8 (52, 8, 8) int32 LevelScale8 (list 1 of
-    decoder/recon.build_inv_scale8), all three or none.
+    (N,) QPY; tabY / tabU / tabV (88, 4, 4) int32 InvLevelScale by QP'
+    (lists 3 / 4 / 5 of decoder/recon.build_inv_scale); qpc_cb / qpc_cr
+    (52 + QpBdOffsetY,) int32 QPY -> QPc with the PPS offsets, indexed
+    at QPY + QpBdOffsetY (convert.qpc_tables); luma_coef8 (N, 4, 64) 8x8
+    scan order, transform8x8 (N,) bool and tab8 (88, 8, 8) int32
+    LevelScale8 (list 1 of decoder/recon.build_inv_scale8), all three or
+    none. bd = (luma, chroma) bit depths: the scaling runs at QP' = QP +
+    QpBdOffset (spec 8.5.8), above 8 bits in int64 as jm_tpu's host
+    decode_residuals. lossless: None or the (N,) bool mask of the
+    transform-bypass MBs, whose residual is their levels in raster order
+    (4x4 and 8x8) with the chroma DC placed raw (jm_tpu
+    decoder/recon.py decode_residuals(lossless=)).
     Returns (res_l (N, 16, 4, 4), res_c (N, 2, 2 crows, 4, 4)) int32."""
     n = mb_w * mb_h
     dev = luma_coef.device
     zz = on(_ZZ, dev)
     qp = qp.to(I32)
+    offy, offc = 6 * (bd[0] - 8), 6 * (bd[1] - 8)
+    acc = I32 if bd == (8, 8) else torch.int64      # dequant / transform
+    qpy = qp + offy                                  # QP'Y
 
     raster = torch.zeros((n, 16, 16), dtype=I32, device=dev)
     raster[..., zz] = luma_coef.to(I32)
-    deq = Q.dequant_4x4(raster.reshape(n, 16, 4, 4), qp[:, None], tabY)
-    res_l = T.inverse4x4_round(deq)
+    raster = raster.reshape(n, 16, 4, 4)
+    deq = Q.dequant_4x4(raster, qpy[:, None], tabY, acc)
+    # jm_tpu keeps the scaled levels as int32 and transforms in int64
+    res_l = T.inverse4x4_round(deq.to(I32).to(acc)).to(I32)
+    if lossless is not None:
+        ll = lossless.to(torch.bool)
+        res_l = torch.where(ll[:, None, None, None], raster, res_l)
     if transform8x8 is not None:
         r8 = torch.zeros((n, 4, 64), dtype=torch.int64, device=dev)
         r8[..., on(_ZZ8, dev)] = luma_coef8.to(torch.int64)
-        deq8 = Q.dequant_8x8(r8.reshape(n, 4, 8, 8), qp[:, None], tab8)
-        res8 = T.split_8x8(T.inverse8x8_round(deq8)).to(I32)
+        r8 = r8.reshape(n, 4, 8, 8)
+        deq8 = Q.dequant_8x8(r8, qpy[:, None], tab8)
+        sp8 = T.inverse8x8_round(deq8)
+        if lossless is not None:
+            sp8 = torch.where(ll[:, None, None, None], r8, sp8)
+        res8 = T.split_8x8(sp8).to(I32)
         res_l = torch.where(transform8x8.to(torch.bool)[:, None, None, None],
                             res8, res_l)
 
-    qpi = torch.clamp(qp, 0, 51).long()
-    qpu, qpv = qpc_cb[qpi], qpc_cr[qpi]
+    qpi = (qp + offy).long()
+    qpu, qpv = qpc_cb[qpi] + offc, qpc_cr[qpi] + offc         # QP'c
     nb = chroma_coef.shape[2]                       # 4 (4:2:0) or 8 (4:2:2)
     craster = torch.zeros((n, 2, nb, 16), dtype=I32, device=dev)
     craster[..., zz] = chroma_coef.to(I32)
     craster = craster.reshape(n, 2, nb, 4, 4)
-    dequ = Q.dequant_4x4(craster[:, 0], qpu[:, None], tabU)
-    deqv = Q.dequant_4x4(craster[:, 1], qpv[:, None], tabV)
+    dequ = Q.dequant_4x4(craster[:, 0], qpu[:, None], tabU, acc).to(I32)
+    deqv = Q.dequant_4x4(craster[:, 1], qpv[:, None], tabV, acc).to(I32)
     if nb == 4:
-        f = T.hadamard2x2(chroma_dc.reshape(n, 2, 2, 2))
+        f = T.hadamard2x2(chroma_dc.reshape(n, 2, 2, 2).to(acc))
         dequ[:, :, 0, 0] = Q.dequant_chroma_dc(f[:, 0], qpu, tabU) \
-            .reshape(n, 4)
+            .reshape(n, 4).to(I32)
         deqv[:, :, 0, 0] = Q.dequant_chroma_dc(f[:, 1], qpv, tabV) \
-            .reshape(n, 4)
+            .reshape(n, 4).to(I32)
     else:
         dequ[:, :, 0, 0] = _chroma_dc422(chroma_dc[:, 0], qpu, tabU)
         deqv[:, :, 0, 0] = _chroma_dc422(chroma_dc[:, 1], qpv, tabV)
-    res_c = torch.stack([T.inverse4x4_round(dequ),
-                         T.inverse4x4_round(deqv)], dim=1)
+    res_c = torch.stack([T.inverse4x4_round(dequ.to(acc)),
+                         T.inverse4x4_round(deqv.to(acc))], dim=1).to(I32)
+    if lossless is not None:
+        raw = craster.clone()
+        if nb == 4:
+            raw[:, :, :, 0, 0] = chroma_dc.to(I32)
+        else:
+            # column-major 2x4 placement (ldecod read_comp_cavlc.c:1468)
+            for k, (i, j) in enumerate(SCAN_YUV422):
+                raw[:, :, 2 * j + i, 0, 0] = chroma_dc[:, :, k].to(I32)
+        res_c = torch.where(ll[:, None, None, None, None], raw, res_c)
     return res_l, res_c
 
 
@@ -191,14 +225,14 @@ def _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack, *,
     return pred, cpred
 
 
-def _weigh(p0, p1, pd, w0, o0, w1, o1, logwd):
+def _weigh(p0, p1, pd, w0, o0, w1, o1, logwd, cmax: int):
     """Spec 8.4.2.3.2 on blocks of either plane: p0 / p1 the list-0 / 1
     predictions (p1 None for a P picture), pd the direction of each block
     (0 list 0, 1 list 1, 2 both), w0 / o0 / w1 / o1 each block's weights
     and offsets, logwd its logWD, all broadcast to p0. One list:
     ((p w + 2^(logWD - 1)) >> logWD) + o (no rounding term at logWD 0);
     both: ((p0 w0 + p1 w1 + 2^logWD) >> (logWD + 1)) + ((o0 + o1 + 1)
-    >> 1). Clipped to 0..255 (before the residual is added)."""
+    >> 1). Clipped to 0..cmax (before the residual is added)."""
     one = torch.ones_like(logwd)
     half = (one << logwd) >> 1
     out = ((p0 * w0 + half) >> logwd) + o0
@@ -207,34 +241,40 @@ def _weigh(p0, p1, pd, w0, o0, w1, o1, logwd):
         bi = ((p0 * w0 + p1 * w1 + (one << logwd)) >> (logwd + 1)) \
             + ((o0 + o1 + 1) >> 1)
         out = torch.where(pd == 1, u1, torch.where(pd == 2, bi, out))
-    return torch.clamp(out, 0, 255)
+    return torch.clamp(out, 0, cmax)
 
 
-def _weigh_planes(pred, cpred, pred1, cpred1, pd, wp):
+def _weigh_planes(pred, cpred, pred1, cpred1, pd, wp, bd):
     """The weighted luma (N, 16, 4, 4) and chroma (N, 16, 2, cbh, 2)
     predictions. wp = (w0, o0, w1, o1, logwd): the weights and offsets of
     each list (N, 4, 3) per 8x8 and component (Y, Cb, Cr), logwd (N, 2)
-    the luma and chroma logWD of each MB; pd (N, 16) per 4x4 block."""
+    the luma and chroma logWD of each MB; pd (N, 16) per 4x4 block; bd
+    the (luma, chroma) bit depths of the clips."""
     w0, o0, w1, o1, logwd = (t.to(I32) for t in wp)
     blk = torch.arange(16, device=pred.device)
     quad = (blk // 8) * 2 + (blk % 4) // 2
     y = [t[:, quad, 0, None, None] for t in (w0, o0, w1, o1)]
     c = [t[:, quad, 1:, None, None] for t in (w0, o0, w1, o1)]
     lum, chrom = pd[..., None, None], pd[..., None, None, None]
-    py = _weigh(pred, pred1, lum, *y, logwd[:, 0, None, None, None])
+    py = _weigh(pred, pred1, lum, *y, logwd[:, 0, None, None, None],
+                (1 << bd[0]) - 1)
     pc = _weigh(cpred, cpred1, chrom, *c,
-                logwd[:, 1, None, None, None, None])
+                logwd[:, 1, None, None, None, None], (1 << bd[1]) - 1)
     return py, pc
 
 
-def _recon(pred, cpred, res_l, res_c, inter_mask, *, mb_w: int, mb_h: int):
-    """Prediction + residual, clipped, as (Y, U, V) uint8 planes; the
-    MBs outside inter_mask zero."""
+def _recon(pred, cpred, res_l, res_c, inter_mask, *, mb_w: int, mb_h: int,
+           bd=(8, 8)):
+    """Prediction + residual, clipped at (1 << bd) - 1, as (Y, U, V)
+    planes of ``consts.plane_dtype(bd)``; the MBs outside inter_mask
+    zero."""
     n = mb_w * mb_h
     w, h = 16 * mb_w, 16 * mb_h
+    dt = plane_dtype(bd)
     mask = inter_mask.to(torch.bool)
-    recb = torch.clamp(pred + res_l, 0, 255) * mask[:, None, None, None]
-    Y = recb.to(torch.uint8).reshape(mb_h, mb_w, 4, 4, 4, 4) \
+    recb = torch.clamp(pred + res_l, 0, (1 << bd[0]) - 1) \
+        * mask[:, None, None, None]
+    Y = recb.to(dt).reshape(mb_h, mb_w, 4, 4, 4, 4) \
         .permute(0, 2, 4, 1, 3, 5).reshape(h, w)
     # per MB and component a 4 cbh x 8 block: luma block (by, bx) covers
     # chroma rows cbh by.., columns 2 bx..; chroma 4x4 block 2 qy + qx
@@ -244,38 +284,40 @@ def _recon(pred, cpred, res_l, res_c, inter_mask, *, mb_w: int, mb_h: int):
         .reshape(n, 2, ch, 8)
     cres = res_c.reshape(n, 2, cbh, 2, 4, 4).permute(0, 1, 2, 4, 3, 5) \
         .reshape(n, 2, ch, 8)
-    rc = torch.clamp(cpred + cres, 0, 255) * mask[:, None, None, None]
-    UV = rc.to(torch.uint8).reshape(mb_h, mb_w, 2, ch, 8) \
+    rc = torch.clamp(cpred + cres, 0, (1 << bd[1]) - 1) \
+        * mask[:, None, None, None]
+    UV = rc.to(dt).reshape(mb_h, mb_w, 2, ch, 8) \
         .permute(2, 0, 3, 1, 4).reshape(2, ch * mb_h, w // 2)
     return Y, UV[0], UV[1]
 
 
 def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
                   padV_stack, inter_mask, *, mb_w: int, mb_h: int,
-                  wp=None):
+                  wp=None, bd=(8, 8)):
     """Inter reconstruction of every inter MB of a P picture.
 
     mv (N, 16, 2) quarter-pel per raster 4x4 block; ref_idx (N, 4) list0
     index per 8x8; res_l (N, 16, 4, 4), res_c (N, 2, 2 crows, 4, 4) int32;
-    planes_stack (R, 4, H+2P, W+2P) uint8, padU_stack / padV_stack
-    (R, H/2+2P, W/2+2P) uint8 at 4:2:0, (R, H+2P, W/2+2P) at 4:2:2
-    (ops/enc.prep_ref of each reference);
+    planes_stack (R, 4, H+2P, W+2P), padU_stack / padV_stack
+    (R, H/2+2P, W/2+2P) at 4:2:0, (R, H+2P, W/2+2P) at 4:2:2
+    (ops/enc.prep_ref of each reference; uint8, or int16 above 8 bits);
     inter_mask (N,) bool; wp None (default prediction) or the explicit
     weighted prediction (w0, o0, w1, o1, logwd) of _weigh_planes (the
-    list-1 tables unused). Returns (Y, U, V) uint8 planes, the MBs
-    outside inter_mask zero."""
+    list-1 tables unused); bd the (luma, chroma) bit depths. Returns
+    (Y, U, V) planes of ``consts.plane_dtype(bd)``, the MBs outside
+    inter_mask zero."""
     pred, cpred = _mc_pred(mv, ref_idx, planes_stack, padU_stack,
                            padV_stack, mb_w=mb_w, mb_h=mb_h)
     if wp is not None:
         pd = torch.zeros(pred.shape[:2], dtype=I32, device=pred.device)
-        pred, cpred = _weigh_planes(pred, cpred, None, None, pd, wp)
+        pred, cpred = _weigh_planes(pred, cpred, None, None, pd, wp, bd)
     return _recon(pred, cpred, res_l, res_c, inter_mask, mb_w=mb_w,
-                  mb_h=mb_h)
+                  mb_h=mb_h, bd=bd)
 
 
 def inter_recon_b(mv, mv_l1, ref_idx, ref_idx_l1, pdir, res_l, res_c,
                   planes_stack, padU_stack, padV_stack, inter_mask, *,
-                  mb_w: int, mb_h: int, wp=None):
+                  mb_w: int, mb_h: int, wp=None, bd=(8, 8)):
     """Inter reconstruction of every inter MB of a B picture (defined by
     jm_tpu/decoder/recon.py Reconstructor._recon_inter / _mc_4x4, spec
     8.4.2.3.1): each 4x4 block is predicted from list 0, list 1 or both
@@ -296,13 +338,13 @@ def inter_recon_b(mv, mv_l1, ref_idx, ref_idx_l1, pdir, res_l, res_c,
     quad = (blk // 8) * 2 + (blk % 4) // 2
     pd = pdir.to(I32)[:, quad]                                  # (N, 16)
     if wp is not None:
-        pred, cpred = _weigh_planes(p0, c0, p1, c1, pd, wp)
+        pred, cpred = _weigh_planes(p0, c0, p1, c1, pd, wp, bd)
         return _recon(pred, cpred, res_l, res_c, inter_mask, mb_w=mb_w,
-                      mb_h=mb_h)
+                      mb_h=mb_h, bd=bd)
     lum, chrom = pd[..., None, None], pd[..., None, None, None]
     pred = torch.where(lum == 1, p1,
                        torch.where(lum == 2, (p0 + p1 + 1) >> 1, p0))
     cpred = torch.where(chrom == 1, c1,
                         torch.where(chrom == 2, (c0 + c1 + 1) >> 1, c0))
     return _recon(pred, cpred, res_l, res_c, inter_mask, mb_w=mb_w,
-                  mb_h=mb_h)
+                  mb_h=mb_h, bd=bd)

@@ -139,28 +139,34 @@ def edge_pad(plane: torch.Tensor, p: int) -> torch.Tensor:
     return plane[rows][:, cols]
 
 
-def make_luma_planes(plane: torch.Tensor, pad: int = PAD) -> torch.Tensor:
-    """(H, W) uint8 -> (4, H+2p, W+2p) uint8 stacked [INT, B, H, J]
-    quarter-pel source planes (spec 8.4.2.2.1 six-tap half samples)."""
+def make_luma_planes(plane: torch.Tensor, pad: int = PAD,
+                     cmax: int = 255) -> torch.Tensor:
+    """(H, W) -> (4, H+2p, W+2p) stacked [INT, B, H, J] quarter-pel
+    source planes (spec 8.4.2.2.1 six-tap half samples) of the plane's
+    dtype (uint8, or int16 above 8 bits), the half samples clipped at
+    cmax = (1 << bitDepth) - 1 (jm_tpu/ops/interp.py make_luma_planes)."""
     h, w = plane.shape
     ext = edge_pad(plane, pad + 3).to(I32)
     b1 = _conv6_h(ext)
     h1 = _conv6_v(ext)
-    B = torch.clamp((b1 + 16) >> 5, 0, 255)
-    H = torch.clamp((h1 + 16) >> 5, 0, 255)
-    J = torch.clamp((_conv6_v(b1) + 512) >> 10, 0, 255)
+    B = torch.clamp((b1 + 16) >> 5, 0, cmax)
+    H = torch.clamp((h1 + 16) >> 5, 0, cmax)
+    J = torch.clamp((_conv6_v(b1) + 512) >> 10, 0, cmax)
     p = pad
     INT = ext[3:3 + h + 2 * p, 3:3 + w + 2 * p]
     Bc = B[3:3 + h + 2 * p, 1:1 + w + 2 * p]
     Hc = H[1:1 + h + 2 * p, 3:3 + w + 2 * p]
     Jc = J[1:1 + h + 2 * p, 1:1 + w + 2 * p]
-    return torch.stack([INT, Bc, Hc, Jc]).to(torch.uint8)
+    return torch.stack([INT, Bc, Hc, Jc]).to(plane.dtype)
 
 
-def prep_ref(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor):
+def prep_ref(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
+             bd_luma: int = 8):
     """Reference state of a decoded picture: (planes (4, H+2P, W+2P),
-    padU, padV) uint8 (lencod img_luma.c getSubImagesLuma:611 twin)."""
-    return make_luma_planes(Y), edge_pad(U, PAD), edge_pad(V, PAD)
+    padU, padV) of the planes' dtype (lencod img_luma.c
+    getSubImagesLuma:611 twin); bd_luma the luma bit depth."""
+    return (make_luma_planes(Y, cmax=(1 << bd_luma) - 1),
+            edge_pad(U, PAD), edge_pad(V, PAD))
 
 
 # ---------------------------------------------------------------------------

@@ -36,16 +36,19 @@ def rshift_rnd_sf(x: torch.Tensor, a: int) -> torch.Tensor:
 
 
 def dequant_4x4(coef: torch.Tensor, qp: torch.Tensor,
-                tab: torch.Tensor | None = None) -> torch.Tensor:
+                tab: torch.Tensor | None = None,
+                dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """coef (..., 4, 4) levels, qp (...,) int32 -> scaled coefficients
-    d = rshift_rnd_sf((c * InvScale[qp]) << (qp/6), 4); tab: a (52, 4, 4)
-    int32 InvLevelScale table on coef's device (flat lists by default)."""
+    d = rshift_rnd_sf((c * InvScale[qp]) << (qp/6), 4) in ``dtype``
+    (int64 for the QP' of >8-bit pictures); tab: a (52, 4, 4) or
+    (88, 4, 4) int32 InvLevelScale table on coef's device (flat lists by
+    default)."""
     qp = qp.to(torch.int32)
     if tab is None:
         tab = on(FLAT_INV_SCALE_4x4, coef.device)
-    scale = tab[qp.long()]
+    scale = tab[qp.long()].to(dtype)
     per = (qp // 6)[..., None, None]
-    return rshift_rnd_sf((coef.to(torch.int32) * scale) << per, 4)
+    return rshift_rnd_sf((coef.to(dtype) * scale) << per, 4)
 
 
 def dequant_8x8(coef: torch.Tensor, qp: torch.Tensor,
@@ -65,14 +68,16 @@ def dequant_chroma_dc(dc: torch.Tensor, qp: torch.Tensor,
                       tab: torch.Tensor) -> torch.Tensor:
     """Chroma DC scaling after the 2x2 Hadamard (spec 8.5.11.2):
     ((f * InvScale[qp][0, 0]) << (qp/6)) >> 5, floor; qp (B,) against dc
-    (B, ...), tab (52, 4, 4) int32."""
+    (B, ...), tab (52 or 88, 4, 4) int32; in int64 when dc is int64,
+    else int32."""
     qp = qp.to(torch.int32)
-    scale = tab[qp.long(), 0, 0]
+    dt = torch.int64 if dc.dtype == torch.int64 else torch.int32
+    scale = tab[qp.long(), 0, 0].to(dt)
     per = qp // 6
     while scale.dim() < dc.dim():
         scale = scale[..., None]
         per = per[..., None]
-    return ((dc.to(torch.int32) * scale) << per) >> 5
+    return ((dc.to(dt) * scale) << per) >> 5
 
 
 def dc_scale(qp: torch.Tensor) -> torch.Tensor:

@@ -60,7 +60,7 @@ def test_p_dec_residuals_matches_jax(seed, lev_max, qp_lo, qp_hi, cb, cr):
     pps, jpps = _pps(cb, cr)
     tab4 = build_inv_scale(pps)
     jtab4 = jm_build_inv_scale(jpps)[0]
-    np.testing.assert_array_equal(tab4, jtab4[:, :52])
+    np.testing.assert_array_equal(tab4, jtab4)
     qcb, qcr = qpc_tables(pps)
     want = DX.p_dec_residuals(
         jnp.asarray(luma), jnp.asarray(cdc), jnp.asarray(cac),

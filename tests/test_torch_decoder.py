@@ -236,10 +236,6 @@ def test_picture_from_numpy_through_port_recon():
     ("mbaff1", "fields"),
     ("field1", "fields"),
     ("field2", "fields"),
-    ("hi10c", "bit depth"),
-    ("hi10", "bit depth"),
-    ("lossless", "lossless"),
-    ("lossless_cabac", "lossless"),
     ("fieldcab", "fields"),
     ("sp1", "SP slices"),
     ("stereo_jm", "MVC"),

@@ -233,3 +233,36 @@ def option_run(cfg: dict, frames, pipeline: str = "host",
         out.append(pay)
     return frames, out[0], jenc.results, enc, out[1]
 
+
+
+def reheaded(data: bytes, profile: int, bit_depth: int = 8,
+             bypass: int = 0, init_qp_shift: int = 0) -> bytes:
+    """The stream with each SPS written again by the port's write_sps at
+    profile 100 (122 at 4:2:2) with bit_depth_luma / chroma_minus8 =
+    bit_depth - 8 and qpprime_y_zero_transform_bypass_flag = bypass, its
+    profile_idc byte then set to ``profile`` (110 High 10, 244 High 4:4:4
+    Predictive: at 4:2:0 their SPS layout is High's); with init_qp_shift,
+    each PPS's pic_init_qp_minus26 moved by it (every slice QP with it,
+    below 0 above 8 bits). The slices stay as they are: a valid stream
+    whose pictures the spec fixes (chip_smoke.py reheaded, phase 41)."""
+    from jm_tpu_torch.bitstream.nal import (NalUnitType, annexb_bytes,
+                                            split_annexb)
+    from jm_tpu_torch.decoder.parset import parse_pps, parse_sps
+    from jm_tpu_torch.encoder.syntax import write_pps, write_sps
+    out, sps_map = [], {}
+    for nal in split_annexb(data):
+        rbsp = nal.rbsp
+        if nal.nal_unit_type == NalUnitType.SPS:
+            sps = parse_sps(rbsp)
+            sps_map[sps.seq_parameter_set_id] = sps
+            sps.profile_idc = 122 if sps.chroma_format_idc == 2 else 100
+            sps.bit_depth_luma_minus8 = bit_depth - 8
+            sps.bit_depth_chroma_minus8 = bit_depth - 8
+            sps.qpprime_y_zero_transform_bypass_flag = bypass
+            rbsp = bytes([profile]) + write_sps(sps)[1:]
+        elif nal.nal_unit_type == NalUnitType.PPS and init_qp_shift:
+            pps = parse_pps(rbsp, sps_map)
+            pps.pic_init_qp_minus26 += init_qp_shift
+            rbsp = write_pps(pps)
+        out.append(annexb_bytes(nal.nal_ref_idc, nal.nal_unit_type, rbsp))
+    return b"".join(out)
