@@ -163,9 +163,8 @@ Phases (any failure raises and exits non-zero):
      encode_stream: one launch per kernel and picture; the IDR and P
      ms, the weighted P picture's split (reference download, estimate,
      device quadrant SAD table, the serial host P coder's MB loop in ms
-     per MB, device deblock + prep_ref, serialize), its MB decisions and
-     table, its bytes beside the same frames with weighted_pred 0 on
-     the device pipe; both pictures encoded on the CPU with the same
+     per MB, device deblock + prep_ref, serialize), its MB decisions,
+     table and bytes; both pictures encoded on the CPU with the same
      bytes and recon;
  26. weighted CIF streams of the fade's top-left 352x288 (WP_CIF): (a)
      num_b 1, CABAC, weighted P and explicit weighted B; (b) a pyramid
@@ -295,11 +294,35 @@ Phases (any failure raises and exits non-zero):
      lossless_cabac (profile 244, every MB at QP 0: transform bypass and
      intra DPCM), whose sha256 must equal the one tier-1 holds against
      jm_tpu's decode (LOSSLESS_SHA256), one launch of K1 and K2 a
+     picture;
+ 43. K1 and K2 at the field shapes, a 1080p field (1920x544) and a CIF
+     field (352x144), with field boundary strengths (ops/deblock
+     compute_bs(field=True): bS 3 on the horizontal MB edges next to
+     intra MBs, the vertical MV limit 2) and mixed per-MB parameters,
+     against their plain twins on the card, bit for bit (over REPEATS
+     launches at the 1080p field); CUDA-event times beside the bound,
+     the all-bS-zero chain and the plain twins;
+ 44. field coding (pic_interlace 1; every field on the host coders, as
+     in jm_tpu): the sequence's first frame at 1080p as a field pair (an
+     IDR top field through IntraPicture, a P bottom field through the
+     host P coder against it), then FIELD_CIF_FRAMES CIF frames with
+     num_ref 2 (P fields of up to four reference fields, both
+     parities); one launch each of K1 and K2 per field picture, each
+     field's ms, ms per MB and bytes, the P fields' MB decisions; the
+     payloads and every field's recon equal the CPU run (a worker's);
+     each stream decoded on the card: every frame equal to the woven
+     recon and to the CPU decode, one launch each of K1 and K2 per field
+     picture, frames/s and the per-field split;
+ 45. JM's field goldens on the card: field1 and fieldcab (CAVLC and
+     CABAC frame pictures under an SPS that allows fields, cropped in
+     units of 4 rows) and field2 (field pictures, four reference frames)
+     against their _rec.yuv, cif_field (60 CIF field pictures) against
+     the sha256 of ldecod's output; one launch each of K1 and K2 per
      picture.
-The wall seconds of each group of phases are printed after phase 42.
-The CPU references of phases 4-39 (the encodes on the CPU, the CPU
+The wall seconds of each group of phases are printed after phase 45.
+The CPU references of phases 4-44 (the encodes on the CPU, the CPU
 decodes of the lossy stream, of the DP goldens, cif_main, the weighted,
-High, motion-option, RD and 4:2:2 streams) run in
+High, motion-option, RD, 4:2:2 and field streams) run in
 CPU_WORKERS worker processes, started before the kernel build and
 stopped before the closing lines, while the card works through the
 phases, queued in the order of the phase that checks each; one more
@@ -319,11 +342,12 @@ their serialization is native); the >8-bit pictures of phase 41 take
 the Python intra recon (the native one is 8-bit).
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-42 alone, ``--from 22`` phases 22-42, ``--from 25`` phases 25-42,
-``--from 28`` phases 28-42, ``--from 31`` phases 31-42, ``--from 34``
-phases 34-42, ``--from 37`` phases 37-42, ``--from 40`` phases 40-42
+18-45 alone, ``--from 22`` phases 22-45, ``--from 25`` phases 25-45,
+``--from 28`` phases 28-45, ``--from 31`` phases 31-45, ``--from 34``
+phases 34-45, ``--from 37`` phases 37-45, ``--from 40`` phases 40-45
 (after encoding phase 3's first HBD_FRAMES pictures and phase 38's
-CIF stream (a) on the card), without the closing JSON lines (a quicker
+CIF stream (a) on the card), ``--from 43`` phases 43-45, without the
+closing JSON lines (a quicker
 check of those phases while they are developed). The
 last line of
 standard output is {"ok": true, "device": {...}}; the line before it
@@ -1409,11 +1433,17 @@ def check_launches(launches, n: int, label: str) -> None:
 # The CPU references of phases 8-27 (encodes of their first pictures,
 # decodes) run in CPU_WORKERS worker processes while the card works
 # through those phases: on the card's host they take about half of the
-# phases' wall time when run in line.
+# phases' wall time when run in line. The workers run at a lower
+# scheduling priority (WORKER_NICE) than the process that drives the
+# card, which waits for a reference only when it checks it.
 CPU_WORKERS = 3
+WORKER_NICE = 10
+# when each CPU reference arrived (perf_counter seconds), by name
+CPU_DONE = {}
 
 
 def _worker_init() -> None:
+    os.nice(WORKER_NICE)
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // CPU_WORKERS))
 
 
@@ -1458,8 +1488,8 @@ def golden_bytes(name: str) -> bytes:
 
 
 def start_cpu_references(pool, frames, first: int) -> dict:
-    """Submit the CPU references of phases first..39 (4, 18, 22, 25, 28,
-    31, 34 or 37) to the worker pool in the order of the phase that
+    """Submit the CPU references of phases first..44 (4, 18, 22, 25, 28,
+    31, 34, 37, 40 or 43) to the worker pool in the order of the phase that
     checks each (phases 8-9's after phase 14), so that the pool finishes
     each before the card needs it (PR 15 runs 2-3, with the long 1080p
     host encodes of phases 28 and 34 first, waited 24.2 / 44.9 s for phase
@@ -1515,8 +1545,19 @@ def start_cpu_references(pool, frames, first: int) -> dict:
         jobs += [(38, f"y422_cif_{label}", cpu_encode,
                   (y422_cif_cfg(kw), to_422(cif(frames, n))))
                  for label, n, kw in Y422_CIF]
+    jobs += [(44, "field_1080p", cpu_field, (field_cfg(), frames[:1])),
+             (44, "field_cif", cpu_field,
+              (field_cif_cfg(), cif(frames, FIELD_CIF_FRAMES)))]
     jobs.sort(key=lambda j: j[0])
-    return {name: pool.apply_async(fn, args) for _, name, fn, args in jobs}
+    return {name: pool.apply_async(fn, args, callback=_arrived(name))
+            for _, name, fn, args in jobs}
+
+
+def _arrived(name: str):
+    """A pool callback that notes when the CPU reference `name` arrived."""
+    def note(_result):
+        CPU_DONE[name] = time.perf_counter()
+    return note
 
 
 def check_cpu_encode(label: str, job, payloads, enc, n: int) -> tuple:
@@ -2093,9 +2134,9 @@ def fade(frames, step: float = WP_FADE):
     return out
 
 
-def wp_cfg(weighted_pred: int = 1):
+def wp_cfg():
     return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
-                         device_rd=True, weighted_pred=weighted_pred)
+                         device_rd=True, weighted_pred=1)
 
 
 def wp_cif_cfg(kw):
@@ -2138,10 +2179,9 @@ def wp_report(enc, label: str) -> None:
 
 def wp_p_phase(frames, cpu_ref, pool):
     """Phase 25: the fade's IDR and weighted P picture at 1080p through
-    encode_stream (CAVLC, Main), beside the same frames with
-    weighted_pred 0 on the device pipe, held against the CPU encode
-    cpu_ref; returns (encoder, payloads, launches, the CPU decode job of
-    the stream)."""
+    encode_stream (CAVLC, Main), held against the CPU encode cpu_ref;
+    returns (encoder, payloads, launches, the CPU decode job of the
+    stream)."""
     frames = fade(frames[:WP_FRAMES])
     enc, payloads, launches, total_s = b_encode(wp_cfg(), frames)
     types = "".join(r["type"] for r in enc.results)
@@ -2149,15 +2189,12 @@ def wp_p_phase(frames, cpu_ref, pool):
         raise AssertionError(f"WP P: pictures {types}")
     check_routes("WP P encode", serialize=2)
     check_launches(launches, 2, "WP P encode")
-    plain, plain_payloads, _l, plain_s = timed_encode(wp_cfg(0), frames)
     t = {d: sum(enc.split[d]["picture"]) * 1e3 for d in (0, 1)}
     print(f"encode WP P 1080p {types} (fade {WP_FADE} per frame, CAVLC "
           f"Main, weighted_pred 1, QP {QP}, SR 16): IDR {t[0]:.1f} ms, "
           f"P {t[1]:.1f} ms, {sum(map(len, payloads))} stream bytes (the "
-          f"P picture {len(payloads[1])} B); weighted_pred 0 on the pipe: "
-          f"{sum(map(len, plain_payloads))} bytes (P "
-          f"{len(plain_payloads[1])} B), {plain_s * 1e3:.1f} ms for both; "
-          f"launches {launches}", flush=True)
+          f"P picture {len(payloads[1])} B); launches {launches}",
+          flush=True)
     wp_report(enc, "WP P 1080p")
     check_cpu_encode("WP P IDR + P", cpu_ref, payloads, enc, 2)
     return enc, payloads, launches, pool.apply_async(
@@ -2297,8 +2334,9 @@ def wp_decode_phase(streams) -> dict:
 
 
 def wp_phases(frames, cpu_refs, pool) -> dict:
-    """Phases 25-27; returns the launches of each of their paths by name
-    (wp_p, wp_cif_a..c, each also with _decode, wp_goldens_decode)."""
+    """Phases 25-27, their streams' CPU decodes submitted to pool;
+    returns the launches of each of their paths by name (wp_p,
+    wp_cif_a..c, each also with _decode, wp_goldens_decode)."""
     out = {}
     enc, payloads, out["wp_p"], job = wp_p_phase(frames, cpu_refs["wp_p"],
                                                  pool)
@@ -3488,6 +3526,304 @@ def hbd_phases(payloads, y422_payloads, jobs, rng) -> tuple:
     return stats, out
 
 
+# ---------------------------------------------------------------------------
+# phases 43-45: PAFF field pictures
+# ---------------------------------------------------------------------------
+
+# the field shapes of phase 43: a 1080p field (120x34 MBs) and a CIF field
+# (22x9 MBs)
+FIELD_SHAPES = ((1920, 544), (352, 144))
+FIELD_CIF_FRAMES = 3      # frames of phase 44's CIF field stream
+FIELD_GOLDENS = ("field1", "field2", "fieldcab")   # JM's goldens (45)
+# sha256 of JM ldecod's output of tests/golden/cif_field.264 (60 CIF field
+# pictures; tests/test_cif_conformance.py records it)
+CIF_FIELD_SHA256 = ("2e476073972f719518765fd4a58b4a46c01335472864d9da"
+                    "58bbb8332462fa10")
+
+
+def field_cfg():
+    """Phase 44's 1080p configuration: pic_interlace 1 (every frame two
+    field pictures, each coded by the host coders, as in jm_tpu), CAVLC,
+    QP 28, SR 16."""
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         pic_interlace=1)
+
+
+def field_cif_cfg():
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         pic_interlace=1, num_ref=2)
+
+
+def woven(results):
+    """The (Y, U, V) frames woven from an encoder's field results (top,
+    bottom, top, ...)."""
+    out = []
+    for top, bot in zip(results[0::2], results[1::2]):
+        planes = []
+        for p in "YUV":
+            t, b = getattr(top["frame"], p), getattr(bot["frame"], p)
+            w = np.empty((2 * t.shape[0], t.shape[1]), t.dtype)
+            w[0::2], w[1::2] = t, b
+            planes.append(w)
+        out.append(tuple(planes))
+    return out
+
+
+def cpu_field(cfg, frames):
+    """Phase 44's CPU reference: the frames encoded as field pairs on the
+    CPU through encode_frame, then that stream decoded on the CPU:
+    (payloads, each field's recon (Y, U, V), the decoded frames)."""
+    enc = Encoder(cfg, device="cpu")
+    payloads = [enc.encode_frame(*f) for f in frames]
+    return (payloads, [(r["frame"].Y, r["frame"].U, r["frame"].V)
+                       for r in enc.results], cpu_decode(b"".join(payloads)))
+
+
+def field_bs(rng, mb_w: int, mb_h: int):
+    """Field boundary strengths of a random field picture on the card
+    (ops/deblock.compute_bs(field=True)): a fifth of the MBs intra, MVs
+    within 3 quarter samples of each other (the field's vertical limit
+    of 2 acts), four reference ids, sparse coefficients. Returns (bs_v,
+    bs_h) and the frame rules' bS of the same picture."""
+    from jm_tpu_torch.ops.deblock import compute_bs
+    n = mb_w * mb_h
+    intra = rng.random(n) < 0.2
+    nnz = rng.integers(0, 3, (n, 16)) * (rng.random((n, 16)) < 0.3)
+    mv = rng.integers(-3, 4, (n, 16, 2))
+    mv[intra] = 0
+    rid = rng.integers(0, 4, (n, 4))
+    rid[intra] = -1
+    t = lambda a: torch.as_tensor(np.asarray(a), device=DEVICE)  # noqa: E731
+    args = (t(intra.astype(np.int8)), t(nnz.astype(np.int32)),
+            t(np.zeros(n, np.int32)), t(mv.astype(np.int32)),
+            t(np.zeros((n, 16, 2), np.int32)), t(rid.astype(np.int64)),
+            t(np.full((n, 4), -1, np.int64)), mb_w, mb_h)
+    return compute_bs(*args, field=True), compute_bs(*args)
+
+
+def field_kernel_phase(rng) -> dict:
+    """Phase 43: K1 and K2 at the field shapes (1920x544, 352x144) with
+    field bS (bS 3 on the horizontal MB edges next to intra MBs, the
+    vertical MV limit 2) and the mixed per-MB parameters, against their
+    plain twins on the card, bit for bit, over REPEATS launches at the
+    1080p field; CUDA-event times (median of 7 runs of 20 calls) beside
+    the bound, the all-bS-zero chain and the plain twins' checking call.
+    Returns the statistics by shape and kernel."""
+    stats = {}
+    for w, h in FIELD_SHAPES:
+        mb_w, mb_h = w // 16, h // 16
+        Y, U, V, _, _, per_mb, cb, cr = deblock_case(rng, mb_w, mb_h,
+                                                     "mixed")
+        (bs_v, bs_h), (fv, fh) = field_bs(rng, mb_w, mb_h)
+        mb_rows = bs_h[4::4].cpu().numpy()
+        if not ((mb_rows == 3).any() and not (mb_rows == 4).any()
+                and bool((fh[4::4] == 4).any())
+                and not torch.equal(bs_v, fv)):
+            raise AssertionError(f"field bS {w}x{h}: the field rules do "
+                                 f"not show")
+        args = (bs_v, bs_h, *per_mb)
+        kw = dict(mb_w=mb_w, mb_h=mb_h)
+        py, ms_y = event_ms(lambda: deblock_luma_plain(Y, *args, **kw))
+        (pu, pv), ms_c = event_ms(lambda: deblock_chroma_plain(
+            U, V, *args, cb, cr, **kw))
+        repeats = REPEATS if h > 200 else 1
+        err_y = err_c = 0
+        for _ in range(repeats):
+            ky = kernels.deblock_luma(Y, *args, **kw)
+            ku, kv = kernels.deblock_chroma(U, V, *args, cb, cr, **kw)
+            err_y = max(err_y, int((ky.int() - py.int()).abs().max()))
+            err_c = max(err_c, int((ku.int() - pu.int()).abs().max()),
+                        int((kv.int() - pv.int()).abs().max()))
+        torch.cuda.synchronize()
+        changed = (int((py != Y).sum()),
+                   int((pu != U).sum()) + int((pv != V).sum()))
+        print(f"deblock field {w}x{h} x{repeats}: luma max|err| {err_y}, "
+              f"chroma max|err| {err_c}, samples changed (luma, chroma) "
+              f"{changed}, bS 3 / 4 on horizontal MB edges "
+              f"{int((mb_rows == 3).sum())} / {int((mb_rows == 4).sum())}",
+              flush=True)
+        if err_y or err_c or min(changed) == 0:
+            raise AssertionError(f"deblock field {w}x{h}: the kernels "
+                                 f"differ from the plain twins, or filter "
+                                 f"nothing")
+        lines_y, lines_c = filtered_lines(bs_v, bs_h, per_mb, mb_w, mb_h)
+        n = mb_w * mb_h
+        param_bytes = 6 * 4 * n + 2 * bs_v.numel()
+        zbs = torch.zeros_like(bs_v)
+        for name, b, ops, kfn, zfn, p_ms, err in (
+                ("deblock_luma", 2 * Y.numel() + param_bytes,
+                 LUMA_LINE_OPS * lines_y,
+                 lambda: kernels.deblock_luma(Y, *args, **kw),
+                 lambda: kernels.deblock_luma(Y, zbs, zbs, *per_mb, **kw),
+                 ms_y, err_y),
+                ("deblock_chroma", 2 * (U.numel() + V.numel())
+                 + param_bytes + 2 * 52 * 4, CHROMA_LINE_OPS * lines_c,
+                 lambda: kernels.deblock_chroma(U, V, *args, cb, cr, **kw),
+                 lambda: kernels.deblock_chroma(U, V, zbs, zbs, *per_mb, cb,
+                                                cr, **kw), ms_c, err_c)):
+            t_bytes = b / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / INT_OPS_PER_S * 1e3
+            s = {"ms": cuda_ms(kfn, inner=20),
+                 "chain_ms": cuda_ms(zfn, inner=20), "plain_ms": p_ms,
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "max_err": err}
+            stats[(w, h, name)] = s
+            print(f"{name} at the {w}x{h} field: {s['ms']:.4f} ms (all bS "
+                  f"0: {s['chain_ms']:.4f} ms; plain {p_ms:.1f} ms), bound "
+                  f"{s['bound_ms'] * 1e3:.2f} us ({s['bound_by']}: {b} B, "
+                  f"{ops} int ops)", flush=True)
+    return stats
+
+
+class FieldTimedEncoder(Encoder):
+    """The port's Encoder with each field picture's wall ms (the card
+    synchronized at its ends) in ``field_ms``."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.field_ms = []
+
+    def _encode_field(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super()._encode_field(*a, **kw)
+        torch.cuda.synchronize()
+        self.field_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def field_stream_phase(label: str, cfg, frames, job) -> dict:
+    """One field stream of phase 44: frames encoded on the card through
+    encode_stream (every field on the host coders), one launch each of
+    K1 and K2 per field picture; each field's ms, ms per MB, bytes and
+    the P fields' MB decisions; the payloads and each field's recon equal
+    the CPU run (job: cpu_field's); then the stream decoded on the card:
+    every frame equal to the woven recon and to the CPU decode, one
+    launch each of K1 and K2 per field picture, every slice parsed
+    natively. Returns the launches of the encode and of the decode."""
+    enc = FieldTimedEncoder(cfg, device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    payloads = enc.encode_stream(frames)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    n_fields = 2 * len(frames)
+    check_launches(launches, n_fields, f"{label} encode")
+    check_routes(f"{label} encode", serialize=n_fields)
+    n_mbs = enc.mb_w * enc.mb_h
+    print(f"encode {label} ({cfg.width}x{cfg.height}, pic_interlace 1, "
+          f"num_ref {cfg.num_ref}; fields of {enc.mb_w}x{enc.mb_h} MBs): "
+          f"{len(frames) / total_s:.3f} frames/s, "
+          f"{sum(map(len, payloads))} stream bytes "
+          f"{[len(p) for p in payloads]}, launches {launches}", flush=True)
+    for r, ms in zip(enc.results, enc.field_ms):
+        print(f"  {label} field disp {r['disp']} parity {r['parity']} "
+              f"{r['type']}: {r['bits'] // 8} B, {ms:.1f} ms = "
+              f"{ms / n_mbs:.3f} ms/MB"
+              + (f"; MBs {r['mix']}; MB loop parts (s) "
+                 f"{ {k: round(v, 3) for k, v in r['mb_parts'].items()} }"
+                 if "mix" in r else ""), flush=True)
+    t0 = time.perf_counter()
+    cpu_payloads, cpu_recon, cpu_frames = job.get()
+    if cpu_payloads != payloads:
+        raise AssertionError(f"{label}: CPU and CUDA payloads differ")
+    for i, (r, rec) in enumerate(zip(enc.results, cpu_recon)):
+        for k, p in enumerate("YUV"):
+            if not np.array_equal(rec[k], getattr(r["frame"], p)):
+                raise AssertionError(f"{label} field {i} {p}: recon differs")
+    print(f"cross-check {label}: the CPU's payloads and the recon of "
+          f"{n_fields} fields equal the CUDA run (CPU worker; waited "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    out = dec.decode_annexb(b"".join(payloads))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    dec_launches = launch_counts()
+    check_launches(dec_launches, n_fields, f"decode {label}")
+    check_routes(f"decode {label}", parse=n_fields, recon=sum(
+        p["path"] != "inter" for p in dec.pictures))
+    check_frames(out, woven(enc.results), f"decode {label}")
+    check_frames(out, cpu_frames, f"decode {label} against the CPU decode")
+    print(f"decode {label} on the card: {len(out)} frames ({n_fields} "
+          f"fields) equal the woven recon and the CPU decode; "
+          f"{len(out) / dt:.3f} frames/s; per field " + ", ".join(
+              f"{p['type'][0]}/{p['path']} {p['seconds'] * 1e3:.1f} ms "
+              f"(parse {p['parse_s'] * 1e3:.1f}, intra recon "
+              f"{p['host_recon_s'] * 1e3:.1f}, device "
+              f"{p['device_s'] * 1e3:.1f})" for p in dec.pictures)
+          + f"; launches {dec_launches}", flush=True)
+    return launches, dec_launches
+
+
+def field_golden_phase() -> dict:
+    """Phase 45: JM's goldens field1 / fieldcab (CAVLC / CABAC frame
+    pictures under an SPS that allows fields, cropped) and field2 (field
+    pictures, four reference frames) on the card against their _rec.yuv,
+    cif_field (60 CIF field pictures) against the sha256 of ldecod's
+    output; one launch each of K1 and K2 per picture (field or frame),
+    frames/s and the per-picture split. Returns the launches
+    (field_goldens_decode)."""
+    import hashlib
+    total = {}
+    for name in FIELD_GOLDENS + ("cif_field",):
+        dec = H264Decoder(device=DEVICE)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if name == "cif_field":
+            got = sorted(dec.decode_annexb(golden_bytes(name)),
+                         key=lambda f: f.poc)
+            sha = hashlib.sha256(b"".join(
+                f.Y.tobytes() + f.U.tobytes() + f.V.tobytes()
+                for f in got)).hexdigest()
+            if len(got) != 30 or sha != CIF_FIELD_SHA256:
+                raise AssertionError(f"decode cif_field: {len(got)} frames, "
+                                     f"sha256 {sha}")
+            what = "whose sha256 equals ldecod's output's"
+        else:
+            got = decode_golden(name, dec)
+            what = f"equal {name}_rec.yuv"
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gl = launch_counts()
+        check_launches(gl, len(dec.pictures), f"decode {name}")
+        for k, v in gl.items():
+            total[k] = total.get(k, 0) + v
+        paths = {}
+        for p in dec.pictures:
+            paths[p["path"]] = paths.get(p["path"], 0) + 1
+        print(f"decode {name}.264 on the card: {len(got)} frames "
+              f"({len(dec.pictures)} pictures, {paths}) {what}; "
+              f"{len(got) / dt:.3f} frames/s; parse "
+              f"{sum(p['parse_s'] for p in dec.pictures) * 1e3:.1f} ms, "
+              f"intra recon "
+              f"{sum(p['host_recon_s'] for p in dec.pictures) * 1e3:.1f} "
+              f"ms, device "
+              f"{sum(p['device_s'] for p in dec.pictures) * 1e3:.1f} ms in "
+              f"all; launches {gl}", flush=True)
+    return {"field_goldens_decode": total}
+
+
+def field_phases(frames, cpu_refs, rng) -> tuple:
+    """Phases 43-45; returns (the kernels' statistics at the field shapes,
+    the launches of each field path by name: field_1080p, field_cif, each
+    also with _decode, field_goldens_decode)."""
+    stats = field_kernel_phase(rng)
+    out = {}
+    out["field_1080p"], out["field_1080p_decode"] = field_stream_phase(
+        "field 1080p", field_cfg(), frames[:1], cpu_refs["field_1080p"])
+    out["field_cif"], out["field_cif_decode"] = field_stream_phase(
+        "field CIF", field_cif_cfg(), cif(frames, FIELD_CIF_FRAMES),
+        cpu_refs["field_cif"])
+    out.update(field_golden_phase())
+    return stats, out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -3524,27 +3860,30 @@ def main() -> int:
 
     # ---- 1. build, with the CPU references of the later phases started in
     # the worker pool meanwhile --------------------------------------------
+    clock = PhaseClock()
     native.load()
     print(f"native runtime build (g++, three sources) + import: "
           f"{native.build_seconds:.1f} s", flush=True)
     partial = sys.argv[1:] in (["--from", "18"], ["--from", "22"],
                                ["--from", "25"], ["--from", "28"],
                                ["--from", "31"], ["--from", "34"],
-                               ["--from", "37"], ["--from", "40"])
+                               ["--from", "37"], ["--from", "40"],
+                               ["--from", "43"])
     first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
     pool = cpu_pool()
-    # one more worker for phase 41's CPU decodes, which can start only
-    # once phases 3 and 38 have made their streams (a job of the pool
-    # above would queue behind all of its references); idle until then
+    # one more worker for the CPU decodes of phases 27 and 41, which can
+    # start only once their streams are made (a job of the pool above
+    # would queue behind all of its references); idle until then
     hbd_pool = cpu_pool(1)
     try:
         refs = start_cpu_references(pool, frames, first)
         kernels.load()
         print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
+        clock.lap("1")
         if partial:
-            return partial_run(frames, pool, hbd_pool, refs, first)
-        return full_run(frames, pool, hbd_pool, refs, smi)
+            return partial_run(frames, pool, hbd_pool, refs, first, clock)
+        return full_run(frames, pool, hbd_pool, refs, smi, clock)
     finally:
         for p in (pool, hbd_pool):
             p.terminate()
@@ -3560,19 +3899,19 @@ def hbd_cpu_jobs(hbd_pool, payloads=None, y422_payloads=None) -> dict:
     jobs = {}
     if payloads is not None:
         jobs["hbd_1080p"] = hbd_pool.apply_async(cpu_decode, (reheaded(
-            b"".join(payloads[:HBD_FRAMES]), 110, 10),))
+            b"".join(payloads[:HBD_FRAMES]), 110, 10),),
+            callback=_arrived("hbd_1080p"))
     if y422_payloads is not None:
         jobs["hbd_422"] = hbd_pool.apply_async(cpu_decode, (reheaded(
-            b"".join(y422_payloads), 122, 10),))
+            b"".join(y422_payloads), 122, 10),), callback=_arrived("hbd_422"))
     return jobs
 
 
-def partial_run(frames, pool, hbd_pool, refs, first: int) -> int:
-    """Phases first..42 (18, 22, 25, 28, 31, 34, 37 or 40) without the
-    closing JSON lines; refs: their CPU references. From 40, phase 3's
-    first HBD_FRAMES pictures and phase 38's CIF stream (a) are encoded
-    on the card first."""
-    clock = PhaseClock()
+def partial_run(frames, pool, hbd_pool, refs, first: int, clock) -> int:
+    """Phases first..45 (18, 22, 25, 28, 31, 34, 37, 40 or 43) without
+    the closing JSON lines; refs: their CPU references; clock: the
+    PhaseClock of the run. From 40, phase 3's first HBD_FRAMES pictures
+    and phase 38's CIF stream (a) are encoded on the card first."""
     if first <= 18:
         later_phases(frames, None, refs)
         clock.lap("18-21")
@@ -3580,7 +3919,7 @@ def partial_run(frames, pool, hbd_pool, refs, first: int) -> int:
         b_phases(frames, refs)
         clock.lap("22-24")
     if first <= 25:
-        wp_phases(frames, refs, pool)
+        wp_phases(frames, refs, hbd_pool)
         clock.lap("25-27")
     if first <= 28:
         high_phases(frames, refs, pool, None)
@@ -3595,40 +3934,54 @@ def partial_run(frames, pool, hbd_pool, refs, first: int) -> int:
         y422_cif_a = y422_phases(frames, refs, pool,
                                  np.random.default_rng(37))[2]
         clock.lap("37-39")
-    else:
+    elif first <= 40:
         y422_cif_a = b_encode(y422_cif_cfg(Y422_CIF[0][2]),
                               to_422(cif(frames, Y422_CIF[0][1])))[1]
-    payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(
-        frames[:HBD_FRAMES])
-    jobs = hbd_cpu_jobs(hbd_pool, payloads, y422_cif_a)
-    hbd_phases(payloads, y422_cif_a, jobs, np.random.default_rng(40))
-    clock.lap("40-42")
+    if first <= 40:
+        payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(
+            frames[:HBD_FRAMES])
+        jobs = hbd_cpu_jobs(hbd_pool, payloads, y422_cif_a)
+        hbd_phases(payloads, y422_cif_a, jobs, np.random.default_rng(40))
+        clock.lap("40-42")
+    field_phases(frames, refs, np.random.default_rng(43))
+    clock.lap("43-45")
     clock.report()
-    print(f"phases {first}-42 passed (partial run: no closing lines)")
+    print(f"phases {first}-45 passed (partial run: no closing lines)")
     return 0
 
 
 class PhaseClock:
     """Wall seconds of each group of phases, from the end of the one
-    before (the first from the clock's start)."""
+    before (the first from the clock's start), with the CPU seconds of
+    this process (all its threads) over the same span: about one CPU
+    second per wall second where the host coders set the pace."""
 
     def __init__(self):
-        self.t0, self.laps = time.perf_counter(), []
+        self.start = time.perf_counter()
+        self.t0, self.laps = self.start, []
+        self.cpu0 = time.process_time()
 
     def lap(self, phases: str) -> None:
-        t = time.perf_counter()
-        self.laps.append((phases, t - self.t0))
-        self.t0 = t
+        t, cpu = time.perf_counter(), time.process_time()
+        self.laps.append((phases, t - self.t0, cpu - self.cpu0))
+        self.t0, self.cpu0 = t, cpu
 
     def report(self) -> None:
-        print("phase times: " + ", ".join(f"{p} {s:.1f} s"
-                                          for p, s in self.laps), flush=True)
+        print("phase times: " + ", ".join(
+            f"{p} {s:.1f} s" for p, s, _c in self.laps), flush=True)
+        print("phase CPU (this process's CPU s): " + ", ".join(
+            f"{p} {c:.1f} s" for p, _s, c in self.laps), flush=True)
+        if CPU_DONE:
+            print("CPU references arrived at (s from the clock's start): "
+                  + ", ".join(f"{k} {t - self.start:.1f}" for k, t in
+                              sorted(CPU_DONE.items(), key=lambda kv: kv[1])),
+                  flush=True)
 
 
-def full_run(frames, pool, hbd_pool, cpu_refs, smi: str) -> int:
-    """Phases 2-42 and the closing lines; cpu_refs: the CPU references of
-    phases 4-39; hbd_pool: the worker of phase 41's CPU decodes."""
-    clock = PhaseClock()
+def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock) -> int:
+    """Phases 2-45 and the closing lines; cpu_refs: the CPU references of
+    phases 4-44; hbd_pool: the worker of phase 41's CPU decodes; clock:
+    the PhaseClock of the run, its first lap the builds."""
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
     rng = np.random.default_rng(1)
@@ -3778,8 +4131,10 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str) -> int:
     clock.lap("22-24")
 
     # ---- 25-27. weighted prediction: the 1080p weighted P picture,
-    # the CIF weighted P / B streams, their decode and the WP goldens
-    later.update(wp_phases(frames, cpu_refs, pool))
+    # the CIF weighted P / B streams, their decode and the WP goldens (the
+    # decodes' CPU references on hbd_pool's worker, idle until phase 33:
+    # on the pool they queue behind every later phase's references)
+    later.update(wp_phases(frames, cpu_refs, hbd_pool))
     clock.lap("25-27")
 
     # ---- 28-30. the host pipeline and the High profile: the 1080p
@@ -3825,6 +4180,17 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str) -> int:
         max_err[key] = khbd[key]["max_err"]
     later.update(hbd)
     clock.lap("40-42")
+
+    # ---- 43-45. PAFF field pictures: K1/K2 at the field shapes with field
+    # bS, the 1080p field pair and a CIF field stream encoded and decoded
+    # on the card, the field goldens ---------------------------------------
+    kfield, fields = field_phases(frames, cpu_refs, rng)
+    for (w, h, name), s in kfield.items():
+        kstats[name][f"field_{w}x{h}_ms"] = s["ms"]
+        kstats[name][f"field_{w}x{h}_chain_ms"] = s["chain_ms"]
+        max_err[name] = max(max_err[name], s["max_err"])
+    later.update(fields)
+    clock.lap("43-45")
     clock.report()
 
     rows = []
@@ -3841,6 +4207,7 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str) -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": None, "chain_ms": s["chain_ms"],
+            **{k: v for k, v in s.items() if k.startswith("field_")},
             "decode_launches": dec_launches.get(name, 0),
             "md_low_launches": low_launches.get(name, 0),
             "scene_cut_launches": cut_launches.get(name, 0),

@@ -46,6 +46,9 @@ class PictureData:
         # chroma 4x4-block rows per MB: 2 at 4:2:0, 4 at 4:2:2
         crows = 4 if self.chroma_format_idc == 2 else 2
         self.n_crows = crows
+        # a field picture (decoded at half the frame's height): the field
+        # scan of its 4x4 levels and the field rules of its deblock
+        self.field_mode = False
         self.mb_class = np.zeros(n, np.int8)            # MB_* class
         self.skip = np.zeros(n, bool)
         self.transform8x8 = np.zeros(n, bool)           # 8x8 luma transform

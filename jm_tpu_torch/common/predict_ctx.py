@@ -174,8 +174,10 @@ class PredCtx:
         match = [r == ref for r in (refa, refb, refc)]
         if sum(match) == 1:
             return (mva, mvb, mvc)[match.index(True)].copy()
-        stack = np.stack([mva, mvb, mvc])
-        return np.median(stack, axis=0).astype(np.int32)
+        # the component-wise median of three (np.median's, without its
+        # cost on three values)
+        return np.array([sorted((int(mva[k]), int(mvb[k]), int(mvc[k])))[1]
+                         for k in (0, 1)], np.int32)
 
     def skip_mv(self, addr: int) -> np.ndarray:
         """P_Skip motion vector (spec 8.4.1.1)."""

@@ -17,6 +17,17 @@ import numpy as np
 ZIGZAG_4x4 = np.array(
     [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15], dtype=np.int32)
 
+# 4x4 field scan of field pictures (Table 8-13, ldecod FIELD_SCAN),
+# flat index = 4*j + i
+FIELD_SCAN_4x4 = np.array(
+    [0, 4, 1, 8, 12, 5, 9, 13, 2, 6, 10, 14, 3, 7, 11, 15], dtype=np.int32)
+
+
+def scan_4x4(field: bool) -> np.ndarray:
+    """The 4x4 coefficient scan of a field picture (field True) or of a
+    frame picture (spec 8.5.6)."""
+    return FIELD_SCAN_4x4 if field else ZIGZAG_4x4
+
 # 8x8 zig-zag scan, flat index = 8*j + i
 ZIGZAG_8x8 = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,

@@ -177,6 +177,8 @@ class SliceHeader:
     slice_type_all: bool = True   # slice_type value was >=5 (all slices same type)
     pic_parameter_set_id: int = 0
     frame_num: int = 0
+    field_pic_flag: int = 0
+    bottom_field_flag: int = 0
     idr_pic_id: int = 0
     pic_order_cnt_lsb: int = 0
     delta_pic_order_cnt_bottom: int = 0

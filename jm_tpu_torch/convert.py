@@ -48,10 +48,10 @@ def qpc_tables(pps, device="cpu", bd=(8, 8)):
 
 
 def picture_from_numpy(src) -> PictureData:
-    """A parsed 4:2:0 or 4:2:2 frame picture's SoA state, of any bit
-    depth (any object with numpy arrays under PictureData's names, e.g.
-    jm_tpu's decoder ``PictureData``) as the port's PictureData; arrays
-    are copied."""
+    """A parsed 4:2:0 or 4:2:2 frame or field picture's SoA state, of any
+    bit depth (any object with numpy arrays under PictureData's names and
+    its field_mode, e.g. jm_tpu's decoder ``PictureData``) as the port's
+    PictureData; arrays are copied."""
     pic = PictureData(src.mb_w, src.mb_h,
                       getattr(src, "chroma_format_idc", 1))
     for name in _PICTURE_FIELDS:
@@ -61,6 +61,7 @@ def picture_from_numpy(src) -> PictureData:
             raise ValueError(f"picture_from_numpy: {name} has shape "
                              f"{a.shape}, expected {dst.shape}")
         dst[...] = a
+    pic.field_mode = bool(getattr(src, "field_mode", False))
     # I_PCM samples keep their dtype: uint8, or uint16 above 8 bits
     pic.ipcm_luma = {int(k): np.array(v) for k, v in src.ipcm_luma.items()}
     pic.ipcm_chroma = {int(k): np.array(v)

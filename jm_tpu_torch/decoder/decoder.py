@@ -10,7 +10,9 @@ types 0-6, data-partitioned CAVLC slices (NAL units 2-4), redundant
 pictures, list0 and list1 with several references, short- and long-term,
 in a DPB with the sliding window or MMCO marking, spatial and temporal
 direct prediction, explicit and implicit weighted prediction,
-non-reference pictures, POC types 0, 1 and 2). Frames come out in decode
+non-reference pictures, POC types 0, 1 and 2), and the field pictures of
+PAFF streams (CAVLC I and P fields at 4:2:0 and 8 bits, and frame
+pictures under an SPS that allows fields). Frames come out in decode
 order, as jm_tpu's: callers sort them by POC; their planes are uint8 at
 8 bits and uint16 above, as jm_tpu's.
 
@@ -46,6 +48,16 @@ both entropy coders:
     8-bit). Lossless MBs (QP'Y 0 under the bypass flag) take the
     transform bypass: on the device for inter MBs, with the intra DPCM
     in the host Reconstructor.
+  - field picture (jm_tpu decoder.py:170-233, :777-853, which
+    reconstructs fields on the host): a half-height picture through the
+    same stages, with the field scan of its levels, the chroma offset of
+    its reference fields of the other parity (ops/dec inter_recon_p's
+    chroma_dy) and the field rules of compute_bs; its list0 comes from
+    the reference fields (dpb.field_ref_list_p: frame units by
+    FrameNumWrap descending, the parities alternating from the current
+    one), which ``_finish_field`` keeps under the sliding window of frame
+    units (dpb.field_window); the two fields of a frame are woven into
+    one output frame.
 The new reference state stays on the device in the DPB; the output
 planes are downloaded from the deblocked picture.
 
@@ -82,7 +94,7 @@ from ..ops import dec as D
 from ..ops.deblock import compute_bs, deblock
 from ..ops.enc import prep_ref
 from .b_slice import ColMotion, compute_mvscale, ref_lists_b
-from .dpb import DPB, Frame
+from .dpb import DPB, Frame, field_ref_list_p, field_window
 from .header import PocContext, parse_slice_header
 from .mb_parse import MBParser, SliceContext
 from .mb_parse_cabac import MBParserCABAC
@@ -100,6 +112,9 @@ class DecodedFrame:
     Y: np.ndarray
     U: np.ndarray
     V: np.ndarray
+
+
+_FIELD_UID0 = 1 << 20          # reference fields' uids, apart from the DPB's
 
 
 class H264Decoder:
@@ -125,6 +140,12 @@ class H264Decoder:
         self._dp_pending = None     # the partitions of a DP slice so far
         # (frame_num, pic_order_cnt_lsb) of the last primary pictures
         self._primary_keys: list = []
+        # PAFF: the reference fields (newest first), the first field of a
+        # frame awaiting its second (its Frame and host planes), the next
+        # field uid
+        self._field_refs: list[Frame] = []
+        self._pending_field = None
+        self._field_uid = _FIELD_UID0
 
     # ------------------------------------------------------------------
 
@@ -211,16 +232,25 @@ class H264Decoder:
             self._finish_picture()
             if (hdr.frame_num, hdr.pic_order_cnt_lsb) in self._primary_keys:
                 return
+        fld = bool(hdr.field_pic_flag)
+        if not fld and self._field_refs and not hdr.is_idr:
+            # the reference fields are not in the frame DPB, so a frame P
+            # picture would predict from a DPB without them (jm_tpu
+            # decoder.py:184-191)
+            raise NotImplementedError(
+                "out of scope: mixed field/frame pictures (adaptive PAFF)")
         if self._is_new_picture(hdr):
             self._finish_picture()
             t0 = time.perf_counter()
+            pic = PictureData(sps.pic_width_in_mbs,
+                              sps.frame_height_in_mbs // (2 if fld else 1),
+                              sps.chroma_format_idc)
+            pic.field_mode = fld
             self._cur = {
-                "pic": PictureData(sps.pic_width_in_mbs,
-                                   sps.frame_height_in_mbs,
-                                   sps.chroma_format_idc),
-                "sps": sps, "pps": pps, "hdr0": hdr, "headers": [],
-                "poc": self.poc_ctx.compute(hdr, sps), "t0": t0,
-                "parse_s": 0.0, "refs": {}, "mb_succ": None, "wps": [],
+                "pic": pic, "sps": sps, "pps": pps, "hdr0": hdr,
+                "headers": [], "poc": self.poc_ctx.compute(hdr, sps),
+                "t0": t0, "parse_s": 0.0, "refs": {}, "mb_succ": None,
+                "wps": [], "parity": hdr.bottom_field_flag if fld else None,
             }
             if pps.num_slice_groups_minus1 > 0:
                 # FMO: each slice walks its slice group's MBs
@@ -231,7 +261,13 @@ class H264Decoder:
 
         lst, lst1 = [], []
         nact = hdr.num_ref_idx_l0_active_minus1 + 1
-        if hdr.slice_type == SliceType.P:
+        if fld and hdr.slice_type == SliceType.P:
+            max_fn = sps.max_frame_num
+            lst = field_ref_list_p(
+                self._field_refs, cur["parity"],
+                lambda f: f.frame_num - max_fn
+                if f.frame_num > hdr.frame_num else f.frame_num)[:nact]
+        elif hdr.slice_type == SliceType.P:
             lst = self.dpb.reorder_list(self.dpb.ref_list_p(hdr.frame_num),
                                         hdr.ref_pic_list_mod_l0,
                                         hdr.frame_num, nact)
@@ -292,11 +328,13 @@ class H264Decoder:
         cur["parse_s"] += time.perf_counter() - t0
 
     def _is_new_picture(self, hdr) -> bool:
-        """ldecod/src/image.c:2276 is_new_picture, for frame pictures."""
+        """ldecod/src/image.c:2276 is_new_picture."""
         if self._cur is None:
             return True
         h0 = self._cur["hdr0"]
         return (hdr.frame_num != h0.frame_num
+                or hdr.field_pic_flag != h0.field_pic_flag
+                or hdr.bottom_field_flag != h0.bottom_field_flag
                 or hdr.pic_parameter_set_id != h0.pic_parameter_set_id
                 or hdr.is_idr != h0.is_idr
                 or (hdr.is_idr and hdr.idr_pic_id != h0.idr_pic_id)
@@ -332,7 +370,7 @@ class H264Decoder:
         return torch.as_tensor(a, device=self.device)
 
     def _inter_recon(self, pic, refs, tabs, inter, qp, mv, is_b, wps, bd,
-                     ll):
+                     ll, parity=None):
         """Device residual decode + inter recon of the inter MBs (qp, mv:
         the picture's, on the device). refs: the picture's reference
         frames; each MB's reference is found by uid, so slices with
@@ -340,7 +378,9 @@ class H264Decoder:
         blocks predict from list 0, list 1 or both. wps: each slice's
         WPParams; the weights are indexed by slice, list and ref_idx, not
         by the stack (decoder/wp.block_tables). bd: the (luma, chroma) bit
-        depths; ll: the (N,) bool mask of lossless MBs, or None."""
+        depths; ll: the (N,) bool mask of lossless MBs, or None; parity:
+        a field picture's (0 top, 1 bottom), whose reference fields of the
+        other parity move its chroma vectors, else None."""
         tabY, tabU, tabV, qpc_cb, qpc_cr, tab8 = tabs
         up = self._upload
         t8 = {}
@@ -351,7 +391,8 @@ class H264Decoder:
             up(pic.luma_coef), up(pic.chroma_dc), up(pic.chroma_coef),
             qp, tabY, tabU, tabV, qpc_cb, qpc_cr,
             mb_w=pic.mb_w, mb_h=pic.mb_h, bd=bd,
-            lossless=None if ll is None else up(ll), **t8)
+            lossless=None if ll is None else up(ll), field=pic.field_mode,
+            **t8)
 
         def stack_idx(pid):
             idx = np.full(pid.shape, -1, np.int32)
@@ -370,9 +411,15 @@ class H264Decoder:
                 stack_idx(pic.ref_pic_id_l1), up(pic.pdir), res_l, res_c,
                 *stacks, up(inter), mb_w=pic.mb_w, mb_h=pic.mb_h, wp=wp,
                 bd=bd)
+        chroma_dy = None
+        if parity is not None:
+            chroma_dy = up(np.array([(-2 if parity == 0 else 2)
+                                     if f.parity not in (None, parity)
+                                     else 0 for f in refs], np.int32))
         return D.inter_recon_p(mv, stack_idx(pic.ref_pic_id), res_l, res_c,
                                *stacks, up(inter), mb_w=pic.mb_w,
-                               mb_h=pic.mb_h, wp=wp, bd=bd)
+                               mb_h=pic.mb_h, wp=wp, bd=bd,
+                               chroma_dy=chroma_dy)
 
     def _reconstruct(self, pic, cur, rec):
         """Reconstruct, deblock and prep one parsed picture; fills the
@@ -391,17 +438,18 @@ class H264Decoder:
         up = self._upload
         t = time.perf_counter()
         qp, mv = up(pic.qp), up(pic.mv)
+        par = cur["parity"]
         if inter.all():
             rec["path"] = "inter"
             Y, U, V = self._inter_recon(pic, refs, tabs, inter, qp, mv, is_b,
-                                        cur["wps"], bd, ll)
+                                        cur["wps"], bd, ll, par)
         else:
             seed = None
             if inter.any():
                 rec["path"] = "mixed"
                 seed = [p.cpu().numpy() for p in self._inter_recon(
                     pic, refs, tabs, inter, qp, mv, is_b, cur["wps"], bd,
-                    ll)]
+                    ll, par)]
             else:
                 rec["path"] = "intra"
             t1 = time.perf_counter()
@@ -418,7 +466,7 @@ class H264Decoder:
         bs_v, bs_h = compute_bs(
             up(pic.mb_class), up(pic.luma_nnz), t8, mv,
             up(pic.mv_l1), up(pic.ref_pic_id), up(pic.ref_pic_id_l1),
-            pic.mb_w, pic.mb_h)
+            pic.mb_w, pic.mb_h, field=pic.field_mode)
         disable = np.zeros(n, np.int32)
         a_off = np.zeros(n, np.int32)
         b_off = np.zeros(n, np.int32)
@@ -453,6 +501,11 @@ class H264Decoder:
             raise NotImplementedError(
                 f"out of scope: missing slices (concealment): {lost} "
                 "macroblocks of the picture were not coded")
+        if cur["parity"] is not None and \
+                hdr0.adaptive_ref_pic_marking_mode_flag:
+            # field PicNums count fields (spec 8.2.5.4): not covered, as in
+            # jm_tpu, which raises once the field is decoded (decoder.py:816)
+            raise NotImplementedError("out of scope: field MMCO")
         rec = {"type": hdr0.slice_type.name, "parse_s": cur["parse_s"],
                "host_recon_s": 0.0, "device_s": 0.0}
         Y, U, V, state = self._reconstruct(pic, cur, rec)
@@ -463,6 +516,14 @@ class H264Decoder:
             del self._primary_keys[:-32]
         motion = (pic.mv, pic.ref_idx, pic.mv_l1, pic.ref_idx_l1,
                   pic.ref_pic_id, pic.ref_pic_id_l1)
+        if cur["parity"] is not None:
+            self._finish_field(cur, Frame(
+                poc=cur["poc"], frame_num=hdr0.frame_num, state=state,
+                is_ref=hdr0.nal_ref_idc != 0, motion=motion,
+                parity=cur["parity"]), (Y, U, V))
+            rec["seconds"] = time.perf_counter() - cur["t0"]
+            self.pictures.append(rec)
+            return
         self.dpb.store(Frame(poc=cur["poc"], frame_num=hdr0.frame_num,
                              state=state, is_ref=hdr0.nal_ref_idc != 0,
                              motion=motion),
@@ -476,18 +537,51 @@ class H264Decoder:
         rec["seconds"] = time.perf_counter() - cur["t0"]
         self.pictures.append(rec)
 
+    # ---- PAFF field pictures (jm_tpu decoder.py:777-853) ---------------
+
+    def _finish_field(self, cur, field: Frame, planes) -> None:
+        """Store a decoded field: a uid of its own; an IDR empties the
+        reference fields; a reference field joins them under the sliding
+        window of frame units (a complementary pair or an unpaired field
+        is one unit; spec 8.2.5.3, max_num_ref_frames units kept). The
+        second field of a frame (same frame_num, the other parity) is
+        woven with the first into the output frame, of the smaller POC;
+        planes: the field's deblocked host (Y, U, V)."""
+        field.uid = self._field_uid
+        self._field_uid += 1
+        if cur["hdr0"].is_idr:
+            self._field_refs = []
+        if field.is_ref:
+            self._field_refs = field_window([field] + self._field_refs,
+                                            cur["sps"].max_num_ref_frames)
+        pend, self._pending_field = self._pending_field, None
+        if pend is None or pend[0].frame_num != field.frame_num \
+                or pend[0].parity == field.parity:
+            self._pending_field = (field, planes)
+            return
+        top, bot = (pend, (field, planes)) if pend[0].parity == 0 \
+            else ((field, planes), pend)
+        woven = []
+        for a, b in zip(top[1], bot[1]):
+            w = np.empty((2 * a.shape[0], a.shape[1]), a.dtype)
+            w[0::2], w[1::2] = a, b
+            woven.append(w)
+        self._outputs.append(DecodedFrame(
+            min(top[0].poc, bot[0].poc), *_crop_output(cur["sps"], *woven)))
+
 
 def _crop_output(sps, Y, U, V):
     """Apply the SPS frame cropping of a 4:2:0 or 4:2:2 frame (spec
-    7.4.2.1.1: CropUnitX = 2, CropUnitY = SubHeightC, 2 at 4:2:0 and 1 at
-    4:2:2)."""
+    7.4.2.1.1: CropUnitX = 2, CropUnitY = SubHeightC (2 at 4:2:0, 1 at
+    4:2:2) times 2 - frame_mbs_only_flag)."""
     if not sps.frame_cropping_flag:
         return Y, U, V
     sub_h = 1 if sps.chroma_format_idc == 2 else 2
+    unit_y = sub_h * (2 - sps.frame_mbs_only_flag)
     left = 2 * sps.frame_crop_left_offset
     right = 2 * sps.frame_crop_right_offset
-    top = sub_h * sps.frame_crop_top_offset
-    bot = sub_h * sps.frame_crop_bottom_offset
+    top = unit_y * sps.frame_crop_top_offset
+    bot = unit_y * sps.frame_crop_bottom_offset
     H, W = Y.shape
     return (Y[top:H - bot, left:W - right],
             U[top // sub_h:(H - bot) // sub_h, left // 2:(W - right) // 2],

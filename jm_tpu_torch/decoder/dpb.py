@@ -32,6 +32,7 @@ class Frame:
     long_term_frame_idx: int = -1
     uid: int = -1            # unique decode-order id (deblock bS compare)
     motion: tuple | None = None
+    parity: int | None = None    # a reference field's (0 top, 1 bottom)
 
 
 class DPB:
@@ -155,3 +156,42 @@ class DPB:
             lst.remove(target)
             lst.insert(idx, target)
         return lst[:num_active]
+
+
+# ---- reference fields of PAFF streams (spec 8.2.4.2.5, 8.2.5.3) -----------
+
+def field_ref_list_p(fields, parity: int, frame_num_wrap) -> list:
+    """Initial list0 of a P field (spec 8.2.4.2.2 + 8.2.4.2.5; jm_tpu
+    decoder.py:779-804, encoder.py:1051-1076): the short-term reference
+    fields (newest first) in frame units by FrameNumWrap
+    (frame_num_wrap(field)) descending, taken alternately by parity
+    starting with the current one, each parity's rest appended when the
+    other runs out."""
+    units: dict = {}
+    for f in fields:
+        if not f.is_long_term:
+            units.setdefault(frame_num_wrap(f), []).append(f)
+    order = [f for k in sorted(units, reverse=True) for f in units[k]]
+    same = [f for f in order if f.parity == parity]
+    opp = [f for f in order if f.parity != parity]
+    out = []
+    for i in range(max(len(same), len(opp))):
+        out += same[i:i + 1] + opp[i:i + 1]
+    return out
+
+
+def field_window(fields, max_frames: int) -> list:
+    """The reference fields (newest first) the sliding window keeps: at
+    most max(1, max_frames) frame units, a complementary pair (same
+    frame_num, both parities, one after the other) or an unpaired field
+    being one unit, the oldest units dropped (spec 8.2.5.3; jm_tpu
+    decoder.py:817-830, encoder.py:1146-1165)."""
+    units = []
+    for f in fields:
+        if units and len(units[-1]) == 1 \
+                and f.frame_num == units[-1][0].frame_num \
+                and f.parity != units[-1][0].parity:
+            units[-1].append(f)
+        else:
+            units.append([f])
+    return [f for u in units[:max(1, max_frames)] for f in u]

@@ -1,6 +1,8 @@
 """Slice header parsing (spec 7.3.3), POC derivation (spec 8.2.1) and the
 decoder's scope check; twin of jm_tpu/decoder/header.py for frame
-pictures of I, P and B slices, CAVLC or CABAC (ldecod/src/header.c
+pictures of I, P and B slices, CAVLC or CABAC, and the field pictures of
+PAFF streams (field_pic_flag, bottom_field_flag) of CAVLC I and P slices
+at 4:2:0 and 8 bits (ldecod/src/header.c
 FirstPartOfSliceHeader:76, RestOfSliceHeader:113,
 ref_pic_list_reordering:350, decode_poc:720).
 
@@ -10,8 +12,10 @@ and long-term (idc 2) commands, and dec_ref_pic_marking (an IDR's
 long_term_reference_flag, MMCO ops 1-6; ldecod header.c
 dec_ref_pic_marking:635). What the decoder does not cover raises
 NotImplementedError naming the construct, before the slice's picture is
-decoded: ``check_scope`` for what the SPS / PPS declare, the header
-parse for SP / SI slices. A B slice adds direct_spatial_mv_pred_flag,
+decoded: ``check_scope`` for what the SPS / PPS declare, ``check_field``
+for MBAFF frames and what field pictures do not cover, the header parse
+for SP / SI slices and a field's list modification (a field's MMCO
+raises when its picture is finished, as in jm_tpu). A B slice adds direct_spatial_mv_pred_flag,
 num_ref_idx_l1_active_minus1 and the list-1 modification commands; a P
 slice of a PPS with weighted_pred_flag, and a B slice of one with
 weighted_bipred_idc 1, the pred_weight_table (spec 7.3.3.2).
@@ -34,10 +38,37 @@ def check_scope(sps: SPS, pps: PPS) -> None:
                    "(4:2:0 and 4:2:2 only)")
     if sps.bit_depth_luma_minus8 > 6 or sps.bit_depth_chroma_minus8 > 6:
         out.append("bit depth above 14 (no conforming profile)")
-    if not sps.frame_mbs_only_flag:
-        out.append("fields / MBAFF (frame_mbs_only_flag 0)")
     if pps.constrained_intra_pred_flag:
         out.append("constrained intra prediction")
+    if out:
+        raise NotImplementedError("out of scope: " + ", ".join(out))
+
+
+def check_field(h: SliceHeader, sps: SPS, pps: PPS) -> None:
+    """Raise NotImplementedError naming what this slice's picture
+    structure needs and the decoder does not cover: MBAFF frames (an SPS
+    with mb_adaptive_frame_field_flag, as in jm_tpu), and of field
+    pictures CABAC and B slices (as in jm_tpu), 4:2:2 and bit depths above
+    8 (no stream to hold them against), and the 8x8 transform, whose
+    field scan jm_tpu does not apply (jm_tpu/decoder/recon.py:231
+    inverse-scans 8x8 blocks with the frame zig-zag; spec 8.5.7)."""
+    if sps.mb_adaptive_frame_field_flag and not h.field_pic_flag:
+        raise NotImplementedError("out of scope: MBAFF frames "
+                                  "(mb_adaptive_frame_field_flag)")
+    if not h.field_pic_flag:
+        return
+    out = []
+    if pps.entropy_coding_mode_flag:
+        out.append("CABAC field pictures")
+    if h.slice_type == SliceType.B:
+        out.append("B field pictures")
+    if sps.chroma_format_idc != 1:
+        out.append("field pictures at 4:2:2")
+    if sps.bit_depth_luma_minus8 or sps.bit_depth_chroma_minus8:
+        out.append("field pictures above 8 bits")
+    if pps.transform_8x8_mode_flag:
+        out.append("field pictures with the 8x8 transform (8x8 field "
+                   "scan)")
     if out:
         raise NotImplementedError("out of scope: " + ", ".join(out))
 
@@ -64,16 +95,22 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
     check_scope(sps, pps)
 
     h.frame_num = br.u(sps.log2_max_frame_num_minus4 + 4)
+    if not sps.frame_mbs_only_flag:
+        h.field_pic_flag = br.flag()
+        if h.field_pic_flag:
+            h.bottom_field_flag = br.flag()
+    check_field(h, sps, pps)
+    frame_pic = not h.field_pic_flag
     if h.is_idr:
         h.idr_pic_id = br.ue()
     if sps.pic_order_cnt_type == 0:
         h.pic_order_cnt_lsb = br.u(sps.log2_max_pic_order_cnt_lsb_minus4 + 4)
-        if pps.bottom_field_pic_order_in_frame_present_flag:
+        if pps.bottom_field_pic_order_in_frame_present_flag and frame_pic:
             h.delta_pic_order_cnt_bottom = br.se()
     elif sps.pic_order_cnt_type == 1 and not sps.delta_pic_order_always_zero_flag:
         d0 = br.se()
         d1 = 0
-        if pps.bottom_field_pic_order_in_frame_present_flag:
+        if pps.bottom_field_pic_order_in_frame_present_flag and frame_pic:
             d1 = br.se()
         h.delta_pic_order_cnt = (d0, d1)
     if pps.redundant_pic_cnt_present_flag:
@@ -91,6 +128,11 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
                 h.num_ref_idx_l1_active_minus1 = br.ue()
         if br.flag():  # ref_pic_list_modification_flag_l0 (7.3.3.1)
             h.ref_pic_list_mod_l0 = _read_rplm(br)
+            if h.field_pic_flag:
+                # field PicNums count fields (spec 8.2.4.3): not covered,
+                # as in jm_tpu (decoder.py:226-229)
+                raise NotImplementedError(
+                    "out of scope: field ref_pic_list_modification")
     if st == SliceType.B and br.flag():     # ..._flag_l1
         h.ref_pic_list_mod_l1 = _read_rplm(br)
 
@@ -192,7 +234,8 @@ def _read_mmco(br: BitReader) -> list[MMCOOp]:
 
 
 class PocContext:
-    """POC derivation state machine (spec 8.2.1) of frame pictures."""
+    """POC derivation state machine (spec 8.2.1) of frame and field
+    pictures (a field's POC is computed as a frame's, as jm_tpu does)."""
 
     def __init__(self) -> None:
         self.msb = 0

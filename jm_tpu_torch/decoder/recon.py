@@ -1,6 +1,6 @@
 """Host reconstruction of a decoded picture's intra macroblocks, twin of
 jm_tpu/decoder/recon.py for 4:2:0 and 4:2:2 frame pictures of 8 to 14
-bits with the 4x4 and the 8x8 transform and scaling matrices
+bits and 8-bit 4:2:0 field pictures (their levels in the field scan) with the 4x4 and the 8x8 transform and scaling matrices
 (ldecod/src/macroblock.c decode_one_macroblock:1402, block.c itrans4x4 /
 itrans_2 / itrans8x8), and the lossless macroblocks of
 qpprime_y_zero_transform_bypass_flag (QP'Y 0: the levels are the
@@ -28,7 +28,8 @@ from .. import native as N
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, RASTER2CODE
 from ..common.tables import (DEQUANT_SCALE_4x4, DEQUANT_SCALE_8x8,
-                             SCAN_YUV422, ZIGZAG_4x4, ZIGZAG_8x8, chroma_qp)
+                             SCAN_YUV422, ZIGZAG_4x4, ZIGZAG_8x8, chroma_qp,
+                             scan_4x4)
 from ..ops.transform import inv8_1d, split_8x8
 from . import intra_pred as I
 
@@ -40,10 +41,11 @@ def _rshift_rnd_sf(x, a: int):
     return (x + (1 << (a - 1))) >> a
 
 
-def _inv_scan_4x4(coef_scan: np.ndarray) -> np.ndarray:
-    """(..., 16) zig-zag scan order -> (..., 4, 4) raster."""
+def _inv_scan_4x4(coef_scan: np.ndarray, field: bool = False) -> np.ndarray:
+    """(..., 16) scan order -> (..., 4, 4) raster: the zig-zag of a frame
+    picture, the field scan of a field picture (spec 8.5.6)."""
     out = np.zeros_like(coef_scan)
-    out[..., _ZZ] = coef_scan
+    out[..., scan_4x4(field)] = coef_scan
     return out.reshape(*coef_scan.shape[:-1], 4, 4)
 
 
@@ -149,15 +151,16 @@ def decode_residuals(pic: PictureData, pps, bd=(8, 8), lossless=None):
     tab4 = build_inv_scale(pps)
     intra = pic.mb_class != MB_INTER
     per = qp // 6
+    fld = pic.field_mode
 
     # ---- luma: intra -> list 0, inter -> list 3 ----
-    raster = _inv_scan_4x4(pic.luma_coef)                       # (n, 16, 4, 4)
+    raster = _inv_scan_4x4(pic.luma_coef, fld)                  # (n, 16, 4, 4)
     scale_y = tab4[np.where(intra, 0, 3), qp].astype(np.int64)  # (n, 4, 4)
     deq = _rshift_rnd_sf((raster.astype(np.int64) * scale_y[:, None])
                          << per[:, None, None, None], 4).astype(np.int32)
     i16 = pic.mb_class == MB_I16
     if i16.any():
-        dc_t = _np_hadamard4(_inv_scan_4x4(pic.luma_dc))       # (n, 4, 4)
+        dc_t = _np_hadamard4(_inv_scan_4x4(pic.luma_dc, fld))  # (n, 4, 4)
         scale = scale_y[:, 0, 0][:, None, None]
         dc_s = _rshift_rnd_sf((dc_t * scale) << per[:, None, None],
                               6).astype(np.int32)
@@ -172,8 +175,8 @@ def decode_residuals(pic: PictureData, pps, bd=(8, 8), lossless=None):
         if i16.any():
             blk = np.arange(16)
             ll_dc = ll_res.copy()
-            ll_dc[:, blk, 0, 0] = _inv_scan_4x4(pic.luma_dc)[:, blk // 4,
-                                                             blk % 4]
+            ll_dc[:, blk, 0, 0] = _inv_scan_4x4(pic.luma_dc, fld)[
+                :, blk // 4, blk % 4]
             ll_res = np.where(i16[:, None, None, None], ll_dc, ll_res)
         res_luma = np.where(lossless[:, None, None, None], ll_res, res_luma)
 
@@ -198,7 +201,8 @@ def decode_residuals(pic: PictureData, pps, bd=(8, 8), lossless=None):
     qpc = np.array([[chroma_qp(int(q), pps.cb_qp_offset, bd[1]),
                      chroma_qp(int(q), pps.cr_qp_offset, bd[1])]
                     for q in pic.qp], np.int64).reshape(n, 2) + cbdo
-    c_raster = _inv_scan_4x4(pic.chroma_coef).astype(np.int64)  # (n,2,4,4,4)
+    c_raster = _inv_scan_4x4(pic.chroma_coef, fld) \
+        .astype(np.int64)                                       # (n,2,4,4,4)
     scale_c = np.stack([tab4[np.where(intra, 1, 4), qpc[:, 0]],
                         tab4[np.where(intra, 2, 5), qpc[:, 1]]],
                        axis=1).astype(np.int64)                 # (n, 2, 4, 4)

@@ -7,7 +7,8 @@ encoder/qmatrix.QuantCtx, the 4x4 or the adaptive 8x8 transform, the
 trellis (rdoq: the 4x4 blocks, and the 8x8 blocks in CABAC, while the
 coder's IntraMBCoder._rdoq_on holds) and forced I_PCM (enable_ipcm 2).
 InterMBCoder holds the motion compensation and the inter residual that
-the P macroblock coder (encoder/p_host.py) shares.
+the P macroblock coder (encoder/p_host.py) shares, with a field
+picture's chroma offset for reference fields of the other parity.
 
 Per MB, in slice order (serial host code, as in jm_tpu):
   - spatial direct: its motion (decoder/b_slice.py) and its prediction,
@@ -39,6 +40,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native as N
 from ..common.picture import MB_I16, MB_INTER
 from ..common.predict_ctx import CODE2RASTER
 from ..common.types import SliceType
@@ -57,31 +59,83 @@ class HostRef:
     padU: np.ndarray
     padV: np.ndarray
     uid: int
+    parity: int | None = None       # a reference field's, else None
 
 
 class InterMBCoder(IntraMBCoder):
     """The inter side of a host MB coder: a reference's 4x4 motion
     compensation and the inter residual, over the IntraMBCoder state (and
     w / h, the picture's luma size; transform8x8: the PPS's
-    transform_8x8_mode_flag)."""
+    transform_8x8_mode_flag). ``native_me``: the integer full search's
+    arg-min, the fractional refinement and the 4x4 blocks' motion
+    compensation by the native runtime (jm_enc.cpp int_search,
+    subpel_refine, mc_blk); False: their numpy twins in encoder/me.py,
+    which give the same MVs, costs and predictions."""
 
     transform8x8 = False
+    native_me = True
+
+    def _int_mv(self, table, cols, pred_mv):
+        """The integer MV of least SAD (table's columns cols summed: one
+        MB's row of a full-search table, (2 sr + 1)^2 displacements) plus
+        lambda-weighted mvd bits against pred_mv, with the spiral
+        tie-break."""
+        if self.native_me:
+            return np.array(N.load().int_search(
+                table, cols, (int(pred_mv[0]), int(pred_mv[1]), self.sr),
+                int(self.lam)), np.int32)
+        csum = ((table if table.ndim == 1 else table[:, list(cols)])
+                .astype(np.int64).reshape(len(table), -1).sum(axis=1)
+                + ME.int_rate_tab(pred_mv, self.sr, self.lam))
+        return ME.best_int_mv_tiebreak(
+            csum, ME.spiral_rank_tab(pred_mv, self.sr), self.sr)
+
+    def _subpel(self, orig_blk, ref: HostRef, px: int, py: int, mv,
+                pred_mv, extra_bits: int = 0, qpel_start: bool = False):
+        """encoder/me.py subpel_refine of one block (orig_blk, at luma
+        (px, py)) around mv on ref: (quarter-pel MV, cost)."""
+        if not (self.native_me and ref.planes.dtype == np.uint8
+                and orig_blk.dtype == np.uint8):
+            return ME.subpel_refine(orig_blk, ref.planes, px, py, mv, self.w,
+                                    self.h, pred_mv, self.lam,
+                                    extra_bits=extra_bits,
+                                    use_satd=self.satd,
+                                    qpel_start=qpel_start)
+        mx, my, cost = N.load().subpel_refine(
+            orig_blk, ref.planes,
+            (px, py, int(mv[0]), int(mv[1]), self.w, self.h,
+             int(pred_mv[0]), int(pred_mv[1]), int(extra_bits),
+             int(bool(self.satd)), int(qpel_start)), int(self.lam))
+        return np.array([mx, my], np.int32), cost
 
     def _mc_blk(self, ref: HostRef, px, py, bx, by, mv):
         """One 4x4 luma block and its chroma blocks from one reference
         (the decoder's per-4x4 motion compensation): 2x2 at 4:2:0; 2 wide
         and 4 tall at 4:2:2, where the vertical chroma displacement is the
-        luma MV in quarter samples (jm_tpu _mc_chroma, encoder.py:3326)."""
+        luma MV in quarter samples (jm_tpu _mc_chroma, encoder.py:3326).
+        In a field picture a reference field of the other parity moves
+        the 4:2:0 chroma vector by -2 (top field) or +2 (bottom) quarter
+        samples (spec 8.4.1.4; jm_tpu encoder.py:3331-3339)."""
         mvx, mvy = int(mv[0]), int(mv[1])
-        yb = ME.mc_luma_block(ref.planes, (px + bx * 4) * 4 + mvx,
-                              (py + by * 4) * 4 + mvy, 4, 4, self.w, self.h)
+        x4, y4 = (px + bx * 4) * 4 + mvx, (py + by * 4) * 4 + mvy
         cx8 = (px // 2 + bx * 2) * 8 + mvx
         if self.crows == 2:
             cy8 = (py // 2 + by * 2) * 8 + mvy
+            if self.cur_parity is not None and ref.parity is not None \
+                    and ref.parity != self.cur_parity:
+                cy8 += -2 if self.cur_parity == 0 else 2
         else:
             cy8 = (py + by * 4) * 8 + 2 * mvy
         cw, ch, cbh = self.w // 2, self.ch * self.mb_h, self.crows
-        return (yb, ME.mc_chroma_block(ref.padU, cx8, cy8, 2, cbh, cw, ch),
+        if self.native_me and ref.planes.dtype == np.uint8:
+            out = (np.empty((4, 4), np.int32), np.empty((cbh, 2), np.int32),
+                   np.empty((cbh, 2), np.int32))
+            N.load().mc_blk(ref.planes, ref.padU, ref.padV,
+                            (x4, y4, 4, 4, self.w, self.h, cx8, cy8, 2, cbh,
+                             cw, ch), *out)
+            return out
+        return (ME.mc_luma_block(ref.planes, x4, y4, 4, 4, self.w, self.h),
+                ME.mc_chroma_block(ref.padU, cx8, cy8, 2, cbh, cw, ch),
                 ME.mc_chroma_block(ref.padV, cx8, cy8, 2, cbh, cw, ch))
 
     # ---- residual ---------------------------------------------------------
@@ -109,7 +163,7 @@ class InterMBCoder(IntraMBCoder):
                                                  intra=False)
                 pic.luma_nnz[addr, blk] = int((scan4[blk] != 0).sum())
         else:
-            scan4 = RN.to_scan(self._q4(w4, self.qp, False))
+            scan4 = RN.to_scan(self._q4(w4, self.qp, False), self.scan)
         total = 0
         for qb in ME.QUAD_BLKS:
             cq = sum(RN.coeff_cost_scan(scan4[b]) for b in qb)
@@ -124,7 +178,7 @@ class InterMBCoder(IntraMBCoder):
         pred_blocks = pred_y.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
             .reshape(16, 4, 4)
         rec = RN.recon_luma_4x4(pred_blocks, scan4, self.qp,
-                                tab=self._itab4(False)) \
+                                tab=self._itab4(False), scan=self.scan) \
             .reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
         if self.transform8x8 and (int(pic.inter_mode[addr]) != 3
                                   or not pic.sub_mode[addr].any()):
@@ -298,13 +352,9 @@ class BPicture(InterMBCoder):
         if self.searchers is not None:
             imv = self.searchers[lst].search(addr, 0, (0, 1, 2, 3), pred_mv)
         else:
-            csum = (self.sads[lst][addr].astype(np.int64)
-                    + ME.int_rate_tab(pred_mv, self.sr, self.lam))
-            imv = ME.best_int_mv_tiebreak(
-                csum, ME.spiral_rank_tab(pred_mv, self.sr), self.sr)
-        qmv, cost = ME.subpel_refine(origY_mb, self.refs[lst].planes, px, py,
-                                     imv, self.w, self.h, pred_mv, self.lam,
-                                     use_satd=self.satd)
+            imv = self._int_mv(self.sads[lst][addr], (), pred_mv)
+        qmv, cost = self._subpel(origY_mb, self.refs[lst], px, py, imv,
+                                 pred_mv)
         return qmv, cost, pred_mv
 
     def _encode_b_mb(self, addr: int) -> None:

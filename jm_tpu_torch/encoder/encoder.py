@@ -129,6 +129,20 @@ only the host serializer changes (encoder/syntax_cabac.py, with the
 cabac_init_idc of each P or B slice the shortest of the three when
 cabac_adapt_init is set, and the cabac_zero_words of clause 7.4.2.10).
 
+With pic_interlace=1 every frame is coded as two field pictures, the
+top (even lines) then the bottom one (jm_tpu's "field coding v1",
+encoder.py:255-276, :1049-1188: CAVLC 4:2:0 IPPP of one slice, a height
+that is a multiple of 32; every other option jm_tpu refuses raises
+NotImplementedError): an SPS without frame_mbs_only_flag whose map units
+are field MB rows; the top field of an IDR frame an IDR I field, every
+other field a P field at qp over the first 2 num_ref reference fields
+(frame units by FrameNumWrap descending, the parities alternating from
+its own), coded by the host coders with the field scan and the chroma
+offset of the reference fields of the other parity, deblocked by the
+kernels with the field bS rules, kept under a sliding window of frame
+units. qp_p, rd_picture_decision, intra_mb_refresh, the user-data SEI,
+ref_reorder and poc_mem_mgmt act nowhere there, as in jm_tpu.
+
 The encoder runs on CUDA unless the caller passes device="cpu"; without a
 card a CUDA request raises.
 """
@@ -151,6 +165,7 @@ from ..common.tables import chroma_qp
 from ..common.types import PPS, SPS, SliceType
 from ..convert import qpc_tables
 from ..decoder.b_slice import ColMotion, ref_lists_b
+from ..decoder.dpb import field_ref_list_p, field_window
 from ..device import resolve
 from ..ops import enc as E
 from ..ops.deblock import compute_bs, deblock
@@ -213,7 +228,8 @@ class EncoderConfig:
     (4:2:2) without data partitioning, and scaling matrices with data
     partitioning (profile 88); redundant pictures with data partitioning or
     with B pictures, and the 8x8 transform with data partitioning, raise
-    NotImplementedError naming the field.
+    NotImplementedError naming the field; pic_interlace=1 (field
+    pictures) with what jm_tpu's field coder refuses too.
 
     The defaults differ from jm_tpu's in two fields: jm_tpu codes every
     picture on the host by default (pipeline="host") with md_low
@@ -346,6 +362,10 @@ class EncoderConfig:
                                  # (NumberOfDecoders / LossRateA)
     chroma_format: int = 1       # 1 4:2:0, 2 4:2:2 (High 4:2:2 profile;
                                  # U / V of (height, width / 2))
+    pic_interlace: int = 0       # 1: every frame coded as two field
+                                 # pictures, top then bottom (lencod
+                                 # PicInterlace = 1; CAVLC 4:2:0 IPPP, one
+                                 # slice, height % 32 == 0)
 
 
 def _profile(cfg: EncoderConfig) -> int:
@@ -365,7 +385,45 @@ def _profile(cfg: EncoderConfig) -> int:
     return 66
 
 
+def _check_field_config(cfg: EncoderConfig) -> None:
+    """pic_interlace (0 or 1), and jm_tpu's field coding refusals
+    (encoder.py:255-276, checked there before anything else): a height
+    not a multiple of 32, and every option outside CAVLC 4:2:0 IPPP of
+    one slice raise NotImplementedError."""
+    if cfg.pic_interlace not in (0, 1) or isinstance(cfg.pic_interlace,
+                                                     bool):
+        raise ValueError(f"EncoderConfig.pic_interlace={cfg.pic_interlace!r}"
+                         ": 0 or 1")
+    if not cfg.pic_interlace:
+        return
+    if cfg.height % 32:
+        raise NotImplementedError(
+            f"EncoderConfig.pic_interlace: field coding needs a height that "
+            f"is a multiple of 32 (not {cfg.height})")
+    if (cfg.num_b or cfg.entropy != "cavlc" or cfg.chroma_format != 1
+            or cfg.data_partition or cfg.slice_mode
+            or cfg.num_slice_groups > 1 or cfg.weighted_pred
+            or cfg.rc_enable or cfg.transform8x8 or cfg.rdoq
+            or cfg.long_term_period or cfg.poc_type):
+        raise NotImplementedError(
+            "EncoderConfig.pic_interlace: field coding covers CAVLC 4:2:0 "
+            "IPPP of one slice (no B pictures, CABAC, 4:2:2, data "
+            "partitioning, slice modes, FMO, weighted prediction, rate "
+            "control, 8x8 transform, trellis, long-term anchors or POC "
+            "types 1 / 2)")
+    if cfg.redundant_period:
+        raise NotImplementedError(
+            "EncoderConfig.redundant_period: redundant pictures: IPPP "
+            "single-view frame coding only (not with pic_interlace, as in "
+            "jm_tpu)")
+
+
 def _check_config(cfg: EncoderConfig) -> None:
+    if cfg.width <= 0 or cfg.height <= 0 or cfg.width % 16 \
+            or cfg.height % 16:
+        raise ValueError(f"EncoderConfig.width/height {cfg.width}x"
+                         f"{cfg.height}: positive multiples of 16 only")
+    _check_field_config(cfg)
     for name in ("device_rd", "cabac_adapt_init", "rc_enable", "deblock",
                  "enable_vui", "transform8x8", "adaptive_rounding", "sub8x8",
                  "subpel_satd", "hme", "rd_picture_decision"):
@@ -382,10 +440,6 @@ def _check_config(cfg: EncoderConfig) -> None:
     if cfg.intra_mb_refresh < 0:
         raise ValueError(f"EncoderConfig.intra_mb_refresh="
                          f"{cfg.intra_mb_refresh}: must be >= 0")
-    if cfg.width <= 0 or cfg.height <= 0 or cfg.width % 16 \
-            or cfg.height % 16:
-        raise ValueError(f"EncoderConfig.width/height {cfg.width}x"
-                         f"{cfg.height}: positive multiples of 16 only")
     if not 0 <= cfg.qp <= 51:
         raise ValueError(f"EncoderConfig.qp={cfg.qp}: outside 0..51")
     if cfg.qp_p is not None and not 0 <= cfg.qp_p <= 51:
@@ -598,6 +652,7 @@ class Picture:
         self.uid = uid
         self.is_long_term = False
         self.long_term_frame_idx = -1
+        self.parity = None            # a field's (0 top, 1 bottom)
         self._planes = planes
         # (mv, ref_idx, mv_l1, ref_idx_l1, ref_pic_id, ref_pic_id_l1) of
         # the coded picture, for the direct prediction of the B pictures
@@ -609,7 +664,7 @@ class Picture:
         """The reference state downloaded for the host B coder (once)."""
         if self._host_ref is None:
             self._host_ref = HostRef(*(t.cpu().numpy() for t in self.state),
-                                     self.uid)
+                                     self.uid, self.parity)
         return self._host_ref
 
     @property
@@ -654,14 +709,18 @@ class Encoder:
     I pictures mb_classes: the MBs coded Intra4x4, Intra16x16 and I_PCM;
     with rd_picture_decision, for each picture after the first, trials:
     each coding's QP, bytes, frame J and wall ms, the QP shipped being
-    ``qp``). ``refs`` is the DPB, most recent first."""
+    ``qp``; with pic_interlace one dict per field picture, with its
+    parity, and for P fields mix and mb_parts). ``refs`` is the DPB, most
+    recent first (with pic_interlace the reference fields)."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
         self.cfg = cfg
         self.device = resolve(device, "Encoder")
         self.mb_w = cfg.width // 16
-        self.mb_h = cfg.height // 16
+        # with pic_interlace every coded picture is a field: the SPS's map
+        # units, the level and the slice plan count field MB rows
+        self.mb_h = cfg.height // (32 if cfg.pic_interlace else 16)
         n_refs = max(cfg.num_ref, 2 if cfg.num_b else 1)
         try:
             level_check(self.mb_w, self.mb_h, cfg.frame_rate, cfg.level_idc,
@@ -695,7 +754,8 @@ class Encoder:
             max_num_ref_frames=self.dpb_size,
             pic_width_in_mbs_minus1=self.mb_w - 1,
             pic_height_in_map_units_minus1=self.mb_h - 1,
-            chroma_format_idc=cfg.chroma_format, frame_mbs_only_flag=1,
+            chroma_format_idc=cfg.chroma_format,
+            frame_mbs_only_flag=0 if cfg.pic_interlace else 1,
             direct_8x8_inference_flag=1)
         if cfg.enable_vui:
             # timing info (lencod GenerateVUI_parameters_rbsp:1048): the
@@ -853,13 +913,14 @@ class Encoder:
         is in use), the 4x4 transform, one active reference, no sub-8x8
         partitions, no basic units of rate control (basic_units: the
         picture has them), no RD tier, no I_PCM and no simulated lossy
-        decoders, at 4:2:0. search_mode, hme and rdoq are no terms, as in
+        decoders, at 4:2:0, no field coding. search_mode, hme and rdoq are
+        no terms, as in
         jm_tpu: the device route searches its own way, and with rdoq only
         the host re-encode of its intra MBs takes the trellis (in
         CAVLC)."""
         cfg = self.cfg
         return (cfg.pipeline == "device" and not self.quant_custom
-                and cfg.chroma_format == 1
+                and cfg.chroma_format == 1 and not cfg.pic_interlace
                 and not weighted and not cfg.transform8x8
                 and self.num_ref_active == 1 and not cfg.sub8x8
                 and not basic_units and not cfg.rdo
@@ -869,11 +930,11 @@ class Encoder:
         """Whether an I picture is coded on the device (jm_tpu
         _device_i_path_ok, encoder.py:2091): the device pipeline, flat
         quant, one slice in plan, the 4x4 transform, no RD tier, no I_PCM,
-        at 4:2:0 (rdoq is no term: the device I picture has no
-        trellis)."""
+        at 4:2:0, no field coding (rdoq is no term: the device I picture
+        has no trellis)."""
         cfg = self.cfg
         return (cfg.pipeline == "device" and not self.quant_custom
-                and cfg.chroma_format == 1
+                and cfg.chroma_format == 1 and not cfg.pic_interlace
                 and len(plan) == 1 and not cfg.transform8x8
                 and not cfg.rdo and cfg.enable_ipcm == 0)
 
@@ -1002,6 +1063,8 @@ class Encoder:
         frame = (Y, U, V)
         disp = self.display_idx
         self.display_idx += 1
+        if self.cfg.pic_interlace:
+            return self._encode_field_pair(frame, disp)
         if self.cfg.num_b == 0 or not self.refs:
             return self._emit_anchor(frame, disp)
         self._pending.append((disp, tuple(np.asarray(p, np.uint8)
@@ -1212,6 +1275,84 @@ class Encoder:
                              "split": split, "mix": b.mix, **info})
         return payload
 
+    # ---- field pictures (jm_tpu encoder.py:1049-1188) -------------------
+
+    def _encode_field_pair(self, frame, disp: int) -> bytes:
+        """A display frame as two field pictures, the top (even lines)
+        then the bottom one (jm_tpu _encode_field_pair; lencod image.c:751
+        perform_encode_field), one frame_num for both."""
+        planes = tuple(np.asarray(p, np.uint8) for p in frame)
+        out = b"".join(self._encode_field(tuple(p[parity::2] for p in planes),
+                                          disp, parity) for parity in (0, 1))
+        self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
+        self.frame_idx += 1
+        return out
+
+    def _encode_field(self, field, disp: int, parity: int) -> bytes:
+        """One field picture of parity (0 top, 1 bottom; jm_tpu
+        _encode_field): the top field of an IDR frame is an IDR I field
+        (SPS and PPS before it) and every other field a P field at qp
+        (qp_p, rd_picture_decision, intra_mb_refresh and the user-data SEI
+        are read nowhere here, as in jm_tpu), over the first 2 num_ref
+        entries of the decoder's field list0 (dpb.field_ref_list_p), the
+        bottom field of an IDR frame predicting from its top field. Coded by the serial host coders
+        with the field scan (IntraPicture, or PPicture over the quadrant
+        SAD tables of its reference fields on the device, or its
+        searcher), deblocked on the device with the field rules, stored as
+        a reference field under the decoder's sliding window of frame
+        units (dpb.field_window, num_ref units)."""
+        cfg = self.cfg
+        idr = parity == 0 and self._idr_due(self.frame_idx)
+        if idr:
+            self.frame_num = 0
+            self._idr_disp = disp
+            self.refs = []
+        poc = 2 * (disp - self._idr_disp) + parity
+        qp = cfg.qp
+        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
+        packed = self._upload(field)
+        if idr:
+            coded = IntraPicture(field, qp, qpc, lambda_me(qp),
+                                 lambda_mode4(qp), self.slice_plan,
+                                 parity=parity, **self._quant_kw("I"))
+        else:
+            full = field_ref_list_p(self.refs, parity, self._picnum)
+            self.num_ref_active = max(1, min(2 * cfg.num_ref, len(full)))
+            refs = full[:self.num_ref_active]
+            sads, blk4 = self._search_tables(self._planes(packed)[0], refs)
+            coded = PPicture(field, qp, qpc, lambda_me(qp), lambda_mode4(qp),
+                             [r.host_ref() for r in refs], sads,
+                             self.slice_plan, cfg.search_range, blk4=blk4,
+                             searcher=self._searcher(field[0], refs, qp),
+                             sub8x8=cfg.sub8x8, subpel_satd=cfg.subpel_satd,
+                             parity=parity, **self._quant_kw("P"))
+        pic = coded.pic
+        pic.field_mode = True
+        dec = self._loop_filter(coded.rec, pic)
+        nal, _info = self._picture_nals(
+            pic, SliceType.I if idr else SliceType.P, poc, qp,
+            self.slice_plan, idr=idr, field_pic=1, bottom_field=parity)
+        frame = self._new_picture(poc, E.prep_ref(*dec), planes=tuple(
+            t.cpu().numpy() for t in dec) if idr else None)
+        frame.parity = parity
+        frame.motion = _motion(pic)
+        self.refs = field_window([frame] + self.refs,
+                                 self.sps.max_num_ref_frames)
+        payload = b""
+        if idr:
+            payload = (annexb_bytes(3, NalUnitType.SPS,
+                                    write_sps(self.sps, self.sps_scaling))
+                       + annexb_bytes(3, NalUnitType.PPS,
+                                      write_pps(self.pps, self.pps_scaling)))
+            self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        payload += nal
+        info = {} if idr else {"mix": coded.mix, "mb_parts": coded.part_s}
+        self.results.append({"disp": disp, "type": "I" if idr else "P",
+                             "parity": parity, "bits": len(payload) * 8,
+                             "frame": frame, "qp": qp,
+                             "slices": len(self.slice_plan), **info})
+        return payload
+
     def _p_step(self, packed, ref: Picture, qp: int):
         """ops/enc.p_frame_step of the uploaded frame against ref at qp."""
         return E.p_frame_step(
@@ -1367,7 +1508,8 @@ class Encoder:
         t8 = up(pic.transform8x8.astype(np.int32))
         bs_v, bs_h = compute_bs(up(pic.mb_class), up(pic.luma_nnz), t8,
                                 up(pic.mv), up(pic.mv_l1), up(pic.ref_pic_id),
-                                up(pic.ref_pic_id_l1), self.mb_w, self.mb_h)
+                                up(pic.ref_pic_id_l1), self.mb_w, self.mb_h,
+                                field=pic.field_mode)
         return deblock(*rec, bs_v, bs_h, up(pic.qp), zeros, zeros, zeros,
                        up(pic.slice_id), t8, self.qpc_cb, self.qpc_cr,
                        mb_w=self.mb_w, mb_h=self.mb_h)

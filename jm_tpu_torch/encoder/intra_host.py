@@ -1,7 +1,8 @@
 """Serial host intra encoder of an I picture (twin of jm_tpu/encoder/
 encoder.py _FrameEncoder._encode_intra_mb, :2639-2689, for 4:2:0 and
-4:2:2, flat or with the custom quant of encoder/qmatrix.QuantCtx, with
-its RD tools: rdo, the trellis, I_PCM).
+4:2:2 frame pictures and 4:2:0 field pictures (the field scan), flat or
+with the custom quant of encoder/qmatrix.QuantCtx, with its RD tools:
+rdo, the trellis, I_PCM).
 
 jm_tpu codes an I picture on the device (ops/intra.i_frame_step) only
 when it is one slice of the device pipeline without custom quant, the
@@ -41,13 +42,16 @@ class IntraPicture(IntraMBCoder):
     stype = SliceType.I
 
     def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
-                 slices, qctx=None, ar_period: int = 0, rd=None):
+                 slices, qctx=None, ar_period: int = 0, rd=None,
+                 parity=None):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
         lambda_me and lambda_mode4 of qp; slices: the slice plan, MB
         address lists in decode order; qctx / ar_period: the custom quant
         and its adaptive-rounding period; rd: the RD tools (rdo.RDOptions;
-        IntraMBCoder)."""
+        IntraMBCoder); parity: a field picture's (0 top, 1 bottom; the
+        field scan), None for a frame picture."""
         self._init_picture(orig, qp, qpc)
+        self.set_parity(parity)
         self.lam, self.lam4 = lam, lam4
         self.qctx, self.ar_period = qctx, ar_period
         if rd is not None:

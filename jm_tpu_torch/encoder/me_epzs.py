@@ -12,7 +12,8 @@ its distance, the HME MV, the reference-0 winner scaled), each costed as
 SAD + lambda * mvd bits; the adaptive stop criterion of the neighbours'
 best costs; then the extended diamond and small diamond until no point
 improves. The SADs are memoized per (MB, reference), so that the
-partition modes of a MB share them. The HME level is one float32 sweep
+partition modes of a MB share them (computed by the native runtime,
+EPZSearcher.native). The HME level is one float32 sweep
 over the box-averaged planes. The copy is statement for statement:
 EPZS's memo, stop criterion and float32 means must make jm_tpu's
 choices.
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native as N
 from ..ops.consts import PAD
 from .me import mv_bits
 
@@ -104,8 +106,11 @@ class EPZSearcher:
     MB is searched — same availability contract as the reference's
     p_Vid->all_mv). Temporal predictors come from each reference frame's
     stored coding motion (`Frame.motion`), HME predictors from
-    `hme_sweep`.
+    `hme_sweep`. ``native``: the quadrant SADs by the native runtime
+    (jm_enc.cpp quad_sad); False: their numpy twin, the same sums.
     """
+
+    native = True
 
     def __init__(self, origY: np.ndarray, refs: list, mb_w: int, mb_h: int,
                  sr: int, lam: int, pic_mv: np.ndarray,
@@ -141,7 +146,13 @@ class EPZSearcher:
             self._cache_key = (addr, r)
             self._cache = {}
         v = self._cache.get((dx, dy))
-        if v is None:
+        if v is None and self.native:
+            mbx, mby = addr % self.mb_w, addr // self.mb_w
+            v = N.load().quad_sad(self.orig_quads[addr], self.ref_pads[r],
+                                  PAD + mbx * 16 + dx, PAD + mby * 16 + dy)
+            self._cache[(dx, dy)] = v
+            self.n_evals += 1
+        elif v is None:
             mbx, mby = addr % self.mb_w, addr // self.mb_w
             px, py = mbx * 16, mby * 16
             rp = self.ref_pads[r]

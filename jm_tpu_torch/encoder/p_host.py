@@ -2,7 +2,8 @@
 jm_tpu/encoder/encoder.py _FrameEncoder._encode_p_mb (:2706-2878) with
 its RD tiers _p_mode_rd and _highfast_intra_skip (:2905-3017),
 _commit_inter_p (:3019-3113) and its _code_luma_inter, for 4:2:0 frame
-pictures: one or several list-0
+pictures and field pictures (the field scan, the chroma offset of a
+reference field of the other parity): one or several list-0
 references, P8x8 sub-partitions (sub8x8), the full search or the EPZS /
 UMHex searchers (encoder/me_epzs.py, me_umhex.py), the fractional
 search by SATD or SAD (subpel_satd), a QP per basic unit (basic-unit
@@ -24,9 +25,10 @@ Per MB, in slice order (with basic units, at the QP of the MB's unit):
     of r made on the device (ops/enc.full_search_sad_quad) with the
     spiral tie-break, or by the picture's searcher (seeded with
     reference 0's MV), then the half- / quarter-pel refinement on the
-    unweighted reference with the ref_idx bits added; the reference of
-    least cost (the first on a tie); the mode of least total cost
-    (lambda times its mb_type bits added);
+    unweighted reference with the ref_idx bits added (the arg-min and
+    the refinement by the native runtime: InterMBCoder.native_me); the
+    reference of least cost (the first on a tie); the mode of least
+    total cost (lambda times its mb_type bits added);
   - with sub8x8, each quadrant of the 8x8 mode tries the sub-partitions
     8x8, 8x4, 4x8 and 4x4 on the quadrant's reference, each sub-block by
     its own integer search over the 4x4 table (ops/enc
@@ -94,7 +96,7 @@ class PPicture(InterMBCoder):
                  transform8x8=False, qctx=None, ar_period: int = 0,
                  blk4=None, searcher=None, sub8x8: bool = False,
                  subpel_satd: bool = True, units=None, rd=None,
-                 num_ref: int | None = None):
+                 num_ref: int | None = None, parity=None):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
         lambda_me and lambda_mode4 of qp; refs: list0's active references
         (HostRef), by ref_idx; sads: their (N, (2 sr + 1)^2, 4) quadrant
@@ -114,10 +116,13 @@ class PPicture(InterMBCoder):
         the simulated lossy decoders of tier 3); num_ref: the active
         list-0 references that the RD bit counts write (len(refs) unless
         given: the redundant coding, one reference, counts the
-        primary's, as jm_tpu does)."""
+        primary's, as jm_tpu does); parity: a field picture's (0 top, 1
+        bottom: the field scan, and the chroma offset of the reference
+        fields of the other parity), None for a frame picture."""
         if rd is not None:
             self.rd = rd
         self._init_picture(orig, qp, qpc)
+        self.set_parity(parity)
         self.lam, self.lam4, self.wp = lam, lam4, wp
         self.transform8x8 = transform8x8
         self.qctx, self.ar_period = qctx, ar_period
@@ -163,11 +168,7 @@ class PPicture(InterMBCoder):
         the searcher's, or the full search's over r's quadrant table."""
         if self.searcher is not None:
             return self.searcher.search(addr, r, quads, pred, seed=seed)
-        csum = (self.sads[r][addr][:, list(quads)].sum(axis=1,
-                                                        dtype=np.int64)
-                + ME.int_rate_tab(pred, self.sr, self.lam))
-        return ME.best_int_mv_tiebreak(
-            csum, ME.spiral_rank_tab(pred, self.sr), self.sr)
+        return self._int_mv(self.sads[r][addr], quads, pred)
 
     def _encode_p_mb(self, addr: int) -> None:
         self._code_p_mb(addr)
@@ -211,10 +212,9 @@ class PPicture(InterMBCoder):
                     imv0 = self._int_search(addr, r, quads, pred, seed)
                     if r == 0 and self.searcher is not None:
                         seed = imv0
-                    qmv, cost = ME.subpel_refine(
-                        blk, self.refs[r].planes, px + bx * 4, py + by * 4,
-                        imv0, self.w, self.h, pred, lam,
-                        extra_bits=ref_bits[r], use_satd=self.satd)
+                    qmv, cost = self._subpel(
+                        blk, self.refs[r], px + bx * 4, py + by * 4, imv0,
+                        pred, extra_bits=ref_bits[r])
                     if best is None or cost < best[0]:
                         best = (cost, r, qmv)
                 total += best[0]
@@ -269,14 +269,14 @@ class PPicture(InterMBCoder):
         4x4 table or, under a searcher, refined from the quadrant's
         quarter-pel MV. Replaces the 8x8 mode's cost and returns the
         sub-commits when their total is below it, else None."""
-        pic, lam, sr = self.pic, self.lam, self.sr
+        pic, lam = self.pic, self.lam
         px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
         total3 = lam * MODE_BITS[3]
         sub_commit = []
         pic.mv[addr] = 0
         pic.ref_idx[addr] = -1
         for (bx, by, _bw, _bh, quads, r, qmv8) in candidates[3][1]:
-            planes = self.refs[r].planes
+            ref = self.refs[r]
             pic.ref_idx[addr, quads[0]] = r
             best_q = None
             for sm, parts in ME.SUB_PARTS.items():
@@ -289,18 +289,11 @@ class PPicture(InterMBCoder):
                     if self.searcher is None:
                         ids = [(by + sy + yy) * 4 + bx + sx + xx
                                for yy in range(sh) for xx in range(sw)]
-                        csum = (self.blk4[r][addr][:, ids]
-                                .sum(axis=1, dtype=np.int64)
-                                + ME.int_rate_tab(pred, sr, lam))
-                        simv = ME.best_int_mv_tiebreak(
-                            csum, ME.spiral_rank_tab(pred, sr), sr)
-                        qmv, c = ME.subpel_refine(
-                            blk, planes, x0, y0, simv, self.w, self.h, pred,
-                            lam, use_satd=self.satd)
+                        simv = self._int_mv(self.blk4[r][addr], ids, pred)
+                        qmv, c = self._subpel(blk, ref, x0, y0, simv, pred)
                     else:
-                        qmv, c = ME.subpel_refine(
-                            blk, planes, x0, y0, qmv8, self.w, self.h, pred,
-                            lam, use_satd=self.satd, qpel_start=True)
+                        qmv, c = self._subpel(blk, ref, x0, y0, qmv8, pred,
+                                              qpel_start=True)
                     mvs.append(qmv)
                     cost_q += c
                     for yy in range(by + sy, by + sy + sh):

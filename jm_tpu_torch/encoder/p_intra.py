@@ -36,7 +36,7 @@ import numpy as np
 from .. import native as N
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.predict_ctx import CODE2RASTER, RASTER2CODE, PredCtx
-from ..common.tables import QUANT_SCALE_4x4
+from ..common.tables import QUANT_SCALE_4x4, ZIGZAG_4x4, scan_4x4
 from ..common.types import SliceType
 from ..decoder import intra_pred as IP
 from ..decoder.recon import _np_hadamard4
@@ -66,9 +66,13 @@ class IntraMBCoder:
     quant (None: flat), whose adaptive-rounding lists are refreshed every
     ar_period MBs of a slice; rd: the RD tools (rdo.RDOptions; the class
     default has every tool off); cabac_rate: the slice's running CABAC
-    engine while one is installed (_code_slices)."""
+    engine while one is installed (_code_slices); scan: the 4x4
+    coefficient scan (the zig-zag; the field scan in a field picture, set
+    by set_parity)."""
 
     qctx = None
+    scan = ZIGZAG_4x4
+    cur_parity = None
     native_i4 = True
     ar_period = 0
     units = None
@@ -76,6 +80,13 @@ class IntraMBCoder:
     stype = SliceType.P
     num_ref = 1
     cabac_rate = None
+
+    def set_parity(self, parity) -> None:
+        """A field picture's parity (0 top, 1 bottom), or None for a frame
+        picture: the field scan of its levels and, in an inter coder, the
+        chroma offset of its opposite-parity references."""
+        self.cur_parity = parity
+        self.scan = scan_4x4(parity is not None)
 
     def _code_slices(self, slices, code_mb) -> None:
         """Code the slice plan's MBs in order with code_mb(addr), each
@@ -157,7 +168,7 @@ class IntraMBCoder:
     def _trellis_luma4(self, addr, w_raster, blk, intra, i16ac=False):
         """One luma 4x4 (or Intra16x16 AC) block's levels in scan order,
         16 of them (position 0 zero for AC)."""
-        w_scan = RN.to_scan(w_raster[None])[0]
+        w_scan = RN.to_scan(w_raster[None], self.scan)[0]
         lam = self._rdoq_lam()
         out = np.zeros(16, np.int32)
         by, bx = blk // 4, blk % 4
@@ -188,7 +199,7 @@ class IntraMBCoder:
     def _trellis_luma_dc(self, addr, dc_t):
         """The Intra16x16 DC block (Hadamard domain, (4, 4) raster):
         levels in scan order (16,)."""
-        w_scan = RN.to_scan(dc_t[None].astype(np.int64))[0]
+        w_scan = RN.to_scan(dc_t[None].astype(np.int64), self.scan)[0]
         lam = self._rdoq_lam()
         if not self.rd.cabac:
             nc = self.pctx.nc_luma(addr, 0)
@@ -217,7 +228,7 @@ class IntraMBCoder:
 
     def _trellis_chroma_ac(self, addr, w_raster, comp, blk, intra):
         """A chroma AC 4x4 block (positions 1..15): scan levels (16,)."""
-        w_scan = RN.to_scan(w_raster[None])[0]
+        w_scan = RN.to_scan(w_raster[None], self.scan)[0]
         lam = self._rdoq_lam()
         out = np.zeros(16, np.int32)
         if not self.rd.cabac:
@@ -342,7 +353,7 @@ class IntraMBCoder:
                 dc_scan = self._trellis_luma_dc(addr, dc_t).astype(np.int64)
             else:
                 dc_scan = RN.to_scan(self._qdc(dc_t, qp, True)
-                                     .reshape(1, 4, 4))[0]
+                                     .reshape(1, 4, 4), self.scan)[0]
             ac_scan = np.zeros((16, 16), np.int64)
             for code in range(16):
                 blk = int(CODE2RASTER[code])
@@ -351,8 +362,8 @@ class IntraMBCoder:
                 pic.luma_nnz[addr, blk] = int((ac_scan[blk] != 0).sum())
         else:
             dc_scan = RN.to_scan(self._qdc(dc_t, qp, True)
-                                 .reshape(1, 4, 4))[0]
-            ac_scan = RN.to_scan(self._q4(w, qp, True))
+                                 .reshape(1, 4, 4), self.scan)[0]
+            ac_scan = RN.to_scan(self._q4(w, qp, True), self.scan)
             ac_scan[:, 0] = 0
         pic.mb_class[addr] = MB_I16
         pic.i16_mode[addr] = mode
@@ -366,7 +377,7 @@ class IntraMBCoder:
         pred_blocks = pred.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
             .reshape(16, 4, 4)
         rec = RN.recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp,
-                                tab=self._itab4(True))
+                                tab=self._itab4(True), scan=self.scan)
         self.recY[py:py + 16, px:px + 16] = \
             rec.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
         return cbp_luma
@@ -412,7 +423,8 @@ class IntraMBCoder:
                  "mb_class": pic.mb_class, "i4_modes": pic.i4_modes,
                  "slice_id": pic.slice_id, "luma_coef": pic.luma_coef,
                  "luma_nnz": pic.luma_nnz, "mf": _MF4[self.qp % 6],
-                 "vs": _VS4[self.qp]})
+                 "vs": _VS4[self.qp],
+                 "scan": np.ascontiguousarray(self.scan, np.int32)})
         pic, qp, Y = self.pic, self.qp, self.recY
         mbx, mby = addr % self.mb_w, addr // self.mb_w
         pic.mb_class[addr] = MB_I4
@@ -458,7 +470,8 @@ class IntraMBCoder:
                     w = RN.np_forward4x4((o - pred)[None])[0]
                     scan_m = self._i4_levels(addr, w, blk)
                     rec_m = RN.recon_luma_4x4(pred[None], scan_m[None], qp,
-                                              tab=self._itab4(True))[0]
+                                              tab=self._itab4(True),
+                                              scan=self.scan)[0]
                     ssd = int(((o - rec_m.astype(np.int64)) ** 2).sum())
                     j = ssd + lam_md * ((1 if m == mpm else 4)
                                         + residual_block_bits(
@@ -486,14 +499,15 @@ class IntraMBCoder:
             if tc:
                 coded_quads.add((by // 2) * 2 + bx // 2)
             Y[y:y + 4, x:x + 4] = RN.recon_luma_4x4(
-                pred[None], scan[None], qp, tab=self._itab4(True))[0]
+                pred[None], scan[None], qp, tab=self._itab4(True),
+                scan=self.scan)[0]
         return total_cost, sum(1 << q for q in coded_quads)
 
     def _i4_levels(self, addr, w, blk):
         """An Intra4x4 block's levels in scan order: trellis or quant."""
         if self._rdoq_on:
             return self._trellis_luma4(addr, w, blk, intra=True)
-        return RN.to_scan(self._q4(w[None], self.qp, True))[0]
+        return RN.to_scan(self._q4(w[None], self.qp, True), self.scan)[0]
 
     # ---- chroma -----------------------------------------------------------
 
@@ -567,7 +581,8 @@ class IntraMBCoder:
                     pic.chroma_nnz[addr, comp, blk] = int(
                         (ac_scan[blk] != 0).sum())
             else:
-                ac_scan = RN.to_scan(self._q4(w, qpc, intra, comp + 1))
+                ac_scan = RN.to_scan(self._q4(w, qpc, intra, comp + 1),
+                                     self.scan)
                 ac_scan[:, 0] = 0
             cost_c = sum(RN.coeff_cost_scan(ac_scan[b], start=1)
                          for b in range(nb))
@@ -589,7 +604,7 @@ class IntraMBCoder:
                 .reshape(nb, 4, 4)
             recon = RN.recon_chroma if crows == 2 else RN.recon_chroma422
             rec = recon(pred_blocks, ac_scan, dc_lev, qpc,
-                        tab=self._itab4(intra, comp + 1))
+                        tab=self._itab4(intra, comp + 1), scan=self.scan)
             plane = self.recU if comp == 0 else self.recV
             plane[self._csl(addr)] = rec.reshape(crows, 2, 4, 4) \
                 .transpose(0, 2, 1, 3).reshape(self.ch, 8)

@@ -1,11 +1,13 @@
 """Numpy residual coding of single macroblocks for the host coders
 (encoder/p_intra.py, intra_host.py, b_host.py, p_host.py): the forward
-4x4 and 8x8 transforms, flat quant, the 4x4 and 8x8 zig-zag scans, the
-decode-mirror recon of 4x4, 8x8 and Intra16x16 luma and of 4:2:0 and
+4x4 and 8x8 transforms, flat quant, the 4x4 scans (the zig-zag of frame
+pictures by default, or the caller's ``scan``: the field scan of field
+pictures) and the 8x8 zig-zag, the decode-mirror recon of 4x4, 8x8 and Intra16x16 luma and of 4:2:0 and
 4:2:2 chroma (flat, or with a scaling matrix's inverse table ``tab``;
 the 4:2:2 chroma DC is a 2x4 Hadamard quantized at QPc + 3), and JM's
 run-weighted coefficient costs. A trimmed copy of
-jm_tpu/encoder/residual_np.py (frame scan); the inverse halves are the
+jm_tpu/encoder/residual_np.py, whose module-global scan switch is an
+argument here; the inverse halves are the
 port's decoder's (decoder/recon.py), so the encoder's recon is what a
 decoder reconstructs.
 """
@@ -112,15 +114,17 @@ def recon_luma_8x8(pred_q, lev_scan, qp: int, tab=None):
         .astype(np.uint8)
 
 
-def to_scan(raster_blocks: np.ndarray) -> np.ndarray:
-    """(..., 4, 4) raster -> (..., 16) zig-zag order."""
-    return raster_blocks.reshape(*raster_blocks.shape[:-2], 16)[..., _ZZ]
+def to_scan(raster_blocks: np.ndarray, scan=_ZZ) -> np.ndarray:
+    """(..., 4, 4) raster -> (..., 16) in the order of scan (16 raster
+    positions; the zig-zag by default)."""
+    return raster_blocks.reshape(*raster_blocks.shape[:-2], 16)[..., scan]
 
 
-def from_scan(scan: np.ndarray) -> np.ndarray:
-    out = np.zeros_like(scan)
-    out[..., _ZZ] = scan
-    return out.reshape(*scan.shape[:-1], 4, 4)
+def from_scan(levels: np.ndarray, scan=_ZZ) -> np.ndarray:
+    """(..., 16) in the order of scan -> (..., 4, 4) raster."""
+    out = np.zeros_like(levels)
+    out[..., scan] = levels
+    return out.reshape(*levels.shape[:-1], 4, 4)
 
 
 def _dequant_4x4(coef, qp: int, tab=None):
@@ -129,20 +133,23 @@ def _dequant_4x4(coef, qp: int, tab=None):
                           4).astype(np.int32)
 
 
-def recon_luma_4x4(pred_blocks, lev_scan, qp: int, tab=None):
+def recon_luma_4x4(pred_blocks, lev_scan, qp: int, tab=None, scan=_ZZ):
     """Decode-mirror recon of 4x4 luma blocks that are not Intra16x16:
-    pred_blocks (k, 4, 4), lev_scan (k, 16) zig-zag levels; tab: the
-    (52, 4, 4) InvLevelScale (flat by default), as for every recon
-    here."""
-    r = (_np_inv4(_dequant_4x4(from_scan(lev_scan), qp, tab)) + 32) >> 6
+    pred_blocks (k, 4, 4), lev_scan (k, 16) levels in the order of scan;
+    tab: the (52, 4, 4) InvLevelScale (flat by default), as for every
+    recon here."""
+    r = (_np_inv4(_dequant_4x4(from_scan(lev_scan, scan), qp, tab))
+         + 32) >> 6
     return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
 
 
-def recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp: int, tab=None):
+def recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp: int, tab=None,
+                   scan=_ZZ):
     """Decode-mirror Intra16x16 recon: pred_blocks (16, 4, 4), ac_scan
-    (16, 16) with [:, 0] == 0, dc_scan (16,) zig-zag DC levels."""
-    d = _dequant_4x4(from_scan(ac_scan), qp, tab)
-    dc_t = _np_hadamard4(from_scan(dc_scan))
+    (16, 16) with [:, 0] == 0, dc_scan (16,) DC levels, both in the order
+    of scan."""
+    d = _dequant_4x4(from_scan(ac_scan, scan), qp, tab)
+    dc_t = _np_hadamard4(from_scan(dc_scan, scan))
     scale = int((FLAT_INV_SCALE_4x4 if tab is None else tab)[qp, 0, 0])
     dc_s = _rshift_rnd_sf((dc_t.astype(np.int64) * scale) << (qp // 6), 6)
     blk = np.arange(16)
@@ -151,10 +158,12 @@ def recon_luma_i16(pred_blocks, ac_scan, dc_scan, qp: int, tab=None):
     return np.clip(pred_blocks + r, 0, 255).astype(np.uint8)
 
 
-def recon_chroma(pred_blocks, ac_scan, dc_lev, qp_c: int, tab=None):
+def recon_chroma(pred_blocks, ac_scan, dc_lev, qp_c: int, tab=None,
+                 scan=_ZZ):
     """Decode-mirror chroma recon of one component: pred_blocks (4, 4, 4),
-    ac_scan (4, 16) with [:, 0] == 0, dc_lev (4,) raster DC levels."""
-    d = _dequant_4x4(from_scan(ac_scan), qp_c, tab)
+    ac_scan (4, 16) with [:, 0] == 0 in the order of scan, dc_lev (4,)
+    raster DC levels."""
+    d = _dequant_4x4(from_scan(ac_scan, scan), qp_c, tab)
     f = np_hadamard2x2(dc_lev.reshape(2, 2).astype(np.int64))
     scale = int((FLAT_INV_SCALE_4x4 if tab is None else tab)[qp_c, 0, 0])
     dc_s = ((f * scale) << (qp_c // 6)) >> 5
@@ -186,12 +195,14 @@ def quant_dc422(dc_raster: np.ndarray, qp_c: int, intra: bool,
     return np.array([lev[i, j] for (i, j) in SCAN_YUV422], np.int32)
 
 
-def recon_chroma422(pred_blocks, ac_scan, dc_scan, qp_c: int, tab=None):
+def recon_chroma422(pred_blocks, ac_scan, dc_scan, qp_c: int, tab=None,
+                    scan=_ZZ):
     """Decode-mirror 4:2:2 chroma recon of one component: pred_blocks
     (8, 4, 4) raster blocks (2 wide, 4 tall), ac_scan (8, 16) with
-    [:, 0] == 0, dc_scan (8,) DC levels in SCAN_YUV422 order."""
+    [:, 0] == 0 in the order of scan, dc_scan (8,) DC levels in
+    SCAN_YUV422 order."""
     t = FLAT_INV_SCALE_4x4 if tab is None else tab
-    d = _dequant_4x4(from_scan(ac_scan), qp_c, tab)
+    d = _dequant_4x4(from_scan(ac_scan, scan), qp_c, tab)
     f = _np_ihadamard2x4(dc_scan)                       # (2 cols, 4 rows)
     qpdc = qp_c + 3
     dc_s = _rshift_rnd_sf((f * int(t[qpdc, 0, 0])) << (qpdc // 6), 6)

@@ -59,9 +59,11 @@ def _write_scaling_lists(bw: BitWriter, scaling, n_lists: int) -> None:
 
 
 def write_sps(sps, scaling=None) -> bytes:
-    """Seq_parameter_set_rbsp for a frame-coded Baseline, Extended, Main,
-    High (4:2:0) or High 4:2:2 (profile 122, chroma_format_idc 2) stream
-    of 8 bits with POC type 0, 1 or 2 and the VUI of ``sps.vui``;
+    """Seq_parameter_set_rbsp for a Baseline, Extended, Main, High (4:2:0)
+    or High 4:2:2 (profile 122, chroma_format_idc 2) stream of 8 bits,
+    frame-coded or, with frame_mbs_only_flag 0, with field pictures
+    (mb_adaptive_frame_field_flag written), with POC type 0, 1 or 2 and
+    the VUI of ``sps.vui``;
     scaling: the lists a High SPS with seq_scaling_matrix_present_flag
     transmits, as _write_scaling_lists takes them (lencod parset.c
     GenerateSeq_parameter_set_rbsp; jm_tpu/encoder/syntax.py
@@ -69,10 +71,9 @@ def write_sps(sps, scaling=None) -> bytes:
     if sps.profile_idc in (110, 244, 44, 118, 128) \
             or sps.chroma_format_idc != (2 if sps.profile_idc == 122
                                          else 1) \
-            or sps.pic_order_cnt_type not in (0, 1, 2) \
-            or not sps.frame_mbs_only_flag:
+            or sps.pic_order_cnt_type not in (0, 1, 2):
         raise ValueError("write_sps covers Baseline / Extended / Main / "
-                         "High 4:2:0 and High 4:2:2 frame coding with "
+                         "High 4:2:0 and High 4:2:2 with "
                          "pic_order_cnt_type 0, 1 or 2")
     bw = BitWriter()
     bw.u(sps.profile_idc, 8)
@@ -106,6 +107,8 @@ def write_sps(sps, scaling=None) -> bytes:
     bw.ue(sps.pic_width_in_mbs_minus1)
     bw.ue(sps.pic_height_in_map_units_minus1)
     bw.flag(sps.frame_mbs_only_flag)
+    if not sps.frame_mbs_only_flag:
+        bw.flag(sps.mb_adaptive_frame_field_flag)
     bw.flag(sps.direct_8x8_inference_flag)
     bw.flag(sps.frame_cropping_flag)
     if sps.frame_cropping_flag:
@@ -294,9 +297,12 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                        is_ref: bool = True, long_term_flag: int = 0,
                        mmco_ops=None, ref_mod_l0=None,
                        redundant_pic_cnt: int = 0, num_ref_idx_l1: int = 1,
-                       ref_mod_l1=None, wp_l0=None, wp_l1=None) -> None:
-    """Spec 7.3.3 slice header of an I, P or B frame-picture slice
-    (lencod/src/header.c:116 SliceHeader): pic_order_cnt_lsb for POC
+                       ref_mod_l1=None, wp_l0=None, wp_l1=None,
+                       field_pic: int = 0, bottom_field: int = 0) -> None:
+    """Spec 7.3.3 slice header of an I, P or B slice of a frame picture,
+    or under an SPS without frame_mbs_only_flag of a field picture
+    (field_pic 1, bottom_field its parity; lencod/src/header.c:116
+    SliceHeader): pic_order_cnt_lsb for POC
     type 0 only, redundant_pic_cnt when the PPS has the flag; for B
     direct_spatial_mv_pred_flag 1 and the list-1 active count;
     ref_mod_l0 / ref_mod_l1 the (modification_of_pic_nums_idc, value)
@@ -313,6 +319,10 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
     bw.ue(int(slice_type) + 5)      # all slices in picture share the type
     bw.ue(pps.pic_parameter_set_id)
     bw.u(frame_num, sps.log2_max_frame_num_minus4 + 4)
+    if not sps.frame_mbs_only_flag:
+        bw.flag(field_pic)
+        if field_pic:
+            bw.flag(bottom_field)
     if idr:
         bw.ue(idr_pic_id)
     if sps.pic_order_cnt_type == 0:

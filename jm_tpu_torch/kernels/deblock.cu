@@ -712,3 +712,70 @@ void launch_deblock_chroma16(const int16_t* in_u, const int16_t* in_v,
                 qpc_cb, qpc_cr, make_depth(bd, qoff), scratch, rows, grid,
                 stream);
 }
+
+// C entry points for the Python loader (jm_tpu_torch/kernels/__init__.py,
+// ctypes): each launches once on `stream` and returns cudaGetLastError()
+// of that launch (0: launched). The caller has checked every argument.
+extern "C" {
+
+int jm_deblock_luma(const uint8_t* in, uint8_t* out, int stride,
+                    const int32_t* qp, const int32_t* disable,
+                    const int32_t* a_off, const int32_t* b_off,
+                    const int32_t* slice_id, const int32_t* t8,
+                    const int8_t* bs_v, const int8_t* bs_h, int* scratch,
+                    int mb_w, int mb_h, int grid, void* stream) {
+  launch_deblock_luma(in, out, stride, qp, disable, a_off, b_off, slice_id,
+                      t8, bs_v, bs_h, scratch, mb_w, mb_h, grid,
+                      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int jm_deblock_chroma(const uint8_t* in_u, const uint8_t* in_v,
+                      uint8_t* out_u, uint8_t* out_v, int stride,
+                      const int32_t* qp, const int32_t* disable,
+                      const int32_t* a_off, const int32_t* b_off,
+                      const int32_t* slice_id, const int32_t* t8,
+                      const int8_t* bs_v, const int8_t* bs_h,
+                      const int32_t* qpc_cb, const int32_t* qpc_cr,
+                      int* scratch, int mb_w, int mb_h, int rows, int grid,
+                      void* stream) {
+  launch_deblock_chroma(in_u, in_v, out_u, out_v, stride, qp, disable,
+                        a_off, b_off, slice_id, t8, bs_v, bs_h, qpc_cb,
+                        qpc_cr, scratch, mb_w, mb_h, rows, grid,
+                        static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int jm_deblock_luma16(const int16_t* in, int16_t* out, int stride,
+                      const int32_t* qp, const int32_t* disable,
+                      const int32_t* a_off, const int32_t* b_off,
+                      const int32_t* slice_id, const int32_t* t8,
+                      const int8_t* bs_v, const int8_t* bs_h, int* scratch,
+                      int mb_w, int mb_h, int bd, int grid, void* stream) {
+  launch_deblock_luma16(in, out, stride, qp, disable, a_off, b_off,
+                        slice_id, t8, bs_v, bs_h, scratch, mb_w, mb_h, bd,
+                        grid, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int jm_deblock_chroma16(const int16_t* in_u, const int16_t* in_v,
+                        int16_t* out_u, int16_t* out_v, int stride,
+                        const int32_t* qp, const int32_t* disable,
+                        const int32_t* a_off, const int32_t* b_off,
+                        const int32_t* slice_id, const int32_t* t8,
+                        const int8_t* bs_v, const int8_t* bs_h,
+                        const int32_t* qpc_cb, const int32_t* qpc_cr,
+                        int* scratch, int mb_w, int mb_h, int rows, int bd,
+                        int qoff, int grid, void* stream) {
+  launch_deblock_chroma16(in_u, in_v, out_u, out_v, stride, qp, disable,
+                          a_off, b_off, slice_id, t8, bs_v, bs_h, qpc_cb,
+                          qpc_cr, scratch, mb_w, mb_h, rows, bd, qoff, grid,
+                          static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* jm_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -4,7 +4,8 @@ The sources beside this file (jm_native.cpp: BitReader, CabacEngine,
 EBSP <-> RBSP; jm_enc.cpp: the CAVLC slice serializer; jm_dec.cpp: the
 CAVLC slice parser, the intra reconstruction and the encoder's Intra4x4
 MB coder) are the port's own copy of jm_tpu's native/ runtime, without
-its deblock (the card deblocks), with the Intra4x4 coder added. They
+its deblock (the card deblocks), with the Intra4x4 coder and the motion
+search's fractional refinement (jm_enc.cpp subpel_refine) added. They
 include only Python.h and are compiled with g++ at first use into
 ``build/native`` under the repository root (git-ignored), and rebuilt
 when a source is newer than the module. Nothing is built at import time.
@@ -137,11 +138,13 @@ def _install_tables(mod) -> None:
     tables (common/cavlc_tables.py) for the serializer, the CAVLC peek
     LUTs (decoder/cavlc.py) for the parser and the cbp -> codeNum inverse
     of common/picture.CBP_MAP_CHROMA, as jm_tpu/native/__init__.py
-    installs jm_tpu's."""
+    installs jm_tpu's; and the quarter-pel plane selection of
+    ops/consts.QPEL_TAB with the planes' PAD, for subpel_refine."""
     from ..common import cabac_tables as CT
     from ..common import cavlc_tables as C
     from ..common.picture import CBP_MAP_CHROMA
     from ..decoder import cavlc as DC
+    from ..ops.consts import PAD, QPEL_TAB
 
     c = np.ascontiguousarray
     mod.set_cabac_tables(c(CT.RANGE_LPS, np.uint8),
@@ -171,3 +174,7 @@ def _install_tables(mod) -> None:
         [c(t, np.int32) for t in DC.TZ_LUT],
         [c(t, np.int32) for t in DC.TZ_DC_LUT[0]],
         [c(t, np.int32) for t in DC.RUN_LUT])
+    qpel = np.zeros((16, 6), np.int32)
+    for (xf, yf), row in QPEL_TAB.items():
+        qpel[xf + 4 * yf] = row
+    mod.set_qpel_tab(qpel, PAD)

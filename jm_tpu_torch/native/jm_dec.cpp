@@ -23,8 +23,9 @@
  *
  * encode_i4_mb codes one MB as Intra4x4 for the encoder's host coders
  * (twin of encoder/p_intra.py IntraMBCoder._encode_i4_mb under flat
- * quant without an RD tier or the trellis), on the same predictors and
- * inverse transform as intra_recon.
+ * quant without an RD tier or the trellis; its levels in the caller's
+ * scan, the zig-zag or a field picture's field scan), on the same
+ * predictors and inverse transform as intra_recon.
  *
  * The CAVLC peek-LUTs are installed from Python (set_cavlc_dec_tables,
  * compiled by decoder/cavlc.py from common/cavlc_tables.py), the single
@@ -1587,9 +1588,6 @@ static PyObject *m_intra_recon(PyObject *mod, PyObject *args) {
 /* _encode_i4_mb without an RD tier, trellis or custom quant)            */
 /* ------------------------------------------------------------------ */
 
-static const int ZZ4[16] = {0, 1, 4, 8, 5, 2, 3, 6,
-                            9, 12, 13, 10, 7, 11, 14, 15};
-
 /* forward core transform of a raster 4x4 (encoder/residual_np.py
  * np_forward4x4): the columns, then the rows */
 static void fwd4x4(const int64_t d[16], int64_t out[16]) {
@@ -1641,11 +1639,13 @@ static void inv4x4(const int64_t d[16], int64_t out[16]) {
  * Intra4x4, block after block in coding order, each block's mode the
  * first candidate of least SAD + lam4 (mode != most probable), its
  * residual transformed, quantized (intra rounding, the flat MF table of
- * qp, "mf"), written in zig-zag order with its nnz, and reconstructed
- * into Y with the flat inverse scale of qp ("vs") before the next
- * block. params: mb_w, mb_h, addr, qp, lam4; arrays: Y (the recon
- * plane), orig (the MB's 16x16 source), mb_class, i4_modes, slice_id,
- * luma_coef, luma_nnz (the PictureData's), mf, vs ((4, 4) int32). */
+ * qp, "mf"), written in the order of "scan" (the 16 raster positions of
+ * the zig-zag, or of the field scan in a field picture) with its nnz,
+ * and reconstructed into Y with the flat inverse scale of qp ("vs")
+ * before the next block. params: mb_w, mb_h, addr, qp, lam4; arrays: Y
+ * (the recon plane), orig (the MB's 16x16 source), mb_class, i4_modes,
+ * slice_id, luma_coef, luma_nnz (the PictureData's), mf, vs ((4, 4)
+ * int32), scan ((16,) int32). */
 static PyObject *m_encode_i4_mb(PyObject *mod, PyObject *args) {
     PyObject *params, *arrays;
     if (!PyArg_ParseTuple(args, "OO", &params, &arrays)) return NULL;
@@ -1669,7 +1669,7 @@ static PyObject *m_encode_i4_mb(PyObject *mod, PyObject *args) {
         PyErr_SetString(PyExc_ValueError, "encode_i4_mb: bad params");
         return NULL;
     }
-    Held held[10];
+    Held held[11];
     int nheld = 0, ok = 1;
     IR q;
     Pic p;
@@ -1681,6 +1681,7 @@ static PyObject *m_encode_i4_mb(PyObject *mod, PyObject *args) {
     uint8_t *Y = NULL;
     const uint8_t *orig = NULL;
     int32_t *coef = NULL, *nnz = NULL, *mf = NULL, *vs = NULL;
+    const int32_t *zz = NULL;
 #define ARR(dst, key, want) \
     if (ok && !(dst = (decltype(dst))want_arr(arrays, key, held, &nheld, \
                                                 want))) ok = 0;
@@ -1693,7 +1694,13 @@ static PyObject *m_encode_i4_mb(PyObject *mod, PyObject *args) {
     ARR(nnz, "luma_nnz", n * 16 * 4)
     ARR(mf, "mf", 16 * 4)
     ARR(vs, "vs", 16 * 4)
+    ARR(zz, "scan", 16 * 4)
 #undef ARR
+    for (int k = 0; ok && k < 16; k++)
+        if (zz[k] < 0 || zz[k] > 15) {
+            PyErr_SetString(PyExc_ValueError, "encode_i4_mb: bad scan");
+            ok = 0;
+        }
     int64_t total = 0;
     int cbp = 0;
     if (ok) {
@@ -1756,7 +1763,7 @@ static PyObject *m_encode_i4_mb(PyObject *mod, PyObject *args) {
             int32_t *sc = coef + ((size_t)addr * 16 + blk) * 16;
             int tc = 0;
             for (int k = 0; k < 16; k++) {
-                int pos = ZZ4[k];
+                int pos = zz[k];
                 int64_t a = w[pos] < 0 ? -w[pos] : w[pos];
                 int64_t lev = (a * mf[pos] + f) >> qbits;
                 sc[k] = (int32_t)(w[pos] < 0 ? -lev : lev);

@@ -1,4 +1,6 @@
-/* jm_torch_native, encoder part: the CAVLC slice serializer.
+/* jm_torch_native, encoder part: the CAVLC slice serializer, the host
+ * motion search's integer arg-min and fractional refinement, and the host
+ * coders' block motion compensation.
  *
  * The port's copy of jm_tpu's native/jm_enc.cpp without its
  * deblock_frame: the port deblocks every picture on the card (kernels/
@@ -10,6 +12,19 @@
  *     of jm_tpu_torch/encoder/syntax.py, byte-identical output). The
  *     caller hands over the bits written so far (the slice header) and
  *     gets the whole RBSP back.
+ *   - subpel_refine: the half- then quarter-pel refinement of one
+ *     block's MV by SATD or SAD plus the mvd rate (twin of
+ *     jm_tpu_torch/encoder/me.py subpel_refine, the same MV and cost);
+ *     the host P and B coders call it for every partition;
+ *   - int_search: the integer full search's arg-min over one MB's SAD
+ *     table made on the card (twin of encoder/me.py int_rate_tab +
+ *     spiral_rank_tab + best_int_mv_tiebreak, the same MV);
+ *   - mc_blk: one block's quarter-pel luma and eighth-pel chroma
+ *     predictions (twin of me.mc_luma_block and me.mc_chroma_block), the
+ *     host coders' motion compensation of each 4x4 block;
+ *   - quad_sad: an MB's four 8x8 quadrant SADs at one integer
+ *     displacement (twin of the EPZS / UMHex searchers' _qsad in
+ *     encoder/me_epzs.py).
  *
  * Normative VLC tables are installed from Python (set_cavlc_tables, from
  * common/cavlc_tables.py) so the port's tables remain the single source
@@ -812,6 +827,432 @@ done:
 }
 
 /* ------------------------------------------------------------------ */
+/* the host motion search's fractional refinement                      */
+/* (encoder/me.py subpel_refine)                                       */
+/* ------------------------------------------------------------------ */
+
+/* ops/consts.QPEL_TAB by xf + 4 yf: (plane1, dx1, dy1, plane2, dx2, dy2),
+ * and the reference planes' padding PAD; installed by set_qpel_tab */
+static int g_qpel[16][6];
+static int g_pad = -1;
+
+static PyObject *py_set_qpel_tab(PyObject *self, PyObject *args) {
+    PyObject *tab;
+    int pad;
+    if (!PyArg_ParseTuple(args, "Oi", &tab, &pad)) return NULL;
+    Py_buffer v;
+    if (PyObject_GetBuffer(tab, &v, PyBUF_C_CONTIGUOUS) < 0) return NULL;
+    if (v.len != (Py_ssize_t)sizeof(g_qpel)) {
+        PyBuffer_Release(&v);
+        PyErr_SetString(PyExc_ValueError, "set_qpel_tab: expected a (16, 6) "
+                        "int32 table");
+        return NULL;
+    }
+    memcpy(g_qpel, v.buf, sizeof(g_qpel));
+    PyBuffer_Release(&v);
+    g_pad = pad;
+    Py_RETURN_NONE;
+}
+
+/* floor(v / 4), as Python's v >> 2 */
+static inline int floor4(int v) { return v >= 0 ? v / 4 : -((-v + 3) / 4); }
+
+static inline int64_t se_bits(int64_t v) {
+    uint64_t u = v > 0 ? (uint64_t)(2 * v - 1) : (uint64_t)(-2 * v);
+    return 2 * (64 - __builtin_clzll(u + 1)) - 1;
+}
+
+typedef struct {
+    const uint8_t *org;         /* the block, row stride org_s */
+    Py_ssize_t org_s;
+    const uint8_t *pl;          /* the 4 planes, strides s0 / s1 / s2 */
+    Py_ssize_t s0, s1, s2;
+    int bw, bh, px, py, w, h, pmx, pmy, satd;
+    int64_t lam, extra;
+} SubpelCtx;
+
+/* the cost of quarter-pel MV (mx, my): the SATD (or SAD) of the block
+ * against me.mc_luma_block's prediction plus lam * (mvd bits + extra) */
+static int64_t subpel_cost(const SubpelCtx *c, int mx, int my) {
+    const int pad = g_pad;
+    int x4 = c->px * 4 + mx, y4 = c->py * 4 + my;
+    int xi = floor4(x4), yi = floor4(y4);
+    if (xi > c->w + pad - c->bw - 1) xi = c->w + pad - c->bw - 1;
+    if (xi < -pad) xi = -pad;
+    if (yi > c->h + pad - c->bh - 1) yi = c->h + pad - c->bh - 1;
+    if (yi < -pad) yi = -pad;
+    const int *q = g_qpel[(x4 & 3) + 4 * (y4 & 3)];
+    const uint8_t *a = c->pl + q[0] * c->s0 + (pad + yi + q[2]) * c->s1
+                       + (pad + xi + q[1]) * c->s2;
+    const uint8_t *b = q[3] < 0 ? NULL
+        : c->pl + q[3] * c->s0 + (pad + yi + q[5]) * c->s1
+          + (pad + xi + q[4]) * c->s2;
+    int d[16][16];
+    for (int y = 0; y < c->bh; y++)
+        for (int x = 0; x < c->bw; x++) {
+            int p = a[y * c->s1 + x * c->s2];
+            if (b) p = (p + b[y * c->s1 + x * c->s2] + 1) >> 1;
+            d[y][x] = (int)c->org[y * c->org_s + x] - p;
+        }
+    int64_t dist = 0;
+    if (c->satd) {
+        /* sum |H t H^T| over the 4x4 tiles, then >> 1 */
+        for (int ty = 0; ty < c->bh; ty += 4)
+            for (int tx = 0; tx < c->bw; tx += 4) {
+                int m[4][4], r;
+                for (int k = 0; k < 4; k++) {
+                    int d0 = d[ty][tx + k], d1 = d[ty + 1][tx + k];
+                    int d2 = d[ty + 2][tx + k], d3 = d[ty + 3][tx + k];
+                    m[0][k] = d0 + d1 + d2 + d3;
+                    m[1][k] = d0 + d1 - d2 - d3;
+                    m[2][k] = d0 - d1 - d2 + d3;
+                    m[3][k] = d0 - d1 + d2 - d3;
+                }
+                for (int i = 0; i < 4; i++) {
+                    int e0 = m[i][0], e1 = m[i][1], e2 = m[i][2], e3 = m[i][3];
+                    r = e0 + e1 + e2 + e3; dist += r < 0 ? -r : r;
+                    r = e0 + e1 - e2 - e3; dist += r < 0 ? -r : r;
+                    r = e0 - e1 - e2 + e3; dist += r < 0 ? -r : r;
+                    r = e0 - e1 + e2 - e3; dist += r < 0 ? -r : r;
+                }
+            }
+        dist >>= 1;
+    } else {
+        for (int y = 0; y < c->bh; y++)
+            for (int x = 0; x < c->bw; x++)
+                dist += d[y][x] < 0 ? -d[y][x] : d[y][x];
+    }
+    return dist + c->lam * (se_bits((int64_t)mx - c->pmx)
+                            + se_bits((int64_t)my - c->pmy) + c->extra);
+}
+
+/* subpel_refine(orig_blk, planes, (px, py, mvx, mvy, w, h, pmx, pmy,
+ * extra_bits, use_satd, qpel_start), lam) -> (mvx, mvy, cost): the half-
+ * then quarter-pel refinement of encoder/me.py subpel_refine, on uint8
+ * buffers of any strides (the block (bh, bw), bh and bw multiples of 4
+ * up to 16; the planes (4, h + 2 PAD, w + 2 PAD)). */
+static PyObject *py_subpel_refine(PyObject *self, PyObject *args) {
+    PyObject *org_obj, *pl_obj;
+    int px, py, mvx, mvy, w, h, pmx, pmy, extra, satd, qpel_start;
+    long long lam;
+    if (!PyArg_ParseTuple(args, "OO(iiiiiiiiiii)L", &org_obj, &pl_obj, &px,
+                          &py, &mvx, &mvy, &w, &h, &pmx, &pmy, &extra, &satd,
+                          &qpel_start, &lam))
+        return NULL;
+    if (g_pad < 0) {
+        PyErr_SetString(PyExc_RuntimeError, "qpel table not installed");
+        return NULL;
+    }
+    Py_buffer ov, pv;
+    if (PyObject_GetBuffer(org_obj, &ov, PyBUF_STRIDES | PyBUF_FORMAT) < 0)
+        return NULL;
+    if (PyObject_GetBuffer(pl_obj, &pv, PyBUF_STRIDES | PyBUF_FORMAT) < 0) {
+        PyBuffer_Release(&ov);
+        return NULL;
+    }
+    PyObject *result = NULL;
+    int ok_fmt = ov.itemsize == 1 && pv.itemsize == 1
+                 && (!ov.format || !strcmp(ov.format, "B"))
+                 && (!pv.format || !strcmp(pv.format, "B"));
+    if (!ok_fmt || ov.ndim != 2 || pv.ndim != 3 || pv.shape[0] != 4
+        || ov.strides[1] != 1 || ov.shape[0] % 4 || ov.shape[1] % 4
+        || ov.shape[0] < 4 || ov.shape[1] < 4 || ov.shape[0] > 16
+        || ov.shape[1] > 16 || pv.shape[1] != h + 2 * g_pad
+        || pv.shape[2] != w + 2 * g_pad) {
+        PyErr_SetString(PyExc_ValueError, "subpel_refine: expected a uint8 "
+                        "block (bh, bw) and uint8 planes (4, h + 2 PAD, "
+                        "w + 2 PAD)");
+    } else {
+        SubpelCtx c;
+        c.org = (const uint8_t *)ov.buf;
+        c.org_s = ov.strides[0];
+        c.pl = (const uint8_t *)pv.buf;
+        c.s0 = pv.strides[0];
+        c.s1 = pv.strides[1];
+        c.s2 = pv.strides[2];
+        c.bh = (int)ov.shape[0];
+        c.bw = (int)ov.shape[1];
+        c.px = px; c.py = py; c.w = w; c.h = h; c.pmx = pmx; c.pmy = pmy;
+        c.satd = satd; c.lam = lam; c.extra = extra;
+        int bx = qpel_start ? mvx : 4 * mvx, by = qpel_start ? mvy : 4 * mvy;
+        int64_t bcost = subpel_cost(&c, bx, by);
+        for (int step = 2; step >= 1; step--) {
+            /* the 8 neighbours in the reference's order; the first of
+             * least cost replaces the centre when below it */
+            int cx = bx, cy = by, found = 0;
+            int64_t cmin = 0;
+            for (int dy = -step; dy <= step; dy += step)
+                for (int dx = -step; dx <= step; dx += step) {
+                    if (!dx && !dy) continue;
+                    int64_t v = subpel_cost(&c, bx + dx, by + dy);
+                    if (!found || v < cmin) {
+                        cmin = v; cx = bx + dx; cy = by + dy; found = 1;
+                    }
+                }
+            if (cmin < bcost) { bx = cx; by = cy; bcost = cmin; }
+        }
+        result = Py_BuildValue("(iiL)", bx, by, (long long)bcost);
+    }
+    PyBuffer_Release(&ov);
+    PyBuffer_Release(&pv);
+    return result;
+}
+
+/* the (bh, bw) luma prediction at quarter-pel (x4, y4) from the 4
+ * quarter-pel planes (me.mc_luma_block), into out (row stride bw) */
+static void mc_luma(const uint8_t *pl, Py_ssize_t s0, Py_ssize_t s1,
+                    Py_ssize_t s2, int x4, int y4, int bw, int bh, int w,
+                    int h, int32_t *out) {
+    const int pad = g_pad;
+    int xi = floor4(x4), yi = floor4(y4);
+    if (xi > w + pad - bw - 1) xi = w + pad - bw - 1;
+    if (xi < -pad) xi = -pad;
+    if (yi > h + pad - bh - 1) yi = h + pad - bh - 1;
+    if (yi < -pad) yi = -pad;
+    const int *q = g_qpel[(x4 & 3) + 4 * (y4 & 3)];
+    const uint8_t *a = pl + q[0] * s0 + (pad + yi + q[2]) * s1
+                       + (pad + xi + q[1]) * s2;
+    const uint8_t *b = q[3] < 0 ? NULL
+        : pl + q[3] * s0 + (pad + yi + q[5]) * s1 + (pad + xi + q[4]) * s2;
+    for (int y = 0; y < bh; y++)
+        for (int x = 0; x < bw; x++) {
+            int v = a[y * s1 + x * s2];
+            out[y * bw + x] = b ? (v + b[y * s1 + x * s2] + 1) >> 1 : v;
+        }
+}
+
+/* the (bh, bw) eighth-pel bilinear chroma prediction at (x8, y8) from a
+ * padded plane (me.mc_chroma_block), into out (row stride bw) */
+static void mc_chroma(const uint8_t *pl, Py_ssize_t s0, Py_ssize_t s1,
+                      int x8, int y8, int bw, int bh, int w, int h,
+                      int32_t *out) {
+    const int pad = g_pad;
+    int xi = x8 >= 0 ? x8 / 8 : -((-x8 + 7) / 8);
+    int yi = y8 >= 0 ? y8 / 8 : -((-y8 + 7) / 8);
+    if (xi > w + pad - bw - 1) xi = w + pad - bw - 1;
+    if (xi < -pad) xi = -pad;
+    if (yi > h + pad - bh - 1) yi = h + pad - bh - 1;
+    if (yi < -pad) yi = -pad;
+    const int xf = x8 & 7, yf = y8 & 7;
+    const uint8_t *a = pl + (pad + yi) * s0 + (pad + xi) * s1;
+    for (int y = 0; y < bh; y++)
+        for (int x = 0; x < bw; x++) {
+            const uint8_t *p = a + y * s0 + x * s1;
+            out[y * bw + x] = ((8 - xf) * (8 - yf) * p[0]
+                               + xf * (8 - yf) * p[s1]
+                               + (8 - xf) * yf * p[s0]
+                               + xf * yf * p[s0 + s1] + 32) >> 6;
+        }
+}
+
+/* mc_blk(planes, padU, padV, (x4, y4, bw, bh, w, h, cx8, cy8, cbw, cbh,
+ * cw, ch), out_y, out_u, out_v): one block's luma prediction from the
+ * quarter-pel planes (4, h + 2 PAD, w + 2 PAD) and its Cb / Cr
+ * predictions from the padded chroma planes (ch + 2 PAD, cw + 2 PAD), all
+ * uint8 of any strides, into the int32 C-contiguous outputs (bh, bw) and
+ * (cbh, cbw): me.mc_luma_block and me.mc_chroma_block in one call. */
+static PyObject *py_mc_blk(PyObject *self, PyObject *args) {
+    PyObject *objs[6];
+    int x4, y4, bw, bh, w, h, cx8, cy8, cbw, cbh, cw, ch;
+    if (!PyArg_ParseTuple(args, "OOO(iiiiiiiiiiii)OOO", &objs[0], &objs[1],
+                          &objs[2], &x4, &y4, &bw, &bh, &w, &h, &cx8, &cy8,
+                          &cbw, &cbh, &cw, &ch, &objs[3], &objs[4],
+                          &objs[5]))
+        return NULL;
+    if (g_pad < 0) {
+        PyErr_SetString(PyExc_RuntimeError, "qpel table not installed");
+        return NULL;
+    }
+    Py_buffer v[6];
+    int got = 0, ok = 1;
+    for (; got < 6; got++) {
+        int flags = got < 3 ? (PyBUF_STRIDES | PyBUF_FORMAT)
+                            : (PyBUF_C_CONTIGUOUS | PyBUF_FORMAT
+                               | PyBUF_WRITABLE);
+        if (PyObject_GetBuffer(objs[got], &v[got], flags) < 0) {
+            ok = 0;
+            break;
+        }
+    }
+    if (ok) {
+        for (int i = 0; i < 3; i++)
+            ok &= v[i].itemsize == 1 && (!v[i].format
+                                         || !strcmp(v[i].format, "B"));
+        for (int i = 3; i < 6; i++) {
+            char f = v[i].format[strlen(v[i].format) - 1];
+            ok &= v[i].itemsize == 4 && f == 'i';
+        }
+        ok &= v[0].ndim == 3 && v[0].shape[0] == 4
+              && v[0].shape[1] == h + 2 * g_pad
+              && v[0].shape[2] == w + 2 * g_pad
+              && v[1].ndim == 2 && v[2].ndim == 2
+              && v[1].shape[0] == ch + 2 * g_pad
+              && v[1].shape[1] == cw + 2 * g_pad
+              && v[2].shape[0] == v[1].shape[0]
+              && v[2].shape[1] == v[1].shape[1]
+              && bw >= 1 && bh >= 1 && bw <= 16 && bh <= 16
+              && cbw >= 1 && cbh >= 1 && cbw <= 16 && cbh <= 16
+              && v[3].len == (Py_ssize_t)4 * bw * bh
+              && v[4].len == (Py_ssize_t)4 * cbw * cbh
+              && v[5].len == v[4].len;
+        if (!ok)
+            PyErr_SetString(PyExc_ValueError, "mc_blk: expected uint8 planes "
+                            "(4, h + 2 PAD, w + 2 PAD) and two (ch + 2 PAD, "
+                            "cw + 2 PAD), int32 outputs (bh, bw) and two "
+                            "(cbh, cbw)");
+    }
+    if (ok) {
+        mc_luma((const uint8_t *)v[0].buf, v[0].strides[0], v[0].strides[1],
+                v[0].strides[2], x4, y4, bw, bh, w, h, (int32_t *)v[3].buf);
+        for (int c = 1; c < 3; c++)
+            mc_chroma((const uint8_t *)v[c].buf, v[c].strides[0],
+                      v[c].strides[1], cx8, cy8, cbw, cbh, cw, ch,
+                      (int32_t *)v[3 + c].buf);
+    }
+    for (int i = 0; i < got; i++) PyBuffer_Release(&v[i]);
+    if (!ok) return NULL;
+    Py_RETURN_NONE;
+}
+
+/* quad_sad(orig, plane, x, y) -> (s0, s1, s2, s3): the SADs of an MB's
+ * four 8x8 quadrants (orig: (4, 8, 8) int32 C-contiguous, quadrants in
+ * raster order) against the 16x16 window of plane (2-D uint8, any
+ * strides) whose top-left sample is (x, y): the EPZS / UMHex searchers'
+ * quadrant SADs at one integer displacement (me_epzs.py _qsad). */
+static PyObject *py_quad_sad(PyObject *self, PyObject *args) {
+    PyObject *org_obj, *pl_obj;
+    int x, y;
+    if (!PyArg_ParseTuple(args, "OOii", &org_obj, &pl_obj, &x, &y))
+        return NULL;
+    Py_buffer ov, pv;
+    if (PyObject_GetBuffer(org_obj, &ov, PyBUF_C_CONTIGUOUS | PyBUF_FORMAT)
+        < 0)
+        return NULL;
+    if (PyObject_GetBuffer(pl_obj, &pv, PyBUF_STRIDES | PyBUF_FORMAT) < 0) {
+        PyBuffer_Release(&ov);
+        return NULL;
+    }
+    char fo = ov.format ? ov.format[strlen(ov.format) - 1] : 'B';
+    int ok = ov.itemsize == 4 && fo == 'i' && ov.len == 4 * 4 * 64
+             && pv.itemsize == 1 && (!pv.format || !strcmp(pv.format, "B"))
+             && pv.ndim == 2 && x >= 0 && y >= 0 && x + 16 <= pv.shape[1]
+             && y + 16 <= pv.shape[0];
+    PyObject *result = NULL;
+    if (!ok) {
+        PyErr_SetString(PyExc_ValueError, "quad_sad: expected a (4, 8, 8) "
+                        "int32 MB and a uint8 plane holding the window");
+    } else {
+        const int32_t *o = (const int32_t *)ov.buf;
+        const uint8_t *p = (const uint8_t *)pv.buf;
+        const Py_ssize_t s0 = pv.strides[0], s1 = pv.strides[1];
+        long long sad[4] = {0, 0, 0, 0};
+        for (int q = 0; q < 4; q++) {
+            const int oy = y + (q >> 1) * 8, ox = x + (q & 1) * 8;
+            for (int j = 0; j < 8; j++)
+                for (int i = 0; i < 8; i++) {
+                    int d = o[q * 64 + j * 8 + i]
+                            - p[(oy + j) * s0 + (ox + i) * s1];
+                    sad[q] += d < 0 ? -d : d;
+                }
+        }
+        result = Py_BuildValue("(LLLL)", sad[0], sad[1], sad[2], sad[3]);
+    }
+    PyBuffer_Release(&ov);
+    PyBuffer_Release(&pv);
+    return result;
+}
+
+/* round(v / 4) as Python rounds it: half to even */
+static inline int round4(int v) {
+    int f = floor4(v), r = v - 4 * f;
+    return r < 2 ? f : r > 2 ? f + 1 : (f & 1 ? f + 1 : f);
+}
+
+/* int_search(table, cols, (pmx, pmy, sr), lam) -> (mvx, mvy): the
+ * integer full search's arg-min of encoder/me.py (the table's columns
+ * cols summed, plus int_rate_tab, with best_int_mv_tiebreak's spiral
+ * ranks). table: one MB's int16 / int32 / int64 SADs, ((2 sr + 1)^2,) or
+ * ((2 sr + 1)^2, k), any strides; cols: column indices (ignored for a
+ * 1-D table). */
+static PyObject *py_int_search(PyObject *self, PyObject *args) {
+    PyObject *tab_obj, *cols_obj;
+    int pmx, pmy, sr;
+    long long lam;
+    if (!PyArg_ParseTuple(args, "OO(iii)L", &tab_obj, &cols_obj, &pmx, &pmy,
+                          &sr, &lam))
+        return NULL;
+    Py_buffer v;
+    if (PyObject_GetBuffer(tab_obj, &v, PyBUF_STRIDES | PyBUF_FORMAT) < 0)
+        return NULL;
+    const int side = 2 * sr + 1;
+    char fc = v.format ? v.format[strlen(v.format) - 1] : 'B';
+    int ok = sr >= 0 && sr < 1024 && (v.ndim == 1 || v.ndim == 2)
+             && v.shape[0] == (Py_ssize_t)side * side
+             && (fc == 'h' || fc == 'i' || fc == 'l' || fc == 'q')
+             && (v.itemsize == 2 || v.itemsize == 4 || v.itemsize == 8);
+    int cols[16], ncols = 1;
+    cols[0] = 0;
+    if (ok && v.ndim == 2) {
+        PyObject *seq = PySequence_Fast(cols_obj, "int_search: cols");
+        if (!seq) { PyBuffer_Release(&v); return NULL; }
+        ncols = (int)PySequence_Fast_GET_SIZE(seq);
+        ok = ncols >= 1 && ncols <= 16;
+        for (int i = 0; ok && i < ncols; i++) {
+            long c = PyLong_AsLong(PySequence_Fast_GET_ITEM(seq, i));
+            ok = c >= 0 && c < v.shape[1];
+            cols[i] = (int)c;
+        }
+        Py_DECREF(seq);
+        if (PyErr_Occurred()) { PyBuffer_Release(&v); return NULL; }
+    }
+    if (!ok) {
+        PyBuffer_Release(&v);
+        PyErr_SetString(PyExc_ValueError, "int_search: expected a signed "
+                        "integer table of (2 sr + 1)^2 rows and up to 16 "
+                        "valid columns");
+        return NULL;
+    }
+    /* the rate of each displacement by axis (int_rate_tab's se(v) bits
+     * of the mvd in quarter samples, clamped as its table is) */
+    int64_t rx[2048], ry[2048];
+    for (int i = 0; i < side; i++) {
+        int64_t ax = 4LL * (i - sr) - pmx, ay = 4LL * (i - sr) - pmy;
+        ax = ax < 0 ? -ax : ax;
+        ay = ay < 0 ? -ay : ay;
+        if (ax > 16383) ax = 16383;
+        if (ay > 16383) ay = 16383;
+        rx[i] = ax ? 2 * (64 - __builtin_clzll((uint64_t)(2 * ax))) - 1 : 1;
+        ry[i] = ay ? 2 * (64 - __builtin_clzll((uint64_t)(2 * ay))) - 1 : 1;
+    }
+    int cx = round4(pmx), cy = round4(pmy);
+    cx = cx < -sr ? -sr : cx > sr ? sr : cx;
+    cy = cy < -sr ? -sr : cy > sr ? sr : cy;
+    const char *base = (const char *)v.buf;
+    const Py_ssize_t s0 = v.strides[0], s1 = v.ndim == 2 ? v.strides[1] : 0;
+    int64_t best = 0;
+    int bk = -1;
+    for (int k = 0; k < side * side; k++) {
+        int dy = k / side - sr, dx = k % side - sr;
+        const char *row = base + k * s0;
+        int64_t sad = 0;
+        for (int i = 0; i < ncols; i++) {
+            const char *e = row + cols[i] * s1;
+            sad += v.itemsize == 2 ? *(const int16_t *)e
+                   : v.itemsize == 4 ? *(const int32_t *)e
+                                     : *(const int64_t *)e;
+        }
+        int ay = dy - cy < 0 ? cy - dy : dy - cy;
+        int ax = dx - cx < 0 ? cx - dx : dx - cx;
+        int ring = ax > ay ? ax : ay, sub = ax + ay;
+        int64_t key = (sad + lam * (ry[dy + sr] + rx[dx + sr])) * 8192
+                      + ring * 64 + (sub < 63 ? sub : 63);
+        if (bk < 0 || key < best) { best = key; bk = k; }
+    }
+    PyBuffer_Release(&v);
+    return Py_BuildValue("(ii)", bk % side - sr, bk / side - sr);
+}
+
+/* ------------------------------------------------------------------ */
 /* registration                                                        */
 /* ------------------------------------------------------------------ */
 
@@ -820,6 +1261,16 @@ static PyMethodDef enc_methods[] = {
      "install the normative CAVLC code tables (dict of arrays)"},
     {"cavlc_slice_data", py_cavlc_slice_data, METH_VARARGS,
      "serialize one slice's macroblocks (CAVLC) after a written header"},
+    {"set_qpel_tab", py_set_qpel_tab, METH_VARARGS,
+     "install the quarter-pel plane selection table and the padding"},
+    {"subpel_refine", py_subpel_refine, METH_VARARGS,
+     "the half- then quarter-pel refinement of one block's MV"},
+    {"int_search", py_int_search, METH_VARARGS,
+     "the integer full search's arg-min over one MB's SAD table"},
+    {"mc_blk", py_mc_blk, METH_VARARGS,
+     "one block's quarter-pel luma and eighth-pel chroma predictions"},
+    {"quad_sad", py_quad_sad, METH_VARARGS,
+     "an MB's four quadrant SADs at one integer displacement"},
     {NULL, NULL, 0, NULL},
 };
 

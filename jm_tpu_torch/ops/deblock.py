@@ -58,8 +58,13 @@ def n_waves(mb_w: int, mb_h: int) -> int:
 # ---------------------------------------------------------------------------
 
 def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
-               ref_pic_id_l1, mb_w: int, mb_h: int):
-    """Boundary strengths (spec 8.7.2.1) of a frame picture.
+               ref_pic_id_l1, mb_w: int, mb_h: int, field: bool = False):
+    """Boundary strengths (spec 8.7.2.1) of a frame picture, or with
+    field of a field picture: its vertical MV components differ from 2
+    quarter samples up (half the vertical resolution, ldecod
+    loop_filter.c mvlimit) and its horizontal MB edges next to an intra
+    MB take bS 3, not 4 (loop_filter_normal.c:124; jm_tpu
+    ops/deblock.py:58-60, :103-105).
 
     mb_class (N,) (0 inter, else intra); luma_nnz (N, 16) raster 4x4
     counts; transform8x8 (N,); mv / mv_l1 (N, 16, 2) quarter-pel;
@@ -89,10 +94,12 @@ def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
     r0 = expand_q(ref_pic_id.to(torch.int64))
     r1 = expand_q(ref_pic_id_l1.to(torch.int64))
 
-    def cmp_mv(a, b):
-        return (torch.abs(a - b) >= 4).any(dim=-1)
+    mv_lim = torch.tensor([4, 2 if field else 4], dtype=I32, device=dev)
 
-    def edge_bs(sl_p, sl_q, is_mb_edge):
+    def cmp_mv(a, b):
+        return (torch.abs(a - b) >= mv_lim).any(dim=-1)
+
+    def edge_bs(sl_p, sl_q, is_mb_edge, mb_edge_bs=4):
         (ip, nn_p, m0p, m1p, r0p, r1p) = sl_p
         (iq, nn_q, m0q, m1q, r0q, r1q) = sl_q
         either_intra = ip | iq
@@ -109,7 +116,7 @@ def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
                                        torch.where(r0p == r0q, c00 | c11,
                                                    c01 | c10),
                                        strv_same)).to(torch.int8)
-        edge = torch.where(is_mb_edge, 4, 3).to(torch.int8)
+        edge = torch.where(is_mb_edge, mb_edge_bs, 3).to(torch.int8)
         return torch.where(either_intra, edge,
                            torch.where(coef, torch.full_like(strv, 2), strv))
 
@@ -123,7 +130,8 @@ def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
     is_mb_h[3::4, :] = True
     bs_h = torch.zeros((H, W), dtype=torch.int8, device=dev)
     bs_h[1:, :] = edge_bs(tuple(a[:-1] for a in fields),
-                          tuple(a[1:] for a in fields), is_mb_h)
+                          tuple(a[1:] for a in fields), is_mb_h,
+                          3 if field else 4)
     return bs_v, bs_h
 
 
@@ -248,11 +256,18 @@ class MbParams:
         return lane, bv, bh
 
     def waves(self, bs_v, bs_h):
-        """Per wave with MBs: (bb, cc, *self.lanes(bb, cc, ...))."""
+        """Per wave with an MB that has an edge of bS > 0: (bb, cc,
+        *self.lanes(bb, cc, ...)) of those MBs. An MB whose 32 edges all
+        have bS 0 is left out: no filter changes a sample there (every
+        filter's flag needs bS > 0), and the MBs of a wave touch disjoint
+        samples."""
         b_all = torch.arange(self.mb_h, device=self.qp.device)
+        live = ((bs_v > 0) | (bs_h > 0)).reshape(
+            self.mb_h, 4, self.mb_w, 4).any(dim=3).any(dim=1)
         for wv in range(n_waves(self.mb_w, self.mb_h)):
             c_all = wv - 2 * b_all
             valid = (c_all >= 0) & (c_all < self.mb_w)
+            valid &= live[b_all, c_all.clamp(0, self.mb_w - 1)]
             if not bool(valid.any()):
                 continue
             bb, cc = b_all[valid], c_all[valid]
@@ -284,7 +299,10 @@ def luma_vertical(tile, ln, bv, bd: int = 8):
     th = [_thresholds(qp_p, ln["qp"], ln["ao"], ln["bo"], dev, bd)
           for qp_p in (ln["qp_l"], ln["qp"])]     # the MB edge, the inner
     has4 = (bv == 4).any(dim=2).any(dim=0).tolist()
+    live = (bv > 0).any(dim=2).any(dim=0).tolist()
     for ex in range(4):
+        if not live[ex]:            # every line bS 0: nothing filtered
+            continue
         en = ln["left_ok"] if ex == 0 else (inner if ex in (1, 3)
                                             else ln["on"])
         al, be, ia = th[ex > 0]
@@ -303,7 +321,10 @@ def luma_horizontal(tile, ln, bh, bd: int = 8):
     th = [_thresholds(qp_p, ln["qp"], ln["ao"], ln["bo"], dev, bd)
           for qp_p in (ln["qp_t"], ln["qp"])]
     has4 = (bh == 4).any(dim=2).any(dim=0).tolist()
+    live = (bh > 0).any(dim=2).any(dim=0).tolist()
     for ey in range(4):
+        if not live[ey]:
+            continue
         en = ln["top_ok"] if ey == 0 else (inner if ey in (1, 3)
                                            else ln["on"])
         al, be, ia = th[ey > 0]
@@ -374,10 +395,13 @@ def chroma_vertical(ct, ln, bv, qpc_cb, qpc_cr, bd: int = 8):
     MBs' ``MbParams.lanes``; qpc_cb / qpc_cr the QP -> QPc tables
     (convert.qpc_tables); bd the chroma bit depth."""
     B, n = ct.shape[0], ct.shape[2] - 4                   # 8 or 16 lines
+    bs = bv[:, 0::2]
+    if not bool((bs > 0).any()):        # every line bS 0: nothing filtered
+        return
     lines = ct[:, :, 4:, 2:10].reshape(B, 2, n, 2, 4).permute(0, 1, 3, 2, 4)
     out = _chroma_edges(
         lines, torch.stack([ln["qp_l"], ln["qp"]], 1), ln,
-        bv[:, 0::2].repeat_interleave(n // 4, dim=2),
+        bs.repeat_interleave(n // 4, dim=2),
         torch.stack([ln["left_ok"], ln["on"]], 1), qpc_cb, qpc_cr, bd)
     ct[:, :, 4:, 2:10] = out.permute(0, 1, 3, 2, 4).reshape(B, 2, n, 8)
 
@@ -391,11 +415,14 @@ def chroma_horizontal(ct, ln, bh, qpc_cb, qpc_cr, bd: int = 8):
     edges 1 and 3 do not (ldecod loopFilter.c:488)."""
     B, n = ct.shape[0], ct.shape[2] - 4
     k = n // 4                                            # edges
+    bs = bh[:, [j * 16 // n for j in range(k)]]
+    if not bool((bs > 0).any()):
+        return
     lines = ct[:, :, 2:2 + n, 4:12].reshape(B, 2, k, 4, 8).transpose(3, 4)
     out = _chroma_edges(
         lines, torch.cat([ln["qp_t"][:, None],
                           ln["qp"][:, None].expand(B, k - 1)], 1), ln,
-        bh[:, [j * 16 // n for j in range(k)]].repeat_interleave(2, dim=2),
+        bs.repeat_interleave(2, dim=2),
         torch.cat([ln["top_ok"][:, None],
                    ln["on"][:, None].expand(B, k - 1)], 1),
         qpc_cb, qpc_cr, bd)

@@ -20,7 +20,10 @@ predictions before the residual (spec 8.4.2.3), as jm_tpu does on the
 host (decoder/recon.py _recon_inter with WPParams.uni / .bi). The
 residual decode also takes the 8x8 transform of the MBs that use it
 (spec 8.5.13), which jm_tpu reconstructs on the host. Every function runs
-on the tensors' device. Scope: 4:2:0 and 4:2:2 frame pictures. At 4:2:2
+on the tensors' device. Scope: 4:2:0 and 4:2:2 frame pictures, and
+4:2:0 field pictures (the field scan, and the chroma offset of a
+reference field of the other parity), which jm_tpu reconstructs on the
+host. At 4:2:2
 (crows 4: four rows of chroma 4x4 blocks per MB) the chroma DC is 2x4
 (scaled at QPc + 3), each luma 4x4 block covers a 2x4 chroma block, and
 the vertical chroma displacement is the luma MV in quarter samples
@@ -39,22 +42,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..common.tables import SCAN_YUV422, ZIGZAG_4x4, ZIGZAG_8x8
+from ..common.tables import SCAN_YUV422, ZIGZAG_8x8, scan_4x4
 from . import quant as Q
 from . import transform as T
 from .consts import PAD, QPEL_TAB, on, plane_dtype
 
 I32 = torch.int32
-_ZZ = np.asarray(ZIGZAG_4x4, np.int64)
 _ZZ8 = np.asarray(ZIGZAG_8x8, np.int64)
+# the 4x4 scans by field (spec 8.5.6), kept so that consts.on caches them
+_SCAN4 = {f: np.asarray(scan_4x4(f), np.int64) for f in (False, True)}
 
 
 def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
                     qpc_cb, qpc_cr, *, mb_w: int, mb_h: int,
                     luma_coef8=None, transform8x8=None, tab8=None,
-                    bd=(8, 8), lossless=None):
+                    bd=(8, 8), lossless=None, field: bool = False):
     """Residual decode of a picture's MBs with the inter scaling lists:
-    inverse zig-zag -> dequant -> rounded inverse 4x4; chroma DC through
+    inverse scan (the zig-zag, or with field the field scan of a field
+    picture, spec 8.5.6) -> dequant -> rounded inverse 4x4; chroma DC through
     the 2x2 Hadamard (spec 8.5.11); with transform8x8, the luma of those
     MBs through the 8x8 zig-zag, dequant and rounded inverse 8x8 (spec
     8.5.13) in int64, split into their 16 raster 4x4 blocks.
@@ -76,7 +81,7 @@ def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
     Returns (res_l (N, 16, 4, 4), res_c (N, 2, 2 crows, 4, 4)) int32."""
     n = mb_w * mb_h
     dev = luma_coef.device
-    zz = on(_ZZ, dev)
+    zz = on(_SCAN4[bool(field)], dev)
     qp = qp.to(I32)
     offy, offc = 6 * (bd[0] - 8), 6 * (bd[1] - 8)
     acc = I32 if bd == (8, 8) else torch.int64      # dequant / transform
@@ -158,11 +163,14 @@ def _chroma_dc422(dc, qpc, tab):
 
 
 def _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack, *,
-             mb_w: int, mb_h: int):
+             mb_w: int, mb_h: int, chroma_dy=None):
     """Motion-compensated prediction of every 4x4 block of the picture
     from one list: mv (N, 16, 2) quarter-pel; ref_idx (N, 4) index into
     the stacks per 8x8 (negative entries predict from stack entry 0 and
-    are masked by the caller). Returns (luma (N, 16, 4, 4), chroma
+    are masked by the caller); chroma_dy None or (R,) int, each stack
+    entry's offset of the vertical 4:2:0 chroma vector in eighth samples
+    (a field picture's reference field of the other parity: -2 below a
+    top field, +2 below a bottom one, spec 8.4.1.4; else 0). Returns (luma (N, 16, 4, 4), chroma
     (N, 16, 2, cbh, 2): the Cb and Cr 2 x cbh block of each luma block,
     cbh 2 at 4:2:0 and 4 at 4:2:2, read from the padded planes' height)
     int32."""
@@ -208,6 +216,8 @@ def _mc_pred(mv, ref_idx, planes_stack, padU_stack, padV_stack, *,
     cbh = ch // (4 * mb_h)
     cx8 = (px // 2) * 8 + mvx
     cy8 = (py // 2) * 8 + mvy if cbh == 2 else py * 8 + 2 * mvy
+    if chroma_dy is not None:
+        cy8 = cy8 + chroma_dy.to(I32)[ref_b]
     cxi = torch.clamp(cx8 >> 3, -PAD, cw + PAD - 3)
     cyi = torch.clamp(cy8 >> 3, -PAD, ch + PAD - cbh - 1)
     i3 = torch.arange(3, device=dev)
@@ -293,7 +303,7 @@ def _recon(pred, cpred, res_l, res_c, inter_mask, *, mb_w: int, mb_h: int,
 
 def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
                   padV_stack, inter_mask, *, mb_w: int, mb_h: int,
-                  wp=None, bd=(8, 8)):
+                  wp=None, bd=(8, 8), chroma_dy=None):
     """Inter reconstruction of every inter MB of a P picture.
 
     mv (N, 16, 2) quarter-pel per raster 4x4 block; ref_idx (N, 4) list0
@@ -303,11 +313,13 @@ def inter_recon_p(mv, ref_idx, res_l, res_c, planes_stack, padU_stack,
     (ops/enc.prep_ref of each reference; uint8, or int16 above 8 bits);
     inter_mask (N,) bool; wp None (default prediction) or the explicit
     weighted prediction (w0, o0, w1, o1, logwd) of _weigh_planes (the
-    list-1 tables unused); bd the (luma, chroma) bit depths. Returns
-    (Y, U, V) planes of ``consts.plane_dtype(bd)``, the MBs outside
-    inter_mask zero."""
+    list-1 tables unused); bd the (luma, chroma) bit depths; chroma_dy
+    the field picture's chroma offset of each stack entry (_mc_pred) or
+    None. Returns (Y, U, V) planes of ``consts.plane_dtype(bd)``, the MBs
+    outside inter_mask zero."""
     pred, cpred = _mc_pred(mv, ref_idx, planes_stack, padU_stack,
-                           padV_stack, mb_w=mb_w, mb_h=mb_h)
+                           padV_stack, mb_w=mb_w, mb_h=mb_h,
+                           chroma_dy=chroma_dy)
     if wp is not None:
         pd = torch.zeros(pred.shape[:2], dtype=I32, device=pred.device)
         pred, cpred = _weigh_planes(pred, cpred, None, None, pd, wp, bd)

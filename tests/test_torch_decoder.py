@@ -232,11 +232,8 @@ def test_picture_from_numpy_through_port_recon():
 
 @pytest.mark.parametrize("name,construct", [
     ("cif_sp", "SP"),
-    ("cif_field", "fields"),
-    ("mbaff1", "fields"),
-    ("field1", "fields"),
-    ("field2", "fields"),
-    ("fieldcab", "fields"),
+    ("mbaff1", "MBAFF"),
+    ("cif_paff_adaptive", "adaptive PAFF"),
     ("sp1", "SP slices"),
     ("stereo_jm", "MVC"),
 ])

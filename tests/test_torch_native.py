@@ -10,6 +10,12 @@ twins and against jm_tpu's runtime, on the CPU, exactly:
 - the encoder's native Intra4x4 MB coder (encode_i4_mb) against the
   Python loop of encoder/p_intra.py, through whole host intra pictures
   at 4:2:0 and 4:2:2, several slices and QPs;
+- the host motion search's native integer arg-min (int_search),
+  fractional refinement (subpel_refine), block motion compensation
+  (mc_blk) and the searchers' quadrant SADs (quad_sad) against their
+  numpy twins (encoder/me.py, encoder/me_epzs.py) on seeded blocks,
+  planes and tables, and the host P and B coders' streams with and
+  without them;
 - the counted Python route of an I_PCM MB, and a failing build that
   raises."""
 
@@ -44,7 +50,11 @@ from jm_tpu_torch.decoder.mb_parse_cabac import MBParserCABAC
 from jm_tpu_torch.decoder.recon import Reconstructor
 from jm_tpu_torch.common.tables import chroma_qp
 from jm_tpu_torch.encoder import encoder as port_encoder
+from jm_tpu_torch.encoder import me as port_me
+from jm_tpu_torch.encoder.b_host import InterMBCoder
+from jm_tpu_torch.encoder.me_epzs import EPZSearcher
 from jm_tpu_torch.encoder.intra_host import IntraPicture
+from jm_tpu_torch.ops.consts import PAD
 from jm_tpu_torch.encoder.syntax import serialize_slice, write_slice_header
 
 sys.path.insert(0, str(Path(__file__).parent))
@@ -430,6 +440,167 @@ def test_native_intra4x4_coder(fmt, qp, n_slices, monkeypatch):
         assert np.array_equal(getattr(got.pic, k), getattr(want.pic, k)), k
     for a, b in zip(got.rec, want.rec):
         assert np.array_equal(a, b)
+
+
+# (block width, height) of every partition and sub-partition
+_ME_BLOCKS = ((16, 16), (16, 8), (8, 16), (8, 8), (8, 4), (4, 8), (4, 4))
+
+
+@pytest.mark.parametrize("bw,bh", _ME_BLOCKS)
+def test_native_subpel_refine(bw, bh):
+    """jm_enc.cpp subpel_refine against encoder/me.py subpel_refine: the
+    same quarter-pel MV and cost, by SATD and by SAD, from integer and
+    from quarter-pel starts, with MVs that reach past the padding (the
+    clamped fetch), on flat and on noisy planes, and on a block whose
+    rows are a field's (every other row of its frame)."""
+    rng = np.random.default_rng(bw * 17 + bh)
+    w, h = 48, 32
+    mod = N.load()
+    for trial in range(60):
+        planes = rng.integers(0, 256, (4, h + 2 * PAD, w + 2 * PAD),
+                              dtype=np.uint8)
+        if trial % 3 == 0:
+            planes = (planes // 16 + 100).astype(np.uint8)
+        frame = rng.integers(0, 256, (2 * h, w), dtype=np.uint8)
+        orig = frame[trial % 2::2] if trial % 4 < 2 else frame[:h]
+        px = int(rng.integers(0, (w - bw) // 4 + 1)) * 4
+        py = int(rng.integers(0, (h - bh) // 4 + 1)) * 4
+        blk = orig[py:py + bh, px:px + bw]
+        span = 60 if trial % 5 == 0 else 6
+        mv = rng.integers(-span, span + 1, 2).astype(np.int32)
+        pred = rng.integers(-4 * span, 4 * span + 1, 2).astype(np.int32)
+        lam, extra = int(rng.integers(1, 90)), int(rng.integers(0, 3))
+        satd, qpel = bool(trial % 2), trial % 3 == 1
+        want = port_me.subpel_refine(blk, planes, px, py, mv, w, h, pred,
+                                     lam, extra_bits=extra, use_satd=satd,
+                                     qpel_start=qpel)
+        got = mod.subpel_refine(blk, planes,
+                                (px, py, int(mv[0]), int(mv[1]), w, h,
+                                 int(pred[0]), int(pred[1]), extra,
+                                 int(satd), int(qpel)), lam)
+        assert got == (int(want[0][0]), int(want[0][1]), int(want[1]))
+
+
+@pytest.mark.parametrize("kind", ["quad", "blk4", "sad16", "int64"])
+def test_native_int_search(kind):
+    """jm_enc.cpp int_search against the numpy arg-min of encoder/me.py
+    (int_rate_tab + spiral_rank_tab + best_int_mv_tiebreak), through
+    InterMBCoder._int_mv with native_me on and off: the same integer MV
+    for the quadrant (int32), 4x4 (int16) and 16x16 (int32, 1-D) tables
+    and an int64 sum of quadrants, at several search ranges, with flat
+    tables (every displacement tied) and predictors halfway between
+    integer positions (Python's rounding to even)."""
+    rng = np.random.default_rng(len(kind))
+    coder = InterMBCoder()
+    for trial in range(80):
+        coder.sr = (16, 8, 3, 1, 0)[trial % 5]
+        coder.lam = int(rng.integers(1, 90))
+        side = 2 * coder.sr + 1
+        if kind == "quad":
+            table = rng.integers(0, 3000, (side * side, 4)).astype(np.int32)
+            cols = tuple(sorted(rng.choice(4, int(rng.integers(1, 5)),
+                                           replace=False).tolist()))
+        elif kind == "blk4":
+            table = rng.integers(0, 3000, (side * side, 16)).astype(np.int16)
+            cols = sorted(rng.choice(16, 4, replace=False).tolist())
+        elif kind == "sad16":
+            table = rng.integers(0, 20000, side * side).astype(np.int32)
+            cols = ()
+        else:
+            table = rng.integers(0, 3000, (side * side, 4)).astype(np.int64)
+            cols = (0, 1, 2, 3)
+        if trial % 7 == 0:
+            table[:] = table.flat[0]
+        pred = rng.integers(-300, 301, 2).astype(np.int32)
+        if trial % 4 == 0:
+            pred = (pred // 4 * 4 + 2).astype(np.int32)
+        coder.native_me = False
+        want = coder._int_mv(table, cols, pred)
+        coder.native_me = True
+        assert np.array_equal(coder._int_mv(table, cols, pred), want)
+
+
+@pytest.mark.parametrize("crows", [2, 4])
+def test_native_mc_blk(crows):
+    """jm_enc.cpp mc_blk against me.mc_luma_block and me.mc_chroma_block:
+    equal 4x4 luma and 2x2 (4:2:0) or 2x4 (4:2:2) chroma predictions at
+    every fractional position, near and past the padded border."""
+    rng = np.random.default_rng(crows)
+    w, h = 48, 32
+    cw, ch = w // 2, h * crows // 4
+    mod = N.load()
+    for trial in range(200):
+        planes = rng.integers(0, 256, (4, h + 2 * PAD, w + 2 * PAD),
+                              dtype=np.uint8)
+        pu, pv = rng.integers(0, 256, (2, ch + 2 * PAD, cw + 2 * PAD),
+                              dtype=np.uint8)
+        span = 300 if trial % 3 == 0 else 20
+        x4, y4 = (int(v) for v in rng.integers(-span, 4 * w + span, 2))
+        cx8, cy8 = (int(v) for v in rng.integers(-span, 8 * cw + span, 2))
+        got = (np.empty((4, 4), np.int32), np.empty((crows, 2), np.int32),
+               np.empty((crows, 2), np.int32))
+        mod.mc_blk(planes, pu, pv, (x4, y4, 4, 4, w, h, cx8, cy8, 2, crows,
+                                    cw, ch), *got)
+        want = (port_me.mc_luma_block(planes, x4, y4, 4, 4, w, h),
+                port_me.mc_chroma_block(pu, cx8, cy8, 2, crows, cw, ch),
+                port_me.mc_chroma_block(pv, cx8, cy8, 2, crows, cw, ch))
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
+
+
+def test_native_quad_sad():
+    """jm_enc.cpp quad_sad against the searchers' numpy quadrant SADs
+    (EPZSearcher._qsad with native False) at every displacement of a
+    small window, for MBs at the picture's corners and inside."""
+    rng = np.random.default_rng(5)
+    w, h, sr = 48, 32, 4
+
+    class Ref:
+        Y = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        luma_planes = rng.integers(0, 256, (4, h + 2 * PAD, w + 2 * PAD),
+                                   dtype=np.uint8)
+        motion = None
+
+    origY = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    nat = EPZSearcher(origY, [Ref()], w // 16, h // 16, sr, 4,
+                      np.zeros((6, 16, 2), np.int32), use_hme=False)
+    twin = EPZSearcher(origY, [Ref()], w // 16, h // 16, sr, 4,
+                       np.zeros((6, 16, 2), np.int32), use_hme=False)
+    twin.native = False
+    for addr in range(6):
+        for dy in range(-sr, sr + 1):
+            for dx in range(-sr, sr + 1):
+                assert tuple(int(v) for v in twin._qsad(addr, 0, dx, dy)) \
+                    == nat._qsad(addr, 0, dx, dy)
+
+
+@pytest.mark.parametrize("kw", [dict(num_ref=2, sub8x8=True),
+                                dict(num_b=1, entropy="cabac"),
+                                dict(num_ref=2, search_mode=3)],
+                         ids=["p_sub8x8", "b", "p_epzs"])
+def test_native_me_streams(kw, monkeypatch):
+    """The host pipeline's P coder (two references, sub-8x8; two
+    references under EPZS) and B coder with the native motion search and
+    compensation against the same encode with their numpy twins
+    (InterMBCoder.native_me and EPZSearcher.native False): equal bytes
+    and recon."""
+    frames = S.motion_clip(3, 64, 48)
+
+    def encode():
+        enc = port_encoder.Encoder(port_encoder.EncoderConfig(
+            width=64, height=48, qp=30, pipeline="host", **kw),
+            device="cpu")
+        return enc.encode_stream(frames), enc.results
+
+    got, got_res = encode()
+    monkeypatch.setattr(InterMBCoder, "native_me", False)
+    monkeypatch.setattr(EPZSearcher, "native", False)
+    want, want_res = encode()
+    assert got == want
+    for a, b in zip(got_res, want_res):
+        for plane in "YUV":
+            assert np.array_equal(getattr(a["frame"], plane),
+                                  getattr(b["frame"], plane))
 
 
 def test_failed_build_raises(tmp_path):

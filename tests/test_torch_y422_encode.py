@@ -149,12 +149,13 @@ def test_ipcm_pair_is_copied():
     (dict(chroma_format=3), ValueError, "chroma_format"),
     (dict(chroma_format=True), ValueError, "chroma_format"),
     (dict(chroma_format=2, num_slice_groups=2), ValueError, "profile 122"),
-    (dict(chroma_format=2, pic_interlace=1), TypeError, "pic_interlace"),
+    (dict(chroma_format=2, pic_interlace=1), NotImplementedError,
+     "pic_interlace"),
 ])
 def test_refusals(kw, exc, match):
     """What jm_tpu refuses at 4:2:2 the port refuses when it is built:
-    chroma formats other than 1 and 2, FMO in profile 122; field coding
-    is no field of the port's EncoderConfig at all."""
+    chroma formats other than 1 and 2, FMO in profile 122, and field
+    coding (NotImplementedError, as jm_tpu's field coder raises)."""
     with pytest.raises(exc, match=match):
         Encoder(EncoderConfig(width=W, height=H, **kw), device="cpu")
 
