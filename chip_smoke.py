@@ -318,16 +318,46 @@ Phases (any failure raises and exits non-zero):
      units of 4 rows) and field2 (field pictures, four reference frames)
      against their _rec.yuv, cif_field (60 CIF field pictures) against
      the sha256 of ldecod's output; one launch each of K1 and K2 per
-     picture.
-The wall seconds of each group of phases are printed after phase 45.
-The CPU references of phases 4-44 (the encodes on the CPU, the CPU
-decodes of the lossy stream, of the DP goldens, cif_main, the weighted,
-High, motion-option, RD, 4:2:2 and field streams) run in
+     picture;
+ 46. K1 and K2 at 1080p on the boundary strengths of an SP picture
+     (ops/deblock compute_bs(sp_slice=): bS 4 on every MB edge, 3 on every
+     inner edge, the filter on everywhere: the kernels' worst case) over
+     REPEATS launches, and of a half-SP picture (two of three slices SP,
+     the mixed per-MB parameters), against their plain twins on the card,
+     bit for bit; CUDA-event times beside the bound, the all-bS-zero
+     chain and the plain twins;
+ 47. SP switching pictures (sp_periodicity; the I and P pictures on the
+     device route, each SP picture on the host P coder, as in jm_tpu):
+     the sequence's first SP_FRAMES frames at 1080p with sp_periodicity
+     2, qp_sp 30, qp_sp2 32 (a device IDR, a device P, a host SP picture)
+     and the CIF streams of SP_CIF (a: 9 frames, sp_periodicity 3; b: 6
+     frames, sp_periodicity 2, num_b 1); one launch each of K1 and K2 per
+     picture, each picture's ms and bytes, each SP picture's ms per MB
+     and MB loop split (search, commit, the SP levels); the payloads and
+     recon equal the CPU run (a worker's); each stream decoded on the
+     card equal to the recon and to the CPU decode, one launch each of K1
+     and K2 per picture, the SP slices on the native parser (route "sp");
+     JM's goldens sp1 against its _rec.yuv and cif_sp against the sha256
+     of ldecod's output; the CUDA-event ms of ops/dec.sp_recon on every
+     MB of a 1080p picture;
+ 48. concealment (H264Decoder(conceal_mode=1 / 2)) on the card: phase 3's
+     first CONCEAL_1080P pictures with picture 3 dropped (a frame_num gap:
+     one frame concealed whole), and a CIF stream of 4 slices per picture
+     encoded on the card with an IDR slice and a P slice dropped, a slice
+     cut mid-payload and a picture dropped; each decode equal to the CPU
+     decode of the same bytes (a worker's) with the same
+     concealed_count, one launch each of K1 and K2 per reconstructed
+     picture (none for a frame concealed whole), frames/s and the
+     concealment's ms.
+The wall seconds of each group of phases are printed after phase 48.
+The CPU references of phases 4-48 (the encodes on the CPU, the CPU
+decodes of the lossy streams, of the DP goldens, cif_main, the weighted,
+High, motion-option, RD, 4:2:2, field and SP streams) run in
 CPU_WORKERS worker processes, started before the kernel build and
 stopped before the closing lines, while the card works through the
 phases, queued in the order of the phase that checks each; one more
-worker takes the CPU decodes of phase 41, which can start only once
-phases 3 and 38 have made their streams.
+worker takes the CPU decodes of phases 41 and 48, which can start only
+once phases 3 and 38 have made their streams.
 Phases 3, 6, 8-13 and 15-20 run on the native runtime, as the entry
 points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
@@ -342,11 +372,13 @@ their serialization is native); the >8-bit pictures of phase 41 take
 the Python intra recon (the native one is 8-bit).
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-45 alone, ``--from 22`` phases 22-45, ``--from 25`` phases 25-45,
-``--from 28`` phases 28-45, ``--from 31`` phases 31-45, ``--from 34``
-phases 34-45, ``--from 37`` phases 37-45, ``--from 40`` phases 40-45
+18-48 alone, ``--from 22`` phases 22-48, ``--from 25`` phases 25-48,
+``--from 28`` phases 28-48, ``--from 31`` phases 31-48, ``--from 34``
+phases 34-48, ``--from 37`` phases 37-48, ``--from 40`` phases 40-48
 (after encoding phase 3's first HBD_FRAMES pictures and phase 38's
-CIF stream (a) on the card), ``--from 43`` phases 43-45, without the
+CIF stream (a) on the card), ``--from 43`` phases 43-48, ``--from 46``
+phases 46-48 (after encoding phase 3's first CONCEAL_1080P pictures),
+without the
 closing JSON lines (a quicker
 check of those phases while they are developed). The
 last line of
@@ -1489,7 +1521,8 @@ def golden_bytes(name: str) -> bytes:
 
 def start_cpu_references(pool, frames, first: int) -> dict:
     """Submit the CPU references of phases first..44 (4, 18, 22, 25, 28,
-    31, 34, 37, 40 or 43) to the worker pool in the order of the phase that
+    31, 34, 37, 40, 43 or 46; with first 40 or later those of phases
+    47-48 too, else sp_cpu_jobs after phase 39) to the worker pool in the order of the phase that
     checks each (phases 8-9's after phase 14), so that the pool finishes
     each before the card needs it (PR 15 runs 2-3, with the long 1080p
     host encodes of phases 28 and 34 first, waited 24.2 / 44.9 s for phase
@@ -1545,12 +1578,31 @@ def start_cpu_references(pool, frames, first: int) -> dict:
         jobs += [(38, f"y422_cif_{label}", cpu_encode,
                   (y422_cif_cfg(kw), to_422(cif(frames, n))))
                  for label, n, kw in Y422_CIF]
-    jobs += [(44, "field_1080p", cpu_field, (field_cfg(), frames[:1])),
-             (44, "field_cif", cpu_field,
-              (field_cif_cfg(), cif(frames, FIELD_CIF_FRAMES)))]
+    if first <= 43:
+        jobs += [(44, "field_1080p", cpu_field, (field_cfg(), frames[:1])),
+                 (44, "field_cif", cpu_field,
+                  (field_cif_cfg(), cif(frames, FIELD_CIF_FRAMES)))]
     jobs.sort(key=lambda j: j[0])
-    return {name: pool.apply_async(fn, args, callback=_arrived(name))
+    refs = {name: pool.apply_async(fn, args, callback=_arrived(name))
             for _, name, fn, args in jobs}
+    if first >= 40:
+        refs.update(sp_cpu_jobs(pool, frames))
+    return refs
+
+
+def sp_cpu_jobs(pool, frames) -> dict:
+    """The CPU references of phases 47-48, submitted to the worker pool:
+    a full run submits them after phase 39, so that the CPU decodes that
+    phases 30-39 submit do not queue behind them (PR 17 run 2, with them
+    submitted first, waited 54.1 s for phase 30's); returns their
+    AsyncResults by name."""
+    jobs = [("sp_1080p", cpu_sp, (sp_cfg(), frames[:SP_FRAMES]))]
+    jobs += [(f"sp_cif_{label}", cpu_sp, (sp_cif_cfg(kw), cif(frames, n)))
+             for label, n, kw in SP_CIF]
+    jobs += [("conceal_cif", cpu_conceal_cif,
+              (conceal_cif_cfg(), cif(frames, CONCEAL_CIF_FRAMES)))]
+    return {name: pool.apply_async(fn, args, callback=_arrived(name))
+            for name, fn, args in jobs}
 
 
 def _arrived(name: str):
@@ -3824,6 +3876,463 @@ def field_phases(frames, cpu_refs, rng) -> tuple:
     return stats, out
 
 
+# ---------------------------------------------------------------------------
+# phases 46-48: SP switching pictures and concealment
+# ---------------------------------------------------------------------------
+
+SP_KW = dict(sp_periodicity=2, qp_sp=30, qp_sp2=32)
+SP_FRAMES = 3             # phase 47's 1080p stream: device IDR, P, host SP
+# phase 47's CIF SP streams: (label, frames, EncoderConfig keywords)
+SP_CIF = (("a", 9, dict(SP_KW, sp_periodicity=3)),
+          ("b", 6, dict(SP_KW, num_b=1)))
+# sha256 of JM ldecod's output of tests/golden/cif_sp.264 (30 CIF frames,
+# 5 SP pictures; tests/test_cif_conformance.py records it)
+CIF_SP_SHA256 = ("a60dbb7782e35716463637f8360c6643b301c5b62564f7c02243"
+                 "591eb32d75f3")
+CONCEAL_1080P = 6         # phase 3's first pictures in phase 48 (3 lost)
+CONCEAL_CIF_FRAMES = 6    # frames of phase 48's CIF stream, 4 slices each
+
+
+def sp_cfg():
+    """Phase 47's 1080p configuration: phase 3's device RD route, every
+    second anchor an SP picture (the host P coder) at QP 30, QS 32."""
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=True, **SP_KW)
+
+
+def sp_cif_cfg(kw):
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         device_rd=True, **kw)
+
+
+def conceal_cif_cfg():
+    """Phase 48's CIF configuration: 4 slices of 99 MBs per picture (the
+    IDR on the host IntraPicture, the P pictures on the device route)."""
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         device_rd=True, slice_mode=1, slice_argument=99)
+
+
+def cpu_sp(cfg, frames):
+    """Phase 47's CPU reference: the frames encoded on the CPU through
+    encode_stream, then that stream decoded on the CPU: (payloads, each
+    picture's recon (Y, U, V), the decoded frames)."""
+    enc = Encoder(cfg, device="cpu")
+    payloads = enc.encode_stream(frames)
+    payloads[-1] += enc.flush()
+    return (payloads, [(r["frame"].Y, r["frame"].U, r["frame"].V)
+                       for r in enc.results], cpu_decode(b"".join(payloads)))
+
+
+def lossy_cif(payloads) -> bytes:
+    """Phase 48's lossy CIF stream: of the 4 slices a picture, the IDR's
+    second and picture 1's third dropped, picture 2's second cut in half
+    and padded with 0xff bytes, picture 4 dropped whole (a frame_num
+    gap)."""
+    from jm_tpu_torch.bitstream.nal import annexb_bytes, split_annexb
+    units = list(split_annexb(b"".join(payloads)))
+    vcl = [i for i, u in enumerate(units) if u.nal_unit_type in (1, 5)]
+    drop = {vcl[1], vcl[6]} | set(vcl[16:20])
+    out = b""
+    for i, u in enumerate(units):
+        if i in drop:
+            continue
+        raw = annexb_bytes(u.nal_ref_idc, u.nal_unit_type, u.rbsp)
+        if i == vcl[9]:
+            raw = raw[:len(raw) // 2] + bytes([255] * 8)
+        out += raw
+    return out
+
+
+def cpu_conceal_decode(data: bytes):
+    """The lossy stream decoded on the CPU with conceal_mode 1 and 2:
+    {mode: (frames (Y, U, V), concealed_count)}."""
+    out = {}
+    for mode in (1, 2):
+        dec = H264Decoder(device="cpu", conceal_mode=mode)
+        out[mode] = ([(f.Y, f.U, f.V) for f in dec.decode_annexb(data)],
+                     dec.concealed_count)
+    return out
+
+
+def cpu_conceal_cif(cfg, frames):
+    """Phase 48's CIF CPU reference: the stream encoded on the CPU, and
+    its lossy version decoded on the CPU in both modes: (payloads,
+    cpu_conceal_decode's result)."""
+    payloads = Encoder(cfg, device="cpu").encode_stream(frames)
+    return payloads, cpu_conceal_decode(lossy_cif(payloads))
+
+
+def sp_bs(rng, mb_w: int, mb_h: int, sp):
+    """Boundary strengths on the card of a random picture (a fifth of the
+    MBs intra, small MVs, four reference ids, sparse coefficients) whose
+    MBs sp ((N,) bool) lie in SP slices (ops/deblock.compute_bs
+    (sp_slice=)): every edge of those MBs but the picture's border bS 4
+    on MB edges, 3 inside."""
+    from jm_tpu_torch.ops.deblock import compute_bs
+    n = mb_w * mb_h
+    intra = rng.random(n) < 0.2
+    nnz = rng.integers(0, 3, (n, 16)) * (rng.random((n, 16)) < 0.3)
+    mv = rng.integers(-3, 4, (n, 16, 2))
+    mv[intra] = 0
+    rid = rng.integers(0, 4, (n, 4))
+    rid[intra] = -1
+    t = lambda a: torch.as_tensor(np.asarray(a), device=DEVICE)  # noqa: E731
+    return compute_bs(
+        t(intra.astype(np.int8)), t(nnz.astype(np.int32)),
+        t(np.zeros(n, np.int32)), t(mv.astype(np.int32)),
+        t(np.zeros((n, 16, 2), np.int32)), t(rid.astype(np.int64)),
+        t(np.full((n, 4), -1, np.int64)), mb_w, mb_h, sp_slice=t(sp))
+
+
+def sp_kernel_phase(rng) -> dict:
+    """Phase 46: K1 and K2 at 1080p on the bS of an SP picture (every MB
+    in an SP slice, the filter on everywhere: every edge filtered, the
+    strong filter on every MB edge, the kernels' worst case; REPEATS
+    launches) and of a half-SP picture (the mixed per-MB parameters, the
+    first and third of its three slices SP), against their plain twins on
+    the card, bit for bit; CUDA-event times (median of 7 runs of 20
+    calls) beside the bound, the all-bS-zero chain and the plain twins'
+    checking call. Returns the statistics by (case, kernel)."""
+    mb_w, mb_h = W // 16, H // 16
+    n = mb_w * mb_h
+    stats = {}
+    for case, variant, repeats in (("sp", "plain", REPEATS),
+                                   ("half_sp", "mixed", 1)):
+        Y, U, V, _, _, per_mb, cb, cr = deblock_case(rng, mb_w, mb_h,
+                                                     variant)
+        sp = np.ones(n, bool) if case == "sp" else \
+            per_mb[4].cpu().numpy() % 2 == 0
+        bs_v, bs_h = sp_bs(rng, mb_w, mb_h, sp)
+        spq = torch.as_tensor(np.repeat(np.repeat(
+            sp.reshape(mb_h, mb_w), 4, 0), 4, 1), device=DEVICE)
+        if not (bool((bs_v[:, 1:][spq[:, 1:]] >= 3).all())
+                and bool((bs_h[1:][spq[1:]] >= 3).all())):
+            raise AssertionError(f"SP bS ({case}): an edge of an SP MB "
+                                 f"below 3")
+        args = (bs_v, bs_h, *per_mb)
+        kw = dict(mb_w=mb_w, mb_h=mb_h)
+        py, ms_y = event_ms(lambda: deblock_luma_plain(Y, *args, **kw))
+        (pu, pv), ms_c = event_ms(lambda: deblock_chroma_plain(
+            U, V, *args, cb, cr, **kw))
+        err_y = err_c = 0
+        for _ in range(repeats):
+            ky = kernels.deblock_luma(Y, *args, **kw)
+            ku, kv = kernels.deblock_chroma(U, V, *args, cb, cr, **kw)
+            err_y = max(err_y, int((ky.int() - py.int()).abs().max()))
+            err_c = max(err_c, int((ku.int() - pu.int()).abs().max()),
+                        int((kv.int() - pv.int()).abs().max()))
+        torch.cuda.synchronize()
+        changed = (int((py != Y).sum()),
+                   int((pu != U).sum()) + int((pv != V).sum()))
+        lines_y, lines_c = filtered_lines(bs_v, bs_h, per_mb, mb_w, mb_h)
+        print(f"deblock {W}x{H} {case} x{repeats}: luma max|err| {err_y}, "
+              f"chroma max|err| {err_c}, samples changed (luma, chroma) "
+              f"{changed}, filtered lines (luma, chroma) "
+              f"{(lines_y, lines_c)}, bS 4 / 3 edges "
+              f"{int((bs_v == 4).sum() + (bs_h == 4).sum())} / "
+              f"{int((bs_v == 3).sum() + (bs_h == 3).sum())}", flush=True)
+        if err_y or err_c or min(changed) == 0:
+            raise AssertionError(f"deblock {case}: the kernels differ from "
+                                 f"the plain twins, or filter nothing")
+        param_bytes = 6 * 4 * n + 2 * bs_v.numel()
+        zbs = torch.zeros_like(bs_v)
+        for name, b, ops, kfn, zfn, p_ms, err in (
+                ("deblock_luma", 2 * Y.numel() + param_bytes,
+                 LUMA_LINE_OPS * lines_y,
+                 lambda: kernels.deblock_luma(Y, *args, **kw),
+                 lambda: kernels.deblock_luma(Y, zbs, zbs, *per_mb, **kw),
+                 ms_y, err_y),
+                ("deblock_chroma", 2 * (U.numel() + V.numel())
+                 + param_bytes + 2 * 52 * 4, CHROMA_LINE_OPS * lines_c,
+                 lambda: kernels.deblock_chroma(U, V, *args, cb, cr, **kw),
+                 lambda: kernels.deblock_chroma(U, V, zbs, zbs, *per_mb, cb,
+                                                cr, **kw), ms_c, err_c)):
+            t_bytes = b / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / INT_OPS_PER_S * 1e3
+            s = {"ms": cuda_ms(kfn, inner=20),
+                 "chain_ms": cuda_ms(zfn, inner=20), "plain_ms": p_ms,
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "max_err": err}
+            stats[(case, name)] = s
+            print(f"{name} on {case} bS at {W}x{H}: {s['ms']:.4f} ms (all "
+                  f"bS 0: {s['chain_ms']:.4f} ms; plain {p_ms:.1f} ms), "
+                  f"bound {s['bound_ms'] * 1e3:.2f} us ({s['bound_by']}: "
+                  f"{b} B, {ops} int ops)", flush=True)
+    return stats
+
+
+class PictureTimedEncoder(Encoder):
+    """The port's Encoder with each coded picture's wall ms (the card
+    synchronized at its ends) in ``picture_ms``, in the order of
+    ``results``."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.picture_ms = []
+
+    def _timed(self, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.picture_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _emit_anchor(self, *a, **kw):
+        return self._timed(super()._emit_anchor, *a, **kw)
+
+    def _emit_b(self, *a, **kw):
+        return self._timed(super()._emit_b, *a, **kw)
+
+
+def sp_stream_phase(label: str, cfg, frames, job) -> dict:
+    """One SP stream of phase 47: frames encoded on the card through
+    encode_stream (the I and P pictures on the device route, the SP
+    pictures on the host P coder, B pictures on the host B coder), one
+    launch each of K1 and K2 per picture, every slice serialized
+    natively; each picture's type, ms and bytes, each SP picture's ms per
+    MB and MB loop split (search, skip, intra, commit, of it the SP
+    levels and recon); the payloads and recon equal the CPU run (job:
+    cpu_sp's); then the stream decoded on the card: every picture equal
+    to the recon and to the CPU decode, one launch each of K1 and K2 per
+    picture, every I / P / SP slice parsed natively. Returns the launches
+    of the encode and of the decode."""
+    enc = PictureTimedEncoder(cfg, device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    payloads = enc.encode_stream(frames)
+    payloads[-1] += enc.flush()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    n_pic = len(enc.results)
+    n_b = sum(r["type"] == "B" for r in enc.results)
+    n_sp = sum(bool(r.get("sp")) for r in enc.results)
+    launches = launch_counts()
+    check_launches(launches, n_pic, f"{label} encode")
+    check_routes(f"{label} encode", serialize=n_pic - n_b,
+                 b={"serialize": n_b}, other={"sp": {"serialize": n_sp}})
+    n_mbs = enc.mb_w * enc.mb_h
+    print(f"encode {label} ({cfg.width}x{cfg.height}, sp_periodicity "
+          f"{cfg.sp_periodicity}, QP {cfg.qp} / SP {cfg.qp_sp} / QS "
+          f"{cfg.qp_sp2}, num_b {cfg.num_b}): {len(frames) / total_s:.3f} "
+          f"frames/s, {sum(map(len, payloads))} stream bytes, launches "
+          f"{launches}", flush=True)
+    for r, ms in zip(enc.results, enc.picture_ms):
+        kind = "SP" if r.get("sp") else r["type"]
+        line = (f"  {label} disp {r['disp']} {kind}: {r['bits'] // 8} B, "
+                f"{ms:.1f} ms")
+        if "mb_parts" in r:
+            parts = r["mb_parts"]
+            line += (f" = {ms / n_mbs:.3f} ms/MB; MB loop (ms/MB) " + ", ".join(
+                f"{k} {v / n_mbs * 1e3:.3f}" for k, v in parts.items())
+                + f"; MBs {r['mix']}")
+        print(line, flush=True)
+    t0 = time.perf_counter()
+    cpu_payloads, cpu_recon, cpu_frames = job.get()
+    if cpu_payloads != payloads:
+        raise AssertionError(f"{label}: CPU and CUDA payloads differ")
+    for i, (r, rec) in enumerate(zip(enc.results, cpu_recon)):
+        for k, p in enumerate("YUV"):
+            if not np.array_equal(rec[k], getattr(r["frame"], p)):
+                raise AssertionError(f"{label} picture {i} {p}: recon "
+                                     f"differs")
+    print(f"cross-check {label}: the CPU's payloads and the recon of "
+          f"{n_pic} pictures equal the CUDA run (CPU worker; waited "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    out = dec.decode_annexb(b"".join(payloads))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    dec_launches = launch_counts()
+    check_launches(dec_launches, n_pic, f"decode {label}")
+    check_routes(f"decode {label}", parse=n_pic - n_b, recon=sum(
+        p["path"] != "inter" for p in dec.pictures), b={"parse": n_b},
+        other={"sp": {"parse": n_sp}})
+    check_frames(out, [(r["frame"].Y, r["frame"].U, r["frame"].V)
+                       for r in enc.results], f"decode {label}")
+    check_frames(out, cpu_frames, f"decode {label} against the CPU decode")
+    print(f"decode {label} on the card: {len(out)} pictures equal the "
+          f"recon and the CPU decode; {len(out) / dt:.3f} frames/s; "
+          + ", ".join(f"{p['type']}/{p['path']} {p['seconds'] * 1e3:.1f} ms "
+                      f"(parse {p['parse_s'] * 1e3:.1f}, intra recon "
+                      f"{p['host_recon_s'] * 1e3:.1f}, device "
+                      f"{p['device_s'] * 1e3:.1f})" for p in dec.pictures)
+          + f"; launches {dec_launches}", flush=True)
+    return launches, dec_launches
+
+
+def sp_golden_phase() -> dict:
+    """Phase 47's goldens: JM's sp1 (QCIF, 2 SP pictures) against its
+    _rec.yuv and cif_sp (30 CIF pictures, 5 SP) against the sha256 of
+    ldecod's output, on the card; one launch each of K1 and K2 per
+    picture. Returns their launches (sp_goldens_decode)."""
+    import hashlib
+    total = {}
+    for name in ("sp1", "cif_sp"):
+        dec = H264Decoder(device=DEVICE)
+        kernels.reset_launches()
+        native.reset_routes()
+        t0 = time.perf_counter()
+        if name == "cif_sp":
+            got = dec.decode_annexb(golden_bytes(name))
+            sha = hashlib.sha256(b"".join(
+                f.Y.tobytes() + f.U.tobytes() + f.V.tobytes()
+                for f in got)).hexdigest()
+            if len(got) != 30 or sha != CIF_SP_SHA256:
+                raise AssertionError(f"decode cif_sp: {len(got)} frames, "
+                                     f"sha256 {sha}")
+            what = "whose sha256 equals ldecod's output's"
+        else:
+            got = decode_golden(name, dec)
+            what = f"equal {name}_rec.yuv"
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gl = launch_counts()
+        check_launches(gl, len(dec.pictures), f"decode {name}")
+        n_sp = sum(p["type"] == "SP" for p in dec.pictures)
+        check_routes(f"decode {name}", parse=len(dec.pictures), recon=sum(
+            p["path"] != "inter" for p in dec.pictures),
+            other={"sp": {"parse": n_sp}})
+        for k, v in gl.items():
+            total[k] = total.get(k, 0) + v
+        print(f"decode {name}.264 on the card: {len(got)} frames ({n_sp} "
+              f"SP) {what}; {len(got) / dt:.3f} frames/s; SP pictures "
+              + ", ".join(f"{p['seconds'] * 1e3:.1f} ms (device "
+                          f"{p['device_s'] * 1e3:.1f})"
+                          for p in dec.pictures if p["type"] == "SP")
+              + f"; launches {gl}", flush=True)
+    return {"sp_goldens_decode": total}
+
+
+def sp_recon_timing() -> None:
+    """CUDA-event ms of ops/dec.sp_recon on every MB of a 1080p picture
+    (random prediction and levels), beside p_dec_residuals' on the same
+    levels: the SP stage's cost in a decode."""
+    from jm_tpu_torch.ops import dec as D
+    from jm_tpu_torch.ops.quant import FLAT_INV_SCALE_4x4
+    rng = np.random.default_rng(47)
+    mb_w, mb_h = W // 16, H // 16
+    n = mb_w * mb_h
+    t = lambda a: torch.as_tensor(np.asarray(a), device=DEVICE)  # noqa: E731
+    planes = [t(rng.integers(0, 256, s).astype(np.uint8))
+              for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    lc = t(rng.integers(-20, 21, (n, 16, 16)) * (rng.random((n, 16, 16))
+                                                 < 0.2))
+    cdc = t(rng.integers(-20, 21, (n, 2, 4)))
+    cc = rng.integers(-20, 21, (n, 2, 4, 16)) * (rng.random((n, 2, 4, 16))
+                                                 < 0.2)
+    cc[..., 0] = 0
+    cc = t(cc)
+    qp, qs = t(np.full(n, 30, np.int32)), t(np.full(n, 32, np.int32))
+    sw = t(np.zeros(n, bool))
+    idx = t(np.arange(n, dtype=np.int64))
+    ms_sp = cuda_ms(lambda: D.sp_recon(*(p.clone() for p in planes), idx, lc,
+                                       cdc, cc, qp, qs, sw, mb_w=mb_w))
+    tab = t(FLAT_INV_SCALE_4x4)
+    qpc = t(np.array([chroma_qp(q, 0) for q in range(52)], np.int32))
+    ms_res = cuda_ms(lambda: D.p_dec_residuals(lc, cdc, cc, qp, tab, tab,
+                                               tab, qpc, qpc, mb_w=mb_w,
+                                               mb_h=mb_h))
+    print(f"sp_recon on every MB of a {W}x{H} picture: {ms_sp:.3f} ms "
+          f"(p_dec_residuals on the same levels {ms_res:.3f} ms)",
+          flush=True)
+
+
+def sp_phases(frames, cpu_refs, rng) -> tuple:
+    """Phases 46-47; returns (the kernels' statistics on the SP bS, the
+    launches of each SP path by name: sp_1080p, sp_cif_a, sp_cif_b, each
+    also with _decode, sp_goldens_decode)."""
+    stats = sp_kernel_phase(rng)
+    out = {}
+    out["sp_1080p"], out["sp_1080p_decode"] = sp_stream_phase(
+        "SP 1080p", sp_cfg(), frames[:SP_FRAMES], cpu_refs["sp_1080p"])
+    for label, n, kw in SP_CIF:
+        out[f"sp_cif_{label}"], out[f"sp_cif_{label}_decode"] = \
+            sp_stream_phase(f"SP CIF ({label})", sp_cif_cfg(kw),
+                            cif(frames, n), cpu_refs[f"sp_cif_{label}"])
+    out.update(sp_golden_phase())
+    sp_recon_timing()
+    return stats, out
+
+
+def conceal_decode(data: bytes, job_result, label: str) -> dict:
+    """The lossy stream decoded on the card with conceal_mode 1 and 2:
+    frames equal to the CPU decode (job_result: cpu_conceal_decode's), the
+    same concealed_count; one launch each of K1 and K2 per reconstructed
+    picture (a picture with concealed MBs is deblocked before they are
+    concealed; a whole concealed frame is a copy, not deblocked);
+    frames/s and the concealment's ms. Returns the launches by mode."""
+    out = {}
+    for mode in (1, 2):
+        dec = H264Decoder(device=DEVICE, conceal_mode=mode)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = dec.decode_annexb(data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gl = launch_counts()
+        check_launches(gl, len(dec.pictures), f"{label} mode {mode}")
+        want, count = job_result[mode]
+        check_frames(got, want, f"{label} mode {mode} against the CPU")
+        if dec.concealed_count != count:
+            raise AssertionError(f"{label} mode {mode}: concealed "
+                                 f"{dec.concealed_count}, the CPU {count}")
+        n_frames = len(got) - len(dec.pictures)
+        per_mb = [f"{p['conceal_s'] * 1e3:.1f}" for p in dec.pictures
+                  if "conceal_s" in p]
+        print(f"decode {label} with conceal_mode {mode} on the card: "
+              f"{len(got)} frames ({len(dec.pictures)} decoded, {n_frames} "
+              f"concealed whole) equal the CPU decode; concealed_count "
+              f"{dec.concealed_count}; {len(got) / dt:.3f} frames/s; "
+              f"concealment {dec.conceal_s * 1e3:.1f} ms in all"
+              + (f" ({', '.join(per_mb)} ms in the pictures with lost MBs)"
+                 if per_mb else "") + f"; launches {gl}", flush=True)
+        out[mode] = gl
+    return out
+
+
+def conceal_phase(payloads, cif_frames, cpu_refs, job_1080p) -> dict:
+    """Phase 48: concealment on the card. Phase 3's first CONCEAL_1080P
+    pictures with picture 3 dropped (a frame_num gap: one whole frame
+    concealed), against the CPU decode of the same bytes (job_1080p, a
+    worker's); a CIF stream of 4 slices per picture encoded on the card
+    (its payloads equal the CPU's) with an IDR slice and a P slice
+    dropped, a slice cut and a picture dropped (lossy_cif), against the
+    CPU decode of that lossy stream (cpu_refs["conceal_cif"]); each in
+    both modes (conceal_decode). Returns the launches by path."""
+    lossy = b"".join(payloads[:3] + payloads[4:CONCEAL_1080P])
+    out = {}
+    t0 = time.perf_counter()
+    ref = job_1080p.get()
+    print(f"conceal 1080p: CPU decodes arrived (waited "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    for mode, gl in conceal_decode(lossy, ref, "conceal 1080p").items():
+        out[f"conceal_1080p_m{mode}_decode"] = gl
+    enc = Encoder(conceal_cif_cfg(), device=DEVICE)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    cif_payloads = enc.encode_stream(cif_frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out["conceal_cif"] = launch_counts()
+    check_launches(out["conceal_cif"], len(cif_frames), "conceal CIF encode")
+    cpu_payloads, ref = cpu_refs["conceal_cif"].get()
+    if cpu_payloads != cif_payloads:
+        raise AssertionError("conceal CIF: CPU and CUDA payloads differ")
+    print(f"encode conceal CIF (4 slices a picture): "
+          f"{len(cif_frames) / dt:.3f} frames/s, payloads equal the CPU's",
+          flush=True)
+    for mode, gl in conceal_decode(lossy_cif(cif_payloads), ref,
+                                   "conceal CIF").items():
+        out[f"conceal_cif_m{mode}_decode"] = gl
+    return out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -3868,7 +4377,7 @@ def main() -> int:
                                ["--from", "25"], ["--from", "28"],
                                ["--from", "31"], ["--from", "34"],
                                ["--from", "37"], ["--from", "40"],
-                               ["--from", "43"])
+                               ["--from", "43"], ["--from", "46"])
     first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
     pool = cpu_pool()
@@ -3908,10 +4417,11 @@ def hbd_cpu_jobs(hbd_pool, payloads=None, y422_payloads=None) -> dict:
 
 
 def partial_run(frames, pool, hbd_pool, refs, first: int, clock) -> int:
-    """Phases first..45 (18, 22, 25, 28, 31, 34, 37, 40 or 43) without
-    the closing JSON lines; refs: their CPU references; clock: the
+    """Phases first..48 (18, 22, 25, 28, 31, 34, 37, 40, 43 or 46)
+    without the closing JSON lines; refs: their CPU references; clock: the
     PhaseClock of the run. From 40, phase 3's first HBD_FRAMES pictures
-    and phase 38's CIF stream (a) are encoded on the card first."""
+    and phase 38's CIF stream (a) are encoded on the card first; from 46,
+    phase 3's first CONCEAL_1080P pictures."""
     if first <= 18:
         later_phases(frames, None, refs)
         clock.lap("18-21")
@@ -3933,6 +4443,7 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock) -> int:
     if first <= 37:
         y422_cif_a = y422_phases(frames, refs, pool,
                                  np.random.default_rng(37))[2]
+        refs.update(sp_cpu_jobs(pool, frames))
         clock.lap("37-39")
     elif first <= 40:
         y422_cif_a = b_encode(y422_cif_cfg(Y422_CIF[0][2]),
@@ -3943,11 +4454,28 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock) -> int:
         jobs = hbd_cpu_jobs(hbd_pool, payloads, y422_cif_a)
         hbd_phases(payloads, y422_cif_a, jobs, np.random.default_rng(40))
         clock.lap("40-42")
-    field_phases(frames, refs, np.random.default_rng(43))
-    clock.lap("43-45")
+    if first <= 43:
+        field_phases(frames, refs, np.random.default_rng(43))
+        clock.lap("43-45")
+    payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(
+        frames[:CONCEAL_1080P])
+    conceal_job = conceal_cpu_job(hbd_pool, payloads)
+    sp_phases(frames, refs, np.random.default_rng(46))
+    clock.lap("46-47")
+    conceal_phase(payloads, cif(frames, CONCEAL_CIF_FRAMES), refs,
+                  conceal_job)
+    clock.lap("48")
     clock.report()
-    print(f"phases {first}-45 passed (partial run: no closing lines)")
+    print(f"phases {first}-48 passed (partial run: no closing lines)")
     return 0
+
+
+def conceal_cpu_job(hbd_pool, payloads):
+    """Phase 48's CPU decodes of the lossy 1080p stream (phase 3's first
+    CONCEAL_1080P pictures, picture 3 dropped), submitted to hbd_pool."""
+    return hbd_pool.apply_async(cpu_conceal_decode, (b"".join(
+        payloads[:3] + payloads[4:CONCEAL_1080P]),),
+        callback=_arrived("conceal_1080p"))
 
 
 class PhaseClock:
@@ -3979,8 +4507,9 @@ class PhaseClock:
 
 
 def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock) -> int:
-    """Phases 2-45 and the closing lines; cpu_refs: the CPU references of
-    phases 4-44; hbd_pool: the worker of phase 41's CPU decodes; clock:
+    """Phases 2-48 and the closing lines; cpu_refs: the CPU references of
+    phases 4-48; hbd_pool: the worker of phase 41's and phase 48's CPU
+    decodes; clock:
     the PhaseClock of the run, its first lap the builds."""
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
@@ -4162,6 +4691,7 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock) -> int:
     # decodes, the 4:2:2 goldens ------------------------------------------
     k422, y422, y422_cif_a = y422_phases(frames, cpu_refs, pool, rng)
     hbd_jobs.update(hbd_cpu_jobs(hbd_pool, y422_payloads=y422_cif_a))
+    cpu_refs.update(sp_cpu_jobs(pool, frames))
     k422["launches"] = y422["y422"]["deblock_chroma422"]
     kstats["deblock_chroma422"] = k422
     max_err["deblock_chroma422"] = k422["max_err"]
@@ -4172,6 +4702,7 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock) -> int:
     # twins, the re-headed 1080p High 10 and CIF 4:2:2 10-bit decodes,
     # the High 10 and lossless goldens -----------------------------------
     khbd, hbd = hbd_phases(payloads, y422_cif_a, hbd_jobs, rng)
+    conceal_job = conceal_cpu_job(hbd_pool, payloads)
     for key, path in (("deblock_luma16", "hbd_1080p_decode"),
                       ("deblock_chroma16", "hbd_1080p_decode"),
                       ("deblock_chroma422_16", "hbd_422_decode")):
@@ -4191,6 +4722,23 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock) -> int:
         max_err[name] = max(max_err[name], s["max_err"])
     later.update(fields)
     clock.lap("43-45")
+
+    # ---- 46-47. SP switching pictures: K1/K2 on the bS of an SP and a
+    # half-SP picture, the 1080p SP stream and two CIF SP streams encoded
+    # and decoded on the card, the SP goldens ------------------------------
+    ksp, sp = sp_phases(frames, cpu_refs, rng)
+    for (case, name), s in ksp.items():
+        kstats[name][f"{case}_1080p_ms"] = s["ms"]
+        kstats[name][f"{case}_1080p_chain_ms"] = s["chain_ms"]
+        max_err[name] = max(max_err[name], s["max_err"])
+    later.update(sp)
+    clock.lap("46-47")
+
+    # ---- 48. concealment: phase 3's stream with a picture lost and a CIF
+    # stream with lost and corrupt slices, decoded on the card ----------------
+    later.update(conceal_phase(payloads, cif(frames, CONCEAL_CIF_FRAMES),
+                               cpu_refs, conceal_job))
+    clock.lap("48")
     clock.report()
 
     rows = []
@@ -4207,7 +4755,8 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock) -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": None, "chain_ms": s["chain_ms"],
-            **{k: v for k, v in s.items() if k.startswith("field_")},
+            **{k: v for k, v in s.items()
+               if k.startswith(("field_", "sp_", "half_sp_"))},
             "decode_launches": dec_launches.get(name, 0),
             "md_low_launches": low_launches.get(name, 0),
             "scene_cut_launches": cut_launches.get(name, 0),

@@ -86,6 +86,14 @@ class PictureData:
         # unique ids of the referenced pictures per 8x8 and list (bS)
         self.ref_pic_id = np.full((n, 4), -1, np.int64)
         self.ref_pic_id_l1 = np.full((n, 4), -1, np.int64)
+        # SP slices (spec 8.6.1; jm_tpu/decoder/mb_parse.py:105-112): the
+        # inter MBs of an SP slice (reconstructed by requantizing the
+        # prediction plus residual at QS), every MB of an SP slice (bS
+        # forced to 3 / 4), each MB's QS and sp_for_switch_flag
+        self.sp_mb = np.zeros(n, bool)
+        self.sp_slice = np.zeros(n, bool)
+        self.sp_qs = np.zeros(n, np.int32)
+        self.sp_switch = np.zeros(n, bool)
         # I_PCM samples by MB address: (16, 16) luma, (2, 4 crows, 8)
         # chroma
         self.ipcm_luma = {}

@@ -203,6 +203,9 @@ class SliceHeader:
     mmco_ops: list = field(default_factory=list)
     cabac_init_idc: int = 0
     slice_qp_delta: int = 0
+    # SP slices (spec 7.3.3): sp_for_switch_flag and slice_qs_delta
+    sp_for_switch_flag: int = 0
+    slice_qs_delta: int = 0
     disable_deblocking_filter_idc: int = 0
     slice_alpha_c0_offset_div2: int = 0
     slice_beta_offset_div2: int = 0
@@ -213,3 +216,7 @@ class SliceHeader:
 
     def qp(self, pps: PPS) -> int:
         return 26 + pps.pic_init_qp_minus26 + self.slice_qp_delta
+
+    def qs(self, pps: PPS) -> int:
+        """The switching QP QSY of an SP slice (spec 7.4.3)."""
+        return 26 + pps.pic_init_qs_minus26 + self.slice_qs_delta

@@ -23,7 +23,7 @@ _PICTURE_FIELDS = (
     "luma_coef8", "chroma_dc", "chroma_coef", "luma_nnz", "chroma_nnz", "mv",
     "ref_idx", "mv_l1", "ref_idx_l1", "sub_mode", "inter_mode", "pdir",
     "b_direct", "b8_direct", "ref_pic_id", "ref_pic_id_l1", "mvd",
-    "cbp_bits")
+    "cbp_bits", "sp_mb", "sp_slice", "sp_qs", "sp_switch")
 
 
 def ref_state_from_numpy(planes, padU, padV, device="cpu"):

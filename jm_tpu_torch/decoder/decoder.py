@@ -10,9 +10,10 @@ types 0-6, data-partitioned CAVLC slices (NAL units 2-4), redundant
 pictures, list0 and list1 with several references, short- and long-term,
 in a DPB with the sliding window or MMCO marking, spatial and temporal
 direct prediction, explicit and implicit weighted prediction,
-non-reference pictures, POC types 0, 1 and 2), and the field pictures of
-PAFF streams (CAVLC I and P fields at 4:2:0 and 8 bits, and frame
-pictures under an SPS that allows fields). Frames come out in decode
+non-reference pictures, POC types 0, 1 and 2, the SP slices of the
+Extended profile in CAVLC), and the field pictures of PAFF streams
+(CAVLC I and P fields at 4:2:0 and 8 bits, and frame pictures under an
+SPS that allows fields). Frames come out in decode
 order, as jm_tpu's: callers sort them by POC; their planes are uint8 at
 8 bits and uint16 above, as jm_tpu's.
 
@@ -30,6 +31,12 @@ both entropy coders:
     planes; the host Reconstructor fills in the intra MBs; the planes go
     back to the device for bS, deblock and prep_ref;
   - I picture: the host Reconstructor, then the same device tail;
+  - SP picture (spec 8.6.1; jm_tpu reconstructs SP MBs on the host,
+    recon.py _sp_luma / _sp_chroma): its inter MBs' prediction from
+    the device inter recon without their residual, then ops/dec
+    .sp_recon, batched over them, requantizes prediction + levels at QS;
+    its intra MBs as in any P picture; compute_bs forces bS 4 / 3 on
+    every edge of its MBs;
   - B picture: as a P picture, with ops/dec.inter_recon_b, which predicts
     each block from list 0, list 1 or both over one stack of the
     picture's references (jm_tpu reconstructs B pictures on the host);
@@ -68,6 +75,18 @@ primary coding of its picture was decoded, and decoded as the picture
 when the primary is missing. SEI messages are parsed into
 ``sei_messages`` (decoder/sei.py).
 
+With conceal_mode 1 or 2 (jm_tpu's concealment, decoder/conceal.py) a
+corrupt slice is dropped at its parse error, the MBs no slice covered
+take a neutral parse state (Intra16x16 DC, no residual or motion), the
+picture is reconstructed and deblocked as any other, and then those MBs
+are concealed in the host copy of the deblocked planes, which make the
+reference state afterwards (so the next pictures predict from the
+concealed pixels); a picture none of whose slices survived, and each
+missing picture of a frame_num gap (POC interpolated), becomes a copy
+of the closest reference (mode 1) or its motion replayed (mode 2),
+stored with a neutral motion field and not deblocked again. Without
+concealment a picture with uncoded MBs raises ValueError, as in jm_tpu.
+
 The decoder runs on CUDA unless the caller passes device="cpu" (then
 the deblock is the plain PyTorch wavefront); a CUDA request without a
 card raises. A stream outside the scope raises NotImplementedError naming
@@ -86,7 +105,7 @@ import torch
 from ..bitstream.bitreader import BitReader
 from ..bitstream.nal import NalUnit, NalUnitType, split_annexb
 from ..common.fmo import mb_to_slice_group_map, next_mb_arrays
-from ..common.picture import MB_INTER, PictureData
+from ..common.picture import MB_I16, MB_INTER, PictureData
 from ..common.types import SliceType
 from ..convert import qpc_tables
 from ..device import resolve
@@ -94,6 +113,7 @@ from ..ops import dec as D
 from ..ops.deblock import compute_bs, deblock
 from ..ops.enc import prep_ref
 from .b_slice import ColMotion, compute_mvscale, ref_lists_b
+from .conceal import HostRef, closest_ref, conceal_lost_frame, conceal_mbs
 from .dpb import DPB, Frame, field_ref_list_p, field_window
 from .header import PocContext, parse_slice_header
 from .mb_parse import MBParser, SliceContext
@@ -124,10 +144,29 @@ class H264Decoder:
     ("inter", "mixed", "intra") and the wall seconds of its host parse,
     host intra recon, device stages and the whole picture.
     ``sei_messages`` holds the parsed SEI messages (decoder/sei.py
-    SEIMessage) in stream order."""
+    SEIMessage) in stream order.
 
-    def __init__(self, device="cuda") -> None:
+    conceal_mode (jm_tpu's, ldecod ConcealMode): 0 strict, a picture with
+    macroblocks that no slice coded raises ValueError and a corrupt slice
+    raises; 1 frame copy and 2 motion copy, where a corrupt slice is
+    dropped and its MBs and the uncoded ones are concealed after the
+    deblock (decoder/conceal.py conceal_mbs), a picture none of whose
+    slices survived and each picture of a frame_num gap become a copy of
+    the closest reference (mode 1) or its motion replayed (mode 2).
+    ``concealed_count`` counts the concealed MBs and whole frames,
+    ``conceal_s`` the wall seconds of the concealment."""
+
+    def __init__(self, device="cuda", conceal_mode: int = 0) -> None:
+        if conceal_mode not in (0, 1, 2):
+            raise ValueError(f"conceal_mode={conceal_mode!r}: 0, 1 or 2")
         self.device = resolve(device, "H264Decoder")
+        self.conceal_mode = conceal_mode
+        self.concealed_count = 0
+        self.conceal_s = 0.0
+        # the last reference frame's frame_num and the last frame's POC,
+        # for the frame_num gaps of concealment
+        self._prev_ref_frame_num = None
+        self._prev_poc = 0
         self.sps_map: dict = {}
         self.pps_map: dict = {}
         self.dpb: DPB | None = None
@@ -241,6 +280,11 @@ class H264Decoder:
                 "out of scope: mixed field/frame pictures (adaptive PAFF)")
         if self._is_new_picture(hdr):
             self._finish_picture()
+            poc = self.poc_ctx.compute(hdr, sps)
+            if (self.conceal_mode and not hdr.is_idr
+                    and self._prev_ref_frame_num is not None
+                    and self.dpb.frames):
+                self._conceal_frame_num_gap(hdr, sps, poc)
             t0 = time.perf_counter()
             pic = PictureData(sps.pic_width_in_mbs,
                               sps.frame_height_in_mbs // (2 if fld else 1),
@@ -248,9 +292,10 @@ class H264Decoder:
             pic.field_mode = fld
             self._cur = {
                 "pic": pic, "sps": sps, "pps": pps, "hdr0": hdr,
-                "headers": [], "poc": self.poc_ctx.compute(hdr, sps),
-                "t0": t0, "parse_s": 0.0, "refs": {}, "mb_succ": None,
-                "wps": [], "parity": hdr.bottom_field_flag if fld else None,
+                "headers": [], "poc": poc, "t0": t0, "parse_s": 0.0,
+                "refs": {}, "mb_succ": None, "wps": [], "l0": [],
+                "n_slices": 0, "failed": [],
+                "parity": hdr.bottom_field_flag if fld else None,
             }
             if pps.num_slice_groups_minus1 > 0:
                 # FMO: each slice walks its slice group's MBs
@@ -261,13 +306,14 @@ class H264Decoder:
 
         lst, lst1 = [], []
         nact = hdr.num_ref_idx_l0_active_minus1 + 1
-        if fld and hdr.slice_type == SliceType.P:
+        p_like = hdr.slice_type in (SliceType.P, SliceType.SP)
+        if fld and p_like:
             max_fn = sps.max_frame_num
             lst = field_ref_list_p(
                 self._field_refs, cur["parity"],
                 lambda f: f.frame_num - max_fn
                 if f.frame_num > hdr.frame_num else f.frame_num)[:nact]
-        elif hdr.slice_type == SliceType.P:
+        elif p_like:
             lst = self.dpb.reorder_list(self.dpb.ref_list_p(hdr.frame_num),
                                         hdr.ref_pic_list_mod_l0,
                                         hdr.frame_num, nact)
@@ -282,7 +328,8 @@ class H264Decoder:
                 raise ValueError("insufficient reference frames")
         if hdr.slice_type != SliceType.I and len(lst) < nact:
             raise ValueError("insufficient reference frames")
-        sid = len(cur["headers"])
+        sid = cur["n_slices"]
+        cur["n_slices"] += 1
         ctx = SliceContext(hdr, sps, pps, sid, mb_succ=cur["mb_succ"])
         if lst1:
             # direct prediction (jm_tpu decoder.py:266-277)
@@ -306,8 +353,19 @@ class H264Decoder:
                 parser.dp_mode = True
                 parser.br_b = dp_readers.get("b")
                 parser.br_c = dp_readers.get("c")
-        parser.parse_slice_data()
+        try:
+            parser.parse_slice_data()
+        except Exception:
+            if not self.conceal_mode:
+                raise
+            # a corrupt slice is dropped: its MBs are concealed when the
+            # picture is finished (jm_tpu decoder.py:289-299)
+            cur["failed"].append(sid)
+            cur["wps"].append(None)
+            cur["parse_s"] += time.perf_counter() - t0
+            return
         cur["headers"].append(hdr)
+        cur["l0"].append(lst)
         cur["wps"].append(WPParams(hdr, pps, lst, lst1, cur["poc"],
                                    (sps.bit_depth_luma,
                                     sps.bit_depth_chroma)))
@@ -393,6 +451,13 @@ class H264Decoder:
             mb_w=pic.mb_w, mb_h=pic.mb_h, bd=bd,
             lossless=None if ll is None else up(ll), field=pic.field_mode,
             **t8)
+        sp = np.flatnonzero(pic.sp_mb)
+        if sp.size:
+            # the SP MBs' inter recon is their prediction alone; sp_recon
+            # then requantizes it with their levels
+            keep = up(~pic.sp_mb)
+            res_l = res_l * keep[:, None, None, None]
+            res_c = res_c * keep[:, None, None, None, None]
 
         def stack_idx(pid):
             idx = np.full(pid.shape, -1, np.int32)
@@ -403,7 +468,7 @@ class H264Decoder:
         stacks = tuple(torch.stack([f.state[i] for f in refs])
                        for i in range(3))
         wp = None
-        if any(w.mode for w in wps):
+        if any(w is not None and w.mode for w in wps):
             wp = tuple(up(t) for t in block_tables(wps, pic))
         if is_b:
             return D.inter_recon_b(
@@ -416,15 +481,21 @@ class H264Decoder:
             chroma_dy = up(np.array([(-2 if parity == 0 else 2)
                                      if f.parity not in (None, parity)
                                      else 0 for f in refs], np.int32))
-        return D.inter_recon_p(mv, stack_idx(pic.ref_pic_id), res_l, res_c,
-                               *stacks, up(inter), mb_w=pic.mb_w,
-                               mb_h=pic.mb_h, wp=wp, bd=bd,
-                               chroma_dy=chroma_dy)
+        planes = D.inter_recon_p(mv, stack_idx(pic.ref_pic_id), res_l,
+                                 res_c, *stacks, up(inter), mb_w=pic.mb_w,
+                                 mb_h=pic.mb_h, wp=wp, bd=bd,
+                                 chroma_dy=chroma_dy)
+        if sp.size:
+            planes = D.sp_recon(
+                *planes, up(sp.astype(np.int64)), up(pic.luma_coef),
+                up(pic.chroma_dc), up(pic.chroma_coef), qp,
+                up(pic.sp_qs), up(pic.sp_switch), mb_w=pic.mb_w)
+        return planes
 
-    def _reconstruct(self, pic, cur, rec):
-        """Reconstruct, deblock and prep one parsed picture; fills the
-        timing record ``rec``. Returns (Y, U, V host planes, device
-        reference state)."""
+    def _reconstruct(self, pic, cur, rec, prep: bool = True):
+        """Reconstruct, deblock and (with prep) prep one parsed picture;
+        fills the timing record ``rec``. Returns (Y, U, V host planes,
+        the device reference state, or without prep None)."""
         pps, sps = cur["pps"], cur["sps"]
         bd = (sps.bit_depth_luma, sps.bit_depth_chroma)
         refs = list(cur["refs"].values())
@@ -466,7 +537,8 @@ class H264Decoder:
         bs_v, bs_h = compute_bs(
             up(pic.mb_class), up(pic.luma_nnz), t8, mv,
             up(pic.mv_l1), up(pic.ref_pic_id), up(pic.ref_pic_id_l1),
-            pic.mb_w, pic.mb_h, field=pic.field_mode)
+            pic.mb_w, pic.mb_h, field=pic.field_mode,
+            sp_slice=up(pic.sp_slice) if pic.sp_slice.any() else None)
         disable = np.zeros(n, np.int32)
         a_off = np.zeros(n, np.int32)
         b_off = np.zeros(n, np.int32)
@@ -479,7 +551,7 @@ class H264Decoder:
             Y, U, V, bs_v, bs_h, qp, up(disable), up(a_off),
             up(b_off), up(pic.slice_id), t8, tabs[3], tabs[4],
             mb_w=pic.mb_w, mb_h=pic.mb_h, bd=bd)
-        state = prep_ref(dY, dU, dV, bd[0])
+        state = prep_ref(dY, dU, dV, bd[0]) if prep else None
         flat = torch.cat([dY.reshape(-1), dU.reshape(-1),
                           dV.reshape(-1)]).cpu().numpy()
         if flat.dtype == np.int16:        # >8-bit: uint16 host planes
@@ -495,12 +567,23 @@ class H264Decoder:
             return
         cur, self._cur = self._cur, None
         pic, sps = cur["pic"], cur["sps"]
-        hdr0 = cur["hdr0"]
-        lost = int((pic.slice_id < 0).sum())
-        if lost:
-            raise NotImplementedError(
-                f"out of scope: missing slices (concealment): {lost} "
-                "macroblocks of the picture were not coded")
+        if not cur["headers"]:
+            # every slice of the picture was corrupt (conceal_mode only):
+            # the whole frame is concealed (jm_tpu decoder.py:608-615)
+            if self.dpb.frames:
+                self._store_concealed(cur["hdr0"].frame_num, cur["poc"],
+                                      sps, cur["parity"])
+            return
+        # the first slice that was decoded, as in jm_tpu
+        hdr0 = cur["headers"][0]
+        lost = pic.slice_id < 0
+        for sid in cur["failed"]:
+            lost |= pic.slice_id == sid
+        if lost.any():
+            if not self.conceal_mode:
+                raise ValueError("slice data missing for some macroblocks")
+            _conceal_scope(sps, cur["parity"])
+            _neutral(pic, lost)
         if cur["parity"] is not None and \
                 hdr0.adaptive_ref_pic_marking_mode_flag:
             # field PicNums count fields (spec 8.2.5.4): not covered, as in
@@ -508,7 +591,23 @@ class H264Decoder:
             raise NotImplementedError("out of scope: field MMCO")
         rec = {"type": hdr0.slice_type.name, "parse_s": cur["parse_s"],
                "host_recon_s": 0.0, "device_s": 0.0}
-        Y, U, V, state = self._reconstruct(pic, cur, rec)
+        Y, U, V, state = self._reconstruct(pic, cur, rec,
+                                           prep=not lost.any())
+        if lost.any():
+            # the lost MBs concealed in the deblocked host planes, which
+            # then make the reference (jm_tpu decoder.py:684-693)
+            t = time.perf_counter()
+            ref = None
+            if hdr0.slice_type != SliceType.I and cur["l0"][0]:
+                ref = cur["l0"][0][0]
+            elif self.dpb.frames:
+                ref = closest_ref(self.dpb.frames, cur["poc"])
+            self.concealed_count += conceal_mbs(
+                Y, U, V, pic, lost, None if ref is None else
+                HostRef(ref.state), pic.mb_w, pic.mb_h)
+            state = prep_ref(*(self._upload(p) for p in (Y, U, V)))
+            rec["conceal_s"] = time.perf_counter() - t
+            self.conceal_s += rec["conceal_s"]
         if hdr0.redundant_pic_cnt == 0:
             # later redundant codings of this picture are discarded
             self._primary_keys.append((hdr0.frame_num,
@@ -532,10 +631,49 @@ class H264Decoder:
                                  else None),
                        idr=hdr0.is_idr,
                        long_term_flag=hdr0.long_term_reference_flag)
+        if hdr0.nal_ref_idc:
+            self._prev_ref_frame_num = hdr0.frame_num
+        self._prev_poc = cur["poc"]
         self._outputs.append(DecodedFrame(cur["poc"],
                                           *_crop_output(sps, Y, U, V)))
         rec["seconds"] = time.perf_counter() - cur["t0"]
         self.pictures.append(rec)
+
+    # ---- concealment of lost pictures (jm_tpu decoder.py:569-593) -------
+
+    def _conceal_frame_num_gap(self, hdr, sps, cur_poc: int) -> None:
+        """A gap in frame_num (spec 7.4.3; ldecod conceal_lost_frames,
+        mbuffer.c:1837): each missing reference frame, up to 16, is
+        concealed at a POC interpolated between the last frame's and the
+        current picture's, rounded as Python rounds."""
+        max_fn = sps.max_frame_num
+        prev = self._prev_ref_frame_num
+        gap = (hdr.frame_num - prev - 1) % max_fn
+        if hdr.frame_num == prev or gap == 0 or gap > 16:
+            return
+        step = (cur_poc - self._prev_poc) / (gap + 1)
+        for k in range(1, gap + 1):
+            self._store_concealed((prev + k) % max_fn,
+                                  int(round(self._prev_poc + step * k)),
+                                  sps, None)
+
+    def _store_concealed(self, frame_num: int, poc: int, sps,
+                         parity) -> None:
+        """A frame that never arrived: concealed from the DPB, stored as
+        a reference and output (uncropped, as jm_tpu's _store_concealed
+        outputs it)."""
+        _conceal_scope(sps, parity)
+        t = time.perf_counter()
+        f, planes = conceal_lost_frame(
+            self.dpb.frames, frame_num, poc, self.conceal_mode,
+            16 * sps.frame_height_in_mbs, 16 * sps.pic_width_in_mbs)
+        self.dpb.store(f)
+        self.concealed_count += 1
+        self._prev_ref_frame_num = frame_num
+        self._prev_poc = poc
+        self._outputs.append(DecodedFrame(poc, *(p.cpu().numpy()
+                                                 for p in planes)))
+        self.conceal_s += time.perf_counter() - t
 
     # ---- PAFF field pictures (jm_tpu decoder.py:777-853) ---------------
 
@@ -568,6 +706,32 @@ class H264Decoder:
             woven.append(w)
         self._outputs.append(DecodedFrame(
             min(top[0].poc, bot[0].poc), *_crop_output(cur["sps"], *woven)))
+
+
+def _conceal_scope(sps, parity) -> None:
+    """Concealment covers 4:2:0 frame pictures of 8 bits."""
+    if parity is not None or sps.chroma_format_idc != 1 \
+            or sps.bit_depth_luma_minus8 or sps.bit_depth_chroma_minus8:
+        raise NotImplementedError(
+            "out of scope: concealment of field pictures, 4:2:2 or above "
+            "8 bits")
+
+
+def _neutral(pic, lost) -> None:
+    """The parse state of lost MBs (jm_tpu decoder.py:618-641): Intra16x16
+    DC without residual, no motion, slice 0; their samples are concealed
+    after the deblock."""
+    la = np.flatnonzero(lost)
+    pic.mb_class[la] = MB_I16
+    pic.i16_mode[la] = 2
+    for a in (pic.luma_dc, pic.luma_coef, pic.luma_nnz, pic.chroma_dc,
+              pic.chroma_coef, pic.chroma_nnz, pic.cbp, pic.mv):
+        a[la] = 0
+    pic.transform8x8[la] = False
+    pic.skip[la] = False
+    pic.ref_idx[la] = -1
+    pic.ref_idx_l1[la] = -1
+    pic.slice_id[la] = 0
 
 
 def _crop_output(sps, Y, U, V):

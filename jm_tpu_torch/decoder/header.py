@@ -14,8 +14,11 @@ dec_ref_pic_marking:635). What the decoder does not cover raises
 NotImplementedError naming the construct, before the slice's picture is
 decoded: ``check_scope`` for what the SPS / PPS declare, ``check_field``
 for MBAFF frames and what field pictures do not cover, the header parse
-for SP / SI slices and a field's list modification (a field's MMCO
-raises when its picture is finished, as in jm_tpu). A B slice adds direct_spatial_mv_pred_flag,
+for SI slices and a field's list modification (a field's MMCO
+raises when its picture is finished, as in jm_tpu). An SP slice (the
+Extended profile's switching pictures) reads as a P slice, with
+sp_for_switch_flag and slice_qs_delta after slice_qp_delta; an SI slice
+raises, as jm_tpu parses none. A B slice adds direct_spatial_mv_pred_flag,
 num_ref_idx_l1_active_minus1 and the list-1 modification commands; a P
 slice of a PPS with weighted_pred_flag, and a B slice of one with
 weighted_bipred_idc 1, the pred_weight_table (spec 7.3.3.2).
@@ -86,9 +89,9 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
     h.slice_type_all = st >= 5
     h.slice_type = SliceType(st % 5)
     st = h.slice_type
-    if st not in (SliceType.I, SliceType.P, SliceType.B):
-        raise NotImplementedError(
-            f"out of scope: {h.slice_type.name} slices")
+    if st == SliceType.SI:
+        # jm_tpu parses no SI slice either (jm_tpu/decoder/mb_parse.py:700)
+        raise NotImplementedError("out of scope: SI slices")
     h.pic_parameter_set_id = br.ue()
     pps = pps_map[h.pic_parameter_set_id]
     sps = sps_map[pps.seq_parameter_set_id]
@@ -120,7 +123,8 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
         h.direct_spatial_mv_pred_flag = br.flag()
     h.num_ref_idx_l0_active_minus1 = pps.num_ref_idx_l0_default_active_minus1
     h.num_ref_idx_l1_active_minus1 = pps.num_ref_idx_l1_default_active_minus1
-    if st in (SliceType.P, SliceType.B):
+    inter = st in (SliceType.P, SliceType.SP, SliceType.B)
+    if inter:
         h.num_ref_idx_active_override_flag = br.flag()
         if h.num_ref_idx_active_override_flag:
             h.num_ref_idx_l0_active_minus1 = br.ue()
@@ -137,7 +141,7 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
         h.ref_pic_list_mod_l1 = _read_rplm(br)
 
     # pred_weight_table (7.3.3.2)
-    if (pps.weighted_pred_flag and st == SliceType.P) or (
+    if (pps.weighted_pred_flag and st in (SliceType.P, SliceType.SP)) or (
             pps.weighted_bipred_idc == 1 and st == SliceType.B):
         _read_pred_weight_table(br, h)
 
@@ -156,6 +160,9 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
         if h.cabac_init_idc > 2:
             raise ValueError(f"cabac_init_idc {h.cabac_init_idc} out of range")
     h.slice_qp_delta = br.se()
+    if st == SliceType.SP:
+        h.sp_for_switch_flag = br.flag()
+        h.slice_qs_delta = br.se()
     if pps.deblocking_filter_control_present_flag:
         h.disable_deblocking_filter_idc = br.ue()
         if h.disable_deblocking_filter_idc != 1:

@@ -19,6 +19,10 @@ A 4:2:2 picture's chroma residual is a 2x4 DC read with nC -2 and 8 AC
 blocks per component; its CAVLC I / P slices are parsed in Python, as
 in jm_tpu (mb_parse.py:597), and counted in native.routes["yuv422"].
 
+An SP slice is parsed as a P slice (by the native parser unless as
+below) and its MBs marked after; native.routes["sp"]["parse"] counts the
+SP slices, each also counted under its route.
+
 A B slice's MBs (B_Skip and B_Direct_16x16 with decoder/b_slice's
 direct motion, the 16x16 / 16x8 / 8x16 partitions of list 0, list 1 or
 both, B_8x8 with direct 8x8s) are parsed in Python, as in jm_tpu, and
@@ -449,6 +453,24 @@ class MBParser:
     # ---- slice loop -------------------------------------------------------
 
     def parse_slice_data(self) -> None:
+        """Parse the slice's MBs into the picture; an SP slice's MB layer
+        is a P slice's (spec 7.3.5), parsed as one, after which its MBs
+        are marked (jm_tpu/decoder/mb_parse.py mark_sp, :662-668): its
+        inter MBs take the SP reconstruction, every MB the SP bS, QS and
+        sp_for_switch_flag of the slice."""
+        self._parse_slice_mbs()
+        h = self.ctx.header
+        if h.slice_type != SliceType.SP:
+            return
+        N.routes["sp"]["parse"] += 1
+        pic = self.pic
+        m = pic.slice_id == self.ctx.slice_id
+        pic.sp_mb[m] = pic.mb_class[m] == MB_INTER
+        pic.sp_slice[m] = True
+        pic.sp_qs[m] = h.qs(self.ctx.pps)
+        pic.sp_switch[m] = bool(h.sp_for_switch_flag)
+
+    def _parse_slice_mbs(self) -> None:
         h = self.ctx.header
         pic, br = self.pic, self.br
         addr = h.first_mb_in_slice

@@ -18,7 +18,8 @@ the list being coded. transform_size_8x8_flag takes its context from the
 neighbours' flags; an 8x8 block is one LUMA_8x8 block (category 5, no
 coded_block_flag, the frame 8x8 significance and last maps), which
 stands for each of its four 4x4 blocks in the coded_block_flag bits
-that later contexts read, and whose count is their nnz. Every B slice counts in
+that later contexts read, and whose count is their nnz. An SP slice
+raises NotImplementedError, as jm_tpu's CABAC parser has none. Every B slice counts in
 native.routes["b"]["parse"]. The arithmetic
 decoder is the
 native CabacEngine unless the caller asks for the Python twin
@@ -688,6 +689,11 @@ class MBParserCABAC(CabacNeighbours):
             N.routes["b"]["parse"] += 1
         while True:
             pic.slice_id[addr] = sid
+            if h.slice_type == SliceType.SP:
+                # jm_tpu's CABAC parser reads no SP slice either
+                # (jm_tpu/decoder/mb_parse_cabac.py:851)
+                raise NotImplementedError(
+                    "out of scope: SP slices under CABAC")
             if h.slice_type == SliceType.I:
                 self._parse_intra_mb(addr, self.read_mb_type_i(addr))
             elif is_b:

@@ -38,7 +38,7 @@ class WPParams:
         self.cmax = ((1 << bd[0]) - 1, (1 << bd[1]) - 1, (1 << bd[1]) - 1)
         oscale = (1 << (bd[0] - 8), 1 << (bd[1] - 8))
         st = hdr.slice_type
-        if st == SliceType.P and pps.weighted_pred_flag:
+        if st in (SliceType.P, SliceType.SP) and pps.weighted_pred_flag:
             self.mode = 1
         elif st == SliceType.B and pps.weighted_bipred_idc in (1, 2):
             self.mode = pps.weighted_bipred_idc
@@ -136,7 +136,7 @@ def block_tables(wps, pic) -> tuple:
     o1 = np.zeros((n, 4, 3), np.int32)
     logwd = np.zeros((n, 2), np.int32)
     for sid, wp in enumerate(wps):
-        if not wp.mode:
+        if wp is None or not wp.mode:          # None: a dropped slice
             continue
         m = np.flatnonzero(pic.slice_id == sid)
         logwd[m] = (wp.luma_denom, wp.chroma_denom)

@@ -217,7 +217,8 @@ class EncoderConfig:
     implicit weighted bi-prediction; pipeline="host"; the High profile: the
     adaptive 8x8 transform, scaling matrices (the lists in raster order, in
     the SPS, the PPS or both), explicit quant offsets and adaptive rounding;
-    the host coders' motion options: up to 16 list-0 references, P8x8
+    SP switching pictures (sp_periodicity, qp_sp, qp_sp2; Extended
+    profile); the host coders' motion options: up to 16 list-0 references, P8x8
     sub-partitions, SAD or SATD in the fractional search, the full, UMHex,
     UMHex simple or EPZS search with HME predictors; the RD tiers: rdo 0-4
     (tier 3 with num_decoders / loss_rate_a), the trellis (rdoq with
@@ -290,6 +291,12 @@ class EncoderConfig:
                                  # (PocMemoryManagement)
     data_partition: int = 0      # 1: P slices as partitions A / B / C
                                  # (PartitionMode; Extended profile)
+    sp_periodicity: int = 0      # > 0: every Nth anchor after the first
+                                 # that is not intra is an SP switching
+                                 # picture (SPPicturePeriodicity; Extended
+                                 # profile), coded by the host P coder
+    qp_sp: int = 24              # the slice QP of SP pictures (QPSPSlice)
+    qp_sp2: int = 24             # their switching QP QS (QPSP2Slice)
     redundant_period: int = 0    # a redundant coding after every Nth P
                                  # picture (RedundantPicture)
     redundant_qp_off: int = 4    # its QP above the primary's (0..51)
@@ -370,12 +377,14 @@ class EncoderConfig:
 
 def _profile(cfg: EncoderConfig) -> int:
     """profile_idc of the stream (jm_tpu encoder.py:277-286): High 4:2:2
-    at chroma_format 2, else Extended with data partitioning, else High
+    at chroma_format 2, else Extended with data partitioning or SP
+    pictures (even with the 8x8 transform or CABAC, as jm_tpu writes
+    them), else High
     with the 8x8 transform or scaling matrices, else Main with CABAC, B
     pictures or weighted prediction, else Baseline."""
     if cfg.chroma_format == 2:
         return 122
-    if cfg.data_partition:
+    if cfg.data_partition or cfg.sp_periodicity > 0:
         return 88
     if cfg.transform8x8 or cfg.scaling_matrix:
         return 100
@@ -404,13 +413,13 @@ def _check_field_config(cfg: EncoderConfig) -> None:
             or cfg.data_partition or cfg.slice_mode
             or cfg.num_slice_groups > 1 or cfg.weighted_pred
             or cfg.rc_enable or cfg.transform8x8 or cfg.rdoq
-            or cfg.long_term_period or cfg.poc_type):
+            or cfg.long_term_period or cfg.poc_type or cfg.sp_periodicity):
         raise NotImplementedError(
             "EncoderConfig.pic_interlace: field coding covers CAVLC 4:2:0 "
             "IPPP of one slice (no B pictures, CABAC, 4:2:2, data "
             "partitioning, slice modes, FMO, weighted prediction, rate "
-            "control, 8x8 transform, trellis, long-term anchors or POC "
-            "types 1 / 2)")
+            "control, 8x8 transform, trellis, long-term anchors, POC "
+            "types 1 / 2 or SP pictures)")
     if cfg.redundant_period:
         raise NotImplementedError(
             "EncoderConfig.redundant_period: redundant pictures: IPPP "
@@ -444,6 +453,13 @@ def _check_config(cfg: EncoderConfig) -> None:
         raise ValueError(f"EncoderConfig.qp={cfg.qp}: outside 0..51")
     if cfg.qp_p is not None and not 0 <= cfg.qp_p <= 51:
         raise ValueError(f"EncoderConfig.qp_p={cfg.qp_p}: outside 0..51")
+    if cfg.sp_periodicity < 0:
+        raise ValueError(f"EncoderConfig.sp_periodicity="
+                         f"{cfg.sp_periodicity}: must be >= 0")
+    for name in ("qp_sp", "qp_sp2"):
+        if not 0 <= getattr(cfg, name) <= 51:
+            raise ValueError(f"EncoderConfig.{name}={getattr(cfg, name)}: "
+                             "outside 0..51")
     if cfg.intra_period < 0:
         raise ValueError(f"EncoderConfig.intra_period={cfg.intra_period}: "
                          "must be >= 0")
@@ -702,7 +718,8 @@ class Encoder:
     ``results`` holds one dict per coded picture (disp, type, bits, qp,
     slices, frame: a Picture with the deblocked recon; intra_mbs: the MBs
     coded intra and ref_poc: the POC of the reference, for P frames of
-    the per-frame path; cabac_init_idc: the context model of each CABAC
+    the per-frame path; sp: True for an SP picture (type "P", as jm_tpu
+    records it); cabac_init_idc: the context model of each CABAC
     P or B slice; for B pictures ref: whether it is a reference, split:
     the wall seconds of its device search tables, host MB loop, device
     deblock + prep_ref and host serializer, mix: its MB decisions; for
@@ -966,13 +983,13 @@ class Encoder:
         no sub-8x8 partitions, 4:2:0) with one reference (num_ref 1),
         in CAVLC without B pictures, with one slice group and no slice
         mode, a fixed QP, no intra refresh, the loop filter on, no
-        long-term anchors, no data partitioning, no trellis and no
-        rd_picture_decision, any POC type, with or without
+        long-term anchors, no data partitioning, no SP pictures, no
+        trellis and no rd_picture_decision, any POC type, with or without
         redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI (jm_tpu
         _pipe_ok); everything else takes the per-frame path."""
         cfg = self.cfg
         return (self._device_path_ok(weighted=bool(cfg.weighted_pred))
-                and cfg.num_ref == 1
+                and cfg.num_ref == 1 and cfg.sp_periodicity == 0
                 and cfg.num_b == 0 and cfg.entropy == "cavlc"
                 and cfg.intra_mb_refresh == 0
                 and cfg.slice_mode == 0 and cfg.num_slice_groups == 1
@@ -1084,7 +1101,10 @@ class Encoder:
         the per-frame path against list0's num_ref_active heads; force
         (the explicit sequence coder's {"intra", "idr"}) overrides the
         type. A P picture with basic units of rate control (a positive
-        target under rc_basic_unit) is coded by the host P coder."""
+        target under rc_basic_unit) is coded by the host P coder, and so
+        is an SP picture: with sp_periodicity, the anchor whose frame_idx
+        it divides, when not intra, at qp_sp (jm_tpu :1205-1207,
+        :1222-1223)."""
         cfg = self.cfg
         packed = self._upload(frame)
         intra = self._idr_due(self.frame_idx)
@@ -1097,12 +1117,17 @@ class Encoder:
             return self._encode_i(packed, frame, disp, idr=idr)
         qp = self.rc.pict_qp("P") if self.rc is not None else \
             (cfg.qp if cfg.qp_p is None else cfg.qp_p)
+        sp = cfg.sp_periodicity > 0 and \
+            self.frame_idx % cfg.sp_periodicity == 0
+        if sp:
+            qp = cfg.qp_sp
         forced = self._refresh_set()
         units = (self.rc is not None and cfg.rc_basic_unit > 0
                  and self.rc.target > 0)
-        if not self._device_path_ok(weighted=bool(cfg.weighted_pred),
-                                    basic_units=units):
-            return self._encode_p_host(packed, frame, disp, forced, qp, units)
+        if sp or not self._device_path_ok(weighted=bool(cfg.weighted_pred),
+                                          basic_units=units):
+            return self._encode_p_host(packed, frame, disp, forced, qp, units,
+                                       sp=sp)
         ref = self._ref_list_p(2 * (disp - self._idr_disp))[0]
         core = self._p_step(packed, ref, qp)
         return self._finish_p(core, disp, frame, forced, qp, packed)
@@ -1498,7 +1523,8 @@ class Encoder:
         rec the (Y, U, V) recon planes (device tensors or numpy), pic its
         PictureData (per-MB QP, slice id and transform8x8, whose inner 4x4
         edges the filter skips; the MVs and reference ids of both lists,
-        -1 for intra MBs and unused lists). Returns the
+        -1 for intra MBs and unused lists; the MBs of SP slices, whose
+        edges take bS 3 / 4). Returns the
         deblocked planes on the device."""
         def up(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
@@ -1509,7 +1535,9 @@ class Encoder:
         bs_v, bs_h = compute_bs(up(pic.mb_class), up(pic.luma_nnz), t8,
                                 up(pic.mv), up(pic.mv_l1), up(pic.ref_pic_id),
                                 up(pic.ref_pic_id_l1), self.mb_w, self.mb_h,
-                                field=pic.field_mode)
+                                field=pic.field_mode,
+                                sp_slice=up(pic.sp_slice)
+                                if pic.sp_slice.any() else None)
         return deblock(*rec, bs_v, bs_h, up(pic.qp), zeros, zeros, zeros,
                        up(pic.slice_id), t8, self.qpc_cb, self.qpc_cr,
                        mb_w=self.mb_w, mb_h=self.mb_h)
@@ -1788,12 +1816,12 @@ class Encoder:
                                     ref_poc=ref.poc, **info,
                                     **trials.info())
 
-    def _wp_tables(self, frame, refs) -> list:
+    def _wp_tables(self, frame, refs, sp: bool = False) -> list:
         """The explicit weight tables a weighted P picture is coded with
         (jm_tpu _emit_anchor :1226-1296), one entry per active reference
         of refs: the estimate (wp_iter_mc, else wp_method), and with
         wp_mcprec and no rate control also the offset-only and the default
-        tables."""
+        tables (not for an SP picture, sp)."""
         cfg = self.cfg
         if cfg.wp_iter_mc > 0:
             table = estimate_mc_iter(*frame, refs, iters=cfg.wp_iter_mc)
@@ -1801,14 +1829,14 @@ class Encoder:
             est = estimate_lms if cfg.wp_method == 1 else estimate_explicit
             table = est(*frame, refs)
         tables = [table]
-        if cfg.wp_mcprec and self.rc is None:
+        if cfg.wp_mcprec and self.rc is None and not sp:
             tables += [estimate_lms(*frame, refs, select_offset=1),
                        [{"luma": (32, 0), "chroma": ((32, 0), (32, 0))}
                         for _ in refs]]
         return tables
 
     def _encode_p_host(self, packed, frame, disp: int, forced, qp: int,
-                       units: bool = False) -> bytes:
+                       units: bool = False, sp: bool = False) -> bytes:
         """A P picture coded by the serial host P coder (jm_tpu
         _emit_anchor :1226-1351 with _FrameEncoder's host path): its
         active references (_ref_list_p) downloaded once, with
@@ -1825,9 +1853,13 @@ class Encoder:
         coding when one is due, and the DPB. results records the table,
         the wall seconds of each step, the MB decisions, the host MB
         loop's parts, the partitions coded from a later reference (ref1)
-        and the searcher's SAD evaluations (evals)."""
+        and the searcher's SAD evaluations (evals). sp: an SP picture
+        (slice type SP, QS qp_sp2, no redundant coding)."""
         cfg = self.cfg
         poc = 2 * (disp - self._idr_disp)
+        sp_qs = (cfg.qp_sp2, chroma_qp(cfg.qp_sp2,
+                                       self.pps.chroma_qp_index_offset)) \
+            if sp else None
         refs = self._ref_list_p(poc)
         lt, hdr, victims = self._anchor_marking(poc)
         frame = tuple(np.asarray(p, np.uint8) for p in frame)
@@ -1839,7 +1871,7 @@ class Encoder:
                 _ = r.Y                  # the deblocked planes, once
         t, split["download_s"] = time.perf_counter(), \
             time.perf_counter() - t
-        tables = self._wp_tables(frame, refs) if cfg.weighted_pred \
+        tables = self._wp_tables(frame, refs, sp) if cfg.weighted_pred \
             else [None]
         t, split["estimate_s"] = time.perf_counter(), \
             time.perf_counter() - t
@@ -1866,14 +1898,14 @@ class Encoder:
                     searcher=self._searcher(frame[0], refs, q),
                     sub8x8=cfg.sub8x8, subpel_satd=cfg.subpel_satd,
                     units=_BasicUnits(self, q) if units else None,
-                    **self._quant_kw("P"))
+                    sp=sp_qs, **self._quant_kw("P"))
                 split["host_mb_s"] += time.perf_counter() - t0
                 return c
 
             def serialize(pic, plan, sizes, q=q, table=table):
                 t0 = time.perf_counter()
                 out = self._serialize_p(pic, disp, q, plan, sizes,
-                                        wp_l0=table, **hdr)
+                                        wp_l0=table, sp=sp, **hdr)
                 split["serialize_s"] += time.perf_counter() - t0
                 return out
 
@@ -1889,7 +1921,7 @@ class Encoder:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         split["deblock_s"] += time.perf_counter() - t
-        if cfg.redundant_period and \
+        if cfg.redundant_period and not sp and \
                 self.frame_idx % cfg.redundant_period == 0:
             nal += self._redundant(
                 packed, frame, poc, qp, refs[0],
@@ -1899,6 +1931,8 @@ class Encoder:
         if units:
             info.update(mb_qps=tuple(int(q) for q in np.unique(c.pic.qp)),
                         qp_unsent=_qp_unsent(c.pic, plan, qp))
+        if sp:
+            info["sp"] = True
         return self._commit_p_frame(nal, disp, state, qp, len(plan),
                                     long_term=lt, victims=victims,
                                     motion=_motion(c.pic),
@@ -2004,11 +2038,11 @@ class Encoder:
                               is_ref=True)
 
     def _serialize_p(self, pic: PictureData, disp: int, qp: int, plan,
-                     sizes=None, **hdr):
-        """A P picture's slices serialized on the host (hdr: the marking
-        and list-modification keywords of its slice headers): (their NAL
-        units, what ``results`` records of them)."""
-        return self._picture_nals(pic, SliceType.P,
+                     sizes=None, sp: bool = False, **hdr):
+        """A P (with sp an SP) picture's slices serialized on the host
+        (hdr: the marking and list-modification keywords of its slice
+        headers): (their NAL units, what ``results`` records of them)."""
+        return self._picture_nals(pic, SliceType.SP if sp else SliceType.P,
                                   2 * (disp - self._idr_disp), qp, plan,
                                   sizes, **hdr)
 
@@ -2031,12 +2065,17 @@ class Encoder:
         kw = dict(slice_type=slice_type, frame_num=self.frame_num, idr=idr,
                   qp=qp, poc_lsb=poc % 256, idr_pic_id=self.idr_pic_id,
                   **hdr)
-        if slice_type == SliceType.P:
+        p_like = slice_type in (SliceType.P, SliceType.SP)
+        if p_like:
             kw["num_ref_idx_l0"] = self.num_ref_active
         nal_type = NalUnitType.IDR if idr else NalUnitType.SLICE
         cabac = self.cfg.entropy == "cabac"
-        dp = self.cfg.data_partition and slice_type == SliceType.P \
-            and not cabac
+        if slice_type == SliceType.SP and not cabac:
+            # jm_tpu's CABAC writer leaves QS out of an SP slice header
+            # (its serialize_slice_cabac, syntax_cabac.py:752-767), which
+            # then says 0
+            kw["qs"] = self.cfg.qp_sp2
+        dp = self.cfg.data_partition and p_like and not cabac
         out, bins, idcs = b"", 0, []
         for sid, addrs in enumerate(plan):
             if dp:

@@ -58,6 +58,7 @@ import numpy as np
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM
 from ..common.types import SliceType
 from . import me as ME
+from . import residual_np as RN
 from .b_host import InterMBCoder
 from .rdo import MBState, lambda_mode, mb_ssd
 
@@ -86,17 +87,21 @@ class PPicture(InterMBCoder):
     reference 0; ``part_s`` the wall seconds of the MB loop's parts: the
     partition-mode search, the skip candidate, the intra evaluation and
     coding, the inter commit, and with rdo the trial codings of the RD
-    decision (rd); ``evals`` the searcher's SAD evaluations (0 under full
+    decision (rd), in an SP picture the SP levels and recon inside the
+    commit (sp); ``evals`` the searcher's SAD evaluations (0 under full
     search)."""
 
     stype = SliceType.P
+    # the SP level decision by the native runtime (jm_enc.cpp sp_levels);
+    # False: residual_np's Python loop, its twin
+    native_sp = True
 
     def __init__(self, orig, qp: int, qpc: int, lam: int, lam4: int,
                  refs, sads, slices, sr: int, forced=(), wp=None,
                  transform8x8=False, qctx=None, ar_period: int = 0,
                  blk4=None, searcher=None, sub8x8: bool = False,
                  subpel_satd: bool = True, units=None, rd=None,
-                 num_ref: int | None = None, parity=None):
+                 num_ref: int | None = None, parity=None, sp=None):
         """orig: the source (Y, U, V) uint8 planes; lam / lam4:
         lambda_me and lambda_mode4 of qp; refs: list0's active references
         (HostRef), by ref_idx; sads: their (N, (2 sr + 1)^2, 4) quadrant
@@ -118,11 +123,19 @@ class PPicture(InterMBCoder):
         given: the redundant coding, one reference, counts the
         primary's, as jm_tpu does); parity: a field picture's (0 top, 1
         bottom: the field scan, and the chroma offset of the reference
-        fields of the other parity), None for a frame picture."""
+        fields of the other parity), None for a frame picture; sp: an SP
+        picture's (QS, its chroma QP with the PPS offset), or None."""
         if rd is not None:
             self.rd = rd
         self._init_picture(orig, qp, qpc)
         self.set_parity(parity)
+        self.sp = sp
+        if sp is not None:
+            # every MB of an SP slice takes its bS, QS and, when inter,
+            # the requantizing recon (jm_tpu encoder.py:2120-2124)
+            self.stype = SliceType.SP
+            self.pic.sp_slice[:] = True
+            self.pic.sp_qs[:] = sp[0]
         self.lam, self.lam4, self.wp = lam, lam4, wp
         self.transform8x8 = transform8x8
         self.qctx, self.ar_period = qctx, ar_period
@@ -140,6 +153,8 @@ class PPicture(InterMBCoder):
         self.ref1 = 0
         self.part_s = dict.fromkeys(("search", "skip", "intra", "commit",
                                      "rd"), 0.0)
+        if sp is not None:
+            self.part_s["sp"] = 0.0      # the SP levels and recon (commit)
         self._code_slices(slices, self._encode_p_mb)
         self.evals = 0 if self.searcher is None else self.searcher.n_evals
 
@@ -359,16 +374,114 @@ class PPicture(InterMBCoder):
             pred_y[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = p[0]
             pred_u[by * cbh:(by + 1) * cbh, bx * 2:bx * 2 + 2] = p[1]
             pred_v[by * cbh:(by + 1) * cbh, bx * 2:bx * 2 + 2] = p[2]
+        if self.sp is not None:
+            pic.sp_mb[addr] = pic.sp_slice[addr] = True
+            pic.sp_qs[addr] = self.sp[0]
         if no_residual:
-            self.recY[py:py + 16, px:px + 16] = np.clip(pred_y, 0, 255)
-            self.recU[self._csl(addr)] = np.clip(pred_u, 0, 255)
-            self.recV[self._csl(addr)] = np.clip(pred_v, 0, 255)
+            if self.sp is not None:
+                # the QS-requantized prediction (jm_tpu _sp_recon)
+                recs = self._sp_recon(pred_y, pred_u, pred_v)
+            else:
+                recs = (np.clip(p, 0, 255) for p in (pred_y, pred_u, pred_v))
+            y, u, v = recs
+            self.recY[py:py + 16, px:px + 16] = y
+            self.recU[self._csl(addr)] = u
+            self.recV[self._csl(addr)] = v
             pic.cbp[addr] = 0
+        elif self.sp is not None:
+            t0 = time.perf_counter()
+            cbp_luma = self._code_luma_inter_sp(addr, o, pred_y)
+            cbp_chroma = self._code_chroma_sp(addr, pred_u, pred_v)
+            pic.cbp[addr] = (cbp_chroma << 4) | cbp_luma
+            self.part_s["sp"] += time.perf_counter() - t0
         else:
             self._commit_inter_residual(addr, o, pred_y, pred_u, pred_v)
         if (mode == 0 and pic.cbp[addr] == 0 and pic.ref_idx[addr, 0] == 0
                 and (pic.mv[addr, 0] == skip_mv).all()):
             pic.skip[addr] = True
+
+    # ---- SP pictures (jm_tpu encoder.py:3227-3325) -------------------------
+
+    def _sp_lam(self) -> float:
+        # lencod block.c:1551: lambda_mode = 0.85 * 2^((qp - 12) / 3) * 4
+        return 0.85 * 2.0 ** ((self.qp - 12) / 3.0) * 4.0
+
+    def _code_luma_inter_sp(self, addr, o, pred_y) -> int:
+        """The SP luma levels (residual_np.sp_luma_levels_mb, lencod
+        residual_transform_quant_luma_4x4_sp), JM's quadrant / MB
+        thresholds applied to them, then the requantizing recon; commits
+        the levels, nnz and recon and returns cbp_luma."""
+        pic = self.pic
+        px, py = (addr % self.mb_w) * 16, (addr // self.mb_w) * 16
+        lam = self._sp_lam()
+        qs = self.sp[0]
+        ob = o.astype(np.int64).reshape(4, 4, 4, 4).transpose(0, 2, 1, 3) \
+            .reshape(16, 4, 4)
+        pb = pred_y.astype(np.int64).reshape(4, 4, 4, 4) \
+            .transpose(0, 2, 1, 3).reshape(16, 4, 4)
+        scan4, Ps = RN.sp_luma_levels_mb(ob, pb, self.qp, qs, lam,
+                                         native=self.native_sp)
+        total_cost = 0
+        for qb in ME.QUAD_BLKS:
+            cq = sum(RN.coeff_cost_scan(scan4[b]) for b in qb)
+            if cq <= RN.LUMA_COEFF_COST:
+                scan4[qb] = 0
+            else:
+                total_cost += cq
+        if total_cost <= RN.LUMA_MB_COEFF_COST:
+            scan4[:] = 0
+        rec4 = RN.sp_luma_recon(Ps, scan4, self.qp, qs)
+        self.recY[py:py + 16, px:px + 16] = \
+            rec4.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
+        pic.luma_coef[addr] = scan4
+        nnz = (scan4 != 0).sum(axis=1)
+        pic.luma_nnz[addr] = nnz
+        return sum(1 << q for q, qb in enumerate(ME.QUAD_BLKS)
+                   if nnz[qb].any())
+
+    def _code_chroma_sp(self, addr, pred_u, pred_v) -> int:
+        """The SP chroma of a 4:2:0 MB (lencod
+        residual_transform_quant_chroma_4x4_sp): the DC through the
+        prediction's 2x2 Hadamard, the AC as luma; the requantizing
+        recon; returns cbp_chroma."""
+        pic = self.pic
+        cx, cy = (addr % self.mb_w) * 8, (addr // self.mb_w) * 8
+        lam = self._sp_lam()
+        qsc = self.sp[1]
+        any_dc = any_ac = False
+        for comp, (orig, pred8, plane) in enumerate(
+                ((self.origU, pred_u, self.recU),
+                 (self.origV, pred_v, self.recV))):
+            o8 = orig[cy:cy + 8, cx:cx + 8].astype(np.int64)
+            dc, ac, P, mp1 = RN.sp_chroma_levels(o8, pred8, self.qpc, qsc,
+                                                 lam, native=self.native_sp)
+            pic.chroma_dc[addr, comp] = dc
+            pic.chroma_coef[addr, comp] = ac
+            pic.chroma_nnz[addr, comp] = (ac[:, 1:] != 0).sum(axis=1)
+            any_dc = any_dc or bool((dc != 0).any())
+            any_ac = any_ac or bool((ac != 0).any())
+            plane[cy:cy + 8, cx:cx + 8] = RN.sp_chroma_recon(
+                P, mp1, dc, ac, self.qpc, qsc)
+        return 2 if any_ac else (1 if any_dc else 0)
+
+    def _sp_recon(self, pred_y, pred_u, pred_v):
+        """The SP recon of an MB without levels (the forced P_Skip trial):
+        the QS-requantized prediction."""
+        qs, qsc = self.sp
+        pb = pred_y.astype(np.int64).reshape(4, 4, 4, 4) \
+            .transpose(0, 2, 1, 3).reshape(16, 4, 4)
+        rec4 = RN.sp_luma_recon(RN.np_forward4x4(pb),
+                                np.zeros((16, 16), np.int64), self.qp, qs)
+        out = [rec4.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
+               .reshape(16, 16)]
+        for pred8 in (pred_u, pred_v):
+            pbc = pred8.astype(np.int64).reshape(2, 4, 2, 4) \
+                .transpose(0, 2, 1, 3)
+            P = RN.np_forward4x4(pbc.reshape(4, 4, 4)).reshape(2, 2, 4, 4)
+            out.append(RN.sp_chroma_recon(
+                P, np.array(RN._h2(P)), np.zeros(4, np.int64),
+                np.zeros((4, 16), np.int64), self.qpc, qsc))
+        return out
 
     # ---- the RD tiers (jm_tpu encoder.py:2905-3017) ------------------------
 

@@ -298,8 +298,9 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                        mmco_ops=None, ref_mod_l0=None,
                        redundant_pic_cnt: int = 0, num_ref_idx_l1: int = 1,
                        ref_mod_l1=None, wp_l0=None, wp_l1=None,
-                       field_pic: int = 0, bottom_field: int = 0) -> None:
-    """Spec 7.3.3 slice header of an I, P or B slice of a frame picture,
+                       field_pic: int = 0, bottom_field: int = 0,
+                       qs: int = 0) -> None:
+    """Spec 7.3.3 slice header of an I, P, SP or B slice of a frame picture,
     or under an SPS without frame_mbs_only_flag of a field picture
     (field_pic 1, bottom_field its parity; lencod/src/header.c:116
     SliceHeader): pic_order_cnt_lsb for POC
@@ -314,7 +315,9 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
     of wp_l0 / wp_l1 (each active reference's {"luma": (w, o), "chroma":
     ((w, o), (w, o))}, a missing entry the default) in a P slice of a PPS
     with weighted_pred_flag and a B slice of one with weighted_bipred_idc
-    1."""
+    1. An SP slice is written as a P slice, with sp_for_switch_flag 0 (as
+    jm_tpu/encoder/syntax.py:389-392 writes it) and the slice_qs_delta of
+    the switching QP qs after slice_qp_delta."""
     bw.ue(first_mb)
     bw.ue(int(slice_type) + 5)      # all slices in picture share the type
     bw.ue(pps.pic_parameter_set_id)
@@ -332,7 +335,8 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
     is_b = slice_type == SliceType.B
     if is_b:
         bw.flag(1)                  # direct_spatial_mv_pred_flag
-    if slice_type in (SliceType.P, SliceType.B):
+    p_like = slice_type in (SliceType.P, SliceType.SP)
+    if p_like or is_b:
         override = ((num_ref_idx_l0 - 1) !=
                     pps.num_ref_idx_l0_default_active_minus1)
         if is_b:
@@ -351,7 +355,7 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
                     bw.ue(idc)
                     bw.ue(val)
                 bw.ue(3)
-    if (pps.weighted_pred_flag and slice_type == SliceType.P) or \
+    if (pps.weighted_pred_flag and p_like) or \
             (pps.weighted_bipred_idc == 1 and is_b):
         _write_pred_weight_table(bw, slice_type, wp_l0 or [], wp_l1 or [],
                                  num_ref_idx_l0, num_ref_idx_l1)
@@ -375,6 +379,9 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
     if pps.entropy_coding_mode_flag and slice_type != SliceType.I:
         bw.ue(cabac_init_idc)
     bw.se(qp - 26 - pps.pic_init_qp_minus26)
+    if slice_type == SliceType.SP:
+        bw.flag(0)                  # sp_for_switch_flag
+        bw.se(qs - 26 - pps.pic_init_qs_minus26)
     if pps.deblocking_filter_control_present_flag:
         # the encoder only raises the control flag to switch the loop
         # filter OFF (LoopFilterDisable; lencod header.c DeblockFilter)
@@ -632,7 +639,9 @@ def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
     (default: the whole picture in raster order); header: the further
     keywords of write_slice_header (slice_group_change_cycle, marking,
     list modification, redundant_pic_cnt, the list-1 keywords of a B
-    slice). Returns the RBSP. The MB layer of an I or P slice goes
+    slice). Returns the RBSP. The MB layer of an I, P or SP slice (an SP
+    slice's is a P slice's; counted in native.routes["sp"]["serialize"]
+    too) goes
     through the native cavlc_slice_data (jm_tpu_torch/native,
     jm_enc.cpp) unless a MB of the slice is I_PCM or the caller asks for
     the Python MBWriter (native=False); native.routes["serialize"] counts
@@ -645,6 +654,8 @@ def serialize_slice(pic, sps, pps, *, slice_type: SliceType, frame_num: int,
                        frame_num=frame_num, idr=idr, idr_pic_id=idr_pic_id,
                        qp=qp, first_mb=int(addrs[0]), poc_lsb=poc_lsb,
                        num_ref_idx_l0=num_ref_idx_l0, **header)
+    if slice_type == SliceType.SP:
+        N.routes["sp"]["serialize"] += 1
     if slice_type == SliceType.B:
         N.routes["b"]["serialize"] += 1
     elif native and not (pic.mb_class[addrs] == MB_IPCM).any():
@@ -666,7 +677,8 @@ def serialize_slice_dp(pic, sps, pps, *, slice_type: SliceType,
                        mb_addrs=None, **header) -> list:
     """Serialize one slice as three data partitions (jm_tpu/encoder/
     syntax.py serialize_slice_dp; lencod header.c Partition_BC_Header:596):
-    A holds the slice header (header: the keywords of write_slice_header),
+    A holds the slice header (header: the keywords of write_slice_header;
+    an SP slice counts in native.routes["sp"]["serialize"] too),
     slice_id and the MB headers, MVDs and CBPs; B the residual of the
     intra MBs and C of the inter MBs, each after its slice_id. Returns
     the three RBSPs, b"" for a partition that received no residual. The
@@ -675,6 +687,8 @@ def serialize_slice_dp(pic, sps, pps, *, slice_type: SliceType,
     addrs = [int(a) for a in (range(pic.n_mbs) if mb_addrs is None
                               else mb_addrs)]
     N.routes["dp"]["serialize"] += 1
+    if slice_type == SliceType.SP:
+        N.routes["sp"]["serialize"] += 1
     bw = BitWriter()
     write_slice_header(bw, sps, pps, slice_type=slice_type, qp=qp,
                        first_mb=addrs[0], num_ref_idx_l0=num_ref_idx_l0,
@@ -732,5 +746,5 @@ def _native_slice_data(bw: BitWriter, pic, pps, slice_type: SliceType,
     }
     return N.load().cavlc_slice_data(
         bytes(bw.buf), bw.acc, bw.nacc, pic_dict, addrs,
-        0 if slice_type == SliceType.P else 2, int(num_ref),
+        0 if slice_type in (SliceType.P, SliceType.SP) else 2, int(num_ref),
         int(pps.transform_8x8_mode_flag), int(qp))

@@ -491,7 +491,10 @@ class MBWriterCABAC(CabacNeighbours):
 
     def write_mb(self, addr):
         pic = self.pic
-        if self.stype == SliceType.I:
+        if self.stype in (SliceType.I, SliceType.SP):
+            # jm_tpu's CABAC writer writes every MB of an SP slice with its
+            # I-slice branch (syntax_cabac.py:719-742), a stream no decoder
+            # reads; copied for byte parity (ROADMAP Queue 3)
             self._write_intra_mb(addr)
             return
         skipped = bool(pic.skip[addr])

@@ -32,6 +32,9 @@ sites (an I_PCM MB keeps the Python path, by a check) and is counted in
              arithmetic decoder under cabac)
   yuv422     CAVLC I / P slices of 4:2:2 pictures, which the Python
              MBParser parses (as in jm_tpu; the C parser is 4:2:0): parse
+  sp         SP slices, whose MB layer is a P slice's and takes the P
+             slice's route (counted there too): serialize (encoder/syntax
+             .serialize_slice, serialize_slice_dp) / parse (MBParser)
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ routes = {"serialize": {"native": 0, "python": 0},
           "cabac": {"native": 0, "python": 0},
           "dp": {"serialize": 0, "parse": 0},
           "b": {"serialize": 0, "parse": 0},
-          "yuv422": {"parse": 0}}
+          "yuv422": {"parse": 0},
+          "sp": {"serialize": 0, "parse": 0}}
 build_seconds = None        # wall time of load()'s build + import, once
 _mod = None
 
@@ -92,7 +96,9 @@ def build(build_dir=BUILD_DIR, cxx: str = "g++") -> Path:
             return out
         fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=build_dir)
         os.close(fd)
+        # no FP contraction: sp_levels sums its double costs as Python
         cmd = [cxx, "-O2", "-shared", "-fPIC", "-std=c++17",
+               "-ffp-contract=off",
                f"-I{sysconfig.get_paths()['include']}", *map(str, srcs),
                "-o", tmp]
         try:

@@ -24,7 +24,9 @@
  *     host coders' motion compensation of each 4x4 block;
  *   - quad_sad: an MB's four 8x8 quadrant SADs at one integer
  *     displacement (twin of the EPZS / UMHex searchers' _qsad in
- *     encoder/me_epzs.py).
+ *     encoder/me_epzs.py);
+ *   - sp_levels: the SP pictures' level decision over rows of transform
+ *     coefficients (twin of encoder/residual_np.py sp_quant_coeffs).
  *
  * Normative VLC tables are installed from Python (set_cavlc_tables, from
  * common/cavlc_tables.py) so the port's tables remain the single source
@@ -1253,6 +1255,170 @@ static PyObject *py_int_search(PyObject *self, PyObject *args) {
 }
 
 /* ------------------------------------------------------------------ */
+/* the SP level decision                                                */
+/* ------------------------------------------------------------------ */
+
+/* UVLC lengths of a (level, run) pair: lencod vlc.c levrun_linfo_inter
+ * (kind 0) and levrun_linfo_c2x2 (kind 1); twins of
+ * encoder/residual_np.py levrun_len_inter / levrun_len_c2x2 */
+static const int LEVRUN_INTER[16] = {4, 2, 2, 1, 1, 1, 1, 1, 1, 1,
+                                     0, 0, 0, 0, 0, 0};
+static const int NTAB_INTER[4][10] = {{1, 3, 5, 9, 11, 13, 21, 23, 25, 27},
+                                      {7, 17, 19, 0, 0, 0, 0, 0, 0, 0},
+                                      {15, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+                                      {29, 0, 0, 0, 0, 0, 0, 0, 0, 0}};
+static const int LEVRUN_C2[4] = {2, 1, 0, 0};
+static const int NTAB_C2[2][2] = {{1, 5}, {3, 0}};
+
+static int uvlc_len(long long n) {
+    long long nn = n >> 1;
+    int i = 0;
+    while (nn) {
+        nn >>= 1;
+        i++;
+    }
+    return 2 * i + 1;
+}
+
+static int levrun_len(long long level, int run, int kind) {
+    long long la = level < 0 ? -level : level, n;
+    if (kind == 0) {
+        if (la <= LEVRUN_INTER[run]) n = NTAB_INTER[la - 1][run] + 1;
+        else n = (la - LEVRUN_INTER[run]) * 32 + run * 2;
+    } else {
+        if (la <= LEVRUN_C2[run]) n = NTAB_C2[la - 1][run] + 1;
+        else n = (la - LEVRUN_C2[run]) * 8 + run * 2;
+    }
+    return uvlc_len(n);
+}
+
+static inline long long isignab(long long a, long long b) {
+    long long m = a < 0 ? -a : a;
+    return b < 0 ? -m : m;
+}
+
+/* sp_levels(X, P, out, (qp, qs, shift, kind), lam, A, pos, scales): the
+ * SP level decision of encoder/residual_np.py sp_quant_coeffs on every
+ * row of X / P ((K, n) int64, C-contiguous: the source's and the
+ * prediction's transform in scan order), each row from run -1, into out
+ * ((K, n) int64). A / pos: (n,) int64, each scan position's A factor and
+ * raster index into scales ((3, 16) int64: the quant scale at QS % 6,
+ * the quant and the dequant scale at QP % 6); shift 6 (4x4) or 5
+ * (chroma DC, whose quant shifts one more); kind 0 or 1, the rate of
+ * levrun_len_inter or levrun_len_c2x2. The costs d * d + lam * rate are
+ * doubles summed as Python sums them (the build has no FP contraction). */
+static PyObject *py_sp_levels(PyObject *self, PyObject *args) {
+    PyObject *objs[6];
+    int qp, qs, shift, kind;
+    double lam;
+    if (!PyArg_ParseTuple(args, "OOO(iiii)dOOO", &objs[0], &objs[1],
+                          &objs[2], &qp, &qs, &shift, &kind, &lam, &objs[3],
+                          &objs[4], &objs[5]))
+        return NULL;
+    Py_buffer v[6];
+    int got = 0, ok = 1;
+    for (; got < 6; got++) {
+        int flags = PyBUF_C_CONTIGUOUS | PyBUF_FORMAT
+                    | (got == 2 ? PyBUF_WRITABLE : 0);
+        if (PyObject_GetBuffer(objs[got], &v[got], flags) < 0) {
+            ok = 0;
+            break;
+        }
+    }
+    Py_ssize_t n = 0, rows = 0;
+    if (ok) {
+        for (int i = 0; i < 6; i++) {
+            char f = v[i].format[strlen(v[i].format) - 1];
+            ok &= v[i].itemsize == 8 && (f == 'l' || f == 'q');
+        }
+        n = v[3].len / 8;
+        ok &= n >= 1 && n <= 16 && v[4].len == v[3].len
+              && v[0].len % (8 * n) == 0 && v[1].len == v[0].len
+              && v[2].len == v[0].len && v[5].len == 3 * 16 * 8
+              && qp >= 0 && qp <= 51 && qs >= 0 && qs <= 51
+              && (shift == 5 || shift == 6) && (kind == 0 || kind == 1)
+              && (kind == 0 ? n <= 16 : n <= 4);
+        rows = ok ? v[0].len / (8 * n) : 0;
+        const int64_t *pos = (const int64_t *)v[4].buf;
+        for (Py_ssize_t k = 0; ok && k < n; k++) ok &= pos[k] >= 0
+                                                       && pos[k] < 16;
+        if (!ok)
+            PyErr_SetString(PyExc_ValueError, "sp_levels: expected int64 "
+                            "(K, n) X / P / out, (n,) A and pos (n <= 16), "
+                            "(3, 16) scales, QP / QS 0..51, shift 5 or 6, "
+                            "kind 0 or 1");
+    }
+    if (ok) {
+        const int64_t *X = (const int64_t *)v[0].buf;
+        const int64_t *P = (const int64_t *)v[1].buf;
+        int64_t *out = (int64_t *)v[2].buf;
+        const int64_t *A = (const int64_t *)v[3].buf;
+        const int64_t *pos = (const int64_t *)v[4].buf;
+        const int64_t *sc = (const int64_t *)v[5].buf;
+        const int qp_per = qp / 6, qs_per = qs / 6;
+        const int extra = shift == 5 ? 1 : 0;
+        const int q_bits = 15 + qp_per + extra;
+        const int q_bits_sp = 15 + qs_per + extra;
+        const long long qp_const = extra
+            ? 2 * ((1LL << (q_bits - 1)) / 6) : (1LL << q_bits) / 6;
+        const long long qp_const2 = extra
+            ? 2 * ((1LL << (q_bits_sp - 1)) >> 1) : (1LL << q_bits_sp) >> 1;
+        const long long per_mul = 1LL << qp_per;
+        for (Py_ssize_t r = 0; r < rows; r++) {
+            int run = -1;
+            for (Py_ssize_t k = 0; k < n; k++) {
+                run++;
+                const long long x = X[r * n + k], p = P[r * n + k];
+                const long long qs_k = sc[pos[k]], qp_k = sc[16 + pos[k]];
+                const long long dp_k = sc[32 + pos[k]], a_k = A[k];
+                const long long l1p = ((p < 0 ? -p : p) * qs_k + qp_const2)
+                                      >> q_bits_sp;
+                const long long l1d = (l1p << q_bits_sp) / qs_k;
+                const long long c_err1 = x - isignab(l1d, p);
+                const long long l1 = ((c_err1 < 0 ? -c_err1 : c_err1) * qp_k
+                                      + qp_const) >> q_bits;
+                const long long c_err2 = x - p;
+                const long long l2 = ((c_err2 < 0 ? -c_err2 : c_err2) * qp_k
+                                      + qp_const) >> q_bits;
+                long long level, c_err;
+                if (l1 != l2 && l1 != 0 && l2 != 0) {
+                    const long long d1 = x - ((isignab(l1, c_err1) * dp_k
+                                               * a_k * per_mul) >> shift) - p;
+                    const long long d2 = x - ((isignab(l2, c_err2) * dp_k
+                                               * a_k * per_mul) >> shift) - p;
+                    const double D1 = (double)(d1 * d1)
+                                      + lam * (double)levrun_len(l1, run, kind);
+                    const double D2 = (double)(d2 * d2)
+                                      + lam * (double)levrun_len(l2, run, kind);
+                    if (D1 == D2) {
+                        if (l1 < l2) { level = l1; c_err = c_err1; }
+                        else { level = l2; c_err = c_err2; }
+                    } else if (D1 < D2) {
+                        level = l1; c_err = c_err1;
+                    } else {
+                        level = l2; c_err = c_err2;
+                    }
+                } else if (l1 == l2) {
+                    level = l1; c_err = c_err1;
+                } else if (l1 == 0) {
+                    level = l1; c_err = c_err1;
+                } else {
+                    level = l2; c_err = c_err2;
+                }
+                out[r * n + k] = 0;
+                if (level != 0) {
+                    out[r * n + k] = isignab(level, c_err);
+                    run = -1;
+                }
+            }
+        }
+    }
+    for (int i = 0; i < got; i++) PyBuffer_Release(&v[i]);
+    if (!ok) return NULL;
+    Py_RETURN_NONE;
+}
+
+/* ------------------------------------------------------------------ */
 /* registration                                                        */
 /* ------------------------------------------------------------------ */
 
@@ -1271,6 +1437,8 @@ static PyMethodDef enc_methods[] = {
      "one block's quarter-pel luma and eighth-pel chroma predictions"},
     {"quad_sad", py_quad_sad, METH_VARARGS,
      "an MB's four quadrant SADs at one integer displacement"},
+    {"sp_levels", py_sp_levels, METH_VARARGS,
+     "the SP level decision of rows of transform coefficients"},
     {NULL, NULL, 0, NULL},
 };
 

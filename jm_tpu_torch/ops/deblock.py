@@ -58,7 +58,8 @@ def n_waves(mb_w: int, mb_h: int) -> int:
 # ---------------------------------------------------------------------------
 
 def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
-               ref_pic_id_l1, mb_w: int, mb_h: int, field: bool = False):
+               ref_pic_id_l1, mb_w: int, mb_h: int, field: bool = False,
+               sp_slice=None):
     """Boundary strengths (spec 8.7.2.1) of a frame picture, or with
     field of a field picture: its vertical MV components differ from 2
     quarter samples up (half the vertical resolution, ldecod
@@ -68,8 +69,12 @@ def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
 
     mb_class (N,) (0 inter, else intra); luma_nnz (N, 16) raster 4x4
     counts; transform8x8 (N,); mv / mv_l1 (N, 16, 2) quarter-pel;
-    ref_pic_id / ref_pic_id_l1 (N, 4) per-8x8 picture ids (-1 none).
-    Returns (bs_v, bs_h), each (4 mb_h, 4 mb_w) int8: bs_v[y, x] is the
+    ref_pic_id / ref_pic_id_l1 (N, 4) per-8x8 picture ids (-1 none);
+    sp_slice None or (N,) bool, the MBs of SP slices: every edge whose q
+    side lies in one takes bS 4 on an MB edge (3 on a field's horizontal
+    one) and 3 inside the MB, the picture's border staying 0 (spec
+    8.7.2.1; jm_tpu ops/deblock.py:108-122, ldecod
+    loop_filter_normal.c:100, :230). Returns (bs_v, bs_h), each (4 mb_h, 4 mb_w) int8: bs_v[y, x] is the
     strength of the vertical edge left of 4x4 block (y, x), bs_h of the
     horizontal edge above it (column/row 0 stays 0)."""
     H, W = 4 * mb_h, 4 * mb_w
@@ -129,9 +134,19 @@ def compute_bs(mb_class, luma_nnz, transform8x8, mv, mv_l1, ref_pic_id,
     is_mb_h = torch.zeros((H - 1, W), dtype=torch.bool, device=dev)
     is_mb_h[3::4, :] = True
     bs_h = torch.zeros((H, W), dtype=torch.int8, device=dev)
+    hor_mb_bs = 3 if field else 4
     bs_h[1:, :] = edge_bs(tuple(a[:-1] for a in fields),
-                          tuple(a[1:] for a in fields), is_mb_h,
-                          3 if field else 4)
+                          tuple(a[1:] for a in fields), is_mb_h, hor_mb_bs)
+    if sp_slice is not None:
+        spq = sp_slice.to(torch.bool).reshape(mb_h, mb_w) \
+            .repeat_interleave(4, 0).repeat_interleave(4, 1)
+        mb_col = (torch.arange(W, device=dev) % 4 == 0)[None, :]
+        mb_row = (torch.arange(H, device=dev) % 4 == 0)[:, None]
+        three = torch.full_like(bs_v, 3)
+        bs_v = torch.where(spq, torch.where(mb_col, 4, three), bs_v)
+        bs_h = torch.where(spq, torch.where(mb_row, hor_mb_bs, three), bs_h)
+        bs_v[:, 0] = 0
+        bs_h[0, :] = 0
     return bs_v, bs_h
 
 

@@ -34,7 +34,9 @@ host, run here too: the residual scaling at QP' = QP + QpBdOffset over
 88-row tables (int64 above 8 bits, as jm_tpu's numpy decode), the
 transform bypass of the lossless mask, weights with offsets scaled to
 the bit depth and clips at (1 << bd) - 1, planes of
-ops/consts.plane_dtype (int16 above 8 bits).
+ops/consts.plane_dtype (int16 above 8 bits). ``sp_recon`` reconstructs
+the inter MBs of SP slices (spec 8.6.1) from their prediction and
+levels, which jm_tpu does on the host.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..common.tables import SCAN_YUV422, ZIGZAG_8x8, scan_4x4
+from ..common.tables import (DEQUANT_SCALE_4x4, QUANT_SCALE_4x4,
+                             SCAN_YUV422, ZIGZAG_8x8, chroma_qp, scan_4x4)
 from . import quant as Q
 from . import transform as T
 from .consts import PAD, QPEL_TAB, on, plane_dtype
@@ -51,6 +54,13 @@ I32 = torch.int32
 _ZZ8 = np.asarray(ZIGZAG_8x8, np.int64)
 # the 4x4 scans by field (spec 8.5.6), kept so that consts.on caches them
 _SCAN4 = {f: np.asarray(scan_4x4(f), np.int64) for f in (False, True)}
+# SP requantization: the A factors (ldecod quant.h:151, spec 8-425), the
+# (de)quant scales by QP % 6 and the QP -> QPc map without a PPS offset
+_SP_A = np.array([[16, 20, 16, 20], [20, 25, 20, 25],
+                  [16, 20, 16, 20], [20, 25, 20, 25]], np.int64)
+_SP_Q = np.asarray(QUANT_SCALE_4x4, np.int64)
+_SP_D = np.asarray(DEQUANT_SCALE_4x4, np.int64)
+_SP_QPC = np.array([chroma_qp(q, 0) for q in range(52)], np.int64)
 
 
 def p_dec_residuals(luma_coef, chroma_dc, chroma_coef, qp, tabY, tabU, tabV,
@@ -360,3 +370,109 @@ def inter_recon_b(mv, mv_l1, ref_idx, ref_idx_l1, pdir, res_l, res_c,
                         torch.where(chrom == 2, (c0 + c1 + 1) >> 1, c0))
     return _recon(pred, cpred, res_l, res_c, inter_mask, mb_w=mb_w,
                   mb_h=mb_h, bd=bd)
+
+
+
+
+def _rnd(x, b):
+    """Rounded right shift (x + 2^(b-1)) >> b by a tensor of shifts b."""
+    return (x + (torch.ones_like(b) << (b - 1))) >> b
+
+
+def _sp_requant(PB, lev, qp_per, qs_per, switch, Q, Dqp, Dqs):
+    """The SP requantization of 4x4 transforms (spec 8.6.1; jm_tpu
+    decoder/recon.py _sp_luma, ldecod block.c itrans_sp): PB the
+    transformed prediction, lev the levels in raster order; qp_per /
+    qs_per QP / 6 and QS / 6, switch sp_for_switch_flag, Q the quant
+    scale at QS, Dqp / Dqs the dequant scales at QP / QS, all broadcast
+    to PB. With switch the prediction alone is quantized at QS and the
+    levels added; else the prediction plus the levels dequantized at QP
+    (times A) is. Returns (the level at QS * Dqs) << qs_per, int64."""
+    qbits = 15 + qs_per
+    A = on(_SP_A, PB.device)
+    il_sw = torch.sign(PB) * _rnd(torch.abs(PB) * Q, qbits) + lev
+    base = PB + (((lev * Dqp * A) << qp_per) >> 6)
+    il = torch.sign(base) * _rnd(torch.abs(base) * Q, qbits)
+    return (torch.where(switch, il_sw, il) * Dqs) << qs_per
+
+
+def sp_recon(Y, U, V, idx, luma_coef, chroma_dc, chroma_coef, qp, qs,
+             switch, *, mb_w: int):
+    """The reconstruction of the inter MBs of SP slices (spec 8.6.1), the
+    arithmetic of jm_tpu/decoder/recon.py _sp_luma / _sp_chroma (ldecod
+    block.c itrans_sp, itrans_sp_cr), batched over the MBs idx (K,)
+    int64 of a 4:2:0 8-bit picture. Y, U, V hold the MBs' prediction
+    (the inter recon without a residual), which is replaced, in place,
+    by: the forward 4x4 of the prediction, requantized at QS with the
+    levels (_sp_requant), the chroma DC through the 2x2 Hadamard of the
+    prediction's DCs, at the chroma QP of QP and QS without the PPS
+    offset (jm_tpu recon.py:726-727), then the inverse transform, the
+    rounding and the clip. luma_coef (N, 16, 16), chroma_dc (N, 2, 4),
+    chroma_coef (N, 2, 4, 16): the levels as parsed (scan order); qp /
+    qs (N,) int; switch (N,) bool. In int64: level * V * A << QP / 6
+    overflows int32. Returns (Y, U, V)."""
+    dev, i64 = Y.device, torch.int64
+    k = idx.numel()
+    my, mx = idx // mb_w, idx % mb_w
+    zz = on(_SCAN4[False], dev)
+    tq, td = on(_SP_Q, dev), on(_SP_D, dev)
+    qpv, qsv = qp[idx].to(i64), qs[idx].to(i64)
+    sw = switch[idx].to(torch.bool)
+    b5 = (slice(None),) + (None,) * 4
+
+    def raster(coef, nb):
+        lev = torch.zeros((k, nb, 16), dtype=i64, device=dev)
+        lev[..., zz] = coef.to(i64)
+        s = 4 if nb == 16 else 2
+        return lev.reshape(k, s, s, 4, 4)         # (K, by, bx, 4, 4)
+
+    def mbs(plane, size):
+        # the MBs of plane as a (mb_h, mb_w, size, size) view
+        return plane.view(-1, size, mb_w, size).permute(0, 2, 1, 3)
+
+    def pred_t(plane, size):
+        # the forward transform of the MBs' 4x4 blocks (K, by, bx, 4, 4)
+        s = size // 4
+        p = mbs(plane, size)[my, mx].to(i64).reshape(k, s, 4, s, 4)
+        return T.forward4x4(p.permute(0, 1, 3, 2, 4), i64)
+
+    def write(plane, size, cof):
+        rec = torch.clamp((T.inverse4x4(cof, i64) + 32) >> 6, 0, 255)
+        mbs(plane, size)[my, mx] = rec.permute(0, 1, 3, 2, 4) \
+            .reshape(k, size, size).to(plane.dtype)
+
+    PB = pred_t(Y, 16)
+    cof = _sp_requant(PB, raster(luma_coef[idx], 16), (qpv // 6)[b5],
+                      (qsv // 6)[b5], sw[b5], tq[qsv % 6][:, None, None],
+                      td[qpv % 6][:, None, None], td[qsv % 6][:, None, None])
+    write(Y, 16, cof)
+
+    qpc = on(_SP_QPC, dev)[qpv]
+    qsc = on(_SP_QPC, dev)[qsv]
+    Q, Dp, Ds = tq[qsc % 6], td[qpc % 6], td[qsc % 6]      # (K, 4, 4)
+    qb1 = (16 + qsc // 6)[:, None]
+    for comp, plane in ((0, U), (1, V)):
+        PB = pred_t(plane, 8)
+        a, b = PB[:, 0, 0, 0, 0], PB[:, 1, 0, 0, 0]
+        c, d = PB[:, 0, 1, 0, 0], PB[:, 1, 1, 0, 0]
+        mp1 = torch.stack([a + b + c + d, a - b + c - d, a + b - c - d,
+                           a - b - c + d], dim=1)          # (K, 4)
+        dcl = chroma_dc[idx, comp].to(i64)
+        q00 = Q[:, 0, 0, None]
+        il_sw = torch.sign(mp1) * _rnd(torch.abs(mp1) * q00, qb1) + dcl
+        bdc = mp1 + (((dcl * Dp[:, 0, 0, None] * 16)
+                      << (qpc // 6)[:, None]) >> 5)
+        il = torch.sign(bdc) * _rnd(torch.abs(bdc) * q00, qb1)
+        m = (torch.where(sw[:, None], il_sw, il) * Ds[:, 0, 0, None]) \
+            << (qsc // 6)[:, None]
+        cof = _sp_requant(PB, raster(chroma_coef[idx, comp], 4),
+                          (qpc // 6)[b5], (qsc // 6)[b5], sw[b5],
+                          Q[:, None, None], Dp[:, None, None],
+                          Ds[:, None, None])
+        m0, m1, m2, m3 = m.unbind(1)
+        cof[:, 0, 0, 0, 0] = (m0 + m1 + m2 + m3) >> 1
+        cof[:, 0, 1, 0, 0] = (m0 + m1 - m2 - m3) >> 1
+        cof[:, 1, 0, 0, 0] = (m0 - m1 + m2 - m3) >> 1
+        cof[:, 1, 1, 0, 0] = (m0 - m1 - m2 + m3) >> 1
+        write(plane, 8, cof)
+    return Y, U, V

@@ -30,9 +30,9 @@ def _fwd4_1d(d0, d1, d2, d3):
     return p0 + p1, 2 * m0 + m1, p0 - p1, m0 - 2 * m1
 
 
-def forward4x4(x: torch.Tensor) -> torch.Tensor:
-    """Forward 4x4 core transform W = Cf X Cf^T (no scaling); int32."""
-    x = x.to(torch.int32)
+def forward4x4(x: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+    """Forward 4x4 core transform W = Cf X Cf^T (no scaling), in dtype."""
+    x = x.to(dtype)
     t = torch.stack(_fwd4_1d(*_rows(x)), dim=-2)          # vertical pass
     return torch.stack(_fwd4_1d(*_cols(t)), dim=-1)       # horizontal
 
@@ -46,9 +46,10 @@ def _inv4_1d(d0, d1, d2, d3):
     return e0 + e3, e1 + e2, e1 - e2, e0 - e3
 
 
-def inverse4x4(x: torch.Tensor) -> torch.Tensor:
-    """Inverse 4x4 core transform WITHOUT the final (r+32)>>6 rounding."""
-    x = x.to(torch.int32)
+def inverse4x4(x: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+    """Inverse 4x4 core transform WITHOUT the final (r+32)>>6 rounding, in
+    dtype."""
+    x = x.to(dtype)
     t = torch.stack(_inv4_1d(*_cols(x)), dim=-1)          # horizontal
     return torch.stack(_inv4_1d(*_rows(t)), dim=-2)       # vertical
 

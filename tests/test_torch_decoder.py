@@ -16,8 +16,10 @@ byte for byte (the codec is integer-exact: the tolerance is zero):
 - the port's own encoder streams, CAVLC and CABAC;
 - jm_tpu's parse through convert.picture_from_numpy and the port's
   reconstruction and deblock;
-- out-of-scope streams raise NotImplementedError naming the construct,
-  and a CUDA request without a card raises."""
+- out-of-scope streams raise NotImplementedError naming the construct, a
+  picture with uncoded MBs ValueError (strict mode, as in jm_tpu), and a
+  CUDA request without a card raises. The SP goldens are held in
+  tests/test_torch_sp_decode.py."""
 
 import dataclasses
 from pathlib import Path
@@ -231,10 +233,8 @@ def test_picture_from_numpy_through_port_recon():
 
 
 @pytest.mark.parametrize("name,construct", [
-    ("cif_sp", "SP"),
     ("mbaff1", "MBAFF"),
     ("cif_paff_adaptive", "adaptive PAFF"),
-    ("sp1", "SP slices"),
     ("stereo_jm", "MVC"),
 ])
 def test_out_of_scope_raises(name, construct):
@@ -262,15 +262,18 @@ def test_constrained_intra_pred_raises():
 
 
 def test_missing_slice_raises():
-    """A picture whose MBs are not all coded needs concealment."""
+    """A picture whose MBs are not all coded raises ValueError without
+    concealment (conceal_mode 0), as jm_tpu's decoder does."""
     frames = make_frames(96, 80, 1)
     enc = JEncoder(JEncoderConfig(width=96, height=80, qp=30, slice_mode=1,
                                   slice_argument=10))
     units = enc.encode_frame(*frames[0]).split(b"\x00\x00\x00\x01")
     # drop the picture's last slice NAL unit
     data = b"".join(b"\x00\x00\x00\x01" + u for u in units[1:-1])
-    with pytest.raises(NotImplementedError, match="missing slices"):
+    with pytest.raises(ValueError, match="slice data missing"):
         H264Decoder(device="cpu").decode_annexb(data)
+    with pytest.raises(ValueError, match="slice data missing"):
+        jm_decoder.H264Decoder().decode_annexb(data)
 
 
 def test_cuda_request_without_card_raises(monkeypatch):

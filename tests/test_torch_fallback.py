@@ -73,3 +73,28 @@ def test_resilience_case_on_the_pipe(case):
     jm_tpu's pipe writes none. Their encode_frame route is in
     tests/test_torch_resilience.py."""
     R.check_all(R.CASES[case], "stream")
+
+
+# SP pictures on the device route: the P pictures coded on the device,
+# the SP picture by the host P coder, as in jm_tpu (after
+# test_intra_mb_refresh_matches has compiled jm_tpu's device step here)
+_SP_RUN = []
+
+
+def _sp_run():
+    if not _SP_RUN:
+        _SP_RUN.append(S.option_run(
+            dict(sp_periodicity=2, qp_sp=30, qp_sp2=32, device_rd=RD),
+            S.make_frames(S.W, S.H, 3, seed=4), pipeline="device",
+            stream=True))
+    return _SP_RUN[0]
+
+
+def test_sp_on_the_device_route_matches():
+    S.check_byte_identical(_sp_run())
+    assert [bool(r.get("sp")) for r in _sp_run()[3].results] == \
+        [False, False, True]
+
+
+def test_sp_on_the_device_route_decodes():
+    S.check_decodes(_sp_run())
