@@ -348,11 +348,35 @@ Phases (any failure raises and exits non-zero):
      decode of the same bytes (a worker's) with the same
      concealed_count, one launch each of K1 and K2 per reconstructed
      picture (none for a frame concealed whole), frames/s and the
-     concealment's ms.
-The wall seconds of each group of phases are printed after phase 48.
-The CPU references of phases 4-48 (the encodes on the CPU, the CPU
+     concealment's ms;
+ 49. MVC stereo at 1080p (num_views 2 on phase 3's device route: view 0
+     the device I frame and device P, every view-1 picture the host P
+     coder, as in jm_tpu): the sequence's first MVC_FRAMES frames as view
+     0 and the same frames shifted MVC_SHIFT luma columns as view 1, an
+     anchor access unit (view 1 from view 0 alone) and a non-anchor one
+     (view 0, then view 1's reference, behind the inter-view command);
+     one launch each of K1 and K2 per picture of each view; each access
+     unit's ms and bytes, each view-1 picture's ms and ms per MB, the NAL
+     20 bytes against the NAL 1 / 5 bytes; the payloads and the recon of
+     both views equal the CPU run (a worker's); the stream decoded on the
+     card: each view equal to its recon, one launch each of K1 and K2 per
+     picture, frames/s per view;
+ 50. CIF stereo streams of the top-left 352x288 (MVC_CIF): (a) IPPP, 6
+     frames, intra_period 3 (two anchors); (b) num_b 1, CABAC, num_ref 2,
+     view1_qp_offset 2, 5 frames (view-1 B pictures); each as phase 49;
+ 51. JM lencod's stereo golden stereo_jm.264 decoded on the card, each
+     view's sha256 equal to JM's recon; the port's lencod
+     (jm_tpu_torch.tools.lencod.main) on a CIF stereo cfg of
+     MVC_TOOLS_FRAMES frames with a View1ConfigFile, then ldecod on its
+     stream, on the card: the stream, the recon (view 0; lencod writes
+     no view-1 recon, as jm_tpu's) and the decoded YUV (both views in
+     one file, sorted by POC) equal the same run on the CPU (a
+     worker's), one launch each of K1 and K2 per picture in each.
+The wall seconds of each group of phases are printed after phase 51.
+The CPU references of phases 4-51 (the encodes on the CPU, the CPU
 decodes of the lossy streams, of the DP goldens, cif_main, the weighted,
-High, motion-option, RD, 4:2:2, field and SP streams) run in
+High, motion-option, RD, 4:2:2, field, SP and stereo streams, the
+lencod / ldecod run) run in
 CPU_WORKERS worker processes, started before the kernel build and
 stopped before the closing lines, while the card works through the
 phases, queued in the order of the phase that checks each; one more
@@ -372,13 +396,13 @@ their serialization is native); the >8-bit pictures of phase 41 take
 the Python intra recon (the native one is 8-bit).
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-48 alone, ``--from 22`` phases 22-48, ``--from 25`` phases 25-48,
-``--from 28`` phases 28-48, ``--from 31`` phases 31-48, ``--from 34``
-phases 34-48, ``--from 37`` phases 37-48, ``--from 40`` phases 40-48
+18-51 alone, ``--from 22`` phases 22-51, ``--from 25`` phases 25-51,
+``--from 28`` phases 28-51, ``--from 31`` phases 31-51, ``--from 34``
+phases 34-51, ``--from 37`` phases 37-51, ``--from 40`` phases 40-51
 (after encoding phase 3's first HBD_FRAMES pictures and phase 38's
-CIF stream (a) on the card), ``--from 43`` phases 43-48, ``--from 46``
-phases 46-48 (after encoding phase 3's first CONCEAL_1080P pictures),
-without the
+CIF stream (a) on the card), ``--from 43`` phases 43-51, ``--from 46``
+phases 46-51 (after encoding phase 3's first CONCEAL_1080P pictures),
+``--from 49`` phases 49-51, without the
 closing JSON lines (a quicker
 check of those phases while they are developed). The
 last line of
@@ -390,9 +414,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1519,10 +1545,11 @@ def golden_bytes(name: str) -> bytes:
         return f.read()
 
 
-def start_cpu_references(pool, frames, first: int) -> dict:
+def start_cpu_references(pool, frames, first: int, tools_dir: str) -> dict:
     """Submit the CPU references of phases first..44 (4, 18, 22, 25, 28,
-    31, 34, 37, 40, 43 or 46; with first 40 or later those of phases
-    47-48 too, else sp_cpu_jobs after phase 39) to the worker pool in the order of the phase that
+    31, 34, 37, 40, 43, 46 or 49; with first 40 or later those of phases
+    47-51 too, else sp_cpu_jobs and mvc_cpu_jobs after phase 39; tools_dir:
+    phase 51's directory) to the worker pool in the order of the phase that
     checks each (phases 8-9's after phase 14), so that the pool finishes
     each before the card needs it (PR 15 runs 2-3, with the long 1080p
     host encodes of phases 28 and 34 first, waited 24.2 / 44.9 s for phase
@@ -1585,8 +1612,10 @@ def start_cpu_references(pool, frames, first: int) -> dict:
     jobs.sort(key=lambda j: j[0])
     refs = {name: pool.apply_async(fn, args, callback=_arrived(name))
             for _, name, fn, args in jobs}
-    if first >= 40:
+    if 40 <= first <= 46:
         refs.update(sp_cpu_jobs(pool, frames))
+    if first >= 40:
+        refs.update(mvc_cpu_jobs(pool, frames, tools_dir))
     return refs
 
 
@@ -4333,6 +4362,301 @@ def conceal_phase(payloads, cif_frames, cpu_refs, job_1080p) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 49-51: MVC stereo (two views) and the lencod / ldecod entry points
+# ---------------------------------------------------------------------------
+
+MVC_SHIFT = 8             # view 1: the frames shifted 8 luma / 4 chroma columns
+MVC_FRAMES = 2            # phase 49's 1080p access units: the anchor and one
+                          # non-anchor P (both view-1 list forms)
+# phase 50's CIF stereo streams: (label, frames, EncoderConfig keywords)
+MVC_CIF = (("a", 6, dict(intra_period=3)),
+           ("b", 5, dict(num_b=1, entropy="cabac", num_ref=2,
+                         view1_qp_offset=2)))
+MVC_TOOLS_FRAMES = 3      # phase 51's lencod run (CIF, two views)
+# sha256 of JM lencod's recon of each view of tests/golden/stereo_jm.264
+# (tests/test_mvc.py records them)
+STEREO_JM_SHA256 = (
+    "926b27db8b24cef65eb908831cdbaa65897d7f7642b0f000d12a0bfd6b524780",
+    "93415fed2650ed80a41030a74f54b67c0a3d15cf2cad7f5cf4061d9d3c3759f7")
+
+
+def view1_of(frames):
+    """The dependent view: each frame shifted MVC_SHIFT luma columns."""
+    k = MVC_SHIFT
+    return [(np.roll(Y, -k, axis=1), np.roll(U, -k // 2, axis=1),
+             np.roll(V, -k // 2, axis=1)) for Y, U, V in frames]
+
+
+def mvc_cfg():
+    """Phase 49's configuration: phase 3's device route with two views
+    (view 0 takes the device I frame and device P; every view-1 picture
+    the host P coder)."""
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=True, num_views=2)
+
+
+def mvc_cif_cfg(kw):
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         device_rd=True, num_views=2, **kw)
+
+
+def mvc_encode(enc, frames) -> list:
+    """frames (view 0) and view1_of(frames) through encode_frame, flush's
+    bytes added to the last call's: the payload of each call."""
+    out = [enc.encode_frame(*f, view1=g)
+           for f, g in zip(frames, view1_of(frames))]
+    out[-1] += enc.flush()
+    return out
+
+
+def _recon(results) -> list:
+    return [(r["frame"].Y, r["frame"].U, r["frame"].V) for r in results]
+
+
+def cpu_mvc(cfg, frames):
+    """Phases 49-50's CPU reference: (payloads, each view-0 picture's
+    recon, each view-1 picture's recon), coding order."""
+    enc = Encoder(cfg, device="cpu")
+    payloads = mvc_encode(enc, frames)
+    return payloads, _recon(enc.results), _recon(enc.results_v1)
+
+
+def tools_sources(d: str, frames) -> str:
+    """Phase 51's inputs in directory d: the two views' YUV files, the
+    view-1 cfg and the encoder cfg (CIF, MVC_TOOLS_FRAMES frames, two
+    views); returns the encoder cfg's path."""
+    left = cif(frames, MVC_TOOLS_FRAMES)
+    h, w = left[0][0].shape
+    for name, fr in (("left.yuv", left), ("right.yuv", view1_of(left))):
+        with open(os.path.join(d, name), "wb") as fh:
+            for f in fr:
+                fh.write(b"".join(np.ascontiguousarray(p).tobytes()
+                                  for p in f))
+    with open(os.path.join(d, "view1.cfg"), "w") as fh:
+        fh.write(f'InputFile = "{d}/right.yuv"\n'
+                 f'ReconFile = "{d}/rec1.yuv"\n')
+    with open(os.path.join(d, "enc.cfg"), "w") as fh:
+        fh.write(f'''InputFile = "{d}/left.yuv"
+SourceWidth = {w}
+SourceHeight = {h}
+FramesToBeEncoded = {MVC_TOOLS_FRAMES}
+QPISlice = {QP}
+QPPSlice = {QP}
+NumberOfViews = 2
+View1ConfigFile = "{d}/view1.cfg"
+''')
+    return os.path.join(d, "enc.cfg")
+
+
+def run_tools(cfg_path: str, out_dir: str, device: str) -> tuple:
+    """lencod on cfg_path, then ldecod on its stream, writing into
+    out_dir, on device (their reports captured); returns (stream, view-0
+    recon, decoded YUV) bytes, and for lencod and ldecod each its wall
+    seconds and its kernel launches (launch_counts, reset before each)."""
+    import contextlib
+    import io
+    from jm_tpu_torch.tools import ldecod, lencod
+    os.makedirs(out_dir, exist_ok=True)
+    out = {k: os.path.join(out_dir, k) for k in ("out.264", "rec.yuv",
+                                                   "dec.yuv", "stats.dat")}
+    steps = []
+    for main, argv in (
+            (lencod.main, ["-d", cfg_path, "-p",
+                           f"OutputFile={out['out.264']}", "-p",
+                           f"ReconFile={out['rec.yuv']}", "-p",
+                           f"StatsFile={out['stats.dat']}"]),
+            (ldecod.main, ["-i", out["out.264"], "-o", out["dec.yuv"]])):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            main(argv, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, launch_counts()))
+    files = []
+    for k in ("out.264", "rec.yuv", "dec.yuv"):
+        with open(out[k], "rb") as fh:
+            files.append(fh.read())
+    return tuple(files), steps
+
+
+def cpu_tools(cfg_path: str, out_dir: str):
+    """Phase 51's CPU reference: run_tools on the CPU."""
+    return run_tools(cfg_path, out_dir, "cpu")[0]
+
+
+def mvc_cpu_jobs(pool, frames, tools_dir: str) -> dict:
+    """The CPU references of phases 49-51, submitted to the worker pool
+    after the SP ones (a full run: after phase 39); returns their
+    AsyncResults by name."""
+    jobs = [("mvc", cpu_mvc, (mvc_cfg(), frames[:MVC_FRAMES]))]
+    jobs += [(f"mvc_cif_{label}", cpu_mvc, (mvc_cif_cfg(kw), cif(frames, n)))
+             for label, n, kw in MVC_CIF]
+    cfg_path = tools_sources(tools_dir, frames)
+    jobs += [("mvc_tools", cpu_tools,
+              (cfg_path, os.path.join(tools_dir, "cpu")))]
+    return {name: pool.apply_async(fn, args, callback=_arrived(name))
+            for name, fn, args in jobs}
+
+
+def mvc_stream_phase(label: str, cfg, frames, job) -> tuple:
+    """One stereo stream of phases 49-50: frames (view 0) and
+    view1_of(frames) encoded on the card through encode_frame + flush
+    (view 0 on its route, every view-1 picture on the host coders), one
+    launch each of K1 and K2 per picture of each view; each picture's
+    ms and bytes, each view-1 picture's ms per MB, the NAL 20 bytes
+    against the NAL 1 / 5 bytes; the payloads and each view's recon
+    equal the CPU run (job: cpu_mvc's); then the stream decoded on the
+    card: each view's frames equal to its recon, one launch each of K1
+    and K2 per picture, frames/s per view. Returns the launches of the
+    encode and of the decode."""
+    enc = PictureTimedEncoder(cfg, device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    payloads = mvc_encode(enc, frames)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    pics = enc.results + enc.results_v1
+    n_b = sum(r["type"] == "B" for r in pics)
+    cabac = cfg.entropy == "cabac"
+    launches = launch_counts()
+    check_launches(launches, len(pics), f"{label} encode")
+    check_routes(f"{label} encode", serialize=0 if cabac
+                 else len(pics) - n_b, b={"serialize": n_b})
+    n_mbs = enc.mb_w * enc.mb_h
+    print(f"encode {label} ({cfg.width}x{cfg.height}, two views, QP "
+          f"{cfg.qp}, num_b {cfg.num_b}, num_ref {cfg.num_ref}, "
+          f"{cfg.entropy}, view1_qp_offset {cfg.view1_qp_offset}): "
+          f"{len(frames) / total_s:.3f} access units/s, "
+          f"{sum(map(len, payloads))} stream bytes (NAL 20 "
+          f"{nal_bytes(payloads, (20,))} B against NAL 1 / 5 "
+          f"{nal_bytes(payloads, (1, 5))} B), launches {launches}",
+          flush=True)
+    for r, ms in zip(enc.results, enc.picture_ms):
+        print(f"  {label} access unit disp {r['disp']} {r['type']} "
+              f"(both views): {r['bits'] // 8} B, {ms:.1f} ms", flush=True)
+    for r in enc.results_v1:
+        ms = r["seconds"] * 1e3
+        print(f"  {label} view 1 disp {r['disp']} {r['type']}"
+              f"{' (anchor)' if r['anchor'] else ''} QP {r['qp']}: "
+              f"{r['bits'] // 8} B, {ms:.1f} ms = {ms / n_mbs:.3f} ms/MB",
+              flush=True)
+    t0 = time.perf_counter()
+    cpu_payloads, rec0, rec1 = job.get()
+    if cpu_payloads != payloads:
+        raise AssertionError(f"{label}: CPU and CUDA payloads differ")
+    for view, want, results in ((0, rec0, enc.results),
+                                (1, rec1, enc.results_v1)):
+        check_frames([r["frame"] for r in results], want,
+                     f"{label} view {view} recon against the CPU")
+    print(f"cross-check {label}: the CPU's payloads and the recon of both "
+          f"views equal the CUDA run (CPU worker; waited "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    out = dec.decode_annexb(b"".join(payloads))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    dec_launches = launch_counts()
+    check_launches(dec_launches, len(pics), f"decode {label}")
+    recon = sum(p["path"] != "inter" for p in dec.pictures)
+    check_routes(f"decode {label}", **({"cabac": len(pics)} if cabac else
+                                      {"parse": len(pics) - n_b}),
+                 recon=recon, b={"parse": n_b})
+    rates = []
+    for view, results in ((0, enc.results), (1, enc.results_v1)):
+        check_frames([f for f in out if f.view_id == view],
+                     _recon(results), f"decode {label} view {view}")
+        secs = sum(p["seconds"] for p in dec.pictures if p["view"] == view)
+        rates.append(f"view {view} {len(results) / secs:.2f} frames/s")
+    print(f"decode {label} on the card: {len(out)} frames, each view equal "
+          f"to its recon; {len(out) / dt:.3f} frames/s ({', '.join(rates)});"
+          f" " + ", ".join(f"v{p['view']} {p['type']}/{p['path']} "
+                           f"{p['seconds'] * 1e3:.1f} ms" for p in
+                           dec.pictures) + f"; launches {dec_launches}",
+          flush=True)
+    return launches, dec_launches
+
+
+def mvc_golden_phase() -> dict:
+    """Phase 51's golden: JM lencod's stereo_jm.264 (320x240, I / P / B,
+    two views, JM 19.0's subset SPS layout) decoded on the card, each
+    view's frames in POC order hashing to JM's recon (STEREO_JM_SHA256),
+    one launch each of K1 and K2 per picture."""
+    import hashlib
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = dec.decode_annexb(golden_bytes("stereo_jm"))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    gl = launch_counts()
+    check_launches(gl, len(dec.pictures), "decode stereo_jm")
+    for view, want in enumerate(STEREO_JM_SHA256):
+        fr = sorted((f for f in got if f.view_id == view),
+                    key=lambda f: f.poc)
+        sha = hashlib.sha256(b"".join(f.Y.tobytes() + f.U.tobytes()
+                                      + f.V.tobytes() for f in fr))
+        if len(fr) != 3 or sha.hexdigest() != want:
+            raise AssertionError(f"decode stereo_jm view {view}: {len(fr)} "
+                                 f"frames, sha256 {sha.hexdigest()}")
+    print(f"decode stereo_jm.264 on the card: {len(got)} frames, each "
+          f"view's sha256 equal to JM's recon; {len(got) / dt:.3f} "
+          f"frames/s; launches {gl}", flush=True)
+    return {"mvc_golden_decode": gl}
+
+
+def mvc_tools_phase(tools_dir: str, job) -> dict:
+    """Phase 51's entry points: lencod (jm_tpu_torch.tools.lencod.main) on
+    the stereo cfg of tools_sources, then ldecod on its stream, on the
+    card; their stream, recon and decoded YUV equal the same run on the
+    CPU (job: cpu_tools's); lencod writes no view-1 recon; one launch
+    each of K1 and K2 per picture of each view in each."""
+    cfg_path = os.path.join(tools_dir, "enc.cfg")
+    out_dir = os.path.join(tools_dir, "card")
+    (stream, rec, decoded), steps = run_tools(cfg_path, out_dir, DEVICE)
+    for (_s, launches), name in zip(steps, ("lencod", "ldecod")):
+        check_launches(launches, 2 * MVC_TOOLS_FRAMES, name)
+    t0 = time.perf_counter()
+    want = job.get()
+    for name, a, b in zip(("stream", "recon", "decoded YUV"),
+                          (stream, rec, decoded), want):
+        if a != b:
+            raise AssertionError(f"lencod / ldecod: the {name} differs "
+                                 f"from the CPU run")
+    if os.path.exists(os.path.join(tools_dir, "rec1.yuv")):
+        raise AssertionError("lencod wrote the view-1 recon")
+    if len(decoded) != 2 * len(rec):
+        raise AssertionError(f"ldecod wrote {len(decoded)} bytes")
+    print(f"lencod (CIF, two views, {MVC_TOOLS_FRAMES} frames, the host "
+          f"pipeline) {steps[0][0]:.1f} s, {len(stream)} stream bytes, "
+          f"launches {steps[0][1]}; ldecod {steps[1][0]:.2f} s, both views "
+          f"in one file sorted by POC, launches {steps[1][1]}; stream, recon "
+          f"and decoded YUV equal the CPU run (CPU worker; waited "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"mvc_lencod": steps[0][1], "mvc_ldecod": steps[1][1]}
+
+
+def mvc_phases(frames, cpu_refs, tools_dir: str) -> dict:
+    """Phases 49-51; returns the launches of each MVC path by name: mvc,
+    mvc_cif_a, mvc_cif_b, each also with _decode, mvc_golden_decode,
+    mvc_lencod, mvc_ldecod."""
+    out = {}
+    out["mvc"], out["mvc_decode"] = mvc_stream_phase(
+        "MVC 1080p", mvc_cfg(), frames[:MVC_FRAMES], cpu_refs["mvc"])
+    for label, n, kw in MVC_CIF:
+        out[f"mvc_cif_{label}"], out[f"mvc_cif_{label}_decode"] = \
+            mvc_stream_phase(f"MVC CIF ({label})", mvc_cif_cfg(kw),
+                             cif(frames, n), cpu_refs[f"mvc_cif_{label}"])
+    out.update(mvc_golden_phase())
+    out.update(mvc_tools_phase(tools_dir, cpu_refs["mvc_tools"]))
+    return out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -4377,7 +4701,8 @@ def main() -> int:
                                ["--from", "25"], ["--from", "28"],
                                ["--from", "31"], ["--from", "34"],
                                ["--from", "37"], ["--from", "40"],
-                               ["--from", "43"], ["--from", "46"])
+                               ["--from", "43"], ["--from", "46"],
+                               ["--from", "49"])
     first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
     pool = cpu_pool()
@@ -4385,18 +4710,22 @@ def main() -> int:
     # start only once their streams are made (a job of the pool above
     # would queue behind all of its references); idle until then
     hbd_pool = cpu_pool(1)
+    # phase 51's sources, cfg files and the runs' outputs (card, cpu)
+    tools_dir = tempfile.mkdtemp(prefix="chip_smoke_tools_")
     try:
-        refs = start_cpu_references(pool, frames, first)
+        refs = start_cpu_references(pool, frames, first, tools_dir)
         kernels.load()
         print(f"kernel build: {kernels.build_seconds:.1f} s", flush=True)
         clock.lap("1")
         if partial:
-            return partial_run(frames, pool, hbd_pool, refs, first, clock)
-        return full_run(frames, pool, hbd_pool, refs, smi, clock)
+            return partial_run(frames, pool, hbd_pool, refs, first, clock,
+                               tools_dir)
+        return full_run(frames, pool, hbd_pool, refs, smi, clock, tools_dir)
     finally:
         for p in (pool, hbd_pool):
             p.terminate()
             p.join()
+        shutil.rmtree(tools_dir, ignore_errors=True)
 
 
 def hbd_cpu_jobs(hbd_pool, payloads=None, y422_payloads=None) -> dict:
@@ -4416,12 +4745,14 @@ def hbd_cpu_jobs(hbd_pool, payloads=None, y422_payloads=None) -> dict:
     return jobs
 
 
-def partial_run(frames, pool, hbd_pool, refs, first: int, clock) -> int:
-    """Phases first..48 (18, 22, 25, 28, 31, 34, 37, 40, 43 or 46)
+def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
+                tools_dir: str) -> int:
+    """Phases first..51 (18, 22, 25, 28, 31, 34, 37, 40, 43, 46 or 49)
     without the closing JSON lines; refs: their CPU references; clock: the
-    PhaseClock of the run. From 40, phase 3's first HBD_FRAMES pictures
-    and phase 38's CIF stream (a) are encoded on the card first; from 46,
-    phase 3's first CONCEAL_1080P pictures."""
+    PhaseClock of the run; tools_dir: phase 51's directory. From 40,
+    phase 3's first HBD_FRAMES pictures and phase 38's CIF stream (a) are
+    encoded on the card first; from 46, phase 3's first CONCEAL_1080P
+    pictures."""
     if first <= 18:
         later_phases(frames, None, refs)
         clock.lap("18-21")
@@ -4444,6 +4775,7 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock) -> int:
         y422_cif_a = y422_phases(frames, refs, pool,
                                  np.random.default_rng(37))[2]
         refs.update(sp_cpu_jobs(pool, frames))
+        refs.update(mvc_cpu_jobs(pool, frames, tools_dir))
         clock.lap("37-39")
     elif first <= 40:
         y422_cif_a = b_encode(y422_cif_cfg(Y422_CIF[0][2]),
@@ -4457,16 +4789,19 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock) -> int:
     if first <= 43:
         field_phases(frames, refs, np.random.default_rng(43))
         clock.lap("43-45")
-    payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(
-        frames[:CONCEAL_1080P])
-    conceal_job = conceal_cpu_job(hbd_pool, payloads)
-    sp_phases(frames, refs, np.random.default_rng(46))
-    clock.lap("46-47")
-    conceal_phase(payloads, cif(frames, CONCEAL_CIF_FRAMES), refs,
-                  conceal_job)
-    clock.lap("48")
+    if first <= 46:
+        payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(
+            frames[:CONCEAL_1080P])
+        conceal_job = conceal_cpu_job(hbd_pool, payloads)
+        sp_phases(frames, refs, np.random.default_rng(46))
+        clock.lap("46-47")
+        conceal_phase(payloads, cif(frames, CONCEAL_CIF_FRAMES), refs,
+                      conceal_job)
+        clock.lap("48")
+    mvc_phases(frames, refs, tools_dir)
+    clock.lap("49-51")
     clock.report()
-    print(f"phases {first}-48 passed (partial run: no closing lines)")
+    print(f"phases {first}-51 passed (partial run: no closing lines)")
     return 0
 
 
@@ -4506,11 +4841,12 @@ class PhaseClock:
                   flush=True)
 
 
-def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock) -> int:
-    """Phases 2-48 and the closing lines; cpu_refs: the CPU references of
-    phases 4-48; hbd_pool: the worker of phase 41's and phase 48's CPU
-    decodes; clock:
-    the PhaseClock of the run, its first lap the builds."""
+def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
+             tools_dir: str) -> int:
+    """Phases 2-51 and the closing lines; cpu_refs: the CPU references of
+    phases 4-51; hbd_pool: the worker of phase 41's and phase 48's CPU
+    decodes; clock: the PhaseClock of the run, its first lap the builds;
+    tools_dir: phase 51's directory."""
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
     rng = np.random.default_rng(1)
@@ -4692,6 +5028,7 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock) -> int:
     k422, y422, y422_cif_a = y422_phases(frames, cpu_refs, pool, rng)
     hbd_jobs.update(hbd_cpu_jobs(hbd_pool, y422_payloads=y422_cif_a))
     cpu_refs.update(sp_cpu_jobs(pool, frames))
+    cpu_refs.update(mvc_cpu_jobs(pool, frames, tools_dir))
     k422["launches"] = y422["y422"]["deblock_chroma422"]
     kstats["deblock_chroma422"] = k422
     max_err["deblock_chroma422"] = k422["max_err"]
@@ -4739,6 +5076,12 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock) -> int:
     later.update(conceal_phase(payloads, cif(frames, CONCEAL_CIF_FRAMES),
                                cpu_refs, conceal_job))
     clock.lap("48")
+
+    # ---- 49-51. MVC stereo: the 1080p anchor and non-anchor access
+    # units, two CIF stereo streams, their decodes, JM's stereo golden,
+    # lencod and ldecod on a stereo cfg ------------------------------------
+    later.update(mvc_phases(frames, cpu_refs, tools_dir))
+    clock.lap("49-51")
     clock.report()
 
     rows = []

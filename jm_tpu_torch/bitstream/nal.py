@@ -1,5 +1,6 @@
 """NAL unit framing: NAL unit types, Annex-B demux (decoder) and mux
-(encoder), EBSP <-> RBSP emulation prevention (ldecod/src/annexb.c
+(encoder) with the MVC extension header of NAL units 14 / 20 (spec
+H.7.3.1.1), EBSP <-> RBSP emulation prevention (ldecod/src/annexb.c
 get_annex_b_NALU, ldecod/src/nal.c EBSPtoRBSP, lencod/src/nal.c
 RBSPtoEBSP, lencod/src/annexb.c WriteAnnexbNALU). Start codes are
 located with numpy scans over the whole buffer; the emulation-prevention
@@ -42,6 +43,11 @@ class NalUnit:
     nal_ref_idc: int
     nal_unit_type: int
     rbsp: bytes                 # emulation prevention removed, header stripped
+    # MVC extension header fields (nal_unit_type 14/20), None otherwise
+    mvc_ext: dict | None = None
+    # RTP transport: missing sequence numbers right before this unit
+    # (ldecod's nalu->lost_packets); always 0 for Annex-B input
+    lost_before: int = 0
 
 
 def ebsp_to_rbsp(ebsp: bytes) -> bytes:
@@ -67,10 +73,22 @@ def _parse_nal_header(ebsp: bytes) -> NalUnit:
     if hdr & 0x80:
         raise ValueError("forbidden_zero_bit set")
     ntype = hdr & 0x1F
-    # NAL types 14 / 20 carry a 3-byte MVC / SVC extension header
-    body = ebsp[4:] if ntype in (NalUnitType.PREFIX,
-                                 NalUnitType.SLICE_EXT) else ebsp[1:]
-    return NalUnit((hdr >> 5) & 3, ntype, ebsp_to_rbsp(body))
+    mvc_ext = None
+    body = ebsp[1:]
+    if ntype in (NalUnitType.PREFIX, NalUnitType.SLICE_EXT):
+        # 3-byte MVC / SVC extension header (ldecod/src/nalu.c:156)
+        ext = int.from_bytes(ebsp[1:4], "big")
+        if not (ext >> 23) & 1:          # svc_extension_flag
+            mvc_ext = {
+                "non_idr_flag": (ext >> 22) & 1,
+                "priority_id": (ext >> 16) & 0x3F,
+                "view_id": (ext >> 6) & 0x3FF,
+                "temporal_id": (ext >> 3) & 7,
+                "anchor_pic_flag": (ext >> 2) & 1,
+                "inter_view_flag": (ext >> 1) & 1,
+            }
+        body = ebsp[4:]
+    return NalUnit((hdr >> 5) & 3, ntype, ebsp_to_rbsp(body), mvc_ext)
 
 
 def split_annexb(data: bytes) -> list[NalUnit]:
@@ -109,9 +127,25 @@ def py_rbsp_to_ebsp(rbsp: bytes) -> bytes:
     return bytes(out)
 
 
+def mvc_ext_bytes(non_idr_flag: int, view_id: int, anchor_pic_flag: int,
+                  inter_view_flag: int, priority_id: int = 0,
+                  temporal_id: int = 0) -> bytes:
+    """3-byte nal_unit_header_mvc_extension (spec H.7.3.1.1; the inverse
+    of _parse_nal_header's MVC branch). svc_extension_flag = 0."""
+    ext = ((non_idr_flag << 22) | (priority_id << 16) | (view_id << 6)
+           | (temporal_id << 3) | (anchor_pic_flag << 2)
+           | (inter_view_flag << 1) | 1)
+    return ext.to_bytes(3, "big")
+
+
 def annexb_bytes(nal_ref_idc: int, nal_unit_type: int, rbsp: bytes,
-                 long_startcode: bool = True) -> bytes:
-    """Frame one NALU for an Annex-B stream."""
+                 long_startcode: bool = True,
+                 mvc_ext: bytes | None = None) -> bytes:
+    """Frame one NALU for an Annex-B stream. mvc_ext: the 3 extension
+    header bytes for nal_unit_type 14/20 (part of the NAL header, so
+    they precede the payload's emulation prevention)."""
     hdr = bytes([(nal_ref_idc << 5) | nal_unit_type])
+    if mvc_ext is not None:
+        hdr += mvc_ext
     sc = b"\x00\x00\x00\x01" if long_startcode else b"\x00\x00\x01"
     return sc + hdr + rbsp_to_ebsp(rbsp)

@@ -105,7 +105,7 @@ import torch
 from ..bitstream.bitreader import BitReader
 from ..bitstream.nal import NalUnit, NalUnitType, split_annexb
 from ..common.fmo import mb_to_slice_group_map, next_mb_arrays
-from ..common.picture import MB_I16, MB_INTER, PictureData
+from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
 from ..common.types import SliceType
 from ..convert import qpc_tables
 from ..device import resolve
@@ -118,7 +118,7 @@ from .dpb import DPB, Frame, field_ref_list_p, field_window
 from .header import PocContext, parse_slice_header
 from .mb_parse import MBParser, SliceContext
 from .mb_parse_cabac import MBParserCABAC
-from .parset import parse_pps, parse_sps
+from .parset import parse_pps, parse_sps, parse_subset_sps
 from .recon import Reconstructor, build_inv_scale, build_inv_scale8
 from .sei import parse_sei_rbsp
 from .wp import WPParams, block_tables
@@ -132,16 +132,18 @@ class DecodedFrame:
     Y: np.ndarray
     U: np.ndarray
     V: np.ndarray
+    view_id: int = 0           # MVC: 0 the base view, 1 the dependent one
 
 
 _FIELD_UID0 = 1 << 20          # reference fields' uids, apart from the DPB's
+_VIEW1_UID0 = 1 << 24          # the view-1 DPB's, apart from view 0's
 
 
 class H264Decoder:
     """Decoder state (SPS / PPS maps, DPB, POC) persists across
     ``decode_annexb`` calls, so a stream may be fed in pieces.
-    ``pictures`` holds one record per decoded picture: slice type, path
-    ("inter", "mixed", "intra") and the wall seconds of its host parse,
+    ``pictures`` holds one record per decoded picture: slice type, view,
+    path ("inter", "mixed", "intra") and the wall seconds of its host parse,
     host intra recon, device stages and the whole picture.
     ``sei_messages`` holds the parsed SEI messages (decoder/sei.py
     SEIMessage) in stream order.
@@ -154,7 +156,21 @@ class H264Decoder:
     slices survived and each picture of a frame_num gap become a copy of
     the closest reference (mode 1) or its motion replayed (mode 2).
     ``concealed_count`` counts the concealed MBs and whole frames,
-    ``conceal_s`` the wall seconds of the concealment."""
+    ``conceal_s`` the wall seconds of the concealment.
+
+    ``stats`` (jm_tpu's, after ldecod's dec_statistics.c): the bits
+    (8 (RBSP + 1) bytes) and the count of the NAL units by type, the
+    decoded pictures and their slices, and the MBs of the frame pictures
+    by class (Intra4x4, Intra8x8, Intra16x16, I_PCM, inter, of which
+    skipped).
+
+    MVC stereo (Annex H, two views): the subset SPS (NAL 15) serves the
+    view-1 slices (NAL 20); view 1 has a DPB and a POC state of its own;
+    each view-1 P or B list gets the current access unit's view-0
+    picture appended (an anchor's list is that picture alone), which the
+    inter-view modification commands (idc 4 / 5) move; prefix NAL units
+    (14) are skipped. Concealment and the frame_num gaps stay view 0's,
+    as in jm_tpu."""
 
     def __init__(self, device="cuda", conceal_mode: int = 0) -> None:
         if conceal_mode not in (0, 1, 2):
@@ -168,9 +184,13 @@ class H264Decoder:
         self._prev_ref_frame_num = None
         self._prev_poc = 0
         self.sps_map: dict = {}
+        self.subset_sps_map: dict = {}  # MVC (NAL 15)
         self.pps_map: dict = {}
         self.dpb: DPB | None = None
+        self.dpb1: DPB | None = None    # the dependent view's
         self.poc_ctx = PocContext()
+        self.poc_ctx1 = PocContext()
+        self._last_v0 = None            # view-0 frame of the current AU
         self._cur = None            # the picture being parsed
         self._outputs: list[DecodedFrame] = []
         self._tabs: dict = {}       # id(pps) -> (pps, device tables)
@@ -185,6 +205,11 @@ class H264Decoder:
         self._field_refs: list[Frame] = []
         self._pending_field = None
         self._field_uid = _FIELD_UID0
+        self.stats = {
+            "nal_bits": {}, "nal_count": {},
+            "mb_intra4": 0, "mb_intra16": 0, "mb_intra8": 0, "mb_ipcm": 0,
+            "mb_inter": 0, "mb_skip": 0, "slices": 0, "pictures": 0,
+        }
 
     # ------------------------------------------------------------------
 
@@ -194,6 +219,10 @@ class H264Decoder:
         start = len(self._outputs)
         try:
             for nal in split_annexb(data):
+                t = int(nal.nal_unit_type)
+                nb, nc = self.stats["nal_bits"], self.stats["nal_count"]
+                nb[t] = nb.get(t, 0) + 8 * (len(nal.rbsp) + 1)
+                nc[t] = nc.get(t, 0) + 1
                 self._handle_nal(nal)
             self._flush_dp()
         except EOFError as e:
@@ -225,11 +254,17 @@ class H264Decoder:
         elif t == NalUnitType.SEI:
             sps = next(iter(self.sps_map.values()), None)
             self.sei_messages.extend(parse_sei_rbsp(nal.rbsp, sps))
-        elif t in (NalUnitType.PREFIX, NalUnitType.SUBSET_SPS,
-                   NalUnitType.SLICE_EXT):
-            raise NotImplementedError(
-                f"out of scope: MVC / SVC (NAL unit type {t})")
-        # AUD, end of sequence / stream, filler, auxiliary: skipped
+        elif t == NalUnitType.SUBSET_SPS:
+            sub = parse_subset_sps(nal.rbsp)
+            self.subset_sps_map[sub.seq_parameter_set_id] = sub
+        elif t == NalUnitType.SLICE_EXT:
+            if nal.mvc_ext is None:
+                raise NotImplementedError(
+                    "out of scope: SVC slice extensions (NAL unit type 20 "
+                    "with svc_extension_flag 1)")
+            self._handle_slice(nal)
+        # AUD, end of sequence / stream, filler, auxiliary, and the MVC
+        # prefix (14) of a base-view slice: skipped
 
     def _flush_dp(self) -> None:
         """Parse the pending data-partitioned slice: partitions B and C
@@ -258,11 +293,22 @@ class H264Decoder:
         """Parse one slice into the current picture; dp_readers: the
         readers of partitions B and C when nal is a partition A."""
         t0 = time.perf_counter()
-        hdr, br = parse_slice_header(nal, self.sps_map, self.pps_map)
+        view = nal.mvc_ext["view_id"] if nal.mvc_ext is not None else 0
+        smap = self.sps_map if view == 0 else (self.subset_sps_map
+                                               or self.sps_map)
+        hdr, br = parse_slice_header(nal, smap, self.pps_map)
+        # context, not syntax: no field of SliceHeader, as in jm_tpu
+        hdr.view_id = view
         pps = self.pps_map[hdr.pic_parameter_set_id]
-        sps = self.sps_map[pps.seq_parameter_set_id]
-        if self.dpb is None:
-            self.dpb = DPB(sps)
+        sps = smap[pps.seq_parameter_set_id]
+        if view == 0:
+            if self.dpb is None:
+                self.dpb = DPB(sps)
+            dpb = self.dpb
+        else:
+            if self.dpb1 is None:
+                self.dpb1 = DPB(sps, uid0=_VIEW1_UID0)
+            dpb = self.dpb1
         if hdr.redundant_pic_cnt > 0:
             # a redundant coding (spec 7.4.3; jm_tpu decoder.py:159-168):
             # discarded when the primary coding of its picture decoded,
@@ -272,7 +318,7 @@ class H264Decoder:
             if (hdr.frame_num, hdr.pic_order_cnt_lsb) in self._primary_keys:
                 return
         fld = bool(hdr.field_pic_flag)
-        if not fld and self._field_refs and not hdr.is_idr:
+        if view == 0 and not fld and self._field_refs and not hdr.is_idr:
             # the reference fields are not in the frame DPB, so a frame P
             # picture would predict from a DPB without them (jm_tpu
             # decoder.py:184-191)
@@ -280,8 +326,9 @@ class H264Decoder:
                 "out of scope: mixed field/frame pictures (adaptive PAFF)")
         if self._is_new_picture(hdr):
             self._finish_picture()
-            poc = self.poc_ctx.compute(hdr, sps)
-            if (self.conceal_mode and not hdr.is_idr
+            poc = (self.poc_ctx if view == 0 else self.poc_ctx1).compute(
+                hdr, sps)
+            if (view == 0 and self.conceal_mode and not hdr.is_idr
                     and self._prev_ref_frame_num is not None
                     and self.dpb.frames):
                 self._conceal_frame_num_gap(hdr, sps, poc)
@@ -294,7 +341,7 @@ class H264Decoder:
                 "pic": pic, "sps": sps, "pps": pps, "hdr0": hdr,
                 "headers": [], "poc": poc, "t0": t0, "parse_s": 0.0,
                 "refs": {}, "mb_succ": None, "wps": [], "l0": [],
-                "n_slices": 0, "failed": [],
+                "n_slices": 0, "failed": [], "view": view,
                 "parity": hdr.bottom_field_flag if fld else None,
             }
             if pps.num_slice_groups_minus1 > 0:
@@ -304,6 +351,15 @@ class H264Decoder:
         cur = self._cur
         pic = cur["pic"]
 
+        # a view-1 list takes the current access unit's view-0 picture
+        # after its temporal references (H.8.2.1; ldecod mbuffer_mvc.c
+        # init_lists_p/b_slice_mvc); an anchor's list is that picture
+        iv = None
+        if view > 0:
+            iv = self._last_v0
+            if iv is None:
+                raise ValueError("view-1 slice without its view-0 picture")
+        ivs = [iv] if iv is not None else []
         lst, lst1 = [], []
         nact = hdr.num_ref_idx_l0_active_minus1 + 1
         p_like = hdr.slice_type in (SliceType.P, SliceType.SP)
@@ -314,16 +370,17 @@ class H264Decoder:
                 lambda f: f.frame_num - max_fn
                 if f.frame_num > hdr.frame_num else f.frame_num)[:nact]
         elif p_like:
-            lst = self.dpb.reorder_list(self.dpb.ref_list_p(hdr.frame_num),
-                                        hdr.ref_pic_list_mod_l0,
-                                        hdr.frame_num, nact)
+            base = ivs if view > 0 and hdr.is_idr \
+                else dpb.ref_list_p(hdr.frame_num) + ivs
+            lst = dpb.reorder_list(base, hdr.ref_pic_list_mod_l0,
+                                   hdr.frame_num, nact, inter_view=iv)
         elif hdr.slice_type == SliceType.B:
-            b0, b1 = ref_lists_b(self.dpb.frames, cur["poc"])
-            lst = self.dpb.reorder_list(b0, hdr.ref_pic_list_mod_l0,
-                                        hdr.frame_num, nact)
-            lst1 = self.dpb.reorder_list(
-                b1, hdr.ref_pic_list_mod_l1, hdr.frame_num,
-                hdr.num_ref_idx_l1_active_minus1 + 1)
+            b0, b1 = ref_lists_b(dpb.frames, cur["poc"])
+            lst = dpb.reorder_list(b0 + ivs, hdr.ref_pic_list_mod_l0,
+                                   hdr.frame_num, nact, inter_view=iv)
+            lst1 = dpb.reorder_list(
+                b1 + ivs, hdr.ref_pic_list_mod_l1, hdr.frame_num,
+                hdr.num_ref_idx_l1_active_minus1 + 1, inter_view=iv)
             if not lst1:
                 raise ValueError("insufficient reference frames")
         if hdr.slice_type != SliceType.I and len(lst) < nact:
@@ -401,7 +458,8 @@ class H264Decoder:
                 != h0.delta_pic_order_cnt_bottom
                 or tuple(hdr.delta_pic_order_cnt)
                 != tuple(h0.delta_pic_order_cnt)
-                or (hdr.nal_ref_idc == 0) != (h0.nal_ref_idc == 0))
+                or (hdr.nal_ref_idc == 0) != (h0.nal_ref_idc == 0)
+                or hdr.view_id != h0.view_id)
 
     # ------------------------------------------------------------------
 
@@ -567,6 +625,8 @@ class H264Decoder:
             return
         cur, self._cur = self._cur, None
         pic, sps = cur["pic"], cur["sps"]
+        view = cur["view"]
+        dpb = self.dpb if view == 0 else self.dpb1
         if not cur["headers"]:
             # every slice of the picture was corrupt (conceal_mode only):
             # the whole frame is concealed (jm_tpu decoder.py:608-615)
@@ -589,7 +649,8 @@ class H264Decoder:
             # field PicNums count fields (spec 8.2.5.4): not covered, as in
             # jm_tpu, which raises once the field is decoded (decoder.py:816)
             raise NotImplementedError("out of scope: field MMCO")
-        rec = {"type": hdr0.slice_type.name, "parse_s": cur["parse_s"],
+        rec = {"type": hdr0.slice_type.name, "view": view,
+               "parse_s": cur["parse_s"],
                "host_recon_s": 0.0, "device_s": 0.0}
         Y, U, V, state = self._reconstruct(pic, cur, rec,
                                            prep=not lost.any())
@@ -600,8 +661,8 @@ class H264Decoder:
             ref = None
             if hdr0.slice_type != SliceType.I and cur["l0"][0]:
                 ref = cur["l0"][0][0]
-            elif self.dpb.frames:
-                ref = closest_ref(self.dpb.frames, cur["poc"])
+            elif dpb.frames:
+                ref = closest_ref(dpb.frames, cur["poc"])
             self.concealed_count += conceal_mbs(
                 Y, U, V, pic, lost, None if ref is None else
                 HostRef(ref.state), pic.mb_w, pic.mb_h)
@@ -622,22 +683,44 @@ class H264Decoder:
                 parity=cur["parity"]), (Y, U, V))
             rec["seconds"] = time.perf_counter() - cur["t0"]
             self.pictures.append(rec)
+            self._count(cur)
             return
-        self.dpb.store(Frame(poc=cur["poc"], frame_num=hdr0.frame_num,
-                             state=state, is_ref=hdr0.nal_ref_idc != 0,
-                             motion=motion),
-                       mmco_ops=(hdr0.mmco_ops
-                                 if hdr0.adaptive_ref_pic_marking_mode_flag
-                                 else None),
-                       idr=hdr0.is_idr,
-                       long_term_flag=hdr0.long_term_reference_flag)
-        if hdr0.nal_ref_idc:
-            self._prev_ref_frame_num = hdr0.frame_num
-        self._prev_poc = cur["poc"]
+        frame = Frame(poc=cur["poc"], frame_num=hdr0.frame_num, state=state,
+                      is_ref=hdr0.nal_ref_idc != 0, motion=motion)
+        dpb.store(frame,
+                  mmco_ops=(hdr0.mmco_ops
+                            if hdr0.adaptive_ref_pic_marking_mode_flag
+                            else None),
+                  idr=hdr0.is_idr,
+                  long_term_flag=hdr0.long_term_reference_flag)
+        if view == 0:
+            self._last_v0 = frame
+            if hdr0.nal_ref_idc:
+                self._prev_ref_frame_num = hdr0.frame_num
+            self._prev_poc = cur["poc"]
+        self._count(cur, pic)
         self._outputs.append(DecodedFrame(cur["poc"],
-                                          *_crop_output(sps, Y, U, V)))
+                                          *_crop_output(sps, Y, U, V),
+                                          view_id=view))
         rec["seconds"] = time.perf_counter() - cur["t0"]
         self.pictures.append(rec)
+
+    def _count(self, cur, pic=None) -> None:
+        """``stats`` of a decoded picture, with the MB classes of a frame
+        picture pic (jm_tpu decoder.py:727-735)."""
+        st = self.stats
+        st["pictures"] += 1
+        st["slices"] += cur["n_slices"]
+        if pic is None:
+            return
+        cls = pic.mb_class
+        i4 = cls == MB_I4          # Intra8x8: the I4 class with the 8x8 flag
+        st["mb_intra4"] += int((i4 & ~pic.transform8x8).sum())
+        st["mb_intra8"] += int((i4 & pic.transform8x8).sum())
+        st["mb_intra16"] += int((cls == MB_I16).sum())
+        st["mb_ipcm"] += int((cls == MB_IPCM).sum())
+        st["mb_inter"] += int((cls == MB_INTER).sum())
+        st["mb_skip"] += int(pic.skip.sum())
 
     # ---- concealment of lost pictures (jm_tpu decoder.py:569-593) -------
 
@@ -705,7 +788,8 @@ class H264Decoder:
             w[0::2], w[1::2] = a, b
             woven.append(w)
         self._outputs.append(DecodedFrame(
-            min(top[0].poc, bot[0].poc), *_crop_output(cur["sps"], *woven)))
+            min(top[0].poc, bot[0].poc), *_crop_output(cur["sps"], *woven),
+            view_id=cur["view"]))
 
 
 def _conceal_scope(sps, parity) -> None:

@@ -36,11 +36,13 @@ class Frame:
 
 
 class DPB:
-    def __init__(self, sps):
+    def __init__(self, sps, uid0: int = 0):
+        """uid0: the first uid (the view-1 DPB of an MVC stream counts
+        apart from view 0's, whose pictures share its lists)."""
         self.sps = sps
         self.frames: list[Frame] = []      # reference frames, decode order
         self.max_refs = max(1, sps.max_num_ref_frames)
-        self._uid = 0
+        self._uid = uid0
 
     def idr_flush(self) -> None:
         self.frames.clear()
@@ -131,9 +133,12 @@ class DPB:
         return short + long
 
     def reorder_list(self, lst: list[Frame], mods, cur_frame_num: int,
-                     num_active: int) -> list[Frame]:
+                     num_active: int, inter_view=None) -> list[Frame]:
         """Apply ref_pic_list_modification commands (spec 8.2.4.3.1 short-
-        term, 8.2.4.3.2 long-term)."""
+        term, 8.2.4.3.2 long-term, H.8.2.2.3 inter-view idc 4 / 5). With
+        one dependent view the only inter-view candidate is
+        ``inter_view``, the current access unit's view-0 picture that the
+        caller appended to ``lst``."""
         if not mods:
             return lst[:num_active]
         max_fn = self.sps.max_frame_num
@@ -148,6 +153,10 @@ class DPB:
                 target = next((f for f in lst if not f.is_long_term and
                                self._pic_num(f, cur_frame_num) == wanted),
                               None)
+            elif m.op in (4, 5):
+                if inter_view is None:
+                    raise ValueError("inter-view reorder without MVC ref")
+                target = inter_view
             else:
                 target = next((f for f in lst if f.is_long_term and
                                f.long_term_frame_idx == m.value), None)

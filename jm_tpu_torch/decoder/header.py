@@ -7,8 +7,10 @@ FirstPartOfSliceHeader:76, RestOfSliceHeader:113,
 ref_pic_list_reordering:350, decode_poc:720).
 
 The header carries what the reference-management layer reads: the
-redundant_pic_cnt, ref_pic_list_modification with short-term (idc 0, 1)
-and long-term (idc 2) commands, and dec_ref_pic_marking (an IDR's
+redundant_pic_cnt, ref_pic_list_modification with short-term (idc 0, 1),
+long-term (idc 2) and MVC inter-view (idc 4, 5) commands (an MVC slice
+extension, NAL 20, whose non_idr_flag is 0 takes the IDR form of the
+header), and dec_ref_pic_marking (an IDR's
 long_term_reference_flag, MMCO ops 1-6; ldecod header.c
 dec_ref_pic_marking:635). What the decoder does not cover raises
 NotImplementedError naming the construct, before the slice's picture is
@@ -82,7 +84,13 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
     br = BitReader(nal.rbsp)
     h = SliceHeader()
     h.nal_ref_idc = nal.nal_ref_idc
-    h.is_idr = nal.nal_unit_type == NalUnitType.IDR
+    # an MVC slice extension with non_idr_flag 0 carries the IDR form of
+    # the header (idr_pic_id, the IDR dec_ref_pic_marking; ldecod
+    # header.c:651)
+    h.is_idr = (nal.nal_unit_type == NalUnitType.IDR
+                or (nal.nal_unit_type == NalUnitType.SLICE_EXT
+                    and nal.mvc_ext is not None
+                    and nal.mvc_ext["non_idr_flag"] == 0))
 
     h.first_mb_in_slice = br.ue()
     st = br.ue()
@@ -180,15 +188,15 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
 
 
 def _read_rplm(br: BitReader) -> list[RefPicListMod]:
+    """The commands up to idc 3: short-term (0, 1), long-term (2) and, in
+    an MVC view-1 slice, inter-view (4, 5: abs_diff_view_idx_minus1)."""
     out = []
     while True:
         idc = br.ue()
         if idc == 3:
             break
-        if idc > 2:
-            raise NotImplementedError(
-                f"out of scope: ref_pic_list_modification idc {idc} "
-                "(inter-view)")
+        if idc > 5:
+            raise ValueError(f"ref_pic_list_modification idc {idc}")
         out.append(RefPicListMod(idc, br.ue()))
         if len(out) > 64:
             raise ValueError("runaway ref_pic_list_modification")

@@ -1,6 +1,6 @@
-"""SPS / PPS parsing (spec 7.3.2.1 / 7.3.2.2), twin of
-jm_tpu/decoder/parset.py without the subset SPS (ldecod/src/parset.c
-InterpretSPS:61, InterpretPPS:389, Scaling_List, ReadVUI:284).
+"""SPS / PPS / subset SPS parsing (spec 7.3.2.1 / 7.3.2.2 / H.7.3.2.1.4),
+twin of jm_tpu/decoder/parset.py (ldecod/src/parset.c InterpretSPS:61,
+InterpretPPS:389, Scaling_List, ReadVUI:284).
 
 VUI and HRD parameters are read and dropped. The SPS and PPS scaling
 lists are read with the spec's fall-back rules (Table 7-2): rule A in
@@ -71,6 +71,48 @@ def parse_sps(rbsp: bytes) -> SPS:
     if not sane:
         s = _parse_sps_data(BitReader(rbsp), skip_frext=True)
     return s
+
+
+def parse_subset_sps(rbsp: bytes) -> SPS:
+    """Subset SPS (NAL type 15, spec 7.3.2.1.3) of the MVC profiles:
+    seq_parameter_set_data + bit_equal_to_one + sps_mvc_extension
+    (H.7.3.2.1.4). Returns an SPS whose ``mvc`` holds the extension.
+
+    JM 19.0's encoder gates the FRExt chroma block on is_FREXT_profile
+    (lencod/src/parset.c:693), which leaves out profiles 118 / 128, while
+    its decoder reads it (ldecod/src/parset.c:128). The spec layout is
+    read first; when it is implausible or bit_equal_to_one fails, the
+    layout without the FRExt block is read."""
+    def read(skip_frext):
+        br = BitReader(rbsp)
+        sp = _parse_sps_data(br, skip_frext=skip_frext)
+        if not _sps_sane(sp):
+            raise ValueError("implausible subset SPS fields")
+        if br.flag() != 1:                     # bit_equal_to_one
+            raise ValueError("bit_equal_to_one != 1")
+        n_views = br.ue() + 1
+        mvc = {"view_id": [br.ue() for _ in range(n_views)],
+               "anchor_l0": [[]], "anchor_l1": [[]],
+               "non_anchor_l0": [[]], "non_anchor_l1": [[]]}
+        for _ in range(1, n_views):
+            mvc["anchor_l0"].append([br.ue() for _ in range(br.ue())])
+            mvc["anchor_l1"].append([br.ue() for _ in range(br.ue())])
+        for _ in range(1, n_views):
+            mvc["non_anchor_l0"].append([br.ue() for _ in range(br.ue())])
+            mvc["non_anchor_l1"].append([br.ue() for _ in range(br.ue())])
+        for _ in range(br.ue() + 1):
+            br.u(8)                            # level_idc
+            for _ in range(br.ue() + 1):       # applicable ops
+                br.u(3)
+                for _ in range(br.ue() + 1):
+                    br.ue()                    # target view ids
+                br.ue()                        # num_views_minus1
+        sp.mvc = mvc
+        return sp
+    try:
+        return read(skip_frext=False)
+    except (EOFError, ValueError):
+        return read(skip_frext=True)
 
 
 def _read_scaling_list(br: BitReader, size: int):

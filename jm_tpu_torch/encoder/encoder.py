@@ -143,6 +143,14 @@ kernels with the field bS rules, kept under a sliding window of frame
 units. qp_p, rd_picture_decision, intra_mb_refresh, the user-data SEI,
 ref_reorder and poc_mem_mgmt act nowhere there, as in jm_tpu.
 
+With num_views=2 (MVC stereo, Annex H; jm_tpu encoder.py:1383-1416,
+:1604-1706) each access unit is the view-0 picture, coded as with one
+view (its VCL NAL units after a prefix NAL unit), then the view-1
+picture of the same instant (encode_frame's view1), coded by the host
+coders in NAL 20 slices (``_emit_view1``); the IDR's SPS (profile 100)
+is followed by a Stereo High subset SPS. There is no pipe with two
+views.
+
 The encoder runs on CUDA unless the caller passes device="cpu"; without a
 card a CUDA request raises.
 """
@@ -157,7 +165,7 @@ import numpy as np
 import torch
 
 from ..bitstream.bitwriter import BitWriter
-from ..bitstream.nal import NalUnitType, annexb_bytes
+from ..bitstream.nal import NalUnitType, annexb_bytes, mvc_ext_bytes
 from ..common.conformance import level_check, minimum_level
 from ..common.fmo import mb_to_slice_group_map
 from ..common.picture import MB_I4, MB_I16, MB_INTER, MB_IPCM, PictureData
@@ -185,7 +193,7 @@ from .rdo import RDOptions, count_mb_bits, lambda_mode
 from .sei_write import (build_sei_rbsp, recovery_point,
                         user_data_unregistered)
 from .syntax import (serialize_slice, serialize_slice_dp, write_pps,
-                     write_slice_header, write_sps)
+                     write_slice_header, write_sps, write_subset_sps)
 from .syntax_cabac import serialize_slice_cabac
 from .wp_est import (build_wp_params, estimate_explicit, estimate_lms,
                      estimate_mc_iter)
@@ -223,14 +231,16 @@ class EncoderConfig:
     UMHex simple or EPZS search with HME predictors; the RD tiers: rdo 0-4
     (tier 3 with num_decoders / loss_rate_a), the trellis (rdoq with
     rdoq_dc, rdoq_cr, rdoq_dc_cr), I_PCM (enable_ipcm 1 or 2) and
-    rd_picture_decision. Values outside it raise ValueError, as do jm_tpu's
+    rd_picture_decision; MVC stereo (num_views 2, view1_qp_offset). Values
+    outside it raise ValueError, as do jm_tpu's
     refusals with B pictures (POC types 1 / 2, FMO), FMO in profile 77
     (weighted prediction), 100 (the 8x8 transform, scaling matrices) or 122
     (4:2:2) without data partitioning, and scaling matrices with data
     partitioning (profile 88); redundant pictures with data partitioning or
     with B pictures, and the 8x8 transform with data partitioning, raise
     NotImplementedError naming the field; pic_interlace=1 (field
-    pictures) with what jm_tpu's field coder refuses too.
+    pictures) with what jm_tpu's field coder refuses too, and redundant
+    pictures or field coding with two views.
 
     The defaults differ from jm_tpu's in two fields: jm_tpu codes every
     picture on the host by default (pipeline="host") with md_low
@@ -373,17 +383,28 @@ class EncoderConfig:
                                  # pictures, top then bottom (lencod
                                  # PicInterlace = 1; CAVLC 4:2:0 IPPP, one
                                  # slice, height % 32 == 0)
+    num_views: int = 1           # 2: MVC stereo (Annex H, Stereo High):
+                                 # the base view's NAL units, each VCL one
+                                 # after a prefix NAL unit, and the
+                                 # dependent view in NAL 20 slices
+                                 # (lencod NumberOfViews)
+    view1_qp_offset: int = 0     # the dependent view's QP above the base
+                                 # picture's (qp for its P pictures)
 
 
 def _profile(cfg: EncoderConfig) -> int:
     """profile_idc of the stream (jm_tpu encoder.py:277-286): High 4:2:2
-    at chroma_format 2, else Extended with data partitioning or SP
+    at chroma_format 2, else High with two views (the base SPS), else
+    Extended with data partitioning or SP
     pictures (even with the 8x8 transform or CABAC, as jm_tpu writes
     them), else High
     with the 8x8 transform or scaling matrices, else Main with CABAC, B
     pictures or weighted prediction, else Baseline."""
     if cfg.chroma_format == 2:
         return 122
+    if cfg.num_views == 2:
+        return 100               # the base SPS of a stereo stream, as
+                                 # lencod writes it
     if cfg.data_partition or cfg.sp_periodicity > 0:
         return 88
     if cfg.transform8x8 or cfg.scaling_matrix:
@@ -413,13 +434,14 @@ def _check_field_config(cfg: EncoderConfig) -> None:
             or cfg.data_partition or cfg.slice_mode
             or cfg.num_slice_groups > 1 or cfg.weighted_pred
             or cfg.rc_enable or cfg.transform8x8 or cfg.rdoq
-            or cfg.long_term_period or cfg.poc_type or cfg.sp_periodicity):
+            or cfg.long_term_period or cfg.poc_type or cfg.sp_periodicity
+            or cfg.num_views != 1):
         raise NotImplementedError(
             "EncoderConfig.pic_interlace: field coding covers CAVLC 4:2:0 "
             "IPPP of one slice (no B pictures, CABAC, 4:2:2, data "
             "partitioning, slice modes, FMO, weighted prediction, rate "
             "control, 8x8 transform, trellis, long-term anchors, POC "
-            "types 1 / 2 or SP pictures)")
+            "types 1 / 2, SP pictures or MVC stereo)")
     if cfg.redundant_period:
         raise NotImplementedError(
             "EncoderConfig.redundant_period: redundant pictures: IPPP "
@@ -432,6 +454,13 @@ def _check_config(cfg: EncoderConfig) -> None:
             or cfg.height % 16:
         raise ValueError(f"EncoderConfig.width/height {cfg.width}x"
                          f"{cfg.height}: positive multiples of 16 only")
+    if cfg.num_views not in (1, 2) or isinstance(cfg.num_views, bool):
+        raise ValueError(f"EncoderConfig.num_views={cfg.num_views!r}: 1 or "
+                         "2")
+    if not isinstance(cfg.view1_qp_offset, int) \
+            or isinstance(cfg.view1_qp_offset, bool):
+        raise ValueError(f"EncoderConfig.view1_qp_offset="
+                         f"{cfg.view1_qp_offset!r}: an integer")
     _check_field_config(cfg)
     for name in ("device_rd", "cabac_adapt_init", "rc_enable", "deblock",
                  "enable_vui", "transform8x8", "adaptive_rounding", "sub8x8",
@@ -533,6 +562,11 @@ def _check_config(cfg: EncoderConfig) -> None:
         raise NotImplementedError(
             "redundant pictures: IPPP single-view frame coding only "
             "(not with data partitioning, as in jm_tpu)")
+    if cfg.redundant_period and cfg.num_views != 1:
+        raise NotImplementedError(
+            "EncoderConfig.redundant_period: redundant pictures: IPPP "
+            "single-view frame coding only (not with num_views=2, as in "
+            "jm_tpu)")
     if cfg.pipeline not in ("host", "device"):
         raise ValueError(f"EncoderConfig.pipeline={cfg.pipeline!r}: 'host' "
                          "or 'device'")
@@ -727,8 +761,12 @@ class Encoder:
     with rd_picture_decision, for each picture after the first, trials:
     each coding's QP, bytes, frame J and wall ms, the QP shipped being
     ``qp``; with pic_interlace one dict per field picture, with its
-    parity, and for P fields mix and mb_parts). ``refs`` is the DPB, most
-    recent first (with pic_interlace the reference fields)."""
+    parity, and for P fields mix and mb_parts; with two views a view-0
+    picture's bits include its access unit's view-1 bytes, as jm_tpu
+    counts them). ``refs`` is the DPB, most recent first (with
+    pic_interlace the reference fields). With two views ``results_v1``
+    holds one dict per view-1 picture (disp, type, anchor, bits, qp, ref,
+    frame, seconds) and ``refs_v1`` view 1's references."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
@@ -845,6 +883,14 @@ class Encoder:
         self._refresh_pos = 0
         self._refresh_rng = np.random.default_rng(1)
         self._pending = []            # (disp, frame) of the Bs held back
+        # MVC stereo: the view-1 sources by display index, view 1's
+        # references (most recent first), view 1's picture of each view-0
+        # reference by its uid (a view-1 B predicts from the companions
+        # of its view-0 anchors), and one record per view-1 picture
+        self._v1_pending: dict = {}
+        self.refs_v1: list = []
+        self._v1_of: dict = {}
+        self.results_v1: list = []
         self._cra_poc = None          # POC of the last open-GOP I
         self.num_ref_active = 1       # list0 entries of the P picture coded
         # rdo 3's simulated lossy decoders, advanced once per anchor
@@ -984,9 +1030,9 @@ class Encoder:
         in CAVLC without B pictures, with one slice group and no slice
         mode, a fixed QP, no intra refresh, the loop filter on, no
         long-term anchors, no data partitioning, no SP pictures, no
-        trellis and no rd_picture_decision, any POC type, with or without
-        redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI (jm_tpu
-        _pipe_ok); everything else takes the per-frame path."""
+        trellis, no rd_picture_decision and one view, any POC type, with
+        or without redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI
+        (jm_tpu _pipe_ok); everything else takes the per-frame path."""
         cfg = self.cfg
         return (self._device_path_ok(weighted=bool(cfg.weighted_pred))
                 and cfg.num_ref == 1 and cfg.sp_periodicity == 0
@@ -995,7 +1041,8 @@ class Encoder:
                 and cfg.slice_mode == 0 and cfg.num_slice_groups == 1
                 and self.rc is None and cfg.qp_p is None and cfg.deblock
                 and cfg.long_term_period == 0 and cfg.data_partition == 0
-                and not cfg.rdoq and not cfg.rd_picture_decision)
+                and not cfg.rdoq and not cfg.rd_picture_decision
+                and cfg.num_views == 1)
 
     # ------------------------------------------------------------------
 
@@ -1071,17 +1118,25 @@ class Encoder:
             payloads.append(self._finalize(*pending)[0])
         return payloads
 
-    def encode_frame(self, Y, U, V) -> bytes:
+    def encode_frame(self, Y, U, V, view1=None) -> bytes:
         """Encode one display-order frame on the per-frame path and return
         its Annex-B payload. With num_b the frames between two anchors are
         held back until the next anchor arrives; that call returns the
         anchor and then the B pictures, in coding order, and the others
-        b"" (jm_tpu encoder.py:604-631; lencod's frame reordering)."""
+        b"" (jm_tpu encoder.py:604-631; lencod's frame reordering).
+        view1: the dependent view's (Y, U, V) of the same instant, which
+        num_views=2 needs (ValueError without it); each access unit's
+        view-1 picture follows its view-0 picture (``_emit_view1``)."""
         frame = (Y, U, V)
         disp = self.display_idx
         self.display_idx += 1
         if self.cfg.pic_interlace:
             return self._encode_field_pair(frame, disp)
+        if self.cfg.num_views == 2:
+            if view1 is None:
+                raise ValueError("num_views=2 needs the view1 planes")
+            self._v1_pending[disp] = tuple(np.asarray(p, np.uint8)
+                                           for p in view1)
         if self.cfg.num_b == 0 or not self.refs:
             return self._emit_anchor(frame, disp)
         self._pending.append((disp, tuple(np.asarray(p, np.uint8)
@@ -1291,6 +1346,10 @@ class Encoder:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         split["deblock_s"] = time.perf_counter() - t
+        payload = self._prefix(False, 2 if as_ref else 0) + payload + \
+            self._emit_view1(disp, picture, poc, anchor=False,
+                             b_anchors=(prev_anchor, next_anchor),
+                             as_ref=as_ref, qp_view=qp)
         if as_ref:
             self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
         self._rc_update("B", qp, payload, srcY, dY)
@@ -1299,6 +1358,133 @@ class Encoder:
                              "qp": qp, "slices": len(plan), "ref": as_ref,
                              "split": split, "mix": b.mix, **info})
         return payload
+
+    # ---- MVC stereo (jm_tpu encoder.py:1383-1416, :1604-1706) ----------
+
+    def _prefix(self, idr: bool, nal_ref_idc: int = 3) -> bytes:
+        """With two views, the prefix NAL unit (type 14, H.7.4.1.2) that
+        announces a base-view picture's slices, else b""."""
+        if self.cfg.num_views == 1:
+            return b""
+        return annexb_bytes(nal_ref_idc, NalUnitType.PREFIX, b"",
+                            mvc_ext=mvc_ext_bytes(0 if idr else 1, 0,
+                                                  1 if idr else 0, 1))
+
+    def _emit_view1(self, disp: int, v0: Picture, poc: int, anchor: bool,
+                    b_anchors=None, as_ref: bool = True,
+                    qp_view=None) -> bytes:
+        """The dependent-view picture of the access unit whose view-0
+        picture v0 was just coded (jm_tpu _emit_view1; lencod.c:894-952),
+        or b"" with one view. Every view-1 picture is coded by the host
+        coders, as jm_tpu's _device_path_ok (``not is_view1``) has it,
+        with the search tables and the deblock on the device, at
+        (qp_view, else qp) + view1_qp_offset clamped to 0..51: so its P
+        pictures take qp whatever qp_p or rate control say (ROADMAP Queue
+        3). An anchor (with a base IDR) is a P picture predicting from v0
+        alone, and view 1's references are flushed; any other P picture
+        predicts from v0 then the first num_ref of view 1's references,
+        with the inter-view command (5, 0) that puts v0 first in the
+        decoder's list; a B picture (b_anchors: the view-0 anchors of the
+        view-0 B) from the view-1 companions of those anchors, without
+        inter-view reference, with list commands against ref_lists_b of
+        view 1's references. Deblocked (K1 / K2 on the card), stored
+        under view 1's sliding window when a reference, recorded in
+        ``results_v1``, serialized as NAL 20 slices of nal_ref_idc 3 (P),
+        2 (reference B) or 0, CAVLC or CABAC (the best of the three
+        context models with cabac_adapt_init)."""
+        cfg = self.cfg
+        if cfg.num_views == 1:
+            return b""
+        t = time.perf_counter()
+        frame = self._v1_pending.pop(disp)
+        qp = max(0, min(51, (cfg.qp if qp_view is None else qp_view)
+                        + cfg.view1_qp_offset))
+        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
+        srcY = self._planes(self._upload(frame))[0]
+        hdr = {"ref_mod_l0": None}
+        if b_anchors:
+            stype = SliceType.B
+            prev, nxt = (self._v1_of[a.uid] for a in b_anchors)
+            makers = [self._searcher(frame[0], [f], qp) for f in (prev, nxt)]
+            sads = [None, None]
+            if makers[0] is None:
+                makers = None
+                sads = [E.full_search_sad16(srcY, f.state[0][0], self.mb_w,
+                                            self.mb_h, cfg.search_range)
+                        .cpu().numpy() for f in (prev, nxt)]
+            m = nxt.motion
+            col = ColMotion(m[0], m[1], m[2], m[3], self.mb_w,
+                            nxt.is_long_term, m[4], m[5])
+            coded = BPicture(frame, qp, qpc, lambda_me(qp), lambda_mode4(qp),
+                             prev.host_ref(), nxt.host_ref(), col, *sads,
+                             self.slice_plan, cfg.search_range, None,
+                             transform8x8=cfg.transform8x8, searchers=makers,
+                             subpel_satd=cfg.subpel_satd,
+                             **self._quant_kw("B"))
+            nref = 1
+        else:
+            stype = SliceType.P
+            if anchor:
+                self.refs_v1 = []
+                refs = [v0]
+            else:
+                nact = max(1, min(cfg.num_ref, len(self.refs_v1)))
+                refs = [v0] + self.refs_v1[:nact]
+                hdr["ref_mod_l0"] = [(5, 0)]   # abs_diff_view_idx_minus1
+            nref = len(refs)
+            sads, blk4 = self._search_tables(srcY, refs)
+            coded = PPicture(frame, qp, qpc, lambda_me(qp), lambda_mode4(qp),
+                             [r.host_ref() for r in refs], sads,
+                             self.slice_plan, cfg.search_range,
+                             transform8x8=cfg.transform8x8, blk4=blk4,
+                             searcher=self._searcher(frame[0], refs, qp),
+                             sub8x8=cfg.sub8x8, subpel_satd=cfg.subpel_satd,
+                             **self._quant_kw("P"))
+        pic = coded.pic
+        dec = self._loop_filter(coded.rec, pic)
+        picture = Picture(poc, self.frame_num, E.prep_ref(*dec) if as_ref
+                          else None, -1, None if as_ref
+                          else tuple(p.cpu().numpy() for p in dec))
+        if as_ref:
+            picture.uid = self._uid
+            self._uid += 1
+            picture.motion = _motion(pic)
+            # view 1's sliding window, reference Bs included, as the
+            # decoder's view-1 DPB keeps it
+            self.refs_v1.insert(0, picture)
+            del self.refs_v1[self.dpb_size:]
+            live = {f.uid for f in self.refs}
+            self._v1_of = {u: f for u, f in self._v1_of.items() if u in live}
+            self._v1_of[v0.uid] = picture
+        if stype == SliceType.B:
+            d0, d1 = ref_lists_b(self.refs_v1, poc)
+            hdr.update(ref_mod_l0=self._ref_mod_ops(d0, prev),
+                       ref_mod_l1=self._ref_mod_ops(d1, nxt),
+                       num_ref_idx_l1=1, is_ref=as_ref)
+        kw = dict(slice_type=stype, frame_num=self.frame_num, idr=anchor,
+                  qp=qp, idr_pic_id=self.idr_pic_id, poc_lsb=poc % 256,
+                  num_ref_idx_l0=nref, **hdr)
+        ext = mvc_ext_bytes(0 if anchor else 1, 1, 1 if anchor else 0, 0)
+        nri = (3 if stype == SliceType.P else 2) if as_ref else 0
+        out, bins = b"", 0
+        for addrs in self.slice_plan:
+            if cfg.entropy == "cabac":
+                rbsp, b, _idc = self._serialize_cabac_best_init(
+                    pic, mb_addrs=addrs, **kw)
+                bins += b
+            else:
+                rbsp = serialize_slice(
+                    pic, self.sps, self.pps, mb_addrs=addrs,
+                    slice_group_change_cycle=cfg.sg_change_cycle, **kw)
+            out += annexb_bytes(nri, NalUnitType.SLICE_EXT, rbsp,
+                                mvc_ext=ext)
+        if cfg.entropy == "cabac":
+            out += self._cabac_zero_words(out, bins, len(self.slice_plan))
+        self.results_v1.append({"disp": disp, "type": stype.name,
+                                "anchor": anchor, "bits": len(out) * 8,
+                                "frame": picture, "qp": qp, "ref": as_ref,
+                                "seconds": time.perf_counter() - t})
+        return out
 
     # ---- field pictures (jm_tpu encoder.py:1049-1188) -------------------
 
@@ -1636,10 +1822,14 @@ class Encoder:
         self._errdo_update(coded.pic, dY)
         payload = b""
         if idr:
-            payload = (annexb_bytes(3, NalUnitType.SPS,
-                                    write_sps(self.sps, self.sps_scaling))
-                       + annexb_bytes(3, NalUnitType.PPS,
-                                      write_pps(self.pps, self.pps_scaling)))
+            payload = annexb_bytes(3, NalUnitType.SPS,
+                                   write_sps(self.sps, self.sps_scaling))
+            if cfg.num_views == 2:
+                payload += annexb_bytes(
+                    3, NalUnitType.SUBSET_SPS,
+                    write_subset_sps(self.sps, self.sps_scaling))
+            payload += annexb_bytes(3, NalUnitType.PPS,
+                                    write_pps(self.pps, self.pps_scaling))
         sei = []
         if idr and cfg.sei_user_data is not None:
             sei.append(user_data_unregistered(cfg.sei_user_data))
@@ -1648,19 +1838,21 @@ class Encoder:
             sei.append(recovery_point(0, exact_match=True))
         if sei:
             payload += annexb_bytes(0, NalUnitType.SEI, build_sei_rbsp(sei))
-        payload += nal
-        self._rc_update("I", qp, payload, planes[0], dY)
+        payload += self._prefix(idr) + nal
         frame = self._new_picture(poc, E.prep_ref(dY, dU, dV), planes=tuple(
             t.cpu().numpy() for t in (dY, dU, dV)))
         frame.motion = _motion(coded.pic)
         if idr:
             self.refs = []
-            self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         else:
             self._cra_poc = poc
         for victim in victims:
             self.refs.remove(victim)
         self._store_ref(frame, long_term=lt)
+        payload += self._emit_view1(disp, frame, poc, anchor=idr)
+        self._rc_update("I", qp, payload, planes[0], dY)
+        if idr:
+            self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
         self.frame_idx += 1
         classes = coded.pic.mb_class
@@ -1750,11 +1942,13 @@ class Encoder:
 
     def _commit_p_frame(self, slice_bytes: bytes, disp: int, state, qp: int,
                         n_slices: int, long_term: bool = False, victims=(),
-                        motion=None, **info) -> bytes:
+                        motion=None, rc_planes=None, **info) -> bytes:
         """Store a coded P picture (its NAL units slice_bytes, its motion)
         in the DPB, after the references its MMCO 1 commands unmark
-        (victims) leave it, and in ``results`` (with the items of info);
-        returns slice_bytes."""
+        (victims) leave it; with two views its prefix NAL unit before and
+        the access unit's view-1 picture after slice_bytes; rate
+        control's update (rc_planes: the source and deblocked luma) and
+        ``results`` (with the items of info). Returns the payload."""
         poc = 2 * (disp - self._idr_disp)
         frame = self._new_picture(poc, state)
         frame.motion = motion
@@ -1763,6 +1957,10 @@ class Encoder:
             # (spec 8.2.5.4.1)
             self.refs.remove(victim)
         self._store_ref(frame, long_term=long_term)
+        slice_bytes = self._prefix(False) + slice_bytes + \
+            self._emit_view1(disp, frame, poc, anchor=False)
+        if rc_planes is not None:
+            self._rc_update("P", qp, slice_bytes, *rc_planes)
         self.frame_num = (self.frame_num + 1) % self.sps.max_frame_num
         self.frame_idx += 1
         self.results.append({"disp": disp, "type": "P",
@@ -1807,11 +2005,11 @@ class Encoder:
         if cfg.redundant_period and \
                 self.frame_idx % cfg.redundant_period == 0:
             nal += self._redundant(packed, frame, poc, qp, ref, red_core)
-        if self.rc is not None:
-            self._rc_update("P", qp, nal, self._planes(packed)[0], dec[0])
         return self._commit_p_frame(nal, disp, state, qp, len(plan),
                                     long_term=lt, victims=victims,
                                     motion=_motion(c.pic),
+                                    rc_planes=None if self.rc is None else
+                                    (self._planes(packed)[0], dec[0]),
                                     intra_mbs=len(c.intra_mbs),
                                     ref_poc=ref.poc, **info,
                                     **trials.info())
@@ -1927,7 +2125,6 @@ class Encoder:
                 packed, frame, poc, qp, refs[0],
                 sads=None if sads is None else sads[:1],
                 blk4=None if blk4 is None else blk4[:1])
-        self._rc_update("P", qp, nal, planes[0], dec[0])
         if units:
             info.update(mb_qps=tuple(int(q) for q in np.unique(c.pic.qp)),
                         qp_unsent=_qp_unsent(c.pic, plan, qp))
@@ -1936,6 +2133,7 @@ class Encoder:
         return self._commit_p_frame(nal, disp, state, qp, len(plan),
                                     long_term=lt, victims=victims,
                                     motion=_motion(c.pic),
+                                    rc_planes=(planes[0], dec[0]),
                                     intra_mbs=sum(c.mix[k] for k in (
                                         "i16", "i4", "ipcm")),
                                     ref_poc=refs[0].poc, wp_l0=table,

@@ -1,8 +1,9 @@
 """Custom quantization of the host coders: scaling matrices, explicit
-quant offsets and adaptive rounding; the port's own copy of
-jm_tpu/encoder/qmatrix.py without its cfg-file readers (lencod
-q_matrix.c CalculateQuant4x4Param / CalculateQuant8x8Param, q_offsets.c,
-q_around.c).
+quant offsets and adaptive rounding, and the readers of lencod's
+QmatrixFile / QOffsetMatrixFile (``parse_matrix_cfg`` /
+``parse_offset_cfg``, q_matrix.c:252-489); the port's own copy of
+jm_tpu/encoder/qmatrix.py (lencod q_matrix.c CalculateQuant4x4Param /
+CalculateQuant8x8Param, q_offsets.c, q_around.c).
 
 Forward ScaleComp = (quant_coef << 4) / ScalingList, inverse
 InvScaleComp = dequant_coef * ScalingList; OffsetComp = offset << (Q_BITS
@@ -21,17 +22,41 @@ the 15 4x4 and 5 luma 8x8 offset categories of 4:2:0 are kept.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
 from ..common.tables import (DEQUANT_SCALE_4x4, DEQUANT_SCALE_8x8,
                              QUANT_SCALE_4x4, QUANT_SCALE_8x8, ZIGZAG_4x4,
                              ZIGZAG_8x8)
+from ..decoder.parset import (DEFAULT_4x4_INTER, DEFAULT_4x4_INTRA,
+                              DEFAULT_8x8_INTER, DEFAULT_8x8_INTRA)
 
 _ZZ4 = np.asarray(ZIGZAG_4x4)
 _ZZ8 = np.asarray(ZIGZAG_8x8)
 
 OFFSET_BITS = 11                     # q_offsets.h:18
 OFFSET_RANGE = 1 << (OFFSET_BITS - 1)
+
+MATRIX4_NAMES = ("INTRA4X4_LUMA", "INTRA4X4_CHROMAU", "INTRA4X4_CHROMAV",
+                 "INTER4X4_LUMA", "INTER4X4_CHROMAU", "INTER4X4_CHROMAV")
+MATRIX8_NAMES = ("INTRA8X8_LUMA", "INTER8X8_LUMA")
+
+# q_offsets.c:24 OffsetType4x4 (the first 15; the rest are 4:4:4's)
+OFFSET4_NAMES = (
+    "INTRA4X4_LUMA_INTRA", "INTRA4X4_CHROMAU_INTRA", "INTRA4X4_CHROMAV_INTRA",
+    "INTRA4X4_LUMA_INTERP", "INTRA4X4_CHROMAU_INTERP",
+    "INTRA4X4_CHROMAV_INTERP",
+    "INTRA4X4_LUMA_INTERB", "INTRA4X4_CHROMAU_INTERB",
+    "INTRA4X4_CHROMAV_INTERB",
+    "INTER4X4_LUMA_INTERP", "INTER4X4_CHROMAU_INTERP",
+    "INTER4X4_CHROMAV_INTERP",
+    "INTER4X4_LUMA_INTERB", "INTER4X4_CHROMAU_INTERB",
+    "INTER4X4_CHROMAV_INTERB")
+# q_offsets.c:42 OffsetType8x8 (the luma rows)
+OFFSET8_NAMES = ("INTRA8X8_LUMA_INTRA", "INTRA8X8_LUMA_INTERP",
+                 "INTRA8X8_LUMA_INTERB", "INTER8X8_LUMA_INTERP",
+                 "INTER8X8_LUMA_INTERB")
 
 # the default offsets (q_offsets.c:135-208): intra 682 (~1/3), inter 342
 # (~1/6), in units of 1 / 2048
@@ -50,6 +75,65 @@ def default_offsets():
     off8 = np.empty((5, 64), np.int32)
     off8[:3] = _OFF_INTRA
     off8[3:] = _OFF_INTER
+    return off4, off8
+
+
+def _parse_sections(text: str, names, size: int) -> dict:
+    """The matrix-file tokens (q_matrix.c:300-380): NAME = v, v, v ...,
+    values split by commas or whitespace, '#' comments; the first full
+    section of a name counts."""
+    body = "\n".join(ln.split("#", 1)[0] for ln in text.splitlines())
+    out = {}
+    for m in re.finditer(r"([A-Z0-9_]+)\s*=", body):
+        name = m.group(1)
+        if name not in names or name in out:
+            continue
+        tail = body[m.end():]
+        nxt = re.search(r"[A-Z0-9_]{4,}\s*=", tail)
+        seg = tail[:nxt.start()] if nxt else tail
+        vals = [int(v) for v in re.findall(r"-?\d+", seg)][:size]
+        if len(vals) == size:
+            out[name] = vals
+    return out
+
+
+def parse_matrix_cfg(text: str):
+    """QmatrixFile -> (the 6 raster 4x4 lists, the 2 raster 8x8 lists);
+    a missing list, or one whose first value is 0, is the default one
+    (q_matrix.c:433); values clipped to 1..255."""
+    sec = _parse_sections(text, set(MATRIX4_NAMES), 16)
+    sec8 = _parse_sections(text, set(MATRIX8_NAMES), 64)
+    l4 = []
+    for i, nm in enumerate(MATRIX4_NAMES):
+        v = sec.get(nm)
+        if v is None or v[0] == 0:
+            l4.append(from_zigzag4(DEFAULT_4x4_INTRA if i < 3
+                                   else DEFAULT_4x4_INTER))
+        else:
+            l4.append([min(255, max(1, x)) for x in v])
+    l8 = []
+    for i, nm in enumerate(MATRIX8_NAMES):
+        v = sec8.get(nm)
+        if v is None or v[0] == 0:
+            l8.append(from_zigzag8(DEFAULT_8x8_INTRA if i == 0
+                                   else DEFAULT_8x8_INTER))
+        else:
+            l8.append([min(255, max(1, x)) for x in v])
+    return l4, l8
+
+
+def parse_offset_cfg(text: str):
+    """QOffsetMatrixFile -> (off4 (15, 16), off8 (5, 64)) raster int32,
+    the default lists where a section is missing."""
+    off4, off8 = default_offsets()
+    sec = _parse_sections(text, set(OFFSET4_NAMES), 16)
+    for k, nm in enumerate(OFFSET4_NAMES):
+        if nm in sec:
+            off4[k] = sec[nm]
+    sec8 = _parse_sections(text, set(OFFSET8_NAMES), 64)
+    for k, nm in enumerate(OFFSET8_NAMES):
+        if nm in sec8:
+            off8[k] = sec8[nm]
     return off4, off8
 
 

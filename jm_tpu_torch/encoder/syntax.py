@@ -25,6 +25,8 @@ write_{i,p,b}_slice_MB_layer order).
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 
 from .. import native as N
@@ -76,11 +78,52 @@ def write_sps(sps, scaling=None) -> bytes:
                          "High 4:2:0 and High 4:2:2 with "
                          "pic_order_cnt_type 0, 1 or 2")
     bw = BitWriter()
+    _write_sps_data(bw, sps, scaling)
+    bw.rbsp_trailing_bits()
+    return bw.get_bytes()
+
+
+def write_subset_sps(sps, scaling=None) -> bytes:
+    """Subset SPS of Stereo High (NAL 15, spec 7.3.2.1.3 + H.7.3.2.1.4
+    sps_mvc_extension; jm_tpu/encoder/syntax.py write_subset_sps) for
+    views 0 and 1: the base SPS's data at profile 128 in the spec's
+    layout (JM 19.0's writer leaves the FRExt block out,
+    decoder/parset.parse_subset_sps), then view 0 as view 1's one list-0
+    reference, anchor and non-anchor, one level and one operation
+    point."""
+    sub = copy.copy(sps)
+    sub.profile_idc = 128                     # Stereo High
+    bw = BitWriter()
+    _write_sps_data(bw, sub, scaling)
+    bw.flag(1)                                # bit_equal_to_one
+    bw.ue(1)                                  # num_views_minus1
+    bw.ue(0)                                  # view_id[0]
+    bw.ue(1)                                  # view_id[1]
+    for _ in range(2):                        # anchor, then non-anchor
+        bw.ue(1)                              # num_..._refs_l0
+        bw.ue(0)                              # ... -> view 0
+        bw.ue(0)                              # num_..._refs_l1
+    bw.ue(0)                                  # num_level_values_signalled-1
+    bw.u(sps.level_idc, 8)
+    bw.ue(0)                                  # num_applicable_ops_minus1
+    bw.u(0, 3)                                # op temporal_id
+    bw.ue(0)                                  # num_target_views_minus1
+    bw.ue(1)                                  # target view id
+    bw.ue(1)                                  # op num_views_minus1
+    bw.flag(0)                                # mvc_vui_parameters_present
+    bw.flag(0)                                # additional_extension2_flag
+    bw.rbsp_trailing_bits()
+    return bw.get_bytes()
+
+
+def _write_sps_data(bw: BitWriter, sps, scaling) -> None:
+    """seq_parameter_set_data (spec 7.3.2.1.1), the FRExt block for
+    profiles 100, 122 and 128."""
     bw.u(sps.profile_idc, 8)
     bw.u(sps.constraint_set_flags, 8)
     bw.u(sps.level_idc, 8)
     bw.ue(sps.seq_parameter_set_id)
-    if sps.profile_idc in (100, 122):
+    if sps.profile_idc in (100, 122, 128):
         bw.ue(sps.chroma_format_idc)
         bw.ue(sps.bit_depth_luma_minus8)
         bw.ue(sps.bit_depth_chroma_minus8)
@@ -121,8 +164,6 @@ def write_sps(sps, scaling=None) -> bytes:
         _write_vui(bw, sps.vui)
     else:
         bw.flag(0)
-    bw.rbsp_trailing_bits()
-    return bw.get_bytes()
 
 
 def _write_vui(bw: BitWriter, v: dict) -> None:
@@ -307,7 +348,8 @@ def write_slice_header(bw: BitWriter, sps, pps, *, slice_type: SliceType,
     type 0 only, redundant_pic_cnt when the PPS has the flag; for B
     direct_spatial_mv_pred_flag 1 and the list-1 active count;
     ref_mod_l0 / ref_mod_l1 the (modification_of_pic_nums_idc, value)
-    commands of each list, dec_ref_pic_marking for reference slices only
+    commands of each list (idc 4 / 5 an MVC view-1 slice's inter-view
+    ones), dec_ref_pic_marking for reference slices only
     (is_ref): the IDR's long_term_flag, else the MMCO commands mmco_ops
     ((op, value1[, value2]) tuples) or the sliding window;
     cabac_init_idc for P and B slices of a CABAC PPS,

@@ -232,21 +232,46 @@ def test_picture_from_numpy_through_port_recon():
     assert not jm_pics
 
 
+def _as_svc(data: bytes) -> bytes:
+    """The stream with the svc_extension_flag of every NAL 20 set."""
+    out = bytearray(data)
+    i = out.find(b"\x00\x00\x01")
+    while i >= 0:
+        if out[i + 3] & 0x1F == 20:
+            out[i + 4] |= 0x80
+        i = out.find(b"\x00\x00\x01", i + 3)
+    return bytes(out)
+
+
 @pytest.mark.parametrize("name,construct", [
     ("mbaff1", "MBAFF"),
     ("cif_paff_adaptive", "adaptive PAFF"),
-    ("stereo_jm", "MVC"),
+    ("stereo_jm", "SVC"),
 ])
 def test_out_of_scope_raises(name, construct):
+    """MBAFF, adaptive PAFF and SVC raise naming the construct. The MVC
+    golden decodes (tests/test_torch_mvc_decode.py); its view-1 slices
+    marked as SVC slice extensions raise."""
     data = (GOLDEN / f"{name}.264").read_bytes()
+    if name == "stereo_jm":
+        data = _as_svc(data)
     with pytest.raises(NotImplementedError, match=construct):
         H264Decoder(device="cpu").decode_annexb(data)
 
 
 def test_mvc_nal_raises():
-    data = (GOLDEN / "i1.264").read_bytes() + b"\x00\x00\x00\x01\x6f\x42"
-    with pytest.raises(NotImplementedError, match="MVC"):
-        H264Decoder(device="cpu").decode_annexb(data)
+    """MVC NAL units are read: a subset SPS cut short raises ValueError
+    (a truncated NAL unit), as any parameter set does; a prefix NAL unit
+    alone is skipped."""
+    data = (GOLDEN / "i1.264").read_bytes()
+    with pytest.raises(ValueError, match="truncated"):
+        H264Decoder(device="cpu").decode_annexb(
+            data + b"\x00\x00\x00\x01\x6f\x42")
+    prefix = b"\x00\x00\x00\x01\x6e\x40\x00\x07"
+    got = H264Decoder(device="cpu").decode_annexb(prefix + data)
+    want = H264Decoder(device="cpu").decode_annexb(data)
+    assert len(got) == len(want) > 0
+    assert all(np.array_equal(a.Y, b.Y) for a, b in zip(got, want))
 
 
 def test_constrained_intra_pred_raises():

@@ -54,15 +54,23 @@ def test_scan_covers_the_native_loader():
                                  "encoder/p_host.py", "encoder/qmatrix.py",
                                  "encoder/me_epzs.py", "encoder/me_umhex.py",
                                  "encoder/rdo.py", "encoder/rdoq.py",
-                                 "encoder/errdo.py"])
+                                 "encoder/errdo.py", "config.py",
+                                 "common/config_map.py", "metrics.py",
+                                 "tools/input.py", "tools/lencod.py",
+                                 "tools/ldecod.py", "bitstream/rtp.py",
+                                 "encoder/leaky_bucket.py",
+                                 "encoder/checkpoint.py"])
 def test_scan_covers_the_ports_own_copies(rel):
     """Rate control, the slice-group maps, the host intra encoder, the
     SEI writers and parser, the B-slice motion, the B and P MB coders
     with their motion search and fast searchers, the GOP strings and the
     explicit sequence coder, the weighted prediction tables and
     estimates, the custom quant, the RD tools with the basic units' bit
-    count, the trellis and the simulated lossy decoders are the port's
-    own modules, not jm_tpu's."""
+    count, the trellis and the simulated lossy decoders, the config
+    layer with its parameter schema, the metrics, the source readers,
+    the lencod / ldecod entry points, the RTP container, the leaky
+    bucket and the checkpoint are the port's own modules, not
+    jm_tpu's."""
     assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
 
 
