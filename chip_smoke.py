@@ -371,12 +371,38 @@ Phases (any failure raises and exits non-zero):
      stream, on the card: the stream, the recon (view 0; lencod writes
      no view-1 recon, as jm_tpu's) and the decoded YUV (both views in
      one file, sorted by POC) equal the same run on the CPU (a
-     worker's), one launch each of K1 and K2 per picture in each.
-The wall seconds of each group of phases are printed after phase 51.
-The CPU references of phases 4-51 (the encodes on the CPU, the CPU
+     worker's), one launch each of K1 and K2 per picture in each;
+ 52. MB-row sharding (EncoderConfig.sp_shards, parallel/sp_pipeline.py):
+     the sequence's first SHARD_FRAMES frames with md_low through
+     encode_frame, unsharded and with sp_shards 2 and 4 over card_mesh
+     (the cards torch sees in turn; on one card its entries repeat
+     cuda:0 and the bands run one after another): the payloads and recon
+     of each equal the unsharded stream's, sp_steps the P pictures, one
+     launch each of K1 and K2 per picture, each stream decoded on the
+     card equal to its recon; sp_shards 8, which does not divide the 68
+     MB rows, takes the unsharded step (sp_steps 0, the same bytes); each
+     P picture's ms against the unsharded one's; the md_low step alone
+     (CUDA events): p_frame_step against p_frame_step_sharded (equal
+     fields) and the halo assembly's share;
+ 53. the GOP pipeline (parallel/gop_pipeline.encode_gops_parallel): the
+     first GOP_PAR_FRAMES frames with intra_period GOP_PAR_PERIOD in each
+     configuration of GOP_PAR (n_dp 2: md_low; n_dp 2 x n_sp 2 with
+     sp_shards 2; device_rd) on card_mesh, equal to the serial
+     encode_frame stream on the card, results in display order with its
+     recon, one launch each of K1 and K2 per picture; each GOP's wall and
+     whether its I frame replayed the CUDA graphs cached by ops/intra;
+ 54. wide search on the host coders: CIF pipeline="host" I P P streams
+     at search ranges WIDE_RANGES (24, 32) through encode_frame, each
+     equal to its CPU run (a worker's), one launch each of K1 and K2 per
+     picture, decoded on the card equal to its recon, the host P
+     picture's ms per MB against search range 16; lencod on a CIF cfg
+     with SearchRange 32, then ldecod, on the card: stream, recon and
+     decoded YUV equal the CPU run (a worker's).
+The wall seconds of each group of phases are printed after phase 54.
+The CPU references of phases 4-54 (the encodes on the CPU, the CPU
 decodes of the lossy streams, of the DP goldens, cif_main, the weighted,
-High, motion-option, RD, 4:2:2, field, SP and stereo streams, the
-lencod / ldecod run) run in
+High, motion-option, RD, 4:2:2, field, SP, stereo and wide-search
+streams, the lencod / ldecod runs) run in
 CPU_WORKERS worker processes, started before the kernel build and
 stopped before the closing lines, while the card works through the
 phases, queued in the order of the phase that checks each; one more
@@ -396,13 +422,13 @@ their serialization is native); the >8-bit pictures of phase 41 take
 the Python intra recon (the native one is 8-bit).
 
 ``python3 chip_smoke.py --from 18`` builds (phase 1) and runs phases
-18-51 alone, ``--from 22`` phases 22-51, ``--from 25`` phases 25-51,
-``--from 28`` phases 28-51, ``--from 31`` phases 31-51, ``--from 34``
-phases 34-51, ``--from 37`` phases 37-51, ``--from 40`` phases 40-51
+18-54 alone, ``--from 22`` phases 22-54, ``--from 25`` phases 25-54,
+``--from 28`` phases 28-54, ``--from 31`` phases 31-54, ``--from 34``
+phases 34-54, ``--from 37`` phases 37-54, ``--from 40`` phases 40-54
 (after encoding phase 3's first HBD_FRAMES pictures and phase 38's
-CIF stream (a) on the card), ``--from 43`` phases 43-51, ``--from 46``
-phases 46-51 (after encoding phase 3's first CONCEAL_1080P pictures),
-``--from 49`` phases 49-51, without the
+CIF stream (a) on the card), ``--from 43`` phases 43-54, ``--from 46``
+phases 46-54 (after encoding phase 3's first CONCEAL_1080P pictures),
+``--from 49`` phases 49-54, ``--from 52`` phases 52-54, without the
 closing JSON lines (a quicker
 check of those phases while they are developed). The
 last line of
@@ -1547,9 +1573,10 @@ def golden_bytes(name: str) -> bytes:
 
 def start_cpu_references(pool, frames, first: int, tools_dir: str) -> dict:
     """Submit the CPU references of phases first..44 (4, 18, 22, 25, 28,
-    31, 34, 37, 40, 43, 46 or 49; with first 40 or later those of phases
-    47-51 too, else sp_cpu_jobs and mvc_cpu_jobs after phase 39; tools_dir:
-    phase 51's directory) to the worker pool in the order of the phase that
+    31, 34, 37, 40, 43, 46, 49 or 52; with first 40 or later those of
+    phases 47-54 that run too, else sp_cpu_jobs, mvc_cpu_jobs and
+    wide_cpu_jobs after phase 39; tools_dir: phase 51's and 54's
+    directory) to the worker pool in the order of the phase that
     checks each (phases 8-9's after phase 14), so that the pool finishes
     each before the card needs it (PR 15 runs 2-3, with the long 1080p
     host encodes of phases 28 and 34 first, waited 24.2 / 44.9 s for phase
@@ -1614,8 +1641,10 @@ def start_cpu_references(pool, frames, first: int, tools_dir: str) -> dict:
             for _, name, fn, args in jobs}
     if 40 <= first <= 46:
         refs.update(sp_cpu_jobs(pool, frames))
-    if first >= 40:
+    if 40 <= first <= 49:
         refs.update(mvc_cpu_jobs(pool, frames, tools_dir))
+    if first >= 40:
+        refs.update(wide_cpu_jobs(pool, frames, tools_dir))
     return refs
 
 
@@ -1832,9 +1861,9 @@ class RedundantTimedEncoder(CabacTimedEncoder):
     the primary's, then the redundant coding's) and each redundant
     slice's serialization ("red_serialize")."""
 
-    def _p_step(self, *a):
+    def _p_step(self, *a, **kw):
         return self._timed(self.display_idx - 1, "p_step", super()._p_step,
-                           *a)
+                           *a, **kw)
 
     def _serialize_redundant(self, *a):
         return self._timed(self.display_idx - 1, "red_serialize",
@@ -4657,6 +4686,364 @@ def mvc_phases(frames, cpu_refs, tools_dir: str) -> dict:
     return out
 
 
+# ---- phases 52-54: the parallel axes and the wide search -------------------
+
+SHARD_FRAMES = 4          # frames of phase 52's MB-row sharded streams
+SHARDS = (2, 4)           # their shard counts that divide mb_h 68
+SHARDS_FALL = 8           # one that does not: the unsharded step runs
+GOP_PAR_FRAMES = 6        # frames of phase 53's GOP streams
+GOP_PAR_PERIOD = 3        # their intra_period (two closed GOPs)
+# phase 53's configurations: (label, n_dp, n_sp, EncoderConfig keywords)
+GOP_PAR = (("md_low", 2, 1, dict(device_rd=False)),
+           ("md_low sp_shards 2", 2, 2, dict(device_rd=False, sp_shards=2)),
+           ("device_rd", 2, 1, dict(device_rd=True)))
+WIDE_FRAMES = 3           # frames of phase 54's CIF host streams (I P P)
+WIDE_RANGES = (24, 32)    # their search ranges (16: the comparison)
+
+
+def card_mesh(n: int) -> list:
+    """n devices for a mesh: the cards torch sees in turn (one card: n
+    entries of cuda:0, whose bands or GOPs then run one after another)."""
+    k = torch.cuda.device_count()
+    return [torch.device("cuda", i % k) for i in range(n)]
+
+
+def graph_count() -> int:
+    """The CUDA graphs of the I frame's waves held by ops/intra's cache."""
+    from jm_tpu_torch.ops import intra
+    return sum(len(st.graphs) for st in intra._GRAPH_STATES.values())
+
+
+def framed_encode(label: str, cfg, frames, mesh):
+    """frames through encode_frame + flush on the card (the encoder's
+    _sp_mesh: mesh), each picture timed; one launch each of K1 and K2 per
+    picture, every slice serialized natively. Returns (payloads, the
+    encoder, the launches)."""
+    enc = PictureTimedEncoder(cfg, device=DEVICE)
+    enc._sp_mesh = mesh
+    kernels.reset_launches()
+    native.reset_routes()
+    payloads = [enc.encode_frame(*f) for f in frames]
+    payloads[-1] += enc.flush()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_launches(launches, len(frames), f"{label} encode")
+    check_routes(f"{label} encode", serialize=len(frames))
+    return payloads, enc, launches
+
+
+def sharded_cfg(shards: int):
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         device_rd=False, sp_shards=shards)
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def sharded_step_timing(enc, frames) -> None:
+    """The last P picture's device step alone (CUDA events, median of 3):
+    ops/enc.p_frame_step against p_frame_step_sharded at each of SHARDS
+    (equal fields required), and the halo assembly of its reference planes
+    (_extend_band of Y, U and V: on one card each band's copy is the same
+    tensor, so this is the concatenation and edge fix)."""
+    from jm_tpu_torch.encoder.encoder import lambda_me, lambda_mode4
+    from jm_tpu_torch.ops import enc as E
+    from jm_tpu_torch.parallel import sp_pipeline as SP
+    mb_w, mb_h = W // 16, H // 16
+    packed = enc._upload(frames[-1])
+    Y, U, V = enc._planes(packed)
+    planes, padU, padV = enc.results[-2]["frame"].state
+    p = E.PAD
+    rY, rU, rV = planes[0, p:-p, p:-p], padU[p:-p, p:-p], padV[p:-p, p:-p]
+    args = (QP, chroma_qp(QP, 0), lambda_me(QP), lambda_mode4(QP))
+    want = E.p_frame_step(Y, U, V, planes, padU, padV, *args, mb_w=mb_w,
+                          mb_h=mb_h, sr=16, rd=False)
+    t_one = cuda_ms(lambda: E.p_frame_step(
+        Y, U, V, planes, padU, padV, *args, mb_w=mb_w, mb_h=mb_h, sr=16,
+        rd=False), reps=3)
+    parts = [f"unsharded {t_one:.1f} ms"]
+    for n in SHARDS:
+        mesh = card_mesh(n)
+        got = SP.p_frame_step_sharded(mesh, Y, U, V, rY, rU, rV, *args,
+                                      mb_w=mb_w, mb_h=mb_h, sr=16)
+        for k, v in want.items():
+            if not torch.equal(got[k], v):
+                raise AssertionError(f"p_frame_step_sharded ({n} shards): "
+                                     f"{k} differs from p_frame_step")
+        t_n = cuda_ms(lambda: SP.p_frame_step_sharded(
+            mesh, Y, U, V, rY, rU, rV, *args, mb_w=mb_w, mb_h=mb_h, sr=16),
+            reps=3)
+        bh = H // n
+
+        def halo():
+            for plane, rows, e in ((rY, bh, SP.HALO + 3),
+                                   (rU, bh // 2, SP.HALO // 2),
+                                   (rV, bh // 2, SP.HALO // 2)):
+                SP._extend_band([plane[i * rows:(i + 1) * rows].to(d)
+                                 for i, d in enumerate(mesh)], mesh, e,
+                                plane.shape[0])
+        t_h = cuda_ms(halo, reps=3)
+        parts.append(f"{n} shards {t_n:.1f} ms (halo assembly {t_h:.2f} ms "
+                     f"= {t_h / t_n:.3f} of it)")
+    print("md_low P step alone at 1080p (CUDA events; equal fields): "
+          + ", ".join(parts), flush=True)
+
+
+def sharded_phase(frames) -> dict:
+    """Phase 52: the first SHARD_FRAMES frames with md_low through
+    encode_frame, unsharded and with sp_shards 2 and 4 on card_mesh; each
+    stream and recon equal the unsharded one's, sp_steps the P pictures,
+    one launch each of K1 and K2 per picture, each stream's decode on the
+    card equal to its recon; sp_shards 8 (68 MB rows) falls through:
+    sp_steps 0, the same bytes. Returns the launches of the sharded
+    encodes (sp), of their decodes (sp_decode) and of the fall-through
+    (sp_fall_through)."""
+    frames = frames[:SHARD_FRAMES]
+    n_p = len(frames) - 1
+    base, base_enc, _ = framed_encode("unsharded md_low 1080p",
+                                       sharded_cfg(1), frames, None)
+    rec = _recon(base_enc.results)
+    p_ms = statistics.median(base_enc.picture_ms[1:])
+    print(f"unsharded md_low 1080p (encode_frame): {sum(map(len, base))} "
+          f"stream bytes, P picture {p_ms:.1f} ms (median of {n_p})",
+          flush=True)
+    out = {"sp": {}, "sp_decode": {}}
+    for n in SHARDS + (SHARDS_FALL,):
+        mesh = card_mesh(n)
+        label = f"sp_shards {n} 1080p"
+        payloads, enc, launches = framed_encode(label, sharded_cfg(n),
+                                                 frames, mesh)
+        want = n_p if (H // 16) % n == 0 else 0
+        if enc.sp_steps != want:
+            raise AssertionError(f"{label}: sp_steps {enc.sp_steps}, "
+                                 f"expected {want}")
+        if payloads != base:
+            raise AssertionError(f"{label}: payloads differ from the "
+                                 f"unsharded stream")
+        check_frames([r["frame"] for r in enc.results], rec,
+                     f"{label} recon")
+        ms = statistics.median(enc.picture_ms[1:])
+        print(f"{label} on {[str(d) for d in mesh]}: sp_steps "
+              f"{enc.sp_steps}, payloads and recon equal the unsharded "
+              f"stream; P picture {ms:.1f} ms (unsharded {p_ms:.1f} ms), "
+              f"launches {launches}", flush=True)
+        if want:
+            out["sp"] = _add(out["sp"], launches)
+            out["sp_decode"] = _add(out["sp_decode"], card_decode(
+                payloads, enc, f"decode {label}"))
+        else:
+            out["sp_fall_through"] = launches
+    sharded_step_timing(base_enc, frames)
+    return out
+
+
+class GopTimedEncoder(PictureTimedEncoder):
+    """The GOP pipeline's encoders in phase 53: each notes in ``gops`` its
+    wall seconds from construction to the end of flush, the CUDA graphs
+    its I frame captured (0: it replayed the cached ones), its device
+    and its sp_steps."""
+
+    gops: list = []
+
+    def __init__(self, *a, **kw):
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+        super().__init__(*a, **kw)
+        self._graphs0 = graph_count()
+
+    def flush(self):
+        out = super().flush()
+        torch.cuda.synchronize()
+        GopTimedEncoder.gops.append({
+            "s": time.perf_counter() - self._t0,
+            "captured": graph_count() - self._graphs0,
+            "device": str(self.device), "sp_steps": self.sp_steps})
+        return out
+
+
+def gop_par_cfg(**kw):
+    return EncoderConfig(width=W, height=H, qp=QP, search_range=16,
+                         intra_period=GOP_PAR_PERIOD, **kw)
+
+
+def gop_par_phase(frames) -> dict:
+    """Phase 53: the first GOP_PAR_FRAMES frames through
+    parallel/gop_pipeline.encode_gops_parallel in each configuration of
+    GOP_PAR on card_mesh, against the serial encode_frame stream on the
+    card (md_low with sp_shards 1, or device_rd): the same bytes, the
+    results in display order with the serial recon, sp_steps the P
+    pictures where sharded, one launch each of K1 and K2 per picture;
+    each GOP's wall and whether its I frame replayed the cached CUDA
+    graphs. Returns its launches (gop_parallel: "gop" is phase
+    24's)."""
+    from jm_tpu_torch.parallel import gop_pipeline
+    frames = frames[:GOP_PAR_FRAMES]
+    serial = {}
+    for rd in (False, True):
+        enc = Encoder(gop_par_cfg(device_rd=rd), device=DEVICE)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        data = b"".join(enc.encode_frame(*f) for f in frames) + enc.flush()
+        torch.cuda.synchronize()
+        check_launches(launch_counts(), len(frames), "serial GOP encode")
+        serial[rd] = (data, _recon(enc.results), time.perf_counter() - t0)
+        print(f"serial {'device_rd' if rd else 'md_low'} 1080p, intra_period "
+              f"{GOP_PAR_PERIOD} (encode_frame): {len(data)} stream bytes, "
+              f"{serial[rd][2]:.2f} s", flush=True)
+    out = {}
+    for label, n_dp, n_sp, kw in GOP_PAR:
+        mesh = card_mesh(n_dp * n_sp)
+        GopTimedEncoder.gops = []
+        gop_pipeline.Encoder = GopTimedEncoder
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            data, results = gop_pipeline.encode_gops_parallel(
+                frames, gop_par_cfg(**kw), n_dp=n_dp, n_sp=n_sp,
+                devices=mesh)
+            torch.cuda.synchronize()
+        finally:
+            gop_pipeline.Encoder = Encoder
+        total_s = time.perf_counter() - t0
+        launches = launch_counts()
+        check_launches(launches, len(frames), f"GOP {label}")
+        want, rec, serial_s = serial[kw["device_rd"]]
+        if data != want:
+            raise AssertionError(f"GOP {label}: payloads differ from the "
+                                 f"serial stream")
+        if [r["disp"] for r in results] != list(range(len(frames))):
+            raise AssertionError(f"GOP {label}: results out of order")
+        check_frames([r["frame"] for r in results], rec, f"GOP {label}")
+        gops = GopTimedEncoder.gops
+        steps = sum(g["sp_steps"] for g in gops)
+        want_steps = len(frames) - len(gops) if kw.get("sp_shards", 1) > 1 \
+            else 0
+        if steps != want_steps:
+            raise AssertionError(f"GOP {label}: sp_steps {steps}, expected "
+                                 f"{want_steps}")
+        print(f"GOP {label} (n_dp {n_dp}, n_sp {n_sp}) on "
+              f"{[str(d) for d in mesh]}: {len(data)} bytes equal the "
+              f"serial stream, {total_s:.2f} s (serial {serial_s:.2f} s), "
+              f"sp_steps {steps}; " + ", ".join(
+                  f"GOP {i} on {g['device']} {g['s']:.2f} s, I frame "
+                  + ("replayed the cached graphs" if g["captured"] == 0
+                     else f"captured {g['captured']} graphs")
+                  for i, g in enumerate(gops))
+              + f"; launches {launches}", flush=True)
+        out["gop_parallel"] = _add(out.get("gop_parallel", {}), launches)
+    return out
+
+
+def wide_cfg(sr: int):
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=sr,
+                         pipeline="host")
+
+
+def wide_tools_sources(d: str, frames) -> str:
+    """Phase 54's lencod input in directory d: the CIF frames' YUV file and
+    a one-view cfg with SearchRange 32; returns the cfg's path."""
+    os.makedirs(d, exist_ok=True)
+    src = cif(frames, WIDE_FRAMES)
+    with open(os.path.join(d, "wide.yuv"), "wb") as fh:
+        for f in src:
+            fh.write(b"".join(np.ascontiguousarray(p).tobytes() for p in f))
+    with open(os.path.join(d, "wide.cfg"), "w") as fh:
+        fh.write(f'''InputFile = "{d}/wide.yuv"
+SourceWidth = 352
+SourceHeight = 288
+FramesToBeEncoded = {WIDE_FRAMES}
+QPISlice = {QP}
+QPPSlice = {QP}
+SearchRange = {max(WIDE_RANGES)}
+''')
+    return os.path.join(d, "wide.cfg")
+
+
+def wide_cpu_jobs(pool, frames, tools_dir: str) -> dict:
+    """The CPU references of phase 54 (the CIF host streams at each of
+    WIDE_RANGES, lencod on wide_tools_sources' cfg), submitted to the
+    worker pool; returns their AsyncResults by name."""
+    src = cif(frames, WIDE_FRAMES)
+    d = os.path.join(tools_dir, "wide")
+    jobs = [(f"wide_{sr}", cpu_encode, (wide_cfg(sr), src, True))
+            for sr in WIDE_RANGES]
+    jobs += [("wide_lencod", cpu_tools,
+              (wide_tools_sources(d, frames), os.path.join(d, "cpu")))]
+    return {name: pool.apply_async(fn, args, callback=_arrived(name))
+            for name, fn, args in jobs}
+
+
+def wide_phase(frames, cpu_refs, tools_dir: str) -> dict:
+    """Phase 54: CIF host-pipeline IPP streams of WIDE_FRAMES frames at
+    each of WIDE_RANGES through encode_frame on the card, each equal to
+    its CPU run (a worker's), one launch each of K1 and K2 per picture,
+    decoded on the card equal to its recon; the host P picture's ms per
+    MB against a search range of 16; lencod on a CIF cfg with
+    SearchRange 32, then ldecod, on the card: stream, recon and decoded
+    YUV equal the CPU run, the decode equal to the recon. Returns the
+    launches of the encodes (wide_search) and of the decodes
+    (wide_search_decode)."""
+    src = cif(frames, WIDE_FRAMES)
+    n_mbs = 22 * 18
+    out = {"wide_search": {}, "wide_search_decode": {}}
+    per_mb = {}
+    for sr in (16,) + WIDE_RANGES:
+        label = f"CIF host SR {sr}"
+        fr = src if sr in WIDE_RANGES else src[:2]
+        payloads, enc, launches = framed_encode(label, wide_cfg(sr), fr,
+                                                 None)
+        per_mb[sr] = statistics.median(enc.picture_ms[1:]) / n_mbs
+        print(f"encode {label} (encode_frame, I P{'P' * (len(fr) - 2)}): "
+              f"{sum(map(len, payloads))} stream bytes, P pictures "
+              + ", ".join(f"{ms:.1f} ms" for ms in enc.picture_ms[1:])
+              + f" = {per_mb[sr]:.3f} ms/MB (SR 16: {per_mb[16]:.3f}), "
+              f"launches {launches}", flush=True)
+        if sr == 16:
+            continue
+        check_cpu_encode(label, cpu_refs[f"wide_{sr}"], payloads, enc,
+                         len(fr))
+        out["wide_search"] = _add(out["wide_search"], launches)
+        out["wide_search_decode"] = _add(out["wide_search_decode"],
+                                         card_decode(payloads, enc,
+                                                     f"decode {label}"))
+    d = os.path.join(tools_dir, "wide")
+    (stream, rec, decoded), steps = run_tools(os.path.join(d, "wide.cfg"),
+                                              os.path.join(d, "card"),
+                                              DEVICE)
+    for (_s, launches), name in zip(steps, ("lencod", "ldecod")):
+        check_launches(launches, WIDE_FRAMES, f"{name} SearchRange 32")
+    t0 = time.perf_counter()
+    want = cpu_refs["wide_lencod"].get()
+    for name, a, b in zip(("stream", "recon", "decoded YUV"),
+                          (stream, rec, decoded), want):
+        if a != b:
+            raise AssertionError(f"lencod SearchRange 32: the {name} "
+                                 f"differs from the CPU run")
+    if decoded != rec:
+        raise AssertionError("ldecod SearchRange 32: the decode differs "
+                             "from lencod's recon")
+    print(f"lencod SearchRange 32 (CIF, {WIDE_FRAMES} frames, the host "
+          f"pipeline) {steps[0][0]:.1f} s, {len(stream)} stream bytes, "
+          f"launches {steps[0][1]}; ldecod {steps[1][0]:.2f} s, equal to "
+          f"the recon, launches {steps[1][1]}; stream, recon and decoded "
+          f"YUV equal the CPU run (CPU worker; waited "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    out["wide_search"] = _add(out["wide_search"], steps[0][1])
+    out["wide_search_decode"] = _add(out["wide_search_decode"], steps[1][1])
+    return out
+
+
+def parallel_phases(frames, cpu_refs, tools_dir: str) -> dict:
+    """Phases 52-54; returns the launches of each path by name: sp,
+    sp_decode, sp_fall_through, gop_parallel, wide_search,
+    wide_search_decode."""
+    out = sharded_phase(frames)
+    out.update(gop_par_phase(frames))
+    out.update(wide_phase(frames, cpu_refs, tools_dir))
+    return out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -4702,7 +5089,7 @@ def main() -> int:
                                ["--from", "31"], ["--from", "34"],
                                ["--from", "37"], ["--from", "40"],
                                ["--from", "43"], ["--from", "46"],
-                               ["--from", "49"])
+                               ["--from", "49"], ["--from", "52"])
     first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
     pool = cpu_pool()
@@ -4747,9 +5134,9 @@ def hbd_cpu_jobs(hbd_pool, payloads=None, y422_payloads=None) -> dict:
 
 def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
                 tools_dir: str) -> int:
-    """Phases first..51 (18, 22, 25, 28, 31, 34, 37, 40, 43, 46 or 49)
-    without the closing JSON lines; refs: their CPU references; clock: the
-    PhaseClock of the run; tools_dir: phase 51's directory. From 40,
+    """Phases first..54 (18, 22, 25, 28, 31, 34, 37, 40, 43, 46, 49 or
+    52) without the closing JSON lines; refs: their CPU references; clock:
+    the PhaseClock of the run; tools_dir: phase 51's and 54's directory. From 40,
     phase 3's first HBD_FRAMES pictures and phase 38's CIF stream (a) are
     encoded on the card first; from 46, phase 3's first CONCEAL_1080P
     pictures."""
@@ -4776,6 +5163,7 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
                                  np.random.default_rng(37))[2]
         refs.update(sp_cpu_jobs(pool, frames))
         refs.update(mvc_cpu_jobs(pool, frames, tools_dir))
+        refs.update(wide_cpu_jobs(pool, frames, tools_dir))
         clock.lap("37-39")
     elif first <= 40:
         y422_cif_a = b_encode(y422_cif_cfg(Y422_CIF[0][2]),
@@ -4798,10 +5186,13 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
         conceal_phase(payloads, cif(frames, CONCEAL_CIF_FRAMES), refs,
                       conceal_job)
         clock.lap("48")
-    mvc_phases(frames, refs, tools_dir)
-    clock.lap("49-51")
+    if first <= 49:
+        mvc_phases(frames, refs, tools_dir)
+        clock.lap("49-51")
+    parallel_phases(frames, refs, tools_dir)
+    clock.lap("52-54")
     clock.report()
-    print(f"phases {first}-51 passed (partial run: no closing lines)")
+    print(f"phases {first}-54 passed (partial run: no closing lines)")
     return 0
 
 
@@ -4843,10 +5234,10 @@ class PhaseClock:
 
 def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
              tools_dir: str) -> int:
-    """Phases 2-51 and the closing lines; cpu_refs: the CPU references of
-    phases 4-51; hbd_pool: the worker of phase 41's and phase 48's CPU
+    """Phases 2-54 and the closing lines; cpu_refs: the CPU references of
+    phases 4-54; hbd_pool: the worker of phase 41's and phase 48's CPU
     decodes; clock: the PhaseClock of the run, its first lap the builds;
-    tools_dir: phase 51's directory."""
+    tools_dir: phase 51's and 54's directory."""
     # ---- 2. kernels against their plain versions ------------------------
     mb_w, mb_h = W // 16, H // 16
     rng = np.random.default_rng(1)
@@ -5029,6 +5420,7 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
     hbd_jobs.update(hbd_cpu_jobs(hbd_pool, y422_payloads=y422_cif_a))
     cpu_refs.update(sp_cpu_jobs(pool, frames))
     cpu_refs.update(mvc_cpu_jobs(pool, frames, tools_dir))
+    cpu_refs.update(wide_cpu_jobs(pool, frames, tools_dir))
     k422["launches"] = y422["y422"]["deblock_chroma422"]
     kstats["deblock_chroma422"] = k422
     max_err["deblock_chroma422"] = k422["max_err"]
@@ -5082,6 +5474,13 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
     # lencod and ldecod on a stereo cfg ------------------------------------
     later.update(mvc_phases(frames, cpu_refs, tools_dir))
     clock.lap("49-51")
+
+    # ---- 52-54. the parallel axes and the wide search: md_low sharded
+    # by MB rows at 1080p, the GOP pipeline on a mesh of the card, the CIF
+    # host streams at search ranges 24 / 32 and lencod at SearchRange 32,
+    # their decodes ------------------------------------------------------
+    later.update(parallel_phases(frames, cpu_refs, tools_dir))
+    clock.lap("52-54")
     clock.report()
 
     rows = []

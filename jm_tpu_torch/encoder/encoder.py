@@ -54,8 +54,10 @@ The per-frame path (``encode_frame``, and every frame of a stream outside
 the pipe), at the picture's QP:
   - I pictures: i_frame_step on the device on the device route, else
     the serial host intra encoder (encoder/intra_host.py);
-  - P pictures on the device route: ops/enc.p_frame_step on the device,
-    the download of its fields, the host commit with the serial
+  - P pictures on the device route: ops/enc.p_frame_step on the device
+    (md_low with sp_shards > 1 dividing mb_h: sharded by MB rows over a
+    list of devices, parallel/sp_pipeline.py), the download of its
+    fields, the host commit with the serial
     re-encode of the intra MBs and the picture's slice boundaries
     (encoder/p_intra.py);
   - other P pictures: the quadrant integer search table of each active
@@ -178,6 +180,7 @@ from ..device import resolve
 from ..ops import enc as E
 from ..ops.deblock import compute_bs, deblock
 from ..ops.intra import i_frame_step
+from ..parallel.sp_pipeline import make_sp_mesh, p_frame_step_sharded
 from ..ratectl import BasicUnitRC, RateControl
 from .b_host import BPicture, HostRef
 from .gop import parse_explicit_hierarchy
@@ -251,7 +254,10 @@ class EncoderConfig:
     height: int = 144
     qp: int = 28                 # I-picture QP (and P without qp_p / RC)
     intra_period: int = 0        # 0: only the first frame is an IDR
-    search_range: int = 16       # integer full search +-SR (1..16)
+    search_range: int = 16       # integer full search +-SR (the device
+                                 # P step takes 1..16, the host coders
+                                 # 1..32: a wider range raises at the
+                                 # first P picture, as in jm_tpu)
     level_idc: int = 30          # raised to the smallest level that fits
     frame_rate: float = 30.0
     device_rd: bool = True       # trial-encode RD mode decision; False:
@@ -334,6 +340,12 @@ class EncoderConfig:
                                  # covers the picture; "host": every
                                  # picture by the serial host coders
                                  # (jm_tpu's default)
+    sp_shards: int = 1           # >1: the md_low device P step sharded
+                                 # by MB rows over this many devices
+                                 # (parallel/sp_pipeline.py), the same
+                                 # bytes; where it does not divide mb_h,
+                                 # or with device_rd or a range above 16,
+                                 # the unsharded step runs
     transform8x8: bool = False   # the adaptive 8x8 transform of inter MBs
                                  # (High profile)
     scaling_matrix: int = 0      # scaling lists: 1 in the SPS, 2 in the
@@ -492,11 +504,12 @@ def _check_config(cfg: EncoderConfig) -> None:
     if cfg.intra_period < 0:
         raise ValueError(f"EncoderConfig.intra_period={cfg.intra_period}: "
                          "must be >= 0")
-    # the device P path's plane padding (ops/enc.band_geometry, as
-    # jm_tpu's enc_jax.band_geometry) holds a search range of 16 at most
-    if not 0 < cfg.search_range <= 16:
+    # a range above 16 raises at the first P picture of the device route
+    # (ops/enc.band_geometry), above 32 at the host coders' first full
+    # search (ops/enc.full_search_sad_quad), as in jm_tpu
+    if cfg.search_range <= 0:
         raise ValueError(f"EncoderConfig.search_range={cfg.search_range}: "
-                         "1..16 only (the device path's plane padding)")
+                         "must be > 0")
     if cfg.poc_type not in (0, 1, 2):
         raise ValueError(f"EncoderConfig.poc_type={cfg.poc_type}: 0, 1 or 2")
     if cfg.rc_enable and not cfg.rc_bitrate > 0:
@@ -766,7 +779,10 @@ class Encoder:
     counts them). ``refs`` is the DPB, most recent first (with
     pic_interlace the reference fields). With two views ``results_v1``
     holds one dict per view-1 picture (disp, type, anchor, bits, qp, ref,
-    frame, seconds) and ``refs_v1`` view 1's references."""
+    frame, seconds) and ``refs_v1`` view 1's references. ``sp_steps``
+    counts the device P steps taken sharded by MB rows (sp_shards) over
+    ``_sp_mesh``, a list of torch.devices (parallel/sp_pipeline.py;
+    set by parallel/gop_pipeline.py, or made at the first such step)."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         _check_config(cfg)
@@ -876,6 +892,8 @@ class Encoder:
         # overflowed
         self.fallbacks = []
         self.redispatches = 0
+        self.sp_steps = 0         # device P steps taken MB-row sharded
+        self._sp_mesh = None      # their devices (parallel/sp_pipeline)
         self.ovf = []
         # random intra refresh (intrarefresh.c RandomIntraInit): a seeded
         # permutation of MB addresses taken intra_mb_refresh at a time
@@ -1031,8 +1049,10 @@ class Encoder:
         mode, a fixed QP, no intra refresh, the loop filter on, no
         long-term anchors, no data partitioning, no SP pictures, no
         trellis, no rd_picture_decision and one view, any POC type, with
-        or without redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI
-        (jm_tpu _pipe_ok); everything else takes the per-frame path."""
+        or without redundant_period, poc_mem_mgmt, ref_reorder, SEI or VUI,
+        and a search range of 24 at most (jm_tpu _pipe_ok; both device P
+        steps raise above 16, so the range decides only where the stream
+        raises); everything else takes the per-frame path."""
         cfg = self.cfg
         return (self._device_path_ok(weighted=bool(cfg.weighted_pred))
                 and cfg.num_ref == 1 and cfg.sp_periodicity == 0
@@ -1042,7 +1062,7 @@ class Encoder:
                 and self.rc is None and cfg.qp_p is None and cfg.deblock
                 and cfg.long_term_period == 0 and cfg.data_partition == 0
                 and not cfg.rdoq and not cfg.rd_picture_decision
-                and cfg.num_views == 1)
+                and cfg.num_views == 1 and cfg.search_range <= 24)
 
     # ------------------------------------------------------------------
 
@@ -1564,13 +1584,40 @@ class Encoder:
                              "slices": len(self.slice_plan), **info})
         return payload
 
-    def _p_step(self, packed, ref: Picture, qp: int):
-        """ops/enc.p_frame_step of the uploaded frame against ref at qp."""
+    def _p_step(self, packed, ref: Picture, qp: int, reuse=None,
+                frame=None):
+        """The device P step of the uploaded frame (packed; None: upload
+        frame) against ref at qp, in jm_tpu _encode_p_device's order
+        (encoder.py:2221-2241): md_low with sp_shards > 1 dividing mb_h
+        and a range of 16 at most runs sharded by MB rows
+        (parallel/sp_pipeline.py, counted in sp_steps) over _sp_mesh, or
+        else over make_sp_mesh(sp_shards) of the encoder's device type,
+        which raises with fewer devices; else reuse, the pipe's encode of
+        this frame, when given; else ops/enc.p_frame_step."""
+        cfg = self.cfg
+        qpc = chroma_qp(qp, self.pps.chroma_qp_index_offset)
+        if (cfg.sp_shards > 1 and self.mb_h % cfg.sp_shards == 0
+                and cfg.search_range <= 16 and not cfg.device_rd):
+            if self._sp_mesh is None or len(self._sp_mesh) != cfg.sp_shards:
+                self._sp_mesh = make_sp_mesh(cfg.sp_shards,
+                                             device_type=self.device.type)
+            if packed is None:
+                packed = self._upload(frame)
+            p = E.PAD
+            planes, padU, padV = ref.state
+            out = p_frame_step_sharded(
+                self._sp_mesh, *self._planes(packed), planes[0, p:-p, p:-p],
+                padU[p:-p, p:-p], padV[p:-p, p:-p], qp, qpc, lambda_me(qp),
+                lambda_mode4(qp), mb_w=self.mb_w, mb_h=self.mb_h,
+                sr=cfg.search_range)
+            self.sp_steps += 1
+            return out
+        if reuse is not None:
+            return reuse
         return E.p_frame_step(
-            *self._planes(packed), *ref.state, qp,
-            chroma_qp(qp, self.pps.chroma_qp_index_offset), lambda_me(qp),
+            *self._planes(packed), *ref.state, qp, qpc, lambda_me(qp),
             lambda_mode4(qp), mb_w=self.mb_w, mb_h=self.mb_h,
-            sr=self.cfg.search_range, rd=self.cfg.device_rd)
+            sr=cfg.search_range, rd=cfg.device_rd)
 
     # ---- the DPB (jm_tpu encoder.py:501-578) ---------------------------
 
@@ -1911,9 +1958,13 @@ class Encoder:
         if intra_any:
             self.fallbacks.append(disp)
             # jm_tpu's fallback runs encode_frame with the dispatched
-            # encode reused, also by the redundant coding (Queue 3)
-            return self._finish_p(out["core"], disp, frame, (),
-                                  self.cfg.qp, red_core=out["core"]), True
+            # encode reused, also by the redundant coding (Queue 3), where
+            # the sharded step does not run first
+            ref = self._ref_list_p(2 * (disp - self._idr_disp))[0]
+            core = self._p_step(None, ref, self.cfg.qp, reuse=out["core"],
+                                frame=frame)
+            return self._finish_p(core, disp, frame, (), self.cfg.qp,
+                                  red_core=out["core"]), True
         poc = 2 * (disp - self._idr_disp)
         motion = None
         if ovf:
@@ -2188,8 +2239,7 @@ class Encoder:
         qp_r = min(51, qp + cfg.redundant_qp_off)
         qpc_r = chroma_qp(qp_r, self.pps.chroma_qp_index_offset)
         if self._device_path_ok():
-            if core is None:
-                core = self._p_step(packed, ref, qp_r)
+            core = self._p_step(packed, ref, qp_r, reuse=core, frame=frame)
             c = self._commit_p(self._download_core(core), frame, (), qp_r,
                                qpc_r, self.slice_plan)
         else:

@@ -146,25 +146,27 @@ class EPZSearcher:
             self._cache_key = (addr, r)
             self._cache = {}
         v = self._cache.get((dx, dy))
-        if v is None and self.native:
-            mbx, mby = addr % self.mb_w, addr // self.mb_w
-            v = N.load().quad_sad(self.orig_quads[addr], self.ref_pads[r],
-                                  PAD + mbx * 16 + dx, PAD + mby * 16 + dy)
-            self._cache[(dx, dy)] = v
-            self.n_evals += 1
-        elif v is None:
-            mbx, mby = addr % self.mb_w, addr // self.mb_w
-            px, py = mbx * 16, mby * 16
-            rp = self.ref_pads[r]
-            win = rp[PAD + py + dy: PAD + py + dy + 16,
-                     PAD + px + dx: PAD + px + dx + 16] \
-                .astype(np.int32)
+        if v is not None:
+            return v
+        rp = self.ref_pads[r]
+        x = PAD + (addr % self.mb_w) * 16 + dx
+        y = PAD + (addr // self.mb_w) * 16 + dy
+        if (self.native and 0 <= x <= rp.shape[1] - 16
+                and 0 <= y <= rp.shape[0] - 16):
+            v = N.load().quad_sad(self.orig_quads[addr], rp, x, y)
+        else:
+            win = rp[y:y + 16, x:x + 16].astype(np.int32)
+            # a window beyond the padding (search_range > PAD) is sliced
+            # as jm_tpu slices it: wrapped, or cut short and refused
+            if win.shape != (16, 16):
+                raise ValueError(f"search range {self.sr}: the window at "
+                                 f"({dx}, {dy}) exceeds the plane padding "
+                                 f"{PAD}")
             # quadrant order matches _QUAD_OFF: q0 TL, q1 TR, q2 BL, q3 BR
             w4 = win.reshape(2, 8, 2, 8).transpose(0, 2, 1, 3).reshape(4, 8, 8)
-            d = np.abs(self.orig_quads[addr] - w4)
-            v = d.sum(axis=(1, 2))
-            self._cache[(dx, dy)] = v
-            self.n_evals += 1
+            v = np.abs(self.orig_quads[addr] - w4).sum(axis=(1, 2))
+        self._cache[(dx, dy)] = v
+        self.n_evals += 1
         return v
 
     def _sad(self, addr: int, r: int, quads, dx: int, dy: int) -> int:

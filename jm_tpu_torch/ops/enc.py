@@ -173,10 +173,13 @@ def prep_ref(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
 # integer full search
 # ---------------------------------------------------------------------------
 
-def me_int_sweep(origY, ref_int, mb_w: int, mb_h: int, sr: int, lam: int):
+def me_int_sweep(origY, ref_int, mb_w: int, mb_h: int, sr: int, lam: int,
+                 y0: int = -PAD, band_y0: int = 0):
     """Integer-pel full search of all 9 partition jobs of every MB.
 
-    origY (H, W) uint8; ref_int the padded integer plane (pad PAD).
+    origY (H, W) uint8, or an MB-row band of it whose first row is
+    picture row band_y0; ref_int the padded integer plane (pad PAD), its
+    row 0 picture row y0 (-PAD for the whole picture's plane).
     Cost = SAD + lam * (se_bits(4 dx) + se_bits(4 dy)) (zero predictor).
     Returns (mv (N, 9, 2) int32, cost (N, 9) int32). Displacements are
     visited row by row, left to right, keeping the first minimum — one
@@ -186,7 +189,8 @@ def me_int_sweep(origY, ref_int, mb_w: int, mb_h: int, sr: int, lam: int):
     h, w = mb_h * 16, mb_w * 16
     n = mb_w * mb_h
     dev = origY.device
-    region = ref_int[PAD - sr:PAD - sr + h + 2 * sr,
+    r0 = band_y0 - sr - y0
+    region = ref_int[r0:r0 + h + 2 * sr,
                      PAD - sr:PAD - sr + w + 2 * sr].to(torch.float32)
     o = origY.to(torch.float32)
     se = on(SE_BITS, dev)
@@ -216,6 +220,15 @@ def me_int_sweep(origY, ref_int, mb_w: int, mb_h: int, sr: int, lam: int):
 # SATD, predictors, intra-16 trigger
 # ---------------------------------------------------------------------------
 
+def _check_host_range(sr: int) -> None:
+    """The host coders' full search reads the planes' PAD rows and
+    columns: a wider range raises, as jm_tpu's encoder/me.py slicing
+    does (at the first P or B picture)."""
+    if sr > PAD:
+        raise ValueError(f"search range {sr} exceeds the host coders' plane "
+                         f"padding {PAD}")
+
+
 def full_search_sad_quad(origY, ref_int, mb_w: int, mb_h: int, sr: int):
     """The SAD of each 8x8 quadrant of every MB at every integer
     displacement of the +-sr window: (N, (2 sr + 1)^2, 4) int32, row-major
@@ -225,6 +238,7 @@ def full_search_sad_quad(origY, ref_int, mb_w: int, mb_h: int, sr: int):
     full_search_sad_blk4, is made only for the sub-8x8 search). origY
     (H, W) uint8; ref_int the padded integer plane (pad PAD). One row of
     displacements is evaluated at a time."""
+    _check_host_range(sr)
     side = 2 * sr + 1
     h, w = 16 * mb_h, 16 * mb_w
     n = mb_w * mb_h
@@ -251,6 +265,7 @@ def full_search_sad_blk4(origY, ref_int, mb_w: int, mb_h: int, sr: int):
     its quadrants' blocks are full_search_sad_quad). origY (H, W) uint8;
     ref_int the padded integer plane (pad PAD). One row of displacements
     is evaluated at a time."""
+    _check_host_range(sr)
     side = 2 * sr + 1
     h, w = 16 * mb_h, 16 * mb_w
     n = mb_w * mb_h
@@ -292,36 +307,54 @@ def satd8_raw(diff: torch.Tensor) -> torch.Tensor:
     return torch.abs(b).sum(dim=(-4, -3, -2, -1))
 
 
-def approx_pred_field(mv16: torch.Tensor, mb_w: int, mb_h: int):
+def approx_pred_field(mv16: torch.Tensor, mb_w: int, mb_h: int,
+                      up_halo=None, is_first: bool = True):
     """Median of the (left, up, up-right) integer 16x16 MVs in qpel units
     as each MB's approximate predictor; missing neighbours count as
-    zero, and the first MB row uses its left neighbour. (N, 2) int32."""
+    zero, and the picture's first MB row uses its left neighbour.
+    (N, 2) int32. For an MB-row band: up_halo, the (mb_w, 2) integer MVs
+    of the MB row above it (zeros above the picture); is_first, whether
+    it holds the picture's first MB row."""
     f = (mv16 * 4).reshape(mb_h, mb_w, 2)
     z = torch.zeros_like(f)
+    if up_halo is None:
+        up0 = upr0 = z[:1]
+    else:
+        up0 = (up_halo * 4).reshape(1, mb_w, 2).to(f.dtype)
+        upr0 = torch.cat([up0[:, 1:], up0[:, -1:]], dim=1)
     left = torch.cat([z[:, :1], f[:, :-1]], dim=1)
-    up = torch.cat([z[:1], f[:-1]], dim=0)
-    upr = torch.cat([z[:1], torch.cat([f[:-1, 1:], f[:-1, -1:]], dim=1)],
+    up = torch.cat([up0, f[:-1]], dim=0)
+    upr = torch.cat([upr0, torch.cat([f[:-1, 1:], f[:-1, -1:]], dim=1)],
                     dim=0)
     med = median3(left, up, upr)
-    row0 = (torch.arange(mb_h, device=f.device) == 0)[:, None, None]
+    row0 = (torch.arange(mb_h, device=f.device) == 0)[:, None, None] \
+        & is_first
     med = torch.where(row0, left, med)
     return med.reshape(mb_h * mb_w, 2).to(I32)
 
 
-def i16_source_cost(origY: torch.Tensor, mb_w: int, mb_h: int):
+def i16_source_cost(origY: torch.Tensor, mb_w: int, mb_h: int,
+                    top_halo=None, is_first: bool = True):
     """Per-MB best-of-4 Intra16x16 SAD from SOURCE neighbours (the P
-    frame's intra trigger). (N,) int32."""
+    frame's intra trigger). (N,) int32. For an MB-row band: top_halo, the
+    (W,) source row above it; is_first, whether it holds the picture's
+    row 0, whose MBs have no top neighbour."""
     dev = origY.device
     o = origY.to(I32)
     mbs = o.reshape(mb_h, 16, mb_w, 16).permute(0, 2, 1, 3)
-    top_idx = torch.clamp(torch.arange(mb_h, device=dev) * 16 - 1, min=0)
-    top_rows = o[top_idx]                                      # (mh, W)
+    if top_halo is None:
+        top_idx = torch.clamp(torch.arange(mb_h, device=dev) * 16 - 1,
+                              min=0)
+        top_rows = o[top_idx]                                  # (mh, W)
+    else:
+        top_rows = torch.cat([top_halo[None].to(I32), o])[
+            torch.arange(mb_h, device=dev) * 16]
     top = top_rows.reshape(mb_h, mb_w, 16)
     left_idx = torch.clamp(torch.arange(mb_w, device=dev) * 16 - 1, min=0)
     left = o[:, left_idx].reshape(mb_h, 16, mb_w).permute(0, 2, 1)
     corner = top_rows[:, left_idx]                             # (mh, mw)
-    avail_t = (torch.arange(mb_h, device=dev) > 0)[:, None] \
-        .expand(mb_h, mb_w)
+    avail_t = ((torch.arange(mb_h, device=dev) > 0) | (not is_first))[
+        :, None].expand(mb_h, mb_w)
     avail_l = (torch.arange(mb_w, device=dev) > 0)[None, :] \
         .expand(mb_h, mb_w)
 
@@ -517,15 +550,19 @@ def qpel_block_at(win, tx: int, ty: int, bs: int = 8):
 
 
 def qpel_refine_dense(planes, orig_q, int_mv, pred, lam: int, mb_xy,
-                      sr: int):
+                      sr: int, y0: int = -PAD):
     """Two-stage (half, then quarter) 3x3 refinement of all 9 partition
     jobs per MB, evaluated densely: SATD at every position of the 7x7
     quarter-pel grid around each job's integer MV, then the sequential
     two-stage strict-< argmin (center first) on the cost grid.
 
     orig_q (N, 4, 8, 8); int_mv (N, 9, 2); pred (N, 2) qpel predictor;
-    mb_xy (N, 2) MB pixel origin. Returns (mv_q (N, 9, 2) int32,
-    cost_q (N, 9), win (N*16, 4, 10, 10) int32 refine windows)."""
+    mb_xy (N, 2) MB pixel origin; y0 the picture row of the planes' row
+    0 (-PAD for the whole picture's). Returns (mv_q (N, 9, 2) int32,
+    cost_q (N, 9), win (N*16, 4, 10, 10) int32 refine windows).
+    jm_tpu's MB-row bands call subpel_refine_jobs, its two-stage search
+    over gathered windows: the same search, the same values over the
+    same plane rows, so the port's bands take this form at their y0."""
     n = int_mv.shape[0]
     dev = int_mv.device
     off, width = band_geometry(sr)
@@ -537,7 +574,7 @@ def qpel_refine_dense(planes, orig_q, int_mv, pred, lam: int, mb_xy,
     cmx = int_mv[:, qj_parent, 0]                              # (N, 16)
     cmy = int_mv[:, qj_parent, 1]
     mb_idx = (mb_xy[:, 0:1] // 16).expand(n, 16)
-    r0 = mb_xy[:, 1:2] + qoff_y[None] + cmy - 1 + PAD
+    r0 = mb_xy[:, 1:2] + qoff_y[None] + cmy - 1 - y0
     c0 = qoff_x[None] + cmx - 1 + off
     win = band_windows(planes, mb_idx.reshape(-1), r0.reshape(-1),
                        c0.reshape(-1), 10, 10, 16, off, width)
@@ -604,9 +641,9 @@ def qjob_pred_blocks(win, mv_q, int_mv):
     return out.reshape(n, 16, 8, 8)
 
 
-def mc_luma_quads(planes, mv_quad, mb_xy, sr: int):
+def mc_luma_quads(planes, mv_quad, mb_xy, sr: int, y0: int = -PAD):
     """Quadrant-granular luma MC: (N, 4, 2) qpel MVs -> (N, 16, 16)
-    int32 prediction."""
+    int32 prediction; y0 the picture row of the planes' row 0."""
     n = mv_quad.shape[0]
     dev = mv_quad.device
     off, width = band_geometry(sr)
@@ -615,7 +652,7 @@ def mc_luma_quads(planes, mv_quad, mb_xy, sr: int):
     xi, xf = mv_quad[..., 0] >> 2, mv_quad[..., 0] & 3
     yi, yf = mv_quad[..., 1] >> 2, mv_quad[..., 1] & 3
     mb_idx = (mb_xy[:, 0:1] // 16).expand(n, 4)
-    r0 = mb_xy[:, 1:2] + qy[None] + yi + PAD
+    r0 = mb_xy[:, 1:2] + qy[None] + yi - y0
     c0 = qx[None] + xi + off
     win = band_windows(planes, mb_idx.reshape(-1), r0.reshape(-1),
                        c0.reshape(-1), 9, 9, 16, off, width)
@@ -633,9 +670,10 @@ def mc_luma_quads(planes, mv_quad, mb_xy, sr: int):
     return out.reshape(n, 2, 2, 8, 8).permute(0, 1, 3, 2, 4).reshape(n, 16, 16)
 
 
-def mc_chroma_quads(padU, padV, mv_quad, mb_xy, sr: int):
+def mc_chroma_quads(padU, padV, mv_quad, mb_xy, sr: int, y0c: int = -PAD):
     """Quadrant-granular chroma MC (eighth-pel bilinear, one 4x4 chroma
-    block per 8x8 luma quadrant). Returns (predU, predV) (N, 8, 8) int32."""
+    block per 8x8 luma quadrant); y0c the chroma picture row of the
+    planes' row 0. Returns (predU, predV) (N, 8, 8) int32."""
     n = mv_quad.shape[0]
     dev = mv_quad.device
     off, width = cband_geometry(sr)
@@ -646,7 +684,7 @@ def mc_chroma_quads(padU, padV, mv_quad, mb_xy, sr: int):
     xi, xf = x8 >> 3, x8 & 7
     yi, yf = y8 >> 3, y8 & 7
     mb_idx = (mb_xy[:, 0:1] // 16).expand(n, 4)
-    r0 = mb_xy[:, 1:2] // 2 + yi + PAD
+    r0 = mb_xy[:, 1:2] // 2 + yi - y0c
     c0 = xi + off
     win = band_windows(torch.stack([padU, padV]), mb_idx.reshape(-1),
                        r0.reshape(-1), c0.reshape(-1), 5, 5, 8, off, width)
@@ -663,11 +701,11 @@ def mc_chroma_quads(padU, padV, mv_quad, mb_xy, sr: int):
     return uv[:, 0], uv[:, 1]
 
 
-def skip_cost(planes, skip_mv, mb_xy, orig_q, sr: int):
+def skip_cost(planes, skip_mv, mb_xy, orig_q, sr: int, y0: int = -PAD):
     """SAD of each MB predicted at its (approximate) skip MV. (N,)."""
     n = skip_mv.shape[0]
     pred16 = mc_luma_quads(planes, skip_mv[:, None, :].expand(n, 4, 2),
-                           mb_xy, sr)
+                           mb_xy, sr, y0)
     o = orig_q.to(I32).reshape(n, 2, 2, 8, 8).permute(0, 1, 3, 2, 4) \
         .reshape(n, 16, 16)
     return torch.abs(o - pred16).sum(dim=(1, 2))
@@ -689,27 +727,46 @@ def p_frame_step(origY, origU, origV, planes, padU, padV, qp: int, qpc: int,
     cbp (N,), chroma_dc (N, 2, 4) int16, chroma_scan (N, 2, 4, 16) int16,
     chroma_nnz (N, 2, 4), intra_mask (N,) bool and the recon planes
     recY / recU / recV uint8; int32 unless stated."""
+    band_geometry(sr)           # sr above 16 raises first, as in jm_tpu
+    int_mv, _ = me_int_sweep(origY, planes[0], mb_w, mb_h, sr, lam)
+    return p_step_after_sweep(origY, origU, origV, planes, padU, padV,
+                              int_mv, qp, qpc, lam, lam4, mb_w=mb_w,
+                              mb_h=mb_h, sr=sr, rd=rd)
+
+
+def p_step_after_sweep(origY, origU, origV, planes, padU, padV, int_mv,
+                       qp: int, qpc: int, lam: int, lam4: int, *,
+                       mb_w: int, mb_h: int, sr: int, rd: bool = False,
+                       band_y0: int = 0, y0: int = -PAD, y0c: int = -PAD,
+                       up_mv=None, src_up=None, is_first: bool = True):
+    """p_frame_step after its integer sweep (int_mv (N, 9, 2)). md_low
+    also runs it over an MB-row band of mb_h MB rows
+    (parallel/sp_pipeline.py): the band's first row is picture row
+    band_y0, the band's planes start at picture row y0 (chroma y0c), and
+    up_mv / src_up are the integer 16x16 MVs and the source row of the
+    row above it (is_first: the band holds the picture's first row)."""
     from .enc_rd import p_mode_rd_device
     n = mb_w * mb_h
     dev = origY.device
     ar = torch.arange(n, device=dev)
-    mb_xy = torch.stack([(ar % mb_w) * 16, (ar // mb_w) * 16], dim=1)
+    mb_xy = torch.stack([(ar % mb_w) * 16, band_y0 + (ar // mb_w) * 16],
+                        dim=1)
     orig_mbs = mb_tiles(origY, mb_h, mb_w, 16)
     orig_q = orig_mbs.reshape(n, 2, 8, 2, 8).permute(0, 1, 3, 2, 4) \
         .reshape(n, 4, 8, 8).to(I32)
 
-    int_mv, _ = me_int_sweep(origY, planes[0], mb_w, mb_h, sr, lam)
-    pred = approx_pred_field(int_mv[:, 0], mb_w, mb_h)
+    pred = approx_pred_field(int_mv[:, 0], mb_w, mb_h, up_mv, is_first)
     mv_q, cost_q, win = qpel_refine_dense(planes, orig_q, int_mv, pred,
-                                          lam, mb_xy, sr)
+                                          lam, mb_xy, sr, y0)
     mode_costs = torch.stack(
         [cost_q[:, jobs[0]:jobs[-1] + 1].sum(dim=1) + lam * int(MODE_BITS[m])
          for m, jobs in enumerate(MODE_JOBS)], dim=1).to(I32)   # (N, 4)
     cost_inter = torch.min(mode_costs, dim=1).values
-    cost_skip = skip_cost(planes, pred, mb_xy, orig_q, sr)
+    cost_skip = skip_cost(planes, pred, mb_xy, orig_q, sr, y0)
     take_skip = cost_skip <= cost_inter
     cost_inter = torch.minimum(cost_inter, cost_skip)
-    intra_mask = i16_source_cost(origY, mb_w, mb_h) + 2 * lam4 < cost_inter
+    intra_mask = i16_source_cost(origY, mb_w, mb_h, src_up, is_first) \
+        + 2 * lam4 < cost_inter
 
     orig_u = mb_tiles(origU, mb_h, mb_w, 8)
     orig_v = mb_tiles(origV, mb_h, mb_w, 8)
@@ -731,8 +788,8 @@ def p_frame_step(origY, origU, origV, planes, padU, padV, qp: int, qpc: int,
                               pred[:, None, :].expand(n, 4, 2), mv_quad)
         inter_mode = torch.where(take_skip, 0, best_mode)
         scan, nnz, cbp_l, recY = luma_residual_inter(
-            orig_mbs, mc_luma_quads(planes, mv_quad, mb_xy, sr), qp)
-        pu, pv = mc_chroma_quads(padU, padV, mv_quad, mb_xy, sr)
+            orig_mbs, mc_luma_quads(planes, mv_quad, mb_xy, sr, y0), qp)
+        pu, pv = mc_chroma_quads(padU, padV, mv_quad, mb_xy, sr, y0c)
         cdc, cac, cnnz, cbp_c, recU, recV = chroma_residual(
             orig_u, orig_v, pu, pv, qpc, False)
         cbp = (cbp_c << 4) | cbp_l

@@ -59,7 +59,10 @@ def test_scan_covers_the_native_loader():
                                  "tools/input.py", "tools/lencod.py",
                                  "tools/ldecod.py", "bitstream/rtp.py",
                                  "encoder/leaky_bucket.py",
-                                 "encoder/checkpoint.py"])
+                                 "encoder/checkpoint.py",
+                                 "parallel/mesh.py",
+                                 "parallel/sp_pipeline.py",
+                                 "parallel/gop_pipeline.py"])
 def test_scan_covers_the_ports_own_copies(rel):
     """Rate control, the slice-group maps, the host intra encoder, the
     SEI writers and parser, the B-slice motion, the B and P MB coders
@@ -69,8 +72,9 @@ def test_scan_covers_the_ports_own_copies(rel):
     count, the trellis and the simulated lossy decoders, the config
     layer with its parameter schema, the metrics, the source readers,
     the lencod / ldecod entry points, the RTP container, the leaky
-    bucket and the checkpoint are the port's own modules, not
-    jm_tpu's."""
+    bucket, the checkpoint and the parallel axes (the device meshes, the
+    MB-row sharded P step, the GOP pipeline) are the port's own modules,
+    not jm_tpu's."""
     assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
 
 
@@ -135,10 +139,10 @@ def test_deblock_never_falls_back_for_a_device_request():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("intra_mb_refresh", -1), ("search_range", 32), ("search_range", 0),
+    ("intra_mb_refresh", -1), ("search_range", -1), ("search_range", 0),
     ("intra_period", -1), ("qp", 52), ("qp", -1), ("width", 100),
     ("height", 40), ("entropy", "cavcl"), ("cabac_adapt_init", 1),
-    ("search_range", 17), ("qp_p", 52), ("poc_type", 3), ("slice_mode", 3),
+    ("search_range", -17), ("qp_p", 52), ("poc_type", 3), ("slice_mode", 3),
     ("slice_argument", -1), ("num_slice_groups", 9), ("rc_enable", 1),
     ("rc_basic_unit", -1), ("rc_initial_qp", 52), ("deblock", 0),
     ("enable_vui", 1), ("sei_user_data", "text"), ("long_term_period", -1),

@@ -8,9 +8,9 @@ paths against jm_tpu's, exact (the tolerance is zero):
 - write_sps for POC types 0, 1 and 2, write_pps for FMO map types 0-6 and
   the slice header (first_mb, POC by type, slice_group_change_cycle);
 - common/fmo.py's slice-group maps and successor arrays;
-- the search range the device path can run: jm_tpu's device encode
-  raises above 16, the port's Encoder refuses 17 and 24 at construction,
-  and 16 still encodes."""
+- the search range's boundary: the device P step raises above 16 and
+  the host coders' full search above 32, at the same picture in both
+  packages; everything else encodes, with jm_tpu's bytes."""
 
 import dataclasses
 
@@ -39,6 +39,7 @@ from jm_tpu_torch.encoder.encoder import (Encoder, EncoderConfig, lambda_me,
 from jm_tpu_torch.encoder.intra_host import IntraPicture
 
 from test_pipe_stream import make_frames
+from torch_streams import one_torch_thread  # noqa: F401
 
 # ---- rate control --------------------------------------------------------
 
@@ -222,16 +223,70 @@ def test_parameter_set_fields_match_jm():
 
 # ---- search range ----------------------------------------------------------
 
-def test_search_range_above_16_raises_in_both():
-    frames = make_frames(16, 16, 2)
-    jenc = JaxEncoder(JaxConfig(width=16, height=16, pipeline="device",
-                                search_range=17, device_rd=True))
-    with pytest.raises(ValueError, match="plane padding"):
-        jenc.encode_stream(frames)
-    for sr in (17, 24):
-        with pytest.raises(ValueError, match="search_range.*plane padding"):
-            Encoder(EncoderConfig(width=16, height=16, search_range=sr),
-                    device="cpu")
-    enc = Encoder(EncoderConfig(width=16, height=16, search_range=16),
-                  device="cpu")
-    assert len(enc.encode_stream(frames)) == 2
+def _range_run(enc, frames, entry: str):
+    """(payload, pictures coded, ValueError message or None) of frames
+    through entry (encode_stream, or encode_frame per frame), then
+    flush."""
+    out = []
+    try:
+        if entry == "encode_stream":
+            out = list(enc.encode_stream(frames))
+        else:
+            for f in frames:
+                out.append(enc.encode_frame(*f))
+        out.append(enc.flush())
+    except ValueError as e:
+        return None, len(enc.results), str(e)
+    return b"".join(out), len(enc.results), None
+
+
+# (pipeline, search_range, other fields, entry, raises at the first P)
+RANGE_CASES = [
+    ("host", 24, {}, "encode_frame", False),
+    ("host", 32, {}, "encode_frame", False),
+    ("device", 17, {"device_rd": True}, "encode_stream", True),
+    ("device", 17, {"device_rd": True}, "encode_frame", True),
+    ("device", 24, {"device_rd": False}, "encode_stream", True),
+    ("device", 24, {"device_rd": False}, "encode_frame", True),
+    ("host", 32, {"num_b": 1}, "encode_frame", False),
+    ("host", 32, {"sub8x8": True}, "encode_frame", False),
+    ("host", 32, {"search_mode": 1}, "encode_frame", False),
+    ("host", 32, {"search_mode": 3, "hme": True}, "encode_frame", False),
+    ("host", 48, {}, "encode_frame", True),
+    ("host", 48, {"search_mode": 1}, "encode_frame", True),
+    ("host", 48, {"search_mode": 3}, "encode_frame", False),
+    ("host", 48, {"intra_period": 1}, "encode_frame", False),
+    ("device", 24, {"sub8x8": True, "device_rd": False}, "encode_frame",
+     False),
+    ("device", 24, {"num_ref": 2, "device_rd": False}, "encode_frame", True),
+]
+
+
+@pytest.mark.parametrize(
+    "pipeline,sr,kw,entry,raises", RANGE_CASES,
+    ids=[f"{p}-{sr}-{'-'.join(kw) or 'plain'}-{e}"
+         for p, sr, kw, e, _ in RANGE_CASES])
+def test_search_range_above_16_raises_in_both(pipeline, sr, kw, entry,
+                                              raises):
+    """The device P step raises above 16 ("exceeds plane padding", from
+    band_geometry: jm_tpu's pipe admits up to 24, its per-frame step
+    any), the host coders above 32 (jm_tpu's full search fails to
+    reshape; the port names the padding), each at the first P picture;
+    intra-only streams and device-route streams whose P pictures all go
+    to the host coders (sub8x8) encode, with jm_tpu's bytes. With
+    num_ref 2 the first P picture has one active reference and takes
+    the device step."""
+    frames = make_frames(32, 32, 3)
+    cfg = dict(width=32, height=32, pipeline=pipeline, search_range=sr,
+               **kw)
+    jm = _range_run(JaxEncoder(JaxConfig(**cfg)), frames, entry)
+    port = _range_run(Encoder(EncoderConfig(**cfg), device="cpu"), frames,
+                      entry)
+    assert (jm[2] is not None, port[2] is not None) == (raises, raises)
+    assert port[:2] == jm[:2]
+    if raises:
+        assert jm[1] == 1            # the IDR, then the first P raised
+        want = "plane padding" if pipeline == "device" else "reshape"
+        assert want in jm[2] and "padding" in port[2]
+        if pipeline == "device":
+            assert port[2] == jm[2]

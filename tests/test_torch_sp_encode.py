@@ -140,8 +140,7 @@ def test_sp_config_out_of_range_raises(kw):
 def test_config_fields_are_jm_tpus():
     ours = set(EncoderConfig.__dataclass_fields__)
     theirs = set(JaxConfig.__dataclass_fields__)
-    assert ours <= theirs and len(ours) == 79
-    assert theirs - ours == {"sp_shards"}
+    assert ours == theirs and len(ours) == 80
     for f in ("sp_periodicity", "qp_sp", "qp_sp2"):
         assert getattr(EncoderConfig(), f) == getattr(JaxConfig(), f)
 

@@ -114,6 +114,14 @@ def test_one_view(tmp_path, sources):
         rec[k * frame:(k + 1) * frame] for k in (0, 2, 1))
 
 
+def test_search_range_32(tmp_path, sources):
+    """lencod puts its cfg on the host pipeline, whose full search takes
+    SearchRange up to the planes' padding (32)."""
+    dirs = _both(tmp_path, sources, 1, "SearchRange = 32")
+    _same_files(*dirs, ["out.264", "rec.yuv"])
+    _decode(dirs)
+
+
 def test_rtp_out_file(tmp_path, sources):
     dirs = _both(tmp_path, sources, 1, "OutFileMode = 1")
     _same_files(*dirs, ["out.264", "rec.yuv"])
