@@ -397,12 +397,28 @@ Phases (any failure raises and exits non-zero):
      picture, decoded on the card equal to its recon, the host P
      picture's ms per MB against search range 16; lencod on a CIF cfg
      with SearchRange 32, then ldecod, on the card: stream, recon and
-     decoded YUV equal the CPU run (a worker's).
-The wall seconds of each group of phases are printed after phase 54.
-The CPU references of phases 4-54 (the encodes on the CPU, the CPU
+     decoded YUV equal the CPU run (a worker's);
+ 55. the port's host tools (jm_tpu_torch/tools), each against the same
+     run on the CPU (a worker's): (a) trace.trace_stream of phase 3's
+     first TRACE_NALUS NAL units (SPS, PPS, the IDR, the first P; the IDR
+     reconstructed and deblocked on the card when the P starts, the last
+     picture parsed only, as in jm_tpu's trace), the text equal, its line
+     count, sha256 and seconds; (b) bdrate.run_ours of the first
+     TOOLS_FRAMES CIF frames at TOOLS_QPS for the presets fast (md_low)
+     and fast_rd, the (bits, PSNR) pairs equal, with the BD-rate and
+     BD-PSNR of fast_rd against fast; (c) those frames written as RGB
+     TIFF files (imgio.yuv420_to_rgb, write_tiff), read back
+     (read_tiff_sequence) and encoded on the card, the bytes equal; (d)
+     that stream packed into an RTP dump, rtp_loss with RTP_LOSS (20 %,
+     2 leading packets kept, seed 7) and rtpdump, the lossy stream
+     decoded on the card with conceal_mode=1: the "lost packet" lines,
+     the packet count and the frames equal; one launch each of K1 and
+     K2 per picture reconstructed on each path.
+The wall seconds of each group of phases are printed after phase 55.
+The CPU references of phases 4-55 (the encodes on the CPU, the CPU
 decodes of the lossy streams, of the DP goldens, cif_main, the weighted,
 High, motion-option, RD, 4:2:2, field, SP, stereo and wide-search
-streams, the lencod / ldecod runs) run in
+streams, the lencod / ldecod runs, the host tools' runs) run in
 CPU_WORKERS worker processes, started before the kernel build and
 stopped before the closing lines, while the card works through the
 phases, queued in the order of the phase that checks each; one more
@@ -428,8 +444,9 @@ phases 34-54, ``--from 37`` phases 37-54, ``--from 40`` phases 40-54
 (after encoding phase 3's first HBD_FRAMES pictures and phase 38's
 CIF stream (a) on the card), ``--from 43`` phases 43-54, ``--from 46``
 phases 46-54 (after encoding phase 3's first CONCEAL_1080P pictures),
-``--from 49`` phases 49-54, ``--from 52`` phases 52-54, without the
-closing JSON lines (a quicker
+``--from 49`` phases 49-54, ``--from 52`` phases 52-54, each then
+phase 55 (after encoding phase 3's first two pictures on the card), and
+``--from 55`` phase 55 alone, without the closing JSON lines (a quicker
 check of those phases while they are developed). The
 last line of
 standard output is {"ok": true, "device": {...}}; the line before it
@@ -446,6 +463,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -5044,6 +5062,219 @@ def parallel_phases(frames, cpu_refs, tools_dir: str) -> dict:
     return out
 
 
+TOOLS_FRAMES = 3          # frames of phase 55's CIF bdrate / TIFF streams
+TOOLS_QPS = (24, 28, 32, 36)   # phase 55 (b)'s QP ladder
+TOOLS_PRESETS = ("fast", "fast_rd")
+# phase 55 (a)'s trace: phase 3's SPS, PPS, IDR and first P picture (the
+# IDR reconstructed when the P starts)
+TRACE_NALUS = 4
+RTP_LOSS = ("20", "2", "--seed", "7")   # phase 55 (d): loss %, kept, seed
+
+
+def trace_run(data: bytes, device: str) -> tuple:
+    """Phase 55 (a)'s path: the trace of data's first TRACE_NALUS NAL
+    units on device; returns (text, wall seconds)."""
+    from jm_tpu_torch.tools import trace
+    t0 = time.perf_counter()
+    text = trace.trace_stream(data, max_nalus=TRACE_NALUS, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return text, time.perf_counter() - t0
+
+
+def bdrate_run(frames, device: str) -> tuple:
+    """Phase 55 (b)'s path: tools.bdrate.run_ours of the first
+    TOOLS_FRAMES CIF frames at each of TOOLS_QPS under each of
+    TOOLS_PRESETS on device; returns the (bits, PSNR) pairs by preset
+    and the wall seconds of each call."""
+    from jm_tpu_torch.tools import bdrate
+    src = cif(frames, TOOLS_FRAMES)
+    out, secs = {p: [] for p in TOOLS_PRESETS}, []
+    for p in TOOLS_PRESETS:
+        for qp in TOOLS_QPS:
+            t0 = time.perf_counter()
+            out[p].append(bdrate.run_ours(src, 352, 288, qp, p,
+                                          device=device))
+            if device != "cpu":
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def tiff_frames(frames, d: str):
+    """Phase 55 (c)'s source: the first TOOLS_FRAMES CIF frames written
+    as RGB TIFF files into d (imgio.yuv420_to_rgb, write_tiff) and read
+    back as 4:2:0 frames (read_tiff_sequence). The sequence's chroma
+    planes are copies of its luma, around 226: each is moved to a mean
+    of 128 first, else the RGB saturates and the pictures come back
+    nearly flat."""
+    from jm_tpu_torch.tools import imgio
+    os.makedirs(d, exist_ok=True)
+    for i, (Y, U, V) in enumerate(cif(frames, TOOLS_FRAMES)):
+        U, V = (np.clip(p.astype(np.int16) - int(p.mean()) + 128, 0,
+                        255).astype(np.uint8) for p in (U, V))
+        imgio.write_tiff(os.path.join(d, f"f{i:03d}.tif"),
+                         imgio.yuv420_to_rgb(Y, U, V))
+    return imgio.read_tiff_sequence(os.path.join(d, "f%03d.tif"),
+                                    TOOLS_FRAMES)
+
+
+def tiff_cfg():
+    return EncoderConfig(width=352, height=288, qp=QP)
+
+
+def rtp_run(data: bytes, d: str, device: str) -> tuple:
+    """Phase 55 (d)'s path in directory d: data packed into an RTP dump
+    (bitstream/rtp.annexb_to_rtp), tools.rtp_loss with RTP_LOSS, then
+    tools.rtpdump on the lossy dump, and the lossy stream decoded with
+    conceal_mode=1 on device; returns (rtp_loss's lines, the packets
+    rtpdump reports, the decoded (Y, U, V) frames, the concealed count)."""
+    import contextlib
+    import io
+    from jm_tpu_torch.bitstream.rtp import annexb_to_rtp, rtp_to_annexb
+    from jm_tpu_torch.tools import rtp_loss, rtpdump
+    os.makedirs(d, exist_ok=True)
+    src, dst = os.path.join(d, "in.rtp"), os.path.join(d, "lossy.rtp")
+    with open(src, "wb") as fh:
+        fh.write(annexb_to_rtp(data))
+    report = []
+    for main, argv in ((rtp_loss.main, [src, dst, *RTP_LOSS]),
+                       (rtpdump.main, [dst])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        if rc != 0:
+            raise AssertionError(f"{main.__module__} {argv}: exit code {rc}")
+        report.append(buf.getvalue())
+    with open(dst, "rb") as fh:
+        lossy = rtp_to_annexb(fh.read())
+    dec = H264Decoder(device=device, conceal_mode=1)
+    out = dec.decode_annexb(lossy)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return (report[0].splitlines(), report[1].count("packet #"),
+            [(f.Y, f.U, f.V) for f in out], dec.concealed_count)
+
+
+def cpu_tiff_rtp(frames, d: str) -> tuple:
+    """Phase 55 (c) and (d)'s CPU reference in directory d: the TIFF
+    stream's payloads and scene-cut fallbacks, and rtp_run's result, on
+    the CPU."""
+    enc = Encoder(tiff_cfg(), device="cpu")
+    payloads = enc.encode_stream(tiff_frames(frames, d))
+    return payloads, enc.fallbacks, rtp_run(b"".join(payloads), d, "cpu")
+
+
+def tools_cpu_jobs(pool, frames, payloads, tools_dir: str) -> dict:
+    """The CPU references of phase 55, submitted to the worker pool (a
+    full run: after phase 39, with phase 3's payloads); returns their
+    AsyncResults by name."""
+    d = os.path.join(tools_dir, "tools", "cpu")
+    jobs = [("tools_trace", trace_run, (b"".join(payloads[:2]), "cpu")),
+            ("tools_bdrate", bdrate_run, (frames[:TOOLS_FRAMES], "cpu")),
+            ("tools_tiff_rtp", cpu_tiff_rtp, (frames[:TOOLS_FRAMES], d))]
+    return {name: pool.apply_async(fn, args, callback=_arrived(name))
+            for name, fn, args in jobs}
+
+
+def tools_phase(frames, payloads, cpu_refs, tools_dir: str) -> dict:
+    """Phase 55: the port's host tools on the card, each against its CPU
+    run (a worker's): (a) the trace of phase 3's first TRACE_NALUS NAL
+    units, (b) bdrate.run_ours of CIF frames over TOOLS_QPS for
+    TOOLS_PRESETS, with the BD-rate / BD-PSNR of fast_rd against fast,
+    (c) CIF frames through RGB TIFF files encoded on the card, (d) that
+    stream through rtp_loss / rtpdump and decoded with concealment.
+    Returns each path's kernel launches (tools_trace, tools_bdrate,
+    tools_tiff, tools_rtp)."""
+    import hashlib
+    from jm_tpu_torch.tools import bdrate
+    out = {}
+    # (a) the trace: its Python parse, the recon and deblock on the card
+    kernels.reset_launches()
+    text, card_s = trace_run(b"".join(payloads[:2]), DEVICE)
+    out["tools_trace"] = launch_counts()
+    # the trace reconstructs each picture once the next one starts: the
+    # last one is parsed, never finished (as in jm_tpu's trace)
+    n_done = TRACE_NALUS - 3
+    check_launches(out["tools_trace"], n_done, "trace")
+    if "!! parse stopped" in text or text.count("== NALU") != TRACE_NALUS:
+        raise AssertionError("trace: the parse stopped or NAL units missing")
+    t0 = time.perf_counter()
+    want, cpu_s = cpu_refs["tools_trace"].get()
+    if text != want:
+        raise AssertionError("trace: the card's text differs from the CPU "
+                             "run's")
+    print(f"trace of phase 3's first {TRACE_NALUS} NAL units (IDR + P, "
+          f"{n_done} reconstructed): {len(text.splitlines())} lines, sha256 "
+          f"{hashlib.sha256(text.encode()).hexdigest()}, card "
+          f"{card_s:.2f} s (CPU worker {cpu_s:.2f} s), equal to the CPU "
+          f"run (waited {time.perf_counter() - t0:.1f} s), launches "
+          f"{out['tools_trace']}", flush=True)
+    # (b) bdrate.run_ours on the device routes
+    kernels.reset_launches()
+    bd, secs = bdrate_run(frames[:TOOLS_FRAMES], DEVICE)
+    out["tools_bdrate"] = launch_counts()
+    check_launches(out["tools_bdrate"], len(TOOLS_PRESETS) * len(TOOLS_QPS)
+                   * TOOLS_FRAMES, "bdrate run_ours")
+    if bd != cpu_refs["tools_bdrate"].get()[0]:
+        raise AssertionError("bdrate: the card's (bits, PSNR) differ from "
+                             "the CPU run's")
+    (rf, pf), (rr, pr) = (zip(*bd[p]) for p in TOOLS_PRESETS)
+    print(f"bdrate run_ours (CIF, {TOOLS_FRAMES} frames, QPs {TOOLS_QPS}) "
+          f"{sum(secs):.2f} s (each call " + ", ".join(
+              f"{t:.2f}" for t in secs) + " s): " + "; ".join(
+              f"{p} " + ", ".join(f"{b} bits {q:.4f} dB" for b, q in bd[p])
+              for p in TOOLS_PRESETS)
+          + f"; equal to the CPU run; BD-rate fast_rd vs fast "
+          f"{bdrate.bd_rate(rf, pf, rr, pr):+.4f} %, BD-PSNR "
+          f"{bdrate.bd_psnr(rf, pf, rr, pr):+.4f} dB, launches "
+          f"{out['tools_bdrate']}", flush=True)
+    # (c) TIFF files encoded on the card
+    d = os.path.join(tools_dir, "tools", "card")
+    src = tiff_frames(frames[:TOOLS_FRAMES], d)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    enc = Encoder(tiff_cfg(), device=DEVICE)
+    tiff_payloads = enc.encode_stream(src)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    out["tools_tiff"] = launch_counts()
+    # one launch a frame, one more for each scene-cut fallback's mixed
+    # deblock and each re-dispatched next frame (phase 9)
+    check_launches(out["tools_tiff"], TOOLS_FRAMES + len(enc.fallbacks)
+                   + enc.redispatches, "TIFF encode")
+    cpu_payloads, cpu_fallbacks, (lost, n_packets, frames_cpu,
+                                  concealed) = cpu_refs["tools_tiff_rtp"].get()
+    if tiff_payloads != cpu_payloads or enc.fallbacks != cpu_fallbacks:
+        raise AssertionError("TIFF encode: the card's payloads or fallbacks "
+                             "differ from the CPU run's")
+    print(f"TIFF sequence (CIF, {TOOLS_FRAMES} frames, RGB through "
+          f"yuv420_to_rgb / write_tiff / read_tiff_sequence) encoded on the "
+          f"card in {card_s:.2f} s: {sum(map(len, tiff_payloads))} bytes, "
+          f"equal to the CPU run, fallbacks at frames {enc.fallbacks}, "
+          f"{enc.redispatches} re-dispatches, launches {out['tools_tiff']}",
+          flush=True)
+    # (d) rtp_loss, rtpdump and the concealed decode on the card
+    kernels.reset_launches()
+    got = rtp_run(b"".join(tiff_payloads), d, DEVICE)
+    out["tools_rtp"] = launch_counts()
+    if got[:2] != (lost, n_packets) or got[3] != concealed:
+        raise AssertionError("rtp_loss / rtpdump: the card's run differs "
+                             "from the CPU run's")
+    check_frames([SimpleNamespace(Y=y, U=u, V=v) for y, u, v in got[2]],
+                 frames_cpu, "RTP loss decode")
+    decoded = len(got[2]) - concealed
+    if not lost or not concealed or len(got[2]) != TOOLS_FRAMES:
+        raise AssertionError(f"RTP loss: {lost}, {concealed} concealed of "
+                             f"{len(got[2])} frames")
+    check_launches(out["tools_rtp"], decoded, "RTP loss decode")
+    print(f"rtp_loss {' '.join(RTP_LOSS)}: {'; '.join(lost)}; rtpdump "
+          f"{n_packets} packets; decoded on the card with conceal_mode=1: "
+          f"{len(got[2])} frames ({concealed} concealed) equal to the CPU "
+          f"run, launches {out['tools_rtp']}", flush=True)
+    return out
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -5089,7 +5320,8 @@ def main() -> int:
                                ["--from", "31"], ["--from", "34"],
                                ["--from", "37"], ["--from", "40"],
                                ["--from", "43"], ["--from", "46"],
-                               ["--from", "49"], ["--from", "52"])
+                               ["--from", "49"], ["--from", "52"],
+                               ["--from", "55"])
     first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
     pool = cpu_pool()
@@ -5134,8 +5366,8 @@ def hbd_cpu_jobs(hbd_pool, payloads=None, y422_payloads=None) -> dict:
 
 def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
                 tools_dir: str) -> int:
-    """Phases first..54 (18, 22, 25, 28, 31, 34, 37, 40, 43, 46, 49 or
-    52) without the closing JSON lines; refs: their CPU references; clock:
+    """Phases first..55 (18, 22, 25, 28, 31, 34, 37, 40, 43, 46, 49, 52
+    or 55) without the closing JSON lines; refs: their CPU references; clock:
     the PhaseClock of the run; tools_dir: phase 51's and 54's directory. From 40,
     phase 3's first HBD_FRAMES pictures and phase 38's CIF stream (a) are
     encoded on the card first; from 46, phase 3's first CONCEAL_1080P
@@ -5189,10 +5421,15 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
     if first <= 49:
         mvc_phases(frames, refs, tools_dir)
         clock.lap("49-51")
-    parallel_phases(frames, refs, tools_dir)
-    clock.lap("52-54")
+    if first <= 52:
+        parallel_phases(frames, refs, tools_dir)
+        clock.lap("52-54")
+    payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(frames[:2])
+    refs.update(tools_cpu_jobs(pool, frames, payloads, tools_dir))
+    tools_phase(frames, payloads, refs, tools_dir)
+    clock.lap("55")
     clock.report()
-    print(f"phases {first}-54 passed (partial run: no closing lines)")
+    print(f"phases {first}-55 passed (partial run: no closing lines)")
     return 0
 
 
@@ -5234,8 +5471,8 @@ class PhaseClock:
 
 def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
              tools_dir: str) -> int:
-    """Phases 2-54 and the closing lines; cpu_refs: the CPU references of
-    phases 4-54; hbd_pool: the worker of phase 41's and phase 48's CPU
+    """Phases 2-55 and the closing lines; cpu_refs: the CPU references of
+    phases 4-55; hbd_pool: the worker of phase 41's and phase 48's CPU
     decodes; clock: the PhaseClock of the run, its first lap the builds;
     tools_dir: phase 51's and 54's directory."""
     # ---- 2. kernels against their plain versions ------------------------
@@ -5421,6 +5658,7 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
     cpu_refs.update(sp_cpu_jobs(pool, frames))
     cpu_refs.update(mvc_cpu_jobs(pool, frames, tools_dir))
     cpu_refs.update(wide_cpu_jobs(pool, frames, tools_dir))
+    cpu_refs.update(tools_cpu_jobs(pool, frames, payloads, tools_dir))
     k422["launches"] = y422["y422"]["deblock_chroma422"]
     kstats["deblock_chroma422"] = k422
     max_err["deblock_chroma422"] = k422["max_err"]
@@ -5481,6 +5719,12 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
     # their decodes ------------------------------------------------------
     later.update(parallel_phases(frames, cpu_refs, tools_dir))
     clock.lap("52-54")
+
+    # ---- 55. the host tools: the trace of phase 3's IDR + P, bdrate's
+    # run_ours on CIF frames, a TIFF sequence encoded, rtp_loss / rtpdump
+    # and the concealed decode -----------------------------------------
+    later.update(tools_phase(frames, payloads, cpu_refs, tools_dir))
+    clock.lap("55")
     clock.report()
 
     rows = []

@@ -255,7 +255,7 @@ def _store_refs(pic, addr, bx, by, bw, bh, lst, ref, pd) -> None:
             pic.pdir[addr, yy * 2 + xx] = pd
 
 
-def _read_part_mvd(parser, addr, bx, by, bw, bh, lst, ref) -> None:
+def read_part_mvd(parser, addr, bx, by, bw, bh, lst, ref) -> None:
     """One partition's list-lst mvd added to its prediction; the MV and
     the mvd stored over the partition's 4x4 blocks."""
     pic = parser.pic
@@ -280,7 +280,7 @@ def parse_b_motion(parser, addr: int, coded: int, read_subs) -> None:
     nref = (h.num_ref_idx_l0_active_minus1 + 1,
             h.num_ref_idx_l1_active_minus1 + 1)
 
-    def ref(bx, by, lst):
+    def read_ref(bx, by, lst):
         return parser.read_b_ref(addr, bx, by, lst) if nref[lst] > 1 else 0
 
     if coded == 0:
@@ -293,12 +293,13 @@ def parse_b_motion(parser, addr: int, coded: int, read_subs) -> None:
         refs = {}
         for lst in (0, 1):
             for i, ((bx, by, bw, bh), pd) in enumerate(parts):
-                refs[lst, i] = ref(bx, by, lst) if pd in _USES[lst] else -1
+                refs[lst, i] = (read_ref(bx, by, lst) if pd in _USES[lst]
+                                else -1)
                 _store_refs(pic, addr, bx, by, bw, bh, lst, refs[lst, i], pd)
         for lst in (0, 1):
             for i, (part, pd) in enumerate(parts):
                 if pd in _USES[lst]:
-                    _read_part_mvd(parser, addr, *part, lst, refs[lst, i])
+                    read_part_mvd(parser, addr, *part, lst, refs[lst, i])
         return
     info = [B_SUBTYPE[t] for t in read_subs()]
     dp = None
@@ -312,7 +313,7 @@ def parse_b_motion(parser, addr: int, coded: int, read_subs) -> None:
                         dp = prepare_direct_params(parser.pctx, addr)
                     direct_quadrant(parser, addr, q, dp)
                 continue
-            refs[lst][q] = ref((q % 2) * 2, (q // 2) * 2, lst) \
+            refs[lst][q] = read_ref((q % 2) * 2, (q // 2) * 2, lst) \
                 if pd in _USES[lst] else -1
             arr[addr, q] = refs[lst][q]
             if lst == 0:
@@ -325,7 +326,7 @@ def parse_b_motion(parser, addr: int, coded: int, read_subs) -> None:
             sw, sh = shp
             for sy in range(0, 2, sh):
                 for sx in range(0, 2, sw):
-                    _read_part_mvd(parser, addr, qx + sx, qy + sy, sw, sh,
+                    read_part_mvd(parser, addr, qx + sx, qy + sy, sw, sh,
                                    lst, refs[lst][q])
 
 

@@ -34,17 +34,23 @@ from ..common.types import (MMCOOp, PPS, SPS, RefPicListMod, SliceHeader,
                             SliceType)
 
 
-def check_scope(sps: SPS, pps: PPS) -> None:
+def check_scope(sps: SPS, pps: PPS,
+                slice_type: SliceType = SliceType.I) -> None:
     """Raise NotImplementedError naming every construct of this SPS / PPS
-    pair that the decoder does not cover."""
+    pair, for a slice of slice_type, that the decoder does not cover.
+    constrained_intra_pred_flag is read in an I slice, where every
+    neighbour is intra and the flag changes nothing; a P, B or SP slice
+    under it raises (jm_tpu ignores the flag there, against spec
+    8.3.1.2)."""
     out = []
     if sps.chroma_format_idc not in (1, 2):
         out.append(f"chroma_format_idc {sps.chroma_format_idc} "
                    "(4:2:0 and 4:2:2 only)")
     if sps.bit_depth_luma_minus8 > 6 or sps.bit_depth_chroma_minus8 > 6:
         out.append("bit depth above 14 (no conforming profile)")
-    if pps.constrained_intra_pred_flag:
-        out.append("constrained intra prediction")
+    if pps.constrained_intra_pred_flag and slice_type != SliceType.I:
+        out.append("constrained intra prediction in a "
+                   f"{slice_type.name} slice")
     if out:
         raise NotImplementedError("out of scope: " + ", ".join(out))
 
@@ -103,7 +109,7 @@ def parse_slice_header(nal: NalUnit, sps_map: dict[int, SPS],
     h.pic_parameter_set_id = br.ue()
     pps = pps_map[h.pic_parameter_set_id]
     sps = sps_map[pps.seq_parameter_set_id]
-    check_scope(sps, pps)
+    check_scope(sps, pps, st)
 
     h.frame_num = br.u(sps.log2_max_frame_num_minus4 + 4)
     if not sps.frame_mbs_only_flag:

@@ -353,8 +353,7 @@ class MBParser:
         pic = self.pic
         cbp = int(CBP_MAP_CHROMA[self.br.ue()][1])
         pic.cbp[addr] = cbp
-        if self.ctx.pps.transform_8x8_mode_flag and cbp & 15 and allow8:
-            pic.transform8x8[addr] = bool(self.br.flag())
+        self._maybe_read_inter_transform8x8(addr, cbp, allow8)
         if cbp:
             self._read_qp_delta(addr)
         else:
@@ -364,6 +363,13 @@ class MBParser:
         else:
             self._read_luma_residual(addr, cbp & 15, is_i16=False)
         self._read_chroma_residual(addr, cbp)
+
+    def _maybe_read_inter_transform8x8(self, addr: int, cbp: int,
+                                       allow8: bool) -> None:
+        """transform_size_8x8_flag of an inter MB, when the PPS has the
+        8x8 transform, luma is coded and allow8."""
+        if self.ctx.pps.transform_8x8_mode_flag and cbp & 15 and allow8:
+            self.pic.transform8x8[addr] = bool(self.br.flag())
 
     def _parse_p_skip(self, addr: int) -> None:
         """P_Skip: ref 0 and the skip MV prediction (spec 8.4.1.1)."""

@@ -2,12 +2,13 @@
 twin of jm_tpu/decoder/parset.py (ldecod/src/parset.c InterpretSPS:61,
 InterpretPPS:389, Scaling_List, ReadVUI:284).
 
-VUI and HRD parameters are read and dropped. The SPS and PPS scaling
-lists are read with the spec's fall-back rules (Table 7-2): rule A in
-the SPS (an absent list 0 / 3 / 6 / 7 takes the default list, any other
-the list before it of its kind), rule B in a PPS of an SPS with scaling
-matrices (an absent list 0 / 3 / 6 / 7 takes the SPS's), and a first
-delta that gives 0 selects the default list
+The VUI and its HRD parameters are read into ``SPS.vui``, jm_tpu's
+dict (ReadVUI, ReadHRDParameters), which the SEI pic_timing parse reads.
+The SPS and PPS scaling lists are read with the spec's fall-back rules
+(Table 7-2): rule A in the SPS (an absent list 0 / 3 / 6 / 7 takes the
+default list, any other the list before it of its kind), rule B in a PPS
+of an SPS with scaling matrices (an absent list 0 / 3 / 6 / 7 takes the
+SPS's), and a first delta that gives 0 selects the default list
 (useDefaultScalingMatrixFlag). Lists are kept in zig-zag order. An SPS
 whose FRExt read fails or is implausible is read again without the FRExt
 block, as jm_tpu does for JM 19.0's MVC writer (its base-view SPS says
@@ -206,50 +207,71 @@ def _parse_sps_data(br: BitReader, skip_frext: bool = False) -> SPS:
         s.frame_crop_bottom_offset = br.ue()
     s.vui_parameters_present_flag = br.flag()
     if s.vui_parameters_present_flag:
-        _skip_vui(br)
+        s.vui = _parse_vui(br)
     return s
 
 
-def _skip_hrd(br: BitReader) -> None:
+def _parse_hrd(br: BitReader) -> dict:
+    """hrd_parameters() (spec E.1.2), as jm_tpu reads it."""
+    hrd = {}
     cpb_cnt = br.ue() + 1
-    br.u(8)                        # bit_rate_scale, cpb_size_scale
-    for _ in range(cpb_cnt):
-        br.ue()                    # bit_rate_value_minus1
-        br.ue()                    # cpb_size_value_minus1
-        br.flag()                  # cbr_flag
-    br.u(20)                       # four delay / offset lengths
+    hrd["cpb_cnt"] = cpb_cnt
+    hrd["bit_rate_scale"] = br.u(4)
+    hrd["cpb_size_scale"] = br.u(4)
+    hrd["cpb"] = [
+        (br.ue(), br.ue(), br.flag()) for _ in range(cpb_cnt)
+    ]
+    hrd["initial_cpb_removal_delay_length"] = br.u(5) + 1
+    hrd["cpb_removal_delay_length"] = br.u(5) + 1
+    hrd["dpb_output_delay_length"] = br.u(5) + 1
+    hrd["time_offset_length"] = br.u(5)
+    return hrd
 
 
-def _skip_vui(br: BitReader) -> None:
-    if br.flag():                  # aspect_ratio_info_present
-        if br.u(8) == 255:         # Extended_SAR
-            br.u(32)
-    if br.flag():                  # overscan_info_present
-        br.flag()
-    if br.flag():                  # video_signal_type_present
-        br.u(4)
-        if br.flag():              # colour_description_present
-            br.u(24)
-    if br.flag():                  # chroma_loc_info_present
-        br.ue()
-        br.ue()
-    if br.flag():                  # timing_info_present
-        br.u(32)
-        br.u(32)
-        br.flag()
+def _parse_vui(br: BitReader) -> dict:
+    """vui_parameters() (spec E.1.1) into jm_tpu's dict (SPS.vui), which
+    the SEI pic_timing parse reads."""
+    v = {}
+    if br.flag():  # aspect_ratio_info_present
+        idc = br.u(8)
+        v["aspect_ratio_idc"] = idc
+        if idc == 255:  # Extended_SAR
+            v["sar_width"] = br.u(16)
+            v["sar_height"] = br.u(16)
+    if br.flag():  # overscan_info_present
+        v["overscan_appropriate"] = br.flag()
+    if br.flag():  # video_signal_type_present
+        v["video_format"] = br.u(3)
+        v["video_full_range"] = br.flag()
+        if br.flag():  # colour_description_present
+            v["colour_primaries"] = br.u(8)
+            v["transfer_characteristics"] = br.u(8)
+            v["matrix_coefficients"] = br.u(8)
+    if br.flag():  # chroma_loc_info_present
+        v["chroma_sample_loc_type_top"] = br.ue()
+        v["chroma_sample_loc_type_bottom"] = br.ue()
+    if br.flag():  # timing_info_present
+        v["num_units_in_tick"] = br.u(32)
+        v["time_scale"] = br.u(32)
+        v["fixed_frame_rate"] = br.flag()
     nal_hrd = br.flag()
     if nal_hrd:
-        _skip_hrd(br)
+        v["nal_hrd"] = _parse_hrd(br)
     vcl_hrd = br.flag()
     if vcl_hrd:
-        _skip_hrd(br)
+        v["vcl_hrd"] = _parse_hrd(br)
     if nal_hrd or vcl_hrd:
-        br.flag()                  # low_delay_hrd
-    br.flag()                      # pic_struct_present
-    if br.flag():                  # bitstream_restriction
-        br.flag()
-        for _ in range(6):
-            br.ue()
+        v["low_delay_hrd"] = br.flag()
+    v["pic_struct_present"] = br.flag()
+    if br.flag():  # bitstream_restriction
+        v["motion_vectors_over_pic_boundaries"] = br.flag()
+        v["max_bytes_per_pic_denom"] = br.ue()
+        v["max_bits_per_mb_denom"] = br.ue()
+        v["log2_max_mv_length_horizontal"] = br.ue()
+        v["log2_max_mv_length_vertical"] = br.ue()
+        v["max_num_reorder_frames"] = br.ue()
+        v["max_dec_frame_buffering"] = br.ue()
+    return v
 
 
 def parse_pps(rbsp: bytes, sps_map: dict[int, SPS]) -> PPS:

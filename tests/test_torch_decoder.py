@@ -274,15 +274,36 @@ def test_mvc_nal_raises():
     assert all(np.array_equal(a.Y, b.Y) for a, b in zip(got, want))
 
 
-def test_constrained_intra_pred_raises():
-    """A PPS with constrained_intra_pred_flag set: the port's recon would
-    ignore the flag, so the decoder names it instead."""
-    frames = make_frames(96, 80, 1)
-    enc = Encoder(EncoderConfig(width=96, height=80, qp=28), device="cpu")
+def _constrained_intra_stream(n_frames, entropy):
+    frames = make_frames(96, 80, n_frames)
+    enc = Encoder(EncoderConfig(width=96, height=80, qp=28,
+                                entropy=entropy), device="cpu")
     enc.pps.constrained_intra_pred_flag = 1
-    data = b"".join(enc.encode_stream(frames))
+    return b"".join(enc.encode_stream(frames))
+
+
+def test_constrained_intra_pred_raises():
+    """A PPS with constrained_intra_pred_flag set over I slices alone,
+    CAVLC and CABAC: every neighbour is intra, the flag changes nothing,
+    and the port decodes jm_tpu's frames (the P slice's refusal is
+    test_constrained_intra_pred_p_slice_raises)."""
+    for entropy in ("cavlc", "cabac"):
+        data = _constrained_intra_stream(1, entropy)
+        dec = H264Decoder(device="cpu")
+        out = dec.decode_annexb(data)
+        assert dec.pps_map[0].constrained_intra_pred_flag == 1
+        assert len(out) == 1
+        _equal(out, jm_decoder.H264Decoder(device_recon=True)
+               .decode_annexb(data))
+
+
+def test_constrained_intra_pred_p_slice_raises():
+    """Under constrained_intra_pred_flag a P slice's intra MBs may not
+    predict from inter neighbours (spec 8.3.1.2), which the port's recon
+    ignores, so the decoder names the flag at the P slice."""
+    data = _constrained_intra_stream(2, "cavlc")
     with pytest.raises(NotImplementedError,
-                       match="constrained intra prediction"):
+                       match="constrained intra prediction in a P slice"):
         H264Decoder(device="cpu").decode_annexb(data)
 
 

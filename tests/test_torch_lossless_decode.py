@@ -9,14 +9,16 @@ accumulates it: spec 8.5.15) against jm_tpu's on the CPU, exactly:
   field by field, and jm_tpu's parse through the port's reconstruction
   (the FromJm pattern);
 - QP-0 streams of the port's encoder (CAVLC and CABAC on the device
-  route, CABAC on the host pipeline) under a profile-244 SPS with the
-  bypass flag (torch_streams.reheaded), decoded equal in both packages,
-  with Intra 4x4 and chroma DPCM and lossless inter MBs (the device
-  residual's bypass) among their MBs;
+  route, CABAC on the host pipeline, and 4:2:2 CAVLC and CABAC from the
+  host coders) under a profile-244 SPS with the bypass flag
+  (torch_streams.reheaded), decoded equal in both packages, with Intra
+  4x4 and chroma DPCM and lossless inter MBs (the device residual's
+  bypass) among their MBs;
 - the lossless intra recon of every DPCM mode (Intra 4x4 / 8x8 / 16x16
   vertical and horizontal, chroma horizontal and vertical), which the
   encoder's streams do not all reach, on seeded pictures at 8, 10 and
-  14 bits against jm_tpu's host Reconstructor;
+  14 bits, and at 4:2:2 (8x16 chroma blocks), against jm_tpu's host
+  Reconstructor;
 - the deblocking of a lossless MB beside a lossy one, which both
   packages filter (ROADMAP Queue 3)."""
 
@@ -114,11 +116,17 @@ QP0 = {
     "qp0_cavlc": {},
     "qp0_cabac": {"entropy": "cabac"},
     "qp0_host": {"pipeline": "host", "entropy": "cabac"},
+    "qp0_422_cavlc": {"pipeline": "host", "chroma_format": 2},
+    "qp0_422_cabac": {"pipeline": "host", "chroma_format": 2,
+                      "entropy": "cabac"},
 }
 
 
 def _qp0_stream(**kw):
     frames = make_frames(96, 80, 3, seed=21, noise_at=2)
+    if kw.get("chroma_format") == 2:
+        frames = [(Y, Y[:, ::2].copy(), Y[:, 1::2].copy())
+                  for Y, _, _ in frames]
     enc = Encoder(EncoderConfig(width=96, height=80, qp=0, **kw),
                   device="cpu")
     if kw.get("pipeline") == "host":
@@ -156,14 +164,16 @@ def test_qp0_stream_lossless_decodes_like_jm(name, runs, one_torch_thread):
     assert n["i4"] > 0 and n["chroma"] > 0 and n["inter"] > 0
 
 
-def _intra_picture(rng, bd):
+def _intra_picture(rng, bd, chroma_format=1):
     """A seeded all-intra 5x4-MB picture at QP'Y 0 (QPY -QpBdOffsetY)
     whose MBs are Intra 4x4, 8x8 and 16x16 in every prediction mode the
     neighbours admit (vertical and horizontal among them, in luma and
     chroma), with seeded levels; the same arrays in a port and a jm_tpu
-    PictureData."""
+    PictureData of chroma_format (1: 4:2:0, 2: 4:2:2, n_crows 4)."""
     mb_w, mb_h = 5, 4
-    pics = PictureData(mb_w, mb_h), JPictureData(mb_w, mb_h)
+    pics = (PictureData(mb_w, mb_h, chroma_format),
+            JPictureData(mb_w, mb_h, chroma_format))
+    nc = 2 * pics[0].n_crows                   # chroma 4x4 blocks a plane
     n = mb_w * mb_h
     cls = np.where(np.arange(n) % 3 == 2, MB_I16, MB_I4).astype(np.int8)
     t8 = (cls == MB_I4) & (np.arange(n) % 3 == 1)
@@ -193,8 +203,8 @@ def _intra_picture(rng, bd):
         "luma_coef": rng.integers(-40, 41, (n, 16, 16)),
         "luma_dc": rng.integers(-40, 41, (n, 16)),
         "luma_coef8": rng.integers(-40, 41, (n, 4, 64)),
-        "chroma_dc": rng.integers(-40, 41, (n, 2, 4)),
-        "chroma_coef": rng.integers(-40, 41, (n, 2, 4, 16)),
+        "chroma_dc": rng.integers(-40, 41, (n, 2, nc)),
+        "chroma_coef": rng.integers(-40, 41, (n, 2, nc, 16)),
     }
     vals["chroma_coef"][..., 0] = 0
     vals["luma_coef"][cls == MB_I16, :, 0] = 0
@@ -220,6 +230,26 @@ def test_lossless_intra_recon_matches_jm(bd):
     got = Reconstructor(pic, PPS(**flat), (bd, bd), bypass=True).run()
     n = _dpcm_blocks([pic])
     assert n["i4"] and n["i8"] and n["i16"] and n["chroma"]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert np.array_equal(g, w)
+
+
+def test_lossless_intra_recon_422_matches_jm():
+    """The same at 4:2:2 (n_crows 4: the chroma DPCM over 8x16 blocks and
+    the 2x4 chroma DC, whose placement the port copies from jm_tpu,
+    ADVICE.md), at 8 bits."""
+    rng = np.random.default_rng(422)
+    pic, jpic = _intra_picture(rng, 8, chroma_format=2)
+    assert pic.n_crows == jpic.n_crows == 4
+    sps = JSPS(chroma_format_idc=2, qpprime_y_zero_transform_bypass_flag=1)
+    flat = dict(scaling_list_4x4=[[16] * 16 for _ in range(6)],
+                scaling_list_8x8=[[16] * 64 for _ in range(6)])
+    want = JReconstructor(jpic, sps, JPPS(**flat), []).run()
+    got = Reconstructor(pic, PPS(**flat), (8, 8), bypass=True).run()
+    n = _dpcm_blocks([pic])
+    assert n["i4"] and n["i8"] and n["i16"] and n["chroma"]
+    assert got[1].shape == (64, 40)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         assert np.array_equal(g, w)

@@ -62,7 +62,10 @@ def test_scan_covers_the_native_loader():
                                  "encoder/checkpoint.py",
                                  "parallel/mesh.py",
                                  "parallel/sp_pipeline.py",
-                                 "parallel/gop_pipeline.py"])
+                                 "parallel/gop_pipeline.py",
+                                 "tools/trace.py", "tools/bdrate.py",
+                                 "tools/imgio.py", "tools/rtpdump.py",
+                                 "tools/rtp_loss.py"])
 def test_scan_covers_the_ports_own_copies(rel):
     """Rate control, the slice-group maps, the host intra encoder, the
     SEI writers and parser, the B-slice motion, the B and P MB coders
@@ -72,9 +75,10 @@ def test_scan_covers_the_ports_own_copies(rel):
     count, the trellis and the simulated lossy decoders, the config
     layer with its parameter schema, the metrics, the source readers,
     the lencod / ldecod entry points, the RTP container, the leaky
-    bucket, the checkpoint and the parallel axes (the device meshes, the
-    MB-row sharded P step, the GOP pipeline) are the port's own modules,
-    not jm_tpu's."""
+    bucket, the checkpoint, the parallel axes (the device meshes, the
+    MB-row sharded P step, the GOP pipeline) and the host tools (the
+    syntax-element trace, the BD-rate harness, the image I/O, rtpdump and
+    rtp_loss) are the port's own modules, not jm_tpu's."""
     assert ROOT / "jm_tpu_torch" / rel in PORT_FILES
 
 
