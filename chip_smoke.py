@@ -301,7 +301,9 @@ Phases (any failure raises and exits non-zero):
      intra MBs, the vertical MV limit 2) and mixed per-MB parameters,
      against their plain twins on the card, bit for bit (over REPEATS
      launches at the 1080p field); CUDA-event times beside the bound,
-     the all-bS-zero chain and the plain twins;
+     the all-bS-zero chain and the plain twins; the same for K1-HBD and
+     K2-HBD (10 bits), K2-422 and K2-422-HBD (10 bits) at both field
+     shapes (over 10 launches at the 1080p field);
  44. field coding (pic_interlace 1; every field on the host coders, as
      in jm_tpu): the sequence's first frame at 1080p as a field pair (an
      IDR top field through IntraPicture, a P bottom field through the
@@ -414,16 +416,30 @@ Phases (any failure raises and exits non-zero):
      decoded on the card with conceal_mode=1: the "lost packet" lines,
      the packet count and the frames equal; one launch each of K1 and
      K2 per picture reconstructed on each path.
-The wall seconds of each group of phases are printed after phase 55.
-The CPU references of phases 4-55 (the encodes on the CPU, the CPU
+ 56. field pictures at 4:2:2 and above 8 bits, and concealment of 4:2:2
+     and >8-bit pictures, as jm_tpu decodes them, each decode on the
+     card equal to a CPU worker's decode of the same bytes with the
+     same concealed_count, and one launch of each kernel of the
+     stream's format and bit depth per field or reconstructed picture:
+     (a) phase 44's 1080p field pair under a High 10 SPS (K1-HBD and
+     K2-HBD at the 1080p field shape); (b) Y422_FIELD_PICTURES 352x144
+     4:2:2 pictures encoded on the card and re-framed as the fields of
+     two CIF frames (reframed_fields), at 8 bits (K1, K2-422) and under
+     a 10-bit profile-122 SPS (K1-HBD, K2-422-HBD); (c) phase 48's lossy
+     CIF stream under a High 10 SPS and a 4:2:2 CIF stream of 4 slices a
+     picture encoded on the card with the same losses, each decoded with
+     conceal_mode 1 and 2.
+The wall seconds of each group of phases are printed after phase 56.
+The CPU references of phases 4-56 (the encodes on the CPU, the CPU
 decodes of the lossy streams, of the DP goldens, cif_main, the weighted,
 High, motion-option, RD, 4:2:2, field, SP, stereo and wide-search
 streams, the lencod / ldecod runs, the host tools' runs) run in
 CPU_WORKERS worker processes, started before the kernel build and
 stopped before the closing lines, while the card works through the
 phases, queued in the order of the phase that checks each; one more
-worker takes the CPU decodes of phases 41 and 48, which can start only
-once phases 3 and 38 have made their streams.
+worker takes the CPU decodes of phases 41, 48 and 56, which can start
+only once phases 3, 38, 44 and 48 have made their streams (phase 56's
+own streams' decodes go to the CPU_WORKERS, idle by then).
 Phases 3, 6, 8-13 and 15-20 run on the native runtime, as the entry
 points do by default: each prints the runtime's route counters (reset
 just before its run) and fails unless every CAVLC slice was serialized
@@ -445,8 +461,10 @@ phases 34-54, ``--from 37`` phases 37-54, ``--from 40`` phases 40-54
 CIF stream (a) on the card), ``--from 43`` phases 43-54, ``--from 46``
 phases 46-54 (after encoding phase 3's first CONCEAL_1080P pictures),
 ``--from 49`` phases 49-54, ``--from 52`` phases 52-54, each then
-phase 55 (after encoding phase 3's first two pictures on the card), and
-``--from 55`` phase 55 alone, without the closing JSON lines (a quicker
+phase 55 (after encoding phase 3's first two pictures on the card) and
+phase 56, ``--from 55`` phases 55-56 and ``--from 56`` phase 56 alone
+(from 47 on, after encoding phase 44's 1080p field pair and phase 48's
+CIF stream on the card), without the closing JSON lines (a quicker
 check of those phases while they are developed). The
 last line of
 standard output is {"ok": true, "device": {...}}; the line before it
@@ -1661,7 +1679,7 @@ def start_cpu_references(pool, frames, first: int, tools_dir: str) -> dict:
         refs.update(sp_cpu_jobs(pool, frames))
     if 40 <= first <= 49:
         refs.update(mvc_cpu_jobs(pool, frames, tools_dir))
-    if first >= 40:
+    if 40 <= first <= 52:
         refs.update(wide_cpu_jobs(pool, frames, tools_dir))
     return refs
 
@@ -3804,6 +3822,88 @@ def field_kernel_phase(rng) -> dict:
     return stats
 
 
+# phase 43's variants at the field shapes: (chroma rows per MB / 4, bit
+# depth) -> the kernels it checks (K1-HBD and K2-HBD; K2-422; K2-422-HBD)
+FIELD_VARIANTS = {(2, 10): ("deblock_luma16", "deblock_chroma16"),
+                  (4, 8): ("deblock_chroma422",),
+                  (4, 10): ("deblock_chroma422_16",)}
+
+
+def field_variant_kernel_phase(rng) -> dict:
+    """Phase 43's second part: K1-HBD, K2-HBD (10 bits, 4:2:0), K2-422
+    (8 bits) and K2-422-HBD (10 bits) at the field shapes, on field bS
+    (field_bs) with the mixed per-MB parameters (at 10 bits QPY from
+    -QpBdOffsetY, hbd_case), against their plain twins on the card, bit
+    for bit, over 10 launches at the 1080p field; CUDA-event times
+    (median of 7 runs of 20 calls) beside the bound, the all-bS-zero
+    chain and the plain twins' checking call. Returns the statistics by
+    (w, h, launch key)."""
+    stats = {}
+    for w, h in FIELD_SHAPES:
+        mb_w, mb_h = w // 16, h // 16
+        kw = dict(mb_w=mb_w, mb_h=mb_h)
+        for (crows, bd), keys in FIELD_VARIANTS.items():
+            if bd == 8:
+                Y, U, V, _, _, per_mb, cb, cr = deblock_case(
+                    rng, mb_w, mb_h, "mixed", crows)
+            else:
+                Y, U, V, _, _, per_mb, cb, cr = hbd_case(
+                    rng, mb_w, mb_h, "mixed", bd, crows)
+            (bs_v, bs_h), _ = field_bs(rng, mb_w, mb_h)
+            args = (bs_v, bs_h, *per_mb)
+            zbs = torch.zeros_like(bs_v)
+            lines_y, lines_c = filtered_lines(bs_v, bs_h, per_mb, mb_w, mb_h,
+                                              crows)
+            param_bytes = 6 * 4 * mb_w * mb_h + 2 * bs_v.numel()
+            size = 1 if bd == 8 else 2           # bytes a sample
+            for key in keys:
+                if key.startswith("deblock_luma"):
+                    ins = (Y,)
+                    pfn = lambda: (deblock_luma_plain(  # noqa: E731
+                        Y, *args, bd=bd, **kw),)
+                    kfn = lambda b: (kernels.deblock_luma(  # noqa: E731
+                        Y, *b, *per_mb, bd=bd, **kw),)
+                    nbytes = 2 * size * Y.numel() + param_bytes
+                    ops = LUMA_LINE_OPS * lines_y
+                else:
+                    ins = (U, V)
+                    pfn = lambda: deblock_chroma_plain(  # noqa: E731
+                        U, V, *args, cb, cr, bd=bd, **kw)
+                    kfn = lambda b: kernels.deblock_chroma(  # noqa: E731
+                        U, V, *b, *per_mb, cb, cr, crows=crows, bd=bd, **kw)
+                    nbytes = (2 * size * (U.numel() + V.numel()) + param_bytes
+                              + 2 * 4 * cb.numel())
+                    ops = CHROMA_LINE_OPS * lines_c
+                want, p_ms = event_ms(pfn)
+                err = 0
+                for _ in range(10 if h > 200 else 1):
+                    got = kfn((bs_v, bs_h))
+                    err = max(err, *(int((g.int() - q.int()).abs().max())
+                                     for g, q in zip(got, want)))
+                torch.cuda.synchronize()
+                changed = sum(int((q != i).sum()) for q, i in zip(want, ins))
+                if err or not changed:
+                    raise AssertionError(f"deblock field {w}x{h} {key}: "
+                                         f"max|err| {err}, {changed} samples "
+                                         f"changed")
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / INT_OPS_PER_S * 1e3
+                st = {"ms": cuda_ms(lambda: kfn((bs_v, bs_h)), inner=20),
+                      "chain_ms": cuda_ms(lambda: kfn((zbs, zbs)), inner=20),
+                      "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else
+                      "operations", "max_err": err}
+                stats[(w, h, key)] = st
+                print(f"{key} at the {w}x{h} field "
+                      f"({'4:2:2' if crows == 4 else '4:2:0'}, {bd} bits): "
+                      f"max|err| {err} against the plain twin, samples "
+                      f"changed {changed}; {st['ms']:.4f} ms (all bS 0: "
+                      f"{st['chain_ms']:.4f} ms; plain {p_ms:.1f} ms), bound "
+                      f"{st['bound_ms'] * 1e3:.2f} us ({st['bound_by']}: "
+                      f"{nbytes} B, {ops} int ops)", flush=True)
+    return stats
+
+
 class FieldTimedEncoder(Encoder):
     """The port's Encoder with each field picture's wall ms (the card
     synchronized at its ends) in ``field_ms``."""
@@ -3829,7 +3929,8 @@ def field_stream_phase(label: str, cfg, frames, job) -> dict:
     the CPU run (job: cpu_field's); then the stream decoded on the card:
     every frame equal to the woven recon and to the CPU decode, one
     launch each of K1 and K2 per field picture, every slice parsed
-    natively. Returns the launches of the encode and of the decode."""
+    natively. Returns the launches of the encode and of the decode, and
+    the payloads."""
     enc = FieldTimedEncoder(cfg, device=DEVICE)
     kernels.reset_launches()
     native.reset_routes()
@@ -3886,7 +3987,7 @@ def field_stream_phase(label: str, cfg, frames, job) -> dict:
               f"{p['host_recon_s'] * 1e3:.1f}, device "
               f"{p['device_s'] * 1e3:.1f})" for p in dec.pictures)
           + f"; launches {dec_launches}", flush=True)
-    return launches, dec_launches
+    return launches, dec_launches, payloads
 
 
 def field_golden_phase() -> dict:
@@ -3938,18 +4039,23 @@ def field_golden_phase() -> dict:
 
 
 def field_phases(frames, cpu_refs, rng) -> tuple:
-    """Phases 43-45; returns (the kernels' statistics at the field shapes,
-    the launches of each field path by name: field_1080p, field_cif, each
-    also with _decode, field_goldens_decode)."""
+    """Phases 43-45; returns (the kernels' statistics at the field shapes
+    by (w, h, launch key), the launches of each field path by name:
+    field_1080p, field_cif, each also with _decode, field_goldens_decode;
+    the 1080p field pair's payloads)."""
     stats = field_kernel_phase(rng)
+    # the variants draw from a generator of their own: the later phases'
+    # random pictures stay those of the runs before them
+    stats.update(field_variant_kernel_phase(np.random.default_rng(431)))
     out = {}
-    out["field_1080p"], out["field_1080p_decode"] = field_stream_phase(
-        "field 1080p", field_cfg(), frames[:1], cpu_refs["field_1080p"])
-    out["field_cif"], out["field_cif_decode"] = field_stream_phase(
+    out["field_1080p"], out["field_1080p_decode"], payloads = \
+        field_stream_phase("field 1080p", field_cfg(), frames[:1],
+                           cpu_refs["field_1080p"])
+    out["field_cif"], out["field_cif_decode"], _ = field_stream_phase(
         "field CIF", field_cif_cfg(), cif(frames, FIELD_CIF_FRAMES),
         cpu_refs["field_cif"])
     out.update(field_golden_phase())
-    return stats, out
+    return stats, out, payloads
 
 
 # ---------------------------------------------------------------------------
@@ -4336,13 +4442,16 @@ def sp_phases(frames, cpu_refs, rng) -> tuple:
     return stats, out
 
 
-def conceal_decode(data: bytes, job_result, label: str) -> dict:
+def conceal_decode(data: bytes, job_result, label: str,
+                   counts=launch_counts) -> dict:
     """The lossy stream decoded on the card with conceal_mode 1 and 2:
     frames equal to the CPU decode (job_result: cpu_conceal_decode's), the
-    same concealed_count; one launch each of K1 and K2 per reconstructed
-    picture (a picture with concealed MBs is deblocked before they are
-    concealed; a whole concealed frame is a copy, not deblocked);
-    frames/s and the concealment's ms. Returns the launches by mode."""
+    same concealed_count; one launch each of K1 and K2 (the kernels that
+    counts() reads: those of the stream's format and bit depth) per
+    reconstructed picture (a picture with concealed MBs is deblocked
+    before they are concealed; a whole concealed frame is a copy, not
+    deblocked); frames/s and the concealment's ms. Returns the launches
+    by mode."""
     out = {}
     for mode in (1, 2):
         dec = H264Decoder(device=DEVICE, conceal_mode=mode)
@@ -4351,7 +4460,7 @@ def conceal_decode(data: bytes, job_result, label: str) -> dict:
         got = dec.decode_annexb(data)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        gl = launch_counts()
+        gl = counts()
         check_launches(gl, len(dec.pictures), f"{label} mode {mode}")
         want, count = job_result[mode]
         check_frames(got, want, f"{label} mode {mode} against the CPU")
@@ -4372,7 +4481,7 @@ def conceal_decode(data: bytes, job_result, label: str) -> dict:
     return out
 
 
-def conceal_phase(payloads, cif_frames, cpu_refs, job_1080p) -> dict:
+def conceal_phase(payloads, cif_frames, cpu_refs, job_1080p) -> tuple:
     """Phase 48: concealment on the card. Phase 3's first CONCEAL_1080P
     pictures with picture 3 dropped (a frame_num gap: one whole frame
     concealed), against the CPU decode of the same bytes (job_1080p, a
@@ -4380,7 +4489,8 @@ def conceal_phase(payloads, cif_frames, cpu_refs, job_1080p) -> dict:
     (its payloads equal the CPU's) with an IDR slice and a P slice
     dropped, a slice cut and a picture dropped (lossy_cif), against the
     CPU decode of that lossy stream (cpu_refs["conceal_cif"]); each in
-    both modes (conceal_decode). Returns the launches by path."""
+    both modes (conceal_decode). Returns the launches by path and the CIF
+    stream's payloads."""
     lossy = b"".join(payloads[:3] + payloads[4:CONCEAL_1080P])
     out = {}
     t0 = time.perf_counter()
@@ -4406,7 +4516,7 @@ def conceal_phase(payloads, cif_frames, cpu_refs, job_1080p) -> dict:
     for mode, gl in conceal_decode(lossy_cif(cif_payloads), ref,
                                    "conceal CIF").items():
         out[f"conceal_cif_m{mode}_decode"] = gl
-    return out
+    return out, cif_payloads
 
 
 # ---------------------------------------------------------------------------
@@ -5275,6 +5385,238 @@ def tools_phase(frames, payloads, cpu_refs, tools_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 56: the decoder's last gaps against jm_tpu: field pictures at 4:2:2
+# and above 8 bits, concealment of 4:2:2 and >8-bit pictures
+# ---------------------------------------------------------------------------
+
+Y422_FIELD_PICTURES = 4   # phase 56 (b): 352x144 4:2:2 pictures, 2 CIF frames
+
+
+def rewritten_slice(nal, sps_map: dict, pps_map: dict, sps, **header) -> bytes:
+    """The RBSP of slice NAL unit nal with its header written again under
+    sps by the port's write_slice_header, the keywords header changed,
+    its slice data kept bit for bit (tests/torch_streams.rewritten_slice
+    is its test twin)."""
+    from jm_tpu_torch.bitstream.bitwriter import BitWriter
+    from jm_tpu_torch.decoder.header import parse_slice_header
+    from jm_tpu_torch.encoder.syntax import write_slice_header
+    h, br = parse_slice_header(nal, sps_map, pps_map)
+    p = pps_map[h.pic_parameter_set_id]
+    kw = dict(slice_type=h.slice_type, frame_num=h.frame_num,
+              idr=h.is_idr, idr_pic_id=h.idr_pic_id, qp=h.qp(p),
+              first_mb=h.first_mb_in_slice, poc_lsb=h.pic_order_cnt_lsb,
+              num_ref_idx_l0=h.num_ref_idx_l0_active_minus1 + 1)
+    kw.update(header)
+    bw = BitWriter()
+    write_slice_header(bw, sps, p, **kw)
+    bits = np.unpackbits(np.frombuffer(nal.rbsp, np.uint8))
+    stop = len(bits) - 1 - int(np.argmax(bits[::-1]))
+    rest = bits[br.pos:stop]
+    bw.append_bitstream(np.packbits(rest).tobytes(), len(rest))
+    bw.rbsp_trailing_bits()
+    return bw.get_bytes()
+
+
+def reframed_fields(data: bytes) -> bytes:
+    """A PAFF stream made of a stream of frame pictures: the SPS written
+    again with frame_mbs_only_flag 0, mb_adaptive_frame_field_flag 0 and
+    direct_8x8_inference_flag 1 (pic_height_in_map_units_minus1 kept: each
+    W x H/2 picture becomes one field of a W x H frame), the k-th
+    picture's slice headers written again as a field's (top for even k),
+    frame_num k // 2, pic_order_cnt_lsb k, one active reference, the slice
+    data kept bit for bit. The port's field coder is 4:2:0 only, as
+    jm_tpu's: this makes 4:2:2 field streams of its 4:2:2 frame coders
+    (tests/torch_streams.reframed_fields is its test twin)."""
+    from jm_tpu_torch.bitstream.nal import (NalUnitType, annexb_bytes,
+                                            split_annexb)
+    from jm_tpu_torch.decoder.header import parse_slice_header
+    from jm_tpu_torch.decoder.parset import parse_pps, parse_sps
+    from jm_tpu_torch.encoder.syntax import write_sps
+    out, sps_map, pps_map, fields = [], {}, {}, {}
+    k, last = -1, None
+    for nal in split_annexb(data):
+        rbsp = nal.rbsp
+        t = nal.nal_unit_type
+        if t == NalUnitType.SPS:
+            s = parse_sps(rbsp)
+            sps_map[s.seq_parameter_set_id] = s
+            f = parse_sps(rbsp)
+            f.frame_mbs_only_flag = 0
+            f.mb_adaptive_frame_field_flag = 0
+            f.direct_8x8_inference_flag = 1
+            fields[f.seq_parameter_set_id] = f
+            rbsp = write_sps(f)
+        elif t == NalUnitType.PPS:
+            p = parse_pps(rbsp, sps_map)
+            pps_map[p.pic_parameter_set_id] = p
+        elif t in (NalUnitType.SLICE, NalUnitType.IDR):
+            h, _ = parse_slice_header(nal, sps_map, pps_map)
+            key = (h.frame_num, h.pic_order_cnt_lsb, h.is_idr)
+            if key != last:
+                k, last = k + 1, key
+            rbsp = rewritten_slice(
+                nal, sps_map, pps_map,
+                fields[pps_map[h.pic_parameter_set_id].seq_parameter_set_id],
+                field_pic=1, bottom_field=k % 2, frame_num=k // 2,
+                poc_lsb=k, num_ref_idx_l0=1)
+        out.append(annexb_bytes(nal.nal_ref_idc, t, rbsp))
+    return b"".join(out)
+
+
+def y422_field_cfg():
+    """Phase 56 (b)'s pictures: 352x144 (a CIF field), 4:2:2 on the host
+    coders, QP 28, SR 16."""
+    return EncoderConfig(width=352, height=144, qp=QP, search_range=16,
+                         chroma_format=2)
+
+
+def conceal_422_cfg():
+    """Phase 56 (c)'s 4:2:2 CIF stream: 4 slices of 99 MBs a picture, as
+    phase 48's (every 4:2:2 picture on the host coders)."""
+    return EncoderConfig(width=352, height=288, qp=QP, search_range=16,
+                         chroma_format=2, slice_mode=1, slice_argument=99)
+
+
+def path_counts(crows: int, bd: int):
+    """The launch counter reader of a path of chroma format crows (2
+    4:2:0, 4 4:2:2) and bit depth bd: launch_counts or hbd_launch_counts,
+    each failing on another kernel's launch."""
+    if bd > 8:
+        return lambda: hbd_launch_counts(crows)
+    return lambda: launch_counts(crows == 4)
+
+
+def gap_decode(data: bytes, cpu_job, label: str, crows: int, bd: int,
+               n_fields: int) -> dict:
+    """One field stream of phase 56 decoded on the card with the launch and
+    route counters reset just before: every frame equal to the CPU
+    worker's decode of the same bytes (cpu_job), one launch of each kernel
+    of its format and bit depth per field picture; frames/s and each
+    field's parse / host intra recon / device split. Returns the
+    launches."""
+    dec = H264Decoder(device=DEVICE)
+    kernels.reset_launches()
+    native.reset_routes()
+    t0 = time.perf_counter()
+    out = dec.decode_annexb(data)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = path_counts(crows, bd)()
+    if len(dec.pictures) != n_fields or len(out) != n_fields // 2:
+        raise AssertionError(f"{label}: {len(dec.pictures)} pictures, "
+                             f"{len(out)} frames")
+    check_launches(launches, n_fields, label)
+    if bd > 8 and (out[0].Y.dtype != np.uint16 or
+                   int(max(f.Y.max() for f in out)) < 256):
+        raise AssertionError(f"{label}: not {bd}-bit planes")
+    t1 = time.perf_counter()
+    check_frames(out, cpu_job.get(), f"{label} against the CPU decode")
+    print(f"decode {label} ({len(data)} B) on the card: {len(out)} frames "
+          f"({n_fields} field pictures of {out[0].Y.shape[1] // 16}x"
+          f"{out[0].Y.shape[0] // 32} MBs, chroma {out[0].U.shape}, "
+          f"{out[0].Y.dtype}) equal the CPU decode (CPU worker; waited "
+          f"{time.perf_counter() - t1:.1f} s); {len(out) / dt:.3f} frames/s;"
+          f" per field " + ", ".join(
+              f"{p['type'][0]}/{p['path']} {p['seconds'] * 1e3:.1f} ms "
+              f"(parse {p['parse_s'] * 1e3:.1f}, intra recon "
+              f"{p['host_recon_s'] * 1e3:.1f}, device "
+              f"{p['device_s'] * 1e3:.1f})" for p in dec.pictures)
+          + f"; launches {launches} = "
+          + ", ".join(f"{v / n_fields:g}" for v in launches.values())
+          + " per field picture", flush=True)
+    return launches
+
+
+def gap_cpu_job(pool, name: str, fn, data: bytes):
+    """A CPU decode of phase 56 (fn: cpu_decode or cpu_conceal_decode of
+    data) submitted to pool; returns its AsyncResult."""
+    return pool.apply_async(fn, (data,), callback=_arrived(name))
+
+
+def gap_phase(frames, field_payloads, cif_payloads, pool, jobs) -> dict:
+    """Phase 56: field pictures at 4:2:2 and above 8 bits and concealment
+    of 4:2:2 and >8-bit pictures, as jm_tpu decodes them, on the card,
+    each decode equal to a CPU worker's decode of the same bytes with
+    the same concealed_count: (a) phase 44's 1080p field pair
+    under a High 10 SPS (K1-HBD and K2-HBD at the 1080p field shape);
+    (b) Y422_FIELD_PICTURES 352x144 4:2:2 pictures encoded on the card
+    (the host coders) and re-framed as the fields of 2 CIF frames
+    (reframed_fields), at 8 bits (K1 and K2-422) and under a 10-bit
+    profile-122 SPS (K1-HBD and K2-422-HBD); (c) phase 48's lossy CIF
+    stream under a High 10 SPS, and a 4:2:2 CIF stream of 4 slices a
+    picture encoded on the card with the same losses (lossy_cif), each in
+    conceal_mode 1 and 2. jobs: the CPU decodes of (a) and of (c)'s 10-bit
+    stream, submitted when their bytes were made (gap_a, gap_c10); the
+    others go to pool here. Returns the launches by path."""
+    out = {}
+    # the streams the card encodes first, so that their CPU decodes run
+    # while the card decodes (a) and (c) at 10 bits
+    t0 = time.perf_counter()
+    enc, y422_payloads, enc_launches, _ = timed_encode(
+        y422_field_cfg(), to_422([tuple(p[:p.shape[0] // 2] for p in f)
+                                  for f in cif(frames, Y422_FIELD_PICTURES)]))
+    check_launches(enc_launches, Y422_FIELD_PICTURES,
+                   "4:2:2 CIF fields encode")
+    y8 = reframed_fields(b"".join(y422_payloads))
+    y10 = reheaded(y8, 122, 10)
+    jobs["gap_b8"] = gap_cpu_job(pool, "gap_b8", cpu_decode, y8)
+    jobs["gap_b10"] = gap_cpu_job(pool, "gap_b10", cpu_decode, y10)
+    enc422, c422_payloads, c422_launches, _ = timed_encode(
+        conceal_422_cfg(), to_422(cif(frames, CONCEAL_CIF_FRAMES)))
+    check_launches(c422_launches, CONCEAL_CIF_FRAMES, "4:2:2 conceal CIF "
+                   "encode")
+    lossy422 = lossy_cif(c422_payloads)
+    jobs["gap_c422"] = gap_cpu_job(pool, "gap_c422", cpu_conceal_decode,
+                                   lossy422)
+    out["gap_y422_field_cif"] = enc_launches
+    out["gap_y422_conceal_cif"] = c422_launches
+    print(f"phase 56 encodes on the card: {Y422_FIELD_PICTURES} 352x144 "
+          f"4:2:2 pictures ({sum(map(len, y422_payloads))} B) and "
+          f"{CONCEAL_CIF_FRAMES} CIF 4:2:2 pictures of 4 slices "
+          f"({sum(map(len, c422_payloads))} B), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # (a) the 1080p field pair at 10 bits
+    out["gap_field10_1080p_decode"] = gap_decode(
+        reheaded(b"".join(field_payloads), 110, 10), jobs["gap_a"],
+        "High 10 1080p field pair", 2, 10, 2)
+    # (c) the CIF lossy stream at 10 bits
+    for mode, gl in conceal_decode(
+            reheaded(lossy_cif(cif_payloads), 110, 10),
+            jobs["gap_c10"].get(), "conceal CIF High 10",
+            path_counts(2, 10)).items():
+        out[f"gap_conceal10_cif_m{mode}_decode"] = gl
+    # (b) the 4:2:2 CIF fields at 8 and 10 bits
+    out["gap_y422_field_cif_decode"] = gap_decode(
+        y8, jobs["gap_b8"], "4:2:2 CIF fields", 4, 8, Y422_FIELD_PICTURES)
+    out["gap_y422_10_field_cif_decode"] = gap_decode(
+        y10, jobs["gap_b10"], "4:2:2 10-bit CIF fields", 4, 10,
+        Y422_FIELD_PICTURES)
+    # (c) the 4:2:2 lossy CIF stream
+    for mode, gl in conceal_decode(lossy422, jobs["gap_c422"].get(),
+                                   "conceal CIF 4:2:2",
+                                   path_counts(4, 8)).items():
+        out[f"gap_conceal422_cif_m{mode}_decode"] = gl
+    return out
+
+
+def gap_early_jobs(hbd_pool, field_payloads=None, cif_payloads=None) -> dict:
+    """Phase 56's CPU decodes whose bytes exist before it, submitted to
+    hbd_pool as soon as phases 44 and 48 made them: (a) the 1080p field
+    pair under a High 10 SPS (gap_a), (c) phase 48's lossy CIF stream under
+    a High 10 SPS in both modes (gap_c10)."""
+    jobs = {}
+    if field_payloads is not None:
+        jobs["gap_a"] = gap_cpu_job(
+            hbd_pool, "gap_a", cpu_decode,
+            reheaded(b"".join(field_payloads), 110, 10))
+    if cif_payloads is not None:
+        jobs["gap_c10"] = gap_cpu_job(
+            hbd_pool, "gap_c10", cpu_conceal_decode,
+            reheaded(lossy_cif(cif_payloads), 110, 10))
+    return jobs
+
+
 def later_phases(frames, rd_fps, cpu_refs):
     """Phases 18-21 with the CPU references cpu_refs; returns the
     launches of each of their paths by name (resilient, redundant,
@@ -5321,7 +5663,7 @@ def main() -> int:
                                ["--from", "37"], ["--from", "40"],
                                ["--from", "43"], ["--from", "46"],
                                ["--from", "49"], ["--from", "52"],
-                               ["--from", "55"])
+                               ["--from", "55"], ["--from", "56"])
     first = int(sys.argv[2]) if partial else 4
     frames = make_sequence()
     pool = cpu_pool()
@@ -5366,12 +5708,13 @@ def hbd_cpu_jobs(hbd_pool, payloads=None, y422_payloads=None) -> dict:
 
 def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
                 tools_dir: str) -> int:
-    """Phases first..55 (18, 22, 25, 28, 31, 34, 37, 40, 43, 46, 49, 52
-    or 55) without the closing JSON lines; refs: their CPU references; clock:
-    the PhaseClock of the run; tools_dir: phase 51's and 54's directory. From 40,
-    phase 3's first HBD_FRAMES pictures and phase 38's CIF stream (a) are
-    encoded on the card first; from 46, phase 3's first CONCEAL_1080P
-    pictures."""
+    """Phases first..56 (18, 22, 25, 28, 31, 34, 37, 40, 43, 46, 49, 52,
+    55 or 56) without the closing JSON lines; refs: their CPU references;
+    clock: the PhaseClock of the run; tools_dir: phase 51's and 54's
+    directory. From 40, phase 3's first HBD_FRAMES pictures and phase 38's
+    CIF stream (a) are encoded on the card first; from 46, phase 3's
+    first CONCEAL_1080P pictures; from 47, phase 56 encodes phase 44's
+    1080p field pair and phase 48's CIF stream itself."""
     if first <= 18:
         later_phases(frames, None, refs)
         clock.lap("18-21")
@@ -5406,8 +5749,13 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
         jobs = hbd_cpu_jobs(hbd_pool, payloads, y422_cif_a)
         hbd_phases(payloads, y422_cif_a, jobs, np.random.default_rng(40))
         clock.lap("40-42")
+    field_payloads = conceal_cif = None
+    gap_jobs = {}
     if first <= 43:
-        field_phases(frames, refs, np.random.default_rng(43))
+        field_payloads = field_phases(frames, refs,
+                                      np.random.default_rng(43))[2]
+        gap_jobs.update(gap_early_jobs(hbd_pool,
+                                       field_payloads=field_payloads))
         clock.lap("43-45")
     if first <= 46:
         payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(
@@ -5415,8 +5763,9 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
         conceal_job = conceal_cpu_job(hbd_pool, payloads)
         sp_phases(frames, refs, np.random.default_rng(46))
         clock.lap("46-47")
-        conceal_phase(payloads, cif(frames, CONCEAL_CIF_FRAMES), refs,
-                      conceal_job)
+        conceal_cif = conceal_phase(payloads, cif(frames, CONCEAL_CIF_FRAMES),
+                                    refs, conceal_job)[1]
+        gap_jobs.update(gap_early_jobs(hbd_pool, cif_payloads=conceal_cif))
         clock.lap("48")
     if first <= 49:
         mvc_phases(frames, refs, tools_dir)
@@ -5424,12 +5773,24 @@ def partial_run(frames, pool, hbd_pool, refs, first: int, clock,
     if first <= 52:
         parallel_phases(frames, refs, tools_dir)
         clock.lap("52-54")
-    payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(frames[:2])
-    refs.update(tools_cpu_jobs(pool, frames, payloads, tools_dir))
-    tools_phase(frames, payloads, refs, tools_dir)
-    clock.lap("55")
+    if first <= 55:
+        payloads = Encoder(rd_cfg(), device=DEVICE).encode_stream(frames[:2])
+        refs.update(tools_cpu_jobs(pool, frames, payloads, tools_dir))
+        tools_phase(frames, payloads, refs, tools_dir)
+        clock.lap("55")
+    if field_payloads is None:
+        field_payloads = Encoder(field_cfg(), device=DEVICE).encode_stream(
+            frames[:1])
+        gap_jobs.update(gap_early_jobs(hbd_pool,
+                                       field_payloads=field_payloads))
+    if conceal_cif is None:
+        conceal_cif = Encoder(conceal_cif_cfg(), device=DEVICE).encode_stream(
+            cif(frames, CONCEAL_CIF_FRAMES))
+        gap_jobs.update(gap_early_jobs(hbd_pool, cif_payloads=conceal_cif))
+    gap_phase(frames, field_payloads, conceal_cif, pool, gap_jobs)
+    clock.lap("56")
     clock.report()
-    print(f"phases {first}-55 passed (partial run: no closing lines)")
+    print(f"phases {first}-56 passed (partial run: no closing lines)")
     return 0
 
 
@@ -5682,7 +6043,8 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
     # ---- 43-45. PAFF field pictures: K1/K2 at the field shapes with field
     # bS, the 1080p field pair and a CIF field stream encoded and decoded
     # on the card, the field goldens ---------------------------------------
-    kfield, fields = field_phases(frames, cpu_refs, rng)
+    kfield, fields, field_payloads = field_phases(frames, cpu_refs, rng)
+    gap_jobs = gap_early_jobs(hbd_pool, field_payloads=field_payloads)
     for (w, h, name), s in kfield.items():
         kstats[name][f"field_{w}x{h}_ms"] = s["ms"]
         kstats[name][f"field_{w}x{h}_chain_ms"] = s["chain_ms"]
@@ -5703,8 +6065,10 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
 
     # ---- 48. concealment: phase 3's stream with a picture lost and a CIF
     # stream with lost and corrupt slices, decoded on the card ----------------
-    later.update(conceal_phase(payloads, cif(frames, CONCEAL_CIF_FRAMES),
-                               cpu_refs, conceal_job))
+    conceal, conceal_cif = conceal_phase(
+        payloads, cif(frames, CONCEAL_CIF_FRAMES), cpu_refs, conceal_job)
+    later.update(conceal)
+    gap_jobs.update(gap_early_jobs(hbd_pool, cif_payloads=conceal_cif))
     clock.lap("48")
 
     # ---- 49-51. MVC stereo: the 1080p anchor and non-anchor access
@@ -5725,6 +6089,13 @@ def full_run(frames, pool, hbd_pool, cpu_refs, smi: str, clock,
     # and the concealed decode -----------------------------------------
     later.update(tools_phase(frames, payloads, cpu_refs, tools_dir))
     clock.lap("55")
+
+    # ---- 56. the decoder's last gaps against jm_tpu: the 1080p field pair
+    # at 10 bits, CIF 4:2:2 fields at 8 and 10 bits, the lossy CIF streams
+    # at 10 bits and at 4:2:2 with concealment ----------------------------
+    later.update(gap_phase(frames, field_payloads, conceal_cif, pool,
+                           gap_jobs))
+    clock.lap("56")
     clock.report()
 
     rows = []

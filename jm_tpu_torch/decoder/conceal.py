@@ -10,19 +10,32 @@ mbuffer.c conceal_lost_frames:1837; erc_do_i.c, erc_do_p.c):
   ops/dec._mc_pred over every 4x4 block; blocks that are intra or whose
   reference left the DPB keep the copy). The frame stores a neutral
   motion field (no motion, no reference).
-- ``conceal_mbs``: the MBs of lost or corrupt slices of a decoded picture,
-  in jm_tpu's onion order (the MB with most available 4-neighbours
-  first; a concealed MB becomes available), after the deblock, on the
-  host copy of the deblocked planes. With a reference, each MB takes the
-  candidate MV (zero, then the quadrant MVs of its available inter
-  neighbours) whose 16x16 prediction best side-matches the available
-  neighbours' border pixels (``_conceal_inter_mb``; the MV is written
-  into the picture's motion); without one (the first IDR), the inverse-
-  distance weighted average of the neighbours' borders
+- ``conceal_mbs``: the MBs of lost or corrupt slices of a decoded picture
+  (frame or field), in jm_tpu's onion order (the MB with most available
+  4-neighbours first; a concealed MB becomes available), after the
+  deblock, on the host copy of the deblocked planes. With a reference,
+  each MB takes the candidate MV (zero, then the quadrant MVs of its
+  available inter neighbours) whose 16x16 prediction best side-matches
+  the available neighbours' border pixels (``_conceal_inter_mb``; the MV
+  is written into the picture's motion); without one (the first IDR),
+  the inverse-distance weighted average of the neighbours' borders
   (``_conceal_spatial_mb``).
 
-Scope: 4:2:0 frame pictures of 8 bits; the decoder raises
-NotImplementedError naming concealment outside it.
+Every format the decoder reads is covered (4:2:0 and 4:2:2, 8 to 14
+bits; host planes uint8 or uint16, device states uint8 or int16), with
+jm_tpu's behaviour copied where it departs from its own 8-bit 4:2:0
+reading of the samples, for byte parity:
+- the motion copy clips its predictions at 255 and casts the whole frame
+  to uint8 (the copied samples wrap mod 256), and writes the chroma of a
+  4:2:2 frame with 4:2:0 geometry (rows py / 2, the clamp at half the
+  height; jm_tpu conceal.py:77-89);
+- a concealed frame is a reference of 8 bits (its Frame's bit_depth
+  stays 8): the integer plane of its reference state wraps mod 256 and
+  its half samples clip at 255, while its output and a later frame copy
+  keep its samples (``Frame.planes``);
+- the spatial concealment clips at 255 and casts to uint8, and fills
+  8 x 8 chroma blocks at 4:2:2 too (jm_tpu conceal.py:124-126, :162);
+- the inter concealment casts its MC blocks to uint8 (:215, :228).
 """
 
 from __future__ import annotations
@@ -44,13 +57,30 @@ def closest_ref(frames: list[Frame], poc: int) -> Frame:
     return min(refs, key=lambda f: abs(f.poc - poc))
 
 
-def frame_planes(state, h: int, w: int):
-    """The (Y, U, V) device planes of a reference state (ops/enc.prep_ref:
-    the integer plane and the padded chroma) of an h x w 4:2:0 picture."""
-    planes, pad_u, pad_v = state
+def frame_planes(f: Frame, h: int, w: int):
+    """The (Y, U, V) device planes of reference frame f of an h x w
+    picture: a concealed frame's own samples, else those of its state
+    (ops/enc.prep_ref: the integer plane and the padded chroma, whose
+    height gives the chroma format's)."""
+    if f.planes is not None:
+        return f.planes
+    planes, pad_u, pad_v = f.state
+    ch = pad_u.shape[0] - 2 * PAD
     return (planes[0, PAD:PAD + h, PAD:PAD + w],
-            pad_u[PAD:PAD + h // 2, PAD:PAD + w // 2],
-            pad_v[PAD:PAD + h // 2, PAD:PAD + w // 2])
+            pad_u[PAD:PAD + ch, PAD:PAD + w // 2],
+            pad_v[PAD:PAD + ch, PAD:PAD + w // 2])
+
+
+def concealed_state(Y, U, V):
+    """The reference state of a concealed frame, which jm_tpu keeps at 8
+    bits whatever the stream's (its Frame's bit_depth is not set): the
+    half samples clipped at 255 and, above 8 bits, the integer plane
+    wrapped mod 256 (jm_tpu interp.make_luma_planes casts it to uint8);
+    the chroma padded as it is."""
+    state = prep_ref(Y, U, V)
+    if Y.dtype != torch.uint8:
+        state[0][0] &= 255
+    return state
 
 
 def conceal_lost_frame(dpb_frames: list[Frame], frame_num: int, poc: int,
@@ -61,15 +91,15 @@ def conceal_lost_frame(dpb_frames: list[Frame], frame_num: int, poc: int,
     if mode >= 2 and src.motion is not None:
         Y, U, V = _motion_copy(dpb_frames, src, h, w)
     else:
-        Y, U, V = (p.clone() for p in frame_planes(src.state, h, w))
+        Y, U, V = (p.clone() for p in frame_planes(src, h, w))
     motion = None
     if src.motion is not None:
         mv, ref_idx, mv_l1, ref_idx_l1, rp0, rp1 = src.motion
         motion = (np.zeros_like(mv), np.full_like(ref_idx, -1),
                   np.zeros_like(mv_l1), np.full_like(ref_idx_l1, -1),
                   np.full_like(rp0, -1), np.full_like(rp1, -1))
-    f = Frame(poc=poc, frame_num=frame_num, state=prep_ref(Y, U, V),
-              is_ref=True, motion=motion)
+    f = Frame(poc=poc, frame_num=frame_num, state=concealed_state(Y, U, V),
+              is_ref=True, motion=motion, planes=(Y, U, V))
     return f, (Y, U, V)
 
 
@@ -77,7 +107,11 @@ def _motion_copy(dpb_frames: list[Frame], src: Frame, h: int, w: int):
     """jm_tpu conceal.py _motion_copy (:54): src's list-0 motion replayed
     against its references by uid, as one batched MC over every 4x4
     block; blocks that are intra or whose reference is not in the DPB
-    keep src's pixels."""
+    keep src's pixels. As in jm_tpu, the predictions clip at 255 and the
+    planes wrap mod 256 (uint8), and at 4:2:2 the chroma is predicted
+    and written with 4:2:0 geometry, into the upper half of the planes
+    (from the padded planes' first h / 2 + 2 PAD rows, where jm_tpu's
+    clamp at h / 2 keeps its reads)."""
     mv, ref_idx, _mv1, _r1, ref_pic_id, _rp1 = src.motion
     dev = src.state[0].device
     mb_w, mb_h = w // 16, h // 16
@@ -87,13 +121,17 @@ def _motion_copy(dpb_frames: list[Frame], src: Frame, h: int, w: int):
         stack[ref_pic_id == f.uid] = k
     stack[ref_idx < 0] = -1
     up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
-    stacks = tuple(torch.stack([f.state[i] for f in refs]) for i in range(3))
+    hc = h // 2 + 2 * PAD
+    stacks = (torch.stack([f.state[0] for f in refs]),
+              torch.stack([f.state[1][:hc] for f in refs]),
+              torch.stack([f.state[2][:hc] for f in refs]))
     pred, cpred = D._mc_pred(up(mv), up(stack), *stacks, mb_w=mb_w,
                              mb_h=mb_h)
     n = mb_w * mb_h
     zl = torch.zeros((n, 16, 4, 4), dtype=torch.int32, device=dev)
     zc = torch.zeros((n, 2, 4, 4, 4), dtype=torch.int32, device=dev)
     every = torch.ones(n, dtype=torch.bool, device=dev)
+    # clipped at 255 (_recon at 8 bits)
     planes = D._recon(pred, cpred, zl, zc, every, mb_w=mb_w, mb_h=mb_h)
     # the 4x4 blocks predicted, as planes of 0 / 1
     blk = np.arange(16)
@@ -102,8 +140,12 @@ def _motion_copy(dpb_frames: list[Frame], src: Frame, h: int, w: int):
     mask = D._recon(valid[..., None, None].expand(n, 16, 4, 4),
                     valid[..., None, None, None].expand(n, 16, 2, 2, 2),
                     zl, zc, every, mb_w=mb_w, mb_h=mb_h)
-    return tuple(torch.where(m.bool(), p, s) for m, p, s in
-                 zip(mask, planes, frame_planes(src.state, h, w)))
+    out = []
+    for m, p, s in zip(mask, planes, frame_planes(src, h, w)):
+        top = torch.where(m.bool(), p.to(s.dtype), s[:p.shape[0]])
+        o = torch.cat([top, s[p.shape[0]:]])
+        out.append(o & 255 if o.dtype != torch.uint8 else o)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -187,8 +229,8 @@ def _conceal_inter_mb(Y, U, V, pic, ref, mbx, mby, mb_w, mb_h, avail):
     the MB, in that order without repeats; each one's 16x16 prediction
     scored by the mean absolute difference of its border rows / columns
     against the available neighbours' adjacent pixels; the first of
-    least score fills the MB (luma, 8x8 chroma) and its MV, reference 0
-    and the inter class go into pic."""
+    least score fills the MB (luma, and the 8 x 8 or, at 4:2:2, 8 x 16
+    chroma) and its MV, reference 0 and the inter class go into pic."""
     h_img, w_img = Y.shape
     px, py = mbx * 16, mby * 16
     addr = mby * mb_w + mbx
@@ -232,10 +274,12 @@ def _conceal_inter_mb(Y, U, V, pic, ref, mbx, mby, mb_w, mb_h, avail):
             best = (cost, (mvx, mvy), blk)
     _cost, (mvx, mvy), blk = best
     Y[py:py + 16, px:px + 16] = blk
-    cy, cx = mby * 8, mbx * 8
+    ch = U.shape[0] // mb_h                 # 8 at 4:2:0, 16 at 4:2:2
+    cy, cx = mby * ch, mbx * 8
+    yscale = 2 if ch == 16 else 1           # 4:2:2: the luma's vertical MV
     for plane, pad in zip((U, V), ref.chroma_pad):
-        plane[cy:cy + 8, cx:cx + 8] = mc_chroma_block(
-            pad, cx * 8 + mvx, cy * 8 + mvy, 8, 8, U.shape[1],
+        plane[cy:cy + ch, cx:cx + 8] = mc_chroma_block(
+            pad, cx * 8 + mvx, cy * 8 + mvy * yscale, 8, ch, U.shape[1],
             U.shape[0]).astype(np.uint8)
     pic.mv[addr] = (mvx, mvy)
     pic.ref_idx[addr] = 0

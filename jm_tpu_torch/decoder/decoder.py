@@ -12,8 +12,8 @@ in a DPB with the sliding window or MMCO marking, spatial and temporal
 direct prediction, explicit and implicit weighted prediction,
 non-reference pictures, POC types 0, 1 and 2, the SP slices of the
 Extended profile in CAVLC), and the field pictures of PAFF streams
-(CAVLC I and P fields at 4:2:0 and 8 bits, and frame pictures under an
-SPS that allows fields). Frames come out in decode
+(CAVLC I and P fields at 4:2:0 and 4:2:2, of 8 to 14 bits, and frame
+pictures under an SPS that allows fields). Frames come out in decode
 order, as jm_tpu's: callers sort them by POC; their planes are uint8 at
 8 bits and uint16 above, as jm_tpu's.
 
@@ -58,8 +58,9 @@ both entropy coders:
   - field picture (jm_tpu decoder.py:170-233, :777-853, which
     reconstructs fields on the host): a half-height picture through the
     same stages, with the field scan of its levels, the chroma offset of
-    its reference fields of the other parity (ops/dec inter_recon_p's
-    chroma_dy) and the field rules of compute_bs; its list0 comes from
+    its reference fields of the other parity at 4:2:0 (ops/dec
+    inter_recon_p's chroma_dy; none at 4:2:2, where the chroma has the
+    luma's rows) and the field rules of compute_bs; its list0 comes from
     the reference fields (dpb.field_ref_list_p: frame units by
     FrameNumWrap descending, the parities alternating from the current
     one), which ``_finish_field`` keeps under the sliding window of frame
@@ -84,7 +85,11 @@ reference state afterwards (so the next pictures predict from the
 concealed pixels); a picture none of whose slices survived, and each
 missing picture of a frame_num gap (POC interpolated), becomes a copy
 of the closest reference (mode 1) or its motion replayed (mode 2),
-stored with a neutral motion field and not deblocked again. Without
+stored with a neutral motion field and not deblocked again; in every
+format the decoder reads, with jm_tpu's 8-bit, 4:2:0 readings of
+4:2:2 and >8-bit samples copied (decoder/conceal.py). A field stream
+keeps its reference fields out of the DPB of frames, so a lost field
+is not concealed, as in jm_tpu. Without
 concealment a picture with uncoded MBs raises ValueError, as in jm_tpu.
 
 The decoder runs on CUDA unless the caller passes device="cpu" (then
@@ -535,7 +540,10 @@ class H264Decoder:
                 *stacks, up(inter), mb_w=pic.mb_w, mb_h=pic.mb_h, wp=wp,
                 bd=bd)
         chroma_dy = None
-        if parity is not None:
+        if parity is not None and pic.n_crows == 2:
+            # at 4:2:0 only: a 4:2:2 field's chroma has the luma's rows,
+            # and its vertical vector is the luma's (spec 8.4.1.4; jm_tpu
+            # recon.py:603-612)
             chroma_dy = up(np.array([(-2 if parity == 0 else 2)
                                      if f.parity not in (None, parity)
                                      else 0 for f in refs], np.int32))
@@ -632,7 +640,7 @@ class H264Decoder:
             # the whole frame is concealed (jm_tpu decoder.py:608-615)
             if self.dpb.frames:
                 self._store_concealed(cur["hdr0"].frame_num, cur["poc"],
-                                      sps, cur["parity"])
+                                      sps)
             return
         # the first slice that was decoded, as in jm_tpu
         hdr0 = cur["headers"][0]
@@ -642,7 +650,6 @@ class H264Decoder:
         if lost.any():
             if not self.conceal_mode:
                 raise ValueError("slice data missing for some macroblocks")
-            _conceal_scope(sps, cur["parity"])
             _neutral(pic, lost)
         if cur["parity"] is not None and \
                 hdr0.adaptive_ref_pic_marking_mode_flag:
@@ -666,7 +673,8 @@ class H264Decoder:
             self.concealed_count += conceal_mbs(
                 Y, U, V, pic, lost, None if ref is None else
                 HostRef(ref.state), pic.mb_w, pic.mb_h)
-            state = prep_ref(*(self._upload(p) for p in (Y, U, V)))
+            state = prep_ref(*(self._upload(p) for p in (Y, U, V)),
+                             sps.bit_depth_luma)
             rec["conceal_s"] = time.perf_counter() - t
             self.conceal_s += rec["conceal_s"]
         if hdr0.redundant_pic_cnt == 0:
@@ -738,14 +746,13 @@ class H264Decoder:
         for k in range(1, gap + 1):
             self._store_concealed((prev + k) % max_fn,
                                   int(round(self._prev_poc + step * k)),
-                                  sps, None)
+                                  sps)
 
-    def _store_concealed(self, frame_num: int, poc: int, sps,
-                         parity) -> None:
+    def _store_concealed(self, frame_num: int, poc: int, sps) -> None:
         """A frame that never arrived: concealed from the DPB, stored as
         a reference and output (uncropped, as jm_tpu's _store_concealed
-        outputs it)."""
-        _conceal_scope(sps, parity)
+        outputs it). A field stream's DPB of frames stays empty, so no
+        field is concealed this way, as in jm_tpu."""
         t = time.perf_counter()
         f, planes = conceal_lost_frame(
             self.dpb.frames, frame_num, poc, self.conceal_mode,
@@ -754,8 +761,7 @@ class H264Decoder:
         self.concealed_count += 1
         self._prev_ref_frame_num = frame_num
         self._prev_poc = poc
-        self._outputs.append(DecodedFrame(poc, *(p.cpu().numpy()
-                                                 for p in planes)))
+        self._outputs.append(DecodedFrame(poc, *(_host(p) for p in planes)))
         self.conceal_s += time.perf_counter() - t
 
     # ---- PAFF field pictures (jm_tpu decoder.py:777-853) ---------------
@@ -792,13 +798,10 @@ class H264Decoder:
             view_id=cur["view"]))
 
 
-def _conceal_scope(sps, parity) -> None:
-    """Concealment covers 4:2:0 frame pictures of 8 bits."""
-    if parity is not None or sps.chroma_format_idc != 1 \
-            or sps.bit_depth_luma_minus8 or sps.bit_depth_chroma_minus8:
-        raise NotImplementedError(
-            "out of scope: concealment of field pictures, 4:2:2 or above "
-            "8 bits")
+def _host(p: torch.Tensor) -> np.ndarray:
+    """A device plane on the host: uint8, or uint16 for int16 planes."""
+    a = p.cpu().numpy()
+    return a.view(np.uint16) if a.dtype == np.int16 else a
 
 
 def _neutral(pic, lost) -> None:

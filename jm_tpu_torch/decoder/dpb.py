@@ -33,6 +33,9 @@ class Frame:
     uid: int = -1            # unique decode-order id (deblock bS compare)
     motion: tuple | None = None
     parity: int | None = None    # a reference field's (0 top, 1 bottom)
+    # a concealed frame's (Y, U, V) device samples: above 8 bits its
+    # state is not made of them (decoder/conceal.concealed_state)
+    planes: tuple | None = None
 
 
 class DPB:

@@ -59,10 +59,10 @@ def check_field(h: SliceHeader, sps: SPS, pps: PPS) -> None:
     """Raise NotImplementedError naming what this slice's picture
     structure needs and the decoder does not cover: MBAFF frames (an SPS
     with mb_adaptive_frame_field_flag, as in jm_tpu), and of field
-    pictures CABAC and B slices (as in jm_tpu), 4:2:2 and bit depths above
-    8 (no stream to hold them against), and the 8x8 transform, whose
-    field scan jm_tpu does not apply (jm_tpu/decoder/recon.py:231
-    inverse-scans 8x8 blocks with the frame zig-zag; spec 8.5.7)."""
+    pictures CABAC and B slices (as in jm_tpu) and the 8x8 transform,
+    whose field scan jm_tpu does not apply (jm_tpu/decoder/recon.py:231
+    inverse-scans 8x8 blocks with the frame zig-zag; spec 8.5.7). Field
+    pictures at 4:2:2 and at 9 to 14 bits are decoded."""
     if sps.mb_adaptive_frame_field_flag and not h.field_pic_flag:
         raise NotImplementedError("out of scope: MBAFF frames "
                                   "(mb_adaptive_frame_field_flag)")
@@ -73,10 +73,6 @@ def check_field(h: SliceHeader, sps: SPS, pps: PPS) -> None:
         out.append("CABAC field pictures")
     if h.slice_type == SliceType.B:
         out.append("B field pictures")
-    if sps.chroma_format_idc != 1:
-        out.append("field pictures at 4:2:2")
-    if sps.bit_depth_luma_minus8 or sps.bit_depth_chroma_minus8:
-        out.append("field pictures above 8 bits")
     if pps.transform_8x8_mode_flag:
         out.append("field pictures with the 8x8 transform (8x8 field "
                    "scan)")

@@ -15,11 +15,17 @@ exactly (the codec is integer-exact: the tolerance is zero):
   that predict from reference fields of the other parity against
   jm_tpu's host Reconstructor; the cropping of a frame whose SPS allows
   fields (CropUnitY times 2);
+- field pictures above 8 bits (the port encoder's field stream under a
+  High 10 SPS, at 14 bits, at 9 bits with the slice QPs moved, lossless
+  at 10 bits) and at 4:2:2 (the port's 4:2:2 host coders' pictures
+  re-framed as fields, torch_streams.reframed_fields; 8 and 10 bits),
+  each decoded equal to jm_tpu's, field by field in the parse; a 4:2:2
+  P field predicting from the other parity, whose chroma takes no
+  offset (with the 4:2:0 one forced, it would differ);
 - what stays out of scope raises NotImplementedError naming it, on
   streams made from the port encoder's own field stream: CABAC and B
   field pictures, field list modification and field MMCO (as jm_tpu
-  does), field pictures at 4:2:2, above 8 bits and with the 8x8
-  transform;
+  does) and field pictures with the 8x8 transform;
 - the CIF golden cif_field (60 field pictures) decodes to the sha256 of
   ldecod's output that tests/test_cif_conformance.py records."""
 
@@ -35,24 +41,23 @@ from jm_tpu.decoder import decoder as jm_decoder
 from jm_tpu.decoder import recon as jm_recon
 from jm_tpu.decoder.recon import decode_residuals as jm_decode_residuals
 from jm_tpu.ops.deblock import compute_bs as jm_compute_bs
-from jm_tpu_torch.bitstream.bitwriter import BitWriter
 from jm_tpu_torch.bitstream.nal import (NalUnitType, annexb_bytes,
                                         split_annexb)
 from jm_tpu_torch.common.types import SPS, SliceType
 from jm_tpu_torch.convert import picture_from_numpy, qpc_tables
 from jm_tpu_torch.decoder import decoder as port_decoder
 from jm_tpu_torch.decoder.decoder import H264Decoder, _crop_output
-from jm_tpu_torch.decoder.header import parse_slice_header
 from jm_tpu_torch.decoder.parset import parse_pps, parse_sps
 from jm_tpu_torch.decoder.recon import build_inv_scale, decode_residuals
-from jm_tpu_torch.encoder.encoder import Encoder, EncoderConfig
-from jm_tpu_torch.encoder.syntax import (write_pps, write_slice_header,
+from jm_tpu_torch.encoder.syntax import (write_pps,
                                          write_sps)
 from jm_tpu_torch.ops import dec
 from jm_tpu_torch.ops.deblock import compute_bs
 
 from test_deblock_jax import random_pic
-from torch_streams import motion_clip, one_torch_thread, reheaded  # noqa: F401
+from torch_streams import field_stream as make_field_stream
+from torch_streams import one_torch_thread  # noqa: F401
+from torch_streams import host_fields, reheaded, rewritten_slice
 
 GOLDEN = Path(__file__).parent / "golden"
 GOLDENS = {"field1": 6, "field2": 12, "fieldcab": 6}
@@ -288,17 +293,107 @@ def test_cif_field_matches_the_recorded_sha256(one_torch_thread):
                                "d9da58bbb8332462fa10")
 
 
-# ---- what stays out of scope ----------------------------------------------
+# ---- field pictures at 4:2:2 and at 9-14 bits ------------------------------
 
 @pytest.fixture(scope="module")
 def field_stream():
     """The port encoder's field stream of 2 frames at 32x32 (an IDR top
     field, then P fields)."""
-    frames = motion_clip(2, 32, 32)
-    enc = Encoder(EncoderConfig(width=32, height=32, qp=30,
-                                pic_interlace=1), device="cpu")
-    return b"".join(enc.encode_frame(*f) for f in frames)
+    return make_field_stream(2, 32, 32)
 
+
+@pytest.fixture(scope="module")
+def y422_stream():
+    """A 4:2:2 field stream of 2 frames at 32x32: 4 pictures of the port's
+    4:2:2 host coders re-framed as fields (torch_streams.host_fields)."""
+    return host_fields(4, 32, 32)
+
+
+def _lossless10(_fs):
+    """A 10-bit field stream whose MBs are all lossless: the port's field
+    coder at QP 0 under a profile-244 SPS with the bypass flag, every
+    slice QP moved to -12 (QP'Y 0)."""
+    return reheaded(make_field_stream(2, 32, 32, qp=0), 244, 10, bypass=1,
+                    init_qp_shift=-12)
+
+
+FIELD_STREAMS = {
+    # name: (the stream from field_stream / y422_stream, bit depth)
+    "bits14": (lambda fs, ys: reheaded(fs, 244, 14), 14),
+    "bits9_qp_shift": (lambda fs, ys: reheaded(fs, 110, 9,
+                                               init_qp_shift=-20), 9),
+    "lossless10": (lambda fs, ys: _lossless10(fs), 10),
+    "y422_10bit": (lambda fs, ys: reheaded(ys, 122, 10), 10),
+}
+
+
+def _decode_like_jm(data):
+    """The port's and jm_tpu's decode of data, held equal (POC, Y, U, V);
+    returns the port's capture and frames."""
+    port, jm = PortCapture(), JmCapture()
+    frames = port.decode_annexb(data)
+    frames_equal(frames, jm.decode_annexb(data))
+    assert len(frames) == 2 and all(p.field_mode for p in port.pics)
+    return port, frames
+
+
+@pytest.mark.parametrize("name", list(FIELD_STREAMS))
+def test_field_streams_decode_like_jm(name, field_stream, y422_stream,
+                                      one_torch_thread):
+    """Field pictures above 8 bits (High 10 and High 4:4:4 Predictive at
+    4:2:0, lossless MBs included) and at 4:2:2 10 bits, each field's
+    parse field by field and its frames equal to jm_tpu's."""
+    make, bd = FIELD_STREAMS[name]
+    port, frames = _decode_like_jm(make(field_stream, y422_stream))
+    jm = JmCapture()
+    jm.decode_annexb(make(field_stream, y422_stream))
+    for i, (p, j) in enumerate(zip(port.pics, jm.pics)):
+        for k in PIC_FIELDS[:-1]:
+            assert np.array_equal(getattr(p, k), getattr(j, k)), (i, k)
+    assert frames[0].Y.dtype == np.uint16
+    assert int(max(f.Y.max() for f in frames)) >= 1 << (bd - 1)
+    if name == "lossless10":
+        assert all((p.qp == -12).all() for p in port.pics)
+    if name.startswith("y422"):
+        assert frames[0].U.shape == (32, 16)
+        assert [p.mb_h for p in port.pics] == [1] * 4
+
+
+def test_422_field_has_no_opposite_parity_chroma_offset(y422_stream,
+                                                        monkeypatch):
+    """The bottom field of frame 0 predicts from the top field, of the
+    other parity: at 4:2:2 its chroma vectors take no offset (spec
+    8.4.1.4; jm_tpu/decoder/recon.py:603-612 applies -2 / +2 at 4:2:0
+    only). Its device inter recon equals jm_tpu's host Reconstructor on
+    every inter MB (16 x 16 luma, 8 x 16 chroma); with the 4:2:0 offset
+    forced, the chroma would differ."""
+    port, jm = PortCapture(), JmCapture()
+    port.decode_annexb(y422_stream)
+    jm.decode_annexb(y422_stream)
+    pic = port.pics[1]
+    inter = pic.mb_class == 0
+    assert inter.any() and pic.field_mode and pic.n_crows == 4
+    for plane, got, want in zip("YUV", port.inter[1], jm.recon[1]):
+        assert got.shape == want.shape == (16, 32 if plane == "Y" else 16)
+        w = 16 if plane == "Y" else 8
+        for x in np.flatnonzero(inter):
+            assert np.array_equal(got[:, x * w:(x + 1) * w],
+                                  want[:, x * w:(x + 1) * w]), (plane, x)
+    # the same recon with the opposite-parity offset of a 4:2:0 bottom field
+    real = dec.inter_recon_p
+
+    def offset(*a, chroma_dy=None, **kw):
+        return real(*a, chroma_dy=torch.full((a[4].shape[0],), 2), **kw)
+
+    forced = PortCapture()
+    monkeypatch.setattr(port_decoder.D, "inter_recon_p", offset)
+    forced.decode_annexb(y422_stream)
+    assert np.array_equal(forced.inter[1][0], port.inter[1][0])
+    assert not all(np.array_equal(a, b) for a, b in
+                   zip(forced.inter[1][1:], port.inter[1][1:]))
+
+
+# ---- what stays out of scope ----------------------------------------------
 
 def _rewrite(data, *, sps=None, pps=None, slice_at=None, **header):
     """The stream with its SPS / PPS changed by sps(SPS) / pps(PPS), and
@@ -322,24 +417,7 @@ def _rewrite(data, *, sps=None, pps=None, slice_at=None, **header):
                 rbsp = write_pps(p)
         elif t in (NalUnitType.SLICE, NalUnitType.IDR):
             if k == slice_at:
-                h, br = parse_slice_header(nal, sps_map, pps_map)
-                p = pps_map[h.pic_parameter_set_id]
-                kw = dict(slice_type=h.slice_type, frame_num=h.frame_num,
-                          idr=h.is_idr, idr_pic_id=h.idr_pic_id,
-                          qp=h.qp(p), poc_lsb=h.pic_order_cnt_lsb,
-                          num_ref_idx_l0=h.num_ref_idx_l0_active_minus1 + 1,
-                          field_pic=h.field_pic_flag,
-                          bottom_field=h.bottom_field_flag)
-                kw.update(header)
-                bw = BitWriter()
-                write_slice_header(bw, sps_map[p.seq_parameter_set_id], p,
-                                   **kw)
-                bits = np.unpackbits(np.frombuffer(rbsp, np.uint8))
-                stop = len(bits) - 1 - int(np.argmax(bits[::-1]))
-                rest = bits[br.pos:stop]
-                bw.append_bitstream(np.packbits(rest).tobytes(), len(rest))
-                bw.rbsp_trailing_bits()
-                rbsp = bw.get_bytes()
+                rbsp = rewritten_slice(nal, sps_map, pps_map, **header)
             k += 1
         out.append(annexb_bytes(nal.nal_ref_idc, t, rbsp))
     return b"".join(out)
@@ -353,10 +431,6 @@ def test_rewrite_keeps_the_stream(field_stream):
                  H264Decoder(device="cpu").decode_annexb(field_stream))
 
 
-def _chroma_422(s):
-    s.profile_idc, s.chroma_format_idc = 122, 2
-
-
 def _t8(p):
     p.transform_8x8_mode_flag = 1
 
@@ -368,18 +442,26 @@ REFUSALS = {
     "list_modification": (dict(slice_at=2, ref_mod_l0=((0, 0),)),
                           "field ref_pic_list_modification"),
     "mmco": (dict(slice_at=1, mmco_ops=((1, 0),)), "field MMCO"),
-    "yuv422": (dict(sps=_chroma_422), "field pictures at 4:2:2"),
     "transform8x8": (dict(pps=_t8), "field pictures with the 8x8 transform"),
 }
 
 
-@pytest.mark.parametrize("case", list(REFUSALS) + ["high10"])
-def test_field_refusals(case, field_stream):
+@pytest.mark.parametrize("case", list(REFUSALS) + ["high10", "yuv422"])
+def test_field_refusals(case, field_stream, y422_stream, one_torch_thread):
+    """What jm_tpu does not decode in a field picture raises
+    NotImplementedError naming it. Field pictures above 8 bits and at
+    4:2:2, refused until the port covered them, decode to jm_tpu's frames
+    (cases high10: the field stream under a High 10 SPS; yuv422: a 4:2:2
+    stream re-framed as fields, since the 4:2:0 data under a 4:2:2 SPS
+    makes jm_tpu raise IndexError too)."""
     if case == "high10":
-        data, match = reheaded(field_stream, 110, 10), \
-            "field pictures above 8 bits"
-    else:
-        kw, match = REFUSALS[case]
-        data = _rewrite(field_stream, **kw)
+        _, frames = _decode_like_jm(reheaded(field_stream, 110, 10))
+        assert frames[0].Y.dtype == np.uint16
+        return
+    if case == "yuv422":
+        _, frames = _decode_like_jm(y422_stream)
+        assert frames[0].U.shape == (32, 16)
+        return
+    kw, match = REFUSALS[case]
     with pytest.raises(NotImplementedError, match=match):
-        H264Decoder(device="cpu").decode_annexb(data)
+        H264Decoder(device="cpu").decode_annexb(_rewrite(field_stream, **kw))

@@ -10,9 +10,11 @@ exactly (the codec is integer-exact: the tolerance is zero):
   (torch_streams.reheaded): High 10 at 96x80 (CAVLC and CABAC), 10-bit
   4:2:2 (profile 122), and 14 bits with every slice QP moved below 0
   (CAVLC: under CABAC the slice QP also sets the contexts; with
-  basic-unit rate control, so that mb_qp_delta moves the QP),
+  basic-unit rate control, so that mb_qp_delta moves the QP), and the
+  port's field stream at 10 bits with every slice QP below 0 (field
+  pictures take the native parser and QpBdOffsetY as frames do),
   decoded equal in both packages; the native CAVLC parser at 10 and 14
-  bits against the Python parser;
+  bits, on frames and on fields, against the Python parser;
 - decoder/recon.decode_residuals and ops/dec.p_dec_residuals against
   jm_tpu's decode_residuals(bd=, lossless=) on seeded levels at bit
   depths 8, 10 and 14 with QPs from -QpBdOffsetY to 51;
@@ -183,15 +185,17 @@ def test_hi10_recon_from_jm_parse(name, hi10_runs, one_torch_thread):
 
 # ---- streams of the port's encoder under a re-headed SPS -----------------
 
-def _port_stream(n=4, **kw):
-    frames = make_frames(96, 80, n, seed=15)
+def _port_stream(n=4, size=(96, 80), **kw):
+    w, h = size
+    frames = make_frames(w, h, n, seed=15)
     if kw.get("chroma_format") == 2:
         # 4:2:2 chroma: the even and odd columns of each luma row
         frames = [(Y, Y[:, ::2].copy(), Y[:, 1::2].copy())
                   for Y, _, _ in frames]
-    enc = Encoder(EncoderConfig(width=96, height=80, qp=28, **kw),
+    enc = Encoder(EncoderConfig(width=w, height=h, qp=28, **kw),
                   device="cpu")
-    if kw.get("pipeline") == "host" or kw.get("chroma_format") == 2:
+    if kw.get("pipeline") == "host" or kw.get("chroma_format") == 2 \
+            or kw.get("pic_interlace"):
         payloads = [enc.encode_frame(*f) for f in frames]
         payloads[-1] += enc.flush()
     else:
@@ -211,6 +215,10 @@ STREAMS = {
                                 rc_bitrate=40000.0, rc_basic_unit=3),
                            (244, 14, -40)),
     "yuv422_10bit": (dict(chroma_format=2), (122, 10, 0)),
+    # field pictures (the port's field coder, 96x64: fields of 2 MB rows)
+    # at QP 28 - 36 = -8
+    "field10_negative_qp": (dict(pic_interlace=1, size=(96, 64)),
+                            (110, 10, -36)),
 }
 
 
@@ -243,16 +251,24 @@ def test_reheaded_stream_decodes_like_jm(name, stream_runs,
     assert int(frames[0].Y.max()) >= 1 << (bd - 2)
     qps = np.concatenate([p.qp for p in port.pics])
     if STREAMS[name][1][2]:
-        # every QP below 0, several per picture (basic units)
-        assert qps.max() < 0 and len(np.unique(qps)) > 2
-    if name.endswith("cavlc") or name == "bits14_negative_qp":
-        assert routes["parse"]["native"] == len(frames)
+        # every QP below 0
+        assert qps.max() < 0
+    if name == "bits14_negative_qp":
+        assert len(np.unique(qps)) > 2      # several per picture (basic units)
+    if name.endswith(("cavlc", "negative_qp")):
+        # every slice on the native parser, the fields' too (the field
+        # scan is the residual decode's)
+        assert routes["parse"]["native"] == len(port.pics)
+    if name.startswith("field"):
+        assert len(port.pics) == 2 * len(frames)
+        assert all(p.field_mode for p in port.pics)
     if name == "yuv422_10bit":
         assert frames[0].U.shape == (80, 48)
         assert routes["yuv422"]["parse"] == len(frames)
 
 
-@pytest.mark.parametrize("name", ["high10_cavlc", "bits14_negative_qp"])
+@pytest.mark.parametrize("name", ["high10_cavlc", "bits14_negative_qp",
+                                  "field10_negative_qp"])
 def test_native_parser_matches_python_above_8_bits(name, stream_runs,
                                                    monkeypatch):
     """The native CAVLC parser (its QP wrap over [-QpBdOffsetY, 51])

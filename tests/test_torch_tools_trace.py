@@ -6,7 +6,9 @@ device="cpu") against jm_tpu's on the CPU:
   port's reading helpers that jm_tpu reads inline), the full VUI / HRD
   stream with its SEI, and the goldens cif_dp.264 (data partitions),
   cavlc_b.264 (B slices: the port's B motion helpers), y422c.264 (4:2:2)
-  and hi10c.264 (High 10);
+  and hi10c.264 (High 10), and field pictures above 8 bits and at 4:2:2
+  (the port's field stream under a High 10 SPS; its 4:2:2 host coders'
+  pictures re-framed as fields, 10 bits);
 - on the CABAC goldens, whose slices neither package traces (both CABAC
   engines take only their native reader): the element lines are equal
   and the parse stops at the same NALUs (the text after "stopped:"
@@ -29,7 +31,13 @@ from jm_tpu_torch.decoder import header, mb_parse, parset, sei
 from jm_tpu_torch.decoder.decoder import H264Decoder
 from jm_tpu_torch.tools import trace
 
+from torch_streams import field_stream, host_fields, reheaded
 from torch_tools_streams import CASES, GOLDEN, case_stream, hrd_stream
+
+# field streams of 2 frames at 64x64 (fields of 4 x 2 MBs)
+FIELDS = {"field_high10": lambda: reheaded(field_stream(2, 64, 64), 110, 10),
+          "field_y422_10bit": lambda: reheaded(host_fields(4, 64, 64), 122,
+                                               10)}
 
 STOPPED = re.compile(r"^(!! parse stopped: )\w+: .*$", re.M)
 
@@ -42,6 +50,8 @@ def streams():
         if name not in cache:
             if name == "hrd":
                 cache[name] = hrd_stream()
+            elif name in FIELDS:
+                cache[name] = FIELDS[name]()
             elif name in CASES:
                 cache[name] = case_stream(name)
             else:
@@ -52,7 +62,8 @@ def streams():
 
 
 @pytest.mark.parametrize("name", list(CASES) + ["hrd", "cif_dp", "cavlc_b",
-                                                "y422c", "hi10c"])
+                                                "y422c", "hi10c"]
+                         + list(FIELDS))
 def test_trace_matches_jm_line_for_line(name, streams, monkeypatch):
     data = streams(name)
     got = trace.trace_stream(data, device="cpu")

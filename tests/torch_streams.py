@@ -266,3 +266,103 @@ def reheaded(data: bytes, profile: int, bit_depth: int = 8,
             rbsp = write_pps(pps)
         out.append(annexb_bytes(nal.nal_ref_idc, nal.nal_unit_type, rbsp))
     return b"".join(out)
+
+
+def rewritten_slice(nal, sps_map: dict, pps_map: dict, sps=None,
+                    **header) -> bytes:
+    """The RBSP of slice NAL unit ``nal`` with its header written again by
+    the port's write_slice_header with the keywords ``header`` changed,
+    under ``sps`` if given (else the one it was parsed with), its slice
+    data kept bit for bit; sps_map / pps_map: the parameter sets that the
+    old header is parsed with."""
+    from jm_tpu_torch.bitstream.bitwriter import BitWriter
+    from jm_tpu_torch.decoder.header import parse_slice_header
+    from jm_tpu_torch.encoder.syntax import write_slice_header
+    h, br = parse_slice_header(nal, sps_map, pps_map)
+    p = pps_map[h.pic_parameter_set_id]
+    kw = dict(slice_type=h.slice_type, frame_num=h.frame_num,
+              idr=h.is_idr, idr_pic_id=h.idr_pic_id, qp=h.qp(p),
+              first_mb=h.first_mb_in_slice, poc_lsb=h.pic_order_cnt_lsb,
+              num_ref_idx_l0=h.num_ref_idx_l0_active_minus1 + 1,
+              field_pic=h.field_pic_flag, bottom_field=h.bottom_field_flag)
+    kw.update(header)
+    bw = BitWriter()
+    write_slice_header(bw, sps or sps_map[p.seq_parameter_set_id], p, **kw)
+    bits = np.unpackbits(np.frombuffer(nal.rbsp, np.uint8))
+    stop = len(bits) - 1 - int(np.argmax(bits[::-1]))
+    rest = bits[br.pos:stop]
+    bw.append_bitstream(np.packbits(rest).tobytes(), len(rest))
+    bw.rbsp_trailing_bits()
+    return bw.get_bytes()
+
+
+def reframed_fields(data: bytes) -> bytes:
+    """A PAFF stream made of a stream of frame pictures: its SPS written
+    again with frame_mbs_only_flag 0, mb_adaptive_frame_field_flag 0 and
+    direct_8x8_inference_flag 1 (pic_height_in_map_units_minus1 kept, so
+    that each W x H/2 picture becomes one field of a W x H frame), and
+    the slice headers of its k-th picture written again as a field's (top
+    for even k, bottom for odd), frame_num k // 2, pic_order_cnt_lsb k,
+    one active reference; the slice data kept bit for bit. The port's
+    field coder is 4:2:0 only, as jm_tpu's: 4:2:2 field streams are made
+    so from its 4:2:2 frame coders (an IDR, then P pictures: the bottom
+    field of frame 0 predicts from its top field, of the other parity)."""
+    from jm_tpu_torch.bitstream.nal import (NalUnitType, annexb_bytes,
+                                            split_annexb)
+    from jm_tpu_torch.decoder.header import parse_slice_header
+    from jm_tpu_torch.decoder.parset import parse_pps, parse_sps
+    from jm_tpu_torch.encoder.syntax import write_sps
+    out, sps_map, pps_map, fields = [], {}, {}, {}
+    k, last = -1, None
+    for nal in split_annexb(data):
+        rbsp = nal.rbsp
+        t = nal.nal_unit_type
+        if t == NalUnitType.SPS:
+            s = parse_sps(rbsp)
+            sps_map[s.seq_parameter_set_id] = s
+            f = parse_sps(rbsp)
+            f.frame_mbs_only_flag = 0
+            f.mb_adaptive_frame_field_flag = 0
+            f.direct_8x8_inference_flag = 1
+            fields[f.seq_parameter_set_id] = f
+            rbsp = write_sps(f)
+        elif t == NalUnitType.PPS:
+            p = parse_pps(rbsp, sps_map)
+            pps_map[p.pic_parameter_set_id] = p
+        elif t in (NalUnitType.SLICE, NalUnitType.IDR):
+            h, _ = parse_slice_header(nal, sps_map, pps_map)
+            key = (h.frame_num, h.pic_order_cnt_lsb, h.is_idr)
+            if key != last:
+                k, last = k + 1, key
+            p = pps_map[h.pic_parameter_set_id]
+            rbsp = rewritten_slice(
+                nal, sps_map, pps_map, sps=fields[p.seq_parameter_set_id],
+                field_pic=1, bottom_field=k % 2, frame_num=k // 2,
+                poc_lsb=k, num_ref_idx_l0=1)
+        out.append(annexb_bytes(nal.nal_ref_idc, t, rbsp))
+    return b"".join(out)
+
+
+def field_stream(n: int = 2, w: int = 32, h: int = 32, qp: int = QP) -> bytes:
+    """The port encoder's PAFF stream of n frames of motion_clip at w x h
+    (pic_interlace 1: an IDR top field, then P fields; 4:2:0, 8 bits, as
+    its field coder and jm_tpu's are)."""
+    enc = Encoder(EncoderConfig(width=w, height=h, qp=qp, pic_interlace=1),
+                  device="cpu")
+    return b"".join(enc.encode_frame(*f) for f in motion_clip(n, w, h))
+
+
+def host_fields(n: int = 4, w: int = 32, h: int = 32, qp: int = QP,
+                chroma_format: int = 2, **kw) -> bytes:
+    """A PAFF stream of n / 2 frames of w x h: n pictures of motion_clip
+    at w x h / 2 (their chroma rows doubled at 4:2:2) coded by the port's
+    host coders (an IDR, then P pictures; EncoderConfig keywords kw, e.g.
+    slices) and re-framed as fields (reframed_fields)."""
+    frames = motion_clip(n, w, h // 2)
+    if chroma_format == 2:
+        frames = [(Y, np.repeat(U, 2, axis=0), np.repeat(V, 2, axis=0))
+                  for Y, U, V in frames]
+    enc = Encoder(EncoderConfig(width=w, height=h // 2, qp=qp,
+                                chroma_format=chroma_format,
+                                pipeline="host", **kw), device="cpu")
+    return reframed_fields(b"".join(enc.encode_frame(*f) for f in frames))
